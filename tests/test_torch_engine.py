@@ -1,0 +1,173 @@
+"""The slice end to end: TPC-H Q1, Q6 and four more slice queries through
+``trino_tpu.runtime.LocalQueryRunner`` and ``trino_tpu_torch``'s, on the CPU,
+with the port under every ``pallas_aggregation`` mode. Rows — decimals,
+dates, dictionary strings, counts and their order — must be identical.
+
+A second group feeds identical pages (carried across with
+``page_from_numpy``) with NULL and boolean group keys to both engines'
+aggregation operator.
+"""
+
+import numpy as np
+import pytest
+
+from tests.tpch_corpus import TPCH_QUERIES
+from trino_tpu.runtime import LocalQueryRunner as RefRunner
+
+from trino_tpu_torch.ops import hopper_kernels as HK
+from trino_tpu_torch.runtime import LocalQueryRunner
+
+SCALE = 0.01
+
+QUERIES = {
+    "q01": TPCH_QUERIES["q01"],
+    "q06": TPCH_QUERIES["q06"],
+    # keyless aggregate over dictionary = and IN, decimal avg, min/max
+    "global_in": """
+        SELECT count(*), sum(l_quantity), min(l_discount), max(l_extendedprice),
+               avg(l_tax), count(l_comment)
+        FROM lineitem
+        WHERE l_returnflag = 'R' AND l_shipmode IN ('MAIL', 'SHIP')
+    """,
+    # two dictionary keys (G = 24), date min, count_if/bool_or, ordered DESC
+    "orders_groups": """
+        SELECT o_orderstatus, o_orderpriority, count(*), sum(o_totalprice),
+               min(o_orderdate), max(o_totalprice), avg(o_totalprice),
+               count_if(o_totalprice > 200000), bool_or(o_shippriority = 0)
+        FROM orders
+        WHERE o_orderdate < DATE '1995-06-01' AND o_totalprice > 1000
+        GROUP BY o_orderstatus, o_orderpriority
+        ORDER BY o_orderpriority DESC, o_orderstatus
+    """,
+    # projection arithmetic and casts under a stop-early LIMIT
+    "project_limit": """
+        SELECT l_orderkey, l_linenumber, l_quantity * 2 + 1,
+               CAST(l_extendedprice AS bigint), l_returnflag
+        FROM lineitem
+        WHERE l_discount >= 0.05 AND NOT (l_linestatus = 'O')
+        LIMIT 9
+    """,
+    # sort on an integer then a dictionary string
+    "sort_nation": """
+        SELECT n_name, n_regionkey FROM nation
+        WHERE n_regionkey IN (1, 3) OR n_name < 'C'
+        ORDER BY n_regionkey DESC, n_name
+    """,
+}
+
+
+@pytest.fixture(scope="module")
+def reference_rows():
+    ref = RefRunner.tpch(scale=SCALE)
+    return {q: ref.execute(sql).rows for q, sql in QUERIES.items()}
+
+
+@pytest.fixture(scope="module")
+def port_runner():
+    return LocalQueryRunner.tpch(scale=SCALE, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["auto", "off", "interpret"])
+@pytest.mark.parametrize("query", sorted(QUERIES))
+def test_query_matches_reference(query, mode, reference_rows, port_runner):
+    port_runner.session.set("pallas_aggregation", mode)
+    res = port_runner.execute(QUERIES[query])
+    assert res.rows == reference_rows[query]
+    assert len(res.rows) > 0
+    assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}  # CPU: plain versions only
+
+
+def test_q1_result_types_and_explain(port_runner):
+    ref = RefRunner.tpch(scale=SCALE)
+    want = ref.execute(QUERIES["q01"])
+    got = port_runner.execute(QUERIES["q01"])
+    assert got.column_names == want.column_names
+    assert [t.display() for t in got.column_types] == [
+        t.display() for t in want.column_types
+    ]
+    assert port_runner.explain(QUERIES["q01"]) == ref.explain(QUERIES["q01"])
+
+
+def test_unported_node_raises_naming_it(port_runner):
+    with pytest.raises(NotImplementedError, match="JoinNode"):
+        port_runner.execute(
+            "SELECT count(*) FROM orders, customer WHERE o_custkey = c_custkey"
+        )
+
+
+# --------------------------------------------------------------------------- #
+# identical pages through both engines' aggregation operator
+# --------------------------------------------------------------------------- #
+
+
+def _agg_pages(seed=5, n=40_000):
+    """A reference page and its port copy: a dictionary key with NULLs, a
+    boolean key with NULLs, a decimal and a bigint value column with NULLs,
+    and inactive rows."""
+    from trino_tpu.spi import types as rt
+    from trino_tpu.spi.page import Dictionary as RD
+    from trino_tpu.spi.page import Page as RP
+
+    from trino_tpu_torch.spi import types as pt
+    from trino_tpu_torch.spi.page import Dictionary, page_from_numpy
+
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray(["A", "N", "R"], dtype=object)
+    names = ["varchar", "boolean", "decimal(12,2)", "bigint"]
+    arrays = [
+        rng.integers(0, 3, n).astype(np.int32), rng.random(n) < 0.5,
+        rng.integers(-(10**8), 10**8, n), rng.integers(-(10**15), 10**15, n),
+    ]
+    valids = [rng.random(n) < 0.9 for _ in arrays]
+    ref = RP.from_arrays([rt.parse_type(t) for t in names], arrays, valids,
+                         [RD(vocab), None, None, None])
+    ref = ref.mask(np.asarray(ref.active) & (rng.random(n) < 0.85))
+    port = page_from_numpy(
+        [pt.parse_type(t) for t in names],
+        [np.asarray(c.data) for c in ref.columns],
+        [np.asarray(c.valid) for c in ref.columns],
+        np.asarray(ref.active), [Dictionary(vocab), None, None, None],
+        device="cpu",
+    )
+    return ref, port
+
+
+def _agg_node(plan, types, keys):
+    dec, big = types.parse_type("decimal(18,2)"), types.parse_type("bigint")
+    A = plan.Aggregation
+    aggs = (
+        ("s", A("sum", ("d",), output_type=dec)),
+        ("t", A("sum", ("b",), output_type=big)),
+        ("c", A("count", (), output_type=big)),
+        ("cv", A("count", ("d",), output_type=big)),
+        ("av", A("avg", ("d",), output_type=types.parse_type("decimal(12,2)"))),
+        ("mn", A("min", ("b",), output_type=big)),
+        ("mx", A("max", ("d",), output_type=types.parse_type("decimal(12,2)"))),
+    )
+    return plan.AggregationNode(source=None, group_keys=keys, aggregations=aggs)
+
+
+@pytest.mark.parametrize("keys", [("k",), ("k", "f"), ()])
+@pytest.mark.parametrize("mode", ["kernel", "interpret", "off"])
+def test_aggregation_on_identical_pages(keys, mode):
+    from trino_tpu.planner import plan as rplan
+    from trino_tpu.runtime import executor as rex
+    from trino_tpu.spi import types as rt
+
+    from trino_tpu_torch.planner import plan as pplan
+    from trino_tpu_torch.runtime import executor as pex
+    from trino_tpu_torch.spi import types as pt
+
+    ref_page, port_page = _agg_pages()
+    symbols = ("k", "f", "d", "b")
+    want = rex.aggregate_relation(
+        rex.Relation(ref_page, symbols), _agg_node(rplan, rt, keys), {}, "off")
+    got = pex.aggregate_relation(
+        pex.Relation(port_page, symbols), _agg_node(pplan, pt, keys), mode)
+    assert got.symbols == want.symbols
+    np.testing.assert_array_equal(got.page.active.numpy(), np.asarray(want.page.active))
+    for gc, wc in zip(got.page.columns, want.page.columns):
+        np.testing.assert_array_equal(gc.valid.numpy(), np.asarray(wc.valid))
+        ok = gc.valid.numpy()
+        np.testing.assert_array_equal(gc.data.numpy()[ok], np.asarray(wc.data)[ok])
+    assert got.page.to_pylist() == want.page.to_pylist()

@@ -1,0 +1,358 @@
+"""TPC-H connector: SPI implementation over the deterministic generator.
+
+Reference blueprint: plugin/trino-tpch — TpchConnectorFactory.java:30,
+TpchMetadata, TpchSplitManager.java:38 (splits = row ranges any node can
+generate), TpchPageSourceProvider.java:53. Schemas are scale-factor-named
+(``tiny``=0.01, ``sf1``, ``sf100``...) as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...spi.connector import (
+    ColumnMetadata,
+    Connector,
+    ConnectorMetadata,
+    ConnectorPageSourceProvider,
+    ConnectorSplitManager,
+    SchemaTableName,
+    Split,
+    TableHandle,
+    TableMetadata,
+    TableStatistics,
+)
+from ...spi.page import Column, Dictionary, Page
+from ...spi.predicate import TupleDomain
+from ...spi.types import parse_type
+from ...device import resolve_device
+from . import generator as g
+
+SCHEMA_SCALES = {
+    "tiny": 0.01,
+    "sf1": 1.0,
+    "sf10": 10.0,
+    "sf100": 100.0,
+    "sf1000": 1000.0,
+}
+
+
+# generation order per table: primary key ascending (lineitem rows follow
+# their order keys; see generator.py chunk_range_for_split)
+_SORT_ORDER = {
+    "lineitem": ("l_orderkey", "l_linenumber"),
+    "orders": ("o_orderkey",),
+    "customer": ("c_custkey",),
+    "part": ("p_partkey",),
+    "supplier": ("s_suppkey",),
+    "partsupp": ("ps_partkey", "ps_suppkey"),
+    "nation": ("n_nationkey",),
+    "region": ("r_regionkey",),
+}
+
+
+def _scale_for_schema(schema: str) -> Optional[float]:
+    if schema in SCHEMA_SCALES:
+        return SCHEMA_SCALES[schema]
+    if schema.startswith("sf"):
+        try:
+            # dots are not valid in unquoted identifiers: sf0_001 == scale 0.001
+            return float(schema[2:].replace("_", "."))
+        except ValueError:
+            return None
+    return None
+
+
+class TpchConnector(Connector):
+    name = "tpch"
+
+    def __init__(
+        self,
+        scale: Optional[float] = None,
+        split_target_rows: int = 1 << 20,
+        device=None,
+    ):
+        """``scale``: if set, a single default scale used when instantiating the
+        connector programmatically (schema name still wins). ``device``: where
+        pages are built (default ``cuda``; see ``device.resolve_device``)."""
+        self.device = resolve_device(device)
+        self.default_scale = scale
+        self.split_target_rows = split_target_rows
+        self._dictionaries: Dict[tuple, Dictionary] = {}
+        self._capacities: Dict[tuple, int] = {}
+        self._meta = _TpchMetadata(self)
+        self._splits = _TpchSplitManager(self)
+        self._pages = _TpchPageSourceProvider(self)
+
+    def metadata(self):
+        return self._meta
+
+    def cache_table_version(self, schema: str, table: str):
+        """Warm-path cache plane hook (runtime/cachestore.py): generated
+        data is deterministic per RESOLVED scale, so the token carries it —
+        two connectors mounting the same non-scale-encoded schema name
+        ('tiny') at different default scales must never alias. None (scale
+        unresolvable) degrades to the unversioned TTL-or-bypass path."""
+        s = _scale_for_schema(schema)
+        if s is None:
+            s = self.default_scale
+        if s is None:
+            return None
+        return f"static-{schema}-sf{s:g}"
+
+    def split_manager(self):
+        return self._splits
+
+    def page_source_provider(self):
+        return self._pages
+
+    # ------------------------------------------------------------------ utils
+
+    def scale_of(self, handle: TableHandle) -> float:
+        s = _scale_for_schema(handle.schema_table.schema)
+        if s is None:
+            s = self.default_scale
+        if s is None:
+            raise ValueError(f"unknown tpch schema: {handle.schema_table.schema}")
+        return s
+
+    def dictionary(self, table: str, column: str, scale: float) -> Optional[Dictionary]:
+        key = (table, column, round(scale * 1e6))
+        if key not in self._dictionaries:
+            vocab = g.vocab_for(table, column, scale)
+            # setdefault: concurrent page-source threads (OOC scan prefetch)
+            # racing a cold key must all end up with ONE Dictionary object —
+            # dictionaries hash by identity, so a duplicate would force a
+            # spurious XLA retrace of every program keyed on the loser
+            self._dictionaries.setdefault(
+                key,
+                Dictionary(np.asarray(vocab, dtype=object)) if vocab is not None else None,
+            )
+        return self._dictionaries[key]
+
+    def split_count(self, table: str, scale: float) -> int:
+        base_rows = g.row_count("orders" if table == "lineitem" else table, scale)
+        rows = base_rows * 4 if table == "lineitem" else base_rows
+        wanted = max(1, math.ceil(rows / self.split_target_rows))
+        # a split is a contiguous range of canonical generation chunks
+        n_chunks = (base_rows + g.canonical_chunk_rows(base_rows) - 1) // g.canonical_chunk_rows(base_rows)
+        return min(wanted, n_chunks)
+
+    def split_capacity(self, table: str, scale: float, total_splits: int) -> int:
+        """Fixed page capacity for every split of this table (static shapes).
+
+        Rounded up to a power of two (capped at 1M-row granularity) so pages
+        from different tables share shapes — XLA-compiled operator programs are
+        cached per shape, so uniform capacities turn per-table compiles into
+        cache hits. Memoized: the lineitem path draws per-chunk rng streams."""
+        key = (table, round(scale * 1e6), total_splits)
+        cached = self._capacities.get(key)
+        if cached is not None:
+            return cached
+        if table == "lineitem":
+            rows = max(
+                g.lineitem_split_rows(scale, s, total_splits)
+                for s in range(total_splits)
+            )
+        else:
+            n = g.row_count(table, scale)
+            rows = 1
+            for s in range(total_splits):
+                first, end, chunk, _ = g.chunk_range_for_split(n, s, total_splits)
+                rows = max(rows, min(end * chunk, n) - first * chunk)
+        cap = 64
+        while cap < rows and cap < (1 << 20):
+            cap *= 2
+        if cap < rows:  # beyond 1M: multiples of 1M, not powers of two
+            cap = math.ceil(rows / (1 << 20)) << 20
+        self._capacities[key] = cap
+        return cap
+
+
+class _TpchMetadata(ConnectorMetadata):
+    def __init__(self, connector: TpchConnector):
+        self.connector = connector
+
+    def list_schemas(self):
+        schemas = set(SCHEMA_SCALES)
+        # a non-canonical default scale (e.g. 0.01 -> sf0_01) is queryable,
+        # so it must be discoverable too (information_schema reads this)
+        scale = self.connector.default_scale
+        if scale is not None:
+            schemas.add("sf" + f"{scale:g}".replace(".", "_"))
+        return sorted(schemas)
+
+    def list_tables(self, schema: Optional[str] = None):
+        schemas = [schema] if schema else self.list_schemas()
+        return [
+            SchemaTableName(s, t) for s in schemas for t in sorted(g.TPCH_TABLES)
+        ]
+
+    def get_table_metadata(self, name: SchemaTableName) -> Optional[TableMetadata]:
+        if name.table not in g.TPCH_TABLES:
+            return None
+        if _scale_for_schema(name.schema) is None and self.connector.default_scale is None:
+            return None
+        cols = tuple(
+            ColumnMetadata(c.name, parse_type(c.type_name))
+            for c in g.TPCH_TABLES[name.table]
+        )
+        # the generator emits each table ordered by its primary key (splits
+        # cover ascending chunk ranges, generator.py chunk_range_for_split) —
+        # declared so grouped aggregation can stream without sorting
+        sorted_by = _SORT_ORDER.get(name.table, ())
+        return TableMetadata(name, cols, sorted_by=sorted_by)
+
+    def get_table_statistics(self, handle: TableHandle) -> TableStatistics:
+        scale = self.connector.scale_of(handle)
+        table = handle.schema_table.table
+        if table == "lineitem":
+            rows = g.row_count("orders", scale) * 4.0
+        else:
+            rows = float(g.row_count(table, scale))
+        return TableStatistics(
+            row_count=rows, columns=_column_statistics(table, scale)
+        )
+
+    def apply_filter(self, handle: TableHandle, domain: TupleDomain) -> Optional[TableHandle]:
+        # absorb the domain for key-range split pruning (primary keys are
+        # range-partitioned across splits)
+        return TableHandle(handle.catalog, handle.schema_table, connector_handle=domain)
+
+
+_KEY_COLUMNS = {
+    "orders": "o_orderkey",
+    "lineitem": "l_orderkey",
+    "customer": "c_custkey",
+    "part": "p_partkey",
+    "supplier": "s_suppkey",
+}
+
+
+def _column_statistics(table: str, scale: float):
+    """Per-column (ndv, low, high) from the generator's closed-form value
+    distributions — the CBO's stats source (ref: the tpch connector's
+    TpchMetadata.getTableStatistics, which likewise derives exact stats from
+    dbgen formulas instead of scanning). Decimal columns report storage-scaled
+    values; dates epoch days; dictionary strings code space."""
+    from ...spi.connector import ColumnStatistics as CS
+
+    S = float(g.row_count("supplier", scale))
+    C = float(g.row_count("customer", scale))
+    P = float(g.row_count("part", scale))
+    O = float(g.row_count("orders", scale))  # noqa: E741
+    date_lo, date_hi = float(g.MIN_ORDER_DATE), float(g.MAX_ORDER_DATE)
+    stats: dict = {}
+
+    def put(col, ndv, low=None, high=None):
+        stats[col] = CS(
+            ndv=float(ndv),
+            low=None if low is None else float(low),
+            high=None if high is None else float(high),
+        )
+
+    if table == "region":
+        put("r_regionkey", 5, 0, 4)
+    elif table == "nation":
+        put("n_nationkey", 25, 0, 24)
+        put("n_regionkey", 5, 0, 4)
+    elif table == "supplier":
+        put("s_suppkey", S, 1, S)
+        put("s_nationkey", 25, 0, 24)
+        put("s_acctbal", min(S, 1099997), -99999, 999998)
+    elif table == "customer":
+        put("c_custkey", C, 1, C)
+        put("c_nationkey", 25, 0, 24)
+        put("c_acctbal", min(C, 1099997), -99999, 999998)
+    elif table == "part":
+        put("p_partkey", P, 1, P)
+        put("p_size", 50, 1, 50)
+        put("p_retailprice", min(P, 10000), 90000, 200000)
+    elif table == "partsupp":
+        put("ps_partkey", P, 1, P)
+        put("ps_suppkey", S, 1, S)
+        put("ps_availqty", 9999, 1, 9999)
+        put("ps_supplycost", 99901, 100, 100000)
+    elif table == "orders":
+        put("o_orderkey", O, 1, O)
+        put("o_custkey", C - C // 3, 1, C)
+        put("o_orderdate", date_hi - 121 - date_lo, date_lo, date_hi - 121)
+        put("o_totalprice", min(O, 55465500), 90000, 55555499)
+    elif table == "lineitem":
+        put("l_orderkey", O, 1, O)
+        put("l_partkey", P, 1, P)
+        put("l_suppkey", S, 1, S)
+        put("l_linenumber", 7, 1, 7)
+        put("l_quantity", 50, 100, 5000)
+        put("l_extendedprice", min(O * 4, 1000000), 90000, 1100000)
+        put("l_discount", 11, 0, 10)
+        put("l_tax", 9, 0, 8)
+        put("l_shipdate", date_hi + 121 - date_lo, date_lo, date_hi + 121)
+        put("l_commitdate", date_hi + 121 - date_lo, date_lo, date_hi + 121)
+        put("l_receiptdate", date_hi + 151 - date_lo, date_lo, date_hi + 151)
+    # dictionary-coded columns: ndv == vocab size, code space [0, |vocab|)
+    for col in g.TPCH_TABLES[table]:
+        if col.name not in stats:
+            vocab = g.vocab_for(table, col.name, scale)
+            if vocab is not None:
+                stats[col.name] = CS(
+                    ndv=float(len(vocab)), low=0.0, high=float(len(vocab) - 1)
+                )
+    return stats
+
+
+class _TpchSplitManager(ConnectorSplitManager):
+    def __init__(self, connector: TpchConnector):
+        self.connector = connector
+
+    def get_splits(self, handle: TableHandle, desired_splits: int = 1) -> List[Split]:
+        scale = self.connector.scale_of(handle)
+        table = handle.schema_table.table
+        total = self.connector.split_count(table, scale)
+        splits = [Split(handle, i, total) for i in range(total)]
+        # key-range split pruning from the pushed-down TupleDomain
+        constraint = handle.connector_handle
+        key_col = _KEY_COLUMNS.get(table)
+        if isinstance(constraint, TupleDomain) and key_col is not None:
+            dom = constraint.domain_for(key_col)
+            n = g.row_count("orders" if table == "lineitem" else table, scale)
+            kept = []
+            for s in splits:
+                first, end, chunk, _ = g.chunk_range_for_split(n, s.split_id, total)
+                lo = first * chunk + 1
+                hi = min(end * chunk, n)
+                if hi >= lo and dom.overlaps_range(lo, hi):
+                    kept.append(s)
+            splits = kept
+        return splits
+
+
+class _TpchPageSourceProvider(ConnectorPageSourceProvider):
+    def __init__(self, connector: TpchConnector):
+        self.connector = connector
+
+    def create_page_source(self, split: Split, column_indexes: Sequence[int]) -> Page:
+        handle = split.table
+        scale = self.connector.scale_of(handle)
+        table = handle.schema_table.table
+        data = g.generate_split(table, scale, split.split_id, split.total_splits)
+        capacity = self.connector.split_capacity(table, scale, split.total_splits)
+        schema = g.TPCH_TABLES[table]
+        cols = []
+        for idx in column_indexes:
+            cm = schema[idx]
+            type_ = parse_type(cm.type_name)
+            arr = data.columns[cm.name]
+            dictionary = self.connector.dictionary(table, cm.name, scale)
+            cols.append(
+                Column.from_numpy(
+                    type_, arr, None, capacity, dictionary, self.connector.device
+                )
+            )
+        active = np.zeros(capacity, dtype=np.bool_)
+        active[: data.count] = True
+        return Page(tuple(cols), torch.from_numpy(active).to(self.connector.device))

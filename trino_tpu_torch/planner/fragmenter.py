@@ -1,0 +1,645 @@
+"""Exchange placement + plan fragmentation (the distributed planning phase).
+
+Reference blueprint: optimizations/AddExchanges.java:145 (insert REMOTE exchanges
+by required/actual partitioning properties), rule/PushPartialAggregationThrough-
+Exchange (partial/final split), and PlanFragmenter.java:96 (`createSubPlans`:126 —
+cut the plan into per-stage PlanFragments at exchange boundaries). SURVEY.md §2.3.
+
+The partitioning vocabulary mirrors SystemPartitioningHandle.java:47-54:
+SOURCE (splits -> workers), FIXED_HASH (hash repartition), FIXED_BROADCAST
+(replicate), SINGLE (gather to one).
+
+On TPU a stage boundary is not an HTTP shuffle but an XLA collective inside one
+program where possible (parallel/exchange.py); fragments remain the unit of
+scheduling for the multi-host/DCN tier.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from enum import Enum
+from typing import Dict, List, Optional, Tuple
+
+from ..metadata import Metadata, Session
+from ..spi.types import BIGINT, DOUBLE, Type, DecimalType, decimal_type
+from ..sql.ir import Call, CastExpr, Constant, IrExpr, Reference
+from .logical_planner import SymbolAllocator
+from .plan import (
+    Aggregation,
+    AggregationNode,
+    AggregationStep,
+    ExchangeNode,
+    ExchangeScope,
+    ExchangeType,
+    FilterNode,
+    JoinDistribution,
+    JoinKind,
+    JoinNode,
+    LimitNode,
+    LogicalPlan,
+    OutputNode,
+    PlanNode,
+    ProjectNode,
+    SemiJoinNode,
+    SortNode,
+    TableScanNode,
+    TopNNode,
+    UnionNode,
+    ValuesNode,
+    VectorTopNNode,
+    PatternRecognitionNode,
+    WindowNode,
+    rewrite_plan,
+    visit_plan,
+)
+
+
+class Partitioning(Enum):
+    """ref: SystemPartitioningHandle.java:47-54."""
+
+    SINGLE = "SINGLE"
+    SOURCE = "SOURCE"
+    FIXED_HASH = "FIXED_HASH"
+    FIXED_RANGE = "FIXED_RANGE"  # range-partitioned (distributed sort)
+    FIXED_ARBITRARY = "FIXED_ARBITRARY"
+    FIXED_BROADCAST = "FIXED_BROADCAST"
+    COORDINATOR_ONLY = "COORDINATOR_ONLY"
+
+
+# --------------------------------------------------------------------------- #
+# partial/final aggregation split
+# --------------------------------------------------------------------------- #
+
+# functions whose partial state is a single column combined by another function
+_COMBINERS = {
+    "count": "sum",
+    "count_if": "sum",
+    "sum": "sum",
+    "min": "min",
+    "max": "max",
+    "bool_and": "bool_and",
+    "bool_or": "bool_or",
+    "every": "bool_and",
+    "arbitrary": "arbitrary",
+    "any_value": "any_value",
+}
+
+
+def _partial_type(fn: str, out_type: Type, arg_type: Optional[Type]) -> Type:
+    if fn in ("count", "count_if"):
+        return BIGINT
+    return out_type
+
+
+def split_aggregation(
+    node: AggregationNode, symbols: SymbolAllocator, types: Dict[str, Type]
+) -> Optional[Tuple[AggregationNode, AggregationNode, Optional[ProjectNode]]]:
+    """SINGLE -> (PARTIAL below exchange, FINAL above, optional post-projection).
+
+    avg/stddev decompose into sum+count(+sumsq) partials recombined by a final
+    projection (ref: operator/aggregation intermediate states). Returns None if
+    any aggregate is not splittable (DISTINCT), in which case the plan keeps a
+    SINGLE aggregation above a GATHER.
+    """
+    partial_aggs: List[Tuple[str, Aggregation]] = []
+    final_aggs: List[Tuple[str, Aggregation]] = []
+    post_assignments: List[Tuple[str, IrExpr]] = []
+    needs_post = False
+
+    for sym, agg in node.aggregations:
+        if agg.distinct:
+            return None
+        out_type = agg.output_type
+        if agg.function in _COMBINERS:
+            ptype = _partial_type(agg.function, out_type, None)
+            psym = symbols.new_symbol(f"{agg.function}_partial", ptype)
+            partial_aggs.append((psym, agg))
+            final_aggs.append(
+                (
+                    sym,
+                    Aggregation(_COMBINERS[agg.function], (psym,), output_type=out_type),
+                )
+            )
+            post_assignments.append((sym, Reference(sym, out_type)))
+        elif agg.function == "avg":
+            arg_t = types[agg.args[0]]
+            sum_t = (
+                decimal_type(18, arg_t.scale)
+                if isinstance(arg_t, DecimalType)
+                else DOUBLE
+            )
+            s_sym = symbols.new_symbol("avg_sum", sum_t)
+            c_sym = symbols.new_symbol("avg_count", BIGINT)
+            partial_aggs.append(
+                (s_sym, Aggregation("sum", agg.args, filter=agg.filter, output_type=sum_t))
+            )
+            partial_aggs.append(
+                (c_sym, Aggregation("count", agg.args, filter=agg.filter, output_type=BIGINT))
+            )
+            fs = symbols.new_symbol("avg_sum_f", sum_t)
+            fc = symbols.new_symbol("avg_count_f", BIGINT)
+            final_aggs.append((fs, Aggregation("sum", (s_sym,), output_type=sum_t)))
+            final_aggs.append((fc, Aggregation("sum", (c_sym,), output_type=BIGINT)))
+            div = Call(
+                "$avg_combine",
+                (Reference(fs, sum_t), Reference(fc, BIGINT)),
+                out_type,
+            )
+            post_assignments.append((sym, div))
+            needs_post = True
+            continue
+        elif agg.function in ("stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop"):
+            s1 = symbols.new_symbol("var_s1", DOUBLE)
+            s2 = symbols.new_symbol("var_s2", DOUBLE)
+            cn = symbols.new_symbol("var_n", BIGINT)
+            arg = agg.args[0]
+            partial_aggs.append((s1, Aggregation("$fsum", (arg,), filter=agg.filter, output_type=DOUBLE)))
+            partial_aggs.append((s2, Aggregation("$fsumsq", (arg,), filter=agg.filter, output_type=DOUBLE)))
+            partial_aggs.append((cn, Aggregation("count", (arg,), filter=agg.filter, output_type=BIGINT)))
+            f1 = symbols.new_symbol("var_s1_f", DOUBLE)
+            f2 = symbols.new_symbol("var_s2_f", DOUBLE)
+            fn_ = symbols.new_symbol("var_n_f", BIGINT)
+            final_aggs.append((f1, Aggregation("sum", (s1,), output_type=DOUBLE)))
+            final_aggs.append((f2, Aggregation("sum", (s2,), output_type=DOUBLE)))
+            final_aggs.append((fn_, Aggregation("sum", (cn,), output_type=BIGINT)))
+            post_assignments.append(
+                (
+                    sym,
+                    Call(
+                        f"${agg.function}_combine",
+                        (Reference(f1, DOUBLE), Reference(f2, DOUBLE), Reference(fn_, BIGINT)),
+                        DOUBLE,
+                    ),
+                )
+            )
+            needs_post = True
+            continue
+        else:
+            return None
+        if agg.function in _COMBINERS:
+            continue
+
+    partial = AggregationNode(
+        source=node.source,
+        group_keys=node.group_keys,
+        aggregations=tuple(partial_aggs),
+        step=AggregationStep.PARTIAL,
+    )
+    final_source_placeholder = partial  # replaced by exchange at call site
+    final = AggregationNode(
+        source=final_source_placeholder,
+        group_keys=node.group_keys,
+        aggregations=tuple(final_aggs),
+        step=AggregationStep.FINAL,
+    )
+    post: Optional[ProjectNode] = None
+    if needs_post:
+        keys = [(k, Reference(k, types[k])) for k in node.group_keys]
+        post = ProjectNode(source=final, assignments=tuple(keys) + tuple(post_assignments))
+    return partial, final, post
+
+
+# --------------------------------------------------------------------------- #
+# AddExchanges
+# --------------------------------------------------------------------------- #
+
+
+def _scan_bucket_symbols(node: PlanNode, metadata: Metadata):
+    """Walk identity projections/filters down to a scan; return the scan's
+    declared TablePartitioning mapped onto OUTPUT symbols, or None."""
+    # rename maps symbol-at-current-level -> OUTPUT symbol, defined only for
+    # symbols that provably pass through every projection above; None means
+    # no projection seen yet (identity)
+    rename: Optional[dict] = None
+    n = node
+    while True:
+        if isinstance(n, FilterNode):
+            n = n.source
+            continue
+        if isinstance(n, ProjectNode):
+            from ..sql.ir import Reference
+
+            step = {}
+            for out_sym, expr in n.assignments:
+                if isinstance(expr, Reference):
+                    step[expr.symbol] = out_sym
+            # compose: a symbol survives this projection only if its target
+            # also survives everything ABOVE it — an all-computed outer
+            # projection ({} mapping) must kill the chain, not reset it
+            rename = dict(step) if rename is None else {
+                inner: rename[outer]
+                for inner, outer in step.items()
+                if outer in rename
+            }
+            n = n.source
+            continue
+        break
+    if not isinstance(n, TableScanNode):
+        return None
+    try:
+        part = (
+            metadata.connector_for(n.table)
+            .metadata()
+            .table_partitioning(n.table)
+        )
+    except Exception:  # connectors without the hook / detached handles
+        return None
+    if part is None:
+        return None
+    colsym = {c: s for s, c in n.assignments}
+    syms = []
+    for c in part.columns:
+        s = colsym.get(c)
+        if s is None:
+            return None
+        if rename is not None and s not in rename:
+            # a projection sits above the scan but carries no surviving
+            # Reference chain for the bucket column (projected away or only
+            # reachable through a computed expression): the partitioning
+            # does NOT survive to the output, so fail closed. The old
+            # falsy-rename identity fallback treated an all-computed
+            # projection ({} rename) as a passthrough and let _co_bucketed
+            # skip a needed exchange.
+            return None
+        syms.append(s if rename is None else rename[s])
+    return part, tuple(syms)
+
+
+def _co_bucketed(node: "JoinNode", metadata: Metadata) -> bool:
+    left = _scan_bucket_symbols(node.left, metadata)
+    right = _scan_bucket_symbols(node.right, metadata)
+    if left is None or right is None:
+        return False
+    (lp, lsyms), (rp, rsyms) = left, right
+    if (
+        lp.rule != rp.rule
+        or lp.bucket_count != rp.bucket_count
+        or len(lsyms) != len(rsyms)
+    ):
+        return False
+    pair = {l: r for l, r in node.criteria}
+    # positionally: bucket column i on the left must be join-equal to bucket
+    # column i on the right (same hash input order -> same bucket id)
+    return all(pair.get(ls) == rs for ls, rs in zip(lsyms, rsyms))
+
+
+def add_exchanges(plan: LogicalPlan, metadata: Metadata, session: Session) -> LogicalPlan:
+    """Insert REMOTE exchanges + split aggregations/TopN for distribution.
+    ref: optimizations/AddExchanges.java:145 (simplified property model:
+    every scan is SOURCE-partitioned; every pipeline breaker decides whether it
+    needs co-location (FIXED_HASH) or completeness (SINGLE))."""
+    symbols = SymbolAllocator()
+    symbols.types = plan.types  # share the type map (new symbols register there)
+    # continue numbering after existing symbols to avoid collisions
+    symbols._counter = len(plan.types) + 1000
+
+    push_partial = session.get("push_partial_aggregation")
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, AggregationNode) and node.step == AggregationStep.SINGLE:
+            split = split_aggregation(node, symbols, plan.types) if push_partial else None
+            if split is None:
+                ex = ExchangeNode(
+                    source=node.source,
+                    exchange_type=ExchangeType.REPARTITION if node.group_keys else ExchangeType.GATHER,
+                    scope=ExchangeScope.REMOTE,
+                    partition_keys=node.group_keys,
+                )
+                return replace(node, source=ex)
+            partial, final, post = split
+            ex = ExchangeNode(
+                source=partial,
+                exchange_type=ExchangeType.REPARTITION if node.group_keys else ExchangeType.GATHER,
+                scope=ExchangeScope.REMOTE,
+                partition_keys=node.group_keys,
+            )
+            final = replace(final, source=ex)
+            if post is not None:
+                return replace(post, source=final)
+            return final
+        if isinstance(node, TopNNode) and not node.partial:
+            partial = replace(node, partial=True)
+            ex = ExchangeNode(
+                source=partial,
+                exchange_type=ExchangeType.GATHER,
+                scope=ExchangeScope.REMOTE,
+            )
+            return replace(node, source=ex)
+        if isinstance(node, VectorTopNNode) and not node.partial:
+            # tensor plane: the fused scores->top-k program runs PER
+            # PARTITION (scores computed where the vectors live); the
+            # gathered k-per-partition candidates carry their scores, so the
+            # final stage is a plain TopN over the already-computed score
+            # symbols — the exact partial/final TopN discipline
+            partial = replace(node, partial=True)
+            ex = ExchangeNode(
+                source=partial,
+                exchange_type=ExchangeType.GATHER,
+                scope=ExchangeScope.REMOTE,
+            )
+            return TopNNode(
+                source=ex, count=node.count, orderings=node.orderings
+            )
+        if isinstance(node, SortNode):
+            if session.get("distributed_sort"):
+                # distributed sort (docs admin/dist-sort.md): range-shuffle by
+                # the leading sort key, sort each shard locally, then a merge
+                # GATHER — producer shards are ordered and range-disjoint, so
+                # concatenating them in shard order IS the global order (the
+                # MergeOperator's job done by the exchange layout)
+                ex_range = ExchangeNode(
+                    source=node.source,
+                    exchange_type=ExchangeType.REPARTITION_RANGE,
+                    scope=ExchangeScope.REMOTE,
+                    partition_keys=tuple(o.symbol for o in node.orderings[:1]),
+                    orderings=node.orderings,
+                )
+                local_sort = replace(node, source=ex_range)
+                return ExchangeNode(
+                    source=local_sort,
+                    exchange_type=ExchangeType.GATHER,
+                    scope=ExchangeScope.REMOTE,
+                    orderings=node.orderings,
+                )
+            ex = ExchangeNode(
+                source=node.source,
+                exchange_type=ExchangeType.GATHER,
+                scope=ExchangeScope.REMOTE,
+            )
+            return replace(node, source=ex)
+        if isinstance(node, LimitNode) and not node.partial:
+            partial = replace(node, partial=True, offset=0, count=node.count + node.offset)
+            ex = ExchangeNode(
+                source=partial,
+                exchange_type=ExchangeType.GATHER,
+                scope=ExchangeScope.REMOTE,
+            )
+            return replace(node, source=ex)
+        if isinstance(node, JoinNode) and node.kind != JoinKind.CROSS and node.criteria:
+            if _co_bucketed(node, metadata):
+                # both sides' scans are physically partitioned on the join
+                # keys with the same rule + bucket count: split i IS bucket i
+                # on each side, so co-scheduling them joins without ANY
+                # repartition exchange (ref: ConnectorNodePartitioningProvider,
+                # planner/BucketNodeMap; hive/tpch bucketed join path)
+                return node
+            if node.distribution == JoinDistribution.BROADCAST:
+                right = ExchangeNode(
+                    source=node.right,
+                    exchange_type=ExchangeType.BROADCAST,
+                    scope=ExchangeScope.REMOTE,
+                )
+                return replace(node, right=right)
+            left_keys = tuple(l for l, _ in node.criteria)
+            right_keys = tuple(r for _, r in node.criteria)
+            left = ExchangeNode(
+                source=node.left,
+                exchange_type=ExchangeType.REPARTITION,
+                scope=ExchangeScope.REMOTE,
+                partition_keys=left_keys,
+            )
+            right = ExchangeNode(
+                source=node.right,
+                exchange_type=ExchangeType.REPARTITION,
+                scope=ExchangeScope.REMOTE,
+                partition_keys=right_keys,
+            )
+            return replace(node, left=left, right=right)
+        if isinstance(node, SemiJoinNode):
+            right = ExchangeNode(
+                source=node.filtering_source,
+                exchange_type=ExchangeType.BROADCAST,
+                scope=ExchangeScope.REMOTE,
+            )
+            return replace(node, filtering_source=right)
+        if isinstance(node, (WindowNode, PatternRecognitionNode)):
+            ex = ExchangeNode(
+                source=node.source,
+                exchange_type=(
+                    ExchangeType.REPARTITION if node.partition_by else ExchangeType.GATHER
+                ),
+                scope=ExchangeScope.REMOTE,
+                partition_keys=node.partition_by,
+            )
+            return replace(node, source=ex)
+        if isinstance(node, OutputNode):
+            if not isinstance(node.source, ExchangeNode):
+                ex = ExchangeNode(
+                    source=node.source,
+                    exchange_type=ExchangeType.GATHER,
+                    scope=ExchangeScope.REMOTE,
+                )
+                return replace(node, source=ex)
+        return node
+
+    root = rewrite_plan(plan.root, fn)
+    out = LogicalPlan(root, plan.types)
+    # final sanity before fragmenting (validateFinalPlan analogue): exchange
+    # placement is the last rewrite that can drop a partition key or orphan
+    # a symbol, and create_fragments would bury the failure in a stage
+    from .sanity import validate_final
+
+    validate_final(out, metadata, session, stage="add_exchanges")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# fragmentation
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class RemoteSourceNode(PlanNode):
+    """Placeholder consuming another fragment's output
+    (ref: sql/planner/plan/RemoteSourceNode.java)."""
+
+    fragment_id: int = 0
+    symbols: Tuple[str, ...] = ()
+    exchange_type: ExchangeType = ExchangeType.REPARTITION
+    partition_keys: Tuple[str, ...] = ()
+    orderings: Tuple = ()  # REPARTITION_RANGE / merge-GATHER sort order
+
+    @property
+    def sources(self):
+        return ()
+
+    @property
+    def output_symbols(self):
+        return self.symbols
+
+    def with_sources(self, sources):
+        return self
+
+
+@dataclass
+class PlanFragment:
+    """ref: sql/planner/PlanFragment.java — the unit a stage executes."""
+
+    fragment_id: int
+    root: PlanNode
+    partitioning: Partitioning
+    # fragments feeding this one, in RemoteSourceNode order
+    input_fragments: List[int] = field(default_factory=list)
+    # stats-derived partition-count hint (ref: sql/planner/optimizations/
+    # DeterminePartitionCount.java:88 — small inputs run on fewer partitions
+    # so per-partition fixed costs don't dominate); None = scheduler default
+    partition_count: Optional[int] = None
+
+
+@dataclass
+class SubPlan:
+    fragments: List[PlanFragment]
+    types: Dict[str, Type]
+
+    @property
+    def root_fragment(self) -> PlanFragment:
+        return self.fragments[-1]
+
+
+def create_fragments(plan: LogicalPlan) -> SubPlan:
+    """Cut at REMOTE exchanges (ref: PlanFragmenter.createSubPlans:126)."""
+    fragments: List[PlanFragment] = []
+    counter = [0]
+
+    def partitioning_of(node: PlanNode) -> Partitioning:
+        # a fragment's partitioning is defined by its leaves
+        leaves: List[Partitioning] = []
+
+        def walk(n: PlanNode):
+            if isinstance(n, TableScanNode):
+                leaves.append(Partitioning.SOURCE)
+            elif isinstance(n, RemoteSourceNode):
+                if n.exchange_type == ExchangeType.REPARTITION:
+                    leaves.append(Partitioning.FIXED_HASH)
+                elif n.exchange_type == ExchangeType.REPARTITION_RANGE:
+                    leaves.append(Partitioning.FIXED_RANGE)
+                elif n.exchange_type == ExchangeType.GATHER:
+                    leaves.append(Partitioning.SINGLE)
+                else:
+                    leaves.append(Partitioning.FIXED_ARBITRARY)
+            elif isinstance(n, ValuesNode):
+                leaves.append(Partitioning.SINGLE)
+            for s in n.sources:
+                walk(s)
+
+        walk(node)
+        if not leaves:
+            return Partitioning.SINGLE
+        if Partitioning.SINGLE in leaves:
+            return Partitioning.SINGLE
+        if Partitioning.FIXED_HASH in leaves:
+            return Partitioning.FIXED_HASH
+        if Partitioning.FIXED_RANGE in leaves:
+            return Partitioning.FIXED_RANGE
+        return leaves[0]
+
+    def cut(node: PlanNode, inputs: List[int]) -> PlanNode:
+        if isinstance(node, ExchangeNode) and node.scope == ExchangeScope.REMOTE:
+            child_inputs: List[int] = []
+            child_root = cut(node.source, child_inputs)
+            fid = counter[0]
+            counter[0] += 1
+            fragments.append(
+                PlanFragment(
+                    fragment_id=fid,
+                    root=child_root,
+                    partitioning=partitioning_of(child_root),
+                    input_fragments=child_inputs,
+                )
+            )
+            inputs.append(fid)
+            return RemoteSourceNode(
+                fragment_id=fid,
+                symbols=node.source.output_symbols,
+                exchange_type=node.exchange_type,
+                partition_keys=node.partition_keys,
+                orderings=node.orderings,
+            )
+        new_sources = tuple(cut(s, inputs) for s in node.sources)
+        if new_sources != node.sources:
+            node = node.with_sources(new_sources)
+        return node
+
+    root_inputs: List[int] = []
+    root = cut(plan.root, root_inputs)
+    fid = counter[0]
+    fragments.append(
+        PlanFragment(
+            fragment_id=fid,
+            root=root,
+            partitioning=Partitioning.SINGLE,
+            input_fragments=root_inputs,
+        )
+    )
+    return SubPlan(fragments, plan.types)
+
+
+def remote_sources(root: PlanNode) -> List["RemoteSourceNode"]:
+    """All RemoteSourceNodes under ``root`` in visit order (THE collector —
+    every tier that walks a fragment's input edges uses this)."""
+    remotes: List[RemoteSourceNode] = []
+
+    def visit(n: PlanNode):
+        if isinstance(n, RemoteSourceNode):
+            remotes.append(n)
+
+    visit_plan(root, visit)
+    return remotes
+
+
+def format_fragments(subplan: SubPlan) -> str:
+    """EXPLAIN (TYPE DISTRIBUTED) text."""
+    from .plan import format_plan
+
+    parts = []
+    for f in reversed(subplan.fragments):
+        header = f"Fragment {f.fragment_id} [{f.partitioning.value}]"
+        body = format_plan(LogicalPlan(f.root, subplan.types))
+        parts.append(header + "\n" + "\n".join("  " + l for l in body.split("\n")))
+    return "\n".join(parts)
+
+
+def determine_partition_counts(
+    subplan: "SubPlan", metadata, session, max_parts: int
+) -> "SubPlan":
+    """Stats-derived per-fragment partition counts (ref: sql/planner/
+    optimizations/DeterminePartitionCount.java:88 — Trino caps hash partition
+    counts by source data size / row count so small stages skip fan-out
+    overhead). Fragments are visited children-first, so RemoteSource inputs
+    read the producer's estimate."""
+    import math
+
+    from .stats import PlanStats, StatsEstimator
+
+    try:
+        target = int(session.get("target_partition_rows") or 1_000_000)
+    except KeyError:
+        target = 1_000_000
+    rows_of: Dict[int, Optional[float]] = {}
+
+    class _FragmentEstimator(StatsEstimator):
+        def _estimate(self, node):
+            if isinstance(node, RemoteSourceNode):
+                return PlanStats(rows_of.get(node.fragment_id), {})
+            return super()._estimate(node)
+
+    for frag in subplan.fragments:
+        est = _FragmentEstimator(metadata, subplan.types)
+        try:
+            r = est.rows(frag.root)
+        except Exception:  # estimator gaps never block planning
+            r = None
+        rows_of[frag.fragment_id] = r
+        # size by the LARGER of the fragment's output and its inputs: a
+        # selective join over huge inputs still needs wide exchange/build
+        # parallelism (the reference caps by SOURCE stage size)
+        sizing = [r] + [rows_of.get(i) for i in frag.input_fragments]
+        known = [x for x in sizing if x is not None]
+        if (
+            frag.partitioning in (Partitioning.FIXED_HASH, Partitioning.FIXED_RANGE)
+            and known
+        ):
+            frag.partition_count = max(
+                1, min(max_parts, math.ceil(max(known) / target))
+            )
+    return subplan

@@ -1,0 +1,3362 @@
+"""Logical planner: AST -> LogicalPlan (PlanNodes over typed IR).
+
+Reference blueprint: this module fuses the roles of io.trino.sql.analyzer
+(Analyzer.java:81, StatementAnalyzer, ExpressionAnalyzer — scoping, name
+resolution, type checking, aggregate validation) and io.trino.sql.planner
+(LogicalPlanner.java:244, QueryPlanner, RelationPlanner — AST -> PlanNode lowering).
+Trino splits analysis and planning into two passes over the AST; we do a single
+typed lowering pass, which keeps the AST -> IR boundary identical (the optimizer
+only ever sees IR) while halving the machinery. Scope/Field mirror
+sql/analyzer/Scope.java and Field.java.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..metadata import Metadata, Session
+from ..spi.types import (
+    BIGINT,
+    BOOLEAN,
+    DATE,
+    DOUBLE,
+    INTEGER,
+    INTERVAL_DAY_TIME,
+    INTERVAL_YEAR_MONTH,
+    UNKNOWN,
+    VARCHAR,
+    ArrayType,
+    DecimalType,
+    MapType,
+    RowType,
+    Type,
+    VarcharType,
+    can_coerce,
+    common_super_type,
+    decimal_type,
+    is_floating,
+    is_integral,
+    is_numeric,
+    is_string,
+)
+from ..sql import tree as t
+from ..sql.functions import (
+    FunctionResolutionError,
+    is_aggregate,
+    is_window,
+    resolve_aggregate,
+    resolve_scalar,
+    WINDOW_FUNCTIONS,
+)
+from ..sql.functions import HIGHER_ORDER_FUNCTIONS as _HIGHER_ORDER_FUNCS
+from ..sql.ir import Call, Case, CastExpr, Constant, IrExpr, Reference, substitute
+from ..sql.ir import Lambda as IrLambda
+from .plan import (
+    Aggregation,
+    AggregationNode,
+    AggregationStep,
+    EnforceSingleRowNode,
+    FilterNode,
+    JoinKind,
+    JoinNode,
+    LimitNode,
+    LogicalPlan,
+    Ordering,
+    OutputNode,
+    PatternRecognitionNode,
+    PlanNode,
+    ProjectNode,
+    SemiJoinNode,
+    SortNode,
+    TableFunctionNode,
+    TableScanNode,
+    TopNNode,
+    UnionNode,
+    UnnestNode,
+    ValuesNode,
+    WindowFunction,
+    WindowNode,
+)
+
+EPOCH = datetime.date(1970, 1, 1)
+
+
+class SemanticError(ValueError):
+    pass
+
+
+@dataclass(frozen=True)
+class Field:
+    """One visible column of a relation (ref: sql/analyzer/Field.java)."""
+
+    name: Optional[str]
+    type: Type
+    symbol: str
+    qualifier: Optional[str] = None  # relation alias or table name
+
+
+@dataclass
+class Scope:
+    """Name-resolution scope (ref: sql/analyzer/Scope.java)."""
+
+    fields: List[Field]
+    parent: Optional["Scope"] = None
+
+    def resolve(self, name: str, qualifier: Optional[str] = None) -> Field:
+        matches = [
+            f
+            for f in self.fields
+            if f.name == name and (qualifier is None or f.qualifier == qualifier)
+        ]
+        if len(matches) > 1:
+            raise SemanticError(f"column '{name}' is ambiguous")
+        if matches:
+            return matches[0]
+        if self.parent is not None:
+            # correlated reference — detected, not yet supported in execution
+            raise SemanticError(
+                f"correlated subquery reference '{name}' not supported yet"
+            )
+        q = f"{qualifier}." if qualifier else ""
+        raise SemanticError(f"column '{q}{name}' cannot be resolved")
+
+
+class SymbolAllocator:
+    """ref: sql/planner/SymbolAllocator.java."""
+
+    def __init__(self):
+        self.types: Dict[str, Type] = {}
+        self._counter = 0
+
+    def new_symbol(self, hint: str, type_: Type) -> str:
+        hint = "".join(ch if (ch.isalnum() or ch == "_") else "_" for ch in hint.lower()) or "expr"
+        name = f"{hint}_{self._counter}"
+        self._counter += 1
+        self.types[name] = type_
+        return name
+
+
+# --------------------------------------------------------------------------- #
+# Literal translation helpers
+# --------------------------------------------------------------------------- #
+
+
+def parse_date_literal(text: str) -> int:
+    d = datetime.date.fromisoformat(text.strip())
+    return (d - EPOCH).days
+
+
+def parse_timestamp_literal(text: str) -> int:
+    text = text.strip()
+    try:
+        dt = datetime.datetime.fromisoformat(text)
+    except ValueError as e:
+        raise SemanticError(f"invalid timestamp literal: {text!r}") from e
+    return int(dt.timestamp() * 1_000_000) if dt.tzinfo else int(
+        (dt - datetime.datetime(1970, 1, 1)).total_seconds() * 1_000_000
+    )
+
+
+def parse_time_literal(text: str) -> int:
+    """TIME 'HH:MM[:SS[.fff]]' -> microseconds of day."""
+    text = text.strip()
+    try:
+        tm = datetime.time.fromisoformat(text)
+    except ValueError as e:
+        raise SemanticError(f"invalid time literal: {text!r}") from e
+    return (
+        (tm.hour * 3600 + tm.minute * 60 + tm.second) * 1_000_000
+        + tm.microsecond
+    )
+
+
+def _split_zone_suffix(text: str):
+    """Detect a zone suffix on a timestamp literal: '... +05:30' or
+    '... Area/City'. Returns (body, offset_minutes) or None. Named zones
+    resolve via zoneinfo to their offset at that instant (ref:
+    DateTimeUtils/TimeZoneKey parsing)."""
+    import re as _re
+
+    text = text.strip()
+    # the offset form binds with or without a space: TIME '10:00:00+02:00'
+    # is the canonical reference spelling (TimeWithTimeZoneType docs)
+    m = _re.search(r"\s?([+-])(\d{2}):(\d{2})$", text)
+    if m:
+        sign = 1 if m.group(1) == "+" else -1
+        off = sign * (int(m.group(2)) * 60 + int(m.group(3)))
+        return text[: m.start()].strip(), off
+    m = _re.search(r"\s([A-Za-z_]+/[A-Za-z_]+|UTC)$", text)
+    if m:
+        name = m.group(1)
+        body = text[: m.start()].strip()
+        if name == "UTC":
+            return body, 0
+        try:
+            from zoneinfo import ZoneInfo
+
+            zone = ZoneInfo(name)
+        except Exception as e:
+            raise SemanticError(f"unknown time zone: {name!r}") from e
+        try:
+            dt = datetime.datetime.fromisoformat(body)
+        except ValueError:
+            # a bare TIME body: resolve the zone's CURRENT offset (named
+            # zones on times have no date to pin DST; the reference uses
+            # the session start instant similarly)
+            dt = datetime.datetime.combine(
+                datetime.date.today(), datetime.time.fromisoformat(body)
+            )
+        off = dt.replace(tzinfo=zone).utcoffset()
+        return body, int(off.total_seconds() // 60)
+    return None
+
+
+def parse_decimal_literal(text: str) -> Constant:
+    text = text.strip()
+    neg = text.startswith("-")
+    body = text.lstrip("+-")
+    if "." in body:
+        int_part, frac = body.split(".", 1)
+    else:
+        int_part, frac = body, ""
+    scale = len(frac)
+    digits = (int_part + frac).lstrip("0") or "0"
+    precision = max(len(digits), scale + 1)
+    value = int(int_part + frac or "0")
+    if neg:
+        value = -value
+    return Constant(decimal_type(min(precision, 38), scale), value)
+
+
+def interval_literal(lit: t.IntervalLiteral) -> Constant:
+    amount = int(lit.value) * lit.sign
+    unit = lit.unit.rstrip("s")
+    if unit in ("year", "month"):
+        months = amount * (12 if unit == "year" else 1)
+        return Constant(INTERVAL_YEAR_MONTH, months)
+    micros = {
+        "day": 86_400_000_000,
+        "hour": 3_600_000_000,
+        "minute": 60_000_000,
+        "second": 1_000_000,
+    }.get(unit)
+    if micros is None:
+        raise SemanticError(f"unsupported interval unit: {lit.unit}")
+    return Constant(INTERVAL_DAY_TIME, amount * micros)
+
+
+def _add_months(days: int, months: int) -> int:
+    d = EPOCH + datetime.timedelta(days=days)
+    total = d.year * 12 + (d.month - 1) + months
+    year, month = divmod(total, 12)
+    month += 1
+    import calendar
+
+    day = min(d.day, calendar.monthrange(year, month)[1])
+    return (datetime.date(year, month, day) - EPOCH).days
+
+
+def fold_constant_call(name: str, args: Sequence[Constant], out_type: Type) -> Optional[Constant]:
+    """Host-side constant folding (ref: io.trino.sql.ir.optimizer constant folding
+    rules). Covers arithmetic, comparisons, and date/interval math — enough for the
+    constant shapes SQL filters produce (e.g. DATE '1994-01-01' + INTERVAL '1' YEAR)."""
+    vals = [a.value for a in args]
+    types = [a.type for a in args]
+    if any(v is None for v in vals) and name not in ("$is_null", "$not_null", "coalesce"):
+        return Constant(out_type, None)
+    try:
+        if name in ("$add", "$subtract"):
+            sign = 1 if name == "$add" else -1
+            if types[0] == DATE and types[1] == INTERVAL_YEAR_MONTH:
+                return Constant(DATE, _add_months(vals[0], sign * vals[1]))
+            if types[0] == DATE and types[1] == INTERVAL_DAY_TIME:
+                return Constant(DATE, vals[0] + sign * (vals[1] // 86_400_000_000))
+            if types[0] == INTERVAL_YEAR_MONTH and types[1] == DATE and name == "$add":
+                return Constant(DATE, _add_months(vals[1], vals[0]))
+            return Constant(out_type, vals[0] + sign * vals[1])
+        if name == "$multiply":
+            return Constant(out_type, vals[0] * vals[1])
+        if name == "$divide":
+            if isinstance(out_type, DecimalType) or is_integral(out_type):
+                return Constant(out_type, int(vals[0] / vals[1]) if vals[1] else None)
+            return Constant(out_type, vals[0] / vals[1] if vals[1] else None)
+        if name == "$negate":
+            return Constant(out_type, -vals[0])
+        if name in ("$eq", "$ne", "$lt", "$lte", "$gt", "$gte"):
+            import operator as op
+
+            from ..spi.types import TimestampWithTimeZoneType, TimeWithTimeZoneType
+
+            f = {
+                "$eq": op.eq,
+                "$ne": op.ne,
+                "$lt": op.lt,
+                "$lte": op.le,
+                "$gt": op.gt,
+                "$gte": op.ge,
+            }[name]
+            # zone-packed types compare by instant, not (instant, zone)
+            cmp_vals = [
+                v >> 12
+                if isinstance(t_, (TimestampWithTimeZoneType, TimeWithTimeZoneType))
+                else v
+                for v, t_ in zip(vals, types)
+            ]
+            return Constant(BOOLEAN, bool(f(cmp_vals[0], cmp_vals[1])))
+    except (TypeError, ZeroDivisionError, OverflowError):
+        return None
+    return None
+
+
+# --------------------------------------------------------------------------- #
+# Expression translation (AST -> IR)
+# --------------------------------------------------------------------------- #
+
+
+class ExpressionTranslator:
+    """ref: sql/analyzer/ExpressionAnalyzer.java + planner TranslationMap."""
+
+    def __init__(self, planner: "LogicalPlanner", scope: Scope,
+                 ast_mapping: Optional[Dict[t.Expression, str]] = None,
+                 allow_subqueries: bool = True):
+        self.planner = planner
+        self.scope = scope
+        self.ast_mapping = ast_mapping or {}
+        self.allow_subqueries = allow_subqueries
+        # subquery plans to attach (cross joins / semi joins), collected here
+        self.pending_scalar_subqueries: List[Tuple[str, PlanNode]] = []
+        # lambda parameter bindings: name -> (fresh symbol, type); innermost
+        # lambda shadows (ExpressionAnalyzer's lambda argument scoping)
+        self._lambda_bindings: List[Dict[str, Tuple[str, Type]]] = []
+        # SQL routines currently being inlined (recursion guard)
+        self._inlining: set = set()
+
+    def alloc(self, hint: str, type_: Type) -> str:
+        return self.planner.symbols.new_symbol(hint, type_)
+
+    @property
+    def types(self) -> Dict[str, Type]:
+        return self.planner.symbols.types
+
+    # -------------------------------------------------------------- dispatch
+
+    def translate(self, expr: t.Expression) -> IrExpr:
+        if expr in self.ast_mapping:
+            sym = self.ast_mapping[expr]
+            return Reference(sym, self.types[sym])
+        method = getattr(self, "_t_" + type(expr).__name__, None)
+        if method is None:
+            raise SemanticError(f"unsupported expression: {type(expr).__name__}")
+        return method(expr)
+
+    # -------------------------------------------------------------- literals
+
+    def _t_LongLiteral(self, e: t.LongLiteral) -> IrExpr:
+        return Constant(INTEGER if -(2**31) <= e.value < 2**31 else BIGINT, e.value)
+
+    def _t_DoubleLiteral(self, e: t.DoubleLiteral) -> IrExpr:
+        return Constant(DOUBLE, e.value)
+
+    def _t_DecimalLiteral(self, e: t.DecimalLiteral) -> IrExpr:
+        return parse_decimal_literal(e.text)
+
+    def _t_StringLiteral(self, e: t.StringLiteral) -> IrExpr:
+        return Constant(VarcharType(length=len(e.value)), e.value)
+
+    def _t_BooleanLiteral(self, e: t.BooleanLiteral) -> IrExpr:
+        return Constant(BOOLEAN, e.value)
+
+    def _t_NullLiteral(self, e: t.NullLiteral) -> IrExpr:
+        return Constant(UNKNOWN, None)
+
+    def _t_DateLiteral(self, e: t.DateLiteral) -> IrExpr:
+        return Constant(DATE, parse_date_literal(e.text))
+
+    def _t_TimestampLiteral(self, e: t.TimestampLiteral) -> IrExpr:
+        from ..spi.types import TIMESTAMP, TIMESTAMP_TZ, ttz_pack
+
+        zone = _split_zone_suffix(e.text)
+        if zone is not None:
+            body, offset_minutes = zone
+            micros = parse_timestamp_literal(body)
+            utc_millis = micros // 1000 - offset_minutes * 60_000
+            return Constant(TIMESTAMP_TZ, ttz_pack(utc_millis, offset_minutes))
+        return Constant(TIMESTAMP, parse_timestamp_literal(e.text))
+
+    def _t_TimeLiteral(self, e) -> IrExpr:
+        from ..spi.types import TIME, TimeWithTimeZoneType, twtz_pack
+
+        zone = _split_zone_suffix(e.text)
+        if zone is not None:
+            body, offset_minutes = zone
+            return Constant(
+                TimeWithTimeZoneType(),
+                twtz_pack(parse_time_literal(body), offset_minutes),
+            )
+        return Constant(TIME, parse_time_literal(e.text))
+
+    def _t_IntervalLiteral(self, e: t.IntervalLiteral) -> IrExpr:
+        return interval_literal(e)
+
+    def _t_CurrentDate(self, e: t.CurrentDate) -> IrExpr:
+        return Constant(DATE, (datetime.date.today() - EPOCH).days)
+
+    # ------------------------------------------------------------ references
+
+    def _t_Parameter(self, e) -> IrExpr:
+        raise SemanticError(
+            f"unbound parameter ?{e.index + 1}: parameters are only valid in "
+            "prepared statements executed with EXECUTE ... USING"
+        )
+
+    def _t_Identifier(self, e: t.Identifier) -> IrExpr:
+        for bindings in reversed(self._lambda_bindings):
+            if e.name in bindings:
+                sym, type_ = bindings[e.name]
+                return Reference(sym, type_)
+        f = self.scope.resolve(e.name)
+        return Reference(f.symbol, f.type)
+
+    def translate_lambda(self, lam: t.Lambda, param_types) -> "IrLambda":
+        """Bind fresh symbols for the parameters, translate the body with them
+        in scope (innermost shadows)."""
+        if len(lam.params) != len(param_types):
+            raise SemanticError(
+                f"lambda has {len(lam.params)} parameters, expected "
+                f"{len(param_types)}"
+            )
+        bindings = {}
+        syms = []
+        for p, pt in zip(lam.params, param_types):
+            sym = self.alloc(f"lambda_{p}", pt)
+            bindings[p] = (sym, pt)
+            syms.append(sym)
+        self._lambda_bindings.append(bindings)
+        try:
+            body = self.translate(lam.body)
+        finally:
+            self._lambda_bindings.pop()
+        return IrLambda(tuple(syms), tuple(param_types), body)
+
+    def _t_Dereference(self, e: t.Dereference) -> IrExpr:
+        parts: List[str] = [e.fieldname]
+        base = e.base
+        while isinstance(base, t.Dereference):
+            parts.append(base.fieldname)
+            base = base.base
+        if not isinstance(base, t.Identifier):
+            raise SemanticError(f"unsupported dereference base: {base}")
+        parts.append(base.name)
+        parts.reverse()  # [qualifier..., column]
+        column = parts[-1]
+        qualifier = parts[-2] if len(parts) >= 2 else None
+        try:
+            f = self.scope.resolve(column, qualifier)
+        except SemanticError:
+            # not a qualified column — try row-field access on the base expr
+            # (ref: sql/analyzer/ExpressionAnalyzer dereference disambiguation)
+            base_ir = self.translate(e.base)
+            bt = base_ir.type
+            if isinstance(bt, RowType):
+                i = bt.field_index(e.fieldname)
+                if i is None:
+                    raise SemanticError(
+                        f"row has no field named {e.fieldname!r}"
+                    ) from None
+                return Call(
+                    "$field", (base_ir, Constant(INTEGER, i)), bt.fields[i][1]
+                )
+            raise
+        return Reference(f.symbol, f.type)
+
+    # ------------------------------------------------------------- operators
+
+    def _call(self, name: str, args: List[IrExpr], out_type: Type) -> IrExpr:
+        if all(isinstance(a, Constant) for a in args):
+            folded = fold_constant_call(name, args, out_type)
+            if folded is not None:
+                return folded
+        return Call(name, tuple(args), out_type)
+
+    def _cast_to(self, e: IrExpr, target: Type) -> IrExpr:
+        if e.type == target:
+            return e
+        if isinstance(e, Constant):
+            c = fold_cast_constant(e, target)
+            if c is not None:
+                return c
+        return CastExpr(e, target, False)
+
+    def _t_ArithmeticBinary(self, e: t.ArithmeticBinary) -> IrExpr:
+        left = self.translate(e.left)
+        right = self.translate(e.right)
+        name = {
+            t.ArithmeticOp.ADD: "$add",
+            t.ArithmeticOp.SUBTRACT: "$subtract",
+            t.ArithmeticOp.MULTIPLY: "$multiply",
+            t.ArithmeticOp.DIVIDE: "$divide",
+            t.ArithmeticOp.MODULUS: "$modulus",
+        }[e.op]
+        out = resolve_scalar(name, [left.type, right.type])
+        lt, rt = left.type, right.type
+        # scale alignment / float promotion (see module docstring in functions.py)
+        if name in ("$add", "$subtract") and isinstance(out, DecimalType):
+            left, right = self._cast_to(left, out), self._cast_to(right, out)
+        elif name == "$divide" and out == DOUBLE and (is_numeric(lt) and is_numeric(rt)):
+            left, right = self._cast_to(left, DOUBLE), self._cast_to(right, DOUBLE)
+        elif out == DOUBLE and lt != rt and not (
+            lt in (DATE,) or rt in (INTERVAL_DAY_TIME, INTERVAL_YEAR_MONTH)
+        ):
+            left, right = self._cast_to(left, DOUBLE), self._cast_to(right, DOUBLE)
+        return self._call(name, [left, right], out)
+
+    def _t_ArithmeticUnary(self, e: t.ArithmeticUnary) -> IrExpr:
+        v = self.translate(e.value)
+        if e.op == "+":
+            return v
+        out = resolve_scalar("$negate", [v.type])
+        return self._call("$negate", [v], out)
+
+    def _t_Comparison(self, e: t.Comparison) -> IrExpr:
+        left = self.translate(e.left)
+        right = self.translate(e.right)
+        name = {
+            t.ComparisonOp.EQUAL: "$eq",
+            t.ComparisonOp.NOT_EQUAL: "$ne",
+            t.ComparisonOp.LESS_THAN: "$lt",
+            t.ComparisonOp.LESS_THAN_OR_EQUAL: "$lte",
+            t.ComparisonOp.GREATER_THAN: "$gt",
+            t.ComparisonOp.GREATER_THAN_OR_EQUAL: "$gte",
+            t.ComparisonOp.IS_DISTINCT_FROM: "$distinct_from",
+        }[e.op]
+        left, right = self._coerce_pair(left, right, f"comparison {name}")
+        return self._call(name, [left, right], BOOLEAN)
+
+    def _coerce_pair(self, left: IrExpr, right: IrExpr, what: str):
+        if left.type == right.type:
+            return left, right
+        common = common_super_type(left.type, right.type)
+        if common is None:
+            raise SemanticError(
+                f"{what}: incompatible types {left.type.display()} and {right.type.display()}"
+            )
+        return self._cast_to(left, common), self._cast_to(right, common)
+
+    def _t_Logical(self, e: t.Logical) -> IrExpr:
+        terms = [self._to_bool(self.translate(x)) for x in e.terms]
+        name = "$and" if e.op == "AND" else "$or"
+        result = terms[0]
+        for term in terms[1:]:
+            result = self._call(name, [result, term], BOOLEAN)
+        return result
+
+    def _to_bool(self, e: IrExpr) -> IrExpr:
+        if e.type not in (BOOLEAN, UNKNOWN):
+            raise SemanticError(f"expected boolean, got {e.type.display()}")
+        return e
+
+    def _t_Not(self, e: t.Not) -> IrExpr:
+        return self._call("$not", [self._to_bool(self.translate(e.value))], BOOLEAN)
+
+    def _t_IsNull(self, e: t.IsNull) -> IrExpr:
+        return self._call("$is_null", [self.translate(e.value)], BOOLEAN)
+
+    def _t_IsNotNull(self, e: t.IsNotNull) -> IrExpr:
+        return self._call("$not_null", [self.translate(e.value)], BOOLEAN)
+
+    def _t_Between(self, e: t.Between) -> IrExpr:
+        # lowered to v >= lo AND v <= hi (Trino does the same in IR)
+        v = self.translate(e.value)
+        lo = self.translate(e.min)
+        hi = self.translate(e.max)
+        v1, lo = self._coerce_pair(v, lo, "BETWEEN")
+        v2, hi = self._coerce_pair(v, hi, "BETWEEN")
+        low = self._call("$gte", [v1, lo], BOOLEAN)
+        high = self._call("$lte", [v2, hi], BOOLEAN)
+        out = self._call("$and", [low, high], BOOLEAN)
+        if e.negated:
+            out = self._call("$not", [out], BOOLEAN)
+        return out
+
+    def _t_InList(self, e: t.InList) -> IrExpr:
+        v = self.translate(e.value)
+        eqs: List[IrExpr] = []
+        for item in e.items:
+            it = self.translate(item)
+            a, b = self._coerce_pair(v, it, "IN")
+            eqs.append(self._call("$eq", [a, b], BOOLEAN))
+        out = eqs[0]
+        for term in eqs[1:]:
+            out = self._call("$or", [out, term], BOOLEAN)
+        if e.negated:
+            out = self._call("$not", [out], BOOLEAN)
+        return out
+
+    def _t_Like(self, e: t.Like) -> IrExpr:
+        v = self.translate(e.value)
+        pattern = self.translate(e.pattern)
+        if not isinstance(pattern, Constant) or not is_string(pattern.type):
+            raise SemanticError("LIKE pattern must be a string literal")
+        if not is_string(v.type):
+            raise SemanticError(f"LIKE over {v.type.display()}")
+        escape = None
+        if e.escape is not None:
+            esc = self.translate(e.escape)
+            if not isinstance(esc, Constant):
+                raise SemanticError("LIKE escape must be a literal")
+            escape = esc.value
+        args = [v, pattern] if escape is None else [v, pattern, Constant(VARCHAR, escape)]
+        out = self._call("$like", args, BOOLEAN)
+        if e.negated:
+            out = self._call("$not", [out], BOOLEAN)
+        return out
+
+    def _t_SearchedCase(self, e: t.SearchedCase) -> IrExpr:
+        whens = [(self._to_bool(self.translate(w.condition)), self.translate(w.result)) for w in e.when_clauses]
+        default = self.translate(e.default) if e.default is not None else None
+        out_type = whens[0][1].type
+        for _, r in whens[1:]:
+            c = common_super_type(out_type, r.type)
+            if c is None:
+                raise SemanticError("CASE branches have incompatible types")
+            out_type = c
+        if default is not None:
+            c = common_super_type(out_type, default.type)
+            if c is None:
+                raise SemanticError("CASE branches have incompatible types")
+            out_type = c
+        whens = [(cond, self._cast_to(r, out_type)) for cond, r in whens]
+        if default is not None:
+            default = self._cast_to(default, out_type)
+        return Case(tuple(whens), default, out_type)
+
+    def _t_SimpleCase(self, e: t.SimpleCase) -> IrExpr:
+        operand = e.operand
+        whens = tuple(
+            t.WhenClause(
+                t.Comparison(t.ComparisonOp.EQUAL, operand, w.condition), w.result
+            )
+            for w in e.when_clauses
+        )
+        return self._t_SearchedCase(t.SearchedCase(whens, e.default))
+
+    def _t_Cast(self, e: t.Cast) -> IrExpr:
+        from ..spi.types import VectorType, parse_type
+
+        target = parse_type(e.type_name)
+        v = self.translate(e.value)
+        if v.type == target:
+            return v
+        if isinstance(target, VectorType):
+            # fold CAST(ARRAY[c1, c2, ...] AS vector(n)) into a vector
+            # CONSTANT: the tensor lowering reads the host value off the
+            # Constant for the (rows, n) @ (n,) matvec form
+            from .._unported import unported
+            unported("ops.tensor")
+
+            if isinstance(v, Constant) and v.value is None:
+                return Constant(target, None)
+            folded = fold_constant_array(v)
+            if folded is not None:
+                if len(folded) != target.dimension:
+                    raise SemanticError(
+                        f"cannot cast array of length {len(folded)} to "
+                        f"{target.display()}"
+                    )
+                value = None if any(x is None for x in folded) else folded
+                return Constant(target, value)
+        if isinstance(v, Constant):
+            c = fold_cast_constant(v, target)
+            if c is not None:
+                return c
+        return CastExpr(v, target, e.safe)
+
+    def _t_Extract(self, e: t.Extract) -> IrExpr:
+        v = self.translate(e.value)
+        fn = {
+            "YEAR": "year",
+            "MONTH": "month",
+            "DAY": "day",
+            "QUARTER": "quarter",
+            "DOW": "day_of_week",
+            "DOY": "day_of_year",
+            "HOUR": "hour",
+            "MINUTE": "minute",
+            "SECOND": "second",
+        }.get(e.field_name)
+        if fn is None:
+            raise SemanticError(f"unsupported EXTRACT field: {e.field_name}")
+        return Call(fn, (v,), BIGINT)
+
+    def _t_Row(self, e: t.Row) -> IrExpr:
+        items = [self.translate(i) for i in e.items]
+        rt = RowType(fields=tuple((None, i.type) for i in items))
+        return Call("$row", tuple(items), rt)
+
+    def _t_Array(self, e: t.Array) -> IrExpr:
+        items = [self.translate(i) for i in e.items]
+        el: Type = UNKNOWN
+        for it in items:
+            c = common_super_type(el, it.type)
+            if c is None:
+                raise SemanticError("ARRAY elements have incompatible types")
+            el = c
+        items = [self._cast_to(i, el) for i in items]
+        return Call("$array", tuple(items), ArrayType(element=el))
+
+    def _t_Subscript(self, e: t.Subscript) -> IrExpr:
+        base = self.translate(e.base)
+        idx = self.translate(e.index)
+        bt = base.type
+        if isinstance(bt, ArrayType):
+            if not is_integral(idx.type):
+                raise SemanticError("array subscript must be an integer")
+            return Call("$subscript", (base, idx), bt.element)
+        if isinstance(bt, MapType):
+            k = self._cast_to(idx, bt.key)
+            return Call("$subscript", (base, k), bt.value)
+        if isinstance(bt, RowType):
+            if isinstance(idx, Constant) and is_integral(idx.type):
+                i = int(idx.value) - 1
+                if not 0 <= i < len(bt.fields):
+                    raise SemanticError(f"row field index out of range: {i + 1}")
+                return Call("$field", (base, Constant(INTEGER, i)), bt.fields[i][1])
+            raise SemanticError("row subscript must be an integer literal")
+        raise SemanticError(f"cannot subscript {bt.display()}")
+
+    def _widen_needle(self, needle: IrExpr, el: Type, fname: str) -> IrExpr:
+        """Coerce a lookup value toward an array/map element type WITHOUT
+        narrowing: a wider integral needle stays as-is (the compiler compares
+        in the promoted int64 domain); other widening mismatches are errors."""
+        if can_coerce(needle.type, el):
+            return self._cast_to(needle, el)
+        if is_integral(needle.type) and is_integral(el):
+            return needle
+        raise SemanticError(
+            f"{fname}: cannot compare {needle.type.display()} against "
+            f"{el.display()} elements"
+        )
+
+    def _nested_function(self, name: str, args: List[IrExpr]):
+        """Type nested-type functions structurally (the registry's flat
+        signatures can't express generics over array/map element types)."""
+        a0 = args[0].type if args else None
+        if name == "concat" and isinstance(a0, ArrayType):
+            out = args[0]
+            for b in args[1:]:
+                if not isinstance(b.type, ArrayType):
+                    raise SemanticError("concat: cannot mix arrays and scalars")
+                el = common_super_type(out.type.element, b.type.element)
+                if el is None:
+                    raise SemanticError("concat: incompatible array element types")
+                out = Call("$array_concat", (out, b), ArrayType(element=el))
+            return out
+        if name == "map" and len(args) == 2 and isinstance(a0, ArrayType):
+            if not isinstance(args[1].type, ArrayType):
+                raise SemanticError("map(): both arguments must be arrays")
+            mt = MapType(key=a0.element, value=args[1].type.element)
+            return Call("$map", tuple(args), mt)
+        if name == "cardinality" and isinstance(a0, (ArrayType, MapType)):
+            return Call("cardinality", tuple(args), BIGINT)
+        if name == "element_at" and isinstance(a0, (ArrayType, MapType)):
+            if isinstance(a0, ArrayType):
+                if not is_integral(args[1].type):
+                    raise SemanticError("element_at: index must be an integer")
+                return Call("element_at", tuple(args), a0.element)
+            key = self._widen_needle(args[1], a0.key, "element_at")
+            return Call("element_at", (args[0], key), a0.value)
+        if name in ("contains", "array_position") and isinstance(a0, ArrayType):
+            el = common_super_type(a0.element, args[1].type)
+            if el is None:
+                raise SemanticError(f"{name}: element type mismatch")
+            out_t = BOOLEAN if name == "contains" else BIGINT
+            needle = self._widen_needle(args[1], a0.element, name)
+            return Call(name, (args[0], needle), out_t)
+        if name in ("array_min", "array_max") and isinstance(a0, ArrayType):
+            return Call(name, tuple(args), a0.element)
+        if name in ("array_sort", "array_distinct") and isinstance(a0, ArrayType):
+            return Call(name, tuple(args), a0)
+        if name == "slice" and isinstance(a0, ArrayType):
+            cast_args = (args[0], self._cast_to(args[1], BIGINT), self._cast_to(args[2], BIGINT))
+            return Call("slice", cast_args, a0)
+        if name == "map_keys" and isinstance(a0, MapType):
+            return Call(name, tuple(args), ArrayType(element=a0.key))
+        if name == "map_values" and isinstance(a0, MapType):
+            return Call(name, tuple(args), ArrayType(element=a0.value))
+        if name == "array_remove" and isinstance(a0, ArrayType):
+            needle = self._widen_needle(args[1], a0.element, name)
+            return Call(name, (args[0], needle), a0)
+        if name in ("array_except", "array_intersect", "array_union") and isinstance(
+            a0, ArrayType
+        ):
+            if not isinstance(args[1].type, ArrayType):
+                raise SemanticError(f"{name}: both arguments must be arrays")
+            el = common_super_type(a0.element, args[1].type.element)
+            if el is None:
+                raise SemanticError(f"{name}: incompatible array element types")
+            out_t = ArrayType(element=el)
+            if name == "array_union":
+                # union == distinct(concat): reuse both existing lowerings
+                return Call(
+                    "array_distinct",
+                    (Call("$array_concat", tuple(args), out_t),),
+                    out_t,
+                )
+            return Call(name, tuple(args), out_t)
+        if name == "arrays_overlap" and isinstance(a0, ArrayType):
+            if not isinstance(args[1].type, ArrayType):
+                raise SemanticError("arrays_overlap: both arguments must be arrays")
+            return Call(name, tuple(args), BOOLEAN)
+        if name == "trim_array" and isinstance(a0, ArrayType):
+            return Call(
+                name, (args[0], self._cast_to(args[1], BIGINT)), a0
+            )
+        if name == "repeat" and len(args) == 2:
+            return Call(
+                "repeat",
+                (args[0], self._cast_to(args[1], BIGINT)),
+                ArrayType(element=args[0].type),
+            )
+        if name == "map_concat" and isinstance(a0, MapType):
+            for b in args[1:]:
+                if not isinstance(b.type, MapType):
+                    raise SemanticError("map_concat: all arguments must be maps")
+            return Call(name, tuple(args), a0)
+        return None
+
+    def _t_vector_function(self, name: str, args: List[IrExpr]) -> IrExpr:
+        """Tensor workload plane: type a vector-family call. Constant ARRAY
+        literals fold into vector CONSTANTS (the compiler's matvec form
+        reads the host value), and non-constant array expressions coerce
+        toward the vector operand's dimension via CAST. By resolution time
+        every argument IS a vector, so a dimension mismatch is a hard
+        analysis error naming both dimensions."""
+        from .._unported import unported
+        unported("ops.tensor")
+        from ..spi.types import (
+            ArrayType as _Arr,
+            UnknownType as _Unk,
+            VectorType as _Vec,
+            is_numeric as _isnum,
+            vector_type,
+        )
+        from ..sql.functions import resolve_scalar
+
+        # pass 1: keep vectors, fold constant arrays (each fold can ESTABLISH
+        # the dimension — so dot_product(ARRAY[...], <array expr>) works in
+        # either argument order); defer expressions that need the dimension
+        target_dim = next(
+            (a.type.dimension for a in args if isinstance(a.type, _Vec)), None
+        )
+        staged: List[object] = []
+        for a in args:
+            if isinstance(a.type, _Vec):
+                staged.append(a)
+                continue
+            if isinstance(a.type, _Unk):
+                staged.append(("null", a))
+                continue
+            if isinstance(a.type, _Arr) and (
+                _isnum(a.type.element) or isinstance(a.type.element, _Unk)
+            ):
+                folded = fold_constant_array(a)
+                if folded is not None:
+                    if not folded:
+                        # never a valid query vector — fail HERE, not with a
+                        # raw shape error inside the kernel
+                        raise SemanticError(
+                            f"{name}: empty array literal has no vector "
+                            "dimension"
+                        )
+                    value = None if any(x is None for x in folded) else folded
+                    staged.append(Constant(vector_type(len(folded)), value))
+                    if target_dim is None:
+                        target_dim = len(folded)
+                    continue
+                staged.append(("cast", a))
+                continue
+            staged.append(a)  # resolve_scalar names the type error
+        # pass 2: resolve the deferred arguments against the dimension
+        coerced: List[IrExpr] = []
+        for s in staged:
+            if not isinstance(s, tuple):
+                coerced.append(s)
+                continue
+            kind, a = s
+            if target_dim is None:
+                what = (
+                    "a NULL argument" if kind == "null"
+                    else a.type.display()
+                )
+                raise SemanticError(
+                    f"{name}: cannot infer the vector dimension of {what} "
+                    "(cast it: CAST(... AS vector(n)))"
+                )
+            if kind == "null":
+                coerced.append(Constant(vector_type(target_dim), None))
+            else:
+                coerced.append(CastExpr(a, vector_type(target_dim)))
+        try:
+            out = resolve_scalar(name, [a.type for a in coerced])
+        except Exception as err:
+            raise SemanticError(str(err)) from err
+        return Call(name, tuple(coerced), out)
+
+    def _t_FunctionCall(self, e: t.FunctionCall) -> IrExpr:
+        name = str(e.name).lower()
+        if name == "grouping":
+            # reachable only under a SINGLE grouping set (the grouping-sets
+            # rewrite folds it per UNION branch): every argument is a real
+            # group key, so the bitmask is constantly 0
+            return Constant(BIGINT, 0)
+        if is_aggregate(name):
+            raise SemanticError(
+                f"aggregate function {name}() in an invalid context (WHERE/join)"
+            )
+        if e.window is not None:
+            raise SemanticError("window function in an invalid context")
+        if e.order_by:
+            raise SemanticError(
+                f"ORDER BY in arguments is only supported for aggregate "
+                f"functions, not {name}()"
+            )
+        if name in _HIGHER_ORDER_FUNCS:
+            return self._t_higher_order(name, e)
+        args = [self.translate(a) for a in e.args]
+        nested = self._nested_function(name, args)
+        if nested is not None:
+            return nested
+        from ..sql.functions import VECTOR_SCALAR_FUNCTIONS
+
+        if name in VECTOR_SCALAR_FUNCTIONS:
+            return self._t_vector_function(name, args)
+        if name in ("coalesce", "greatest", "least"):
+            common = args[0].type
+            for a in args[1:]:
+                c = common_super_type(common, a.type)
+                if c is None:
+                    raise SemanticError(f"{name}: incompatible argument types")
+                common = c
+            args = [self._cast_to(a, common) for a in args]
+            return Call(name, tuple(args), common)
+        if name == "if":
+            cond = self._to_bool(args[0])
+            if len(args) == 2:
+                args.append(Constant(args[1].type, None))
+            common = common_super_type(args[1].type, args[2].type)
+            return Case(((cond, self._cast_to(args[1], common)),), self._cast_to(args[2], common), common)
+        if name == "nullif":
+            a, b = self._coerce_pair(args[0], args[1], "nullif")
+            return Call("nullif", (a, b), args[0].type)
+        routine = self.planner.metadata.functions.get(name, len(args))
+        if routine is not None:
+            return self._inline_routine(routine, args)
+        out = resolve_scalar(name, [a.type for a in args])
+        return Call(name, tuple(args), out)
+
+    def _inline_routine(self, routine, args: List[IrExpr]) -> IrExpr:
+        """Expand an expression-bodied SQL routine at the call site (ref:
+        SqlRoutinePlanner — the reference compiles to bytecode, this engine's
+        codegen is IR -> XLA so inlining IS the compilation): translate the
+        body with parameters bound to fresh symbols, then substitute the
+        coerced argument IR for those symbols."""
+        if routine.name in self._inlining:
+            raise SemanticError(
+                f"recursive SQL function: {routine.name} (routines must not "
+                "call themselves)"
+            )
+        bindings = {}
+        fresh = []
+        for (pname, ptype), arg in zip(routine.parameters, args):
+            if not can_coerce(arg.type, ptype) and arg.type != ptype:
+                raise SemanticError(
+                    f"{routine.name}({pname}): argument type "
+                    f"{arg.type.display()} does not coerce to {ptype.display()}"
+                )
+            sym = self.alloc(f"param_{pname}", ptype)
+            bindings[pname] = (sym, ptype)
+            fresh.append(sym)
+        self._inlining.add(routine.name)
+        self._lambda_bindings.append(bindings)
+        try:
+            body = self.translate(routine.body)
+        finally:
+            self._lambda_bindings.pop()
+            self._inlining.discard(routine.name)
+        body = self._cast_to(body, routine.return_type)
+        mapping = {
+            sym: self._cast_to(arg, ptype)
+            for sym, ((_, ptype), arg) in zip(fresh, zip(routine.parameters, args))
+        }
+        return substitute(body, mapping)
+
+    def _t_higher_order(self, name: str, e: t.FunctionCall) -> IrExpr:
+        """Higher-order array/map functions with lambda arguments (ref:
+        operator/scalar/ArrayTransformFunction.java, ArrayFilterFunction,
+        ArrayAnyMatchFunction, ZipWithFunction, ArrayReduceFunction,
+        MapTransformValuesFunction, MapFilterFunction)."""
+        args = list(e.args)
+        expected = {"zip_with": 3, "reduce": (3, 4)}.get(name, 2)
+        ok = (
+            len(args) in expected
+            if isinstance(expected, tuple)
+            else len(args) == expected
+        )
+        if not ok:
+            raise SemanticError(
+                f"{name} expects {expected} arguments, got {len(args)}"
+            )
+
+        def need_lambda(i) -> t.Lambda:
+            if not isinstance(args[i], t.Lambda):
+                raise SemanticError(f"{name}: argument {i + 1} must be a lambda")
+            return args[i]
+
+        if name in ("transform", "filter", "any_match", "all_match", "none_match"):
+            arr = self.translate(args[0])
+            if not isinstance(arr.type, ArrayType):
+                raise SemanticError(f"{name} expects an array, got {arr.type.display()}")
+            lam = self.translate_lambda(need_lambda(1), (arr.type.element,))
+            if name == "transform":
+                out: Type = ArrayType(element=lam.type)
+            elif name == "filter":
+                if lam.type != BOOLEAN:
+                    raise SemanticError("filter lambda must return boolean")
+                out = arr.type
+            else:
+                if lam.type != BOOLEAN:
+                    raise SemanticError(f"{name} lambda must return boolean")
+                out = BOOLEAN
+            return Call(name, (arr, lam), out)
+        if name == "zip_with":
+            a = self.translate(args[0])
+            b = self.translate(args[1])
+            if not isinstance(a.type, ArrayType) or not isinstance(b.type, ArrayType):
+                raise SemanticError("zip_with expects two arrays")
+            lam = self.translate_lambda(
+                need_lambda(2), (a.type.element, b.type.element)
+            )
+            return Call(name, (a, b, lam), ArrayType(element=lam.type))
+        if name == "reduce":
+            arr = self.translate(args[0])
+            if not isinstance(arr.type, ArrayType):
+                raise SemanticError("reduce expects an array")
+            init = self.translate(args[1])
+            state_t = init.type
+            lam_in = self.translate_lambda(
+                need_lambda(2), (state_t, arr.type.element)
+            )
+            if lam_in.type != state_t:
+                if common_super_type(lam_in.type, state_t) != state_t:
+                    raise SemanticError(
+                        "reduce input lambda must return the state type "
+                        f"{state_t.display()}, got {lam_in.type.display()}"
+                    )
+                lam_in = IrLambda(
+                    lam_in.params, lam_in.param_types,
+                    self._cast_to(lam_in.body, state_t),
+                )
+            if len(args) > 3:
+                lam_out = self.translate_lambda(need_lambda(3), (state_t,))
+            else:
+                s = self.alloc("lambda_s", state_t)
+                lam_out = IrLambda((s,), (state_t,), Reference(s, state_t))
+            return Call("reduce", (arr, init, lam_in, lam_out), lam_out.type)
+        if name in ("transform_values", "map_filter"):
+            m = self.translate(args[0])
+            if not isinstance(m.type, MapType):
+                raise SemanticError(f"{name} expects a map")
+            lam = self.translate_lambda(need_lambda(1), (m.type.key, m.type.value))
+            if name == "transform_values":
+                out = MapType(key=m.type.key, value=lam.type)
+            else:
+                if lam.type != BOOLEAN:
+                    raise SemanticError("map_filter lambda must return boolean")
+                out = m.type
+            return Call(name, (m, lam), out)
+        raise SemanticError(f"unknown higher-order function {name}")
+
+    def _t_ScalarSubquery(self, e: t.ScalarSubquery) -> IrExpr:
+        if not self.allow_subqueries:
+            raise SemanticError("subquery not allowed in this context")
+        rel = self.planner.plan_query(e.query, parent_scope=None)
+        if len(rel.fields) != 1:
+            raise SemanticError("scalar subquery must return one column")
+        node = EnforceSingleRowNode(source=rel.node)
+        f = rel.fields[0]
+        self.pending_scalar_subqueries.append((f.symbol, node))
+        return Reference(f.symbol, f.type)
+
+    def _t_InSubquery(self, e: t.InSubquery) -> IrExpr:
+        raise SemanticError(
+            "IN (subquery) is only supported as a top-level WHERE conjunct"
+        )
+
+    def _t_Exists(self, e: t.Exists) -> IrExpr:
+        raise SemanticError("EXISTS is only supported as a top-level WHERE conjunct")
+
+
+def fold_cast_constant(c: Constant, target: Type) -> Optional[Constant]:
+    v = c.value
+    if v is None:
+        return Constant(target, None)
+    src = c.type
+    try:
+        if isinstance(target, DecimalType):
+            if isinstance(src, DecimalType):
+                diff = target.scale - src.scale
+                scaled = v * 10**diff if diff >= 0 else round(v / 10**-diff)
+                if target.precision <= 18 and abs(scaled) >= 10**18:
+                    # narrowing overflow: NULL, never a silently wrapped
+                    # int64 (Trino raises; documented deviation)
+                    return Constant(target, None)
+                return Constant(target, scaled)
+            if is_integral(src):
+                return Constant(target, v * 10**target.scale)
+            if is_floating(src):
+                return Constant(target, round(v * 10**target.scale))
+        if target == DOUBLE or (is_floating(target)):
+            if isinstance(src, DecimalType):
+                return Constant(target, v / 10**src.scale)
+            if is_numeric(src):
+                return Constant(target, float(v))
+        if is_integral(target):
+            if isinstance(src, DecimalType):
+                return Constant(target, round(v / 10**src.scale))
+            if is_numeric(src):
+                return Constant(target, int(v))
+            if is_string(src):
+                return Constant(target, int(v))
+        if is_string(target) and is_string(src):
+            return Constant(target, v)
+        if target == DATE and is_string(src):
+            return Constant(DATE, parse_date_literal(v))
+        if is_string(target) and is_numeric(src):
+            if isinstance(src, DecimalType):
+                s = v / 10**src.scale
+                return Constant(target, f"{s:.{src.scale}f}")
+            return Constant(target, str(v))
+    except (ValueError, TypeError):
+        return None
+    return None
+
+
+class PatternExpressionTranslator(ExpressionTranslator):
+    """DEFINE/MEASURES expression scope (ref: sql/analyzer's
+    PatternRecognitionAnalysis + rowpattern/LogicalIndexExtractor.java).
+
+    Pattern-variable-qualified references (A.price) become $pat(var, col)
+    calls; PREV/NEXT/FIRST/LAST, CLASSIFIER(), MATCH_NUMBER() and the
+    aggregate functions become $-prefixed calls interpreted by the matcher
+    (runtime/match_recognize.py). Unqualified references keep plain Reference
+    form = the universal row set."""
+
+    NAV = {"prev": "$prev", "next": "$next", "first": "$first", "last": "$last"}
+    AGGS = {"sum", "avg", "min", "max", "count"}
+
+    def __init__(self, planner, scope, pattern_vars):
+        super().__init__(planner, scope, allow_subqueries=False)
+        self.pattern_vars = pattern_vars
+
+    def _t_Dereference(self, e: t.Dereference) -> IrExpr:
+        base = e.base
+        if isinstance(base, t.Identifier) and base.name in self.pattern_vars:
+            f = self.scope.resolve(e.fieldname)
+            return Call(
+                "$pat",
+                (Constant(VARCHAR, base.name), Reference(f.symbol, f.type)),
+                f.type,
+            )
+        return super()._t_Dereference(e)
+
+    def _t_FunctionCall(self, e: t.FunctionCall) -> IrExpr:
+        name = str(e.name).lower()
+        if name == "classifier":
+            return Call("$classifier", (), VARCHAR)
+        if name == "match_number":
+            return Call("$match_number", (), BIGINT)
+        if name in self.NAV:
+            args = [self.translate(a) for a in e.args]
+            offset = 1 if name in ("prev", "next") else 0
+            if len(args) > 1:
+                if not isinstance(args[1], Constant):
+                    raise SemanticError(f"{name}() offset must be a literal")
+                offset = int(args[1].value)
+            return Call(
+                self.NAV[name],
+                (args[0], Constant(BIGINT, offset)),
+                args[0].type,
+            )
+        if name in self.AGGS:
+            if name == "count" and (e.is_star or not e.args):
+                return Call("$agg_count", (Constant(BIGINT, 1),), BIGINT)
+            args = [self.translate(a) for a in e.args]
+            at = args[0].type
+            if name == "count":
+                out = BIGINT
+            elif name == "sum":
+                out = at if isinstance(at, DecimalType) or is_floating(at) else BIGINT
+            elif name == "avg":
+                out = at if isinstance(at, DecimalType) else DOUBLE
+            else:  # min/max
+                out = at
+            return Call(f"$agg_{name}", (args[0],), out)
+        return super()._t_FunctionCall(e)
+
+
+# --------------------------------------------------------------------------- #
+# Relation planning
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class RelationPlan:
+    node: PlanNode
+    fields: List[Field]
+
+    def scope(self, parent: Optional[Scope] = None) -> Scope:
+        return Scope(self.fields, parent)
+
+
+class LogicalPlanner:
+    """ref: sql/planner/LogicalPlanner.java:180 (`plan`:244)."""
+
+    def __init__(self, metadata: Metadata, session: Session):
+        self.metadata = metadata
+        self.session = session
+        self.symbols = SymbolAllocator()
+        self._cte: Dict[str, t.Query] = {}
+
+    # ------------------------------------------------------------- entry
+
+    def plan(self, stmt: t.Statement) -> LogicalPlan:
+        if isinstance(stmt, t.QueryStatement):
+            rel = self.plan_query(stmt.query, parent_scope=None)
+            names = [f.name or f"_col{i}" for i, f in enumerate(rel.fields)]
+            root = OutputNode(
+                source=rel.node,
+                column_names=tuple(names),
+                symbols=tuple(f.symbol for f in rel.fields),
+            )
+            return LogicalPlan(root, self.symbols.types)
+        raise SemanticError(f"cannot plan statement: {type(stmt).__name__}")
+
+    # ------------------------------------------------------------- queries
+
+    def plan_query(self, query: t.Query, parent_scope: Optional[Scope]) -> RelationPlan:
+        saved_cte = dict(self._cte)
+        try:
+            for wq in query.with_queries:
+                if wq.column_names:
+                    raise SemanticError("WITH column aliases not supported yet")
+                self._cte[wq.name] = wq.query
+            rel = self._plan_query_body(query.body, parent_scope)
+            if query.order_by or query.limit is not None or query.offset:
+                rel = self._apply_order_limit(
+                    rel, parent_scope, query.order_by, query.limit, query.offset,
+                    select_aliases=None,
+                )
+            return rel
+        finally:
+            self._cte = saved_cte
+
+    def _plan_query_body(self, body: t.QueryBody, parent_scope) -> RelationPlan:
+        if isinstance(body, t.QuerySpecification):
+            return self._plan_query_spec(body, parent_scope)
+        if isinstance(body, t.Values):
+            return self._plan_values(body)
+        if isinstance(body, t.SetOperation):
+            return self._plan_set_operation(body, parent_scope)
+        if isinstance(body, t.TableRef):
+            return self._plan_table(t.Table(body.name), parent_scope)
+        raise SemanticError(f"unsupported query body: {type(body).__name__}")
+
+    def _plan_values(self, body: t.Values) -> RelationPlan:
+        translator = ExpressionTranslator(self, Scope([], None), allow_subqueries=False)
+        rows: List[Tuple] = []
+        row_types: Optional[List[Type]] = None
+        for row_expr in body.rows:
+            items = row_expr.items if isinstance(row_expr, t.Row) else (row_expr,)
+            constants = []
+            for item in items:
+                ir = translator.translate(item)
+                if not isinstance(ir, Constant):
+                    # tensor plane ingest ergonomics: an all-constant numeric
+                    # ARRAY literal folds to a VECTOR constant, so
+                    # ``INSERT INTO t VALUES (1, ARRAY[0.1, 0.2])`` works
+                    # against a vector(2) column without spelling the CAST
+                    # (arrays themselves were never insertable via VALUES)
+                    from .._unported import unported
+                    unported("ops.tensor")
+                    from ..spi.types import vector_type
+
+                    folded = fold_constant_array(ir)
+                    if folded and all(x is not None for x in folded):
+                        ir = Constant(vector_type(len(folded)), folded)
+                    else:
+                        raise SemanticError("VALUES rows must be constant")
+                constants.append(ir)
+            if row_types is None:
+                row_types = [c.type for c in constants]
+            else:
+                if len(constants) != len(row_types):
+                    raise SemanticError("VALUES rows have mismatched arity")
+                for i, c in enumerate(constants):
+                    common = common_super_type(row_types[i], c.type)
+                    if common is None:
+                        raise SemanticError("VALUES rows have mismatched types")
+                    row_types[i] = common
+            rows.append(tuple(c for c in constants))
+        # coerce all rows to the common types
+        coerced_rows = []
+        for row in rows:
+            vals = []
+            for c, tt in zip(row, row_types):
+                if c.type != tt:
+                    folded = fold_cast_constant(c, tt)
+                    c = folded if folded is not None else Constant(tt, c.value)
+                vals.append(c.value)
+            coerced_rows.append(tuple(vals))
+        symbols = [self.symbols.new_symbol(f"col{i}", tt) for i, tt in enumerate(row_types)]
+        node = ValuesNode(symbols=tuple(symbols), rows=tuple(coerced_rows))
+        fields = [Field(f"_col{i}", tt, s) for i, (tt, s) in enumerate(zip(row_types, symbols))]
+        return RelationPlan(node, fields)
+
+    def _plan_set_operation(self, body: t.SetOperation, parent_scope) -> RelationPlan:
+        if body.op in (t.SetOpType.INTERSECT, t.SetOpType.EXCEPT):
+            return self._plan_intersect_except(body, parent_scope)
+        left = self._plan_query_body(body.left, parent_scope)
+        right = self._plan_query_body(body.right, parent_scope)
+        if len(left.fields) != len(right.fields):
+            raise SemanticError("UNION inputs have mismatched column counts")
+        out_symbols = []
+        out_fields = []
+        for lf, rf in zip(left.fields, right.fields):
+            common = common_super_type(lf.type, rf.type)
+            if common is None:
+                raise SemanticError(
+                    f"UNION column types incompatible: {lf.type.display()} vs {rf.type.display()}"
+                )
+            sym = self.symbols.new_symbol(lf.name or "col", common)
+            out_symbols.append(sym)
+            out_fields.append(Field(lf.name, common, sym))
+        # insert casting projections where needed
+        def coerce(rel: RelationPlan) -> Tuple[PlanNode, Tuple[str, ...]]:
+            assigns = []
+            syms = []
+            needs_cast = False
+            for f, out_f in zip(rel.fields, out_fields):
+                if f.type != out_f.type:
+                    needs_cast = True
+                s = self.symbols.new_symbol(f.name or "col", out_f.type)
+                expr = Reference(f.symbol, f.type)
+                if f.type != out_f.type:
+                    expr = CastExpr(expr, out_f.type, False)
+                assigns.append((s, expr))
+                syms.append(s)
+            if needs_cast:
+                return ProjectNode(rel.node, tuple(assigns)), tuple(syms)
+            return rel.node, tuple(f.symbol for f in rel.fields)
+
+        lnode, lsyms = coerce(left)
+        rnode, rsyms = coerce(right)
+        node = UnionNode(
+            inputs=(lnode, rnode),
+            symbols=tuple(out_symbols),
+            symbol_mapping=(lsyms, rsyms),
+        )
+        rel = RelationPlan(node, out_fields)
+        if body.distinct:
+            agg = AggregationNode(
+                source=node,
+                group_keys=tuple(out_symbols),
+                aggregations=(),
+                step=AggregationStep.SINGLE,
+            )
+            rel = RelationPlan(agg, out_fields)
+        return rel
+
+    def _plan_intersect_except(self, body: t.SetOperation, parent_scope) -> RelationPlan:
+        """INTERSECT/EXCEPT (DISTINCT) as all-column joins over deduplicated
+        inputs (ref: rule/ImplementIntersectAsUnion + MarkDistinct — Trino
+        lowers set ops to unions with marker aggregation; the join formulation
+        fits this engine's kernels directly).
+
+        NULL matching: set operations treat NULLs as EQUAL, which equi-join
+        criteria cannot express — both sides join on projected
+        (coalesce(col, zero), is_null(col)) key pairs instead (the round-1
+        "NULLs never match" deviation is gone as of round 5).
+
+        ALL variants follow Trino's own lowering (rule/ImplementIntersectAll /
+        ImplementExceptAll: row_number over all columns vs per-row counts):
+        left gets rn = row_number() OVER (PARTITION BY all cols), the right
+        side aggregates to per-row counts rc; INTERSECT ALL keeps rn <= rc
+        (inner join), EXCEPT ALL keeps rn > rc or unmatched (left join)."""
+        if not body.distinct:
+            return self._plan_intersect_except_all(body, parent_scope)
+        left, right = self._plan_set_op_sides(body, parent_scope)
+
+        def dedup(rel: RelationPlan) -> RelationPlan:
+            agg = AggregationNode(
+                source=rel.node,
+                group_keys=tuple(f.symbol for f in rel.fields),
+                aggregations=(),
+                step=AggregationStep.SINGLE,
+            )
+            return RelationPlan(agg, rel.fields)
+
+        left, right = dedup(left), dedup(right)
+        left_node, lkeys = self._null_safe_side(left)
+        right_node, rkeys = self._null_safe_side(right)
+        criteria = tuple(zip(lkeys, rkeys))
+        if body.op == t.SetOpType.INTERSECT:
+            join = JoinNode(
+                left=left_node, right=right_node, kind=JoinKind.INNER, criteria=criteria
+            )
+        else:  # EXCEPT: left rows with no match (marker column invalid)
+            marker = self.symbols.new_symbol("except_marker", BOOLEAN)
+            marked_right = ProjectNode(
+                source=right_node,
+                assignments=tuple(
+                    [(s, Reference(s, self.symbols.types[s])) for s in rkeys]
+                    + [(marker, Constant(BOOLEAN, True))]
+                ),
+            )
+            join = JoinNode(
+                left=left_node, right=marked_right, kind=JoinKind.LEFT, criteria=criteria
+            )
+            join = FilterNode(
+                source=join,
+                predicate=Call("$is_null", (Reference(marker, BOOLEAN),), BOOLEAN),
+            )
+        out = ProjectNode(
+            source=join,
+            assignments=tuple((f.symbol, Reference(f.symbol, f.type)) for f in left.fields),
+        )
+        return RelationPlan(out, left.fields)
+
+    def _null_safe_side(self, rel: RelationPlan, extra: tuple = ()):
+        """Project null-safe join keys for set-op matching: per column,
+        (coalesce(col, zero), is_null(col)) — SQL set operations treat NULLs
+        as EQUAL (one dedup bucket), which plain equi-join criteria cannot
+        express. ``extra`` symbols pass through. Returns (node, key_symbols)."""
+        assignments = [(f.symbol, Reference(f.symbol, f.type)) for f in rel.fields]
+        for s, tp in extra:
+            assignments.append((s, Reference(s, tp)))
+        keys = []
+        for f in rel.fields:
+            zero: object
+            if is_string(f.type):
+                zero = ""
+            elif f.type == BOOLEAN:
+                zero = False
+            else:
+                zero = 0
+            k = self.symbols.new_symbol("setop_k", f.type)
+            n = self.symbols.new_symbol("setop_n", BOOLEAN)
+            assignments.append(
+                (
+                    k,
+                    Call(
+                        "coalesce",
+                        (Reference(f.symbol, f.type), Constant(f.type, zero)),
+                        f.type,
+                    ),
+                )
+            )
+            assignments.append(
+                (n, Call("$is_null", (Reference(f.symbol, f.type),), BOOLEAN))
+            )
+            keys.extend([k, n])
+        return ProjectNode(source=rel.node, assignments=tuple(assignments)), keys
+
+    def _plan_set_op_sides(self, body: t.SetOperation, parent_scope):
+        """Shared INTERSECT/EXCEPT prologue: plan both sides, check arity and
+        type compatibility."""
+        left = self._plan_query_body(body.left, parent_scope)
+        right = self._plan_query_body(body.right, parent_scope)
+        if len(left.fields) != len(right.fields):
+            raise SemanticError(
+                f"{body.op.value} inputs have mismatched column counts"
+            )
+        for lf, rf in zip(left.fields, right.fields):
+            if common_super_type(lf.type, rf.type) is None:
+                raise SemanticError(
+                    f"{body.op.value} column types incompatible: "
+                    f"{lf.type.display()} vs {rf.type.display()}"
+                )
+        return left, right
+
+    def _plan_intersect_except_all(
+        self, body: t.SetOperation, parent_scope
+    ) -> RelationPlan:
+        left, right = self._plan_set_op_sides(body, parent_scope)
+        # left: rn = row_number() over (partition by all columns)
+        rn = self.symbols.new_symbol("set_op_rn", BIGINT)
+        numbered = WindowNode(
+            source=left.node,
+            partition_by=tuple(f.symbol for f in left.fields),
+            order_by=(),
+            functions=((rn, WindowFunction("row_number", (), output_type=BIGINT)),),
+        )
+        # right: rc = count(*) per distinct row
+        rc = self.symbols.new_symbol("set_op_rc", BIGINT)
+        counted = AggregationNode(
+            source=right.node,
+            group_keys=tuple(f.symbol for f in right.fields),
+            aggregations=((rc, Aggregation("count", (), output_type=BIGINT)),),
+            step=AggregationStep.SINGLE,
+        )
+        # null-safe matching (NULLs equal): join on projected key pairs
+        left_node, lkeys = self._null_safe_side(
+            RelationPlan(numbered, left.fields), extra=((rn, BIGINT),)
+        )
+        right_node, rkeys = self._null_safe_side(
+            RelationPlan(counted, right.fields), extra=((rc, BIGINT),)
+        )
+        criteria = tuple(zip(lkeys, rkeys))
+        rn_ref = Reference(rn, BIGINT)
+        rc_ref = Reference(rc, BIGINT)
+        if body.op == t.SetOpType.INTERSECT:
+            join = JoinNode(
+                left=left_node, right=right_node, kind=JoinKind.INNER, criteria=criteria
+            )
+            keep = Call("$lte", (rn_ref, rc_ref), BOOLEAN)
+        else:  # EXCEPT ALL: keep copies beyond the right count, or unmatched
+            join = JoinNode(
+                left=left_node, right=right_node, kind=JoinKind.LEFT, criteria=criteria
+            )
+            keep = Call(
+                "$or",
+                (
+                    Call("$is_null", (rc_ref,), BOOLEAN),
+                    Call("$gt", (rn_ref, rc_ref), BOOLEAN),
+                ),
+                BOOLEAN,
+            )
+        filtered = FilterNode(source=join, predicate=keep)
+        out = ProjectNode(
+            source=filtered,
+            assignments=tuple(
+                (f.symbol, Reference(f.symbol, f.type)) for f in left.fields
+            ),
+        )
+        return RelationPlan(out, left.fields)
+
+    def _plan_table_function(self, rel: "t.TableFunctionRelation") -> RelationPlan:
+        """Table functions via the ConnectorTableFunction SPI (ref:
+        spi/function/table/ConnectorTableFunction.java:23, resolved like
+        TableFunctionRegistry): arguments bind by name or declaration order;
+        TABLE arguments are planned relations, DESCRIPTOR arguments column
+        lists, scalars must be constants. ``analyze`` returns the
+        RelationPlan — a leaf node or a rewrite of the input plan."""
+        from .._unported import unported
+
+        unported("spi.table_function")
+
+        registry = getattr(self.metadata, "table_functions", None)
+        if registry is None:
+            registry = builtin_table_functions()
+        fn = registry.get(rel.name)
+        if fn is None:
+            raise SemanticError(f"unknown table function: {rel.name}")
+
+        translator = ExpressionTranslator(self, Scope([], None), allow_subqueries=False)
+
+        def convert(value):
+            if isinstance(value, t.Descriptor):
+                return DescriptorArgument(value.columns)
+            if isinstance(value, t.Relation):
+                return TableArgument(self._plan_relation(value, None))
+            ir = translator.translate(value)
+            if not isinstance(ir, Constant):
+                # constant ARRAY literals are valid scalar arguments (model
+                # weights for the tensor plane's scoring functions): fold to
+                # the host value tuple
+                from .._unported import unported
+                unported("ops.tensor")
+
+                folded = fold_constant_array(ir)
+                if folded is not None:
+                    return ScalarArgument(folded)
+                raise SemanticError(
+                    f"table function {rel.name} scalar arguments must be constants"
+                )
+            if isinstance(ir.type, DecimalType):
+                # scalar constants carry storage repr; hand analyze the VALUE
+                return ScalarArgument(
+                    None if ir.value is None
+                    else ir.value / 10**ir.type.scale
+                )
+            return ScalarArgument(ir.value)
+
+        declared = [n for n, _ in fn.arguments]
+        bound: dict = {}
+        for i, a in enumerate(rel.args):
+            if i >= len(declared):
+                raise SemanticError(f"{rel.name}: too many arguments")
+            bound[declared[i]] = convert(a)
+        for name, value in rel.named_args:
+            if name not in declared:
+                raise SemanticError(f"{rel.name}: unknown argument {name}")
+            bound[name] = convert(value)
+
+        planner = self
+
+        class _Context:
+            # planner services for analyze(): session gates (model_scoring),
+            # symbol allocation, and relation-plan construction
+            session = self.session
+
+            @staticmethod
+            def new_symbol(hint, type_):
+                return planner.symbols.new_symbol(hint, type_)
+
+            @staticmethod
+            def append_projection(plan, new_fields):
+                """Identity-project the input plan's fields and APPEND
+                computed columns: ``new_fields`` is [(name, type, expr)];
+                returns the RelationPlan with fresh symbols for the new
+                columns (the model-scoring table functions' rewrite)."""
+                assignments = [
+                    (f.symbol, Reference(f.symbol, f.type))
+                    for f in plan.fields
+                ]
+                fields = list(plan.fields)
+                for fname, ftype, expr in new_fields:
+                    sym = planner.symbols.new_symbol(fname, ftype)
+                    assignments.append((sym, expr))
+                    fields.append(Field(fname, ftype, sym))
+                node = ProjectNode(
+                    source=plan.node, assignments=tuple(assignments)
+                )
+                return RelationPlan(node, fields)
+
+            @staticmethod
+            def relation_plan(node, fields):
+                return RelationPlan(
+                    node, [Field(n, ty, s) for n, ty, s in fields]
+                )
+
+            @staticmethod
+            def fields_of(plan):
+                return [(f.name, f.type, f.symbol) for f in plan.fields]
+
+            @staticmethod
+            def project_plan(plan, kept_fields):
+                node = ProjectNode(
+                    source=plan.node,
+                    assignments=tuple(
+                        (s, Reference(s, ty)) for _, ty, s in kept_fields
+                    ),
+                )
+                return RelationPlan(
+                    node, [Field(n, ty, s) for n, ty, s in kept_fields]
+                )
+
+        try:
+            return fn.analyze(bound, _Context)
+        except TableFunctionAnalysisError as e:
+            raise SemanticError(str(e)) from e
+
+    # ------------------------------------------------------- FROM relations
+
+    def _plan_relation(self, rel: t.Relation, parent_scope) -> RelationPlan:
+        if isinstance(rel, t.Table):
+            return self._plan_table(rel, parent_scope)
+        if isinstance(rel, t.TableFunctionRelation):
+            return self._plan_table_function(rel)
+        if isinstance(rel, t.AliasedRelation):
+            inner = self._plan_relation(rel.relation, parent_scope)
+            fields = []
+            for i, f in enumerate(inner.fields):
+                name = rel.column_names[i] if i < len(rel.column_names) else f.name
+                fields.append(Field(name, f.type, f.symbol, qualifier=rel.alias))
+            return RelationPlan(inner.node, fields)
+        if isinstance(rel, t.TableSubquery):
+            return self.plan_query(rel.query, parent_scope)
+        if isinstance(rel, t.Join):
+            return self._plan_join(rel, parent_scope)
+        if isinstance(rel, t.Lateral):
+            raise SemanticError("LATERAL not supported yet")
+        if isinstance(rel, t.Unnest):
+            return self._plan_unnest(rel, None)
+        if isinstance(rel, t.MatchRecognize):
+            return self._plan_match_recognize(rel, parent_scope)
+        raise SemanticError(f"unsupported relation: {type(rel).__name__}")
+
+    def _plan_match_recognize(self, mr: t.MatchRecognize, parent_scope) -> "RelationPlan":
+        """MATCH_RECOGNIZE -> PatternRecognitionNode (ref: sql/planner's
+        RelationPlanner.visitPatternRecognitionRelation + rowpattern/)."""
+        source = self._plan_relation(mr.relation, parent_scope)
+        scope = Scope(source.fields, None)
+
+        def pattern_vars(node) -> set:
+            if isinstance(node, t.PatternVariable):
+                return {node.name}
+            if isinstance(node, t.PatternConcatenation):
+                return set().union(*(pattern_vars(e) for e in node.elements))
+            if isinstance(node, t.PatternAlternation):
+                return set().union(*(pattern_vars(a) for a in node.alternatives))
+            if isinstance(node, t.PatternQuantified):
+                return pattern_vars(node.element)
+            raise SemanticError(f"unsupported row-pattern element: {node}")
+
+        in_pattern = pattern_vars(mr.pattern)
+        subset_names = {n for n, _ in mr.subsets}
+        for n, members in mr.subsets:
+            if n in in_pattern:
+                raise SemanticError(f"SUBSET name {n} is also a pattern variable")
+            for v in members:
+                if v not in in_pattern:
+                    raise SemanticError(f"SUBSET member {v} not in pattern")
+        for v, _ in mr.defines:
+            if v not in in_pattern:
+                raise SemanticError(f"DEFINE variable {v} not used in pattern")
+        all_vars = in_pattern | subset_names
+        tr = PatternExpressionTranslator(self, scope, all_vars)
+
+        partition_syms: List[str] = []
+        for e in mr.partition_by:
+            ir = tr.translate(e)
+            if not isinstance(ir, Reference):
+                raise SemanticError("PARTITION BY in MATCH_RECOGNIZE must be a column")
+            partition_syms.append(ir.symbol)
+        orderings: List[Ordering] = []
+        for si in mr.order_by:
+            ir = tr.translate(si.key)
+            if not isinstance(ir, Reference):
+                raise SemanticError("ORDER BY in MATCH_RECOGNIZE must be a column")
+            orderings.append(
+                Ordering(ir.symbol, si.ascending, bool(si.nulls_first))
+            )
+        defines = tuple(
+            (v, tr._to_bool(tr.translate(expr))) for v, expr in mr.defines
+        )
+        measures = []
+        measure_fields: List[Field] = []
+        for item in mr.measures:
+            ir = tr.translate(item.expression)
+            if item.semantics == "FINAL":
+                ir = Call("$final", (ir,), ir.type)
+            sym = self.symbols.new_symbol(item.name, ir.type)
+            measures.append((sym, ir, ir.type))
+            measure_fields.append(Field(item.name, ir.type, sym))
+        if mr.after_skip.mode in ("TO_FIRST", "TO_LAST") and (
+            mr.after_skip.target not in all_vars
+        ):
+            raise SemanticError(
+                f"AFTER MATCH SKIP target {mr.after_skip.target} not in pattern"
+            )
+        node = PatternRecognitionNode(
+            source=source.node,
+            partition_by=tuple(partition_syms),
+            order_by=tuple(orderings),
+            measures=tuple(measures),
+            rows_per_match=mr.rows_per_match,
+            skip_mode=mr.after_skip.mode,
+            skip_target=mr.after_skip.target,
+            pattern=mr.pattern,
+            subsets=tuple(mr.subsets),
+            defines=defines,
+        )
+        if mr.rows_per_match == "ONE":
+            fields = [f for f in source.fields if f.symbol in partition_syms]
+            fields = fields + measure_fields
+        else:
+            fields = list(source.fields) + measure_fields
+        return RelationPlan(node, fields)
+
+    def _plan_unnest(
+        self,
+        un: t.Unnest,
+        source,  # Optional[RelationPlan]: row context the arrays come from
+        alias: Optional[str] = None,
+        column_names: Tuple[str, ...] = (),
+    ) -> "RelationPlan":
+        """UNNEST(a, m) [WITH ORDINALITY] — over ``source`` when written as
+        CROSS JOIN UNNEST (the expressions may reference its columns), else
+        over a one-row dummy (ref UnnestNode.java; the replicate/unnest symbol
+        split mirrors its replicateSymbols/mappings)."""
+        if source is None:
+            source = RelationPlan(ValuesNode(symbols=(), rows=((),)), [])
+        scope = Scope(source.fields, None)
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        pre: List[Tuple[str, IrExpr]] = []
+        unnest_syms: List[Tuple[str, Tuple[str, ...]]] = []
+        out_fields: List[Field] = []
+        names = list(column_names)
+
+        def next_name(default: str) -> str:
+            return names.pop(0) if names else default
+
+        for expr in un.expressions:
+            ir = translator.translate(expr)
+            if isinstance(ir, Reference):
+                in_sym = ir.symbol
+            else:
+                in_sym = self.symbols.new_symbol("unnest_in", ir.type)
+                pre.append((in_sym, ir))
+            if isinstance(ir.type, ArrayType):
+                hint = expr.fieldname if isinstance(expr, t.Dereference) else (
+                    expr.name if isinstance(expr, t.Identifier) else "unnest"
+                )
+                out_sym = self.symbols.new_symbol(hint, ir.type.element)
+                unnest_syms.append((in_sym, (out_sym,)))
+                out_fields.append(
+                    Field(next_name(hint), ir.type.element, out_sym, qualifier=alias)
+                )
+            elif isinstance(ir.type, MapType):
+                k_sym = self.symbols.new_symbol("key", ir.type.key)
+                v_sym = self.symbols.new_symbol("value", ir.type.value)
+                unnest_syms.append((in_sym, (k_sym, v_sym)))
+                out_fields.append(
+                    Field(next_name("key"), ir.type.key, k_sym, qualifier=alias)
+                )
+                out_fields.append(
+                    Field(next_name("value"), ir.type.value, v_sym, qualifier=alias)
+                )
+            else:
+                raise SemanticError(
+                    f"cannot UNNEST a {ir.type.display()} (array or map required)"
+                )
+        node = source.node
+        if pre:
+            keep = tuple(
+                (f.symbol, Reference(f.symbol, f.type)) for f in source.fields
+            )
+            node = ProjectNode(source=node, assignments=keep + tuple(pre))
+        ord_sym = None
+        if un.with_ordinality:
+            ord_sym = self.symbols.new_symbol("ordinality", BIGINT)
+            out_fields.append(Field(next_name("ordinality"), BIGINT, ord_sym, qualifier=alias))
+        unnest = UnnestNode(
+            source=node,
+            replicate_symbols=tuple(f.symbol for f in source.fields),
+            unnest_symbols=tuple(unnest_syms),
+            ordinality_symbol=ord_sym,
+        )
+        return RelationPlan(unnest, source.fields + out_fields)
+
+    def _plan_table(self, rel: t.Table, parent_scope) -> RelationPlan:
+        name = rel.name
+        if len(name.parts) == 1 and name.parts[0] in self._cte:
+            inner = self.plan_query(self._cte[name.parts[0]], parent_scope)
+            fields = [replace(f, qualifier=name.parts[0]) for f in inner.fields]
+            return RelationPlan(inner.node, fields)
+        # view expansion (ref: StatementAnalyzer.Visitor.visitTable's
+        # analyzeView path): a stored view is re-parsed and planned inline
+        # under its defining catalog/schema, then its outputs take the view's
+        # name as qualifier — exactly like a named subquery
+        view_plan = self._try_plan_view(name, parent_scope)
+        if view_plan is not None:
+            return view_plan
+        try:
+            handle, meta = self.metadata.resolve_table(self.session, name)
+        except ValueError as e:
+            raise SemanticError(str(e)) from None
+        if getattr(rel, "version", None) is not None:
+            # FOR VERSION AS OF: the connector resolves the snapshot into a
+            # versioned handle (ref: ConnectorMetadata.getTableHandle with
+            # start/end version — iceberg time travel)
+            connector = self.metadata.connector_for(handle)
+            versioned = connector.metadata().apply_version(handle, rel.version)
+            if versioned is None:
+                raise SemanticError(
+                    f"table {name} does not support FOR VERSION AS OF"
+                )
+            handle = versioned
+        assignments = []
+        fields = []
+        for col in meta.columns:
+            sym = self.symbols.new_symbol(col.name, col.type)
+            assignments.append((sym, col.name))
+            fields.append(
+                Field(col.name, col.type, sym, qualifier=name.parts[-1])
+            )
+        node = TableScanNode(table=handle, assignments=tuple(assignments))
+        return RelationPlan(node, fields)
+
+    def _try_plan_view(self, name: t.QualifiedName, parent_scope):
+        """Plan a stored view's body if ``name`` names one, else None.
+        Recursion guard: a view whose body references itself (directly or
+        through another view) fails with a cycle error, matching the
+        reference's view-cycle detection (StatementAnalyzer)."""
+        from ..sql import parse_statement
+
+        try:
+            catalog, schema, vname = self.metadata.resolve_name(
+                self.session, name
+            )
+        except ValueError:
+            return None
+        view = self.metadata.views.get(catalog, schema, vname)
+        if view is None:
+            return None
+        key = (catalog, schema, vname)
+        stack = getattr(self, "_view_stack", None)
+        if stack is None:
+            stack = self._view_stack = []
+        if key in stack:
+            chain = " -> ".join(".".join(k) for k in stack + [key])
+            raise SemanticError(f"view cycle detected: {chain}")
+        stmt = parse_statement(view.sql)
+        if not isinstance(stmt, t.QueryStatement):
+            raise SemanticError(f"view body is not a query: {view.sql!r}")
+        # the body resolves unqualified names against the view's OWN
+        # defining catalog/schema, not the caller's session
+        saved = self.session
+        from dataclasses import replace as _dc_replace
+
+        self.session = _dc_replace(
+            saved,
+            catalog=view.catalog or saved.catalog,
+            schema=view.schema or saved.schema,
+        )
+        stack.append(key)
+        try:
+            inner = self.plan_query(stmt.query, parent_scope)
+        finally:
+            stack.pop()
+            self.session = saved
+        fields = [replace(f, qualifier=vname) for f in inner.fields]
+        return RelationPlan(inner.node, fields)
+
+    def _plan_join(self, rel: t.Join, parent_scope) -> RelationPlan:
+        left = self._plan_relation(rel.left, parent_scope)
+        # CROSS JOIN UNNEST(left.col): the unnest expressions are correlated to
+        # the left relation — lower to an UnnestNode over it, not a real join
+        un, un_alias, un_cols = rel.right, None, ()
+        if isinstance(un, t.AliasedRelation):
+            un, un_alias, un_cols = un.relation, un.alias, tuple(un.column_names)
+        if isinstance(un, t.Unnest):
+            if rel.join_type not in (t.JoinType.CROSS, t.JoinType.IMPLICIT, t.JoinType.INNER):
+                raise SemanticError("UNNEST supports only CROSS/INNER join")
+            unnested = self._plan_unnest(un, left, un_alias, un_cols)
+            if isinstance(rel.criteria, t.JoinOn):
+                # INNER JOIN UNNEST ... ON <cond>: apply the condition as a
+                # filter over the unnested rows (it may reference both sides)
+                scope = Scope(unnested.fields, parent_scope)
+                translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+                pred = translator.translate(rel.criteria.expression)
+                return RelationPlan(
+                    FilterNode(source=unnested.node, predicate=pred),
+                    unnested.fields,
+                )
+            if rel.criteria is not None:
+                raise SemanticError("UNNEST join supports only ON conditions")
+            return unnested
+        right = self._plan_relation(rel.right, parent_scope)
+        fields = left.fields + right.fields
+
+        if rel.join_type in (t.JoinType.CROSS, t.JoinType.IMPLICIT):
+            node = JoinNode(left=left.node, right=right.node, kind=JoinKind.CROSS)
+            return RelationPlan(node, fields)
+
+        kind = JoinKind[rel.join_type.value]
+        scope = Scope(fields, parent_scope)
+        criteria: List[Tuple[str, str]] = []
+        residual: Optional[IrExpr] = None
+
+        if isinstance(rel.criteria, t.JoinUsing) or isinstance(rel.criteria, t.NaturalJoin):
+            if isinstance(rel.criteria, t.NaturalJoin):
+                lnames = {f.name for f in left.fields}
+                cols = [f.name for f in right.fields if f.name in lnames]
+            else:
+                cols = list(rel.criteria.columns)
+            for col in cols:
+                lf = Scope(left.fields).resolve(col)
+                rf = Scope(right.fields).resolve(col)
+                criteria.append((lf.symbol, rf.symbol))
+        elif isinstance(rel.criteria, t.JoinOn):
+            translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+            predicate = translator.translate(rel.criteria.expression)
+            left_syms = {f.symbol for f in left.fields}
+            right_syms = {f.symbol for f in right.fields}
+            from ..sql.ir import references
+
+            conjuncts = split_conjuncts(predicate)
+            rest: List[IrExpr] = []
+            for c in conjuncts:
+                pair = as_equi_clause(c, left_syms, right_syms)
+                if pair is not None:
+                    criteria.append(pair)
+                else:
+                    rest.append(c)
+            if rest:
+                residual = combine_conjuncts(rest)
+        else:
+            raise SemanticError("join requires ON/USING")
+
+        if not criteria and kind != JoinKind.INNER:
+            raise SemanticError("outer join requires at least one equi-join clause")
+        if not criteria:
+            node: PlanNode = JoinNode(left=left.node, right=right.node, kind=JoinKind.CROSS)
+            if residual is not None:
+                node = FilterNode(source=node, predicate=residual)
+            return RelationPlan(node, fields)
+        node = JoinNode(
+            left=left.node,
+            right=right.node,
+            kind=kind,
+            criteria=tuple(criteria),
+            filter=residual,
+        )
+        return RelationPlan(node, fields)
+
+    # ------------------------------------------------- query specification
+
+    def _expand_grouping_sets(self, spec: t.QuerySpecification):
+        """ROLLUP/CUBE/GROUPING SETS -> list of simple grouping-key sets
+        (ref: sql/analyzer's grouping-set expansion + the plan shape of
+        GroupIdNode — we lower to a UNION ALL of per-set aggregations)."""
+        import itertools
+
+        per_element: List[List[Tuple[t.Expression, ...]]] = []
+        for ge in spec.group_by:
+            if ge.kind == "simple":
+                per_element.append([tuple(ge.expressions)])
+            elif ge.kind == "rollup":
+                per_element.append(
+                    [tuple(ge.expressions[:i]) for i in range(len(ge.expressions), -1, -1)]
+                )
+            elif ge.kind == "cube":
+                subsets = []
+                for r in range(len(ge.expressions), -1, -1):
+                    subsets.extend(itertools.combinations(ge.expressions, r))
+                per_element.append([tuple(s) for s in subsets])
+            else:  # grouping_sets
+                per_element.append([tuple(s) for s in (ge.sets or (ge.expressions,))])
+        sets: List[Tuple[t.Expression, ...]] = []
+        for combo in itertools.product(*per_element):
+            merged: List[t.Expression] = []
+            for part in combo:
+                for e in part:
+                    if e not in merged:
+                        merged.append(e)
+            sets.append(tuple(merged))
+        return sets
+
+    def _plan_grouping_sets_spec(
+        self, spec: t.QuerySpecification, parent_scope
+    ) -> RelationPlan:
+        """Rewrite a multi-grouping-set spec into UNION ALL of per-set specs,
+        with keys absent from a set replaced by NULL in the select list."""
+        sets = self._expand_grouping_sets(spec)
+        if len(sets) > 64:
+            raise SemanticError(f"too many grouping sets ({len(sets)})")
+        all_keys: List[t.Expression] = []
+        for s in sets:
+            for e in s:
+                if e not in all_keys:
+                    all_keys.append(e)
+
+        def null_out(expr: t.Expression, dropped: set) -> t.Expression:
+            """Replace dropped grouping keys with NULL outside aggregate args."""
+            if (
+                isinstance(expr, t.FunctionCall)
+                and str(expr.name).lower() == "grouping"
+            ):
+                # GROUPING(e1..ek): bit i set when e_i is aggregated away in
+                # this branch's set — a per-branch CONSTANT under the UNION
+                # ALL rewrite (ref: sql/tree/GroupingOperation.java +
+                # GroupIdNode's groupId semantics)
+                mask = 0
+                for i, a in enumerate(expr.args):
+                    if a in dropped:
+                        mask |= 1 << (len(expr.args) - 1 - i)
+                return t.LongLiteral(mask)
+            if expr in dropped:
+                return t.NullLiteral()
+            if isinstance(expr, t.FunctionCall) and is_aggregate(str(expr.name).lower()):
+                # aggregate args see base rows — but the WINDOW spec of a
+                # windowed aggregate still evaluates per output row, so its
+                # partition/order expressions (q86: PARTITION BY GROUPING(..))
+                # must be rewritten
+                import dataclasses as dc
+
+                if expr.window is not None:
+                    return dc.replace(
+                        expr, window=_rewrite(expr.window, dropped)
+                    )
+                return expr
+            return _rewrite(expr, dropped)
+
+        def _rewrite(obj, dropped):
+            """Generic frozen-dataclass rebuild, descending through nested
+            auxiliary nodes (WindowSpec, SortItem, WhenClause...)."""
+            import dataclasses as dc
+
+            if not dc.is_dataclass(obj) or isinstance(obj, t.QualifiedName):
+                return obj
+            changed = False
+            updates = {}
+            for f in dc.fields(obj):
+                v = getattr(obj, f.name)
+                if isinstance(v, t.Expression):
+                    nv = null_out(v, dropped)
+                elif dc.is_dataclass(v) and not isinstance(v, t.QualifiedName):
+                    nv = _rewrite(v, dropped)
+                elif isinstance(v, tuple) and v and any(
+                    dc.is_dataclass(x) for x in v
+                ):
+                    nv = tuple(
+                        null_out(x, dropped)
+                        if isinstance(x, t.Expression)
+                        else (_rewrite(x, dropped) if dc.is_dataclass(x) else x)
+                        for x in v
+                    )
+                else:
+                    continue
+                if nv != v:
+                    updates[f.name] = nv
+                    changed = True
+            return dc.replace(obj, **updates) if changed else obj
+
+        branches: List[t.QuerySpecification] = []
+        for s in sets:
+            dropped = {e for e in all_keys if e not in s}
+            new_items = tuple(
+                t.SelectItem(
+                    expression=null_out(item.expression, dropped), alias=item.alias
+                )
+                for item in spec.select_items
+            )
+            branches.append(
+                t.QuerySpecification(
+                    select_items=new_items,
+                    from_=spec.from_,
+                    where=spec.where,
+                    group_by=tuple(
+                        t.GroupingElement((e,), kind="simple") for e in s
+                    ),
+                    having=null_out(spec.having, dropped) if spec.having else None,
+                )
+            )
+        body: t.QueryBody = branches[0]
+        for b in branches[1:]:
+            body = t.SetOperation(op=t.SetOpType.UNION, left=body, right=b, distinct=False)
+        rel = self._plan_query_body(body, parent_scope)
+        if spec.order_by or spec.limit is not None or spec.offset:
+            rel = self._apply_order_limit(
+                rel, parent_scope, spec.order_by, spec.limit, spec.offset, None
+            )
+        return rel
+
+    def _plan_query_spec(self, spec: t.QuerySpecification, parent_scope) -> RelationPlan:
+        if any(ge.kind != "simple" for ge in spec.group_by):
+            return self._plan_grouping_sets_spec(spec, parent_scope)
+        # FROM
+        if spec.from_ is not None:
+            rel = self._plan_relation(spec.from_, parent_scope)
+        else:
+            rel = RelationPlan(ValuesNode(symbols=(), rows=((),)), [])
+        node = rel.node
+        scope = Scope(rel.fields, parent_scope)
+
+        # WHERE (IN/EXISTS subquery conjuncts -> semi joins,
+        # ref: planner/optimizations TransformUncorrelatedInPredicateSubqueryToSemiJoin)
+        if spec.where is not None:
+            node = self._plan_where(node, scope, spec.where)
+
+        # expand stars
+        select_items: List[t.SelectItem] = []
+        for item in spec.select_items:
+            if isinstance(item.expression, t.Star):
+                q = item.expression.qualifier
+                matched = [
+                    f
+                    for f in scope.fields
+                    if q is None or f.qualifier == q.parts[-1]
+                ]
+                if q is not None and not matched:
+                    raise SemanticError(f"unknown relation {q} in {q}.*")
+                for f in matched:
+                    select_items.append(
+                        t.SelectItem(expression=_field_ast(f), alias=f.name)
+                    )
+            else:
+                select_items.append(item)
+
+        # aggregation analysis
+        agg_calls: List[t.FunctionCall] = []
+        window_calls: List[t.FunctionCall] = []
+        for item in select_items:
+            collect_function_calls(item.expression, agg_calls, window_calls)
+        if spec.having is not None:
+            collect_function_calls(spec.having, agg_calls, [])
+        for s in spec.order_by:
+            collect_function_calls(s.key, agg_calls, window_calls)
+
+        has_agg = bool(agg_calls) or bool(spec.group_by)
+        ast_mapping: Dict[t.Expression, str] = {}
+
+        if has_agg:
+            node, scope, ast_mapping = self._plan_aggregation(
+                node, scope, spec, select_items, agg_calls
+            )
+
+        if spec.having is not None:
+            translator = ExpressionTranslator(self, scope, ast_mapping)
+            predicate = translator.translate(spec.having)
+            node = self._attach_subqueries(node, translator)
+            node = FilterNode(source=node, predicate=predicate)
+
+        if window_calls:
+            node, ast_mapping = self._plan_window(node, scope, window_calls, ast_mapping)
+
+        # SELECT projection
+        translator = ExpressionTranslator(self, scope, ast_mapping)
+        assignments: List[Tuple[str, IrExpr]] = []
+        out_fields: List[Field] = []
+        for item in select_items:
+            ir = translator.translate(item.expression)
+            name = item.alias or derive_name(item.expression)
+            if isinstance(ir, Reference):
+                sym = ir.symbol
+            else:
+                sym = self.symbols.new_symbol(name or "expr", ir.type)
+            assignments.append((sym, ir))
+            out_fields.append(Field(name, ir.type, sym))
+        node = self._attach_subqueries(node, translator)
+
+        # ORDER BY keys: resolve against output aliases/ordinals first, then the
+        # underlying scope. Keys not in the output are carried *through* the
+        # projection and stripped after the sort (ref: QueryPlanner.java sort
+        # handling — the projection computes select outputs + sort keys).
+        orderings: List[Ordering] = []
+        extra_assignments: List[Tuple[str, IrExpr]] = []
+        if spec.order_by:
+            select_syms = {s for s, _ in assignments}
+            alias_map: Dict[str, str] = {}
+            for (sym, ir), item in zip(assignments, select_items):
+                if item.alias and item.alias not in alias_map:
+                    alias_map[item.alias] = sym
+            for item in spec.order_by:
+                key = item.key
+                sym = None
+                if isinstance(key, t.LongLiteral):
+                    idx = key.value
+                    if not (1 <= idx <= len(assignments)):
+                        raise SemanticError(f"ORDER BY position {idx} out of range")
+                    sym = assignments[idx - 1][0]
+                elif isinstance(key, t.Identifier) and key.name in alias_map:
+                    sym = alias_map[key.name]
+                else:
+                    ir = translator.translate(key)
+                    if isinstance(ir, Reference):
+                        sym = ir.symbol
+                        if sym not in select_syms:
+                            extra_assignments.append((sym, ir))
+                    else:
+                        sym = self.symbols.new_symbol("sortkey", ir.type)
+                        extra_assignments.append((sym, ir))
+                orderings.append(make_ordering(item, sym))
+            if spec.distinct and extra_assignments:
+                raise SemanticError(
+                    "for SELECT DISTINCT, ORDER BY expressions must appear in select list"
+                )
+
+        node = ProjectNode(
+            source=node,
+            assignments=dedupe_assignments(assignments + extra_assignments),
+        )
+        rel_out = RelationPlan(node, out_fields)
+
+        # DISTINCT
+        if spec.distinct:
+            agg = AggregationNode(
+                source=rel_out.node,
+                group_keys=tuple(f.symbol for f in out_fields),
+                aggregations=(),
+                step=AggregationStep.SINGLE,
+            )
+            rel_out = RelationPlan(agg, out_fields)
+
+        # ORDER BY / LIMIT / OFFSET
+        node = attach_order_limit(rel_out.node, orderings, spec.limit, spec.offset)
+        if extra_assignments:
+            node = ProjectNode(
+                source=node,
+                assignments=tuple(
+                    (f.symbol, Reference(f.symbol, f.type)) for f in out_fields
+                ),
+            )
+        return RelationPlan(node, out_fields)
+
+    def _plan_where(self, node: PlanNode, scope: Scope, where: t.Expression) -> PlanNode:
+        conjuncts = split_ast_conjuncts(where)
+        subquery_cs: List[Tuple[t.Expression, object]] = []  # (conjunct, agg pattern)
+        plain: List[t.Expression] = []
+        for c in conjuncts:
+            if isinstance(c, (t.InSubquery, t.Exists)) or (
+                isinstance(c, t.Not) and isinstance(c.value, (t.Exists, t.InSubquery))
+            ):
+                subquery_cs.append((c, None))
+            elif self._contains_subquery_predicate(c):
+                subquery_cs.append((c, "__nested__"))
+            elif (
+                isinstance(c, t.Comparison)
+                and c.op != t.ComparisonOp.IS_DISTINCT_FROM
+                and (ext := self._nested_scalar_subquery(c.right)) is not None
+                and (pat := self._correlated_agg_pattern(ext[0].query, scope)) is not None
+            ):
+                # the subquery may sit INSIDE an arithmetic expression
+                # (TPC-DS q6/q32: price > 1.2 * (SELECT avg(...))) — the
+                # rebuilt right side references the joined aggregate
+                subquery_cs.append((t.Comparison(op=c.op, left=c.left, right=ext[1]), pat))
+            elif (
+                isinstance(c, t.Comparison)
+                and c.op != t.ComparisonOp.IS_DISTINCT_FROM
+                and (ext := self._nested_scalar_subquery(c.left)) is not None
+                and (pat := self._correlated_agg_pattern(ext[0].query, scope)) is not None
+            ):
+                # subquery on the LEFT (q41: (SELECT count(*) ...) > 0)
+                subquery_cs.append((t.Comparison(op=c.op, left=ext[1], right=c.right), pat))
+            else:
+                plain.append(c)
+        # plain conjuncts FIRST: decorrelation joins then sit ABOVE the
+        # filtered source, so cross-join elimination sees the join-graph
+        # equalities below them (Q21's FROM list would otherwise stay a raw
+        # cross join under the decorrelation LEFT join)
+        if plain:
+            translator = ExpressionTranslator(self, scope)
+            predicate = None
+            for c in plain:
+                ir = translator._to_bool(translator.translate(c))
+                predicate = ir if predicate is None else translator._call("$and", [predicate, ir], BOOLEAN)
+            node = self._attach_subqueries(node, translator)
+            node = FilterNode(source=node, predicate=predicate)
+        for c, pat in subquery_cs:
+            if isinstance(c, t.InSubquery):
+                node = self._plan_semijoin_filter(node, scope, c.value, c.query, c.negated)
+            elif isinstance(c, t.Exists):
+                node = self._plan_exists_filter(node, scope, c.query, c.negated)
+            elif isinstance(c, t.Not) and isinstance(c.value, t.Exists):
+                node = self._plan_exists_filter(node, scope, c.value.query, not c.value.negated)
+            elif isinstance(c, t.Not) and isinstance(c.value, t.InSubquery):
+                node = self._plan_semijoin_filter(
+                    node, scope, c.value.value, c.value.query, not c.value.negated
+                )
+            elif pat == "__nested__":
+                node = self._plan_nested_subquery_predicates(node, scope, c)
+            else:
+                node = self._plan_correlated_scalar_compare(node, scope, c, pat)
+        return node
+
+    @staticmethod
+    def _contains_subquery_predicate(c: t.Expression) -> bool:
+        """True when an EXISTS / IN-subquery sits INSIDE the conjunct (under
+        OR/NOT/CASE) rather than being the conjunct itself."""
+        import dataclasses as dc
+
+        found = [False]
+
+        def walk(e):
+            if isinstance(e, (t.Exists, t.InSubquery)):
+                found[0] = True
+                return
+            if isinstance(e, (t.ScalarSubquery, t.Query)):
+                return  # scalar subqueries handled elsewhere; don't descend
+            if not dc.is_dataclass(e):
+                return
+            for f in dc.fields(e):
+                v = getattr(e, f.name)
+                if isinstance(v, t.Expression):
+                    walk(v)
+                elif isinstance(v, tuple):
+                    for x in v:
+                        if isinstance(x, t.Expression):
+                            walk(x)
+                        elif isinstance(x, t.WhenClause):
+                            walk(x.condition)
+                            walk(x.result)
+
+        walk(c)
+        return found[0]
+
+    def _plan_nested_subquery_predicates(
+        self, node: PlanNode, scope: Scope, conjunct: t.Expression
+    ) -> PlanNode:
+        """EXISTS / IN-subquery under OR (TPC-DS q10/q35/q45): plan each
+        subquery predicate into a boolean MATCH COLUMN on the outer relation,
+        substitute marker identifiers into the conjunct, and filter on the
+        rebuilt boolean expression. ref: sql/planner/plan/ApplyNode +
+        TransformExistsApplyToCorrelatedJoin — the subquery becomes a column
+        a join computes, usable in any boolean context."""
+        import dataclasses as dc
+
+        markers: Dict[str, str] = {}
+        current = {"node": node}
+
+        def plan_one(e):
+            if isinstance(e, t.Exists):
+                filt = self._plan_exists_filter(
+                    current["node"], scope, e.query, e.negated
+                )
+            else:
+                filt = self._plan_semijoin_filter(
+                    current["node"], scope, e.value, e.query, e.negated
+                )
+            assert isinstance(filt, FilterNode)
+            mk = f"$subq_pred_{len(markers)}"
+            sym = self.symbols.new_symbol("subq_pred", BOOLEAN)
+            current["node"] = append_projection(
+                filt.source, ((sym, filt.predicate),), self.symbols.types
+            )
+            markers[mk] = sym
+            return t.Identifier(mk)
+
+        def rebuild(e):
+            if isinstance(e, (t.Exists, t.InSubquery)):
+                return plan_one(e)
+            if isinstance(e, (t.ScalarSubquery, t.Query)) or not dc.is_dataclass(e):
+                return e
+            if isinstance(e, t.QualifiedName):
+                return e
+            updates = {}
+            for f in dc.fields(e):
+                v = getattr(e, f.name)
+                if isinstance(v, t.Expression):
+                    nv = rebuild(v)
+                elif isinstance(v, tuple) and v and any(
+                    isinstance(x, (t.Expression, t.WhenClause)) for x in v
+                ):
+                    nv = tuple(
+                        dc.replace(
+                            x,
+                            condition=rebuild(x.condition),
+                            result=rebuild(x.result),
+                        )
+                        if isinstance(x, t.WhenClause)
+                        else (rebuild(x) if isinstance(x, t.Expression) else x)
+                        for x in v
+                    )
+                else:
+                    continue
+                if nv != v:
+                    updates[f.name] = nv
+            return dc.replace(e, **updates) if updates else e
+
+        new_c = rebuild(conjunct)
+        marker_fields = [Field(mk, BOOLEAN, sym) for mk, sym in markers.items()]
+        sc = Scope(list(scope.fields) + marker_fields, scope.parent)
+        tr = ExpressionTranslator(self, sc, allow_subqueries=False)
+        pred = tr._to_bool(tr.translate(new_c))
+        return FilterNode(source=current["node"], predicate=pred)
+
+    def _nested_scalar_subquery(self, expr: t.Expression):
+        """Exactly one ScalarSubquery nested anywhere in ``expr`` -> (the
+        subquery, expr with it replaced by the $corr_agg marker identifier);
+        None otherwise. The marker resolves against the decorrelation join's
+        aggregate field (ref: TransformCorrelatedScalarSubquery + the
+        enclosing-expression handling of PlanBuilder.rewrite)."""
+        import dataclasses as dc
+
+        found: List[t.ScalarSubquery] = []
+
+        def rebuild(e):
+            if isinstance(e, t.ScalarSubquery):
+                found.append(e)
+                return t.Identifier("$corr_agg")
+            if not dc.is_dataclass(e) or isinstance(e, t.QualifiedName):
+                return e
+            updates = {}
+            for f in dc.fields(e):
+                v = getattr(e, f.name)
+                if isinstance(v, t.Expression):
+                    nv = rebuild(v)
+                elif isinstance(v, tuple) and v and any(
+                    isinstance(x, (t.Expression, t.WhenClause)) for x in v
+                ):
+                    nv = tuple(
+                        dc.replace(
+                            x,
+                            condition=rebuild(x.condition),
+                            result=rebuild(x.result),
+                        )
+                        if isinstance(x, t.WhenClause)
+                        else (rebuild(x) if isinstance(x, t.Expression) else x)
+                        for x in v
+                    )
+                else:
+                    continue
+                if nv != v:
+                    updates[f.name] = nv
+            return dc.replace(e, **updates) if updates else e
+
+        if isinstance(expr, t.ScalarSubquery):
+            return expr, t.Identifier("$corr_agg")
+        out = rebuild(expr)
+        if len(found) == 1:
+            return found[0], out
+        return None
+
+    def _plan_semijoin_filter(
+        self, node: PlanNode, scope: Scope, value: t.Expression, query: t.Query, negated: bool
+    ) -> PlanNode:
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        source_expr = translator.translate(value)
+        sub = self.plan_query(query, parent_scope=None)
+        if len(sub.fields) != 1:
+            raise SemanticError("IN subquery must return one column")
+        filtering = sub.fields[0]
+        if isinstance(source_expr, Reference):
+            source_key = source_expr.symbol
+        else:
+            source_key = self.symbols.new_symbol("in_key", source_expr.type)
+            node = append_projection(node, ((source_key, source_expr),), self.symbols.types)
+        match_sym = self.symbols.new_symbol("in_match", BOOLEAN)
+        semi = SemiJoinNode(
+            source=node,
+            filtering_source=sub.node,
+            source_key=source_key,
+            filtering_key=filtering.symbol,
+            output=match_sym,
+            null_aware=True,
+        )
+        pred: IrExpr = Reference(match_sym, BOOLEAN)
+        if negated:
+            pred = Call("$not", (pred,), BOOLEAN)
+        return FilterNode(source=semi, predicate=pred)
+
+    _CMP_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "<>": "<>"}
+    _CMP_OPSTR = {
+        t.ComparisonOp.NOT_EQUAL: "<>",
+        t.ComparisonOp.LESS_THAN: "<",
+        t.ComparisonOp.LESS_THAN_OR_EQUAL: "<=",
+        t.ComparisonOp.GREATER_THAN: ">",
+        t.ComparisonOp.GREATER_THAN_OR_EQUAL: ">=",
+    }
+
+    def _split_correlated_conjuncts(self, spec: t.QuerySpecification, outer: Scope):
+        """Partition the subquery's WHERE into (pairs, cmps, residual):
+        correlated equality pairs (outer_expr, inner_expr), correlated
+        comparisons (inner_expr, op, outer_expr) with op in <,<=,>,>=,<>, and
+        inner-only residual conjuncts. Returns None if any conjunct is
+        correlated in an unsupported shape.
+        (ref: the decorrelation rules under sql/planner/optimizations/ —
+        TransformCorrelated*.)"""
+
+        def resolves_in(expr: t.Expression, scope: Scope) -> bool:
+            try:
+                ExpressionTranslator(self, scope, allow_subqueries=False).translate(expr)
+                return True
+            except (SemanticError, FunctionResolutionError):
+                return False
+
+        if spec.where is None:
+            return [], [], []
+        inner_rel = self._plan_relation(spec.from_, None) if spec.from_ is not None else None
+        inner_scope = Scope(inner_rel.fields if inner_rel else [], None)
+        pairs: List[Tuple[t.Expression, t.Expression]] = []
+        cmps: List[Tuple[t.Expression, str, t.Expression]] = []
+        residual: List[t.Expression] = []
+        conjuncts: List[t.Expression] = []
+        for c in split_ast_conjuncts(spec.where):
+            # (corr AND X) OR (corr AND Y) -> corr AND (X OR Y): TPC-DS q41
+            # repeats the correlation equality inside every OR branch
+            # (ExtractCommonPredicatesExpressionRewriter at the AST level)
+            conjuncts.extend(_factor_or_common(c))
+        for c in conjuncts:
+            if resolves_in(c, inner_scope):
+                residual.append(c)
+                continue
+            if isinstance(c, t.Comparison):
+                a, b = c.left, c.right
+                if c.op == t.ComparisonOp.EQUAL:
+                    if resolves_in(a, inner_scope) and resolves_in(b, outer):
+                        pairs.append((b, a))
+                        continue
+                    if resolves_in(b, inner_scope) and resolves_in(a, outer):
+                        pairs.append((a, b))
+                        continue
+                elif c.op in self._CMP_OPSTR:
+                    op = self._CMP_OPSTR[c.op]
+                    if resolves_in(a, inner_scope) and resolves_in(b, outer):
+                        cmps.append((a, op, b))
+                        continue
+                    if resolves_in(b, inner_scope) and resolves_in(a, outer):
+                        cmps.append((b, self._CMP_FLIP[op], a))
+                        continue
+            return None  # unsupported correlated conjunct
+        return pairs, cmps, residual
+
+    def _split_correlated_equalities(self, spec: t.QuerySpecification, outer: Scope):
+        """Equality-only view of _split_correlated_conjuncts (legacy callers)."""
+        split = self._split_correlated_conjuncts(spec, outer)
+        if split is None or split[1]:
+            return None
+        return split[0], split[2]
+
+    def _correlated_agg_pattern(self, query: t.Query, outer: Scope):
+        """expr <op> (SELECT agg(x) FROM t WHERE t.k = outer.k [AND ...]) —
+        returns (spec, pairs, residual, agg_item) or None."""
+        body = query.body
+        if not isinstance(body, t.QuerySpecification) or query.with_queries:
+            return None
+        if len(body.select_items) != 1 or body.group_by or body.having or body.distinct:
+            return None
+        item = body.select_items[0]
+        aggs: List[t.FunctionCall] = []
+        collect_function_calls(item.expression, aggs, [])
+        if not aggs:
+            return None
+        # count-family aggregates return 0 (not NULL) over empty groups — the
+        # rewrite must LEFT-join and coalesce the aggregate to 0 (ref:
+        # TransformCorrelatedGlobalAggregationWithoutProjection's
+        # count-on-empty handling); flagged for the caller
+        count_family = any(
+            str(a.name).lower() in ("count", "count_if", "approx_distinct")
+            for a in aggs
+        )
+        split = self._split_correlated_equalities(body, outer)
+        if split is None or not split[0]:
+            return None
+        return body, split[0], split[1], item, count_family
+
+    def _plan_correlated_scalar_compare(
+        self, node: PlanNode, scope: Scope, cmp: t.Comparison, pattern
+    ) -> PlanNode:
+        """Decorrelate expr <op> (correlated scalar agg): join against the
+        subquery grouped by its correlation keys (ref: Q17/Q2/Q20 shapes)."""
+        spec, pairs, residual, item, count_family = pattern
+        inner_keys = tuple(p[1] for p in pairs)
+        grouped_spec = t.QuerySpecification(
+            select_items=tuple(
+                [t.SelectItem(expression=k, alias=f"corr_key_{i}") for i, k in enumerate(inner_keys)]
+                + [t.SelectItem(expression=item.expression, alias="corr_agg")]
+            ),
+            from_=spec.from_,
+            where=None if not residual else (
+                residual[0] if len(residual) == 1 else t.Logical("AND", tuple(residual))
+            ),
+            group_by=tuple(t.GroupingElement((k,), kind="simple") for k in inner_keys),
+        )
+        sub = self._plan_query_spec(grouped_spec, None)
+        # inner join on the correlation keys, then compare against the aggregate
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        criteria = []
+        for i, (outer_expr, _) in enumerate(pairs):
+            ir = translator.translate(outer_expr)
+            if isinstance(ir, Reference):
+                outer_sym = ir.symbol
+            else:
+                outer_sym = self.symbols.new_symbol("corr_out", ir.type)
+                node = append_projection(node, ((outer_sym, ir),), self.symbols.types)
+            criteria.append((outer_sym, sub.fields[i].symbol))
+        join = JoinNode(
+            left=node,
+            right=sub.node,
+            # count over an empty correlated group is 0, not absent: LEFT
+            # join keeps unmatched outer rows and the aggregate coalesces
+            kind=JoinKind.LEFT if count_family else JoinKind.INNER,
+            criteria=tuple(criteria),
+        )
+        agg_field = sub.fields[-1]
+        agg_sym = agg_field.symbol
+        if count_family:
+            csym = self.symbols.new_symbol("corr_cnt", agg_field.type)
+            join = append_projection(
+                join,
+                ((csym, Call(
+                    "coalesce",
+                    (Reference(agg_sym, agg_field.type),
+                     Constant(agg_field.type, 0)),
+                    agg_field.type,
+                )),),
+                self.symbols.types,
+            )
+            agg_sym = csym
+        joined_fields = scope.fields + [
+            Field("$corr_agg", agg_field.type, agg_sym)
+        ]
+        joined_scope = Scope(joined_fields, scope.parent)
+        translator2 = ExpressionTranslator(self, joined_scope, allow_subqueries=False)
+        left_ir = translator2.translate(cmp.left)
+        right_ir = translator2.translate(cmp.right)
+        a, b = translator2._coerce_pair(left_ir, right_ir, "correlated comparison")
+        name = {
+            t.ComparisonOp.EQUAL: "$eq",
+            t.ComparisonOp.NOT_EQUAL: "$ne",
+            t.ComparisonOp.LESS_THAN: "$lt",
+            t.ComparisonOp.LESS_THAN_OR_EQUAL: "$lte",
+            t.ComparisonOp.GREATER_THAN: "$gt",
+            t.ComparisonOp.GREATER_THAN_OR_EQUAL: "$gte",
+        }[cmp.op]
+        return FilterNode(source=join, predicate=Call(name, (a, b), BOOLEAN))
+
+    def _plan_exists_filter(
+        self, node: PlanNode, scope: Scope, query: t.Query, negated: bool
+    ) -> PlanNode:
+        # correlated EXISTS with equality correlation -> semi join
+        # (TransformCorrelatedExistsToSemiJoin shape; Q4/Q21/Q22)
+        body = query.body
+        if (
+            isinstance(body, t.QuerySpecification)
+            and not query.with_queries
+            and not body.group_by
+            and body.having is None
+            and not body.distinct
+            and body.limit is None
+            and not body.offset
+            and query.limit is None
+            and not query.offset
+        ):
+            split = self._split_correlated_conjuncts(body, scope)
+            if split is not None and split[0]:
+                pairs, cmps, residual = split
+                if not cmps and len(pairs) == 1:
+                    return self._plan_correlated_exists(
+                        node, scope, body, pairs, residual, negated
+                    )
+                if len(cmps) <= 1:
+                    # multi-key equality and/or one inequality correlation:
+                    # agg-join decorrelation (Q21's <> shape)
+                    return self._plan_correlated_exists_agg(
+                        node, scope, body, pairs,
+                        cmps[0] if cmps else None, residual, negated,
+                    )
+        # uncorrelated EXISTS: count(*) over the subquery, cross join the scalar,
+        # filter on count > 0 (Trino plans this via rules on ApplyNode; same shape)
+        sub = self.plan_query(query, parent_scope=None)
+        cnt = self.symbols.new_symbol("exists_count", BIGINT)
+        agg = AggregationNode(
+            source=sub.node,
+            group_keys=(),
+            aggregations=((cnt, Aggregation("count", (), output_type=BIGINT)),),
+            step=AggregationStep.SINGLE,
+        )
+        join = JoinNode(left=node, right=agg, kind=JoinKind.CROSS)
+        op = "$eq" if negated else "$gt"
+        pred = Call(op, (Reference(cnt, BIGINT), Constant(BIGINT, 0)), BOOLEAN)
+        return FilterNode(source=join, predicate=pred)
+
+    def _plan_correlated_exists(
+        self,
+        node: PlanNode,
+        scope: Scope,
+        spec: t.QuerySpecification,
+        pairs: List[Tuple[t.Expression, t.Expression]],
+        residual: List[t.Expression],
+        negated: bool,
+    ) -> PlanNode:
+        outer_expr, inner_expr = pairs[0]
+        inner_spec = t.QuerySpecification(
+            select_items=(t.SelectItem(expression=inner_expr, alias="corr_key"),),
+            from_=spec.from_,
+            where=None if not residual else (
+                residual[0] if len(residual) == 1 else t.Logical("AND", tuple(residual))
+            ),
+        )
+        sub = self._plan_query_spec(inner_spec, None)
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        ir = translator.translate(outer_expr)
+        if isinstance(ir, Reference):
+            outer_sym = ir.symbol
+        else:
+            outer_sym = self.symbols.new_symbol("exists_key", ir.type)
+            node = append_projection(node, ((outer_sym, ir),), self.symbols.types)
+        match_sym = self.symbols.new_symbol("exists_match", BOOLEAN)
+        semi = SemiJoinNode(
+            source=node,
+            filtering_source=sub.node,
+            source_key=outer_sym,
+            filtering_key=sub.fields[0].symbol,
+            output=match_sym,
+        )
+        pred: IrExpr = Reference(match_sym, BOOLEAN)
+        if negated:
+            pred = Call("$not", (pred,), BOOLEAN)
+        return FilterNode(source=semi, predicate=pred)
+
+    def _plan_correlated_exists_agg(
+        self,
+        node: PlanNode,
+        scope: Scope,
+        spec: t.QuerySpecification,
+        pairs: List[Tuple[t.Expression, t.Expression]],
+        cmp: Optional[Tuple[t.Expression, str, t.Expression]],
+        residual: List[t.Expression],
+        negated: bool,
+    ) -> PlanNode:
+        """Decorrelate [NOT] EXISTS with equality pairs plus at most one
+        correlated comparison via per-key aggregates:
+
+            EXISTS(i WHERE i.k = o.k AND i.c <> o.c AND residual)
+              <=>  n_k > 0 AND (min_k(c) <> o.c OR max_k(c) <> o.c)
+            ... i.c > o.c   <=>  max_k(c) > o.c      (< / <= / >= likewise)
+
+        where n_k/min_k/max_k aggregate the inner relation (residual applied)
+        grouped by its correlation keys, LEFT-joined to the outer side. The
+        whole predicate wraps in coalesce(..., false) so unmatched rows are
+        FALSE (kept by NOT EXISTS). (ref: TransformCorrelatedExistsToLeftJoin-
+        family rules; the min/max split replaces the mark-join.)
+        """
+        qn = lambda n: t.QualifiedName((n,))  # noqa: E731
+        inner_keys = [p[1] for p in pairs]
+        select_items = [
+            t.SelectItem(expression=k, alias=f"corr_key_{i}")
+            for i, k in enumerate(inner_keys)
+        ]
+        if cmp is not None:
+            inner_col = cmp[0]
+            select_items += [
+                t.SelectItem(
+                    expression=t.FunctionCall(qn("min"), (inner_col,)),
+                    alias="corr_min",
+                ),
+                t.SelectItem(
+                    expression=t.FunctionCall(qn("max"), (inner_col,)),
+                    alias="corr_max",
+                ),
+                t.SelectItem(
+                    expression=t.FunctionCall(qn("count"), (inner_col,)),
+                    alias="corr_n",
+                ),
+            ]
+        else:
+            select_items.append(
+                t.SelectItem(
+                    expression=t.FunctionCall(qn("count"), (), is_star=True),
+                    alias="corr_n",
+                )
+            )
+        grouped_spec = t.QuerySpecification(
+            select_items=tuple(select_items),
+            from_=spec.from_,
+            where=None if not residual else (
+                residual[0] if len(residual) == 1 else t.Logical("AND", tuple(residual))
+            ),
+            group_by=tuple(
+                t.GroupingElement((k,), kind="simple") for k in inner_keys
+            ),
+        )
+        sub = self._plan_query_spec(grouped_spec, None)
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        criteria = []
+        for i, (outer_expr, _) in enumerate(pairs):
+            ir = translator.translate(outer_expr)
+            if isinstance(ir, Reference):
+                outer_sym = ir.symbol
+            else:
+                outer_sym = self.symbols.new_symbol("corr_out", ir.type)
+                node = append_projection(node, ((outer_sym, ir),), self.symbols.types)
+            criteria.append((outer_sym, sub.fields[i].symbol))
+        join = JoinNode(
+            left=node, right=sub.node, kind=JoinKind.LEFT, criteria=tuple(criteria)
+        )
+        k = len(pairs)
+        n_field = sub.fields[-1]
+        n_pos = Call(
+            "$gt",
+            (Reference(n_field.symbol, n_field.type), Constant(BIGINT, 0)),
+            BOOLEAN,
+        )
+        if cmp is not None:
+            _, op, outer_cmp = cmp
+            min_f, max_f = sub.fields[k], sub.fields[k + 1]
+            outer_ir = translator.translate(outer_cmp)
+
+            def against(field, name):
+                a, b = translator._coerce_pair(
+                    Reference(field.symbol, field.type), outer_ir,
+                    "correlated comparison",
+                )
+                return Call(name, (a, b), BOOLEAN)
+
+            if op == "<>":
+                cmp_pred = Call(
+                    "$or", (against(min_f, "$ne"), against(max_f, "$ne")), BOOLEAN
+                )
+            elif op == "<":
+                cmp_pred = against(min_f, "$lt")
+            elif op == "<=":
+                cmp_pred = against(min_f, "$lte")
+            elif op == ">":
+                cmp_pred = against(max_f, "$gt")
+            else:  # >=
+                cmp_pred = against(max_f, "$gte")
+            exists_pred = Call("$and", (n_pos, cmp_pred), BOOLEAN)
+        else:
+            exists_pred = n_pos
+        exists_pred = Call(
+            "coalesce", (exists_pred, Constant(BOOLEAN, False)), BOOLEAN
+        )
+        pred: IrExpr = exists_pred
+        if negated:
+            pred = Call("$not", (pred,), BOOLEAN)
+        return FilterNode(source=join, predicate=pred)
+
+    def _attach_subqueries(self, node: PlanNode, translator: ExpressionTranslator) -> PlanNode:
+        for _, sub_node in translator.pending_scalar_subqueries:
+            node = JoinNode(left=node, right=sub_node, kind=JoinKind.CROSS)
+        translator.pending_scalar_subqueries.clear()
+        return node
+
+    def _plan_aggregation(
+        self,
+        node: PlanNode,
+        scope: Scope,
+        spec: t.QuerySpecification,
+        select_items: List[t.SelectItem],
+        agg_calls: List[t.FunctionCall],
+    ):
+        # resolve grouping expressions (incl. ordinals)
+        group_exprs: List[t.Expression] = []
+        for ge in spec.group_by:
+            if ge.kind != "simple":
+                raise SemanticError(f"GROUP BY {ge.kind} not supported yet")
+            for e in ge.expressions:
+                if isinstance(e, t.LongLiteral):
+                    idx = e.value
+                    if not (1 <= idx <= len(select_items)):
+                        raise SemanticError(f"GROUP BY position {idx} out of range")
+                    group_exprs.append(select_items[idx - 1].expression)
+                elif isinstance(e, t.Identifier):
+                    # may refer to a select alias (Trino allows this)
+                    alias_match = [
+                        it.expression for it in select_items if it.alias == e.name
+                    ]
+                    try:
+                        scope.resolve(e.name)
+                        group_exprs.append(e)
+                    except SemanticError:
+                        if alias_match:
+                            group_exprs.append(alias_match[0])
+                        else:
+                            raise
+                else:
+                    group_exprs.append(e)
+
+        translator = ExpressionTranslator(self, scope, allow_subqueries=False)
+        pre_assignments: List[Tuple[str, IrExpr]] = []
+        ast_mapping: Dict[t.Expression, str] = {}
+        group_symbols: List[str] = []
+
+        def project_expr(ast_expr: t.Expression, hint: str) -> str:
+            ir = translator.translate(ast_expr)
+            if isinstance(ir, Reference):
+                sym = ir.symbol
+                pre_assignments.append((sym, ir))
+            else:
+                sym = self.symbols.new_symbol(hint, ir.type)
+                pre_assignments.append((sym, ir))
+            return sym
+
+        for e in group_exprs:
+            sym = project_expr(e, derive_name(e) or "group")
+            if sym not in group_symbols:
+                group_symbols.append(sym)
+            ast_mapping[e] = sym
+
+        aggregations: List[Tuple[str, Aggregation]] = []
+        seen_aggs: Dict[t.FunctionCall, str] = {}
+        for call in agg_calls:
+            if call in seen_aggs:
+                continue
+            name = str(call.name).lower()
+            arg_syms = []
+            for i, a in enumerate(call.args):
+                arg_syms.append(project_expr(a, f"{name}_arg{i}"))
+            filter_sym = None
+            if call.filter is not None:
+                filter_sym = project_expr(call.filter, f"{name}_filter")
+            ordering = []
+            for j, item in enumerate(call.order_by):
+                osym = project_expr(item.key, f"{name}_order{j}")
+                ordering.append(make_ordering(item, osym))
+            arg_types = [self.symbols.types[s] for s in arg_syms]
+            out_type = resolve_aggregate(name, arg_types)
+            out_sym = self.symbols.new_symbol(name, out_type)
+            aggregations.append(
+                (
+                    out_sym,
+                    Aggregation(
+                        function=name,
+                        args=tuple(arg_syms),
+                        distinct=call.distinct,
+                        filter=filter_sym,
+                        output_type=out_type,
+                        ordering=tuple(ordering),
+                    ),
+                )
+            )
+            seen_aggs[call] = out_sym
+            ast_mapping[call] = out_sym
+
+        pre_project = ProjectNode(source=node, assignments=dedupe_assignments(pre_assignments))
+        agg_node = AggregationNode(
+            source=pre_project,
+            group_keys=tuple(group_symbols),
+            aggregations=tuple(aggregations),
+            step=AggregationStep.SINGLE,
+        )
+        # post-aggregation scope: only group keys + aggregates are addressable;
+        # keep original field names for group keys so ORDER BY can resolve them.
+        post_fields: List[Field] = []
+        sym_to_field = {f.symbol: f for f in scope.fields}
+        for sym in group_symbols:
+            f = sym_to_field.get(sym)
+            post_fields.append(
+                Field(f.name if f else None, self.symbols.types[sym], sym,
+                      qualifier=f.qualifier if f else None)
+            )
+        post_scope = Scope(post_fields, scope.parent)
+        return agg_node, post_scope, ast_mapping
+
+    def _plan_window(self, node, scope, window_calls, ast_mapping):
+        # group window calls by (partition_by, order_by) spec
+        translator = ExpressionTranslator(self, scope, ast_mapping, allow_subqueries=False)
+        pre_assignments: List[Tuple[str, IrExpr]] = []
+
+        def to_symbol(ast_expr, hint):
+            ir = translator.translate(ast_expr)
+            if isinstance(ir, Reference):
+                sym = ir.symbol
+            else:
+                sym = self.symbols.new_symbol(hint, ir.type)
+            pre_assignments.append((sym, ir))
+            return sym
+
+        def const_of(ast_expr):
+            # "__nonconst__" (not None) marks a non-literal argument so the
+            # executor can distinguish it from a literal NULL
+            ir = translator.translate(ast_expr)
+            return ir.value if isinstance(ir, Constant) else "__nonconst__"
+
+        specs: Dict[tuple, List[t.FunctionCall]] = {}
+        for call in window_calls:
+            if call in ast_mapping:
+                continue
+            if call.order_by:
+                raise SemanticError(
+                    "ORDER BY in arguments is not supported for window "
+                    "functions; use OVER (ORDER BY ...)"
+                )
+            key = (call.window.partition_by, call.window.order_by)
+            specs.setdefault(key, []).append(call)
+
+        def plan_frame(call: t.FunctionCall):
+            f = call.window.frame
+            if f is None:
+                return None
+            from .plan import WindowFrame as PlanFrame
+
+            return PlanFrame(
+                type_=f.type_,
+                start_kind=f.start_kind,
+                end_kind=f.end_kind,
+                start_value=f.start_value,
+                end_value=f.end_value,
+            )
+
+        for (partition_by, order_by), calls in specs.items():
+            part_syms = tuple(to_symbol(e, "wpart") for e in partition_by)
+            orderings = tuple(
+                Ordering(
+                    to_symbol(s.key, "wsort"),
+                    s.ascending,
+                    s.nulls_first if s.nulls_first is not None else not s.ascending,
+                )
+                for s in order_by
+            )
+            functions: List[Tuple[str, WindowFunction]] = []
+            for call in calls:
+                name = str(call.name).lower()
+                if is_aggregate(name):
+                    arg_syms = tuple(to_symbol(a, f"{name}_arg") for a in call.args)
+                    out_type = resolve_aggregate(name, [self.symbols.types[s] for s in arg_syms])
+                elif is_window(name):
+                    arg_syms = tuple(to_symbol(a, f"{name}_arg") for a in call.args)
+                    out_type = WINDOW_FUNCTIONS[name]([self.symbols.types[s] for s in arg_syms] or [BIGINT])
+                else:
+                    raise SemanticError(f"unknown window function: {name}")
+                out_sym = self.symbols.new_symbol(name, out_type)
+                functions.append(
+                    (
+                        out_sym,
+                        WindowFunction(
+                            name, arg_syms, out_type, plan_frame(call),
+                            tuple(const_of(a) for a in call.args),
+                            ignore_nulls=call.null_treatment == "IGNORE",
+                        ),
+                    )
+                )
+                ast_mapping[call] = out_sym
+            # pass through all current symbols plus the newly projected ones
+            if pre_assignments:
+                node = append_projection(node, tuple(dedupe_assignments(pre_assignments)), self.symbols.types)
+                pre_assignments = []
+            node = WindowNode(
+                source=node,
+                partition_by=part_syms,
+                order_by=orderings,
+                functions=tuple(functions),
+            )
+        return node, ast_mapping
+
+    def _apply_order_limit(
+        self,
+        rel: RelationPlan,
+        parent_scope,
+        order_by: Tuple[t.SortItem, ...],
+        limit: Optional[int],
+        offset: int,
+        select_aliases,
+    ) -> RelationPlan:
+        node = rel.node
+        if order_by:
+            # resolution order: output aliases -> ordinals -> underlying scope
+            out_scope = Scope(rel.fields, None)
+            orderings: List[Ordering] = []
+            extra_assignments: List[Tuple[str, IrExpr]] = []
+            for item in order_by:
+                key = item.key
+                sym: Optional[str] = None
+                if isinstance(key, t.LongLiteral):
+                    idx = key.value
+                    if not (1 <= idx <= len(rel.fields)):
+                        raise SemanticError(f"ORDER BY position {idx} out of range")
+                    sym = rel.fields[idx - 1].symbol
+                else:
+                    try:
+                        translator = ExpressionTranslator(self, out_scope, allow_subqueries=False)
+                        ir = translator.translate(key)
+                        if isinstance(ir, Reference):
+                            sym = ir.symbol
+                        else:
+                            sym = self.symbols.new_symbol("sortkey", ir.type)
+                            extra_assignments.append((sym, ir))
+                    except SemanticError:
+                        if select_aliases is not None:
+                            scope, ast_mapping = select_aliases
+                            translator = ExpressionTranslator(self, scope, ast_mapping, allow_subqueries=False)
+                            ir = translator.translate(key)
+                            if isinstance(ir, Reference):
+                                sym = ir.symbol
+                            else:
+                                sym = self.symbols.new_symbol("sortkey", ir.type)
+                                extra_assignments.append((sym, ir))
+                        else:
+                            raise
+                orderings.append(make_ordering(item, sym))
+            if extra_assignments:
+                node = append_projection(node, tuple(extra_assignments), self.symbols.types)
+            node = attach_order_limit(node, orderings, limit, offset)
+            if extra_assignments:
+                node = ProjectNode(
+                    source=node,
+                    assignments=tuple(
+                        (f.symbol, Reference(f.symbol, f.type)) for f in rel.fields
+                    ),
+                )
+        elif limit is not None or offset:
+            node = attach_order_limit(node, (), limit, offset)
+        return RelationPlan(node, rel.fields)
+
+
+# --------------------------------------------------------------------------- #
+# helpers
+# --------------------------------------------------------------------------- #
+
+
+
+def make_ordering(item: t.SortItem, symbol: str) -> Ordering:
+    """Ordering with Trino's null-order default (ASC -> NULLS LAST, DESC -> FIRST)."""
+    return Ordering(
+        symbol,
+        item.ascending,
+        item.nulls_first if item.nulls_first is not None else not item.ascending,
+    )
+
+
+def attach_order_limit(node: PlanNode, orderings, limit, offset) -> PlanNode:
+    """Sort/TopN/Limit tail shared by query-spec and query-level ORDER BY."""
+    if orderings:
+        if limit is not None and offset == 0:
+            return TopNNode(source=node, count=limit, orderings=tuple(orderings))
+        node = SortNode(source=node, orderings=tuple(orderings))
+    if limit is not None or offset:
+        node = LimitNode(
+            source=node, count=limit if limit is not None else -1, offset=offset
+        )
+    return node
+
+
+def _field_ast(f: Field) -> t.Expression:
+    if f.qualifier:
+        return t.Dereference(t.Identifier(f.qualifier), f.name)
+    return t.Identifier(f.name)
+
+
+def derive_name(expr: t.Expression) -> Optional[str]:
+    if isinstance(expr, t.Identifier):
+        return expr.name
+    if isinstance(expr, t.Dereference):
+        return expr.fieldname
+    if isinstance(expr, t.FunctionCall):
+        return str(expr.name).lower().split(".")[-1]
+    return None
+
+
+def collect_function_calls(
+    expr: t.Expression, aggs: List[t.FunctionCall], windows: List[t.FunctionCall]
+) -> None:
+    """Find aggregate and window calls (not descending into subqueries)."""
+    if isinstance(expr, t.FunctionCall):
+        name = str(expr.name).lower()
+        if expr.window is not None:
+            windows.append(expr)
+            # a windowed AGGREGATE of an aggregate — sum(sum(x)) OVER (...),
+            # TPC-DS q51/q70 — evaluates the inner aggregate in the
+            # aggregation step; collect aggs from the args and the window
+            # spec (ref: sql/analyzer's analyzeWindowFunctions + the
+            # QueryPlanner ordering: aggregation, then window over its output)
+            for a in expr.args:
+                collect_function_calls(a, aggs, [])
+            if expr.window.partition_by:
+                for p in expr.window.partition_by:
+                    collect_function_calls(p, aggs, [])
+            for s in getattr(expr.window, "order_by", ()) or ():
+                collect_function_calls(s.key, aggs, [])
+            return
+        if is_aggregate(name):
+            aggs.append(expr)
+            return  # nested aggs are invalid; args don't contain aggs
+    for child in ast_children(expr):
+        collect_function_calls(child, aggs, windows)
+
+
+def ast_children(expr: t.Expression) -> List[t.Expression]:
+    out: List[t.Expression] = []
+    if isinstance(expr, t.ArithmeticBinary):
+        out = [expr.left, expr.right]
+    elif isinstance(expr, t.ArithmeticUnary):
+        out = [expr.value]
+    elif isinstance(expr, t.Comparison):
+        out = [expr.left, expr.right]
+    elif isinstance(expr, t.Logical):
+        out = list(expr.terms)
+    elif isinstance(expr, t.Not):
+        out = [expr.value]
+    elif isinstance(expr, (t.IsNull, t.IsNotNull)):
+        out = [expr.value]
+    elif isinstance(expr, t.Between):
+        out = [expr.value, expr.min, expr.max]
+    elif isinstance(expr, t.InList):
+        out = [expr.value, *expr.items]
+    elif isinstance(expr, t.Like):
+        out = [expr.value, expr.pattern]
+    elif isinstance(expr, t.SearchedCase):
+        out = [x for w in expr.when_clauses for x in (w.condition, w.result)]
+        if expr.default is not None:
+            out.append(expr.default)
+    elif isinstance(expr, t.SimpleCase):
+        out = [expr.operand] + [x for w in expr.when_clauses for x in (w.condition, w.result)]
+        if expr.default is not None:
+            out.append(expr.default)
+    elif isinstance(expr, t.Cast):
+        out = [expr.value]
+    elif isinstance(expr, t.Extract):
+        out = [expr.value]
+    elif isinstance(expr, t.FunctionCall):
+        out = list(expr.args)
+        if expr.filter is not None:
+            out.append(expr.filter)
+    elif isinstance(expr, t.Row):
+        out = list(expr.items)
+    return out
+
+
+def split_ast_conjuncts(expr: t.Expression) -> List[t.Expression]:
+    if isinstance(expr, t.Logical) and expr.op == "AND":
+        out: List[t.Expression] = []
+        for term in expr.terms:
+            out.extend(split_ast_conjuncts(term))
+        return out
+    return [expr]
+
+
+def split_conjuncts(expr: IrExpr) -> List[IrExpr]:
+    if isinstance(expr, Call) and expr.name == "$and":
+        out: List[IrExpr] = []
+        for a in expr.args:
+            out.extend(split_conjuncts(a))
+        return out
+    return [expr]
+
+
+def combine_conjuncts(exprs: Sequence[IrExpr]) -> IrExpr:
+    result = exprs[0]
+    for e in exprs[1:]:
+        result = Call("$and", (result, e), BOOLEAN)
+    return result
+
+
+def as_equi_clause(expr: IrExpr, left_syms: set, right_syms: set):
+    """a.x = b.y with sides from different inputs -> (left_symbol, right_symbol)."""
+    from ..sql.ir import references
+
+    if not (isinstance(expr, Call) and expr.name == "$eq"):
+        return None
+    a, b = expr.args
+    if not (isinstance(a, Reference) and isinstance(b, Reference)):
+        return None
+    if a.symbol in left_syms and b.symbol in right_syms:
+        return (a.symbol, b.symbol)
+    if b.symbol in left_syms and a.symbol in right_syms:
+        return (b.symbol, a.symbol)
+    return None
+
+
+def dedupe_assignments(assignments: Sequence[Tuple[str, IrExpr]]):
+    seen = {}
+    out = []
+    for sym, e in assignments:
+        if sym in seen:
+            continue
+        seen[sym] = True
+        out.append((sym, e))
+    return tuple(out)
+
+
+def append_projection(
+    node: PlanNode, extra: Tuple[Tuple[str, IrExpr], ...], types: Dict[str, Type]
+) -> PlanNode:
+    """Identity-project all existing outputs plus ``extra`` assignments."""
+    assigns = []
+    existing = set()
+    for s in node.output_symbols:
+        assigns.append((s, Reference(s, types[s])))
+        existing.add(s)
+    for sym, e in extra:
+        if sym not in existing:
+            assigns.append((sym, e))
+    return ProjectNode(source=node, assignments=tuple(assigns))
+
+
+def _factor_or_common(c: t.Expression) -> List[t.Expression]:
+    """(A AND X) OR (A AND Y) -> [A, (X OR Y)] when every OR branch carries
+    the identical conjunct A (AST equality). Non-OR inputs pass through."""
+    if not (isinstance(c, t.Logical) and c.op == "OR"):
+        return [c]
+    branches: List[t.Expression] = list(c.terms)
+    if not branches:
+        return [c]
+    branch_sets = [split_ast_conjuncts(b) for b in branches]
+    common = [x for x in branch_sets[0] if all(x in bs for bs in branch_sets[1:])]
+    if not common:
+        return [c]
+    rest_branches: List[t.Expression] = []
+    for bs in branch_sets:
+        rest = [x for x in bs if x not in common]
+        if not rest:
+            # one branch is exactly the common part: the OR is just A
+            return common
+        rest_branches.append(
+            rest[0] if len(rest) == 1 else t.Logical("AND", tuple(rest))
+        )
+    return common + [t.Logical("OR", tuple(rest_branches))]

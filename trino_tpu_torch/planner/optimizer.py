@@ -1,0 +1,823 @@
+"""Plan optimizer: ordered passes over the logical plan.
+
+Reference blueprint: io.trino.sql.planner.PlanOptimizers (PlanOptimizers.java:275,
+~80 passes over 232 iterative rules; SURVEY.md §2.3). Round 1 implements the
+highest-leverage subset as whole-plan passes:
+
+- merge_projections     (rule/InlineProjections + removeRedundantIdentityProjections)
+- merge_filters         (rule/MergeFilters)
+- simplify_predicates   (IR constant simplification)
+- pushdown_predicates   (optimizations/PredicatePushDown.java — through Project,
+                         Filter into TableScan constraint via TupleDomain extraction)
+- prune_columns         (rule/Prune*Columns — restrict every node to needed symbols)
+- determine_join_distribution (rule/DetermineJoinDistributionType — broadcast vs
+                         partitioned by build-side size estimate)
+
+AddExchanges/fragmentation live in fragmenter.py (separate phase, as in Trino).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from ..metadata import Metadata, Session
+from ..spi.predicate import Domain, Range, TupleDomain
+from ..spi.types import BOOLEAN, Type, VarcharType, is_string
+from ..sql.ir import Call, Case, CastExpr, Constant, InLut, IrExpr, Reference, references, substitute
+from .logical_planner import split_conjuncts, combine_conjuncts
+from .plan import (
+    AggregationNode,
+    EnforceSingleRowNode,
+    ExchangeNode,
+    FilterNode,
+    JoinDistribution,
+    JoinKind,
+    JoinNode,
+    LimitNode,
+    LogicalPlan,
+    Ordering,
+    OutputNode,
+    PlanNode,
+    ProjectNode,
+    SemiJoinNode,
+    SortNode,
+    TableScanNode,
+    TopNNode,
+    UnionNode,
+    ValuesNode,
+    VectorTopNNode,
+    WindowNode,
+    rewrite_plan,
+)
+
+TRUE = Constant(BOOLEAN, True)
+
+
+def optimizer_passes(metadata: Metadata, types: Dict[str, Type], session: Session):
+    """The ordered pass pipeline as (rule_name, fn) pairs (ref:
+    PlanOptimizers.java:275's sequencing — simplify first so later passes see
+    folded constants, push predicates before pruning, cost-based decisions
+    last). Named so the sanity plane can report WHICH rule corrupted a plan."""
+    from . import rules
+    from .stats import make_estimator
+
+    # one estimator shared by the cost-based tail (join reordering inside
+    # eliminate_cross_joins builds its own; see stats.make_estimator)
+    memo = {}
+
+    def estimator():
+        if "e" not in memo:
+            memo["e"] = make_estimator(metadata, types, session)
+        return memo["e"]
+
+    return [
+        ("simplify_expressions", rules.simplify_expressions),
+        ("remove_trivial_filters", rules.remove_trivial_filters),
+        ("merge_projections", merge_projections),
+        ("merge_filters", merge_filters),
+        ("extract_common_predicates", extract_common_predicates),
+        ("eliminate_cross_joins",
+         lambda r: eliminate_cross_joins(r, metadata, types, session)),
+        ("pushdown_predicates", lambda r: pushdown_predicates(r, types)),
+        ("infer_join_predicates",
+         lambda r: rules.infer_join_predicates(r, types)),
+        ("pushdown_predicates#2", lambda r: pushdown_predicates(r, types)),
+        ("push_filter_through_window", rules.push_filter_through_window),
+        ("push_filter_through_sort", rules.push_filter_through_sort),
+        ("push_filter_through_aggregation",
+         rules.push_filter_through_aggregation),
+        ("push_filter_through_union", rules.push_filter_through_union),
+        ("push_filter_through_unnest", rules.push_filter_through_unnest),
+        ("pushdown_predicates#3", lambda r: pushdown_predicates(r, types)),
+        ("merge_adjacent_windows", rules.merge_adjacent_windows),
+        ("merge_projections#2", merge_projections),
+        ("pushdown_into_scans", lambda r: pushdown_into_scans(r, metadata)),
+        ("prune_agg_ordering", rules.prune_agg_ordering),
+        ("remove_redundant_sort", rules.remove_redundant_sort),
+        ("remove_redundant_enforce_single_row",
+         rules.remove_redundant_enforce_single_row),
+        ("remove_limit_over_single_row", rules.remove_limit_over_single_row),
+        ("merge_limits", rules.merge_limits),
+        ("push_limit_through_project", rules.push_limit_through_project),
+        ("push_limit_through_union", rules.push_limit_through_union),
+        ("push_limit_through_outer_join", rules.push_limit_through_outer_join),
+        ("push_topn_through_union", rules.push_topn_through_union),
+        ("push_limit_into_scan", rules.push_limit_into_scan),
+        ("prune_empty_subplans", rules.prune_empty_subplans),
+        ("remove_trivial_filters#2", rules.remove_trivial_filters),
+        ("prune_columns", lambda r: prune_columns(r, types)),
+        ("push_join_residuals", push_join_residuals),
+        ("decompose_long_decimal_aggregates",
+         lambda r: rules.decompose_long_decimal_aggregates(r, types)),
+        ("merge_projections#3", merge_projections),
+        ("flip_join_sides", lambda r: flip_join_sides(r, metadata, estimator())),
+        ("determine_join_distribution",
+         lambda r: determine_join_distribution(r, metadata, session, estimator())),
+        ("sort_limit_to_topn", sort_limit_to_topn),
+        ("push_topn_through_project", rules.push_topn_through_project),
+        ("merge_limits#2", rules.merge_limits),
+        # tensor workload plane: ORDER BY <similarity> LIMIT k -> one fused
+        # scores->top-k device program (gated off by default)
+        ("fuse_vector_topn", lambda r: fuse_vector_topn(r, session, metadata)),
+    ]
+
+
+def optimize(plan: LogicalPlan, metadata: Metadata, session: Session) -> LogicalPlan:
+    """Run the pass pipeline. With the ``validate_plan`` session knob on, the
+    plan-sanity checkers (planner/sanity.py) run after EVERY rule — the
+    validateIntermediatePlan analogue; the overhead when off is this one flag
+    check. Final validation always runs (validateFinalPlan: a corrupt plan
+    must never reach a fragmenter or executor, even in production)."""
+    from .sanity import validate_final, validate_intermediate
+
+    validate = False
+    try:
+        validate = bool(session.get("validate_plan"))
+    except KeyError:
+        pass
+
+    root = plan.root
+    for rule_name, fn in optimizer_passes(metadata, plan.types, session):
+        root = fn(root)
+        if validate:
+            validate_intermediate(root, plan.types, rule_name, session=session)
+    out = LogicalPlan(root, plan.types)
+    validate_final(out, metadata, session, stage="optimize")
+    return out
+
+
+def flip_join_sides(root: PlanNode, metadata: Metadata, estimator=None) -> PlanNode:
+    """Put the smaller input on the build (right) side of inner joins
+    (ref: the DetermineJoinDistributionType cost comparison that may flip
+    sides). Output symbols are looked up by name, so the swap is free."""
+    if estimator is None:
+        from .stats import StatsEstimator
+
+        estimator = StatsEstimator(metadata, {})
+
+    def fn(node: PlanNode) -> PlanNode:
+        if (
+            isinstance(node, JoinNode)
+            and node.kind == JoinKind.INNER
+            and node.criteria
+        ):
+            l = estimator.rows(node.left)
+            r = estimator.rows(node.right)
+            if l is not None and r is not None and l < r:
+                return replace(
+                    node,
+                    left=node.right,
+                    right=node.left,
+                    criteria=tuple((b, a) for a, b in node.criteria),
+                )
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def push_join_residuals(root: PlanNode) -> PlanNode:
+    """Push single-sided ON-clause residual conjuncts into the join inputs.
+
+    Valid for INNER (both sides) and for the non-preserved side of outer joins
+    (e.g. TPC-H Q13's LEFT JOIN ... AND o_comment NOT LIKE ... filters the build
+    input). ref: PredicatePushDown's join handling."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, JoinNode) and node.filter is not None):
+            return node
+        left_syms = set(node.left.output_symbols)
+        right_syms = set(node.right.output_symbols)
+        to_left: List[IrExpr] = []
+        to_right: List[IrExpr] = []
+        remaining: List[IrExpr] = []
+        for c in split_conjuncts(node.filter):
+            refs = references(c)
+            if refs and refs <= left_syms and node.kind in (JoinKind.INNER, JoinKind.CROSS, JoinKind.RIGHT):
+                to_left.append(c)
+            elif refs and refs <= right_syms and node.kind in (JoinKind.INNER, JoinKind.CROSS, JoinKind.LEFT):
+                to_right.append(c)
+            else:
+                remaining.append(c)
+        if not to_left and not to_right:
+            return node
+        left = node.left
+        right = node.right
+        if to_left:
+            left = FilterNode(source=left, predicate=combine_conjuncts(to_left))
+        if to_right:
+            right = FilterNode(source=right, predicate=combine_conjuncts(to_right))
+        return replace(
+            node,
+            left=left,
+            right=right,
+            filter=combine_conjuncts(remaining) if remaining else None,
+        )
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# projection / filter merging
+# --------------------------------------------------------------------------- #
+
+
+def merge_projections(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, ProjectNode):
+            src = node.source
+            if isinstance(src, ProjectNode):
+                mapping = {s: e for s, e in src.assignments}
+                merged = tuple((s, substitute(e, mapping)) for s, e in node.assignments)
+                return ProjectNode(source=src.source, assignments=merged)
+            if node.is_identity() and node.output_symbols == src.output_symbols:
+                return src
+        return node
+
+    # iterate to fixpoint (cheap: plans are small)
+    prev = None
+    while prev is not root:
+        prev = root
+        root = rewrite_plan(root, fn)
+    return root
+
+
+def merge_filters(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode) and isinstance(node.source, FilterNode):
+            inner = node.source
+            return FilterNode(
+                source=inner.source,
+                predicate=Call("$and", (inner.predicate, node.predicate), BOOLEAN),
+            )
+        if isinstance(node, FilterNode) and node.predicate == TRUE:
+            return node.source
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# common-predicate extraction (ref: io.trino.sql.ir.optimizer
+# ExtractCommonPredicatesExpressionRewriter): or(and(A,B), and(A,C)) ->
+# and(A, or(B,C)) — without it TPC-H Q19's join condition stays trapped
+# inside the OR and the join planner sees only a cross product.
+# --------------------------------------------------------------------------- #
+
+
+def _factor_or(expr: IrExpr) -> IrExpr:
+    if isinstance(expr, Call) and expr.name == "$and":
+        return combine_conjuncts([_factor_or(c) for c in split_conjuncts(expr)])
+    if not (isinstance(expr, Call) and expr.name == "$or"):
+        return expr
+
+    def or_terms(e: IrExpr) -> List[IrExpr]:
+        if isinstance(e, Call) and e.name == "$or":
+            return or_terms(e.args[0]) + or_terms(e.args[1])
+        return [e]
+
+    branches = [split_conjuncts(_factor_or(b)) for b in or_terms(expr)]
+    common = [c for c in branches[0] if all(c in b for b in branches[1:])]
+    if not common:
+        return expr
+    residuals = [[c for c in b if c not in common] for b in branches]
+    if any(not r for r in residuals):
+        # a branch reduced to the common part alone: OR collapses to it
+        return combine_conjuncts(common)
+    rest: IrExpr = combine_conjuncts(residuals[0])
+    for r in residuals[1:]:
+        rest = Call("$or", (rest, combine_conjuncts(r)), BOOLEAN)
+    return combine_conjuncts(common + [rest])
+
+
+def extract_common_predicates(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode):
+            return replace(node, predicate=_factor_or(node.predicate))
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# cross-join elimination (ref: rule/EliminateCrossJoins.java + ReorderJoins'
+# join-graph model, optimizations/joins/JoinGraph.java)
+# --------------------------------------------------------------------------- #
+
+
+def eliminate_cross_joins(
+    root: PlanNode,
+    metadata: Metadata,
+    types: Dict[str, Type],
+    session: Optional[Session] = None,
+) -> PlanNode:
+    """Cost-based reordering of flat cross/inner join trees along the
+    equi-join graph (ref: rule/EliminateCrossJoins.java + ReorderJoins.java +
+    optimizations/joins/JoinGraph.java). Greedy over estimated intermediate
+    cardinalities: start from the smallest FILTERED relation, repeatedly add
+    the connected relation minimizing the estimated join output — so
+    comma-join queries like TPC-H Q5/Q8/Q9 both avoid cross products AND join
+    in selectivity order.
+
+    join_reordering_strategy: NONE (keep syntactic order),
+    ELIMINATE_CROSS_JOINS (reorder only when a cross product is present),
+    AUTOMATIC (reorder any flat inner-join tree of >= 3 relations)."""
+    from .stats import join_graph_order, make_estimator
+
+    strategy = str(session.get("join_reordering_strategy")) if session else "AUTOMATIC"
+    if strategy == "NONE":
+        return root
+    estimator = make_estimator(metadata, types, session)
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, FilterNode) and isinstance(node.source, JoinNode)):
+            return node
+
+        # flatten the maximal CROSS/INNER join tree under the filter
+        leaves: List[PlanNode] = []
+        conjuncts: List[IrExpr] = list(split_conjuncts(node.predicate))
+        saw_cross = [False]
+
+        def flatten(n: PlanNode):
+            if isinstance(n, JoinNode) and n.kind in (JoinKind.CROSS, JoinKind.INNER):
+                if n.kind == JoinKind.CROSS:
+                    saw_cross[0] = True
+                for l, r in n.criteria:
+                    conjuncts.append(
+                        Call(
+                            "$eq",
+                            (Reference(l, types.get(l)), Reference(r, types.get(r))),
+                            BOOLEAN,
+                        )
+                    )
+                if n.filter is not None:
+                    conjuncts.extend(split_conjuncts(n.filter))
+                flatten(n.left)
+                flatten(n.right)
+            else:
+                leaves.append(n)
+
+        flatten(node.source)
+        if len(leaves) < 3 or (strategy == "ELIMINATE_CROSS_JOINS" and not saw_cross[0]):
+            return node
+
+        # relation index per output symbol
+        sym_to_rel: Dict[str, int] = {}
+        for i, leaf in enumerate(leaves):
+            for s in leaf.output_symbols:
+                sym_to_rel[s] = i
+
+        # equi edges + per-leaf local filter conjuncts
+        equi_edges: List[Tuple[int, str, int, str]] = []
+        leaf_conjuncts: Dict[int, List[IrExpr]] = {}
+        for c in conjuncts:
+            if isinstance(c, Call) and c.name == "$eq":
+                a, b = c.args
+                if isinstance(a, Reference) and isinstance(b, Reference):
+                    ra, rb = sym_to_rel.get(a.symbol), sym_to_rel.get(b.symbol)
+                    if ra is not None and rb is not None and ra != rb:
+                        equi_edges.append((ra, a.symbol, rb, b.symbol))
+                        continue
+            refs = references(c)
+            rels = {sym_to_rel.get(s) for s in refs}
+            if len(rels) == 1 and None not in rels:
+                leaf_conjuncts.setdefault(next(iter(rels)), []).append(c)
+
+        order = join_graph_order(leaves, leaf_conjuncts, equi_edges, estimator)
+        if order == list(range(len(leaves))):
+            return node  # already optimal under the estimate
+
+        tree: PlanNode = leaves[order[0]]
+        for i in order[1:]:
+            tree = JoinNode(left=tree, right=leaves[i], kind=JoinKind.CROSS)
+        return FilterNode(source=tree, predicate=combine_conjuncts(conjuncts))
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# predicate pushdown (ref: optimizations/PredicatePushDown.java)
+# --------------------------------------------------------------------------- #
+
+
+def pushdown_predicates(root: PlanNode, types: Dict[str, Type]) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if not isinstance(node, FilterNode):
+            return node
+        src = node.source
+        conjuncts = split_conjuncts(node.predicate)
+
+        if isinstance(src, ProjectNode):
+            mapping = {s: e for s, e in src.assignments}
+            pushable: List[IrExpr] = []
+            stuck: List[IrExpr] = []
+            for c in conjuncts:
+                rewritten = substitute(c, mapping)
+                # only push deterministic references (all our IR is deterministic)
+                pushable.append(rewritten)
+            new_filter = FilterNode(source=src.source, predicate=combine_conjuncts(pushable))
+            out: PlanNode = ProjectNode(source=fn(new_filter), assignments=src.assignments)
+            return out
+
+        if isinstance(src, JoinNode):
+            left_syms = set(src.left.output_symbols)
+            right_syms = set(src.right.output_symbols)
+            to_left: List[IrExpr] = []
+            to_right: List[IrExpr] = []
+            remaining: List[IrExpr] = []
+            new_criteria: List[Tuple[str, str]] = []
+            for c in conjuncts:
+                refs = references(c)
+                if refs and refs <= left_syms and src.kind in (JoinKind.INNER, JoinKind.CROSS, JoinKind.LEFT):
+                    to_left.append(c)
+                elif refs and refs <= right_syms and src.kind in (JoinKind.INNER, JoinKind.CROSS, JoinKind.RIGHT):
+                    to_right.append(c)
+                elif src.kind in (JoinKind.CROSS, JoinKind.INNER):
+                    # promote a.x = b.y into join criteria (the EliminateCrossJoins
+                    # / PredicatePushDown-into-criteria rule — without this a
+                    # comma-join materializes the full cross product)
+                    from .logical_planner import as_equi_clause
+
+                    pair = as_equi_clause(c, left_syms, right_syms)
+                    if pair is not None:
+                        new_criteria.append(pair)
+                    else:
+                        remaining.append(c)
+                else:
+                    remaining.append(c)
+            left = src.left
+            right = src.right
+            if to_left:
+                left = fn(FilterNode(source=left, predicate=combine_conjuncts(to_left)))
+            if to_right:
+                right = fn(FilterNode(source=right, predicate=combine_conjuncts(to_right)))
+            new_join = replace(src, left=left, right=right)
+            if new_criteria:
+                new_join = replace(
+                    new_join,
+                    kind=JoinKind.INNER,
+                    criteria=tuple(src.criteria) + tuple(new_criteria),
+                )
+            if remaining:
+                return FilterNode(source=new_join, predicate=combine_conjuncts(remaining))
+            return new_join
+
+        if isinstance(src, SemiJoinNode):
+            # push conjuncts not referencing the semi-join output below it
+            # (so equi conjuncts can reach and re-type the cross join beneath)
+            pushable = [c for c in conjuncts if src.output not in references(c)]
+            kept = [c for c in conjuncts if src.output in references(c)]
+            if pushable:
+                new_source = fn(
+                    FilterNode(source=src.source, predicate=combine_conjuncts(pushable))
+                )
+                src = replace(src, source=new_source)
+            if kept:
+                return FilterNode(source=src, predicate=combine_conjuncts(kept))
+            return src
+
+        if isinstance(src, UnionNode):
+            new_inputs = []
+            for inp, in_syms in zip(src.inputs, src.symbol_mapping):
+                mapping = {
+                    out_sym: Reference(in_sym, types.get(in_sym))
+                    for out_sym, in_sym in zip(src.symbols, in_syms)
+                }
+                pred = substitute(node.predicate, mapping)
+                new_inputs.append(fn(FilterNode(source=inp, predicate=pred)))
+            return replace(src, inputs=tuple(new_inputs))
+
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def extract_tuple_domain(
+    conjuncts: Sequence[IrExpr], symbol_to_column: Dict[str, str]
+) -> Tuple[TupleDomain, List[IrExpr]]:
+    """Split conjuncts into (TupleDomain over column names, residual conjuncts).
+    ref: planner/DomainTranslator.java — the residual keeps full fidelity; the
+    domain is only used for pruning (connector may not enforce it)."""
+    domains: Dict[str, Domain] = {}
+    residual: List[IrExpr] = []
+
+    def const_value(c: Constant):
+        # dictionary-code comparisons can't prune generically yet; strings pass
+        # through (the tpch generator orders dictionaries so ranges still work
+        # when the connector chooses to use them).
+        return c.value
+
+    for c in conjuncts:
+        handled = False
+        if isinstance(c, Call) and c.name in ("$eq", "$lt", "$lte", "$gt", "$gte"):
+            a, b = c.args
+            ref, const, flipped = None, None, False
+            if isinstance(a, Reference) and isinstance(b, Constant):
+                ref, const = a, b
+            elif isinstance(b, Reference) and isinstance(a, Constant):
+                ref, const, flipped = b, a, True
+            if ref is not None and ref.symbol in symbol_to_column and const.value is not None:
+                col = symbol_to_column[ref.symbol]
+                v = const_value(const)
+                op = c.name
+                if flipped:
+                    op = {"$lt": "$gt", "$lte": "$gte", "$gt": "$lt", "$gte": "$lte"}.get(op, op)
+                if op == "$eq":
+                    dom = Domain(range=Range(v, v))
+                elif op == "$lt":
+                    dom = Domain(range=Range(None, v, True, False))
+                elif op == "$lte":
+                    dom = Domain(range=Range(None, v, True, True))
+                elif op == "$gt":
+                    dom = Domain(range=Range(v, None, False, True))
+                else:
+                    dom = Domain(range=Range(v, None, True, True))
+                domains[col] = domains.get(col, Domain.all()).intersect(dom)
+                handled = True
+        residual.append(c)
+        if handled:
+            pass
+    return TupleDomain.from_dict(domains), residual
+
+
+def pushdown_into_scans(root: PlanNode, metadata: Metadata) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode) and isinstance(node.source, TableScanNode):
+            scan = node.source
+            sym_to_col = {s: c for s, c in scan.assignments}
+            conjuncts = split_conjuncts(node.predicate)
+            domain, _ = extract_tuple_domain(conjuncts, sym_to_col)
+            if domain.domains:
+                new_scan = replace(scan, constraint=scan.constraint.intersect(domain))
+                return FilterNode(source=new_scan, predicate=node.predicate)
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# column pruning (ref: rule/Prune*Columns)
+# --------------------------------------------------------------------------- #
+
+
+def prune_columns(root: PlanNode, types: Dict[str, Type]) -> PlanNode:
+    def prune(node: PlanNode, needed: Set[str]) -> PlanNode:
+        if isinstance(node, OutputNode):
+            src = prune(node.source, set(node.symbols))
+            return replace(node, source=src)
+        if isinstance(node, ProjectNode):
+            kept = tuple((s, e) for s, e in node.assignments if s in needed)
+            child_needed: Set[str] = set()
+            for _, e in kept:
+                child_needed |= references(e)
+            src = prune(node.source, child_needed)
+            return ProjectNode(source=src, assignments=kept)
+        if isinstance(node, FilterNode):
+            child_needed = set(needed) | references(node.predicate)
+            return replace(node, source=prune(node.source, child_needed))
+        if isinstance(node, TableScanNode):
+            kept = tuple((s, c) for s, c in node.assignments if s in needed)
+            return replace(node, assignments=kept)
+        if isinstance(node, AggregationNode):
+            kept_aggs = tuple((s, a) for s, a in node.aggregations if s in needed)
+            child_needed = set(node.group_keys)
+            for _, a in kept_aggs:
+                child_needed |= set(a.args)
+                if a.filter:
+                    child_needed.add(a.filter)
+                child_needed |= {o.symbol for o in a.ordering}
+            return replace(
+                node,
+                source=prune(node.source, child_needed),
+                aggregations=kept_aggs,
+            )
+        if isinstance(node, JoinNode):
+            child_needed = set(needed)
+            for l, r in node.criteria:
+                child_needed.add(l)
+                child_needed.add(r)
+            if node.filter is not None:
+                child_needed |= references(node.filter)
+            left = prune(node.left, child_needed & set(node.left.output_symbols) | {l for l, _ in node.criteria})
+            right = prune(node.right, child_needed & set(node.right.output_symbols) | {r for _, r in node.criteria})
+            return replace(node, left=left, right=right)
+        if isinstance(node, SemiJoinNode):
+            child_needed = (set(needed) | {node.source_key}) & set(node.source.output_symbols) | {node.source_key}
+            src = prune(node.source, child_needed)
+            filt = prune(node.filtering_source, {node.filtering_key})
+            return replace(node, source=src, filtering_source=filt)
+        if isinstance(node, (SortNode, TopNNode)):
+            child_needed = set(needed) | {o.symbol for o in node.orderings}
+            return replace(node, source=prune(node.source, child_needed))
+        if isinstance(node, WindowNode):
+            kept_fns = tuple((s, f) for s, f in node.functions if s in needed)
+            child_needed = set(needed) & set(node.source.output_symbols)
+            child_needed |= set(node.partition_by) | {o.symbol for o in node.order_by}
+            for _, f in kept_fns:
+                child_needed |= set(f.args)
+            return replace(node, source=prune(node.source, child_needed), functions=kept_fns)
+        if isinstance(node, LimitNode):
+            return replace(node, source=prune(node.source, needed))
+        if isinstance(node, EnforceSingleRowNode):
+            return replace(node, source=prune(node.source, needed))
+        if isinstance(node, UnionNode):
+            keep_idx = [i for i, s in enumerate(node.symbols) if s in needed]
+            if not keep_idx:
+                keep_idx = [0] if node.symbols else []
+            new_symbols = tuple(node.symbols[i] for i in keep_idx)
+            new_mapping = []
+            new_inputs = []
+            for inp, in_syms in zip(node.inputs, node.symbol_mapping):
+                kept_in = tuple(in_syms[i] for i in keep_idx)
+                new_inputs.append(prune(inp, set(kept_in)))
+                new_mapping.append(kept_in)
+            return UnionNode(
+                inputs=tuple(new_inputs),
+                symbols=new_symbols,
+                symbol_mapping=tuple(new_mapping),
+            )
+        if isinstance(node, ValuesNode):
+            return node
+        if isinstance(node, ExchangeNode):
+            return replace(node, source=prune(node.source, needed | set(node.partition_keys)))
+        # default: conservative — require everything
+        new_sources = tuple(prune(s, set(s.output_symbols)) for s in node.sources)
+        return node.with_sources(new_sources)
+
+    return prune(root, set(root.output_symbols))
+
+
+# --------------------------------------------------------------------------- #
+# join distribution + TopN
+# --------------------------------------------------------------------------- #
+
+
+def estimate_rows(node: PlanNode, metadata: Metadata) -> Optional[float]:
+    """Back-compat shim over the full estimator (planner/stats.py)."""
+    from .stats import StatsEstimator
+
+    return StatsEstimator(metadata, {}).rows(node)
+
+
+def determine_join_distribution(
+    root: PlanNode, metadata: Metadata, session: Session, estimator=None
+) -> PlanNode:
+    """ref: rule/DetermineJoinDistributionType.java — broadcast small build
+    sides (estimated with filter selectivity, not just base-table size)."""
+    threshold = session.get("broadcast_join_threshold_rows")
+    mode = session.get("join_distribution_type")
+    if estimator is None:
+        from .stats import StatsEstimator
+
+        estimator = StatsEstimator(metadata, {})
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, JoinNode) and node.distribution == JoinDistribution.AUTO:
+            if mode == "BROADCAST":
+                return replace(node, distribution=JoinDistribution.BROADCAST)
+            if mode == "PARTITIONED":
+                return replace(node, distribution=JoinDistribution.PARTITIONED)
+            build_rows = estimator.rows(node.right)
+            if build_rows is not None and build_rows <= threshold:
+                return replace(node, distribution=JoinDistribution.BROADCAST)
+            return replace(node, distribution=JoinDistribution.PARTITIONED)
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def sort_limit_to_topn(root: PlanNode) -> PlanNode:
+    """ref: rule/CreatePartialTopN precursor — Limit(Sort) -> TopN."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, LimitNode) and node.count >= 0 and node.offset == 0:
+            if isinstance(node.source, SortNode):
+                return TopNNode(
+                    source=node.source.source,
+                    count=node.count,
+                    orderings=node.source.orderings,
+                )
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def fuse_vector_topn(
+    root: PlanNode, session: Session, metadata: Optional[Metadata] = None
+) -> PlanNode:
+    """Tensor workload plane: ``ORDER BY <similarity> LIMIT k`` as ONE
+    scores -> top-k device program (ref arXiv:2306.08367). Recognizes
+    ``TopN(Project)`` where the LEADING ordering symbol is a projection
+    assignment computing a vector-similarity (or model-scoring) expression;
+    the pair fuses into a VectorTopNNode the executor runs as a single jit
+    program, reusing the serial path's compiled expression closures and the
+    stable TopN sort kernels — the unfused Project + TopN pair is the
+    bit-identity oracle. Gated on ``tensor_plane`` AND ``vector_topk_fusion``
+    (both default off; off = byte-identical plans)."""
+    try:
+        enabled = bool(session.get("tensor_plane")) and bool(
+            session.get("vector_topk_fusion")
+        )
+    except KeyError:
+        enabled = False
+    if not enabled:
+        return root
+    from .._unported import unported
+
+    unported("ops.tensor")
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (
+            isinstance(node, TopNNode)
+            and not node.partial
+            and node.count >= 0
+            and isinstance(node.source, ProjectNode)
+            and node.orderings
+        ):
+            return node
+        project = node.source
+        assigned = {s: e for s, e in project.assignments}
+        lead = assigned.get(node.orderings[0].symbol)
+        if lead is None or not any(True for _ in walk_vector_calls(lead)):
+            return node  # not a similarity ordering — not this plane's shape
+        missing = [
+            o.symbol for o in node.orderings if o.symbol not in assigned
+        ]
+        if missing:
+            # a similarity ordering whose secondary keys bypass the scoring
+            # projection: the fused node cannot produce them — labeled
+            # fallback (the serial pair still answers the query)
+            on_topk_fallback("unprojected_order_key")
+            return node
+        fused = VectorTopNNode(
+            source=project.source,
+            assignments=project.assignments,
+            count=node.count,
+            orderings=node.orderings,
+        )
+        return _maybe_ann_rewrite(fused, session, metadata)
+
+    return rewrite_plan(root, fn)
+
+
+def _maybe_ann_rewrite(
+    node: VectorTopNNode, session: Session, metadata: Optional[Metadata]
+) -> VectorTopNNode:
+    """ANN serving tier: under ``ann_mode=approx``, a fused vector top-k
+    whose source is a direct scan of an IVF-indexed table gets a centroid
+    probe spec pushed into the scan handle — ``get_splits`` then returns only
+    the ``nprobe`` nearest clusters, pruning splits the way partition pruning
+    does. Declined (exact scan kept) whenever any precondition fails: the
+    probe must target the indexed vector column with a constant query, and
+    the lead ordering direction must actually want the NEAREST rows (DESC for
+    similarities, ASC for l2 distance) — the pruned clusters hold far rows,
+    so a FARTHEST-first ordering would lose exactly the rows it wants."""
+    from ..knobs import resolve_ann_mode
+    from .._unported import unported
+
+    unported("ops.tensor")
+
+    if metadata is None:
+        return node
+    try:
+        mode, nprobe = resolve_ann_mode(session.get("ann_mode"))
+    except KeyError:
+        return node
+    if mode != "approx":
+        return node
+    if nprobe is None:
+        try:
+            nprobe = int(session.get("ann_nprobe") or 1)
+        except KeyError:
+            nprobe = 1
+    scan = node.source
+    if not isinstance(scan, TableScanNode):
+        return node
+    assigned = {s: e for s, e in node.assignments}
+    lead = assigned.get(node.orderings[0].symbol)
+    parts = split_query_constant(lead) if lead is not None else None
+    if parts is None:
+        return node
+    sim, col_expr, const = parts
+    asc = node.orderings[0].ascending
+    if (sim == "l2_distance") != asc:
+        return node  # ordering wants the farthest rows — pruning is unsound
+    if not isinstance(col_expr, Reference):
+        return node
+    column = {s: c for s, c in scan.assignments}.get(col_expr.symbol)
+    if column is None:
+        return node
+    q = constant_vector_value(const)
+    if q is None:
+        return node
+    try:
+        connector = metadata.connector_for(scan.table)
+    except Exception:  # noqa: BLE001 — planner knobs degrade, never fail
+        return node
+    probe = getattr(connector, "ann_probe_handle", None)
+    if probe is None:
+        return node  # connector has no index tier
+    new_handle = probe(scan.table, column, q, max(1, int(nprobe)), sim)
+    if new_handle is None:
+        return node
+    return replace(node, source=replace(scan, table=new_handle))

@@ -1,0 +1,636 @@
+"""Logical/physical plan nodes.
+
+Reference blueprint: core/trino-main/src/main/java/io/trino/sql/planner/plan/
+(~60 node types; SURVEY.md §2.3). Round 1 implements the nodes needed for the SELECT
+core + distribution: TableScan, Filter, Project, Aggregation (with partial/final
+steps), Join, SemiJoin, Sort, TopN, Limit, Distinct (as Aggregation), Values, Union,
+Window, Exchange, Output.
+
+Symbols: plan-wide unique lowercase names (Trino's Symbol); every node lists its
+``output_symbols`` and the types live in a side ``TypeProvider`` dict owned by the
+plan, exactly like Trino's SymbolAllocator.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from enum import Enum
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..spi.connector import TableHandle
+from ..spi.predicate import TupleDomain
+from ..spi.types import Type
+from ..sql.ir import IrExpr, Reference
+
+
+class PlanNode:
+    __slots__ = ()
+
+    @property
+    def sources(self) -> Tuple["PlanNode", ...]:
+        raise NotImplementedError
+
+    @property
+    def output_symbols(self) -> Tuple[str, ...]:
+        raise NotImplementedError
+
+    def with_sources(self, sources: Tuple["PlanNode", ...]) -> "PlanNode":
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class TableScanNode(PlanNode):
+    """ref: sql/planner/plan/TableScanNode.java. ``assignments`` maps output symbol
+    -> connector column name; ``constraint`` is the pushed-down TupleDomain keyed by
+    column name (applyFilter absorbed it)."""
+
+    table: TableHandle
+    assignments: Tuple[Tuple[str, str], ...]  # (symbol, column_name)
+    constraint: TupleDomain = TupleDomain.all()
+    # stop-early row target from PushLimitIntoTableScan (guaranteed=false:
+    # the LimitNode above still enforces the exact count)
+    limit: Optional[int] = None
+
+    @property
+    def sources(self):
+        return ()
+
+    @property
+    def output_symbols(self):
+        return tuple(s for s, _ in self.assignments)
+
+    def with_sources(self, sources):
+        assert not sources
+        return self
+
+
+@dataclass(frozen=True)
+class FilterNode(PlanNode):
+    source: PlanNode = None
+    predicate: IrExpr = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class ProjectNode(PlanNode):
+    source: PlanNode = None
+    assignments: Tuple[Tuple[str, IrExpr], ...] = ()  # symbol -> expression
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return tuple(s for s, _ in self.assignments)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+    def is_identity(self) -> bool:
+        return all(
+            isinstance(e, Reference) and e.symbol == s for s, e in self.assignments
+        )
+
+
+class AggregationStep(Enum):
+    SINGLE = "SINGLE"
+    PARTIAL = "PARTIAL"
+    FINAL = "FINAL"
+
+
+@dataclass(frozen=True)
+class Aggregation:
+    """One aggregate: symbol <- fn(args) [FILTER mask_symbol]. Args are symbols
+    (pre-projected), matching Trino's AggregationNode.Aggregation."""
+
+    function: str
+    args: Tuple[str, ...]
+    distinct: bool = False
+    filter: Optional[str] = None  # boolean symbol
+    output_type: Type = None
+    # ORDER BY inside the aggregate (array_agg(x ORDER BY y), listagg WITHIN
+    # GROUP); ref AggregationNode.Aggregation orderingScheme
+    ordering: Tuple["Ordering", ...] = ()
+
+
+@dataclass(frozen=True)
+class AggregationNode(PlanNode):
+    """ref: sql/planner/plan/AggregationNode.java; executed by the analogue of
+    HashAggregationOperator (SURVEY.md §2.5)."""
+
+    source: PlanNode = None
+    group_keys: Tuple[str, ...] = ()
+    aggregations: Tuple[Tuple[str, Aggregation], ...] = ()
+    step: AggregationStep = AggregationStep.SINGLE
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.group_keys + tuple(s for s, _ in self.aggregations)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class TableFunctionNode(PlanNode):
+    """Leaf produced by TABLE(fn(...)) (ref: plan/TableFunctionNode.java,
+    operator/table/TableFunctionOperator.java). ``sequence`` generates its
+    rows as one jnp.arange page — a pure device computation, no host loop."""
+
+    symbols: Tuple[str, ...] = ()
+    function: str = ""
+    # host-evaluated constant arguments (sequence: start, stop, step)
+    args: Tuple[object, ...] = ()
+
+    @property
+    def sources(self):
+        return ()
+
+    @property
+    def output_symbols(self):
+        return self.symbols
+
+    def with_sources(self, sources):
+        return self
+
+
+@dataclass(frozen=True)
+class UnnestNode(PlanNode):
+    """Expand array/map columns into rows (ref: sql/planner/plan/UnnestNode.java,
+    operator/unnest/UnnestOperator.java). TPU lowering: output capacity is the
+    static ``cap * W`` lane grid; rows beyond each array's length stay inactive
+    (pad-and-mask on the flattened element axis)."""
+
+    source: PlanNode = None
+    replicate_symbols: Tuple[str, ...] = ()
+    # (input array/map symbol, output symbols — 1 for arrays, 2 for maps)
+    unnest_symbols: Tuple[Tuple[str, Tuple[str, ...]], ...] = ()
+    ordinality_symbol: Optional[str] = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        out = list(self.replicate_symbols)
+        for _, outs in self.unnest_symbols:
+            out.extend(outs)
+        if self.ordinality_symbol:
+            out.append(self.ordinality_symbol)
+        return tuple(out)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+class JoinKind(Enum):
+    INNER = "INNER"
+    LEFT = "LEFT"
+    RIGHT = "RIGHT"
+    FULL = "FULL"
+    CROSS = "CROSS"
+
+
+class JoinDistribution(Enum):
+    PARTITIONED = "PARTITIONED"
+    BROADCAST = "BROADCAST"  # replicate build side
+    AUTO = "AUTO"
+
+
+@dataclass(frozen=True)
+class JoinNode(PlanNode):
+    """ref: sql/planner/plan/JoinNode.java. criteria: equi-join clauses
+    (left_symbol = right_symbol); ``filter`` is a residual non-equi condition."""
+
+    left: PlanNode = None
+    right: PlanNode = None
+    kind: JoinKind = JoinKind.INNER
+    criteria: Tuple[Tuple[str, str], ...] = ()
+    filter: Optional[IrExpr] = None
+    distribution: JoinDistribution = JoinDistribution.AUTO
+
+    @property
+    def sources(self):
+        return (self.left, self.right)
+
+    @property
+    def output_symbols(self):
+        return self.left.output_symbols + self.right.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, left=sources[0], right=sources[1])
+
+
+@dataclass(frozen=True)
+class SemiJoinNode(PlanNode):
+    """x IN (subquery) -> boolean output symbol (ref: plan/SemiJoinNode.java).
+
+    ``null_aware``: SQL IN three-valued semantics — the match column is NULL
+    (not FALSE) when the probe key is NULL, or when it is unmatched and the
+    filtering side contains a NULL (SemiJoinNode's output is nullable in the
+    reference for exactly this). EXISTS-derived semi joins are two-valued."""
+
+    source: PlanNode = None
+    filtering_source: PlanNode = None
+    source_key: str = ""
+    filtering_key: str = ""
+    output: str = ""  # boolean symbol appended to source outputs
+    null_aware: bool = False
+
+    @property
+    def sources(self):
+        return (self.source, self.filtering_source)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols + (self.output,)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0], filtering_source=sources[1])
+
+
+@dataclass(frozen=True)
+class Ordering:
+    symbol: str
+    ascending: bool = True
+    nulls_first: bool = False
+
+
+@dataclass(frozen=True)
+class SortNode(PlanNode):
+    source: PlanNode = None
+    orderings: Tuple[Ordering, ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class TopNNode(PlanNode):
+    """ref: plan/TopNNode.java; partial/final like Trino for distributed TopN."""
+
+    source: PlanNode = None
+    count: int = 0
+    orderings: Tuple[Ordering, ...] = ()
+    partial: bool = False
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class VectorTopNNode(PlanNode):
+    """Fused scores -> top-k device program (tensor workload plane, ref
+    arXiv:2306.08367 §5: keep the similarity matmul and the selection in ONE
+    kernel launch). Produced by optimizer.fuse_vector_topn from
+    ``TopN(Project)`` when the leading ORDER BY key is a vector-similarity
+    score computed by the projection; the executor runs the projection
+    closures AND the top-k permutation inside one jit program — strictly
+    fewer device programs than the serial Project + TopN pair, bit-identical
+    to it (same compiled expression closures, same stable sort kernel).
+
+    ``assignments`` is the absorbed projection (output symbols == its
+    symbols); ``orderings`` reference assignment symbols, like TopN's
+    orderings reference its source's."""
+
+    source: PlanNode = None
+    assignments: Tuple[Tuple[str, IrExpr], ...] = ()
+    count: int = 0
+    orderings: Tuple[Ordering, ...] = ()
+    partial: bool = False
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return tuple(s for s, _ in self.assignments)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class LimitNode(PlanNode):
+    source: PlanNode = None
+    count: int = 0
+    offset: int = 0
+    partial: bool = False
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class ValuesNode(PlanNode):
+    symbols: Tuple[str, ...] = ()
+    rows: Tuple[Tuple[Any, ...], ...] = ()  # literal host values, storage repr
+
+    @property
+    def sources(self):
+        return ()
+
+    @property
+    def output_symbols(self):
+        return self.symbols
+
+    def with_sources(self, sources):
+        return self
+
+
+@dataclass(frozen=True)
+class UnionNode(PlanNode):
+    """ref: plan/UnionNode.java; symbol_mapping[i] maps this node's outputs to the
+    i-th source's symbols."""
+
+    inputs: Tuple[PlanNode, ...] = ()
+    symbols: Tuple[str, ...] = ()
+    symbol_mapping: Tuple[Tuple[str, ...], ...] = ()  # per-source input symbols
+
+    @property
+    def sources(self):
+        return self.inputs
+
+    @property
+    def output_symbols(self):
+        return self.symbols
+
+    def with_sources(self, sources):
+        return replace(self, inputs=tuple(sources))
+
+
+@dataclass(frozen=True)
+class WindowFrame:
+    """Planner frame (ref: plan/WindowNode.Frame). Mirrors tree.WindowFrame."""
+
+    type_: str = "RANGE"  # "ROWS" | "RANGE"
+    start_kind: str = "UNBOUNDED_PRECEDING"
+    end_kind: str = "CURRENT_ROW"
+    # int for ROWS; int or float for RANGE value offsets (DAYs for dates)
+    start_value: Optional[float] = None
+    end_value: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class WindowFunction:
+    function: str
+    args: Tuple[str, ...]
+    output_type: Type = None
+    # None = the SQL default: RANGE UNBOUNDED PRECEDING..CURRENT ROW when the
+    # spec has an ORDER BY, else the whole partition
+    frame: Optional[WindowFrame] = None
+    # per-arg constant value when the argument is a literal, else None —
+    # scalar parameters (ntile N, lead/lag offset+default, nth_value N) must
+    # be constants and are read host-side from here
+    const_args: Tuple[object, ...] = ()
+    # IGNORE NULLS (lead/lag/first_value/last_value/nth_value)
+    ignore_nulls: bool = False
+
+
+@dataclass(frozen=True)
+class WindowNode(PlanNode):
+    """ref: plan/WindowNode.java (operator/window/, SURVEY.md §2.5)."""
+
+    source: PlanNode = None
+    partition_by: Tuple[str, ...] = ()
+    order_by: Tuple[Ordering, ...] = ()
+    functions: Tuple[Tuple[str, WindowFunction], ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols + tuple(s for s, _ in self.functions)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class PatternRecognitionNode(PlanNode):
+    """MATCH_RECOGNIZE (ref: plan/PatternRecognitionNode.java; the matcher is
+    runtime/match_recognize.py, the Matcher.java/Program.java analogue).
+
+    measures: (symbol, ir_expr, type) triples; defines: (var, ir_bool_expr);
+    pattern: the sql.tree row-pattern AST (frozen dataclasses, hashable);
+    subsets: union variables. rows_per_match: ONE | ALL."""
+
+    source: PlanNode = None
+    partition_by: Tuple[str, ...] = ()
+    order_by: Tuple[Ordering, ...] = ()
+    measures: Tuple[Tuple[str, object, object], ...] = ()
+    rows_per_match: str = "ONE"
+    skip_mode: str = "PAST_LAST"
+    skip_target: Optional[str] = None
+    pattern: object = None
+    subsets: Tuple[Tuple[str, Tuple[str, ...]], ...] = ()
+    defines: Tuple[Tuple[str, object], ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        if self.rows_per_match == "ONE":
+            return self.partition_by + tuple(s for s, _, _ in self.measures)
+        return self.source.output_symbols + tuple(s for s, _, _ in self.measures)
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+class ExchangeType(Enum):
+    GATHER = "GATHER"
+    REPARTITION = "REPARTITION"
+    # range shuffle by the leading sort key — the distributed-sort data plane
+    # (docs admin/dist-sort.md; consumer-side order replaces MergeOperator)
+    REPARTITION_RANGE = "REPARTITION_RANGE"
+    BROADCAST = "BROADCAST"
+
+
+class ExchangeScope(Enum):
+    LOCAL = "LOCAL"
+    REMOTE = "REMOTE"
+
+
+@dataclass(frozen=True)
+class ExchangeNode(PlanNode):
+    """ref: plan/ExchangeNode.java — the parallelism boundary. REMOTE exchanges
+    become stage boundaries at fragmentation (PlanFragmenter.java:126); on TPU the
+    REPARTITION data path is the ICI all-to-all (SURVEY.md §3.3 TPU mapping)."""
+
+    source: PlanNode = None
+    exchange_type: ExchangeType = ExchangeType.GATHER
+    scope: ExchangeScope = ExchangeScope.REMOTE
+    partition_keys: Tuple[str, ...] = ()
+    # REPARTITION_RANGE: the sort order driving range boundaries; on a GATHER:
+    # a merge-exchange marker (producer shards are sorted; concatenation in
+    # shard order IS the merged order — ref operator/MergeOperator.java)
+    orderings: Tuple[Ordering, ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class EnforceSingleRowNode(PlanNode):
+    source: PlanNode = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.source.output_symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass(frozen=True)
+class OutputNode(PlanNode):
+    """Root node: names the result columns (ref: plan/OutputNode.java)."""
+
+    source: PlanNode = None
+    column_names: Tuple[str, ...] = ()
+    symbols: Tuple[str, ...] = ()
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def output_symbols(self):
+        return self.symbols
+
+    def with_sources(self, sources):
+        return replace(self, source=sources[0])
+
+
+@dataclass
+class LogicalPlan:
+    """A plan tree + symbol types (Trino: PlanNode + TypeProvider/SymbolAllocator)."""
+
+    root: PlanNode
+    types: Dict[str, Type]
+
+    def type_of(self, symbol: str) -> Type:
+        return self.types[symbol]
+
+
+def visit_plan(node: PlanNode, fn) -> None:
+    """Pre-order traversal."""
+    fn(node)
+    for s in node.sources:
+        visit_plan(s, fn)
+
+
+def rewrite_plan(node: PlanNode, fn) -> PlanNode:
+    """Bottom-up rewrite: fn(node_with_rewritten_sources) -> node."""
+    new_sources = tuple(rewrite_plan(s, fn) for s in node.sources)
+    if new_sources != node.sources:
+        node = node.with_sources(new_sources)
+    return fn(node)
+
+
+def format_plan(plan: LogicalPlan, annotate=None) -> str:
+    """EXPLAIN text (ref: sql/planner/planprinter/PlanPrinter.java).
+    ``annotate(node) -> str`` appends per-node stats (EXPLAIN ANALYZE)."""
+    lines: List[str] = []
+
+    def fmt(node: PlanNode, indent: int):
+        pad = "  " * indent
+        name = type(node).__name__.replace("Node", "")
+        detail = ""
+        if isinstance(node, TableScanNode):
+            detail = f"[{node.table}]"
+            if node.constraint.domains:
+                detail += f" constraint={[c for c, _ in node.constraint.domains]}"
+        elif isinstance(node, FilterNode):
+            detail = f"[{node.predicate}]"
+        elif isinstance(node, ProjectNode):
+            detail = "[" + ", ".join(f"{s} := {e}" for s, e in node.assignments) + "]"
+        elif isinstance(node, AggregationNode):
+            aggs = ", ".join(f"{s} := {a.function}({', '.join(a.args)})" for s, a in node.aggregations)
+            detail = f"[{node.step.value} keys={list(node.group_keys)} {aggs}]"
+        elif isinstance(node, JoinNode):
+            crit = " AND ".join(f"{l} = {r}" for l, r in node.criteria)
+            detail = f"[{node.kind.value} {crit}]"
+        elif isinstance(node, VectorTopNNode):
+            aggs = ", ".join(f"{s} := {e}" for s, e in node.assignments)
+            detail = (
+                f"[fused {node.count} by {[o.symbol for o in node.orderings]}"
+                f"{' partial' if node.partial else ''} {aggs}]"
+            )
+        elif isinstance(node, (TopNNode,)):
+            detail = f"[{node.count} by {[o.symbol for o in node.orderings]}{' partial' if node.partial else ''}]"
+        elif isinstance(node, LimitNode):
+            detail = f"[{node.count}]"
+        elif isinstance(node, SortNode):
+            detail = f"[{[o.symbol for o in node.orderings]}]"
+        elif isinstance(node, ExchangeNode):
+            detail = f"[{node.scope.value} {node.exchange_type.value} keys={list(node.partition_keys)}]"
+        elif isinstance(node, OutputNode):
+            detail = f"[{', '.join(node.column_names)}]"
+        elif isinstance(node, ValuesNode):
+            detail = f"[{len(node.rows)} rows]"
+        extra = annotate(node) if annotate is not None else ""
+        lines.append(f"{pad}- {name}{detail}{extra}")
+        for s in node.sources:
+            fmt(s, indent + 1)
+
+    fmt(plan.root, 0)
+    return "\n".join(lines)

@@ -1,0 +1,992 @@
+"""Iterative optimizer rules beyond the round-1 pass set.
+
+Reference blueprint: sql/planner/iterative/rule/ (232 rules sequenced by
+PlanOptimizers.java:275). Each function here is a whole-plan pass built on
+``rewrite_plan`` (bottom-up rewrite); the correspondences:
+
+- simplify_expressions           SimplifyExpressions + IR constant folding
+- remove_trivial_filters         RemoveTrivialFilters
+- prune_empty_subplans           EvaluateZeroInput* / RemoveEmpty* family
+- merge_limits                   MergeLimits, MergeLimitWithTopN
+- push_limit_through_project     PushLimitThroughProject
+- push_limit_through_union       PushLimitThroughUnion
+- push_topn_through_project      PushTopNThroughProject
+- remove_redundant_enforce_single_row  RemoveRedundantEnforceSingleRowNode
+- remove_limit_over_single_row   RemoveRedundantLimit
+- remove_redundant_sort          RemoveRedundantSort (sort under an
+                                 order-insensitive aggregation / single row)
+- prune_agg_ordering             PruneOrderByInAggregation
+- infer_join_predicates          PredicatePushDown's equality inference
+                                 (EqualityInference.java)
+- push_filter_through_window     PushPredicateThroughProjectIntoWindow /
+                                 PushdownFilterIntoWindow (partition-key
+                                 conjuncts only)
+- push_filter_through_sort       PushdownFilterThroughSort
+- push_filter_through_aggregation PredicatePushDown.visitAggregation
+                                 (group-key conjuncts)
+- push_filter_through_union      PredicatePushDown.visitUnion
+- push_filter_through_unnest     replicate-symbol conjuncts below Unnest
+- merge_adjacent_windows         MergeAdjacentWindows / GatherAndMergeWindows
+- push_limit_through_outer_join  PushLimitThroughOuterJoin
+- push_topn_through_union        GatherPartialTopN over unions
+- push_limit_into_scan           PushLimitIntoTableScan (stop-early hint)
+
+All rules preserve output symbols, so they compose freely with the round-1
+passes in optimizer.optimize().
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Dict, List, Optional, Set, Tuple
+
+from ..spi.types import BOOLEAN, DOUBLE, Type, is_floating, is_integral
+from ..sql.ir import (
+    Call,
+    Case,
+    CastExpr,
+    Constant,
+    IrExpr,
+    Reference,
+    is_deterministic,
+    references,
+    substitute,
+)
+from .logical_planner import combine_conjuncts, split_conjuncts
+from .plan import (
+    AggregationNode,
+    EnforceSingleRowNode,
+    FilterNode,
+    JoinKind,
+    JoinNode,
+    LimitNode,
+    PlanNode,
+    ProjectNode,
+    SemiJoinNode,
+    SortNode,
+    TableScanNode,
+    TopNNode,
+    UnionNode,
+    ValuesNode,
+    WindowNode,
+    rewrite_plan,
+)
+
+TRUE = Constant(BOOLEAN, True)
+FALSE = Constant(BOOLEAN, False)
+
+
+# --------------------------------------------------------------------------- #
+# expression simplification (SimplifyExpressions / ir.optimizer rewriters)
+# --------------------------------------------------------------------------- #
+
+_FOLDABLE_ARITH = {
+    "$add": (2, lambda a, b: a + b),
+    "$sub": (2, lambda a, b: a - b),
+    "$mul": (2, lambda a, b: a * b),
+    "$neg": (1, lambda a: -a),
+}
+_FOLDABLE_CMP = {
+    "$eq": lambda a, b: a == b,
+    "$neq": lambda a, b: a != b,
+    "$lt": lambda a, b: a < b,
+    "$lte": lambda a, b: a <= b,
+    "$gt": lambda a, b: a > b,
+    "$gte": lambda a, b: a >= b,
+}
+
+
+def _fold_datetime_value(arg):
+    """Constant DATE (epoch days) / TIMESTAMP (micros) -> datetime."""
+    import datetime as _dt
+
+    from ..spi.types import DATE as _DATE
+
+    if arg.type == _DATE:
+        return _dt.datetime(1970, 1, 1) + _dt.timedelta(days=int(arg.value))
+    return _dt.datetime(1970, 1, 1) + _dt.timedelta(
+        microseconds=int(arg.value)
+    )
+
+
+def _typed_fold(name: str, args):
+    """Literal-argument evaluation for string-producing datetime/format
+    functions (their column form would need unbounded output dictionaries —
+    the device representation has no per-row string construction; literal
+    folding covers the predicate/projection-over-constant uses)."""
+    import datetime as _dt
+
+    vals = [a.value for a in args]
+    if name == "chr":
+        return chr(int(vals[0]))
+    if name == "to_base":
+        v, radix = int(vals[0]), int(vals[1])
+        digits = "0123456789abcdefghijklmnopqrstuvwxyz"
+        if v == 0:
+            return "0"
+        neg, v = v < 0, abs(v)
+        out = []
+        while v:
+            out.append(digits[v % radix])
+            v //= radix
+        return ("-" if neg else "") + "".join(reversed(out))
+    if name == "to_iso8601":
+        from ..spi.types import DATE as _DATE
+
+        d = _fold_datetime_value(args[0])
+        return d.date().isoformat() if args[0].type == _DATE else d.isoformat()
+    if name in ("date_format", "format_datetime"):
+        from .._unported import unported
+
+        unported("ops.compiler date formats")
+
+        fmt = _mysql_format(vals[1]) if name == "date_format" else _joda_format(vals[1])
+        return _fold_datetime_value(args[0]).strftime(fmt)
+    if name == "human_readable_seconds":
+        secs = int(round(float(vals[0])))
+        units = [("week", 604800), ("day", 86400), ("hour", 3600),
+                 ("minute", 60), ("second", 1)]
+        parts = []
+        for uname, span in units:
+            q, secs = divmod(secs, span)
+            if q:
+                parts.append(f"{q} {uname}" + ("s" if q != 1 else ""))
+        return ", ".join(parts) if parts else "0 seconds"
+    if name == "current_timezone":
+        return "UTC"
+    if name == "version":
+        return "trino-tpu 0.5 (trino-analogue)"
+    if name == "concat_ws":
+        if vals[0] is None:
+            return None  # NULL separator -> NULL (NULL elements are skipped)
+        sep = str(vals[0])
+        return sep.join(str(v) for v in vals[1:] if v is not None)
+    raise ValueError(name)
+
+
+_TYPED_FOLDS = frozenset(
+    {
+        "chr", "to_base", "to_iso8601", "date_format", "format_datetime",
+        "human_readable_seconds", "current_timezone", "concat_ws", "version",
+    }
+)
+
+
+def fold_constants(expr: IrExpr) -> IrExpr:
+    """Bottom-up constant folding. Division is deliberately NOT folded
+    (divide-by-zero must fail at execution with the engine's error, and
+    decimal division has scale rules the executor owns). NULL propagation:
+    arithmetic/comparisons with a NULL constant operand fold to NULL."""
+    if isinstance(expr, Call):
+        args = tuple(fold_constants(a) for a in expr.args)
+        expr = replace(expr, args=args)
+        name = expr.name
+        if name == "$and":
+            a, b = args
+            for x, other in ((a, b), (b, a)):
+                if isinstance(x, Constant):
+                    if x.value is False:
+                        return FALSE
+                    if x.value is True:
+                        return other
+            return expr
+        if name == "$or":
+            a, b = args
+            for x, other in ((a, b), (b, a)):
+                if isinstance(x, Constant):
+                    if x.value is True:
+                        return TRUE
+                    if x.value is False:
+                        return other
+            return expr
+        if name == "$not" and isinstance(args[0], Constant):
+            v = args[0].value
+            return Constant(BOOLEAN, None if v is None else not v)
+        if all(isinstance(a, Constant) for a in args):
+            vals = [a.value for a in args]
+            if name in _TYPED_FOLDS:
+                if any(v is None for v in vals) and name != "concat_ws":
+                    return Constant(expr.type, None)
+                try:
+                    return Constant(expr.type, _typed_fold(name, args))
+                except Exception:  # noqa: BLE001 — bad literal: leave to runtime
+                    return expr
+            if name in _FOLDABLE_ARITH and len(vals) == _FOLDABLE_ARITH[name][0]:
+                if any(v is None for v in vals):
+                    return Constant(expr.type, None)
+                try:
+                    return Constant(expr.type, _FOLDABLE_ARITH[name][1](*vals))
+                except Exception:  # noqa: BLE001 — overflow etc: leave to runtime
+                    return expr
+            if name in _FOLDABLE_CMP and len(vals) == 2:
+                if any(v is None for v in vals):
+                    return Constant(BOOLEAN, None)
+                from ..spi.types import (
+                    TimestampWithTimeZoneType,
+                    TimeWithTimeZoneType,
+                )
+
+                # zone-packed storage compares by INSTANT: normalize before
+                # folding (same rule as fold_constant_call's >> 12)
+                cvals = [
+                    v >> 12
+                    if isinstance(
+                        a.type, (TimestampWithTimeZoneType, TimeWithTimeZoneType)
+                    )
+                    else v
+                    for v, a in zip(vals, args)
+                ]
+                try:
+                    return Constant(BOOLEAN, bool(_FOLDABLE_CMP[name](*cvals)))
+                except TypeError:
+                    return expr
+        return expr
+    if isinstance(expr, Case):
+        # simple CASE is lowered to searched CASE at analysis, so constant
+        # conditions fold directly: drop never-firing arms, collapse on the
+        # first always-true arm
+        whens = tuple(
+            (fold_constants(c), fold_constants(r)) for c, r in expr.whens
+        )
+        default = fold_constants(expr.default) if expr.default is not None else None
+        new_whens = []
+        for c, r in whens:
+            if isinstance(c, Constant):
+                if c.value is True and not new_whens:
+                    return r
+                if c.value is True:
+                    default = r
+                    break
+                continue  # False/NULL arm never fires
+            new_whens.append((c, r))
+        if not new_whens:
+            return default if default is not None else Constant(expr.type, None)
+        return replace(expr, whens=tuple(new_whens), default=default)
+    if isinstance(expr, CastExpr):
+        return replace(expr, value=fold_constants(expr.value))
+    return expr
+
+
+def simplify_expressions(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode):
+            return replace(node, predicate=fold_constants(node.predicate))
+        if isinstance(node, ProjectNode):
+            return replace(
+                node,
+                assignments=tuple(
+                    (s, fold_constants(e)) for s, e in node.assignments
+                ),
+            )
+        if isinstance(node, JoinNode) and node.filter is not None:
+            return replace(node, filter=fold_constants(node.filter))
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# trivial filters + empty-input propagation
+# --------------------------------------------------------------------------- #
+
+
+def _empty_values(symbols: Tuple[str, ...]) -> ValuesNode:
+    return ValuesNode(symbols=tuple(symbols), rows=())
+
+
+def _is_empty(node: PlanNode) -> bool:
+    return isinstance(node, ValuesNode) and not node.rows
+
+
+def remove_trivial_filters(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode):
+            p = node.predicate
+            if isinstance(p, Constant):
+                if p.value is True:
+                    return node.source
+                # FALSE or NULL filters nothing through
+                return _empty_values(tuple(node.output_symbols))
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def prune_empty_subplans(root: PlanNode) -> PlanNode:
+    """Propagate statically-empty inputs upward (ref: the EvaluateZeroInput /
+    RemoveEmptyUnionBranches / TransformFilteringSemiJoinToInnerJoin-adjacent
+    cleanup family). A global aggregation over an empty input still yields
+    one row, so it stops the propagation."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, (FilterNode, ProjectNode, SortNode, TopNNode, LimitNode)):
+            if _is_empty(node.source):
+                return _empty_values(tuple(node.output_symbols))
+            return node
+        if isinstance(node, WindowNode) and _is_empty(node.source):
+            return _empty_values(tuple(node.output_symbols))
+        if isinstance(node, JoinNode):
+            if node.kind in (JoinKind.INNER, JoinKind.CROSS) and (
+                _is_empty(node.left) or _is_empty(node.right)
+            ):
+                return _empty_values(tuple(node.output_symbols))
+            if node.kind == JoinKind.LEFT and _is_empty(node.left):
+                return _empty_values(tuple(node.output_symbols))
+            if node.kind == JoinKind.RIGHT and _is_empty(node.right):
+                return _empty_values(tuple(node.output_symbols))
+            return node
+        if isinstance(node, AggregationNode):
+            if _is_empty(node.source) and node.group_keys:
+                return _empty_values(tuple(node.output_symbols))
+            return node
+        if isinstance(node, UnionNode):
+            keep = [
+                (inp, m)
+                for inp, m in zip(node.inputs, node.symbol_mapping)
+                if not _is_empty(inp)
+            ]
+            if len(keep) == len(node.inputs):
+                return node
+            if not keep:
+                return _empty_values(tuple(node.symbols))
+            # UnionNode is always ALL-semantics (DISTINCT is lowered as an
+            # aggregation above the union), so a singleton collapses freely
+            if len(keep) == 1:
+                inp, mapping = keep[0]
+                assignments = tuple(
+                    (out, Reference(in_sym, None))
+                    for out, in_sym in zip(node.symbols, mapping)
+                )
+                return ProjectNode(source=inp, assignments=assignments)
+            return replace(
+                node,
+                inputs=tuple(i for i, _ in keep),
+                symbol_mapping=tuple(m for _, m in keep),
+            )
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# limit / topn movement
+# --------------------------------------------------------------------------- #
+
+
+def merge_limits(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, LimitNode):
+            if node.count == 0:
+                return _empty_values(tuple(node.output_symbols))
+            src = node.source
+            if isinstance(src, LimitNode) and node.offset == 0 and src.offset == 0:
+                return replace(node, source=src.source, count=min(node.count, src.count))
+            # Limit over TopN: TopN already bounds the rows
+            if isinstance(src, TopNNode) and node.offset == 0:
+                if node.count >= src.count:
+                    return src
+                return replace(src, count=node.count)
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def push_limit_through_project(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if (
+            isinstance(node, LimitNode)
+            and isinstance(node.source, ProjectNode)
+        ):
+            proj = node.source
+            return replace(proj, source=replace(node, source=proj.source))
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def push_topn_through_project(root: PlanNode) -> PlanNode:
+    """TopN over a Project commutes when every ordering symbol is an identity
+    passthrough of the projection (PushTopNThroughProject's safe subset)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, TopNNode) and isinstance(node.source, ProjectNode)):
+            return node
+        proj = node.source
+        mapping = {s: e for s, e in proj.assignments}
+        new_orderings = []
+        for o in node.orderings:
+            e = mapping.get(o.symbol)
+            if isinstance(e, Reference):
+                new_orderings.append(replace(o, symbol=e.symbol))
+            else:
+                return node
+        return replace(
+            proj,
+            source=replace(node, source=proj.source, orderings=tuple(new_orderings)),
+        )
+
+    return rewrite_plan(root, fn)
+
+
+def push_limit_through_union(root: PlanNode) -> PlanNode:
+    """Copy a LIMIT into each UNION ALL branch (keeping the outer limit) so
+    branch subplans stop early (PushLimitThroughUnion)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (
+            isinstance(node, LimitNode)
+            and node.offset == 0
+            and isinstance(node.source, UnionNode)
+        ):
+            return node
+        union = node.source
+        if all(
+            isinstance(i, LimitNode) and i.count <= node.count for i in union.inputs
+        ):
+            return node  # already pushed
+        new_inputs = tuple(
+            i
+            if isinstance(i, LimitNode) and i.count <= node.count
+            else LimitNode(source=i, count=node.count)
+            for i in union.inputs
+        )
+        return replace(node, source=replace(union, inputs=new_inputs))
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# single-row reasoning
+# --------------------------------------------------------------------------- #
+
+
+def _produces_single_row(node: PlanNode) -> bool:
+    if isinstance(node, EnforceSingleRowNode):
+        return True
+    if isinstance(node, AggregationNode) and not node.group_keys:
+        return True
+    if isinstance(node, ValuesNode) and len(node.rows) == 1:
+        return True
+    if isinstance(node, (ProjectNode, LimitNode)) and _produces_single_row(
+        getattr(node, "source")
+    ):
+        # Limit(count>=1, offset>0) over a single row yields ZERO rows —
+        # only an offset-free limit preserves the single row
+        return isinstance(node, ProjectNode) or (
+            node.count >= 1 and node.offset == 0
+        )
+    return False
+
+
+def remove_redundant_enforce_single_row(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, EnforceSingleRowNode) and _produces_single_row(node.source):
+            return node.source
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def remove_limit_over_single_row(root: PlanNode) -> PlanNode:
+    def fn(node: PlanNode) -> PlanNode:
+        if (
+            isinstance(node, LimitNode)
+            and node.count >= 1
+            and node.offset == 0
+            and _produces_single_row(node.source)
+        ):
+            return node.source
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def remove_redundant_sort(root: PlanNode) -> PlanNode:
+    """Sorts whose order can never be observed: directly under an
+    aggregation with no ordered aggregates, or over a provably single-row
+    input (RemoveRedundantSort)."""
+
+    def strip_topmost_sort(n: PlanNode) -> PlanNode:
+        """Remove the first SortNode reachable through row-preserving,
+        order-irrelevant parents (Project/Filter). Limit/TopN stop the walk —
+        their semantics depend on input order."""
+        if isinstance(n, SortNode):
+            return n.source
+        if isinstance(n, (ProjectNode, FilterNode)):
+            child = strip_topmost_sort(n.source)
+            if child is not n.source:
+                return replace(n, source=child)
+        return n
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, SortNode) and _produces_single_row(node.source):
+            return node.source
+        if isinstance(node, AggregationNode):
+            if not any(a.ordering for _, a in node.aggregations):
+                stripped = strip_topmost_sort(node.source)
+                if stripped is not node.source:
+                    return replace(node, source=stripped)
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+_ORDER_INSENSITIVE_AGGS = frozenset(
+    {"sum", "count", "count_if", "avg", "min", "max", "bool_and", "bool_or",
+     "every", "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp",
+     "var_pop", "approx_distinct"}
+)
+
+
+def prune_agg_ordering(root: PlanNode) -> PlanNode:
+    """array_agg(x ORDER BY y) needs its ordering; sum(x ORDER BY y) does not
+    (PruneOrderByInAggregation) — dropping it also unlocks
+    remove_redundant_sort underneath."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not isinstance(node, AggregationNode):
+            return node
+        changed = False
+        new_aggs = []
+        for s, a in node.aggregations:
+            if a.ordering and a.function in _ORDER_INSENSITIVE_AGGS:
+                a = replace(a, ordering=())
+                changed = True
+            new_aggs.append((s, a))
+        return replace(node, aggregations=tuple(new_aggs)) if changed else node
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# equality inference across joins (EqualityInference.java)
+# --------------------------------------------------------------------------- #
+
+
+def infer_join_predicates(root: PlanNode, types: Dict[str, Type]) -> PlanNode:
+    """For INNER equi-joins: a single-symbol conjunct sitting on one side of
+    an equivalence class is mirrored to the other side, so both inputs prune
+    before the join (ref: PredicatePushDown + EqualityInference — TPC-H Q7's
+    nation filters reach both scans this way)."""
+
+    def mirror(pred_side: PlanNode, pairs: List[Tuple[str, str]], fwd: bool):
+        """Conjuncts of a FilterNode over `pred_side` referencing only the
+        join key, rewritten to the opposite key symbol."""
+        out: List[IrExpr] = []
+        if not isinstance(pred_side, FilterNode):
+            return out
+        key_map = {l: r for l, r in pairs} if fwd else {r: l for l, r in pairs}
+        for c in split_conjuncts(pred_side.predicate):
+            refs = references(c)
+            # a mirrored nondeterministic conjunct (k > random()) would draw
+            # an independent random stream on the other side, filtering rows
+            # the original join keeps — only deterministic ones mirror
+            if len(refs) == 1 and is_deterministic(c):
+                (sym,) = refs
+                other = key_map.get(sym)
+                if other is not None:
+                    out.append(
+                        substitute(c, {sym: Reference(other, types.get(other))})
+                    )
+        return out
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (
+            isinstance(node, JoinNode)
+            and node.kind == JoinKind.INNER
+            and node.criteria
+        ):
+            return node
+        pairs = list(node.criteria)
+        to_right = mirror(node.left, pairs, True)
+        to_left = mirror(node.right, pairs, False)
+
+        def add_filter(side: PlanNode, conjuncts: List[IrExpr]) -> PlanNode:
+            if not conjuncts:
+                return side
+            existing = (
+                set(split_conjuncts(side.predicate))
+                if isinstance(side, FilterNode)
+                else set()
+            )
+            fresh = [c for c in conjuncts if c not in existing]
+            if not fresh:
+                return side
+            if isinstance(side, FilterNode):
+                return replace(
+                    side,
+                    predicate=combine_conjuncts(
+                        list(split_conjuncts(side.predicate)) + fresh
+                    ),
+                )
+            return FilterNode(source=side, predicate=combine_conjuncts(fresh))
+
+        new_left = add_filter(node.left, to_left)
+        new_right = add_filter(node.right, to_right)
+        if new_left is node.left and new_right is node.right:
+            return node
+        return replace(node, left=new_left, right=new_right)
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# filter through window (PushdownFilterIntoWindow's partition-key subset)
+# --------------------------------------------------------------------------- #
+
+
+def push_filter_through_window(root: PlanNode) -> PlanNode:
+    """Conjuncts referencing only PARTITION BY symbols commute with the
+    window: dropping whole partitions before the sort is always safe."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, FilterNode) and isinstance(node.source, WindowNode)):
+            return node
+        win = node.source
+        part_syms = set(win.partition_by)
+        pushable: List[IrExpr] = []
+        stuck: List[IrExpr] = []
+        for c in split_conjuncts(node.predicate):
+            refs = references(c)
+            (pushable if refs and refs <= part_syms else stuck).append(c)
+        if not pushable:
+            return node
+        new_win = replace(
+            win,
+            source=FilterNode(source=win.source, predicate=combine_conjuncts(pushable)),
+        )
+        if stuck:
+            return FilterNode(source=new_win, predicate=combine_conjuncts(stuck))
+        return new_win
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# round-3 additions (the PushdownFilter*/PushLimit*/MergeAdjacentWindows slice
+# of sql/planner/iterative/rule/)
+# --------------------------------------------------------------------------- #
+
+
+def push_filter_through_sort(root: PlanNode) -> PlanNode:
+    """Filter commutes with Sort (fewer rows to sort) — PushdownFilterThroughSort."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if isinstance(node, FilterNode) and isinstance(node.source, SortNode):
+            sort = node.source
+            return replace(sort, source=replace(node, source=sort.source))
+        return node
+
+    return rewrite_plan(root, fn)
+
+
+def push_filter_through_aggregation(root: PlanNode) -> PlanNode:
+    """Conjuncts over group keys only filter identical rows before or after
+    grouping — push them below (PushPredicateThroughProjectIntoRowNumber's
+    aggregation sibling: sql/planner/iterative/rule/PushdownFilterThroughAggregation?
+    in Trino this lives inside PredicatePushDown.visitAggregation)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, FilterNode) and isinstance(node.source, AggregationNode)):
+            return node
+        agg = node.source
+        if not agg.group_keys:
+            return node
+        keys = set(agg.group_keys)
+        below, above = [], []
+        for c in split_conjuncts(node.predicate):
+            (below if references(c) <= keys else above).append(c)
+        if not below:
+            return node
+        new_agg = replace(
+            agg, source=FilterNode(source=agg.source, predicate=combine_conjuncts(below))
+        )
+        if above:
+            return replace(node, source=new_agg, predicate=combine_conjuncts(above))
+        return new_agg
+
+    return rewrite_plan(root, fn)
+
+
+def _rename_references(expr: IrExpr, name_map: Dict[str, str]) -> IrExpr:
+    """Symbol-to-symbol renaming preserving each Reference's type."""
+    if isinstance(expr, Reference):
+        if expr.symbol in name_map:
+            return replace(expr, symbol=name_map[expr.symbol])
+        return expr
+    if isinstance(expr, Call):
+        return replace(
+            expr, args=tuple(_rename_references(a, name_map) for a in expr.args)
+        )
+    if isinstance(expr, Case):
+        return replace(
+            expr,
+            whens=tuple(
+                (_rename_references(c, name_map), _rename_references(r, name_map))
+                for c, r in expr.whens
+            ),
+            default=(
+                _rename_references(expr.default, name_map)
+                if expr.default is not None
+                else None
+            ),
+        )
+    if isinstance(expr, CastExpr):
+        return replace(expr, value=_rename_references(expr.value, name_map))
+    from ..sql.ir import InLut as _InLut
+
+    if isinstance(expr, _InLut):
+        return replace(expr, value=_rename_references(expr.value, name_map))
+    return expr
+
+
+def push_filter_through_union(root: PlanNode) -> PlanNode:
+    """Copy the filter into every UNION branch through its symbol mapping
+    (PredicatePushDown.visitUnion)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, FilterNode) and isinstance(node.source, UnionNode)):
+            return node
+        union = node.source
+        if any(isinstance(i, FilterNode) for i in union.inputs):
+            return node  # already pushed (idempotence guard)
+        new_inputs = []
+        for i, inp in enumerate(union.inputs):
+            name_map = dict(zip(union.symbols, union.symbol_mapping[i]))
+            pred = _rename_references(node.predicate, name_map)
+            new_inputs.append(FilterNode(source=inp, predicate=pred))
+        return replace(union, inputs=tuple(new_inputs))
+
+    return rewrite_plan(root, fn)
+
+
+def push_filter_through_unnest(root: PlanNode) -> PlanNode:
+    """Conjuncts over replicate symbols only go below the Unnest
+    (PushDownFilterThroughUnnest? — ref iterative/rule, replicate side only)."""
+    from .plan import UnnestNode
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, FilterNode) and isinstance(node.source, UnnestNode)):
+            return node
+        un = node.source
+        rep = set(un.replicate_symbols)
+        below, above = [], []
+        for c in split_conjuncts(node.predicate):
+            (below if references(c) <= rep else above).append(c)
+        if not below:
+            return node
+        new_un = replace(
+            un, source=FilterNode(source=un.source, predicate=combine_conjuncts(below))
+        )
+        if above:
+            return replace(node, source=new_un, predicate=combine_conjuncts(above))
+        return new_un
+
+    return rewrite_plan(root, fn)
+
+
+def merge_adjacent_windows(root: PlanNode) -> PlanNode:
+    """Adjacent WindowNodes with identical partition/order compute in one pass
+    (MergeAdjacentWindows / GatherAndMergeWindows) — legal when the upper
+    node's function args don't consume the lower node's outputs."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, WindowNode) and isinstance(node.source, WindowNode)):
+            return node
+        lower = node.source
+        if node.partition_by != lower.partition_by or node.order_by != lower.order_by:
+            return node
+        produced = {s for s, _ in lower.functions}
+        consumed = set()
+        for _, f in node.functions:
+            consumed |= set(f.args)
+        if consumed & produced:
+            return node
+        return replace(
+            lower, functions=tuple(lower.functions) + tuple(node.functions)
+        )
+
+    return rewrite_plan(root, fn)
+
+
+def push_limit_through_outer_join(root: PlanNode) -> PlanNode:
+    """LIMIT over a LEFT join bounds the outer side: every outer row emits at
+    least one output row, so `count+offset` outer rows suffice
+    (PushLimitThroughOuterJoin)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, LimitNode) and isinstance(node.source, JoinNode)):
+            return node
+        join = node.source
+        if join.kind != JoinKind.LEFT:
+            return node
+        need = node.count + node.offset
+        if isinstance(join.left, LimitNode) and join.left.count <= need:
+            return node  # already pushed
+        new_left = LimitNode(source=join.left, count=need)
+        return replace(node, source=replace(join, left=new_left))
+
+    return rewrite_plan(root, fn)
+
+
+def push_topn_through_union(root: PlanNode) -> PlanNode:
+    """Copy a TopN into each UNION ALL branch as a partial TopN through the
+    symbol mapping (GatherPartialTopN over unions; PushTopNThroughUnion)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, TopNNode) and isinstance(node.source, UnionNode)):
+            return node
+        union = node.source
+        if all(isinstance(i, TopNNode) for i in union.inputs):
+            return node  # already pushed
+        new_inputs = []
+        for i, inp in enumerate(union.inputs):
+            mapping = dict(zip(union.symbols, union.symbol_mapping[i]))
+            try:
+                orderings = tuple(
+                    replace(o, symbol=mapping[o.symbol]) for o in node.orderings
+                )
+            except KeyError:
+                return node
+            if isinstance(inp, TopNNode):
+                new_inputs.append(inp)
+            else:
+                new_inputs.append(
+                    TopNNode(source=inp, count=node.count, orderings=orderings,
+                             partial=True)
+                )
+        return replace(node, source=replace(union, inputs=tuple(new_inputs)))
+
+    return rewrite_plan(root, fn)
+
+
+def push_limit_into_scan(root: PlanNode) -> PlanNode:
+    """LIMIT directly over a scan marks the scan with a stop-early row target;
+    the connector may then read fewer splits (PushLimitIntoTableScan — the
+    limit node stays, the scan hint is `guaranteed = false`)."""
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not (isinstance(node, LimitNode) and isinstance(node.source, TableScanNode)):
+            return node
+        scan = node.source
+        need = node.count + node.offset
+        if scan.limit is not None and scan.limit <= need:
+            return node
+        return replace(node, source=replace(scan, limit=need))
+
+    return rewrite_plan(root, fn)
+
+
+# --------------------------------------------------------------------------- #
+# long-decimal (Int128) aggregation decomposition
+# --------------------------------------------------------------------------- #
+
+
+def decompose_long_decimal_aggregates(
+    root: PlanNode, types: Dict[str, Type]
+) -> PlanNode:
+    """sum/avg over DECIMAL(p>18) decompose into four exact int64 32-bit
+    LIMB sums (+ a count for avg) recombined by a post-projection — the
+    whole aggregation/exchange machinery stays scalar int64, and the
+    partial/final split distributes the limb sums like any other sum.
+
+    ref: spi/type/Int128.java:23 + operator/aggregation/
+    DecimalSumAggregation (the JVM accumulates Int128 state per group; the
+    TPU formulation trades that for four VPU-native int64 segment sums —
+    exact while every group has < 2**31 rows, which a 16GB-HBM split/spill
+    regime guarantees by construction)."""
+    from ..spi.types import BIGINT, INTEGER, is_long_decimal
+
+    counter = [len(types) + 7000]
+
+    def newsym(hint: str, t: Type) -> str:
+        name = f"{hint}_{counter[0]}"
+        counter[0] += 1
+        types[name] = t
+        return name
+
+    def fn(node: PlanNode) -> PlanNode:
+        if not isinstance(node, AggregationNode):
+            return node
+        if not any(
+            is_long_decimal(a.output_type)
+            and a.function in ("sum", "avg")
+            and not a.distinct
+            for _, a in node.aggregations
+        ):
+            return node
+        pre: List[Tuple[str, IrExpr]] = []
+        new_aggs: List[Tuple[str, object]] = []
+        post: List[Tuple[str, IrExpr]] = []
+        from .plan import Aggregation
+
+        for sym, agg in node.aggregations:
+            t = agg.output_type
+            if (
+                is_long_decimal(t)
+                and agg.function in ("sum", "avg")
+                and not agg.distinct
+                and not agg.ordering
+            ):
+                arg = agg.args[0]
+                at = types[arg]
+                limb_syms = []
+                sum_syms = []
+                for i in range(4):
+                    ls = newsym(f"{sym}_limb{i}", BIGINT)
+                    limb_syms.append(ls)
+                    pre.append(
+                        (
+                            ls,
+                            Call(
+                                "$dec_limb",
+                                (Reference(arg, at), Constant(INTEGER, i)),
+                                BIGINT,
+                            ),
+                        )
+                    )
+                    ss = newsym(f"{sym}_limbsum{i}", BIGINT)
+                    sum_syms.append(ss)
+                    new_aggs.append(
+                        (
+                            ss,
+                            Aggregation(
+                                "sum", (ls,), filter=agg.filter, output_type=BIGINT
+                            ),
+                        )
+                    )
+                refs = tuple(Reference(s, BIGINT) for s in sum_syms)
+                if agg.function == "sum":
+                    post.append((sym, Call("$i128_recombine", refs, t)))
+                else:
+                    cnt = newsym(f"{sym}_cnt", BIGINT)
+                    # count the limb column, not the two-lane arg: limbs
+                    # share the arg's validity and stay scalar int64
+                    new_aggs.append(
+                        (
+                            cnt,
+                            Aggregation(
+                                "count",
+                                (limb_syms[0],),
+                                filter=agg.filter,
+                                output_type=BIGINT,
+                            ),
+                        )
+                    )
+                    post.append(
+                        (sym, Call("$i128_avg", refs + (Reference(cnt, BIGINT),), t))
+                    )
+            else:
+                new_aggs.append((sym, agg))
+                post.append((sym, Reference(sym, t)))
+        passthrough = tuple(
+            (s, Reference(s, types[s])) for s in node.source.output_symbols
+        )
+        new_source = ProjectNode(
+            source=node.source, assignments=passthrough + tuple(pre)
+        )
+        agg2 = replace(node, source=new_source, aggregations=tuple(new_aggs))
+        keys = tuple((k, Reference(k, types[k])) for k in node.group_keys)
+        return ProjectNode(source=agg2, assignments=keys + tuple(post))
+
+    return rewrite_plan(root, fn)

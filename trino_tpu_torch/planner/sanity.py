@@ -1,0 +1,802 @@
+"""Plan sanity checkers: validate plan invariants between rewrites.
+
+Reference blueprint: io.trino.sql.planner.sanity.PlanSanityChecker —
+``validateIntermediatePlan`` after every IterativeOptimizer pass,
+``validateFinalPlan`` before execution (ValidateDependenciesChecker,
+NoDuplicatePlanNodeIdsValidator, TypeValidator, ValidateAggregationsWithDefault-
+Values, ...). The same discipline makes tensor-compiler pipelines debuggable
+(arXiv:2203.01877): validate the IR at every lowering step, so a rule that
+drops a partition key or leaves a dangling symbol fails AT the rule, not as a
+wrong answer or a deep executor crash three planes later.
+
+Two entry points:
+
+- :func:`validate_intermediate` — structural checkers, run after EVERY
+  optimizer rule when the ``validate_plan`` session property is on (default:
+  on under pytest, off on the production hot path — the gate is one flag
+  check in ``optimizer.optimize``).
+- :func:`validate_final` — the same structural checkers plus the
+  estimate-sanity checker, ALWAYS run at the end of ``optimize()`` and again
+  after ``add_exchanges`` (before fragmenting), because a corrupt plan must
+  never reach an executor even in production.
+
+A violation raises :class:`PlanSanityError` naming the violated checker, the
+offending node path, and the optimizer rule (or phase) that produced the
+plan. Each checker owns a disjoint invariant so the seeded-corruption
+mutation suite (tests/test_static_analysis.py) can assert a given corruption
+is caught by exactly the checker that owns it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+from ..spi.types import BOOLEAN, Type
+from ..sql.ir import IrExpr, is_deterministic, references
+from .plan import (
+    AggregationNode,
+    ExchangeNode,
+    ExchangeScope,
+    ExchangeType,
+    FilterNode,
+    JoinNode,
+    LimitNode,
+    LogicalPlan,
+    OutputNode,
+    PlanNode,
+    ProjectNode,
+    SemiJoinNode,
+    SortNode,
+    TableScanNode,
+    TopNNode,
+    UnionNode,
+    UnnestNode,
+    VectorTopNNode,
+    WindowNode,
+    PatternRecognitionNode,
+)
+
+_FRAME_KINDS = {
+    "UNBOUNDED_PRECEDING", "PRECEDING", "CURRENT_ROW",
+    "FOLLOWING", "UNBOUNDED_FOLLOWING",
+}
+
+
+class PlanSanityError(AssertionError):
+    """A plan violated an invariant between rewrites. Carries the checker id,
+    the path of the offending node, and the rule/phase that produced the
+    plan, so the failing rewrite is identified without a debugger."""
+
+    def __init__(self, checker: str, message: str, node_path: str, rule: str):
+        self.checker = checker
+        self.node_path = node_path
+        self.rule = rule
+        super().__init__(
+            f"[{checker}] {message} (at {node_path}; after rule {rule!r})"
+        )
+
+
+class Violation:
+    __slots__ = ("checker", "message", "node_path")
+
+    def __init__(self, checker: str, message: str, node_path: str):
+        self.checker = checker
+        self.message = message
+        self.node_path = node_path
+
+
+class SanityContext:
+    """What the checkers may consult beyond the plan tree itself. Memoizes
+    the (node, path) walk so a full checker pass costs ONE traversal — the
+    always-on final validation must stay invisible next to the optimizer's
+    own cost (BENCH_r12_sanity_ab.json)."""
+
+    def __init__(self, types: Dict[str, Type], session=None, estimator=None):
+        self.types = types or {}
+        self.session = session
+        self.estimator = estimator
+        self._walked = None
+        self._walked_root = None
+
+    def walked(self, root: "PlanNode"):
+        # value comparison, not `is`: two id() calls return distinct int
+        # objects (the memoized list keeps root alive, so the id cannot be
+        # reused for a different node while cached)
+        if self._walked is None or self._walked_root != id(root):
+            self._walked = list(_walk(root, _root_path(root)))
+            self._walked_root = id(root)
+        return self._walked
+
+    def session_get(self, name: str, default):
+        if self.session is None:
+            return default
+        try:
+            return self.session.get(name)
+        except KeyError:
+            return default
+
+
+def _walk(node: PlanNode, path: str):
+    """Yield (node, path) pre-order; path names each edge, e.g.
+    ``Output > Project > Join.left > TableScan``."""
+    yield node, path
+    sources = node.sources
+    if isinstance(node, JoinNode):
+        labels = (".left", ".right")
+    elif isinstance(node, SemiJoinNode):
+        labels = (".source", ".filtering")
+    elif len(sources) > 1:
+        labels = tuple(f"[{i}]" for i in range(len(sources)))
+    else:
+        labels = ("",) * len(sources)
+    for src, lab in zip(sources, labels):
+        name = type(src).__name__.replace("Node", "")
+        yield from _walk(src, f"{path}{lab} > {name}")
+
+
+def _root_path(root: PlanNode) -> str:
+    return type(root).__name__.replace("Node", "")
+
+
+# --------------------------------------------------------------------------- #
+# checkers — each owns one disjoint invariant
+# --------------------------------------------------------------------------- #
+
+
+class Checker:
+    id: str = ""
+    # estimate-sanity needs an estimator: it only runs when the context has
+    # one (final validation / the mutation suite), never per-rule
+    needs_estimator = False
+
+    def check(self, root: PlanNode, ctx: SanityContext) -> List[Violation]:
+        raise NotImplementedError
+
+
+class SymbolDependencyChecker(Checker):
+    """Every symbol a node's expressions consume is produced by its children
+    (ref: sanity/ValidateDependenciesChecker). Aggregation/window operand
+    validity lives in their own checkers; this one owns filters, projections,
+    join criteria, semi-join keys, sort/exchange keys, unnest inputs, and
+    output references."""
+
+    id = "symbol-dependencies"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+
+        def missing(needed, node, what: str, path: str):
+            produced = set()
+            for s in node.sources:
+                produced.update(s.output_symbols)
+            lost = sorted(set(needed) - produced)
+            if lost:
+                out.append(Violation(
+                    self.id,
+                    f"{what} references {lost} not produced by children",
+                    path,
+                ))
+
+        for node, path in ctx.walked(root):
+            if isinstance(node, FilterNode):
+                missing(references(node.predicate), node, "filter predicate", path)
+            elif isinstance(node, ProjectNode):
+                needed = set()
+                for _, e in node.assignments:
+                    needed |= references(e)
+                missing(needed, node, "projection", path)
+            elif isinstance(node, JoinNode):
+                left = set(node.left.output_symbols)
+                right = set(node.right.output_symbols)
+                for l, r in node.criteria:
+                    if l not in left:
+                        out.append(Violation(
+                            self.id,
+                            f"join criteria left symbol {l!r} not produced by the left side",
+                            path,
+                        ))
+                    if r not in right:
+                        out.append(Violation(
+                            self.id,
+                            f"join criteria right symbol {r!r} not produced by the right side",
+                            path,
+                        ))
+                if node.filter is not None:
+                    missing(references(node.filter), node, "join filter", path)
+            elif isinstance(node, SemiJoinNode):
+                if node.source_key not in set(node.source.output_symbols):
+                    out.append(Violation(
+                        self.id,
+                        f"semi-join source key {node.source_key!r} not produced by source",
+                        path,
+                    ))
+                if node.filtering_key not in set(node.filtering_source.output_symbols):
+                    out.append(Violation(
+                        self.id,
+                        f"semi-join filtering key {node.filtering_key!r} not produced "
+                        "by filtering source",
+                        path,
+                    ))
+            elif isinstance(node, (SortNode, TopNNode)):
+                missing({o.symbol for o in node.orderings}, node, "sort key", path)
+            elif isinstance(node, VectorTopNNode):
+                # the fused node's projection half consumes child symbols;
+                # its orderings reference its OWN computed assignments
+                needed = set()
+                for _, e in node.assignments:
+                    needed |= references(e)
+                missing(needed, node, "fused top-k projection", path)
+                produced = {s for s, _ in node.assignments}
+                lost = sorted(
+                    {o.symbol for o in node.orderings} - produced
+                )
+                if lost:
+                    out.append(Violation(
+                        self.id,
+                        f"fused top-k sort key references {lost} not "
+                        "computed by its own assignments",
+                        path,
+                    ))
+            elif isinstance(node, UnnestNode):
+                needed = set(node.replicate_symbols)
+                needed |= {s for s, _ in node.unnest_symbols}
+                missing(needed, node, "unnest input", path)
+            elif isinstance(node, OutputNode):
+                missing(set(node.symbols), node, "output", path)
+            elif isinstance(node, PatternRecognitionNode):
+                needed = set(node.partition_by)
+                needed |= {o.symbol for o in node.order_by}
+                missing(needed, node, "pattern partition/order key", path)
+        return out
+
+
+class NoDuplicateNodeChecker(Checker):
+    """No plan node instance appears twice in the tree (the PlanNodeId
+    analogue: object identity IS the node id here — the stats memo, the
+    actuals plane, and per-node attribution all key on ``id(node)``, so an
+    aliased subtree double-counts silently)."""
+
+    id = "no-duplicate-plan-node-ids"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        seen: Dict[int, str] = {}
+        for node, path in ctx.walked(root):
+            first = seen.get(id(node))
+            if first is not None:
+                out.append(Violation(
+                    self.id,
+                    f"node instance appears twice (first at {first})",
+                    path,
+                ))
+            else:
+                seen[id(node)] = path
+        return out
+
+
+class UniqueOutputSymbolsChecker(Checker):
+    """A node's output symbols are unique (symbols are plan-wide unique
+    names, Trino's SymbolAllocator contract)."""
+
+    id = "unique-output-symbols"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            syms = node.output_symbols
+            if len(set(syms)) != len(syms):
+                dupes = sorted({s for s in syms if syms.count(s) > 1})
+                out.append(Violation(
+                    self.id, f"duplicate output symbols {dupes}", path
+                ))
+        return out
+
+
+class TypeConsistencyChecker(Checker):
+    """Types line up (ref: sanity/TypeValidator): every output symbol has a
+    declared type in the plan's TypeProvider, boolean positions (filter
+    predicates, join filters, aggregate FILTER masks) hold boolean-typed
+    expressions, and tensor-plane expressions are statically well-shaped —
+    a VECTOR dimension mismatch inside ``dot_product(a, b)`` (or a model
+    call whose weight count disagrees with its bound features) must fail
+    HERE, naming this checker, never inside a compiled kernel."""
+
+    id = "type-consistency"
+
+    def check(self, root, ctx):
+        from .._unported import vector_dimension_problems
+
+        out: List[Violation] = []
+        types = ctx.types
+
+        def bool_expr(e: Optional[IrExpr], what: str, path: str):
+            if e is None:
+                return
+            t = e.type
+            if t is not None and t != BOOLEAN:
+                out.append(Violation(
+                    self.id, f"{what} has type {t.display()}, expected boolean",
+                    path,
+                ))
+
+        def vector_shapes(e: Optional[IrExpr], what: str, path: str):
+            if e is None:
+                return
+            for msg in vector_dimension_problems(e):
+                out.append(Violation(self.id, f"{what}: {msg}", path))
+
+        for node, path in ctx.walked(root):
+            for s in node.output_symbols:
+                if s not in types:
+                    out.append(Violation(
+                        self.id, f"output symbol {s!r} has no declared type", path
+                    ))
+            if isinstance(node, FilterNode):
+                bool_expr(node.predicate, "filter predicate", path)
+                vector_shapes(node.predicate, "filter predicate", path)
+            elif isinstance(node, ProjectNode):
+                for sym, e in node.assignments:
+                    vector_shapes(e, f"projection {sym!r}", path)
+            elif isinstance(node, VectorTopNNode):
+                for sym, e in node.assignments:
+                    vector_shapes(e, f"fused top-k assignment {sym!r}", path)
+            elif isinstance(node, JoinNode):
+                bool_expr(node.filter, "join filter", path)
+                vector_shapes(node.filter, "join filter", path)
+            elif isinstance(node, AggregationNode):
+                for sym, agg in node.aggregations:
+                    if agg.filter is not None:
+                        ft = types.get(agg.filter)
+                        if ft is not None and ft != BOOLEAN:
+                            out.append(Violation(
+                                self.id,
+                                f"aggregate {sym!r} FILTER symbol {agg.filter!r} "
+                                f"has type {ft.display()}, expected boolean",
+                                path,
+                            ))
+        return out
+
+
+class AggregationChecker(Checker):
+    """Aggregation operand validity (ref: ValidateAggregationsWithDefault-
+    Values + ValidateDependenciesChecker's aggregation arm): group keys,
+    aggregate args, FILTER masks, and WITHIN-GROUP ordering symbols all come
+    from the source; DISTINCT aggregates take exactly one argument."""
+
+    id = "aggregation-validity"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if not isinstance(node, AggregationNode):
+                continue
+            produced = set(node.source.output_symbols)
+            for k in node.group_keys:
+                if k not in produced:
+                    out.append(Violation(
+                        self.id, f"group key {k!r} not produced by source", path
+                    ))
+            for sym, agg in node.aggregations:
+                if not agg.function:
+                    out.append(Violation(
+                        self.id, f"aggregate {sym!r} has no function", path
+                    ))
+                for a in agg.args:
+                    if a not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"aggregate {sym!r} argument {a!r} not produced by source",
+                            path,
+                        ))
+                if agg.filter is not None and agg.filter not in produced:
+                    out.append(Violation(
+                        self.id,
+                        f"aggregate {sym!r} FILTER symbol {agg.filter!r} "
+                        "not produced by source",
+                        path,
+                    ))
+                for o in agg.ordering:
+                    if o.symbol not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"aggregate {sym!r} ordering symbol {o.symbol!r} "
+                            "not produced by source",
+                            path,
+                        ))
+                if agg.distinct and len(agg.args) != 1:
+                    out.append(Violation(
+                        self.id,
+                        f"DISTINCT aggregate {sym!r} takes exactly one "
+                        f"argument, got {len(agg.args)}",
+                        path,
+                    ))
+        return out
+
+
+class WindowChecker(Checker):
+    """Window operand validity: partition/order keys and function arguments
+    come from the source; frame kinds are well-formed."""
+
+    id = "window-validity"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if not isinstance(node, WindowNode):
+                continue
+            produced = set(node.source.output_symbols)
+            for k in node.partition_by:
+                if k not in produced:
+                    out.append(Violation(
+                        self.id, f"partition key {k!r} not produced by source", path
+                    ))
+            for o in node.order_by:
+                if o.symbol not in produced:
+                    out.append(Violation(
+                        self.id,
+                        f"order key {o.symbol!r} not produced by source", path
+                    ))
+            for sym, fn in node.functions:
+                if not fn.function:
+                    out.append(Violation(
+                        self.id, f"window function {sym!r} has no function", path
+                    ))
+                for a in fn.args:
+                    if a not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"window function {sym!r} argument {a!r} "
+                            "not produced by source",
+                            path,
+                        ))
+                if fn.frame is not None:
+                    if (fn.frame.start_kind not in _FRAME_KINDS
+                            or fn.frame.end_kind not in _FRAME_KINDS):
+                        out.append(Violation(
+                            self.id,
+                            f"window function {sym!r} frame kinds "
+                            f"({fn.frame.start_kind}, {fn.frame.end_kind}) invalid",
+                            path,
+                        ))
+        return out
+
+
+class ExchangePartitioningChecker(Checker):
+    """Exchange/partitioning invariants: a REPARTITION exchange carries hash
+    keys and every key exists in the child's output (a dropped partition key
+    silently degrades to a broken shuffle — the engine-wide splitmix64 key
+    rule in ops/repartition.py can only hash columns that arrive); a
+    REPARTITION_RANGE carries the driving sort order; GATHER/BROADCAST carry
+    no partition keys."""
+
+    id = "exchange-partitioning"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if not isinstance(node, ExchangeNode):
+                continue
+            produced = set(node.source.output_symbols)
+            if node.exchange_type == ExchangeType.REPARTITION:
+                if not node.partition_keys:
+                    out.append(Violation(
+                        self.id, "REPARTITION exchange with no partition keys",
+                        path,
+                    ))
+                for k in node.partition_keys:
+                    if k not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"partition key {k!r} not produced by child "
+                            "(dropped repartition hash key)",
+                            path,
+                        ))
+            elif node.exchange_type == ExchangeType.REPARTITION_RANGE:
+                if not node.orderings:
+                    out.append(Violation(
+                        self.id,
+                        "REPARTITION_RANGE exchange with no driving sort order",
+                        path,
+                    ))
+                for o in node.orderings:
+                    if o.symbol not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"range-partition order key {o.symbol!r} "
+                            "not produced by child",
+                            path,
+                        ))
+                for k in node.partition_keys:
+                    if k not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"partition key {k!r} not produced by child", path
+                        ))
+            else:  # GATHER / BROADCAST
+                if node.partition_keys:
+                    out.append(Violation(
+                        self.id,
+                        f"{node.exchange_type.value} exchange carries "
+                        f"partition keys {list(node.partition_keys)}",
+                        path,
+                    ))
+                for o in node.orderings:
+                    # merge-GATHER order must still be producible
+                    if o.symbol not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"merge order key {o.symbol!r} not produced by child",
+                            path,
+                        ))
+        return out
+
+
+class FteDeterminismChecker(Checker):
+    """Under TASK retries, a nondeterministic expression below a retryable
+    REMOTE exchange boundary is a correctness hazard: a retried or
+    speculative attempt recomputes the fragment and may commit different
+    rows than the attempt a consumer already read, unless the boundary
+    materializes first (ref: Trino FTE's determinism requirements on
+    exchange materialization). The checker flags nondeterministic
+    projections/filters strictly below a REMOTE exchange when
+    ``retry_policy=TASK``."""
+
+    id = "fte-determinism"
+
+    def check(self, root, ctx):
+        if str(ctx.session_get("retry_policy", "NONE")) != "TASK":
+            return []
+        # mark everything strictly below a REMOTE exchange, then flag from
+        # the shared walk (one labeling implementation, in _walk)
+        below: set = set()
+
+        def mark(node: PlanNode):
+            for src in node.sources:
+                if id(src) not in below:
+                    below.add(id(src))
+                    mark(src)
+
+        remotes = [
+            node for node, _ in ctx.walked(root)
+            if isinstance(node, ExchangeNode)
+            and node.scope == ExchangeScope.REMOTE
+        ]
+        if not remotes:
+            return []
+        for ex in remotes:
+            mark(ex)
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if id(node) not in below:
+                continue
+            exprs: List[Tuple[str, Optional[IrExpr]]] = []
+            if isinstance(node, ProjectNode):
+                exprs = [(f"projection {s!r}", e) for s, e in node.assignments]
+            elif isinstance(node, FilterNode):
+                exprs = [("filter predicate", node.predicate)]
+            elif isinstance(node, JoinNode):
+                exprs = [("join filter", node.filter)]
+            for what, e in exprs:
+                if e is not None and not is_deterministic(e):
+                    out.append(Violation(
+                        self.id,
+                        f"nondeterministic {what} below a retryable "
+                        "REMOTE exchange boundary",
+                        path,
+                    ))
+        return out
+
+
+class LimitSanityChecker(Checker):
+    """Limit/TopN/TableFunction scalar sanity: non-negative counts and
+    offsets (a negative count compiles into a nonsense static capacity)."""
+
+    id = "limit-sanity"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if isinstance(node, LimitNode):
+                if node.count < 0:
+                    out.append(Violation(
+                        self.id, f"negative limit count {node.count}", path
+                    ))
+                if node.offset < 0:
+                    out.append(Violation(
+                        self.id, f"negative limit offset {node.offset}", path
+                    ))
+            elif isinstance(node, (TopNNode, VectorTopNNode)):
+                if node.count < 0:
+                    out.append(Violation(
+                        self.id, f"negative topn count {node.count}", path
+                    ))
+            elif isinstance(node, TableScanNode):
+                if node.limit is not None and node.limit < 0:
+                    out.append(Violation(
+                        self.id, f"negative scan limit {node.limit}", path
+                    ))
+        return out
+
+
+class UnionConsistencyChecker(Checker):
+    """Union shape: one symbol mapping per input, each mapping as wide as
+    the union's output row, and every mapped symbol produced by its input."""
+
+    id = "union-consistency"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if not isinstance(node, UnionNode):
+                continue
+            if len(node.symbol_mapping) != len(node.inputs):
+                out.append(Violation(
+                    self.id,
+                    f"{len(node.inputs)} inputs but "
+                    f"{len(node.symbol_mapping)} symbol mappings",
+                    path,
+                ))
+                continue
+            for i, (inp, mapping) in enumerate(
+                zip(node.inputs, node.symbol_mapping)
+            ):
+                if len(mapping) != len(node.symbols):
+                    out.append(Violation(
+                        self.id,
+                        f"input {i} mapping has {len(mapping)} symbols, "
+                        f"union outputs {len(node.symbols)}",
+                        path,
+                    ))
+                produced = set(inp.output_symbols)
+                for s in mapping:
+                    if s not in produced:
+                        out.append(Violation(
+                            self.id,
+                            f"input {i} mapped symbol {s!r} not produced "
+                            "by that input",
+                            path,
+                        ))
+        return out
+
+
+class OutputArityChecker(Checker):
+    """OutputNode names exactly as many columns as it outputs symbols."""
+
+    id = "output-arity"
+
+    def check(self, root, ctx):
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            if isinstance(node, OutputNode):
+                if len(node.column_names) != len(node.symbols):
+                    out.append(Violation(
+                        self.id,
+                        f"{len(node.column_names)} column names for "
+                        f"{len(node.symbols)} output symbols",
+                        path,
+                    ))
+        return out
+
+
+class EstimateSanityChecker(Checker):
+    """Estimate sanity (ref: PlanNodeStatsEstimate's invariants): after the
+    stats overlay (history-based stats included), every node's estimated row
+    count is unknown (None) or a finite non-negative number, and column NDVs
+    are finite and non-negative — NaN/negative estimates silently invert
+    every cost-based decision downstream."""
+
+    id = "estimate-sanity"
+    needs_estimator = True
+
+    def check(self, root, ctx):
+        if ctx.estimator is None:
+            return []
+        out: List[Violation] = []
+        for node, path in ctx.walked(root):
+            try:
+                stats = ctx.estimator.stats(node)
+            except Exception as e:  # estimator crash is itself a violation
+                out.append(Violation(
+                    self.id, f"estimator raised {type(e).__name__}: {e}", path
+                ))
+                continue
+            rows = stats.rows
+            if rows is not None and (math.isnan(rows) or rows < 0
+                                     or math.isinf(rows)):
+                out.append(Violation(
+                    self.id, f"estimated rows {rows!r} not finite/non-negative",
+                    path,
+                ))
+            for sym, col in stats.columns.items():
+                ndv = getattr(col, "ndv", None)
+                if ndv is not None and (math.isnan(ndv) or ndv < 0
+                                        or math.isinf(ndv)):
+                    out.append(Violation(
+                        self.id,
+                        f"column {sym!r} ndv {ndv!r} not finite/non-negative",
+                        path,
+                    ))
+        return out
+
+
+# ordered: cheap structural checks first
+CHECKERS: Tuple[Checker, ...] = (
+    NoDuplicateNodeChecker(),
+    SymbolDependencyChecker(),
+    UniqueOutputSymbolsChecker(),
+    TypeConsistencyChecker(),
+    AggregationChecker(),
+    WindowChecker(),
+    ExchangePartitioningChecker(),
+    UnionConsistencyChecker(),
+    LimitSanityChecker(),
+    OutputArityChecker(),
+    FteDeterminismChecker(),
+    EstimateSanityChecker(),
+)
+
+
+def checker_ids() -> List[str]:
+    return [c.id for c in CHECKERS]
+
+
+def run_checkers(
+    root: PlanNode, ctx: SanityContext, checkers=CHECKERS
+) -> List[Violation]:
+    """All violations from all (applicable) checkers — the mutation suite's
+    entry point: it asserts a seeded corruption fires exactly its owner."""
+    out: List[Violation] = []
+    for c in checkers:
+        if c.needs_estimator and ctx.estimator is None:
+            continue
+        out.extend(c.check(root, ctx))
+    return out
+
+
+def _raise(violations: List[Violation], rule: str) -> None:
+    if not violations:
+        return
+    v = violations[0]
+    extra = "" if len(violations) == 1 else f" (+{len(violations) - 1} more)"
+    raise PlanSanityError(v.checker, v.message + extra, v.node_path, rule)
+
+
+def validate_intermediate(
+    root: PlanNode,
+    types: Dict[str, Type],
+    rule: str,
+    session=None,
+) -> None:
+    """Structural validation after one optimizer rule (the
+    validateIntermediatePlan analogue). Raises PlanSanityError naming the
+    rule that produced the plan."""
+    ctx = SanityContext(types, session=session)
+    _raise(run_checkers(root, ctx), rule)
+
+
+def validate_final(
+    plan: LogicalPlan,
+    metadata=None,
+    session=None,
+    stage: str = "final",
+    with_estimates: Optional[bool] = None,
+) -> None:
+    """Full validation before fragmenting/execution (the validateFinalPlan
+    analogue): all structural checkers, plus estimate sanity when the
+    ``validate_plan`` knob is on (the estimator walk is the only non-trivial
+    cost) — or when ``with_estimates`` explicitly asks."""
+    estimator = None
+    if with_estimates is None:
+        with_estimates = False
+        if session is not None:
+            try:
+                with_estimates = bool(session.get("validate_plan"))
+            except KeyError:
+                pass
+    if with_estimates and metadata is not None:
+        from .stats import make_estimator
+
+        estimator = make_estimator(metadata, plan.types, session)
+    ctx = SanityContext(plan.types, session=session, estimator=estimator)
+    _raise(run_checkers(plan.root, ctx), stage)
