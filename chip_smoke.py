@@ -9,16 +9,19 @@ printed):
    compiled from ``trino_tpu_torch/csrc/`` (build seconds and the ptxas
    report).
 2. Kernels against their plain torch versions on the card, bit-exact: each
-   wrapper at the main path's shape (one lineitem page of TPC-H SF10, G = 12)
-   and at edge shapes, timed with CUDA events beside its bytes bound, its
-   plain version and, where one torch call computes the same function, that
-   call.
-3. TPC-H Q6 and Q1 at SF10 through ``LocalQueryRunner.tpch(scale=10)`` with
-   the default session: the launch counts of the run, rows identical to the
-   ``pallas_aggregation=off`` path and to an independent numpy computation
-   over the port's generator, and the wall seconds of each query. The
-   grouped sums are also checked and timed on the inputs Q1 gave them (its
-   real gid and weight distribution); those times go in the kernels line.
+   wrapper at its main path's shape (one lineitem page of TPC-H SF10: G = 12
+   for the grouped sums; Q3's join sizes for the hash join; Q3's joined
+   rows for the segment sums) and at edge shapes, timed with CUDA events
+   beside its bytes bound, its plain version and, where one torch call
+   computes the same function, that call.
+3. TPC-H Q6, Q1 and Q3 at SF10 through ``LocalQueryRunner.tpch(scale=10)``
+   with the default session: the launch counts of each run (every count
+   set to 0 just before it), rows identical to the run with the kernel
+   tier off (``pallas_aggregation=off`` for Q6 and Q1, ``pallas_fusion=
+   false`` for Q3) and to an independent numpy computation over the port's
+   generator, no fallback of the fused path, and the wall seconds of each
+   query. Every kernel is also checked and timed on the inputs the queries
+   gave it (its real distributions); those times go in the kernels line.
 4. A ``kernels`` JSON line, then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +47,7 @@ G_Q1 = 12  # Q1's direct-indexed domains (4, 3)
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 Q6_PRED = (8766, 9131, 5, 7, 2400)  # 1994-01-01, 1995-01-01, 0.05, 0.07, 24.00
+Q3_DATE = 9204  # 1995-03-15
 # the texts of tests/tpch_corpus.py
 QUERIES = {
     "q06": """
@@ -69,7 +73,29 @@ QUERIES = {
         GROUP BY l_returnflag, l_linestatus
         ORDER BY l_returnflag, l_linestatus
     """,
+    "q03": """
+        SELECT l_orderkey,
+               sum(l_extendedprice * (1 - l_discount)) AS revenue,
+               o_orderdate, o_shippriority
+        FROM customer, orders, lineitem
+        WHERE c_mktsegment = 'BUILDING'
+          AND c_custkey = o_custkey
+          AND l_orderkey = o_orderkey
+          AND o_orderdate < DATE '1995-03-15'
+          AND l_shipdate > DATE '1995-03-15'
+        GROUP BY l_orderkey, o_orderdate, o_shippriority
+        ORDER BY revenue DESC, o_orderdate, l_orderkey
+        LIMIT 10
+    """,
 }
+# the kernel tier of each query, and the session that turns it off
+KERNELS_OF = {
+    "q06": ("q6_fused",),
+    "q01": ("grouped_sum_i64", "grouped_sum_i32"),
+    "q03": ("hash_probe", "hash_expand", "segment_sum"),
+}
+OFF_SESSION = {"q06": ("pallas_aggregation", "off"), "q01": ("pallas_aggregation", "off"),
+               "q03": ("pallas_fusion", False)}
 
 
 def fail(msg: str) -> None:
@@ -164,35 +190,250 @@ def q6_cases(n_main: int, dev):
     yield case("all-false mask", 300_000, mask_rate=0.0)
 
 
-def time_grouped(HK, name, v, w, gid, G) -> tuple:
-    """(kernel ms, plain ms, index_add_ ms, bound ms, bound_by) of one
-    grouped-sum wrapper on these inputs."""
-    n = v.shape[0]
-    gid64 = gid.to(torch.int64)
-    pre = torch.where(w, v.to(torch.int64), 0)
+def round_capacity(n: int, base: int = 1024) -> int:
+    cap = base
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+# --------------------------------------------------------------------------- #
+# the hash join and the segment sums: cases, checks, timings
+# --------------------------------------------------------------------------- #
+
+
+def key_bytes(cols) -> int:
+    """Bytes of one row of (data, valid) columns."""
+    return sum(d.element_size() * (d[0].numel() if d.ndim > 1 else 1) + 1 for d, _ in cols)
+
+
+def join_cases(n_main: int, dev):
+    """(label, pkeys, bkeys, luts, probe_active, build_active, left_outer)
+    cases for hash_probe and hash_expand. The first has the shape of Q3's
+    second join at SF10: one lineitem page of probe keys against a build
+    side of 2,097,152 slots, 70 % active, with unique keys (order keys)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def rnd(n, lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
+
+    def mask(n, rate):
+        return torch.rand(n, generator=gen, device=dev) < rate
+
+    m = 2_097_152
+    bk = torch.arange(m, device=dev, dtype=torch.int64) * 4 + 1
+    yield ("Q3 shape n=%d m=%d" % (n_main, m), ((rnd(n_main, 0, 4 * m), mask(n_main, 1.0)),),
+           ((bk, mask(m, 1.0)),), (None,), mask(n_main, 0.54), mask(m, 0.7), False)
+    n, m = 1_000_003, 300_007
+    yield ("LEFT, NULL keys", ((rnd(n, 0, 400_000), mask(n, 0.9)),),
+           ((rnd(m, 0, 400_000), mask(m, 0.9)),), (None,), mask(n, 0.8), mask(m, 0.7), True)
+    lut = rnd(4000, -1, 3000)  # probe vocabulary -> build codes, some absent
+    yield ("dictionary key through a LUT", ((rnd(n, 0, 4000, torch.int32), mask(n, 0.95)),),
+           ((rnd(4096, 0, 3000, torch.int32), mask(4096, 0.95)),), (lut,), mask(n, 0.8),
+           mask(4096, 0.7), False)
+    yield ("two keys (int32, float64)",
+           ((rnd(n, 0, 2000, torch.int32), mask(n, 0.95)),
+            (rnd(n, 0, 40).to(torch.float64) / 4 - 5, mask(n, 0.95))),
+           ((rnd(100_000, 0, 2000, torch.int32), mask(100_000, 0.95)),
+            (rnd(100_000, 0, 40).to(torch.float64) / 4 - 5, mask(100_000, 0.95))),
+           (None, None), mask(n, 0.8), mask(100_000, 0.7), True)
+    yield ("empty build", ((rnd(n, 0, 1000), mask(n, 1.0)),),
+           ((rnd(m, 0, 1000), mask(m, 1.0)),), (None,), mask(n, 0.8), mask(m, 0.0), True)
+    yield ("duplicate-heavy build (retry at a wider C)",
+           ((rnd(100_000, 0, 400), mask(100_000, 1.0)),),
+           ((rnd(4096, 0, 40), mask(4096, 1.0)),), (None,), mask(100_000, 0.9),
+           mask(4096, 0.9), False)
+    edge = torch.tensor([-(2**63), 2**63 - 1, -1, 0, 1], device=dev)
+    yield ("INT64_MIN/MAX and negative keys",
+           ((edge[rnd(100_003, 0, 5)], mask(100_003, 1.0)),),
+           ((edge[rnd(1024, 0, 5)], mask(1024, 1.0)),), (None,), mask(100_003, 1.0),
+           mask(1024, 0.3), False)
+
+
+def payload_cols(keys, n: int, dev, seed: int):
+    """A join side's columns: its keys, then an int32 and a float64 column."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return list(keys) + [
+        (torch.randint(-9, 9, (n,), generator=gen, device=dev, dtype=torch.int32),
+         torch.rand(n, generator=gen, device=dev) < 0.9),
+        (torch.rand(n, generator=gen, device=dev, dtype=torch.float64),
+         torch.ones(n, dtype=torch.bool, device=dev)),
+    ]
+
+
+def same_probe(got: dict, want: dict, B: int) -> bool:
+    keys = ("counts", "bucket_p", "count", "emit", "max_count")
+    return all(torch.equal(got[k], want[k]) for k in keys) and torch.equal(
+        got["table"][:B], want["table"][:B])
+
+
+def same_expand(got, want) -> bool:
+    pairs = list(zip(got[0] + got[1], want[0] + want[1]))
+    return torch.equal(got[2], want[2]) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs)
+
+
+def probe_args(HK, pkeys, bkeys, luts, pa, ba, left):
+    """hash_probe's arguments at the engine's table shape, retried once at
+    the wider slot class as ``megakernels.probe_phase`` does."""
+    from trino_tpu_torch.runtime.capstore import capacity_class
+
+    from trino_tpu_torch.ops import megakernels as MK
+
+    B = capacity_class(int(ba.shape[0]))
+    C = MK.DEFAULT_BUCKET_CAP
+    need = int(HK.hash_probe_plain(pkeys, bkeys, luts, pa, ba, B, C, left)["max_count"])
+    if need > C:
+        C = capacity_class(need, base=8)
+        if (B + 1) * C > MK.TABLE_ENTRY_LIMIT:
+            fail(f"a join case past the table limit: B={B} C={C}")
+    return (pkeys, bkeys, luts, pa, ba, B, C, left)
+
+
+def expand_args(pr: dict, pkeys, bkeys, luts, pa, probe_cols, build_cols):
+    cap = round_capacity(max(int(pr["emit"].sum()), 1))
+    return (pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"], pkeys,
+            bkeys, luts, pa, probe_cols, build_cols, cap)
+
+
+def probe_bound(args) -> tuple:
+    pkeys, bkeys, luts, pa, ba, B, C, _ = args
+    n, m = pa.shape[0], ba.shape[0]
+    lut = sum(l.numel() * 8 for l in luts if l is not None)
+    nbytes = (n * (key_bytes(pkeys) + 1) + m * (key_bytes(bkeys) + 1) + lut
+              + (B + 1) * C * 4 + (B + 1) * 4 + n * 12 + 4)
+    return bound_ms(nbytes, 30 * (n + m))
+
+
+def expand_bound(args) -> tuple:
+    """Bytes the expansion must move on these inputs: the scan reads emit
+    whole; each output slot reads its probe row's count, bucket, keys and
+    activity, the occupied slots of its bucket with their build keys, and
+    one row of every column; it writes one row of every column and its
+    activity."""
+    table, counts, bucket_p, count, emit, pkeys, bkeys, _, pa, pcols, bcols, cap = args
+    n = emit.shape[0]
+    C = table.shape[1]
+    occ = counts[bucket_p.to(torch.int64)].clamp(max=C).to(torch.int64)
+    slot_reads = int((emit.to(torch.int64) * occ).sum())
+    row = key_bytes(pcols) + key_bytes(bcols)
+    nbytes = (n * 4 + cap * (4 + 4 + key_bytes(pkeys) + 1)
+              + slot_reads * (4 + key_bytes(bkeys) - len(bkeys)) + cap * (2 * row + 1))
+    return bound_ms(nbytes, cap * (2 * max(n, 2).bit_length() + 10 * C))
+
+
+def segment_cases(n_main: int, dev):
+    """(label, values, weight, starts) cases for segment_sum; the first has
+    the shape of Q3's joined rows at SF10 (4,194,304 slots, about four rows
+    to a group, the active rows a prefix)."""
+    from trino_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def case(label, n, group_rate, dtype=torch.int64, active_rate=1.0, head=0, pad=16):
+        new_group = torch.rand(n, generator=gen, device=dev) < group_rate
+        new_group[head] = True
+        new_group[:head] = False
+        n_act = int(n * active_rate)
+        new_group[n_act:] = False
+        starts = K.boundary_positions(new_group, int(new_group.sum()) + pad)
+        if dtype == torch.bool:
+            vals = torch.rand(n, generator=gen, device=dev) < 0.5
+        else:
+            vals = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=dev).to(dtype)
+        w = torch.rand(n, generator=gen, device=dev) < 0.9
+        w[n_act:] = False
+        return label, vals, w, starts
+
+    yield case("Q3 shape n=4194304", 4_194_304, 0.25, active_rate=0.75)
+    yield case("one segment n=%d" % n_main, n_main, 0.0)
+    yield case("int32 values", 1_000_003, 0.01, torch.int32)
+    yield case("bool values (a count)", 1_000_003, 0.3, torch.bool)
+    yield case("rows before the first group", 500_001, 0.001, head=777)
+    yield case("no padding slots", 300_000, 0.2, pad=0)
+    yield case("n=1", 1, 1.0)
+
+
+def segment_bound(args) -> tuple:
+    values, _, starts = args
+    n = values.shape[0]
+    nbytes = n * (values.element_size() + 1) + starts.shape[0] * 16
+    return bound_ms(nbytes, 3 * n * max(starts.shape[0], 2).bit_length())
+
+
+def time_wrapper(HK, name, args) -> tuple:
+    """(kernel ms, plain ms, library ms or None, bound ms, bound_by) of one
+    wrapper on these inputs."""
     wrapper = getattr(HK, name)
-    ms = time_ms(lambda: wrapper(v, w, gid, G))
-    plain = time_ms(lambda: HK.grouped_sum_plain(v, w, gid, G))
-    lib = time_ms(
-        lambda: torch.zeros(G, dtype=torch.int64, device=v.device).index_add_(0, gid64, pre)
-    )
-    b, by = bound_ms(n * (v.element_size() + 1 + 4) + G * 8, 2 * n)
-    return ms, plain, lib, b, by
+    plain = getattr(HK, PLAIN[name])
+    ms = time_ms(lambda: wrapper(*args))
+    plain_ms = time_ms(lambda: plain(*args), reps=3)
+    lib = None
+    if name.startswith("grouped_sum"):
+        v, w, gid, G = args
+        gid64 = gid.to(torch.int64)
+        pre = torch.where(w, v.to(torch.int64), 0)
+        lib = time_ms(lambda: torch.zeros(G, dtype=torch.int64, device=v.device)
+                      .index_add_(0, gid64, pre))
+        b, by = bound_ms(v.shape[0] * (v.element_size() + 1 + 4) + G * 8, 2 * v.shape[0])
+    elif name == "segment_sum":
+        # index_add_ by each row's group (slot 0 takes the rows before the
+        # first group), the group index computed before the timing
+        v, w, starts = args
+        rows = torch.arange(v.shape[0], device=v.device)
+        gid1 = torch.searchsorted(starts, rows, right=True)
+        pre = torch.where(w, v.to(torch.int64), 0)
+        out = starts.shape[0] + 1
+        lib = time_ms(lambda: torch.zeros(out, dtype=torch.int64, device=v.device)
+                      .index_add_(0, gid1, pre))
+        b, by = segment_bound(args)
+    elif name == "hash_probe":
+        b, by = probe_bound(args)
+    else:
+        b, by = expand_bound(args)
+    return ms, plain_ms, lib, b, by
+
+
+PLAIN = {
+    "grouped_sum_i64": "grouped_sum_plain", "grouped_sum_i32": "grouped_sum_plain",
+    "hash_probe": "hash_probe_plain", "hash_expand": "hash_expand_plain",
+    "segment_sum": "segment_sum_plain",
+}
+
+
+def same_result(HK, name, args) -> bool:
+    got = getattr(HK, name)(*args)
+    want = getattr(HK, PLAIN[name])(*args)
+    torch.cuda.synchronize()
+    if name == "hash_probe":
+        return same_probe(got, want, args[5])
+    if name == "hash_expand":
+        return same_expand(got, want)
+    return torch.equal(got, want)
 
 
 class LaunchTap:
-    """Wraps the grouped-sum wrappers for the length of one query: CUDA
-    events around each call give the time of the main path's own launches,
-    and each wrapper's first inputs (Q1's real page: its gid and weight
-    distribution) are kept to be checked and timed again afterwards."""
+    """Wraps kernel wrappers for the length of one query: CUDA events
+    around each call give the time of the main path's own launches, and the
+    inputs of one call per wrapper (the one ``keep`` scores highest, the
+    later on ties; for the grouped sums the first) are kept, to be checked
+    and timed again afterwards on the query's real distributions."""
 
-    NAMES = ("grouped_sum_i64", "grouped_sum_i32")
+    KEEP = {
+        "hash_probe": lambda a: a[3].shape[0],  # the larger probe side
+        "hash_expand": lambda a: a[8].shape[0],
+        "segment_sum": lambda a: a[0].element_size(),  # a sum over a count
+    }
 
-    def __init__(self, HK):
+    def __init__(self, HK, names):
         self.HK = HK
-        self.orig = {n: getattr(HK, n) for n in self.NAMES}
-        self.events = {n: [] for n in self.NAMES}
+        self.orig = {n: getattr(HK, n) for n in names}
+        self.events = {n: [] for n in names}
         self.inputs = {}
+        self.score = {}
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -203,7 +444,10 @@ class LaunchTap:
                 out = _fn(*args)
                 end.record()
                 self.events[_name].append((start, end))
-                self.inputs.setdefault(_name, args)
+                keep = self.KEEP.get(_name)
+                score = keep(args) if keep else 0
+                if _name not in self.inputs or (keep and score >= self.score[_name]):
+                    self.inputs[_name], self.score[_name] = args, score
                 return out
             setattr(self.HK, name, tapped)
         return self
@@ -217,30 +461,109 @@ class LaunchTap:
         return [s.elapsed_time(e) for s, e in self.events[name]]
 
 
-def check_q1_page(HK, tap: LaunchTap, results: dict) -> None:
-    """Each grouped sum on the inputs Q1's path gave it: bit-exact against
+def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict) -> None:
+    """Each kernel on the inputs the query's path gave it: bit-exact against
     its plain version, timed beside its bound; these times replace the
-    uniform case's in the kernels line."""
-    for name in tap.NAMES:
+    synthetic cases' in the kernels line."""
+    for name in tap.orig:
         in_run = tap.launch_ms(name)
-        v, w, gid, G = tap.inputs[name]
-        got = getattr(HK, name)(v, w, gid, G)
-        want = HK.grouped_sum_plain(v, w, gid, G)
-        if not torch.equal(got, want):
-            fail(f"{name} [Q1 page] differs from its plain version: "
-                 f"{got.tolist()} vs {want.tolist()}")
-        counts = torch.bincount(gid[w].to(torch.int64), minlength=G)
-        print(f"  {name} [Q1 page n={v.shape[0]} G={G}]: bit-exact; weight share "
-              f"{float(w.float().mean()):.4f}, rows per group {counts.tolist()}",
-              flush=True)
-        print(f"  {name}: {len(in_run)} launches inside Q1, "
+        args = tap.inputs[name]
+        if not same_result(HK, name, args):
+            fail(f"{name} [{query} inputs] differs from its plain version")
+        shape = {
+            "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
+            "hash_expand": lambda a: f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]}",
+            "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
+        }.get(name, lambda a: f"n={a[0].shape[0]} G={a[3]}")(args)
+        print(f"  {name} [{query} inputs {shape}]: bit-exact", flush=True)
+        if name.startswith("grouped_sum"):
+            v, w, gid, G = args
+            counts = torch.bincount(gid[w].to(torch.int64), minlength=G)
+            print(f"  {name}: weight share {float(w.float().mean()):.4f}, rows per "
+                  f"group {counts.tolist()}", flush=True)
+        print(f"  {name}: {len(in_run)} launches inside {query}, "
               f"{sum(in_run):.4f} ms in all, each {[round(t, 4) for t in in_run]}",
               flush=True)
-        ms, plain, lib, b, by = time_grouped(HK, name, v, w, gid, G)
-        print(f"  {name} [Q1 page]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"index_add_ {lib:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+        ms, plain, lib, b, by = time_wrapper(HK, name, args)
+        print(f"  {name} [{query} inputs]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}, "
+              f"bound {b:.4f} ms ({by})", flush=True)
         results[name].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                              bound_by=by)
+
+
+def print_unported_bounds(expand_args_q3) -> None:
+    """Bounds of the two TPU kernels still to port, at the page they would
+    see on Q3: the joined page hash_expand produced (its capacity), grouped
+    on (l_orderkey bigint, o_orderdate date, o_shippriority integer) with
+    the revenue decimal(18,4), 4 columns plus validity and activity."""
+    cap = expand_args_q3[11]
+    row = (8 + 1) + (4 + 1) + (4 + 1) + (8 + 1) + 1
+    # group_sort_phase: read the page, write it co-sorted plus new_group
+    b, by = bound_ms(cap * (2 * row + 1), 40 * cap)
+    print(f"  group_sort_phase (not ported) at Q3's joined page of {cap} slots: "
+          f"bound {b:.4f} ms ({by})", flush=True)
+    # fused_epilogue: read the page, write it sorted by partition with the
+    # int32 dest lane, offsets and counts
+    b, by = bound_ms(cap * (2 * row + 4) + 2 * 8 * 64, 20 * cap)
+    print(f"  fused_epilogue (not ported) at Q3's joined page of {cap} slots: "
+          f"bound {b:.4f} ms ({by})", flush=True)
+
+
+def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
+    """hash_probe, hash_expand and segment_sum against their plain versions
+    on every case; the first (main-shape) case of each is timed."""
+    for i, (label, pkeys, bkeys, luts, pa, ba, left) in enumerate(join_cases(n_main, dev)):
+        pargs = probe_args(HK, pkeys, bkeys, luts, pa, ba, left)
+        if not same_result(HK, "hash_probe", pargs):
+            fail(f"hash_probe [{label}] differs from its plain version")
+        pr = HK.hash_probe(*pargs)
+        pcols = payload_cols(pkeys, pa.shape[0], dev, 10 + i)
+        bcols = payload_cols(bkeys, ba.shape[0], dev, 20 + i)
+        eargs = expand_args(pr, pkeys, bkeys, luts, pa, pcols, bcols)
+        if not same_result(HK, "hash_expand", eargs):
+            fail(f"hash_expand [{label}] differs from its plain version")
+        print(f"  hash_probe, hash_expand [{label}]: bit-exact (C={pargs[6]}, "
+              f"{int(pr['emit'].sum())} output rows)", flush=True)
+        if i == 0:
+            for name, args in (("hash_probe", pargs), ("hash_expand", eargs)):
+                results[name] = timed_entry(HK, name, args)
+        del pr, pargs, eargs, pcols, bcols
+    torch.cuda.empty_cache()
+    for i, (label, v, w, starts) in enumerate(segment_cases(n_main, dev)):
+        if not same_result(HK, "segment_sum", (v, w, starts)):
+            fail(f"segment_sum [{label}] differs from its plain version")
+        print(f"  segment_sum [{label}]: bit-exact", flush=True)
+        if i == 0:
+            results["segment_sum"] = timed_entry(HK, "segment_sum", (v, w, starts))
+
+
+SOURCES = {
+    "grouped_sum_i64": ("trino_tpu_torch/csrc/grouped_sum.cu",
+                        "trino_tpu/ops/pallas_kernels.py:217"),
+    "grouped_sum_i32": ("trino_tpu_torch/csrc/grouped_sum.cu",
+                        "trino_tpu/ops/pallas_kernels.py:238"),
+    "q6_fused": ("trino_tpu_torch/csrc/q6.cu", "trino_tpu/ops/pallas_kernels.py:64"),
+    "hash_probe": ("trino_tpu_torch/csrc/hash_probe.cu",
+                   "trino_tpu/ops/megakernels.py:320"),
+    "hash_expand": ("trino_tpu_torch/csrc/hash_expand.cu",
+                    "trino_tpu/ops/megakernels.py:468"),
+    "segment_sum": ("trino_tpu_torch/csrc/segment_agg.cu",
+                    "trino_tpu/ops/megakernels.py:573"),
+}
+
+
+def timed_entry(HK, name, args) -> dict:
+    ms, plain, lib, b, by = time_wrapper(HK, name, args)
+    print(f"  {name} [main shape]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by})",
+          flush=True)
+    source, replaces = SOURCES[name]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain, "bound_ms": b,
+        "bound_by": by, "library_ms": lib,
+    }
 
 
 def check_kernels(HK, n_main: int, dev) -> dict:
@@ -248,34 +571,17 @@ def check_kernels(HK, n_main: int, dev) -> dict:
     results = {}
     for name, vdtype in (("grouped_sum_i64", torch.int64), ("grouped_sum_i32", torch.int32)):
         wrapper = getattr(HK, name)
-        worst = 0
-        timing = None
-        for label, vals, w, gid, G in grouped_cases(n_main, dev):
+        for i, (label, vals, w, gid, G) in enumerate(grouped_cases(n_main, dev)):
             v = vals.to(vdtype)
             got = wrapper(v, w, gid, G)
             want = HK.grouped_sum_plain(v, w, gid, G)
             torch.cuda.synchronize()
-            err = int((got - want).abs().max())
             if not torch.equal(got, want):
                 fail(f"{name} [{label}] differs from its plain version: "
                      f"{got.tolist()[:8]} vs {want.tolist()[:8]}")
-            worst = max(worst, err)
             print(f"  {name} [{label}]: bit-exact", flush=True)
-            if timing is None:
-                timing = time_grouped(HK, name, v, w, gid, G)
-        ms, plain, lib, b, by = timing
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "trino_tpu_torch/csrc/grouped_sum.cu",
-            "replaces": {
-                "grouped_sum_i64": "trino_tpu/ops/pallas_kernels.py:217",
-                "grouped_sum_i32": "trino_tpu/ops/pallas_kernels.py:238",
-            }[name],
-            "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
-        }
-        print(f"  {name} [uniform]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"index_add_ {lib:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+            if i == 0:
+                results[name] = timed_entry(HK, name, (v, w, gid, G))
 
     worst = 0
     timing = None
@@ -306,13 +612,43 @@ def check_kernels(HK, n_main: int, dev) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phase 3: Q6 and Q1 at SF10
+# phase 3: Q6, Q1 and Q3 at SF10
 # --------------------------------------------------------------------------- #
 
 
+def splits_of(g, conn, table: str):
+    total = conn.split_count(table, SCALE)
+    for s in range(total):
+        yield g.generate_split(table, SCALE, s, total).columns
+
+
+def q3_orders(g, conn):
+    """Q3's qualifying orders, sorted by key: (keys, dates, ship priorities)
+    of orders before 1995-03-15 placed by BUILDING customers."""
+    seg = conn.dictionary("customer", "c_mktsegment", SCALE).code_of("BUILDING")
+    building = np.concatenate([
+        d["c_custkey"][d["c_mktsegment"] == seg] for d in splits_of(g, conn, "customer")
+    ])
+    keys, dates, prio = [], [], []
+    for d in splits_of(g, conn, "orders"):
+        keep = (d["o_orderdate"] < Q3_DATE) & np.isin(d["o_custkey"], building)
+        keys.append(d["o_orderkey"][keep])
+        dates.append(d["o_orderdate"][keep])
+        prio.append(d["o_shippriority"][keep])
+    keys, dates, prio = (np.concatenate(x) for x in (keys, dates, prio))
+    order = np.argsort(keys, kind="stable")
+    return keys[order], dates[order], prio[order]
+
+
 def numpy_oracle(g, conn):
-    """Q1's sums and counts and Q6's revenue from the port's generator, in
-    numpy int64, as rows in the engine's output form."""
+    """Q1's sums and counts, Q6's revenue and Q3's top orders from the
+    port's generator, in numpy int64, as rows in the engine's output form.
+    One pass over the lineitem splits serves all three."""
+    import datetime
+
+    okeys, odates, oprio = q3_orders(g, conn)
+    q3_rev = np.zeros(okeys.shape[0], dtype=np.int64)
+    q3_rows = np.zeros(okeys.shape[0], dtype=np.int64)
     total = conn.split_count("lineitem", SCALE)
     rf = conn.dictionary("lineitem", "l_returnflag", SCALE)
     ls = conn.dictionary("lineitem", "l_linestatus", SCALE)
@@ -341,6 +677,11 @@ def numpy_oracle(g, conn):
         lo, hi, dlo, dhi, qhi = Q6_PRED
         k6 = (ship >= lo) & (ship < hi) & (disc >= dlo) & (disc <= dhi) & (qty < qhi)
         revenue += (price * disc)[k6].sum(dtype=np.int64)
+        lk = d["l_orderkey"]
+        pos = np.minimum(np.searchsorted(okeys, lk), max(okeys.shape[0] - 1, 0))
+        hit = (ship > Q3_DATE) & (okeys[pos] == lk)
+        np.add.at(q3_rev, pos[hit], dp[hit])
+        np.add.at(q3_rows, pos[hit], 1)
 
     def avg(s, n):  # round-half-up decimal avg, as the engine computes it
         half = n // 2
@@ -357,64 +698,84 @@ def numpy_oracle(g, conn):
                 rf.values[a], ls.values[b], sq / 100, sp / 100, sd / 10**4,
                 sc / 10**6, avg(sq, n) / 100, avg(sp, n) / 100, avg(sdisc, n) / 100, n,
             ))
+    grp = np.nonzero(q3_rows)[0]
+    top = grp[np.lexsort((okeys[grp], odates[grp], -q3_rev[grp]))][:10]
+    epoch = datetime.date(1970, 1, 1)
+    q3 = [(int(okeys[i]), int(q3_rev[i]) / 10**4,
+           epoch + datetime.timedelta(days=int(odates[i])), int(oprio[i])) for i in top]
     print(f"  generating the {total} lineitem splits on the host: "
-          f"{gen_secs:.3f} s of the oracle's pass", flush=True)
-    return q1, [(int(revenue) / 10**4,)]
+          f"{gen_secs:.3f} s of the oracle's pass; Q3 has {grp.shape[0]} groups",
+          flush=True)
+    return {"q01": q1, "q06": [(int(revenue) / 10**4,)], "q03": q3}
 
 
 def run_queries(HK, dev, kernels: dict) -> dict:
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    """Each query with the default session (counts set to 0 just before,
+    read just after; the kernels checked and timed on its inputs), then
+    with the kernel tier off, then the numpy oracle. Returns the launch
+    counts of the default runs."""
     from trino_tpu_torch.connectors.tpch import generator as g
+    from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
 
-    queries = QUERIES
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     rows, launches = {}, {}
-    tap = LaunchTap(HK)
-    for q, sql in queries.items():
-        HK.reset_launch_counts()
+    for q, sql in QUERIES.items():
+        tap = LaunchTap(HK, [k for k in KERNELS_OF[q] if k != "q6_fused"])
         torch.cuda.synchronize()
+        HK.reset_launch_counts()
+        MK.reset_counts()
         t0 = time.perf_counter()
-        if q == "q01":
-            with tap:
-                res = runner.execute(sql)
-        else:
+        with tap:
             res = runner.execute(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[q] = dict(HK.LAUNCHES)
+        phases, fallbacks = dict(MK.LAUNCHES), dict(MK.FALLBACKS)
         rows[q] = res.rows
-        print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, "
-              f"{len(res.rows)} rows, launches {launches[q]}", flush=True)
-    if launches["q01"]["grouped_sum_i64"] == 0 or launches["q01"]["grouped_sum_i32"] == 0:
-        fail(f"Q1 did not go through the grouped-sum kernels: {launches['q01']}")
-    check_q1_page(HK, tap, kernels)
-    del tap
-    torch.cuda.empty_cache()
+        print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, {len(res.rows)} rows, "
+              f"launches {launches[q]}, fused phases {phases}, fallbacks {fallbacks}",
+              flush=True)
+        if fallbacks:
+            fail(f"{q} fell back from the fused path: {fallbacks}")
+        for name in tap.orig:
+            if launches[q][name] == 0:
+                fail(f"{q} did not go through {name}: {launches[q]}")
+        check_query_inputs(HK, q, tap, kernels)
+        if q == "q03":
+            print_unported_bounds(tap.inputs["hash_expand"])
+        del tap, res
+        torch.cuda.empty_cache()
+    if rows["q03"] and launches["q03"]["hash_probe"] < 2:
+        fail(f"q03 ran {launches['q03']['hash_probe']} probe launches, not 2")
 
     off = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     off.session.set("pallas_aggregation", "off")
-    for q, sql in queries.items():
+    off.session.set("pallas_fusion", False)
+    for q, sql in QUERIES.items():
         HK.reset_launch_counts()
+        MK.reset_counts()
         t0 = time.perf_counter()
         res = off.execute(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if any(HK.LAUNCHES.values()):
-            fail(f"{q} with pallas_aggregation=off launched {HK.LAUNCHES}")
+        if any(HK.LAUNCHES.values()) or any(MK.LAUNCHES.values()):
+            fail(f"{q} with the kernel tier off launched {HK.LAUNCHES} {MK.LAUNCHES}")
         if res.rows != rows[q]:
-            fail(f"{q}: default rows {rows[q]} != pallas_aggregation=off rows {res.rows}")
-        print(f"  {q} SF{SCALE} pallas_aggregation=off: {wall:.3f} s wall, "
+            fail(f"{q}: default rows {rows[q]} != kernel-tier-off rows {res.rows}")
+        print(f"  {q} SF{SCALE} {OFF_SESSION[q][0]}={OFF_SESSION[q][1]}: {wall:.3f} s wall, "
               "rows identical", flush=True)
+        del res
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    want_q1, want_q6 = numpy_oracle(g, runner.catalogs.get("tpch"))
+    want = numpy_oracle(g, runner.catalogs.get("tpch"))
     print(f"  numpy oracle: {time.perf_counter() - t0:.3f} s", flush=True)
-    if rows["q01"] != want_q1:
-        fail(f"q01 rows {rows['q01']} != numpy oracle {want_q1}")
-    if rows["q06"] != want_q6:
-        fail(f"q06 rows {rows['q06']} != numpy oracle {want_q6}")
-    print(f"  q01 and q06 rows equal the numpy oracle: {rows['q06']}", flush=True)
+    for q in QUERIES:
+        if rows[q] != want[q]:
+            fail(f"{q} rows {rows[q]} != numpy oracle {want[q]}")
+    print(f"  q01, q06 and q03 rows equal the numpy oracle; q06 {rows['q06']}, "
+          f"q03 {rows['q03']}", flush=True)
     return launches
 
 
@@ -444,11 +805,13 @@ def main() -> None:
     n_main = splits * conn.split_capacity("lineitem", SCALE, splits)
     kernels = check_kernels(HK, n_main, dev)
     torch.cuda.empty_cache()
+    check_join_kernels(HK, n_main, dev, kernels)
+    torch.cuda.empty_cache()
 
-    print(f"phase 3: TPC-H Q6 and Q1 at SF{SCALE}", flush=True)
+    print(f"phase 3: TPC-H Q6, Q1 and Q3 at SF{SCALE}", flush=True)
     launches = run_queries(HK, dev, kernels)
     for name, k in kernels.items():
-        k["launches"] = launches["q01"][name] + launches["q06"][name]
+        k["launches"] = sum(launches[q][name] for q in QUERIES)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -1,7 +1,8 @@
-"""The slice end to end: TPC-H Q1, Q6 and four more slice queries through
+"""The slices end to end: TPC-H Q1, Q6, Q3 and more slice queries through
 ``trino_tpu.runtime.LocalQueryRunner`` and ``trino_tpu_torch``'s, on the CPU,
-with the port under every ``pallas_aggregation`` mode. Rows — decimals,
-dates, dictionary strings, counts and their order — must be identical.
+with the port under every ``pallas_aggregation`` mode and both
+``pallas_fusion`` settings. Rows — decimals, dates, dictionary strings,
+counts and their order — must be identical.
 
 A second group feeds identical pages (carried across with
 ``page_from_numpy``) with NULL and boolean group keys to both engines'
@@ -15,6 +16,7 @@ from tests.tpch_corpus import TPCH_QUERIES
 from trino_tpu.runtime import LocalQueryRunner as RefRunner
 
 from trino_tpu_torch.ops import hopper_kernels as HK
+from trino_tpu_torch.ops import megakernels as MK
 from trino_tpu_torch.runtime import LocalQueryRunner
 
 SCALE = 0.01
@@ -89,10 +91,110 @@ def test_q1_result_types_and_explain(port_runner):
 
 
 def test_unported_node_raises_naming_it(port_runner):
-    with pytest.raises(NotImplementedError, match="JoinNode"):
+    with pytest.raises(NotImplementedError, match="UnionNode"):
         port_runner.execute(
-            "SELECT count(*) FROM orders, customer WHERE o_custkey = c_custkey"
+            "SELECT o_custkey FROM orders UNION ALL SELECT c_custkey FROM customer"
         )
+
+
+# --------------------------------------------------------------------------- #
+# joins: Q3 and the join shapes of the fused path, fusion on and off
+# --------------------------------------------------------------------------- #
+
+JOIN_QUERIES = {
+    "q03": TPCH_QUERIES["q03"],
+    # LEFT join feeding a presorted count (customer is ordered on c_custkey)
+    "left_count": """
+        SELECT c_custkey, count(o_orderkey) AS cnt
+        FROM customer LEFT JOIN orders ON c_custkey = o_custkey
+        GROUP BY c_custkey ORDER BY cnt DESC, c_custkey LIMIT 10
+    """,
+    # RIGHT join (sides swapped) under a direct-indexed aggregation
+    "right_direct": """
+        SELECT o_orderstatus, count(*), sum(o_totalprice) FROM customer
+        RIGHT JOIN orders ON c_custkey = o_custkey AND c_nationkey < 5
+        GROUP BY o_orderstatus ORDER BY 1
+    """,
+    # dictionary join key through the LUT, no aggregation above the join
+    "dict_key": """
+        SELECT n1.n_name, n2.n_regionkey FROM nation n1
+        JOIN (SELECT n_name, n_regionkey FROM nation WHERE n_regionkey > 1) n2
+          ON n1.n_name = n2.n_name
+        ORDER BY 1
+    """,
+    # the sort aggregation shape: declined to the serial path
+    "sort_shape": """
+        SELECT o_orderdate, count(*), sum(l_quantity)
+        FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+        WHERE o_orderdate < DATE '1992-02-01'
+        GROUP BY o_orderdate ORDER BY 1
+    """,
+}
+
+
+@pytest.fixture(scope="module")
+def reference_join_rows():
+    ref = RefRunner.tpch(scale=SCALE)
+    return {q: ref.execute(sql).rows for q, sql in JOIN_QUERIES.items()}
+
+
+@pytest.mark.parametrize("fusion", [True, False])
+@pytest.mark.parametrize("query", sorted(JOIN_QUERIES))
+def test_join_query_matches_reference(query, fusion, reference_join_rows, port_runner):
+    port_runner.session.set("pallas_fusion", fusion)
+    try:
+        MK.reset_counts()
+        res = port_runner.execute(JOIN_QUERIES[query])
+    finally:
+        port_runner.session.set("pallas_fusion", True)
+    assert res.rows == reference_join_rows[query]
+    assert len(res.rows) > 0
+    if not fusion:
+        assert MK.LAUNCHES == {k: 0 for k in MK.LAUNCHES}
+    elif query == "sort_shape":
+        assert MK.FALLBACKS == {"group_sort_unported": 1}
+    else:
+        assert MK.LAUNCHES["probe"] > 0 and MK.LAUNCHES["expand"] > 0
+        assert not MK.FALLBACKS
+    assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}  # CPU: plain versions only
+
+
+def test_q3_runs_through_every_phase(port_runner):
+    """Q3 with the default session: two fused joins and one presorted
+    segment aggregation, no fallback."""
+    MK.reset_counts()
+    port_runner.execute(JOIN_QUERIES["q03"])
+    assert MK.LAUNCHES == {"probe": 2, "expand": 2, "aggregate": 1}
+    assert not MK.FALLBACKS
+
+
+def test_pallas_fusion_defaults_true():
+    from trino_tpu_torch.metadata import Session
+
+    assert Session().get("pallas_fusion") is True
+    assert LocalQueryRunner.tpch(scale=SCALE, device="cpu").session.get("pallas_fusion")
+
+
+@pytest.mark.parametrize("sql,case", [
+    ("SELECT count(*) FROM nation FULL JOIN region ON n_regionkey = r_regionkey", "FULL join"),
+    ("SELECT count(*) FROM nation CROSS JOIN region", "CROSS join"),
+    ("SELECT count(*) FROM nation JOIN region ON n_regionkey = r_regionkey "
+     "AND n_nationkey < r_regionkey * 5", "non-equi residual"),
+])
+def test_unported_join_cases_raise_naming_them(port_runner, sql, case):
+    with pytest.raises(NotImplementedError, match=case):
+        port_runner.execute(sql)
+
+
+def test_kernel_failure_raises_through_execute(port_runner, monkeypatch):
+    """No fallback hides a kernel: an error inside a phase's kernel wrapper
+    fails the query instead of finishing on the serial path."""
+    def broken(*args, **kwargs):
+        raise RuntimeError("hash_probe launch failed: cudaError 700")
+
+    monkeypatch.setattr(HK, "hash_probe", broken)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        port_runner.execute(JOIN_QUERIES["q03"])
 
 
 # --------------------------------------------------------------------------- #

@@ -184,3 +184,67 @@ def test_q6_fused_rejects_bad_inputs():
         HK.q6_fused(*cols[:4], cols[4].to(torch.bool), *PRED)
     with pytest.raises(ValueError):
         HK.q6_fused(*cols, 0, 2**31, 5, 7, 2400)
+
+
+# --------------------------------------------------------------------------- #
+# hash join and segment sums: input checks (their plain versions are held
+# against the reference's phases in tests/test_torch_megakernels.py)
+# --------------------------------------------------------------------------- #
+
+
+def _join_side(n, seed):
+    rng = np.random.default_rng(seed)
+    keys = ((torch.from_numpy(rng.integers(0, 50, n)), torch.ones(n, dtype=torch.bool)),)
+    return keys, torch.from_numpy(rng.random(n) < 0.8)
+
+
+def test_hash_probe_rejects_bad_inputs():
+    pk, pa = _join_side(100, 1)
+    bk, ba = _join_side(64, 2)
+    with pytest.raises(ValueError, match="power"):
+        HK.hash_probe(pk, bk, (None,), pa, ba, 1000, 32, False)
+    with pytest.raises(ValueError, match="key columns"):
+        HK.hash_probe(pk, bk + bk, (None,), pa, ba, 1024, 32, False)
+    with pytest.raises(ValueError, match="key columns"):
+        HK.hash_probe(pk * 5, bk * 5, (None,) * 5, pa, ba, 1024, 32, False)
+    with pytest.raises(TypeError):
+        HK.hash_probe(pk, bk, (None,), pa.to(torch.int8), ba, 1024, 32, False)
+    with pytest.raises(ValueError, match="non-empty"):
+        HK.hash_probe(pk, bk, (None,), pa, ba[:0], 1024, 32, False)
+    assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}
+
+
+def test_hash_expand_rejects_bad_inputs():
+    pk, pa = _join_side(100, 3)
+    bk, ba = _join_side(64, 4)
+    pr = HK.hash_probe(pk, bk, (None,), pa, ba, 1024, 32, False)
+    args = (pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"], pk, bk,
+            (None,), pa)
+    with pytest.raises(ValueError, match="out_capacity"):
+        HK.hash_expand(*args, list(pk), list(bk), 0)
+    with pytest.raises(ValueError, match="probe column"):
+        HK.hash_expand(*args, [(pk[0][0][:50], pk[0][1][:50])], list(bk), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        col = torch.zeros(200, dtype=torch.int64)[::2]
+        HK.hash_expand(*args, list(pk), [(col[:64], torch.ones(64, dtype=torch.bool))], 16)
+    with pytest.raises(TypeError):
+        HK.hash_expand(pr["table"].to(torch.int64), *args[1:], list(pk), list(bk), 16)
+    assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}
+
+
+def test_segment_sum_rejects_bad_inputs():
+    v = torch.zeros(8, dtype=torch.int64)
+    w = torch.ones(8, dtype=torch.bool)
+    starts = torch.tensor([0, 3, 8])
+    with pytest.raises(TypeError):
+        HK.segment_sum(v.to(torch.float64), w, starts)
+    with pytest.raises(TypeError):
+        HK.segment_sum(v, w, starts.to(torch.int32))
+    with pytest.raises(ValueError):
+        HK.segment_sum(v, w[:4], starts)
+    with pytest.raises(ValueError):
+        HK.segment_sum(v, w, starts[:0])
+    # the padding slot (start = n) reads row n - 1, as the reference's
+    # clipped cumsum-at-boundaries form does
+    assert HK.segment_sum(v + 2, w, starts).tolist() == [6, 10, 2]
+    assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}

@@ -109,3 +109,165 @@ def test_limit_mask(count, offset):
     want = np.asarray(RK.limit_mask(jnp.asarray(active), count, offset))
     got = PK.limit_mask(torch.from_numpy(active), count, offset).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# join, sort-path and TopN primitives
+# --------------------------------------------------------------------------- #
+
+
+def test_splitmix64_edges_and_negatives():
+    rng = np.random.default_rng(11)
+    x = np.concatenate([
+        np.array([RK.INT64_MIN, RK.INT64_MAX, -1, 0, 1, RK.INT64_MIN + 1, -(2**31)]),
+        rng.integers(RK.INT64_MIN, RK.INT64_MAX, 2000, endpoint=True),
+    ]).astype(np.int64)
+    want = np.asarray(RK.splitmix64(jnp.asarray(x)))
+    got = PK.splitmix64(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cosort_stable_multi_pass():
+    rng = np.random.default_rng(12)
+    n = 4000
+    keys = [rng.integers(0, 7, n), rng.integers(0, 3, n).astype(np.int8)]
+    payloads = [np.arange(n), rng.random(n) < 0.5]
+    wk, wp = RK.cosort([jnp.asarray(k) for k in keys], [jnp.asarray(p) for p in payloads])
+    gk, gp = PK.cosort([torch.from_numpy(k) for k in keys],
+                       [torch.from_numpy(p) for p in payloads])
+    for g, w in zip(gk + gp, list(wk) + list(wp)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3, 1.0])
+def test_last_active_prev(rate):
+    rng = np.random.default_rng(13)
+    vals = rng.integers(-(10**12), 10**12, 3001)
+    active = rng.random(3001) < rate
+    wv, wh = RK.last_active_prev(jnp.asarray(vals), jnp.asarray(active))
+    gv, gh = PK.last_active_prev(torch.from_numpy(vals), torch.from_numpy(active))
+    np.testing.assert_array_equal(gh.numpy(), np.asarray(wh))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("out_cap", [1, 16, 300, 5000])
+def test_boundary_positions(out_cap):
+    new_group = np.random.default_rng(14).random(4000) < 0.05
+    want = np.asarray(RK.boundary_positions(jnp.asarray(new_group), out_cap))
+    got = PK.boundary_positions(torch.from_numpy(new_group), out_cap).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _group_sorted(seed, n=5000, rate=0.02):
+    rng = np.random.default_rng(seed)
+    new_group = rng.random(n) < rate
+    new_group[0] = True
+    gid = (np.cumsum(new_group) - 1).astype(np.int32)
+    return rng, new_group, gid, int(new_group.sum())
+
+
+@pytest.mark.parametrize("kind,dtype", [("sum", "int64"), ("count", "int64"),
+                                        ("sum", "float64"), ("min", "int64"),
+                                        ("max", "float64")])
+@pytest.mark.parametrize("form", ["bounds", "new_group", "gid"])
+def test_segment_reduce_grouped(kind, dtype, form):
+    rng, new_group, gid, G = _group_sorted(15)
+    n = new_group.shape[0]
+    vals = (rng.integers(-(2**62), 2**62, n) if dtype == "int64"
+            else rng.normal(scale=1e6, size=n))
+    w = rng.random(n) < 0.7
+    out_cap = G + 7  # padding slots past the last group
+    if kind in ("min", "max"):
+        form = "gid"  # the engine reduces min/max by gid only
+    rb = pb = None
+    if form == "bounds":
+        rs = RK.boundary_positions(jnp.asarray(new_group), out_cap)
+        rb = (rs, jnp.concatenate([rs[1:], jnp.array([n])]) - 1)
+        ps = PK.boundary_positions(torch.from_numpy(new_group), out_cap)
+        pb = (ps, torch.cat([ps[1:], torch.tensor([n])]) - 1)
+    ng = None if form == "gid" else new_group
+    want = np.asarray(RK.segment_reduce(
+        jnp.asarray(vals), jnp.asarray(w), jnp.asarray(gid), out_cap, kind,
+        None if ng is None else jnp.asarray(ng), rb))
+    got = PK.segment_reduce(
+        torch.from_numpy(vals), torch.from_numpy(w), torch.from_numpy(gid), out_cap, kind,
+        None if ng is None else torch.from_numpy(ng), pb).numpy()
+    if dtype == "float64" and kind == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _join_inputs(seed, n=3000, m=800, key_range=400):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, key_range, m), rng.random(m) < 0.8,
+            rng.integers(0, key_range, n), rng.random(n) < 0.85)
+
+
+@pytest.mark.parametrize("seed,key_range", [(16, 400), (17, 5), (18, 10**6)])
+def test_join_match(seed, key_range):
+    bk, ba, pk, pa = _join_inputs(seed, key_range=key_range)
+    bk[:3] = RK.INT64_MAX  # genuine INT64_MAX keys never match the inactive tail
+    pk[:2] = RK.INT64_MAX
+    want = RK.join_match(jnp.asarray(bk), jnp.asarray(ba), jnp.asarray(pk), jnp.asarray(pa))
+    got = PK.join_match(torch.from_numpy(bk), torch.from_numpy(ba),
+                        torch.from_numpy(pk), torch.from_numpy(pa))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pack_key_pair_two_columns():
+    rng = np.random.default_rng(19)
+    pcols = [(rng.integers(0, 9, 500), rng.random(500) < 0.9),
+             (rng.normal(size=500).round(1), rng.random(500) < 0.9)]
+    bcols = [(rng.integers(0, 9, 300), rng.random(300) < 0.9),
+             (rng.normal(size=300).round(1), np.ones(300, bool))]
+    want = RK.pack_key_pair([tuple(map(jnp.asarray, c)) for c in pcols],
+                            [tuple(map(jnp.asarray, c)) for c in bcols])
+    got = PK.pack_key_pair([tuple(map(torch.from_numpy, c)) for c in pcols],
+                           [tuple(map(torch.from_numpy, c)) for c in bcols])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("out_cap", [1, 1024, 9000])
+def test_expand_probe_slots_zero_emit_runs(out_cap):
+    rng = np.random.default_rng(20)
+    emit = rng.integers(0, 4, 2500).astype(np.int32)
+    emit[:7] = 0  # a leading zero-emit run
+    emit[100:160] = 0  # an inner one
+    emit[-9:] = 0  # and a trailing one
+    want = RK.expand_probe_slots(jnp.asarray(emit), out_cap)
+    got = PK.expand_probe_slots(torch.from_numpy(emit), out_cap)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("left_outer", [False, True])
+def test_expand_matches(left_outer):
+    bk, ba, pk, pa = _join_inputs(21)
+    rm = RK.join_match(jnp.asarray(bk), jnp.asarray(ba), jnp.asarray(pk), jnp.asarray(pa))
+    count = np.asarray(rm[3])
+    emit = np.where(pa, np.maximum(count, 1), 0) if left_outer else count
+    cap = int(emit.sum()) + 5
+    want = RK.expand_matches(jnp.asarray(emit), rm[3], rm[1], rm[0], cap)
+    pm = PK.join_match(torch.from_numpy(bk), torch.from_numpy(ba),
+                       torch.from_numpy(pk), torch.from_numpy(pa))
+    got = PK.expand_matches(torch.from_numpy(np.array(emit, np.int32)), pm[3], pm[1],
+                            pm[0], cap)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("count", [None, 0, 10, 10**6])
+def test_topn_perm(count):
+    rng = np.random.default_rng(22)
+    k = rng.integers(0, 50, 3000)
+    active = rng.random(3000) < 0.6
+    rk = [RK.encode_sort_column(jnp.asarray(k), jnp.ones(3000, bool), False, False)]
+    pk = [PK.encode_sort_column(torch.from_numpy(k), torch.ones(3000, dtype=torch.bool),
+                                False, False)]
+    wp, wa = RK.topn_perm(rk, jnp.asarray(active), count)
+    gp, ga = PK.topn_perm(pk, torch.from_numpy(active), count)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))

@@ -508,16 +508,19 @@ SESSION_PROPERTIES: Tuple[SessionProperty, ...] = (
         "the plain formulation)",
     ),
     SessionProperty(
-        "pallas_fusion", "boolean", False,
-        "fragment-fused Pallas megakernels (ops/megakernels.py): hash join "
-        "+ partial agg + repartition epilogue in one launch; off = "
-        "byte-identical serial op-chain path (same contract as "
-        "device_batching)",
+        "pallas_fusion", "boolean", True,
+        "fused hash-join path (ops/megakernels.py): joins, and joins feeding "
+        "a grouped aggregation, run through the hash_probe, hash_expand and "
+        "segment_sum kernels; off = the serial sort-based join and plain "
+        "aggregation. Default on in the port (the reference defaults off for "
+        "its device-batching contract, which the port does not carry): the "
+        "kernels are the main path under test",
     ),
     SessionProperty(
         "pallas_interpret", "varchar", "auto",
-        "megakernel execution mode: auto (pl.pallas_call interpret mode "
-        "off on TPU, on elsewhere — the tier-1 CPU contract) | on | off",
+        "kept for the reference's session vocabulary; no effect in the port "
+        "(a kernel wrapper runs its plain version exactly when its tensors "
+        "lie on the CPU)",
     ),
     SessionProperty(
         "query_stats_sync", "boolean", False,
@@ -769,19 +772,6 @@ def resolve_ann_mode(value) -> Tuple[str, Optional[int]]:
     if m:
         return ("approx", max(1, int(m.group(1))))
     return ("off", None)
-
-
-def resolve_pallas_interpret(value, backend: str) -> bool:
-    """``pallas_interpret`` session value -> interpret flag for megakernel
-    launches: ``auto`` runs compiled on TPU and interpret everywhere else
-    (the tier-1 bit-identity contract executes every fused kernel under
-    interpret mode on CPU); ``on``/``off`` force either way."""
-    mode = str(value or "auto").lower()
-    if mode in ("on", "true", "1", "interpret"):
-        return True
-    if mode in ("off", "false", "0"):
-        return False
-    return backend != "tpu"
 
 
 # --------------------------------------------------------------------------- #

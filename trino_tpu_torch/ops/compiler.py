@@ -398,3 +398,52 @@ class _Compiler:
         raise CompileError(
             "ordering comparison across different dictionaries not supported yet"
         )
+
+
+# --------------------------------------------------------------------------- #
+# megakernel shape recognition (ops/megakernels.py)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class MegakernelSpec:
+    """A join shape the fused hash-join path accepts, from
+    :func:`plan_megakernel`. The executor layers the aggregation spec on
+    top; this spec answers only whether the JOIN runs as the hash-probe
+    kernels."""
+
+    left_outer: bool
+
+
+def plan_megakernel(kind, criteria, has_filter: bool,
+                    probe_page, build_page) -> Tuple[Optional[MegakernelSpec], str]:
+    """Recognize a join for the fused hash-join path. Returns ``(spec,
+    "ok")``, or ``(None, reason)`` with the reference's fallback label:
+
+    - ``cross_join``: no equi criterion to bucket on;
+    - ``join_kind``: not INNER or LEFT after the RIGHT-swap (FULL needs the
+      unmatched-build tail the kernels do not carry);
+    - ``residual_filter``: a non-equi residual, which the serial path owns;
+    - ``empty_layout``: a side without rows of capacity.
+    """
+    from ..planner.plan import JoinKind as _JK
+
+    if not criteria:
+        return None, "cross_join"
+    if kind not in (_JK.INNER, _JK.LEFT):
+        return None, "join_kind"
+    if has_filter:
+        return None, "residual_filter"
+    for page in (probe_page, build_page):
+        if page.capacity < 1:
+            return None, "empty_layout"
+    return MegakernelSpec(left_outer=(kind == _JK.LEFT)), "ok"
+
+
+def megakernel_key_check(key_cols) -> Tuple[bool, str]:
+    """Physical key-column check: every join key must be a single-lane
+    column (``data.ndim == 1``); multi-lane keys fall back as ``key_ndim``."""
+    for d, _v in key_cols:
+        if d.ndim != 1:
+            return False, "key_ndim"
+    return True, "ok"

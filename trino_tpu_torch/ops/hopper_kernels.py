@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels and their plain torch versions.
 
-The port's counterpart of ``trino_tpu.ops.pallas_kernels``. The kernels are
+The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
+Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
+expansion and the sort-path segment sums). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
 a hash of the sources, under ``trino_tpu_torch/_build/``), loaded with
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -38,7 +41,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0}
+LAUNCHES = {
+    "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
+    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0,
+}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -122,6 +128,21 @@ def _library():
                 fn.restype = i32
             lib.q6_fused.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr, ptr]
             lib.q6_fused.restype = i32
+            keyset = ctypes.POINTER(_KeySet)
+            lib.hash_probe.argtypes = (
+                [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 7
+            )
+            lib.hash_probe.restype = i32
+            lib.hash_expand.argtypes = (
+                [keyset, keyset] + [ptr] * 6 + [i64, i64, i32, i64] + [ptr] * 6
+                + [ctypes.POINTER(_GatherSet), i32, ptr]
+            )
+            lib.hash_expand.restype = i32
+            lib.hash_expand_gather_cols.restype = i32
+            if lib.hash_expand_gather_cols() != _MAX_GATHER_COLS:
+                raise RuntimeError("hash_expand.cu and its wrapper disagree on GatherSet")
+            lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
+            lib.segment_sum.restype = i32
             _LIB = lib
         return _LIB
 
@@ -257,4 +278,328 @@ def q6_fused(
     )
     _check_launch("q6_fused", rc)
     LAUNCHES["q6_fused"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# hash join (replaces megakernels.probe_phase / expand_phase's join stage)
+# --------------------------------------------------------------------------- #
+
+# key columns one join carries, and columns per gather launch: the sizes of
+# KeySet and GatherSet in csrc/join_keys.cuh and csrc/hash_expand.cu
+_MAX_KEYS = 4
+_MAX_GATHER_COLS = 16
+# probe rows per chunk of the plain versions' [rows, C] match block
+_PLAIN_CHUNK = 1 << 20
+
+_KEY_TYPES = {
+    torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+    torch.bool: 4, torch.float64: 5, torch.float32: 6,
+}
+
+
+class _KeyCol(ctypes.Structure):
+    _fields_ = [
+        ("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("lut", ctypes.c_void_p), ("lut_len", ctypes.c_int64), ("type", ctypes.c_int),
+    ]
+
+
+class _KeySet(ctypes.Structure):
+    _fields_ = [("col", _KeyCol * _MAX_KEYS), ("n", ctypes.c_int)]
+
+
+class _GatherCol(ctypes.Structure):
+    _fields_ = [
+        ("src", ctypes.c_void_p), ("src_valid", ctypes.c_void_p),
+        ("dst", ctypes.c_void_p), ("dst_valid", ctypes.c_void_p),
+        ("elem_bytes", ctypes.c_int), ("build_side", ctypes.c_int),
+    ]
+
+
+class _GatherSet(ctypes.Structure):
+    _fields_ = [("col", _GatherCol * _MAX_GATHER_COLS), ("n", ctypes.c_int)]
+
+
+def normalized_keys(key_cols, luts):
+    """(data, valid) key columns -> (normalized int64 keys, all-keys-valid):
+    dictionary-coded probe keys translate through the build dictionary's
+    LUT (an absent value becomes invalid), and every key compares on
+    ``kernels.order_key`` bits (the reference's ``_normalized_keys``)."""
+    keys: List[torch.Tensor] = []
+    ok = None
+    for (d, v), lut in zip(key_cols, luts):
+        if lut is not None:
+            d = lut[d.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+            v = v & (d >= 0)
+        keys.append(K.order_key(d))
+        ok = v if ok is None else ok & v
+    return keys, ok
+
+
+def bucket_of(keys: Sequence[torch.Tensor], n_buckets: int) -> torch.Tensor:
+    """Chained SplitMix64 over the normalized key tuple, masked to
+    ``n_buckets - 1`` (a power of two), as int32."""
+    h = None
+    for k in keys:
+        h = K.splitmix64(k if h is None else h + k)
+    return (h & (n_buckets - 1)).to(torch.int32)
+
+
+def _bucket_eq(table, counts, bucket, pk, pk_ok, bk, C: int):
+    """``eq[i, c]``: slot c of row i's bucket holds a build row whose keys
+    equal row i's; ``rows[i, c]``: that slot's build row, clipped to
+    [0, m-1] (the reference's ``_bucket_match``)."""
+    m = bk[0].shape[0]
+    rows = table[bucket.to(torch.int64)].to(torch.int64).clamp(0, m - 1)
+    occ = torch.arange(C, device=rows.device) < counts[bucket.to(torch.int64)][:, None]
+    eq = occ & pk_ok[:, None]
+    for p, b in zip(pk, bk):
+        eq = eq & (b[rows] == p[:, None])
+    return eq, rows
+
+
+def hash_probe_plain(pkeys, bkeys, luts, probe_active, build_active,
+                     n_buckets: int, C: int, left_outer: bool) -> Dict[str, torch.Tensor]:
+    """The reference's ``_probe_phase_body``: build rows enter their
+    bucket's slots in ascending row order (a stable sort by bucket; where a
+    bucket overflows, slot C-1 keeps its last row, as the sequential
+    insertion leaves it), inactive and NULL-key rows enter trash bucket B;
+    each probe row counts its bucket's equal-key slots in chunks of rows."""
+    pk, pv = normalized_keys(pkeys, luts)
+    bk, bv = normalized_keys(bkeys, (None,) * len(bkeys))
+    pa = probe_active & pv
+    ba = build_active & bv
+    dev = ba.device
+    m = ba.shape[0]
+    bb = torch.where(ba, bucket_of(bk, n_buckets).to(torch.int64), n_buckets)
+    counts64 = torch.bincount(bb, minlength=n_buckets + 1)
+    order = torch.sort(bb, stable=True).indices
+    bsorted = bb[order]
+    rank = torch.arange(m, device=dev) - (torch.cumsum(counts64, 0) - counts64)[bsorted]
+    keep = (rank < C - 1) | (rank == counts64[bsorted] - 1)
+    flat = bsorted * C + rank.clamp(max=C - 1)
+    table = torch.zeros((n_buckets + 1) * C, dtype=torch.int32, device=dev)
+    table[flat[keep]] = order[keep].to(torch.int32)
+    table = table.view(n_buckets + 1, C)
+    counts = counts64.to(torch.int32)
+    bucket_p = bucket_of(pk, n_buckets)
+    n = pa.shape[0]
+    count = torch.empty(n, dtype=torch.int32, device=dev)
+    for lo in range(0, n, _PLAIN_CHUNK):
+        sl = slice(lo, lo + _PLAIN_CHUNK)
+        eq, _ = _bucket_eq(table, counts, bucket_p[sl], [k[sl] for k in pk], pa[sl], bk, C)
+        count[sl] = eq.sum(1, dtype=torch.int32)
+    if left_outer:
+        emit = torch.where(probe_active, count.clamp(min=1), 0).to(torch.int32)
+    else:
+        emit = count
+    return {
+        "table": table, "counts": counts, "bucket_p": bucket_p, "count": count,
+        "emit": emit, "max_count": counts[:n_buckets].max(),
+    }
+
+
+def _key_set(name: str, key_cols, luts, n: int) -> "_KeySet":
+    ks = _KeySet()
+    ks.n = len(key_cols)
+    for k, ((d, v), lut) in enumerate(zip(key_cols, luts)):
+        if d.dtype not in _KEY_TYPES or d.ndim != 1 or d.shape[0] != n:
+            raise TypeError(f"{name}: unsupported key column {d.dtype} {tuple(d.shape)}")
+        _check_vectors(name, (d, v), (d.dtype, torch.bool))
+        col = ks.col[k]
+        col.data, col.valid, col.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+        if lut is not None:
+            _check_vectors(name, (lut,), (torch.int64,))
+            if lut.device != d.device or lut.shape[0] < 1:
+                raise ValueError(f"{name}: LUT must be a non-empty tensor on {d.device}")
+            col.lut, col.lut_len = lut.data_ptr(), lut.shape[0]
+    return ks
+
+
+def _check_keys(name: str, pkeys, bkeys, luts) -> None:
+    if not 1 <= len(pkeys) <= _MAX_KEYS or len(bkeys) != len(pkeys) or len(luts) != len(pkeys):
+        raise ValueError(f"{name}: 1 to {_MAX_KEYS} key columns per side, one LUT slot each")
+
+
+def hash_probe(pkeys, bkeys, luts, probe_active: torch.Tensor, build_active: torch.Tensor,
+               n_buckets: int, C: int, left_outer: bool) -> Dict[str, torch.Tensor]:
+    """One build+probe attempt at ``n_buckets`` buckets of ``C`` slots.
+
+    ``pkeys``/``bkeys``: (data, valid) key columns (1 to 4 per side, any
+    integer, bool or float storage); ``luts``: per key, None or an int64
+    dictionary translation of probe codes into build codes. Returns
+    ``table`` int32 [B+1, C], ``counts`` int32 [B+1], ``bucket_p``,
+    ``count`` and ``emit`` int32 [N], and ``max_count`` (0-d int32; above C
+    a bucket overflowed and the table is not usable). On CUDA tensors the
+    table rows of the trash bucket B and of overflowed buckets are
+    unspecified, and where ``max_count`` > C so are ``count`` and
+    ``emit``; everything else equals :func:`hash_probe_plain`."""
+    _check_keys("hash_probe", pkeys, bkeys, luts)
+    _check_vectors("hash_probe", (probe_active,), (torch.bool,))
+    _check_vectors("hash_probe", (build_active,), (torch.bool,))
+    if probe_active.device != build_active.device:
+        raise ValueError(f"hash_probe: sides on {probe_active.device} and {build_active.device}")
+    n, m = probe_active.shape[0], build_active.shape[0]
+    if not 1 <= m < 2**31 or n < 1:
+        raise ValueError("hash_probe: both sides non-empty, build rows within int32")
+    if not 1 <= n_buckets < 2**30 or n_buckets & (n_buckets - 1) or not 1 <= C < 2**30:
+        raise ValueError(f"hash_probe: B={n_buckets} must be a power of two and C={C} "
+                         "positive")
+    if probe_active.device.type == "cpu":
+        return hash_probe_plain(pkeys, bkeys, luts, probe_active, build_active,
+                                n_buckets, C, left_outer)
+    dev = probe_active.device
+    pks = _key_set("hash_probe", pkeys, luts, n)
+    bks = _key_set("hash_probe", bkeys, (None,) * len(bkeys), m)
+    out = {
+        "table": torch.empty((n_buckets + 1, C), dtype=torch.int32, device=dev),
+        "counts": torch.empty(n_buckets + 1, dtype=torch.int32, device=dev),
+        "bucket_p": torch.empty(n, dtype=torch.int32, device=dev),
+        "count": torch.empty(n, dtype=torch.int32, device=dev),
+        "emit": torch.empty(n, dtype=torch.int32, device=dev),
+        "max_count": torch.empty((), dtype=torch.int32, device=dev),
+    }
+    rc = _library().hash_probe(
+        ctypes.byref(pks), ctypes.byref(bks), probe_active.data_ptr(),
+        build_active.data_ptr(), n, m, n_buckets, C, int(left_outer),
+        *(out[k].data_ptr() for k in ("table", "counts", "bucket_p", "count", "emit",
+                                      "max_count")),
+        _stream(probe_active),
+    )
+    _check_launch("hash_probe", rc)
+    LAUNCHES["hash_probe"] += 1
+    return out
+
+
+def hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
+                      probe_active, probe_cols, build_cols, out_capacity: int):
+    """The join stage of the reference's ``_expand_phase_body``: slots from
+    ``kernels.expand_probe_slots``; each slot's build row is the (d+1)-th
+    equal-key slot of its probe row's bucket (a cumsum over the match block,
+    slot 0 where there is none), in chunks of slots; then the gathers."""
+    pk, pv = normalized_keys(pkeys, luts)
+    bk, _ = normalized_keys(bkeys, (None,) * len(bkeys))
+    pa = probe_active & pv
+    C = table.shape[1]
+    probe_idx, d, out_active, _ = K.expand_probe_slots(emit, out_capacity)
+    matched = d < count[probe_idx]
+    bpos = torch.empty(out_capacity, dtype=torch.int64, device=table.device)
+    for lo in range(0, out_capacity, _PLAIN_CHUNK):
+        sl = slice(lo, lo + _PLAIN_CHUNK)
+        pi = probe_idx[sl]
+        eq, rows = _bucket_eq(table, counts, bucket_p[pi], [k[pi] for k in pk], pa[pi], bk, C)
+        cum = torch.cumsum(eq.to(torch.int32), 1)
+        sel = eq & (cum == (d[sl] + 1)[:, None])
+        slot = torch.argmax(sel.to(torch.int8), 1)
+        bpos[sl] = rows.gather(1, slot[:, None])[:, 0]
+    probe_out = [(dt[probe_idx], v[probe_idx]) for dt, v in probe_cols]
+    build_out = [(dt[bpos], v[bpos] & matched) for dt, v in build_cols]
+    return probe_out, build_out, out_active
+
+
+def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
+                probe_active: torch.Tensor, probe_cols, build_cols, out_capacity: int):
+    """The join expansion into ``out_capacity`` slots after
+    :func:`hash_probe` (its table, counts, bucket_p, count and emit).
+
+    ``probe_cols``/``build_cols``: (data, valid) of every column of each
+    side, in page order. Returns ``(probe_out, build_out, out_active)``:
+    the gathered (data, valid) pairs, build validity ANDed with the slot's
+    matched flag, and the output activity."""
+    _check_keys("hash_expand", pkeys, bkeys, luts)
+    _check_vectors("hash_expand", (probe_active,), (torch.bool,))
+    _check_vectors("hash_expand", (emit, count, bucket_p), (torch.int32,) * 3)
+    n, m = probe_active.shape[0], bkeys[0][0].shape[0]
+    if emit.shape[0] != n or table.ndim != 2 or counts.shape[0] != table.shape[0]:
+        raise ValueError("hash_expand: probe outputs do not match the probe side")
+    if out_capacity < 1:
+        raise ValueError("hash_expand: out_capacity must be positive")
+    if table.dtype != torch.int32 or counts.dtype != torch.int32 or not table.is_contiguous():
+        raise TypeError("hash_expand: table and counts are int32, the table contiguous")
+    for side, cols, rows in (("probe", probe_cols, n), ("build", build_cols, m)):
+        for d, v in cols:
+            if d.shape[0] != rows or v.shape != (rows,) or v.dtype != torch.bool:
+                raise ValueError(f"hash_expand: a {side} column is not {rows} rows")
+            if d.device != probe_active.device or not (d.is_contiguous() and v.is_contiguous()):
+                raise ValueError(f"hash_expand: {side} columns must be contiguous "
+                                 f"on {probe_active.device}")
+    if probe_active.device.type == "cpu":
+        return hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys,
+                                 luts, probe_active, probe_cols, build_cols, out_capacity)
+    dev = probe_active.device
+    pks = _key_set("hash_expand", pkeys, luts, n)
+    bks = _key_set("hash_expand", bkeys, (None,) * len(bkeys), m)
+    start = torch.empty(n, dtype=torch.int64, device=dev)
+    tile_sums = torch.empty((n + 2047) // 2048, dtype=torch.int64, device=dev)
+    probe_idx = torch.empty(out_capacity, dtype=torch.int64, device=dev)
+    bpos = torch.empty(out_capacity, dtype=torch.int64, device=dev)
+    matched = torch.empty(out_capacity, dtype=torch.bool, device=dev)
+    out_active = torch.empty(out_capacity, dtype=torch.bool, device=dev)
+    outs = []
+    cols = [(c, 0) for c in probe_cols] + [(c, 1) for c in build_cols]
+    sets = (_GatherSet * max(1, -(-len(cols) // _MAX_GATHER_COLS)))()
+    for i, ((d, v), side) in enumerate(cols):
+        od = torch.empty((out_capacity,) + tuple(d.shape[1:]), dtype=d.dtype, device=dev)
+        ov = torch.empty(out_capacity, dtype=torch.bool, device=dev)
+        outs.append((od, ov))
+        g = sets[i // _MAX_GATHER_COLS]
+        gc = g.col[g.n]
+        gc.src, gc.src_valid, gc.dst, gc.dst_valid = (
+            d.data_ptr(), v.data_ptr(), od.data_ptr(), ov.data_ptr())
+        gc.elem_bytes = d.element_size() * (d[0].numel() if d.ndim > 1 else 1)
+        if gc.elem_bytes not in (1, 2, 4, 8, 16):
+            raise TypeError(f"hash_expand: {gc.elem_bytes}-byte elements are not supported")
+        gc.build_side = side
+        g.n += 1
+    rc = _library().hash_expand(
+        ctypes.byref(pks), ctypes.byref(bks), probe_active.data_ptr(), emit.data_ptr(),
+        count.data_ptr(), bucket_p.data_ptr(), table.data_ptr(), counts.data_ptr(),
+        n, m, table.shape[1], out_capacity, start.data_ptr(), tile_sums.data_ptr(),
+        probe_idx.data_ptr(), bpos.data_ptr(), matched.data_ptr(), out_active.data_ptr(),
+        sets, -(-len(cols) // _MAX_GATHER_COLS), _stream(probe_active),
+    )
+    _check_launch("hash_expand", rc)
+    LAUNCHES["hash_expand"] += 1
+    return outs[: len(probe_cols)], outs[len(probe_cols):], out_active
+
+
+# --------------------------------------------------------------------------- #
+# segment sums (replace the reductions of megakernels.aggregate_phase)
+# --------------------------------------------------------------------------- #
+
+_VALUE_TYPES = {torch.int64: 0, torch.int32: 1, torch.bool: 2}
+
+
+def segment_sum_plain(values: torch.Tensor, weight: torch.Tensor,
+                      starts: torch.Tensor) -> torch.Tensor:
+    """The reference's cumsum-at-boundaries segment sum: ends are the next
+    start minus one (n - 1 for the last slot), both bounds clipped."""
+    n = values.shape[0]
+    vals = torch.where(weight, values.to(torch.int64), 0)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
+    return K.segment_sum_bounds(vals, (starts, ends))
+
+
+def segment_sum(values: torch.Tensor, weight: torch.Tensor,
+                starts: torch.Tensor) -> torch.Tensor:
+    """out[g] = sum(values[i] for weighted rows i of segment g) as int64
+    (mod 2^64), over group-sorted rows; ``starts`` (int64, ascending,
+    padded with n) holds each segment's first row, and segment g ends where
+    segment g+1 starts. Values are int64, int32 or bool (a count)."""
+    if values.dtype not in _VALUE_TYPES:
+        raise TypeError(f"segment_sum: values of {values.dtype} are not supported")
+    _check_vectors("segment_sum", (values, weight), (values.dtype, torch.bool))
+    _check_vectors("segment_sum", (starts,), (torch.int64,))
+    if starts.device != values.device or starts.shape[0] < 1 or values.shape[0] < 1:
+        raise ValueError("segment_sum: starts must be non-empty on the values' device")
+    if values.device.type == "cpu":
+        return segment_sum_plain(values, weight, starts)
+    out = torch.empty(starts.shape[0], dtype=torch.int64, device=values.device)
+    rc = _library().segment_sum(
+        values.data_ptr(), _VALUE_TYPES[values.dtype], weight.data_ptr(), starts.data_ptr(),
+        values.shape[0], starts.shape[0], out.data_ptr(), _stream(values),
+    )
+    _check_launch("segment_sum", rc)
+    LAUNCHES["segment_sum"] += 1
     return out

@@ -1,16 +1,19 @@
-"""Relational kernels in plain torch: keys, sorts, grouped reductions, limit.
+"""Relational kernels in plain torch: keys, sorts, grouped reductions,
+join matching and expansion, TopN, limit.
 
-The port's counterpart of ``trino_tpu.ops.kernels`` for the operators this
-slice runs (scan, filter, project, direct-indexed and global aggregation,
-sort, limit). Every function keeps the reference's signature and result;
-integer results are bit-identical. The TPU-shaped formulations (blocked
-cumsum, [G, n] broadcast reductions, sort-instead-of-scatter) are not carried
-over: on the GPU a scatter-add or a library scan is the plain form.
+The port's counterpart of ``trino_tpu.ops.kernels`` for the operators the
+port runs (scan, filter, project, direct-indexed, sort-path and global
+aggregation, equi-join, sort, TopN, limit). Every function keeps the
+reference's signature and result; integer results are bit-identical. The
+TPU-shaped formulations (blocked cumsum, [G, n] broadcast reductions,
+sort-instead-of-scatter, merge-sort ranks instead of binary search) are not
+carried over: on the GPU a scatter, a library scan or ``searchsorted`` is the
+plain form.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +60,21 @@ def encode_sort_columns(
     return [encode_sort_column(data, valid, ascending, nulls_first)]
 
 
+def _shift_right_logical(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic, so
+    the sign-extended high bits are masked off)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """SplitMix64 finalizer: int64 -> well-mixed int64 (wrapping int64
+    adds and multiplies, logical shifts)."""
+    x = x.to(torch.int64) + -7046029254386353131  # 0x9E3779B97F4A7C15
+    x = (x ^ _shift_right_logical(x, 30)) * -4658895280553007687  # 0xBF58476D1CE4E5B9
+    x = (x ^ _shift_right_logical(x, 27)) * -7723592293110705685  # 0x94D049BB133111EB
+    return x ^ _shift_right_logical(x, 31)
+
+
 def _stable_argsort(k: torch.Tensor) -> torch.Tensor:
     return torch.sort(k, stable=True).indices
 
@@ -82,6 +100,60 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 0)
 
 
+def cosort(pass_keys: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor]):
+    """Stable multi-pass sort carrying payloads: ``pass_keys`` are applied
+    least-significant first (the last is primary). Returns
+    (sorted_pass_keys, sorted_payloads). One permutation is composed from
+    the stable single-key passes, then every array is gathered once."""
+    perm = None
+    for k in pass_keys:
+        if perm is None:
+            perm = _stable_argsort(k)
+        else:
+            perm = perm[_stable_argsort(k[perm])]
+    return [k[perm] for k in pass_keys], [p[perm] for p in payloads]
+
+
+def last_active_prev(vals: torch.Tensor, active: torch.Tensor):
+    """For each row i, the value at the most recent ACTIVE row strictly
+    before i (0 where none) and whether one exists: a running max of active
+    row indices, shifted by one."""
+    n = vals.shape[0]
+    idx = torch.arange(n, device=vals.device)
+    last = torch.cummax(torch.where(active, idx, -1), 0).values
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    has = prev >= 0
+    got = vals[prev.clamp(min=0)]
+    return torch.where(has, got, torch.zeros_like(got)), has
+
+
+def boundary_positions(new_group: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """Indices of the first ``out_cap`` True entries of ``new_group``
+    (ascending), padded with n for absent slots. A scatter by rank into
+    ``out_cap`` slots plus one dump slot; no host sync."""
+    n = new_group.shape[0]
+    rank = cumsum(new_group) - 1
+    slot = torch.where(new_group & (rank < out_cap), rank, out_cap)
+    starts = torch.full((out_cap + 1,), n, dtype=torch.int64, device=new_group.device)
+    starts.scatter_(0, slot, torch.arange(n, device=new_group.device))
+    return starts[:out_cap]
+
+
+def segment_sum_bounds(
+    vals: torch.Tensor, bounds: Tuple[torch.Tensor, torch.Tensor]
+) -> torch.Tensor:
+    """Per-segment sums over group-sorted rows by cumsum-at-boundaries:
+    ``csum[end] - csum[start] + vals[start]`` with both bounds clipped to
+    [0, n-1] (a padding segment, start = n, reads ``vals[n-1]``; its output
+    row is inactive). Integer sums wrap mod 2^64."""
+    n = vals.shape[0]
+    start, end = bounds
+    csum = cumsum(vals)
+    end = end.clamp(0, n - 1)
+    start = start.clamp(0, n - 1)
+    return csum[end] - csum[start] + vals[start].to(csum.dtype)
+
+
 def segment_reduce(
     values_sorted: torch.Tensor,
     weight_sorted: torch.Tensor,
@@ -91,22 +163,53 @@ def segment_reduce(
     new_group_sorted=None,
     bounds=None,
 ) -> torch.Tensor:
-    """Masked segment reduction into ``capacity`` output slots. This slice
-    runs the keyless (global) aggregation only, whose single slot is a plain
-    masked reduction; the sort-path grouped forms are not ported yet."""
-    if capacity != 1:
-        from .._unported import unported
+    """Masked segment reduction into ``capacity`` output slots.
 
-        unported("sort-path grouped aggregation (kernels.segment_reduce)")
+    For sum/count with segment boundaries available (``new_group_sorted``)
+    rows are group-sorted, so segment g's sum is
+    ``csum[end_g] - csum[start_g] + v[start_g]`` (:func:`segment_sum_bounds`);
+    otherwise a scatter by gid, inactive rows into a dropped extra slot.
+    ``capacity == 1`` is the keyless global aggregation."""
+    if capacity == 1:
+        if kind == "sum":
+            vals = torch.where(weight_sorted, values_sorted, torch.zeros_like(values_sorted))
+            return vals.sum(dtype=vals.dtype).reshape(1)
+        if kind == "count":
+            return weight_sorted.sum(dtype=torch.int64).reshape(1)
+        if kind == "min":
+            return values_sorted.min().reshape(1)
+        if kind == "max":
+            return values_sorted.max().reshape(1)
+        raise ValueError(kind)
+    if kind in ("sum", "count") and new_group_sorted is not None:
+        vals = (
+            weight_sorted.to(torch.int64)
+            if kind == "count"
+            else torch.where(weight_sorted, values_sorted, torch.zeros_like(values_sorted))
+        )
+        if bounds is None:
+            n = values_sorted.shape[0]
+            ids = torch.where(new_group_sorted, gid_sorted.to(torch.int64), capacity)
+            start = torch.full((capacity + 1,), n, dtype=torch.int64, device=vals.device)
+            start.scatter_(0, ids, torch.arange(n, device=vals.device))
+            start = start[:capacity]
+            end = torch.cat([start[1:], start.new_full((1,), n)]) - 1
+            bounds = (start, end)
+        return segment_sum_bounds(vals, bounds)
+    ids = torch.where(weight_sorted, gid_sorted.to(torch.int64), capacity)
     if kind == "sum":
         vals = torch.where(weight_sorted, values_sorted, torch.zeros_like(values_sorted))
-        return vals.sum(dtype=vals.dtype).reshape(1)
+        out = torch.zeros(capacity + 1, dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, ids, vals)[:capacity]
     if kind == "count":
-        return weight_sorted.sum(dtype=torch.int64).reshape(1)
-    if kind == "min":
-        return values_sorted.min().reshape(1)
-    if kind == "max":
-        return values_sorted.max().reshape(1)
+        out = torch.zeros(capacity + 1, dtype=torch.int64, device=ids.device)
+        return out.index_add_(0, ids, weight_sorted.to(torch.int64))[:capacity]
+    if kind in ("min", "max"):
+        ident = _reduce_identity(values_sorted.dtype, kind)
+        work = values_sorted.to(torch.int8) if values_sorted.dtype == torch.bool else values_sorted
+        out = torch.full((capacity + 1,), ident, dtype=work.dtype, device=work.device)
+        out.scatter_reduce_(0, ids, work, reduce="amin" if kind == "min" else "amax")
+        return out[:capacity].to(values_sorted.dtype)
     raise ValueError(kind)
 
 
@@ -161,6 +264,127 @@ def direct_group_first(
     last = torch.full((num_groups,), -1, dtype=torch.int64, device=values.device)
     last.scatter_reduce_(0, gid.to(torch.int64), idx, reduce="amax")
     return values[last.clamp(0, n - 1)]
+
+
+# --------------------------------------------------------------------------- #
+# join
+# --------------------------------------------------------------------------- #
+
+
+def dense_ranks(values: torch.Tensor) -> torch.Tensor:
+    """Order-preserving map of int64 values to dense ranks in [0, ndv)."""
+    return torch.unique(values, sorted=True, return_inverse=True)[1].to(torch.int64)
+
+
+def pack_key_pair(probe_cols, build_cols):
+    """Pack multi-column join keys with renumbering shared across BOTH sides:
+    columns are dense-ranked over the union of the two sides and the partial
+    pack re-densified between columns, so packed values stay below
+    (|probe|+|build|)^2 < 2^63 and the pack is collision-free."""
+    p_valid = probe_cols[0][1]
+    for _, v in probe_cols[1:]:
+        p_valid = p_valid & v
+    b_valid = build_cols[0][1]
+    for _, v in build_cols[1:]:
+        b_valid = b_valid & v
+    if len(probe_cols) == 1:
+        return order_key(probe_cols[0][0]), p_valid, order_key(build_cols[0][0]), b_valid
+    cap_p = probe_cols[0][0].shape[0]
+    n = cap_p + build_cols[0][0].shape[0]
+    p_packed = b_packed = None
+    for (pd, _), (bd, _) in zip(probe_cols, build_cols):
+        u = dense_ranks(torch.cat([order_key(pd), order_key(bd)]))
+        if p_packed is None:
+            p_packed, b_packed = u[:cap_p], u[cap_p:]
+        else:
+            both = dense_ranks(torch.cat([p_packed, b_packed]) * n + u)
+            p_packed, b_packed = both[:cap_p], both[cap_p:]
+    return p_packed, p_valid, b_packed, b_valid
+
+
+def join_match(
+    build_key: torch.Tensor,
+    build_active: torch.Tensor,
+    probe_key: torch.Tensor,
+    probe_active: torch.Tensor,
+):
+    """Sorted-build matching: returns (perm_b, lo, hi, count) where sorted
+    build rows [lo, hi) match each probe row (int32 lo/hi/count, as in the
+    reference).
+
+    Build rows sort by key, inactive rows keyed INT64_MAX and after active
+    rows of the same key, ties in row order. ``lo``/``hi`` are binary
+    searches into the sorted keys capped at the active count, so a probe
+    key that equals INT64_MAX never matches the inactive tail."""
+    key_norm = torch.where(build_active, build_key, INT64_MAX)
+    perm_b = _stable_argsort((~build_active).to(torch.int8))
+    perm_b = perm_b[_stable_argsort(key_norm[perm_b])]
+    sorted_keys = key_norm[perm_b].contiguous()
+    n_active = build_active.sum()
+    q = probe_key.to(torch.int64).contiguous()
+    lo = torch.minimum(torch.searchsorted(sorted_keys, q), n_active)
+    hi = torch.minimum(torch.searchsorted(sorted_keys, q, right=True), n_active)
+    count = torch.where(probe_active, (hi - lo).clamp(min=0), 0)
+    return perm_b, lo.to(torch.int32), hi.to(torch.int32), count.to(torch.int32)
+
+
+def expand_probe_slots(emit: torch.Tensor, out_capacity: int):
+    """Slot assignment of the rank-space match expansion, shared by the
+    sort-based join (:func:`expand_matches`) and the hash-probe path
+    (``ops/megakernels.py``): both must place probe row i's output rows at
+    the same slots.
+
+    Returns (probe_idx, d, out_active, total): ``probe_idx[p]`` is the last
+    probe row i with ``start[i] <= p`` (zero-emit ties resolve to the larger
+    i), ``d[p]`` the ordinal of slot p within that row's emission,
+    ``out_active[p]`` whether p < total, and ``total`` (a 0-d tensor) the
+    number of output rows. Offsets are int64, so no count overflows."""
+    emit64 = emit.to(torch.int64)
+    start = torch.cumsum(emit64, 0) - emit64
+    total = emit64.sum()
+    p = torch.arange(out_capacity, device=emit.device)
+    probe_idx = torch.searchsorted(start, p, right=True) - 1
+    probe_idx = probe_idx.clamp(0, start.shape[0] - 1)
+    d = p - start[probe_idx]
+    return probe_idx, d, p < total, total
+
+
+def expand_matches(
+    emit: torch.Tensor,
+    match_count: torch.Tensor,
+    lo: torch.Tensor,
+    perm_b: torch.Tensor,
+    out_capacity: int,
+):
+    """Rank-space expansion of 1:N matches into a static output capacity.
+
+    Returns (probe_idx, build_pos, matched, out_active, total): the probe
+    row and build row (original index) of each output slot, False
+    ``matched`` for null-padded (outer) slots, and the slot activity."""
+    probe_idx, d, out_active, total = expand_probe_slots(emit, out_capacity)
+    matched = d < match_count[probe_idx]
+    build_sorted_pos = (lo[probe_idx].to(torch.int64) + d).clamp(0, perm_b.shape[0] - 1)
+    build_pos = perm_b[build_sorted_pos]
+    return probe_idx, build_pos, matched, out_active, total
+
+
+# --------------------------------------------------------------------------- #
+# sort / topn / limit
+# --------------------------------------------------------------------------- #
+
+
+def topn_perm(
+    sort_keys: Sequence[torch.Tensor],
+    active: torch.Tensor,
+    count: Optional[int] = None,
+):
+    """Full-sort permutation + output active mask (the first
+    min(count, active rows) rows)."""
+    perm = lexsort_perm(list(sort_keys), active)
+    n_active = active.sum()
+    idx = torch.arange(active.shape[0], device=active.device)
+    limit = n_active if count is None else torch.clamp(n_active, max=count)
+    return perm, idx < limit
 
 
 def limit_mask(active: torch.Tensor, count: int, offset: int = 0) -> torch.Tensor:

@@ -1,0 +1,156 @@
+"""Fused hash join and sort-path aggregation on the Hopper kernels.
+
+The port's counterpart of ``trino_tpu.ops.megakernels``. The reference runs
+each phase as one Pallas launch over a traced body; here each phase is one
+hand-written CUDA kernel (``ops/hopper_kernels.py``) followed by the stages
+of the reference's body that stay torch operators:
+
+- :func:`probe_phase`: ``hash_probe`` builds the [B+1, C] bucket table of
+  the build side and counts each probe row's matches, retrying once at a
+  wider slot class when a bucket overflows and declining (``bucket_skew``)
+  past :data:`TABLE_ENTRY_LIMIT`.
+- :func:`expand_phase`: ``hash_expand`` resolves each output slot's probe
+  and build row and gathers both sides' columns; the fused projection, the
+  direct-indexed aggregation and the presorted grouping then run on the
+  joined page as the executor's torch operators.
+- :func:`aggregate_phase`: the sort-path reduction (``_aggregate_impl``),
+  whose integer sums and counts run in ``segment_sum``.
+
+Bit identity with the serial join follows the reference's argument: slot
+assignment is ``kernels.expand_probe_slots`` on both paths, and each bucket
+holds its build rows in ascending row order, which within equal keys is the
+serial path's stable sort order, so the d-th match of a probe row is the
+same build row on both paths.
+
+Not ported: the ``sort`` aggregation shape and the re-group after a
+presorted sortedness violation (``group_sort_phase``), the repartition
+``dest`` lane and ``fused_epilogue``. The executor declines the first two
+with the fallback reason ``group_sort_unported``.
+
+Counters are plain integers of this module: :data:`LAUNCHES` (one per phase
+run) and :data:`FALLBACKS` by reason. Kernel errors are never caught here:
+they raise through the query.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, Optional
+
+from . import hopper_kernels as HK
+from ..runtime.capstore import capacity_class
+from ..spi.page import Column, Page
+
+# initial slot width of a bucket; retried at the 4x-spaced class (base 8)
+# of the largest bucket when one overflows
+DEFAULT_BUCKET_CAP = 32
+# (B+1) * C entries beyond this mean pathological key skew: the join
+# declines to the serial path as ``bucket_skew``
+TABLE_ENTRY_LIMIT = 1 << 22
+
+LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0}
+FALLBACKS: Counter = Counter()
+
+
+def on_fallback(reason: str) -> None:
+    """One fragment declined the fused path; ``reason`` is the reference's
+    stable label (cross_join, join_kind, residual_filter, key_ndim,
+    bucket_skew) or the port's ``group_sort_unported``."""
+    FALLBACKS[reason] += 1
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    FALLBACKS.clear()
+
+
+def probe_phase(pkeys, bkeys, luts, probe_active, build_active,
+                left_outer: bool) -> Optional[Dict[str, object]]:
+    """Build the bucket table and count each probe row's matches.
+
+    B is ``capacity_class`` of the build capacity and C starts at
+    :data:`DEFAULT_BUCKET_CAP`. When the largest bucket holds more than C
+    rows (one host read of ``max_count``), the phase runs once more at
+    C = ``capacity_class(max_count, 8)``, unless the table would pass
+    :data:`TABLE_ENTRY_LIMIT`: then, or if the retry overflows too, it ticks
+    ``bucket_skew`` and returns None. Otherwise returns the expand phase's
+    inputs (``table``, ``counts``, ``bucket_p``, ``count``, ``emit``) and
+    ``C``."""
+    B = capacity_class(int(build_active.shape[0]))
+    C = DEFAULT_BUCKET_CAP
+    for _attempt in range(2):
+        out = HK.hash_probe(pkeys, bkeys, luts, probe_active, build_active, B, C, left_outer)
+        LAUNCHES["probe"] += 1
+        need = int(out["max_count"])
+        if need <= C:
+            out["C"] = C
+            return out
+        C = capacity_class(need, base=8)
+        if (B + 1) * C > TABLE_ENTRY_LIMIT:
+            on_fallback("bucket_skew")
+            return None
+    on_fallback("bucket_skew")
+    return None
+
+
+def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page: Page,
+                 out_capacity: int, symbols, proj_spec, agg_spec):
+    """Expand the join into ``out_capacity`` slots, then run the fused
+    stages on the joined page (symbols ``symbols``, probe columns first).
+
+    ``proj_spec``: None or ``(compiled, out_symbols)``, the projection's
+    compiled closures as the executor's ``_project_impl`` takes them.
+    ``agg_spec``: None, ``("direct", (group_keys, aggregations, domains,
+    agg_symbols, mode))`` or ``("presorted", (group_keys, needed,
+    agg_symbols))``. Returns the joined (or aggregated) page; for
+    ``presorted``, ``(joined, grouped_page, new_group, num_groups,
+    violation)`` as ``_presorted_group_impl`` gives them."""
+    from ..runtime import executor as E
+
+    pr = probe_result
+    probe_out, build_out, out_active = HK.hash_expand(
+        pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"],
+        pkeys, bkeys, luts, probe_page.active,
+        [(c.data, c.valid) for c in probe_page.columns],
+        [(c.data, c.valid) for c in build_page.columns],
+        out_capacity,
+    )
+    LAUNCHES["expand"] += 1
+    cols = tuple(
+        Column(c.type, d, v, c.dictionary)
+        for c, (d, v) in zip(
+            probe_page.columns + build_page.columns, probe_out + build_out
+        )
+    )
+    out = Page(cols, out_active)
+    if proj_spec is not None:
+        compiled, _ = proj_spec
+        out = E._project_impl(compiled, E.Relation(out, symbols).env(), out)
+    if agg_spec is None:
+        return out
+    mode, payload = agg_spec
+    if mode == "direct":
+        group_keys, aggregations, domains, agg_symbols, kernel_mode = payload
+        return E._direct_aggregate(
+            group_keys, aggregations, domains, E.Relation(out, agg_symbols), kernel_mode
+        )
+    if mode != "presorted":
+        raise ValueError(f"expand_phase: aggregation shape {mode!r} is not ported")
+    group_keys, needed, agg_symbols = payload
+    p, ng, n_grp, viol = E._presorted_group_impl(group_keys, needed, agg_symbols, out)
+    return out, p, ng, n_grp, viol
+
+
+def aggregate_phase(group_keys, aggregations, needed, out_cap: int,
+                    sorted_page: Page, new_group, num_groups) -> Page:
+    """The sort-path reduction over a group-sorted page: the executor's
+    ``_aggregate_impl`` with its integer sums and counts in the
+    ``segment_sum`` kernel."""
+    from ..runtime import executor as E
+
+    LAUNCHES["aggregate"] += 1
+    return E._aggregate_impl(
+        group_keys, aggregations, needed, out_cap, sorted_page, new_group,
+        num_groups, segment_kernel=True,
+    )

@@ -1,22 +1,28 @@
 """Plan executor: evaluates optimized plans as torch operators.
 
-The port's counterpart of ``trino_tpu.runtime.executor`` for this slice's
-nodes: TableScan, Filter, Project, Aggregation (the direct-indexed strategy
-and the keyless global strategy), Sort, Limit and Output. Every other node
-raises ``NotImplementedError`` naming it. Each operator is a whole-relation
+The port's counterpart of ``trino_tpu.runtime.executor`` for the nodes the
+port runs: TableScan, Filter, Project, Join (INNER and LEFT equi-joins,
+RIGHT by swapping sides), Aggregation (direct-indexed, sort-path and keyless
+global), Sort, TopN, Limit and Output. Every other node raises
+``NotImplementedError`` naming it. Each operator is a whole-relation
 transform Page -> Page with the reference's pad-and-mask semantics: filters
 AND into ``active``, and only pipeline breakers compact.
 
 PyTorch runs eagerly, so where the reference builds one jitted program per
 operator, an operator here is a sequence of kernel launches on the pages'
-device. Host syncs stay where the reference has them (compaction and sort
-row counts).
+device. Host syncs stay where the reference has them (compaction, join
+output sizes, group counts, sortedness checks, dynamic-filter ranges).
+
+The megakernel plane (``pallas_fusion``, on by default in the port) runs
+joins, and joins feeding an aggregation, through ``ops/megakernels.py``'s
+hash-join kernels. Unlike the reference it catches no kernel error: a
+failed launch raises through the query.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +32,14 @@ from .._unported import unported
 from ..metadata import Metadata, Session
 from ..ops import hopper_kernels as HK
 from ..ops import kernels as K
-from ..ops.compiler import CVal, ColumnLayout, compile_expression
+from ..ops import megakernels as MK
+from ..ops.compiler import (
+    CVal,
+    ColumnLayout,
+    compile_expression,
+    megakernel_key_check,
+    plan_megakernel,
+)
 from ..spi.page import Column, Dictionary, Page
 from ..spi.types import (
     BIGINT,
@@ -36,11 +49,15 @@ from ..spi.types import (
     is_floating,
     is_string,
 )
+from ..sql.ir import Call as IrCall
+from ..sql.ir import Constant as IrConstant
 from ..sql.ir import Reference
 from ..planner.plan import (
     Aggregation,
     AggregationNode,
     FilterNode,
+    JoinKind,
+    JoinNode,
     LimitNode,
     LogicalPlan,
     OutputNode,
@@ -48,6 +65,7 @@ from ..planner.plan import (
     ProjectNode,
     SortNode,
     TableScanNode,
+    TopNNode,
 )
 
 
@@ -164,39 +182,33 @@ class PlanExecutor:
         return Relation(page, rel.symbols, rel.sorted_by)
 
     def _exec_ProjectNode(self, node: ProjectNode) -> Relation:
-        rel = self.eval(node.source)
-        layout, env = rel.layout(), rel.env()
-        cols = []
-        symbols = []
-        alias_of = {}  # input symbol -> output symbol (identity projections)
-        for sym, expr in node.assignments:
-            fn, out_dict = compile_expression(
-                expr, layout, rel.capacity, rel.page.device
-            )
-            type_ = self.types.get(sym) or expr.type
-            v = fn(env)
-            data = v.data if v.data.dtype == type_.torch_dtype else v.data.to(
-                type_.torch_dtype
-            )
-            cols.append(Column(type_, data, v.valid, v.dictionary or out_dict))
-            symbols.append(sym)
-            if isinstance(expr, Reference):
-                alias_of[expr.symbol] = sym
-        sorted_by = []
-        for s in rel.sorted_by:
-            out = alias_of.get(s)
-            if out is None:
-                break
-            sorted_by.append(out)
+        return self._project_relation(node, self.eval(node.source))
+
+    def _project_relation(self, node: ProjectNode, rel: Relation) -> Relation:
+        compiled = self._compile_projection(node, rel, rel.capacity)
+        page = _project_impl(compiled, rel.env(), rel.page)
         return Relation(
-            Page(tuple(cols), rel.page.active), tuple(symbols), tuple(sorted_by)
+            page, tuple(s for s, _ in node.assignments),
+            _projected_order(node, rel.sorted_by),
         )
+
+    def _compile_projection(self, node: ProjectNode, rel: Relation, capacity: int):
+        """(closure, type, dictionary) per assignment, for ``_project_impl``."""
+        layout = rel.layout()
+        compiled = []
+        for sym, expr in node.assignments:
+            fn, out_dict = compile_expression(expr, layout, capacity, rel.page.device)
+            compiled.append((fn, self.types.get(sym) or expr.type, out_dict))
+        return tuple(compiled)
 
     # ----------------------------------------------------------- aggregation
 
     def _exec_AggregationNode(self, node: AggregationNode) -> Relation:
         if any(a.distinct for _, a in node.aggregations):
             unported("DISTINCT aggregation")
+        fused = self._try_fused_join_aggregate(node)
+        if fused is not None:
+            return fused
         rel = self.eval(node.source)
         return aggregate_relation(rel, node, self._kernel_mode())
 
@@ -213,23 +225,378 @@ class PlanExecutor:
 
     def _exec_SortNode(self, node: SortNode) -> Relation:
         rel = _maybe_compact(self.eval(node.source))
-        keys = []
-        for o in node.orderings:
-            c = rel.column_for(o.symbol)
-            keys.extend(K.encode_sort_columns(c.data, c.valid, o.ascending, o.nulls_first))
-        perm = K.lexsort_perm(keys, rel.page.active)
-        n_active = rel.page.active.sum()
-        idx = torch.arange(rel.capacity, device=rel.page.device)
-        cols = tuple(
-            Column(c.type, c.data[perm], c.valid[perm], c.dictionary)
-            for c in rel.page.columns
-        )
-        return Relation(Page(cols, idx < n_active), rel.symbols)
+        return Relation(_sort_impl(node.orderings, rel, None), rel.symbols)
+
+    def _exec_TopNNode(self, node: TopNNode) -> Relation:
+        rel = _maybe_compact(self.eval(node.source))
+        return Relation(_sort_impl(node.orderings, rel, node.count), rel.symbols)
 
     def _exec_LimitNode(self, node: LimitNode) -> Relation:
         rel = self.eval(node.source)
         keep = K.limit_mask(rel.page.active, node.count, node.offset)
         return Relation(rel.page.mask(keep), rel.symbols)
+
+    # ----------------------------------------------------------------- joins
+
+    def _exec_JoinNode(self, node: JoinNode) -> Relation:
+        left, right = self._join_inputs(node)
+        return self._join_relations(node, left, right)
+
+    def _join_inputs(self, node: JoinNode) -> Tuple[Relation, Relation]:
+        """The join preamble shared by the serial and fused paths: dynamic
+        filtering (an INNER join evaluates its build side first and ANDs the
+        build keys' min/max range into the probe side as a filter), then
+        compaction of both inputs."""
+        if node.kind == JoinKind.FULL:
+            unported("FULL join")
+        if node.kind == JoinKind.CROSS or not node.criteria:
+            unported("CROSS join (a join without an equi-join criterion)")
+        if node.filter is not None:
+            unported("join with a non-equi residual filter")
+        if self._spill_threshold():
+            unported("operator-state spill (spill_operator_threshold_bytes)")
+        if node.kind == JoinKind.INNER and self.session.get("enable_dynamic_filtering"):
+            right = self.eval(node.right)
+            predicate = self._dynamic_filter_predicate(node, right)
+            if predicate is not None:
+                left = self.eval(FilterNode(source=node.left, predicate=predicate))
+            else:
+                left = self.eval(node.left)
+        else:
+            left = self.eval(node.left)
+            right = self.eval(node.right)
+        return _maybe_compact(left), _maybe_compact(right)
+
+    def _spill_threshold(self) -> int:
+        try:
+            return int(self.session.get("spill_operator_threshold_bytes") or 0)
+        except KeyError:
+            return 0
+
+    def _dynamic_filter_predicate(self, node: JoinNode, build: Relation):
+        """min/max range of the build keys as an IR predicate on the probe
+        symbols (string keys skipped: code spaces differ across
+        dictionaries); None when no key has an active non-NULL build row."""
+        conjuncts = []
+        for probe_sym, build_sym in node.criteria:
+            bc = build.column_for(build_sym)
+            if is_string(bc.type):
+                continue
+            w = build.page.active & bc.valid
+            if int(w.sum()) == 0:
+                continue
+            lo = torch.where(w, bc.data, bc.data.max()).min().item()
+            hi = torch.where(w, bc.data, bc.data.min()).max().item()
+            ref = Reference(probe_sym, self.types[probe_sym])
+            conjuncts.append(IrCall("$and", (
+                IrCall("$gte", (ref, IrConstant(bc.type, lo)), BOOLEAN),
+                IrCall("$lte", (ref, IrConstant(bc.type, hi)), BOOLEAN),
+            ), BOOLEAN))
+        if not conjuncts:
+            return None
+        pred = conjuncts[0]
+        for c in conjuncts[1:]:
+            pred = IrCall("$and", (pred, c), BOOLEAN)
+        return pred
+
+    def _join_sides(self, node: JoinNode, left: Relation, right: Relation):
+        """RIGHT-swap and key/LUT extraction shared by the serial and fused
+        joins: (kind, node, probe, build, pkeys, bkeys, luts), RIGHT
+        normalized to LEFT with the sides swapped (output symbols are looked
+        up by name, so the swap is free)."""
+        kind = node.kind
+        if kind == JoinKind.RIGHT:
+            node = JoinNode(
+                left=node.right, right=node.left, kind=JoinKind.LEFT,
+                criteria=tuple((r, l) for l, r in node.criteria),
+                filter=node.filter, distribution=node.distribution,
+            )
+            left, right = right, left
+            kind = JoinKind.LEFT
+        probe, build = left, right
+        pkeys = tuple(
+            (probe.column_for(l).data, probe.column_for(l).valid) for l, _ in node.criteria
+        )
+        bkeys = tuple(
+            (build.column_for(r).data, build.column_for(r).valid) for _, r in node.criteria
+        )
+        luts = tuple(
+            _translate_lut(probe.column_for(l).dictionary, build.column_for(r).dictionary,
+                           probe.page.device)
+            for l, r in node.criteria
+        )
+        return kind, node, probe, build, pkeys, bkeys, luts
+
+    def _join_relations(self, node: JoinNode, left: Relation, right: Relation,
+                        allow_fusion: bool = True) -> Relation:
+        kind, node, probe, build, pkeys, bkeys, luts = self._join_sides(node, left, right)
+        if allow_fusion and self._fusion_enabled():
+            rel = self._try_fused_join(kind, node, probe, build, pkeys, bkeys, luts)
+            if rel is not None:
+                return rel
+        left_outer = kind == JoinKind.LEFT
+        emit, count, lo, perm_b = _join_match(
+            left_outer, pkeys, bkeys, luts, probe.page.active, build.page.active
+        )
+        out_capacity = self._choose_join_capacity(emit)
+        page = _join_expand(out_capacity, emit, count, lo, perm_b, probe.page, build.page)
+        # the expansion is probe-major, so the probe side's order survives
+        return Relation(page, probe.symbols + build.symbols, probe.sorted_by)
+
+    def _choose_join_capacity(self, emit) -> int:
+        """Join output capacity: host-sync the exact emitted row count."""
+        return _round_capacity(max(int(emit.sum()), 1))
+
+    # ------------------------------------------------------- megakernel plane
+
+    def _fusion_enabled(self) -> bool:
+        """The ``pallas_fusion`` session gate (default on in the port:
+        ``knobs.py``)."""
+        try:
+            return bool(self.session.get("pallas_fusion"))
+        except KeyError:
+            return False
+
+    def _fused_join_spec(self, kind, node: JoinNode, probe, build, pkeys, bkeys):
+        """Shape gate: compiler recognition plus the physical key check.
+        Returns the MegakernelSpec, or None after a fallback tick."""
+        spec, reason = plan_megakernel(
+            kind, node.criteria, node.filter is not None, probe.page, build.page
+        )
+        if spec is None:
+            MK.on_fallback(reason)
+            return None
+        for cols in (pkeys, bkeys):
+            ok, reason = megakernel_key_check(cols)
+            if not ok:
+                MK.on_fallback(reason)
+                return None
+        return spec
+
+    def _try_fused_join(self, kind, node: JoinNode, probe: Relation, build: Relation,
+                        pkeys, bkeys, luts) -> Optional[Relation]:
+        """The join through the hash-join kernels: probe phase, the output
+        size (the serial join's host sync), expand phase. Returns None after
+        a fallback tick (shape or bucket skew); a kernel error raises."""
+        spec = self._fused_join_spec(kind, node, probe, build, pkeys, bkeys)
+        if spec is None:
+            return None
+        pr = MK.probe_phase(
+            pkeys, bkeys, luts, probe.page.active, build.page.active, spec.left_outer
+        )
+        if pr is None:
+            return None
+        out_capacity = self._choose_join_capacity(pr["emit"])
+        symbols = probe.symbols + build.symbols
+        page = MK.expand_phase(
+            pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity, symbols,
+            None, None,
+        )
+        return Relation(page, symbols, probe.sorted_by)
+
+    def _try_fused_join_aggregate(self, node: AggregationNode) -> Optional[Relation]:
+        """join -> [project] -> grouped aggregation through the kernels.
+
+        The group strategy mirrors ``aggregate_relation``: direct-indexed
+        keys aggregate on the joined page with the grouped-sum kernels;
+        other keys take the presorted path when the joined page is ordered
+        on the first group key (probe-major expansion keeps the probe
+        side's order), then the segment-sum reduction. The ``sort`` shape,
+        and a presorted page whose sortedness check fails, need
+        ``group_sort_phase``, which is not ported: they count the fallback
+        ``group_sort_unported`` and finish serially. Unlike the reference,
+        the ``pallas_aggregation`` mode does not gate this path (the port's
+        stages are separate launches, not one kernel). Returns None when the
+        shape is not a join under a grouped aggregation."""
+        if not self._fusion_enabled():
+            return None
+        proj = None
+        src = node.source
+        if isinstance(src, ProjectNode) and isinstance(src.source, JoinNode):
+            proj, src = src, src.source
+        if not isinstance(src, JoinNode) or not node.group_keys:
+            return None
+        if any(a.ordering for _, a in node.aggregations):
+            return None
+        left, right = self._join_inputs(src)
+        kind, src_n, probe, build, pkeys, bkeys, luts = self._join_sides(src, left, right)
+
+        def serial_finish() -> Relation:
+            join_rel = self._join_relations(src, left, right, allow_fusion=False)
+            return self._serial_agg_finish(node, proj, join_rel)
+
+        spec = self._fused_join_spec(kind, src_n, probe, build, pkeys, bkeys)
+        if spec is None:
+            return serial_finish()
+        base_symbols = probe.symbols + build.symbols
+        view = Relation(
+            Page(tuple(probe.page.columns) + tuple(build.page.columns), probe.page.active),
+            base_symbols, probe.sorted_by,
+        )
+        if proj is not None:
+            post_symbols = tuple(s for s, _ in proj.assignments)
+            key_sources = {
+                s: view.column_for(e.symbol)
+                for s, e in proj.assignments if isinstance(e, Reference)
+            }
+            post_sorted = _projected_order(proj, view.sorted_by)
+        else:
+            post_symbols = base_symbols
+            key_sources = {
+                s: view.column_for(s) for s in node.group_keys if s in base_symbols
+            }
+            post_sorted = view.sorted_by
+        agg_symbols = node.group_keys + tuple(s for s, _ in node.aggregations)
+        domains = None
+        if all(k in key_sources for k in node.group_keys):
+            domains = _direct_agg_domains(_KeyView(key_sources), node)
+        needed = _needed_agg_symbols(node)
+        presorted = bool(post_sorted) and post_sorted[0] == node.group_keys[0]
+        if domains is None and not presorted:
+            MK.on_fallback("group_sort_unported")
+            return serial_finish()
+
+        pr = MK.probe_phase(
+            pkeys, bkeys, luts, probe.page.active, build.page.active, spec.left_outer
+        )
+        if pr is None:
+            return serial_finish()
+        out_capacity = self._choose_join_capacity(pr["emit"])
+        proj_spec = None
+        if proj is not None:
+            proj_spec = (self._compile_projection(proj, view, out_capacity), post_symbols)
+        if domains is not None:
+            agg_spec = ("direct", (
+                node.group_keys, node.aggregations, domains, post_symbols,
+                self._kernel_mode(),
+            ))
+            page = MK.expand_phase(
+                pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity,
+                base_symbols, proj_spec, agg_spec,
+            )
+            return Relation(page, agg_symbols)
+        agg_spec = ("presorted", (node.group_keys, needed, post_symbols))
+        joined, p, ng, n_grp, viol = MK.expand_phase(
+            pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity,
+            base_symbols, proj_spec, agg_spec,
+        )
+        if bool(viol):
+            MK.on_fallback("group_sort_unported")
+            return aggregate_relation(
+                Relation(joined, post_symbols), node, self._kernel_mode()
+            )
+        # the group-count host sync the serial sort path performs
+        out_cap = min(_round_capacity(max(int(n_grp), 1), base=16), max(out_capacity, 16))
+        page = MK.aggregate_phase(
+            node.group_keys, node.aggregations, needed, out_cap, p, ng, n_grp
+        )
+        return Relation(page, agg_symbols)
+
+    def _serial_agg_finish(self, node: AggregationNode, proj, join_rel: Relation) -> Relation:
+        """Finish a declined fused join+aggregation on the serial path
+        without evaluating the join inputs again."""
+        rel = join_rel if proj is None else self._project_relation(proj, join_rel)
+        return aggregate_relation(rel, node, self._kernel_mode())
+
+
+# --------------------------------------------------------------------------- #
+# operator bodies
+# --------------------------------------------------------------------------- #
+
+
+class _KeyView:
+    """``column_for`` over resolved group-key source columns: the direct
+    domain computation reads only the key columns' type and dictionary, so
+    the fused path can run it before the joined page exists."""
+
+    def __init__(self, cols: Dict[str, Column]):
+        self._cols = cols
+
+    def column_for(self, symbol: str) -> Column:
+        return self._cols[symbol]
+
+
+def _projected_order(node: ProjectNode, sorted_by: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The input ordering a projection carries through: the leading sort
+    symbols that it projects as they are, renamed."""
+    alias_of = {e.symbol: s for s, e in node.assignments if isinstance(e, Reference)}
+    out = []
+    for s in sorted_by:
+        if s not in alias_of:
+            break
+        out.append(alias_of[s])
+    return tuple(out)
+
+
+def _project_impl(compiled, env: Dict[str, CVal], page: Page) -> Page:
+    cols = []
+    for fn, type_, out_dict in compiled:
+        v = fn(env)
+        dt = type_.torch_dtype
+        data = v.data if v.data.dtype == dt else v.data.to(dt)
+        cols.append(Column(type_, data, v.valid, v.dictionary or out_dict))
+    return Page(tuple(cols), page.active)
+
+
+def _permute_column(c: Column, perm) -> Column:
+    return Column(c.type, c.data[perm], c.valid[perm], c.dictionary)
+
+
+def _translate_lut(from_dict, to_dict, device):
+    """LUT translating codes of ``from_dict`` into ``to_dict``'s code space
+    (exact match; unmatched -> -1, which never equals a real code), or None
+    when the key is not a string in two different dictionaries."""
+    if from_dict is None or to_dict is None or from_dict is to_dict:
+        return None
+    lut = np.array([to_dict.code_of(s) for s in from_dict.values], dtype=np.int64)
+    return torch.as_tensor(lut, device=device)
+
+
+def _join_match(left_outer: bool, pkeys, bkeys, luts, probe_active, build_active):
+    """Serial join, phase 1 (the reference's ``_jit_join_match``): key
+    normalization, sorted-build matching, emit counts."""
+    aligned = []
+    for (pd, pv), lut in zip(pkeys, luts):
+        if lut is not None:
+            pd = lut[pd.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+            pv = pv & (pd >= 0)
+        aligned.append((pd, pv))
+    probe_key, probe_valid, build_key, build_valid = K.pack_key_pair(aligned, list(bkeys))
+    perm_b, lo, hi, count = K.join_match(
+        build_key, build_active & build_valid, probe_key, probe_active & probe_valid
+    )
+    emit = torch.where(probe_active, count.clamp(min=1), 0).to(torch.int32) if left_outer else count
+    return emit, count, lo, perm_b
+
+
+def _join_expand(out_capacity: int, emit, count, lo, perm_b,
+                 probe_page: Page, build_page: Page) -> Page:
+    """Serial join, phase 2 (the reference's ``_jit_join_expand``): probe
+    and build columns gathered per output slot, build validity AND
+    matched."""
+    probe_idx, build_pos, matched, out_active, _ = K.expand_matches(
+        emit, count, lo, perm_b, out_capacity
+    )
+    cols = [_permute_column(c, probe_idx) for c in probe_page.columns]
+    for c in build_page.columns:
+        pc = _permute_column(c, build_pos)
+        cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
+    return Page(tuple(cols), out_active)
+
+
+def _sort_impl(orderings, rel: Relation, count: Optional[int]) -> Page:
+    """Sort (``count`` None) or TopN: the full-sort permutation, cut to
+    ``count`` rows before the gathers."""
+    keys = []
+    for o in orderings:
+        c = rel.column_for(o.symbol)
+        keys.extend(K.encode_sort_columns(c.data, c.valid, o.ascending, o.nulls_first))
+    perm, out_active = K.topn_perm(keys, rel.page.active, count)
+    if count is not None:
+        n = min(count, rel.capacity)
+        perm, out_active = perm[:n], out_active[:n]
+    cols = tuple(_permute_column(c, perm) for c in rel.page.columns)
+    return Page(cols, out_active)
 
 
 # --------------------------------------------------------------------------- #
@@ -385,33 +752,182 @@ def _direct_agg_domains(rel: Relation, node: AggregationNode):
     return tuple(domains)
 
 
+def _needed_agg_symbols(node: AggregationNode) -> Tuple[str, ...]:
+    """Group keys, then every aggregate argument and filter, each once."""
+    needed: List[str] = []
+    for k in node.group_keys:
+        if k not in needed:
+            needed.append(k)
+    for _, a in node.aggregations:
+        for s in a.args:
+            if s not in needed:
+                needed.append(s)
+        if a.filter and a.filter not in needed:
+            needed.append(a.filter)
+    return tuple(needed)
+
+
 def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off") -> Relation:
-    """Grouped aggregation. Small static key domains take the direct-indexed
-    strategy (gid computed elementwise, no sort); the keyless global
-    aggregation reduces the (compacted) relation to one row. The sort-path
-    strategy for other keys is not ported yet."""
+    """Grouped aggregation, the reference's strategies:
+
+    - direct-indexed (small static key domains): gid computed elementwise,
+      no sort; integer sums and counts in the grouped-sum kernels unless
+      ``mode`` is ``off``;
+    - sort path: the presorted grouping when the input is ordered on the
+      first group key and its self-check passes, else a stable co-sort by
+      the group keys; a host sync of the group count sizes the output, and
+      the reduction is ``_aggregate_impl`` in its plain form;
+    - keyless global: the compacted relation reduced to one row."""
     out_symbols = node.group_keys + tuple(s for s, _ in node.aggregations)
     domains = _direct_agg_domains(rel, node)
     if domains is not None:
         page = _direct_aggregate(node.group_keys, node.aggregations, domains, rel, mode)
         return Relation(page, out_symbols)
-    if node.group_keys:
-        unported("sort-path grouped aggregation")
     if any(a.ordering for _, a in node.aggregations):
         unported("aggregate ORDER BY")
     rel = _maybe_compact(rel)
-    active = rel.page.active
+    needed = _needed_agg_symbols(node)
+    if node.group_keys:
+        sorted_page = None
+        if rel.sorted_by and rel.sorted_by[0] == node.group_keys[0]:
+            p, ng, n_grp, viol = _presorted_group_impl(
+                node.group_keys, needed, rel.symbols, rel.page
+            )
+            if not bool(viol):
+                sorted_page, new_group, num_groups = p, ng, n_grp
+        if sorted_page is None:
+            sorted_page, new_group, num_groups = _group_sort_impl(
+                node.group_keys, needed, rel.symbols, rel.page
+            )
+        out_cap = min(
+            _round_capacity(max(int(num_groups), 1), base=16), max(rel.capacity, 16)
+        )
+    else:
+        sorted_page = Page(tuple(rel.column_for(s) for s in needed), rel.page.active)
+        new_group, num_groups, out_cap = None, 1, 1
+    page = _aggregate_impl(
+        node.group_keys, node.aggregations, needed, out_cap, sorted_page, new_group,
+        num_groups,
+    )
+    return Relation(page, out_symbols)
+
+
+def _presorted_group_impl(group_keys, needed, symbols, page: Page):
+    """Grouping without sorting for a page ordered on the first group key:
+    rows stay in place, and inactive rows may be interleaved (the
+    last-active-row scan bridges them). Returns (page over ``needed``,
+    new_group, num_groups, violation); ``violation`` (a 0-d bool) is set
+    when an active row's first key decreases or a later key changes inside
+    a first-key run, and the caller then sorts instead."""
+    rel = Relation(page, symbols)
+    active = page.active
+    k1 = rel.column_for(group_keys[0])
+    k1n = torch.where(k1.valid, K.order_key(k1.data), K.INT64_MAX)
+    prev_k1, has_prev = K.last_active_prev(k1n, active)
+    new_group = active & (~has_prev | (k1n != prev_k1))
+    violation = (active & has_prev & (k1n < prev_k1)).any()
+    for k in group_keys[1:]:
+        c = rel.column_for(k)
+        kn = torch.where(c.valid, K.order_key(c.data), K.INT64_MAX)
+        prev_k, _ = K.last_active_prev(kn, active)
+        violation = violation | (active & has_prev & ~new_group & (kn != prev_k)).any()
+    num_groups = new_group.sum()
+    cols = tuple(rel.column_for(s) for s in needed)
+    return Page(cols, active), new_group, num_groups, violation
+
+
+def _group_sort_impl(group_keys, needed, symbols, page: Page):
+    """Co-sort the ``needed`` columns by the group keys (within a key, NULL
+    before values; inactive rows last) and mark group boundaries. Returns (sorted
+    page over ``needed``, new_group, num_groups)."""
+    rel = Relation(page, symbols)
+    pass_keys: List[torch.Tensor] = []
+    # least significant first; each key sorts by value, then by validity
+    for k in reversed(group_keys):
+        c = rel.column_for(k)
+        if c.data.ndim == 2:
+            unported("ops.int128 (long decimal group keys)")
+        pass_keys.append(torch.where(c.valid, K.order_key(c.data), K.INT64_MAX))
+        pass_keys.append(c.valid.to(torch.int8))
+    pass_keys.append((~page.active).to(torch.int8))
+    payloads: List[torch.Tensor] = []
+    for s in needed:
+        c = rel.column_for(s)
+        payloads.extend((c.data, c.valid))
+    payloads.append(page.active)
+    sorted_keys, sorted_payloads = K.cosort(pass_keys, payloads)
+    active_s = sorted_payloads[-1]
+    diff = torch.zeros_like(active_s)
+    for k in sorted_keys[:-1]:
+        diff = diff | (k != torch.roll(k, 1))
+    first = torch.zeros_like(active_s)
+    first[0] = True
+    prev_active = torch.roll(active_s, 1)
+    prev_active[0] = False
+    new_group = active_s & (first | diff | ~prev_active)
+    cols = tuple(
+        Column(rel.column_for(s).type, sorted_payloads[2 * i], sorted_payloads[2 * i + 1],
+               rel.column_for(s).dictionary)
+        for i, s in enumerate(needed)
+    )
+    return Page(cols, active_s), new_group, new_group.sum()
+
+
+def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
+                    new_group, num_groups, segment_kernel: bool = False) -> Page:
+    """The sort-path (and keyless) reduction over a group-sorted page:
+    each group's key from its first row, and every aggregate from
+    ``reduce_fn``: sums and counts by cumsum at the group boundaries,
+    min/max by a scatter on the group index. With ``segment_kernel`` the
+    integer sums and counts run in ``hopper_kernels.segment_sum`` (the
+    fused path's ``aggregate_phase``)."""
+    rel = Relation(page, symbols)
+    active = page.active
+    device = active.device
+    if not group_keys:
+
+        def global_reduce(vals, w, kind):
+            return K.segment_reduce(vals, w, None, 1, kind)
+
+        cols = [
+            _eval_aggregate(rel, agg, active, 1, global_reduce, None)
+            for _, agg in aggregations
+        ]
+        # exactly one output row even over empty input
+        return Page(tuple(cols), torch.ones(1, dtype=torch.bool, device=device))
+
+    n = page.capacity
+    starts = K.boundary_positions(new_group, out_cap)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
+    safe_starts = starts.clamp(0, n - 1)
+    group_exists = torch.arange(out_cap, device=device) < num_groups
+    out_cols: List[Column] = []
+    for k in group_keys:
+        c = rel.column_for(k)
+        out_cols.append(Column(
+            c.type, c.data[safe_starts], c.valid[safe_starts] & group_exists, c.dictionary
+        ))
+    gid_memo: List[torch.Tensor] = []
+
+    def gid() -> torch.Tensor:
+        # dense group index per row; rows before the first group read 0
+        if not gid_memo:
+            gid_memo.append((K.cumsum(new_group) - 1).clamp(min=0))
+        return gid_memo[0]
 
     def reduce_fn(vals, w, kind):
-        return K.segment_reduce(vals, w, None, 1, kind)
+        if kind in ("sum", "count"):
+            if segment_kernel and (kind == "count" or not vals.dtype.is_floating_point):
+                return HK.segment_sum(w if kind == "count" else vals, w, starts)
+            return K.segment_reduce(vals, w, None, out_cap, kind, new_group, (starts, ends))
+        return K.segment_reduce(vals, w, gid(), out_cap, kind)
 
-    cols = [
-        _eval_aggregate(rel, agg, active, 1, reduce_fn, None)
-        for _, agg in node.aggregations
-    ]
-    # exactly one output row even over empty input
-    exists = torch.ones(1, dtype=torch.bool, device=active.device)
-    return Relation(Page(tuple(cols), exists), out_symbols)
+    def first_fn(vals, w):
+        return K.direct_group_first(vals, w, gid(), out_cap)
+
+    for _, agg in aggregations:
+        out_cols.append(_eval_aggregate(rel, agg, active, out_cap, reduce_fn, first_fn))
+    return Page(tuple(out_cols), group_exists)
 
 
 def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: str) -> Page:
