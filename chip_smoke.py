@@ -11,17 +11,22 @@ printed):
 2. Kernels against their plain torch versions on the card, bit-exact: each
    wrapper at its main path's shape (one lineitem page of TPC-H SF10: G = 12
    for the grouped sums; Q3's join sizes for the hash join; Q3's joined
-   rows for the segment sums) and at edge shapes, timed with CUDA events
-   beside its bytes bound, its plain version and, where one torch call
-   computes the same function, that call.
-3. TPC-H Q6, Q1 and Q3 at SF10 through ``LocalQueryRunner.tpch(scale=10)``
-   with the default session: the launch counts of each run (every count
-   set to 0 just before it), rows identical to the run with the kernel
-   tier off (``pallas_aggregation=off`` for Q6 and Q1, ``pallas_fusion=
-   false`` for Q3) and to an independent numpy computation over the port's
-   generator, no fallback of the fused path, and the wall seconds of each
-   query. Every kernel is also checked and timed on the inputs the queries
-   gave it (its real distributions); those times go in the kernels line.
+   rows for the segment sums; Q10's joined page for the group sort and the
+   repartition epilogue) and at edge shapes, timed with CUDA events beside
+   its bytes bound, its plain version and, where one torch call computes
+   the same function (or, for the two sorts, the one call that does their
+   sorting work: ``torch.sort`` of one int64 key), that call.
+3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
+   10)`` with the default session: the launch counts of each run (every
+   count set to 0 just before it), rows identical to the run with the
+   kernel tier off (``pallas_aggregation=off`` for Q6 and Q1,
+   ``pallas_fusion=false`` for Q3 and Q10) and to an independent numpy
+   computation over the port's generator, no fallback of the fused path,
+   Q10's fused phases (probe 3, expand 3, aggregate 1), and the wall
+   seconds of each query. Every kernel is also checked and timed on the
+   inputs the queries gave it (its real distributions; the repartition
+   epilogue, which no query calls, on Q10's joined page); those times go
+   in the kernels line.
 4. A ``kernels`` JSON line, then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +53,8 @@ HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 Q6_PRED = (8766, 9131, 5, 7, 2400)  # 1994-01-01, 1995-01-01, 0.05, 0.07, 24.00
 Q3_DATE = 9204  # 1995-03-15
+Q10_DATES = (8674, 8766)  # 1993-10-01, 1994-01-01
+Q10_PARTS = 8  # the engine's hash_partition_count default, for the epilogue
 # the texts of tests/tpch_corpus.py
 QUERIES = {
     "q06": """
@@ -87,15 +94,29 @@ QUERIES = {
         ORDER BY revenue DESC, o_orderdate, l_orderkey
         LIMIT 10
     """,
+    "q10": """
+        SELECT c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) AS revenue, c_acctbal
+        FROM customer, orders, lineitem, nation
+        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND o_orderdate >= DATE '1993-10-01' AND o_orderdate < DATE '1994-01-01'
+          AND l_returnflag = 'R' AND c_nationkey = n_nationkey
+        GROUP BY c_custkey, c_name, c_acctbal
+        ORDER BY revenue DESC, c_custkey
+        LIMIT 20
+    """,
 }
 # the kernel tier of each query, and the session that turns it off
 KERNELS_OF = {
     "q06": ("q6_fused",),
     "q01": ("grouped_sum_i64", "grouped_sum_i32"),
     "q03": ("hash_probe", "hash_expand", "segment_sum"),
+    "q10": ("hash_probe", "hash_expand", "group_sort", "segment_sum"),
 }
 OFF_SESSION = {"q06": ("pallas_aggregation", "off"), "q01": ("pallas_aggregation", "off"),
-               "q03": ("pallas_fusion", False)}
+               "q03": ("pallas_fusion", False), "q10": ("pallas_fusion", False)}
+# the fused phases each query must run (megakernels.LAUNCHES)
+PHASES_OF = {"q03": {"probe": 2, "expand": 2, "aggregate": 1},
+             "q10": {"probe": 3, "expand": 3, "aggregate": 1}}
 
 
 def fail(msg: str) -> None:
@@ -364,6 +385,172 @@ def segment_bound(args) -> tuple:
     return bound_ms(nbytes, 3 * n * max(starts.shape[0], 2).bit_length())
 
 
+# --------------------------------------------------------------------------- #
+# the group sort and the repartition epilogue: cases, checks, bounds
+# --------------------------------------------------------------------------- #
+
+Q10_SLOTS = 2_097_152  # Q10's joined page at SF10: about 1.2M active rows
+
+
+def q10_page(dev, gen):
+    """A page shaped like Q10's joined page at SF10: 2,097,152 slots, the
+    first 1,200,000 active, grouped on about 390,000 customers by
+    (c_custkey bigint, c_name int32 code = c_custkey - 1, c_acctbal
+    decimal(12,2)); the keys come from the join's build side, so they are
+    NULL on the inactive slots; then the revenue decimal(18,4). Returns
+    (key_cols, payload_cols, active)."""
+    n, groups = Q10_SLOTS, 390_000
+    cust = torch.randperm(1_500_000, generator=gen, device=dev)[:groups] + 1
+    acct = torch.randint(-99_999, 999_999, (1_500_001,), generator=gen, device=dev)
+    ck = cust[torch.randint(0, groups, (n,), generator=gen, device=dev)]
+    active = torch.arange(n, device=dev) < 1_200_000
+    keys = [(ck, active.clone()), ((ck - 1).to(torch.int32), active.clone()),
+            (acct[ck], active.clone())]
+    revenue = torch.randint(0, 10**11, (n,), generator=gen, device=dev)
+    return keys, list(keys) + [(revenue, active.clone())], active
+
+
+def group_sort_cases(dev):
+    """(label, key_cols, payload_cols, active) cases for group_sort; the
+    first has the shape of Q10's joined page at SF10."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rnd(n, lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
+
+    def mask(n, rate):
+        return torch.rand(n, generator=gen, device=dev) < rate
+
+    def case(label, keys, active):
+        n = active.shape[0]
+        vals = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        vals[rnd(n, 0, n)[:16]] = float("nan")
+        return label, keys, list(keys) + [(vals, mask(n, 0.9))], active
+
+    keys, payload, active = q10_page(dev, gen)
+    yield "Q10 shape n=%d, 3 keys" % Q10_SLOTS, keys, payload, active
+    n = 300_007
+    yield case("one key", [(rnd(n, 0, 5000), mask(n, 0.9))], mask(n, 0.8))
+    yield case("five keys (int64, int32, int16, bool, float32)", [
+        (rnd(n, 0, 6), mask(n, 0.95)), (rnd(n, -3, 3, torch.int32), mask(n, 0.95)),
+        (rnd(n, 0, 4, torch.int16), mask(n, 0.95)), (mask(n, 0.5), mask(n, 0.95)),
+        (rnd(n, 0, 5).to(torch.float32) / 2, mask(n, 0.95))], mask(n, 0.8))
+    pool = torch.tensor([-0.0, 0.0, -1.5, 2.5, float("nan"), float("-inf"), float("inf"),
+                         1e300, -3e-300], dtype=torch.float64, device=dev)
+    yield case("DOUBLE key with -0.0, negatives and NaN",
+               [(pool[rnd(n, 0, pool.shape[0])], mask(n, 0.9))], mask(n, 0.8))
+    edge = torch.tensor([-(2**63), 2**63 - 1, -1, 0, 1], device=dev)
+    yield case("INT64_MIN and INT64_MAX keys", [(edge[rnd(n, 0, 5)], mask(n, 0.9)),
+                                                (rnd(n, 0, 3), mask(n, 1.0))], mask(n, 0.8))
+    yield case("NULL keys", [(rnd(n, 0, 100), mask(n, 0.5)), (rnd(n, 0, 9), mask(n, 0.3))],
+               mask(n, 0.9))
+    yield case("inactive rows interleaved", [(rnd(n, 0, 1000), mask(n, 1.0))], mask(n, 0.5))
+    yield case("all rows inactive", [(rnd(n, 0, 1000), mask(n, 0.9))], mask(n, 0.0))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    yield case("one group", [(torch.full((n,), 7, device=dev), ones)], ones.clone())
+    yield case("all rows distinct", [(torch.randperm(n, generator=gen, device=dev), ones)],
+               mask(n, 0.9))
+    yield case("n=1", [(rnd(1, 0, 9), mask(1, 1.0))], mask(1, 1.0))
+
+
+def epilogue_cases(dev):
+    """(label, key_cols, luts, cols, active, n_parts) cases for
+    partition_epilogue; the first is the Q10-shaped page at the engine's
+    default partition count, its c_name key through a value-key LUT."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def rnd(n, lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
+
+    def mask(n, rate):
+        return torch.rand(n, generator=gen, device=dev) < rate
+
+    keys, payload, active = q10_page(dev, gen)
+    name_lut = rnd(1_500_000, -(2**63), 2**63 - 1)
+    yield ("Q10 shape n=%d, %d parts" % (Q10_SLOTS, Q10_PARTS), keys, [None, name_lut, None],
+           payload, active, Q10_PARTS)
+    n = 1_000_003
+    big = (rnd(n, -(2**63), 2**63 - 1), mask(n, 0.95))
+    code = (rnd(n, 0, 5000, torch.int32), mask(n, 0.9))
+    lut = rnd(5000, -(2**63), 2**63 - 1)
+    cols = [big, code, (torch.rand(n, generator=gen, device=dev, dtype=torch.float64),
+                        mask(n, 1.0))]
+    active = mask(n, 0.8)
+    for parts in (1, 8, 64, 1024):
+        yield f"bigint key, {parts} parts", [big], [None], cols, active, parts
+    yield "NULL keys", [(big[0], mask(n, 0.5))], [None], cols, active, 64
+    yield "a dictionary key", [code], [lut], cols, active, 64
+    yield "two keys", [big, code], [None, lut], cols, active, 1024
+    yield "no key", [], [], cols, active, 8
+    yield "all rows inactive", [big], [None], cols, mask(n, 0.0), 8
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Floats compared bit for bit (NaN, -0.0)."""
+    return {torch.float64: lambda: t.view(torch.int64),
+            torch.float32: lambda: t.view(torch.int32)}.get(t.dtype, lambda: t)()
+
+
+def same_cols(got, want) -> bool:
+    return len(got) == len(want) and all(
+        torch.equal(_bits(a), _bits(b)) and torch.equal(av, bv)
+        for (a, av), (b, bv) in zip(got, want))
+
+
+def same_group_sort(got, want) -> bool:
+    return (same_cols(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2]) and int(got[3]) == int(want[3]))
+
+
+def same_epilogue(got, want) -> bool:
+    return same_cols(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+
+
+def page_bytes(cols) -> int:
+    """Bytes of every distinct tensor among (data, valid) columns."""
+    seen = {}
+    for d, v in cols:
+        for t in (d, v):
+            if t is not None:
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def group_sort_bound(args) -> tuple:
+    """Read the keys, the payload and the activity once; write the payload,
+    the activity, new_group and the count."""
+    keys, payload, active = args
+    n = active.shape[0]
+    nbytes = page_bytes(list(keys) + list(payload) + [(active, None)])
+    nbytes += sum(d.numel() * d.element_size() + n for d, _ in payload) + 2 * n + 8
+    return bound_ms(nbytes, 2 * n * len(keys))
+
+
+def epilogue_bound(args) -> tuple:
+    """Read the keys (and the LUT entries this page's codes use), the
+    columns and the activity once; write the columns and the activity in
+    partition order, and 16 bytes a partition."""
+    keys, luts, cols, active, parts = args
+    n = active.shape[0]
+    lut_bytes = 0
+    for (d, _), lut in zip(keys, luts):
+        if lut is not None:
+            lut_bytes += 8 * int(torch.unique(d).numel())
+    nbytes = page_bytes(list(keys) + list(cols) + [(active, None)]) + lut_bytes
+    nbytes += sum(d.numel() * d.element_size() + n for d, _ in cols) + n + 16 * parts
+    return bound_ms(nbytes, 12 * n * max(len(keys), 1))
+
+
+def sort_yardstick(key: torch.Tensor) -> float:
+    """``torch.sort(stable=True)`` with indices on one int64 key of the
+    page's length: the one torch call that does the sorting work of the two
+    sorts (not the same function; recorded as their library_ms)."""
+    k = key.to(torch.int64)
+    return time_ms(lambda: torch.sort(k, stable=True))
+
+
 def time_wrapper(HK, name, args) -> tuple:
     """(kernel ms, plain ms, library ms or None, bound ms, bound_by) of one
     wrapper on these inputs."""
@@ -392,6 +579,12 @@ def time_wrapper(HK, name, args) -> tuple:
         b, by = segment_bound(args)
     elif name == "hash_probe":
         b, by = probe_bound(args)
+    elif name == "group_sort":
+        lib = sort_yardstick(args[0][0][0])
+        b, by = group_sort_bound(args)
+    elif name == "partition_epilogue":
+        lib = sort_yardstick(args[3])
+        b, by = epilogue_bound(args)
     else:
         b, by = expand_bound(args)
     return ms, plain_ms, lib, b, by
@@ -400,7 +593,8 @@ def time_wrapper(HK, name, args) -> tuple:
 PLAIN = {
     "grouped_sum_i64": "grouped_sum_plain", "grouped_sum_i32": "grouped_sum_plain",
     "hash_probe": "hash_probe_plain", "hash_expand": "hash_expand_plain",
-    "segment_sum": "segment_sum_plain",
+    "segment_sum": "segment_sum_plain", "group_sort": "group_sort_plain",
+    "partition_epilogue": "partition_epilogue_plain",
 }
 
 
@@ -412,6 +606,10 @@ def same_result(HK, name, args) -> bool:
         return same_probe(got, want, args[5])
     if name == "hash_expand":
         return same_expand(got, want)
+    if name == "group_sort":
+        return same_group_sort(got, want)
+    if name == "partition_epilogue":
+        return same_epilogue(got, want)
     return torch.equal(got, want)
 
 
@@ -426,6 +624,7 @@ class LaunchTap:
         "hash_probe": lambda a: a[3].shape[0],  # the larger probe side
         "hash_expand": lambda a: a[8].shape[0],
         "segment_sum": lambda a: a[0].element_size(),  # a sum over a count
+        "group_sort": lambda a: a[2].shape[0],
     }
 
     def __init__(self, HK, names):
@@ -461,7 +660,29 @@ class LaunchTap:
         return [s.elapsed_time(e) for s, e in self.events[name]]
 
 
-def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict) -> None:
+SHAPE_OF = {
+    "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
+    "hash_expand": lambda a: f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]}",
+    "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
+    "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
+                             f"active={int(a[2].sum())} columns={len(a[1])}"),
+    "partition_epilogue": lambda a: (f"n={a[3].shape[0]} keys={len(a[0])} parts={a[4]} "
+                                     f"active={int(a[3].sum())} columns={len(a[2])}"),
+}
+
+
+def record(results: dict, name: str, query: str, timing: tuple, recorded: set) -> None:
+    """The kernels line keeps each kernel's times on the first query whose
+    path launched it (Q3's for the hash join and the segment sums, Q10's
+    for the group sort); later queries' times are printed only."""
+    if name in recorded:
+        return
+    ms, plain, lib, b, by = timing
+    results[name].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+    recorded.add(name)
+
+
+def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: set) -> None:
     """Each kernel on the inputs the query's path gave it: bit-exact against
     its plain version, timed beside its bound; these times replace the
     synthetic cases' in the kernels line."""
@@ -470,11 +691,7 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict) -> None:
         args = tap.inputs[name]
         if not same_result(HK, name, args):
             fail(f"{name} [{query} inputs] differs from its plain version")
-        shape = {
-            "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
-            "hash_expand": lambda a: f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]}",
-            "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
-        }.get(name, lambda a: f"n={a[0].shape[0]} G={a[3]}")(args)
+        shape = SHAPE_OF.get(name, lambda a: f"n={a[0].shape[0]} G={a[3]}")(args)
         print(f"  {name} [{query} inputs {shape}]: bit-exact", flush=True)
         if name.startswith("grouped_sum"):
             v, w, gid, G = args
@@ -484,30 +701,60 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict) -> None:
         print(f"  {name}: {len(in_run)} launches inside {query}, "
               f"{sum(in_run):.4f} ms in all, each {[round(t, 4) for t in in_run]}",
               flush=True)
-        ms, plain, lib, b, by = time_wrapper(HK, name, args)
-        print(f"  {name} [{query} inputs]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {'none' if lib is None else f'{lib:.4f} ms'}, "
-              f"bound {b:.4f} ms ({by})", flush=True)
-        results[name].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                             bound_by=by)
+        timing = time_wrapper(HK, name, args)
+        print_timing(f"{name} [{query} inputs]", timing)
+        record(results, name, query, timing, recorded)
 
 
-def print_unported_bounds(expand_args_q3) -> None:
-    """Bounds of the two TPU kernels still to port, at the page they would
-    see on Q3: the joined page hash_expand produced (its capacity), grouped
-    on (l_orderkey bigint, o_orderdate date, o_shippriority integer) with
-    the revenue decimal(18,4), 4 columns plus validity and activity."""
-    cap = expand_args_q3[11]
-    row = (8 + 1) + (4 + 1) + (4 + 1) + (8 + 1) + 1
-    # group_sort_phase: read the page, write it co-sorted plus new_group
-    b, by = bound_ms(cap * (2 * row + 1), 40 * cap)
-    print(f"  group_sort_phase (not ported) at Q3's joined page of {cap} slots: "
-          f"bound {b:.4f} ms ({by})", flush=True)
-    # fused_epilogue: read the page, write it sorted by partition with the
-    # int32 dest lane, offsets and counts
-    b, by = bound_ms(cap * (2 * row + 4) + 2 * 8 * 64, 20 * cap)
-    print(f"  fused_epilogue (not ported) at Q3's joined page of {cap} slots: "
-          f"bound {b:.4f} ms ({by})", flush=True)
+def print_timing(label: str, timing: tuple) -> None:
+    ms, plain, lib, b, by = timing
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by})",
+          flush=True)
+
+
+def check_epilogue_on_q10(HK, conn, tap: LaunchTap, results: dict, recorded: set) -> None:
+    """The repartition epilogue, which no query path calls, on the page
+    Q10's group sort was given: its three group keys at the engine's
+    default partition count, c_name through its dictionary's value keys."""
+    keys, payload, active = tap.inputs["group_sort"]
+    t0 = time.perf_counter()
+    names = conn.dictionary("customer", "c_name", SCALE)
+    name_lut = torch.as_tensor(names.value_keys(), device=active.device)
+    print(f"  c_name value keys ({len(names)} strings): {time.perf_counter() - t0:.3f} s "
+          "on the host", flush=True)
+    luts = [name_lut if d.dtype == torch.int32 else None for d, _ in keys]
+    args = (keys, luts, payload, active, Q10_PARTS)
+    if not same_result(HK, "partition_epilogue", args):
+        fail("partition_epilogue [q10 joined page] differs from its plain version")
+    print(f"  partition_epilogue [q10 joined page {SHAPE_OF['partition_epilogue'](args)}]: "
+          "bit-exact", flush=True)
+    timing = time_wrapper(HK, "partition_epilogue", args)
+    print_timing("partition_epilogue [q10 joined page]", timing)
+    record(results, "partition_epilogue", "q10", timing, recorded)
+
+
+def check_sort_kernels(HK, dev, results: dict) -> None:
+    """group_sort and partition_epilogue against their plain versions on
+    every case; the first (Q10-shaped) case of each is timed."""
+    for i, (label, keys, payload, active) in enumerate(group_sort_cases(dev)):
+        args = (keys, payload, active)
+        if not same_result(HK, "group_sort", args):
+            fail(f"group_sort [{label}] differs from its plain version")
+        print(f"  group_sort [{label}]: bit-exact "
+              f"({int(HK.group_sort_plain(*args)[3])} groups)", flush=True)
+        if i == 0:
+            results["group_sort"] = timed_entry(HK, "group_sort", args)
+        del args, keys, payload, active
+    torch.cuda.empty_cache()
+    for i, (label, keys, luts, cols, active, parts) in enumerate(epilogue_cases(dev)):
+        args = (keys, luts, cols, active, parts)
+        if not same_result(HK, "partition_epilogue", args):
+            fail(f"partition_epilogue [{label}] differs from its plain version")
+        print(f"  partition_epilogue [{label}]: bit-exact", flush=True)
+        if i == 0:
+            results["partition_epilogue"] = timed_entry(HK, "partition_epilogue", args)
+        del args, keys, luts, cols, active
 
 
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
@@ -550,14 +797,16 @@ SOURCES = {
                     "trino_tpu/ops/megakernels.py:468"),
     "segment_sum": ("trino_tpu_torch/csrc/segment_agg.cu",
                     "trino_tpu/ops/megakernels.py:573"),
+    "group_sort": ("trino_tpu_torch/csrc/group_sort.cu",
+                   "trino_tpu/ops/megakernels.py:533"),
+    "partition_epilogue": ("trino_tpu_torch/csrc/partition_epilogue.cu",
+                           "trino_tpu/ops/megakernels.py:603"),
 }
 
 
 def timed_entry(HK, name, args) -> dict:
-    ms, plain, lib, b, by = time_wrapper(HK, name, args)
-    print(f"  {name} [main shape]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by})",
-          flush=True)
+    ms, plain, lib, b, by = timing = time_wrapper(HK, name, args)
+    print_timing(f"{name} [main shape]", timing)
     source, replaces = SOURCES[name]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -622,36 +871,69 @@ def splits_of(g, conn, table: str):
         yield g.generate_split(table, SCALE, s, total).columns
 
 
-def q3_orders(g, conn):
-    """Q3's qualifying orders, sorted by key: (keys, dates, ship priorities)
-    of orders before 1995-03-15 placed by BUILDING customers."""
+def order_sets(g, conn):
+    """One pass over the orders splits: Q3's qualifying orders sorted by
+    key, (keys, dates, ship priorities) of orders before 1995-03-15 placed
+    by BUILDING customers; and Q10's, (keys, customer keys) of orders from
+    1993-10-01 to before 1994-01-01 placed by customers of a nation."""
     seg = conn.dictionary("customer", "c_mktsegment", SCALE).code_of("BUILDING")
-    building = np.concatenate([
-        d["c_custkey"][d["c_mktsegment"] == seg] for d in splits_of(g, conn, "customer")
-    ])
-    keys, dates, prio = [], [], []
+    nations = np.concatenate([d["n_nationkey"] for d in splits_of(g, conn, "nation")])
+    building, with_nation = [], []
+    for d in splits_of(g, conn, "customer"):
+        building.append(d["c_custkey"][d["c_mktsegment"] == seg])
+        with_nation.append(d["c_custkey"][np.isin(d["c_nationkey"], nations)])
+    building, with_nation = np.concatenate(building), np.concatenate(with_nation)
+    q3 = ([], [], [])
+    q10 = ([], [])
+    lo, hi = Q10_DATES
     for d in splits_of(g, conn, "orders"):
         keep = (d["o_orderdate"] < Q3_DATE) & np.isin(d["o_custkey"], building)
-        keys.append(d["o_orderkey"][keep])
-        dates.append(d["o_orderdate"][keep])
-        prio.append(d["o_shippriority"][keep])
-    keys, dates, prio = (np.concatenate(x) for x in (keys, dates, prio))
-    order = np.argsort(keys, kind="stable")
-    return keys[order], dates[order], prio[order]
+        for acc, col in zip(q3, ("o_orderkey", "o_orderdate", "o_shippriority")):
+            acc.append(d[col][keep])
+        keep = ((d["o_orderdate"] >= lo) & (d["o_orderdate"] < hi)
+                & np.isin(d["o_custkey"], with_nation))
+        for acc, col in zip(q10, ("o_orderkey", "o_custkey")):
+            acc.append(d[col][keep])
+    q3 = [np.concatenate(x) for x in q3]
+    q10 = [np.concatenate(x) for x in q10]
+    o3, o10 = np.argsort(q3[0], kind="stable"), np.argsort(q10[0], kind="stable")
+    return [x[o3] for x in q3], [x[o10] for x in q10]
+
+
+def q10_top(g, conn, ocust, order_rev, order_rows):
+    """Q10's top 20 customers from the revenue of each qualifying order's
+    lineitem rows, in the engine's row form."""
+    hit = order_rows > 0
+    cust, inv = np.unique(ocust[hit], return_inverse=True)
+    rev = np.zeros(cust.shape[0], dtype=np.int64)
+    np.add.at(rev, inv, order_rev[hit])
+    top = np.lexsort((cust, -rev))[:20]
+    parts = [(d["c_custkey"], d["c_name"], d["c_acctbal"]) for d in splits_of(g, conn, "customer")]
+    ckey, code, bal = (np.concatenate(x) for x in zip(*parts))
+    order = np.argsort(ckey, kind="stable")
+    at = order[np.searchsorted(ckey[order], cust[top])]
+    names = conn.dictionary("customer", "c_name", SCALE)
+    print(f"  Q10 has {cust.shape[0]} groups", flush=True)
+    return [(int(cust[i]), names.values[int(code[j])], int(rev[i]) / 10**4, int(bal[j]) / 100)
+            for i, j in zip(top, at)]
 
 
 def numpy_oracle(g, conn):
-    """Q1's sums and counts, Q6's revenue and Q3's top orders from the
-    port's generator, in numpy int64, as rows in the engine's output form.
-    One pass over the lineitem splits serves all three."""
+    """Q1's sums and counts, Q6's revenue, Q3's top orders and Q10's top
+    customers from the port's generator, in numpy int64, as rows in the
+    engine's output form. One pass over the lineitem splits serves all
+    four."""
     import datetime
 
-    okeys, odates, oprio = q3_orders(g, conn)
+    (okeys, odates, oprio), (k10, c10) = order_sets(g, conn)
     q3_rev = np.zeros(okeys.shape[0], dtype=np.int64)
     q3_rows = np.zeros(okeys.shape[0], dtype=np.int64)
+    q10_rev = np.zeros(k10.shape[0], dtype=np.int64)
+    q10_rows = np.zeros(k10.shape[0], dtype=np.int64)
     total = conn.split_count("lineitem", SCALE)
     rf = conn.dictionary("lineitem", "l_returnflag", SCALE)
     ls = conn.dictionary("lineitem", "l_linestatus", SCALE)
+    flag_r = rf.code_of("R")
     G = (len(rf), len(ls))
     acc = np.zeros((6,) + G, dtype=np.int64)  # qty, price, disc_price, charge, disc, count
     revenue = np.int64(0)
@@ -682,6 +964,10 @@ def numpy_oracle(g, conn):
         hit = (ship > Q3_DATE) & (okeys[pos] == lk)
         np.add.at(q3_rev, pos[hit], dp[hit])
         np.add.at(q3_rows, pos[hit], 1)
+        pos = np.minimum(np.searchsorted(k10, lk), max(k10.shape[0] - 1, 0))
+        hit = (d["l_returnflag"] == flag_r) & (k10[pos] == lk)
+        np.add.at(q10_rev, pos[hit], dp[hit])
+        np.add.at(q10_rows, pos[hit], 1)
 
     def avg(s, n):  # round-half-up decimal avg, as the engine computes it
         half = n // 2
@@ -706,7 +992,8 @@ def numpy_oracle(g, conn):
     print(f"  generating the {total} lineitem splits on the host: "
           f"{gen_secs:.3f} s of the oracle's pass; Q3 has {grp.shape[0]} groups",
           flush=True)
-    return {"q01": q1, "q06": [(int(revenue) / 10**4,)], "q03": q3}
+    q10 = q10_top(g, conn, c10, q10_rev, q10_rows)
+    return {"q01": q1, "q06": [(int(revenue) / 10**4,)], "q03": q3, "q10": q10}
 
 
 def run_queries(HK, dev, kernels: dict) -> dict:
@@ -719,7 +1006,7 @@ def run_queries(HK, dev, kernels: dict) -> dict:
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
-    rows, launches = {}, {}
+    rows, launches, recorded = {}, {}, set()
     for q, sql in QUERIES.items():
         tap = LaunchTap(HK, [k for k in KERNELS_OF[q] if k != "q6_fused"])
         torch.cuda.synchronize()
@@ -741,13 +1028,14 @@ def run_queries(HK, dev, kernels: dict) -> dict:
         for name in tap.orig:
             if launches[q][name] == 0:
                 fail(f"{q} did not go through {name}: {launches[q]}")
-        check_query_inputs(HK, q, tap, kernels)
-        if q == "q03":
-            print_unported_bounds(tap.inputs["hash_expand"])
+        want_phases = PHASES_OF.get(q, {})
+        if any(phases[k] != v for k, v in want_phases.items()):
+            fail(f"{q} ran the fused phases {phases}, not {want_phases}")
+        check_query_inputs(HK, q, tap, kernels, recorded)
+        if q == "q10":
+            check_epilogue_on_q10(HK, runner.catalogs.get("tpch"), tap, kernels, recorded)
         del tap, res
         torch.cuda.empty_cache()
-    if rows["q03"] and launches["q03"]["hash_probe"] < 2:
-        fail(f"q03 ran {launches['q03']['hash_probe']} probe launches, not 2")
 
     off = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     off.session.set("pallas_aggregation", "off")
@@ -774,8 +1062,8 @@ def run_queries(HK, dev, kernels: dict) -> dict:
     for q in QUERIES:
         if rows[q] != want[q]:
             fail(f"{q} rows {rows[q]} != numpy oracle {want[q]}")
-    print(f"  q01, q06 and q03 rows equal the numpy oracle; q06 {rows['q06']}, "
-          f"q03 {rows['q03']}", flush=True)
+    print(f"  q01, q06, q03 and q10 rows equal the numpy oracle; q06 {rows['q06']}, "
+          f"q03 {rows['q03']}, q10 {rows['q10'][:3]}...", flush=True)
     return launches
 
 
@@ -807,8 +1095,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_join_kernels(HK, n_main, dev, kernels)
     torch.cuda.empty_cache()
+    check_sort_kernels(HK, dev, kernels)
+    torch.cuda.empty_cache()
 
-    print(f"phase 3: TPC-H Q6, Q1 and Q3 at SF{SCALE}", flush=True)
+    print(f"phase 3: TPC-H Q6, Q1, Q3 and Q10 at SF{SCALE}", flush=True)
     launches = run_queries(HK, dev, kernels)
     for name, k in kernels.items():
         k["launches"] = sum(launches[q][name] for q in QUERIES)

@@ -1,7 +1,7 @@
-"""The slices end to end: TPC-H Q1, Q6, Q3 and more slice queries through
-``trino_tpu.runtime.LocalQueryRunner`` and ``trino_tpu_torch``'s, on the CPU,
-with the port under every ``pallas_aggregation`` mode and both
-``pallas_fusion`` settings. Rows — decimals, dates, dictionary strings,
+"""The slices end to end: TPC-H Q1, Q6, Q3, Q5, Q10, Q15, Q19 and more slice
+queries through ``trino_tpu.runtime.LocalQueryRunner`` and
+``trino_tpu_torch``'s, on the CPU, with the port under every
+``pallas_aggregation`` mode and both ``pallas_fusion`` settings. Rows — decimals, dates, dictionary strings,
 counts and their order — must be identical.
 
 A second group feeds identical pages (carried across with
@@ -11,6 +11,7 @@ aggregation operator.
 
 import numpy as np
 import pytest
+import torch
 
 from tests.tpch_corpus import TPCH_QUERIES
 from trino_tpu.runtime import LocalQueryRunner as RefRunner
@@ -122,7 +123,7 @@ JOIN_QUERIES = {
           ON n1.n_name = n2.n_name
         ORDER BY 1
     """,
-    # the sort aggregation shape: declined to the serial path
+    # the sort aggregation shape: the group sort after the fused join
     "sort_shape": """
         SELECT o_orderdate, count(*), sum(l_quantity)
         FROM lineitem JOIN orders ON l_orderkey = o_orderkey
@@ -151,11 +152,11 @@ def test_join_query_matches_reference(query, fusion, reference_join_rows, port_r
     assert len(res.rows) > 0
     if not fusion:
         assert MK.LAUNCHES == {k: 0 for k in MK.LAUNCHES}
-    elif query == "sort_shape":
-        assert MK.FALLBACKS == {"group_sort_unported": 1}
     else:
         assert MK.LAUNCHES["probe"] > 0 and MK.LAUNCHES["expand"] > 0
         assert not MK.FALLBACKS
+        if query == "sort_shape":
+            assert MK.LAUNCHES["aggregate"] == 1
     assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}  # CPU: plain versions only
 
 
@@ -164,7 +165,77 @@ def test_q3_runs_through_every_phase(port_runner):
     segment aggregation, no fallback."""
     MK.reset_counts()
     port_runner.execute(JOIN_QUERIES["q03"])
-    assert MK.LAUNCHES == {"probe": 2, "expand": 2, "aggregate": 1}
+    assert MK.LAUNCHES == {"probe": 2, "expand": 2, "aggregate": 1, "group_sort": 0}
+    assert not MK.FALLBACKS
+
+
+# --------------------------------------------------------------------------- #
+# Q10 (the group sort) and the other TPC-H queries the port runs
+# --------------------------------------------------------------------------- #
+
+MORE_QUERIES = {q: TPCH_QUERIES[q] for q in ("q05", "q10", "q15", "q19")}
+
+
+@pytest.fixture(scope="module")
+def reference_more_rows():
+    ref = RefRunner.tpch(scale=SCALE)
+    return {q: ref.execute(sql).rows for q, sql in MORE_QUERIES.items()}
+
+
+@pytest.mark.parametrize("fusion", [True, False])
+@pytest.mark.parametrize("query", sorted(MORE_QUERIES))
+def test_tpch_query_matches_reference(query, fusion, reference_more_rows, port_runner):
+    """Q5, Q10, Q15 and Q19 row-identical to the reference (decimals,
+    dictionary strings and order exact) with the fused path on and off."""
+    port_runner.session.set("pallas_fusion", fusion)
+    try:
+        MK.reset_counts()
+        res = port_runner.execute(MORE_QUERIES[query])
+    finally:
+        port_runner.session.set("pallas_fusion", True)
+    assert res.rows == reference_more_rows[query]
+    assert len(res.rows) > 0
+    assert not MK.FALLBACKS
+    if not fusion:
+        assert MK.LAUNCHES == {k: 0 for k in MK.LAUNCHES}
+
+
+def test_q10_runs_through_the_group_sort(port_runner, monkeypatch):
+    """Q10 with the default session: three fused joins, the last with the
+    ``sort`` aggregation stage, then one segment aggregation; no fallback."""
+    calls = []
+    orig = HK.group_sort
+
+    def counted(*args):
+        calls.append(args[2].shape[0])
+        return orig(*args)
+
+    monkeypatch.setattr(HK, "group_sort", counted)
+    MK.reset_counts()
+    port_runner.execute(MORE_QUERIES["q10"])
+    assert MK.LAUNCHES == {"probe": 3, "expand": 3, "aggregate": 1, "group_sort": 0}
+    assert not MK.FALLBACKS
+    assert len(calls) == 1  # the sort stage of the third expand phase
+
+
+def test_presorted_violation_regroups_through_group_sort_phase(
+        port_runner, reference_join_rows, monkeypatch):
+    """A presorted page whose sortedness check fails re-groups through
+    ``group_sort_phase`` and ``aggregate_phase`` (the reference's route),
+    and the rows stay the reference's."""
+    from trino_tpu_torch.runtime import executor as E
+
+    orig = E._presorted_group_impl
+
+    def violated(*args):
+        p, ng, n_grp, _ = orig(*args)
+        return p, ng, n_grp, torch.ones((), dtype=torch.bool)
+
+    monkeypatch.setattr(E, "_presorted_group_impl", violated)
+    MK.reset_counts()
+    res = port_runner.execute(JOIN_QUERIES["left_count"])
+    assert res.rows == reference_join_rows["left_count"]
+    assert MK.LAUNCHES["group_sort"] == 1 and MK.LAUNCHES["aggregate"] == 1
     assert not MK.FALLBACKS
 
 

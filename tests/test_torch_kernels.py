@@ -271,3 +271,44 @@ def test_topn_perm(count):
     gp, ga = PK.topn_perm(pk, torch.from_numpy(active), count)
     np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
     np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+
+
+# --------------------------------------------------------------------------- #
+# the partition hash (ops/repartition.py): part of the exchange-frame contract
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("n_parts", [1, 2, 7, 64, 1000, 2**31 - 1])
+def test_partition_ids_bit_identical(n_parts):
+    """Bigint keys over the whole int64 range (about half the hashes have
+    the top bit set, where a signed modulo goes wrong), a double key with
+    -0.0, NaN and infinities, and NULLs in both, against the reference."""
+    from trino_tpu.ops import repartition as RR
+
+    from trino_tpu_torch.ops import repartition as PR
+
+    rng = np.random.default_rng(40)
+    n = 5000
+    big = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    big[:4] = [-(2**63), 2**63 - 1, 0, -1]
+    dbl = rng.choice(np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, 1.5, -2.5]), n)
+    vb, vd = rng.random(n) < 0.9, rng.random(n) < 0.9
+    for keys in ([(big, vb)], [(big, vb), (dbl, vd)], [(dbl, vd)]):
+        want = RR.partition_ids([(jnp.asarray(d), jnp.asarray(v)) for d, v in keys], n_parts)
+        got = PR.partition_ids([(torch.from_numpy(d), torch.from_numpy(v)) for d, v in keys],
+                               n_parts)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_unsigned_mod_of_top_bit_values():
+    """int64 bits read as uint64 modulo m, against numpy's uint64 modulo,
+    on values with the top bit set."""
+    from trino_tpu_torch.ops import repartition as PR
+
+    rng = np.random.default_rng(41)
+    x = rng.integers(-(2**63), 0, 4000, dtype=np.int64)
+    x[:3] = [-(2**63), -1, -(2**62)]
+    for m in (1, 3, 8, 1000, 2**31 - 1):
+        got = PR._unsigned_mod(torch.from_numpy(x), m).numpy()
+        np.testing.assert_array_equal(got, (x.view(np.uint64) % np.uint64(m)).astype(np.int64))

@@ -19,6 +19,7 @@ from trino_tpu.spi.types import BIGINT as RBIGINT
 from trino_tpu.spi.types import DOUBLE as RDOUBLE
 
 from trino_tpu_torch.ops import hopper_kernels as HK
+from trino_tpu_torch.ops import kernels as PK
 from trino_tpu_torch.ops import megakernels as PMK
 from trino_tpu_torch.spi.page import Column as PColumn
 from trino_tpu_torch.spi.page import Page as PPage
@@ -241,3 +242,273 @@ def test_segment_sum_plain_matches_reference_segment_reduce():
         got = HK.segment_sum(torch.from_numpy(vals), torch.from_numpy(w),
                              torch.from_numpy(np.array(starts)).to(torch.int64))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --------------------------------------------------------------------------- #
+# the group sort (group_sort_phase, expand_phase's sort stage) and the
+# repartition epilogue (fused_epilogue)
+# --------------------------------------------------------------------------- #
+
+_VOCAB = np.asarray(["AIR", "MAIL", "RAIL", "SHIP", "TRUCK", "FOB", "REG AIR"], dtype=object)
+
+
+def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None):
+    """A reference page and its port copy: one group key per entry of
+    ``key_kinds`` (bigint, bigint_edges (INT64_MIN/MAX, -1, 0, 1), double
+    (-0.0, 0.0, negatives, NaN), varchar (a dictionary)), each with NULLs,
+    then a decimal and a bigint payload; ``dup`` draws every key from that
+    many values (heavy duplicates). Inactive rows are interleaved."""
+    from trino_tpu.spi import types as rt
+    from trino_tpu.spi.page import Dictionary as RDict
+    from trino_tpu_torch.spi import types as pt
+    from trino_tpu_torch.spi.page import Dictionary as PDict
+
+    rng = np.random.default_rng(seed)
+    rcols, pcols = [], []
+    rdict, pdict = RDict(_VOCAB), PDict(_VOCAB)
+
+    def add(tname, data, valid, vocab=False):
+        rcols.append(RColumn(rt.parse_type(tname), jnp.asarray(data), jnp.asarray(valid),
+                             rdict if vocab else None))
+        pcols.append(PColumn(pt.parse_type(tname), torch.from_numpy(data),
+                             torch.from_numpy(valid), pdict if vocab else None))
+
+    for kind in key_kinds:
+        valid = rng.random(n) < 0.85
+        pick = rng.integers(0, dup or 10**9, n)
+        if kind == "bigint":
+            data = rng.integers(-(10**12), 10**12, dup or 10**6)[pick % (dup or 10**6)]
+        elif kind == "bigint_edges":
+            edges = np.array([-(2**63), 2**63 - 1, -1, 0, 1, 2**40], dtype=np.int64)
+            data = edges[pick % edges.shape[0]]
+        elif kind == "double":
+            pool = np.array([-0.0, 0.0, -1.5, 2.25, np.nan, -np.inf, 1e300, -3e-300])
+            data = pool[pick % pool.shape[0]]
+        else:
+            data = (pick % _VOCAB.shape[0]).astype(np.int32)
+        add({"bigint_edges": "bigint", "varchar": "varchar"}.get(kind, kind), data, valid,
+            kind == "varchar")
+    add("decimal(12,2)", rng.integers(-(10**10), 10**10, n), rng.random(n) < 0.9)
+    add("bigint", rng.integers(-(2**62), 2**62, n), np.ones(n, bool))
+    active = rng.random(n) < active_rate
+    return RPage(tuple(rcols), jnp.asarray(active)), PPage(tuple(pcols), torch.from_numpy(active))
+
+
+def _assert_same_page(got, want):
+    np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))
+    for gc, wc in zip(got.columns, want.columns):
+        np.testing.assert_array_equal(gc.valid.numpy(), np.asarray(wc.valid))
+        # DOUBLE payloads compare bit for bit (NaN and -0.0 included)
+        gd, wd = gc.data.numpy(), np.asarray(wc.data)
+        if gd.dtype == np.float64:
+            gd, wd = gd.view(np.int64), wd.view(np.int64)
+        np.testing.assert_array_equal(gd, wd)
+
+
+GROUP_SORT_CASES = {
+    "one_bigint_key": dict(seed=11, n=2500, key_kinds=("bigint",)),
+    "edges_and_double": dict(seed=12, n=2000, key_kinds=("bigint_edges", "double")),
+    "dictionary_then_bigint": dict(seed=13, n=3000, key_kinds=("varchar", "bigint"), dup=40),
+    "four_keys_duplicates": dict(seed=14, n=3000,
+                                 key_kinds=("bigint", "varchar", "double", "bigint_edges"),
+                                 dup=3),
+    "mostly_inactive": dict(seed=15, n=1024, key_kinds=("bigint", "double"), active_rate=0.1),
+    "all_inactive": dict(seed=16, n=777, key_kinds=("bigint",), active_rate=0.0),
+    "one_row": dict(seed=17, n=1, key_kinds=("bigint", "varchar")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_SORT_CASES))
+def test_group_sort_phase_matches_reference(case):
+    """The port's standalone group sort against the reference's Pallas
+    phase in interpret mode: the sorted page, new_group and num_groups are
+    all exact (keys and payloads, NULLs, NaN and -0.0 bits included)."""
+    rpage, ppage = _group_page(**GROUP_SORT_CASES[case])
+    nk = len(GROUP_SORT_CASES[case]["key_kinds"])
+    symbols = tuple(f"c{i}" for i in range(nk + 2))
+    keys = symbols[:nk]
+    needed = keys + symbols[nk:]
+    want_p, want_ng, want_n = RMK.group_sort_phase(keys, needed, symbols, rpage, True)
+    before = PMK.LAUNCHES["group_sort"]
+    got_p, got_ng, got_n = PMK.group_sort_phase(keys, needed, symbols, ppage)
+    assert PMK.LAUNCHES["group_sort"] == before + 1
+    _assert_same_page(got_p, want_p)
+    np.testing.assert_array_equal(got_ng.numpy(), np.asarray(want_ng))
+    assert int(got_n) == int(want_n)
+
+
+def _emulate_radix_sort(key_cols, active):
+    """The CUDA group sort's permutation, emulated in numpy: the stats
+    reduction, ``radix_plan``, then per composite the compose step and
+    stable passes over its eight-bit digits."""
+    n = active.shape[0]
+    norms = []
+    stats_lo, stats_hi, stats_nv = [], [], []
+    for d, v in key_cols:
+        norm = PK.order_key(torch.from_numpy(d)).numpy()
+        norms.append(norm)
+        stats_lo.append(int(norm[v].min()) if v.any() else 2**63 - 1)
+        stats_hi.append(int(norm[v].max()) if v.any() else -(2**63))
+        stats_nv.append(int(v.sum()))
+    plan = HK.radix_plan(stats_lo + stats_hi + stats_nv + [int(active.sum())], n)
+    perm = np.arange(n)
+    for comp in plan:
+        v64 = np.zeros(n, np.uint64)
+        for kind, key, offset, bits, pos in comp:
+            if kind == 0:
+                x = np.where(key_cols[key][1][perm],
+                             norms[key][perm].view(np.uint64) - np.uint64(offset % 2**64), 0)
+            elif kind == 1:
+                x = key_cols[key][1][perm].astype(np.uint64)
+            else:
+                x = (~active[perm]).astype(np.uint64)
+            v64 |= x.astype(np.uint64) << np.uint64(pos)
+        for shift in range(0, sum(f[3] for f in comp), 8):
+            order = np.argsort((v64 >> np.uint64(shift)) & np.uint64(255), kind="stable")
+            v64, perm = v64[order], perm[order]
+    return perm, plan
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_SORT_CASES))
+def test_radix_plan_sorts_like_the_plain_cosort(case):
+    """The composite keys the CUDA kernel sorts by (``radix_plan``: value
+    ranges packed into 64-bit composites, constant fields left out) give
+    the permutation of the plain pass chain, emulated in numpy."""
+    _, ppage = _group_page(**GROUP_SORT_CASES[case])
+    nk = len(GROUP_SORT_CASES[case]["key_kinds"])
+    key_cols = [(c.data.numpy(), c.valid.numpy()) for c in ppage.columns[:nk]]
+    active = ppage.active.numpy()
+    n = active.shape[0]
+    got, plan = _emulate_radix_sort(key_cols, active)
+    rows = torch.arange(n)
+    out, _, _, _ = HK.group_sort_plain(
+        [(c.data, c.valid) for c in ppage.columns[:nk]],
+        [(rows, torch.ones(n, dtype=torch.bool))], ppage.active)
+    np.testing.assert_array_equal(got, out[0][0].numpy())
+    assert all(sum(f[3] for f in comp) <= 64 for comp in plan)
+
+
+def test_radix_plan_packs_q10_keys_into_two_composites():
+    """Three keys of 21-bit ranges with NULL build-side keys on inactive
+    rows (Q10's joined page) take two composites and nine passes."""
+    n = 2_097_152
+    lo, hi = [1, 0, -99_999], [1_500_000, 1_499_999, 999_999]
+    plan = HK.radix_plan(lo + hi + [1_200_000] * 3 + [1_200_000], n)
+    assert [sum(f[3] for f in c) for c in plan] == [44, 23]
+    assert sum(-(-sum(f[3] for f in c) // 8) for c in plan) == 9
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+def test_expand_phase_sort_stage_matches_reference(n_keys):
+    """The fused join with the ``sort`` aggregation stage: the joined page
+    group-sorted by a probe key and a build key, against the reference's
+    expand phase in interpret mode."""
+    args = _case(seed=21, n=1600, m=900, key_range=60)
+    pk, bk, luts, pa, ba = args
+    n, m = pa.shape[0], ba.shape[0]
+    rng = np.random.default_rng(5)
+    pay = rng.integers(-(10**9), 10**9, n)
+    bgrp = rng.integers(0, 7, m)
+    rpk, rbk, rluts, rpa, rba = _ref(*args)
+    ppk, pbk, pluts, ppa, pba = _port(*args)
+    rprobe = RPage((RColumn(RBIGINT, rpk[0][0].astype(jnp.int64), rpk[0][1]),
+                    RColumn(RBIGINT, jnp.asarray(pay), jnp.ones(n, bool))), rpa)
+    rbuild = RPage((RColumn(RBIGINT, rbk[0][0].astype(jnp.int64), rbk[0][1]),
+                    RColumn(RBIGINT, jnp.asarray(bgrp), jnp.ones(m, bool))), rba)
+    pprobe = PPage((PColumn(PBIGINT, ppk[0][0].to(torch.int64), ppk[0][1]),
+                    PColumn(PBIGINT, torch.from_numpy(pay), torch.ones(n, dtype=torch.bool))),
+                   ppa)
+    pbuild = PPage((PColumn(PBIGINT, pbk[0][0].to(torch.int64), pbk[0][1]),
+                    PColumn(PBIGINT, torch.from_numpy(bgrp), torch.ones(m, dtype=torch.bool))),
+                   pba)
+    want_pr = RMK.probe_phase(rpk, rbk, rluts, rpa, rba, False, True)
+    got_pr = PMK.probe_phase(ppk, pbk, pluts, ppa, pba, False)
+    cap = max(int(np.asarray(want_pr["emit"]).sum()), 1) + 5
+    symbols = ("pk", "pay", "bk", "grp")
+    keys = ("grp", "pk")[:n_keys]
+    spec = ("sort", (keys, keys + ("pay",), symbols))
+    want = RMK.expand_phase(want_pr, rpk, rbk, rluts, rprobe, rbuild, cap, symbols, None,
+                            spec, None, True)
+    before = PMK.LAUNCHES["expand"]
+    got = PMK.expand_phase(got_pr, ppk, pbk, pluts, pprobe, pbuild, cap, symbols, None, spec)
+    assert PMK.LAUNCHES["expand"] == before + 1
+    _assert_same_page(got[0], want[0])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert int(got[2]) == int(want[2])
+
+
+def _epilogue_page(seed=31, n=3000):
+    """A reference page and its port copy: bigint key with NULLs, a
+    dictionary key with NULLs, a double payload, interleaved inactive rows."""
+    from trino_tpu.spi.page import Dictionary as RDict
+    from trino_tpu.spi.types import VARCHAR as RVARCHAR
+    from trino_tpu_torch.spi.page import Dictionary as PDict
+    from trino_tpu_torch.spi.types import VARCHAR as PVARCHAR
+
+    rng = np.random.default_rng(seed)
+    key = rng.integers(-(2**62), 2**62, n)
+    kv = rng.random(n) < 0.9
+    code = rng.integers(0, _VOCAB.shape[0], n).astype(np.int32)
+    cv = rng.random(n) < 0.9
+    dbl = rng.normal(size=n)
+    ones = np.ones(n, bool)
+    active = rng.random(n) < 0.8
+    rpage = RPage((RColumn(RBIGINT, jnp.asarray(key), jnp.asarray(kv)),
+                   RColumn(RVARCHAR, jnp.asarray(code), jnp.asarray(cv), RDict(_VOCAB)),
+                   RColumn(RDOUBLE, jnp.asarray(dbl), jnp.asarray(ones))), jnp.asarray(active))
+    t = torch.from_numpy
+    ppage = PPage((PColumn(PBIGINT, t(key), t(kv)),
+                   PColumn(PVARCHAR, t(code), t(cv), PDict(_VOCAB)),
+                   PColumn(PDOUBLE, t(dbl), t(ones))), t(active))
+    return rpage, ppage
+
+
+def _assert_same_epilogue(got, want):
+    gp, goff, gcnt = got
+    wp, woff, wcnt = want
+    np.testing.assert_array_equal(goff.numpy(), np.asarray(woff))
+    np.testing.assert_array_equal(gcnt.numpy(), np.asarray(wcnt))
+    _assert_same_page(gp, wp)
+
+
+@pytest.mark.parametrize("key_idx", [(0,), (1,), (0, 1), ()])
+@pytest.mark.parametrize("n_parts", [1, 8, 64])
+def test_fused_epilogue_matches_reference(n_parts, key_idx):
+    """The port's fused epilogue against the reference's
+    ``fused_epilogue(interpret=True)`` and ``_jit_repartition_epilogue``:
+    offsets, counts, and the page sorted by partition, exactly; the port's
+    plain ``_repartition_epilogue`` gives the same."""
+    from trino_tpu.ops.repartition import _jit_repartition_epilogue
+
+    from trino_tpu_torch.ops import repartition as PR
+
+    rpage, ppage = _epilogue_page()
+    want = RMK.fused_epilogue(rpage, key_idx, n_parts, interpret=True)
+    _assert_same_epilogue(_to_port_result(_jit_repartition_epilogue(n_parts, key_idx, rpage)),
+                          want)
+    _assert_same_epilogue(PMK.fused_epilogue(ppage, key_idx, n_parts), want)
+    _assert_same_epilogue(PR._repartition_epilogue(n_parts, key_idx, ppage), want)
+
+
+def _to_port_result(res):
+    """A reference epilogue result in the form the comparison reads."""
+    page, off, cnt = res
+    t = torch.from_numpy
+    cols = tuple(PColumn(PBIGINT, t(np.array(c.data)), t(np.array(c.valid)))
+                 for c in page.columns)
+    return PPage(cols, t(np.array(page.active))), t(np.array(off)), t(np.array(cnt))
+
+
+def test_epilogue_wrappers_raise_on_what_the_kernels_do_not_take():
+    n = 16
+    d, v, a = torch.zeros(n, dtype=torch.int64), torch.ones(n, dtype=torch.bool), torch.ones(
+        n, dtype=torch.bool)
+    with pytest.raises(ValueError, match="n_parts"):
+        HK.partition_epilogue([(d, v)], [None], [(d, v)], a, HK.EPILOGUE_MAX_PARTS + 1)
+    with pytest.raises(ValueError, match="int128"):
+        HK.partition_epilogue([(d, v)], [None], [(torch.zeros(n, 2, dtype=torch.int64), v)],
+                              a, 8)
+    with pytest.raises(ValueError, match="key columns"):
+        HK.group_sort([(d, v)] * 9, [(d, v)], a)
+    with pytest.raises(ValueError, match="int128"):
+        HK.group_sort([(torch.zeros(n, 2, dtype=torch.int64), v)], [(d, v)], a)

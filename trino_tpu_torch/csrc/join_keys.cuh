@@ -1,6 +1,7 @@
-// Join-key loading and bucket hashing shared by hash_probe.cu and
-// hash_expand.cu: the device form of megakernels._normalized_keys and
-// megakernels._bucket_of in trino_tpu_torch/ops/megakernels.py.
+// Key loading shared by the kernels that read key columns, and the bucket
+// hashing of hash_probe.cu and hash_expand.cu: the device form of
+// megakernels._normalized_keys and megakernels._bucket_of in
+// trino_tpu_torch/ops/megakernels.py.
 
 #pragma once
 
@@ -28,6 +29,16 @@ struct KeyCol {
 // Passed by value as a kernel parameter.
 struct KeySet {
   KeyCol col[kMaxKeys];
+  int n;
+};
+
+// The keys of a group sort (group_sort.cu) or a partition hash
+// (partition_epilogue.cu): up to kMaxWideKeys columns, LUTs as each kernel
+// reads them. Passed by value as a kernel parameter.
+constexpr int kMaxWideKeys = 8;
+
+struct WideKeySet {
+  KeyCol col[kMaxWideKeys];
   int n;
 };
 

@@ -2,7 +2,8 @@
 
 The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
 Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
-expansion and the sort-path segment sums). The kernels are
+expansion, the group sort, the sort-path segment sums and the repartition
+epilogue). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
 a hash of the sources, under ``trino_tpu_torch/_build/``), loaded with
@@ -43,7 +44,8 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
-    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0,
+    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "group_sort": 0,
+    "partition_epilogue": 0,
 }
 
 _LIB = None
@@ -143,6 +145,26 @@ def _library():
                 raise RuntimeError("hash_expand.cu and its wrapper disagree on GatherSet")
             lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
             lib.segment_sum.restype = i32
+            for name, want in (("wide_key_limit", _MAX_WIDE_KEYS),
+                               ("radix_tile_rows", _TILE_ROWS),
+                               ("radix_perm_cols", _MAX_PERM_COLS),
+                               ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS)):
+                fn = getattr(lib, name)
+                fn.restype = i32
+                if fn() != want:
+                    raise RuntimeError(f"csrc and its wrapper disagree on {name}")
+            gather = ctypes.POINTER(_PermGatherSet)
+            lib.group_sort_stats.argtypes = [ctypes.POINTER(_WideKeySet), ptr, i64, ptr, ptr]
+            lib.group_sort_stats.restype = i32
+            lib.group_sort.argtypes = (
+                [ctypes.POINTER(_WideKeySet), ptr, i64, ctypes.POINTER(_Composite), i32]
+                + [ptr] * 6 + [gather, i32] + [ptr] * 4
+            )
+            lib.group_sort.restype = i32
+            lib.partition_epilogue.argtypes = (
+                [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, ptr]
+            )
+            lib.partition_epilogue.restype = i32
             _LIB = lib
         return _LIB
 
@@ -400,8 +422,8 @@ def hash_probe_plain(pkeys, bkeys, luts, probe_active, build_active,
     }
 
 
-def _key_set(name: str, key_cols, luts, n: int) -> "_KeySet":
-    ks = _KeySet()
+def _key_set(name: str, key_cols, luts, n: int, cls=None):
+    ks = (cls or _KeySet)()
     ks.n = len(key_cols)
     for k, ((d, v), lut) in enumerate(zip(key_cols, luts)):
         if d.dtype not in _KEY_TYPES or d.ndim != 1 or d.shape[0] != n:
@@ -603,3 +625,255 @@ def segment_sum(values: torch.Tensor, weight: torch.Tensor,
     _check_launch("segment_sum", rc)
     LAUNCHES["segment_sum"] += 1
     return out
+
+
+# --------------------------------------------------------------------------- #
+# group sort (replaces megakernels.group_sort_phase and expand_phase's sort
+# stage) and the repartition epilogue (replaces megakernels.fused_epilogue)
+# --------------------------------------------------------------------------- #
+
+# kMaxWideKeys (csrc/join_keys.cuh), kMaxPermCols and kTileRows
+# (csrc/radix_pass.cuh)
+_MAX_WIDE_KEYS = 8
+_MAX_PERM_COLS = 16
+_TILE_ROWS = 2048
+_RADIX_BINS = 256
+# the largest n_parts partition_epilogue takes (kMaxParts)
+EPILOGUE_MAX_PARTS = 1024
+# composite field kinds (FieldKind in csrc/group_sort.cu)
+_VALUE_FIELD, _VALID_FIELD, _INACTIVE_FIELD = 0, 1, 2
+
+
+class _WideKeySet(ctypes.Structure):
+    _fields_ = [("col", _KeyCol * _MAX_WIDE_KEYS), ("n", ctypes.c_int)]
+
+
+class _Field(ctypes.Structure):
+    _fields_ = [
+        ("kind", ctypes.c_int), ("key", ctypes.c_int), ("offset", ctypes.c_int64),
+        ("bits", ctypes.c_int), ("pos", ctypes.c_int),
+    ]
+
+
+class _Composite(ctypes.Structure):
+    _fields_ = [
+        ("field", _Field * (2 * _MAX_WIDE_KEYS + 1)), ("n_fields", ctypes.c_int),
+        ("bits", ctypes.c_int),
+    ]
+
+
+class _PermCol(ctypes.Structure):
+    _fields_ = [
+        ("src", ctypes.c_void_p), ("src_valid", ctypes.c_void_p),
+        ("dst", ctypes.c_void_p), ("dst_valid", ctypes.c_void_p),
+        ("elem_bytes", ctypes.c_int),
+    ]
+
+
+class _PermGatherSet(ctypes.Structure):
+    _fields_ = [("col", _PermCol * _MAX_PERM_COLS), ("n", ctypes.c_int)]
+
+
+def _check_page_cols(name: str, cols, n: int, dev) -> None:
+    """(data, valid) columns of n rows on ``dev``: 1-D data of 1 to 8 byte
+    elements (2-D int128 limbs are not stored by the port yet) and bool
+    validity, both contiguous."""
+    for d, v in cols:
+        if d.ndim != 1:
+            raise ValueError(f"{name}: {d.ndim}-D (int128) columns are not supported")
+        if d.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"{name}: {d.element_size()}-byte elements are not supported")
+        _check_vectors(name, (d, v), (d.dtype, torch.bool))
+        if d.shape[0] != n or d.device != dev:
+            raise ValueError(f"{name}: columns must be {n} rows on {dev}")
+
+
+def _perm_gather_sets(cols):
+    """Output buffers and PermGatherSets for (data, valid or None) columns."""
+    n_sets = -(-len(cols) // _MAX_PERM_COLS)
+    sets = (_PermGatherSet * max(1, n_sets))()
+    outs = []
+    for i, (d, v) in enumerate(cols):
+        od = torch.empty_like(d)
+        ov = None if v is None else torch.empty_like(v)
+        g = sets[i // _MAX_PERM_COLS]
+        pc = g.col[g.n]
+        pc.src, pc.dst, pc.elem_bytes = d.data_ptr(), od.data_ptr(), d.element_size()
+        if v is not None:
+            pc.src_valid, pc.dst_valid = v.data_ptr(), ov.data_ptr()
+        g.n += 1
+        outs.append((od, ov))
+    return sets, n_sets, outs
+
+
+def group_sort_plain(key_cols, payload_cols, active: torch.Tensor):
+    """The reference's ``_group_sort_impl`` on tensors: stable passes least
+    significant first (each key from the last: its normalized value with
+    NULL as INT64_MAX, then its validity, NULL first; then ~active, so
+    inactive rows go last) through ``kernels.cosort``, and the group
+    boundaries."""
+    pass_keys: List[torch.Tensor] = []
+    for d, v in reversed(list(key_cols)):
+        pass_keys.append(torch.where(v, K.order_key(d), K.INT64_MAX))
+        pass_keys.append(v.to(torch.int8))
+    pass_keys.append((~active).to(torch.int8))
+    payloads: List[torch.Tensor] = []
+    for d, v in payload_cols:
+        payloads.extend((d, v))
+    payloads.append(active)
+    sorted_keys, sorted_payloads = K.cosort(pass_keys, payloads)
+    active_s = sorted_payloads[-1]
+    diff = torch.zeros_like(active_s)
+    for k in sorted_keys[:-1]:
+        diff = diff | (k != torch.roll(k, 1))
+    first = torch.zeros_like(active_s)
+    first[0] = True
+    prev_active = torch.roll(active_s, 1)
+    prev_active[0] = False
+    new_group = active_s & (first | diff | ~prev_active)
+    out = [(sorted_payloads[2 * i], sorted_payloads[2 * i + 1]) for i in range(len(payload_cols))]
+    return out, active_s, new_group, new_group.sum()
+
+
+def radix_plan(stats: Sequence[int], n: int):
+    """The group sort's composite keys from its stats (per key the least and
+    largest normalized value over valid rows and the valid-row count, then
+    the active-row count): fields least significant first, each
+    ``(kind, key, offset, bits, pos)``, packed greedily into composites of
+    at most 64 bits. A key's value field is ``value - min`` in
+    ``bit_length(max - min)`` bits (0 on NULL rows), its validity field one
+    bit; a field that is the same on every row is left out, since a stable
+    pass over equal digits changes nothing."""
+    nk = (len(stats) - 1) // 3
+    lo, hi, n_valid, n_active = stats[:nk], stats[nk:2 * nk], stats[2 * nk:3 * nk], stats[-1]
+    fields = []
+    for k in reversed(range(nk)):
+        if n_valid[k] and hi[k] > lo[k]:
+            fields.append((_VALUE_FIELD, k, lo[k], (hi[k] - lo[k]).bit_length()))
+        if 0 < n_valid[k] < n:
+            fields.append((_VALID_FIELD, k, 0, 1))
+    if 0 < n_active < n:
+        fields.append((_INACTIVE_FIELD, 0, 0, 1))
+    comps, cur, used = [], [], 0
+    for kind, key, offset, bits in fields:
+        if used + bits > 64:
+            comps.append(cur)
+            cur, used = [], 0
+        cur.append((kind, key, offset, bits, used))
+        used += bits
+    if cur:
+        comps.append(cur)
+    return comps
+
+
+def group_sort(key_cols, payload_cols, active: torch.Tensor):
+    """Stable co-sort of a page by its group keys, and its group boundaries.
+
+    ``key_cols``: (data, valid) of each group key, most significant first (1
+    to 8; integer, bool or float storage); ``payload_cols``: (data, valid)
+    of every column to carry; ``active`` bool. Returns ``(payload_out,
+    active_out, new_group, num_groups)``: the columns in sorted order
+    (within a key NULL rows first, inactive rows last, ties in row order),
+    ``new_group`` set on the first active row of each group, and the group
+    count as a 0-d int64. On CUDA tensors one host read of the keys' ranges
+    sizes the passes."""
+    _check_vectors("group_sort", (active,), (torch.bool,))
+    n, dev = active.shape[0], active.device
+    if not 1 <= len(key_cols) <= _MAX_WIDE_KEYS:
+        raise ValueError(f"group_sort: 1 to {_MAX_WIDE_KEYS} key columns")
+    if not 1 <= n < 2**31:
+        raise ValueError("group_sort: 1 to 2^31 - 1 rows (int32 row indices)")
+    _check_page_cols("group_sort", key_cols, n, dev)
+    _check_page_cols("group_sort", payload_cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _KEY_TYPES:
+            raise TypeError(f"group_sort: unsupported key column {d.dtype}")
+    if dev.type == "cpu":
+        return group_sort_plain(key_cols, payload_cols, active)
+    lib = _library()
+    stream = _stream(active)
+    ks = _key_set("group_sort", key_cols, (None,) * len(key_cols), n, _WideKeySet)
+    stats = torch.empty(3 * len(key_cols) + 1, dtype=torch.int64, device=dev)
+    _check_launch("group_sort", lib.group_sort_stats(
+        ctypes.byref(ks), active.data_ptr(), n, stats.data_ptr(), stream))
+    plan = radix_plan(stats.tolist(), n)
+    comps = (_Composite * max(1, len(plan)))()
+    for c, fields in zip(comps, plan):
+        for f, (kind, key, offset, bits, pos) in zip(c.field, fields):
+            f.kind, f.key, f.offset, f.bits, f.pos = kind, key, offset, bits, pos
+        c.n_fields = len(fields)
+        c.bits = sum(f[3] for f in fields)
+    scratch = [torch.empty(n, dtype=dt, device=dev)
+               for dt in (torch.int64, torch.int64, torch.int32, torch.int32)]
+    hist = torch.empty(_RADIX_BINS * -(-n // _TILE_ROWS), dtype=torch.int32, device=dev)
+    totals = torch.empty(_RADIX_BINS, dtype=torch.int32, device=dev)
+    sets, n_sets, outs = _perm_gather_sets(list(payload_cols))
+    active_out = torch.empty(n, dtype=torch.bool, device=dev)
+    new_group = torch.empty(n, dtype=torch.bool, device=dev)
+    num_groups = torch.empty((), dtype=torch.int64, device=dev)
+    rc = lib.group_sort(
+        ctypes.byref(ks), active.data_ptr(), n, comps, len(plan),
+        *(t.data_ptr() for t in scratch), hist.data_ptr(), totals.data_ptr(), sets, n_sets,
+        active_out.data_ptr(), new_group.data_ptr(), num_groups.data_ptr(), stream,
+    )
+    _check_launch("group_sort", rc)
+    LAUNCHES["group_sort"] += 1
+    return outs, active_out, new_group, num_groups
+
+
+def partition_epilogue_plain(key_cols, luts, cols, active: torch.Tensor, n_parts: int):
+    """The reference's ``_repartition_epilogue`` on tensors
+    (``ops/repartition.py``): dictionary keys through their value-key LUT,
+    the partition hash, inactive rows to ``n_parts``, then the stable sort
+    by destination with offsets and counts."""
+    from . import repartition as R
+
+    keys = [(R.map_value_keys(d, lut), v) for (d, v), lut in zip(key_cols, luts)]
+    dest = R.dest_of(keys, active, n_parts)
+    return R.sort_by_dest(dest, cols, active, n_parts)
+
+
+def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int):
+    """The repartition epilogue: rows to partitions, sorted stably by
+    partition.
+
+    ``key_cols``: (data, valid) of each partition key (0 to 8; no key sends
+    every row to the partition of one zero key); ``luts``: per key None or
+    the int64 value-key LUT of its dictionary; ``cols``: (data, valid) of
+    every column; ``n_parts`` 1 to :data:`EPILOGUE_MAX_PARTS`. Returns
+    ``(cols_out, active_out, offsets, counts)``: partition p's rows are
+    ``[offsets[p], offsets[p] + counts[p])`` in their original order
+    (int64 offsets and counts), inactive rows after the last."""
+    _check_vectors("partition_epilogue", (active,), (torch.bool,))
+    n, dev = active.shape[0], active.device
+    if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
+        raise ValueError(f"partition_epilogue: n_parts {n_parts} outside "
+                         f"[1, {EPILOGUE_MAX_PARTS}]")
+    if len(key_cols) > _MAX_WIDE_KEYS or len(luts) != len(key_cols):
+        raise ValueError(f"partition_epilogue: 0 to {_MAX_WIDE_KEYS} keys, one LUT slot each")
+    if not 1 <= n < 2**31:
+        raise ValueError("partition_epilogue: 1 to 2^31 - 1 rows (int32 row indices)")
+    _check_page_cols("partition_epilogue", key_cols, n, dev)
+    _check_page_cols("partition_epilogue", cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _KEY_TYPES:
+            raise TypeError(f"partition_epilogue: unsupported key column {d.dtype}")
+    if dev.type == "cpu":
+        return partition_epilogue_plain(key_cols, luts, cols, active, n_parts)
+    ks = _key_set("partition_epilogue", key_cols, luts, n, _WideKeySet)
+    nb = n_parts + 1
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty(nb * -(-n // _TILE_ROWS), dtype=torch.int32, device=dev)
+    totals = torch.empty(nb, dtype=torch.int32, device=dev)
+    offsets = torch.empty(nb, dtype=torch.int64, device=dev)
+    counts = torch.empty(nb, dtype=torch.int64, device=dev)
+    sets, n_sets, outs = _perm_gather_sets(list(cols) + [(active, None)])
+    rc = _library().partition_epilogue(
+        ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(), idx.data_ptr(),
+        hist.data_ptr(), totals.data_ptr(), offsets.data_ptr(), counts.data_ptr(), sets,
+        n_sets, _stream(active),
+    )
+    _check_launch("partition_epilogue", rc)
+    LAUNCHES["partition_epilogue"] += 1
+    return outs[:-1], outs[-1][0], offsets[:n_parts], counts[:n_parts]

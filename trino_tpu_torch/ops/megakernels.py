@@ -12,20 +12,23 @@ of the reference's body that stay torch operators:
 - :func:`expand_phase`: ``hash_expand`` resolves each output slot's probe
   and build row and gathers both sides' columns; the fused projection, the
   direct-indexed aggregation and the presorted grouping then run on the
-  joined page as the executor's torch operators.
+  joined page as the executor's torch operators, and the ``sort`` stage
+  runs in ``group_sort``.
+- :func:`group_sort_phase`: ``group_sort`` alone, the re-group after a
+  presorted sortedness violation.
 - :func:`aggregate_phase`: the sort-path reduction (``_aggregate_impl``),
   whose integer sums and counts run in ``segment_sum``.
+- :func:`fused_epilogue`: the repartition epilogue in
+  ``partition_epilogue``. As in the reference, no query path calls it
+  yet: the exchange that would (``attach_epilogue`` and the worker's
+  repartition hint) is not ported.
 
 Bit identity with the serial join follows the reference's argument: slot
 assignment is ``kernels.expand_probe_slots`` on both paths, and each bucket
 holds its build rows in ascending row order, which within equal keys is the
 serial path's stable sort order, so the d-th match of a probe row is the
-same build row on both paths.
-
-Not ported: the ``sort`` aggregation shape and the re-group after a
-presorted sortedness violation (``group_sort_phase``), the repartition
-``dest`` lane and ``fused_epilogue``. The executor declines the first two
-with the fallback reason ``group_sort_unported``.
+same build row on both paths. The group sort is a stable sort by the same
+keys as the serial path's co-sort, so both give one permutation.
 
 Counters are plain integers of this module: :data:`LAUNCHES` (one per phase
 run) and :data:`FALLBACKS` by reason. Kernel errors are never caught here:
@@ -35,7 +38,9 @@ they raise through the query.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
+
+import torch
 
 from . import hopper_kernels as HK
 from ..runtime.capstore import capacity_class
@@ -48,14 +53,14 @@ DEFAULT_BUCKET_CAP = 32
 # declines to the serial path as ``bucket_skew``
 TABLE_ENTRY_LIMIT = 1 << 22
 
-LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0}
+LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
 FALLBACKS: Counter = Counter()
 
 
 def on_fallback(reason: str) -> None:
     """One fragment declined the fused path; ``reason`` is the reference's
     stable label (cross_join, join_kind, residual_filter, key_ndim,
-    bucket_skew) or the port's ``group_sort_unported``."""
+    bucket_skew)."""
     FALLBACKS[reason] += 1
 
 
@@ -102,10 +107,13 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     ``proj_spec``: None or ``(compiled, out_symbols)``, the projection's
     compiled closures as the executor's ``_project_impl`` takes them.
     ``agg_spec``: None, ``("direct", (group_keys, aggregations, domains,
-    agg_symbols, mode))`` or ``("presorted", (group_keys, needed,
-    agg_symbols))``. Returns the joined (or aggregated) page; for
-    ``presorted``, ``(joined, grouped_page, new_group, num_groups,
-    violation)`` as ``_presorted_group_impl`` gives them."""
+    agg_symbols, mode))``, ``("presorted", (group_keys, needed,
+    agg_symbols))`` or ``("sort", (group_keys, needed, agg_symbols))``.
+    Returns the joined (or aggregated) page; for ``presorted``, ``(joined,
+    grouped_page, new_group, num_groups, violation)`` as
+    ``_presorted_group_impl`` gives them; for ``sort``, ``(sorted_page,
+    new_group, num_groups)`` from ``group_sort``, for
+    :func:`aggregate_phase` once the caller has read ``num_groups``."""
     from ..runtime import executor as E
 
     pr = probe_result
@@ -135,11 +143,23 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
         return E._direct_aggregate(
             group_keys, aggregations, domains, E.Relation(out, agg_symbols), kernel_mode
         )
-    if mode != "presorted":
-        raise ValueError(f"expand_phase: aggregation shape {mode!r} is not ported")
     group_keys, needed, agg_symbols = payload
+    if mode == "sort":
+        return E._group_sort_impl(group_keys, needed, agg_symbols, out, kernel=True)
+    if mode != "presorted":
+        raise ValueError(f"expand_phase: unknown aggregation shape {mode!r}")
     p, ng, n_grp, viol = E._presorted_group_impl(group_keys, needed, agg_symbols, out)
     return out, p, ng, n_grp, viol
+
+
+def group_sort_phase(group_keys, needed, symbols, page: Page):
+    """The standalone group sort: the re-group after the presorted path
+    found a sortedness violation on the joined page. Returns
+    ``(sorted_page, new_group, num_groups)``."""
+    from ..runtime import executor as E
+
+    LAUNCHES["group_sort"] += 1
+    return E._group_sort_impl(group_keys, needed, symbols, page, kernel=True)
 
 
 def aggregate_phase(group_keys, aggregations, needed, out_cap: int,
@@ -154,3 +174,23 @@ def aggregate_phase(group_keys, aggregations, needed, out_cap: int,
         group_keys, aggregations, needed, out_cap, sorted_page, new_group,
         num_groups, segment_kernel=True,
     )
+
+
+def fused_epilogue(page: Page, key_idx: Sequence[int], n_parts: int):
+    """Hash, stable sort by destination and offsets as one kernel
+    (``partition_epilogue``): returns ``(sorted_page, offsets, counts)``,
+    bit-identical to ``repartition._repartition_epilogue``. Dictionary
+    keys hash through their ``value_keys`` LUT."""
+    keys = [page.columns[i] for i in key_idx]
+    dev = page.active.device
+    luts = [
+        None if c.dictionary is None
+        else torch.as_tensor(c.dictionary.value_keys(), device=dev)
+        for c in keys
+    ]
+    cols, active, offsets, counts = HK.partition_epilogue(
+        [(c.data, c.valid) for c in keys], luts,
+        [(c.data, c.valid) for c in page.columns], page.active, n_parts,
+    )
+    out = tuple(Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(page.columns, cols))
+    return Page(out, active), offsets, counts

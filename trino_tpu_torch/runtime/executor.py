@@ -401,13 +401,13 @@ class PlanExecutor:
         keys aggregate on the joined page with the grouped-sum kernels;
         other keys take the presorted path when the joined page is ordered
         on the first group key (probe-major expansion keeps the probe
-        side's order), then the segment-sum reduction. The ``sort`` shape,
-        and a presorted page whose sortedness check fails, need
-        ``group_sort_phase``, which is not ported: they count the fallback
-        ``group_sort_unported`` and finish serially. Unlike the reference,
+        side's order), else the ``sort`` stage's group sort; then the group
+        count's host read and the segment-sum reduction. A presorted page
+        whose sortedness check fails re-groups through
+        ``group_sort_phase``, as in the reference. Unlike the reference,
         the ``pallas_aggregation`` mode does not gate this path (the port's
-        stages are separate launches, not one kernel). Returns None when the
-        shape is not a join under a grouped aggregation."""
+        stages are separate launches, not one kernel). Returns None when
+        the shape is not a join under a grouped aggregation."""
         if not self._fusion_enabled():
             return None
         proj = None
@@ -452,9 +452,6 @@ class PlanExecutor:
             domains = _direct_agg_domains(_KeyView(key_sources), node)
         needed = _needed_agg_symbols(node)
         presorted = bool(post_sorted) and post_sorted[0] == node.group_keys[0]
-        if domains is None and not presorted:
-            MK.on_fallback("group_sort_unported")
-            return serial_finish()
 
         pr = MK.probe_phase(
             pkeys, bkeys, luts, probe.page.active, build.page.active, spec.left_outer
@@ -475,16 +472,20 @@ class PlanExecutor:
                 base_symbols, proj_spec, agg_spec,
             )
             return Relation(page, agg_symbols)
-        agg_spec = ("presorted", (node.group_keys, needed, post_symbols))
-        joined, p, ng, n_grp, viol = MK.expand_phase(
+        agg_spec = ("presorted" if presorted else "sort",
+                    (node.group_keys, needed, post_symbols))
+        res = MK.expand_phase(
             pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity,
             base_symbols, proj_spec, agg_spec,
         )
-        if bool(viol):
-            MK.on_fallback("group_sort_unported")
-            return aggregate_relation(
-                Relation(joined, post_symbols), node, self._kernel_mode()
-            )
+        if presorted:
+            joined, p, ng, n_grp, viol = res
+            if bool(viol):
+                p, ng, n_grp = MK.group_sort_phase(
+                    node.group_keys, needed, post_symbols, joined
+                )
+        else:
+            p, ng, n_grp = res
         # the group-count host sync the serial sort path performs
         out_cap = min(_round_capacity(max(int(n_grp), 1), base=16), max(out_capacity, 16))
         page = MK.aggregate_phase(
@@ -836,41 +837,28 @@ def _presorted_group_impl(group_keys, needed, symbols, page: Page):
     return Page(cols, active), new_group, num_groups, violation
 
 
-def _group_sort_impl(group_keys, needed, symbols, page: Page):
+def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = False):
     """Co-sort the ``needed`` columns by the group keys (within a key, NULL
-    before values; inactive rows last) and mark group boundaries. Returns (sorted
-    page over ``needed``, new_group, num_groups)."""
+    before values; inactive rows last) and mark group boundaries. Returns
+    (sorted page over ``needed``, new_group, num_groups). With ``kernel``
+    the sort runs in ``hopper_kernels.group_sort`` (the fused path's sort
+    stage and ``group_sort_phase``), else in its plain torch version."""
     rel = Relation(page, symbols)
-    pass_keys: List[torch.Tensor] = []
-    # least significant first; each key sorts by value, then by validity
-    for k in reversed(group_keys):
+    key_cols = []
+    for k in group_keys:
         c = rel.column_for(k)
         if c.data.ndim == 2:
             unported("ops.int128 (long decimal group keys)")
-        pass_keys.append(torch.where(c.valid, K.order_key(c.data), K.INT64_MAX))
-        pass_keys.append(c.valid.to(torch.int8))
-    pass_keys.append((~page.active).to(torch.int8))
-    payloads: List[torch.Tensor] = []
-    for s in needed:
-        c = rel.column_for(s)
-        payloads.extend((c.data, c.valid))
-    payloads.append(page.active)
-    sorted_keys, sorted_payloads = K.cosort(pass_keys, payloads)
-    active_s = sorted_payloads[-1]
-    diff = torch.zeros_like(active_s)
-    for k in sorted_keys[:-1]:
-        diff = diff | (k != torch.roll(k, 1))
-    first = torch.zeros_like(active_s)
-    first[0] = True
-    prev_active = torch.roll(active_s, 1)
-    prev_active[0] = False
-    new_group = active_s & (first | diff | ~prev_active)
-    cols = tuple(
-        Column(rel.column_for(s).type, sorted_payloads[2 * i], sorted_payloads[2 * i + 1],
-               rel.column_for(s).dictionary)
-        for i, s in enumerate(needed)
+        key_cols.append((c.data, c.valid))
+    cols = [rel.column_for(s) for s in needed]
+    sort = HK.group_sort if kernel else HK.group_sort_plain
+    out, active_s, new_group, num_groups = sort(
+        key_cols, [(c.data, c.valid) for c in cols], page.active
     )
-    return Page(cols, active_s), new_group, new_group.sum()
+    sorted_cols = tuple(
+        Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(cols, out)
+    )
+    return Page(sorted_cols, active_s), new_group, num_groups
 
 
 def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
