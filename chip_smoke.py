@@ -162,30 +162,53 @@ def bound_ms(nbytes: int, ops: int) -> tuple:
 
 
 def grouped_cases(n_main: int, dev):
-    """(label, values int64, weight, gid, G) cases for the grouped sums."""
+    """(label, values int64, weight, gid, G, offsets) cases for the grouped
+    sums. ``offsets`` are the element offsets (values, weight, gid) of the
+    views the kernel is given, taken after the values' cast: offset views
+    start off 16-byte alignment."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
 
     def rnd(n, lo, hi, dtype=torch.int64):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
 
-    def case(label, n, G, lo=-(10**12), hi=10**12, wrate=0.8, gmax=None):
+    def case(label, n, G, lo=-(10**12), hi=10**12, wrate=0.8, gmax=None, offsets=(0, 0, 0)):
         vals = rnd(n, lo, hi)
         w = torch.rand(n, generator=gen, device=dev) < wrate
         gid = rnd(n, 0, gmax or G, torch.int32)
-        return label, vals, w, gid, G
+        return label, vals, w, gid, G, offsets
 
     yield case("uniform n=%d G=%d" % (n_main, G_Q1), n_main, G_Q1, 1, 10**9, 0.98)
+    # Q1's page at SF10: 4 of its 12 groups live, in its row counts per group
+    label, vals, w, _, G, off = case("Q1's 4 live groups of 12, n=%d" % n_main, n_main, G_Q1,
+                                     1, 10**9, 0.98)
+    live = torch.tensor([0, 3, 4, 6], dtype=torch.int32, device=dev)
+    share = torch.tensor([15_594_570, 406_798, 28_389_020, 15_602_153], dtype=torch.float64,
+                         device=dev)
+    pick = torch.multinomial(share, n_main, replacement=True, generator=gen)
+    yield label, vals, w, live[pick], G, off
+    label, vals, w, gid, G, off = case("one live group of 12, n=%d" % n_main, n_main, G_Q1,
+                                       1, 10**9, 0.98)
+    yield label, vals, w, torch.full_like(gid, 4), G, off
+    yield case("G=64 n=%d" % n_main, n_main, 64, 1, 10**9, 0.98)
+    yield case("views offset by one row, n=%d" % n_main, n_main, G_Q1, 1, 10**9, 0.98,
+               offsets=(1, 1, 1))
+    yield case("views offset apart (values 0, weight 2, gid 1)", 1_000_003, G_Q1,
+               offsets=(0, 2, 1))
+    yield case("views offset by three rows, G=64", 777_777, 64, offsets=(3, 3, 3))
     yield case("unaligned n", 1_000_003, G_Q1)
     yield case("n=0", 0, G_Q1)
+    yield case("n=3, offset by one row", 4, 5, offsets=(1, 1, 1))
     yield case("G=1", 777_777, 1)
+    yield case("G=17", 777_777, 17)
+    yield case("G=33", 777_777, 33)
     yield case("G=64", 777_777, 64)
     yield case("empty groups", 500_001, G_Q1, gmax=5)
-    label, vals, w, _, G = case("gid out of range", 400_003, 6)
-    yield label, vals, w, rnd(400_003, -3, 9, torch.int32), G
+    label, vals, w, _, G, off = case("gid out of range", 400_003, 6)
+    yield label, vals, w, rnd(400_003, -3, 9, torch.int32), G, off
     yield case("wrapping int64", 1_000_000, 5, -(2**62), 2**62, 1.0)
-    label, vals, w, gid, G = case("all-false mask", 300_000, G_Q1)
-    yield "all-false mask", vals, torch.zeros_like(w), gid, G
+    label, vals, w, gid, G, off = case("all-false mask", 300_000, G_Q1)
+    yield "all-false mask", vals, torch.zeros_like(w), gid, G, off
 
 
 def q6_cases(n_main: int, dev):
@@ -229,10 +252,12 @@ def key_bytes(cols) -> int:
 
 
 def join_cases(n_main: int, dev):
-    """(label, pkeys, bkeys, luts, probe_active, build_active, left_outer)
-    cases for hash_probe and hash_expand. The first has the shape of Q3's
-    second join at SF10: one lineitem page of probe keys against a build
-    side of 2,097,152 slots, 70 % active, with unique keys (order keys)."""
+    """(label, pkeys, bkeys, luts, probe_active, build_active, left_outer,
+    past_limit) cases for hash_probe and hash_expand. The first has the
+    shape of Q3's second join at SF10: one lineitem page of probe keys
+    against a build side of 2,097,152 slots, 70 % active, with unique keys
+    (order keys). ``past_limit`` lets the table pass the engine's entry
+    limit (the fan-out case's C = 8192)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
 
@@ -245,31 +270,45 @@ def join_cases(n_main: int, dev):
     m = 2_097_152
     bk = torch.arange(m, device=dev, dtype=torch.int64) * 4 + 1
     yield ("Q3 shape n=%d m=%d" % (n_main, m), ((rnd(n_main, 0, 4 * m), mask(n_main, 1.0)),),
-           ((bk, mask(m, 1.0)),), (None,), mask(n_main, 0.54), mask(m, 0.7), False)
+           ((bk, mask(m, 1.0)),), (None,), mask(n_main, 0.54), mask(m, 0.7), False, False)
     n, m = 1_000_003, 300_007
     yield ("LEFT, NULL keys", ((rnd(n, 0, 400_000), mask(n, 0.9)),),
-           ((rnd(m, 0, 400_000), mask(m, 0.9)),), (None,), mask(n, 0.8), mask(m, 0.7), True)
+           ((rnd(m, 0, 400_000), mask(m, 0.9)),), (None,), mask(n, 0.8), mask(m, 0.7), True,
+           False)
     lut = rnd(4000, -1, 3000)  # probe vocabulary -> build codes, some absent
     yield ("dictionary key through a LUT", ((rnd(n, 0, 4000, torch.int32), mask(n, 0.95)),),
            ((rnd(4096, 0, 3000, torch.int32), mask(4096, 0.95)),), (lut,), mask(n, 0.8),
-           mask(4096, 0.7), False)
+           mask(4096, 0.7), False, False)
     yield ("two keys (int32, float64)",
            ((rnd(n, 0, 2000, torch.int32), mask(n, 0.95)),
             (rnd(n, 0, 40).to(torch.float64) / 4 - 5, mask(n, 0.95))),
            ((rnd(100_000, 0, 2000, torch.int32), mask(100_000, 0.95)),
             (rnd(100_000, 0, 40).to(torch.float64) / 4 - 5, mask(100_000, 0.95))),
-           (None, None), mask(n, 0.8), mask(100_000, 0.7), True)
+           (None, None), mask(n, 0.8), mask(100_000, 0.7), True, False)
     yield ("empty build", ((rnd(n, 0, 1000), mask(n, 1.0)),),
-           ((rnd(m, 0, 1000), mask(m, 1.0)),), (None,), mask(n, 0.8), mask(m, 0.0), True)
+           ((rnd(m, 0, 1000), mask(m, 1.0)),), (None,), mask(n, 0.8), mask(m, 0.0), True,
+           False)
     yield ("duplicate-heavy build (retry at a wider C)",
            ((rnd(100_000, 0, 400), mask(100_000, 1.0)),),
            ((rnd(4096, 0, 40), mask(4096, 1.0)),), (None,), mask(100_000, 0.9),
-           mask(4096, 0.9), False)
+           mask(4096, 0.9), False, False)
     edge = torch.tensor([-(2**63), 2**63 - 1, -1, 0, 1], device=dev)
     yield ("INT64_MIN/MAX and negative keys",
            ((edge[rnd(100_003, 0, 5)], mask(100_003, 1.0)),),
            ((edge[rnd(1024, 0, 5)], mask(1024, 1.0)),), (None,), mask(100_003, 1.0),
-           mask(1024, 0.3), False)
+           mask(1024, 0.3), False, False)
+    # one build key on 3,000 rows: past the retries' classes of 128, 512 and
+    # 2048 slots, so each probe row with it emits 3,000 slots, more than a
+    # scan tile's rows; six such rows, two adjacent, two across a tile edge,
+    # one the last row (its slots run into the tail)
+    n, m = 20_003, 4096
+    bkey = torch.cat([torch.full((3000,), 7, device=dev),
+                      torch.arange(m - 3000, device=dev) + 10_000])
+    pkey = rnd(n, 10_000, 12_000)
+    pkey[torch.tensor([5, 6, 2047, 2048, 9_000, n - 1], device=dev)] = 7
+    yield ("fan-out: one build key on 3000 rows", ((pkey, mask(n, 1.0)),),
+           ((bkey, mask(m, 1.0)),), (None,), mask(n, 1.0) | (pkey == 7), mask(m, 1.0), False,
+           True)
 
 
 def payload_cols(keys, n: int, dev, seed: int):
@@ -296,9 +335,10 @@ def same_expand(got, want) -> bool:
         torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs)
 
 
-def probe_args(HK, pkeys, bkeys, luts, pa, ba, left):
+def probe_args(HK, pkeys, bkeys, luts, pa, ba, left, past_limit=False):
     """hash_probe's arguments at the engine's table shape, retried once at
-    the wider slot class as ``megakernels.probe_phase`` does."""
+    the wider slot class as ``megakernels.probe_phase`` does (past the
+    engine's table limit only where ``past_limit``)."""
     from trino_tpu_torch.runtime.capstore import capacity_class
 
     from trino_tpu_torch.ops import megakernels as MK
@@ -308,13 +348,14 @@ def probe_args(HK, pkeys, bkeys, luts, pa, ba, left):
     need = int(HK.hash_probe_plain(pkeys, bkeys, luts, pa, ba, B, C, left)["max_count"])
     if need > C:
         C = capacity_class(need, base=8)
-        if (B + 1) * C > MK.TABLE_ENTRY_LIMIT:
+        if (B + 1) * C > MK.TABLE_ENTRY_LIMIT and not past_limit:
             fail(f"a join case past the table limit: B={B} C={C}")
     return (pkeys, bkeys, luts, pa, ba, B, C, left)
 
 
-def expand_args(pr: dict, pkeys, bkeys, luts, pa, probe_cols, build_cols):
-    cap = round_capacity(max(int(pr["emit"].sum()), 1))
+def expand_args(pr: dict, pkeys, bkeys, luts, pa, probe_cols, build_cols, cap=None):
+    if cap is None:
+        cap = round_capacity(max(int(pr["emit"].sum()), 1))
     return (pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"], pkeys,
             bkeys, luts, pa, probe_cols, build_cols, cap)
 
@@ -662,7 +703,8 @@ class LaunchTap:
 
 SHAPE_OF = {
     "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
-    "hash_expand": lambda a: f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]}",
+    "hash_expand": lambda a: (f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]} "
+                              f"columns={len(a[9])}+{len(a[10])}"),
     "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
     "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
                              f"active={int(a[2].sum())} columns={len(a[1])}"),
@@ -703,7 +745,27 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
               flush=True)
         timing = time_wrapper(HK, name, args)
         print_timing(f"{name} [{query} inputs]", timing)
+        if name == "hash_expand":
+            scan, slots = expand_split_ms(HK, args)
+            print(f"  hash_expand [{query} inputs]: scan pass {scan:.4f} ms, slot-and-gather "
+                  f"pass {slots:.4f} ms", flush=True)
         record(results, name, query, timing, recorded)
+
+
+def expand_split_ms(HK, args, reps: int = 10) -> tuple:
+    """Mean milliseconds of hash_expand's scan pass and of its slot pass
+    (with the gather) on these inputs: CUDA events recorded just before the
+    scan, between the passes and after the slot pass, after one warm-up."""
+    HK.hash_expand(*args)
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        HK.hash_expand(*args, phase_events=ev)
+        marks.append(ev)
+    torch.cuda.synchronize()
+    return (sum(a.elapsed_time(b) for a, b, _ in marks) / reps,
+            sum(b.elapsed_time(c) for _, b, c in marks) / reps)
 
 
 def print_timing(label: str, timing: tuple) -> None:
@@ -760,8 +822,9 @@ def check_sort_kernels(HK, dev, results: dict) -> None:
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
     """hash_probe, hash_expand and segment_sum against their plain versions
     on every case; the first (main-shape) case of each is timed."""
-    for i, (label, pkeys, bkeys, luts, pa, ba, left) in enumerate(join_cases(n_main, dev)):
-        pargs = probe_args(HK, pkeys, bkeys, luts, pa, ba, left)
+    cases = enumerate(join_cases(n_main, dev))
+    for i, (label, pkeys, bkeys, luts, pa, ba, left, past_limit) in cases:
+        pargs = probe_args(HK, pkeys, bkeys, luts, pa, ba, left, past_limit)
         if not same_result(HK, "hash_probe", pargs):
             fail(f"hash_probe [{label}] differs from its plain version")
         pr = HK.hash_probe(*pargs)
@@ -770,12 +833,27 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
         eargs = expand_args(pr, pkeys, bkeys, luts, pa, pcols, bcols)
         if not same_result(HK, "hash_expand", eargs):
             fail(f"hash_expand [{label}] differs from its plain version")
-        print(f"  hash_probe, hash_expand [{label}]: bit-exact (C={pargs[6]}, "
-              f"{int(pr['emit'].sum())} output rows)", flush=True)
+        total = int(pr["emit"].sum())
+        # out_capacity below the total: the slots past it are dropped
+        short = expand_args(pr, pkeys, bkeys, luts, pa, pcols, bcols, max(1, total // 3))
+        if not same_result(HK, "hash_expand", short):
+            fail(f"hash_expand [{label}, out_capacity {short[-1]} < {total}] differs "
+                 "from its plain version")
+        # past one gather set: the slot pass saves its rows for a gather pass
+        wide = expand_args(pr, pkeys, bkeys, luts, pa, pcols * 3, bcols * 3)
+        n_wide = 3 * len(pcols + bcols)
+        if i == 1 and not same_result(HK, "hash_expand", wide):
+            fail(f"hash_expand [{label}, {n_wide} columns] differs from its plain version")
+        print(f"  hash_probe, hash_expand [{label}]: bit-exact (C={pargs[6]}, {total} output "
+              f"rows, most from one probe row {int(pr['emit'].max())}; and at out_capacity "
+              f"{short[-1]}{f'; and with {n_wide} columns' if i == 1 else ''})", flush=True)
         if i == 0:
             for name, args in (("hash_probe", pargs), ("hash_expand", eargs)):
                 results[name] = timed_entry(HK, name, args)
-        del pr, pargs, eargs, pcols, bcols
+            scan, slots = expand_split_ms(HK, eargs)
+            print(f"  hash_expand [main shape]: scan pass {scan:.4f} ms, slot-and-gather pass "
+                  f"{slots:.4f} ms", flush=True)
+        del pr, pargs, eargs, short, wide, pcols, bcols
     torch.cuda.empty_cache()
     for i, (label, v, w, starts) in enumerate(segment_cases(n_main, dev)):
         if not same_result(HK, "segment_sum", (v, w, starts)):
@@ -820,17 +898,23 @@ def check_kernels(HK, n_main: int, dev) -> dict:
     results = {}
     for name, vdtype in (("grouped_sum_i64", torch.int64), ("grouped_sum_i32", torch.int32)):
         wrapper = getattr(HK, name)
-        for i, (label, vals, w, gid, G) in enumerate(grouped_cases(n_main, dev)):
-            v = vals.to(vdtype)
+        for i, (label, vals, w, gid, G, (ov, ow, og)) in enumerate(grouped_cases(n_main, dev)):
+            n = max(vals.shape[0] - max(ov, ow, og), 0)
+            v = vals.to(vdtype)[ov:ov + n]
+            w, gid = w[ow:ow + n], gid[og:og + n]
             got = wrapper(v, w, gid, G)
             want = HK.grouped_sum_plain(v, w, gid, G)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 fail(f"{name} [{label}] differs from its plain version: "
                      f"{got.tolist()[:8]} vs {want.tolist()[:8]}")
-            print(f"  {name} [{label}]: bit-exact", flush=True)
+            timing = ""
             if i == 0:
                 results[name] = timed_entry(HK, name, (v, w, gid, G))
+            elif n >= n_main - 1:
+                timing = f", kernel {time_ms(lambda: wrapper(v, w, gid, G)):.4f} ms"
+            print(f"  {name} [{label}]: bit-exact{timing}", flush=True)
+            del v, w, gid, vals
 
     worst = 0
     timing = None

@@ -110,6 +110,23 @@ def test_grouped_sum_skips_out_of_range_gid(name):
     np.testing.assert_array_equal(_wrapper(name, vals, w, gid, G), want)
 
 
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (0, 2, 1), (3, 3, 3)])
+@pytest.mark.parametrize("name", ["grouped_sum_i64", "grouped_sum_i32"])
+def test_grouped_sum_takes_offset_views(name, offsets):
+    # an engine tensor may be a view whose data_ptr is off 16-byte
+    # alignment; the wrapper takes it (the kernel reads a scalar head and
+    # tail) and keeps the contract
+    G = 12
+    vals, w, gid = _grouped_case(BLOCK + 21, G, seed=7)
+    vals = vals.astype(np.int64 if name == "grouped_sum_i64" else np.int32)
+    n = vals.shape[0] - max(offsets)
+    ov, ow, og = offsets
+    v_t, w_t, g_t = (torch.from_numpy(a)[o:o + n] for a, o in ((vals, ov), (w, ow), (gid, og)))
+    got = getattr(HK, name)(v_t, w_t, g_t, G).numpy()
+    want = _reference_sum(vals[ov:ov + n], w[ow:ow + n], gid[og:og + n], G)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_grouped_sum_rejects_bad_inputs():
     v = torch.zeros(8, dtype=torch.int64)
     w = torch.ones(8, dtype=torch.bool)

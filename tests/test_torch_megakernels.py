@@ -244,6 +244,120 @@ def test_segment_sum_plain_matches_reference_segment_reduce():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _expand_emit(case):
+    """emit of one expansion-plan case, around ``HK.EXPAND_TILE_ROWS``."""
+    T = HK.EXPAND_TILE_ROWS
+    rng = np.random.default_rng(17)
+    n = 3 * T + 777  # not a multiple of the tile
+    sparse = np.where(rng.random(n) < 0.1, rng.integers(1, 4, n), 0).astype(np.int32)
+    if case == "ragged_n":
+        return sparse
+    if case == "zero_runs_and_edge_ties":
+        emit = np.zeros(n, np.int32)
+        emit[[3, T - 4, T + 5, 2 * T + 1, 3 * T + 100]] = [2, 1, 3, 1, 2]
+        emit[2 * T - 1] = 1  # the last row of a tile, after a run of zeros
+        return emit  # rows T-3 .. T+4 tie at one start across the tile edge
+    if case == "one_row_spans_tiles":
+        sparse[T + 10] = 3 * T + 5
+        return sparse
+    if case == "many_tiles":
+        # more tiles than the look-back window, so windows slide
+        m = (3 * HK.EXPAND_LOOK_BACK // 2) * T + 5
+        return np.where(rng.random(m) < 0.01, rng.integers(1, 4, m), 0).astype(np.int32)
+    if case == "all_on_last_row":
+        emit = np.zeros(n, np.int32)
+        emit[-1] = 5000
+        return emit
+    assert case == "total_zero"
+    return np.zeros(n, np.int32)
+
+
+def _emulate_expand_slots(emit, out_capacity, seed):
+    """hash_expand's slot plan, emulated in numpy: per tile of
+    ``EXPAND_TILE_ROWS`` rows the local exclusive scan and aggregate; the
+    tiles' aggregates published, then each tile's offset found by the
+    ``EXPAND_LOOK_BACK``-wide look-back, the tiles taken in a random order and each
+    publishing its inclusive prefix when found; each tile's slots [off, off
+    + agg) below ``out_capacity`` mapped to rows by a search over the local
+    scan, kept as int32 clipped at INT32_MAX as in shared memory; then the
+    slots past the total filled from the last tile's total and start[n-1]."""
+    T = HK.EXPAND_TILE_ROWS
+    n = emit.shape[0]
+    n_tiles = -(-n // T)
+    local, agg = [], []
+    for t in range(n_tiles):
+        e = emit[t * T:(t + 1) * T].astype(np.int64)
+        local.append(np.cumsum(e) - e)
+        agg.append(int(e.sum()))
+    last_local = int(local[-1][-1])
+    local = [np.minimum(x, 2**31 - 1).astype(np.int32) for x in local]
+    AGGREGATE, PREFIX = 1, 2
+    W = HK.EXPAND_LOOK_BACK
+    status = [(PREFIX if t == 0 else AGGREGATE, agg[t]) for t in range(n_tiles)]
+    off = [0] * n_tiles
+    for t in np.random.default_rng(seed).permutation(np.arange(1, n_tiles)):
+        excl, pred = 0, t - 1
+        while True:
+            window = [status[j] if j >= 0 else (PREFIX, 0) for j in range(pred, pred - W, -1)]
+            stops = [k for k, (flag, _) in enumerate(window) if flag == PREFIX]
+            stop = stops[0] if stops else W - 1
+            excl += sum(v for _, v in window[:stop + 1])
+            if stops:
+                break
+            pred -= W
+        off[t] = excl
+        status[t] = (PREFIX, excl + agg[t])
+    probe_idx = np.full(out_capacity, -1, np.int64)
+    d = np.full(out_capacity, -1, np.int64)
+    for t in range(n_tiles):
+        q = np.arange(max(0, min(agg[t], out_capacity - off[t])))
+        li = np.searchsorted(local[t], q, side="right") - 1
+        probe_idx[off[t] + q] = t * T + li
+        d[off[t] + q] = q - local[t][li]
+    total = off[-1] + agg[-1]
+    last_start = off[-1] + last_local
+    tail = np.arange(min(total, out_capacity), out_capacity)
+    probe_idx[tail] = n - 1
+    d[tail] = tail - last_start
+    return probe_idx, d, np.arange(out_capacity) < total
+
+
+@pytest.mark.parametrize("cap", ["below_total", "above_total"])
+@pytest.mark.parametrize("case", ["all_on_last_row", "many_tiles", "one_row_spans_tiles",
+                                  "ragged_n", "total_zero", "zero_runs_and_edge_ties"])
+def test_expand_slot_plan_matches_expand_probe_slots(case, cap):
+    """The CUDA expansion's plan (tile scans, look-back offsets, the slot
+    search inside each tile, the tail fill) gives every slot the
+    (probe_idx, d, out_active) of ``kernels.expand_probe_slots``, in the
+    reference and in the port."""
+    from trino_tpu.ops import kernels as RK
+
+    emit = _expand_emit(case)
+    total = int(emit.astype(np.int64).sum())
+    out_capacity = max(1, total // 2) if cap == "below_total" else total + 3000
+    got = _emulate_expand_slots(emit, out_capacity, seed=len(case))
+    want = RK.expand_probe_slots(jnp.asarray(emit), out_capacity)[:3]
+    port = PK.expand_probe_slots(torch.from_numpy(emit), out_capacity)[:3]
+    for g, w, p in zip(got, want, port):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(g, p.numpy())
+
+
+def test_expand_slot_plan_clips_local_starts_past_int32():
+    """A tile whose emission passes 2^31 (one row emitting 2^31 - 1 slots)
+    keeps its local starts as clipped int32 and still maps every slot below
+    ``out_capacity`` (< 2^31) as ``kernels.expand_probe_slots`` does."""
+    from trino_tpu.ops import kernels as RK
+
+    T = HK.EXPAND_TILE_ROWS
+    emit = np.zeros(2 * T + 9, np.int32)
+    emit[[5, 6, 40, T + 3]] = [3, 2**31 - 1, 7, 2]
+    got = _emulate_expand_slots(emit, 5000, seed=3)
+    want = RK.expand_probe_slots(jnp.asarray(emit), 5000)[:3]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
 # --------------------------------------------------------------------------- #
 # the group sort (group_sort_phase, expand_phase's sort stage) and the
 # repartition epilogue (fused_epilogue)

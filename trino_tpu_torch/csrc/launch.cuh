@@ -11,17 +11,22 @@ namespace hopper {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Blocks for a grid-stride pass over n rows: one per 256 rows, capped at 8
-// per SM (8 blocks of 256 threads fill an SM's 2048 thread slots).
-inline int grid_for(int64_t n) {
+// SMs of the current device (read once).
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  return sms;
+}
+
+// Blocks for a grid-stride pass over n rows: one per 256 rows, capped at 8
+// per SM (8 blocks of 256 threads fill an SM's 2048 thread slots).
+inline int grid_for(int64_t n) {
   const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 8;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * 8;
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 

@@ -135,17 +135,20 @@ def _library():
                 [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 7
             )
             lib.hash_probe.restype = i32
-            lib.hash_expand.argtypes = (
-                [keyset, keyset] + [ptr] * 6 + [i64, i64, i32, i64] + [ptr] * 6
+            lib.hash_expand_scan.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr]
+            lib.hash_expand_scan.restype = i32
+            lib.hash_expand_slots.argtypes = (
+                [keyset, keyset] + [ptr] * 4 + [i64, i64, i32, i64] + [ptr] * 7
                 + [ctypes.POINTER(_GatherSet), i32, ptr]
             )
-            lib.hash_expand.restype = i32
-            lib.hash_expand_gather_cols.restype = i32
-            if lib.hash_expand_gather_cols() != _MAX_GATHER_COLS:
-                raise RuntimeError("hash_expand.cu and its wrapper disagree on GatherSet")
+            lib.hash_expand_slots.restype = i32
             lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
             lib.segment_sum.restype = i32
-            for name, want in (("wide_key_limit", _MAX_WIDE_KEYS),
+            for name, want in (("hash_expand_gather_cols", _MAX_GATHER_COLS),
+                               ("hash_expand_tile_rows", EXPAND_TILE_ROWS),
+                               ("hash_expand_state_head", _EXPAND_STATE_HEAD),
+                               ("hash_expand_look_back", EXPAND_LOOK_BACK),
+                               ("wide_key_limit", _MAX_WIDE_KEYS),
                                ("radix_tile_rows", _TILE_ROWS),
                                ("radix_perm_cols", _MAX_PERM_COLS),
                                ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS)):
@@ -307,10 +310,16 @@ def q6_fused(
 # hash join (replaces megakernels.probe_phase / expand_phase's join stage)
 # --------------------------------------------------------------------------- #
 
-# key columns one join carries, and columns per gather launch: the sizes of
+# key columns one join carries, and columns per gather set: the sizes of
 # KeySet and GatherSet in csrc/join_keys.cuh and csrc/hash_expand.cu
 _MAX_KEYS = 4
 _MAX_GATHER_COLS = 16
+# hash_expand's scan tile (probe rows a block scans, kTileRows), its
+# look-back window (tiles, one a thread) and the int64 words of its scan
+# state ahead of the tile status words (kStateHead)
+EXPAND_TILE_ROWS = 24576
+EXPAND_LOOK_BACK = 256
+_EXPAND_STATE_HEAD = 3
 # probe rows per chunk of the plain versions' [rows, C] match block
 _PLAIN_CHUNK = 1 << 20
 
@@ -521,14 +530,19 @@ def hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
 
 
 def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
-                probe_active: torch.Tensor, probe_cols, build_cols, out_capacity: int):
+                probe_active: torch.Tensor, probe_cols, build_cols, out_capacity: int,
+                *, phase_events=None):
     """The join expansion into ``out_capacity`` slots after
     :func:`hash_probe` (its table, counts, bucket_p, count and emit).
 
     ``probe_cols``/``build_cols``: (data, valid) of every column of each
     side, in page order. Returns ``(probe_out, build_out, out_active)``:
     the gathered (data, valid) pairs, build validity ANDed with the slot's
-    matched flag, and the output activity."""
+    matched flag, and the output activity. On CUDA tensors the kernel is a
+    scan pass over ``emit`` (tiles of :data:`EXPAND_TILE_ROWS` rows) and a
+    slot pass; ``phase_events``, None or three ``torch.cuda.Event``, are
+    recorded on the stream before the scan, between the passes and after
+    the slot pass, to split the kernel's time."""
     _check_keys("hash_expand", pkeys, bkeys, luts)
     _check_vectors("hash_expand", (probe_active,), (torch.bool,))
     _check_vectors("hash_expand", (emit, count, bucket_p), (torch.int32,) * 3)
@@ -549,18 +563,16 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
     if probe_active.device.type == "cpu":
         return hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys,
                                  luts, probe_active, probe_cols, build_cols, out_capacity)
+    if n >= 2**31 or out_capacity >= 2**31:
+        raise ValueError("hash_expand: the kernel takes at most 2^31 - 1 probe rows "
+                         "and output slots")
     dev = probe_active.device
     pks = _key_set("hash_expand", pkeys, luts, n)
     bks = _key_set("hash_expand", bkeys, (None,) * len(bkeys), m)
-    start = torch.empty(n, dtype=torch.int64, device=dev)
-    tile_sums = torch.empty((n + 2047) // 2048, dtype=torch.int64, device=dev)
-    probe_idx = torch.empty(out_capacity, dtype=torch.int64, device=dev)
-    bpos = torch.empty(out_capacity, dtype=torch.int64, device=dev)
-    matched = torch.empty(out_capacity, dtype=torch.bool, device=dev)
-    out_active = torch.empty(out_capacity, dtype=torch.bool, device=dev)
     outs = []
     cols = [(c, 0) for c in probe_cols] + [(c, 1) for c in build_cols]
-    sets = (_GatherSet * max(1, -(-len(cols) // _MAX_GATHER_COLS)))()
+    n_sets = max(1, -(-len(cols) // _MAX_GATHER_COLS))
+    sets = (_GatherSet * n_sets)()
     for i, ((d, v), side) in enumerate(cols):
         od = torch.empty((out_capacity,) + tuple(d.shape[1:]), dtype=d.dtype, device=dev)
         ov = torch.empty(out_capacity, dtype=torch.bool, device=dev)
@@ -574,14 +586,34 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
             raise TypeError(f"hash_expand: {gc.elem_bytes}-byte elements are not supported")
         gc.build_side = side
         g.n += 1
-    rc = _library().hash_expand(
-        ctypes.byref(pks), ctypes.byref(bks), probe_active.data_ptr(), emit.data_ptr(),
-        count.data_ptr(), bucket_p.data_ptr(), table.data_ptr(), counts.data_ptr(),
-        n, m, table.shape[1], out_capacity, start.data_ptr(), tile_sums.data_ptr(),
-        probe_idx.data_ptr(), bpos.data_ptr(), matched.data_ptr(), out_active.data_ptr(),
-        sets, -(-len(cols) // _MAX_GATHER_COLS), _stream(probe_active),
+    lib = _library()
+    stream = _stream(probe_active)
+    state = torch.empty(_EXPAND_STATE_HEAD + -(-n // EXPAND_TILE_ROWS), dtype=torch.int64,
+                        device=dev)
+    slot_row = torch.empty(out_capacity, dtype=torch.int64, device=dev)
+    slot_d = torch.empty(out_capacity, dtype=torch.int32, device=dev)
+    out_active = torch.empty(out_capacity, dtype=torch.bool, device=dev)
+    # the slot pass saves each slot's rows only for the gather sets after the first
+    saved = [torch.empty(out_capacity, dtype=dt, device=dev) if n_sets > 1 else None
+             for dt in (torch.int64, torch.int64, torch.bool)]
+    marks = list(phase_events or ())
+    if marks:
+        marks[0].record()
+    _check_launch("hash_expand", lib.hash_expand_scan(
+        emit.data_ptr(), n, out_capacity, state.data_ptr(), slot_row.data_ptr(),
+        slot_d.data_ptr(), stream))
+    if marks:
+        marks[1].record()
+    rc = lib.hash_expand_slots(
+        ctypes.byref(pks), ctypes.byref(bks), count.data_ptr(), bucket_p.data_ptr(),
+        table.data_ptr(), counts.data_ptr(), n, m, table.shape[1], out_capacity,
+        state.data_ptr(), slot_row.data_ptr(), slot_d.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in saved), out_active.data_ptr(),
+        sets, n_sets, stream,
     )
     _check_launch("hash_expand", rc)
+    if marks:
+        marks[2].record()
     LAUNCHES["hash_expand"] += 1
     return outs[: len(probe_cols)], outs[len(probe_cols):], out_active
 
