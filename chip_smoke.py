@@ -15,18 +15,23 @@ printed):
    repartition epilogue) and at edge shapes, timed with CUDA events beside
    its bytes bound, its plain version and, where one torch call computes
    the same function (or, for the two sorts, the one call that does their
-   sorting work: ``torch.sort`` of one int64 key), that call.
+   sorting work: ``torch.sort`` of one int64 key), that call. The group
+   sort's time is split by phase (stats and the host read, compose, radix
+   passes, finish and gather) with its plan's composites and its stream
+   operations a call; the segment sums' stream operations are counted.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
    count set to 0 just before it), rows identical to the run with the
    kernel tier off (``pallas_aggregation=off`` for Q6 and Q1,
    ``pallas_fusion=false`` for Q3 and Q10) and to an independent numpy
    computation over the port's generator, no fallback of the fused path,
-   Q10's fused phases (probe 3, expand 3, aggregate 1), and the wall
-   seconds of each query. Every kernel is also checked and timed on the
-   inputs the queries gave it (its real distributions; the repartition
-   epilogue, which no query calls, on Q10's joined page); those times go
-   in the kernels line.
+   Q10's fused phases (probe 3, expand 3, aggregate 1), Q10's group sort
+   on one 64-bit composite, and the wall seconds of each query. Every
+   kernel is also checked and timed on the inputs the queries gave it (its
+   real distributions; the repartition epilogue, which no query calls, on
+   Q10's joined page; the hash probe on each of Q10's three joins); those
+   times go in the kernels line. The group sort and the segment sums also
+   print their device time by kernel (``torch.profiler``).
 4. A ``kernels`` JSON line, then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
@@ -386,7 +391,7 @@ def expand_bound(args) -> tuple:
     return bound_ms(nbytes, cap * (2 * max(n, 2).bit_length() + 10 * C))
 
 
-def segment_cases(n_main: int, dev):
+def segment_cases(HK, n_main: int, dev):
     """(label, values, weight, starts) cases for segment_sum; the first has
     the shape of Q3's joined rows at SF10 (4,194,304 slots, about four rows
     to a group, the active rows a prefix)."""
@@ -410,8 +415,24 @@ def segment_cases(n_main: int, dev):
         w[n_act:] = False
         return label, vals, w, starts
 
+    def fixed(label, n, firsts, pad=16):
+        """Groups starting at the rows ``firsts``, all rows active."""
+        new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+        new_group[torch.tensor(sorted(set(firsts)), device=dev)] = True
+        starts = K.boundary_positions(new_group, int(new_group.sum()) + pad)
+        vals = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=dev)
+        return label, vals, torch.rand(n, generator=gen, device=dev) < 0.9, starts
+
     yield case("Q3 shape n=4194304", 4_194_304, 0.25, active_rate=0.75)
     yield case("one segment n=%d" % n_main, n_main, 0.0)
+    tile = HK.SEGMENT_TILE_ROWS
+    n = 40 * tile + 5
+    # short groups, then one over 30 tiles (from inside tile 3), then short ones
+    bounds = [0, 7, 100, 3 * tile + 11, 33 * tile + 1, 33 * tile + 2, 35 * tile]
+    yield fixed("one group across 30 tiles", n, bounds)
+    yield fixed("starts exactly on tile boundaries", n,
+                list(range(0, n, tile)) + [5 * tile + 1, 9 * tile - 1])
+    yield fixed("groups of one row", 3 * tile + 1, list(range(3 * tile + 1)))
     yield case("int32 values", 1_000_003, 0.01, torch.int32)
     yield case("bool values (a count)", 1_000_003, 0.3, torch.bool)
     yield case("rows before the first group", 500_001, 0.001, head=777)
@@ -451,7 +472,7 @@ def q10_page(dev, gen):
     return keys, list(keys) + [(revenue, active.clone())], active
 
 
-def group_sort_cases(dev):
+def group_sort_cases(HK, dev):
     """(label, key_cols, payload_cols, active) cases for group_sort; the
     first has the shape of Q10's joined page at SF10."""
     gen = torch.Generator(device=dev)
@@ -471,7 +492,33 @@ def group_sort_cases(dev):
 
     keys, payload, active = q10_page(dev, gen)
     yield "Q10 shape n=%d, 3 keys" % Q10_SLOTS, keys, payload, active
+    # one active row whose keys are all NULL (a LEFT join's unmatched row):
+    # validity differs from activity there, so the plan keeps the validity bits
+    flip = [(d, v.clone()) for d, v in keys]
+    for _, v in flip:
+        v[12_345] = False
+    yield ("Q10 shape, one active row with NULL keys", flip, flip + payload[len(keys):],
+           active)
+    del keys, payload, flip
     n = 300_007
+    big = rnd(n, 0, 2**63 - 1)
+    big[:2] = torch.tensor([0, 2**63 - 2], device=dev)  # a 63-bit range
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    yield case("a 64-bit plan (63-bit key and its NULLs)", [(big, mask(n, 0.9))], ones)
+    yield case("a 65-bit plan (the same with inactive rows)", [(big, mask(n, 0.9))],
+               mask(n, 0.8))
+    tile = HK.SORT_TILE_ROWS
+    for m in (tile - 1, tile, tile + 1):
+        yield case(f"n={m} (a tile's rows{' - 1' if m < tile else ' + 1' if m > tile else ''})",
+                   [(rnd(m, 0, 10**6), mask(m, 0.9))], mask(m, 0.8))
+    yield case("every key sharing its low digit (one bucket takes every row)",
+               [(rnd(n, 0, 10**5) * 256 + 7, ones)], ones)
+    # one composite over 2- and 1-byte keys with NULLs: the carried keys are
+    # written from the sorted composite, their NULL rows read at their old place
+    yield case("int16, int8 and bool keys with NULLs in one composite", [
+        (rnd(n, -300, 300, torch.int16), mask(n, 0.9)), (rnd(n, -100, 100, torch.int8),
+                                                         mask(n, 0.9)),
+        (mask(n, 0.5), mask(n, 0.9))], mask(n, 0.8))
     yield case("one key", [(rnd(n, 0, 5000), mask(n, 0.9))], mask(n, 0.8))
     yield case("five keys (int64, int32, int16, bool, float32)", [
         (rnd(n, 0, 6), mask(n, 0.95)), (rnd(n, -3, 3, torch.int32), mask(n, 0.95)),
@@ -488,7 +535,6 @@ def group_sort_cases(dev):
                mask(n, 0.9))
     yield case("inactive rows interleaved", [(rnd(n, 0, 1000), mask(n, 1.0))], mask(n, 0.5))
     yield case("all rows inactive", [(rnd(n, 0, 1000), mask(n, 0.9))], mask(n, 0.0))
-    ones = torch.ones(n, dtype=torch.bool, device=dev)
     yield case("one group", [(torch.full((n,), 7, device=dev), ones)], ones.clone())
     yield case("all rows distinct", [(torch.randperm(n, generator=gen, device=dev), ones)],
                mask(n, 0.9))
@@ -674,6 +720,7 @@ class LaunchTap:
         self.events = {n: [] for n in names}
         self.inputs = {}
         self.score = {}
+        self.probes = []  # the inputs of every hash_probe call
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -684,6 +731,8 @@ class LaunchTap:
                 out = _fn(*args)
                 end.record()
                 self.events[_name].append((start, end))
+                if _name == "hash_probe":
+                    self.probes.append(args)
                 keep = self.KEEP.get(_name)
                 score = keep(args) if keep else 0
                 if _name not in self.inputs or (keep and score >= self.score[_name]):
@@ -749,7 +798,28 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
             scan, slots = expand_split_ms(HK, args)
             print(f"  hash_expand [{query} inputs]: scan pass {scan:.4f} ms, slot-and-gather "
                   f"pass {slots:.4f} ms", flush=True)
+        elif name == "group_sort":
+            plan = sort_split(HK, f"{query} inputs", args)
+            if plan != [64]:
+                fail(f"group_sort [{query} inputs] sorted composites {plan}, not one of 64 bits")
+        elif name == "segment_sum":
+            print(f"  segment_sum [{query} inputs]: {ops_per_call(HK, name, args)} stream "
+                  "operations a call", flush=True)
+            print_device_us(f"segment_sum [{query} inputs]", lambda: HK.segment_sum(*args))
         record(results, name, query, timing, recorded)
+
+
+def check_every_probe(HK, query: str, tap: LaunchTap) -> None:
+    """hash_probe on the inputs of each of the query's joins: bit-exact
+    against its plain version, timed beside its bound."""
+    for k, args in enumerate(tap.probes):
+        if not same_result(HK, "hash_probe", args):
+            fail(f"hash_probe [{query} join {k + 1}] differs from its plain version")
+        ms = time_ms(lambda: HK.hash_probe(*args))
+        b, by = probe_bound(args)
+        print(f"  hash_probe [{query} join {k + 1} {SHAPE_OF['hash_probe'](args)}]: bit-exact, "
+              f"kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of "
+              "its bound", flush=True)
 
 
 def expand_split_ms(HK, args, reps: int = 10) -> tuple:
@@ -796,17 +866,108 @@ def check_epilogue_on_q10(HK, conn, tap: LaunchTap, results: dict, recorded: set
     record(results, "partition_epilogue", "q10", timing, recorded)
 
 
+def sort_plan(HK, args) -> list:
+    """Bits of each composite key the group sort's plan packs these keys
+    into (least significant first)."""
+    keys, _, active = args
+    plan = HK.radix_plan(HK.group_sort_stats_plain(keys, active), active.shape[0])
+    return [sum(f[3] for f in comp) for comp in plan]
+
+
+def ops_per_call(HK, name, args) -> int:
+    """Kernel launches and memsets of one call of ``name``'s wrapper."""
+    torch.cuda.synchronize()
+    before = HK.stream_ops(name)
+    getattr(HK, name)(*args)
+    torch.cuda.synchronize()
+    return HK.stream_ops(name) - before
+
+
+def device_us(fn, reps: int = 10) -> dict:
+    """Microseconds of device time a call of ``fn`` spends in each kernel
+    and memset, by name (``torch.profiler`` over ``reps`` calls after one
+    warm-up; empty where the profiler sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].strip() or ev.key[:40]
+            out[name] = out.get(name, 0.0) + us / reps
+    return out
+
+
+def print_device_us(label: str, fn) -> None:
+    try:
+        us = device_us(fn)
+    except (AssertionError, RuntimeError) as e:  # a profiler that cannot trace the card
+        print(f"  {label}: device time by kernel not measured ({e})", flush=True)
+        return
+    if not us:
+        print(f"  {label}: device time by kernel not measured (the profiler saw no "
+              "device activity)", flush=True)
+        return
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))
+    print(f"  {label}: device us a call {sum(us.values()):.1f} ({parts})", flush=True)
+
+
+def sort_split(HK, label: str, args, reps: int = 10) -> list:
+    """Print group_sort's time by phase on these inputs (CUDA events from
+    its ``phase_events``, means over ``reps`` calls after one warm-up), its
+    plan and its stream operations a call; return the plan's composite
+    widths."""
+    HK.group_sort(*args)
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        HK.group_sort(*args, phase_events=spans)
+    torch.cuda.synchronize()
+    ms = {}
+    for phase, a, b in spans:
+        ms[phase] = ms.get(phase, 0.0) + a.elapsed_time(b) / reps
+    print_device_us(f"group_sort [{label}]", lambda: HK.group_sort(*args))
+    key = args[0][0][0].to(torch.int64)
+    print_device_us(f"torch.sort yardstick [{label}]", lambda: torch.sort(key, stable=True))
+    bits = sort_plan(HK, args)
+    passes = sum(-(-b // 8) for b in bits)
+    print(f"  group_sort [{label}] split: stats and host read {ms['stats']:.4f} ms, compose "
+          f"{ms['compose']:.4f} ms, radix passes {ms['passes']:.4f} ms, finish and gather "
+          f"{ms['finish']:.4f} ms (sum {sum(ms.values()):.4f}); composites {bits}, "
+          f"{passes} passes, {ops_per_call(HK, 'group_sort', args)} stream operations a "
+          "call", flush=True)
+    return bits
+
+
+# the composite widths group_sort's plan must give the cases that test it
+SORT_PLANS = {0: [64], 1: [44, 23], 2: [64], 3: [64, 1]}
+
+
 def check_sort_kernels(HK, dev, results: dict) -> None:
     """group_sort and partition_epilogue against their plain versions on
-    every case; the first (Q10-shaped) case of each is timed."""
-    for i, (label, keys, payload, active) in enumerate(group_sort_cases(dev)):
+    every case; the first (Q10-shaped) case of each is timed and
+    group_sort's split printed."""
+    for i, (label, keys, payload, active) in enumerate(group_sort_cases(HK, dev)):
         args = (keys, payload, active)
         if not same_result(HK, "group_sort", args):
             fail(f"group_sort [{label}] differs from its plain version")
+        plan = sort_plan(HK, args)
         print(f"  group_sort [{label}]: bit-exact "
-              f"({int(HK.group_sort_plain(*args)[3])} groups)", flush=True)
+              f"({int(HK.group_sort_plain(*args)[3])} groups, composites {plan})", flush=True)
+        if i in SORT_PLANS and plan != SORT_PLANS[i]:
+            fail(f"group_sort [{label}] planned composites {plan}, not {SORT_PLANS[i]}")
         if i == 0:
             results["group_sort"] = timed_entry(HK, "group_sort", args)
+            sort_split(HK, "main shape", args)
         del args, keys, payload, active
     torch.cuda.empty_cache()
     for i, (label, keys, luts, cols, active, parts) in enumerate(epilogue_cases(dev)):
@@ -855,12 +1016,15 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
                   f"{slots:.4f} ms", flush=True)
         del pr, pargs, eargs, short, wide, pcols, bcols
     torch.cuda.empty_cache()
-    for i, (label, v, w, starts) in enumerate(segment_cases(n_main, dev)):
+    for i, (label, v, w, starts) in enumerate(segment_cases(HK, n_main, dev)):
         if not same_result(HK, "segment_sum", (v, w, starts)):
             fail(f"segment_sum [{label}] differs from its plain version")
-        print(f"  segment_sum [{label}]: bit-exact", flush=True)
+        print(f"  segment_sum [{label}]: bit-exact ({starts.shape[0]} slots)", flush=True)
         if i == 0:
             results["segment_sum"] = timed_entry(HK, "segment_sum", (v, w, starts))
+            print(f"  segment_sum: {ops_per_call(HK, 'segment_sum', (v, w, starts))} stream "
+                  "operations a call", flush=True)
+            print_device_us("segment_sum [main shape]", lambda: HK.segment_sum(v, w, starts))
 
 
 SOURCES = {
@@ -1117,6 +1281,7 @@ def run_queries(HK, dev, kernels: dict) -> dict:
             fail(f"{q} ran the fused phases {phases}, not {want_phases}")
         check_query_inputs(HK, q, tap, kernels, recorded)
         if q == "q10":
+            check_every_probe(HK, q, tap)
             check_epilogue_on_q10(HK, runner.catalogs.get("tpch"), tap, kernels, recorded)
         del tap, res
         torch.cuda.empty_cache()

@@ -244,6 +244,134 @@ def test_segment_sum_plain_matches_reference_segment_reduce():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _count_le(starts, cap, x):
+    """``segment_agg.cu``'s warp search: the slots g < cap with starts[g]
+    <= x, in rounds of 32 evenly spaced probes."""
+    lo, hi = 0, cap
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        c = sum(1 for lane in range(32)
+                if lo + (lane + 1) * step - 1 < hi and starts[lo + (lane + 1) * step - 1] <= x)
+        lo, hi = lo + c * step, min(hi, lo + (c + 1) * step - 1)
+    return lo
+
+
+def _emulate_segment_tiles(vals, weight, starts):
+    """The segment-sum kernel's tile plan in numpy, thread by thread: per
+    tile of ``SEGMENT_TILE_ROWS`` rows (eight a thread) the first group by
+    one search, the slots starting inside the tile as heads, each thread's
+    first group from the scan of head counts, the sum carried into each
+    thread by the segmented scan; groups that end inside a thread or at a
+    thread's first head are stored, the tile's first and last groups added;
+    every block stores a stripe of the padding slots. Returns (out, stored,
+    added) and checks that no slot is stored twice or both stored and
+    added."""
+    T, items = HK.SEGMENT_TILE_ROWS, 8
+    n, cap = vals.shape[0], starts.shape[0]
+    m = 2**64
+    vw = [int(v) % m if w else 0 for v, w in zip(vals.tolist(), weight.tolist())]
+    out = [0] * cap
+    stored, added = np.zeros(cap, bool), np.zeros(cap, bool)
+
+    def store(g, x):
+        assert not stored[g] and not added[g], g
+        stored[g] = True
+        out[g] = x
+
+    def add(g, x):
+        assert not stored[g], g
+        added[g] = True
+        out[g] = (out[g] + x) % m
+
+    pad = _count_le(starts, cap, n - 1)
+    assert pad == int(np.searchsorted(starts, n - 1, "right"))
+    for g in range(pad, cap):
+        store(g, vw[n - 1])
+    for t0 in range(0, n, T):
+        rows = min(T, n - t0)
+        first = _count_le(starts, cap, t0) - 1
+        assert first + 1 == int(np.searchsorted(starts, t0, "right"))
+        heads = [0] * T
+        g = first + 1
+        while g < cap and starts[g] < t0 + rows:
+            heads[starts[g] - t0] += 1
+            g += 1
+        incl, carry_in, n_before = [], 0, 0
+        state = []
+        for t in range(T // items):
+            r0 = t * items
+            h = heads[r0:r0 + items]
+            v = [vw[t0 + r0 + j] if r0 + j < rows else 0 for j in range(items)]
+            g0 = first + n_before
+            n_before += sum(h)
+            g, run, before_head, seen = g0, 0, 0, False
+            for j in range(items):
+                if h[j]:
+                    if not seen:
+                        before_head, seen = run, True
+                    elif run:
+                        store(g, run)
+                    g += h[j]
+                    run = 0
+                run = (run + v[j]) % m
+            carry = incl[-1] if incl else 0
+            incl.append(run if seen else (carry + run) % m)
+            state.append((g0, g, run, before_head, seen, carry))
+        for t, (g0, g, run, before_head, seen, carry) in enumerate(state):
+            if seen and g0 >= 0:
+                total = (carry + before_head) % m
+                if total:
+                    (add if g0 == first else store)(g0, total)
+            if t == len(state) - 1:
+                total = run if seen else (carry + run) % m
+                if g >= 0 and total:
+                    add(g, total)
+    signed = [x - m if x >= 2**63 else x for x in out]
+    return np.array(signed, dtype=np.int64), stored, added
+
+
+def _segment_case(n, firsts, pad, seed, head=None):
+    rng = np.random.default_rng(seed)
+    new_group = np.zeros(n, bool)
+    new_group[sorted(set(firsts))] = True
+    starts = np.flatnonzero(new_group)
+    out_cap = starts.shape[0] + pad
+    starts = np.concatenate([starts, np.full(max(pad, 0), n)])[:out_cap]
+    vals = rng.integers(-(2**62), 2**62, n)
+    return vals, rng.random(n) < 0.8, starts.astype(np.int64)
+
+
+_T_SEG = HK.SEGMENT_TILE_ROWS
+SEGMENT_TILE_CASES = {
+    # short groups, one over four tiles from inside a tile, then short ones
+    "group_across_tiles": (6 * _T_SEG + 5, [0, 3, 90, _T_SEG - 1, _T_SEG + 7, 5 * _T_SEG + 2,
+                                            5 * _T_SEG + 3], 5),
+    "starts_on_tile_boundaries": (5 * _T_SEG, list(range(0, 5 * _T_SEG, _T_SEG)), 3),
+    "groups_of_one_row": (2 * _T_SEG + 9, list(range(2 * _T_SEG + 9)), 2),
+    "rows_before_the_first_group": (3 * _T_SEG, [_T_SEG + 40, 2 * _T_SEG], 4),
+    "one_group": (3 * _T_SEG + 1, [0], 0),
+    "no_padding_slots": (2 * _T_SEG + 3, list(range(0, 2 * _T_SEG + 3, 7)), 0),
+    "fewer_slots_than_groups": (3 * _T_SEG, list(range(0, 3 * _T_SEG, 5)), -100),
+    "padding_only_past_a_short_page": (17, [0, 4, 16], 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_TILE_CASES))
+def test_segment_tile_plan_matches_segment_sum_plain(case):
+    """The segment-sum kernel's tiles, emulated in numpy (which groups are
+    stored and which added, from a search per tile and scans, with no
+    search per row), against ``segment_sum_plain``: tile-spanning,
+    tile-aligned, one-row and padding cases, the slots cut short too."""
+    n, firsts, pad = SEGMENT_TILE_CASES[case]
+    vals, w, starts = _segment_case(n, firsts, pad, seed=len(case))
+    got, stored, added = _emulate_segment_tiles(vals, w, starts)
+    want = HK.segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(w),
+                                torch.from_numpy(starts))
+    np.testing.assert_array_equal(got, want.numpy())
+    if case == "group_across_tiles":
+        assert added.sum() >= 2 and stored.sum() > 0
+
+
 def _expand_emit(case):
     """emit of one expansion-plan case, around ``HK.EXPAND_TILE_ROWS``."""
     T = HK.EXPAND_TILE_ROWS
@@ -366,12 +494,16 @@ def test_expand_slot_plan_clips_local_starts_past_int32():
 _VOCAB = np.asarray(["AIR", "MAIL", "RAIL", "SHIP", "TRUCK", "FOB", "REG AIR"], dtype=object)
 
 
-def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None):
+def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None, join_side=False,
+                differ_at=None):
     """A reference page and its port copy: one group key per entry of
     ``key_kinds`` (bigint, bigint_edges (INT64_MIN/MAX, -1, 0, 1), double
     (-0.0, 0.0, negatives, NaN), varchar (a dictionary)), each with NULLs,
     then a decimal and a bigint payload; ``dup`` draws every key from that
-    many values (heavy duplicates). Inactive rows are interleaved."""
+    many values (heavy duplicates). Inactive rows are interleaved. With
+    ``join_side`` every key is valid exactly on the active rows (a join's
+    build-side keys), except at row ``differ_at`` where each key is NULL
+    on an active row."""
     from trino_tpu.spi import types as rt
     from trino_tpu.spi.page import Dictionary as RDict
     from trino_tpu_torch.spi import types as pt
@@ -380,6 +512,11 @@ def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None):
     rng = np.random.default_rng(seed)
     rcols, pcols = [], []
     rdict, pdict = RDict(_VOCAB), PDict(_VOCAB)
+    if join_side:
+        active = rng.random(n) < active_rate
+        key_valid = active.copy()
+        if differ_at is not None:
+            active[differ_at], key_valid[differ_at] = True, False
 
     def add(tname, data, valid, vocab=False):
         rcols.append(RColumn(rt.parse_type(tname), jnp.asarray(data), jnp.asarray(valid),
@@ -389,6 +526,8 @@ def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None):
 
     for kind in key_kinds:
         valid = rng.random(n) < 0.85
+        if join_side:
+            valid = key_valid.copy()
         pick = rng.integers(0, dup or 10**9, n)
         if kind == "bigint":
             data = rng.integers(-(10**12), 10**12, dup or 10**6)[pick % (dup or 10**6)]
@@ -404,7 +543,8 @@ def _group_page(seed, n, key_kinds, active_rate=0.8, dup=None):
             kind == "varchar")
     add("decimal(12,2)", rng.integers(-(10**10), 10**10, n), rng.random(n) < 0.9)
     add("bigint", rng.integers(-(2**62), 2**62, n), np.ones(n, bool))
-    active = rng.random(n) < active_rate
+    if not join_side:
+        active = rng.random(n) < active_rate
     return RPage(tuple(rcols), jnp.asarray(active)), PPage(tuple(pcols), torch.from_numpy(active))
 
 
@@ -429,6 +569,11 @@ GROUP_SORT_CASES = {
     "mostly_inactive": dict(seed=15, n=1024, key_kinds=("bigint", "double"), active_rate=0.1),
     "all_inactive": dict(seed=16, n=777, key_kinds=("bigint",), active_rate=0.0),
     "one_row": dict(seed=17, n=1, key_kinds=("bigint", "varchar")),
+    "join_side_keys": dict(seed=18, n=3000, key_kinds=("varchar", "bigint"), dup=500,
+                           active_rate=0.6, join_side=True),
+    "join_side_keys_one_row_differs": dict(seed=18, n=3000, key_kinds=("varchar", "bigint"),
+                                           dup=500, active_rate=0.6, join_side=True,
+                                           differ_at=1234),
 }
 
 
@@ -451,65 +596,148 @@ def test_group_sort_phase_matches_reference(case):
     assert int(got_n) == int(want_n)
 
 
+def _emulate_sweep_pass(keys, idx, shift, tile):
+    """One one-sweep pass of ``csrc/radix_pass.cuh`` in numpy: per tile of
+    ``tile`` rows the digit counts (published for the look-back), the rows
+    staged in digit order (stable within the tile), and staged row j of
+    digit d written to first[d] + (digit d's rows in earlier tiles) -
+    (its first staged row) + j."""
+    n = keys.shape[0]
+    dig = ((keys >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+    first = np.concatenate([[0], np.cumsum(np.bincount(dig, minlength=256))[:-1]])
+    before_tile = np.zeros(256, np.int64)
+    keys_out, idx_out = np.zeros_like(keys), np.zeros_like(idx)
+    written = np.zeros(n, bool)
+    for t0 in range(0, n, tile):
+        d = dig[t0:t0 + tile]
+        count = np.bincount(d, minlength=256)
+        local = np.concatenate([[0], np.cumsum(count)[:-1]])
+        staged = np.argsort(d, kind="stable")
+        j = np.arange(staged.shape[0])
+        pos = first[d[staged]] + before_tile[d[staged]] - local[d[staged]] + j
+        assert not written[pos].any()
+        written[pos] = True
+        keys_out[pos], idx_out[pos] = keys[t0 + staged], idx[t0 + staged]
+        before_tile += count
+    assert written.all()
+    return keys_out, idx_out
+
+
 def _emulate_radix_sort(key_cols, active):
-    """The CUDA group sort's permutation, emulated in numpy: the stats
-    reduction, ``radix_plan``, then per composite the compose step and
-    stable passes over its eight-bit digits."""
+    """The CUDA group sort emulated in numpy: the stats reduction (value
+    ranges, valid rows, rows whose validity differs from the activity,
+    active rows), ``radix_plan``, every composite written in row order,
+    then per composite its one-sweep passes over eight-bit digits (a later
+    composite's first pass reads its keys through the permutation so far),
+    and with one composite the group boundaries and the carried integer keys
+    from the sorted composite alone. Returns (permutation, plan, new_group
+    or None, {carried column: (data, valid)})."""
     n = active.shape[0]
     norms = []
-    stats_lo, stats_hi, stats_nv = [], [], []
+    stats_lo, stats_hi, stats_nv, stats_differ = [], [], [], []
     for d, v in key_cols:
         norm = PK.order_key(torch.from_numpy(d)).numpy()
         norms.append(norm)
         stats_lo.append(int(norm[v].min()) if v.any() else 2**63 - 1)
         stats_hi.append(int(norm[v].max()) if v.any() else -(2**63))
         stats_nv.append(int(v.sum()))
-    plan = HK.radix_plan(stats_lo + stats_hi + stats_nv + [int(active.sum())], n)
-    perm = np.arange(n)
+        stats_differ.append(int((v != active).sum()))
+    stats = stats_lo + stats_hi + stats_nv + stats_differ + [int(active.sum())]
+    assert stats == HK.group_sort_stats_plain(
+        [(torch.from_numpy(d), torch.from_numpy(v)) for d, v in key_cols],
+        torch.from_numpy(active))
+    plan = HK.radix_plan(stats, n)
+    comps = []
     for comp in plan:
         v64 = np.zeros(n, np.uint64)
         for kind, key, offset, bits, pos in comp:
             if kind == 0:
-                x = np.where(key_cols[key][1][perm],
-                             norms[key][perm].view(np.uint64) - np.uint64(offset % 2**64), 0)
+                x = np.where(key_cols[key][1],
+                             norms[key].view(np.uint64) - np.uint64(offset % 2**64), 0)
             elif kind == 1:
-                x = key_cols[key][1][perm].astype(np.uint64)
+                x = key_cols[key][1].astype(np.uint64)
             else:
-                x = (~active[perm]).astype(np.uint64)
+                x = (~active).astype(np.uint64)
             v64 |= x.astype(np.uint64) << np.uint64(pos)
+        comps.append(v64)
+    perm = np.arange(n, dtype=np.int32)
+    keys = None
+    for comp, v64 in zip(plan, comps):
+        keys = v64[perm]
         for shift in range(0, sum(f[3] for f in comp), 8):
-            order = np.argsort((v64 >> np.uint64(shift)) & np.uint64(255), kind="stable")
-            v64, perm = v64[order], perm[order]
-    return perm, plan
+            keys, perm = _emulate_sweep_pass(keys, perm, shift, HK.SORT_TILE_ROWS)
+    new_group, decoded = None, {}
+    if len(plan) == 1:
+        inactive = [f[4] for f in plan[0] if f[0] == 2]
+        act = (((keys >> np.uint64(inactive[0])) & np.uint64(1)) == 0 if inactive
+               else np.full(n, bool(active.all())))
+        prev_differs = np.concatenate([[True], (keys[1:] != keys[:-1]) | ~act[:-1]])
+        new_group = act & prev_differs
+        # the carried key columns written from the sorted composite
+        tcols = [(torch.from_numpy(d), torch.from_numpy(v)) for d, v in key_cols]
+        for j, (k, pos, bits, offset, mode, vpos) in HK._decode_plan(
+                tcols, tcols, stats, plan).items():
+            valid = {0: ((keys >> np.uint64(vpos)) & np.uint64(1)) == 1, 1: act,
+                     2: np.ones(n, bool), 3: np.zeros(n, bool)}[mode]
+            field = keys >> np.uint64(pos) if bits else np.zeros(n, np.uint64)
+            if 0 < bits < 64:
+                field &= np.uint64((1 << bits) - 1)
+            value = (field + np.uint64(offset % 2**64)).view(np.int64)
+            data = key_cols[k][0]
+            out = np.where(valid, value.astype(data.dtype), data[perm])
+            decoded[j] = (out, valid)
+    return perm, plan, new_group, decoded
 
 
 @pytest.mark.parametrize("case", sorted(GROUP_SORT_CASES))
 def test_radix_plan_sorts_like_the_plain_cosort(case):
     """The composite keys the CUDA kernel sorts by (``radix_plan``: value
-    ranges packed into 64-bit composites, constant fields left out) give
-    the permutation of the plain pass chain, emulated in numpy."""
+    ranges packed into 64-bit composites, constant fields and validity
+    that equals the activity left out) give the permutation of the plain
+    pass chain, emulated in numpy; with one composite, the group
+    boundaries and the carried key columns read from the sorted composite
+    are the plain version's."""
     _, ppage = _group_page(**GROUP_SORT_CASES[case])
     nk = len(GROUP_SORT_CASES[case]["key_kinds"])
     key_cols = [(c.data.numpy(), c.valid.numpy()) for c in ppage.columns[:nk]]
     active = ppage.active.numpy()
     n = active.shape[0]
-    got, plan = _emulate_radix_sort(key_cols, active)
+    got, plan, new_group, decoded = _emulate_radix_sort(key_cols, active)
     rows = torch.arange(n)
-    out, _, _, _ = HK.group_sort_plain(
-        [(c.data, c.valid) for c in ppage.columns[:nk]],
-        [(rows, torch.ones(n, dtype=torch.bool))], ppage.active)
+    keys = [(c.data, c.valid) for c in ppage.columns[:nk]]
+    out, _, want_ng, _ = HK.group_sort_plain(
+        keys, [(rows, torch.ones(n, dtype=torch.bool))] + keys, ppage.active)
     np.testing.assert_array_equal(got, out[0][0].numpy())
     assert all(sum(f[3] for f in comp) <= 64 for comp in plan)
+    if new_group is not None:
+        np.testing.assert_array_equal(new_group, want_ng.numpy())
+    for j, (data, valid) in decoded.items():
+        np.testing.assert_array_equal(valid, out[1 + j][1].numpy())
+        np.testing.assert_array_equal(data, out[1 + j][0].numpy())
+    # every integer key is decoded once the plan is one composite
+    integer_keys = sum(c.data.dtype != torch.float64 for c in ppage.columns[:nk])
+    assert len(decoded) == (integer_keys if len(plan) == 1 else 0)
+    if GROUP_SORT_CASES[case].get("join_side"):
+        # validity equal to the activity costs no bit; one row off keeps them all
+        differs = GROUP_SORT_CASES[case].get("differ_at") is not None
+        assert sum(f[0] == 1 for comp in plan for f in comp) == (nk if differs else 0)
 
 
-def test_radix_plan_packs_q10_keys_into_two_composites():
-    """Three keys of 21-bit ranges with NULL build-side keys on inactive
-    rows (Q10's joined page) take two composites and nine passes."""
+@pytest.mark.parametrize("differ, widths, passes", [
+    (0, [64], 8),  # validity equal to the activity: one composite
+    (1, [44, 23], 9),  # one active row with NULL keys: the validity bits stay
+], ids=["validity_is_activity", "one_row_differs"])
+def test_radix_plan_packs_q10_keys_into_two_composites(differ, widths, passes):
+    """Three keys of 21-bit ranges, from the join's build side (Q10's
+    joined page): NULL exactly on the inactive rows they take one 64-bit
+    composite and eight passes; with one active row whose keys are NULL
+    they take two composites and nine passes, as before the validity rule."""
     n = 2_097_152
     lo, hi = [1, 0, -99_999], [1_500_000, 1_499_999, 999_999]
-    plan = HK.radix_plan(lo + hi + [1_200_000] * 3 + [1_200_000], n)
-    assert [sum(f[3] for f in c) for c in plan] == [44, 23]
-    assert sum(-(-sum(f[3] for f in c) // 8) for c in plan) == 9
+    n_valid = 1_200_000 - differ
+    plan = HK.radix_plan(lo + hi + [n_valid] * 3 + [differ] * 3 + [1_200_000], n)
+    assert [sum(f[3] for f in c) for c in plan] == widths
+    assert sum(-(-sum(f[3] for f in c) // 8) for c in plan) == passes
 
 
 @pytest.mark.parametrize("n_keys", [1, 2])

@@ -1,9 +1,10 @@
-// One stable counting pass of an LSD radix sort over a row-index
+// Stable counting passes of an LSD radix sort over a row-index
 // permutation, and the gather of columns by a permutation: shared by
-// group_sort.cu (eight-bit digits of packed 64-bit sort keys) and
-// partition_epilogue.cu (one pass over n_parts + 1 destination bins).
+// group_sort.cu (the one-sweep pass below, over eight-bit digits of packed
+// 64-bit sort keys) and partition_epilogue.cu (one three-launch pass over
+// n_parts + 1 destination bins).
 //
-// A pass orders n rows stably by a digit of their key, in three launches:
+// The three-launch pass orders n rows stably by a digit of their key:
 //   (a) radix_count:   a histogram of digits per tile of kTileRows rows;
 //                      each warp aggregates equal digits with
 //                      __match_any_sync, so a tile adds one shared atomic
@@ -22,8 +23,27 @@
 //                      order. A row goes to
 //                          start[digit] + tile_prefix[digit][tile] + rank.
 // Within a digit, earlier tiles come first and a tile keeps its rows'
-// order, so the pass is stable. Row indices are int32 (the wrappers raise
-// at 2^31 rows). No library sort is called.
+// order, so the pass is stable.
+//
+// The one-sweep pass (Adinets & Merrill, "Onesweep: A Faster Least
+// Significant Digit Radix Sort for GPUs", 2022) is one launch over eight-bit
+// digits of 64-bit keys, after one count of every digit place (the caller's:
+// digit counts do not depend on the rows' order). Each block takes its tile
+// id from an atomic counter (so it waits only on tiles that running blocks
+// hold), loads kSweepRows keys and row indices, ranks them per digit as the
+// scatter above does, publishes its per-digit counts in 64-bit status words
+// (flag in the top two bits, as hash_expand.cu's scan), and thread d walks
+// back over earlier tiles' words for digit d, kSweepWindow tiles a step,
+// until one holds an inclusive prefix (decoupled look-back), then publishes
+// its own. The tile is staged in shared memory in digit order and written
+// out from there, so each digit's run of the tile leaves as consecutive
+// positions. Each pass reads its keys once and writes them once. On a
+// 2,097,152-row page a pass takes about 32 us on an H100: tiles of 4,096
+// rows beat 2,048 and 3,072 (trino_tpu_torch/tools/sort_pass_variants.py),
+// and neither the look-back's window nor ranking by ballots moved it.
+//
+// Row indices are int32 (the wrappers raise at 2^31 rows). No library sort
+// is called.
 
 #pragma once
 
@@ -249,6 +269,147 @@ cudaError_t radix_pass(const K* keys_in, const int32_t* idx_in, K* keys_out, int
       keys_in, idx_in, keys_out, idx_out, n, shift, mask, nb, hist, totals, n_tiles,
       bin_offsets, bin_counts);
   return cudaGetLastError();
+}
+
+// The one-sweep pass: 16 rows a thread, 4,096 a tile; the tile's keys and
+// indices take 48 KB of dynamic shared memory, so two blocks fit an SM.
+constexpr int kDigits = 256;
+constexpr int kSweepItems = 16;
+constexpr int kSweepWarpRows = 32 * kSweepItems;
+constexpr int kSweepRows = kWarps * kSweepWarpRows;
+constexpr int kSweepSmem = kSweepRows * (8 + 4);
+constexpr int kSweepWindow = 4;  // earlier tiles a look-back step reads at once
+static_assert(kThreads == kDigits, "one thread per digit in the look-back");
+
+// Status word of a (tile, digit): flag in the top two bits, a row count
+// below (< 2^31).
+constexpr int kSweepFlagShift = 62;
+constexpr unsigned long long kSweepAggregate = 1ull << kSweepFlagShift;  // the tile's count
+constexpr unsigned long long kSweepPrefix = 2ull << kSweepFlagShift;     // inclusive prefix
+constexpr unsigned long long kSweepValue = (1ull << kSweepFlagShift) - 1;
+
+// Single 64-bit relaxed accesses at device scope: flag and count travel
+// together, so no fence is needed.
+__device__ __forceinline__ unsigned long long sweep_load(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void sweep_store(unsigned long long* p, unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
+// One stable pass by the eight-bit digit at ``shift``. Row i's key is
+// keys_in[i], or keys_in[idx_in[i]] with gather_keys (the first pass of a
+// later composite, whose keys lie in row order); idx_in null reads as the
+// identity. place_hist holds the digit counts of this place over all rows;
+// status ([tiles][kDigits]) and *counter are zero before the launch.
+__global__ void __launch_bounds__(kThreads, 2)
+sweep_pass(const uint64_t* __restrict__ keys_in, const int32_t* __restrict__ idx_in,
+           int gather_keys, uint64_t* __restrict__ keys_out, int32_t* __restrict__ idx_out,
+           int64_t n, int shift, const int32_t* __restrict__ place_hist,
+           unsigned long long* __restrict__ status, unsigned int* __restrict__ counter) {
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  uint64_t* s_keys = reinterpret_cast<uint64_t*>(sweep_smem);
+  int32_t* s_idx = reinterpret_cast<int32_t*>(s_keys + kSweepRows);
+  __shared__ int32_t warp_cnt[kWarps][kDigits];
+  __shared__ int32_t s_start[kDigits];  // each digit's first staged row
+  __shared__ int32_t s_base[kDigits];   // output position of staged row 0, per digit
+  __shared__ unsigned int s_tile;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1u);
+  for (int b = threadIdx.x; b < kWarps * kDigits; b += kThreads) (&warp_cnt[0][0])[b] = 0;
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t row0 = tile * kSweepRows + warp * kSweepWarpRows;
+  const unsigned lower = (1u << lane) - 1u;
+  uint64_t key[kSweepItems];
+  int32_t idx[kSweepItems];
+  int32_t rank[kSweepItems];
+#pragma unroll
+  for (int it = 0; it < kSweepItems; ++it) {
+    const int64_t i = row0 + it * 32 + lane;
+    idx[it] = i < n ? (idx_in != nullptr ? idx_in[i] : static_cast<int32_t>(i)) : 0;
+  }
+#pragma unroll
+  for (int it = 0; it < kSweepItems; ++it) {
+    const int64_t i = row0 + it * 32 + lane;
+    key[it] = i < n ? keys_in[gather_keys ? static_cast<int64_t>(idx[it]) : i] : 0;
+  }
+#pragma unroll
+  for (int it = 0; it < kSweepItems; ++it) {
+    const bool ok = row0 + it * 32 + lane < n;
+    const uint32_t d = ok ? digit_of(key[it], shift, kDigits - 1) : kNoDigit;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int32_t before = ok ? warp_cnt[warp][d] : 0;
+    __syncwarp();
+    if (ok && lane == __ffs(peers) - 1) warp_cnt[warp][d] = before + __popc(peers);
+    __syncwarp();
+    rank[it] = before + __popc(peers & lower);
+  }
+  __syncthreads();
+  // thread d: digit d's rows in earlier warps, and the tile's count
+  const int d = threadIdx.x;
+  int32_t count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int32_t c = warp_cnt[w][d];
+    warp_cnt[w][d] = count;
+    count += c;
+  }
+  unsigned long long* mine = status + tile * kDigits + d;
+  sweep_store(mine, (tile == 0 ? kSweepPrefix : kSweepAggregate) |
+                        static_cast<unsigned long long>(count));
+  int32_t unused;
+  const int32_t local = block_scan_excl(count, &unused);
+  const int32_t first = block_scan_excl(place_hist[d], &unused);
+  // digit d's rows in earlier tiles: the look-back reads kSweepWindow
+  // earlier tiles' words at once, then adds them from the nearest back,
+  // waiting on any still unpublished, until one holds a prefix
+  int64_t before_tile = 0;
+  for (int64_t j = tile - 1; j >= 0; j -= kSweepWindow) {
+    unsigned long long w[kSweepWindow];
+#pragma unroll
+    for (int k = 0; k < kSweepWindow; ++k) {
+      w[k] = j - k >= 0 ? sweep_load(status + (j - k) * kDigits + d) : kSweepPrefix;
+    }
+    bool done = false;
+#pragma unroll
+    for (int k = 0; k < kSweepWindow; ++k) {
+      if (!done) {
+        while ((w[k] >> kSweepFlagShift) == 0) w[k] = sweep_load(status + (j - k) * kDigits + d);
+        before_tile += static_cast<int64_t>(w[k] & kSweepValue);
+        done = (w[k] >> kSweepFlagShift) == 2;
+      }
+    }
+    if (done) break;
+  }
+  if (tile > 0) {
+    sweep_store(mine, kSweepPrefix | static_cast<unsigned long long>(before_tile + count));
+  }
+  s_start[d] = local;
+  s_base[d] = first + static_cast<int32_t>(before_tile) - local;
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kSweepItems; ++it) {
+    if (row0 + it * 32 + lane < n) {
+      const uint32_t dg = digit_of(key[it], shift, kDigits - 1);
+      const int32_t p = s_start[dg] + warp_cnt[warp][dg] + rank[it];
+      s_keys[p] = key[it];
+      s_idx[p] = idx[it];
+    }
+  }
+  __syncthreads();
+  const int64_t left = n - tile * kSweepRows;
+  const int rows = left < kSweepRows ? static_cast<int>(left) : kSweepRows;
+  for (int j = threadIdx.x; j < rows; j += kThreads) {
+    const uint64_t k = s_keys[j];
+    const int32_t pos = s_base[digit_of(k, shift, kDigits - 1)] + j;
+    keys_out[pos] = k;
+    idx_out[pos] = s_idx[j];
+  }
 }
 
 template <typename T>

@@ -72,19 +72,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library and return its
-    path; a library built from the same sources, headers (``csrc/*.cuh``)
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile every ``*.cu`` of ``csrc`` into one shared library and return
+    its path; a library built from the same sources, headers (``*.cuh``)
     and flags is reused. Each source compiles in its own ``nvcc`` process,
     all started together; the compiler's output (registers, shared memory,
     spills) is kept in ``build.log`` beside the library."""
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sorted(CSRC.glob("*.cuh")) + sources:
+    for s in sorted(csrc.glob("*.cuh")) + sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     digest = h.hexdigest()[:16]
-    out_dir = BUILD_DIR / digest
+    out_dir = build_dir / digest
     lib = out_dir / "libhopper_kernels.so"
     if lib.exists():
         return lib
@@ -118,57 +118,73 @@ def build() -> Path:
     return lib
 
 
+def bind(path: Path):
+    """Load a library :func:`build` made and declare its C interface;
+    raises where its constants disagree with the wrappers'."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name in ("grouped_sum_i64", "grouped_sum_i32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+        fn.restype = i32
+    lib.q6_fused.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr, ptr]
+    lib.q6_fused.restype = i32
+    keyset = ctypes.POINTER(_KeySet)
+    lib.hash_probe.argtypes = (
+        [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 7
+    )
+    lib.hash_probe.restype = i32
+    lib.hash_expand_scan.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr]
+    lib.hash_expand_scan.restype = i32
+    lib.hash_expand_slots.argtypes = (
+        [keyset, keyset] + [ptr] * 4 + [i64, i64, i32, i64] + [ptr] * 7
+        + [ctypes.POINTER(_GatherSet), i32, ptr]
+    )
+    lib.hash_expand_slots.restype = i32
+    lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
+    lib.segment_sum.restype = i32
+    for name, want in (("hash_expand_gather_cols", _MAX_GATHER_COLS),
+                       ("hash_expand_tile_rows", EXPAND_TILE_ROWS),
+                       ("hash_expand_state_head", _EXPAND_STATE_HEAD),
+                       ("hash_expand_look_back", EXPAND_LOOK_BACK),
+                       ("wide_key_limit", _MAX_WIDE_KEYS),
+                       ("radix_tile_rows", _TILE_ROWS),
+                       ("group_sort_tile_rows", SORT_TILE_ROWS),
+                       ("segment_sum_tile_rows", SEGMENT_TILE_ROWS),
+                       ("radix_perm_cols", _MAX_PERM_COLS),
+                       ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS)):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        if fn() != want:
+            raise RuntimeError(f"csrc and its wrapper disagree on {name}")
+    gather = ctypes.POINTER(_PermGatherSet)
+    wide, comp = ctypes.POINTER(_WideKeySet), ctypes.POINTER(_Composite)
+    lib.group_sort_stats.argtypes = [wide, ptr, i64, ptr, ptr, ptr]
+    lib.group_sort_compose.argtypes = [wide, ptr, i64, comp, i32, ptr, ptr, i64, ptr]
+    lib.group_sort_passes.argtypes = (
+        [comp, i32, i64] + [ptr] * 5 + [ctypes.POINTER(ctypes.c_void_p), ptr])
+    lib.group_sort_finish.argtypes = (
+        [wide, ptr, i64, i32, ptr, ptr, i32, i32, ctypes.POINTER(_DecodeSet), gather,
+         i32] + [ptr] * 4)
+    for name in ("group_sort_stats", "group_sort_compose", "group_sort_passes",
+                 "group_sort_finish"):
+        getattr(lib, name).restype = i32
+    lib.group_sort_scratch_words.argtypes = [i64, i32]
+    for name in ("group_sort_scratch_words", "group_sort_stream_ops",
+                 "segment_sum_stream_ops"):
+        getattr(lib, name).restype = i64
+    lib.partition_epilogue.argtypes = (
+        [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, ptr]
+    )
+    lib.partition_epilogue.restype = i32
+    return lib
+
+
 def _library():
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for name in ("grouped_sum_i64", "grouped_sum_i32"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
-                fn.restype = i32
-            lib.q6_fused.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr, ptr]
-            lib.q6_fused.restype = i32
-            keyset = ctypes.POINTER(_KeySet)
-            lib.hash_probe.argtypes = (
-                [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 7
-            )
-            lib.hash_probe.restype = i32
-            lib.hash_expand_scan.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr]
-            lib.hash_expand_scan.restype = i32
-            lib.hash_expand_slots.argtypes = (
-                [keyset, keyset] + [ptr] * 4 + [i64, i64, i32, i64] + [ptr] * 7
-                + [ctypes.POINTER(_GatherSet), i32, ptr]
-            )
-            lib.hash_expand_slots.restype = i32
-            lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
-            lib.segment_sum.restype = i32
-            for name, want in (("hash_expand_gather_cols", _MAX_GATHER_COLS),
-                               ("hash_expand_tile_rows", EXPAND_TILE_ROWS),
-                               ("hash_expand_state_head", _EXPAND_STATE_HEAD),
-                               ("hash_expand_look_back", EXPAND_LOOK_BACK),
-                               ("wide_key_limit", _MAX_WIDE_KEYS),
-                               ("radix_tile_rows", _TILE_ROWS),
-                               ("radix_perm_cols", _MAX_PERM_COLS),
-                               ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS)):
-                fn = getattr(lib, name)
-                fn.restype = i32
-                if fn() != want:
-                    raise RuntimeError(f"csrc and its wrapper disagree on {name}")
-            gather = ctypes.POINTER(_PermGatherSet)
-            lib.group_sort_stats.argtypes = [ctypes.POINTER(_WideKeySet), ptr, i64, ptr, ptr]
-            lib.group_sort_stats.restype = i32
-            lib.group_sort.argtypes = (
-                [ctypes.POINTER(_WideKeySet), ptr, i64, ctypes.POINTER(_Composite), i32]
-                + [ptr] * 6 + [gather, i32] + [ptr] * 4
-            )
-            lib.group_sort.restype = i32
-            lib.partition_epilogue.argtypes = (
-                [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, ptr]
-            )
-            lib.partition_epilogue.restype = i32
-            _LIB = lib
+            _LIB = bind(build())
         return _LIB
 
 
@@ -623,6 +639,8 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
 # --------------------------------------------------------------------------- #
 
 _VALUE_TYPES = {torch.int64: 0, torch.int32: 1, torch.bool: 2}
+# rows of one segment-sum tile (kSegRows in csrc/segment_agg.cu)
+SEGMENT_TILE_ROWS = 2048
 
 
 def segment_sum_plain(values: torch.Tensor, weight: torch.Tensor,
@@ -640,7 +658,9 @@ def segment_sum(values: torch.Tensor, weight: torch.Tensor,
     """out[g] = sum(values[i] for weighted rows i of segment g) as int64
     (mod 2^64), over group-sorted rows; ``starts`` (int64, ascending,
     padded with n) holds each segment's first row, and segment g ends where
-    segment g+1 starts. Values are int64, int32 or bool (a count)."""
+    segment g+1 starts. Values are int64, int32 or bool (a count). On CUDA
+    tensors: a memset of the output and one launch over tiles of
+    :data:`SEGMENT_TILE_ROWS` rows."""
     if values.dtype not in _VALUE_TYPES:
         raise TypeError(f"segment_sum: values of {values.dtype} are not supported")
     _check_vectors("segment_sum", (values, weight), (values.dtype, torch.bool))
@@ -669,7 +689,9 @@ def segment_sum(values: torch.Tensor, weight: torch.Tensor,
 _MAX_WIDE_KEYS = 8
 _MAX_PERM_COLS = 16
 _TILE_ROWS = 2048
-_RADIX_BINS = 256
+# rows of one tile of the group sort's one-sweep pass (kSweepRows)
+SORT_TILE_ROWS = 4096
+_DIGIT_BITS = 8
 # the largest n_parts partition_epilogue takes (kMaxParts)
 EPILOGUE_MAX_PARTS = 1024
 # composite field kinds (FieldKind in csrc/group_sort.cu)
@@ -692,6 +714,24 @@ class _Composite(ctypes.Structure):
         ("field", _Field * (2 * _MAX_WIDE_KEYS + 1)), ("n_fields", ctypes.c_int),
         ("bits", ctypes.c_int),
     ]
+
+
+class _DecodeCol(ctypes.Structure):
+    _fields_ = [
+        ("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("dst_valid", ctypes.c_void_p),
+        ("type", ctypes.c_int), ("value_pos", ctypes.c_int), ("value_bits", ctypes.c_int),
+        ("offset", ctypes.c_int64), ("valid_mode", ctypes.c_int), ("valid_pos", ctypes.c_int),
+    ]
+
+
+class _DecodeSet(ctypes.Structure):
+    _fields_ = [("col", _DecodeCol * _MAX_WIDE_KEYS), ("n", ctypes.c_int)]
+
+
+# how a decoded key column's validity is read (ValidMode in csrc/group_sort.cu)
+_VALID_BIT, _VALID_ACTIVE, _VALID_ALWAYS, _VALID_NEVER = 0, 1, 2, 3
+# key storage a sorted composite decodes (integers and bool; floats are gathered)
+_DECODED_TYPES = (torch.int64, torch.int32, torch.int16, torch.int8, torch.bool)
 
 
 class _PermCol(ctypes.Structure):
@@ -720,22 +760,24 @@ def _check_page_cols(name: str, cols, n: int, dev) -> None:
             raise ValueError(f"{name}: columns must be {n} rows on {dev}")
 
 
-def _perm_gather_sets(cols):
-    """Output buffers and PermGatherSets for (data, valid or None) columns."""
+def _like(cols):
+    """New buffers like (data, valid or None) columns."""
+    return [(torch.empty_like(d), None if v is None else torch.empty_like(v)) for d, v in cols]
+
+
+def _perm_gather_sets(cols, outs):
+    """PermGatherSets from (data, valid or None) columns into ``outs``:
+    returns (sets, n_sets)."""
     n_sets = -(-len(cols) // _MAX_PERM_COLS)
     sets = (_PermGatherSet * max(1, n_sets))()
-    outs = []
-    for i, (d, v) in enumerate(cols):
-        od = torch.empty_like(d)
-        ov = None if v is None else torch.empty_like(v)
+    for i, ((d, v), (od, ov)) in enumerate(zip(cols, outs)):
         g = sets[i // _MAX_PERM_COLS]
         pc = g.col[g.n]
         pc.src, pc.dst, pc.elem_bytes = d.data_ptr(), od.data_ptr(), d.element_size()
         if v is not None:
             pc.src_valid, pc.dst_valid = v.data_ptr(), ov.data_ptr()
         g.n += 1
-        outs.append((od, ov))
-    return sets, n_sets, outs
+    return sets, n_sets
 
 
 def group_sort_plain(key_cols, payload_cols, active: torch.Tensor):
@@ -767,22 +809,39 @@ def group_sort_plain(key_cols, payload_cols, active: torch.Tensor):
     return out, active_s, new_group, new_group.sum()
 
 
+def group_sort_stats_plain(key_cols, active: torch.Tensor) -> List[int]:
+    """The group sort's stats reduction on tensors: per key the least and
+    largest normalized value over its valid rows (INT64_MAX and INT64_MIN
+    where it has none), its valid-row count and the rows where its
+    validity differs from the activity; then the active-row count."""
+    lo, hi, nv, differ = [], [], [], []
+    for d, v in key_cols:
+        k = K.order_key(d)[v]
+        lo.append(int(k.min()) if k.numel() else int(K.INT64_MAX))
+        hi.append(int(k.max()) if k.numel() else -int(K.INT64_MAX) - 1)
+        nv.append(int(v.sum()))
+        differ.append(int((v != active).sum()))
+    return lo + hi + nv + differ + [int(active.sum())]
+
+
 def radix_plan(stats: Sequence[int], n: int):
-    """The group sort's composite keys from its stats (per key the least and
-    largest normalized value over valid rows and the valid-row count, then
-    the active-row count): fields least significant first, each
-    ``(kind, key, offset, bits, pos)``, packed greedily into composites of
-    at most 64 bits. A key's value field is ``value - min`` in
-    ``bit_length(max - min)`` bits (0 on NULL rows), its validity field one
-    bit; a field that is the same on every row is left out, since a stable
-    pass over equal digits changes nothing."""
-    nk = (len(stats) - 1) // 3
-    lo, hi, n_valid, n_active = stats[:nk], stats[nk:2 * nk], stats[2 * nk:3 * nk], stats[-1]
+    """The group sort's composite keys from its stats (as
+    :func:`group_sort_stats_plain` gives them): fields least significant
+    first, each ``(kind, key, offset, bits, pos)``, packed greedily into
+    composites of at most 64 bits. A key's value field is ``value - min``
+    in ``bit_length(max - min)`` bits (0 on NULL rows), its validity field
+    one bit; a field that is the same on every row is left out, since a
+    stable pass over equal digits changes nothing, and so is a validity
+    that equals the activity on every row: the inactive field, more
+    significant than every validity field, already orders those rows."""
+    nk = (len(stats) - 1) // 4
+    lo, hi = stats[:nk], stats[nk:2 * nk]
+    n_valid, differ, n_active = stats[2 * nk:3 * nk], stats[3 * nk:4 * nk], stats[-1]
     fields = []
     for k in reversed(range(nk)):
         if n_valid[k] and hi[k] > lo[k]:
             fields.append((_VALUE_FIELD, k, lo[k], (hi[k] - lo[k]).bit_length()))
-        if 0 < n_valid[k] < n:
+        if 0 < n_valid[k] < n and differ[k]:
             fields.append((_VALID_FIELD, k, 0, 1))
     if 0 < n_active < n:
         fields.append((_INACTIVE_FIELD, 0, 0, 1))
@@ -798,7 +857,41 @@ def radix_plan(stats: Sequence[int], n: int):
     return comps
 
 
-def group_sort(key_cols, payload_cols, active: torch.Tensor):
+def _decode_plan(key_cols, payload_cols, stats, plan):
+    """The carried columns ``group_sort_finish`` writes from a one-composite
+    plan's sorted composite: each integer or bool group key carried as it
+    is, as ``{payload index: (key, value_pos, value_bits, offset,
+    valid_mode, valid_pos)}``, at most as many as a DecodeSet holds."""
+    if len(plan) != 1:
+        return {}
+    nk = len(key_cols)
+    lo, n_valid, n = stats[:nk], stats[2 * nk:3 * nk], key_cols[0][0].shape[0]
+    fields = {(kind, key): (pos, bits, offset) for kind, key, offset, bits, pos in plan[0]}
+    out = {}
+    for j, (d, v) in enumerate(payload_cols):
+        for k, (kd, kv) in enumerate(key_cols):
+            if (len(out) < _MAX_WIDE_KEYS and d.dtype in _DECODED_TYPES and d.dtype == kd.dtype
+                    and d.data_ptr() == kd.data_ptr() and v.data_ptr() == kv.data_ptr()):
+                pos, bits, offset = fields.get((_VALUE_FIELD, k),
+                                               (0, 0, lo[k] if n_valid[k] else 0))
+                if (_VALID_FIELD, k) in fields:
+                    mode, vpos = _VALID_BIT, fields[(_VALID_FIELD, k)][0]
+                else:
+                    mode = (_VALID_ALWAYS if n_valid[k] == n else
+                            _VALID_NEVER if n_valid[k] == 0 else _VALID_ACTIVE)
+                    vpos = 0
+                out[j] = (k, pos, bits, offset, mode, vpos)
+                break
+    return out
+
+
+def stream_ops(name: str) -> int:
+    """Kernel launches and memsets that ``name``'s kernels (``group_sort``
+    or ``segment_sum``) have issued since the library was loaded."""
+    return int(getattr(_library(), f"{name}_stream_ops")())
+
+
+def group_sort(key_cols, payload_cols, active: torch.Tensor, *, phase_events=None):
     """Stable co-sort of a page by its group keys, and its group boundaries.
 
     ``key_cols``: (data, valid) of each group key, most significant first (1
@@ -807,8 +900,12 @@ def group_sort(key_cols, payload_cols, active: torch.Tensor):
     active_out, new_group, num_groups)``: the columns in sorted order
     (within a key NULL rows first, inactive rows last, ties in row order),
     ``new_group`` set on the first active row of each group, and the group
-    count as a 0-d int64. On CUDA tensors one host read of the keys' ranges
-    sizes the passes."""
+    count as a 0-d int64. On CUDA tensors one host read of the keys'
+    ranges sizes the passes (:func:`radix_plan`). ``phase_events``, None
+    or a list, gets one ``(phase, start, end)`` pair of recorded CUDA
+    events for each of ``"stats"`` (the range reduction and its host
+    read), ``"compose"``, ``"passes"`` and ``"finish"`` (group boundaries
+    and the gathers), to split the kernel's time."""
     _check_vectors("group_sort", (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
     if not 1 <= len(key_cols) <= _MAX_WIDE_KEYS:
@@ -824,31 +921,79 @@ def group_sort(key_cols, payload_cols, active: torch.Tensor):
         return group_sort_plain(key_cols, payload_cols, active)
     lib = _library()
     stream = _stream(active)
+    marks = []
+
+    def mark(phase=None):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        if phase is not None:
+            phase_events.append((phase, marks[-2], marks[-1]))
+
     ks = _key_set("group_sort", key_cols, (None,) * len(key_cols), n, _WideKeySet)
-    stats = torch.empty(3 * len(key_cols) + 1, dtype=torch.int64, device=dev)
+    stats = torch.empty(4 * len(key_cols) + 1, dtype=torch.int64, device=dev)
+    num_groups = torch.empty((), dtype=torch.int64, device=dev)
+    if phase_events is not None:
+        mark()
     _check_launch("group_sort", lib.group_sort_stats(
-        ctypes.byref(ks), active.data_ptr(), n, stats.data_ptr(), stream))
-    plan = radix_plan(stats.tolist(), n)
+        ctypes.byref(ks), active.data_ptr(), n, stats.data_ptr(), num_groups.data_ptr(),
+        stream))
+    # the passes' buffers are allocated while the stats run (for one
+    # composite, the usual plan), the outputs while the passes run
+    alt_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    comp_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.group_sort_scratch_words(n, 64 // _DIGIT_BITS),
+                          dtype=torch.int64, device=dev)
+    stats = stats.tolist()
+    plan = radix_plan(stats, n)
+    if phase_events is not None:
+        mark("stats")
     comps = (_Composite * max(1, len(plan)))()
+    inactive_pos = -1
     for c, fields in zip(comps, plan):
         for f, (kind, key, offset, bits, pos) in zip(c.field, fields):
             f.kind, f.key, f.offset, f.bits, f.pos = kind, key, offset, bits, pos
+            if kind == _INACTIVE_FIELD:
+                inactive_pos = pos
         c.n_fields = len(fields)
         c.bits = sum(f[3] for f in fields)
-    scratch = [torch.empty(n, dtype=dt, device=dev)
-               for dt in (torch.int64, torch.int64, torch.int32, torch.int32)]
-    hist = torch.empty(_RADIX_BINS * -(-n // _TILE_ROWS), dtype=torch.int32, device=dev)
-    totals = torch.empty(_RADIX_BINS, dtype=torch.int32, device=dev)
-    sets, n_sets, outs = _perm_gather_sets(list(payload_cols))
+    words = lib.group_sort_scratch_words(
+        n, sum(-(-c.bits // _DIGIT_BITS) for c in comps[:len(plan)]))
+    if len(plan) > 1:
+        comp_keys = torch.empty(len(plan) * n, dtype=torch.int64, device=dev)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    _check_launch("group_sort", lib.group_sort_compose(
+        ctypes.byref(ks), active.data_ptr(), n, comps, len(plan), comp_keys.data_ptr(),
+        scratch.data_ptr(), words, stream))
+    if phase_events is not None:
+        mark("compose")
+    result = (ctypes.c_void_p * 2)()
+    _check_launch("group_sort", lib.group_sort_passes(
+        comps, len(plan), n, comp_keys.data_ptr(), alt_keys.data_ptr(), idx[0].data_ptr(),
+        idx[1].data_ptr(), scratch.data_ptr(), result, stream))
+    if phase_events is not None:
+        mark("passes")
+    outs = _like(payload_cols)
     active_out = torch.empty(n, dtype=torch.bool, device=dev)
     new_group = torch.empty(n, dtype=torch.bool, device=dev)
-    num_groups = torch.empty((), dtype=torch.int64, device=dev)
-    rc = lib.group_sort(
-        ctypes.byref(ks), active.data_ptr(), n, comps, len(plan),
-        *(t.data_ptr() for t in scratch), hist.data_ptr(), totals.data_ptr(), sets, n_sets,
-        active_out.data_ptr(), new_group.data_ptr(), num_groups.data_ptr(), stream,
-    )
-    _check_launch("group_sort", rc)
+    decode = _decode_plan(key_cols, payload_cols, stats, plan)
+    ds = _DecodeSet()
+    for j, (k, pos, bits, offset, mode, vpos) in decode.items():
+        dc = ds.col[ds.n]
+        (d, _), (od, ov) = payload_cols[j], outs[j]
+        dc.src, dc.dst, dc.dst_valid = d.data_ptr(), od.data_ptr(), ov.data_ptr()
+        dc.type, dc.value_pos, dc.value_bits, dc.offset = _KEY_TYPES[d.dtype], pos, bits, offset
+        dc.valid_mode, dc.valid_pos = mode, vpos
+        ds.n += 1
+    sets, n_sets = _perm_gather_sets(
+        [(d, v) for j, (d, v) in enumerate(payload_cols) if j not in decode],
+        [o for j, o in enumerate(outs) if j not in decode])
+    _check_launch("group_sort", lib.group_sort_finish(
+        ctypes.byref(ks), active.data_ptr(), n, len(plan), result[0], result[1], inactive_pos,
+        int(stats[-1] == n), ctypes.byref(ds), sets, n_sets, active_out.data_ptr(),
+        new_group.data_ptr(), num_groups.data_ptr(), stream))
+    if phase_events is not None:
+        mark("finish")
     LAUNCHES["group_sort"] += 1
     return outs, active_out, new_group, num_groups
 
@@ -900,7 +1045,9 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int)
     totals = torch.empty(nb, dtype=torch.int32, device=dev)
     offsets = torch.empty(nb, dtype=torch.int64, device=dev)
     counts = torch.empty(nb, dtype=torch.int64, device=dev)
-    sets, n_sets, outs = _perm_gather_sets(list(cols) + [(active, None)])
+    gathered = list(cols) + [(active, None)]
+    outs = _like(gathered)
+    sets, n_sets = _perm_gather_sets(gathered, outs)
     rc = _library().partition_epilogue(
         ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(), idx.data_ptr(),
         hist.data_ptr(), totals.data_ptr(), offsets.data_ptr(), counts.data_ptr(), sets,
