@@ -18,7 +18,15 @@ printed):
    sorting work: ``torch.sort`` of one int64 key), that call. The group
    sort's time is split by phase (stats and the host read, compose, radix
    passes, finish and gather) with its plan's composites and its stream
-   operations a call; the segment sums' stream operations are counted.
+   operations a call; the segment sums' stream operations are counted; the
+   hash probe's time is split into its memset, claim, bucket and probe
+   phases and the repartition epilogue's into its count and sweep (or
+   three-launch) phases, each with its stream operations and device time
+   by kernel. The hash probe is compared on what the expansion reads of it
+   (the kernel leaves the rest unspecified), and the expansion run on its
+   output against the plain expansion on the plain probe's output, over
+   the whole joined page; its bound is counted on what it must move, beside
+   the whole-table bound of earlier versions.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
    count set to 0 just before it), rows identical to the run with the
@@ -29,9 +37,10 @@ printed):
    on one 64-bit composite, and the wall seconds of each query. Every
    kernel is also checked and timed on the inputs the queries gave it (its
    real distributions; the repartition epilogue, which no query calls, on
-   Q10's joined page; the hash probe on each of Q10's three joins); those
-   times go in the kernels line. The group sort and the segment sums also
-   print their device time by kernel (``torch.profiler``).
+   Q10's joined page; the hash probe, with the whole joined page and its
+   phase split, on each of Q3's two and Q10's three joins); those times go
+   in the kernels line. The group sort and the segment sums also print
+   their device time by kernel (``torch.profiler``).
 4. A ``kernels`` JSON line, then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
@@ -256,13 +265,16 @@ def key_bytes(cols) -> int:
     return sum(d.element_size() * (d[0].numel() if d.ndim > 1 else 1) + 1 for d, _ in cols)
 
 
-def join_cases(n_main: int, dev):
+def join_cases(HK, n_main: int, dev):
     """(label, pkeys, bkeys, luts, probe_active, build_active, left_outer,
     past_limit) cases for hash_probe and hash_expand. The first has the
     shape of Q3's second join at SF10: one lineitem page of probe keys
     against a build side of 2,097,152 slots, 70 % active, with unique keys
     (order keys). ``past_limit`` lets the table pass the engine's entry
     limit (the fan-out case's C = 8192)."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime.capstore import capacity_class
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
 
@@ -314,6 +326,33 @@ def join_cases(n_main: int, dev):
     yield ("fan-out: one build key on 3000 rows", ((pkey, mask(n, 1.0)),),
            ((bkey, mask(m, 1.0)),), (None,), mask(n, 1.0) | (pkey == 7), mask(m, 1.0), False,
            True)
+    # one bucket of exactly C build rows (the first slot class), then of C + 1
+    # (the retry at the next class): key 7 on that many rows, every other
+    # build key kept out of its bucket
+    n, m = 100_003, 4096
+    B = capacity_class(m)
+    others = torch.arange(4 * m, device=dev) + 100
+    others = others[HK.bucket_of([others], B) != HK.bucket_of([others.new_full((1,), 7)], B)]
+    pkey = rnd(n, 0, 5000)
+    pkey[::97] = 7
+    for rows in (MK.DEFAULT_BUCKET_CAP, MK.DEFAULT_BUCKET_CAP + 1):
+        bkey = torch.cat([others.new_full((rows,), 7), others[:m - rows]])
+        yield (f"a bucket of exactly {rows} rows", ((pkey, mask(n, 1.0)),),
+               ((bkey, mask(m, 1.0)),), (None,), mask(n, 0.9), mask(m, 1.0), False, False)
+    # an inner join with no match: every output slot is past the total, so
+    # hash_expand reads the last probe row's (empty) bucket
+    n, m = 100_003, 50_000
+    yield ("every build key NULL", ((rnd(n, 0, 1000), mask(n, 0.9)),),
+           ((rnd(m, 0, 1000), mask(m, 0.0)),), (None,), mask(n, 0.8), mask(m, 1.0), False,
+           False)
+    yield ("a one-row build side", ((rnd(n, 0, 4), mask(n, 0.95)),),
+           ((torch.tensor([2], device=dev), mask(1, 1.0)),), (None,), mask(n, 0.8),
+           mask(1, 1.0), True, False)
+    pkey, pvalid, pactive = rnd(n, 0, 400_000), mask(n, 0.9), mask(n, 0.7)
+    pvalid[-1], pactive[-1] = False, False
+    yield ("LEFT, inactive and NULL-key probe rows, the last one both",
+           ((pkey, pvalid),), ((rnd(m, 0, 400_000), mask(m, 0.9)),), (None,), pactive,
+           mask(m, 0.7), True, False)
 
 
 def payload_cols(keys, n: int, dev, seed: int):
@@ -328,10 +367,37 @@ def payload_cols(keys, n: int, dev, seed: int):
     ]
 
 
-def same_probe(got: dict, want: dict, B: int) -> bool:
-    keys = ("counts", "bucket_p", "count", "emit", "max_count")
-    return all(torch.equal(got[k], want[k]) for k in keys) and torch.equal(
-        got["table"][:B], want["table"][:B])
+def same_probe(got: dict, want: dict, args) -> bool:
+    """Everything hash_expand reads of hash_probe's output, and no less:
+    counts, max_count and emit on every row; every occupied slot of every
+    bucket below B, and slot 0 of each bucket an unmatched output slot
+    reads (a LEFT join's active rows', and the last row's, whose bucket the
+    slots past the total read); bucket_p and count on the active rows and
+    the last row. The kernel leaves the rest unspecified."""
+    _, _, _, pa, _, B, C, left = args
+    if not all(torch.equal(got[k], want[k]) for k in ("counts", "emit", "max_count")):
+        return False
+    rows = pa.clone() if left else torch.zeros_like(pa)
+    rows[-1] = True
+    read = torch.arange(C, device=pa.device) < want["counts"][:B, None].clamp(max=C)
+    read[want["bucket_p"][rows].to(torch.int64), 0] = True
+    rows = pa.clone()
+    rows[-1] = True
+    return (torch.equal(got["table"][:B][read], want["table"][:B][read])
+            and all(torch.equal(got[k][rows], want[k][rows]) for k in ("bucket_p", "count")))
+
+
+def same_join(HK, pargs, pcols, bcols) -> bool:
+    """hash_expand on the kernel's probe output against hash_expand_plain on
+    the plain probe output, over the whole joined page (inactive slots
+    too), at the capacity the engine would give it."""
+    got = HK.hash_probe(*pargs)
+    want = HK.hash_probe_plain(*pargs)
+    pkeys, bkeys, luts, pa = pargs[:4]
+    cap = round_capacity(max(int(want["emit"].sum()), 1))
+    return same_expand(
+        HK.hash_expand(*expand_args(got, pkeys, bkeys, luts, pa, pcols, bcols, cap)),
+        HK.hash_expand_plain(*expand_args(want, pkeys, bkeys, luts, pa, pcols, bcols, cap)))
 
 
 def same_expand(got, want) -> bool:
@@ -365,13 +431,80 @@ def expand_args(pr: dict, pkeys, bkeys, luts, pa, probe_cols, build_cols, cap=No
             bkeys, luts, pa, probe_cols, build_cols, cap)
 
 
-def probe_bound(args) -> tuple:
+def probe_bound_whole_table(args) -> tuple:
+    """The bound of the first design, which zeroed the whole table: every
+    row's keys, validity and activity read on both sides, the whole [B+1, C]
+    table and the counts written, and 12 bytes a probe row (bucket_p,
+    count, emit)."""
     pkeys, bkeys, luts, pa, ba, B, C, _ = args
     n, m = pa.shape[0], ba.shape[0]
     lut = sum(l.numel() * 8 for l in luts if l is not None)
     nbytes = (n * (key_bytes(pkeys) + 1) + m * (key_bytes(bkeys) + 1) + lut
               + (B + 1) * C * 4 + (B + 1) * 4 + n * 12 + 4)
     return bound_ms(nbytes, 30 * (n + m))
+
+
+def probe_bound(args) -> tuple:
+    """Bytes hash_probe must move on these inputs, now that no later phase
+    reads an empty slot or an inactive row's bucket: every probe row's
+    activity, and the keys and validity of the active rows (and the last);
+    the build side's activity and its active rows' keys; one 4-byte slot
+    for each active build row with valid keys, counts and max_count; emit
+    for every probe row, bucket_p (and on LEFT joins count) for the active
+    rows and the last."""
+    pkeys, bkeys, luts, pa, ba, B, C, left = args
+    n, m = pa.shape[0], ba.shape[0]
+    n_read = int(pa.sum()) + (0 if bool(pa[-1]) else 1)
+    m_read = int(ba.sum())
+    claimed = ba.clone()
+    for _, v in bkeys:
+        claimed &= v
+    lut = sum(l.numel() * 8 for l in luts if l is not None)
+    nbytes = (n + n_read * key_bytes(pkeys) + m + m_read * key_bytes(bkeys) + lut
+              + int(claimed.sum()) * 4 + (B + 2) * 4 + 4 * n + n_read * (8 if left else 4))
+    return bound_ms(nbytes, 30 * (n_read + m))
+
+
+def share(bound: float, ms: float) -> str:
+    """A kernel's time as a share of its bound; never above 100 %: a call
+    faster than the bound found its inputs in the 50 MB L2 from the call
+    before."""
+    if ms <= 0 or bound > ms:
+        return "faster than its bound (inputs left in L2 by the call before)"
+    return f"{100 * bound / ms:.1f} % of its bound"
+
+
+def phase_split(HK, name: str, args, reps: int = 10) -> dict:
+    """Mean milliseconds of each phase of ``name``'s wrapper on these
+    inputs (CUDA events from its ``phase_events``, over ``reps`` calls after
+    one warm-up)."""
+    getattr(HK, name)(*args)
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        getattr(HK, name)(*args, phase_events=spans)
+    torch.cuda.synchronize()
+    ms = {}
+    for phase, a, b in spans:
+        ms[phase] = ms.get(phase, 0.0) + a.elapsed_time(b) / reps
+    return ms
+
+
+def print_split(HK, name: str, label: str, args) -> None:
+    """``name``'s phase split, stream operations a call and device time by
+    kernel on these inputs."""
+    ms = phase_split(HK, name, args)
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+    print(f"  {name} [{label}] split (ms): {parts} (sum {sum(ms.values()):.4f}); "
+          f"{ops_per_call(HK, name, args)} stream operations a call", flush=True)
+    print_device_us(f"{name} [{label}]", lambda: getattr(HK, name)(*args))
+
+
+def print_probe_bounds(label: str, args, ms: float) -> None:
+    b, by = probe_bound(args)
+    old, _ = probe_bound_whole_table(args)
+    print(f"  hash_probe [{label}]: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}; the "
+          f"whole-table bound {old:.4f} ms), {share(b, ms)}", flush=True)
 
 
 def expand_bound(args) -> tuple:
@@ -383,8 +516,9 @@ def expand_bound(args) -> tuple:
     table, counts, bucket_p, count, emit, pkeys, bkeys, _, pa, pcols, bcols, cap = args
     n = emit.shape[0]
     C = table.shape[1]
-    occ = counts[bucket_p.to(torch.int64)].clamp(max=C).to(torch.int64)
-    slot_reads = int((emit.to(torch.int64) * occ).sum())
+    rows = emit > 0  # bucket_p is unspecified on inactive rows
+    occ = counts[bucket_p[rows].to(torch.int64)].clamp(max=C).to(torch.int64)
+    slot_reads = int((emit[rows].to(torch.int64) * occ).sum())
     row = key_bytes(pcols) + key_bytes(bcols)
     nbytes = (n * 4 + cap * (4 + 4 + key_bytes(pkeys) + 1)
               + slot_reads * (4 + key_bytes(bkeys) - len(bkeys)) + cap * (2 * row + 1))
@@ -565,13 +699,23 @@ def epilogue_cases(dev):
     cols = [big, code, (torch.rand(n, generator=gen, device=dev, dtype=torch.float64),
                         mask(n, 1.0))]
     active = mask(n, 0.8)
-    for parts in (1, 8, 64, 1024):
+    # 255 parts is the one-sweep path's largest (256 destinations), 256 the
+    # three-launch path's smallest
+    for parts in (1, 8, 64, 255, 256, 1024):
         yield f"bigint key, {parts} parts", [big], [None], cols, active, parts
     yield "NULL keys", [(big[0], mask(n, 0.5))], [None], cols, active, 64
     yield "a dictionary key", [code], [lut], cols, active, 64
     yield "two keys", [big, code], [None, lut], cols, active, 1024
     yield "no key", [], [], cols, active, 8
     yield "all rows inactive", [big], [None], cols, mask(n, 0.0), 8
+    # past one gather set: the sweep also writes a permutation for the rest
+    for parts in (8, 1024):
+        yield f"19 columns (two gather sets), {parts} parts", [big], [None], cols * 6, active, parts
+    # a page under one 4,096-row tile of the sweep, one row, one tile and a row
+    for m in (1, 1000, 4097):
+        small = [(d[:m], v[:m]) for d, v in cols]
+        label = f"a page of {m} row{'s' if m > 1 else ''}"
+        yield label, small[:1], [None], small, active[:m].clone(), 8
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -690,7 +834,7 @@ def same_result(HK, name, args) -> bool:
     want = getattr(HK, PLAIN[name])(*args)
     torch.cuda.synchronize()
     if name == "hash_probe":
-        return same_probe(got, want, args[5])
+        return same_probe(got, want, args)
     if name == "hash_expand":
         return same_expand(got, want)
     if name == "group_sort":
@@ -811,15 +955,23 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
 
 def check_every_probe(HK, query: str, tap: LaunchTap) -> None:
     """hash_probe on the inputs of each of the query's joins: bit-exact
-    against its plain version, timed beside its bound."""
+    against its plain version, hash_expand over the whole joined page on
+    its output (each side's keys and two payload columns), timed beside its
+    bounds, with its phase split and device time by kernel."""
     for k, args in enumerate(tap.probes):
+        label = f"{query} join {k + 1}"
         if not same_result(HK, "hash_probe", args):
-            fail(f"hash_probe [{query} join {k + 1}] differs from its plain version")
-        ms = time_ms(lambda: HK.hash_probe(*args))
-        b, by = probe_bound(args)
-        print(f"  hash_probe [{query} join {k + 1} {SHAPE_OF['hash_probe'](args)}]: bit-exact, "
-              f"kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of "
-              "its bound", flush=True)
+            fail(f"hash_probe [{label}] differs from its plain version")
+        pkeys, bkeys, _, pa, ba = args[:5]
+        pcols = payload_cols(pkeys, pa.shape[0], pa.device, 30 + k)
+        bcols = payload_cols(bkeys, ba.shape[0], pa.device, 40 + k)
+        if not same_join(HK, args, pcols, bcols):
+            fail(f"hash_expand on hash_probe's output [{label}] differs from the plain join")
+        del pcols, bcols
+        print(f"  hash_probe [{label} {SHAPE_OF['hash_probe'](args)}]: bit-exact, and the "
+              "whole joined page", flush=True)
+        print_probe_bounds(label, args, time_ms(lambda: HK.hash_probe(*args)))
+        print_split(HK, "hash_probe", label, args)
 
 
 def expand_split_ms(HK, args, reps: int = 10) -> tuple:
@@ -863,6 +1015,7 @@ def check_epilogue_on_q10(HK, conn, tap: LaunchTap, results: dict, recorded: set
           "bit-exact", flush=True)
     timing = time_wrapper(HK, "partition_epilogue", args)
     print_timing("partition_epilogue [q10 joined page]", timing)
+    print_split(HK, "partition_epilogue", "q10 joined page", args)
     record(results, "partition_epilogue", "q10", timing, recorded)
 
 
@@ -926,15 +1079,7 @@ def sort_split(HK, label: str, args, reps: int = 10) -> list:
     its ``phase_events``, means over ``reps`` calls after one warm-up), its
     plan and its stream operations a call; return the plan's composite
     widths."""
-    HK.group_sort(*args)
-    torch.cuda.synchronize()
-    spans = []
-    for _ in range(reps):
-        HK.group_sort(*args, phase_events=spans)
-    torch.cuda.synchronize()
-    ms = {}
-    for phase, a, b in spans:
-        ms[phase] = ms.get(phase, 0.0) + a.elapsed_time(b) / reps
+    ms = phase_split(HK, "group_sort", args, reps)
     print_device_us(f"group_sort [{label}]", lambda: HK.group_sort(*args))
     key = args[0][0][0].to(torch.int64)
     print_device_us(f"torch.sort yardstick [{label}]", lambda: torch.sort(key, stable=True))
@@ -977,13 +1122,14 @@ def check_sort_kernels(HK, dev, results: dict) -> None:
         print(f"  partition_epilogue [{label}]: bit-exact", flush=True)
         if i == 0:
             results["partition_epilogue"] = timed_entry(HK, "partition_epilogue", args)
+            print_split(HK, "partition_epilogue", "main shape", args)
         del args, keys, luts, cols, active
 
 
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
     """hash_probe, hash_expand and segment_sum against their plain versions
     on every case; the first (main-shape) case of each is timed."""
-    cases = enumerate(join_cases(n_main, dev))
+    cases = enumerate(join_cases(HK, n_main, dev))
     for i, (label, pkeys, bkeys, luts, pa, ba, left, past_limit) in cases:
         pargs = probe_args(HK, pkeys, bkeys, luts, pa, ba, left, past_limit)
         if not same_result(HK, "hash_probe", pargs):
@@ -991,6 +1137,8 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
         pr = HK.hash_probe(*pargs)
         pcols = payload_cols(pkeys, pa.shape[0], dev, 10 + i)
         bcols = payload_cols(bkeys, ba.shape[0], dev, 20 + i)
+        if not same_join(HK, pargs, pcols, bcols):
+            fail(f"hash_expand on hash_probe's output [{label}] differs from the plain join")
         eargs = expand_args(pr, pkeys, bkeys, luts, pa, pcols, bcols)
         if not same_result(HK, "hash_expand", eargs):
             fail(f"hash_expand [{label}] differs from its plain version")
@@ -1011,6 +1159,8 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
         if i == 0:
             for name, args in (("hash_probe", pargs), ("hash_expand", eargs)):
                 results[name] = timed_entry(HK, name, args)
+            print_probe_bounds("main shape", pargs, results["hash_probe"]["ms"])
+            print_split(HK, "hash_probe", "main shape", pargs)
             scan, slots = expand_split_ms(HK, eargs)
             print(f"  hash_expand [main shape]: scan pass {scan:.4f} ms, slot-and-gather pass "
                   f"{slots:.4f} ms", flush=True)
@@ -1280,8 +1430,9 @@ def run_queries(HK, dev, kernels: dict) -> dict:
         if any(phases[k] != v for k, v in want_phases.items()):
             fail(f"{q} ran the fused phases {phases}, not {want_phases}")
         check_query_inputs(HK, q, tap, kernels, recorded)
-        if q == "q10":
+        if q in ("q03", "q10"):
             check_every_probe(HK, q, tap)
+        if q == "q10":
             check_epilogue_on_q10(HK, runner.catalogs.get("tpch"), tap, kernels, recorded)
         del tap, res
         torch.cuda.empty_cache()

@@ -143,6 +143,82 @@ def test_probe_phase_retries_on_duplicate_heavy_build():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
 
 
+@pytest.mark.parametrize("rows, C, launches", [(PMK.DEFAULT_BUCKET_CAP, 32, 1),
+                                                (PMK.DEFAULT_BUCKET_CAP + 1, 128, 2)])
+def test_probe_phase_at_the_bucket_capacity(rows, C, launches):
+    """One bucket of exactly C build rows (every other build key kept out
+    of it) fills its slots without a retry; one row more retries at the next
+    slot class: on both packages, with the same table."""
+    rng = np.random.default_rng(8)
+    B = 1024
+    others = np.arange(100, 5000)
+    mine = HK.bucket_of([torch.tensor([7])], B)
+    others = others[(HK.bucket_of([torch.from_numpy(others)], B) != mine).numpy()][:600]
+    bkey = np.concatenate([np.full(rows, 7), others])
+    pkey = rng.choice(np.concatenate([[7] * 50, others, np.arange(6000, 6100)]), 700)
+    m = bkey.shape[0]
+    args = ([(pkey, np.ones(700, bool))], [(bkey, np.ones(m, bool))], [None],
+            rng.random(700) < 0.9, np.ones(m, bool))
+    want = RMK.probe_phase(*_ref(*args), False, True)
+    before = PMK.LAUNCHES["probe"]
+    got = PMK.probe_phase(*_port(*args), False)
+    assert PMK.LAUNCHES["probe"] - before == launches
+    assert got["C"] == want["C"] == C
+    assert int(got["max_count"]) == rows
+    for k in ("table", "counts", "bucket_p", "count", "emit"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
+
+
+def _unspecified_where_the_kernel_leaves_them(pr, pa, left_outer, seed):
+    """The plain probe's output with what ``hash_probe`` leaves unspecified
+    on the card overwritten by noise: table slots at or past
+    min(counts[b], C), except slot 0 of an empty bucket that a LEFT join's
+    active row or the last row points at (0); bucket_p, and on LEFT joins
+    count, on inactive rows other than the last."""
+    g = torch.Generator().manual_seed(seed)
+    table, counts = pr["table"].clone(), pr["counts"]
+    B1, C = table.shape
+    noise = torch.randint(-(2**31), 2**31 - 1, (B1, C), generator=g, dtype=torch.int32)
+    occupied = torch.arange(C) < counts[:, None].clamp(max=C)
+    table = torch.where(occupied, table, noise)
+    rows = pa.clone() if left_outer else torch.zeros_like(pa)
+    rows[-1] = True
+    read = pr["bucket_p"][rows].to(torch.int64)
+    table[read, 0] = torch.where(counts[read] == 0, 0, table[read, 0])
+    out = dict(pr, table=table)
+    hidden = ~pa
+    hidden[-1] = False
+    for k in ("bucket_p", "count") if left_outer else ("bucket_p",):
+        out[k] = torch.where(hidden, torch.randint(-(2**31), 2**31 - 1, pa.shape, generator=g,
+                                                   dtype=torch.int32), pr[k])
+    return out
+
+
+@pytest.mark.parametrize("left_outer", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_expansion_reads_only_what_the_probe_kernel_defines(case, left_outer):
+    """hash_expand_plain gives the same whole joined page from the plain
+    probe output and from one whose unspecified parts (as the kernel leaves
+    them on the card) hold noise, at the engine's capacity and past it."""
+    pk, bk, luts, pa, ba = _port(*_case(**CASES[case]))
+    B = PMK.capacity_class(int(ba.shape[0]))
+    pr = HK.hash_probe_plain(pk, bk, luts, pa, ba, B, PMK.DEFAULT_BUCKET_CAP, left_outer)
+    noisy = _unspecified_where_the_kernel_leaves_them(pr, pa, left_outer, 5)
+    n, m = pa.shape[0], ba.shape[0]
+    pcols = [(torch.arange(n, dtype=torch.int64), pa.clone())]
+    bcols = [(torch.arange(m, dtype=torch.int64) * 3, ba.clone())]
+    total = int(pr["emit"].sum())
+    for cap in (max(total, 1), total + 7):
+        want = HK.hash_expand_plain(pr["table"], pr["counts"], pr["bucket_p"], pr["count"],
+                                    pr["emit"], pk, bk, luts, pa, pcols, bcols, cap)
+        got = HK.hash_expand_plain(noisy["table"], noisy["counts"], noisy["bucket_p"],
+                                   noisy["count"], noisy["emit"], pk, bk, luts, pa, pcols,
+                                   bcols, cap)
+        for (gd, gv), (wd, wv) in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(gd, wd) and torch.equal(gv, wv)
+        assert torch.equal(got[2], want[2])
+
+
 def test_probe_phase_declines_bucket_skew(monkeypatch):
     """A retry whose table would pass TABLE_ENTRY_LIMIT declines on both
     packages, and the port counts the fallback by reason."""
@@ -814,12 +890,14 @@ def _assert_same_epilogue(got, want):
 
 
 @pytest.mark.parametrize("key_idx", [(0,), (1,), (0, 1), ()])
-@pytest.mark.parametrize("n_parts", [1, 8, 64])
+@pytest.mark.parametrize("n_parts", [1, 8, 64, 255, 256, 1024])
 def test_fused_epilogue_matches_reference(n_parts, key_idx):
     """The port's fused epilogue against the reference's
     ``fused_epilogue(interpret=True)`` and ``_jit_repartition_epilogue``:
     offsets, counts, and the page sorted by partition, exactly; the port's
-    plain ``_repartition_epilogue`` gives the same."""
+    plain ``_repartition_epilogue`` gives the same. 255 partitions is the
+    kernel's largest one-sweep size (256 destinations), 256 and 1024 take
+    its three-launch pass."""
     from trino_tpu.ops.repartition import _jit_repartition_epilogue
 
     from trino_tpu_torch.ops import repartition as PR

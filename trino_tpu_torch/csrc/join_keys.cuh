@@ -75,6 +75,61 @@ __device__ __forceinline__ bool load_key(const KeyCol& c, int64_t i, int64_t* ke
   return ok;
 }
 
+// load_key's value of column c, before its LUT, at the rows i[] where
+// take[] (0 elsewhere), for R rows at once: the switch on the column's type
+// is uniform, so the rows' loads are issued together. Returns whether the
+// column is a float (whose value no LUT translates).
+template <int R>
+__device__ __forceinline__ bool load_values(const KeyCol& c, const int64_t (&i)[R],
+                                            const bool (&take)[R], int64_t (&key)[R]) {
+  switch (c.type) {
+    case kF64:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? float_order_key(static_cast<const double*>(c.data)[i[r]]) : 0;
+      }
+      return true;
+    case kF32:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? float_order_key(static_cast<double>(
+                               static_cast<const float*>(c.data)[i[r]]))
+                         : 0;
+      }
+      return true;
+    case kI64:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? static_cast<const int64_t*>(c.data)[i[r]] : 0;
+      }
+      return false;
+    case kI32:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? static_cast<const int32_t*>(c.data)[i[r]] : 0;
+      }
+      return false;
+    case kI16:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? static_cast<const int16_t*>(c.data)[i[r]] : 0;
+      }
+      return false;
+    case kI8:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] ? static_cast<const int8_t*>(c.data)[i[r]] : 0;
+      }
+      return false;
+    default:
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = take[r] && static_cast<const uint8_t*>(c.data)[i[r]] ? 1 : 0;
+      }
+      return false;
+  }
+}
+
 // kernels.splitmix64 on unsigned bits (wrapping adds and multiplies,
 // logical shifts): the same bits as the torch version.
 __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {

@@ -30,4 +30,19 @@ inline int grid_for(int64_t n) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// Blocks of ``kernel`` (kThreads threads, no dynamic shared memory) that
+// one SM holds at once, as its registers allow.
+inline int blocks_per_sm(const void* kernel) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  return blocks > 0 ? blocks : 1;
+}
+
+// grid_for(n) capped at ``per_sm`` blocks an SM: a grid-stride pass whose
+// blocks all fit the card at once, so none runs in a second, thinner wave.
+inline int resident_grid(int64_t n, int per_sm) {
+  const int cap = sm_count() * per_sm;
+  return grid_for(n) < cap ? grid_for(n) : cap;
+}
+
 }  // namespace hopper

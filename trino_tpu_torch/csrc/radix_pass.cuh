@@ -1,8 +1,9 @@
 // Stable counting passes of an LSD radix sort over a row-index
 // permutation, and the gather of columns by a permutation: shared by
 // group_sort.cu (the one-sweep pass below, over eight-bit digits of packed
-// 64-bit sort keys) and partition_epilogue.cu (one three-launch pass over
-// n_parts + 1 destination bins).
+// 64-bit sort keys) and partition_epilogue.cu (the tile ranking of the
+// one-sweep pass and the tile-count scan, up to 256 destinations; past
+// that, one three-launch pass over n_parts + 1 destination bins).
 //
 // The three-launch pass orders n rows stably by a digit of their key:
 //   (a) radix_count:   a histogram of digits per tile of kTileRows rows;
@@ -300,6 +301,43 @@ __device__ __forceinline__ void sweep_store(unsigned long long* p, unsigned long
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
 }
 
+// The ranking of a tile that group_sort.cu's sweep_pass and
+// partition_epilogue.cu's sweep share.
+
+// Ranks a lane's ITEMS rows within its warp by digit, in row order:
+// digit(it) is row it's digit (kNoDigit for a lane past the last row), cnt
+// the warp's running count of each digit in shared memory; rank[it] gets
+// the warp's rows of the same digit before row it.
+template <int ITEMS, typename DigitOf>
+__device__ __forceinline__ void warp_rank(DigitOf digit, int32_t* cnt, int32_t (&rank)[ITEMS]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const uint32_t d = digit(it);
+    const bool ok = d != kNoDigit;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int32_t before = ok ? cnt[d] : 0;
+    __syncwarp();
+    if (ok && lane == __ffs(peers) - 1) cnt[d] = before + __popc(peers);
+    __syncwarp();
+    rank[it] = before + __popc(peers & lower);
+  }
+}
+
+// Thread d, after every warp ranked its rows: digit d's count in each warp
+// becomes that digit's rows in earlier warps; returns the tile's count.
+__device__ __forceinline__ int32_t warp_offsets(int32_t (*warp_cnt)[kDigits], int d) {
+  int32_t count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int32_t c = warp_cnt[w][d];
+    warp_cnt[w][d] = count;
+    count += c;
+  }
+  return count;
+}
+
 // One stable pass by the eight-bit digit at ``shift``. Row i's key is
 // keys_in[i], or keys_in[idx_in[i]] with gather_keys (the first pass of a
 // later composite, whose keys lie in row order); idx_in null reads as the
@@ -324,7 +362,6 @@ sweep_pass(const uint64_t* __restrict__ keys_in, const int32_t* __restrict__ idx
   __syncthreads();
   const int64_t tile = s_tile;
   const int64_t row0 = tile * kSweepRows + warp * kSweepWarpRows;
-  const unsigned lower = (1u << lane) - 1u;
   uint64_t key[kSweepItems];
   int32_t idx[kSweepItems];
   int32_t rank[kSweepItems];
@@ -338,27 +375,15 @@ sweep_pass(const uint64_t* __restrict__ keys_in, const int32_t* __restrict__ idx
     const int64_t i = row0 + it * 32 + lane;
     key[it] = i < n ? keys_in[gather_keys ? static_cast<int64_t>(idx[it]) : i] : 0;
   }
-#pragma unroll
-  for (int it = 0; it < kSweepItems; ++it) {
-    const bool ok = row0 + it * 32 + lane < n;
-    const uint32_t d = ok ? digit_of(key[it], shift, kDigits - 1) : kNoDigit;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int32_t before = ok ? warp_cnt[warp][d] : 0;
-    __syncwarp();
-    if (ok && lane == __ffs(peers) - 1) warp_cnt[warp][d] = before + __popc(peers);
-    __syncwarp();
-    rank[it] = before + __popc(peers & lower);
-  }
+  warp_rank<kSweepItems>(
+      [&](int it) {
+        return row0 + it * 32 + lane < n ? digit_of(key[it], shift, kDigits - 1) : kNoDigit;
+      },
+      warp_cnt[warp], rank);
   __syncthreads();
   // thread d: digit d's rows in earlier warps, and the tile's count
   const int d = threadIdx.x;
-  int32_t count = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int32_t c = warp_cnt[w][d];
-    warp_cnt[w][d] = count;
-    count += c;
-  }
+  const int32_t count = warp_offsets(warp_cnt, d);
   unsigned long long* mine = status + tile * kDigits + d;
   sweep_store(mine, (tile == 0 ? kSweepPrefix : kSweepAggregate) |
                         static_cast<unsigned long long>(count));

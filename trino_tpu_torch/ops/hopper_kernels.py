@@ -129,9 +129,9 @@ def bind(path: Path):
         fn.restype = i32
     lib.q6_fused.argtypes = [ptr] * 5 + [i64] + [i32] * 5 + [ptr, ptr]
     lib.q6_fused.restype = i32
-    keyset = ctypes.POINTER(_KeySet)
+    keyset, events = ctypes.POINTER(_KeySet), ctypes.POINTER(ctypes.c_void_p)
     lib.hash_probe.argtypes = (
-        [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 7
+        [keyset, keyset, ptr, ptr, i64, i64, i32, i32, i32] + [ptr] * 6 + [events, ptr]
     )
     lib.hash_probe.restype = i32
     lib.hash_expand_scan.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr]
@@ -152,7 +152,8 @@ def bind(path: Path):
                        ("group_sort_tile_rows", SORT_TILE_ROWS),
                        ("segment_sum_tile_rows", SEGMENT_TILE_ROWS),
                        ("radix_perm_cols", _MAX_PERM_COLS),
-                       ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS)):
+                       ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS),
+                       ("partition_epilogue_sweep_bins", EPILOGUE_SWEEP_BINS)):
         fn = getattr(lib, name)
         fn.restype = i32
         if fn() != want:
@@ -170,11 +171,10 @@ def bind(path: Path):
                  "group_sort_finish"):
         getattr(lib, name).restype = i32
     lib.group_sort_scratch_words.argtypes = [i64, i32]
-    for name in ("group_sort_scratch_words", "group_sort_stream_ops",
-                 "segment_sum_stream_ops"):
+    for name in ("group_sort_scratch_words", *(f"{k}_stream_ops" for k in _STREAM_OPS)):
         getattr(lib, name).restype = i64
     lib.partition_epilogue.argtypes = (
-        [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, ptr]
+        [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, events, ptr]
     )
     lib.partition_epilogue.restype = i32
     return lib
@@ -195,6 +195,20 @@ def _check_launch(name: str, rc: int) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _phase_marks(phase_events, phases):
+    """The CUDA events a kernel's C entry point records at the bounds of its
+    ``phases`` (a ctypes array of their handles), each phase appended to the
+    list ``phase_events`` as ``(phase, start, end)``; None where
+    ``phase_events`` is None."""
+    if phase_events is None:
+        return None
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
+    for m in marks:
+        m.record()  # creates the event, which the entry point records again
+    phase_events.extend((p, marks[k], marks[k + 1]) for k, p in enumerate(phases))
+    return (ctypes.c_void_p * len(marks))(*(m.cuda_event for m in marks))
 
 
 def _check_vectors(name: str, tensors, dtypes) -> None:
@@ -470,18 +484,30 @@ def _check_keys(name: str, pkeys, bkeys, luts) -> None:
 
 
 def hash_probe(pkeys, bkeys, luts, probe_active: torch.Tensor, build_active: torch.Tensor,
-               n_buckets: int, C: int, left_outer: bool) -> Dict[str, torch.Tensor]:
+               n_buckets: int, C: int, left_outer: bool, *,
+               phase_events=None) -> Dict[str, torch.Tensor]:
     """One build+probe attempt at ``n_buckets`` buckets of ``C`` slots.
 
     ``pkeys``/``bkeys``: (data, valid) key columns (1 to 4 per side, any
     integer, bool or float storage); ``luts``: per key, None or an int64
     dictionary translation of probe codes into build codes. Returns
     ``table`` int32 [B+1, C], ``counts`` int32 [B+1], ``bucket_p``,
-    ``count`` and ``emit`` int32 [N], and ``max_count`` (0-d int32; above C
-    a bucket overflowed and the table is not usable). On CUDA tensors the
-    table rows of the trash bucket B and of overflowed buckets are
-    unspecified, and where ``max_count`` > C so are ``count`` and
-    ``emit``; everything else equals :func:`hash_probe_plain`."""
+    ``count`` and ``emit`` int32 [N] (on inner joins ``count`` is
+    ``emit``, as in :func:`hash_probe_plain`), and ``max_count`` (0-d
+    int32; above C a bucket overflowed and the table is not usable).
+
+    On CUDA tensors the kernel is one memset (counts and max_count, one
+    buffer) and three launches (claim, buckets, probe), and leaves
+    unspecified what no later phase reads: the table's slots at or past
+    ``min(counts[b], C)`` (the memset of the whole table is gone), except
+    slot 0 of an empty bucket below B that :func:`hash_expand` reads for an
+    unmatched output slot (the bucket of a LEFT join's active probe row or
+    of the last probe row), which is 0; ``bucket_p`` and ``count`` on
+    inactive probe rows other than the last (their keys are not read); and
+    where ``max_count`` > C, ``count`` and ``emit``. Everything else equals
+    :func:`hash_probe_plain`. ``phase_events``, None or a list, gets one
+    ``(phase, start, end)`` pair of recorded CUDA events for each of
+    ``"memset"``, ``"claim"``, ``"buckets"`` and ``"probe"``."""
     _check_keys("hash_probe", pkeys, bkeys, luts)
     _check_vectors("hash_probe", (probe_active,), (torch.bool,))
     _check_vectors("hash_probe", (build_active,), (torch.bool,))
@@ -499,19 +525,23 @@ def hash_probe(pkeys, bkeys, luts, probe_active: torch.Tensor, build_active: tor
     dev = probe_active.device
     pks = _key_set("hash_probe", pkeys, luts, n)
     bks = _key_set("hash_probe", bkeys, (None,) * len(bkeys), m)
+    meta = torch.empty(n_buckets + 2, dtype=torch.int32, device=dev)
+    heads = torch.empty(n_buckets, dtype=torch.int32, device=dev)
+    emit = torch.empty(n, dtype=torch.int32, device=dev)
     out = {
         "table": torch.empty((n_buckets + 1, C), dtype=torch.int32, device=dev),
-        "counts": torch.empty(n_buckets + 1, dtype=torch.int32, device=dev),
+        "counts": meta[:n_buckets + 1],
         "bucket_p": torch.empty(n, dtype=torch.int32, device=dev),
-        "count": torch.empty(n, dtype=torch.int32, device=dev),
-        "emit": torch.empty(n, dtype=torch.int32, device=dev),
-        "max_count": torch.empty((), dtype=torch.int32, device=dev),
+        "count": torch.empty(n, dtype=torch.int32, device=dev) if left_outer else emit,
+        "emit": emit,
+        "max_count": meta[n_buckets + 1],
     }
+    events = _phase_marks(phase_events, ("memset", "claim", "buckets", "probe"))
     rc = _library().hash_probe(
         ctypes.byref(pks), ctypes.byref(bks), probe_active.data_ptr(),
         build_active.data_ptr(), n, m, n_buckets, C, int(left_outer),
-        *(out[k].data_ptr() for k in ("table", "counts", "bucket_p", "count", "emit",
-                                      "max_count")),
+        out["table"].data_ptr(), meta.data_ptr(), heads.data_ptr(),
+        *(out[k].data_ptr() for k in ("bucket_p", "count", "emit")), events,
         _stream(probe_active),
     )
     _check_launch("hash_probe", rc)
@@ -692,8 +722,10 @@ _TILE_ROWS = 2048
 # rows of one tile of the group sort's one-sweep pass (kSweepRows)
 SORT_TILE_ROWS = 4096
 _DIGIT_BITS = 8
-# the largest n_parts partition_epilogue takes (kMaxParts)
+# the largest n_parts partition_epilogue takes (kMaxParts), and the most
+# destinations (n_parts + 1) its one-sweep path takes (one eight-bit digit)
 EPILOGUE_MAX_PARTS = 1024
+EPILOGUE_SWEEP_BINS = 256
 # composite field kinds (FieldKind in csrc/group_sort.cu)
 _VALUE_FIELD, _VALID_FIELD, _INACTIVE_FIELD = 0, 1, 2
 
@@ -885,9 +917,14 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
     return out
 
 
+# the kernels whose C entry points count their stream operations
+_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "partition_epilogue")
+
+
 def stream_ops(name: str) -> int:
-    """Kernel launches and memsets that ``name``'s kernels (``group_sort``
-    or ``segment_sum``) have issued since the library was loaded."""
+    """Kernel launches and memsets that ``name``'s kernels (one of
+    ``hash_probe``, ``group_sort``, ``segment_sum`` and
+    ``partition_epilogue``) have issued since the library was loaded."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 
@@ -1010,7 +1047,8 @@ def partition_epilogue_plain(key_cols, luts, cols, active: torch.Tensor, n_parts
     return R.sort_by_dest(dest, cols, active, n_parts)
 
 
-def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int):
+def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int, *,
+                       phase_events=None):
     """The repartition epilogue: rows to partitions, sorted stably by
     partition.
 
@@ -1020,7 +1058,16 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int)
     every column; ``n_parts`` 1 to :data:`EPILOGUE_MAX_PARTS`. Returns
     ``(cols_out, active_out, offsets, counts)``: partition p's rows are
     ``[offsets[p], offsets[p] + counts[p])`` in their original order
-    (int64 offsets and counts), inactive rows after the last."""
+    (int64 offsets and counts), inactive rows after the last.
+
+    On CUDA tensors, while the n_parts + 1 destinations fit
+    :data:`EPILOGUE_SWEEP_BINS`, the kernel is a count launch (destinations
+    and per-tile counts), a scan of the counts and one sweep that writes
+    every column in place (phases ``"count"``, the first two, and
+    ``"sweep"``); past that, a destination pass, a three-launch counting
+    pass and a gather (``"hash"``, ``"passes"``, ``"gather"``).
+    ``phase_events``, None or a list, gets one ``(phase, start, end)`` pair
+    of recorded CUDA events for each phase."""
     _check_vectors("partition_epilogue", (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
     if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
@@ -1039,8 +1086,6 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int)
         return partition_epilogue_plain(key_cols, luts, cols, active, n_parts)
     ks = _key_set("partition_epilogue", key_cols, luts, n, _WideKeySet)
     nb = n_parts + 1
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
     hist = torch.empty(nb * -(-n // _TILE_ROWS), dtype=torch.int32, device=dev)
     totals = torch.empty(nb, dtype=torch.int32, device=dev)
     offsets = torch.empty(nb, dtype=torch.int64, device=dev)
@@ -1048,10 +1093,16 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int)
     gathered = list(cols) + [(active, None)]
     outs = _like(gathered)
     sets, n_sets = _perm_gather_sets(gathered, outs)
+    sweep = nb <= EPILOGUE_SWEEP_BINS
+    dest = torch.empty(n, dtype=torch.uint8 if sweep else torch.int32, device=dev)
+    # the sweep writes a permutation only for the gather sets after the first
+    idx = torch.empty(n, dtype=torch.int32, device=dev) if not sweep or n_sets > 1 else None
+    events = _phase_marks(phase_events,
+                          ("count", "sweep") if sweep else ("hash", "passes", "gather"))
     rc = _library().partition_epilogue(
-        ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(), idx.data_ptr(),
-        hist.data_ptr(), totals.data_ptr(), offsets.data_ptr(), counts.data_ptr(), sets,
-        n_sets, _stream(active),
+        ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(),
+        None if idx is None else idx.data_ptr(), hist.data_ptr(), totals.data_ptr(),
+        offsets.data_ptr(), counts.data_ptr(), sets, n_sets, events, _stream(active),
     )
     _check_launch("partition_epilogue", rc)
     LAUNCHES["partition_epilogue"] += 1

@@ -1,20 +1,27 @@
-"""Device time of the sorts and the segment sums, by kernel, on the card.
+"""Device time of the hash probe, the sorts and the segment sums, by
+kernel, on the card.
 
-    python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR]
+    python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] [--joins FILE]
 
 Imports ``trino_tpu_torch`` from ``DIR`` (default: this checkout), so an
 unpacked copy of another commit can be measured beside this one in one run
-on one card. Builds its kernels, then times ``hopper_kernels.group_sort``
-on a page shaped like TPC-H Q10's joined page at SF10 (2,097,152 rows,
-1,200,000 active, three keys of 21-bit ranges NULL on the inactive rows),
-``hopper_kernels.partition_epilogue`` on the same page at 8 partitions,
-and ``hopper_kernels.segment_sum`` on two sorted pages: 524,288 rows in
-131,072 slots, 119,740 groups of about four rows (the shape of Q3's at
-SF10), and 4,194,304 rows in groups of about four (``chip_smoke.py``'s
-synthetic case). For each it prints the wrapper's milliseconds (CUDA events
-over 10 calls after one; the host's work between launches included) and
-the device microseconds a call spends in each kernel and memset
-(``torch.profiler`` over 10 calls). Needs a card and ``nvcc``.
+on one card. Builds its kernels, then times ``hopper_kernels.hash_probe``
+on the inputs of TPC-H Q3's two joins and Q10's three at SF10,
+``hopper_kernels.group_sort`` on a page shaped like Q10's joined page at
+SF10 (2,097,152 rows, 1,200,000 active, three keys of 21-bit ranges NULL
+on the inactive rows), ``hopper_kernels.partition_epilogue`` on the same
+page at 8 partitions, and ``hopper_kernels.segment_sum`` on two sorted
+pages: 524,288 rows in 131,072 slots, 119,740 groups of about four rows
+(the shape of Q3's at SF10), and 4,194,304 rows in groups of about four
+(``chip_smoke.py``'s synthetic case). For each it prints the wrapper's
+milliseconds (CUDA events over 10 calls after one; the host's work between
+launches included) and the device microseconds a call spends in each
+kernel and memset (``torch.profiler`` over 10 calls). The join inputs are
+the probe calls of one run of the two queries through ``DIR``'s
+``LocalQueryRunner`` (about a minute of host generation), saved to
+``FILE`` (default: ``trino_tpu_torch/_build/kernel_inputs/joins_sf10.pt``
+of this checkout, gitignored) by the first run and read by later ones,
+so every commit is timed on the same inputs. Needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,63 @@ import sys
 from pathlib import Path
 
 import torch
+
+
+QUERIES = {
+    "q03": """
+        SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+               o_orderdate, o_shippriority
+        FROM customer, orders, lineitem
+        WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+          AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
+          AND l_shipdate > DATE '1995-03-15'
+        GROUP BY l_orderkey, o_orderdate, o_shippriority
+        ORDER BY revenue DESC, o_orderdate, l_orderkey
+        LIMIT 10
+    """,
+    "q10": """
+        SELECT c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) AS revenue, c_acctbal
+        FROM customer, orders, lineitem, nation
+        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND o_orderdate >= DATE '1993-10-01' AND o_orderdate < DATE '1994-01-01'
+          AND l_returnflag = 'R' AND c_nationkey = n_nationkey
+        GROUP BY c_custkey, c_name, c_acctbal
+        ORDER BY revenue DESC, c_custkey
+        LIMIT 20
+    """,
+}
+
+
+def capture_joins(HK, path: Path) -> None:
+    """Runs Q3 and Q10 at SF10, keeping a compact copy of the arguments of
+    every hash_probe call, and saves them as ``[(label, args), ...]``."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(copy(y) for y in x)
+        return x
+
+    joins = []
+    orig = HK.hash_probe
+    runner = LocalQueryRunner.tpch(scale=10, device="cuda")
+    try:
+        for q, sql in QUERIES.items():
+            k = [0]
+
+            def tapped(*args, _q=q, _k=k):
+                _k[0] += 1
+                joins.append((f"{_q} join {_k[0]}", copy(args)))
+                return orig(*args)
+
+            HK.hash_probe = tapped
+            runner.execute(sql)
+    finally:
+        HK.hash_probe = orig
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(joins, path)
 
 
 def q10_page(dev):
@@ -98,8 +162,12 @@ def report(root: str, label: str, fn) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    root = ap.parse_args().root
+    here = Path(__file__).resolve().parents[2]
+    ap.add_argument("--root", default=str(here))
+    ap.add_argument("--joins", default=str(
+        here / "trino_tpu_torch" / "_build" / "kernel_inputs" / "joins_sf10.pt"))
+    opts = ap.parse_args()
+    root, joins = opts.root, Path(opts.joins)
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     sys.path.insert(0, root)
@@ -112,6 +180,13 @@ def main() -> None:
     print(f"card: {card.stdout.strip()}", flush=True)
     HK.build()
     dev = torch.device("cuda")
+    if not joins.exists():
+        capture_joins(HK, joins)
+    for label, args in torch.load(joins, map_location=dev):
+        shape = f"n={args[3].shape[0]} m={args[4].shape[0]} B={args[5]} C={args[6]}"
+        report(root, f"hash_probe, {label} ({shape})", lambda: HK.hash_probe(*args))
+    del args
+    torch.cuda.empty_cache()
     keys, payload, active = args = q10_page(dev)
     report(root, "group_sort, Q10-shaped page", lambda: HK.group_sort(*args))
     report(root, "partition_epilogue, the same page, 8 parts",

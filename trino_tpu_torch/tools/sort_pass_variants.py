@@ -39,11 +39,12 @@ from trino_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
 OUT = ROOT / "_build" / "sort_variants"
 ITEMS = "constexpr int kSweepItems = 16;"
 WINDOW = "constexpr int kSweepWindow = 4;"
-# the pass's warp ranking by eight ballots, one a digit bit
+# the pass's warp ranking (warp_rank, shared with the repartition epilogue's
+# sweep) by eight ballots, one a digit bit
 BALLOTS = {
-    """    const uint32_t d = ok ? digit_of(key[it], shift, kDigits - 1) : kNoDigit;
+    """    const bool ok = d != kNoDigit;
     const unsigned peers = __match_any_sync(0xffffffffu, d);""":
-    """    const uint32_t d = ok ? digit_of(key[it], shift, kDigits - 1) : kNoDigit;
+    """    const bool ok = d != kNoDigit;
     unsigned peers = __ballot_sync(0xffffffffu, ok);
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
