@@ -41,11 +41,26 @@ printed):
    phase split, on each of Q3's two and Q10's three joins); those times go
    in the kernels line. The group sort and the segment sums also print
    their device time by kernel (``torch.profiler``).
-4. A ``kernels`` JSON line, then the contract's last line
+4. TPC-H Q14 and Q18 at SF10 (Q18 with TPC-H's quantity threshold of 300)
+   with the default session: wall seconds, peak device memory
+   (``torch.cuda.max_memory_allocated`` after a reset), launches by fused
+   phase and by kernel, no fallback; rows identical to the kernel tier off
+   and to a numpy computation over the port's generator (Q14's DOUBLE at
+   1e-9 relative); the hash probe and expansion held bit-exact and timed on
+   the inputs each join gave them.
+5. The 22 queries of ``tests/tpch_corpus.py`` at SF1, each with the
+   default session (launch counts printed by query) and with the kernel
+   tier off: rows identical (DOUBLE at 1e-9 relative), no fallback but the
+   CROSS joins the fused path declines (Q11, Q22), and every kernel each
+   query launched held bit-exact against its plain version on the inputs
+   the query gave it.
+6. The seconds of each phase, a ``kernels`` JSON line (launches summed over
+   the default runs of phases 3 to 5), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
-when the port is not importable beside this script.
+when the port (or ``tests/tpch_corpus.py``) is not importable beside this
+script.
 """
 
 from __future__ import annotations
@@ -373,8 +388,12 @@ def same_probe(got: dict, want: dict, args) -> bool:
     bucket below B, and slot 0 of each bucket an unmatched output slot
     reads (a LEFT join's active rows', and the last row's, whose bucket the
     slots past the total read); bucket_p and count on the active rows and
-    the last row. The kernel leaves the rest unspecified."""
+    the last row. The kernel leaves the rest unspecified. An attempt whose
+    largest bucket overflows C is read only for its counts (the phase
+    retries at a wider C): its table, count and emit are unspecified."""
     _, _, _, pa, _, B, C, left = args
+    if int(want["max_count"]) > C:
+        return all(torch.equal(got[k], want[k]) for k in ("counts", "max_count"))
     if not all(torch.equal(got[k], want[k]) for k in ("counts", "emit", "max_count")):
         return False
     rows = pa.clone() if left else torch.zeros_like(pa)
@@ -1259,7 +1278,7 @@ def check_kernels(HK, n_main: int, dev) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phase 3: Q6, Q1 and Q3 at SF10
+# phase 3: Q6, Q1, Q3 and Q10 at SF10
 # --------------------------------------------------------------------------- #
 
 
@@ -1394,29 +1413,85 @@ def numpy_oracle(g, conn):
     return {"q01": q1, "q06": [(int(revenue) / 10**4,)], "q03": q3, "q10": q10}
 
 
+REL_TOL = 1e-9  # DOUBLE values; everything else compares exactly
+
+
+def same_value(got, want, is_double: bool) -> bool:
+    if not is_double or got is None or want is None:
+        return got == want and type(got) is type(want)
+    if got != got or want != want:  # NaN equals NaN
+        return got != got and want != want
+    return got == want or abs(got - want) <= REL_TOL * max(abs(got), abs(want))
+
+
+def same_rows(got: list, want: list, doubles) -> bool:
+    """Row for row, in order; the columns flagged in ``doubles`` at
+    ``REL_TOL`` relative."""
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(same_value(a, b, d) for a, b, d in zip(g, w, doubles))
+        for g, w in zip(got, want))
+
+
+def double_columns(res) -> list:
+    return [t.display() == "double" for t in res.column_types]
+
+
+def run_default(HK, runner, sql: str, kernel_names) -> tuple:
+    """One run of ``sql`` with the runner's session, every count set to 0
+    just before it and read just after, through a LaunchTap of
+    ``kernel_names``. Returns (result, wall s, HK launches, fused phases,
+    fallbacks, tap)."""
+    from trino_tpu_torch.ops import megakernels as MK
+
+    tap = LaunchTap(HK, kernel_names)
+    torch.cuda.synchronize()
+    HK.reset_launch_counts()
+    MK.reset_counts()
+    t0 = time.perf_counter()
+    with tap:
+        res = runner.execute(sql)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, dict(HK.LAUNCHES), dict(MK.LAUNCHES), dict(MK.FALLBACKS), tap
+
+
+def run_off(HK, off, sql: str) -> tuple:
+    """One run with the kernel tier off (result, wall s); fails if anything
+    launched."""
+    from trino_tpu_torch.ops import megakernels as MK
+
+    HK.reset_launch_counts()
+    MK.reset_counts()
+    t0 = time.perf_counter()
+    res = off.execute(sql)
+    torch.cuda.synchronize()
+    if any(HK.LAUNCHES.values()) or any(MK.LAUNCHES.values()):
+        fail(f"the kernel tier off launched {HK.LAUNCHES} {MK.LAUNCHES}")
+    return res, time.perf_counter() - t0
+
+
+def off_runner(dev, scale):
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    off = LocalQueryRunner.tpch(scale=scale, device=dev)
+    off.session.set("pallas_aggregation", "off")
+    off.session.set("pallas_fusion", False)
+    return off
+
+
 def run_queries(HK, dev, kernels: dict) -> dict:
     """Each query with the default session (counts set to 0 just before,
     read just after; the kernels checked and timed on its inputs), then
     with the kernel tier off, then the numpy oracle. Returns the launch
     counts of the default runs."""
     from trino_tpu_torch.connectors.tpch import generator as g
-    from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     rows, launches, recorded = {}, {}, set()
     for q, sql in QUERIES.items():
-        tap = LaunchTap(HK, [k for k in KERNELS_OF[q] if k != "q6_fused"])
-        torch.cuda.synchronize()
-        HK.reset_launch_counts()
-        MK.reset_counts()
-        t0 = time.perf_counter()
-        with tap:
-            res = runner.execute(sql)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[q] = dict(HK.LAUNCHES)
-        phases, fallbacks = dict(MK.LAUNCHES), dict(MK.FALLBACKS)
+        res, wall, launches[q], phases, fallbacks, tap = run_default(
+            HK, runner, sql, [k for k in KERNELS_OF[q] if k != "q6_fused"])
         rows[q] = res.rows
         print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, {len(res.rows)} rows, "
               f"launches {launches[q]}, fused phases {phases}, fallbacks {fallbacks}",
@@ -1437,18 +1512,9 @@ def run_queries(HK, dev, kernels: dict) -> dict:
         del tap, res
         torch.cuda.empty_cache()
 
-    off = LocalQueryRunner.tpch(scale=SCALE, device=dev)
-    off.session.set("pallas_aggregation", "off")
-    off.session.set("pallas_fusion", False)
+    off = off_runner(dev, SCALE)
     for q, sql in QUERIES.items():
-        HK.reset_launch_counts()
-        MK.reset_counts()
-        t0 = time.perf_counter()
-        res = off.execute(sql)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if any(HK.LAUNCHES.values()) or any(MK.LAUNCHES.values()):
-            fail(f"{q} with the kernel tier off launched {HK.LAUNCHES} {MK.LAUNCHES}")
+        res, wall = run_off(HK, off, sql)
         if res.rows != rows[q]:
             fail(f"{q}: default rows {rows[q]} != kernel-tier-off rows {res.rows}")
         print(f"  {q} SF{SCALE} {OFF_SESSION[q][0]}={OFF_SESSION[q][1]}: {wall:.3f} s wall, "
@@ -1467,6 +1533,202 @@ def run_queries(HK, dev, kernels: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 4: Q14 and Q18 at SF10
+# --------------------------------------------------------------------------- #
+
+# Q18 with TPC-H's own quantity threshold (300); tests/tpch_corpus.py's text
+# uses 150, which suits SF0.01, and runs at SF1 in phase 5
+Q18_SF10 = """
+        SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+               sum(l_quantity)
+        FROM customer, orders, lineitem
+        WHERE o_orderkey IN (
+            SELECT l_orderkey FROM lineitem
+            GROUP BY l_orderkey HAVING sum(l_quantity) > 300
+          )
+          AND c_custkey = o_custkey
+          AND o_orderkey = l_orderkey
+        GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+        ORDER BY o_totalprice DESC, o_orderdate, o_orderkey
+        LIMIT 100
+    """
+Q14_DATES = (9374, 9404)  # 1995-09-01, 1995-10-01
+Q18_QTY = 30000  # 300.00 at l_quantity's scale
+# the fused phases each must run, and the kernels each launches
+NEW_PHASES_OF = {"q14": {"probe": 1, "expand": 1, "aggregate": 0, "group_sort": 0},
+                 "q18": {"probe": 2, "expand": 2, "aggregate": 0, "group_sort": 0}}
+JOIN_KERNELS = ("hash_probe", "hash_expand")
+# every wrapper a query's path can launch
+PATH_KERNELS = ("grouped_sum_i64", "grouped_sum_i32", "hash_probe", "hash_expand",
+                "segment_sum", "group_sort")
+def q14_q18_oracle(g, conn, q18_qty: int) -> dict:
+    """Q14's promotion revenue share and Q18's large-volume customers from
+    the port's generator in numpy (int64 sums, Python ints where a product
+    could pass int64), as rows in the engine's output form."""
+    import datetime
+
+    promo_codes = np.array([s.startswith("PROMO") for s in
+                            conn.dictionary("part", "p_type", SCALE).values])
+    pkeys, ptypes = [], []
+    for d in splits_of(g, conn, "part"):
+        pkeys.append(d["p_partkey"])
+        ptypes.append(d["p_type"])
+    pkeys, ptypes = np.concatenate(pkeys), np.concatenate(ptypes)
+    promo_of = np.zeros(int(pkeys.max()) + 1, dtype=bool)
+    promo_of[pkeys] = promo_codes[ptypes]
+    promo, total = 0, 0
+    qty_of = np.zeros(g.row_count("orders", SCALE) + 1)  # orderkeys run 1..orders
+    lo, hi = Q14_DATES
+    for d in splits_of(g, conn, "lineitem"):
+        ship = d["l_shipdate"]
+        keep = (ship >= lo) & (ship < hi)
+        dp = d["l_extendedprice"][keep].astype(np.int64) * (100 - d["l_discount"][keep])
+        promo += int(dp[promo_of[d["l_partkey"][keep]]].sum(dtype=np.int64))
+        total += int(dp.sum(dtype=np.int64))
+        lk = d["l_orderkey"]
+        first = int(lk.min())
+        q = np.bincount(lk - first, weights=d["l_quantity"])  # exact below 2**53
+        qty_of[first:first + q.shape[0]] += q
+    # CAST(100.00 * sum_promo AS double) / CAST(sum_all AS double): the
+    # product at scale 6, the sum at scale 4
+    q14 = [(float(10000 * promo) / 1e6 / (float(total) / 1e4),)]
+
+    big = np.nonzero(qty_of > q18_qty)[0]
+    cols = ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice")
+    orders = [[] for _ in cols]
+    for d in splits_of(g, conn, "orders"):
+        keep = np.isin(d["o_orderkey"], big)
+        for acc, c in zip(orders, cols):
+            acc.append(d[c][keep])
+    okey, ocust, odate, oprice = (np.concatenate(x) for x in orders)
+    top = np.lexsort((okey, odate, -oprice))[:100]
+    parts = [(d["c_custkey"], d["c_name"]) for d in splits_of(g, conn, "customer")]
+    ckey, code = (np.concatenate(x) for x in zip(*parts))
+    order = np.argsort(ckey, kind="stable")
+    at = order[np.searchsorted(ckey[order], ocust[top])]
+    names = conn.dictionary("customer", "c_name", SCALE)
+    epoch = datetime.date(1970, 1, 1)
+    q18 = [(names.values[int(code[j])], int(ocust[i]), int(okey[i]),
+            epoch + datetime.timedelta(days=int(odate[i])), int(oprice[i]) / 100,
+            int(qty_of[okey[i]]) / 100) for i, j in zip(top, at)]
+    print(f"  Q18 has {big.shape[0]} orders over the threshold", flush=True)
+    return {"q14": q14, "q18": q18}
+
+
+def run_q14_q18(HK, dev, kernels: dict) -> dict:
+    """Q14 and Q18 at SF10 with the default session: wall seconds, peak
+    device memory, launches by phase and by kernel, no fallback; each
+    kernel checked and timed on the inputs the query gave it (and the hash
+    probe, with the whole joined page, on every join); rows identical to
+    the kernel tier off and to the numpy oracle. Returns the launch counts
+    of the default runs."""
+    from trino_tpu_torch.connectors.tpch import generator as g
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    texts = {"q14": TPCH_QUERIES["q14"], "q18": Q18_SF10}
+    runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
+    # the kernels line keeps phase 3's times: these are printed only
+    rows, launches, recorded = {}, {}, set(kernels)
+    for q, sql in texts.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[q], phases, fallbacks, tap = run_default(
+            HK, runner, sql, JOIN_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        rows[q] = (res.rows, double_columns(res))
+        print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
+              f"{peak} bytes ({peak / 2**30:.2f} GiB), {len(res.rows)} rows, launches "
+              f"{launches[q]}, fused phases {phases}, fallbacks {fallbacks}", flush=True)
+        if fallbacks:
+            fail(f"{q} fell back from the fused path: {fallbacks}")
+        if phases != NEW_PHASES_OF[q]:
+            fail(f"{q} ran the fused phases {phases}, not {NEW_PHASES_OF[q]}")
+        for name in JOIN_KERNELS:
+            if launches[q][name] == 0:
+                fail(f"{q} did not go through {name}: {launches[q]}")
+        check_query_inputs(HK, q, tap, kernels, recorded)
+        check_every_probe(HK, q, tap)
+        del tap, res
+    del runner
+    torch.cuda.empty_cache()
+
+    off = off_runner(dev, SCALE)
+    for q, sql in texts.items():
+        res, wall = run_off(HK, off, sql)
+        if not same_rows(res.rows, rows[q][0], rows[q][1]):
+            fail(f"{q}: default rows {rows[q][0][:3]} != kernel-tier-off rows {res.rows[:3]}")
+        print(f"  {q} SF{SCALE} kernel tier off: {wall:.3f} s wall, rows identical",
+              flush=True)
+        del res
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    want = q14_q18_oracle(g, off.catalogs.get("tpch"), Q18_QTY)
+    print(f"  numpy oracle: {time.perf_counter() - t0:.3f} s", flush=True)
+    for q in texts:
+        if not same_rows(rows[q][0], want[q], rows[q][1]):
+            fail(f"{q} rows {rows[q][0][:3]} != numpy oracle {want[q][:3]}")
+    print(f"  q14 and q18 rows equal the numpy oracle (q14 at {REL_TOL} relative); q14 "
+          f"{rows['q14'][0]}, q18 {rows['q18'][0][:2]}...", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: the 22 corpus queries at SF1
+# --------------------------------------------------------------------------- #
+
+CORPUS_SCALE = 1
+# the corpus's keyless joins, which the fused path declines as the
+# reference does (they run the serial join)
+CROSS_JOIN_QUERIES = ("q11", "q22")
+
+
+def run_corpus(HK, dev) -> dict:
+    """Every query of tests/tpch_corpus.py at SF1 with the default session
+    (counts set to 0 just before each, read just after) and with the kernel
+    tier off: rows identical (DOUBLE at REL_TOL relative), no fallback but
+    the declined CROSS joins, and every kernel the query launched held
+    bit-exact against its plain version on the inputs the query gave it
+    (each hash probe on every join). Returns the launch counts."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    runner = LocalQueryRunner.tpch(scale=CORPUS_SCALE, device=dev)
+    off = off_runner(dev, CORPUS_SCALE)
+    launches = {}
+    for q, sql in sorted(TPCH_QUERIES.items()):
+        res, wall, launches[q], phases, fallbacks, tap = run_default(
+            HK, runner, sql, PATH_KERNELS)
+        declined = {"cross_join": 1} if q in CROSS_JOIN_QUERIES else {}
+        if fallbacks != declined:
+            fail(f"{q} SF{CORPUS_SCALE} fell back from the fused path: {fallbacks}")
+        checked = []
+        for name in PATH_KERNELS:
+            if launches[q][name]:
+                if not same_result(HK, name, tap.inputs[name]):
+                    fail(f"{name} [{q} SF{CORPUS_SCALE} inputs] differs from its plain version")
+                checked.append(name)
+        for k, args in enumerate(tap.probes):
+            if not same_result(HK, "hash_probe", args):
+                fail(f"hash_probe [{q} SF{CORPUS_SCALE} join {k + 1}] differs from its "
+                     "plain version")
+        del tap
+        ref, off_wall = run_off(HK, off, sql)
+        if not same_rows(res.rows, ref.rows, double_columns(res)):
+            fail(f"{q} SF{CORPUS_SCALE}: default rows {res.rows[:3]} != kernel-tier-off rows "
+                 f"{ref.rows[:3]}")
+        used = {k: v for k, v in launches[q].items() if v}
+        print(f"  {q} SF{CORPUS_SCALE}: {len(res.rows)} rows identical to the kernel tier off; "
+              f"{wall:.3f} s default, {off_wall:.3f} s off; launches {used}, fused phases "
+              f"{ {k: v for k, v in phases.items() if v} }, fallbacks {fallbacks}; bit-exact "
+              f"on its inputs: {checked}", flush=True)
+        del res, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -1482,12 +1744,14 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
 
     print("phase 1: build", flush=True)
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     lib = HK.build()
-    print(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"  built {lib.name} in {build_s:.2f} s", flush=True)
     print((lib.parent / "build.log").read_text(), flush=True)
 
     print("phase 2: kernels against their plain versions", flush=True)
+    t0 = time.perf_counter()
     conn = TpchConnector(scale=SCALE, device="cpu")
     splits = conn.split_count("lineitem", SCALE)
     n_main = splits * conn.split_capacity("lineitem", SCALE, splits)
@@ -1498,10 +1762,28 @@ def main() -> None:
     check_sort_kernels(HK, dev, kernels)
     torch.cuda.empty_cache()
 
+    phase_s = {"build": build_s, "kernels": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     print(f"phase 3: TPC-H Q6, Q1, Q3 and Q10 at SF{SCALE}", flush=True)
     launches = run_queries(HK, dev, kernels)
+    phase_s["queries"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"phase 4: TPC-H Q14 and Q18 at SF{SCALE}", flush=True)
+    launches.update(run_q14_q18(HK, dev, kernels))
+    phase_s["q14_q18"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"phase 5: the 22 TPC-H corpus queries at SF{CORPUS_SCALE}", flush=True)
+    corpus = run_corpus(HK, dev)
+    phase_s["corpus"] = time.perf_counter() - t0
+    launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
     for name, k in kernels.items():
-        k["launches"] = sum(launches[q][name] for q in QUERIES)
+        k["launches"] = sum(runs[name] for runs in launches.values())
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f", total {time.perf_counter() - start:.1f}", flush=True)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

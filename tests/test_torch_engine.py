@@ -4,9 +4,13 @@ queries through ``trino_tpu.runtime.LocalQueryRunner`` and
 ``pallas_aggregation`` mode and both ``pallas_fusion`` settings. Rows — decimals, dates, dictionary strings,
 counts and their order — must be identical.
 
-A second group feeds identical pages (carried across with
-``page_from_numpy``) with NULL and boolean group keys to both engines'
-aggregation operator.
+A second group runs semi-joins (IN and NOT IN with NULL keys on either
+side and an empty filtering side, EXISTS), CROSS joins with an empty side
+and DISTINCT aggregates over NULLs beside plain ones, through both engines.
+
+A third group feeds identical pages (carried across with
+``page_from_numpy``) to both engines' aggregation operator (NULL and
+boolean group keys) and semi-join (its match column's data and validity).
 """
 
 import numpy as np
@@ -248,13 +252,162 @@ def test_pallas_fusion_defaults_true():
 
 @pytest.mark.parametrize("sql,case", [
     ("SELECT count(*) FROM nation FULL JOIN region ON n_regionkey = r_regionkey", "FULL join"),
-    ("SELECT count(*) FROM nation CROSS JOIN region", "CROSS join"),
+    ("SELECT count(*) FROM nation LEFT JOIN region ON n_regionkey = r_regionkey "
+     "AND n_nationkey > r_regionkey", "non-equi residual"),
     ("SELECT count(*) FROM nation JOIN region ON n_regionkey = r_regionkey "
      "AND n_nationkey < r_regionkey * 5", "non-equi residual"),
 ])
 def test_unported_join_cases_raise_naming_them(port_runner, sql, case):
     with pytest.raises(NotImplementedError, match=case):
         port_runner.execute(sql)
+
+
+# --------------------------------------------------------------------------- #
+# semi-joins, CROSS joins and DISTINCT aggregation
+# --------------------------------------------------------------------------- #
+
+# a nation key that is NULL for every fourth nation
+_NULL_KEY = "(CASE WHEN n_nationkey % 4 = 0 THEN NULL ELSE n_regionkey END)"
+SET_QUERIES = {
+    # NULL keys on both sides: a NULL never matches
+    "in_nulls_both_sides": f"""
+        SELECT n_nationkey, n_name FROM nation WHERE {_NULL_KEY} IN (
+            SELECT CASE WHEN r_regionkey = 2 THEN NULL ELSE r_regionkey END
+            FROM region WHERE r_regionkey < 4)
+        ORDER BY 1
+    """,
+    # NOT IN with a NULL on the probe side: NULL rows are dropped
+    "not_in_probe_nulls": f"""
+        SELECT n_nationkey FROM nation WHERE {_NULL_KEY} NOT IN (
+            SELECT r_regionkey FROM region WHERE r_regionkey < 3)
+        ORDER BY 1
+    """,
+    # NOT IN with a NULL on the filtering side: no row is TRUE
+    "not_in_filtering_null": """
+        SELECT n_nationkey FROM nation WHERE n_regionkey NOT IN (
+            SELECT CASE WHEN r_regionkey = 2 THEN NULL ELSE r_regionkey END FROM region)
+        ORDER BY 1
+    """,
+    # an empty filtering side: IN is FALSE and NOT IN TRUE, even for NULL keys
+    "in_empty": f"""
+        SELECT n_nationkey FROM nation WHERE {_NULL_KEY} IN (
+            SELECT r_regionkey FROM region WHERE r_regionkey > 10)
+    """,
+    "not_in_empty": f"""
+        SELECT n_nationkey, n_name FROM nation WHERE {_NULL_KEY} NOT IN (
+            SELECT r_regionkey FROM region WHERE r_regionkey > 10)
+        ORDER BY 1
+    """,
+    # a string key, and an EXISTS (a two-valued semi-join)
+    "in_strings": """
+        SELECT count(*) FROM part WHERE p_type IN (SELECT p_type FROM part WHERE p_size = 1)
+    """,
+    "exists": """
+        SELECT c_custkey FROM customer WHERE EXISTS (
+            SELECT 1 FROM orders WHERE o_custkey = c_custkey AND o_totalprice > 400000)
+        ORDER BY 1
+    """,
+    # CROSS joins: an empty side either way, and a filtered product
+    "cross_empty_build": """
+        SELECT count(*), sum(r_regionkey) FROM nation
+        CROSS JOIN (SELECT r_regionkey FROM region WHERE r_regionkey > 10) r
+    """,
+    "cross_empty_probe": """
+        SELECT count(*) FROM (SELECT n_name FROM nation WHERE n_nationkey > 100) n
+        CROSS JOIN region
+    """,
+    "cross": """
+        SELECT n_name, r_name FROM nation CROSS JOIN region WHERE n_nationkey < 3
+        ORDER BY 1, 2
+    """,
+    # count(DISTINCT ...) over NULLs, beside plain aggregates
+    "distinct_mixed": """
+        SELECT n_regionkey,
+               count(DISTINCT CASE WHEN n_nationkey % 3 = 0 THEN NULL ELSE n_nationkey % 5 END),
+               count(*), sum(n_nationkey)
+        FROM nation GROUP BY n_regionkey ORDER BY 1
+    """,
+    "distinct_global": """
+        SELECT count(DISTINCT o_custkey), count(*), sum(o_totalprice) FROM orders
+        WHERE o_orderdate < DATE '1993-01-01'
+    """,
+    "distinct_only": """
+        SELECT o_orderpriority, sum(DISTINCT o_shippriority), count(DISTINCT o_shippriority)
+        FROM orders GROUP BY o_orderpriority ORDER BY 1
+    """,
+}
+
+
+@pytest.fixture(scope="module")
+def reference_set_rows():
+    ref = RefRunner.tpch(scale=SCALE)
+    return {q: ref.execute(sql).rows for q, sql in SET_QUERIES.items()}
+
+
+@pytest.mark.parametrize("fusion", [True, False])
+@pytest.mark.parametrize("query", sorted(SET_QUERIES))
+def test_set_query_matches_reference(query, fusion, reference_set_rows, port_runner):
+    """Semi-joins (IN, NOT IN, EXISTS), CROSS joins and DISTINCT
+    aggregation row-identical to the reference, fused path on and off."""
+    port_runner.session.set("pallas_fusion", fusion)
+    try:
+        res = port_runner.execute(SET_QUERIES[query])
+    finally:
+        port_runner.session.set("pallas_fusion", True)
+    assert res.rows == reference_set_rows[query]
+
+
+def test_several_distinct_columns_keep_the_reference_refusal(port_runner):
+    from trino_tpu_torch.runtime.executor import ExecutionError
+
+    with pytest.raises(ExecutionError, match="multiple DISTINCT aggregates over different"):
+        port_runner.execute("SELECT count(DISTINCT n_regionkey), count(DISTINCT n_name) "
+                            "FROM nation")
+
+
+def _semijoin_pages(seed, n_source, n_filter, filter_null_share):
+    """(reference columns and pages, port columns and pages) for a
+    semi-join: int64 keys with NULLs and inactive rows on both sides."""
+    from trino_tpu.spi import types as rt
+    from trino_tpu.spi.page import Page as RP
+
+    from trino_tpu_torch.spi import types as pt
+    from trino_tpu_torch.spi.page import page_from_numpy
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, null_share in ((n_source, 0.2), (n_filter, filter_null_share)):
+        key = rng.integers(0, 40, n)
+        valid = rng.random(n) >= null_share
+        active = rng.random(n) < 0.9
+        ref = RP.from_arrays([rt.BIGINT], [key], [valid]).mask(active)
+        port = page_from_numpy([pt.BIGINT], [key], [valid], np.asarray(ref.active),
+                               [None], device="cpu")
+        out.append((ref, port))
+    return out
+
+
+@pytest.mark.parametrize("null_aware", [True, False])
+@pytest.mark.parametrize("case", ["nulls_both_sides", "no_filter_nulls", "empty_filter"])
+def test_semijoin_on_identical_pages(case, null_aware):
+    """The match column (data and validity) of the port's semi-join
+    against the reference's on the same pages: NULL keys on both sides,
+    none on the filtering side, and a filtering side with no active row."""
+    from trino_tpu.runtime import executor as rex
+
+    from trino_tpu_torch.runtime import executor as pex
+
+    share = {"nulls_both_sides": 0.1, "no_filter_nulls": 0.0, "empty_filter": 0.1}[case]
+    (rs, ps), (rf, pf) = _semijoin_pages(7, 3000, 25, share)
+    r_active, p_active = rf.active, pf.active
+    if case == "empty_filter":
+        r_active, p_active = r_active & False, p_active & False
+    want = rex._jit_semijoin(rs.columns[0], rf.columns[0], None, rs, r_active, null_aware)
+    got = pex._semijoin(ps.columns[0], pf.columns[0], None, ps, p_active, null_aware)
+    w, g = want.columns[-1], got.columns[-1]
+    np.testing.assert_array_equal(g.valid.numpy(), np.asarray(w.valid))
+    np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))
+    np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))
 
 
 def test_kernel_failure_raises_through_execute(port_runner, monkeypatch):

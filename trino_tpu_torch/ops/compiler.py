@@ -14,14 +14,20 @@ Kleene logic. String semantics ride the sorted-dictionary invariant:
 column arrive as host-built boolean LUTs (``InLut``) indexed by code.
 
 Lowered here: references and constants; comparisons; ``$and``, ``$or``,
-``$not``, IS [NOT] NULL; integer and short-decimal ``+ - *`` and negation;
-CAST between integers and short decimals (with round-half-up rescale);
-dictionary-coded ``=``/``<>``/ranges and ``InLut``. Anything else raises
-:class:`CompileError` naming the function.
+``$not``, IS [NOT] NULL; searched CASE (simple CASE arrives lowered to it);
+``coalesce``; integer, short-decimal and DOUBLE ``+ - * / %`` and negation
+(integral division truncates toward zero over a divisor clipped to 1, as
+the reference computes it); CASTs among integers, short decimals (with
+round-half-up rescale), DOUBLE/REAL and BOOLEAN; ``year`` of a DATE or
+TIMESTAMP; dictionary-coded ``=``/``<>``/ranges, ``InLut`` and LIKE (a host
+LUT over the dictionary's values, gathered by code); ``substr``/``substring``
+(a host transform of the dictionary plus a device remap of codes). Anything
+else raises :class:`CompileError` naming the function.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -31,14 +37,18 @@ import torch
 from ..spi.page import Dictionary
 from ..spi.types import (
     BOOLEAN,
+    DATE,
     UNKNOWN,
     DecimalType,
+    TimestampType,
     Type,
+    is_floating,
     is_integral,
     is_long_decimal,
+    is_numeric,
     is_string,
 )
-from ..sql.ir import Call, CastExpr, Constant, InLut, IrExpr, Reference
+from ..sql.ir import Call, Case, CastExpr, Constant, InLut, IrExpr, Reference
 
 
 @dataclass
@@ -102,12 +112,139 @@ _COMPARE = {
     "$gte": lambda a, b: a >= b,
 }
 
+def _true_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` in the reference's promotion: floats keep their width,
+    integers divide in float64 (torch alone would pick float32)."""
+    if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
+        a, b = a.to(torch.float64), b.to(torch.float64)
+    return a / b
+
+
+def _divide(a, b, out_type: Type):
+    """Integral division truncates toward zero over ``|b|`` clipped to 1
+    (a zero divisor gives 0, as in the reference); any other result type
+    divides in IEEE."""
+    if is_integral(out_type):
+        q = torch.div(a.abs(), b.abs().clamp(min=1), rounding_mode="floor")
+        return q * (a.sign() * b.sign())
+    return _true_divide(a, b)
+
+
+def _modulus(a, b, out_type: Type):
+    """Integral and decimal ``%`` takes the dividend's sign over ``|b|``
+    clipped to 1; floating ``%`` is the reference's floor modulus (the
+    divisor's sign)."""
+    if isinstance(out_type, DecimalType) or is_integral(out_type):
+        return torch.remainder(a.abs(), b.abs().clamp(min=1)) * a.sign()
+    return torch.remainder(a, b)
+
+
+# name -> fn(a, b, out_type); the arguments arrive in one numeric type (the
+# planner casts mixed operands), except decimal x decimal, whose scales add
 _ARITH = {
-    "$add": lambda a, b: a + b,
-    "$subtract": lambda a, b: a - b,
-    # decimal x decimal: the scales add, which is the product's type
-    "$multiply": lambda a, b: a * b,
+    "$add": lambda a, b, o: a + b,
+    "$subtract": lambda a, b, o: a - b,
+    "$multiply": lambda a, b, o: a * b,
+    "$divide": _divide,
+    "$modulus": _modulus,
 }
+
+
+def _civil_from_days(z: torch.Tensor):
+    """days since 1970-01-01 -> (year, month, day), int64; Howard Hinnant's
+    integer-only algorithm (floor division throughout)."""
+    z = z.to(torch.int64) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def _has_days(t: Type) -> bool:
+    return t == DATE or isinstance(t, TimestampType)
+
+
+def _days_of(x: torch.Tensor, t: Type) -> torch.Tensor:
+    """Days since the epoch of a DATE (days) or TIMESTAMP (microseconds)."""
+    if t == DATE:
+        return x
+    return torch.div(x, 86_400_000_000, rounding_mode="floor")
+
+
+def _like_to_regex(pattern: str, escape: Optional[str] = None) -> "re.Pattern":
+    """SQL LIKE -> a compiled regex: ``%`` any run, ``_`` one character,
+    ``escape`` makes the next character literal. It runs on the host over
+    dictionary values."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if escape and ch == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return re.compile("".join(out), re.DOTALL)
+
+
+def _substr(s: str, start, length=None) -> str:
+    # the reference's slice: 1-based start, optional length
+    b = int(start) - 1
+    return s[b:] if length is None else s[b:b + int(length)]
+
+
+# dictionary transforms: name -> fn(value, *constant args)
+_STRING_FUNCS: Dict[str, Callable] = {"substr": _substr, "substring": _substr}
+
+
+def _build_code_lut(new_values):
+    """Transformed dictionary values -> (output Dictionary, old code -> new
+    code int32 LUT, -1 for a SQL NULL result)."""
+    uniq = sorted({s for s in new_values if s is not None})
+    out_dict = Dictionary(np.asarray(uniq, dtype=object))
+    code_map = {s: i for i, s in enumerate(uniq)}
+    lut = np.array([-1 if s is None else code_map[s] for s in new_values], dtype=np.int32)
+    return out_dict, lut
+
+
+def _merge_dicts(dicts) -> Dictionary:
+    """One dictionary over several string inputs' values (the first when
+    they all hold the same values; an empty one for no inputs)."""
+    if len({d.fingerprint() for d in dicts}) == 1:
+        return dicts[0]
+    merged = sorted(set().union(*[list(d.values) for d in dicts]))
+    return Dictionary(np.asarray(merged, dtype=object))
+
+
+def _remap_lut(from_dict: Optional[Dictionary], to_dict: Dictionary, device):
+    """Host LUT translating codes of ``from_dict`` into ``to_dict`` (absent
+    -> -1), or None where the codes already agree."""
+    if from_dict is None or from_dict is to_dict:
+        return None
+    if from_dict.fingerprint() == to_dict.fingerprint():
+        return None
+    lut = np.array([to_dict.code_of(s) for s in from_dict.values], dtype=np.int32)
+    if len(lut) == 0:
+        lut = np.full(1, -1, dtype=np.int32)
+    return torch.as_tensor(lut, device=device)
+
+
+def _gather_codes(lut: Optional[torch.Tensor], codes: torch.Tensor) -> torch.Tensor:
+    if lut is None:
+        return codes
+    return lut[codes.to(torch.int64).clamp(0, lut.shape[0] - 1)]
 
 
 class _Compiler:
@@ -166,6 +303,9 @@ class _Compiler:
 
         if isinstance(expr, CastExpr):
             return self._compile_cast(expr)
+
+        if isinstance(expr, Case):
+            return self._compile_case(expr)
 
         if isinstance(expr, InLut):
             inner, _ = self.compile(expr.value)
@@ -230,14 +370,37 @@ class _Compiler:
                 return CVal(_div_round(v.data, 10**src.scale).to(out_dt), v.valid)
 
             return from_dec_fn, None
-        if src_int and dst_int:
+        if isinstance(src, DecimalType) and is_floating(dst):
 
-            def int_fn(env: Env) -> CVal:
+            def dec_to_float_fn(env: Env) -> CVal:
+                v = inner(env)
+                data = v.data.to(torch.float64) / float(10**src.scale)
+                return CVal(data.to(out_dt), v.valid)
+
+            return dec_to_float_fn, None
+        if is_floating(src) and isinstance(dst, DecimalType):
+
+            def float_to_dec_fn(env: Env) -> CVal:
+                # round half to even, as the reference's jnp.round
+                v = inner(env)
+                return CVal(torch.round(v.data * float(10**dst.scale)).to(torch.int64), v.valid)
+
+            return float_to_dec_fn, None
+        if is_floating(src) and dst_int:
+
+            def float_to_int_fn(env: Env) -> CVal:
+                v = inner(env)
+                return CVal(torch.round(v.data).to(out_dt), v.valid)
+
+            return float_to_int_fn, None
+        if (src_int or is_floating(src)) and (dst_int or is_floating(dst)):
+
+            def numeric_fn(env: Env) -> CVal:
                 v = inner(env)
                 return CVal(v.data.to(out_dt), v.valid)
 
-            return int_fn, None
-        if is_integral(src) and dst == BOOLEAN:
+            return numeric_fn, None
+        if is_numeric(src) and dst == BOOLEAN:
 
             def bool_fn(env: Env) -> CVal:
                 v = inner(env)
@@ -254,14 +417,57 @@ class _Compiler:
             return lay.dictionary if lay else None
         if isinstance(expr, CastExpr):
             return self._dict_of(expr.value)
-        if isinstance(expr, (Call, Constant)) and is_string(expr.type):
+        if isinstance(expr, (Call, Case, Constant)) and is_string(expr.type):
             return self.compile(expr)[1]
         return None
+
+    # ------------------------------------------------------------------- case
+
+    def _compile_case(self, expr: Case) -> Tuple[Compiled, Optional[Dictionary]]:
+        """Searched CASE: the first WHEN whose condition is TRUE (a NULL
+        condition is not) picks its result, else the ELSE, else NULL. A
+        string CASE merges its branches' dictionaries and remaps each
+        branch's codes onto the merged one."""
+        whens = [(self.compile(c)[0],) + self.compile(r) for c, r in expr.whens]
+        default_fn, default_dict = (
+            self.compile(expr.default) if expr.default is not None else (None, None)
+        )
+        dt = expr.type.torch_dtype
+        out_dict = None
+        if is_string(expr.type):
+            real = [d for *_, d in whens if d is not None]
+            if default_dict is not None:
+                real.append(default_dict)
+            if real:
+                out_dict = _merge_dicts(real)
+        luts = [_remap_lut(d, out_dict, self.device) if out_dict else None
+                for *_, d in whens]
+        default_lut = _remap_lut(default_dict, out_dict, self.device) if out_dict else None
+
+        def case_fn(env: Env) -> CVal:
+            if default_fn is not None:
+                acc = default_fn(env)
+                data, valid = _gather_codes(default_lut, acc.data).to(dt), acc.valid
+            else:
+                data, valid = self._full(0, dt), self._full(False, torch.bool)
+            # in reverse: an earlier WHEN overrides a later one
+            for (cond_fn, res_fn, _), lut in zip(reversed(whens), reversed(luts)):
+                c, r = cond_fn(env), res_fn(env)
+                fire = c.valid & c.data.to(torch.bool)
+                data = torch.where(fire, _gather_codes(lut, r.data).to(dt), data)
+                valid = torch.where(fire, r.valid, valid)
+            return CVal(data, valid, out_dict)
+
+        return case_fn, out_dict
 
     def _compile_call(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name
         if name in _COMPARE and any(is_string(a.type) for a in expr.args):
             return self._compile_string_comparison(expr)
+        if name == "$like":
+            return self._compile_like(expr)
+        if name in _STRING_FUNCS:
+            return self._compile_string_function(expr)
         arg_fns = [self.compile(a)[0] for a in expr.args]
 
         if name == "$and":
@@ -300,21 +506,25 @@ class _Compiler:
 
             return null_test_fn, None
 
+        if name == "coalesce":
+            return self._compile_coalesce(expr, arg_fns)
+
         if any(is_long_decimal(a.type) for a in expr.args) or is_long_decimal(expr.type):
             raise CompileError(f"{name} on DECIMAL(p>18) not supported")
+        out_type = expr.type
         if name in _COMPARE:
             op = _COMPARE[name]
-        elif name in _ARITH and all(
-            is_integral(a.type) or isinstance(a.type, DecimalType) for a in expr.args
-        ):
-            op = _ARITH[name]
-        elif name == "$negate" and (
-            is_integral(expr.type) or isinstance(expr.type, DecimalType)
-        ):
+        elif name in _ARITH and all(is_numeric(a.type) for a in expr.args):
+            arith = _ARITH[name]
+            op = lambda a, b: arith(a, b, out_type)  # noqa: E731
+        elif name == "$negate" and is_numeric(out_type):
             op = torch.neg
+        elif name == "year" and _has_days(expr.args[0].type):
+            arg_type = expr.args[0].type
+            op = lambda d: _civil_from_days(_days_of(d, arg_type))[0]  # noqa: E731
         else:
             raise CompileError(f"no device lowering for function {name}")
-        out_dt = expr.type.torch_dtype
+        out_dt = out_type.torch_dtype
 
         def call_fn(env: Env) -> CVal:
             vals = [f(env) for f in arg_fns]
@@ -325,6 +535,79 @@ class _Compiler:
             return CVal(data if data.dtype == out_dt else data.to(out_dt), valid)
 
         return call_fn, None
+
+    def _compile_coalesce(self, expr: Call, arg_fns) -> Tuple[Compiled, Optional[Dictionary]]:
+        """The first non-NULL argument; strings from several dictionaries
+        are remapped onto their merged dictionary first."""
+        out_dt = expr.type.torch_dtype
+        merged, luts = None, [None] * len(arg_fns)
+        if is_string(expr.type):
+            dicts = [self._dict_of(a) for a in expr.args]
+            merged = _merge_dicts([d for d in dicts if d is not None])
+            luts = [_remap_lut(d, merged, self.device) for d in dicts]
+
+        def coalesce_fn(env: Env) -> CVal:
+            vals = [f(env) for f in arg_fns]
+            datas = [_gather_codes(lut, v.data).to(out_dt) for v, lut in zip(vals, luts)]
+            data, valid = datas[-1], vals[-1].valid
+            for v, d in zip(reversed(vals[:-1]), reversed(datas[:-1])):
+                data = torch.where(v.valid, d, data)
+                valid = valid | v.valid
+            return CVal(data, valid, merged)
+
+        return coalesce_fn, merged
+
+    def _compile_like(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
+        """LIKE against a constant pattern (with an optional ESCAPE): one
+        host pass over the value's dictionary builds a boolean LUT, which
+        the device gathers by code."""
+        value, pattern = expr.args[0], expr.args[1]
+        escape = expr.args[2].value if len(expr.args) > 2 else None
+        if not isinstance(pattern, Constant):
+            raise CompileError("LIKE pattern must be constant")
+        d = self._dict_of(value)
+        if d is None:
+            raise CompileError("LIKE requires a dictionary column")
+        inner, _ = self.compile(value)
+        rx = _like_to_regex(pattern.value, escape)
+        lut = torch.as_tensor(
+            np.fromiter((rx.fullmatch(s) is not None for s in d.values),
+                        dtype=np.bool_, count=len(d)),
+            device=self.device,
+        )
+
+        def like_fn(env: Env) -> CVal:
+            v = inner(env)
+            return CVal(_gather_codes(lut, v.data), v.valid)
+
+        return like_fn, None
+
+    def _compile_string_function(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
+        """A string function of a dictionary column and constant arguments:
+        the host applies it once per dictionary value, the output
+        dictionary is the sorted set of results, and the device remaps
+        codes through an old-code -> new-code LUT."""
+        name, value = expr.name, expr.args[0]
+        d = self._dict_of(value)
+        if d is None:
+            raise CompileError(f"{name} requires a dictionary column")
+        args = []
+        for a in expr.args[1:]:
+            if not isinstance(a, Constant):
+                raise CompileError(f"{name}: non-leading arguments must be constant")
+            args.append(a.value)
+        if any(v is None for v in args):
+            return self.compile(Constant(expr.type, None))  # a SQL NULL argument
+        out_dict, lut_np = _build_code_lut([_STRING_FUNCS[name](s, *args) for s in d.values])
+        lut = torch.as_tensor(lut_np, device=self.device)
+        inner, _ = self.compile(value)
+
+        def transform_fn(env: Env) -> CVal:
+            v = inner(env)
+            codes = _gather_codes(lut, v.data)
+            return CVal(codes.clamp(min=0), v.valid & (codes >= 0), out_dict)
+
+        return transform_fn, out_dict
 
     def _compile_string_comparison(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name

@@ -328,6 +328,17 @@ def join_match(
     return perm_b, lo.to(torch.int32), hi.to(torch.int32), count.to(torch.int32)
 
 
+def semijoin_mask(
+    build_key: torch.Tensor,
+    build_active: torch.Tensor,
+    probe_key: torch.Tensor,
+    probe_active: torch.Tensor,
+) -> torch.Tensor:
+    """Whether each active probe row's key matches an active build key."""
+    _, _, _, count = join_match(build_key, build_active, probe_key, probe_active)
+    return count > 0
+
+
 def expand_probe_slots(emit: torch.Tensor, out_capacity: int):
     """Slot assignment of the rank-space match expansion, shared by the
     sort-based join (:func:`expand_matches`) and the hash-probe path

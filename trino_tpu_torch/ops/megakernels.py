@@ -49,9 +49,13 @@ from ..spi.page import Column, Page
 # initial slot width of a bucket; retried at the 4x-spaced class (base 8)
 # of the largest bucket when one overflows
 DEFAULT_BUCKET_CAP = 32
-# (B+1) * C entries beyond this mean pathological key skew: the join
-# declines to the serial path as ``bucket_skew``
-TABLE_ENTRY_LIMIT = 1 << 22
+# (B+1) * C int32 entries (4 GiB) beyond this decline the retry to the
+# serial path as ``bucket_skew``. The reference stops at 1 << 22, where its
+# TPU probe compares each row against all C slots; hash_probe reads only a
+# bucket's occupied slots and never zeroes the table, so here the limit is
+# a memory budget (TPC-H Q13's orders by customer retry at C = 128 with B =
+# 4,194,304 at SF1: 2.1 GB)
+TABLE_ENTRY_LIMIT = 1 << 30
 
 LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
 FALLBACKS: Counter = Counter()

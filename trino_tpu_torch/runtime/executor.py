@@ -2,11 +2,12 @@
 
 The port's counterpart of ``trino_tpu.runtime.executor`` for the nodes the
 port runs: TableScan, Filter, Project, Join (INNER and LEFT equi-joins,
-RIGHT by swapping sides), Aggregation (direct-indexed, sort-path and keyless
-global), Sort, TopN, Limit and Output. Every other node raises
-``NotImplementedError`` naming it. Each operator is a whole-relation
-transform Page -> Page with the reference's pad-and-mask semantics: filters
-AND into ``active``, and only pipeline breakers compact.
+RIGHT by swapping sides, and CROSS joins), SemiJoin (with the null-aware
+three-valued IN), Aggregation (direct-indexed, sort-path and keyless
+global, and one DISTINCT column), Sort, TopN, Limit and Output. Every other
+node raises ``NotImplementedError`` naming it. Each operator is a
+whole-relation transform Page -> Page with the reference's pad-and-mask
+semantics: filters AND into ``active``, and only pipeline breakers compact.
 
 PyTorch runs eagerly, so where the reference builds one jitted program per
 operator, an operator here is a sequence of kernel launches on the pages'
@@ -55,6 +56,7 @@ from ..sql.ir import Reference
 from ..planner.plan import (
     Aggregation,
     AggregationNode,
+    AggregationStep,
     FilterNode,
     JoinKind,
     JoinNode,
@@ -63,6 +65,7 @@ from ..planner.plan import (
     OutputNode,
     PlanNode,
     ProjectNode,
+    SemiJoinNode,
     SortNode,
     TableScanNode,
     TopNNode,
@@ -205,12 +208,61 @@ class PlanExecutor:
 
     def _exec_AggregationNode(self, node: AggregationNode) -> Relation:
         if any(a.distinct for _, a in node.aggregations):
-            unported("DISTINCT aggregation")
+            return self._exec_distinct_aggregation(node)
         fused = self._try_fused_join_aggregate(node)
         if fused is not None:
             return fused
         rel = self.eval(node.source)
         return aggregate_relation(rel, node, self._kernel_mode())
+
+    def _exec_distinct_aggregation(self, node: AggregationNode) -> Relation:
+        """x(DISTINCT col): dedup on (group keys, col), then aggregate the
+        deduplicated relation. The plain aggregates of the same node run
+        over the input through the same grouping, so both outputs hold the
+        same groups in the same order (checked on the host), and they merge
+        column by column."""
+        distinct_cols = {a.args[0] for _, a in node.aggregations if a.distinct}
+        if len(distinct_cols) > 1:
+            raise ExecutionError(
+                "multiple DISTINCT aggregates over different columns not supported yet"
+            )
+        mode = self._kernel_mode()
+        rel = self.eval(node.source)
+        dedup = AggregationNode(
+            source=node.source, group_keys=tuple(node.group_keys) + tuple(distinct_cols),
+            aggregations=(), step=AggregationStep.SINGLE,
+        )
+        dist_part = AggregationNode(
+            source=node.source, group_keys=node.group_keys,
+            aggregations=tuple(
+                (s, Aggregation(a.function, a.args, False, a.filter, a.output_type))
+                for s, a in node.aggregations if a.distinct
+            ),
+            step=node.step,
+        )
+        dist_rel = aggregate_relation(aggregate_relation(rel, dedup, mode), dist_part, mode)
+        plain_aggs = tuple((s, a) for s, a in node.aggregations if not a.distinct)
+        if not plain_aggs:
+            return dist_rel
+        plain_part = AggregationNode(
+            source=node.source, group_keys=node.group_keys, aggregations=plain_aggs,
+            step=node.step,
+        )
+        plain_rel = aggregate_relation(rel, plain_part, mode)
+        if not _same_groups(dist_rel, plain_rel, node.group_keys):
+            raise ExecutionError("distinct/plain aggregation group alignment failed")
+        # the two outputs' capacities differ (the distinct side aggregated
+        # the smaller deduplicated relation): cut both to the smaller
+        target = min(dist_rel.capacity, plain_rel.capacity)
+        cols = {s: dist_rel.column_for(s) for s in node.group_keys}
+        for s, a in node.aggregations:
+            cols[s] = (dist_rel if a.distinct else plain_rel).column_for(s)
+        symbols = tuple(node.group_keys) + tuple(s for s, _ in node.aggregations)
+        page = Page(
+            tuple(_slice_column(cols[s], target) for s in symbols),
+            dist_rel.page.active[:target],
+        )
+        return Relation(page, symbols)
 
     def _kernel_mode(self) -> str:
         """The ``pallas_aggregation`` session property as the port's static
@@ -249,13 +301,12 @@ class PlanExecutor:
         compaction of both inputs."""
         if node.kind == JoinKind.FULL:
             unported("FULL join")
-        if node.kind == JoinKind.CROSS or not node.criteria:
-            unported("CROSS join (a join without an equi-join criterion)")
         if node.filter is not None:
             unported("join with a non-equi residual filter")
         if self._spill_threshold():
             unported("operator-state spill (spill_operator_threshold_bytes)")
-        if node.kind == JoinKind.INNER and self.session.get("enable_dynamic_filtering"):
+        if (node.kind == JoinKind.INNER and node.criteria
+                and self.session.get("enable_dynamic_filtering")):
             right = self.eval(node.right)
             predicate = self._dynamic_filter_predicate(node, right)
             if predicate is not None:
@@ -314,6 +365,7 @@ class PlanExecutor:
             left, right = right, left
             kind = JoinKind.LEFT
         probe, build = left, right
+        # a CROSS join has no criteria: no keys, so every pair matches
         pkeys = tuple(
             (probe.column_for(l).data, probe.column_for(l).valid) for l, _ in node.criteria
         )
@@ -346,6 +398,18 @@ class PlanExecutor:
     def _choose_join_capacity(self, emit) -> int:
         """Join output capacity: host-sync the exact emitted row count."""
         return _round_capacity(max(int(emit.sum()), 1))
+
+    # ------------------------------------------------------------ semi-join
+
+    def _exec_SemiJoinNode(self, node: SemiJoinNode) -> Relation:
+        source = self.eval(node.source)
+        filtering = self.eval(node.filtering_source)
+        skey = source.column_for(node.source_key)
+        fkey = filtering.column_for(node.filtering_key)
+        lut = _translate_lut(skey.dictionary, fkey.dictionary, source.page.device)
+        page = _semijoin(skey, fkey, lut, source.page, filtering.page.active,
+                         node.null_aware)
+        return Relation(page, source.symbols + (node.output,))
 
     # ------------------------------------------------------- megakernel plane
 
@@ -539,6 +603,27 @@ def _project_impl(compiled, env: Dict[str, CVal], page: Page) -> Page:
     return Page(tuple(cols), page.active)
 
 
+def _slice_column(c: Column, n: int) -> Column:
+    return Column(c.type, c.data[:n], c.valid[:n], c.dictionary)
+
+
+def _same_groups(a: Relation, b: Relation, group_keys) -> bool:
+    """Whether two aggregations' outputs hold the same active groups in the
+    same order: every key column's validity, and its data where valid (NaN
+    equals NaN, as a float group key groups with itself)."""
+    act_a, act_b = a.page.active.cpu().numpy(), b.page.active.cpu().numpy()
+    if int(act_a.sum()) != int(act_b.sum()):
+        return False
+    for k in group_keys:
+        ca, cb = a.column_for(k), b.column_for(k)
+        va, vb = ca.valid.cpu().numpy()[act_a], cb.valid.cpu().numpy()[act_b]
+        da, db = ca.data.cpu().numpy()[act_a], cb.data.cpu().numpy()[act_b]
+        if not (np.array_equal(va, vb)
+                and np.array_equal(da[va], db[vb], equal_nan=da.dtype.kind == "f")):
+            return False
+    return True
+
+
 def _permute_column(c: Column, perm) -> Column:
     return Column(c.type, c.data[perm], c.valid[perm], c.dictionary)
 
@@ -555,14 +640,21 @@ def _translate_lut(from_dict, to_dict, device):
 
 def _join_match(left_outer: bool, pkeys, bkeys, luts, probe_active, build_active):
     """Serial join, phase 1 (the reference's ``_jit_join_match``): key
-    normalization, sorted-build matching, emit counts."""
-    aligned = []
-    for (pd, pv), lut in zip(pkeys, luts):
-        if lut is not None:
-            pd = lut[pd.to(torch.int64).clamp(0, lut.shape[0] - 1)]
-            pv = pv & (pd >= 0)
-        aligned.append((pd, pv))
-    probe_key, probe_valid, build_key, build_valid = K.pack_key_pair(aligned, list(bkeys))
+    normalization, sorted-build matching, emit counts. Without keys (a
+    CROSS join) every key is 0, so every pair of active rows matches."""
+    if not pkeys:
+        probe_key = torch.zeros(probe_active.shape, dtype=torch.int64, device=probe_active.device)
+        build_key = torch.zeros(build_active.shape, dtype=torch.int64, device=build_active.device)
+        probe_valid, build_valid = torch.ones_like(probe_active), torch.ones_like(build_active)
+    else:
+        aligned = []
+        for (pd, pv), lut in zip(pkeys, luts):
+            if lut is not None:
+                pd = lut[pd.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+                pv = pv & (pd >= 0)
+            aligned.append((pd, pv))
+        probe_key, probe_valid, build_key, build_valid = K.pack_key_pair(
+            aligned, list(bkeys))
     perm_b, lo, hi, count = K.join_match(
         build_key, build_active & build_valid, probe_key, probe_active & probe_valid
     )
@@ -583,6 +675,30 @@ def _join_expand(out_capacity: int, emit, count, lo, perm_b,
         pc = _permute_column(c, build_pos)
         cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
     return Page(tuple(cols), out_active)
+
+
+def _semijoin(skey: Column, fkey: Column, lut, source_page: Page, filtering_active,
+              null_aware: bool) -> Page:
+    """The source page with the match column appended. A source string
+    absent from the filtering side's dictionary (LUT -1) is a value that
+    matches nothing, not a NULL. ``null_aware`` is IN's three-valued logic:
+    an unmatched row is NULL when its key is NULL or the filtering side
+    holds a NULL, and ``x IN (empty)`` is FALSE even for a NULL ``x``."""
+    sdata, match_ok = skey.data, skey.valid
+    if lut is not None:
+        sdata = lut[sdata.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+        match_ok = match_ok & (sdata >= 0)
+    mask = K.semijoin_mask(
+        K.order_key(fkey.data), filtering_active & fkey.valid,
+        K.order_key(sdata), source_page.active & match_ok,
+    )
+    if null_aware:
+        has_any = filtering_active.any()
+        has_null = (filtering_active & ~fkey.valid).any()
+        valid = mask | ~has_any | (skey.valid & ~has_null)
+    else:
+        valid = torch.ones_like(source_page.active)
+    return Page(source_page.columns + (Column(BOOLEAN, mask, valid),), source_page.active)
 
 
 def _sort_impl(orderings, rel: Relation, count: Optional[int]) -> Page:

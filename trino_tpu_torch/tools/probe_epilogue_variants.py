@@ -124,7 +124,8 @@ def main() -> None:
         except RuntimeError as e:
             errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in VARIANTS]
+    threads = [threading.Thread(target=build, args=(n,), name=f"build-{n}")
+               for n in VARIANTS]
     for t in threads:
         t.start()
     for t in threads:
