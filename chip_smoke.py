@@ -36,11 +36,12 @@ printed):
    Q10's fused phases (probe 3, expand 3, aggregate 1), Q10's group sort
    on one 64-bit composite, and the wall seconds of each query. Every
    kernel is also checked and timed on the inputs the queries gave it (its
-   real distributions; the repartition epilogue, which no query calls, on
-   Q10's joined page; the hash probe, with the whole joined page and its
-   phase split, on each of Q3's two and Q10's three joins); those times go
-   in the kernels line. The group sort and the segment sums also print
-   their device time by kernel (``torch.profiler``).
+   real distributions; the repartition epilogue on Q10's joined page; the
+   hash probe, with the whole joined page and its phase split, on each of
+   Q3's two and Q10's three joins); those times go in the kernels line,
+   but the epilogue's, which come from phase 6's spill path. The group
+   sort and the segment sums also print their device time by kernel
+   (``torch.profiler``).
 4. TPC-H Q14 and Q18 at SF10 (Q18 with TPC-H's quantity threshold of 300)
    with the default session: wall seconds, peak device memory
    (``torch.cuda.max_memory_allocated`` after a reset), launches by fused
@@ -54,8 +55,26 @@ printed):
    CROSS joins the fused path declines (Q11, Q22), and every kernel each
    query launched held bit-exact against its plain version on the inputs
    the query gave it.
-6. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 5), then the contract's last line
+6. The out-of-core tier. (a) Q1 at SF100 through the streaming
+   aggregation (``runtime/streaming.py``): wall, splits, peak device memory
+   (fails past 8 GiB), the I/O pool's generation seconds and the main
+   thread's wait, launches by kernel; rows equal to numpy sums tapped from
+   the host arrays the connector generates, the grouped sums bit-exact on
+   the first split's inputs. (b) Q3 and Q18 (threshold 300) at SF10
+   through the out-of-core runner (``runtime/ooc.py``) with the
+   reference's defaults: rows identical to phases 3 and 4, wall, peak
+   beside the in-core peak, units by fragment, ``host_wait_secs``,
+   ``emit_secs``, prefetch hits (must be > 0) and misses, ``spilled_bytes``,
+   launches, every launched kernel bit-exact on its inputs; then Q3 with
+   the prefetch off and a 256 MiB store budget (its disk tier), rows
+   identical again. (c) Q3 at SF10 with ``spill_operator_threshold_bytes``
+   at 1 GiB: rows identical to phase 3's, the spill through
+   ``partition_epilogue``, every launch bit-exact on its own inputs, the
+   device formulation's frames byte-identical to the host-backed one's on
+   the smallest spilled relation; the epilogue timed on the largest for
+   the kernels line.
+7. The seconds of each phase, a ``kernels`` JSON line (launches summed over
+   the default runs of phases 3 to 6), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
@@ -68,7 +87,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -877,13 +898,14 @@ class LaunchTap:
         "group_sort": lambda a: a[2].shape[0],
     }
 
-    def __init__(self, HK, names):
+    def __init__(self, HK, names, keep_all=()):
         self.HK = HK
         self.orig = {n: getattr(HK, n) for n in names}
         self.events = {n: [] for n in names}
         self.inputs = {}
         self.score = {}
         self.probes = []  # the inputs of every hash_probe call
+        self.every = {n: [] for n in keep_all}  # every call's inputs, by name
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -896,6 +918,8 @@ class LaunchTap:
                 self.events[_name].append((start, end))
                 if _name == "hash_probe":
                     self.probes.append(args)
+                if _name in self.every:
+                    self.every[_name].append(args)
                 keep = self.KEEP.get(_name)
                 score = keep(args) if keep else 0
                 if _name not in self.inputs or (keep and score >= self.score[_name]):
@@ -1335,6 +1359,51 @@ def q10_top(g, conn, ocust, order_rev, order_rows):
             for i, j in zip(top, at)]
 
 
+Q1_SHIPDATE = 10471  # DATE '1998-12-01' - INTERVAL '90' DAY
+
+
+def q1_split_sums(d, G) -> np.ndarray:
+    """Q1's sums of one lineitem split's host arrays ``d``, int64 by
+    (returnflag, linestatus) code: qty, price, disc_price, charge, disc,
+    count."""
+    acc = np.zeros((6,) + tuple(G), dtype=np.int64)
+    qty = d["l_quantity"].astype(np.int64)
+    price = d["l_extendedprice"].astype(np.int64)
+    disc = d["l_discount"].astype(np.int64)
+    tax = d["l_tax"].astype(np.int64)
+    keep = d["l_shipdate"] <= Q1_SHIPDATE
+    flat = d["l_returnflag"].astype(np.int64) * G[1] + d["l_linestatus"]
+    dp = price * (100 - disc)
+    for gi in np.unique(flat[keep]):
+        m = keep & (flat == gi)
+        a, b = divmod(int(gi), G[1])
+        for i, v in enumerate((qty, price, dp, dp * (100 + tax), disc)):
+            acc[i, a, b] += v[m].sum(dtype=np.int64)
+        acc[5, a, b] += int(m.sum())
+    return acc
+
+
+def _avg(s, n):  # round-half-up decimal avg, as the engine computes it
+    half = n // 2
+    return (s + half) // n if s >= 0 else -((-s + half) // n)
+
+
+def q1_rows(acc, rf, ls) -> list:
+    """Q1's rows, in the engine's output form, from its int64 sums."""
+    rows = []
+    for a in range(acc.shape[1]):
+        for b in range(acc.shape[2]):
+            n = int(acc[5, a, b])
+            if n == 0:
+                continue
+            sq, sp, sd, sc, sdisc = (int(acc[i, a, b]) for i in range(5))
+            rows.append((
+                rf.values[a], ls.values[b], sq / 100, sp / 100, sd / 10**4,
+                sc / 10**6, _avg(sq, n) / 100, _avg(sp, n) / 100, _avg(sdisc, n) / 100, n,
+            ))
+    return rows
+
+
 def numpy_oracle(g, conn):
     """Q1's sums and counts, Q6's revenue, Q3's top orders and Q10's top
     customers from the port's generator, in numpy int64, as rows in the
@@ -1359,20 +1428,12 @@ def numpy_oracle(g, conn):
         t0 = time.perf_counter()
         d = g.generate_split("lineitem", SCALE, s, total).columns
         gen_secs += time.perf_counter() - t0
+        acc += q1_split_sums(d, G)
         qty = d["l_quantity"].astype(np.int64)
         price = d["l_extendedprice"].astype(np.int64)
         disc = d["l_discount"].astype(np.int64)
-        tax = d["l_tax"].astype(np.int64)
         ship = d["l_shipdate"].astype(np.int64)
-        keep = ship <= 10471  # DATE '1998-12-01' - INTERVAL '90' DAY
-        flat = d["l_returnflag"].astype(np.int64) * G[1] + d["l_linestatus"]
         dp = price * (100 - disc)
-        for gi in np.unique(flat[keep]):
-            m = keep & (flat == gi)
-            a, b = divmod(int(gi), G[1])
-            for i, v in enumerate((qty, price, dp, dp * (100 + tax), disc)):
-                acc[i, a, b] += v[m].sum(dtype=np.int64)
-            acc[5, a, b] += int(m.sum())
         lo, hi, dlo, dhi, qhi = Q6_PRED
         k6 = (ship >= lo) & (ship < hi) & (disc >= dlo) & (disc <= dhi) & (qty < qhi)
         revenue += (price * disc)[k6].sum(dtype=np.int64)
@@ -1386,21 +1447,7 @@ def numpy_oracle(g, conn):
         np.add.at(q10_rev, pos[hit], dp[hit])
         np.add.at(q10_rows, pos[hit], 1)
 
-    def avg(s, n):  # round-half-up decimal avg, as the engine computes it
-        half = n // 2
-        return (s + half) // n if s >= 0 else -((-s + half) // n)
-
-    q1 = []
-    for a in range(G[0]):
-        for b in range(G[1]):
-            n = int(acc[5, a, b])
-            if n == 0:
-                continue
-            sq, sp, sd, sc, sdisc = (int(acc[i, a, b]) for i in range(5))
-            q1.append((
-                rf.values[a], ls.values[b], sq / 100, sp / 100, sd / 10**4,
-                sc / 10**6, avg(sq, n) / 100, avg(sp, n) / 100, avg(sdisc, n) / 100, n,
-            ))
+    q1 = q1_rows(acc, rf, ls)
     grp = np.nonzero(q3_rows)[0]
     top = grp[np.lexsort((okeys[grp], odates[grp], -q3_rev[grp]))][:10]
     epoch = datetime.date(1970, 1, 1)
@@ -1479,23 +1526,27 @@ def off_runner(dev, scale):
     return off
 
 
-def run_queries(HK, dev, kernels: dict) -> dict:
+def run_queries(HK, dev, kernels: dict) -> tuple:
     """Each query with the default session (counts set to 0 just before,
     read just after; the kernels checked and timed on its inputs), then
     with the kernel tier off, then the numpy oracle. Returns the launch
-    counts of the default runs."""
+    counts of the default runs, their rows and their peak device memory,
+    by query."""
     from trino_tpu_torch.connectors.tpch import generator as g
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
-    rows, launches, recorded = {}, {}, set()
+    rows, launches, recorded, peaks = {}, {}, set(), {}
     for q, sql in QUERIES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         res, wall, launches[q], phases, fallbacks, tap = run_default(
             HK, runner, sql, [k for k in KERNELS_OF[q] if k != "q6_fused"])
+        peaks[q] = torch.cuda.max_memory_allocated()
         rows[q] = res.rows
-        print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, {len(res.rows)} rows, "
-              f"launches {launches[q]}, fused phases {phases}, fallbacks {fallbacks}",
-              flush=True)
+        print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
+              f"{peaks[q]} bytes, {len(res.rows)} rows, launches {launches[q]}, fused phases "
+              f"{phases}, fallbacks {fallbacks}", flush=True)
         if fallbacks:
             fail(f"{q} fell back from the fused path: {fallbacks}")
         for name in tap.orig:
@@ -1530,7 +1581,7 @@ def run_queries(HK, dev, kernels: dict) -> dict:
             fail(f"{q} rows {rows[q]} != numpy oracle {want[q]}")
     print(f"  q01, q06, q03 and q10 rows equal the numpy oracle; q06 {rows['q06']}, "
           f"q03 {rows['q03']}, q10 {rows['q10'][:3]}...", flush=True)
-    return launches
+    return launches, rows, peaks
 
 
 # --------------------------------------------------------------------------- #
@@ -1616,13 +1667,13 @@ def q14_q18_oracle(g, conn, q18_qty: int) -> dict:
     return {"q14": q14, "q18": q18}
 
 
-def run_q14_q18(HK, dev, kernels: dict) -> dict:
+def run_q14_q18(HK, dev, kernels: dict) -> tuple:
     """Q14 and Q18 at SF10 with the default session: wall seconds, peak
     device memory, launches by phase and by kernel, no fallback; each
     kernel checked and timed on the inputs the query gave it (and the hash
     probe, with the whole joined page, on every join); rows identical to
     the kernel tier off and to the numpy oracle. Returns the launch counts
-    of the default runs."""
+    of the default runs, their rows and their peak device memory."""
     from trino_tpu_torch.connectors.tpch import generator as g
     from trino_tpu_torch.runtime import LocalQueryRunner
     from tests.tpch_corpus import TPCH_QUERIES
@@ -1630,13 +1681,13 @@ def run_q14_q18(HK, dev, kernels: dict) -> dict:
     texts = {"q14": TPCH_QUERIES["q14"], "q18": Q18_SF10}
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     # the kernels line keeps phase 3's times: these are printed only
-    rows, launches, recorded = {}, {}, set(kernels)
+    rows, launches, recorded, peaks = {}, {}, set(kernels), {}
     for q, sql in texts.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         res, wall, launches[q], phases, fallbacks, tap = run_default(
             HK, runner, sql, JOIN_KERNELS)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks[q] = torch.cuda.max_memory_allocated()
         rows[q] = (res.rows, double_columns(res))
         print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
               f"{peak} bytes ({peak / 2**30:.2f} GiB), {len(res.rows)} rows, launches "
@@ -1672,7 +1723,7 @@ def run_q14_q18(HK, dev, kernels: dict) -> dict:
             fail(f"{q} rows {rows[q][0][:3]} != numpy oracle {want[q][:3]}")
     print(f"  q14 and q18 rows equal the numpy oracle (q14 at {REL_TOL} relative); q14 "
           f"{rows['q14'][0]}, q18 {rows['q18'][0][:2]}...", flush=True)
-    return launches
+    return launches, {q: r for q, (r, _) in rows.items()}, peaks
 
 
 # --------------------------------------------------------------------------- #
@@ -1729,6 +1780,341 @@ def run_corpus(HK, dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: the out-of-core tier
+# --------------------------------------------------------------------------- #
+
+STREAM_SCALE = 100
+STREAM_PEAK_LIMIT = 8 << 30  # the streaming tier's point is a bounded footprint
+OOC_SCALE = 10
+OOC_DISK_BUDGET = 256 << 20  # the serial run's store budget, to reach its disk tier
+SPILL_SCALE = 10
+SPILL_THRESHOLD = 1 << 30
+GROUPED_SUMS = ("grouped_sum_i64", "grouped_sum_i32")
+Q1_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+           "l_returnflag", "l_linestatus")
+OOC_STATS = ("host_wait_secs", "emit_secs", "device_busy_secs", "prefetch_hits",
+             "prefetch_misses", "prefetch_max_inflight_bytes", "prefetch_max_depth",
+             "spilled_bytes", "shape_classes")
+
+
+def launched(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def check_launched(HK, label: str, tap: LaunchTap, launches: dict) -> list:
+    """Every kernel the run launched, bit-exact against its plain version
+    on the inputs of one of its calls (each hash probe on every join)."""
+    checked = []
+    for name in tap.orig:
+        if launches[name]:
+            if not same_result(HK, name, tap.inputs[name]):
+                fail(f"{name} [{label} inputs] differs from its plain version")
+            checked.append(name)
+    for k, args in enumerate(tap.probes):
+        if not same_result(HK, "hash_probe", args):
+            fail(f"hash_probe [{label} join {k + 1}] differs from its plain version")
+    return checked
+
+
+def run_streaming_q1(HK, dev) -> dict:
+    """(a) Q1 at SF100 through ``execute_streaming``'s query object with the
+    default session: rows equal to numpy sums tapped from the host arrays
+    the connector generates (one generation pass), every grouped-sum kernel
+    bit-exact on the first split's inputs, peak device memory under
+    STREAM_PEAK_LIMIT. Returns the launch counts."""
+    from trino_tpu_torch.connectors.tpch import generator as g
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from trino_tpu_torch.runtime.streaming import StreamingAggQuery
+
+    runner = LocalQueryRunner.tpch(scale=STREAM_SCALE, device=dev)
+    conn = runner.catalogs.get("tpch")
+    rf = conn.dictionary("lineitem", "l_returnflag", STREAM_SCALE)
+    ls = conn.dictionary("lineitem", "l_linestatus", STREAM_SCALE)
+    G = (len(rf), len(ls))
+    real = g.generate_split
+    pending = []
+    lock = threading.Lock()
+
+    def oracle(cols):
+        t0 = time.perf_counter()
+        return q1_split_sums(cols, G), time.perf_counter() - t0
+
+    def tapping(table, scale, split, total):
+        data = real(table, scale, split, total)
+        if table == "lineitem" and scale == STREAM_SCALE:
+            cols = {c: data.columns[c] for c in Q1_COLS}
+            top = int(data.columns["l_orderkey"].max()) if data.count else 0
+            with lock:
+                pending.append((oracle_pool.submit(oracle, cols), top))
+        return data
+
+    q = StreamingAggQuery(runner.plan_sql(QUERIES["q01"]), runner.metadata, runner.session)
+    real_step = q._step
+
+    def checked_step(carry, page):
+        # a step must not synchronize the host with the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_step(carry, page)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    q._step = checked_step
+    tap = LaunchTap(HK, GROUPED_SUMS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    HK.reset_launch_counts()
+    MK.reset_counts()
+    # the oracle's numpy sums run on threads of their own, beside the
+    # engine's I/O pool, not inside its generation
+    oracle_pool = ThreadPoolExecutor(max_workers=3, thread_name_prefix="q1-oracle")
+    g.generate_split = tapping
+    try:
+        t0 = time.perf_counter()
+        with tap:
+            _, page = q.execute()
+            rows = page.to_pylist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        g.generate_split = real
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(HK.LAUNCHES)
+    acc = np.zeros((6,) + G, dtype=np.int64)
+    tap_secs, max_key = 0.0, 0
+    for fut, top in pending:
+        sums, secs = fut.result()
+        acc += sums
+        tap_secs += secs
+        max_key = max(max_key, top)
+    oracle_pool.shutdown()
+    st = q.stats
+    print(f"  q01 SF{STREAM_SCALE} streamed: {wall:.3f} s wall, {q.splits_processed} splits, "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB), launches "
+          f"{launched(launches)}; no step synchronized the host", flush=True)
+    print(f"  q01 SF{STREAM_SCALE}: generation and staging {st['generate_secs']:.3f} "
+          f"thread-seconds on the I/O pool ({st['generate_secs'] / wall:.2f} per wall second), "
+          f"main thread waiting on splits {st['host_wait_secs']:.3f} s "
+          f"({st['host_wait_secs'] / wall:.3f} of the wall); the oracle's sums "
+          f"{tap_secs:.3f} thread-seconds beside them; largest l_orderkey {max_key}",
+          flush=True)
+    if q.splits_processed != len(pending):
+        fail(f"q01 SF{STREAM_SCALE} streamed {q.splits_processed} splits, the tap saw "
+             f"{len(pending)}")
+    want = q1_rows(acc, rf, ls)
+    if rows != want:
+        fail(f"q01 SF{STREAM_SCALE} streamed rows {rows} != numpy oracle {want}")
+    for name in GROUPED_SUMS:
+        if launches[name] < q.splits_processed:
+            fail(f"q01 SF{STREAM_SCALE}: {name} launched {launches[name]} times over "
+                 f"{q.splits_processed} splits")
+        if not same_result(HK, name, tap.inputs[name]):
+            fail(f"{name} [q01 SF{STREAM_SCALE} first split] differs from its plain version")
+        per = tap.launch_ms(name)
+        print(f"  {name} [q01 SF{STREAM_SCALE} first split n={tap.inputs[name][0].shape[0]}]: "
+              f"bit-exact; {len(per)} launches, {sum(per):.3f} ms in all", flush=True)
+    if peak > STREAM_PEAK_LIMIT:
+        fail(f"q01 SF{STREAM_SCALE} streamed with {peak} bytes of device memory, over "
+             f"{STREAM_PEAK_LIMIT}")
+    print(f"  q01 SF{STREAM_SCALE} rows equal the numpy oracle: {rows[:1]}...", flush=True)
+    return launches
+
+
+def ooc_run(HK, runner, sql: str, label: str, **kw) -> tuple:
+    """One out-of-core run (counts set to 0 just before, read just after):
+    (rows, runner, wall s, peak bytes, HK launches, fused phases, fallbacks,
+    tap)."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime.ooc import OutOfCoreRunner
+
+    ooc = OutOfCoreRunner(runner.plan_sql(sql), runner.metadata, runner.session, **kw)
+    tap = LaunchTap(HK, PATH_KERNELS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    HK.reset_launch_counts()
+    MK.reset_counts()
+    t0 = time.perf_counter()
+    with tap:
+        _, page = ooc.execute()
+        rows = page.to_pylist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(HK.LAUNCHES)
+    units = {k: v for k, v in ooc.stats.items() if k.endswith("_units")}
+    stats = {k: (round(ooc.stats[k], 3) if isinstance(ooc.stats[k], float) else ooc.stats[k])
+             for k in OOC_STATS}
+    print(f"  {label}: {wall:.3f} s wall, peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB), {len(rows)} rows; units {units}; {stats}; "
+          f"host_wait_secs {ooc.stats['host_wait_secs'] / wall:.3f} and emit_secs "
+          f"{ooc.stats['emit_secs'] / wall:.3f} of the wall; launches {launched(launches)}, "
+          f"fused phases {launched(dict(MK.LAUNCHES))}, fallbacks {dict(MK.FALLBACKS)}",
+          flush=True)
+    return rows, ooc, wall, peak, launches, tap
+
+
+def run_out_of_core(HK, dev, incore_rows: dict, incore_peaks: dict) -> dict:
+    """(b) Q3 and Q18 (TPC-H's threshold of 300) at SF10 through the
+    out-of-core runner with the reference's defaults: rows identical to the
+    in-core rows of phases 3 and 4, the prefetch on (hits > 0), each
+    launched kernel bit-exact on its inputs; then Q3 with the prefetch off
+    and a store budget that sends chunks to disk, rows identical again.
+    Returns the launch counts."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    runner = LocalQueryRunner.tpch(scale=OOC_SCALE, device=dev)
+    launches = {}
+    for q, sql in (("q03", QUERIES["q03"]), ("q18", Q18_SF10)):
+        label = f"{q} SF{OOC_SCALE} out of core"
+        rows, ooc, _, peak, launches[label], tap = ooc_run(HK, runner, sql, label)
+        print(f"  {label}: peak {peak} bytes beside {incore_peaks[q]} in core", flush=True)
+        if rows != incore_rows[q]:
+            fail(f"{label}: rows {rows[:3]} != in-core rows {incore_rows[q][:3]}")
+        if ooc.stats["prefetch_hits"] <= 0:
+            fail(f"{label}: no prefetch hit {ooc.stats}")
+        checked = check_launched(HK, label, tap, launches[label])
+        print(f"  {label}: rows identical to in core; bit-exact on its inputs: {checked}",
+              flush=True)
+        del tap, ooc
+    label = f"q03 SF{OOC_SCALE} out of core, prefetch off, {OOC_DISK_BUDGET} byte store budget"
+    rows, ooc, _, _, launches[label], tap = ooc_run(
+        HK, runner, QUERIES["q03"], label, prefetch_depth=0, mem_budget_bytes=OOC_DISK_BUDGET)
+    if rows != incore_rows["q03"]:
+        fail(f"{label}: rows {rows[:3]} != in-core rows {incore_rows['q03'][:3]}")
+    if ooc.stats["spilled_bytes"] <= 0 or ooc.stats["prefetch_hits"]:
+        fail(f"{label}: no disk tier or a prefetch {ooc.stats}")
+    print(f"  {label}: rows identical to in core and to the prefetched run", flush=True)
+    del tap, ooc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_operator_spill(HK, dev, incore_rows: dict, kernels: dict) -> dict:
+    """(c) Q3 at SF10 with ``spill_operator_threshold_bytes`` at 1 GiB:
+    rows identical to phase 3's, the spill really run, every
+    ``partition_epilogue`` launch bit-exact on its own inputs, and the
+    frames of the device formulation byte-identical to the host-backed
+    formulation's on the smallest spilled relation. The epilogue's times
+    in the kernels line are taken on the largest spilled relation's inputs.
+    Returns the launch counts."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.ops import repartition as R
+    from trino_tpu_torch.runtime import LocalQueryRunner, PlanExecutor
+    from trino_tpu_torch.spi.page import Column, Page
+
+    runner = LocalQueryRunner.tpch(scale=SPILL_SCALE, device=dev)
+    runner.session.set("spill_operator_threshold_bytes", SPILL_THRESHOLD)
+    label = f"q03 SF{SPILL_SCALE} spill_operator_threshold_bytes={SPILL_THRESHOLD}"
+    spilled = []
+    real = PlanExecutor._hash_partition_spill
+
+    def capture(self, rel, key_symbols, nparts):
+        blobs = real(self, rel, key_symbols, nparts)
+        spilled.append((rel, [rel.symbols.index(k) for k in key_symbols], nparts, blobs))
+        return blobs
+
+    ex = PlanExecutor(runner.plan_sql(QUERIES["q03"]), runner.metadata, runner.session)
+    tap = LaunchTap(HK, ("partition_epilogue",) + PATH_KERNELS,
+                    keep_all=("partition_epilogue",))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    HK.reset_launch_counts()
+    MK.reset_counts()
+    PlanExecutor._hash_partition_spill = capture
+    try:
+        t0 = time.perf_counter()
+        with tap:
+            _, page = ex.execute()
+            rows = page.to_pylist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PlanExecutor._hash_partition_spill = real
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(HK.LAUNCHES)
+    print(f"  {label}: {wall:.3f} s wall, peak device memory {peak} bytes, spill_count "
+          f"{ex.spill_count}, spilled_bytes {ex.spilled_bytes}, relations spilled "
+          f"{[(r.page.capacity, n) for r, _, n, _ in spilled]}, launches {launched(launches)}, "
+          f"fused phases {launched(dict(MK.LAUNCHES))}, fallbacks {dict(MK.FALLBACKS)}",
+          flush=True)
+    if rows != incore_rows["q03"]:
+        fail(f"{label}: rows {rows[:3]} != in-core rows {incore_rows['q03'][:3]}")
+    if ex.spill_count <= 0 or launches["partition_epilogue"] <= 0:
+        fail(f"{label}: no spill through partition_epilogue ({ex.spill_count} frames, "
+             f"{launches['partition_epilogue']} launches)")
+    if dict(MK.FALLBACKS) != {"spill_threshold": 1}:
+        fail(f"{label}: fallbacks {dict(MK.FALLBACKS)}, not the spill threshold's one")
+    calls = tap.every["partition_epilogue"]
+    in_run = tap.launch_ms("partition_epilogue")
+    for k, args in enumerate(calls):
+        if not same_result(HK, "partition_epilogue", args):
+            fail(f"partition_epilogue [{label} launch {k + 1}] differs from its plain version")
+        print(f"  partition_epilogue [{label} launch {k + 1} {SHAPE_OF['partition_epilogue'](args)}]"
+              f": bit-exact, {in_run[k]:.4f} ms in the run", flush=True)
+    checked = check_launched(HK, label, tap, launches)
+    print(f"  {label}: rows identical to in core; bit-exact on its inputs: {checked}",
+          flush=True)
+    rel, key_idx, nparts, blobs = min(spilled, key=lambda s: s[0].page.capacity)
+    t0 = time.perf_counter()
+    cpu = Page(tuple(Column(c.type, c.data.cpu(), c.valid.cpu(), c.dictionary)
+                     for c in rel.page.columns), rel.page.active.cpu())
+    host_frames, _ = R.repartition_frames(cpu, key_idx, nparts)
+    if host_frames != blobs:
+        fail(f"{label}: the device frames of the {rel.page.capacity}-row relation differ "
+             "from the host-backed formulation's")
+    print(f"  {label}: the {nparts} device frames of the {rel.page.capacity}-row relation "
+          f"({sum(map(len, blobs))} bytes) are byte-identical to the host-backed "
+          f"formulation's ({time.perf_counter() - t0:.3f} s on the host)", flush=True)
+    args = max(calls, key=lambda a: a[3].shape[0])
+    timing = time_wrapper(HK, "partition_epilogue", args)
+    print_timing(f"partition_epilogue [{label} {SHAPE_OF['partition_epilogue'](args)}]", timing)
+    print_split(HK, "partition_epilogue", f"{label}", args)
+    ms, plain, lib, b, by = timing
+    kernels["partition_epilogue"].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                                         bound_by=by)
+    del tap, calls, spilled
+    torch.cuda.empty_cache()
+    return {label: launches}
+
+
+def spill_footprint(dev, incore_rows: dict) -> None:
+    """Q3 at SF10 untapped, in core and then under the 1 GiB spill, each
+    after a reset of the peak: the tapped runs keep kernel inputs on the
+    card, so only these peaks say what the spill does to the footprint.
+    Rows must again equal phase 3's."""
+    from trino_tpu_torch.runtime import LocalQueryRunner, PlanExecutor
+
+    runner = LocalQueryRunner.tpch(scale=SPILL_SCALE, device=dev)
+    seen = {}
+    for name, thresh in (("in core", 0), ("spilled", SPILL_THRESHOLD)):
+        runner.session.set("spill_operator_threshold_bytes", thresh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ex = PlanExecutor(runner.plan_sql(QUERIES["q03"]), runner.metadata, runner.session)
+        _, page = ex.execute()
+        rows = page.to_pylist()
+        torch.cuda.synchronize()
+        seen[name] = (torch.cuda.max_memory_allocated(), time.perf_counter() - t0,
+                      ex.spill_count)
+        del ex, page
+        if rows != incore_rows["q03"]:
+            fail(f"q03 SF{SPILL_SCALE} untapped {name}: rows {rows[:3]} != phase 3's")
+    (p_in, w_in, _), (p_sp, w_sp, n_sp) = seen["in core"], seen["spilled"]
+    if n_sp <= 0:
+        fail(f"q03 SF{SPILL_SCALE} untapped: the {SPILL_THRESHOLD}-byte threshold spilled nothing")
+    print(f"  q03 SF{SPILL_SCALE} untapped: peak device memory {p_sp} bytes spilled "
+          f"({n_sp} frames, {w_sp:.3f} s) beside {p_in} bytes in core ({w_in:.3f} s), "
+          f"{p_sp / p_in:.3f} of it; rows identical", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -1765,13 +2151,16 @@ def main() -> None:
     phase_s = {"build": build_s, "kernels": time.perf_counter() - t0}
     t0 = time.perf_counter()
     print(f"phase 3: TPC-H Q6, Q1, Q3 and Q10 at SF{SCALE}", flush=True)
-    launches = run_queries(HK, dev, kernels)
+    launches, incore_rows, incore_peaks = run_queries(HK, dev, kernels)
     phase_s["queries"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     print(f"phase 4: TPC-H Q14 and Q18 at SF{SCALE}", flush=True)
-    launches.update(run_q14_q18(HK, dev, kernels))
+    more, rows, peaks = run_q14_q18(HK, dev, kernels)
+    launches.update(more)
+    incore_rows.update(rows)
+    incore_peaks.update(peaks)
     phase_s["q14_q18"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -1780,6 +2169,17 @@ def main() -> None:
     corpus = run_corpus(HK, dev)
     phase_s["corpus"] = time.perf_counter() - t0
     launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
+
+    t0 = time.perf_counter()
+    print(f"phase 6: the out-of-core tier: Q1 at SF{STREAM_SCALE} streamed, Q3 and Q18 at "
+          f"SF{OOC_SCALE} out of core, Q3 at SF{SPILL_SCALE} under operator-state spill",
+          flush=True)
+    launches[f"q01 SF{STREAM_SCALE} streamed"] = run_streaming_q1(HK, dev)
+    torch.cuda.empty_cache()
+    launches.update(run_out_of_core(HK, dev, incore_rows, incore_peaks))
+    launches.update(run_operator_spill(HK, dev, incore_rows, kernels))
+    spill_footprint(dev, incore_rows)
+    phase_s["out_of_core"] = time.perf_counter() - t0
     for name, k in kernels.items():
         k["launches"] = sum(runs[name] for runs in launches.values())
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

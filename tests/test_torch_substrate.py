@@ -113,7 +113,12 @@ def test_import_loads_neither_jax_nor_reference():
     code = (
         "import sys, trino_tpu_torch, trino_tpu_torch.runtime, "
         "trino_tpu_torch.ops.hopper_kernels, trino_tpu_torch.ops.megakernels, "
-        "trino_tpu_torch.runtime.executor, trino_tpu_torch.ops.repartition\n"
+        "trino_tpu_torch.runtime.executor, trino_tpu_torch.ops.repartition, "
+        "trino_tpu_torch.native, trino_tpu_torch.runtime.serde, "
+        "trino_tpu_torch.spi.host_pages, trino_tpu_torch.runtime.spiller, "
+        "trino_tpu_torch.runtime.memory, trino_tpu_torch.runtime.staging, "
+        "trino_tpu_torch.runtime.streaming, trino_tpu_torch.runtime.ooc, "
+        "trino_tpu_torch.parallel.runner\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"
         "print(bad)\n"

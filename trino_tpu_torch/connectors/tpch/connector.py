@@ -335,7 +335,12 @@ class _TpchPageSourceProvider(ConnectorPageSourceProvider):
     def __init__(self, connector: TpchConnector):
         self.connector = connector
 
-    def create_page_source(self, split: Split, column_indexes: Sequence[int]) -> Page:
+    def create_page_source(self, split: Split, column_indexes: Sequence[int],
+                           device=None) -> Page:
+        """The split's rows on ``device`` (None: the connector's device;
+        the out-of-core tier asks for the CPU and stages the page to the
+        card itself)."""
+        device = self.connector.device if device is None else device
         handle = split.table
         scale = self.connector.scale_of(handle)
         table = handle.schema_table.table
@@ -349,10 +354,8 @@ class _TpchPageSourceProvider(ConnectorPageSourceProvider):
             arr = data.columns[cm.name]
             dictionary = self.connector.dictionary(table, cm.name, scale)
             cols.append(
-                Column.from_numpy(
-                    type_, arr, None, capacity, dictionary, self.connector.device
-                )
+                Column.from_numpy(type_, arr, None, capacity, dictionary, device)
             )
         active = np.zeros(capacity, dtype=np.bool_)
         active[: data.count] = True
-        return Page(tuple(cols), torch.from_numpy(active).to(self.connector.device))
+        return Page(tuple(cols), torch.from_numpy(active).to(device))

@@ -122,7 +122,7 @@ ENV_KNOBS: Tuple[EnvKnob, ...] = (
     EnvKnob(
         "TRINO_TPU_DEVICE_REPARTITION", "flag", "1",
         "kill-switch for the device-side repartition epilogue (0/false = "
-        "legacy host path)",
+        "a CUDA page is refused; a CPU page takes the host path either way)",
     ),
     EnvKnob(
         "TRINO_TPU_INTERNAL_SECRET", "str", "unset",

@@ -460,6 +460,28 @@ class _Compiler:
 
         return case_fn, out_dict
 
+    def _compile_avg_combine(self, expr: Call, arg_fns) -> Compiled:
+        """avg from its partial/final split (``fragmenter.split_aggregation``):
+        sum / count, NULL when no row was aggregated; decimal by decimal
+        rounds half up, as the single-step avg does."""
+        out_type, sum_type = expr.type, expr.args[0].type
+        out_dt = out_type.torch_dtype
+
+        def avgc_fn(env: Env) -> CVal:
+            s, c = arg_fns[0](env), arg_fns[1](env)
+            cnt = c.data.clamp(min=1)
+            if isinstance(out_type, DecimalType) and isinstance(sum_type, DecimalType):
+                half = cnt // 2
+                data = torch.where(s.data >= 0, (s.data + half) // cnt,
+                                   -((-s.data + half) // cnt))
+            else:
+                data = s.data.to(torch.float64) / cnt
+                if isinstance(sum_type, DecimalType):
+                    data = data / float(10 ** sum_type.scale)
+            return CVal(data.to(out_dt), s.valid & c.valid & (c.data > 0))
+
+        return avgc_fn
+
     def _compile_call(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name
         if name in _COMPARE and any(is_string(a.type) for a in expr.args):
@@ -508,6 +530,8 @@ class _Compiler:
 
         if name == "coalesce":
             return self._compile_coalesce(expr, arg_fns)
+        if name == "$avg_combine":
+            return self._compile_avg_combine(expr, arg_fns), None
 
         if any(is_long_decimal(a.type) for a in expr.args) or is_long_decimal(expr.type):
             raise CompileError(f"{name} on DECIMAL(p>18) not supported")

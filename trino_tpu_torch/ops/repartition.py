@@ -9,7 +9,14 @@ is part of the exchange-frame contract, so it is bit-identical to the
 reference's. ``hopper_kernels.partition_epilogue`` is the same function as
 one CUDA kernel (``megakernels.fused_epilogue``).
 
-Not ported yet: exchange frames, the host path and ``repartition_to_host``.
+The host path (:func:`repartition_frames`, :func:`repartition_to_host`)
+turns a page into one v2 exchange frame per partition, with the
+reference's two formulations: on a CUDA page the whole epilogue runs on the
+card in ``partition_epilogue`` and one transfer brings the
+partition-contiguous page to the host; on a CPU page the hash gives each
+row's destination and the frames gather their rows on the host. Both give
+the same frame bytes. The reference's megakernel-attached destinations and
+its flight-recorder spans are not ported.
 """
 
 from __future__ import annotations
@@ -18,8 +25,18 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import knobs
 from ..spi.page import Column, Page
 from . import kernels as K
+
+DEVICE_REPARTITION_ENV = "TRINO_TPU_DEVICE_REPARTITION"
+
+
+def device_repartition_enabled() -> bool:
+    """Env kill-switch (default on): off, :func:`repartition_frames` refuses
+    a CUDA page, because the port keeps no host formulation on the card. A
+    CPU page takes the host formulation either way."""
+    return knobs.env_flag(DEVICE_REPARTITION_ENV, True)
 
 _GOLDEN = -7046029254386353131  # 0x9E3779B97F4A7C15
 _FMIX_1 = -49064778989728563  # 0xFF51AFD7ED558CCD
@@ -124,3 +141,60 @@ def _repartition_epilogue(n_parts: int, key_idx: Tuple[int, ...], page: Page):
     )
     out = tuple(Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(page.columns, cols))
     return Page(out, active), offsets, counts
+
+
+def repartition_frames(page: Page, key_idx: Sequence[int], n_parts: int, pool=None,
+                       compress: bool = True):
+    """Page -> one serialized v2 frame per partition and the row counts,
+    ``(frames, counts)``.
+
+    - CUDA page: the epilogue on the card (``partition_epilogue``) and one
+      transfer of the partition-contiguous page, then the frames are
+      sliced out of it (``serde.serialize_page_slices``). With
+      ``TRINO_TPU_DEVICE_REPARTITION`` off it raises: there is no plain
+      fallback on the card.
+    - CPU page: the hash gives each row's destination, then gather and
+      encode run per partition (``serde.serialize_page_partitions``).
+
+    The frame bytes are the same either way."""
+    from ..runtime.serde import serialize_page_partitions, serialize_page_slices
+
+    key_idx = tuple(key_idx)
+    if page.device.type == "cuda":
+        if not device_repartition_enabled():
+            raise RuntimeError(f"{DEVICE_REPARTITION_ENV}=0, but a CUDA page has no other "
+                               "repartition formulation than the partition_epilogue kernel")
+        cols, offsets, counts = repartition_to_host(page, key_idx, n_parts)
+        return serialize_page_slices(cols, offsets, counts, compress=compress, pool=pool), counts
+    dest = _partition_dest(n_parts, key_idx, page).numpy()
+    host_cols = [(c.type, c.data.numpy(), c.valid.numpy(), c.dictionary) for c in page.columns]
+    return serialize_page_partitions(host_cols, dest, n_parts, compress=compress, pool=pool)
+
+
+def repartition_to_host(page: Page, key_idx: Sequence[int], n_parts: int):
+    """The accelerator formulation: the epilogue's partition-contiguous page
+    on the host, ``(cols, offsets, counts)``, ``cols`` a host chunk whose
+    rows ``[offsets[p], offsets[p] + counts[p])`` are partition p's in their
+    original order (int64 numpy offsets and counts of length ``n_parts``;
+    the chunk holds the live rows only). ``megakernels.fused_epilogue`` runs
+    the epilogue (on a CUDA page the ``partition_epilogue`` kernel: hash,
+    stable sort by destination, offsets and counts on the card; on a CPU
+    page its plain version), then the counts are read, every column's live
+    rows copied out (into pinned memory from the card) and one wait."""
+    from . import megakernels as MK
+
+    sorted_page, offsets, counts = MK.fused_epilogue(page, tuple(key_idx), n_parts)
+    counts_h = counts.cpu().numpy()
+    n = int(counts_h.sum())
+    pin = page.device.type == "cuda"
+    outs = []
+    for c in sorted_page.columns:
+        pair = []
+        for t in (c.data, c.valid):
+            h = torch.empty(n, dtype=t.dtype, pin_memory=pin)
+            h.copy_(t[:n], non_blocking=pin)
+            pair.append(h)
+        outs.append((c, pair))
+    offsets_h = offsets.cpu().numpy()  # waits for the copies queued above
+    cols = [(c.type, d.numpy(), v.numpy(), c.dictionary) for c, (d, v) in outs]
+    return cols, offsets_h, counts_h

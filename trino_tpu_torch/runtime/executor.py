@@ -18,6 +18,14 @@ The megakernel plane (``pallas_fusion``, on by default in the port) runs
 joins, and joins feeding an aggregation, through ``ops/megakernels.py``'s
 hash-join kernels. Unlike the reference it catches no kernel error: a
 failed launch raises through the query.
+
+Operator-state spill (``spill_operator_threshold_bytes``): a join whose two
+inputs, or a grouped aggregation whose input, pass the threshold revokes
+them to host as LZ4 hash partitions by key value (through
+``ops/repartition.repartition_frames``: the ``partition_epilogue`` kernel on
+a CUDA page) and runs partition by partition, as the reference does. The
+fused join plane declines while a threshold is set, counted in
+``megakernels.FALLBACKS`` as ``spill_threshold``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..ops.compiler import (
     megakernel_key_check,
     plan_megakernel,
 )
+from ..spi.host_pages import empty_page_for
 from ..spi.page import Column, Dictionary, Page
 from ..spi.types import (
     BIGINT,
@@ -70,6 +79,7 @@ from ..planner.plan import (
     TableScanNode,
     TopNNode,
 )
+from .memory import page_bytes
 
 
 class ExecutionError(RuntimeError):
@@ -114,6 +124,8 @@ class PlanExecutor:
         self.metadata = metadata
         self.session = session
         self.types = plan.types
+        self.spill_count = 0
+        self.spilled_bytes = 0
 
     def execute(self) -> Tuple[List[str], Page]:
         root = self.plan.root
@@ -145,7 +157,7 @@ class PlanExecutor:
         if not splits:
             # all splits pruned: a 1-row page with nothing active
             return Relation(
-                _empty_page(symbols, self.types, connector.device), symbols
+                empty_page_for(symbols, self.types, connector.device), symbols
             )
         provider = connector.page_source_provider()
         if node.limit is not None and len(splits) > 1:
@@ -213,6 +225,14 @@ class PlanExecutor:
         if fused is not None:
             return fused
         rel = self.eval(node.source)
+        thresh = self._spill_threshold()
+        if thresh and node.group_keys:
+            total = page_bytes(rel.page)
+            if total > thresh:
+                # the device relation goes before the partitions run
+                spill = self._revoke(rel, node.group_keys, self._spill_parts(total, thresh))
+                del rel
+                return self._spill_partitioned_aggregate(spill, node)
         return aggregate_relation(rel, node, self._kernel_mode())
 
     def _exec_distinct_aggregation(self, node: AggregationNode) -> Relation:
@@ -291,20 +311,23 @@ class PlanExecutor:
     # ----------------------------------------------------------------- joins
 
     def _exec_JoinNode(self, node: JoinNode) -> Relation:
-        left, right = self._join_inputs(node)
+        pre = self._join_inputs(node)
+        if isinstance(pre, Relation):
+            return pre  # the operator-state spill path ran the whole join
+        left, right = pre
         return self._join_relations(node, left, right)
 
-    def _join_inputs(self, node: JoinNode) -> Tuple[Relation, Relation]:
+    def _join_inputs(self, node: JoinNode):
         """The join preamble shared by the serial and fused paths: dynamic
         filtering (an INNER join evaluates its build side first and ANDs the
-        build keys' min/max range into the probe side as a filter), then
-        compaction of both inputs."""
+        build keys' min/max range into the probe side as a filter),
+        compaction of both inputs, then the operator-state spill gate.
+        Returns ``(left, right)``, or the finished Relation when the
+        spill-partitioned path ran the join."""
         if node.kind == JoinKind.FULL:
             unported("FULL join")
         if node.filter is not None:
             unported("join with a non-equi residual filter")
-        if self._spill_threshold():
-            unported("operator-state spill (spill_operator_threshold_bytes)")
         if (node.kind == JoinKind.INNER and node.criteria
                 and self.session.get("enable_dynamic_filtering")):
             right = self.eval(node.right)
@@ -316,13 +339,20 @@ class PlanExecutor:
         else:
             left = self.eval(node.left)
             right = self.eval(node.right)
-        return _maybe_compact(left), _maybe_compact(right)
-
-    def _spill_threshold(self) -> int:
-        try:
-            return int(self.session.get("spill_operator_threshold_bytes") or 0)
-        except KeyError:
-            return 0
+        left, right = _maybe_compact(left), _maybe_compact(right)
+        # operator-state spill: inputs larger than the budget revoke to host
+        # as hash partitions, joined one partition at a time
+        thresh = self._spill_threshold()
+        if thresh and node.criteria and node.kind != JoinKind.CROSS:
+            total = page_bytes(left.page) + page_bytes(right.page)
+            if total > thresh:
+                # the device relations go before the partitions run
+                nparts = self._spill_parts(total, thresh)
+                lspill = self._revoke(left, tuple(l for l, _ in node.criteria), nparts)
+                rspill = self._revoke(right, tuple(r for _, r in node.criteria), nparts)
+                del left, right
+                return self._spill_partitioned_join(node, lspill, rspill)
+        return left, right
 
     def _dynamic_filter_predicate(self, node: JoinNode, build: Relation):
         """min/max range of the build keys as an IR predicate on the probe
@@ -480,6 +510,10 @@ class PlanExecutor:
             proj, src = src, src.source
         if not isinstance(src, JoinNode) or not node.group_keys:
             return None
+        if self._spill_threshold():
+            # the spill paths host-sync partition sizes: the serial walk
+            MK.on_fallback("spill_threshold")
+            return None
         if any(a.ordering for _, a in node.aggregations):
             return None
         left, right = self._join_inputs(src)
@@ -562,6 +596,85 @@ class PlanExecutor:
         without evaluating the join inputs again."""
         rel = join_rel if proj is None else self._project_relation(proj, join_rel)
         return aggregate_relation(rel, node, self._kernel_mode())
+
+    # ------------------------------------------------- operator-state spill
+
+    def _spill_threshold(self) -> int:
+        try:
+            return int(self.session.get("spill_operator_threshold_bytes") or 0)
+        except KeyError:
+            return 0
+
+    def _hash_partition_spill(self, rel: Relation, key_symbols: Tuple[str, ...],
+                              nparts: int) -> List[bytes]:
+        """Revoke a relation to host as LZ4 hash partitions by key value.
+
+        The partition is a function of the key's value (dictionary columns
+        hash through their content-stable value keys), so a key lands in the
+        same partition on both join sides and a group never spans two. The
+        frames come from ``repartition_frames``: on a CUDA page the
+        ``partition_epilogue`` kernel, one transfer and slicing; on a CPU
+        page the host-backed formulation."""
+        from ..ops.repartition import repartition_frames
+
+        key_idx = [rel.symbols.index(s) for s in key_symbols]
+        # pool=None: spill can run inside out-of-core pool jobs
+        blobs, _ = repartition_frames(rel.page, key_idx, nparts, compress=True)
+        for b in blobs:
+            self.spill_count += 1
+            self.spilled_bytes += len(b)
+        return blobs
+
+    def _revoke(self, rel: Relation, key_symbols: Tuple[str, ...], nparts: int):
+        """``rel`` as spilled partitions plus what :meth:`_unspill` needs to
+        rebuild them (symbols, dictionaries, device), so the caller can drop
+        the device relation while the partitions run."""
+        blobs = self._hash_partition_spill(rel, key_symbols, nparts)
+        template = (rel.symbols, tuple(c.dictionary for c in rel.page.columns), rel.page.device)
+        return blobs, template
+
+    @staticmethod
+    def _unspill(blob: bytes, template) -> Relation:
+        """Host bytes -> a Relation on the template's device at a
+        power-of-two capacity, with the template's dictionary objects
+        re-attached (the same content; dictionaries are identity-hashed)."""
+        from .serde import LazyPageFrame
+
+        symbols, dictionaries, device = template
+        frame = LazyPageFrame(blob)
+        page = frame.to_page(capacity=_round_capacity(max(frame.nrows, 1)), device=device)
+        cols = tuple(
+            Column(c.type, c.data, c.valid, d) if d is not None else c
+            for c, d in zip(page.columns, dictionaries)
+        )
+        return Relation(Page(cols, page.active), symbols)
+
+    @staticmethod
+    def _spill_parts(total_bytes: int, thresh: int) -> int:
+        nparts = 2
+        while nparts * thresh < total_bytes and nparts < 64:
+            nparts *= 2
+        return nparts
+
+    def _spill_partitioned_join(self, node: JoinNode, lspill, rspill) -> Relation:
+        """Join the revoked sides partition by partition: a key lands in the
+        same partition on both sides, so the outputs concatenate."""
+        (lparts, ltemplate), (rparts, rtemplate) = lspill, rspill
+        outs = [
+            self._join_relations(node, self._unspill(lb, ltemplate), self._unspill(rb, rtemplate))
+            for lb, rb in zip(lparts, rparts)
+        ]
+        return Relation(_concat_pages([o.page for o in outs]), outs[0].symbols)
+
+    def _spill_partitioned_aggregate(self, spill, node: AggregationNode) -> Relation:
+        """Partitioned aggregation: groups are disjoint across hash
+        partitions, so the partitions' outputs concatenate."""
+        blobs, template = spill
+        outs = [
+            aggregate_relation(self._unspill(blob, template), node, self._kernel_mode())
+            for blob in blobs
+        ]
+        return Relation(_concat_pages([o.page for o in outs]), outs[0].symbols)
 
 
 # --------------------------------------------------------------------------- #
@@ -721,24 +834,6 @@ def _sort_impl(orderings, rel: Relation, count: Optional[int]) -> Page:
 # --------------------------------------------------------------------------- #
 
 
-def _empty_page(symbols, types, device) -> Page:
-    """A 1-row all-inactive page with the symbols' storage layouts; string
-    columns carry the sentinel empty dictionary (the reference's
-    ``host_pages.empty_page_for``)."""
-    cols = []
-    for s in symbols:
-        t = types[s]
-        if t.storage_lanes is not None:
-            unported("ops.int128 (long decimal storage)")
-        cols.append(Column(
-            t,
-            torch.zeros(1, dtype=t.torch_dtype, device=device),
-            torch.zeros(1, dtype=torch.bool, device=device),
-            Dictionary.empty() if is_string(t) else None,
-        ))
-    return Page(tuple(cols), torch.zeros(1, dtype=torch.bool, device=device))
-
-
 def _load_splits(provider, splits, col_indexes, session) -> List[Page]:
     """Generate the splits' pages, ``task_concurrency`` host threads at a time
     (numpy releases the GIL); split order is preserved."""
@@ -805,6 +900,15 @@ def _round_capacity(n: int, base: int = 1024) -> int:
     return cap
 
 
+def _compact(page: Page, mask: torch.Tensor, capacity: int) -> Page:
+    """The rows of ``page`` where ``page.active & mask``, first and in
+    order, cut to ``capacity`` rows (at least their count)."""
+    keep = page.active & mask
+    perm = torch.sort((~keep).to(torch.int8), stable=True).indices[:capacity]
+    cols = tuple(Column(c.type, c.data[perm], c.valid[perm], c.dictionary) for c in page.columns)
+    return Page(cols, keep[perm])
+
+
 def _maybe_compact(rel: Relation, density: int = 4, min_cap: int = 8192) -> Relation:
     """Drop inactive rows when fewer than 1/``density`` of capacity is live:
     one stable partition by activity (active rows first, in order), cut to a
@@ -815,14 +919,9 @@ def _maybe_compact(rel: Relation, density: int = 4, min_cap: int = 8192) -> Rela
     n = rel.page.num_rows()
     if n * density > cap:
         return rel
-    new_cap = _round_capacity(max(n, 1))
-    perm = torch.sort((~rel.page.active).to(torch.int8), stable=True).indices[:new_cap]
-    cols = tuple(
-        Column(c.type, c.data[perm], c.valid[perm], c.dictionary)
-        for c in rel.page.columns
-    )
+    page = _compact(rel.page, rel.page.active, _round_capacity(max(n, 1)))
     # a stable partition preserves the row order
-    return Relation(Page(cols, rel.page.active[perm]), rel.symbols, rel.sorted_by)
+    return Relation(page, rel.symbols, rel.sorted_by)
 
 
 # --------------------------------------------------------------------------- #
@@ -884,8 +983,11 @@ def _needed_agg_symbols(node: AggregationNode) -> Tuple[str, ...]:
     return tuple(needed)
 
 
-def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off") -> Relation:
-    """Grouped aggregation, the reference's strategies:
+def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
+                       compact: bool = True) -> Relation:
+    """Grouped aggregation, the reference's strategies (``compact`` False
+    skips the compaction and its host sync of the active count, as the
+    reference's traced units do):
 
     - direct-indexed (small static key domains): gid computed elementwise,
       no sort; integer sums and counts in the grouped-sum kernels unless
@@ -902,7 +1004,8 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off") 
         return Relation(page, out_symbols)
     if any(a.ordering for _, a in node.aggregations):
         unported("aggregate ORDER BY")
-    rel = _maybe_compact(rel)
+    if compact:
+        rel = _maybe_compact(rel)
     needed = _needed_agg_symbols(node)
     if node.group_keys:
         sorted_page = None

@@ -167,7 +167,9 @@ class ConnectorSplitManager:
 class ConnectorPageSourceProvider:
     """ref: spi/connector/ConnectorPageSourceProvider.java -> ConnectorPageSource."""
 
-    def create_page_source(self, split: Split, column_indexes: Sequence[int]) -> Page:
+    def create_page_source(self, split: Split, column_indexes: Sequence[int],
+                           device=None) -> Page:
+        """The split's page on ``device`` (None: the connector's own)."""
         raise NotImplementedError
 
 
