@@ -73,13 +73,29 @@ printed):
    device formulation's frames byte-identical to the host-backed one's on
    the smallest spilled relation; the epilogue timed on the largest for
    the kernels line.
-7. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 6), then the contract's last line
+7. TPC-DS and window functions. (a) q3, q7, q65 and q98 of the TPC-DS
+   corpus at SF10 through ``LocalQueryRunner.tpcds(scale=10)`` with the
+   default session: wall, peak device memory, launches by kernel and
+   fused phase, no fallback, every tapped launch bit-exact against its
+   plain version on its own inputs, the NULL join keys each probe met
+   (and how many on active rows), q7's largest star join's ``hash_probe``
+   and ``hash_expand`` timed beside their bounds; q7 again with dynamic
+   filtering off, so its NULL foreign keys stay active into the probe's
+   trash bucket (fails if none does), rows identical to the default run;
+   rows identical to the kernel tier off, q3 and q98 equal to numpy over
+   the generator. (b) The 25 corpus queries (texts read from
+   ``tests/test_tpcds.py`` by ``tests/tpcds_corpus_texts.py``, which
+   fails unless 25 come out) at SF1, as phase 5 runs TPC-H's. (c) A
+   ``rank()`` and ROWS-frame ``sum`` window over TPC-H ``orders`` at SF10
+   (15,000,000 rows), filtered to rank <= 3 and aggregated by rank: rows
+   equal to numpy.
+8. The seconds of each phase, a ``kernels`` JSON line (launches summed over
+   the default runs of phases 3 to 7), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
-when the port (or ``tests/tpch_corpus.py``) is not importable beside this
-script.
+when the port (or ``tests/tpch_corpus.py`` and
+``tests/tpcds_corpus_texts.py``) is not importable beside this script.
 """
 
 from __future__ import annotations
@@ -1483,14 +1499,14 @@ def double_columns(res) -> list:
     return [t.display() == "double" for t in res.column_types]
 
 
-def run_default(HK, runner, sql: str, kernel_names) -> tuple:
+def run_default(HK, runner, sql: str, kernel_names, keep_all=()) -> tuple:
     """One run of ``sql`` with the runner's session, every count set to 0
     just before it and read just after, through a LaunchTap of
-    ``kernel_names``. Returns (result, wall s, HK launches, fused phases,
-    fallbacks, tap)."""
+    ``kernel_names`` (keeping every call's inputs of ``keep_all``). Returns
+    (result, wall s, HK launches, fused phases, fallbacks, tap)."""
     from trino_tpu_torch.ops import megakernels as MK
 
-    tap = LaunchTap(HK, kernel_names)
+    tap = LaunchTap(HK, kernel_names, keep_all)
     torch.cuda.synchronize()
     HK.reset_launch_counts()
     MK.reset_counts()
@@ -1517,10 +1533,11 @@ def run_off(HK, off, sql: str) -> tuple:
     return res, time.perf_counter() - t0
 
 
-def off_runner(dev, scale):
+def off_runner(dev, scale, benchmark="tpch"):
+    """A runner over ``benchmark``'s connector with the kernel tier off."""
     from trino_tpu_torch.runtime import LocalQueryRunner
 
-    off = LocalQueryRunner.tpch(scale=scale, device=dev)
+    off = getattr(LocalQueryRunner, benchmark)(scale=scale, device=dev)
     off.session.set("pallas_aggregation", "off")
     off.session.set("pallas_fusion", False)
     return off
@@ -1733,48 +1750,38 @@ def run_q14_q18(HK, dev, kernels: dict) -> tuple:
 CORPUS_SCALE = 1
 # the corpus's keyless joins, which the fused path declines as the
 # reference does (they run the serial join)
-CROSS_JOIN_QUERIES = ("q11", "q22")
+CROSS_JOINS = {"q11": 1, "q22": 1}
 
 
-def run_corpus(HK, dev) -> dict:
-    """Every query of tests/tpch_corpus.py at SF1 with the default session
-    (counts set to 0 just before each, read just after) and with the kernel
-    tier off: rows identical (DOUBLE at REL_TOL relative), no fallback but
-    the declined CROSS joins, and every kernel the query launched held
-    bit-exact against its plain version on the inputs the query gave it
-    (each hash probe on every join). Returns the launch counts."""
+def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict) -> dict:
+    """Every query of ``texts`` at ``scale`` over ``benchmark``'s connector
+    with the default session (counts set to 0 just before each, read just
+    after) and with the kernel tier off: rows identical (DOUBLE at REL_TOL
+    relative), no fallback but the declined CROSS joins (``cross_joins``:
+    query -> count), and every kernel the query launched held bit-exact
+    against its plain version on the inputs the query gave it (each hash
+    probe on every join). Returns the launch counts by query."""
     from trino_tpu_torch.runtime import LocalQueryRunner
-    from tests.tpch_corpus import TPCH_QUERIES
 
-    runner = LocalQueryRunner.tpch(scale=CORPUS_SCALE, device=dev)
-    off = off_runner(dev, CORPUS_SCALE)
+    runner = getattr(LocalQueryRunner, benchmark)(scale=scale, device=dev)
+    off = off_runner(dev, scale, benchmark)
     launches = {}
-    for q, sql in sorted(TPCH_QUERIES.items()):
+    for q, sql in texts.items():
+        label = f"{q} SF{scale}"
         res, wall, launches[q], phases, fallbacks, tap = run_default(
             HK, runner, sql, PATH_KERNELS)
-        declined = {"cross_join": 1} if q in CROSS_JOIN_QUERIES else {}
-        if fallbacks != declined:
-            fail(f"{q} SF{CORPUS_SCALE} fell back from the fused path: {fallbacks}")
-        checked = []
-        for name in PATH_KERNELS:
-            if launches[q][name]:
-                if not same_result(HK, name, tap.inputs[name]):
-                    fail(f"{name} [{q} SF{CORPUS_SCALE} inputs] differs from its plain version")
-                checked.append(name)
-        for k, args in enumerate(tap.probes):
-            if not same_result(HK, "hash_probe", args):
-                fail(f"hash_probe [{q} SF{CORPUS_SCALE} join {k + 1}] differs from its "
-                     "plain version")
+        declined = {"cross_join": cross_joins[q]} if q in cross_joins else {}
+        if dict(fallbacks) != declined:
+            fail(f"{label} fell back from the fused path: {fallbacks}")
+        checked = check_launched(HK, label, tap, launches[q])
         del tap
         ref, off_wall = run_off(HK, off, sql)
         if not same_rows(res.rows, ref.rows, double_columns(res)):
-            fail(f"{q} SF{CORPUS_SCALE}: default rows {res.rows[:3]} != kernel-tier-off rows "
-                 f"{ref.rows[:3]}")
-        used = {k: v for k, v in launches[q].items() if v}
-        print(f"  {q} SF{CORPUS_SCALE}: {len(res.rows)} rows identical to the kernel tier off; "
-              f"{wall:.3f} s default, {off_wall:.3f} s off; launches {used}, fused phases "
-              f"{ {k: v for k, v in phases.items() if v} }, fallbacks {fallbacks}; bit-exact "
-              f"on its inputs: {checked}", flush=True)
+            fail(f"{label}: default rows {res.rows[:3]} != kernel-tier-off rows {ref.rows[:3]}")
+        print(f"  {label}: {len(res.rows)} rows identical to the kernel tier off; "
+              f"{wall:.3f} s default, {off_wall:.3f} s off; launches "
+              f"{launched(launches[q])}, fused phases {launched(phases)}, fallbacks "
+              f"{dict(fallbacks)}; bit-exact on its inputs: {checked}", flush=True)
         del res, ref
     torch.cuda.empty_cache()
     return launches
@@ -2115,6 +2122,313 @@ def spill_footprint(dev, incore_rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: TPC-DS and window functions
+# --------------------------------------------------------------------------- #
+
+DS_SCALE = 10
+DS_CORPUS_SCALE = 1
+WINDOW_SCALE = 10
+# q3: two joins and an aggregation; q7: four joins, decimal avgs, NULL
+# foreign keys; q65: two aggregations joined; q98: a window over groups
+DS_QUERIES = ("q3", "q7", "q65", "q98")
+# the corpus's keyless joins (q88's count subqueries), declined as the
+# reference declines them
+DS_CROSS_JOINS = {"q88": 2}
+# BASELINE config 5's window/TopN shape over orders, aggregated so the host
+# gets few rows
+WINDOW_SQL = """
+        SELECT rnk, count(*), sum(s3), min(s3), max(o_custkey) FROM (
+          SELECT o_custkey,
+                 rank() OVER (PARTITION BY o_custkey ORDER BY o_totalprice DESC) rnk,
+                 sum(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_totalprice DESC
+                                         ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) s3
+          FROM orders)
+        WHERE rnk <= 3 GROUP BY rnk ORDER BY rnk
+    """
+
+
+def null_keys(args) -> tuple:
+    """(NULL join keys on the probe side, of them on active rows, the same
+    for the build side) of one hash_probe call."""
+    pkeys, bkeys, _, pa, ba = args[:5]
+    pnull = pa.new_zeros(pa.shape)
+    for _, v in pkeys:
+        pnull = pnull | ~v
+    bnull = ba.new_zeros(ba.shape)
+    for _, v in bkeys:
+        bnull = bnull | ~v
+    return (int(pnull.sum()), int((pnull & pa).sum()), int(bnull.sum()),
+            int((bnull & ba).sum()))
+
+
+def check_every_launch(HK, label: str, tap: LaunchTap) -> dict:
+    """Every tapped launch of the run against its plain version on its own
+    inputs (the probe on what the expansion reads). Returns the number
+    checked by kernel."""
+    checked = {}
+    for name, calls in tap.every.items():
+        for k, args in enumerate(calls):
+            if not same_result(HK, name, args):
+                fail(f"{name} [{label} call {k + 1}] differs from its plain version")
+        checked[name] = len(calls)
+    return checked
+
+
+def ds_splits(ds, table: str, scale):
+    conn = ds.TpcdsConnector(scale=scale, device="cpu")
+    total = conn.split_count(table, scale)
+    for s in range(total):
+        data, count = ds.generate_split(table, scale, s, total)
+        yield {c: ds.data_valid(v) for c, v in data.items()}, count
+
+
+def ds_dimension(ds, table: str, cols, scale) -> dict:
+    """Whole columns of a dimension table (data only: none of these is
+    nullable) by name."""
+    acc = {c: [] for c in cols}
+    for data, count in ds_splits(ds, table, scale):
+        for c in cols:
+            arr, valid = data[c]
+            if valid is not None and not valid[:count].all():
+                fail(f"{table}.{c} has NULLs the oracle does not expect")
+            acc[c].append(arr[:count])
+    return {c: np.concatenate(v) for c, v in acc.items()}
+
+
+def ds_oracle(scale) -> dict:
+    """q3 and q98 from the TPC-DS generator in numpy, one pass over
+    store_sales: exact integer cent sums, rows in the engine's output form
+    (q3 in its ORDER BY, ties left to the comparison; q98's ratio as the
+    engine's DOUBLE expression computes it)."""
+    from trino_tpu_torch.connectors import tpcds as ds
+
+    conn = ds.TpcdsConnector(scale=scale, device="cpu")
+    dd = ds_dimension(ds, "date_dim", ("d_date_sk", "d_year", "d_moy"), scale)
+    it = ds_dimension(ds, "item", ("i_item_sk", "i_manufact_id", "i_brand_id", "i_brand",
+                                   "i_item_id", "i_class", "i_category"), scale)
+    nd = int(dd["d_date_sk"].max()) + 1
+    year_of = np.zeros(nd, dtype=np.int64)
+    year_of[dd["d_date_sk"]] = dd["d_year"]
+    nov = np.zeros(nd, dtype=bool)
+    nov[dd["d_date_sk"]] = dd["d_moy"] == 11
+    y2001 = np.zeros(nd, dtype=bool)
+    y2001[dd["d_date_sk"]] = dd["d_year"] == 2001
+    ni = int(it["i_item_sk"].max()) + 1
+    sel3 = np.zeros(ni, dtype=bool)
+    sel3[it["i_item_sk"]] = it["i_manufact_id"] < 200
+    cats = conn.dictionary("item", "i_category", scale)
+    want_cats = np.array([v in ("Jewelry", "Men", "Women") for v in cats.values])
+    sel98 = np.zeros(ni, dtype=bool)
+    sel98[it["i_item_sk"]] = want_cats[it["i_category"]]
+    brand_id = np.zeros(ni, dtype=np.int64)
+    brand_id[it["i_item_sk"]] = it["i_brand_id"]
+    brand = np.zeros(ni, dtype=np.int64)
+    brand[it["i_item_sk"]] = it["i_brand"]
+    g3 = {}  # (d_year, i_brand_id, i_brand code) -> cents
+    rev = np.zeros(ni, dtype=np.int64)
+    nrev = np.zeros(ni, dtype=np.int64)
+    for data, count in ds_splits(ds, "store_sales", scale):
+        dsk, dvalid = data["ss_sold_date_sk"]
+        isk, _ = data["ss_item_sk"]
+        price, _ = data["ss_ext_sales_price"]
+        dsk, isk, price = dsk[:count], isk[:count], price[:count].astype(np.int64)
+        ok = np.ones(count, dtype=bool) if dvalid is None else dvalid[:count]
+        dsk = np.where(ok, dsk, 0)
+        m3 = ok & nov[dsk] & sel3[isk]
+        keys = np.stack([year_of[dsk[m3]], brand_id[isk[m3]], brand[isk[m3]]], axis=1)
+        if keys.shape[0]:
+            uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+            # float64 bincount sums are exact below 2**53 cents per split
+            sums = np.bincount(inv.reshape(-1), weights=price[m3]).astype(np.int64)
+            for k, v in zip(map(tuple, uniq.tolist()), sums.tolist()):
+                g3[k] = g3.get(k, 0) + v
+        m98 = ok & y2001[dsk] & sel98[isk]
+        rev += np.bincount(isk[m98], weights=price[m98], minlength=ni).astype(np.int64)
+        nrev += np.bincount(isk[m98], minlength=ni)
+    brands = conn.dictionary("item", "i_brand", scale)
+    q3 = [(y, bi, brands.values[b], cents / 100) for (y, bi, b), cents in g3.items()]
+    q3.sort(key=lambda r: (r[0], -r[3], r[1]))
+    ids, classes = conn.dictionary("item", "i_item_id", scale), conn.dictionary(
+        "item", "i_class", scale)
+    item_of = np.zeros(ni, dtype=np.int64)
+    item_of[it["i_item_sk"]] = np.arange(it["i_item_sk"].shape[0])
+    hit = np.nonzero(nrev)[0]
+    cls = it["i_class"][item_of[hit]]
+    class_sum = {}
+    for c, r in zip(cls.tolist(), rev[hit].tolist()):
+        class_sum[c] = class_sum.get(c, 0) + r
+    q98 = []
+    for sk, c in zip(hit.tolist(), cls.tolist()):
+        j = item_of[sk]
+        cents = int(rev[sk])
+        ratio = float(cents * 1000) / 1000.0 / (float(class_sum[c]) / 100.0)
+        q98.append((ids.values[it["i_item_id"][j]], cats.values[it["i_category"][j]],
+                    cents / 100, ratio))
+    q98.sort(key=lambda r: (r[1], r[0]))
+    return {"q3": q3, "q98": q98}
+
+
+def q3_order_ok(rows) -> bool:
+    keys = [(r[0], -r[3], r[1]) for r in rows]
+    return keys == sorted(keys)
+
+
+def run_tpcds(HK, dev) -> tuple:
+    """7a: q3, q7, q65 and q98 at DS_SCALE, in core, with the default
+    session (counts set to 0 just before each run, read just after): wall,
+    peak device memory, launches by kernel and fused phase, no fallback;
+    every tapped launch bit-exact against its plain version on its own
+    inputs; the NULL join keys each probe met; q7's largest join's
+    hash_probe and hash_expand timed beside their bounds. Then q7 with
+    dynamic filtering off, so the NULL foreign keys stay active into the
+    probe (the trash bucket); rows identical to the default run. Rows
+    identical to the kernel tier off; q3 and q98 equal to numpy. Returns
+    the launch counts."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from tests.tpcds_corpus_texts import tpcds_corpus
+
+    texts = tpcds_corpus()
+    runner = LocalQueryRunner.tpcds(scale=DS_SCALE, device=dev)
+    rows, launches = {}, {}
+    runs = [(q, texts[q], True) for q in DS_QUERIES] + [("q7 no dynamic filter", texts["q7"],
+                                                         False)]
+    for q, sql, dynamic in runs:
+        runner.session.set("enable_dynamic_filtering", dynamic)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[q], phases, fallbacks, tap = run_default(
+            HK, runner, sql, PATH_KERNELS, keep_all=PATH_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {q} SF{DS_SCALE}: {wall:.3f} s wall, peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB, the tap holding every launch's inputs), "
+              f"{len(res.rows)} rows, launches {launched(launches[q])}, fused phases "
+              f"{launched(phases)}, fallbacks {dict(fallbacks)}", flush=True)
+        if fallbacks:
+            fail(f"{q} SF{DS_SCALE} fell back from the fused path: {fallbacks}")
+        for name in JOIN_KERNELS:
+            if launches[q][name] == 0:
+                fail(f"{q} SF{DS_SCALE} did not go through {name}: {launches[q]}")
+        active_nulls = 0
+        for k, args in enumerate(tap.probes):
+            pn, pna, bn, bna = null_keys(args)
+            active_nulls += pna + bna
+            print(f"  {q} join {k + 1} [{SHAPE_OF['hash_probe'](args)}]: NULL keys probe "
+                  f"{pn} ({pna} active), build {bn} ({bna} active)", flush=True)
+        checked = check_every_launch(HK, f"{q} SF{DS_SCALE}", tap)
+        print(f"  {q}: every launch bit-exact on its own inputs: {launched(checked)}",
+              flush=True)
+        if not dynamic and active_nulls == 0:
+            fail(f"{q}: no active NULL join key reached the probe")
+        if q == "q7":
+            for name in JOIN_KERNELS:
+                args = tap.inputs[name]
+                timing = time_wrapper(HK, name, args)
+                print_timing(f"{name} [q7 SF{DS_SCALE} largest join "
+                             f"{SHAPE_OF[name](args)}]", timing)
+            print_split(HK, "hash_probe", f"q7 SF{DS_SCALE} largest join",
+                        tap.inputs["hash_probe"])
+        if not dynamic:
+            if not same_rows(res.rows, rows["q7"][0], rows["q7"][1]):
+                fail(f"{q}: rows differ from the default run's")
+            print(f"  {q}: rows identical to the default run", flush=True)
+        else:
+            rows[q] = (res.rows, double_columns(res))
+        del tap, res
+        torch.cuda.empty_cache()
+    del runner
+
+    off = off_runner(dev, DS_SCALE, "tpcds")
+    for q in DS_QUERIES:
+        res, wall = run_off(HK, off, texts[q])
+        if not same_rows(res.rows, rows[q][0], rows[q][1]):
+            fail(f"{q} SF{DS_SCALE}: default rows {rows[q][0][:3]} != kernel-tier-off rows "
+                 f"{res.rows[:3]}")
+        print(f"  {q} SF{DS_SCALE} kernel tier off: {wall:.3f} s wall, rows identical",
+              flush=True)
+        del res
+        torch.cuda.empty_cache()
+    del off
+
+    t0 = time.perf_counter()
+    want = ds_oracle(DS_SCALE)
+    print(f"  numpy oracle (q3, q98): {time.perf_counter() - t0:.3f} s", flush=True)
+    got3 = rows["q3"][0]
+    if not q3_order_ok(got3) or sorted(got3) != sorted(want["q3"]):
+        fail(f"q3 rows {got3[:3]} != numpy oracle {want['q3'][:3]}")
+    if not same_rows(rows["q98"][0], want["q98"], rows["q98"][1]):
+        fail(f"q98 rows {rows['q98'][0][:3]} != numpy oracle {want['q98'][:3]}")
+    print(f"  q3 ({len(got3)} rows) and q98 ({len(rows['q98'][0])} rows) equal the numpy "
+          f"oracle; q3 {got3[:2]}, q98 {rows['q98'][0][:2]}", flush=True)
+    return launches
+
+
+def window_oracle(scale) -> list:
+    """WINDOW_SQL from the TPC-H generator in numpy: orders sorted by
+    (o_custkey, o_totalprice DESC), rank as one plus the rows of the
+    customer priced higher, the ROWS frame's sum as a prefix-sum
+    difference, aggregated by rank."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.connectors.tpch import generator as g
+
+    conn = TpchConnector(scale=scale, device="cpu")
+    total = conn.split_count("orders", scale)
+    cust, price = [], []
+    for s in range(total):
+        d = g.generate_split("orders", scale, s, total)
+        cust.append(d.columns["o_custkey"][:d.count])
+        price.append(d.columns["o_totalprice"][:d.count].astype(np.int64))
+    cust, price = np.concatenate(cust), np.concatenate(price)
+    order = np.lexsort((-price, cust))
+    c, p = cust[order], price[order]
+    n = c.shape[0]
+    idx = np.arange(n)
+    new_part = np.ones(n, dtype=bool)
+    new_part[1:] = c[1:] != c[:-1]
+    part_start = np.maximum.accumulate(np.where(new_part, idx, 0))
+    peer = new_part.copy()
+    peer[1:] |= p[1:] != p[:-1]
+    peer_start = np.maximum.accumulate(np.where(peer, idx, 0))
+    rnk = peer_start - part_start + 1
+    ps = np.concatenate([[0], np.cumsum(p)])
+    lo = np.maximum(idx - 2, part_start)
+    s3 = ps[idx + 1] - ps[lo]
+    out = []
+    for r in (1, 2, 3):
+        m = rnk == r
+        out.append((r, int(m.sum()), int(s3[m].sum()) / 100, int(s3[m].min()) / 100,
+                    int(c[m].max())))
+    return out
+
+
+def run_window(HK, dev) -> dict:
+    """7c: WINDOW_SQL over TPC-H orders at WINDOW_SCALE with the default
+    session: wall, peak device memory, launches; rows equal to numpy.
+    Returns the launch counts."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    runner = LocalQueryRunner.tpch(scale=WINDOW_SCALE, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches, phases, fallbacks, tap = run_default(HK, runner, WINDOW_SQL,
+                                                              PATH_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    checked = check_launched(HK, "window", tap, launches)
+    print(f"  window query over orders SF{WINDOW_SCALE}: {wall:.3f} s wall, peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB), rows {res.rows}, launches "
+          f"{launched(launches)}, fused phases {launched(phases)}; bit-exact: {checked}",
+          flush=True)
+    del tap, runner
+    t0 = time.perf_counter()
+    want = window_oracle(WINDOW_SCALE)
+    print(f"  numpy oracle: {time.perf_counter() - t0:.3f} s", flush=True)
+    if res.rows != want:
+        fail(f"window query rows {res.rows} != numpy oracle {want}")
+    print("  window query rows equal the numpy oracle", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -2166,7 +2480,10 @@ def main() -> None:
 
     t0 = time.perf_counter()
     print(f"phase 5: the 22 TPC-H corpus queries at SF{CORPUS_SCALE}", flush=True)
-    corpus = run_corpus(HK, dev)
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    corpus = run_corpus(HK, dev, dict(sorted(TPCH_QUERIES.items())), CORPUS_SCALE, "tpch",
+                        CROSS_JOINS)
     phase_s["corpus"] = time.perf_counter() - t0
     launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
 
@@ -2180,6 +2497,23 @@ def main() -> None:
     launches.update(run_operator_spill(HK, dev, incore_rows, kernels))
     spill_footprint(dev, incore_rows)
     phase_s["out_of_core"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"phase 7: TPC-DS q3, q7, q65 and q98 at SF{DS_SCALE}, the 25 TPC-DS corpus "
+          f"queries at SF{DS_CORPUS_SCALE}, a window query over TPC-H orders at "
+          f"SF{WINDOW_SCALE}", flush=True)
+    launches.update({f"{q} SF{DS_SCALE} (tpcds)": v for q, v in run_tpcds(HK, dev).items()})
+    phase_s["tpcds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from tests.tpcds_corpus_texts import tpcds_corpus
+
+    ds_corpus = run_corpus(HK, dev, tpcds_corpus(), DS_CORPUS_SCALE, "tpcds", DS_CROSS_JOINS)
+    launches.update({f"{q} SF{DS_CORPUS_SCALE} (tpcds)": v for q, v in ds_corpus.items()})
+    phase_s["tpcds_corpus"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches[f"window SF{WINDOW_SCALE}"] = run_window(HK, dev)
+    phase_s["window"] = time.perf_counter() - t0
     for name, k in kernels.items():
         k["launches"] = sum(runs[name] for runs in launches.values())
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

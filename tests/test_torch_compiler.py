@@ -276,6 +276,43 @@ def test_expression_matches_reference(name, data):
     assert got_dict == want_dict
 
 
+# DOUBLE math functions: the same IEEE inputs, but each library's own exp,
+# log and trigonometry may round the last bit differently, so these hold
+# at 1e-12 relative (inside the contract's 1e-9), NaN equal to NaN
+MATH_EXPRESSIONS = {
+    "exp": lambda n: n.call("exp", [n.call("$divide", [n.ref("x"), n.const("double", 300.0)],
+                                            "double")], "double"),
+    "ln_decimal": lambda n: n.call("ln", [n.ref("d1")], "double"),
+    "sqrt_integer": lambda n: n.call("sqrt", [n.ref("i")], "double"),
+    "log10": lambda n: n.call("log10", [n.ref("x")], "double"),
+    "log2_bigint": lambda n: n.call("log2", [n.ref("a")], "double"),
+    "power": lambda n: n.call("power", [n.ref("y"), n.ref("j")], "double"),
+    "sin_cos_tan": lambda n: n.call("$add", [
+        n.call("sin", [n.ref("x")], "double"),
+        n.call("$multiply", [n.call("cos", [n.ref("y")], "double"),
+                             n.call("tan", [n.ref("d2")], "double")], "double")], "double"),
+    "asin_acos_atan": lambda n: n.call("$add", [
+        n.call("asin", [n.call("$divide", [n.ref("y"), n.const("double", 100.0)], "double")],
+               "double"),
+        n.call("$add", [n.call("acos", [n.call("$divide", [n.ref("y"),
+                                                           n.const("double", 90.0)],
+                                               "double")], "double"),
+                        n.call("atan", [n.ref("x")], "double")], "double")], "double"),
+    "atan2": lambda n: n.call("atan2", [n.ref("x"), n.ref("d1")], "double"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MATH_EXPRESSIONS))
+def test_math_function_matches_reference(name, data):
+    build = MATH_EXPRESSIONS[name]
+    want_data, want_valid, _ = _ref_eval(build(NS(rir, rtypes)), data)
+    got_data, got_valid, _ = _port_eval(build(NS(pir, ptypes)), data)
+    np.testing.assert_array_equal(got_valid, want_valid)
+    assert got_data.dtype == want_data.dtype
+    np.testing.assert_allclose(got_data[got_valid], want_data[want_valid], rtol=1e-12,
+                               atol=0, equal_nan=True)
+
+
 def test_compiled_closures_are_cached():
     n = NS(pir, ptypes)
     expr = EXPRESSIONS["add"](n)

@@ -110,19 +110,21 @@ def test_page_from_numpy_round_trip():
 
 
 def test_import_loads_neither_jax_nor_reference():
+    """Every module of the package, found by walking it (so a module added
+    later is covered), imports without loading JAX or the reference."""
     code = (
-        "import sys, trino_tpu_torch, trino_tpu_torch.runtime, "
-        "trino_tpu_torch.ops.hopper_kernels, trino_tpu_torch.ops.megakernels, "
-        "trino_tpu_torch.runtime.executor, trino_tpu_torch.ops.repartition, "
-        "trino_tpu_torch.native, trino_tpu_torch.runtime.serde, "
-        "trino_tpu_torch.spi.host_pages, trino_tpu_torch.runtime.spiller, "
-        "trino_tpu_torch.runtime.memory, trino_tpu_torch.runtime.staging, "
-        "trino_tpu_torch.runtime.streaming, trino_tpu_torch.runtime.ooc, "
-        "trino_tpu_torch.parallel.runner\n"
+        "import importlib, pkgutil, sys, trino_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(trino_tpu_torch.__path__,"
+        " 'trino_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "need = {'trino_tpu_torch.connectors.tpcds', 'trino_tpu_torch.runtime.window',"
+        " 'trino_tpu_torch.ops.int128', 'trino_tpu_torch.runtime.executor'}\n"
+        "missing = sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(mods), missing, bad)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 50 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)

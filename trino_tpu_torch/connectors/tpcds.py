@@ -1,0 +1,1241 @@
+"""TPC-DS connector — the full 24-table schema.
+
+Reference blueprint: plugin/trino-tpcds (SURVEY.md §2.9; TpcdsConnectorFactory,
+TpcdsMetadata table list). Same architecture as the tpch connector:
+deterministic canonical-chunk generation (split-layout invariant,
+process-stable seeding), sorted vocabularies so strings are int32 codes,
+range-partitioned surrogate keys, julian-day date_sk values like dsdgen.
+
+Data distributions follow dsdgen's *shapes* (calendar-correct date_dim/
+time_dim, brand/class/category hierarchies, consistent fact price chains:
+list -> sales -> ext_* -> net_paid -> net_profit) without being bit-identical;
+correctness tests compare against a pandas oracle over the same generated
+data (tests/test_tpcds.py), mirroring how the reference verifies tpch queries
+against H2 (H2QueryRunner).
+
+Deviations from dsdgen, declared: returns rows are generated independently of
+sales rows (same FK ranges, not the same order/ticket numbers), and slowly-
+changing-dimension rec_start/rec_end versioning collapses to one current row.
+Nullable foreign keys carry ~4%% NULLs like dsdgen's fact FKs.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..spi.connector import (
+    ColumnMetadata,
+    Connector,
+    ConnectorMetadata,
+    ConnectorPageSourceProvider,
+    ConnectorSplitManager,
+    SchemaTableName,
+    Split,
+    TableHandle,
+    TableMetadata,
+    TableStatistics,
+)
+from ..spi.page import Column, Dictionary, Page
+from ..spi.predicate import TupleDomain
+from ..spi.types import parse_type
+from ..device import resolve_device
+
+EPOCH = datetime.date(1970, 1, 1)
+
+# dsdgen: d_date_sk is the julian day number; 2415022 == 1900-01-02, the first
+# date_dim row. 73049 rows span 1900-01-02 .. 2100-01-01.
+JULIAN_BASE = 2415022
+DATE_START = datetime.date(1900, 1, 2)
+N_DATES = 73049
+# sales activity lives in 1998-01-02 .. 2002-12-31 (5 years, like dsdgen)
+SALES_LO = JULIAN_BASE + (datetime.date(1998, 1, 2) - DATE_START).days
+SALES_HI = JULIAN_BASE + (datetime.date(2002, 12, 31) - DATE_START).days
+
+# ---------------------------------------------------------------------------
+# vocabularies (sorted, so dictionary code order == lexicographic order)
+# ---------------------------------------------------------------------------
+CATEGORIES = sorted(
+    ["Books", "Children", "Electronics", "Home", "Jewelry",
+     "Men", "Music", "Shoes", "Sports", "Women"]
+)
+CLASSES = sorted(f"class{i:02d}" for i in range(1, 17))
+DAY_NAMES = sorted(
+    ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday", "Sunday"]
+)
+QUARTER_NAMES = sorted(
+    f"{y}Q{q}" for y in range(1900, 2101) for q in range(1, 5)
+)
+N_BRANDS = 250
+BRANDS = sorted(f"Brand #{i}" for i in range(1, N_BRANDS + 1))
+MANUFACTS = sorted(f"manufact{i:04d}" for i in range(1, 1001))
+STORE_NAMES = sorted(["able", "ation", "bar", "cally", "eing", "ese", "ought", "anti"])
+STATES = sorted(["AL", "CA", "GA", "IL", "KS", "MI", "MN", "NY", "OH", "TN", "TX", "WA"])
+COUNTIES = sorted(f"{w} County" for w in
+                  ["Ziebach", "Walker", "Daviess", "Barrow", "Fairfield",
+                   "Bronx", "Maverick", "Mesa", "Raleigh", "Luce"])
+CITIES = sorted(["Fairview", "Midway", "Oakland", "Centerville", "Liberty",
+                 "Glenwood", "Springdale", "Riverside", "Union", "Salem"])
+STREET_NAMES = sorted(["Main", "Oak", "Park", "Elm", "Lake", "Hill", "Pine",
+                       "Maple", "Cedar", "River"])
+STREET_TYPES = sorted(["ST", "AVE", "BLVD", "RD", "CT", "DR", "LN", "PKWY", "WAY", "CIR"])
+ZIPS = sorted(f"{z:05d}" for z in range(10000, 10100))
+# sorted(): the Dictionary invariant is code-order == lexicographic order
+STREET_NUMBERS = tuple(sorted(str(i) for i in range(1, 1001)))
+SUITE_NUMBERS = tuple(sorted(f"Suite {i}" for i in range(100)))
+COUNTRY = ("United States",)
+GENDERS = ("F", "M")
+MARITAL = sorted(["D", "M", "S", "U", "W"])
+EDUCATION = sorted(["2 yr Degree", "4 yr Degree", "Advanced Degree", "College",
+                    "Primary", "Secondary", "Unknown"])
+CREDIT_RATING = sorted(["Good", "High Risk", "Low Risk", "Unknown"])
+BUY_POTENTIAL = sorted(["0-500", "1001-5000", "501-1000", ">10000", "5001-10000", "Unknown"])
+SALUTATIONS = sorted(["Dr.", "Miss", "Mr.", "Mrs.", "Ms.", "Sir"])
+FIRST_NAMES = sorted(["James", "John", "Robert", "Michael", "William", "David",
+                      "Mary", "Patricia", "Linda", "Barbara", "Elizabeth", "Jennifer"])
+LAST_NAMES = sorted(["Smith", "Johnson", "Williams", "Brown", "Jones", "Miller",
+                     "Davis", "Garcia", "Rodriguez", "Wilson", "Martinez", "Anderson"])
+COUNTRIES = sorted(["United States", "Canada", "Mexico", "Germany", "France",
+                    "Japan", "Brazil", "India", "China", "Australia"])
+YN = ("N", "Y")
+AMPM = ("AM", "PM")
+SHIFTS = sorted(["first", "second", "third"])
+SUB_SHIFTS = sorted(["afternoon", "evening", "morning", "night"])
+MEALS = sorted(["breakfast", "dinner", "lunch", ""])
+SM_TYPES = sorted(["EXPRESS", "LIBRARY", "NEXT DAY", "OVERNIGHT", "REGULAR", "TWO DAY"])
+SM_CODES = sorted(["AIR", "GROUND", "SEA", "SHIP"])
+SM_CARRIERS = sorted(["AIRBORNE", "ALLIANCE", "BARIAN", "BOXBUNDLES", "CARDINAL",
+                      "DHL", "DIAMOND", "FEDEX", "GERMA", "GREAT EASTERN", "HARMSTORF",
+                      "LATVIAN", "MSC", "ORIENTAL", "PRIVATECARRIER", "RUPEKSA",
+                      "TBS", "UPS", "USPS", "ZHOU"])
+REASONS = sorted(["Did not fit", "Did not get it on time", "Did not like the color",
+                  "Did not like the model", "Did not like the warranty",
+                  "Found a better price", "Gift exchange", "Item was damaged",
+                  "Lost my job", "Changed my mind", "Item is not the product I wanted",
+                  "No reason given", "Package was damaged", "Parts missing",
+                  "Wrong size", "Not working any more", "Duplicate purchase",
+                  "Bought too many", "Ordered wrong item", "Unauthorized purchase",
+                  "Did not believe the description", "Too expensive",
+                  "Not the product that was ordered", "Product did not work",
+                  "Stopped working", "Found a better extended warranty",
+                  "Warranty too expensive", "Delivery took too long",
+                  "Did not want it any more", "Poor quality", "Wrong color",
+                  "Wrong model", "Defective item", "Missing accessories", "Other"])
+ITEM_SIZES = sorted(["N/A", "economy", "extra large", "large", "medium", "petite", "small"])
+ITEM_COLORS = sorted(["almond", "antique", "aquamarine", "azure", "beige", "bisque",
+                      "black", "blue", "brown", "chartreuse", "coral", "cream",
+                      "cyan", "dark", "gold", "green", "indigo", "ivory", "khaki",
+                      "lavender", "magenta", "maroon", "navy", "olive", "orange",
+                      "pink", "plum", "puff", "purple", "red", "rose", "saddle",
+                      "salmon", "sienna", "silver", "sky", "slate", "smoke", "snow",
+                      "spring", "steel", "tan", "thistle", "tomato", "turquoise",
+                      "violet", "white", "yellow"])
+ITEM_UNITS = sorted(["Box", "Bunch", "Bundle", "Carton", "Case", "Cup", "Dozen",
+                     "Dram", "Each", "Gram", "Gross", "Lb", "N/A", "Ounce",
+                     "Pallet", "Pound", "Tbl", "Ton", "Tsp", "Unknown"])
+ITEM_CONTAINERS = ("Unknown",)
+ITEM_FORMULATIONS = sorted(f"formulation {i:03d}" for i in range(1, 101))
+ITEM_DESCS = sorted(f"Item description {i:04d} for testing." for i in range(1, 301))
+PRODUCT_NAMES = sorted(f"product{i:05d}" for i in range(1, 501))
+MANAGERS = sorted(f"Manager {i:03d}" for i in range(1, 101))
+MKT_DESCS = sorted(f"Market segment description {i:03d}" for i in range(1, 51))
+DIVISION_NAMES = sorted(["able", "ation", "bar", "ese", "anti", "cally"])
+COMPANY_NAMES = sorted(["Unknown", "ableanti", "amalgamalg", "brandbrand",
+                        "corpcorp", "edu pack", "exportiunivamalg", "importoamalg",
+                        "maxicorp", "univmaxi"])
+HOURS = sorted(["8AM-12AM", "8AM-4PM", "8AM-8AM"])
+GEOGRAPHY = ("Unknown",)
+CC_CLASSES = sorted(["large", "medium", "small"])
+CP_DEPARTMENTS = ("DEPARTMENT",)
+CP_TYPES = sorted(["bi-annual", "monthly", "quarterly"])
+WEB_NAMES = sorted(["site_0", "site_1", "site_2", "site_3", "site_4", "site_5"])
+WP_TYPES = sorted(["ad", "dynamic", "feedback", "general", "order", "protected", "welcome"])
+WP_URLS = ("http://www.foo.com",)
+PROMO_NAMES = sorted(["able", "anti", "bar", "cally", "eing", "ese", "ought"])
+PROMO_PURPOSES = ("Unknown",)
+CHANNEL_DETAILS = sorted(f"channel details {i:03d}" for i in range(1, 101))
+W_NAMES = sorted(["Bad cards must make.", "Conventional childr", "Doors canno",
+                  "Important issues liv", "Rooms cook "])
+
+# ---------------------------------------------------------------------------
+# per-column generator specs
+#
+# ("sk",)                surrogate key (row index + 1; date/time use offsets)
+# ("id", prefix, base)   per-row unique id string over base-table row count
+# ("v", vocab)           uniform random code over a sorted vocabulary
+# ("vn", vocab, p)       same with NULL probability p
+# ("vmod", vocab)        deterministic (sk-1) % len(vocab)
+# ("i", lo, hi)          uniform integer [lo, hi)
+# ("in", lo, hi, p)      same with NULLs
+# ("d", lo, hi)          decimal cents in [lo, hi)
+# ("fk", table, p)       foreign key into table's sk range, NULL prob p
+# ("fkdate", p)          julian date_sk in the sales window
+# ("fktime", p)          time_sk 0..86399
+# ("seq", k)             (sk-1)//k + 1 (ticket/order grouping)
+# ("cdate", iso)         constant DATE
+# None                   computed in a per-table special section
+# ---------------------------------------------------------------------------
+
+F = 0.04  # dsdgen-like fact FK null rate
+
+_TABLES: Dict[str, List[Tuple[str, str, object]]] = {
+    "date_dim": [
+        ("d_date_sk", "bigint", None),
+        ("d_date_id", "varchar(16)", None),
+        ("d_date", "date", None),
+        ("d_month_seq", "integer", None),
+        ("d_week_seq", "integer", None),
+        ("d_quarter_seq", "integer", None),
+        ("d_year", "integer", None),
+        ("d_dow", "integer", None),
+        ("d_moy", "integer", None),
+        ("d_dom", "integer", None),
+        ("d_qoy", "integer", None),
+        ("d_fy_year", "integer", None),
+        ("d_fy_quarter_seq", "integer", None),
+        ("d_fy_week_seq", "integer", None),
+        ("d_day_name", "varchar(9)", None),
+        ("d_quarter_name", "varchar(6)", None),
+        ("d_holiday", "varchar(1)", None),
+        ("d_weekend", "varchar(1)", None),
+        ("d_following_holiday", "varchar(1)", None),
+        ("d_first_dom", "integer", None),
+        ("d_last_dom", "integer", None),
+        ("d_same_day_ly", "integer", None),
+        ("d_same_day_lq", "integer", None),
+        ("d_current_day", "varchar(1)", None),
+        ("d_current_week", "varchar(1)", None),
+        ("d_current_month", "varchar(1)", None),
+        ("d_current_quarter", "varchar(1)", None),
+        ("d_current_year", "varchar(1)", None),
+    ],
+    "time_dim": [
+        ("t_time_sk", "bigint", None),
+        ("t_time_id", "varchar(16)", None),
+        ("t_time", "integer", None),
+        ("t_hour", "integer", None),
+        ("t_minute", "integer", None),
+        ("t_second", "integer", None),
+        ("t_am_pm", "varchar(2)", None),
+        ("t_shift", "varchar(20)", None),
+        ("t_sub_shift", "varchar(20)", None),
+        ("t_meal_time", "varchar(20)", None),
+    ],
+    "item": [
+        ("i_item_sk", "bigint", ("sk",)),
+        ("i_item_id", "varchar(16)", ("id", "AAAAAAAA", "item")),
+        ("i_rec_start_date", "date", ("cdate", "1997-10-27")),
+        ("i_rec_end_date", "date", ("cdate", None)),
+        ("i_item_desc", "varchar(200)", ("v", ITEM_DESCS)),
+        ("i_current_price", "decimal(7,2)", ("d", 99, 10000)),
+        ("i_wholesale_cost", "decimal(7,2)", ("d", 50, 7000)),
+        ("i_brand_id", "integer", None),
+        ("i_brand", "varchar(50)", None),
+        ("i_class_id", "integer", None),
+        ("i_class", "varchar(50)", None),
+        ("i_category_id", "integer", None),
+        ("i_category", "varchar(50)", None),
+        ("i_manufact_id", "integer", None),
+        ("i_manufact", "varchar(50)", None),
+        ("i_size", "varchar(20)", ("v", ITEM_SIZES)),
+        ("i_formulation", "varchar(20)", ("v", ITEM_FORMULATIONS)),
+        ("i_color", "varchar(20)", ("v", ITEM_COLORS)),
+        ("i_units", "varchar(10)", ("v", ITEM_UNITS)),
+        ("i_container", "varchar(10)", ("v", ITEM_CONTAINERS)),
+        ("i_manager_id", "integer", ("i", 1, 101)),
+        ("i_product_name", "varchar(50)", ("v", PRODUCT_NAMES)),
+    ],
+    "customer": [
+        ("c_customer_sk", "bigint", ("sk",)),
+        ("c_customer_id", "varchar(16)", ("id", "AAAAAAAA", "customer")),
+        ("c_current_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("c_current_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("c_current_addr_sk", "bigint", ("fk", "customer_address", 0.0)),
+        ("c_first_shipto_date_sk", "bigint", ("fkdate", F)),
+        ("c_first_sales_date_sk", "bigint", ("fkdate", F)),
+        ("c_salutation", "varchar(10)", ("vn", SALUTATIONS, 0.03)),
+        ("c_first_name", "varchar(20)", ("vn", FIRST_NAMES, 0.03)),
+        ("c_last_name", "varchar(30)", ("vn", LAST_NAMES, 0.03)),
+        ("c_preferred_cust_flag", "varchar(1)", ("vn", YN, 0.03)),
+        ("c_birth_day", "integer", ("in", 1, 29, 0.03)),
+        ("c_birth_month", "integer", ("in", 1, 13, 0.03)),
+        ("c_birth_year", "integer", ("in", 1924, 1993, 0.03)),
+        ("c_birth_country", "varchar(20)", ("vn", COUNTRIES, 0.03)),
+        ("c_login", "varchar(13)", ("vn", ("",), 1.0)),
+        ("c_email_address", "varchar(50)", ("id", "EMAIL", "customer")),
+        ("c_last_review_date_sk", "bigint", ("fkdate", F)),
+    ],
+    "customer_address": [
+        ("ca_address_sk", "bigint", ("sk",)),
+        ("ca_address_id", "varchar(16)", ("id", "AAAAAAAA", "customer_address")),
+        ("ca_street_number", "varchar(10)", ("vmod", STREET_NUMBERS)),
+        ("ca_street_name", "varchar(60)", ("v", STREET_NAMES)),
+        ("ca_street_type", "varchar(15)", ("v", STREET_TYPES)),
+        ("ca_suite_number", "varchar(10)", ("vmod", SUITE_NUMBERS)),
+        ("ca_city", "varchar(60)", ("v", CITIES)),
+        ("ca_county", "varchar(30)", ("v", COUNTIES)),
+        ("ca_state", "varchar(2)", ("v", STATES)),
+        ("ca_zip", "varchar(10)", ("v", ZIPS)),
+        ("ca_country", "varchar(20)", ("v", COUNTRY)),
+        ("ca_gmt_offset", "decimal(5,2)", None),
+        ("ca_location_type", "varchar(20)", ("v", ("apartment", "condo", "single family"))),
+    ],
+    "customer_demographics": [
+        ("cd_demo_sk", "bigint", ("sk",)),
+        ("cd_gender", "varchar(1)", None),
+        ("cd_marital_status", "varchar(1)", None),
+        ("cd_education_status", "varchar(20)", None),
+        ("cd_purchase_estimate", "integer", None),
+        ("cd_credit_rating", "varchar(10)", None),
+        ("cd_dep_count", "integer", None),
+        ("cd_dep_employed_count", "integer", None),
+        ("cd_dep_college_count", "integer", None),
+    ],
+    "household_demographics": [
+        ("hd_demo_sk", "bigint", ("sk",)),
+        ("hd_income_band_sk", "bigint", None),
+        ("hd_buy_potential", "varchar(15)", None),
+        ("hd_dep_count", "integer", None),
+        ("hd_vehicle_count", "integer", None),
+    ],
+    "income_band": [
+        ("ib_income_band_sk", "bigint", ("sk",)),
+        ("ib_lower_bound", "integer", None),
+        ("ib_upper_bound", "integer", None),
+    ],
+    "store": [
+        ("s_store_sk", "bigint", ("sk",)),
+        ("s_store_id", "varchar(16)", ("id", "AAAAAAAA", "store")),
+        ("s_rec_start_date", "date", ("cdate", "1997-03-13")),
+        ("s_rec_end_date", "date", ("cdate", None)),
+        ("s_closed_date_sk", "bigint", ("fkdate", 0.7)),
+        ("s_store_name", "varchar(50)", ("vmod", STORE_NAMES)),
+        ("s_number_employees", "integer", ("i", 200, 301)),
+        ("s_floor_space", "integer", ("i", 5000000, 10000001)),
+        ("s_hours", "varchar(20)", ("vmod", HOURS)),
+        ("s_manager", "varchar(40)", ("v", MANAGERS)),
+        ("s_market_id", "integer", ("i", 1, 11)),
+        ("s_geography_class", "varchar(100)", ("v", GEOGRAPHY)),
+        ("s_market_desc", "varchar(100)", ("v", MKT_DESCS)),
+        ("s_market_manager", "varchar(40)", ("v", MANAGERS)),
+        ("s_division_id", "integer", ("i", 1, 2)),
+        ("s_division_name", "varchar(50)", ("v", DIVISION_NAMES)),
+        ("s_company_id", "integer", ("i", 1, 2)),
+        ("s_company_name", "varchar(50)", ("v", COMPANY_NAMES)),
+        ("s_street_number", "varchar(10)", ("vmod", STREET_NUMBERS)),
+        ("s_street_name", "varchar(60)", ("v", STREET_NAMES)),
+        ("s_street_type", "varchar(15)", ("v", STREET_TYPES)),
+        ("s_suite_number", "varchar(10)", ("vmod", SUITE_NUMBERS)),
+        ("s_city", "varchar(60)", ("v", CITIES)),
+        ("s_county", "varchar(30)", ("v", COUNTIES)),
+        ("s_state", "varchar(2)", ("v", STATES)),
+        ("s_zip", "varchar(10)", ("v", ZIPS)),
+        ("s_country", "varchar(20)", ("v", COUNTRY)),
+        ("s_gmt_offset", "decimal(5,2)", None),
+        ("s_tax_precentage", "decimal(5,2)", ("d", 0, 12)),
+    ],
+    "warehouse": [
+        ("w_warehouse_sk", "bigint", ("sk",)),
+        ("w_warehouse_id", "varchar(16)", ("id", "AAAAAAAA", "warehouse")),
+        ("w_warehouse_name", "varchar(20)", ("vmod", W_NAMES)),
+        ("w_warehouse_sq_ft", "integer", ("i", 50000, 1000001)),
+        ("w_street_number", "varchar(10)", ("vmod", STREET_NUMBERS)),
+        ("w_street_name", "varchar(60)", ("v", STREET_NAMES)),
+        ("w_street_type", "varchar(15)", ("v", STREET_TYPES)),
+        ("w_suite_number", "varchar(10)", ("vmod", SUITE_NUMBERS)),
+        ("w_city", "varchar(60)", ("v", CITIES)),
+        ("w_county", "varchar(30)", ("v", COUNTIES)),
+        ("w_state", "varchar(2)", ("v", STATES)),
+        ("w_zip", "varchar(10)", ("v", ZIPS)),
+        ("w_country", "varchar(20)", ("v", COUNTRY)),
+        ("w_gmt_offset", "decimal(5,2)", None),
+    ],
+    "ship_mode": [
+        ("sm_ship_mode_sk", "bigint", ("sk",)),
+        ("sm_ship_mode_id", "varchar(16)", ("id", "AAAAAAAA", "ship_mode")),
+        ("sm_type", "varchar(30)", ("vmod", SM_TYPES)),
+        ("sm_code", "varchar(10)", ("vmod", SM_CODES)),
+        ("sm_carrier", "varchar(20)", ("vmod", SM_CARRIERS)),
+        ("sm_contract", "varchar(20)", ("id", "CONTRACT", "ship_mode")),
+    ],
+    "reason": [
+        ("r_reason_sk", "bigint", ("sk",)),
+        ("r_reason_id", "varchar(16)", ("id", "AAAAAAAA", "reason")),
+        ("r_reason_desc", "varchar(100)", ("vmod", REASONS)),
+    ],
+    "promotion": [
+        ("p_promo_sk", "bigint", ("sk",)),
+        ("p_promo_id", "varchar(16)", ("id", "AAAAAAAA", "promotion")),
+        ("p_start_date_sk", "bigint", ("fkdate", F)),
+        ("p_end_date_sk", "bigint", ("fkdate", F)),
+        ("p_item_sk", "bigint", ("fk", "item", F)),
+        ("p_cost", "decimal(15,2)", ("d", 100000, 100001)),
+        ("p_response_target", "integer", ("i", 1, 2)),
+        ("p_promo_name", "varchar(50)", ("v", PROMO_NAMES)),
+        ("p_channel_dmail", "varchar(1)", ("v", YN)),
+        ("p_channel_email", "varchar(1)", ("v", YN)),
+        ("p_channel_catalog", "varchar(1)", ("v", YN)),
+        ("p_channel_tv", "varchar(1)", ("v", YN)),
+        ("p_channel_radio", "varchar(1)", ("v", YN)),
+        ("p_channel_press", "varchar(1)", ("v", YN)),
+        ("p_channel_event", "varchar(1)", ("v", YN)),
+        ("p_channel_demo", "varchar(1)", ("v", YN)),
+        ("p_channel_details", "varchar(100)", ("v", CHANNEL_DETAILS)),
+        ("p_purpose", "varchar(15)", ("v", PROMO_PURPOSES)),
+        ("p_discount_active", "varchar(1)", ("v", YN)),
+    ],
+    "call_center": [
+        ("cc_call_center_sk", "bigint", ("sk",)),
+        ("cc_call_center_id", "varchar(16)", ("id", "AAAAAAAA", "call_center")),
+        ("cc_rec_start_date", "date", ("cdate", "1998-01-01")),
+        ("cc_rec_end_date", "date", ("cdate", None)),
+        ("cc_closed_date_sk", "bigint", ("fkdate", 0.9)),
+        ("cc_open_date_sk", "bigint", ("fkdate", 0.0)),
+        ("cc_name", "varchar(50)", ("vmod", sorted(f"call center {i}" for i in range(1, 31)))),
+        ("cc_class", "varchar(50)", ("vmod", CC_CLASSES)),
+        ("cc_employees", "integer", ("i", 1, 7)),
+        ("cc_sq_ft", "integer", ("i", 100, 700)),
+        ("cc_hours", "varchar(20)", ("vmod", HOURS)),
+        ("cc_manager", "varchar(40)", ("v", MANAGERS)),
+        ("cc_mkt_id", "integer", ("i", 1, 7)),
+        ("cc_mkt_class", "varchar(50)", ("v", MKT_DESCS)),
+        ("cc_mkt_desc", "varchar(100)", ("v", MKT_DESCS)),
+        ("cc_market_manager", "varchar(40)", ("v", MANAGERS)),
+        ("cc_division", "integer", ("i", 1, 7)),
+        ("cc_division_name", "varchar(50)", ("v", DIVISION_NAMES)),
+        ("cc_company", "integer", ("i", 1, 7)),
+        ("cc_company_name", "varchar(50)", ("v", COMPANY_NAMES)),
+        ("cc_street_number", "varchar(10)", ("vmod", STREET_NUMBERS)),
+        ("cc_street_name", "varchar(60)", ("v", STREET_NAMES)),
+        ("cc_street_type", "varchar(15)", ("v", STREET_TYPES)),
+        ("cc_suite_number", "varchar(10)", ("vmod", SUITE_NUMBERS)),
+        ("cc_city", "varchar(60)", ("v", CITIES)),
+        ("cc_county", "varchar(30)", ("v", COUNTIES)),
+        ("cc_state", "varchar(2)", ("v", STATES)),
+        ("cc_zip", "varchar(10)", ("v", ZIPS)),
+        ("cc_country", "varchar(20)", ("v", COUNTRY)),
+        ("cc_gmt_offset", "decimal(5,2)", None),
+        ("cc_tax_percentage", "decimal(5,2)", ("d", 0, 12)),
+    ],
+    "catalog_page": [
+        ("cp_catalog_page_sk", "bigint", ("sk",)),
+        ("cp_catalog_page_id", "varchar(16)", ("id", "AAAAAAAA", "catalog_page")),
+        ("cp_start_date_sk", "bigint", ("fkdate", F)),
+        ("cp_end_date_sk", "bigint", ("fkdate", F)),
+        ("cp_department", "varchar(50)", ("v", CP_DEPARTMENTS)),
+        ("cp_catalog_number", "integer", ("i", 1, 110)),
+        ("cp_catalog_page_number", "integer", ("i", 1, 189)),
+        ("cp_description", "varchar(100)", ("v", ITEM_DESCS)),
+        ("cp_type", "varchar(100)", ("vmod", CP_TYPES)),
+    ],
+    "web_site": [
+        ("web_site_sk", "bigint", ("sk",)),
+        ("web_site_id", "varchar(16)", ("id", "AAAAAAAA", "web_site")),
+        ("web_rec_start_date", "date", ("cdate", "1997-08-16")),
+        ("web_rec_end_date", "date", ("cdate", None)),
+        ("web_name", "varchar(50)", ("vmod", WEB_NAMES)),
+        ("web_open_date_sk", "bigint", ("fkdate", 0.0)),
+        ("web_close_date_sk", "bigint", ("fkdate", 0.8)),
+        ("web_class", "varchar(50)", ("v", GEOGRAPHY)),
+        ("web_manager", "varchar(40)", ("v", MANAGERS)),
+        ("web_mkt_id", "integer", ("i", 1, 7)),
+        ("web_mkt_class", "varchar(50)", ("v", MKT_DESCS)),
+        ("web_mkt_desc", "varchar(100)", ("v", MKT_DESCS)),
+        ("web_market_manager", "varchar(40)", ("v", MANAGERS)),
+        ("web_company_id", "integer", ("i", 1, 7)),
+        ("web_company_name", "varchar(50)", ("vmod", COMPANY_NAMES)),
+        ("web_street_number", "varchar(10)", ("vmod", STREET_NUMBERS)),
+        ("web_street_name", "varchar(60)", ("v", STREET_NAMES)),
+        ("web_street_type", "varchar(15)", ("v", STREET_TYPES)),
+        ("web_suite_number", "varchar(10)", ("vmod", SUITE_NUMBERS)),
+        ("web_city", "varchar(60)", ("v", CITIES)),
+        ("web_county", "varchar(30)", ("v", COUNTIES)),
+        ("web_state", "varchar(2)", ("v", STATES)),
+        ("web_zip", "varchar(10)", ("v", ZIPS)),
+        ("web_country", "varchar(20)", ("v", COUNTRY)),
+        ("web_gmt_offset", "decimal(5,2)", None),
+        ("web_tax_percentage", "decimal(5,2)", ("d", 0, 12)),
+    ],
+    "web_page": [
+        ("wp_web_page_sk", "bigint", ("sk",)),
+        ("wp_web_page_id", "varchar(16)", ("id", "AAAAAAAA", "web_page")),
+        ("wp_rec_start_date", "date", ("cdate", "1997-09-03")),
+        ("wp_rec_end_date", "date", ("cdate", None)),
+        ("wp_creation_date_sk", "bigint", ("fkdate", F)),
+        ("wp_access_date_sk", "bigint", ("fkdate", F)),
+        ("wp_autogen_flag", "varchar(1)", ("v", YN)),
+        ("wp_customer_sk", "bigint", ("fk", "customer", 0.7)),
+        ("wp_url", "varchar(100)", ("v", WP_URLS)),
+        ("wp_type", "varchar(50)", ("vmod", WP_TYPES)),
+        ("wp_char_count", "integer", ("i", 100, 8001)),
+        ("wp_link_count", "integer", ("i", 2, 26)),
+        ("wp_image_count", "integer", ("i", 1, 8)),
+        ("wp_max_ad_count", "integer", ("i", 0, 5)),
+    ],
+    "inventory": [
+        ("inv_date_sk", "bigint", None),
+        ("inv_item_sk", "bigint", None),
+        ("inv_warehouse_sk", "bigint", None),
+        ("inv_quantity_on_hand", "integer", ("in", 0, 1001, 0.05)),
+    ],
+    "store_sales": [
+        ("ss_sold_date_sk", "bigint", ("fkdate", F)),
+        ("ss_sold_time_sk", "bigint", ("fktime", F)),
+        ("ss_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("ss_customer_sk", "bigint", ("fk", "customer", F)),
+        ("ss_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("ss_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("ss_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("ss_store_sk", "bigint", ("fk", "store", F)),
+        ("ss_promo_sk", "bigint", ("fk", "promotion", F)),
+        ("ss_ticket_number", "bigint", ("seq", 12)),
+        ("ss_quantity", "integer", None),
+        ("ss_wholesale_cost", "decimal(7,2)", None),
+        ("ss_list_price", "decimal(7,2)", None),
+        ("ss_sales_price", "decimal(7,2)", None),
+        ("ss_ext_discount_amt", "decimal(7,2)", None),
+        ("ss_ext_sales_price", "decimal(7,2)", None),
+        ("ss_ext_wholesale_cost", "decimal(7,2)", None),
+        ("ss_ext_list_price", "decimal(7,2)", None),
+        ("ss_ext_tax", "decimal(7,2)", None),
+        ("ss_coupon_amt", "decimal(7,2)", None),
+        ("ss_net_paid", "decimal(7,2)", None),
+        ("ss_net_paid_inc_tax", "decimal(7,2)", None),
+        ("ss_net_profit", "decimal(7,2)", None),
+    ],
+    "store_returns": [
+        ("sr_returned_date_sk", "bigint", ("fkdate", F)),
+        ("sr_return_time_sk", "bigint", ("fktime", F)),
+        ("sr_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("sr_customer_sk", "bigint", ("fk", "customer", F)),
+        ("sr_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("sr_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("sr_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("sr_store_sk", "bigint", ("fk", "store", F)),
+        ("sr_reason_sk", "bigint", ("fk", "reason", F)),
+        ("sr_ticket_number", "bigint", ("seq", 6)),
+        ("sr_return_quantity", "integer", None),
+        ("sr_return_amt", "decimal(7,2)", None),
+        ("sr_return_tax", "decimal(7,2)", None),
+        ("sr_return_amt_inc_tax", "decimal(7,2)", None),
+        ("sr_fee", "decimal(7,2)", None),
+        ("sr_return_ship_cost", "decimal(7,2)", None),
+        ("sr_refunded_cash", "decimal(7,2)", None),
+        ("sr_reversed_charge", "decimal(7,2)", None),
+        ("sr_store_credit", "decimal(7,2)", None),
+        ("sr_net_loss", "decimal(7,2)", None),
+    ],
+    "catalog_sales": [
+        ("cs_sold_date_sk", "bigint", ("fkdate", F)),
+        ("cs_sold_time_sk", "bigint", ("fktime", F)),
+        ("cs_ship_date_sk", "bigint", None),
+        ("cs_bill_customer_sk", "bigint", ("fk", "customer", F)),
+        ("cs_bill_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("cs_bill_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("cs_bill_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("cs_ship_customer_sk", "bigint", ("fk", "customer", F)),
+        ("cs_ship_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("cs_ship_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("cs_ship_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("cs_call_center_sk", "bigint", ("fk", "call_center", F)),
+        ("cs_catalog_page_sk", "bigint", ("fk", "catalog_page", F)),
+        ("cs_ship_mode_sk", "bigint", ("fk", "ship_mode", F)),
+        ("cs_warehouse_sk", "bigint", ("fk", "warehouse", F)),
+        ("cs_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("cs_promo_sk", "bigint", ("fk", "promotion", F)),
+        ("cs_order_number", "bigint", ("seq", 10)),
+        ("cs_quantity", "integer", None),
+        ("cs_wholesale_cost", "decimal(7,2)", None),
+        ("cs_list_price", "decimal(7,2)", None),
+        ("cs_sales_price", "decimal(7,2)", None),
+        ("cs_ext_discount_amt", "decimal(7,2)", None),
+        ("cs_ext_sales_price", "decimal(7,2)", None),
+        ("cs_ext_wholesale_cost", "decimal(7,2)", None),
+        ("cs_ext_list_price", "decimal(7,2)", None),
+        ("cs_ext_tax", "decimal(7,2)", None),
+        ("cs_coupon_amt", "decimal(7,2)", None),
+        ("cs_ext_ship_cost", "decimal(7,2)", None),
+        ("cs_net_paid", "decimal(7,2)", None),
+        ("cs_net_paid_inc_tax", "decimal(7,2)", None),
+        ("cs_net_paid_inc_ship", "decimal(7,2)", None),
+        ("cs_net_paid_inc_ship_tax", "decimal(7,2)", None),
+        ("cs_net_profit", "decimal(7,2)", None),
+    ],
+    "catalog_returns": [
+        ("cr_returned_date_sk", "bigint", ("fkdate", F)),
+        ("cr_returned_time_sk", "bigint", ("fktime", F)),
+        ("cr_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("cr_refunded_customer_sk", "bigint", ("fk", "customer", F)),
+        ("cr_refunded_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("cr_refunded_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("cr_refunded_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("cr_returning_customer_sk", "bigint", ("fk", "customer", F)),
+        ("cr_returning_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("cr_returning_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("cr_returning_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("cr_call_center_sk", "bigint", ("fk", "call_center", F)),
+        ("cr_catalog_page_sk", "bigint", ("fk", "catalog_page", F)),
+        ("cr_ship_mode_sk", "bigint", ("fk", "ship_mode", F)),
+        ("cr_warehouse_sk", "bigint", ("fk", "warehouse", F)),
+        ("cr_reason_sk", "bigint", ("fk", "reason", F)),
+        ("cr_order_number", "bigint", ("seq", 5)),
+        ("cr_return_quantity", "integer", None),
+        ("cr_return_amount", "decimal(7,2)", None),
+        ("cr_return_tax", "decimal(7,2)", None),
+        ("cr_return_amt_inc_tax", "decimal(7,2)", None),
+        ("cr_fee", "decimal(7,2)", None),
+        ("cr_return_ship_cost", "decimal(7,2)", None),
+        ("cr_refunded_cash", "decimal(7,2)", None),
+        ("cr_reversed_charge", "decimal(7,2)", None),
+        ("cr_store_credit", "decimal(7,2)", None),
+        ("cr_net_loss", "decimal(7,2)", None),
+    ],
+    "web_sales": [
+        ("ws_sold_date_sk", "bigint", ("fkdate", F)),
+        ("ws_sold_time_sk", "bigint", ("fktime", F)),
+        ("ws_ship_date_sk", "bigint", None),
+        ("ws_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("ws_bill_customer_sk", "bigint", ("fk", "customer", F)),
+        ("ws_bill_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("ws_bill_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("ws_bill_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("ws_ship_customer_sk", "bigint", ("fk", "customer", F)),
+        ("ws_ship_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("ws_ship_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("ws_ship_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("ws_web_page_sk", "bigint", ("fk", "web_page", F)),
+        ("ws_web_site_sk", "bigint", ("fk", "web_site", F)),
+        ("ws_ship_mode_sk", "bigint", ("fk", "ship_mode", F)),
+        ("ws_warehouse_sk", "bigint", ("fk", "warehouse", F)),
+        ("ws_promo_sk", "bigint", ("fk", "promotion", F)),
+        ("ws_order_number", "bigint", ("seq", 8)),
+        ("ws_quantity", "integer", None),
+        ("ws_wholesale_cost", "decimal(7,2)", None),
+        ("ws_list_price", "decimal(7,2)", None),
+        ("ws_sales_price", "decimal(7,2)", None),
+        ("ws_ext_discount_amt", "decimal(7,2)", None),
+        ("ws_ext_sales_price", "decimal(7,2)", None),
+        ("ws_ext_wholesale_cost", "decimal(7,2)", None),
+        ("ws_ext_list_price", "decimal(7,2)", None),
+        ("ws_ext_tax", "decimal(7,2)", None),
+        ("ws_coupon_amt", "decimal(7,2)", None),
+        ("ws_ext_ship_cost", "decimal(7,2)", None),
+        ("ws_net_paid", "decimal(7,2)", None),
+        ("ws_net_paid_inc_tax", "decimal(7,2)", None),
+        ("ws_net_paid_inc_ship", "decimal(7,2)", None),
+        ("ws_net_paid_inc_ship_tax", "decimal(7,2)", None),
+        ("ws_net_profit", "decimal(7,2)", None),
+    ],
+    "web_returns": [
+        ("wr_returned_date_sk", "bigint", ("fkdate", F)),
+        ("wr_returned_time_sk", "bigint", ("fktime", F)),
+        ("wr_item_sk", "bigint", ("fk", "item", 0.0)),
+        ("wr_refunded_customer_sk", "bigint", ("fk", "customer", F)),
+        ("wr_refunded_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("wr_refunded_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("wr_refunded_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("wr_returning_customer_sk", "bigint", ("fk", "customer", F)),
+        ("wr_returning_cdemo_sk", "bigint", ("fk", "customer_demographics", F)),
+        ("wr_returning_hdemo_sk", "bigint", ("fk", "household_demographics", F)),
+        ("wr_returning_addr_sk", "bigint", ("fk", "customer_address", F)),
+        ("wr_web_page_sk", "bigint", ("fk", "web_page", F)),
+        ("wr_reason_sk", "bigint", ("fk", "reason", F)),
+        ("wr_order_number", "bigint", ("seq", 4)),
+        ("wr_return_quantity", "integer", None),
+        ("wr_return_amt", "decimal(7,2)", None),
+        ("wr_return_tax", "decimal(7,2)", None),
+        ("wr_return_amt_inc_tax", "decimal(7,2)", None),
+        ("wr_fee", "decimal(7,2)", None),
+        ("wr_return_ship_cost", "decimal(7,2)", None),
+        ("wr_refunded_cash", "decimal(7,2)", None),
+        ("wr_reversed_charge", "decimal(7,2)", None),
+        ("wr_account_credit", "decimal(7,2)", None),
+        ("wr_net_loss", "decimal(7,2)", None),
+    ],
+}
+
+# SF1 row counts from the TPC-DS scaling table; FIXED tables never scale.
+_SF1_ROWS = {
+    "call_center": 6, "catalog_page": 11718, "catalog_returns": 144067,
+    "catalog_sales": 1441548, "customer": 100000, "customer_address": 50000,
+    "customer_demographics": 1920800, "date_dim": N_DATES,
+    "household_demographics": 7200, "income_band": 20, "inventory": 11745000,
+    "item": 18000, "promotion": 300, "reason": 35, "ship_mode": 20,
+    "store": 12, "store_returns": 287514, "store_sales": 2880404,
+    "time_dim": 86400, "warehouse": 5, "web_page": 60, "web_returns": 71763,
+    "web_sales": 719384, "web_site": 30,
+}
+_FIXED = {"date_dim", "time_dim", "customer_demographics",
+          "household_demographics", "income_band", "ship_mode", "reason"}
+_FACTS = {"store_sales", "store_returns", "catalog_sales", "catalog_returns",
+          "web_sales", "web_returns", "inventory"}
+
+
+def _row_count(table: str, scale: float) -> int:
+    base = _SF1_ROWS[table]
+    if table in _FIXED:
+        return base
+    if table in _FACTS:
+        return max(1000, int(base * scale))
+    if table in ("customer", "customer_address", "catalog_page"):
+        return max(100, int(base * scale))
+    # small dimensions scale sublinearly like dsdgen
+    scaled = base * (scale if scale <= 1 else scale**0.5)
+    return max(2 if base < 100 else 100, int(scaled))
+
+
+def _seed(table: str, scale: float, chunk: int) -> np.random.Generator:
+    key = f"tpcds:{table}:{round(scale * 1e6)}:{chunk}".encode()
+    return np.random.default_rng(
+        int.from_bytes(hashlib.blake2s(key, digest_size=8).digest(), "little")
+    )
+
+
+def _chunk_rows(total: int) -> int:
+    return int(min(max(total // 64, 64), 262_144))
+
+
+def _nullable(rng, arr: np.ndarray, p: float):
+    if p <= 0:
+        return arr
+    valid = rng.random(len(arr)) >= p
+    return (np.where(valid, arr, arr.dtype.type(0)), valid)
+
+
+def data_valid(v) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Uniform view of a generated column: (values, validity-or-None)."""
+    return v if isinstance(v, tuple) else (v, None)
+
+
+def _price_chain(rng, n: int, prefix: str) -> Dict[str, np.ndarray]:
+    """Consistent fact price columns (cents): wholesale -> list -> sales ->
+    ext_* -> tax/coupon -> net_paid -> net_profit, like dsdgen's mk_*_sales."""
+    qty = rng.integers(1, 101, n, dtype=np.int64)
+    wholesale = rng.integers(100, 10001, n, dtype=np.int64)
+    markup = rng.integers(100, 301, n, dtype=np.int64)  # 1.0x..3.0x of cost
+    list_price = wholesale * markup // 100
+    discount = rng.integers(0, 101, n, dtype=np.int64)  # percent sold at
+    sales_price = list_price * discount // 100
+    ext_sales = sales_price * qty
+    ext_list = list_price * qty
+    ext_wholesale = wholesale * qty
+    tax_pct = rng.integers(0, 10, n, dtype=np.int64)
+    coupon = np.where(rng.random(n) < 0.1, ext_sales // 2, 0).astype(np.int64)
+    net_paid = ext_sales - coupon
+    ext_tax = net_paid * tax_pct // 100
+    out = {
+        f"{prefix}_quantity": qty.astype(np.int32),
+        f"{prefix}_wholesale_cost": wholesale,
+        f"{prefix}_list_price": list_price,
+        f"{prefix}_sales_price": sales_price,
+        f"{prefix}_ext_discount_amt": ext_list - ext_sales,
+        f"{prefix}_ext_sales_price": ext_sales,
+        f"{prefix}_ext_wholesale_cost": ext_wholesale,
+        f"{prefix}_ext_list_price": ext_list,
+        f"{prefix}_ext_tax": ext_tax,
+        f"{prefix}_coupon_amt": coupon,
+        f"{prefix}_net_paid": net_paid,
+        f"{prefix}_net_paid_inc_tax": net_paid + ext_tax,
+        f"{prefix}_net_profit": net_paid - ext_wholesale,
+    }
+    if prefix in ("cs", "ws"):
+        ship = rng.integers(0, 5001, n, dtype=np.int64)
+        out[f"{prefix}_ext_ship_cost"] = ship
+        out[f"{prefix}_net_paid_inc_ship"] = net_paid + ship
+        out[f"{prefix}_net_paid_inc_ship_tax"] = net_paid + ship + ext_tax
+    return out
+
+
+def _returns_chain(rng, n: int, prefix: str, amount_col: str) -> Dict[str, np.ndarray]:
+    qty = rng.integers(1, 101, n, dtype=np.int64)
+    price = rng.integers(100, 10001, n, dtype=np.int64)
+    amt = qty * price
+    tax = amt * rng.integers(0, 10, n, dtype=np.int64) // 100
+    fee = rng.integers(50, 10001, n, dtype=np.int64)
+    ship = rng.integers(0, 5001, n, dtype=np.int64)
+    cash = amt * rng.integers(0, 101, n, dtype=np.int64) // 100
+    reversed_charge = (amt - cash) // 2
+    credit = amt - cash - reversed_charge
+    credit_col = {"sr": "sr_store_credit", "cr": "cr_store_credit",
+                  "wr": "wr_account_credit"}[prefix]
+    return {
+        f"{prefix}_return_quantity": qty.astype(np.int32),
+        amount_col: amt,
+        f"{prefix}_return_tax": tax,
+        f"{prefix}_return_amt_inc_tax": amt + tax,
+        f"{prefix}_fee": fee,
+        f"{prefix}_return_ship_cost": ship,
+        f"{prefix}_refunded_cash": cash,
+        f"{prefix}_reversed_charge": reversed_charge,
+        credit_col: credit,
+        f"{prefix}_net_loss": amt + tax + fee + ship - cash,
+    }
+
+
+def _gen_chunk(table: str, scale: float, start: int, stop: int, rng):
+    """One canonical chunk of rows [start, stop) as {col: array | (array, valid)}."""
+    keys = np.arange(start + 1, stop + 1, dtype=np.int64)
+    n = len(keys)
+    out: Dict[str, object] = {}
+
+    if table == "date_dim":
+        day_idx = keys - 1  # days since DATE_START
+        dates = np.array((DATE_START - EPOCH).days + day_idx, dtype=np.int32)
+        base = np.datetime64(DATE_START, "D") + day_idx
+        years = base.astype("datetime64[Y]").astype(int) + 1970
+        months0 = base.astype("datetime64[M]").astype(int)
+        moy = months0 % 12 + 1
+        dom = (base - base.astype("datetime64[M]")).astype(int) + 1
+        # DATE_START is a Tuesday; dsdgen d_dow: 0 = Monday
+        dow = (day_idx + 1) % 7
+        qoy = (moy - 1) // 3 + 1
+        month_seq = (years - 1900) * 12 + moy - 1
+        week_seq = (day_idx + 1) // 7 + 1
+        quarter_seq = (years - 1900) * 4 + qoy - 1
+        first_dom = JULIAN_BASE + (
+            base.astype("datetime64[M]").astype("datetime64[D]")
+            - np.datetime64(DATE_START, "D")
+        ).astype(int)
+        last_dom = JULIAN_BASE + (
+            (base.astype("datetime64[M]") + 1).astype("datetime64[D]")
+            - np.datetime64(DATE_START, "D")
+        ).astype(int) - 1
+        day_code = {d: i for i, d in enumerate(DAY_NAMES)}
+        names = np.array(
+            [day_code[d] for d in
+             ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday", "Sunday"]],
+            dtype=np.int32,
+        )
+        qname_code = {q: i for i, q in enumerate(QUARTER_NAMES)}
+        qnames = np.array(
+            [qname_code[f"{y}Q{q}"] for y, q in zip(years, qoy)], dtype=np.int32
+        )
+        holiday = np.isin(moy * 100 + dom, [101, 704, 1125, 1225, 1231])
+        # previous calendar day's flag, computed from the date itself (an
+        # np.roll within the chunk would wrap at chunk boundaries)
+        prev = base - 1
+        pmoy = prev.astype("datetime64[M]").astype(int) % 12 + 1
+        pdom = (prev - prev.astype("datetime64[M]")).astype(int) + 1
+        following = np.isin(pmoy * 100 + pdom, [101, 704, 1125, 1225, 1231])
+        weekend = dow >= 5
+        out = {
+            "d_date_sk": JULIAN_BASE + day_idx,
+            "d_date_id": (keys - 1).astype(np.int32),
+            "d_date": dates,
+            "d_month_seq": month_seq.astype(np.int32),
+            "d_week_seq": week_seq.astype(np.int32),
+            "d_quarter_seq": quarter_seq.astype(np.int32),
+            "d_year": years.astype(np.int32),
+            "d_dow": dow.astype(np.int32),
+            "d_moy": moy.astype(np.int32),
+            "d_dom": dom.astype(np.int32),
+            "d_qoy": qoy.astype(np.int32),
+            "d_fy_year": years.astype(np.int32),
+            "d_fy_quarter_seq": quarter_seq.astype(np.int32),
+            "d_fy_week_seq": week_seq.astype(np.int32),
+            "d_day_name": names[dow],
+            "d_quarter_name": qnames,
+            "d_holiday": holiday.astype(np.int32),
+            "d_weekend": weekend.astype(np.int32),
+            "d_following_holiday": following.astype(np.int32),
+            "d_first_dom": first_dom,
+            "d_last_dom": last_dom,
+            "d_same_day_ly": JULIAN_BASE + np.maximum(day_idx - 365, 0),
+            "d_same_day_lq": JULIAN_BASE + np.maximum(day_idx - 91, 0),
+            "d_current_day": np.zeros(n, dtype=np.int32),  # code of "N"
+            "d_current_week": np.zeros(n, dtype=np.int32),
+            "d_current_month": np.zeros(n, dtype=np.int32),
+            "d_current_quarter": np.zeros(n, dtype=np.int32),
+            "d_current_year": np.zeros(n, dtype=np.int32),
+        }
+        return out
+
+    if table == "time_dim":
+        secs = keys - 1
+        hour = secs // 3600
+        minute = (secs % 3600) // 60
+        shift_code = {s: i for i, s in enumerate(SHIFTS)}
+        sub_code = {s: i for i, s in enumerate(SUB_SHIFTS)}
+        meal_code = {s: i for i, s in enumerate(MEALS)}
+        shifts = np.where(hour < 8, shift_code["third"],
+                          np.where(hour < 16, shift_code["first"], shift_code["second"]))
+        subs = np.where(hour < 6, sub_code["night"],
+                        np.where(hour < 12, sub_code["morning"],
+                                 np.where(hour < 18, sub_code["afternoon"],
+                                          sub_code["evening"])))
+        meals = np.where((hour >= 6) & (hour < 9), meal_code["breakfast"],
+                         np.where((hour >= 11) & (hour < 14), meal_code["lunch"],
+                                  np.where((hour >= 17) & (hour < 20),
+                                           meal_code["dinner"], meal_code[""])))
+        return {
+            "t_time_sk": secs,
+            "t_time_id": (keys - 1).astype(np.int32),
+            "t_time": secs.astype(np.int32),
+            "t_hour": hour.astype(np.int32),
+            "t_minute": minute.astype(np.int32),
+            "t_second": (secs % 60).astype(np.int32),
+            "t_am_pm": (hour >= 12).astype(np.int32),
+            "t_shift": shifts.astype(np.int32),
+            "t_sub_shift": subs.astype(np.int32),
+            "t_meal_time": meals.astype(np.int32),
+        }
+
+    if table == "customer_demographics":
+        # dsdgen: cd is the cross product of the demographic domains
+        idx = keys - 1
+        return {
+            "cd_demo_sk": keys,
+            "cd_gender": (idx % 2).astype(np.int32),
+            "cd_marital_status": (idx // 2 % 5).astype(np.int32),
+            "cd_education_status": (idx // 10 % 7).astype(np.int32),
+            "cd_purchase_estimate": ((idx // 70 % 20 + 1) * 500).astype(np.int32),
+            "cd_credit_rating": (idx // 1400 % 4).astype(np.int32),
+            "cd_dep_count": (idx // 5600 % 7).astype(np.int32),
+            "cd_dep_employed_count": (idx // 39200 % 7).astype(np.int32),
+            "cd_dep_college_count": (idx // 274400 % 7).astype(np.int32),
+        }
+
+    if table == "household_demographics":
+        idx = keys - 1
+        return {
+            "hd_demo_sk": keys,
+            "hd_income_band_sk": (idx % 20 + 1).astype(np.int64),
+            "hd_buy_potential": (idx // 20 % 6).astype(np.int32),
+            "hd_dep_count": (idx // 120 % 10).astype(np.int32),
+            "hd_vehicle_count": (idx // 1200 % 6).astype(np.int32),
+        }
+
+    if table == "income_band":
+        return {
+            "ib_income_band_sk": keys,
+            "ib_lower_bound": ((keys - 1) * 10000).astype(np.int32),
+            "ib_upper_bound": (keys * 10000).astype(np.int32),
+        }
+
+    if table == "inventory":
+        # weekly snapshots: date x item x warehouse in row-major order
+        n_items = _row_count("item", scale)
+        n_wh = _row_count("warehouse", scale)
+        idx = keys - 1
+        week = idx // (n_items * n_wh)
+        rest = idx % (n_items * n_wh)
+        out["inv_date_sk"] = SALES_LO + (week * 7)
+        out["inv_item_sk"] = rest // n_wh + 1
+        out["inv_warehouse_sk"] = rest % n_wh + 1
+
+    if table == "item":
+        brand_id = rng.integers(1, N_BRANDS + 1, n, dtype=np.int64)
+        class_id = rng.integers(1, len(CLASSES) + 1, n, dtype=np.int32)
+        category_id = rng.integers(1, len(CATEGORIES) + 1, n, dtype=np.int32)
+        manufact_id = rng.integers(1, 1001, n, dtype=np.int64)
+        out["i_brand_id"] = brand_id.astype(np.int32)
+        out["i_brand"] = _BRAND_CODE[brand_id]
+        out["i_class_id"] = class_id
+        out["i_class"] = (class_id - 1).astype(np.int32)  # CLASSES sorted
+        out["i_category_id"] = category_id
+        out["i_category"] = (category_id - 1).astype(np.int32)
+        out["i_manufact_id"] = manufact_id.astype(np.int32)
+        out["i_manufact"] = _MANUFACT_CODE[manufact_id]
+
+    if table in ("customer_address", "store", "warehouse", "call_center", "web_site"):
+        col = {"customer_address": "ca", "store": "s", "warehouse": "w",
+               "call_center": "cc", "web_site": "web"}[table]
+        out[f"{col}_gmt_offset"] = rng.choice(
+            np.array([-1000, -900, -800, -700, -600, -500], dtype=np.int64), n
+        )
+
+    if table == "store_sales":
+        out.update(_price_chain(rng, n, "ss"))
+    if table == "catalog_sales":
+        out.update(_price_chain(rng, n, "cs"))
+        sold = rng.integers(SALES_LO, SALES_HI + 1, n, dtype=np.int64)
+        out["cs_sold_date_sk"] = _nullable(rng, sold, F)
+        out["cs_ship_date_sk"] = _nullable(rng, sold + rng.integers(1, 121, n), F)
+    if table == "web_sales":
+        out.update(_price_chain(rng, n, "ws"))
+        sold = rng.integers(SALES_LO, SALES_HI + 1, n, dtype=np.int64)
+        out["ws_sold_date_sk"] = _nullable(rng, sold, F)
+        out["ws_ship_date_sk"] = _nullable(rng, sold + rng.integers(1, 121, n), F)
+    if table == "store_returns":
+        out.update(_returns_chain(rng, n, "sr", "sr_return_amt"))
+    if table == "catalog_returns":
+        out.update(_returns_chain(rng, n, "cr", "cr_return_amount"))
+    if table == "web_returns":
+        out.update(_returns_chain(rng, n, "wr", "wr_return_amt"))
+
+    for cname, _tname, gen in _TABLES[table]:
+        if cname in out or gen is None:
+            continue
+        kind = gen[0]
+        if kind == "sk":
+            out[cname] = keys
+        elif kind == "id":
+            out[cname] = (keys - 1).astype(np.int32)
+        elif kind == "v":
+            out[cname] = rng.integers(0, len(gen[1]), n, dtype=np.int32)
+        elif kind == "vn":
+            out[cname] = _nullable(
+                rng, rng.integers(0, len(gen[1]), n, dtype=np.int32), gen[2]
+            )
+        elif kind == "vmod":
+            out[cname] = ((keys - 1) % len(gen[1])).astype(np.int32)
+        elif kind == "i":
+            out[cname] = rng.integers(gen[1], gen[2], n, dtype=np.int32)
+        elif kind == "in":
+            out[cname] = _nullable(
+                rng, rng.integers(gen[1], gen[2], n, dtype=np.int32), gen[3]
+            )
+        elif kind == "d":
+            out[cname] = rng.integers(gen[1], gen[2], n, dtype=np.int64)
+        elif kind == "fk":
+            hi = _row_count(gen[1], scale) + 1
+            out[cname] = _nullable(rng, rng.integers(1, hi, n, dtype=np.int64), gen[2])
+        elif kind == "fkdate":
+            out[cname] = _nullable(
+                rng, rng.integers(SALES_LO, SALES_HI + 1, n, dtype=np.int64), gen[1]
+            )
+        elif kind == "fktime":
+            out[cname] = _nullable(rng, rng.integers(0, 86400, n, dtype=np.int64), gen[1])
+        elif kind == "seq":
+            out[cname] = (keys - 1) // gen[1] + 1
+        elif kind == "cdate":
+            if gen[1] is None:
+                out[cname] = _nullable(rng, np.zeros(n, dtype=np.int32), 1.0)
+            else:
+                d = (datetime.date.fromisoformat(gen[1]) - EPOCH).days
+                out[cname] = np.full(n, d, dtype=np.int32)
+        else:
+            raise KeyError((table, cname, gen))
+    return out
+
+
+def generate_split(table: str, scale: float, split: int, total_splits: int):
+    n = _row_count(table, scale)
+    chunk = _chunk_rows(n)
+    n_chunks = (n + chunk - 1) // chunk
+    first = (n_chunks * split) // total_splits
+    end = (n_chunks * (split + 1)) // total_splits
+    pieces = []
+    for c in range(first, end):
+        start, stop = c * chunk, min((c + 1) * chunk, n)
+        pieces.append(_gen_chunk(table, scale, start, stop, _seed(table, scale, c)))
+    if not pieces:
+        ref = _gen_chunk(table, scale, 0, 1, _seed(table, scale, 0))
+        empty = {
+            k: np.zeros(0, dtype=data_valid(v)[0].dtype) for k, v in ref.items()
+        }
+        return empty, 0
+
+    def cat(col):
+        vals = [data_valid(p[col]) for p in pieces]
+        if vals[0][1] is not None:
+            return (
+                np.concatenate([a for a, _ in vals]),
+                np.concatenate([v for _, v in vals]),
+            )
+        return np.concatenate([a for a, _ in vals])
+
+    out = {k: cat(k) for k in pieces[0]}
+    first_col = next(iter(pieces[0]))
+    count = sum(len(data_valid(p[first_col])[0]) for p in pieces)
+    return out, count
+
+
+_BRAND_CODE = np.zeros(N_BRANDS + 1, dtype=np.int32)
+for _i in range(1, N_BRANDS + 1):
+    _BRAND_CODE[_i] = BRANDS.index(f"Brand #{_i}")
+_MANUFACT_CODE = np.zeros(1001, dtype=np.int32)
+for _i in range(1, 1001):
+    _MANUFACT_CODE[_i] = MANUFACTS.index(f"manufact{_i:04d}")
+
+
+class TpcdsConnector(Connector):
+    """ref: plugin/trino-tpcds TpcdsConnectorFactory.java — full 24-table
+    schema, on-the-fly deterministic generation."""
+
+    name = "tpcds"
+
+    def __init__(self, scale: Optional[float] = None, split_target_rows: int = 1 << 20,
+                 device=None):
+        """``device``: where pages are built (default ``cuda``; see
+        ``device.resolve_device``)."""
+        self.device = resolve_device(device)
+        self.default_scale = scale
+        self.split_target_rows = split_target_rows
+        self._dictionaries: Dict[tuple, Optional[Dictionary]] = {}
+        self._meta = _Meta(self)
+        self._splits = _Splits(self)
+        self._pages = _Pages(self)
+
+    def metadata(self):
+        return self._meta
+
+    def cache_table_version(self, schema: str, table: str):
+        """Warm-path cache plane hook (runtime/cachestore.py): generated
+        data is deterministic per RESOLVED scale, carried in the token so
+        non-scale-encoded schema names at different default scales never
+        alias; unresolvable -> None (TTL-or-bypass)."""
+        s = None
+        if schema.startswith("sf"):
+            try:
+                s = float(schema[2:].replace("_", "."))
+            except ValueError:
+                s = None
+        if s is None:
+            s = self.default_scale
+        if s is None:
+            return None
+        return f"static-{schema}-sf{s:g}"
+
+    def split_manager(self):
+        return self._splits
+
+    def page_source_provider(self):
+        return self._pages
+
+    def scale_of(self, handle: TableHandle) -> float:
+        schema = handle.schema_table.schema
+        if schema.startswith("sf"):
+            try:
+                return float(schema[2:].replace("_", "."))
+            except ValueError:
+                pass
+        if self.default_scale is not None:
+            return self.default_scale
+        raise ValueError(f"unknown tpcds schema: {schema}")
+
+    def dictionary(self, table: str, column: str, scale: float) -> Optional[Dictionary]:
+        key = (table, column, round(scale * 1e6))
+        if key not in self._dictionaries:
+            spec = next(c for c in _TABLES[table] if c[0] == column)
+            gen = spec[2]
+            vocab = None
+            if gen is not None and gen[0] in ("v", "vn", "vmod"):
+                vocab = gen[1]
+            elif gen is not None and gen[0] == "id":
+                prefix, base = gen[1], gen[2]
+                vocab = tuple(
+                    f"{prefix}{i:012d}" for i in range(1, _row_count(base, scale) + 1)
+                )
+            elif column in _COMPUTED_VOCABS:
+                vocab = _COMPUTED_VOCABS[column]
+            # setdefault: concurrent page-source threads racing a cold key
+            # must share ONE identity-hashed Dictionary (see tpch connector)
+            self._dictionaries.setdefault(
+                key,
+                Dictionary(np.asarray(list(vocab), dtype=object)) if vocab else None,
+            )
+        return self._dictionaries[key]
+
+    def split_count(self, table: str, scale: float) -> int:
+        n = _row_count(table, scale)
+        wanted = max(1, math.ceil(n / self.split_target_rows))
+        n_chunks = (n + _chunk_rows(n) - 1) // _chunk_rows(n)
+        return min(wanted, n_chunks)
+
+
+# string columns whose vocabulary is implied by a computed generator
+_COMPUTED_VOCABS: Dict[str, tuple] = {
+    "d_date_id": None,  # filled below (per-row ids over fixed N_DATES)
+    "d_day_name": tuple(DAY_NAMES),
+    "d_quarter_name": tuple(QUARTER_NAMES),
+    "d_holiday": YN, "d_weekend": YN, "d_following_holiday": YN,
+    "d_current_day": YN, "d_current_week": YN, "d_current_month": YN,
+    "d_current_quarter": YN, "d_current_year": YN,
+    "t_time_id": None,
+    "t_am_pm": AMPM, "t_shift": tuple(SHIFTS), "t_sub_shift": tuple(SUB_SHIFTS),
+    "t_meal_time": tuple(MEALS),
+    "i_brand": tuple(BRANDS), "i_class": tuple(CLASSES),
+    "i_category": tuple(CATEGORIES), "i_manufact": tuple(MANUFACTS),
+    "cd_gender": GENDERS, "cd_marital_status": tuple(MARITAL),
+    "cd_education_status": tuple(EDUCATION), "cd_credit_rating": tuple(CREDIT_RATING),
+    "hd_buy_potential": tuple(BUY_POTENTIAL),
+}
+_COMPUTED_VOCABS["d_date_id"] = tuple(f"DATE{i:012d}" for i in range(1, N_DATES + 1))
+_COMPUTED_VOCABS["t_time_id"] = tuple(f"TIME{i:012d}" for i in range(1, 86401))
+
+
+class _Meta(ConnectorMetadata):
+    def __init__(self, connector):
+        self.connector = connector
+
+    def list_schemas(self):
+        return ["sf0_001", "sf0_01", "sf1"]
+
+    def list_tables(self, schema=None):
+        schemas = [schema] if schema else self.list_schemas()
+        return [SchemaTableName(s, t) for s in schemas for t in sorted(_TABLES)]
+
+    def get_table_metadata(self, name: SchemaTableName):
+        if name.table not in _TABLES:
+            return None
+        cols = tuple(
+            ColumnMetadata(c[0], parse_type(c[1])) for c in _TABLES[name.table]
+        )
+        return TableMetadata(name, cols)
+
+    def get_table_statistics(self, handle: TableHandle) -> TableStatistics:
+        scale = self.connector.scale_of(handle)
+        return TableStatistics(row_count=float(_row_count(handle.schema_table.table, scale)))
+
+    def apply_filter(self, handle, domain):
+        return TableHandle(handle.catalog, handle.schema_table, connector_handle=domain)
+
+
+class _Splits(ConnectorSplitManager):
+    def __init__(self, connector):
+        self.connector = connector
+
+    def get_splits(self, handle, desired_splits: int = 1):
+        scale = self.connector.scale_of(handle)
+        total = self.connector.split_count(handle.schema_table.table, scale)
+        return [Split(handle, i, total) for i in range(total)]
+
+
+class _Pages(ConnectorPageSourceProvider):
+    def __init__(self, connector):
+        self.connector = connector
+
+    def create_page_source(self, split: Split, column_indexes: Sequence[int],
+                           device=None) -> Page:
+        """The split's rows on ``device`` (None: the connector's device;
+        the out-of-core tier asks for the CPU and stages the page itself)."""
+        device = self.connector.device if device is None else device
+        handle = split.table
+        scale = self.connector.scale_of(handle)
+        table = handle.schema_table.table
+        data, count = generate_split(table, scale, split.split_id, split.total_splits)
+        n = _row_count(table, scale)
+        total = split.total_splits
+        chunk = _chunk_rows(n)
+        n_chunks = (n + chunk - 1) // chunk
+        max_rows = 1
+        for s in range(total):
+            first = (n_chunks * s) // total
+            end = (n_chunks * (s + 1)) // total
+            max_rows = max(max_rows, min(end * chunk, n) - first * chunk)
+        cap = 64
+        while cap < max_rows and cap < (1 << 20):
+            cap *= 2
+        if cap < max_rows:
+            cap = math.ceil(max_rows / (1 << 20)) << 20
+        schema = _TABLES[table]
+        cols = []
+        for idx in column_indexes:
+            cname, tname, _ = schema[idx]
+            type_ = parse_type(tname)
+            arr, valid = data_valid(data[cname])
+            cols.append(
+                Column.from_numpy(
+                    type_, arr, valid, cap,
+                    self.connector.dictionary(table, cname, scale), device,
+                )
+            )
+        active = np.zeros(cap, dtype=np.bool_)
+        active[:count] = True
+        return Page(tuple(cols), torch.from_numpy(active).to(device))

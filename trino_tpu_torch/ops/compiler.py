@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..spi.page import Dictionary
+from . import int128 as i128
 from ..spi.types import (
     BOOLEAN,
     DATE,
@@ -147,6 +148,22 @@ _ARITH = {
     "$multiply": lambda a, b, o: a * b,
     "$divide": _divide,
     "$modulus": _modulus,
+}
+
+
+def _to_f64(x: torch.Tensor, t: Type) -> torch.Tensor:
+    """A numeric argument as DOUBLE (a decimal divided by its scale)."""
+    x = x.to(torch.float64)
+    return x / float(10**t.scale) if isinstance(t, DecimalType) else x
+
+
+# name -> torch function of DOUBLE arguments (the reference's math table,
+# operator/scalar/MathFunctions.java, for the functions the port lowers)
+_FLOAT_FUNCS = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log, "log2": torch.log2,
+    "log10": torch.log10, "power": torch.pow, "pow": torch.pow, "sin": torch.sin,
+    "cos": torch.cos, "tan": torch.tan, "asin": torch.asin, "acos": torch.acos,
+    "atan": torch.atan, "atan2": torch.atan2,
 }
 
 
@@ -289,7 +306,17 @@ class _Compiler:
                     )
 
                 return sconst_fn, d
-            if is_long_decimal(type_) or type_.storage_lanes is not None:
+            if is_long_decimal(type_):
+                limbs = torch.as_tensor(
+                    i128.np_from_ints([int(value) if value is not None else 0])[0],
+                    device=self.device,
+                )
+
+                def lconst_fn(env: Env, limbs=limbs, ok=value is not None) -> CVal:
+                    return CVal(limbs.repeat(self.capacity, 1), self._full(ok, torch.bool))
+
+                return lconst_fn, None
+            if type_.storage_lanes is not None:
                 raise CompileError(f"constant of type {type_.display()} not supported")
             dt = type_.torch_dtype
 
@@ -339,7 +366,7 @@ class _Compiler:
 
             return null_fn, None
         if is_long_decimal(src) or is_long_decimal(dst):
-            raise CompileError(f"cast {src.display()} -> {dst.display()} not supported")
+            return self._compile_long_cast(inner, src, dst), None
         src_int = is_integral(src) or src == BOOLEAN
         dst_int = is_integral(dst)
         out_dt = dst.torch_dtype
@@ -408,6 +435,105 @@ class _Compiler:
 
             return bool_fn, None
         raise CompileError(f"unsupported cast {src.display()} -> {dst.display()}")
+
+    def _compile_long_cast(self, inner: Compiled, src: Type, dst: Type) -> Compiled:
+        """Casts to and from DECIMAL(p>18), the reference's: rescales round
+        half up; long to short or integral marks an out-of-range row NULL."""
+        out_dt = dst.torch_dtype
+
+        def convert(v: CVal) -> CVal:
+            data = v.data
+            if isinstance(src, DecimalType) and isinstance(dst, DecimalType):
+                x = data if is_long_decimal(src) else i128.from_int64(data)
+                diff = dst.scale - src.scale
+                if diff > 0:
+                    x = i128.scale_up_pow10(x, diff)
+                elif diff < 0:
+                    x = i128.div_round_pow10(x, -diff)
+                if is_long_decimal(dst):
+                    return CVal(x, v.valid)
+                return CVal(i128.lo(x), v.valid & i128.fits_int64(x))
+            if is_long_decimal(dst) and (is_integral(src) or src == BOOLEAN):
+                return CVal(i128.scale_up_pow10(i128.from_int64(data), dst.scale), v.valid)
+            if is_long_decimal(src) and is_floating(dst):
+                return CVal((i128.to_float64(data) / float(10**src.scale)).to(out_dt), v.valid)
+            if is_long_decimal(src) and is_integral(dst):
+                x = i128.div_round_pow10(data, src.scale)
+                return CVal(i128.lo(x).to(out_dt), v.valid & i128.fits_int64(x))
+            raise CompileError(f"cast {src.display()} -> {dst.display()} not supported")
+
+        return lambda env: convert(inner(env))
+
+    def _compile_long_call(self, expr: Call, arg_fns) -> Compiled:
+        """Comparisons, ``+ - *`` and negation where an operand or the
+        result is DECIMAL(p>18): limb arithmetic (``ops/int128.py``); a
+        short operand is sign-extended (the planner gives both the same
+        scale)."""
+        name = expr.name
+        longs = [is_long_decimal(a.type) for a in expr.args]
+
+        def widen(v: CVal, is_long: bool) -> torch.Tensor:
+            return v.data if is_long else i128.from_int64(v.data)
+
+        if name == "$negate":
+
+            def negate_fn(env: Env) -> CVal:
+                v = arg_fns[0](env)
+                return CVal(i128.negate(widen(v, longs[0])), v.valid)
+
+            return negate_fn
+        ops = {
+            "$eq": i128.eq, "$ne": lambda a, b: ~i128.eq(a, b), "$lt": i128.lt,
+            "$lte": i128.lte, "$gt": lambda a, b: i128.lt(b, a),
+            "$gte": lambda a, b: i128.lte(b, a), "$add": i128.add,
+            "$subtract": i128.sub, "$multiply": i128.mul,
+        }
+        if name not in ops:
+            raise CompileError(f"{name} on DECIMAL(p>18) not supported")
+        op = ops[name]
+
+        def long_fn(env: Env) -> CVal:
+            a, b = arg_fns[0](env), arg_fns[1](env)
+            return CVal(op(widen(a, longs[0]), widen(b, longs[1])), a.valid & b.valid)
+
+        return long_fn
+
+    def _compile_limb_call(self, expr: Call, arg_fns) -> Compiled:
+        """The long-decimal aggregation's decomposition
+        (``rules.decompose_long_decimal_aggregates``): ``$dec_limb`` splits a
+        value into four 32-bit limbs (the top one signed), whose int64 sums
+        ``$i128_recombine`` adds back (``$i128_avg`` then divides by the
+        count, round half up)."""
+        if expr.name == "$dec_limb":
+            idx, long_arg = expr.args[1].value, is_long_decimal(expr.args[0].type)
+
+            def limb_fn(env: Env) -> CVal:
+                v = arg_fns[0](env)
+                x = v.data if long_arg else i128.from_int64(v.data)
+                h, l = i128.hi(x), i128.lo(x)
+                out = (l & 0xFFFFFFFF, (l >> 32) & 0xFFFFFFFF, h & 0xFFFFFFFF, h >> 32)[idx]
+                return CVal(out, v.valid)
+
+            return limb_fn
+        avg = expr.name == "$i128_avg"
+
+        def recombine_fn(env: Env) -> CVal:
+            vs = [f(env) for f in arg_fns]
+            acc = i128.from_int64(vs[0].data)
+            valid = vs[0].valid
+            for i in range(1, 4):
+                term = i128.from_int64(vs[i].data)
+                for _ in range(i):
+                    term = i128.mul_int64(term, 1 << 32)
+                acc = i128.add(acc, term)
+                valid = valid & vs[i].valid
+            if avg:
+                cnt = vs[4]
+                acc = i128.div_int(acc, cnt.data.clamp(min=1))
+                valid = valid & cnt.valid & (cnt.data > 0)
+            return CVal(acc, valid)
+
+        return recombine_fn
 
     # ------------------------------------------------------------------ calls
 
@@ -533,8 +659,10 @@ class _Compiler:
         if name == "$avg_combine":
             return self._compile_avg_combine(expr, arg_fns), None
 
+        if name in ("$dec_limb", "$i128_recombine", "$i128_avg"):
+            return self._compile_limb_call(expr, arg_fns), None
         if any(is_long_decimal(a.type) for a in expr.args) or is_long_decimal(expr.type):
-            raise CompileError(f"{name} on DECIMAL(p>18) not supported")
+            return self._compile_long_call(expr, arg_fns), None
         out_type = expr.type
         if name in _COMPARE:
             op = _COMPARE[name]
@@ -543,6 +671,9 @@ class _Compiler:
             op = lambda a, b: arith(a, b, out_type)  # noqa: E731
         elif name == "$negate" and is_numeric(out_type):
             op = torch.neg
+        elif name in _FLOAT_FUNCS and all(is_numeric(a.type) for a in expr.args):
+            fn, arg_types = _FLOAT_FUNCS[name], [a.type for a in expr.args]
+            op = lambda *d: fn(*(_to_f64(x, t) for x, t in zip(d, arg_types)))  # noqa: E731
         elif name == "year" and _has_days(expr.args[0].type):
             arg_type = expr.args[0].type
             op = lambda d: _civil_from_days(_days_of(d, arg_type))[0]  # noqa: E731

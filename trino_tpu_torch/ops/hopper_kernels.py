@@ -780,8 +780,8 @@ class _PermGatherSet(ctypes.Structure):
 
 def _check_page_cols(name: str, cols, n: int, dev) -> None:
     """(data, valid) columns of n rows on ``dev``: 1-D data of 1 to 8 byte
-    elements (2-D int128 limbs are not stored by the port yet) and bool
-    validity, both contiguous."""
+    elements (a caller passes a long decimal's two int64 limbs as two
+    columns) and bool validity, both contiguous."""
     for d, v in cols:
         if d.ndim != 1:
             raise ValueError(f"{name}: {d.ndim}-D (int128) columns are not supported")

@@ -51,12 +51,16 @@ def encode_sort_columns(
     data: torch.Tensor, valid: torch.Tensor, ascending: bool = True,
     nulls_first: bool = False,
 ) -> List[torch.Tensor]:
-    """Sort keys for one column, most significant first (one key for the
-    scalar layouts this slice carries)."""
+    """Sort keys for one column, most significant first: one key, or two for
+    a long decimal's limbs (signed hi, then lo in unsigned order)."""
     if data.ndim == 2:
-        from .._unported import unported
+        from . import int128 as i128
 
-        unported("ops.int128 (long decimal sort keys)")
+        h, l = i128.order_key_pair(data)
+        if not ascending:
+            h, l = ~h, ~l
+        sentinel = INT64_MIN if nulls_first else INT64_MAX
+        return [torch.where(valid, h, sentinel), torch.where(valid, l, sentinel)]
     return [encode_sort_column(data, valid, ascending, nulls_first)]
 
 

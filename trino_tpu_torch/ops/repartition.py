@@ -27,6 +27,7 @@ import torch
 
 from .. import knobs
 from ..spi.page import Column, Page
+from .._unported import unported
 from . import kernels as K
 
 DEVICE_REPARTITION_ENV = "TRINO_TPU_DEVICE_REPARTITION"
@@ -160,10 +161,13 @@ def repartition_frames(page: Page, key_idx: Sequence[int], n_parts: int, pool=No
     from ..runtime.serde import serialize_page_partitions, serialize_page_slices
 
     key_idx = tuple(key_idx)
-    if page.device.type == "cuda":
-        if not device_repartition_enabled():
-            raise RuntimeError(f"{DEVICE_REPARTITION_ENV}=0, but a CUDA page has no other "
-                               "repartition formulation than the partition_epilogue kernel")
+    on_card = page.device.type == "cuda"
+    if on_card and not device_repartition_enabled():
+        raise RuntimeError(f"{DEVICE_REPARTITION_ENV}=0, but a CUDA page has no other "
+                           "repartition formulation than the partition_epilogue kernel")
+    if any(c.data.ndim == 2 for c in page.columns):
+        unported("ops.int128 (multi-lane storage)")  # no frame format for limbs yet
+    if on_card:
         cols, offsets, counts = repartition_to_host(page, key_idx, n_parts)
         return serialize_page_slices(cols, offsets, counts, compress=compress, pool=pool), counts
     dest = _partition_dest(n_parts, key_idx, page).numpy()

@@ -1,10 +1,12 @@
 """Plan executor: evaluates optimized plans as torch operators.
 
 The port's counterpart of ``trino_tpu.runtime.executor`` for the nodes the
-port runs: TableScan, Filter, Project, Join (INNER and LEFT equi-joins,
-RIGHT by swapping sides, and CROSS joins), SemiJoin (with the null-aware
-three-valued IN), Aggregation (direct-indexed, sort-path and keyless
-global, and one DISTINCT column), Sort, TopN, Limit and Output. Every other
+port runs: TableScan, Values, Filter, Project, Join (INNER, LEFT and FULL
+equi-joins with non-equi residuals, RIGHT by swapping sides, and CROSS
+joins), SemiJoin (with the null-aware three-valued IN), Aggregation
+(direct-indexed, sort-path and keyless global, and one DISTINCT column),
+Window (``runtime/window.py``), Union, EnforceSingleRow, Exchange (a
+pass-through in one process), Sort, TopN, Limit and Output. Every other
 node raises ``NotImplementedError`` naming it. Each operator is a
 whole-relation transform Page -> Page with the reference's pad-and-mask
 semantics: filters AND into ``active``, and only pipeline breakers compact.
@@ -56,6 +58,7 @@ from ..spi.types import (
     BOOLEAN,
     DecimalType,
     Type,
+    VectorType,
     is_floating,
     is_string,
 )
@@ -66,6 +69,8 @@ from ..planner.plan import (
     Aggregation,
     AggregationNode,
     AggregationStep,
+    EnforceSingleRowNode,
+    ExchangeNode,
     FilterNode,
     JoinKind,
     JoinNode,
@@ -78,7 +83,11 @@ from ..planner.plan import (
     SortNode,
     TableScanNode,
     TopNNode,
+    UnionNode,
+    ValuesNode,
+    WindowNode,
 )
+from ..device import resolve_device
 from .memory import page_bytes
 
 
@@ -126,6 +135,14 @@ class PlanExecutor:
         self.types = plan.types
         self.spill_count = 0
         self.spilled_bytes = 0
+
+    @property
+    def device(self) -> torch.device:
+        """Where pages that no connector makes (VALUES) are built: the
+        session catalog's connector's device."""
+        catalog = self.session.catalog
+        connector = self.metadata.catalogs.get(catalog) if catalog else None
+        return getattr(connector, "device", None) or resolve_device(None)
 
     def execute(self) -> Tuple[List[str], Page]:
         root = self.plan.root
@@ -324,10 +341,6 @@ class PlanExecutor:
         compaction of both inputs, then the operator-state spill gate.
         Returns ``(left, right)``, or the finished Relation when the
         spill-partitioned path ran the join."""
-        if node.kind == JoinKind.FULL:
-            unported("FULL join")
-        if node.filter is not None:
-            unported("join with a non-equi residual filter")
         if (node.kind == JoinKind.INNER and node.criteria
                 and self.session.get("enable_dynamic_filtering")):
             right = self.eval(node.right)
@@ -416,18 +429,109 @@ class PlanExecutor:
             rel = self._try_fused_join(kind, node, probe, build, pkeys, bkeys, luts)
             if rel is not None:
                 return rel
-        left_outer = kind == JoinKind.LEFT
+        left_outer = kind in (JoinKind.LEFT, JoinKind.FULL)
         emit, count, lo, perm_b = _join_match(
             left_outer, pkeys, bkeys, luts, probe.page.active, build.page.active
         )
         out_capacity = self._choose_join_capacity(emit)
         page = _join_expand(out_capacity, emit, count, lo, perm_b, probe.page, build.page)
+        if kind == JoinKind.FULL:
+            # a LEFT expansion plus the build rows no probe row matched
+            page = _concat_pages([page, _full_join_tail(pkeys, bkeys, luts,
+                                                        probe.page, build.page)])
         # the expansion is probe-major, so the probe side's order survives
-        return Relation(page, probe.symbols + build.symbols, probe.sorted_by)
+        # INNER joins and LEFT joins without a residual; the FULL tail and
+        # the residual's tail of re-emitted probe rows break it
+        symbols = probe.symbols + build.symbols
+        out = Relation(page, symbols, probe.sorted_by if kind != JoinKind.FULL else ())
+        if node.filter is None:
+            return out
+        if kind == JoinKind.FULL:
+            raise ExecutionError("FULL JOIN with non-equi residual not supported yet")
+        fn, _ = compile_expression(node.filter, out.layout(), out.capacity, page.device)
+        if not left_outer:
+            v = fn(out.env())
+            return Relation(page.mask(v.valid & v.data.to(torch.bool)), symbols,
+                            out.sorted_by)
+        # LEFT: the residual is part of the ON clause
+        page = _left_join_residual(fn, symbols, out_capacity, emit, count, lo, perm_b,
+                                   probe.page, build.page)
+        return Relation(page, symbols, ())
 
     def _choose_join_capacity(self, emit) -> int:
         """Join output capacity: host-sync the exact emitted row count."""
         return _round_capacity(max(int(emit.sum()), 1))
+
+    # ------------------------------------------------ values, union, window
+
+    def _exec_ValuesNode(self, node: ValuesNode) -> Relation:
+        """Literal rows as a page on the executor's device: scalars and
+        strings (a dictionary of the column's values); a vector literal
+        needs ``ops.tensor``."""
+        n = len(node.rows)
+        device = self.device
+        if n == 0:
+            cols = tuple(
+                Column.from_numpy(self.types[s], np.zeros(0, self.types[s].storage_dtype),
+                                  capacity=1, device=device)
+                for s in node.symbols
+            )
+            return Relation(Page(cols, torch.zeros(1, dtype=torch.bool, device=device)),
+                            node.symbols)
+        cols = []
+        for i, sym in enumerate(node.symbols):
+            type_ = self.types[sym]
+            vals = [row[i] for row in node.rows]
+            valid = np.array([v is not None for v in vals], dtype=np.bool_)
+            if is_string(type_):
+                col = Column.from_strings(vals, type_, device=device)
+            elif isinstance(type_, VectorType):
+                unported("ops.tensor")
+            elif type_.storage_lanes == 2:
+                from ..ops.int128 import np_from_ints
+
+                arr = np_from_ints([0 if v is None else int(v) for v in vals])
+                col = Column.from_numpy(type_, arr, valid, device=device)
+            else:
+                arr = np.array([0 if v is None else v for v in vals],
+                               dtype=type_.storage_dtype)
+                col = Column.from_numpy(type_, arr, valid, device=device)
+            cols.append(col)
+        return Relation(Page(tuple(cols), torch.ones(n, dtype=torch.bool, device=device)),
+                        node.symbols)
+
+    def _exec_UnionNode(self, node: UnionNode) -> Relation:
+        pages = []
+        for inp, in_syms in zip(node.inputs, node.symbol_mapping):
+            rel = self.eval(inp)
+            pages.append(Page(tuple(rel.column_for(s) for s in in_syms), rel.page.active))
+        cols = tuple(
+            _concat_cols([p.columns[i] for p in pages], self.types[s])
+            for i, s in enumerate(node.symbols)
+        )
+        return Relation(Page(cols, torch.cat([p.active for p in pages])), node.symbols)
+
+    def _exec_EnforceSingleRowNode(self, node: EnforceSingleRowNode) -> Relation:
+        """A scalar subquery: one row as it is, none as one NULL row, more
+        than one raises. The row count is a host read."""
+        rel = self.eval(node.source)
+        n = rel.page.num_rows()
+        if n > 1:
+            raise ExecutionError("scalar subquery returned more than one row")
+        if n == 1:
+            return rel
+        cols = tuple(_null_column(c, 1) for c in rel.page.columns)
+        active = torch.ones(1, dtype=torch.bool, device=rel.page.device)
+        return Relation(Page(cols, active), rel.symbols)
+
+    def _exec_ExchangeNode(self, node: ExchangeNode) -> Relation:
+        # one process: an exchange passes its input through
+        return self.eval(node.source)
+
+    def _exec_WindowNode(self, node: WindowNode) -> Relation:
+        from .window import execute_window
+
+        return execute_window(self, self.eval(node.source), node)
 
     # ------------------------------------------------------------ semi-join
 
@@ -716,6 +820,15 @@ def _project_impl(compiled, env: Dict[str, CVal], page: Page) -> Page:
     return Page(tuple(cols), page.active)
 
 
+def _null_column(c: Column, cap: int) -> Column:
+    """An all-NULL column shaped like ``c`` (its type, dictionary and lanes)
+    with ``cap`` rows."""
+    return Column(
+        c.type, c.data.new_zeros((cap,) + tuple(c.data.shape[1:])),
+        c.valid.new_zeros(cap), c.dictionary,
+    )
+
+
 def _slice_column(c: Column, n: int) -> Column:
     return Column(c.type, c.data[:n], c.valid[:n], c.dictionary)
 
@@ -760,19 +873,26 @@ def _join_match(left_outer: bool, pkeys, bkeys, luts, probe_active, build_active
         build_key = torch.zeros(build_active.shape, dtype=torch.int64, device=build_active.device)
         probe_valid, build_valid = torch.ones_like(probe_active), torch.ones_like(build_active)
     else:
-        aligned = []
-        for (pd, pv), lut in zip(pkeys, luts):
-            if lut is not None:
-                pd = lut[pd.to(torch.int64).clamp(0, lut.shape[0] - 1)]
-                pv = pv & (pd >= 0)
-            aligned.append((pd, pv))
-        probe_key, probe_valid, build_key, build_valid = K.pack_key_pair(
-            aligned, list(bkeys))
+        probe_key, probe_valid, build_key, build_valid = _packed_keys(pkeys, bkeys, luts)
     perm_b, lo, hi, count = K.join_match(
         build_key, build_active & build_valid, probe_key, probe_active & probe_valid
     )
     emit = torch.where(probe_active, count.clamp(min=1), 0).to(torch.int32) if left_outer else count
     return emit, count, lo, perm_b
+
+
+def _packed_keys(pkeys, bkeys, luts):
+    """Both sides' join keys packed into one comparable int64 key each (a
+    probe string is first translated into the build side's code space; a
+    string the build side lacks is a key that matches nothing): (probe
+    key, probe validity, build key, build validity)."""
+    aligned = []
+    for (pd, pv), lut in zip(pkeys, luts):
+        if lut is not None:
+            pd = lut[pd.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+            pv = pv & (pd >= 0)
+        aligned.append((pd, pv))
+    return K.pack_key_pair(aligned, list(bkeys))
 
 
 def _join_expand(out_capacity: int, emit, count, lo, perm_b,
@@ -788,6 +908,44 @@ def _join_expand(out_capacity: int, emit, count, lo, perm_b,
         pc = _permute_column(c, build_pos)
         cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
     return Page(tuple(cols), out_active)
+
+
+def _left_join_residual(residual_fn, symbols, out_capacity: int, emit, count, lo,
+                        perm_b, probe_page: Page, build_page: Page) -> Page:
+    """LEFT JOIN with an ON residual (the reference's
+    ``_jit_left_join_residual``): the expanded matches that pass the
+    residual, then one NULL-padded row for every probe row none of whose
+    matches passed (a row that never matched included)."""
+    probe_idx, build_pos, matched, out_active, _ = K.expand_matches(
+        emit, count, lo, perm_b, out_capacity
+    )
+    cols = [_permute_column(c, probe_idx) for c in probe_page.columns]
+    for c in build_page.columns:
+        pc = _permute_column(c, build_pos)
+        cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
+    v = residual_fn({s: CVal(c.data, c.valid, c.dictionary) for s, c in zip(symbols, cols)})
+    keep = out_active & matched & v.valid & v.data.to(torch.bool)
+    pcap = probe_page.capacity
+    ids = torch.where(keep, probe_idx.to(torch.int64), pcap)
+    survivors = torch.zeros(pcap + 1, dtype=torch.int64, device=keep.device)
+    survivors.index_add_(0, ids, torch.ones_like(ids))
+    tail_active = probe_page.active & (survivors[:pcap] == 0)
+    tail_cols = list(probe_page.columns) + [_null_column(c, pcap) for c in build_page.columns]
+    return _concat_pages([Page(tuple(cols), keep), Page(tuple(tail_cols), tail_active)])
+
+
+def _full_join_tail(pkeys, bkeys, luts, probe_page: Page, build_page: Page) -> Page:
+    """The FULL OUTER JOIN's unmatched build rows (the reference's
+    ``_jit_full_join_tail``): build rows whose key no active probe row
+    holds, beside an all-NULL probe side."""
+    probe_key, probe_valid, build_key, build_valid = _packed_keys(pkeys, bkeys, luts)
+    matched_b = K.semijoin_mask(
+        probe_key, probe_page.active & probe_valid,
+        build_key, build_page.active & build_valid,
+    )
+    cap = build_page.capacity
+    cols = [_null_column(c, cap) for c in probe_page.columns] + list(build_page.columns)
+    return Page(tuple(cols), build_page.active & ~matched_b)
 
 
 def _semijoin(skey: Column, fkey: Column, lut, source_page: Page, filtering_active,
@@ -1070,14 +1228,20 @@ def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = Fal
             unported("ops.int128 (long decimal group keys)")
         key_cols.append((c.data, c.valid))
     cols = [rel.column_for(s) for s in needed]
+    # long-decimal limbs ride as one payload each, as in the reference
+    lanes = [c.data.shape[1] if c.data.ndim == 2 else 1 for c in cols]
+    payloads = [
+        (c.data[:, j].contiguous() if c.data.ndim == 2 else c.data, c.valid)
+        for c, n in zip(cols, lanes) for j in range(n)
+    ]
     sort = HK.group_sort if kernel else HK.group_sort_plain
-    out, active_s, new_group, num_groups = sort(
-        key_cols, [(c.data, c.valid) for c in cols], page.active
-    )
-    sorted_cols = tuple(
-        Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(cols, out)
-    )
-    return Page(sorted_cols, active_s), new_group, num_groups
+    out, active_s, new_group, num_groups = sort(key_cols, payloads, page.active)
+    sorted_cols, i = [], 0
+    for c, n in zip(cols, lanes):
+        d = out[i][0] if c.data.ndim == 1 else torch.stack([d for d, _ in out[i:i + n]], 1)
+        sorted_cols.append(Column(c.type, d, out[i][1], c.dictionary))
+        i += n
+    return Page(tuple(sorted_cols), active_s), new_group, num_groups
 
 
 def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
@@ -1220,6 +1384,10 @@ def _eval_aggregate(
 
     if name == "count":
         return Column(BIGINT, nonempty, all_valid)
+    if vals_s.ndim == 2:
+        # sum and avg reach here as limbs ($dec_limb); min/max need the
+        # reference's hi-then-tied-lo reduction
+        unported(f"ops.int128 ({name} over a long decimal)")
     if name == "count_if":
         ws = w & vals_s.to(torch.bool)
         return Column(BIGINT, reduce_fn(ws.to(torch.int64), ws, "count"), all_valid)

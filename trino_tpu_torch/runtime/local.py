@@ -5,6 +5,8 @@ parse, plan and optimize with the copied frontend and planner, execute with
 the port's executor on the runner's device, and materialize rows on the
 host. The session-property names and defaults are the reference's. DDL, DML,
 prepared statements, the caches and cluster observability are not ported yet.
+Runners over the built-in TPC-H and TPC-DS connectors: :meth:`tpch`,
+:meth:`tpcds`.
 """
 
 from __future__ import annotations
@@ -56,6 +58,20 @@ class LocalQueryRunner:
             schema = "sf" + f"{scale:g}".replace(".", "_")
         runner = LocalQueryRunner(Session(catalog="tpch", schema=schema))
         runner.register_catalog("tpch", TpchConnector(scale=scale, device=device))
+        return runner
+
+    @staticmethod
+    def tpcds(
+        scale: float = 0.001, schema: Optional[str] = None, device=None
+    ) -> "LocalQueryRunner":
+        """Runner with the tpcds catalog mounted, its pages on ``device``
+        (default ``cuda``); the default schema matches ``scale``."""
+        from ..connectors.tpcds import TpcdsConnector
+
+        if schema is None:
+            schema = "sf" + f"{scale:g}".replace(".", "_")
+        runner = LocalQueryRunner(Session(catalog="tpcds", schema=schema))
+        runner.register_catalog("tpcds", TpcdsConnector(scale=scale, device=device))
         return runner
 
     def register_catalog(self, name: str, connector) -> None:

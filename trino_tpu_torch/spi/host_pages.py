@@ -217,18 +217,16 @@ def empty_page_for(symbols, types, device=None) -> Page:
     """A 1-row all-inactive Page on ``device`` with the symbols' storage
     layouts (an empty exchange input or table scan). String columns carry
     the sentinel empty dictionary."""
-    from .._unported import unported
     from .types import is_string
 
     dev = resolve_device(device)
     cols = []
     for s in symbols:
         t = types[s]
-        if t.storage_lanes is not None:
-            unported("ops.int128 (long decimal storage)")
+        lanes = () if t.storage_lanes is None else (t.storage_lanes,)
         cols.append(Column(
             t,
-            torch.zeros(1, dtype=t.torch_dtype, device=dev),
+            torch.zeros((1,) + lanes, dtype=t.torch_dtype, device=dev),
             torch.zeros(1, dtype=torch.bool, device=dev),
             Dictionary.empty() if is_string(t) else None,
         ))

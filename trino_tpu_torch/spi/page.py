@@ -8,8 +8,9 @@ the reference. VARCHAR columns carry a host-side sorted :class:`Dictionary`
 (copied from the reference unchanged): the device sees int32 codes, and code
 order is string order.
 
-This slice carries scalar columns only: the nested layouts (array, map, row)
-and long decimals are not ported yet.
+Scalar columns, and long decimals (DECIMAL(p>18)) as two int64 limbs on a
+trailing axis (``ops/int128.py``); the nested layouts (array, map, row) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -156,16 +157,19 @@ class Column:
         move it to ``device`` (the reference's ``Column.from_numpy``; the
         device defaults to ``cuda``, see ``device.resolve_device``)."""
         device = resolve_device(device)
-        if type_.storage_lanes is not None:
-            from .._unported import unported
-
-            unported("ops.int128 (long decimal storage)")
         values = np.asarray(values)
         n = len(values)
         cap = capacity if capacity is not None else n
         dtype = type_.storage_dtype
-        data = np.zeros((cap,), dtype=dtype)
-        data[:n] = values.astype(dtype, copy=False)
+        lanes = () if type_.storage_lanes is None else (type_.storage_lanes,)
+        if lanes and not isinstance(type_, DecimalType):
+            from .._unported import unported
+
+            unported(f"{type_.display()} storage")
+        # a long decimal carries its two int64 limbs [hi, lo] on a trailing axis
+        data = np.zeros((cap,) + lanes, dtype=dtype)
+        if n:
+            data[:n] = values.astype(dtype, copy=False)
         v = np.zeros(cap, dtype=np.bool_)
         v[:n] = True if valid is None else np.asarray(valid, dtype=np.bool_)
         return Column(
@@ -174,6 +178,16 @@ class Column:
             torch.from_numpy(v).to(device),
             dictionary,
         )
+
+    @staticmethod
+    def from_strings(strings: Sequence[Optional[str]], type_: Type, device=None) -> "Column":
+        """A string column over the sorted distinct strings; None is NULL
+        (the reference's ``Column.from_strings``)."""
+        d = Dictionary.from_strings(s for s in strings if s is not None)
+        codes = np.array([d.code_of(s) if s is not None else 0 for s in strings],
+                         dtype=np.int32)
+        valid = np.array([s is not None for s in strings], dtype=np.bool_)
+        return Column.from_numpy(type_, codes, valid, None, d, device)
 
     def decode(self, active: Optional[np.ndarray] = None) -> np.ndarray:
         """Host materialization into python values (objects), nulls as None;
@@ -188,6 +202,18 @@ class Column:
             out[~valid] = None
             return out
         out = np.empty(len(data), dtype=object)
+        if isinstance(self.type, DecimalType) and self.type.precision > 18:
+            # limbs -> exact python ints -> Decimal (a float would lose the
+            # precision that is the type's point)
+            import decimal
+
+            from ..ops.int128 import np_to_ints
+
+            signed = [(x + 2**127) % 2**128 - 2**127 for x in np_to_ints(data)]
+            for i, (x, ok) in enumerate(zip(signed, valid.tolist())):
+                digits = tuple(int(ch) for ch in str(abs(x)))
+                out[i] = decimal.Decimal((int(x < 0), digits, -self.type.scale)) if ok else None
+            return out
         if isinstance(self.type, DecimalType) and self.type.scale > 0:
             scale = 10 ** self.type.scale
             for i, (x, ok) in enumerate(zip(data.tolist(), valid.tolist())):
