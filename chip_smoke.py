@@ -89,8 +89,27 @@ printed):
    ``rank()`` and ROWS-frame ``sum`` window over TPC-H ``orders`` at SF10
    (15,000,000 rows), filtered to rank <= 3 and aggregated by rank: rows
    equal to numpy.
-8. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 7), then the contract's last line
+8. TPC-H SF10 held in memory tables (``connectors/memory.py``). (a) CREATE
+   TABLE AS of ``lineitem``, ``orders``, ``customer``, ``part``, ``supplier``,
+   ``nation`` and ``region`` into ``memory.default``: rows against the
+   generator's count, seconds, device bytes stored, peak. (b) Q6, Q1, Q3,
+   Q10 and Q18 (threshold 300) from the memory tables with the default
+   session: rows identical to phases 3 and 4's over ``tpch``, the wall
+   beside that phase's, peak, launches by kernel and fused phase, no
+   fallback, Q10's fused phases as in phase 3, every tapped launch
+   bit-exact against its plain version, and whether the optimized plan's
+   text equals the one over ``tpch`` (printed, not a gate). (c) A checksum
+   of every stored tensor (each column's data bits and ``valid``, each
+   page's ``active``) after (a) and after (b): equal. (d) A DELETE of
+   ``orders`` by ``o_orderdate``, an UPDATE of ``l_discount`` by
+   ``l_shipmode``, a MERGE into ``orders`` from about 1,500,000 source rows
+   (half matched, half inserted) and a DELETE of ``lineitem`` rolled back,
+   each with its wall and peak and against numpy over the generator; after
+   the ROLLBACK the counts and checksums equal those before it. (e) DROP of
+   every table: device memory allocated back within 1 % of its level before
+   (a).
+9. The seconds of each phase, a ``kernels`` JSON line (launches summed over
+   the default runs of phases 3 to 8), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
@@ -180,6 +199,9 @@ KERNELS_OF = {
 }
 OFF_SESSION = {"q06": ("pallas_aggregation", "off"), "q01": ("pallas_aggregation", "off"),
                "q03": ("pallas_fusion", False), "q10": ("pallas_fusion", False)}
+# the default-session walls of phases 3 and 4, by query (phase 8 prints its
+# walls over memory tables beside them)
+INCORE_WALLS = {}
 # the fused phases each query must run (megakernels.LAUNCHES)
 PHASES_OF = {"q03": {"probe": 2, "expand": 2, "aggregate": 1},
              "q10": {"probe": 3, "expand": 3, "aggregate": 1}}
@@ -1561,6 +1583,7 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
             HK, runner, sql, [k for k in KERNELS_OF[q] if k != "q6_fused"])
         peaks[q] = torch.cuda.max_memory_allocated()
         rows[q] = res.rows
+        INCORE_WALLS[q] = wall
         print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
               f"{peaks[q]} bytes, {len(res.rows)} rows, launches {launches[q]}, fused phases "
               f"{phases}, fallbacks {fallbacks}", flush=True)
@@ -1706,6 +1729,7 @@ def run_q14_q18(HK, dev, kernels: dict) -> tuple:
             HK, runner, sql, JOIN_KERNELS)
         peak = peaks[q] = torch.cuda.max_memory_allocated()
         rows[q] = (res.rows, double_columns(res))
+        INCORE_WALLS[q] = wall
         print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
               f"{peak} bytes ({peak / 2**30:.2f} GiB), {len(res.rows)} rows, launches "
               f"{launches[q]}, fused phases {phases}, fallbacks {fallbacks}", flush=True)
@@ -2429,6 +2453,264 @@ def run_window(HK, dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: TPC-H SF10 held in memory tables
+# --------------------------------------------------------------------------- #
+
+MEM_TABLES = ("lineitem", "orders", "customer", "part", "supplier", "nation", "region")
+MEM_QUERIES = ("q06", "q01", "q03", "q10", "q18")
+DELETE_DATES = (9131, 9496)  # 1995-01-01, 1996-01-01
+NEW_KEY_OFFSET = 1_000_000_000  # MERGE source keys that no order has
+MEM_DML = {
+    "delete": "DELETE FROM orders WHERE o_orderdate >= DATE '1995-01-01' "
+              "AND o_orderdate < DATE '1996-01-01'",
+    "update": "UPDATE lineitem SET l_discount = 0.10 WHERE l_shipmode = 'AIR'",
+    # about 1,500,000 source rows: the orders of one customer in ten, even keys
+    # as they are (present unless the DELETE took them), odd keys moved past
+    # every order's key (new)
+    "merge": f"MERGE INTO orders t USING (SELECT o_orderkey + (o_orderkey % 2) * "
+             f"{NEW_KEY_OFFSET} AS k, o_custkey AS c, o_orderstatus AS s, "
+             "CAST(o_totalprice * 2 AS decimal(12,2)) AS p, o_orderdate AS d, "
+             "o_orderpriority AS op, o_clerk AS cl, o_shippriority AS sp, o_comment AS cm "
+             "FROM orders WHERE o_custkey % 10 = 3) src ON t.o_orderkey = src.k "
+             "WHEN MATCHED THEN UPDATE SET o_totalprice = src.p "
+             "WHEN NOT MATCHED THEN INSERT (o_orderkey, o_custkey, o_orderstatus, "
+             "o_totalprice, o_orderdate, o_orderpriority, o_clerk, o_shippriority, "
+             "o_comment) VALUES (src.k, src.c, src.s, src.p, src.d, src.op, src.cl, src.sp, "
+             "src.cm)",
+    "rollback": "DELETE FROM lineitem WHERE l_returnflag = 'R'",
+}
+
+
+def checksum(t: torch.Tensor) -> int:
+    """A position-weighted sum of a tensor's bits on the device (int64,
+    wrapping; odd weights): a change of any one element changes it."""
+    x = t.reshape(t.shape[0], -1)
+    if x.dtype.is_floating_point:
+        x = x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+    w = torch.arange(1, 2 * x.shape[0], 2, dtype=torch.int64, device=x.device)
+    return int((x.to(torch.int64) * w[:, None]).sum())
+
+
+def table_checksums(conn) -> dict:
+    """Every stored tensor's checksum: each column's data bits and
+    ``valid``, and each page's ``active``."""
+    out = {}
+    for name, table in sorted(conn._tables.items(), key=lambda kv: str(kv[0])):
+        for i, page in enumerate(table.pages):
+            out[(name.table, i, "active")] = checksum(page.active)
+            for c, col in zip(table.columns, page.columns):
+                out[(name.table, i, c.name)] = (checksum(col.data), checksum(col.valid))
+    return out
+
+
+def same_checksums(label: str, got: dict, want: dict) -> None:
+    changed = sorted(str(k) for k in set(got) | set(want) if got.get(k) != want.get(k))
+    if changed:
+        fail(f"{label}: stored tensors changed: {changed[:8]}")
+    print(f"  {label}: the checksums of {len(want)} stored tensors are unchanged", flush=True)
+
+
+def stored_size(table) -> tuple:
+    """(device bytes, pages, slots) of a stored table."""
+    from trino_tpu_torch.runtime.memory import page_bytes
+
+    return (sum(page_bytes(p) for p in table.pages), len(table.pages),
+            sum(p.capacity for p in table.pages))
+
+
+def check_every_call(HK, label: str, tap: LaunchTap) -> int:
+    """Every call the tap kept (``keep_all``) bit-exact against its plain
+    version; returns how many."""
+    n = 0
+    for name, calls in tap.every.items():
+        for args in calls:
+            if not same_result(HK, name, args):
+                fail(f"{name} [{label}, call {n + 1}] differs from its plain version")
+            n += 1
+    return n
+
+
+def generator_count(g, conn, table: str) -> int:
+    if table != "lineitem":
+        return g.row_count(table, SCALE)
+    total = conn.split_count("lineitem", SCALE)
+    return sum(g.lineitem_split_rows(SCALE, s, total) for s in range(total))
+
+
+def dml_oracle(g, conn) -> dict:
+    """What each statement of MEM_DML returns and leaves, from the port's
+    generator in numpy: rows affected, then count(*) and the sum it reads
+    (decimals as the engine decodes them)."""
+    o = {c: [] for c in ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice")}
+    for d in splits_of(g, conn, "orders"):
+        for c in o:
+            o[c].append(d[c])
+    key, cust, date, price = (np.concatenate(o[c]) for c in o)
+    lo, hi = DELETE_DATES
+    present = ~((date >= lo) & (date < hi))
+    air = conn.dictionary("lineitem", "l_shipmode", SCALE).code_of("AIR")
+    flag_r = conn.dictionary("lineitem", "l_returnflag", SCALE).code_of("R")
+    n_line = n_air = n_r = disc_rest = 0
+    for d in splits_of(g, conn, "lineitem"):
+        is_air = d["l_shipmode"] == air
+        n_line += is_air.shape[0]
+        n_air += int(is_air.sum())
+        n_r += int((d["l_returnflag"] == flag_r).sum())
+        disc_rest += int(d["l_discount"][~is_air].sum(dtype=np.int64))
+    src = present & (cust % 10 == 3)
+    matched = src & (key % 2 == 0)
+    inserted = src & (key % 2 == 1)
+    orders_after = int(present.sum()) + int(inserted.sum())
+    price_after = (int(price[present].sum(dtype=np.int64)) + int(price[matched].sum(dtype=np.int64))
+                   + 2 * int(price[inserted].sum(dtype=np.int64)))
+    return {
+        "delete": ([(int((~present).sum()),)], "SELECT count(*) FROM orders",
+                   [(int(present.sum()),)]),
+        "update": ([(n_air,)], "SELECT sum(l_discount) FROM lineitem",
+                   [((disc_rest + 10 * n_air) / 100,)]),
+        "merge": ([(int(src.sum()),)], "SELECT count(*), sum(o_totalprice) FROM orders",
+                  [(orders_after, price_after / 100)]),
+        "rollback": ([(n_r,)], "SELECT count(*) FROM lineitem", [(n_line - n_r,)]),
+        "source_rows": int(src.sum()),
+    }
+
+
+def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
+    """Phase 8: (a) CTAS of seven TPC-H SF10 tables into memory tables, (b)
+    Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows, (c)
+    stored-tensor checksums unchanged by the queries, (d) DELETE, UPDATE,
+    MERGE and a rolled-back DELETE against numpy over the generator, (e)
+    DROP and device memory back to its level. Returns the launch counts of
+    (b) and (d), by run."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.connectors.tpch import generator as g
+    from trino_tpu_torch.metadata import Session
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from trino_tpu_torch.spi.connector import SchemaTableName
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"  device memory allocated before the load: {base} bytes", flush=True)
+    runner = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
+    tpch = TpchConnector(scale=SCALE, device=dev)
+    runner.register_catalog("tpch", tpch)
+    conn = MemoryConnector(device=dev)
+    runner.register_catalog("memory", conn)
+    schema = f"tpch.sf{SCALE:g}".replace(".", "_").replace("tpch_", "tpch.")
+
+    # (a) the load
+    stored_all = 0
+    for table in MEM_TABLES:
+        want = generator_count(g, tpch, table)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (n,), = runner.execute(
+            f"CREATE TABLE {table} AS SELECT * FROM {schema}.{table}").rows
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stored, n_pages, cap = stored_size(conn.table(SchemaTableName("default", table)))
+        stored_all += stored
+        print(f"  8a CTAS {table}: {n} rows (generator {want}), {secs:.3f} s, {stored} bytes "
+              f"stored ({stored / 2**30:.2f} GiB, {n_pages} page of {cap} slots), peak "
+              f"device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+        if n != want:
+            fail(f"CTAS {table} stored {n} rows, the generator has {want}")
+    print(f"  8a: {stored_all} bytes stored in all ({stored_all / 2**30:.2f} GiB), "
+          f"{torch.cuda.memory_allocated()} bytes allocated", flush=True)
+    loaded = table_checksums(conn)
+
+    # (b) the queries
+    texts = {q: QUERIES.get(q, Q18_SF10) for q in MEM_QUERIES}
+    plans = LocalQueryRunner.tpch(scale=SCALE, device=dev)  # plans only, over tpch
+    launches = {}
+    for q, sql in texts.items():
+        names = [k for k in KERNELS_OF.get(q, JOIN_KERNELS) if k != "q6_fused"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[f"{q} memory"], phases, fallbacks, tap = run_default(
+            HK, runner, sql, names, keep_all=names)
+        peak = torch.cuda.max_memory_allocated()
+        same_plan = runner.explain(sql) == plans.explain(sql).replace(
+            f"{schema}.", "memory.default.")
+        print(f"  8b {q} over memory tables: {wall:.3f} s wall (over tpch, phase "
+              f"{4 if q == 'q18' else 3}: {INCORE_WALLS[q]:.3f} s), peak device memory {peak} "
+              f"bytes ({peak / 2**30:.2f} GiB, the tap holding every launch's inputs), "
+              f"{len(res.rows)} rows, launches {launched(launches[f'{q} memory'])}, fused "
+              f"phases {launched(phases)}, fallbacks {fallbacks}, optimized plan text equal "
+              f"to tpch's: {same_plan}", flush=True)
+        if not same_rows(res.rows, incore_rows[q], double_columns(res)):
+            fail(f"{q} over memory tables: rows {res.rows[:3]} != phase 3/4 rows "
+                 f"{incore_rows[q][:3]}")
+        if fallbacks:
+            fail(f"{q} over memory tables fell back from the fused path: {fallbacks}")
+        for name in names:
+            if launches[f"{q} memory"][name] == 0:
+                fail(f"{q} over memory tables did not go through {name}")
+        if q == "q10" and any(phases[k] != v for k, v in PHASES_OF["q10"].items()):
+            fail(f"q10 over memory tables ran the fused phases {phases}, not "
+                 f"{PHASES_OF['q10']}")
+        check_query_inputs(HK, f"{q} memory", tap, kernels, set(kernels))
+        n_checked = check_every_call(HK, f"{q} memory", tap)
+        print(f"  8b {q}: rows identical to phase {4 if q == 'q18' else 3}'s; every tapped "
+              f"launch bit-exact ({n_checked})", flush=True)
+        del tap, res
+    del plans
+    torch.cuda.empty_cache()
+
+    # (c) nothing wrote into a stored table
+    same_checksums("8c after the queries", table_checksums(conn), loaded)
+
+    # (d) DML
+    t0 = time.perf_counter()
+    want = dml_oracle(g, tpch)
+    print(f"  8d numpy oracle: {time.perf_counter() - t0:.3f} s; the MERGE source holds "
+          f"{want['source_rows']} rows", flush=True)
+    for name, sql in MEM_DML.items():
+        affected, check_sql, check_rows = want[name]
+        if name == "rollback":
+            before = table_checksums(conn)
+            counts = {t: runner.execute(f"SELECT count(*) FROM {t}").rows for t in MEM_TABLES}
+            runner.execute("START TRANSACTION")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[f"dml {name}"], _, _, tap = run_default(HK, runner, sql, ())
+        peak = torch.cuda.max_memory_allocated()
+        got = runner.execute(check_sql).rows
+        print(f"  8d {name}: {res.rows[0][0]} rows, {wall:.3f} s wall, peak device memory "
+              f"{peak} bytes ({peak / 2**30:.2f} GiB); {check_sql}: {got}", flush=True)
+        if res.rows != affected or got != check_rows:
+            fail(f"{name}: {res.rows} rows and {got}, numpy {affected} and {check_rows}")
+        if name == "rollback":
+            runner.execute("ROLLBACK")
+            undo_peak = torch.cuda.max_memory_allocated()
+            after = {t: runner.execute(f"SELECT count(*) FROM {t}").rows for t in MEM_TABLES}
+            print(f"  8d rollback: peak device memory with the pre-image held {undo_peak} "
+                  f"bytes ({undo_peak / 2**30:.2f} GiB); counts after ROLLBACK {after}",
+                  flush=True)
+            if after != counts:
+                fail(f"counts after ROLLBACK {after} != before {counts}")
+            same_checksums("8d after ROLLBACK", table_checksums(conn), before)
+        del tap, res
+    print("  8d: DELETE, UPDATE, MERGE and the rolled-back DELETE equal numpy", flush=True)
+
+    # (e) drop
+    for table in MEM_TABLES:
+        runner.execute(f"DROP TABLE {table}")
+    del runner, conn, tpch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"  8e after DROP: {left} bytes allocated, {base} before the load "
+          f"({left - base:+d})", flush=True)
+    if abs(left - base) > 0.01 * base:
+        fail(f"device memory after DROP {left} is not within 1 % of {base}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -2514,6 +2796,13 @@ def main() -> None:
     t0 = time.perf_counter()
     launches[f"window SF{WINDOW_SCALE}"] = run_window(HK, dev)
     phase_s["window"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"phase 8: TPC-H SF{SCALE} held in memory tables: CTAS, Q6, Q1, Q3, Q10 and Q18, "
+          "DELETE, UPDATE, MERGE, a rolled-back transaction, DROP", flush=True)
+    launches.update(run_memory_tables(HK, dev, incore_rows, kernels))
+    phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():
         k["launches"] = sum(runs[name] for runs in launches.values())
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

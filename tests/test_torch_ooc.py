@@ -174,7 +174,7 @@ def test_split_batching_covers_all_rows(runner, batch):
 
 @pytest.fixture(scope="module")
 def small_splits():
-    r = LocalQueryRunner()
+    r = LocalQueryRunner(device="cpu")
     r.register_catalog("tpch", TpchConnector(scale=SCALE, split_target_rows=8192, device="cpu"))
     r.session.catalog, r.session.schema = "tpch", "sf0_01"
     return r

@@ -60,7 +60,7 @@ QUERIES = {
 
 
 def _runner(cls, connector_cls, **kw):
-    r = cls()
+    r = cls(**kw)
     r.register_catalog("tpch", connector_cls(scale=0.02, split_target_rows=SPLIT_ROWS, **kw))
     r.session.catalog, r.session.schema = "tpch", "sf0_02"
     return r

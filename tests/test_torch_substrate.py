@@ -119,7 +119,11 @@ def test_import_loads_neither_jax_nor_reference():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "need = {'trino_tpu_torch.connectors.tpcds', 'trino_tpu_torch.runtime.window',"
-        " 'trino_tpu_torch.ops.int128', 'trino_tpu_torch.runtime.executor'}\n"
+        " 'trino_tpu_torch.ops.int128', 'trino_tpu_torch.runtime.executor',"
+        " 'trino_tpu_torch.connectors.memory', 'trino_tpu_torch.runtime.transactions',"
+        " 'trino_tpu_torch.runtime.dml', 'trino_tpu_torch.runtime.catalog_factories',"
+        " 'trino_tpu_torch.connectors.synthetic',"
+        " 'trino_tpu_torch.connectors.information_schema'}\n"
         "missing = sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"

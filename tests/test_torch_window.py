@@ -1,7 +1,7 @@
 """Window functions through ``trino_tpu.runtime.LocalQueryRunner`` and
 ``trino_tpu_torch``'s on the CPU: the window SQL of
-``tests/test_window_frames.py`` (the IGNORE NULLS cases over VALUES, where
-that file uses a memory table the port has not got) and one case for each
+``tests/test_window_frames.py`` (the IGNORE NULLS cases both over VALUES and,
+as that file writes them, over a memory table) and one case for each
 function ``runtime/window.py`` evaluates. Rows must be identical, DOUBLE at
 1e-9 relative; the error cases raise in both engines.
 
@@ -132,6 +132,45 @@ ERROR_SQL = {
     "range_two_keys": "SELECT sum(o_totalprice) OVER (ORDER BY o_custkey, o_orderkey "
     "RANGE BETWEEN 1 PRECEDING AND CURRENT ROW) FROM orders",
 }
+
+
+# tests/test_window_frames.py's TestIgnoreNulls, over its memory table
+IGNORE_NULLS_MEMORY_SQL = {
+    "lag": "SELECT pos, lag(x) IGNORE NULLS OVER (ORDER BY pos) FROM t ORDER BY pos",
+    "lag_respect": "SELECT pos, lag(x) RESPECT NULLS OVER (ORDER BY pos) FROM t ORDER BY pos",
+    "lead_2": "SELECT pos, lead(x, 2) IGNORE NULLS OVER (ORDER BY pos) FROM t ORDER BY pos",
+    "first_value": "SELECT pos, first_value(x) IGNORE NULLS OVER (ORDER BY pos ROWS "
+    "BETWEEN 1 PRECEDING AND 1 FOLLOWING) FROM t ORDER BY pos",
+    "last_value": "SELECT pos, last_value(x) IGNORE NULLS OVER (ORDER BY pos ROWS BETWEEN "
+    "UNBOUNDED PRECEDING AND CURRENT ROW) FROM t ORDER BY pos",
+    "nth_value": "SELECT pos, nth_value(x, 2) IGNORE NULLS OVER (ORDER BY pos ROWS BETWEEN "
+    "UNBOUNDED PRECEDING AND UNBOUNDED FOLLOWING) FROM t ORDER BY pos",
+}
+
+
+@pytest.fixture(scope="module")
+def memory_runners():
+    from trino_tpu.connectors.memory import MemoryConnector as RefMemory
+    from trino_tpu.metadata import Session as RefSession
+
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.metadata import Session
+
+    ref = RefRunner(RefSession(catalog="mem", schema="default"))
+    ref.register_catalog("mem", RefMemory())
+    port = LocalQueryRunner(Session(catalog="mem", schema="default"), device="cpu")
+    port.register_catalog("mem", MemoryConnector(device="cpu"))
+    for r in (ref, port):
+        r.execute("CREATE TABLE t AS SELECT * FROM (VALUES (1, 10), (2, NULL), (3, 30), "
+                  "(4, NULL), (5, NULL), (6, 60)) AS v(pos, x)")
+    return ref, port
+
+
+@pytest.mark.parametrize("case", sorted(IGNORE_NULLS_MEMORY_SQL))
+def test_ignore_nulls_over_a_memory_table_matches_reference(case, memory_runners):
+    ref, port = memory_runners
+    sql = IGNORE_NULLS_MEMORY_SQL[case]
+    assert_same_rows(port.execute(sql), ref.execute(sql))
 
 
 @pytest.fixture(scope="module")

@@ -183,17 +183,27 @@ class Metadata:
         self.catalogs = catalogs
         self.views = ViewStore()
         self.functions = FunctionStore()
+        self._info_schemas: Dict[str, object] = {}
         # the builtin `system` catalog is not ported: nothing attaches here
         self.system_context = None
 
     def _info_schema(self, catalog: str):
-        """Per-catalog information_schema connector (not ported yet)."""
-        from ._unported import unported
+        """Lazy per-catalog information_schema connector (ref: the
+        InformationSchema* connector registered alongside every catalog)."""
+        conn = self._info_schemas.get(catalog)
+        if conn is None:
+            from .connectors.information_schema import InformationSchemaConnector
 
-        unported("connectors.information_schema")
+            conn = InformationSchemaConnector(
+                catalog, self.catalogs, self.views,
+                resolver=self.connector_by_name,
+            )
+            self._info_schemas[catalog] = conn
+        return conn
 
     def _system(self):
-        """Builtin ``system`` connector (not ported yet)."""
+        """Builtin ``system`` connector (not ported yet: it reads the
+        cluster planes, which the port has not got)."""
         from ._unported import unported
 
         unported("connectors.system")

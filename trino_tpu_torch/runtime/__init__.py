@@ -1,2 +1,2 @@
-from .local import LocalQueryRunner, QueryResult
+from .local import ClientContext, LocalQueryRunner, QueryResult
 from .executor import PlanExecutor, ExecutionError

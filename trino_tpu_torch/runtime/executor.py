@@ -128,21 +128,25 @@ class Relation:
 class PlanExecutor:
     """Evaluates a LogicalPlan bottom-up. One instance per query execution."""
 
-    def __init__(self, plan: LogicalPlan, metadata: Metadata, session: Session):
+    def __init__(self, plan: LogicalPlan, metadata: Metadata, session: Session,
+                 device=None):
         self.plan = plan
         self.metadata = metadata
         self.session = session
         self.types = plan.types
         self.spill_count = 0
         self.spilled_bytes = 0
+        self._device = device
 
     @property
     def device(self) -> torch.device:
         """Where pages that no connector makes (VALUES) are built: the
-        session catalog's connector's device."""
+        session catalog's connector's device, else the ``device`` the
+        executor was given (the runner's), else ``cuda``."""
         catalog = self.session.catalog
         connector = self.metadata.catalogs.get(catalog) if catalog else None
-        return getattr(connector, "device", None) or resolve_device(None)
+        dev = getattr(connector, "device", None)
+        return dev if dev is not None else resolve_device(self._device)
 
     def execute(self) -> Tuple[List[str], Page]:
         root = self.plan.root
