@@ -100,7 +100,18 @@ printed):
    bit-exact against its plain version, and whether the optimized plan's
    text equals the one over ``tpch`` (printed, not a gate). (c) A checksum
    of every stored tensor (each column's data bits and ``valid``, each
-   page's ``active``) after (a) and after (b): equal. (d) A DELETE of
+   page's ``active``) after (a) and after (b): equal. (f) Four queries of
+   the scalar functions and the aggregate long tail (``FUNCTION_QUERIES``:
+   F1, Q1's shape with the variance family; F2, a join under a grouped
+   aggregation with ``date_trunc``, ``date_diff`` and ``regexp_like``; F3,
+   the statistical, bitwise and approximate aggregates; F4, ISO week parts
+   and string transforms) with the default session: wall, peak, launches
+   by kernel, ``FALLBACKS`` (must stay empty); rows identical to the
+   kernel tier off, F1 and F2 equal to numpy over the generator (the
+   variance family by the reference's one-pass formula over exact sums,
+   at 1e-9 relative), F1 through both grouped sums and F2 through
+   ``hash_probe`` and ``hash_expand``, every tapped launch bit-exact; the
+   checksums again. (d) A DELETE of
    ``orders`` by ``o_orderdate``, an UPDATE of ``l_discount`` by
    ``l_shipmode``, a MERGE into ``orders`` from about 1,500,000 source rows
    (half matched, half inserted) and a DELETE of ``lineitem`` rolled back,
@@ -109,7 +120,7 @@ printed):
    every table: device memory allocated back within 1 % of its level before
    (a).
 9. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 8), then the contract's last line
+   the default runs of phases 3 to 8, 8f's included), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
@@ -120,6 +131,7 @@ when the port (or ``tests/tpch_corpus.py`` and
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -2576,10 +2588,184 @@ def dml_oracle(g, conn) -> dict:
     }
 
 
+# phase 8f: the scalar functions and the aggregate long tail over the SF10
+# memory tables (``tests/test_torch_function_tables.py`` runs the same four
+# texts at SF0.01 against the reference)
+FUNCTION_QUERIES = {
+    # Q1's shape with the variance family
+    "f1": "SELECT l_returnflag, l_linestatus, count(*), sum(l_quantity), stddev(l_quantity), "
+          "variance(l_extendedprice), stddev_pop(l_discount), var_samp(l_tax) FROM lineitem "
+          "GROUP BY 1, 2 ORDER BY 1, 2",
+    # a join feeding a grouped aggregation, date and regex functions in the
+    # filter and the key
+    "f2": "SELECT date_trunc('month', o_orderdate) AS m, count(*), sum(l_extendedprice) "
+          "FROM orders JOIN lineitem ON o_orderkey = l_orderkey "
+          "WHERE date_diff('day', l_shipdate, l_receiptdate) > 20 "
+          "AND regexp_like(o_clerk, '0{3}[1-4]') GROUP BY 1 ORDER BY 1",
+    # the rest of the aggregates
+    "f3": "SELECT l_returnflag, corr(l_quantity, l_extendedprice), "
+          "regr_slope(l_extendedprice, l_quantity), covar_pop(l_quantity, l_discount), "
+          "skewness(l_discount), kurtosis(l_tax), geometric_mean(l_quantity), "
+          "entropy(l_linenumber), min_by(l_orderkey, l_extendedprice), "
+          "max_by(l_orderkey, l_extendedprice), bitwise_xor_agg(l_orderkey), "
+          "checksum(l_orderkey), approx_distinct(l_partkey), "
+          "approx_percentile(l_extendedprice, 0.5) FROM lineitem GROUP BY 1 ORDER BY 1",
+    # date parts and string transforms over dictionary columns
+    "f4": "SELECT year_of_week(o_orderdate), week(o_orderdate), count(*), "
+          "count_if(regexp_like(o_clerk, '9$')), max(length(o_orderpriority)), "
+          "min(lpad(reverse(o_orderstatus), 3, '*')) FROM orders GROUP BY 1, 2 ORDER BY 1, 2",
+}
+# the kernels each function query must launch
+FUNCTION_KERNELS = {"f1": GROUPED_SUMS, "f2": JOIN_KERNELS, "f3": (), "f4": ()}
+F2_CLERK = r"0{3}[1-4]"
+
+
+def _exact_moments(inv: np.ndarray, v: np.ndarray, groups: int) -> tuple:
+    """(sum, sum of squares) of non-negative integer ``v`` by group, each an
+    exact Python int: with v = a * 4096 + b, v^2 is a^2 * 2^24 + 2ab * 2^12
+    + b^2, and each part's sums stay exact in float64."""
+    v = v.astype(np.int64)
+    a, b = v >> 12, v & 4095
+    s1 = _exact_bincount(inv, v, groups)
+    aa, ab, bb = (_exact_bincount(inv, x, groups) for x in (a * a, a * b, b * b))
+    return ([int(x) for x in s1],
+            [int(x) * 2**24 + 2 * int(y) * 2**12 + int(z) for x, y, z in zip(aa, ab, bb)])
+
+
+def _exact_bincount(inv: np.ndarray, values: np.ndarray, groups: int) -> np.ndarray:
+    """int64 sums of integer ``values`` by group (float64 partial sums of
+    one split stay below 2^53, so they are exact)."""
+    out = np.bincount(inv, weights=values.astype(np.float64), minlength=groups)
+    if out.max(initial=0) >= 2.0**53:
+        fail("a split's decimal sum passed 2^53")
+    return np.round(out).astype(np.int64)
+
+
+def _variance(s1, s2, n, sample: bool):
+    """The reference's one-pass variance: E[x^2] - E[x]^2, floored at 0."""
+    mean = s1 / n
+    var = max(s2 / n - mean * mean, 0.0)
+    return var * n / max(n - 1, 1) if sample else var
+
+
+def function_oracle(g, conn) -> dict:
+    """F1's and F2's rows from the port's generator in numpy: counts and
+    decimal sums exact (int64), the variance family by the reference's
+    one-pass formula over the exact sums and sums of squares."""
+    import datetime
+    import re
+
+    rf = conn.dictionary("lineitem", "l_returnflag", SCALE)
+    ls = conn.dictionary("lineitem", "l_linestatus", SCALE)
+    G = len(rf) * len(ls)
+    clerks = conn.dictionary("orders", "o_clerk", SCALE)
+    clerk_hit = np.array([re.search(F2_CLERK, s) is not None for s in clerks.values])
+    okey, odate = [], []
+    for d in splits_of(g, conn, "orders"):
+        keep = clerk_hit[d["o_clerk"].astype(np.int64)]
+        okey.append(d["o_orderkey"][keep])
+        odate.append(d["o_orderdate"][keep])
+    okey, odate = np.concatenate(okey), np.concatenate(odate)
+    order = np.argsort(okey, kind="stable")
+    okey, odate = okey[order], odate[order]
+    month = odate.astype("datetime64[D]").astype("datetime64[M]").astype(
+        "datetime64[D]").astype(np.int64)
+    months, minv = np.unique(month, return_inverse=True)
+    f2_count = np.zeros(months.shape[0], dtype=np.int64)
+    f2_sum = np.zeros(months.shape[0], dtype=np.int64)
+    count = np.zeros(G, dtype=np.int64)
+    qty = np.zeros(G, dtype=np.int64)
+    # exact integer sums and sums of squares of the stored cents
+    sums = {c: [[0] * G, [0] * G] for c in
+            ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
+    for d in splits_of(g, conn, "lineitem"):
+        inv = d["l_returnflag"].astype(np.int64) * len(ls) + d["l_linestatus"]
+        count += np.bincount(inv, minlength=G)
+        qty += _exact_bincount(inv, d["l_quantity"], G)
+        for c, acc in sums.items():
+            s1, s2 = _exact_moments(inv, d[c], G)
+            acc[0] = [x + y for x, y in zip(acc[0], s1)]
+            acc[1] = [x + y for x, y in zip(acc[1], s2)]
+        lk = d["l_orderkey"]
+        pos = np.minimum(np.searchsorted(okey, lk), max(okey.shape[0] - 1, 0))
+        hit = (okey[pos] == lk) & (
+            d["l_receiptdate"].astype(np.int64) - d["l_shipdate"] > 20)
+        f2_count += np.bincount(minv[pos[hit]], minlength=months.shape[0])
+        f2_sum += _exact_bincount(minv[pos[hit]], d["l_extendedprice"][hit], months.shape[0])
+    f1 = []
+    for i in range(G):
+        n = int(count[i])
+        if n == 0:
+            continue
+        a, b = divmod(i, len(ls))
+        q, p, disc, tax = ((s1[i] / 100, s2[i] / 10**4) for s1, s2 in sums.values())
+        f1.append((rf.values[a], ls.values[b], n, int(qty[i]) / 100,
+                   math.sqrt(_variance(*q, n, True)), _variance(*p, n, True),
+                   math.sqrt(_variance(*disc, n, False)), _variance(*tax, n, True)))
+    epoch = datetime.date(1970, 1, 1)
+    f2 = [(epoch + datetime.timedelta(days=int(m)), int(c), int(s) / 100)
+          for m, c, s in zip(months, f2_count, f2_sum) if c > 0]
+    return {"f1": f1, "f2": f2}
+
+
+def run_function_queries(HK, dev, runner, conn, tpch) -> dict:
+    """Phase 8f: F1-F4 over the memory tables with the default session,
+    each with the card's name and power limit, its wall (the host clock
+    around ``execute`` and a synchronize), peak device memory, launches by
+    kernel and fallbacks:
+    rows identical to the kernel tier off (DOUBLE at 1e-9 relative), F1
+    and F2 equal to numpy over the generator, every tapped launch bit-exact
+    against its plain version, no fallback. Returns the launch counts by
+    query."""
+    from trino_tpu_torch.connectors.tpch import generator as g
+    from trino_tpu_torch.metadata import Session
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    off = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
+    off.register_catalog("memory", conn)
+    off.session.set("pallas_aggregation", "off")
+    off.session.set("pallas_fusion", False)
+    t0 = time.perf_counter()
+    want = function_oracle(g, tpch)
+    print(f"  8f numpy oracle of F1 and F2: {time.perf_counter() - t0:.3f} s", flush=True)
+    launches = {}
+    card = card_line()
+    for q, sql in FUNCTION_QUERIES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[f"{q} memory"], phases, fallbacks, tap = run_default(
+            HK, runner, sql, PATH_KERNELS, keep_all=PATH_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        n_checked = check_every_call(HK, f"{q} memory", tap)
+        del tap
+        off_res, off_wall = run_off(HK, off, sql)
+        doubles = double_columns(res)
+        print(f"  8f {q} ({card}): {wall:.3f} s wall (kernel tier off {off_wall:.3f} s), peak device "
+              f"memory {peak} bytes ({peak / 2**30:.2f} GiB, the tap holding every launch's "
+              f"inputs), {len(res.rows)} rows, launches {launched(launches[f'{q} memory'])}, "
+              f"fused phases {launched(phases)}, FALLBACKS {fallbacks}; every tapped launch "
+              f"bit-exact ({n_checked}); first row {res.rows[:1]}", flush=True)
+        if res.column_names != off_res.column_names or not same_rows(
+                res.rows, off_res.rows, doubles):
+            fail(f"{q}: rows {res.rows[:3]} != the kernel tier off's {off_res.rows[:3]}")
+        if q in want and not same_rows(res.rows, want[q], doubles):
+            fail(f"{q}: rows {res.rows[:3]} != numpy {want[q][:3]}")
+        if fallbacks:
+            fail(f"{q} fell back from the fused path: {fallbacks}")
+        for name in FUNCTION_KERNELS[q]:
+            if launches[f"{q} memory"][name] == 0:
+                fail(f"{q} did not go through {name}")
+        print(f"  8f {q}: rows identical to the kernel tier off"
+              + (" and to numpy" if q in want else ""), flush=True)
+        del res, off_res
+    return launches
+
+
 def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     """Phase 8: (a) CTAS of seven TPC-H SF10 tables into memory tables, (b)
     Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows, (c)
-    stored-tensor checksums unchanged by the queries, (d) DELETE, UPDATE,
+    stored-tensor checksums unchanged by the queries, (f) the function
+    queries F1-F4 and the checksums again, (d) DELETE, UPDATE,
     MERGE and a rolled-back DELETE against numpy over the generator, (e)
     DROP and device memory back to its level. Returns the launch counts of
     (b) and (d), by run."""
@@ -2663,6 +2849,11 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
 
     # (c) nothing wrote into a stored table
     same_checksums("8c after the queries", table_checksums(conn), loaded)
+
+    # (f) the function queries, on the tables as loaded
+    launches.update(run_function_queries(HK, dev, runner, conn, tpch))
+    torch.cuda.empty_cache()
+    same_checksums("8f after the function queries", table_checksums(conn), loaded)
 
     # (d) DML
     t0 = time.perf_counter()
@@ -2800,7 +2991,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     print(f"phase 8: TPC-H SF{SCALE} held in memory tables: CTAS, Q6, Q1, Q3, Q10 and Q18, "
-          "DELETE, UPDATE, MERGE, a rolled-back transaction, DROP", flush=True)
+          "the function queries F1-F4, DELETE, UPDATE, MERGE, a rolled-back transaction, "
+          "DROP", flush=True)
     launches.update(run_memory_tables(HK, dev, incore_rows, kernels))
     phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():

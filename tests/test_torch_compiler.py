@@ -29,7 +29,18 @@ VOCAB_T = np.asarray(
     ["", "10%_off", "A_B", "AB", "MAIL", "PROMO BRUSHED", "PROMO_X", "SHIP", "a%b"],
     dtype=object,
 )
-DICTS = {"s": VOCAB, "t": VOCAB_T}
+VOCAB_U = np.asarray(
+    ["", " 42 ", "-7", "1.5", "1995-03-31", "2024-02-29", "NaN", "false", "t", "x12"],
+    dtype=object,
+)
+DICTS = {"s": VOCAB, "t": VOCAB_T, "u": VOCAB_U}
+# 1968-02-29, 1970-01-01, 2000-02-29, 2020-12-31 (ISO week 53), 2021-01-01,
+# 2023-01-31, 2024-02-29, 2024-12-30 (ISO week 1 of 2025), 2025-12-31,
+# 2026-01-01 (ISO week 1), 1900-02-28
+EDGE_DAYS = [-672, 0, 11016, 18627, 18628, 19388, 19782, 20087, 20453, 20454, -25509]
+INT64_EDGES = [np.iinfo(np.int64).min, np.iinfo(np.int64).min + 1, -1, 0, 1,
+               np.iinfo(np.int64).max, np.iinfo(np.int64).max - 1]
+P_EDGES = [0.0, 1e-300, 1e-12, 1e-6, 0.5, 1 - 1e-6, 1 - 1e-12, 1.0]
 COLUMNS = {  # symbol -> (type name, values)
     "a": ("bigint", lambda r: r.integers(-(10**9), 10**9, N)),
     "b": ("bigint", lambda r: r.integers(-(10**9), 10**9, N)),
@@ -51,6 +62,26 @@ COLUMNS = {  # symbol -> (type name, values)
         r.choice([-26969, -24048, -672, 789, 11016, 19782], N) + r.integers(-1, 2, N),
         r.integers(-98615, 84371, N)).astype(np.int32)),
     "t": ("varchar", lambda r: r.integers(0, len(VOCAB_T), N).astype(np.int32)),
+    # leap days, month ends, and ISO week 1 and week 53 days
+    "dm": ("date", lambda r: np.where(
+        r.random(N) < 0.5, r.choice(EDGE_DAYS, N), r.integers(-40000, 40000, N)).astype(np.int32)),
+    # int64 extremes and their neighbours
+    "bi": ("bigint", lambda r: np.where(r.random(N) < 0.4, r.choice(INT64_EDGES, N),
+                                        r.integers(-(2**62), 2**62, N))),
+    # shift and bit counts past both ends of [0, 63]
+    "sh": ("bigint", lambda r: r.integers(-3, 70, N)),
+    # x.5 ties, negative and positive
+    "hv": ("double", lambda r: r.integers(-41, 42, N) / 2.0),
+    # probabilities near 0 and 1
+    "p": ("double", lambda r: np.where(r.random(N) < 0.5, r.choice(P_EDGES, N), r.random(N))),
+    "ts": ("timestamp", lambda r: r.integers(-(2**50), 2**50, N)),
+    "tm": ("time(3)", lambda r: r.integers(0, 86_400_000_000, N)),
+    "ttz": ("timestamp(3) with time zone", lambda r: (
+        r.integers(-(2**40), 2**40, N) << 12) | r.integers(1, 1682, N)),
+    "twtz": ("time(3) with time zone", lambda r: (
+        r.integers(-(2**36), 2**36, N) << 12) | r.integers(1, 1682, N)),
+    # strings that parse as numbers, dates and booleans, and some that do not
+    "u": ("varchar", lambda r: r.integers(0, len(VOCAB_U), N).astype(np.int32)),
 }
 
 
@@ -219,6 +250,13 @@ EXPRESSIONS = {
         "substr", [n.ref("s"), n.const("bigint", 6), n.const("bigint", 2)], "varchar"),
     "substring_null_start": lambda n: n.call(
         "substring", [n.ref("t"), n.const("bigint", None)], "varchar"),
+    # a start <= 0 slices from the end (the reference's deviation from Trino)
+    "substr_start_zero": lambda n: n.call("substr", [n.ref("t"), n.const("bigint", 0)],
+                                          "varchar"),
+    "substr_start_negative": lambda n: n.call(
+        "substr", [n.ref("t"), n.const("bigint", -2)], "varchar"),
+    "substr_start_negative_with_length": lambda n: n.call(
+        "substr", [n.ref("t"), n.const("bigint", -3), n.const("bigint", 2)], "varchar"),
     "substr_in_comparison": lambda n: n.call("$eq", [
         n.call("substr", [n.ref("t"), n.const("bigint", 1), n.const("bigint", 2)], "varchar"),
         n.const("varchar", "PR")], "boolean"),
@@ -321,12 +359,199 @@ def test_compiled_closures_are_cached():
     assert pc.compile_expression(expr, layout, N, "cpu")[0] is first[0]
 
 
-@pytest.mark.parametrize("fn_name", ["abs", "upper", "month"])
+@pytest.mark.parametrize("fn_name", ["$array", "cardinality", "element_at"])
 def test_unsupported_functions_raise_naming_the_function(fn_name):
     n = NS(pir, ptypes)
-    args = [n.ref("a")] if fn_name == "abs" else [n.ref("s")]
-    out = "bigint" if fn_name == "abs" else "varchar"
-    expr = n.call(fn_name, args, out)
+    expr = n.call(fn_name, [n.ref("a")], "bigint")
     layout = {s: pc.ColumnLayout(ptypes.parse_type(t)) for s, (t, _) in COLUMNS.items()}
     with pytest.raises(pc.CompileError, match=f"function {fn_name.replace('$', '[$]')}"):
         pc.compile_expression(expr, layout, N, "cpu")
+
+
+def _fn(name, *args, out="double"):
+    """A function call over column symbols (str) and constants
+    ((type, value) pairs)."""
+    def build(n):
+        built = [n.ref(a) if isinstance(a, str) else n.const(*a) for a in args]
+        return n.call(name, built, out)
+    return build
+
+
+def _cast(sym, type_name):
+    return lambda n: n.cast(n.ref(sym), type_name)
+
+
+# one case per function family: every expression of a family is held
+# against the reference; integers, booleans, dates and strings bit for bit,
+# DOUBLE at 1e-12 relative, the CDFs at 1e-9 relative or 1e-12 absolute
+FAMILIES = {
+    "rounding": [
+        _fn("round", "x"), _fn("round", "hv"), _fn("round", "hv", ("integer", 0)),
+        _fn("round", "x", ("integer", 2)), _fn("round", "a", ("integer", -3), out="bigint"),
+        _fn("truncate", "x"), _fn("truncate", "hv"), _fn("truncate", "x", ("integer", 1)),
+        _fn("ceil", "x"), _fn("floor", "hv"), _fn("ceiling", "d1", out="decimal(12,2)"),
+        _fn("floor", "d1", out="decimal(12,2)"), _fn("sign", "x"), _fn("sign", "a", out="bigint"),
+        _fn("mod", "i", "j", out="integer"), _fn("mod", "x", "y"),
+        _fn("mod", "a", "bi", out="bigint"),
+        _fn("abs", "a", out="bigint"), _fn("abs", "hv"), _fn("abs", "d2", out="decimal(15,4)"),
+    ],
+    "math": [
+        _fn("cbrt", "x"), _fn("degrees", "x"), _fn("radians", "y"), _fn("cosh", "hv"),
+        _fn("sinh", "hv"), _fn("tanh", "y"), _fn("cot", "y"), _fn("log", "y", "x"),
+        _fn("is_nan", "x", out="boolean"), _fn("is_finite", "x", out="boolean"),
+        _fn("is_infinite", "y", out="boolean"), _fn("greatest", "x", "y", "hv"),
+        _fn("least", "a", "b", out="bigint"),
+        _fn("width_bucket", "x", ("double", -500.0), ("double", 500.0), "sh", out="bigint"),
+        _fn("pi"), _fn("e"), _fn("nan"), _fn("infinity"),
+    ],
+    "bitwise": [
+        _fn(name, "bi", "a", out="bigint")
+        for name in ("bitwise_and", "bitwise_or", "bitwise_xor")
+    ] + [
+        _fn("bitwise_not", "bi", out="bigint"),
+        _fn("bitwise_left_shift", "bi", "sh", out="bigint"),
+        _fn("bitwise_right_shift", "bi", "sh", out="bigint"),
+        _fn("bitwise_right_shift_arithmetic", "bi", "sh", out="bigint"),
+        _fn("bit_count", "bi", out="bigint"), _fn("bit_count", "bi", "sh", out="bigint"),
+        _fn("hash64", "bi", "i", out="bigint"),
+    ],
+    "cdf": [
+        _fn("normal_cdf", ("double", 0.0), ("double", 1.0), "hv"),
+        _fn("inverse_normal_cdf", ("double", 1.0), ("double", 2.0), "p"),
+        _fn("beta_cdf", ("double", 2.0), ("double", 3.0), "p"),
+        _fn("beta_cdf", ("double", 0.5), ("double", 40.0), "p"),
+        _fn("binomial_cdf", ("integer", 20), "p", "j"),
+        _fn("f_cdf", ("double", 4.0), ("double", 9.0), "hv"),
+        _fn("t_cdf", ("double", 7.0), "hv"), _fn("t_pdf", ("double", 7.0), "hv"),
+        _fn("chi_squared_cdf", ("double", 3.0), "hv"),
+        _fn("gamma_cdf", ("double", 2.0), ("double", 1.5), "hv"),
+        _fn("poisson_cdf", ("double", 4.0), "j"),
+        _fn("laplace_cdf", ("double", 1.0), ("double", 2.0), "hv"),
+        _fn("inverse_laplace_cdf", ("double", 1.0), ("double", 2.0), "p"),
+        _fn("cauchy_cdf", ("double", 1.0), ("double", 2.0), "hv"),
+        _fn("inverse_cauchy_cdf", ("double", 1.0), ("double", 2.0), "p"),
+        _fn("weibull_cdf", ("double", 2.0), ("double", 3.0), "hv"),
+        _fn("inverse_weibull_cdf", ("double", 2.0), ("double", 3.0), "p"),
+        _fn("wilson_interval_lower", "j", ("integer", 20), ("double", 1.96)),
+        _fn("wilson_interval_upper", "j", ("integer", 20), ("double", 1.96)),
+    ],
+    "date_parts": [
+        _fn(name, "dm", out="bigint") for name in (
+            "year", "month", "day", "quarter", "day_of_week", "day_of_year", "week",
+            "year_of_week", "dow", "doy", "week_of_year", "yow", "day_of_month")
+    ] + [
+        _fn("last_day_of_month", "dm", out="date"), _fn("last_day_of_month", "ts", out="date"),
+        _fn("date", "ts", out="date"), _fn("month", "ts", out="bigint"),
+        _fn("hour", "ts", out="bigint"), _fn("minute", "ts", out="bigint"),
+        _fn("second", "tm", out="bigint"), _fn("millisecond", "tm", out="bigint"),
+        _fn("hour", "ttz", out="bigint"), _fn("day", "ttz", out="bigint"),
+        _fn("minute", "twtz", out="bigint"), _fn("timezone_hour", "ttz", out="bigint"),
+        _fn("timezone_minute", "ttz", out="bigint"), _fn("to_milliseconds", "a", out="bigint"),
+    ],
+    "date_arithmetic": [
+        _fn("date_trunc", ("varchar", unit), "dm", out="date")
+        for unit in ("day", "week", "month", "quarter", "year")
+    ] + [
+        _fn("date_trunc", ("varchar", "month"), "ts", out="timestamp"),
+    ] + [
+        _fn("date_add", ("varchar", unit), "j", "dm", out="date")
+        for unit in ("day", "week", "month", "quarter", "year")
+    ] + [
+        _fn("date_add", ("varchar", "month"), "j", "ts", out="timestamp"),
+    ] + [
+        _fn("date_diff", ("varchar", unit), "dt", "dm", out="bigint")
+        for unit in ("day", "week", "month", "quarter", "year")
+    ],
+    "strings": [
+        _fn(name, "t", out="varchar") for name in (
+            "upper", "lower", "trim", "reverse", "soundex", "md5", "sha256", "xxhash64",
+            "to_hex", "to_base64", "to_utf8", "normalize", "word_stem", "murmur3")
+    ] + [
+        _fn("replace", "t", ("varchar", "O"), ("varchar", "0"), out="varchar"),
+        _fn("split_part", "t", ("varchar", "_"), ("bigint", 2), out="varchar"),
+        _fn("translate", "t", ("varchar", "AO"), ("varchar", "o"), out="varchar"),
+        _fn("lpad", "s", ("bigint", 6), ("varchar", "*-"), out="varchar"),
+        _fn("rpad", "t", ("bigint", 3), ("varchar", "."), out="varchar"),
+        _fn("regexp_extract", "t", ("varchar", "([A-Z])_?([A-Z])"), ("bigint", 2),
+            out="varchar"),
+        _fn("regexp_replace", "t", ("varchar", "([A-Z])"), ("varchar", "<$1>"),
+            out="varchar"),
+        _fn("concat", "s", ("varchar", "/"), "t", out="varchar"),
+        _fn("length", "t", out="bigint"), _fn("codepoint", "s", out="bigint"),
+        _fn("strpos", "t", ("varchar", "O"), out="bigint"),
+        _fn("strrpos", "t", ("varchar", "O"), out="bigint"),
+        _fn("regexp_count", "t", ("varchar", "[A-Z]"), out="bigint"),
+        _fn("regexp_position", "t", ("varchar", "[0-9]"), out="bigint"),
+        _fn("crc32", "t", out="bigint"),
+        _fn("levenshtein_distance", "t", ("varchar", "PROMO"), out="bigint"),
+        _fn("hamming_distance", "s", ("varchar", "SHIP"), out="bigint"),
+        _fn("regexp_like", "t", ("varchar", "^P.*[OX]$"), out="boolean"),
+        _fn("starts_with", "t", ("varchar", "PRO"), out="boolean"),
+        _fn("ends_with", "s", ("varchar", "IL"), out="boolean"),
+        _fn("luhn_check", "u", out="boolean"),
+        _fn("from_base", "u", ("bigint", 16), out="bigint"),
+        _fn("from_iso8601_date", "u", out="date"),
+    ],
+    "temporal_casts": [
+        _cast("ttz", "timestamp"), _cast("ts", "timestamp(3) with time zone"),
+        _cast("ttz", "date"), _cast("ts", "time(3)"), _cast("ttz", "time(3)"),
+        _cast("twtz", "time(3)"), _cast("tm", "time(3) with time zone"),
+        _cast("dm", "timestamp(3) with time zone"), _cast("dm", "timestamp"),
+        _cast("ts", "date"), _cast("u", "date"), _cast("u", "bigint"), _cast("u", "double"),
+        _cast("u", "boolean"), _cast("u", "decimal(10,2)"),
+        _fn("$lt", "ttz", ("timestamp(3) with time zone", (1 << 42) | 841), out="boolean"),
+        _fn("$eq", "twtz", ("time(3) with time zone", 841), out="boolean"),
+        _fn("$gte", "tm", ("time(3)", 43_200_000_000), out="boolean"),
+    ],
+}
+CDF_REL, CDF_ABS = 1e-9, 1e-12
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_function_family_matches_reference(family, data):
+    for i, build in enumerate(FAMILIES[family]):
+        ref_expr, port_expr = build(NS(rir, rtypes)), build(NS(pir, ptypes))
+        want_data, want_valid, want_dict = _ref_eval(ref_expr, data)
+        got_data, got_valid, got_dict = _port_eval(port_expr, data)
+        where = f"{family}[{i}] {port_expr}"
+        np.testing.assert_array_equal(got_valid, want_valid, err_msg=where)
+        assert got_data.dtype == want_data.dtype, where
+        got, want = got_data[got_valid], want_data[want_valid]
+        if got.dtype.kind != "f":
+            np.testing.assert_array_equal(got, want, err_msg=where)
+            assert got_dict == want_dict, where
+        elif family == "cdf":
+            np.testing.assert_allclose(got, want, rtol=CDF_REL, atol=CDF_ABS, equal_nan=True,
+                                       err_msg=where)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=0, equal_nan=True,
+                                       err_msg=where)
+
+
+def test_random_is_uniform_in_its_bounds():
+    """random() and random(n): a salt per compilation, so only the bounds
+    compare with the reference."""
+    n = NS(pir, ptypes)
+    layout = {s: pc.ColumnLayout(ptypes.parse_type(t)) for s, (t, _) in COLUMNS.items()}
+    u = pc.compile_expression(n.call("random", [], "double"), layout, N, "cpu")[0]({})
+    assert bool(u.valid.all()) and 0 <= float(u.data.min()) and float(u.data.max()) < 1
+    k = pc.compile_expression(
+        n.call("random", [n.const("bigint", 5)], "bigint"), layout, N, "cpu")[0]({})
+    assert bool(k.valid.all()) and set(k.data.tolist()) <= set(range(5))
+
+
+@pytest.mark.parametrize("type_name", [
+    "time(3)", "time(3) with time zone", "timestamp(3) with time zone"])
+def test_temporal_storage_round_trip_matches_reference(type_name, data):
+    """A temporal column stored in the port decodes to the reference's
+    Python values, zoned values in their own offsets."""
+    from trino_tpu.spi.page import Column as RefColumn
+    from trino_tpu_torch.spi.page import Column
+
+    sym = {"time(3)": "tm", "time(3) with time zone": "twtz",
+           "timestamp(3) with time zone": "ttz"}[type_name]
+    vals, valid = data[sym]
+    want = RefColumn.from_numpy(rtypes.parse_type(type_name), vals, valid).decode()
+    got = Column.from_numpy(ptypes.parse_type(type_name), vals, valid, device="cpu").decode()
+    assert list(got) == list(want)
+    assert [getattr(v, "tzinfo", None) for v in got] == [getattr(v, "tzinfo", None) for v in want]

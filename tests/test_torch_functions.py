@@ -1,0 +1,364 @@
+"""The scalar functions, the temporal types and the aggregate long tail
+through ``trino_tpu.runtime.LocalQueryRunner`` and ``trino_tpu_torch``'s on
+the CPU: the SQL of ``tests/test_queries.py``'s function cases,
+``tests/test_scalar_long_tail.py``, ``tests/test_temporal_types.py``, the
+statistical and bitwise aggregates of ``tests/test_agg_long_tail.py`` and
+``tests/test_approx_aggs.py``, statement by statement through both runners,
+each over its reference file's TPC-H fixture.
+
+Column names, column types and rows must be identical, DOUBLE at 1e-9
+relative (``tests/test_torch_tpch_corpus.assert_same_rows``); the CDF cases
+hold DOUBLE at 1e-9 relative or 1e-12 absolute, whichever is looser (a
+CDF near 0 has no relative scale, and the port's incomplete beta is its
+own continued fraction). Where the reference raises, the port must raise
+an exception of the same class with the same message. ``random`` is held
+to its bounds only. The functions the port leaves to the nested-type slice
+(JSON, URL, arrays, maps, ``sequence``, tdigest) each have one case that
+asserts the port raises naming them.
+"""
+
+import math
+
+import pytest
+
+from tests.test_torch_statements import _apply, _engine, assert_same_outcome
+
+# (fixture scale, statements), by reference file and test
+CASES = {
+    # ---- tests/test_queries.py: the cases that need this slice
+    "queries_stddev_variance": (0.0005, [
+        "SELECT stddev(l_quantity), variance(l_quantity) FROM lineitem"]),
+    "queries_date_trunc": (0.0005, [
+        "SELECT date_trunc('month', DATE '1995-07-17'), date_trunc('year', DATE '1995-07-17'), "
+        "date_trunc('quarter', DATE '1995-08-17'), date_trunc('week', DATE '2026-07-29')"]),
+    "queries_date_add": (0.0005, [
+        "SELECT date_add('month', 1, DATE '1995-01-31'), date_add('day', 10, DATE '1995-12-28'), "
+        "date_add('year', -1, DATE '1996-02-29')"]),
+    "queries_date_diff": (0.0005, [
+        "SELECT date_diff('day', DATE '1995-01-01', DATE '1995-03-01'), "
+        "date_diff('month', DATE '1995-01-15', DATE '1996-03-01'), "
+        "date_diff('year', DATE '1990-06-01', DATE '1995-02-01')"]),
+    "queries_date_trunc_on_column": (0.0005, [
+        "SELECT count(DISTINCT date_trunc('year', o_orderdate)) FROM orders"]),
+    "queries_regexp_like": (0.0005, [
+        "SELECT count(*) FROM nation WHERE regexp_like(n_name, '^A')"]),
+    "queries_regexp_extract_groups_and_null": (0.0005, [
+        "SELECT regexp_extract(n_name, '^(.)(.)', 2) FROM nation ORDER BY n_name LIMIT 2",
+        "SELECT count(regexp_extract(n_name, 'ZZZ')) FROM nation"]),
+    "queries_regexp_replace": (0.0005, [
+        "SELECT regexp_replace(n_name, '[AEIOU]', '_') FROM nation ORDER BY n_name LIMIT 1"]),
+    "queries_reverse_lpad_rpad": (0.0005, [
+        "SELECT reverse('abc'), lpad('7', 3, '0'), rpad('ab', 4, 'xy')"]),
+    # ---- tests/test_scalar_long_tail.py
+    "scalar_constants": (0.001, ["SELECT pi()", "SELECT e()", "SELECT nan()",
+                                 "SELECT infinity()"]),
+    "scalar_angle_and_hyperbolic": (0.001, [
+        "SELECT degrees(pi())", "SELECT radians(180.0)", "SELECT cosh(1.0)",
+        "SELECT tanh(0.5)"]),
+    "scalar_truncate": (0.001, ["SELECT truncate(3.789)", "SELECT truncate(3.789, 2)",
+                                "SELECT truncate(-3.789)"]),
+    "scalar_predicates": (0.001, ["SELECT is_nan(nan())", "SELECT is_finite(1.0)",
+                                  "SELECT is_infinite(1.0 / 0.0)"]),
+    "scalar_width_bucket": (0.001, [
+        "SELECT width_bucket(5.0, 0.0, 10.0, 4)", "SELECT width_bucket(-1.0, 0.0, 10.0, 4)",
+        "SELECT width_bucket(11.0, 0.0, 10.0, 4)"]),
+    "scalar_bitwise_basics": (0.001, [
+        "SELECT bitwise_and(12, 10)", "SELECT bitwise_or(12, 10)", "SELECT bitwise_xor(12, 10)",
+        "SELECT bitwise_not(0)", "SELECT bitwise_not(-1)"]),
+    "scalar_bitwise_shifts": (0.001, [
+        "SELECT bitwise_left_shift(1, 10)", "SELECT bitwise_right_shift(1024, 3)",
+        "SELECT bitwise_right_shift(-1, 62)"]),
+    "scalar_bit_count": (0.001, ["SELECT bit_count(255)", "SELECT bit_count(0)",
+                                 "SELECT bit_count(-1, 64)", "SELECT bit_count(-1, 8)"]),
+    "scalar_iso_week_edges": (0.001, [
+        "SELECT week(DATE '2026-01-01')", "SELECT year_of_week(DATE '2026-01-01')",
+        "SELECT week(DATE '2021-01-01')", "SELECT yow(DATE '2021-01-01')",
+        "SELECT week(DATE '2024-12-30')", "SELECT year_of_week(DATE '2024-12-30')"]),
+    "scalar_week_against_python": (0.001, [
+        "SELECT o_orderdate, week(o_orderdate), year_of_week(o_orderdate) FROM orders LIMIT 200"]),
+    "scalar_last_day_of_month": (0.001, [
+        "SELECT last_day_of_month(DATE '2024-02-10')",
+        "SELECT last_day_of_month(DATE '2023-02-10')",
+        "SELECT last_day_of_month(DATE '2026-12-31')"]),
+    "scalar_date_aliases": (0.001, [
+        "SELECT day_of_month(DATE '2026-07-30')", "SELECT dow(DATE '2026-07-30')",
+        "SELECT doy(DATE '2026-02-01')"]),
+    "scalar_split_part": (0.001, ["SELECT split_part('a,b,c', ',', 2)",
+                                  "SELECT split_part('a,b,c', ',', 9)"]),
+    "scalar_translate": (0.001, ["SELECT translate('hello', 'el', 'ip')",
+                                 "SELECT translate('abcd', 'bd', 'x')"]),
+    "scalar_codepoint": (0.001, ["SELECT codepoint('A')"]),
+    "scalar_distances_over_column": (0.001, [
+        "SELECT n_name, levenshtein_distance(n_name, 'CHINA') FROM nation "
+        "WHERE n_name IN ('CHINA', 'INDIA') ORDER BY n_name",
+        "SELECT hamming_distance('abc', 'abd')", "SELECT hamming_distance('abc', 'abcd')"]),
+    "scalar_math_cdfs": (0.001, [
+        "SELECT log(2.0, 8.0), normal_cdf(0.0, 1.0, 1.96), "
+        "inverse_normal_cdf(0.0, 1.0, 0.975), beta_cdf(2.0, 3.0, 0.5)"]),
+    "scalar_wilson_interval": (0.001, [
+        "SELECT wilson_interval_lower(10, 100, 1.96), wilson_interval_upper(10, 100, 1.96)"]),
+    "scalar_hash_and_encoding": (0.001, [
+        "SELECT md5('abc'), sha256(''), crc32('abc'), to_base64('hello'), "
+        "from_base64('aGVsbG8='), to_hex('AB'), from_hex('4142')"]),
+    "scalar_regexp_count_position": (0.001, [
+        "SELECT regexp_count('a1b2c3', '[0-9]'), regexp_position('xxy7', '[0-9]'), "
+        "regexp_position('xxy', '[0-9]')"]),
+    "scalar_luhn_and_iso_date": (0.001, [
+        "SELECT luhn_check('79927398713'), luhn_check('79927398714'), "
+        "from_iso8601_date('2001-08-22')"]),
+    "scalar_timezone_extracts": (0.001, [
+        "SELECT timezone_hour(TIMESTAMP '2001-08-22 03:04:05.321 +07:09'), "
+        "timezone_minute(TIMESTAMP '2001-08-22 03:04:05.321 +07:09')"]),
+    "scalar_normalize": (0.001, ["SELECT normalize('café')"]),
+    "scalar_cdf_symmetry_points": (0.001, [
+        "SELECT cauchy_cdf(0.0, 1.0, 0.0)", "SELECT laplace_cdf(0.0, 1.0, 0.0)",
+        "SELECT t_cdf(10.0, 0.0)"]),
+    "scalar_cdf_known_values": (0.001, [
+        "SELECT chi_squared_cdf(2.0, 2.0)", "SELECT weibull_cdf(1.0, 1.0, 1.0)",
+        "SELECT poisson_cdf(1.0, 100)", "SELECT binomial_cdf(10, 0.5, 5)"]),
+    "scalar_cdf_inverse_round_trips": (0.001, [
+        "SELECT cauchy_cdf(1.0, 2.0, inverse_cauchy_cdf(1.0, 2.0, 0.3))",
+        "SELECT laplace_cdf(1.0, 2.0, inverse_laplace_cdf(1.0, 2.0, 0.7))",
+        "SELECT weibull_cdf(2.0, 3.0, inverse_weibull_cdf(2.0, 3.0, 0.4))"]),
+    "scalar_t_pdf_and_cdf_slope": (0.001, [
+        "SELECT t_cdf(10.0, 1.0E-5)", "SELECT t_cdf(10.0, -1.0E-5)",
+        "SELECT t_pdf(10.0, 0.0)"]),
+    "scalar_length_aliases_and_positions": (0.001, [
+        "SELECT char_length('hello')", "SELECT character_length('hello')",
+        "SELECT ends_with('hello', 'llo')", "SELECT strrpos('ababa', 'a')",
+        "SELECT strrpos('ababa', 'z')"]),
+    "scalar_soundex_known": (0.001, ["SELECT soundex('Robert')", "SELECT soundex('Rupert')",
+                                     "SELECT soundex('Tymczak')"]),
+    "scalar_utf8_round_trip": (0.001, ["SELECT from_utf8(to_utf8('héllo'))"]),
+    "scalar_hashes_known_vectors": (0.001, ["SELECT xxhash64('hello')",
+                                            "SELECT hmac_sha256('msg', 'key')"]),
+    "scalar_date_parse_mysql_tokens": (0.001, [
+        "SELECT date_parse('2021-03-04 05:06:07', '%Y-%m-%d %H:%i:%s')"]),
+    "scalar_parse_datetime_joda": (0.001, [
+        "SELECT parse_datetime('04/03/2021 05:06', 'dd/MM/yyyy HH:mm')"]),
+    "scalar_iso_timestamp_with_zone": (0.001, [
+        "SELECT from_iso8601_timestamp('2021-03-04T05:06:07+02:00')"]),
+    "scalar_parse_duration_units": (0.001, [
+        "SELECT to_milliseconds(parse_duration('1.5 s'))",
+        "SELECT to_milliseconds(parse_duration('2h'))"]),
+    "scalar_folded_formatters": (0.001, [
+        "SELECT to_iso8601(DATE '2021-03-04')",
+        "SELECT date_format(TIMESTAMP '2021-03-04 05:06:07', '%Y/%m/%d %H:%i')",
+        "SELECT format_datetime(TIMESTAMP '2021-03-04 05:06:07', 'yyyy-MM-dd')",
+        "SELECT human_readable_seconds(93784)", "SELECT chr(65)", "SELECT to_base(255, 16)",
+        "SELECT from_base('ff', 16)"]),
+    "scalar_date_cast_function": (0.001, ["SELECT date(TIMESTAMP '2021-03-04 05:06:07')"]),
+    "scalar_bitwise_arithmetic_shift": (0.001, [
+        "SELECT bitwise_right_shift_arithmetic(-8, 1)", "SELECT bitwise_right_shift(8, 1)"]),
+    "scalar_try": (0.001, ["SELECT try(1/0)", "SELECT try(6/2)"]),
+    "scalar_version_and_timezone": (0.001, ["SELECT version()", "SELECT current_timezone()"]),
+    "scalar_inverse_beta_cdf": (0.001, ["SELECT inverse_beta_cdf(2.0, 3.0, 0.5)"]),
+    # the reference's deviations from Trino, copied (ROADMAP Queue 3):
+    # DOUBLE ties round to even, a DECIMAL round keeps its value, and a
+    # substr start <= 0 slices from the end
+    "scalar_round_ties": (0.001, [
+        "SELECT round(CAST(2.5 AS double)), round(CAST(-2.5 AS double)), "
+        "round(CAST(0.5 AS double)), round(CAST(1.25 AS double), 1)",
+        "SELECT round(x) FROM (VALUES 2.5e0, -3.5e0, 4.5e0) t(x)",
+        "SELECT round(2.5), round(-2.5), round(x) FROM (VALUES 2.5, -3.5, 4.51) t(x)"]),
+    "scalar_substr_start_not_positive": (0.001, [
+        "SELECT substr('hello', 0), substr('hello', -2), substr('hello', -3, 2)",
+        "SELECT n_name, substr(n_name, 0), substr(n_name, -3, 2) FROM nation ORDER BY 1"]),
+    # ---- tests/test_temporal_types.py
+    "time_literal": (0.0005, ["SELECT TIME '10:30:05.123'"]),
+    "time_extract_fields": (0.0005, [
+        "SELECT hour(TIME '10:30:05'), minute(TIME '10:30:05'), second(TIME '10:30:05')"]),
+    "time_comparison_and_minmax": (0.0005, [
+        "SELECT TIME '09:00:00' < TIME '10:00:00'",
+        "SELECT min(t1), max(t1) FROM (VALUES (TIME '09:00:00'), (TIME '17:30:00')) v(t1)"]),
+    "time_cast_timestamp_to_time": (0.0005, [
+        "SELECT CAST(TIMESTAMP '2020-06-01 12:34:56' AS time)"]),
+    "time_null": (0.0005, ["SELECT CAST(NULL AS time)"]),
+    "ttz_literal_fixed_offset": (0.0005, ["SELECT TIMESTAMP '2020-06-01 12:00:00 +05:30'"]),
+    "ttz_named_zone": (0.0005, ["SELECT TIMESTAMP '2020-06-01 12:00:00 Asia/Kolkata'"]),
+    "ttz_equality_is_by_instant": (0.0005, [
+        "SELECT TIMESTAMP '2020-06-01 12:00:00 +05:30' = TIMESTAMP '2020-06-01 06:30:00 UTC'",
+        "SELECT TIMESTAMP '2020-06-01 12:00:00 Asia/Kolkata' < "
+        "TIMESTAMP '2020-06-01 07:00:00 UTC'"]),
+    "ttz_extract_in_value_zone": (0.0005, [
+        "SELECT hour(TIMESTAMP '2020-06-01 12:00:00 +05:30'), "
+        "day(TIMESTAMP '2020-06-01 01:00:00 +05:30')"]),
+    "ttz_cast_to_timestamp_keeps_wall_time": (0.0005, [
+        "SELECT CAST(TIMESTAMP '2020-06-01 12:00:00 +05:30' AS timestamp)"]),
+    "ttz_cast_from_timestamp_attaches_utc": (0.0005, [
+        "SELECT CAST(TIMESTAMP '2020-06-01 12:00:00' AS timestamp(3) with time zone)"]),
+    "ttz_column_filter": (0.0005, [
+        "SELECT count(*) FROM (SELECT CAST(o_orderdate AS timestamp(3) with time zone) AS ttz "
+        "FROM orders) t WHERE ttz >= TIMESTAMP '1998-01-01 00:00:00 UTC'"]),
+    "twtz_literal_and_display": (0.0005, ["SELECT TIME '10:00:00+02:00'"]),
+    "twtz_instant_ordering_and_comparison": (0.0005, [
+        "SELECT t FROM (VALUES (TIME '10:00:00+02:00'), (TIME '09:30:00+00:00'), "
+        "(TIME '03:00:00-08:00')) x(t) ORDER BY t",
+        "SELECT TIME '10:00:00+02:00' < TIME '09:30:00+00:00'"]),
+    "twtz_casts_both_ways": (0.0005, [
+        "SELECT CAST(TIME '10:00:00+02:00' AS time), "
+        "CAST(TIME '12:34:56' AS time with time zone)"]),
+    "twtz_equality_is_by_instant": (0.0005, [
+        "SELECT TIME '10:00:00+02:00' = TIME '08:00:00+00:00'"]),
+    # ---- tests/test_agg_long_tail.py: the statistical and bitwise classes
+    "agg_min_by_max_by": (0.0005, [
+        "SELECT n_regionkey, min_by(n_name, n_nationkey), max_by(n_name, n_nationkey) "
+        "FROM nation GROUP BY n_regionkey ORDER BY n_regionkey"]),
+    "agg_min_by_global": (0.0005, ["SELECT max_by(o_orderkey, o_totalprice) FROM orders"]),
+    "agg_corr_and_covar": (0.0005, [
+        "SELECT corr(l_extendedprice, l_quantity), covar_pop(l_extendedprice, l_quantity), "
+        "covar_samp(l_extendedprice, l_quantity) FROM lineitem"]),
+    "agg_regr_slope_intercept": (0.0005, [
+        "SELECT regr_slope(l_extendedprice, l_quantity), "
+        "regr_intercept(l_extendedprice, l_quantity) FROM lineitem"]),
+    "agg_skewness_kurtosis": (0.0005, [
+        "SELECT skewness(l_quantity), kurtosis(l_quantity) FROM lineitem"]),
+    "agg_geometric_mean": (0.0005, [
+        "SELECT geometric_mean(l_quantity) FROM lineitem WHERE l_quantity > 0"]),
+    "agg_checksum_order_insensitive": (0.0005, [
+        "SELECT checksum(l_orderkey) FROM lineitem",
+        "SELECT checksum(l_orderkey) FROM (SELECT l_orderkey FROM lineitem "
+        "ORDER BY l_extendedprice)",
+        "SELECT checksum(l_orderkey) FROM lineitem WHERE l_orderkey > 10"]),
+    "agg_grouped_two_column_stats": (0.0005, [
+        "SELECT l_returnflag, corr(l_extendedprice, l_quantity) FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"]),
+    "agg_checksum_all_null_group": (0.0005, [
+        "SELECT checksum(x) FROM (VALUES CAST(NULL AS bigint)) t(x)"]),
+    "agg_regression_full_family": (0.0005, [
+        "SELECT regr_count(l_quantity, l_extendedprice), "
+        "regr_avgx(l_quantity, l_extendedprice), regr_avgy(l_quantity, l_extendedprice), "
+        "regr_sxx(l_quantity, l_extendedprice), regr_syy(l_quantity, l_extendedprice), "
+        "regr_sxy(l_quantity, l_extendedprice), regr_r2(l_quantity, l_extendedprice) "
+        "FROM lineitem"]),
+    "agg_r2_constant_y_is_one": (0.0005, [
+        "SELECT regr_r2(y, x) FROM (VALUES (1.0, 1.0), (1.0, 2.0), (1.0, 3.0)) t(y, x)"]),
+    "agg_r2_constant_x_is_null": (0.0005, [
+        "SELECT regr_r2(y, x) FROM (VALUES (1.0, 2.0), (2.0, 2.0)) t(y, x)"]),
+    "agg_entropy": (0.0005, ["SELECT entropy(l_linenumber) FROM lineitem"]),
+    "agg_entropy_empty_is_null": (0.0005, [
+        "SELECT entropy(l_linenumber) FROM lineitem WHERE l_orderkey < 0"]),
+    "agg_bitwise_global": (0.0005, [
+        "SELECT bitwise_and_agg(l_orderkey), bitwise_or_agg(l_orderkey), "
+        "bitwise_xor_agg(l_orderkey) FROM lineitem"]),
+    "agg_bitwise_grouped": (0.0005, [
+        "SELECT l_returnflag, bitwise_xor_agg(l_orderkey), bitwise_and_agg(l_linenumber) "
+        "FROM lineitem GROUP BY 1 ORDER BY 1"]),
+    "agg_bitwise_nulls_ignored_and_empty_null": (0.0005, [
+        "SELECT bitwise_or_agg(x) FROM (VALUES 1, NULL, 4) t(x)",
+        "SELECT bitwise_or_agg(x) FROM (VALUES CAST(NULL AS bigint)) t(x)"]),
+    # ---- tests/test_approx_aggs.py
+    "approx_distinct_global": (0.002, ["SELECT approx_distinct(l_orderkey) FROM lineitem"]),
+    "approx_distinct_small_cardinality": (0.002, [
+        "SELECT approx_distinct(l_linestatus) FROM lineitem"]),
+    "approx_distinct_grouped": (0.002, [
+        "SELECT l_returnflag, approx_distinct(l_partkey) FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"]),
+    "approx_distinct_null_only_group": (0.002, [
+        "SELECT approx_distinct(CASE WHEN l_quantity < 0 THEN l_orderkey END) FROM lineitem"]),
+    "approx_percentile_global_median": (0.002, [
+        "SELECT approx_percentile(l_quantity, 0.5) FROM lineitem"]),
+    "approx_percentile_extremes": (0.002, [
+        "SELECT approx_percentile(l_extendedprice, 0.0), "
+        "approx_percentile(l_extendedprice, 1.0), min(l_extendedprice), "
+        "max(l_extendedprice) FROM lineitem"]),
+    "approx_percentile_grouped": (0.002, [
+        "SELECT l_returnflag, approx_percentile(l_quantity, 0.9) FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"]),
+}
+
+# cases whose DOUBLE columns also pass at 1e-12 absolute
+CDF_CASES = frozenset({
+    "scalar_math_cdfs", "scalar_cdf_symmetry_points", "scalar_cdf_known_values",
+    "scalar_cdf_inverse_round_trips", "scalar_t_pdf_and_cdf_slope",
+})
+CDF_ABS_TOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def runners():
+    """(reference, port) TPC-H runners by fixture scale, made on first use."""
+    made = {}
+    ref_e, port_e = _engine(True), _engine(False)
+
+    def get(scale):
+        if scale not in made:
+            made[scale] = (ref_e.Runner.tpch(scale=scale, **ref_e.kw),
+                           port_e.Runner.tpch(scale=scale, **port_e.kw))
+        return made[scale]
+
+    return ref_e, port_e, get
+
+
+def _loosen_to_abs(got, want):
+    """A DOUBLE result that misses 1e-9 relative but is within 1e-12
+    absolute of the reference is taken as the reference's value."""
+    if want[0] != "ok" or got[0] != "ok" or len(got[3]) != len(want[3]):
+        return got
+    rows = []
+    for g, w in zip(got[3], want[3]):
+        rows.append(tuple(
+            b if isinstance(a, float) and isinstance(b, float) and not math.isnan(b)
+            and abs(a - b) <= CDF_ABS_TOL else a
+            for a, b in zip(g, w)))
+    return got[:3] + (rows,)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_function_sql_matches_reference(case, runners):
+    ref_e, port_e, get = runners
+    scale, statements = CASES[case]
+    ref, port = get(scale)
+    for sql in statements:
+        want = _apply(ref_e, ref, sql)
+        got = _apply(port_e, port, sql)
+        if case in CDF_CASES:
+            got = _loosen_to_abs(got, want)
+        assert_same_outcome(got, want, sql)
+
+
+def test_type_display_matches_reference():
+    from trino_tpu.spi.types import parse_type as ref_parse
+    from trino_tpu_torch.spi.types import parse_type
+
+    for text in ("timestamp(3) with time zone", "time(3)", "time(3) with time zone"):
+        assert parse_type(text).display() == ref_parse(text).display()
+
+
+def test_random_within_bounds(runners):
+    """random() draws a salt per compilation, so only its bounds and its
+    spread compare (the reference test's own checks)."""
+    _, _, get = runners
+    _, port = get(0.001)
+    assert port.execute(
+        "SELECT min(r) >= 0.0, max(r) < 1.0 FROM (SELECT random() AS r FROM lineitem)"
+    ).rows == [(True, True)]
+    (distinct,) = port.execute(
+        "SELECT count(DISTINCT r) FROM (SELECT random() AS r FROM lineitem)").rows[0]
+    assert distinct > 100
+    lo, hi = port.execute(
+        "SELECT min(r), max(r) FROM (SELECT random(7) AS r FROM lineitem)").rows[0]
+    assert 0 <= lo and hi < 7
+
+
+# left for the nested-type slice: each raises naming its function
+UNPORTED = {
+    "json": ("SELECT json_exists('{\"a\":1}', '$.a')", "json_exists"),
+    "url": ("SELECT url_extract_host('http://example.com/a')", "url_extract_host"),
+    "array_returning_string": ("SELECT split('a,b,c', ',')", "split"),
+    "arrays": ("SELECT array_except(ARRAY[1,2,3,2], ARRAY[2])", "array"),
+    "maps": ("SELECT map_agg(k, v) FROM (VALUES ('x',1),('y',2)) t(k,v)", "map_agg"),
+    "sequence": ("SELECT * FROM TABLE(sequence(1, 5))", "table_function"),
+    "tdigest": ("SELECT tdigest_agg(l_quantity) FROM lineitem", "tdigest"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_out_of_scope_function_raises_naming_it(case, runners):
+    from trino_tpu_torch.ops.compiler import CompileError
+
+    _, _, get = runners
+    _, port = get(0.001)
+    sql, name = UNPORTED[case]
+    with pytest.raises((NotImplementedError, CompileError), match=name):
+        port.execute(sql)

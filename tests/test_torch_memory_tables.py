@@ -248,3 +248,23 @@ def test_rollback_of_a_bucketed_table_matches_reference():
     assert port_conn.table(name).bucketed_by == ref_conn.table(ref_name).bucketed_by == ()
     sql = "SELECT k, count(*), sum(v) FROM facts GROUP BY k ORDER BY k"
     assert_same_rows(port.execute(sql), ref.execute(sql))
+
+
+def test_insert_of_a_narrower_decimal_matches_reference():
+    """INSERT stores the source page's columns with the source's types, so
+    a DECIMAL(3,1) inserted into a DECIMAL(10,2) column keeps its scale-1
+    integers and 1.5 reads back as 0.15 in both engines: a deviation of the
+    reference, copied (ROADMAP Queue 3)."""
+    from trino_tpu.connectors.memory import MemoryConnector as RefMemory
+
+    ref, port = RefRunner(), LocalQueryRunner(device="cpu")
+    ref.register_catalog("memory", RefMemory())
+    port.register_catalog("memory", MemoryConnector(device="cpu"))
+    for r in (ref, port):
+        r.execute("CREATE TABLE memory.default.d (x decimal(10,2))")
+        r.execute("INSERT INTO memory.default.d SELECT CAST(1.5 AS decimal(3,1))")
+        r.execute("INSERT INTO memory.default.d VALUES (CAST(2.25 AS decimal(10,2)))")
+    sql = "SELECT x, x + 0 FROM memory.default.d"
+    got, want = port.execute(sql), ref.execute(sql)
+    assert_same_rows(got, want)
+    assert [r[0] for r in got.rows] == [0.15, 2.25]

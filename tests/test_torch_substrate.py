@@ -123,7 +123,8 @@ def test_import_loads_neither_jax_nor_reference():
         " 'trino_tpu_torch.connectors.memory', 'trino_tpu_torch.runtime.transactions',"
         " 'trino_tpu_torch.runtime.dml', 'trino_tpu_torch.runtime.catalog_factories',"
         " 'trino_tpu_torch.connectors.synthetic',"
-        " 'trino_tpu_torch.connectors.information_schema'}\n"
+        " 'trino_tpu_torch.connectors.information_schema',"
+        " 'trino_tpu_torch.ops.scalar_functions', 'trino_tpu_torch.ops.string_functions'}\n"
         "missing = sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"

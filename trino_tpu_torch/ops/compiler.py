@@ -1,11 +1,11 @@
 """Expression compiler: IR -> torch closures.
 
-The port's counterpart of ``trino_tpu.ops.compiler`` for the expressions
-this slice runs. A compiled expression is a host closure ``fn(env) -> CVal``
-where ``env`` maps plan symbols to :class:`CVal` (data tensor, validity
-tensor); closures are cached per (expression, input layout, capacity,
-device), as the reference caches them per (expression, layout). PyTorch runs
-eagerly, so a closure is the program: there is no trace.
+The port's counterpart of ``trino_tpu.ops.compiler``. A compiled expression
+is a host closure ``fn(env) -> CVal`` where ``env`` maps plan symbols to
+:class:`CVal` (data tensor, validity tensor); closures are cached per
+(expression, input layout, capacity, device), as the reference caches them
+per (expression, layout). PyTorch runs eagerly, so a closure is the
+program: there is no trace.
 
 Null semantics are the reference's mask-based three-valued logic:
 arithmetic and comparisons are valid where every input is; AND/OR follow
@@ -13,20 +13,23 @@ Kleene logic. String semantics ride the sorted-dictionary invariant:
 ``col <op> 'literal'`` compares int32 codes, and IN lists over a dictionary
 column arrive as host-built boolean LUTs (``InLut``) indexed by code.
 
-Lowered here: references and constants; comparisons; ``$and``, ``$or``,
-``$not``, IS [NOT] NULL; searched CASE (simple CASE arrives lowered to it);
-``coalesce``; integer, short-decimal and DOUBLE ``+ - * / %`` and negation
-(integral division truncates toward zero over a divisor clipped to 1, as
-the reference computes it); CASTs among integers, short decimals (with
-round-half-up rescale), DOUBLE/REAL and BOOLEAN; ``year`` of a DATE or
-TIMESTAMP; dictionary-coded ``=``/``<>``/ranges, ``InLut`` and LIKE (a host
-LUT over the dictionary's values, gathered by code); ``substr``/``substring``
-(a host transform of the dictionary plus a device remap of codes). Anything
-else raises :class:`CompileError` naming the function.
+Lowered here: references and constants; comparisons (the zoned temporal
+types by instant); ``$and``, ``$or``, ``$not``, IS [NOT] NULL; searched
+CASE; ``coalesce``, ``nullif``; the scalar function table of
+``ops/scalar_functions.py`` (arithmetic, math, the CDFs, bitwise and date
+parts); ``date_trunc``/``date_add``/``date_diff`` with a constant unit;
+``random``; CASTs among the numeric, temporal and boolean types and from
+VARCHAR; the long-decimal limb forms; and the string functions of
+``ops/string_functions.py``, each a host transform of the dictionary's
+values gathered on the device by code. The JSON, URL and array-valued
+string functions raise naming themselves; anything else raises
+:class:`CompileError` naming the function.
 """
 
 from __future__ import annotations
 
+import math
+import random
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -34,14 +37,18 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._unported import unported
 from ..spi.page import Dictionary
 from . import int128 as i128
+from . import kernels as K
 from ..spi.types import (
     BOOLEAN,
     DATE,
     UNKNOWN,
     DecimalType,
-    TimestampType,
+    TimestampWithTimeZoneType,
+    TimeType,
+    TimeWithTimeZoneType,
     Type,
     is_floating,
     is_integral,
@@ -50,6 +57,26 @@ from ..spi.types import (
     is_string,
 )
 from ..sql.ir import Call, Case, CastExpr, Constant, InLut, IrExpr, Reference
+from .scalar_functions import (
+    _COMPARE,
+    _SIMPLE_FUNCS,
+    DAY_MICROS,
+    CompileError,
+    _civil_from_days,
+    _days_from_civil,
+    _days_of,
+    _micros_of_day,
+)
+from .string_functions import (
+    _DISTANCE_FUNCS,
+    _STRING_FUNCS,
+    _STRING_INT_LUTS,
+    _STRING_LENGTH_FUNCS,
+    STRING_FUNCTIONS,
+    UNPORTED_STRING_FUNCS,
+    _like_to_regex,
+    _string_cast_lut,
+)
 
 
 @dataclass
@@ -69,10 +96,6 @@ class ColumnLayout:
 
     type: Type
     dictionary: Optional[Dictionary] = None
-
-
-class CompileError(ValueError):
-    pass
 
 
 Env = Dict[str, CVal]
@@ -102,128 +125,6 @@ def _div_round(x: torch.Tensor, divisor: int) -> torch.Tensor:
     """Round-half-up integer division (Trino decimal rescale semantics)."""
     half = divisor // 2
     return torch.where(x >= 0, (x + half) // divisor, -((-x + half) // divisor))
-
-
-_COMPARE = {
-    "$eq": lambda a, b: a == b,
-    "$ne": lambda a, b: a != b,
-    "$lt": lambda a, b: a < b,
-    "$lte": lambda a, b: a <= b,
-    "$gt": lambda a, b: a > b,
-    "$gte": lambda a, b: a >= b,
-}
-
-def _true_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a / b`` in the reference's promotion: floats keep their width,
-    integers divide in float64 (torch alone would pick float32)."""
-    if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
-        a, b = a.to(torch.float64), b.to(torch.float64)
-    return a / b
-
-
-def _divide(a, b, out_type: Type):
-    """Integral division truncates toward zero over ``|b|`` clipped to 1
-    (a zero divisor gives 0, as in the reference); any other result type
-    divides in IEEE."""
-    if is_integral(out_type):
-        q = torch.div(a.abs(), b.abs().clamp(min=1), rounding_mode="floor")
-        return q * (a.sign() * b.sign())
-    return _true_divide(a, b)
-
-
-def _modulus(a, b, out_type: Type):
-    """Integral and decimal ``%`` takes the dividend's sign over ``|b|``
-    clipped to 1; floating ``%`` is the reference's floor modulus (the
-    divisor's sign)."""
-    if isinstance(out_type, DecimalType) or is_integral(out_type):
-        return torch.remainder(a.abs(), b.abs().clamp(min=1)) * a.sign()
-    return torch.remainder(a, b)
-
-
-# name -> fn(a, b, out_type); the arguments arrive in one numeric type (the
-# planner casts mixed operands), except decimal x decimal, whose scales add
-_ARITH = {
-    "$add": lambda a, b, o: a + b,
-    "$subtract": lambda a, b, o: a - b,
-    "$multiply": lambda a, b, o: a * b,
-    "$divide": _divide,
-    "$modulus": _modulus,
-}
-
-
-def _to_f64(x: torch.Tensor, t: Type) -> torch.Tensor:
-    """A numeric argument as DOUBLE (a decimal divided by its scale)."""
-    x = x.to(torch.float64)
-    return x / float(10**t.scale) if isinstance(t, DecimalType) else x
-
-
-# name -> torch function of DOUBLE arguments (the reference's math table,
-# operator/scalar/MathFunctions.java, for the functions the port lowers)
-_FLOAT_FUNCS = {
-    "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log, "log2": torch.log2,
-    "log10": torch.log10, "power": torch.pow, "pow": torch.pow, "sin": torch.sin,
-    "cos": torch.cos, "tan": torch.tan, "asin": torch.asin, "acos": torch.acos,
-    "atan": torch.atan, "atan2": torch.atan2,
-}
-
-
-def _civil_from_days(z: torch.Tensor):
-    """days since 1970-01-01 -> (year, month, day), int64; Howard Hinnant's
-    integer-only algorithm (floor division throughout)."""
-    z = z.to(torch.int64) + 719468
-    era = torch.div(z, 146097, rounding_mode="floor")
-    doe = z - era * 146097
-    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
-    y = yoe + era * 400
-    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
-    mp = (5 * doy + 2) // 153
-    d = doy - (153 * mp + 2) // 5 + 1
-    m = mp + torch.where(mp < 10, 3, -9)
-    y = y + (m <= 2).to(torch.int64)
-    return y, m, d
-
-
-def _has_days(t: Type) -> bool:
-    return t == DATE or isinstance(t, TimestampType)
-
-
-def _days_of(x: torch.Tensor, t: Type) -> torch.Tensor:
-    """Days since the epoch of a DATE (days) or TIMESTAMP (microseconds)."""
-    if t == DATE:
-        return x
-    return torch.div(x, 86_400_000_000, rounding_mode="floor")
-
-
-def _like_to_regex(pattern: str, escape: Optional[str] = None) -> "re.Pattern":
-    """SQL LIKE -> a compiled regex: ``%`` any run, ``_`` one character,
-    ``escape`` makes the next character literal. It runs on the host over
-    dictionary values."""
-    out = []
-    i = 0
-    while i < len(pattern):
-        ch = pattern[i]
-        if escape and ch == escape and i + 1 < len(pattern):
-            out.append(re.escape(pattern[i + 1]))
-            i += 2
-            continue
-        if ch == "%":
-            out.append(".*")
-        elif ch == "_":
-            out.append(".")
-        else:
-            out.append(re.escape(ch))
-        i += 1
-    return re.compile("".join(out), re.DOTALL)
-
-
-def _substr(s: str, start, length=None) -> str:
-    # the reference's slice: 1-based start, optional length
-    b = int(start) - 1
-    return s[b:] if length is None else s[b:b + int(length)]
-
-
-# dictionary transforms: name -> fn(value, *constant args)
-_STRING_FUNCS: Dict[str, Callable] = {"substr": _substr, "substring": _substr}
 
 
 def _build_code_lut(new_values):
@@ -264,12 +165,61 @@ def _gather_codes(lut: Optional[torch.Tensor], codes: torch.Tensor) -> torch.Ten
     return lut[codes.to(torch.int64).clamp(0, lut.shape[0] - 1)]
 
 
+def _stat_combine(stat: str, s1: CVal, s2: CVal, cn: CVal) -> CVal:
+    """stddev/variance from their partial sums (``fragmenter``'s split into
+    ``$fsum``/``$fsumsq``/count), the reference's one-pass formula."""
+    n = cn.data.clamp(min=1).to(torch.float64)
+    mean = s1.data / n
+    var_pop = (s2.data / n - mean * mean).clamp(min=0.0)
+    if stat in ("var_pop", "stddev_pop"):
+        var, valid = var_pop, cn.data > 0
+    else:
+        var, valid = var_pop * n / (n - 1).clamp(min=1), cn.data > 1
+    data = torch.sqrt(var) if stat.startswith("stddev") else var
+    return CVal(data, s1.valid & s2.valid & valid)
+
+
+def _temporal_cast(src: Type, dst: Type) -> Optional[Callable]:
+    """The data conversion of a cast among DATE, TIMESTAMP, TIME and their
+    zoned forms, or None. A value without a zone takes UTC, the session
+    zone; a zoned value converts to its wall time in its own zone."""
+    ttz, twtz = TimestampWithTimeZoneType, TimeWithTimeZoneType
+    src_ts = src.name.startswith("timestamp")
+    if isinstance(src, twtz) and isinstance(dst, TimeType):
+        return lambda x: torch.remainder(
+            (x >> 12) + ((x & 0xFFF) - 841) * 60_000_000, DAY_MICROS)
+    if isinstance(src, TimeType) and isinstance(dst, twtz):
+        return lambda x: (x.to(torch.int64) << 12) | 841
+    if isinstance(src, ttz) and dst.name == "timestamp":
+        return lambda x: ((x >> 12) + ((x & 0xFFF) - 841) * 60_000) * 1000
+    if src.name == "timestamp" and isinstance(dst, ttz):
+        return lambda x: (torch.div(x, 1000, rounding_mode="floor") << 12) | 841
+    if isinstance(src, ttz) and dst == DATE:
+        return lambda x: _days_of(x, src).to(torch.int32)
+    if src_ts and isinstance(dst, TimeType):
+        return lambda x: _micros_of_day(x, src)
+    if isinstance(src, TimeType) and isinstance(dst, TimeType):
+        return lambda x: x
+    if src == DATE and isinstance(dst, ttz):
+        return lambda x: ((x.to(torch.int64) * 86_400_000) << 12) | 841
+    if src == DATE and dst.name.startswith("timestamp"):
+        return lambda x: x.to(torch.int64) * DAY_MICROS
+    if src_ts and dst == DATE:
+        return lambda x: torch.div(x, DAY_MICROS, rounding_mode="floor").to(torch.int32)
+    return None
+
+
+_NULLARY_CONSTANTS = {"pi": math.pi, "e": math.e, "nan": math.nan, "infinity": math.inf}
+
+
 class _Compiler:
     def __init__(self, layout: Dict[str, ColumnLayout], capacity: int, device):
         self.layout = layout
         self.capacity = capacity
         self.device = device
         self._memo: Dict[int, Tuple[Compiled, Optional[Dictionary]]] = {}
+        # the salt source of random(): each compilation draws its own
+        self.rng = random.Random()
 
     def _full(self, value, dtype: torch.dtype) -> torch.Tensor:
         return torch.full((self.capacity,), value, dtype=dtype, device=self.device)
@@ -365,6 +315,20 @@ class _Compiler:
                 return CVal(self._full(0, dst.torch_dtype), self._full(False, torch.bool))
 
             return null_fn, None
+        if is_string(src) and in_dict is not None:
+            # one host parse per dictionary value; a malformed value is NULL
+            # for its rows
+            lut_np, ok_np = _string_cast_lut(in_dict.values, dst)
+            if lut_np is not None:
+                lut = torch.as_tensor(lut_np, device=self.device)
+                ok = torch.as_tensor(ok_np, device=self.device)
+
+                def dictcast_fn(env: Env) -> CVal:
+                    v = inner(env)
+                    idx = v.data.to(torch.int64).clamp(0, lut.shape[0] - 1)
+                    return CVal(lut[idx], v.valid & ok[idx])
+
+                return dictcast_fn, None
         if is_long_decimal(src) or is_long_decimal(dst):
             return self._compile_long_cast(inner, src, dst), None
         src_int = is_integral(src) or src == BOOLEAN
@@ -434,6 +398,14 @@ class _Compiler:
                 return CVal(v.data != 0, v.valid)
 
             return bool_fn, None
+        temporal = _temporal_cast(src, dst)
+        if temporal is not None:
+
+            def temporal_fn(env: Env) -> CVal:
+                v = inner(env)
+                return CVal(temporal(v.data), v.valid)
+
+            return temporal_fn, None
         raise CompileError(f"unsupported cast {src.display()} -> {dst.display()}")
 
     def _compile_long_cast(self, inner: Compiled, src: Type, dst: Type) -> Compiled:
@@ -614,7 +586,7 @@ class _Compiler:
             return self._compile_string_comparison(expr)
         if name == "$like":
             return self._compile_like(expr)
-        if name in _STRING_FUNCS:
+        if name in STRING_FUNCTIONS:
             return self._compile_string_function(expr)
         arg_fns = [self.compile(a)[0] for a in expr.args]
 
@@ -656,40 +628,158 @@ class _Compiler:
 
         if name == "coalesce":
             return self._compile_coalesce(expr, arg_fns)
+        if name == "nullif":
+
+            def nullif_fn(env: Env) -> CVal:
+                a, b = arg_fns[0](env), arg_fns[1](env)
+                same = (a.data == b.data).all(-1) if a.data.ndim == 2 else a.data == b.data
+                return CVal(a.data, a.valid & ~(same & a.valid & b.valid))
+
+            return nullif_fn, None
         if name == "$avg_combine":
             return self._compile_avg_combine(expr, arg_fns), None
+        if name.startswith("$") and name.endswith("_combine"):
+            # $<stddev|variance...>_combine(s1, s2, n)
+            stat = name[1:].rsplit("_combine", 1)[0]
+            return (lambda env: _stat_combine(stat, *(f(env) for f in arg_fns))), None
 
         if name in ("$dec_limb", "$i128_recombine", "$i128_avg"):
             return self._compile_limb_call(expr, arg_fns), None
         if any(is_long_decimal(a.type) for a in expr.args) or is_long_decimal(expr.type):
             return self._compile_long_call(expr, arg_fns), None
-        out_type = expr.type
-        if name in _COMPARE:
-            op = _COMPARE[name]
-        elif name in _ARITH and all(is_numeric(a.type) for a in expr.args):
-            arith = _ARITH[name]
-            op = lambda a, b: arith(a, b, out_type)  # noqa: E731
-        elif name == "$negate" and is_numeric(out_type):
-            op = torch.neg
-        elif name in _FLOAT_FUNCS and all(is_numeric(a.type) for a in expr.args):
-            fn, arg_types = _FLOAT_FUNCS[name], [a.type for a in expr.args]
-            op = lambda *d: fn(*(_to_f64(x, t) for x, t in zip(d, arg_types)))  # noqa: E731
-        elif name == "year" and _has_days(expr.args[0].type):
-            arg_type = expr.args[0].type
-            op = lambda d: _civil_from_days(_days_of(d, arg_type))[0]  # noqa: E731
-        else:
+        if name in ("date_trunc", "date_add", "date_diff"):
+            return self._compile_datetime_fn(expr)
+        if name in _NULLARY_CONSTANTS and not expr.args:
+            value = _NULLARY_CONSTANTS[name]
+            return (lambda env: CVal(self._full(value, torch.float64),
+                                     self._full(True, torch.bool))), None
+        if name in ("random", "rand"):
+            return self._compile_random(arg_fns), None
+
+        impl = _SIMPLE_FUNCS.get(name)
+        if impl is None:
             raise CompileError(f"no device lowering for function {name}")
+        arg_types = [a.type for a in expr.args]
+        out_type = expr.type
         out_dt = out_type.torch_dtype
 
         def call_fn(env: Env) -> CVal:
             vals = [f(env) for f in arg_fns]
-            data = op(*(v.data for v in vals))
-            valid = vals[0].valid
+            data = impl([v.data for v in vals], arg_types, out_type)
+            valid = vals[0].valid if vals else self._full(True, torch.bool)
             for v in vals[1:]:
                 valid = valid & v.valid
             return CVal(data if data.dtype == out_dt else data.to(out_dt), valid)
 
         return call_fn, None
+
+    def _compile_random(self, arg_fns) -> Compiled:
+        """random() in [0, 1) and random(n) in [0, n): SplitMix64 of the row
+        index plus a salt drawn once per compilation (as in the reference, a
+        cached closure replays its sequence)."""
+        salt = self.rng.getrandbits(63)
+        bound = arg_fns[0] if arg_fns else None
+
+        def random_fn(env: Env) -> CVal:
+            idx = torch.arange(self.capacity, dtype=torch.int64, device=self.device) + salt
+            u = K._shift_right_logical(K.splitmix64(idx), 11).to(torch.float64) / float(1 << 53)
+            if bound is None:
+                return CVal(u, self._full(True, torch.bool))
+            b = bound(env)
+            n = b.data.clamp(min=1).to(torch.float64)
+            return CVal(torch.floor(u * n).to(torch.int64), b.valid & (b.data > 0))
+
+        return random_fn
+
+    def _compile_datetime_fn(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
+        """date_trunc/date_add/date_diff with a constant unit
+        (DateTimeFunctions.java): calendar math on the device through the
+        civil-date conversions; date_add of months clamps the day to the
+        target month's length."""
+        name = expr.name
+        unit_arg = expr.args[0]
+        if not isinstance(unit_arg, Constant) or not isinstance(unit_arg.value, str):
+            raise CompileError(f"{name}: unit must be a string literal")
+        unit = unit_arg.value.lower().rstrip("s")
+        if unit not in ("day", "week", "month", "quarter", "year"):
+            raise CompileError(f"{name} unit {unit!r} not supported")
+        out_dt = expr.type.torch_dtype
+        months = {"month": 1, "quarter": 3, "year": 12}.get(unit)
+
+        def from_days(out_days, src_t, valid):
+            if src_t == DATE:
+                return CVal(out_days.to(out_dt), valid)
+            return CVal((out_days * DAY_MICROS).to(out_dt), valid)
+
+        if name == "date_trunc":
+            inner, _ = self.compile(expr.args[1])
+            src_t = expr.args[1].type
+
+            def trunc_fn(env: Env) -> CVal:
+                v = inner(env)
+                days = _days_of(v.data, src_t).to(torch.int64)
+                if unit == "day":
+                    out_days = days
+                elif unit == "week":  # ISO weeks start on Monday
+                    out_days = days - torch.remainder(days + 3, 7)
+                else:
+                    y, m, _ = _civil_from_days(days)
+                    if unit == "quarter":
+                        m = ((m - 1) // 3) * 3 + 1
+                    elif unit == "year":
+                        m = torch.ones_like(m)
+                    out_days = _days_from_civil(y, m, torch.ones_like(m))
+                return from_days(out_days, src_t, v.valid)
+
+            return trunc_fn, None
+
+        if name == "date_add":
+            amount_fn, _ = self.compile(expr.args[1])
+            inner, _ = self.compile(expr.args[2])
+            src_t = expr.args[2].type
+
+            def add_fn(env: Env) -> CVal:
+                amt, v = amount_fn(env), inner(env)
+                days = _days_of(v.data, src_t).to(torch.int64)
+                n = amt.data.to(torch.int64)
+                if unit == "day":
+                    out_days = days + n
+                elif unit == "week":
+                    out_days = days + 7 * n
+                else:
+                    y, m, d = _civil_from_days(days)
+                    total = y * 12 + (m - 1) + n * months
+                    ny = torch.div(total, 12, rounding_mode="floor")
+                    nm = torch.remainder(total, 12) + 1
+                    one = torch.ones_like(nm)
+                    month_start = _days_from_civil(ny, nm, one)
+                    next_start = _days_from_civil(
+                        ny + (nm == 12).to(ny.dtype), torch.where(nm == 12, 1, nm + 1), one)
+                    out_days = month_start + torch.minimum(d, next_start - month_start) - 1
+                return from_days(out_days, src_t, v.valid & amt.valid)
+
+            return add_fn, None
+
+        # date_diff(unit, a, b): the unit boundaries from a to b
+        a_fn, _ = self.compile(expr.args[1])
+        b_fn, _ = self.compile(expr.args[2])
+        at, bt = expr.args[1].type, expr.args[2].type
+
+        def diff_fn(env: Env) -> CVal:
+            va, vb = a_fn(env), b_fn(env)
+            da = _days_of(va.data, at).to(torch.int64)
+            db = _days_of(vb.data, bt).to(torch.int64)
+            if unit == "day":
+                out = db - da
+            elif unit == "week":
+                out = torch.div(db - da, 7, rounding_mode="floor")
+            else:
+                ya, ma, _ = _civil_from_days(da)
+                yb, mb, _ = _civil_from_days(db)
+                out = torch.div((yb * 12 + mb) - (ya * 12 + ma), months, rounding_mode="floor")
+            return CVal(out.to(out_dt), va.valid & vb.valid)
+
+        return diff_fn, None
 
     def _compile_coalesce(self, expr: Call, arg_fns) -> Tuple[Compiled, Optional[Dictionary]]:
         """The first non-NULL argument; strings from several dictionaries
@@ -737,23 +827,155 @@ class _Compiler:
 
         return like_fn, None
 
-    def _compile_string_function(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
-        """A string function of a dictionary column and constant arguments:
-        the host applies it once per dictionary value, the output
-        dictionary is the sorted set of results, and the device remaps
-        codes through an old-code -> new-code LUT."""
-        name, value = expr.name, expr.args[0]
-        d = self._dict_of(value)
-        if d is None:
-            raise CompileError(f"{name} requires a dictionary column")
+    def _const_args(self, expr: Call, what: str = "non-leading arguments") -> list:
         args = []
         for a in expr.args[1:]:
             if not isinstance(a, Constant):
-                raise CompileError(f"{name}: non-leading arguments must be constant")
+                raise CompileError(f"{expr.name}: {what} must be constant")
             args.append(a.value)
+        return args
+
+    def _lut_fn(self, value: IrExpr, lut_np: np.ndarray, ok_np=None) -> Compiled:
+        """A closure gathering a host LUT over ``value``'s dictionary codes
+        (``ok_np`` False marks a NULL result)."""
+        inner, _ = self.compile(value)
+        lut = torch.as_tensor(lut_np, device=self.device)
+        ok = None if ok_np is None else torch.as_tensor(ok_np, device=self.device)
+
+        def lut_fn(env: Env) -> CVal:
+            v = inner(env)
+            codes = v.data.to(torch.int64).clamp(0, lut.shape[0] - 1)
+            valid = v.valid if ok is None else v.valid & ok[codes]
+            return CVal(lut[codes], valid)
+
+        return lut_fn
+
+    def _compile_concat(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
+        """concat over constants and up to two dictionary columns: the output
+        dictionary is the product of the inputs' values, built on the host
+        once; the device maps a pair of codes through an int LUT."""
+        dyn = [i for i, a in enumerate(expr.args) if not isinstance(a, Constant)]
+        consts = {i: a.value for i, a in enumerate(expr.args) if isinstance(a, Constant)}
+        if not dyn:
+            if any(v is None for v in consts.values()):
+                return self.compile(Constant(expr.type, None))
+            return self.compile(Constant(
+                expr.type, "".join(str(consts[i]) for i in range(len(expr.args)))))
+        dicts = {i: self._dict_of(expr.args[i]) for i in dyn}
+        if any(d is None for d in dicts.values()):
+            raise CompileError("concat requires dictionary-coded string columns")
+        if len(dyn) > 2:
+            raise CompileError("concat over 3+ non-constant strings not supported yet")
+        sizes = [len(dicts[i]) for i in dyn]
+        if len(dyn) == 2 and sizes[0] * sizes[1] > 1 << 16:
+            raise CompileError(f"concat product vocabulary too large ({sizes[0]}x{sizes[1]})")
+
+        def render(vals):  # argument index -> string value
+            parts = []
+            for i in range(len(expr.args)):
+                v = vals.get(i) if i in dicts else consts.get(i)
+                if v is None:
+                    return None
+                parts.append(str(v))
+            return "".join(parts)
+
+        if len(dyn) == 1:
+            new_values = [render({dyn[0]: s}) for s in dicts[dyn[0]].values]
+        else:
+            i0, i1 = dyn
+            new_values = [render({i0: s0, i1: s1})
+                          for s0 in dicts[i0].values for s1 in dicts[i1].values]
+        out_dict, lut_np = _build_code_lut(new_values)
+        lut = torch.as_tensor(lut_np, device=self.device)
+        fns = [self.compile(expr.args[i])[0] for i in dyn]
+        n1 = sizes[1] if len(dyn) == 2 else 1
+
+        def concat_fn(env: Env) -> CVal:
+            vals = [f(env) for f in fns]
+            pair = vals[0].data.to(torch.int64)
+            valid = vals[0].valid
+            if len(vals) == 2:
+                pair = pair * n1 + vals[1].data
+                valid = valid & vals[1].valid
+            codes = lut[pair.clamp(0, lut.shape[0] - 1)]
+            return CVal(codes.clamp(min=0), valid & (codes >= 0), out_dict)
+
+        return concat_fn, out_dict
+
+    def _compile_string_function(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
+        """A string function of a dictionary column and constant arguments:
+        the host applies it once per dictionary value. A string result's
+        dictionary is the sorted set of results and the device remaps codes
+        through an old-code -> new-code LUT; a number or boolean result is
+        a LUT gathered by code."""
+        name = expr.name
+        if name in UNPORTED_STRING_FUNCS:
+            unported(f"function {name}")
+        if name == "concat":
+            return self._compile_concat(expr)
+        value = expr.args[0]
+        d = self._dict_of(value)
+        if d is None:
+            raise CompileError(f"{name} requires a dictionary column")
+        vals = list(d.values)
+        if name in _STRING_LENGTH_FUNCS:
+            return self._lut_fn(value, np.array([len(s) for s in vals], dtype=np.int64)), None
+        if name == "codepoint":
+            return self._lut_fn(
+                value, np.array([ord(s[0]) if s else 0 for s in vals], dtype=np.int64)), None
+        if name in _STRING_INT_LUTS:
+            fn, dtype = _STRING_INT_LUTS[name]
+            args = self._const_args(expr)
+            results = []
+            for s in vals:
+                try:
+                    results.append(fn(s, *args))
+                except Exception:  # noqa: BLE001 - a per-value failure is NULL
+                    results.append(None)
+            lut_np = np.array([(-1 if r is None else r) for r in results],
+                              dtype=np.int64 if dtype != np.bool_ else np.bool_)
+            ok_np = np.array([r is not None for r in results], dtype=np.bool_)
+            return self._lut_fn(value, lut_np, ok_np), None
+        if name in _DISTANCE_FUNCS:
+            other = expr.args[1]
+            if not isinstance(other, Constant):
+                raise CompileError(f"{name}: second argument must be constant")
+            dist = _DISTANCE_FUNCS[name]
+            lut_np = np.array([dist(s, other.value or "") for s in vals], dtype=np.int64)
+            return self._lut_fn(value, lut_np, lut_np >= 0), None
+        if name == "strpos":
+            if not isinstance(expr.args[1], Constant):
+                raise CompileError("strpos needle must be constant")
+            needle = expr.args[1].value
+            return self._lut_fn(
+                value, np.array([s.find(needle) + 1 for s in vals], dtype=np.int64)), None
+        if name == "starts_with":
+            if not isinstance(expr.args[1], Constant):
+                raise CompileError("starts_with prefix must be constant")
+            # a prefix is one code range of the sorted dictionary
+            prefix = expr.args[1].value
+            lo = d.searchsorted(prefix, "left")
+            hi = d.searchsorted(prefix + "￿", "right")
+            inner, _ = self.compile(value)
+
+            def starts_fn(env: Env) -> CVal:
+                v = inner(env)
+                return CVal((v.data >= lo) & (v.data < hi), v.valid)
+
+            return starts_fn, None
+        if name == "regexp_like":
+            if not isinstance(expr.args[1], Constant):
+                raise CompileError("regexp_like pattern must be constant")
+            rx = re.compile(expr.args[1].value)
+            lut_np = np.fromiter((rx.search(s) is not None for s in vals),
+                                 dtype=np.bool_, count=len(vals))
+            return self._lut_fn(value, lut_np), None
+
+        args = self._const_args(expr)
         if any(v is None for v in args):
             return self.compile(Constant(expr.type, None))  # a SQL NULL argument
-        out_dict, lut_np = _build_code_lut([_STRING_FUNCS[name](s, *args) for s in d.values])
+        transform = _STRING_FUNCS[name]
+        out_dict, lut_np = _build_code_lut([transform(s, *args) for s in vals])
         lut = torch.as_tensor(lut_np, device=self.device)
         inner, _ = self.compile(value)
 

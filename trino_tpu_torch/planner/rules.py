@@ -136,9 +136,7 @@ def _typed_fold(name: str, args):
         d = _fold_datetime_value(args[0])
         return d.date().isoformat() if args[0].type == _DATE else d.isoformat()
     if name in ("date_format", "format_datetime"):
-        from .._unported import unported
-
-        unported("ops.compiler date formats")
+        from ..ops.string_functions import _joda_format, _mysql_format
 
         fmt = _mysql_format(vals[1]) if name == "date_format" else _joda_format(vals[1])
         return _fold_datetime_value(args[0]).strftime(fmt)

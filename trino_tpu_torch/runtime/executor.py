@@ -56,6 +56,7 @@ from ..spi.page import Column, Dictionary, Page
 from ..spi.types import (
     BIGINT,
     BOOLEAN,
+    DOUBLE,
     DecimalType,
     Type,
     VectorType,
@@ -657,7 +658,9 @@ class PlanExecutor:
         if all(k in key_sources for k in node.group_keys):
             domains = _direct_agg_domains(_KeyView(key_sources), node)
         needed = _needed_agg_symbols(node)
-        presorted = bool(post_sorted) and post_sorted[0] == node.group_keys[0]
+        # the re-sorting aggregates need the group sort's dense prefix
+        presorted = (bool(post_sorted) and post_sorted[0] == node.group_keys[0]
+                     and not any(a.function in _RESORT_AGGS for _, a in node.aggregations))
 
         pr = MK.probe_phase(
             pkeys, bkeys, luts, probe.page.active, build.page.active, spec.left_outer
@@ -1090,8 +1093,8 @@ def _maybe_compact(rel: Relation, density: int = 4, min_cap: int = 8192) -> Rela
 # aggregation
 # --------------------------------------------------------------------------- #
 
-# Functions the direct-indexed path supports in the reference; those this
-# slice does not evaluate raise in _eval_aggregate.
+# Functions the direct-indexed path supports (approx_distinct, DISTINCT and
+# the rest of the long tail stay on the sort path, as in the reference).
 _DIRECT_AGG_FUNCS = frozenset(
     {
         "count", "count_if", "sum", "avg", "min", "max", "bool_and", "every",
@@ -1100,6 +1103,23 @@ _DIRECT_AGG_FUNCS = frozenset(
     }
 )
 DIRECT_GROUP_LIMIT = 256
+
+# aggregates whose evaluation re-sorts rows by group and reads the group
+# bounds by position: the presorted path must hand them a dense active
+# prefix (the reference's _RESORT_AGGS, less those the port does not
+# evaluate yet)
+_RESORT_AGGS = frozenset({"approx_distinct", "approx_percentile"})
+
+# families of the long tail in _eval_aggregate
+_TWO_COLUMN_AGGS = frozenset({
+    "corr", "covar_samp", "covar_pop", "regr_slope", "regr_intercept",
+    "regr_count", "regr_avgx", "regr_avgy", "regr_sxx", "regr_syy",
+    "regr_sxy", "regr_r2",
+})
+_VARIANCE_AGGS = frozenset(
+    {"stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop"})
+_BITWISE_AGGS = {"bitwise_and_agg": "band", "bitwise_or_agg": "bor",
+                 "bitwise_xor_agg": "bxor"}
 
 
 def _direct_agg_domains(rel: Relation, node: AggregationNode):
@@ -1172,6 +1192,8 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
     if node.group_keys:
         sorted_page = None
         if rel.sorted_by and rel.sorted_by[0] == node.group_keys[0]:
+            if any(a.function in _RESORT_AGGS for _, a in node.aggregations):
+                rel = _force_dense(rel)
             p, ng, n_grp, viol = _presorted_group_impl(
                 node.group_keys, needed, rel.symbols, rel.page
             )
@@ -1192,6 +1214,15 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
         num_groups,
     )
     return Relation(page, out_symbols)
+
+
+def _force_dense(rel: Relation) -> Relation:
+    """Compact unless the active rows already form a dense prefix."""
+    n = rel.page.num_rows()
+    if n == rel.capacity or bool(rel.page.active[:n].all()):
+        return rel
+    page = _compact(rel.page, rel.page.active, _round_capacity(max(n, 1)))
+    return Relation(page, rel.symbols, rel.sorted_by)
 
 
 def _presorted_group_impl(group_keys, needed, symbols, page: Page):
@@ -1253,55 +1284,90 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     """The sort-path (and keyless) reduction over a group-sorted page:
     each group's key from its first row, and every aggregate from
     ``reduce_fn``: sums and counts by cumsum at the group boundaries,
-    min/max by a scatter on the group index. With ``segment_kernel`` the
-    integer sums and counts run in ``hopper_kernels.segment_sum`` (the
-    fused path's ``aggregate_phase``)."""
+    min/max and the bitwise reductions by a scatter on the group index.
+    With ``segment_kernel`` the integer sums and counts run in
+    ``hopper_kernels.segment_sum`` (the fused path's ``aggregate_phase``).
+    The long tail's helpers are the reference's: an exact distinct count
+    and the percentile re-sort each group's rows by value (a stable sort,
+    so a group's rows keep their positions and ``starts``), and
+    ``approx_distinct`` takes HyperLogLog registers when their state fits."""
     rel = Relation(page, symbols)
     active = page.active
     device = active.device
-    if not group_keys:
-
-        def global_reduce(vals, w, kind):
-            return K.segment_reduce(vals, w, None, 1, kind)
-
-        cols = [
-            _eval_aggregate(rel, agg, active, 1, global_reduce, None)
-            for _, agg in aggregations
-        ]
-        # exactly one output row even over empty input
-        return Page(tuple(cols), torch.ones(1, dtype=torch.bool, device=device))
-
     n = page.capacity
-    starts = K.boundary_positions(new_group, out_cap)
-    ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
-    safe_starts = starts.clamp(0, n - 1)
-    group_exists = torch.arange(out_cap, device=device) < num_groups
+    global_agg = not group_keys
     out_cols: List[Column] = []
-    for k in group_keys:
-        c = rel.column_for(k)
-        out_cols.append(Column(
-            c.type, c.data[safe_starts], c.valid[safe_starts] & group_exists, c.dictionary
-        ))
+    if global_agg:
+        starts, bounds = torch.zeros(1, dtype=torch.int64, device=device), None
+        group_exists = torch.ones(1, dtype=torch.bool, device=device)
+    else:
+        starts = K.boundary_positions(new_group, out_cap)
+        ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
+        bounds = (starts, ends)
+        safe_starts = starts.clamp(0, n - 1)
+        group_exists = torch.arange(out_cap, device=device) < num_groups
+        for k in group_keys:
+            c = rel.column_for(k)
+            out_cols.append(Column(
+                c.type, c.data[safe_starts], c.valid[safe_starts] & group_exists,
+                c.dictionary))
     gid_memo: List[torch.Tensor] = []
 
     def gid() -> torch.Tensor:
         # dense group index per row; rows before the first group read 0
         if not gid_memo:
-            gid_memo.append((K.cumsum(new_group) - 1).clamp(min=0))
+            gid_memo.append(
+                torch.zeros(n, dtype=torch.int64, device=device) if global_agg
+                else (K.cumsum(new_group) - 1).clamp(min=0))
         return gid_memo[0]
 
     def reduce_fn(vals, w, kind):
+        if kind in K.BITWISE_KINDS:
+            return K.bitwise_group_reduce(vals, w, gid(), out_cap, kind, bounds)
+        if global_agg:
+            return K.segment_reduce(vals, w, None, 1, kind)
         if kind in ("sum", "count"):
             if segment_kernel and (kind == "count" or not vals.dtype.is_floating_point):
                 return HK.segment_sum(w if kind == "count" else vals, w, starts)
-            return K.segment_reduce(vals, w, None, out_cap, kind, new_group, (starts, ends))
+            return K.segment_reduce(vals, w, None, out_cap, kind, new_group, bounds)
         return K.segment_reduce(vals, w, gid(), out_cap, kind)
 
     def first_fn(vals, w):
         return K.direct_group_first(vals, w, gid(), out_cap)
 
+    def distinct_count_fn(vals, w):
+        # sorted adjacency inside each group, after a stable re-sort by
+        # (group, value)
+        keys2, (w2,) = K.cosort([K.order_key(vals), gid()], [w])
+        v2, g2 = keys2
+        prev_same = torch.zeros_like(w2)
+        prev_same[1:] = (v2[1:] == v2[:-1]) & (g2[1:] == g2[:-1])
+        ws = w2 & ~prev_same
+        if global_agg:
+            return ws.sum(dtype=torch.int64).reshape(1)
+        return K.segment_reduce(ws.to(torch.int64), ws, g2, out_cap, "count",
+                                new_group, bounds)
+
+    hll_fn = None
+    if out_cap * (1 << K.HLL_BITS) <= (1 << 23):
+
+        def hll_fn(vals, w):  # noqa: F811
+            return K.hll_estimate(K.hll_registers(vals, w, gid(), out_cap))
+
+    def percentile_fn(vals, w, q_g, nonempty):
+        # exact per-group quantile: participants first within each group,
+        # by value, then one gather at the rank offset (clamped to the
+        # group's participants)
+        _, (v2,) = K.cosort([K.order_key(vals), (~w).to(torch.int8), gid()], [vals])
+        top = (nonempty - 1).clamp(min=0)
+        idx = torch.minimum(torch.floor(q_g * top.to(torch.float64)).to(torch.int64)
+                            .clamp(min=0), top)
+        return v2[(starts + idx).clamp(0, n - 1)]
+
     for _, agg in aggregations:
-        out_cols.append(_eval_aggregate(rel, agg, active, out_cap, reduce_fn, first_fn))
+        out_cols.append(_eval_aggregate(
+            rel, agg, active, out_cap, reduce_fn, first_fn, lambda g: g[gid()],
+            distinct_count_fn, hll_fn, percentile_fn))
     return Page(tuple(out_cols), group_exists)
 
 
@@ -1345,6 +1411,8 @@ def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: st
             return HK.grouped_sum_i32(w.to(torch.int32), w, gid, G)
         if use_kernel and kind == "sum" and not vals.dtype.is_floating_point:
             return HK.grouped_sum_i64(vals.to(torch.int64), w, gid, G)
+        if kind in K.BITWISE_KINDS:
+            return K.bitwise_group_reduce(vals, w, gid, G, kind)
         return K.direct_group_reduce(vals, w, gid, G, kind)
 
     group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
@@ -1353,8 +1421,18 @@ def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: st
         return K.direct_group_first(vals, w, gid, G)
 
     for _, agg in aggregations:
-        out_cols.append(_eval_aggregate(rel, agg, active, G, reduce_fn, first_fn))
+        out_cols.append(_eval_aggregate(
+            rel, agg, active, G, reduce_fn, first_fn, lambda g: g[gid.to(torch.int64)]))
     return Page(tuple(out_cols), group_exists)
+
+
+def _to_f64_masked(col: Column, weight: torch.Tensor) -> torch.Tensor:
+    """A numeric column as DOUBLE (a decimal divided by its scale), 0 where
+    the row does not take part."""
+    x = col.data.to(torch.float64)
+    if isinstance(col.type, DecimalType):
+        x = x / float(10**col.type.scale)
+    return torch.where(weight, x, 0.0)
 
 
 def _eval_aggregate(
@@ -1364,11 +1442,17 @@ def _eval_aggregate(
     out_cap: int,
     reduce_fn,
     first_fn,
+    broadcast_fn,
+    distinct_count_fn=None,
+    hll_fn=None,
+    percentile_fn=None,
 ) -> Column:
     """One aggregate, strategy-agnostic: ``reduce_fn(vals, weight, kind)`` is
-    the per-group reduction and ``first_fn`` picks a participating row (None
-    where the strategy has no such pick). The reference's formulas for the
-    aggregates this slice evaluates."""
+    the per-group reduction, ``first_fn`` picks a participating row and
+    ``broadcast_fn`` spreads a per-group value back over the rows; the
+    exact distinct count, the HyperLogLog estimate and the percentile come
+    from the sort path only. The reference's formulas, including its
+    one-pass moments (a sum of squares less the squared mean)."""
     name = agg.function
     out_type = agg.output_type
     device = active.device
@@ -1395,6 +1479,11 @@ def _eval_aggregate(
     if name == "count_if":
         ws = w & vals_s.to(torch.bool)
         return Column(BIGINT, reduce_fn(ws.to(torch.int64), ws, "count"), all_valid)
+    if name in ("$fsum", "$fsumsq"):
+        # float64 partial states of stddev/variance (fragmenter)
+        x = _to_f64_masked(arg, w)
+        data = reduce_fn(x * x if name == "$fsumsq" else x, w, "sum")
+        return Column(DOUBLE, data, all_valid)
     if name in ("sum", "avg"):
         acc_dtype = torch.float64 if is_floating(arg.type) else torch.int64
         data = reduce_fn(vals_s.to(acc_dtype), w, "sum")
@@ -1432,6 +1521,135 @@ def _eval_aggregate(
         ws = w & vals_s.to(torch.bool)
         anytrue = reduce_fn(ws.to(torch.int64), ws, "count")
         return Column(BOOLEAN, anytrue > 0, nonempty > 0)
-    if name in ("arbitrary", "any_value") and first_fn is not None:
+    if name in ("arbitrary", "any_value"):
         return Column(out_type, first_fn(vals_s, w), nonempty > 0, arg.dictionary)
+    if name in _VARIANCE_AGGS:
+        x = _to_f64_masked(arg, w)
+        s1 = reduce_fn(x, w, "sum")
+        s2 = reduce_fn(x * x, w, "sum")
+        n = nonempty.clamp(min=1).to(torch.float64)
+        mean = s1 / n
+        var_pop = (s2 / n - mean * mean).clamp(min=0.0)
+        if name in ("var_pop", "stddev_pop"):
+            var, valid = var_pop, nonempty > 0
+        else:
+            var, valid = var_pop * n / (n - 1).clamp(min=1), nonempty > 1
+        return Column(DOUBLE, torch.sqrt(var) if name.startswith("stddev") else var, valid)
+    if name == "approx_distinct" and (hll_fn or distinct_count_fn):
+        # HyperLogLog registers where the state fits, else the exact count
+        fn = hll_fn if hll_fn is not None else distinct_count_fn
+        return Column(BIGINT, fn(vals_s, w), all_valid)
+    if name == "approx_percentile" and percentile_fn is not None:
+        qcol = rel.column_for(agg.args[1])
+        q = qcol.data.to(torch.float64)
+        if isinstance(qcol.type, DecimalType):
+            q = q / float(10**qcol.type.scale)
+        # a row takes part only where the value and the percentile are both
+        # non-NULL, so the rank count matches the sort's participants
+        wq = w & qcol.valid
+        nq = reduce_fn(wq.to(torch.int64), wq, "count")
+        data = percentile_fn(vals_s, wq, first_fn(q, wq), nq)
+        return Column(out_type, data.to(out_type.torch_dtype), nq > 0, arg.dictionary)
+    if name in ("min_by", "max_by"):
+        # the value of arg 0 at a row where arg 1 is the group's extreme
+        kcol = rel.column_for(agg.args[1])
+        wk = fmask & kcol.valid
+        key = K.encode_sort_column(kcol.data, kcol.valid, True, False)
+        key = torch.where(wk, key, K.INT64_MAX if name == "min_by" else K.INT64_MIN)
+        extreme = reduce_fn(key, wk, "min" if name == "min_by" else "max")
+        at = wk & (key == broadcast_fn(extreme))
+        valid_out = (reduce_fn(wk.to(torch.int64), wk, "count") > 0) & first_fn(arg.valid, at)
+        return Column(out_type, first_fn(vals_s, at), valid_out, arg.dictionary)
+    if name in _TWO_COLUMN_AGGS:
+        # two-column moments, Trino's argument order (y, x)
+        xcol = rel.column_for(agg.args[1])
+        w2 = fmask & arg.valid & xcol.valid
+        y, x = _to_f64_masked(arg, w2), _to_f64_masked(xcol, w2)
+        n2 = reduce_fn(w2.to(torch.int64), w2, "count")
+        if name == "regr_count":
+            return Column(BIGINT, n2, torch.ones_like(n2, dtype=torch.bool))
+        n = n2.clamp(min=1).to(torch.float64)
+        sx, sy = reduce_fn(x, w2, "sum"), reduce_fn(y, w2, "sum")
+        sxy = reduce_fn(x * y, w2, "sum")
+        sxx, syy = reduce_fn(x * x, w2, "sum"), reduce_fn(y * y, w2, "sum")
+        cov_pop = sxy / n - (sx / n) * (sy / n)
+        varx = (sxx / n - (sx / n) ** 2).clamp(min=0.0)
+        vary = (syy / n - (sy / n) ** 2).clamp(min=0.0)
+        if name == "covar_pop":
+            data, valid_out = cov_pop, n2 > 0
+        elif name == "covar_samp":
+            data, valid_out = cov_pop * n / (n - 1).clamp(min=1.0), n2 > 1
+        elif name == "corr":
+            denom = torch.sqrt(varx * vary)
+            data = cov_pop / torch.where(denom > 0, denom, 1.0)
+            valid_out = (n2 > 1) & (denom > 0)
+        elif name in ("regr_slope", "regr_intercept"):
+            slope = cov_pop / torch.where(varx > 0, varx, 1.0)
+            data = slope if name == "regr_slope" else sy / n - slope * (sx / n)
+            valid_out = (n2 > 1) & (varx > 0)
+        elif name == "regr_avgx":
+            data, valid_out = sx / n, n2 > 0
+        elif name == "regr_avgy":
+            data, valid_out = sy / n, n2 > 0
+        elif name == "regr_sxx":
+            data, valid_out = varx * n, n2 > 0
+        elif name == "regr_syy":
+            data, valid_out = vary * n, n2 > 0
+        elif name == "regr_sxy":
+            data, valid_out = cov_pop * n, n2 > 0
+        else:  # regr_r2: 1.0 where y is constant, NULL where x is
+            r2 = (cov_pop * cov_pop) / torch.where(varx * vary > 0, varx * vary, 1.0)
+            data = torch.where(vary > 0, r2, 1.0)
+            valid_out = (n2 > 0) & (varx > 0)
+        return Column(DOUBLE, data, valid_out)
+    if name == "entropy":
+        # log2 entropy of the per-row counts: log2(S) - sum(c log2 c) / S
+        c = _to_f64_masked(arg, w).clamp(min=0.0)
+        s = reduce_fn(c, w, "sum")
+        clogc = torch.where(c > 0, c * torch.log2(torch.where(c > 0, c, 1.0)), 0.0)
+        sl = reduce_fn(clogc, w, "sum")
+        pos = s > 0
+        safe = torch.where(pos, s, 1.0)
+        data = torch.where(pos, torch.log2(safe) - sl / safe, 0.0)
+        return Column(DOUBLE, data.clamp(min=0.0), nonempty > 0)
+    if name in _BITWISE_AGGS:
+        data = reduce_fn(vals_s.to(torch.int64), w, _BITWISE_AGGS[name])
+        return Column(BIGINT, data, nonempty > 0)
+    if name in ("skewness", "kurtosis"):
+        # central moments from the raw power sums
+        x = _to_f64_masked(arg, w)
+        n = nonempty.clamp(min=1).to(torch.float64)
+        s1, s2 = reduce_fn(x, w, "sum"), reduce_fn(x * x, w, "sum")
+        s3 = reduce_fn(x * x * x, w, "sum")
+        m = s1 / n
+        M2 = s2 - s1 * m
+        M3 = s3 - 3 * s2 * m + 2 * s1 * m * m
+        if name == "skewness":
+            data = torch.sqrt(n) * M3 / torch.pow(M2.clamp(min=1e-300), 1.5)
+            valid_out = (nonempty > 2) & (M2 > 0)
+        else:
+            s4 = reduce_fn(x * x * x * x, w, "sum")
+            M4 = s4 - 4 * s3 * m + 6 * s2 * m * m - 3 * s1 * m * m * m
+            data = (n * (n + 1) / ((n - 1) * (n - 2) * (n - 3)).clamp(min=1.0)) * (
+                n * M4 / (M2 * M2).clamp(min=1e-300)
+            ) - 3 * (n - 1) * (n - 1) / ((n - 2) * (n - 3)).clamp(min=1.0)
+            valid_out = (nonempty > 3) & (M2 > 0)
+        return Column(DOUBLE, data, valid_out)
+    if name == "geometric_mean":
+        x = _to_f64_masked(arg, w)
+        logs = torch.where(w, torch.log(torch.where(w, x, 1.0)), 0.0)
+        n = nonempty.clamp(min=1).to(torch.float64)
+        return Column(DOUBLE, torch.exp(reduce_fn(logs, w, "sum") / n), nonempty > 0)
+    if name == "checksum":
+        # an order-insensitive content hash: the wrapping sum of mixed value
+        # bits; a NULL row adds a constant, and only a group without rows
+        # is NULL
+        v = vals_s
+        if arg.dictionary is not None:
+            lut = torch.as_tensor(arg.dictionary.value_keys(), device=device)
+            v = lut[v.to(torch.int64).clamp(0, lut.shape[0] - 1)]
+        hashed = torch.where(w, K.splitmix64(K.order_key(v)), 0x9E3779B9)
+        data = reduce_fn(torch.where(fmask, hashed, 0), fmask, "sum")
+        any_rows = reduce_fn(fmask.to(torch.int64), fmask, "count")
+        return Column(BIGINT, data, any_rows > 0)
     unported(f"aggregate {name}")

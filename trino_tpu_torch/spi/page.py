@@ -234,8 +234,11 @@ class Column:
                     datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=x)
                 ) if ok else None
             return out
-        if self.type.name in ("time", "time with time zone",
-                              "timestamp with time zone", "tdigest", "qdigest"):
+        if self.type.name in ("time", "time with time zone", "timestamp with time zone"):
+            for i, (x, ok) in enumerate(zip(data.tolist(), valid.tolist())):
+                out[i] = _decode_temporal(self.type.name, x) if ok else None
+            return out
+        if self.type.name in ("tdigest", "qdigest"):
             from .._unported import unported
 
             unported(f"decoding of {self.type.display()}")
@@ -243,6 +246,33 @@ class Column:
         for i, ok in enumerate(valid.tolist()):
             out[i] = lst[i] if ok else None
         return out
+
+
+def _decode_temporal(name: str, x: int):
+    """One TIME (micros of the day), TIME WITH TIME ZONE or TIMESTAMP WITH
+    TIME ZONE (both packed: the UTC instant above a 12-bit zone key) as the
+    reference decodes it: a ``datetime.time``, a zoned ``time`` in its own
+    offset, a zoned ``datetime`` in its own offset."""
+    import datetime
+
+    from .types import twtz_unpack
+
+    if name == "time":
+        s, us = divmod(int(x), 1_000_000)
+        h, rem = divmod(s, 3600)
+        m, sec = divmod(rem, 60)
+        return datetime.time(h % 24, m, sec, us)
+    if name == "time with time zone":
+        local, off = twtz_unpack(int(x))
+        sec, us = divmod(local, 1_000_000)
+        h, rem = divmod(int(sec), 3600)
+        m, sc = divmod(rem, 60)
+        tz = datetime.timezone(datetime.timedelta(minutes=off))
+        return datetime.time(h % 24, m, sc, int(us), tzinfo=tz)
+    millis = int(x) >> 12
+    tz = datetime.timezone(datetime.timedelta(minutes=(int(x) & 0xFFF) - 841))
+    return datetime.datetime.fromtimestamp(
+        millis / 1000, tz=datetime.timezone.utc).astimezone(tz)
 
 
 @dataclass
