@@ -111,7 +111,21 @@ printed):
    variance family by the reference's one-pass formula over exact sums,
    at 1e-9 relative), F1 through both grouped sums and F2 through
    ``hash_probe`` and ``hash_expand``, every tapped launch bit-exact; the
-   checksums again. (d) A DELETE of
+   checksums again. (g) The nested queries (``NESTED_QUERIES``): N1, a
+   CTAS of every customer's orders as two arrays in date order
+   (``array_agg`` with ORDER BY), its lane width, rows, bytes and the sum
+   of its arrays' lengths against the order count; N2, UNNEST of those
+   arrays into the ``lineitem`` join; N3, lambdas and array functions over
+   the arrays carried through the ``customer`` join's ``hash_expand``; N4,
+   ``histogram``, ``array_agg(DISTINCT)``, ``map_agg`` and ``listagg``; N5,
+   JSON, URL and ``split`` over ``orders``' dictionary columns. Each with
+   its wall, peak and launches by kernel; rows equal to the flat queries
+   (``NESTED_FLAT``) that compute the same without nested values, N2 and
+   N3 identical to the kernel tier off, through ``hash_probe`` and
+   ``hash_expand`` with no fallback and every tapped launch bit-exact, and
+   N3's ``prices`` lanes carried by the expansion; then DROP of
+   ``cust_orders`` (device memory back within 1 % of its level before N1)
+   and the checksums again. (d) A DELETE of
    ``orders`` by ``o_orderdate``, an UPDATE of ``l_discount`` by
    ``l_shipmode``, a MERGE into ``orders`` from about 1,500,000 source rows
    (half matched, half inserted) and a DELETE of ``lineitem`` rolled back,
@@ -120,7 +134,7 @@ printed):
    every table: device memory allocated back within 1 % of its level before
    (a).
 9. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 8, 8f's included), then the contract's last line
+   the default runs of phases 3 to 8, 8f's and 8g's included), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
@@ -2550,10 +2564,29 @@ def generator_count(g, conn, table: str) -> int:
     return sum(g.lineitem_split_rows(SCALE, s, total) for s in range(total))
 
 
-def dml_oracle(g, conn) -> dict:
+class DmlLineitemSums:
+    """8d's numpy sums over ``lineitem``, split by split: 8f's oracle pass
+    over the generator feeds it, so ``lineitem`` is generated once for
+    both."""
+
+    def __init__(self, conn):
+        self.air = conn.dictionary("lineitem", "l_shipmode", SCALE).code_of("AIR")
+        self.flag_r = conn.dictionary("lineitem", "l_returnflag", SCALE).code_of("R")
+        self.n_line = self.n_air = self.n_r = self.disc_rest = 0
+
+    def add(self, d) -> None:
+        is_air = d["l_shipmode"] == self.air
+        self.n_line += is_air.shape[0]
+        self.n_air += int(is_air.sum())
+        self.n_r += int((d["l_returnflag"] == self.flag_r).sum())
+        self.disc_rest += int(d["l_discount"][~is_air].sum(dtype=np.int64))
+
+
+def dml_oracle(g, conn, li: DmlLineitemSums) -> dict:
     """What each statement of MEM_DML returns and leaves, from the port's
-    generator in numpy: rows affected, then count(*) and the sum it reads
-    (decimals as the engine decodes them)."""
+    generator in numpy (``lineitem``'s part from ``li``): rows affected,
+    then count(*) and the sum it reads (decimals as the engine decodes
+    them)."""
     o = {c: [] for c in ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice")}
     for d in splits_of(g, conn, "orders"):
         for c in o:
@@ -2561,15 +2594,7 @@ def dml_oracle(g, conn) -> dict:
     key, cust, date, price = (np.concatenate(o[c]) for c in o)
     lo, hi = DELETE_DATES
     present = ~((date >= lo) & (date < hi))
-    air = conn.dictionary("lineitem", "l_shipmode", SCALE).code_of("AIR")
-    flag_r = conn.dictionary("lineitem", "l_returnflag", SCALE).code_of("R")
-    n_line = n_air = n_r = disc_rest = 0
-    for d in splits_of(g, conn, "lineitem"):
-        is_air = d["l_shipmode"] == air
-        n_line += is_air.shape[0]
-        n_air += int(is_air.sum())
-        n_r += int((d["l_returnflag"] == flag_r).sum())
-        disc_rest += int(d["l_discount"][~is_air].sum(dtype=np.int64))
+    n_line, n_air, n_r, disc_rest = li.n_line, li.n_air, li.n_r, li.disc_rest
     src = present & (cust % 10 == 3)
     matched = src & (key % 2 == 0)
     inserted = src & (key % 2 == 1)
@@ -2648,10 +2673,11 @@ def _variance(s1, s2, n, sample: bool):
     return var * n / max(n - 1, 1) if sample else var
 
 
-def function_oracle(g, conn) -> dict:
+def function_oracle(g, conn, visit=None) -> dict:
     """F1's and F2's rows from the port's generator in numpy: counts and
     decimal sums exact (int64), the variance family by the reference's
-    one-pass formula over the exact sums and sums of squares."""
+    one-pass formula over the exact sums and sums of squares. ``visit``,
+    when given, sees every ``lineitem`` split of the pass too."""
     import datetime
     import re
 
@@ -2679,6 +2705,8 @@ def function_oracle(g, conn) -> dict:
     sums = {c: [[0] * G, [0] * G] for c in
             ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
     for d in splits_of(g, conn, "lineitem"):
+        if visit is not None:
+            visit(d)
         inv = d["l_returnflag"].astype(np.int64) * len(ls) + d["l_linestatus"]
         count += np.bincount(inv, minlength=G)
         qty += _exact_bincount(inv, d["l_quantity"], G)
@@ -2708,7 +2736,7 @@ def function_oracle(g, conn) -> dict:
     return {"f1": f1, "f2": f2}
 
 
-def run_function_queries(HK, dev, runner, conn, tpch) -> dict:
+def run_function_queries(HK, dev, runner, conn, tpch, li: DmlLineitemSums) -> dict:
     """Phase 8f: F1-F4 over the memory tables with the default session,
     each with the card's name and power limit, its wall (the host clock
     around ``execute`` and a synchronize), peak device memory, launches by
@@ -2726,8 +2754,9 @@ def run_function_queries(HK, dev, runner, conn, tpch) -> dict:
     off.session.set("pallas_aggregation", "off")
     off.session.set("pallas_fusion", False)
     t0 = time.perf_counter()
-    want = function_oracle(g, tpch)
-    print(f"  8f numpy oracle of F1 and F2: {time.perf_counter() - t0:.3f} s", flush=True)
+    want = function_oracle(g, tpch, li.add)
+    print(f"  8f numpy oracle of F1 and F2 (and 8d's lineitem sums, the same pass): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     launches = {}
     card = card_line()
     for q, sql in FUNCTION_QUERIES.items():
@@ -2761,14 +2790,216 @@ def run_function_queries(HK, dev, runner, conn, tpch) -> dict:
     return launches
 
 
+# phase 8g: ARRAY, MAP and ROW values, UNNEST, lambdas and the JSON and URL
+# functions over the SF10 memory tables (``tests/test_torch_nested_tables.py``
+# runs the same texts at SF0.01 against the reference)
+NESTED_CTAS = (
+    "CREATE TABLE cust_orders AS SELECT o_custkey, "
+    "array_agg(o_orderkey ORDER BY o_orderdate, o_orderkey) AS okeys, "
+    "array_agg(o_totalprice ORDER BY o_orderdate, o_orderkey) AS prices "
+    "FROM orders GROUP BY o_custkey")
+NESTED_QUERIES = {
+    # N2: UNNEST feeding the join kernels
+    "n2": "SELECT c.o_custkey, count(*), sum(l_extendedprice * (1 - l_discount)) "
+          "FROM cust_orders c CROSS JOIN UNNEST(c.okeys) AS u(okey) "
+          "JOIN lineitem ON l_orderkey = u.okey "
+          "GROUP BY c.o_custkey ORDER BY 3 DESC, 1 LIMIT 20",
+    # N3: lambdas and array functions over an array payload through the join
+    "n3": "SELECT c_mktsegment, count(*), max(array_max(transform(okeys, k -> k % 1000))), "
+          "sum(cardinality(filter(prices, p -> p > 100000))), "
+          "sum(reduce(prices, CAST(0 AS DOUBLE), (s, p) -> s + CAST(p AS DOUBLE), s -> s)), "
+          "sum(cardinality(array_distinct(transform(okeys, k -> k % 7)))), "
+          "count_if(contains(transform(okeys, k -> k % 10), 3)), "
+          "sum(element_at(array_sort(okeys), 1)), sum(cardinality(slice(okeys, 2, 3))) "
+          "FROM cust_orders JOIN customer ON c_custkey = o_custkey "
+          "GROUP BY c_mktsegment ORDER BY 1",
+    # N4: the map-valued aggregates
+    "n4": "SELECT l_returnflag, histogram(l_shipmode), "
+          "array_sort(array_agg(DISTINCT l_shipinstruct)) FROM lineitem "
+          "GROUP BY l_returnflag ORDER BY 1",
+    "n4b": "SELECT r_name, map_agg(n_name, n_nationkey), "
+           "listagg(n_name, ',') WITHIN GROUP (ORDER BY n_name) "
+           "FROM nation JOIN region ON n_regionkey = r_regionkey GROUP BY r_name ORDER BY 1",
+    # N5: JSON, URL and split over dictionary columns of orders
+    "n5": "SELECT p, h, count(*), sum(k) FROM (SELECT json_extract_scalar("
+          "'{\"p\": \"' || o_orderpriority || '\", \"s\": \"' || o_orderstatus || '\"}', "
+          "'$.p') AS p, url_extract_host('http://' || lower(o_orderstatus) || '/x') AS h, "
+          "CAST(split(o_clerk, '#')[2] AS bigint) AS k FROM orders) GROUP BY 1, 2 ORDER BY 1, 2",
+}
+# the same values without arrays, maps, lambdas, JSON or URLs
+NESTED_FLAT = {
+    "n2": "SELECT o_custkey, count(*), sum(l_extendedprice * (1 - l_discount)) "
+          "FROM orders JOIN lineitem ON l_orderkey = o_orderkey "
+          "GROUP BY o_custkey ORDER BY 3 DESC, 1 LIMIT 20",
+    "n3": "SELECT c_mktsegment, count(*), max(mx), sum(n_big), sum(tot), sum(nd), "
+          "count_if(has3), sum(first_key), sum(CASE WHEN n > 4 THEN 3 ELSE n - 1 END) "
+          "FROM (SELECT o_custkey, count(*) AS n, max(o_orderkey % 1000) AS mx, "
+          "count_if(o_totalprice > 100000) AS n_big, sum(CAST(o_totalprice AS DOUBLE)) AS tot, "
+          "count(DISTINCT o_orderkey % 7) AS nd, bool_or(o_orderkey % 10 = 3) AS has3, "
+          "min(o_orderkey) AS first_key FROM orders GROUP BY o_custkey) t "
+          "JOIN customer ON c_custkey = o_custkey GROUP BY c_mktsegment ORDER BY 1",
+    "n4": "SELECT l_returnflag, l_shipmode, count(*) FROM lineitem GROUP BY 1, 2 ORDER BY 1, 2",
+    "n4_distinct": "SELECT DISTINCT l_returnflag, l_shipinstruct FROM lineitem ORDER BY 1, 2",
+    "n4b": "SELECT r_name, n_name, n_nationkey FROM nation JOIN region "
+           "ON n_regionkey = r_regionkey ORDER BY 1, 2",
+    "n5": "SELECT o_orderpriority, lower(o_orderstatus), count(*), "
+          "sum(CAST(substr(o_clerk, 7) AS bigint)) FROM orders GROUP BY 1, 2 ORDER BY 1, 2",
+}
+# the kernels each nested query must launch
+NESTED_KERNELS = {"n1": (), "n2": JOIN_KERNELS, "n3": JOIN_KERNELS, "n4": (), "n4b": (),
+                  "n5": ()}
+
+
+def nested_flat_rows(runner, q: str) -> list:
+    """What N2-N5 must return, from the flat queries over the same tables:
+    N4's histogram and distinct lists and N4b's map and list rebuilt from
+    flat rows on the host."""
+    rows = runner.execute(NESTED_FLAT[q]).rows
+    if q == "n4":
+        hist = {}
+        for flag, mode, n in rows:
+            hist.setdefault(flag, {})[mode] = n
+        insts = {}
+        for flag, inst in runner.execute(NESTED_FLAT["n4_distinct"]).rows:
+            insts.setdefault(flag, []).append(inst)
+        return [(f, hist[f], insts[f]) for f in sorted(hist)]
+    if q == "n4b":
+        by_region = {}
+        for region, nation, key in rows:
+            by_region.setdefault(region, []).append((nation, key))
+        return [(r, dict(v), ",".join(n for n, _ in v)) for r, v in sorted(by_region.items())]
+    return rows
+
+
+def run_nested_query(HK, runner, off, q: str, sql: str, card: str) -> tuple:
+    """One nested query with the default session: its wall, peak, launches
+    by kernel, fused phases and FALLBACKS; the rows against the kernel tier
+    off; every tapped launch bit-exact. Returns (result, launches,
+    columns carried by row index through ``hash_expand``)."""
+    from trino_tpu_torch.ops import megakernels as MK
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches, phases, fallbacks, tap = run_default(
+        HK, runner, sql, PATH_KERNELS, keep_all=PATH_KERNELS)
+    carried = dict(MK.CARRIED)
+    peak = torch.cuda.max_memory_allocated()
+    n_checked = check_every_call(HK, f"{q} nested", tap)
+    del tap
+    print(f"  8g {q} ({card}): {wall:.3f} s wall, peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB, the tap holding every launch's inputs), "
+          f"{len(res.rows)} rows, launches {launched(launches)}, fused phases "
+          f"{launched(phases)}, FALLBACKS {fallbacks}, carried by row index {carried}; "
+          f"every tapped launch bit-exact ({n_checked}); first row {res.rows[:1]}", flush=True)
+    if fallbacks:
+        fail(f"{q} fell back from the fused path: {fallbacks}")
+    for name in NESTED_KERNELS[q]:
+        if launches[name] == 0:
+            fail(f"{q} did not go through {name}")
+    if off is not None:
+        off_res, off_wall = run_off(HK, off, sql)
+        if res.column_names != off_res.column_names or not same_nested_rows(
+                res.rows, off_res.rows):
+            fail(f"{q}: rows {res.rows[:3]} != the kernel tier off's {off_res.rows[:3]}")
+        print(f"  8g {q}: rows identical to the kernel tier off ({off_wall:.3f} s)", flush=True)
+    return res, launches, carried
+
+
+def same_nested_rows(got: list, want: list) -> bool:
+    """Row for row; floats at ``REL_TOL`` relative, inside lists, dicts
+    and tuples too; everything else equal and of the same type."""
+    def same(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return same_value(a, b, True)
+        if type(a) is not type(b):
+            return False
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(b, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in b)
+        return a == b
+
+    return same(got, want)
+
+
+def run_nested_queries(HK, dev, runner, conn) -> dict:
+    """Phase 8g over the memory tables: N1, a CTAS of every customer's
+    orders as two arrays in date order (aggregate ORDER BY, the lane width
+    a host read), gated on its element count; N2, UNNEST of those arrays
+    into the join kernels, N3, lambdas and array functions over an array
+    payload carried through ``hash_expand``, N4, ``histogram``,
+    ``array_agg(DISTINCT)``, ``map_agg`` and ``listagg``, N5, JSON, URL
+    and ``split`` over dictionary columns: each with its wall, peak and
+    launches by kernel; rows equal to the flat queries (DOUBLE at 1e-9
+    relative) and, for N2 and N3, identical to the kernel tier off. Then
+    DROP of ``cust_orders``: device memory back within 1 % of its level
+    before N1. Returns the launch counts by query."""
+    from trino_tpu_torch.metadata import Session
+    from trino_tpu_torch.runtime import LocalQueryRunner
+    from trino_tpu_torch.spi.connector import SchemaTableName
+
+    off = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
+    off.register_catalog("memory", conn)
+    off.session.set("pallas_aggregation", "off")
+    off.session.set("pallas_fusion", False)
+    card = card_line()
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, launches["n1 nested"], _, fallbacks, tap = run_default(
+        HK, runner, NESTED_CTAS, PATH_KERNELS)
+    del tap
+    peak = torch.cuda.max_memory_allocated()
+    table = conn.table(SchemaTableName("default", "cust_orders"))
+    stored, n_pages, cap = stored_size(table)
+    width = table.pages[0].columns[1].data.shape[1]
+    (n,), = res.rows
+    (elements,), = runner.execute("SELECT sum(cardinality(okeys)) FROM cust_orders").rows
+    want_elements = runner.execute("SELECT count(*) FROM orders").rows[0][0]
+    print(f"  8g n1 ({card}): CTAS cust_orders {n} rows, lane width W = {width}, {stored} "
+          f"bytes stored ({stored / 2**30:.2f} GiB, {n_pages} page of {cap} slots), "
+          f"{wall:.3f} s wall, peak device memory {peak} bytes ({peak / 2**30:.2f} GiB), "
+          f"launches {launched(launches['n1 nested'])}; sum(cardinality(okeys)) {elements} "
+          f"(orders {want_elements}); UNNEST grid of N2: {cap} x {width} = {cap * width} "
+          "rows", flush=True)
+    if elements != want_elements or fallbacks:
+        fail(f"n1: {elements} array elements for {want_elements} orders, fallbacks {fallbacks}")
+
+    for q, sql in NESTED_QUERIES.items():
+        res, launches[f"{q} nested"], carried = run_nested_query(
+            HK, runner, off if q in ("n2", "n3") else None, q, sql, card)
+        want = nested_flat_rows(runner, q)
+        if not same_nested_rows(res.rows, want):
+            fail(f"{q}: rows {res.rows[:3]} != the flat query's {want[:3]}")
+        if q == "n3" and "array(decimal(12,2))" not in carried:
+            fail(f"n3: hash_expand did not carry the prices lanes ({carried})")
+        print(f"  8g {q}: rows equal to the flat query's", flush=True)
+        del res
+
+    runner.execute("DROP TABLE cust_orders")
+    del table
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"  8g after DROP of cust_orders: {left} bytes allocated, {base} before N1 "
+          f"({left - base:+d})", flush=True)
+    if abs(left - base) > 0.01 * base:
+        fail(f"device memory after the DROP {left} is not within 1 % of {base}")
+    return launches
+
+
 def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     """Phase 8: (a) CTAS of seven TPC-H SF10 tables into memory tables, (b)
     Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows, (c)
     stored-tensor checksums unchanged by the queries, (f) the function
-    queries F1-F4 and the checksums again, (d) DELETE, UPDATE,
+    queries F1-F4 and the checksums again, (g) the nested queries N1-N5
+    and the checksums again, (d) DELETE, UPDATE,
     MERGE and a rolled-back DELETE against numpy over the generator, (e)
     DROP and device memory back to its level. Returns the launch counts of
-    (b) and (d), by run."""
+    (b), (f), (g) and (d), by run."""
     from trino_tpu_torch.connectors.memory import MemoryConnector
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.connectors.tpch import generator as g
@@ -2776,10 +3007,17 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     from trino_tpu_torch.runtime import LocalQueryRunner
     from trino_tpu_torch.spi.connector import SchemaTableName
 
+    from trino_tpu_torch.ops.compiler import clear_cache
+
+    # DROP TABLE empties the compile cache, so (e) compares against a level
+    # taken with it empty too: the closures of phases 3-7 hold their LUTs
+    # on the card until then
+    clear_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    print(f"  device memory allocated before the load: {base} bytes", flush=True)
+    print(f"  device memory allocated before the load, the compile cache empty: {base} "
+          "bytes", flush=True)
     runner = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
     tpch = TpchConnector(scale=SCALE, device=dev)
     runner.register_catalog("tpch", tpch)
@@ -2851,13 +3089,19 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     same_checksums("8c after the queries", table_checksums(conn), loaded)
 
     # (f) the function queries, on the tables as loaded
-    launches.update(run_function_queries(HK, dev, runner, conn, tpch))
+    li = DmlLineitemSums(tpch)
+    launches.update(run_function_queries(HK, dev, runner, conn, tpch, li))
     torch.cuda.empty_cache()
     same_checksums("8f after the function queries", table_checksums(conn), loaded)
 
+    # (g) the nested queries, on the tables as loaded
+    launches.update(run_nested_queries(HK, dev, runner, conn))
+    torch.cuda.empty_cache()
+    same_checksums("8g after the nested queries", table_checksums(conn), loaded)
+
     # (d) DML
     t0 = time.perf_counter()
-    want = dml_oracle(g, tpch)
+    want = dml_oracle(g, tpch, li)
     print(f"  8d numpy oracle: {time.perf_counter() - t0:.3f} s; the MERGE source holds "
           f"{want['source_rows']} rows", flush=True)
     for name, sql in MEM_DML.items():
@@ -2991,8 +3235,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     print(f"phase 8: TPC-H SF{SCALE} held in memory tables: CTAS, Q6, Q1, Q3, Q10 and Q18, "
-          "the function queries F1-F4, DELETE, UPDATE, MERGE, a rolled-back transaction, "
-          "DROP", flush=True)
+          "the function queries F1-F4, the nested queries N1-N5, DELETE, UPDATE, MERGE, a "
+          "rolled-back transaction, DROP", flush=True)
     launches.update(run_memory_tables(HK, dev, incore_rows, kernels))
     phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():

@@ -96,10 +96,20 @@ def test_q1_result_types_and_explain(port_runner):
 
 
 def test_unported_node_raises_naming_it(port_runner):
-    with pytest.raises(NotImplementedError, match="UnnestNode"):
+    """UnnestNode, which this once pinned as raising, now runs and matches
+    the reference row for row; PatternRecognitionNode still raises naming
+    itself."""
+    sql = "SELECT o_custkey, n FROM orders CROSS JOIN UNNEST(ARRAY[1, 2]) AS t(n)"
+    want = RefRunner.tpch(scale=SCALE).execute(sql)
+    got = port_runner.execute(sql)
+    assert got.rows == want.rows and len(got.rows) == 2 * len(
+        port_runner.execute("SELECT o_custkey FROM orders").rows)
+    with pytest.raises(NotImplementedError, match="PatternRecognitionNode"):
         port_runner.execute(
-            "SELECT o_custkey, n FROM orders CROSS JOIN UNNEST(ARRAY[1, 2]) AS t(n)"
-        )
+            "SELECT * FROM (VALUES (1, 1, 90), (1, 2, 80), (1, 3, 85)) AS t(sym, day, price) "
+            "MATCH_RECOGNIZE (PARTITION BY sym ORDER BY day MEASURES LAST(up.price) AS top "
+            "ONE ROW PER MATCH PATTERN (down up) DEFINE down AS down.price < PREV(down.price), "
+            "up AS up.price > PREV(up.price))")
 
 
 # --------------------------------------------------------------------------- #

@@ -268,3 +268,23 @@ def test_insert_of_a_narrower_decimal_matches_reference():
     got, want = port.execute(sql), ref.execute(sql)
     assert_same_rows(got, want)
     assert [r[0] for r in got.rows] == [0.15, 2.25]
+
+
+def test_drop_table_forgets_the_closures_compiled_over_it():
+    """DROP TABLE empties the compile cache: a closure keyed by the table's
+    dictionaries, or by one a string function derived from them, can never
+    be hit again, and its LUTs would stay on the card; the surviving
+    table's queries compile again and give the same rows."""
+    from trino_tpu_torch.ops import compiler as pc
+
+    runner = LocalQueryRunner(Session(catalog="memory", schema="default"), device="cpu")
+    runner.register_catalog("memory", MemoryConnector(device="cpu"))
+    runner.execute("CREATE TABLE keep AS SELECT * FROM (VALUES ('a,b', 1)) t(s, n)")
+    runner.execute("CREATE TABLE gone AS SELECT * FROM (VALUES ('x#1', 2), ('y#2', 3)) t(s, n)")
+    assert runner.execute("SELECT split(s, ',')[2] FROM keep").rows == [("b",)]
+    assert runner.execute(
+        "SELECT CAST(split(s, '#')[2] AS bigint) FROM gone ORDER BY 1").rows == [(1,), (2,)]
+    assert pc._CACHE
+    runner.execute("DROP TABLE gone")
+    assert not pc._CACHE
+    assert runner.execute("SELECT split(s, ',')[2] FROM keep").rows == [("b",)]

@@ -34,7 +34,7 @@ from ..spi.connector import (
     TableMetadata,
     TableStatistics,
 )
-from ..spi.page import Column, Page
+from ..spi.page import Page, map_rows
 
 
 @dataclass
@@ -269,8 +269,7 @@ class _MemoryPageSourceProvider(ConnectorPageSourceProvider):
             return empty_page_for(names, types, dev)
         cols = tuple(page.columns[i] for i in column_indexes)
         if dev != conn.device:
-            cols = tuple(Column(c.type, c.data.to(dev), c.valid.to(dev), c.dictionary)
-                         for c in cols)
+            cols = tuple(map_rows(c, lambda x: x.to(dev)) for c in cols)
             return Page(cols, page.active.to(dev))
         return Page(cols, page.active)
 

@@ -19,15 +19,17 @@ CASE; ``coalesce``, ``nullif``; the scalar function table of
 ``ops/scalar_functions.py`` (arithmetic, math, the CDFs, bitwise and date
 parts); ``date_trunc``/``date_add``/``date_diff`` with a constant unit;
 ``random``; CASTs among the numeric, temporal and boolean types and from
-VARCHAR; the long-decimal limb forms; and the string functions of
+VARCHAR; the long-decimal limb forms; the string functions of
 ``ops/string_functions.py``, each a host transform of the dictionary's
-values gathered on the device by code. The JSON, URL and array-valued
-string functions raise naming themselves; anything else raises
+values gathered on the device by code (JSON and URL functions among them;
+``split`` and its kin gather array lanes); and the ARRAY, MAP and ROW
+functions and lambdas of ``ops/nested.py``. Anything else raises
 :class:`CompileError` naming the function.
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import random
 import re
@@ -37,7 +39,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .._unported import unported
 from ..spi.page import Dictionary
 from . import int128 as i128
 from . import kernels as K
@@ -53,10 +54,13 @@ from ..spi.types import (
     is_floating,
     is_integral,
     is_long_decimal,
+    is_nested,
     is_numeric,
     is_string,
 )
+from ..sql.functions import HIGHER_ORDER_FUNCTIONS
 from ..sql.ir import Call, Case, CastExpr, Constant, InLut, IrExpr, Reference
+from .nested import NESTED_FUNCS, compile_higher_order, compile_nested, null_cval
 from .scalar_functions import (
     _COMPARE,
     _SIMPLE_FUNCS,
@@ -69,11 +73,13 @@ from .scalar_functions import (
 )
 from .string_functions import (
     _DISTANCE_FUNCS,
+    _JSON_LUTS,
+    _STRING_ARRAY_LUTS,
     _STRING_FUNCS,
     _STRING_INT_LUTS,
     _STRING_LENGTH_FUNCS,
     STRING_FUNCTIONS,
-    UNPORTED_STRING_FUNCS,
+    json_lut_value,
     _like_to_regex,
     _string_cast_lut,
 )
@@ -81,21 +87,29 @@ from .string_functions import (
 
 @dataclass
 class CVal:
-    """A compiled column value: device data + validity (both full capacity)."""
+    """A compiled column value: device data + validity (both full capacity).
+    A nested value mirrors ``spi.page.Column``'s layout: an array carries
+    ``data[cap, W]``, ``elem_valid`` and ``lengths``; a map or row its
+    child values in ``children``."""
 
     data: torch.Tensor
     valid: torch.Tensor
     dictionary: Optional[Dictionary] = None
+    lengths: Optional[torch.Tensor] = None
+    elem_valid: Optional[torch.Tensor] = None
+    children: tuple = ()
 
 
 @dataclass(frozen=True)
 class ColumnLayout:
     """Static per-symbol input description — part of the compilation cache
-    key. (The reference's ``child_dicts`` describe nested columns, which this
-    slice does not carry.)"""
+    key. ``child_dicts`` mirrors a nested column's children: per child a
+    Dictionary/None (a scalar or array child) or a nested tuple (a map or
+    row child), so accessors can name the dictionary their result carries."""
 
     type: Type
     dictionary: Optional[Dictionary] = None
+    child_dicts: tuple = ()
 
 
 Env = Dict[str, CVal]
@@ -119,6 +133,18 @@ def compile_expression(
     fn, out_dict = _Compiler(layout, capacity, device).compile(expr)
     _CACHE[key] = (fn, out_dict)
     return fn, out_dict
+
+
+def clear_cache() -> None:
+    """Drop every cached closure. DROP TABLE calls it: a closure keyed by a
+    dropped table's dictionaries, or by one derived from them (a string
+    function's output), can never be hit again, and its LUTs would hold
+    device memory for good; the others rebuild on their next use. A
+    closure refers to its compiler, which holds it in its memo: the cycle,
+    and the LUTs with it, goes only when the cyclic collector runs, so it
+    runs here."""
+    _CACHE.clear()
+    gc.collect()
 
 
 def _div_round(x: torch.Tensor, divisor: int) -> torch.Tensor:
@@ -240,7 +266,8 @@ class _Compiler:
 
             def ref_fn(env: Env, sym=sym, d=d) -> CVal:
                 v = env[sym]
-                return CVal(v.data, v.valid, v.dictionary or d)
+                return CVal(v.data, v.valid, v.dictionary or d, v.lengths, v.elem_valid,
+                            v.children)
 
             return ref_fn, d
 
@@ -256,6 +283,10 @@ class _Compiler:
                     )
 
                 return sconst_fn, d
+            if is_nested(type_):
+                if value is not None:
+                    raise CompileError(f"non-null {type_.display()} constants are not foldable")
+                return (lambda env: null_cval(type_, self.capacity, self.device)), None
             if is_long_decimal(type_):
                 limbs = torch.as_tensor(
                     i128.np_from_ints([int(value) if value is not None else 0])[0],
@@ -309,6 +340,8 @@ class _Compiler:
         src, dst = expr.value.type, expr.type
         if src == dst or (is_string(src) and is_string(dst)):
             return inner, in_dict
+        if src == UNKNOWN and is_nested(dst):
+            return (lambda env: null_cval(dst, self.capacity, self.device)), None
         if src == UNKNOWN:
 
             def null_fn(env: Env) -> CVal:
@@ -526,6 +559,8 @@ class _Compiler:
         condition is not) picks its result, else the ELSE, else NULL. A
         string CASE merges its branches' dictionaries and remaps each
         branch's codes onto the merged one."""
+        if is_nested(expr.type):
+            raise CompileError("CASE over array/map/row values not supported yet")
         whens = [(self.compile(c)[0],) + self.compile(r) for c, r in expr.whens]
         default_fn, default_dict = (
             self.compile(expr.default) if expr.default is not None else (None, None)
@@ -582,6 +617,10 @@ class _Compiler:
 
     def _compile_call(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name
+        if name in HIGHER_ORDER_FUNCTIONS:
+            return compile_higher_order(self, expr)
+        if name in NESTED_FUNCS:
+            return compile_nested(self, expr)
         if name in _COMPARE and any(is_string(a.type) for a in expr.args):
             return self._compile_string_comparison(expr)
         if name == "$like":
@@ -909,8 +948,6 @@ class _Compiler:
         through an old-code -> new-code LUT; a number or boolean result is
         a LUT gathered by code."""
         name = expr.name
-        if name in UNPORTED_STRING_FUNCS:
-            unported(f"function {name}")
         if name == "concat":
             return self._compile_concat(expr)
         value = expr.args[0]
@@ -923,6 +960,8 @@ class _Compiler:
         if name == "codepoint":
             return self._lut_fn(
                 value, np.array([ord(s[0]) if s else 0 for s in vals], dtype=np.int64)), None
+        if name in _STRING_ARRAY_LUTS:
+            return self._compile_string_array(expr, d)
         if name in _STRING_INT_LUTS:
             fn, dtype = _STRING_INT_LUTS[name]
             args = self._const_args(expr)
@@ -934,6 +973,20 @@ class _Compiler:
                     results.append(None)
             lut_np = np.array([(-1 if r is None else r) for r in results],
                               dtype=np.int64 if dtype != np.bool_ else np.bool_)
+            ok_np = np.array([r is not None for r in results], dtype=np.bool_)
+            return self._lut_fn(value, lut_np, ok_np), None
+        if name in _JSON_LUTS:
+            # a decimal argument compares as its value
+            args = [a.value / 10**a.type.scale
+                    if isinstance(a.type, DecimalType) and a.value is not None else a.value
+                    for a in expr.args[1:] if isinstance(a, Constant)]
+            if len(args) != len(expr.args) - 1:
+                raise CompileError(f"{name}: arguments must be constant")
+            if any(v is None for v in args):
+                return self.compile(Constant(expr.type, None))  # a SQL NULL argument
+            results = [json_lut_value(name, s, args) for s in vals]
+            lut_np = np.array([0 if r is None else r for r in results],
+                              dtype=np.bool_ if name == "json_array_contains" else np.int64)
             ok_np = np.array([r is not None for r in results], dtype=np.bool_)
             return self._lut_fn(value, lut_np, ok_np), None
         if name in _DISTANCE_FUNCS:
@@ -985,6 +1038,46 @@ class _Compiler:
             return CVal(codes.clamp(min=0), v.valid & (codes >= 0), out_dict)
 
         return transform_fn, out_dict
+
+    def _compile_string_array(self, expr: Call, d: Dictionary):
+        """``split``, ``regexp_split`` and ``regexp_extract_all``: the parts
+        of every dictionary value are computed once on the host; their union
+        is the element dictionary, and each row gathers its value's
+        ``[W]`` code lanes from a ``[vocabulary, W]`` LUT."""
+        name = expr.name
+        fn = _STRING_ARRAY_LUTS[name]
+        cargs = self._const_args(expr, "arguments")
+        parts = []
+        for s in d.values:
+            try:
+                parts.append(list(fn(s, *cargs)))
+            except Exception:  # noqa: BLE001 - a per-value failure is NULL
+                parts.append(None)
+        w = max((len(p) for p in parts if p is not None), default=1) or 1
+        vocab = sorted({p for ps in parts if ps is not None for p in ps})
+        child = Dictionary(np.asarray(vocab, dtype=object))
+        code_of = {s: i for i, s in enumerate(vocab)}
+        codes_np = np.zeros((len(parts), w), dtype=np.int32)
+        len_np = np.zeros(len(parts), dtype=np.int32)
+        ok_np = np.zeros(len(parts), dtype=np.bool_)
+        for i, ps in enumerate(parts):
+            if ps is None:
+                continue
+            ok_np[i] = True
+            len_np[i] = len(ps)
+            codes_np[i, :len(ps)] = [code_of[p] for p in ps]
+        codes, lens, ok = (torch.as_tensor(x, device=self.device)
+                           for x in (codes_np, len_np, ok_np))
+        inner, _ = self.compile(expr.args[0])
+        lane = torch.arange(w, device=self.device)[None, :]
+
+        def split_fn(env: Env) -> CVal:
+            v = inner(env)
+            idx = v.data.to(torch.int64).clamp(0, len(parts) - 1)
+            lengths = lens[idx]
+            return CVal(codes[idx], v.valid & ok[idx], child, lengths, lane < lengths[:, None])
+
+        return split_fn, child
 
     def _compile_string_comparison(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name

@@ -38,13 +38,14 @@ they raise through the query.
 from __future__ import annotations
 
 from collections import Counter
+from dataclasses import replace
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from . import hopper_kernels as HK
 from ..runtime.capstore import capacity_class
-from ..spi.page import Column, Page
+from ..spi.page import Column, Page, is_nested_column, map_rows
 
 # initial slot width of a bucket; retried at the 4x-spaced class (base 8)
 # of the largest bucket when one overflows
@@ -59,6 +60,8 @@ TABLE_ENTRY_LIMIT = 1 << 30
 
 LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
 FALLBACKS: Counter = Counter()
+# columns the expansion carried by row index (nested layouts and wide lanes)
+CARRIED: Counter = Counter()
 
 
 def on_fallback(reason: str) -> None:
@@ -72,6 +75,7 @@ def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     FALLBACKS.clear()
+    CARRIED.clear()
 
 
 def probe_phase(pkeys, bkeys, luts, probe_active, build_active,
@@ -103,6 +107,36 @@ def probe_phase(pkeys, bkeys, luts, probe_active, build_active,
     return None
 
 
+def _by_row_index(c: Column) -> bool:
+    """Whether a column rides the expansion as its row index rather than
+    its data: a nested column (lanes, lengths, children), or storage the
+    kernel does not gather as one element of at most 16 bytes a row."""
+    rows = c.valid.shape[0]
+    d = c.data
+    return (is_nested_column(c) or d.shape[0] != rows
+            or d.element_size() * (d[0].numel() if d.ndim > 1 and rows else 1) > 16)
+
+
+def _gather_payload(c: Column):
+    """The (data, valid) pair ``hash_expand`` gathers for column ``c``: its
+    own, or (row index, valid) where :func:`_by_row_index` holds."""
+    if not _by_row_index(c):
+        return c.data, c.valid
+    return torch.arange(c.valid.shape[0], dtype=torch.int64, device=c.valid.device), c.valid
+
+
+def _expanded_column(c: Column, d, v) -> Column:
+    """Column ``c`` after the expansion: the kernel's gathered data, or for
+    a column carried by row index, every part of ``c`` gathered by the
+    kernel's output row indices (an inactive slot's index is clamped: its
+    row is never read)."""
+    if not _by_row_index(c):
+        return Column(c.type, d, v, c.dictionary)
+    CARRIED[c.type.display()] += 1
+    idx = d.clamp(0, max(c.valid.shape[0] - 1, 0))
+    return replace(map_rows(c, lambda x: x[idx]), valid=v)
+
+
 def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page: Page,
                  out_capacity: int, symbols, proj_spec, agg_spec):
     """Expand the join into ``out_capacity`` slots, then run the fused
@@ -124,13 +158,13 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     probe_out, build_out, out_active = HK.hash_expand(
         pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"],
         pkeys, bkeys, luts, probe_page.active,
-        [(c.data, c.valid) for c in probe_page.columns],
-        [(c.data, c.valid) for c in build_page.columns],
+        [_gather_payload(c) for c in probe_page.columns],
+        [_gather_payload(c) for c in build_page.columns],
         out_capacity,
     )
     LAUNCHES["expand"] += 1
     cols = tuple(
-        Column(c.type, d, v, c.dictionary)
+        _expanded_column(c, d, v)
         for c, (d, v) in zip(
             probe_page.columns + build_page.columns, probe_out + build_out
         )

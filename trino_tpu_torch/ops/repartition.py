@@ -26,7 +26,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import knobs
-from ..spi.page import Column, Page
+from ..spi.page import Column, Page, is_nested_column
 from .._unported import unported
 from . import kernels as K
 
@@ -111,6 +111,13 @@ def dest_of(keys, active: torch.Tensor, n_parts: int) -> torch.Tensor:
                  torch.ones(cap, dtype=torch.bool, device=active.device))]
     target = partition_ids(keys, n_parts)
     return torch.where(active, target, torch.full_like(target, n_parts))
+
+
+def supports_device_repartition(page: Page) -> bool:
+    """Scalar columns ride the epilogue and the v2 frames; nested layouts
+    (array/map/row: children, lengths) take the spill's legacy per-partition
+    path, as in the reference: the wire serde has no frame for them."""
+    return not any(is_nested_column(c) for c in page.columns)
 
 
 def _partition_dest(n_parts: int, key_idx: Tuple[int, ...], page: Page) -> torch.Tensor:

@@ -19,26 +19,17 @@ from __future__ import annotations
 
 import base64
 import datetime as _dt
+import functools
 import hashlib
 import hmac
+import json
 import re
 import unicodedata
+import urllib.parse
 import zlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
-
-# the reference lowers these too; they wait for the nested-type slice
-# (arrays, JSON and URL values), and each raises naming itself
-UNPORTED_STRING_FUNCS = frozenset({
-    "json_value", "json_extract", "json_extract_scalar", "json_parse",
-    "json_format", "json_array_get", "json_query", "json_exists",
-    "is_json_scalar", "json_array_length", "json_size", "json_array_contains",
-    "url_extract_protocol", "url_extract_host", "url_extract_path",
-    "url_extract_query", "url_extract_fragment", "url_extract_parameter",
-    "url_encode", "url_decode", "split", "regexp_split", "regexp_extract_all",
-})
-
 
 def _java_replacement_to_python(repl: str) -> str:
     """Java-style regex replacement ($N groups, backslash escapes the next
@@ -77,6 +68,149 @@ def _null_on_error(fn):
             return None
 
     return wrapped
+
+
+# --------------------------------------------------------------------------- #
+# JSON (JsonFunctions.java and io.trino.jsonpath: a per-row jsonpath VM
+# there, a once-per-dictionary host transform here) and URLs
+# --------------------------------------------------------------------------- #
+
+_MISSING = object()
+
+
+def _urlparse(s: str):
+    try:
+        return urllib.parse.urlparse(s)
+    except ValueError:
+        return urllib.parse.urlparse("")
+
+
+def _url_parameter(s: str, name: str):
+    query = urllib.parse.parse_qs(_urlparse(s).query, keep_blank_values=True)
+    return query.get(name, [None])[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def _parse_json_path(path: str):
+    """The supported jsonpath subset: ``$``, ``.field``, ``['field']``,
+    ``["field"]``, ``[index]``, as ('field', name) / ('index', i) steps
+    (cached: the transforms parse once per dictionary value)."""
+    from .scalar_functions import CompileError
+
+    if not path.startswith("$"):
+        raise CompileError(f"unsupported json path (must start with $): {path!r}")
+    steps = []
+    rest = path[1:]
+    step_rx = re.compile(
+        r"""^(?:
+              \.(?P<dotted>[A-Za-z_][A-Za-z0-9_]*)
+            | \[\s*(?P<index>-?\d+)\s*\]
+            | \[\s*'(?P<sq>[^']*)'\s*\]
+            | \[\s*"(?P<dq>[^"]*)"\s*\]
+        )""",
+        re.VERBOSE,
+    )
+    while rest:
+        m = step_rx.match(rest)
+        if m is None:
+            raise CompileError(f"unsupported json path step at {rest!r}")
+        if m.group("index") is not None:
+            steps.append(("index", int(m.group("index"))))
+        else:
+            steps.append(("field", m.group("dotted") or m.group("sq") or m.group("dq")))
+        rest = rest[m.end():]
+    return tuple(steps)
+
+
+def _json_eval(text, steps):
+    """The value at the parsed path of a JSON text, or ``_MISSING``."""
+    try:
+        v = json.loads(text)
+    except (ValueError, TypeError):
+        return _MISSING
+    for kind, arg in steps:
+        if kind == "field":
+            if not isinstance(v, dict) or arg not in v:
+                return _MISSING
+            v = v[arg]
+        else:
+            if not isinstance(v, list):
+                return _MISSING
+            i = arg if arg >= 0 else len(v) + arg
+            if not 0 <= i < len(v):
+                return _MISSING
+            v = v[i]
+    return v
+
+
+def _json_dumps(v) -> str:
+    return json.dumps(v, separators=(",", ":"), ensure_ascii=False)
+
+
+def _json_extract(s, path):
+    v = _json_eval(s, _parse_json_path(path))
+    return None if v is _MISSING else _json_dumps(v)
+
+
+def _json_extract_scalar(s, path):
+    v = _json_eval(s, _parse_json_path(path))
+    if v is _MISSING or v is None or isinstance(v, (dict, list)):
+        return None
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, str):
+        return v
+    return _json_dumps(v)
+
+
+def _json_parse(s):
+    # malformed JSON is NULL (the reference's deviation: Trino raises)
+    try:
+        return _json_dumps(json.loads(s))
+    except (ValueError, TypeError):
+        return None
+
+
+def _json_array_get(s, idx):
+    v = _json_eval(s, [("index", int(idx))])
+    return None if v is _MISSING else _json_dumps(v)
+
+
+def _is_json_scalar(s: str) -> bool:
+    try:
+        v = json.loads(s)
+    except (ValueError, TypeError):
+        raise ValueError("not json")
+    return not isinstance(v, (dict, list))
+
+
+def json_lut_value(name: str, s: str, args):
+    """``json_array_length``, ``json_size`` and ``json_array_contains`` of
+    one JSON text (None is NULL). ``json_array_contains`` is type-strict,
+    as in the reference: JSON true is not the number 1."""
+    if name == "json_size":
+        v = _json_eval(s, _parse_json_path(args[0]))
+        if v is _MISSING:
+            return None
+        return len(v) if isinstance(v, (dict, list)) else 0
+    try:
+        v = json.loads(s)
+    except (ValueError, TypeError):
+        return None
+    if not isinstance(v, list):
+        return None
+    if name == "json_array_length":
+        return len(v)
+    needle = args[0]
+
+    def hit(x):
+        if isinstance(needle, bool):
+            return isinstance(x, bool) and x == needle
+        if isinstance(needle, (int, float)):
+            return isinstance(x, (int, float)) and not isinstance(x, bool) and x == needle
+        return isinstance(x, str) and x == needle
+
+    return any(hit(x) for x in v)
 
 
 def _substr(s: str, start, length=None) -> str:
@@ -359,7 +493,36 @@ _STRING_FUNCS: Dict[str, Callable] = {
     "hmac_sha1": _hmac("sha1"),
     "hmac_sha256": _hmac("sha256"),
     "hmac_sha512": _hmac("sha512"),
+    "url_extract_protocol": lambda s: _urlparse(s).scheme or None,
+    "url_extract_host": lambda s: _urlparse(s).hostname or None,
+    "url_extract_path": lambda s: _urlparse(s).path,
+    "url_extract_query": lambda s: _urlparse(s).query or None,
+    "url_extract_fragment": lambda s: _urlparse(s).fragment or None,
+    "url_extract_parameter": _url_parameter,
+    "url_encode": lambda s: urllib.parse.quote(s, safe=""),
+    "url_decode": lambda s: urllib.parse.unquote(s),
+    "json_value": _json_extract_scalar,
+    "json_extract": _json_extract,
+    "json_extract_scalar": _json_extract_scalar,
+    "json_parse": _json_parse,
+    "json_format": _json_parse,  # the canonical re-rendering
+    "json_array_get": _json_array_get,
+    "json_query": _json_extract,
 }
+
+# string -> array(varchar) (trailing arguments constant): the compiler
+# builds a [vocabulary, W] code LUT from the parts of every value
+_STRING_ARRAY_LUTS: Dict[str, Callable] = {
+    "split": lambda s, delim, limit=None: (
+        (s.split(delim, int(limit) - 1) if limit is not None else s.split(delim))
+        if delim else [s]),
+    "regexp_split": lambda s, pattern: re.split(pattern, s),
+    "regexp_extract_all": lambda s, pattern, group=0: [
+        m.group(int(group)) for m in re.finditer(pattern, s)],
+}
+
+# JSON functions with a number or boolean result and constant arguments
+_JSON_LUTS = frozenset({"json_array_length", "json_size", "json_array_contains"})
 
 # string -> number or boolean LUTs (name -> (fn, numpy dtype)); a value that
 # raises gives NULL for its rows
@@ -377,6 +540,8 @@ _STRING_INT_LUTS: Dict[str, tuple] = {
     "crc32": (lambda s: zlib.crc32(s.encode()), np.int64),
     "luhn_check": (_luhn_check, np.bool_),
     "from_iso8601_date": (_iso_date_days, np.int64),
+    "json_exists": (lambda s, path: _json_extract(s, path) is not None, np.bool_),
+    "is_json_scalar": (_is_json_scalar, np.bool_),
 }
 
 
@@ -402,7 +567,7 @@ _DISTANCE_FUNCS = {"levenshtein_distance": _levenshtein, "hamming_distance": _ha
 # every name the compiler lowers as a dictionary transform
 STRING_FUNCTIONS = frozenset(
     set(_STRING_FUNCS) | set(_STRING_INT_LUTS) | _STRING_LENGTH_FUNCS
-    | set(_DISTANCE_FUNCS) | UNPORTED_STRING_FUNCS
+    | set(_DISTANCE_FUNCS) | set(_STRING_ARRAY_LUTS) | _JSON_LUTS
     | {"concat", "strpos", "starts_with", "regexp_like", "codepoint"}
 )
 

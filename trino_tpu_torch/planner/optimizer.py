@@ -45,6 +45,7 @@ from .plan import (
     TableScanNode,
     TopNNode,
     UnionNode,
+    UnnestNode,
     ValuesNode,
     VectorTopNNode,
     WindowNode,
@@ -638,6 +639,15 @@ def prune_columns(root: PlanNode, types: Dict[str, Type]) -> PlanNode:
             )
         if isinstance(node, ValuesNode):
             return node
+        if isinstance(node, UnnestNode):
+            # PruneUnnestColumns: a replicated column nothing above reads is
+            # not repeated onto the cap*W grid (an array column repeated W
+            # times would hold W times its lanes); the unnested columns all
+            # stay, since together they fix the row count
+            kept = tuple(s for s in node.replicate_symbols if s in needed)
+            child_needed = set(kept) | {s for s, _ in node.unnest_symbols}
+            return replace(node, source=prune(node.source, child_needed),
+                           replicate_symbols=kept)
         if isinstance(node, ExchangeNode):
             return replace(node, source=prune(node.source, needed | set(node.partition_keys)))
         # default: conservative — require everything

@@ -15,6 +15,7 @@ copy of the old list stays a snapshot. The host syncs are the reference's
 from __future__ import annotations
 
 import contextlib
+from dataclasses import replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,7 +27,7 @@ from ..spi.page import Column, Dictionary, Page
 from ..spi.types import common_super_type, is_string
 from ..sql import tree as t
 from ..sql.ir import IrExpr
-from .executor import Relation
+from .executor import Relation, _cval_of, _column_of, _permute_column
 
 
 class DmlError(ValueError):
@@ -78,17 +79,6 @@ def _mutation_guard(connector):
     """The connector's read-compute-swap lock (nullcontext when absent)."""
     guard = getattr(connector, "mutation_guard", None)
     return guard() if guard is not None else contextlib.nullcontext()
-
-
-def _cval_of(c: Column) -> CVal:
-    return CVal(c.data, c.valid, c.dictionary)
-
-
-def _column_of(type_, v: CVal, fallback_dict=None) -> Column:
-    """A compiled value as a column of ``type_``'s storage dtype."""
-    dt = type_.torch_dtype
-    data = v.data if v.data.dtype == dt else v.data.to(dt)
-    return Column(type_, data, v.valid, v.dictionary or fallback_dict)
 
 
 def _run(ir: IrExpr, layout, env, capacity: int, device) -> Tuple[CVal, Optional[Dictionary]]:
@@ -357,8 +347,8 @@ def execute_merge(runner, stmt: t.Merge) -> int:
             env = dict(rel.env())
             joint_layout = dict(rel.layout())
             for sname, scol in zip(ssymbols, src_page.columns):
-                g = Column(scol.type, scol.data[src_pos], scol.valid[src_pos] & matched,
-                           scol.dictionary)
+                g = _permute_column(scol, src_pos)
+                g = replace(g, valid=g.valid & matched)
                 env[sname] = _cval_of(g)
                 joint_layout[sname] = ColumnLayout(g.type, g.dictionary)
 

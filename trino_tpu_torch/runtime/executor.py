@@ -32,7 +32,7 @@ fused join plane declines while a threshold is set, counted in
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,11 +52,12 @@ from ..ops.compiler import (
     plan_megakernel,
 )
 from ..spi.host_pages import empty_page_for
-from ..spi.page import Column, Dictionary, Page
+from ..spi.page import Column, Dictionary, Page, is_nested_column, map_rows
 from ..spi.types import (
     BIGINT,
     BOOLEAN,
     DOUBLE,
+    ArrayType,
     DecimalType,
     Type,
     VectorType,
@@ -85,6 +86,7 @@ from ..planner.plan import (
     TableScanNode,
     TopNNode,
     UnionNode,
+    UnnestNode,
     ValuesNode,
     WindowNode,
 )
@@ -107,14 +109,11 @@ class Relation:
     sorted_by: Tuple[str, ...] = ()
 
     def env(self) -> Dict[str, CVal]:
-        return {
-            s: CVal(c.data, c.valid, c.dictionary)
-            for s, c in zip(self.symbols, self.page.columns)
-        }
+        return {s: _cval_of(c) for s, c in zip(self.symbols, self.page.columns)}
 
     def layout(self) -> Dict[str, ColumnLayout]:
         return {
-            s: ColumnLayout(c.type, c.dictionary)
+            s: ColumnLayout(c.type, c.dictionary, _child_dicts(c))
             for s, c in zip(self.symbols, self.page.columns)
         }
 
@@ -529,6 +528,39 @@ class PlanExecutor:
         active = torch.ones(1, dtype=torch.bool, device=rel.page.device)
         return Relation(Page(cols, active), rel.symbols)
 
+    def _exec_UnnestNode(self, node: UnnestNode) -> Relation:
+        """UNNEST: the ``[cap, W]`` element lanes flattened to a ``[cap*W]``
+        row grid (UnnestOperator's per-position loop becomes one reshape;
+        rows past each value's length stay inactive). Several arrays zip,
+        the shorter padded with NULL; a map gives a key and a value column;
+        WITH ORDINALITY numbers the lanes from 1."""
+        rel = self.eval(node.source)
+        page = rel.page
+        unnest_cols = [rel.column_for(s) for s, _ in node.unnest_symbols]
+        w = 1
+        for c in unnest_cols:
+            arr = c if isinstance(c.type, ArrayType) else c.children[0]
+            w = max(w, int(arr.data.shape[1]) if arr.data.ndim > 1 else 1)
+        cap = page.capacity
+        dev = page.device
+        maxlen = torch.zeros(cap, dtype=torch.int32, device=dev)
+        for c in unnest_cols:
+            lengths = c.lengths if isinstance(c.type, ArrayType) else c.children[0].lengths
+            maxlen = torch.maximum(maxlen, torch.where(c.valid, lengths, 0))
+        lane = torch.arange(w, dtype=torch.int64, device=dev).repeat(cap)
+        active = (torch.repeat_interleave(page.active, w)
+                  & (lane < torch.repeat_interleave(maxlen, w)))
+        cols = [_repeat_column(rel.column_for(s), w) for s in node.replicate_symbols]
+        for c in unnest_cols:
+            if isinstance(c.type, ArrayType):
+                cols.append(_flatten_array_col(c, w, torch.ones_like(c.valid)))
+            else:  # a map: its key and value columns
+                for kid in c.children:
+                    cols.append(_flatten_array_col(replace(kid, valid=c.valid), w, c.valid))
+        if node.ordinality_symbol is not None:
+            cols.append(Column(BIGINT, lane + 1, torch.ones_like(active)))
+        return Relation(Page(tuple(cols), active), tuple(node.output_symbols))
+
     def _exec_ExchangeNode(self, node: ExchangeNode) -> Relation:
         # one process: an exchange passes its input through
         return self.eval(node.source)
@@ -623,7 +655,9 @@ class PlanExecutor:
             # the spill paths host-sync partition sizes: the serial walk
             MK.on_fallback("spill_threshold")
             return None
-        if any(a.ordering for _, a in node.aggregations):
+        if any(a.ordering or a.function in _LANE_AGGS for _, a in node.aggregations):
+            # lane-valued aggregates host-sync their lane width; aggregate
+            # ORDER BY pre-sorts the whole relation: the serial walk
             return None
         left, right = self._join_inputs(src)
         kind, src_n, probe, build, pkeys, bkeys, luts = self._join_sides(src, left, right)
@@ -725,12 +759,30 @@ class PlanExecutor:
         same partition on both join sides and a group never spans two. The
         frames come from ``repartition_frames``: on a CUDA page the
         ``partition_epilogue`` kernel, one transfer and slicing; on a CPU
-        page the host-backed formulation."""
-        from ..ops.repartition import repartition_frames
+        page the host-backed formulation. A page with nested columns has no
+        v2 frame: it takes the reference's legacy path, one compaction and
+        one v1 frame per partition (whose layout keeps the flat storage
+        only, as the reference's does)."""
+        from ..ops.repartition import (
+            hash_key_columns,
+            partition_ids,
+            repartition_frames,
+            supports_device_repartition,
+        )
+        from .serde import serialize_page
 
-        key_idx = [rel.symbols.index(s) for s in key_symbols]
-        # pool=None: spill can run inside out-of-core pool jobs
-        blobs, _ = repartition_frames(rel.page, key_idx, nparts, compress=True)
+        if supports_device_repartition(rel.page):
+            key_idx = [rel.symbols.index(s) for s in key_symbols]
+            # pool=None: spill can run inside out-of-core pool jobs
+            blobs, _ = repartition_frames(rel.page, key_idx, nparts, compress=True)
+        else:
+            pid = partition_ids(
+                hash_key_columns([rel.column_for(s) for s in key_symbols]), nparts)
+            blobs = []
+            for p in range(nparts):
+                mask = rel.page.active & (pid == p)
+                part = _compact(rel.page, mask, _round_capacity(max(int(mask.sum()), 1)))
+                blobs.append(serialize_page(part, compress=True))
         for b in blobs:
             self.spill_count += 1
             self.spilled_bytes += len(b)
@@ -755,7 +807,7 @@ class PlanExecutor:
         frame = LazyPageFrame(blob)
         page = frame.to_page(capacity=_round_capacity(max(frame.nrows, 1)), device=device)
         cols = tuple(
-            Column(c.type, c.data, c.valid, d) if d is not None else c
+            replace(c, dictionary=d) if d is not None else c
             for c, d in zip(page.columns, dictionaries)
         )
         return Relation(Page(cols, page.active), symbols)
@@ -820,24 +872,58 @@ def _projected_order(node: ProjectNode, sorted_by: Tuple[str, ...]) -> Tuple[str
 def _project_impl(compiled, env: Dict[str, CVal], page: Page) -> Page:
     cols = []
     for fn, type_, out_dict in compiled:
-        v = fn(env)
-        dt = type_.torch_dtype
-        data = v.data if v.data.dtype == dt else v.data.to(dt)
-        cols.append(Column(type_, data, v.valid, v.dictionary or out_dict))
+        cols.append(_column_of(type_, fn(env), out_dict))
     return Page(tuple(cols), page.active)
 
 
+def _cval_of(c: Column) -> CVal:
+    return CVal(c.data, c.valid, c.dictionary, c.lengths, c.elem_valid,
+                tuple(_cval_of(k) for k in c.children))
+
+
+def _child_dicts(c: Column) -> tuple:
+    """A nested column's dictionary tree for ``ColumnLayout.child_dicts``:
+    per child a tuple (a map or row child) or its Dictionary/None."""
+    return tuple(_child_dicts(k) if k.children else k.dictionary for k in c.children)
+
+
+def _column_of(type_, v: CVal, fallback_dict=None) -> Column:
+    """A compiled value as a column of ``type_``'s storage dtype, nested
+    children rebuilt with their declared types."""
+    dt = type_.torch_dtype
+    data = v.data if v.data.dtype == dt else v.data.to(dt)
+    kid_types = type_.child_types() if hasattr(type_, "child_types") else ()
+    kids = tuple(_column_of(kt, kv) for kt, kv in zip(kid_types, v.children))
+    return Column(type_, data, v.valid, v.dictionary or fallback_dict,
+                  lengths=v.lengths, elem_valid=v.elem_valid, children=kids)
+
+
 def _null_column(c: Column, cap: int) -> Column:
-    """An all-NULL column shaped like ``c`` (its type, dictionary and lanes)
-    with ``cap`` rows."""
-    return Column(
-        c.type, c.data.new_zeros((cap,) + tuple(c.data.shape[1:])),
-        c.valid.new_zeros(cap), c.dictionary,
-    )
+    """An all-NULL column shaped like ``c`` (its type, dictionary, lanes and
+    nested parts) with ``cap`` rows."""
+    return map_rows(c, lambda x: x.new_zeros((cap,) + tuple(x.shape[1:])))
 
 
 def _slice_column(c: Column, n: int) -> Column:
-    return Column(c.type, c.data[:n], c.valid[:n], c.dictionary)
+    return map_rows(c, lambda x: x[:n])
+
+
+def _repeat_column(c: Column, w: int) -> Column:
+    """Each row of ``c`` repeated ``w`` times in place (UNNEST's replicated
+    columns)."""
+    return map_rows(c, lambda x: torch.repeat_interleave(x, w, dim=0))
+
+
+def _flatten_array_col(c: Column, w: int, parent_valid) -> Column:
+    """``[cap, Wc]`` array lanes as a ``[cap*w]`` element column (lanes
+    padded to ``w``)."""
+    wc = c.data.shape[1]
+
+    def pad(x):
+        return x if wc == w else torch.nn.functional.pad(x, (0, w - wc))
+
+    valid = pad(c.elem_valid).reshape(-1) & torch.repeat_interleave(parent_valid & c.valid, w)
+    return Column(c.type.element, pad(c.data).reshape(-1), valid, c.dictionary)
 
 
 def _same_groups(a: Relation, b: Relation, group_keys) -> bool:
@@ -858,7 +944,8 @@ def _same_groups(a: Relation, b: Relation, group_keys) -> bool:
 
 
 def _permute_column(c: Column, perm) -> Column:
-    return Column(c.type, c.data[perm], c.valid[perm], c.dictionary)
+    """Row-gather a column by ``perm`` (its nested parts ride along)."""
+    return map_rows(c, lambda x: x[perm])
 
 
 def _translate_lut(from_dict, to_dict, device):
@@ -913,7 +1000,7 @@ def _join_expand(out_capacity: int, emit, count, lo, perm_b,
     cols = [_permute_column(c, probe_idx) for c in probe_page.columns]
     for c in build_page.columns:
         pc = _permute_column(c, build_pos)
-        cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
+        cols.append(replace(pc, valid=pc.valid & matched))
     return Page(tuple(cols), out_active)
 
 
@@ -929,8 +1016,8 @@ def _left_join_residual(residual_fn, symbols, out_capacity: int, emit, count, lo
     cols = [_permute_column(c, probe_idx) for c in probe_page.columns]
     for c in build_page.columns:
         pc = _permute_column(c, build_pos)
-        cols.append(Column(pc.type, pc.data, pc.valid & matched, pc.dictionary))
-    v = residual_fn({s: CVal(c.data, c.valid, c.dictionary) for s, c in zip(symbols, cols)})
+        cols.append(replace(pc, valid=pc.valid & matched))
+    v = residual_fn({s: _cval_of(c) for s, c in zip(symbols, cols)})
     keep = out_active & matched & v.valid & v.data.to(torch.bool)
     pcap = probe_page.capacity
     ids = torch.where(keep, probe_idx.to(torch.int64), pcap)
@@ -1017,9 +1104,12 @@ def _load_splits(provider, splits, col_indexes, session) -> List[Page]:
 
 
 def _concat_cols(cols: List[Column], type_: Type) -> Column:
-    """Concatenate column chunks; string chunks with differing dictionaries
+    """Concatenate column chunks: string chunks with differing dictionaries
     are re-encoded into a merged sorted dictionary (codes are only comparable
-    within one dictionary)."""
+    within one dictionary), array lanes are padded to the widest W, and map
+    and row children concatenate recursively (the reference's)."""
+    from ..spi.types import ArrayType, MapType, RowType
+
     dicts = [c.dictionary for c in cols]
     real = [d for d in dicts if d is not None]
     if real and (
@@ -1041,9 +1131,24 @@ def _concat_cols(cols: List[Column], type_: Type) -> Column:
     else:
         dictionary = real[0] if real else None
         datas = [c.data for c in cols]
-    return Column(
-        type_, torch.cat(datas), torch.cat([c.valid for c in cols]), dictionary
-    )
+    valid = torch.cat([c.valid for c in cols])
+    if isinstance(type_, ArrayType):
+        w = max(d.shape[1] for d in datas)
+
+        def pad(x):
+            return x if x.shape[1] == w else torch.nn.functional.pad(x, (0, w - x.shape[1]))
+
+        return Column(type_, torch.cat([pad(d) for d in datas]), valid, dictionary,
+                      lengths=torch.cat([c.lengths for c in cols]),
+                      elem_valid=torch.cat([pad(c.elem_valid) for c in cols]))
+    if isinstance(type_, (MapType, RowType)):
+        kids = tuple(
+            _concat_cols([c.children[k] for c in cols], kt)
+            for k, kt in enumerate(type_.child_types())
+        )
+        lengths = None if cols[0].lengths is None else torch.cat([c.lengths for c in cols])
+        return Column(type_, torch.cat(datas), valid, None, lengths=lengths, children=kids)
+    return Column(type_, torch.cat(datas), valid, dictionary)
 
 
 def _concat_pages(pages: List[Page]) -> Page:
@@ -1070,8 +1175,9 @@ def _compact(page: Page, mask: torch.Tensor, capacity: int) -> Page:
     order, cut to ``capacity`` rows (at least their count)."""
     keep = page.active & mask
     perm = torch.sort((~keep).to(torch.int8), stable=True).indices[:capacity]
-    cols = tuple(Column(c.type, c.data[perm], c.valid[perm], c.dictionary) for c in page.columns)
-    return Page(cols, keep[perm])
+    # nested lanes take the same permutation gather (the reference's
+    # _jit_compact gathers them)
+    return Page(tuple(_permute_column(c, perm) for c in page.columns), keep[perm])
 
 
 def _maybe_compact(rel: Relation, density: int = 4, min_cap: int = 8192) -> Relation:
@@ -1104,11 +1210,15 @@ _DIRECT_AGG_FUNCS = frozenset(
 )
 DIRECT_GROUP_LIMIT = 256
 
+# aggregates whose per-group state is a padded lane grid [out_cap, agg_w]
+_LANE_AGGS = frozenset({"array_agg", "map_agg", "multimap_agg", "histogram", "listagg"})
+
 # aggregates whose evaluation re-sorts rows by group and reads the group
 # bounds by position: the presorted path must hand them a dense active
-# prefix (the reference's _RESORT_AGGS, less those the port does not
+# prefix (the reference's _RESORT_AGGS, less the digests the port does not
 # evaluate yet)
-_RESORT_AGGS = frozenset({"approx_distinct", "approx_percentile"})
+_RESORT_AGGS = frozenset({"approx_distinct", "approx_percentile", "map_agg", "histogram",
+                          "multimap_agg", "listagg"})
 
 # families of the long tail in _eval_aggregate
 _TWO_COLUMN_AGGS = frozenset({
@@ -1178,16 +1288,32 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
       first group key and its self-check passes, else a stable co-sort by
       the group keys; a host sync of the group count sizes the output, and
       the reduction is ``_aggregate_impl`` in its plain form;
-    - keyless global: the compacted relation reduced to one row."""
+    - keyless global: the compacted relation reduced to one row.
+
+    Aggregate ORDER BY pre-sorts the whole relation by the ordering (the
+    group sort is stable, so each group's rows keep it); two different
+    orderings in one aggregation raise. The lane-valued aggregates
+    (``_LANE_AGGS``) take a lane width of the largest group's row count, a
+    host read rounded up to a power of two from 8; ``listagg`` and
+    ``multimap_agg`` finish on the host."""
     out_symbols = node.group_keys + tuple(s for s, _ in node.aggregations)
     domains = _direct_agg_domains(rel, node)
     if domains is not None:
         page = _direct_aggregate(node.group_keys, node.aggregations, domains, rel, mode)
         return Relation(page, out_symbols)
-    if any(a.ordering for _, a in node.aggregations):
-        unported("aggregate ORDER BY")
     if compact:
         rel = _maybe_compact(rel)
+    orderings: Tuple = ()
+    for _, a in node.aggregations:
+        if a.ordering:
+            if orderings and a.ordering != orderings:
+                raise ExecutionError(
+                    "multiple distinct aggregate ORDER BY clauses in one "
+                    "aggregation are not supported"
+                )
+            orderings = a.ordering
+    if orderings:
+        rel = Relation(_sort_impl(orderings, rel, None), rel.symbols)
     needed = _needed_agg_symbols(node)
     if node.group_keys:
         sorted_page = None
@@ -1209,11 +1335,68 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
     else:
         sorted_page = Page(tuple(rel.column_for(s) for s in needed), rel.page.active)
         new_group, num_groups, out_cap = None, 1, 1
+    agg_w = 0
+    if any(a.function in _LANE_AGGS for _, a in node.aggregations):
+        if node.group_keys:
+            agg_w = int(_max_run(new_group, sorted_page.active))
+        else:
+            agg_w = sorted_page.num_rows()
+        agg_w = _round_capacity(max(agg_w, 1), base=8)
     page = _aggregate_impl(
         node.group_keys, node.aggregations, needed, out_cap, sorted_page, new_group,
-        num_groups,
+        num_groups, agg_w=agg_w,
     )
+    fin = [i for i, (_, a) in enumerate(node.aggregations)
+           if a.function in ("listagg", "multimap_agg")]
+    if fin:
+        cols = list(page.columns)
+        nk = len(node.group_keys)
+        for i in fin:
+            agg = node.aggregations[i][1]
+            if agg.function == "listagg":
+                sep = ""
+                if len(agg.args) > 1:
+                    seps = rel.column_for(agg.args[1]).decode(rel.page.active.cpu().numpy())
+                    nonnull = [v for v in seps if v is not None]
+                    sep = nonnull[0] if nonnull else ""
+                cols[nk + i] = _finalize_listagg(cols[nk + i], sep)
+            else:
+                cols[nk + i] = _finalize_multimap(cols[nk + i], agg.output_type)
+        page = Page(tuple(cols), page.active)
     return Relation(page, out_symbols)
+
+
+def _max_run(new_group: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The largest group's row count over a group-sorted page: each active
+    row's distance from its group's first row, maxed."""
+    idx = torch.arange(new_group.shape[0], device=new_group.device)
+    start = torch.cummax(torch.where(new_group, idx, -1), 0).values
+    return torch.where(active, idx - start + 1, 0).max()
+
+
+def _finalize_listagg(col: Column, sep: str) -> Column:
+    """listagg's lanes joined into strings on the host (a fresh dictionary);
+    rows past the group count hold no elements."""
+    lists = col.children[0].decode(None)
+    strings = [None if x is None else sep.join(e for e in x if e is not None) for x in lists]
+    return Column.from_strings(strings, col.type, col.valid.device)
+
+
+def _finalize_multimap(col: Column, out_type) -> Column:
+    """multimap_agg's (key, value) lanes regrouped on the host into
+    ``map(K, array(V))``."""
+    karr, varr = col.children
+    dicts: List[Optional[dict]] = []
+    for ks, vs in zip(karr.decode(None), varr.decode(None)):
+        if ks is None:
+            dicts.append(None)
+            continue
+        d: dict = {}
+        for k, v in zip(ks, vs):
+            if k is not None:
+                d.setdefault(k, []).append(v)
+        dicts.append(d)
+    return Column.from_nested(out_type, dicts, device=col.valid.device)
 
 
 def _force_dense(rel: Relation) -> Relation:
@@ -1259,20 +1442,31 @@ def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = Fal
     key_cols = []
     for k in group_keys:
         c = rel.column_for(k)
+        if is_nested_column(c):
+            raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
         if c.data.ndim == 2:
             unported("ops.int128 (long decimal group keys)")
         key_cols.append((c.data, c.valid))
     cols = [rel.column_for(s) for s in needed]
-    # long-decimal limbs ride as one payload each, as in the reference
-    lanes = [c.data.shape[1] if c.data.ndim == 2 else 1 for c in cols]
+    nested = [is_nested_column(c) for c in cols]
+    # long-decimal limbs ride as one payload each, as in the reference; a
+    # nested column rides as its row index and is gathered after the sort
+    lanes = [0 if nd else c.data.shape[1] if c.data.ndim == 2 else 1
+             for c, nd in zip(cols, nested)]
     payloads = [
         (c.data[:, j].contiguous() if c.data.ndim == 2 else c.data, c.valid)
         for c, n in zip(cols, lanes) for j in range(n)
     ]
+    if any(nested):
+        rows = torch.arange(page.capacity, dtype=torch.int64, device=page.active.device)
+        payloads.append((rows, page.active))
     sort = HK.group_sort if kernel else HK.group_sort_plain
     out, active_s, new_group, num_groups = sort(key_cols, payloads, page.active)
     sorted_cols, i = [], 0
     for c, n in zip(cols, lanes):
+        if n == 0:
+            sorted_cols.append(_permute_column(c, out[-1][0]))
+            continue
         d = out[i][0] if c.data.ndim == 1 else torch.stack([d for d, _ in out[i:i + n]], 1)
         sorted_cols.append(Column(c.type, d, out[i][1], c.dictionary))
         i += n
@@ -1280,7 +1474,8 @@ def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = Fal
 
 
 def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
-                    new_group, num_groups, segment_kernel: bool = False) -> Page:
+                    new_group, num_groups, segment_kernel: bool = False,
+                    agg_w: int = 0) -> Page:
     """The sort-path (and keyless) reduction over a group-sorted page:
     each group's key from its first row, and every aggregate from
     ``reduce_fn``: sums and counts by cumsum at the group boundaries,
@@ -1290,7 +1485,9 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     The long tail's helpers are the reference's: an exact distinct count
     and the percentile re-sort each group's rows by value (a stable sort,
     so a group's rows keep their positions and ``starts``), and
-    ``approx_distinct`` takes HyperLogLog registers when their state fits."""
+    ``approx_distinct`` takes HyperLogLog registers when their state fits.
+    ``agg_w`` is the lane width of the lane-valued aggregates (0 when the
+    aggregation has none)."""
     rel = Relation(page, symbols)
     active = page.active
     device = active.device
@@ -1364,10 +1561,67 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
                             .clamp(min=0), top)
         return v2[(starts + idx).clamp(0, n - 1)]
 
+    lane_fns = None
+    if agg_w:
+        starts0 = starts.clamp(0, n - 1)
+
+        def lane_rank(part, g):
+            # each participating row's rank among its group's participants
+            c = K.cumsum(part.to(torch.int64))
+            spg = starts0[g]
+            return c - (c[spg] - part[spg].to(torch.int64)) - 1
+
+        def scatter_lanes(flat, vals, dtype):
+            grid = torch.zeros(out_cap * agg_w + 1, dtype=dtype, device=device)
+            grid[flat] = vals.to(dtype)
+            return grid[:-1].reshape(out_cap, agg_w)
+
+        def array_agg_fn(vals, part, elem_ok):
+            # each participating row into its group's lane grid, at its rank
+            g = gid()
+            rank = lane_rank(part, g)
+            flat = torch.where(part & (rank < agg_w), g * agg_w + rank, out_cap * agg_w)
+            lengths = reduce_fn(part.to(torch.int64), part, "count").clamp(max=agg_w)
+            return (scatter_lanes(flat, vals, vals.dtype),
+                    scatter_lanes(flat, elem_ok, torch.bool), lengths.to(torch.int32))
+
+        def map_lanes_fn(kvals, part, vvals, vok, kind):
+            # distinct-key lanes of map_agg and histogram: each group's
+            # participants re-sorted by key (stably: group segments keep
+            # their positions), the first row of each (group, key) run
+            # scattered to its lane; histogram counts every row of the run
+            g = gid()
+            payloads = [kvals, part] + ([vvals, vok] if vvals is not None else [])
+            keys2, payloads2 = K.cosort(
+                [K.order_key(kvals), (~part).to(torch.int8), g], payloads)
+            knorm2, g2 = keys2[0], keys2[2]
+            k2, part2 = payloads2[0], payloads2[1]
+            prev_same = torch.zeros_like(part2)
+            prev_same[1:] = (knorm2[1:] == knorm2[:-1]) & (g2[1:] == g2[:-1]) & part2[:-1]
+            first = part2 & ~prev_same
+            rank = lane_rank(first, g2)
+            in_lane = rank < agg_w
+            oob = out_cap * agg_w
+            flat_first = torch.where(first & in_lane, g2 * agg_w + rank, oob)
+            kdata = scatter_lanes(flat_first, k2, kvals.dtype)
+            kev = scatter_lanes(flat_first, torch.ones_like(first), torch.bool)
+            lengths = torch.zeros(out_cap, dtype=torch.int32, device=device)
+            lengths.index_add_(0, g2, (first & in_lane).to(torch.int32))
+            if kind == "histogram":
+                flat_all = torch.where(part2 & in_lane, g2 * agg_w + rank, oob)
+                counts = torch.zeros(oob + 1, dtype=torch.int64, device=device)
+                counts.index_add_(0, flat_all, torch.ones_like(flat_all))
+                return kdata, kev, counts[:-1].reshape(out_cap, agg_w), kev, lengths
+            v2, vok2 = payloads2[2], payloads2[3]
+            return (kdata, kev, scatter_lanes(flat_first, v2, vvals.dtype),
+                    scatter_lanes(flat_first, vok2, torch.bool), lengths)
+
+        lane_fns = (array_agg_fn, map_lanes_fn)
+
     for _, agg in aggregations:
         out_cols.append(_eval_aggregate(
             rel, agg, active, out_cap, reduce_fn, first_fn, lambda g: g[gid()],
-            distinct_count_fn, hll_fn, percentile_fn))
+            distinct_count_fn, hll_fn, percentile_fn, lane_fns))
     return Page(tuple(out_cols), group_exists)
 
 
@@ -1426,6 +1680,52 @@ def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: st
     return Page(tuple(out_cols), group_exists)
 
 
+def _lane_aggregate(rel: Relation, agg: Aggregation, arg: Column, fmask, w, out_cap: int,
+                    array_agg_fn, map_lanes_fn) -> Column:
+    """The lane-valued aggregates, the reference's: ``array_agg`` keeps
+    NULL elements and a group without rows is NULL; ``map_agg`` and
+    ``histogram`` skip NULL keys and keep one lane per distinct key in key
+    order; ``multimap_agg`` and ``listagg`` gather their lanes here and
+    finish on the host (``aggregate_relation``)."""
+    name, out_type = agg.function, agg.output_type
+    device = fmask.device
+
+    def array_col(type_, data, ev, lengths, dictionary):
+        return Column(ArrayType(element=type_), data, lengths > 0, dictionary,
+                      lengths=lengths, elem_valid=ev)
+
+    def dummy(dtype=torch.int8):
+        return torch.zeros(out_cap, dtype=dtype, device=device)
+
+    if name == "array_agg":
+        data, ev, lengths = array_agg_fn(arg.data, fmask, fmask & arg.valid)
+        return Column(out_type, data, lengths > 0, arg.dictionary, lengths=lengths,
+                      elem_valid=ev)
+    if name in ("map_agg", "histogram"):
+        if name == "map_agg":
+            varg = rel.column_for(agg.args[1])
+            kdata, kev, vdata, vev, lengths = map_lanes_fn(
+                arg.data, w, varg.data, varg.valid & w, "map_agg")
+            vtype, vdict = varg.type, varg.dictionary
+        else:
+            kdata, kev, vdata, vev, lengths = map_lanes_fn(arg.data, w, None, None, "histogram")
+            vtype, vdict = BIGINT, None
+        kids = (array_col(arg.type, kdata, kev, lengths, arg.dictionary),
+                array_col(vtype, vdata, vev, lengths, vdict))
+        return Column(out_type, dummy(), lengths > 0, lengths=lengths, children=kids)
+    if name == "multimap_agg":
+        varg = rel.column_for(agg.args[1])
+        kdata, kev, lengths = array_agg_fn(arg.data, w, w)
+        vdata, vev, _ = array_agg_fn(varg.data, w, w & varg.valid)
+        kids = (array_col(arg.type, kdata, kev, lengths, arg.dictionary),
+                array_col(varg.type, vdata, vev, lengths, varg.dictionary))
+        return Column(out_type, dummy(), lengths > 0, lengths=lengths, children=kids)
+    # listagg: NULL values skipped
+    data, ev, lengths = array_agg_fn(arg.data, w, w)
+    lanes = array_col(arg.type, data, ev, lengths, arg.dictionary)
+    return Column(out_type, dummy(torch.int32), lengths > 0, children=(lanes,))
+
+
 def _to_f64_masked(col: Column, weight: torch.Tensor) -> torch.Tensor:
     """A numeric column as DOUBLE (a decimal divided by its scale), 0 where
     the row does not take part."""
@@ -1446,6 +1746,7 @@ def _eval_aggregate(
     distinct_count_fn=None,
     hll_fn=None,
     percentile_fn=None,
+    lane_fns=None,
 ) -> Column:
     """One aggregate, strategy-agnostic: ``reduce_fn(vals, weight, kind)`` is
     the per-group reduction, ``first_fn`` picks a participating row and
@@ -1472,6 +1773,8 @@ def _eval_aggregate(
 
     if name == "count":
         return Column(BIGINT, nonempty, all_valid)
+    if name in _LANE_AGGS and lane_fns is not None:
+        return _lane_aggregate(rel, agg, arg, fmask, w, out_cap, *lane_fns)
     if vals_s.ndim == 2:
         # sum and avg reach here as limbs ($dec_limb); min/max need the
         # reference's hi-then-tied-lo reduction

@@ -568,6 +568,9 @@ class LocalQueryRunner:
             catalog, st = resolve(stmt.name)
             writable(catalog, "DROP TABLE", "drop_table").drop_table(
                 st, if_exists=stmt.if_exists)
+            from ..ops.compiler import clear_cache
+
+            clear_cache()
             return _ok()
 
         if isinstance(stmt, t.CreateTable):

@@ -18,6 +18,7 @@ ORDER BY, else the whole partition).
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import TYPE_CHECKING, List, Optional, Tuple
 
 import torch
@@ -359,9 +360,7 @@ def execute_window(executor, rel: "Relation", node: WindowNode) -> "Relation":
                 pos = P[r.clamp(0, cap - 1)]
                 in_frame = in_rank & (pos >= lo) & (pos <= hi) & (hi >= lo)
                 pos = pos.clamp(0, cap - 1)
-                col = Column(
-                    arg.type, data_s[pos][inv], (in_frame & active_s)[inv], arg.dictionary
-                )
+                col = _gathered(arg, perm[pos][inv], (in_frame & active_s)[inv])
             else:
                 if name == "first_value":
                     pos, in_frame = lo, hi >= lo
@@ -372,18 +371,21 @@ def execute_window(executor, rel: "Relation", node: WindowNode) -> "Relation":
                     pos = lo + max(n_arg, 1) - 1
                     in_frame = pos <= hi
                 pos = pos.clamp(0, cap - 1)
-                col = Column(
-                    arg.type,
-                    data_s[pos][inv],
-                    (valid_s[pos] & in_frame & active_s)[inv],
-                    arg.dictionary,
-                )
+                col = _gathered(arg, perm[pos][inv], (valid_s[pos] & in_frame & active_s)[inv])
         else:
             raise NotImplementedError(f"window function {name}")
         out_cols.append(col)
         out_symbols.append(sym)
 
     return Relation(Page(tuple(out_cols), active), tuple(out_symbols))
+
+
+def _gathered(arg: Column, rows: torch.Tensor, valid: torch.Tensor) -> Column:
+    """``arg``'s rows ``rows`` (its nested parts with them) with validity
+    ``valid``."""
+    from .executor import _permute_column
+
+    return replace(_permute_column(arg, rows), valid=valid)
 
 
 def _lead_lag(wf, name, rel, perm, inv, idx, pid, active_s, valid_index) -> Column:
@@ -415,21 +417,21 @@ def _lead_lag(wf, name, rel, perm, inv, idx, pid, active_s, valid_index) -> Colu
         rolled = data_s[pos]
         out_valid = same  # the target is non-NULL by construction
     else:
-        rolled = _roll(data_s, shift)
+        pos = _roll(idx, shift)
+        rolled = data_s[pos]
         # a roll wraps: positions whose source row crossed the edge must not
         # alias the other end
         in_range = (idx - shift >= 0) & (idx - shift < cap)
         same = (_roll(pid, shift) == pid) & active_s & _roll(active_s, shift) & in_range
         out_valid = same & _roll(valid_s, shift)
-    out_data = rolled
-    if default is not None:
-        if arg.dictionary is not None:
-            code = arg.dictionary.code_of(default)
-            if code < 0:
-                raise NotImplementedError(f"{name} default not in the column dictionary")
-            fill = code
-        else:
-            fill = default
-        out_data = torch.where(same, rolled, torch.full_like(rolled, fill))
-        out_valid = torch.where(same, out_valid, active_s)
+    if default is None:
+        return _gathered(arg, perm[pos][inv], out_valid[inv])
+    if arg.dictionary is not None:
+        fill = arg.dictionary.code_of(default)
+        if fill < 0:
+            raise NotImplementedError(f"{name} default not in the column dictionary")
+    else:
+        fill = default
+    out_data = torch.where(same, rolled, torch.full_like(rolled, fill))
+    out_valid = torch.where(same, out_valid, active_s)
     return Column(arg.type, out_data[inv], out_valid[inv], arg.dictionary)

@@ -8,9 +8,20 @@ the reference. VARCHAR columns carry a host-side sorted :class:`Dictionary`
 (copied from the reference unchanged): the device sees int32 codes, and code
 order is string order.
 
-Scalar columns, and long decimals (DECIMAL(p>18)) as two int64 limbs on a
-trailing axis (``ops/int128.py``); the nested layouts (array, map, row) are
-not ported yet.
+Scalar columns, long decimals (DECIMAL(p>18)) as two int64 limbs on a
+trailing axis (``ops/int128.py``), and the reference's pad-and-mask nested
+layouts:
+
+- ARRAY: ``data[cap, W]`` + ``elem_valid[cap, W]`` + ``lengths[cap]``
+  (positions 0..len-1 exist; ``elem_valid`` marks the non-NULL ones); an
+  array of nested elements keeps a dummy ``[cap, W]`` lane and one flattened
+  ``[cap*W]`` child column;
+- MAP: ``children == (keys, values)``, two array-layout columns sharing
+  ``lengths``; the parent's ``data`` is a dummy int8 lane;
+- ROW: ``children`` holds one column per field.
+
+:func:`map_rows` applies a row-axis transform (a gather, a slice, a repeat)
+to every tensor of a column, nested parts included.
 """
 
 from __future__ import annotations
@@ -132,13 +143,17 @@ class Dictionary:
 
 @dataclass
 class Column:
-    """One scalar column: device data + validity mask + SQL type (+ host
-    dictionary for dictionary-coded strings)."""
+    """One column: device data + validity mask + SQL type (+ host dictionary
+    for dictionary-coded strings, + the nested parts of an array, map or
+    row: see the module docstring)."""
 
     type: Type
     data: torch.Tensor
     valid: torch.Tensor
     dictionary: Optional[Dictionary] = None
+    lengths: Optional[torch.Tensor] = None  # [cap] int32 (array/map)
+    elem_valid: Optional[torch.Tensor] = None  # [cap, W] bool (array)
+    children: tuple = ()  # map: (keys, values); row: fields; array: flat child
 
     @property
     def capacity(self) -> int:
@@ -189,10 +204,73 @@ class Column:
         valid = np.array([s is not None for s in strings], dtype=np.bool_)
         return Column.from_numpy(type_, codes, valid, None, d, device)
 
+    @staticmethod
+    def from_nested(type_: Type, values: Sequence, capacity: Optional[int] = None,
+                    width: Optional[int] = None, device=None) -> "Column":
+        """An array, map or row column from python values (lists, dicts,
+        tuples; None is NULL) in the reference's layout: the lane width is
+        the longest value (at least 1) unless ``width`` is given; an array
+        of nested elements keeps a flattened ``[cap*W]`` child; a map keeps
+        key and value array children; a row one column per field."""
+        from .types import ArrayType, MapType, RowType
+
+        device = resolve_device(device)
+        n = len(values)
+        cap = capacity if capacity is not None else n
+        valid_np = np.zeros(cap, dtype=np.bool_)
+        valid_np[:n] = [v is not None for v in values]
+        valid = torch.from_numpy(valid_np).to(device)
+        if isinstance(type_, ArrayType):
+            lists = [list(v) if v is not None else [] for v in values]
+            w = width if width is not None else max([len(x) for x in lists] + [1])
+            lengths = np.zeros(cap, dtype=np.int32)
+            lengths[:n] = [min(len(x), w) for x in lists]
+            ev = np.zeros((cap, w), dtype=np.bool_)
+            for i, x in enumerate(lists):
+                for j, e in enumerate(x[:w]):
+                    ev[i, j] = e is not None
+            flat = [x[j] if j < len(x) else None for x in lists for j in range(w)]
+            parts = dict(lengths=torch.from_numpy(lengths).to(device),
+                         elem_valid=torch.from_numpy(ev).to(device))
+            if isinstance(type_.element, (ArrayType, MapType, RowType)):
+                flat += [None] * ((cap - n) * w)
+                child = Column.from_nested(type_.element, flat, cap * w, device=device)
+                return Column(type_, torch.zeros((cap, w), dtype=torch.int8, device=device),
+                              valid, children=(child,), **parts)
+            ecol = _scalar_from_pylist(type_.element, flat, None, device)
+            data = ecol.data.reshape(n, w)
+            if cap > n:
+                data = torch.cat([data, data.new_zeros((cap - n, w))])
+            return Column(type_, data, valid, ecol.dictionary, **parts)
+        if isinstance(type_, MapType):
+            keys = [list(v.keys()) if v is not None else None for v in values]
+            vals = [list(v.values()) if v is not None else None for v in values]
+            w = width if width is not None else max(
+                [len(k) for k in keys if k is not None] + [1])
+            kcol = Column.from_nested(ArrayType(element=type_.key), keys, cap, w, device)
+            vcol = Column.from_nested(ArrayType(element=type_.value), vals, cap, w, device)
+            return Column(type_, torch.zeros(cap, dtype=torch.int8, device=device), valid,
+                          lengths=kcol.lengths, children=(kcol, vcol))
+        if isinstance(type_, RowType):
+            kids = []
+            for i, (_, ft) in enumerate(type_.fields):
+                fvals = [v[i] if v is not None else None for v in values]
+                kids.append(
+                    Column.from_nested(ft, fvals, cap, device=device)
+                    if isinstance(ft, (ArrayType, MapType, RowType))
+                    else _scalar_from_pylist(ft, fvals, cap, device))
+            return Column(type_, torch.zeros(cap, dtype=torch.int8, device=device), valid,
+                          children=tuple(kids))
+        return _scalar_from_pylist(type_, list(values), cap, device)
+
     def decode(self, active: Optional[np.ndarray] = None) -> np.ndarray:
         """Host materialization into python values (objects), nulls as None;
-        the same conversions as the reference's ``Column.decode`` for the
-        scalar types this slice carries."""
+        the reference's ``Column.decode``: an array decodes to a list, a map
+        to a dict, a row to a tuple."""
+        from .types import ArrayType, MapType, RowType
+
+        if isinstance(self.type, (ArrayType, MapType, RowType)):
+            return self._decode_nested(active)
         data = self.data.cpu().numpy()
         valid = self.valid.cpu().numpy()
         if active is not None:
@@ -246,6 +324,133 @@ class Column:
         for i, ok in enumerate(valid.tolist()):
             out[i] = lst[i] if ok else None
         return out
+
+
+    def _decode_nested(self, active: Optional[np.ndarray]) -> np.ndarray:
+        from .types import ArrayType, MapType
+
+        valid = self.valid.cpu().numpy()
+        if active is not None:
+            valid = valid[active]
+        out = np.empty(len(valid), dtype=object)
+        if isinstance(self.type, ArrayType):
+            lengths = self.lengths.cpu().numpy()
+            cap, w = self.elem_valid.shape
+            if self.children:
+                # the flattened [cap*W] child, reshaped back to the lanes
+                elems = self.children[0].decode(None).reshape(cap, w)
+                if active is not None:
+                    elems, lengths = elems[active], lengths[active]
+                for i in range(len(valid)):
+                    out[i] = list(elems[i, : lengths[i]]) if valid[i] else None
+                return out
+            # only the present lanes of the wanted rows leave the device: a
+            # lane grid can be far wider than its arrays (a grouped
+            # aggregate's lane width is its largest group's row count)
+            rows = np.arange(cap) if active is None else np.nonzero(active)[0]
+            lens = np.where(valid, lengths[rows], 0).astype(np.int64)
+            starts = np.cumsum(lens) - lens
+            flat = (np.repeat(rows.astype(np.int64) * w - starts, lens)
+                    + np.arange(int(lens.sum()), dtype=np.int64))
+            idx = torch.from_numpy(flat).to(self.data.device)
+            elems = Column(self.type.element, self.data.reshape(-1)[idx],
+                           self.elem_valid.reshape(-1)[idx], self.dictionary).decode(None)
+            for i in range(len(rows)):
+                out[i] = list(elems[starts[i]: starts[i] + lens[i]]) if valid[i] else None
+            return out
+        if isinstance(self.type, MapType):
+            keys = self.children[0].decode(active)
+            vals = self.children[1].decode(active)
+            for i in range(len(valid)):
+                out[i] = (dict(zip(keys[i], vals[i]))
+                          if valid[i] and keys[i] is not None else None)
+            return out
+        fields = [c.decode(active) for c in self.children]
+        for i in range(len(valid)):
+            out[i] = tuple(f[i] for f in fields) if valid[i] else None
+        return out
+
+
+def map_rows(c: Column, fn) -> Column:
+    """``c`` with ``fn`` (a transform along the row axis: a gather, a slice,
+    a repeat, a fill) applied to every tensor of it, nested parts included.
+    The flattened ``[cap*W]`` child of an array of nested elements is viewed
+    as ``[cap, W, ...]`` for ``fn``, so its lanes travel with their row."""
+    kids = c.children
+    if kids and c.elem_valid is not None:
+        cap, w = c.elem_valid.shape
+
+        def lane_fn(x):
+            rest = tuple(x.shape[1:])
+            return fn(x.reshape((cap, w) + rest)).reshape((-1,) + rest)
+
+        kids = (map_rows(kids[0], lane_fn),)
+    else:
+        kids = tuple(map_rows(k, fn) for k in kids)
+    return Column(
+        c.type, fn(c.data), fn(c.valid), c.dictionary,
+        lengths=None if c.lengths is None else fn(c.lengths),
+        elem_valid=None if c.elem_valid is None else fn(c.elem_valid),
+        children=kids,
+    )
+
+
+def column_tensors(c: Column):
+    """Every tensor a column holds (data, validity, the nested parts)."""
+    yield c.data
+    yield c.valid
+    if c.lengths is not None:
+        yield c.lengths
+    if c.elem_valid is not None:
+        yield c.elem_valid
+    for k in c.children:
+        yield from column_tensors(k)
+
+
+def is_nested_column(c: Column) -> bool:
+    return bool(c.children) or c.lengths is not None or c.elem_valid is not None
+
+
+def _scalar_from_pylist(type_: Type, values: Sequence, capacity: Optional[int] = None,
+                        device=None) -> Column:
+    """Python scalars -> a scalar-layout column (the reference's: strings
+    dictionary-encode, decimals scale, dates and timestamps convert to epoch
+    units, long decimals split into limbs)."""
+    import datetime
+    import decimal
+
+    device = resolve_device(device)
+    n = len(values)
+    cap = capacity if capacity is not None else n
+    if type_.name in ("varchar", "char"):
+        return Column.from_strings(list(values) + [None] * (cap - n), type_, device)
+    valid = np.array([v is not None for v in values] + [False] * (cap - n), np.bool_)
+    if isinstance(type_, DecimalType) and type_.precision > 18:
+        from ..ops.int128 import np_from_ints
+
+        with decimal.localcontext() as ctx:
+            ctx.prec = 60
+            scaled = [
+                int(decimal.Decimal(str(v)).scaleb(type_.scale).to_integral_value())
+                if v is not None else 0
+                for v in values
+            ] + [0] * (cap - n)
+        return Column.from_numpy(type_, np_from_ints(scaled), valid, cap, None, device)
+    conv = np.zeros(cap, dtype=type_.storage_dtype)
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        if isinstance(type_, DecimalType):
+            conv[i] = round(float(v) * 10**type_.scale)
+        elif type_.name == "date":
+            d = v if isinstance(v, datetime.date) else datetime.date.fromisoformat(v)
+            conv[i] = (d - datetime.date(1970, 1, 1)).days
+        elif type_.name == "timestamp":
+            ts = v if isinstance(v, datetime.datetime) else datetime.datetime.fromisoformat(v)
+            conv[i] = round((ts - datetime.datetime(1970, 1, 1)).total_seconds() * 1e6)
+        else:
+            conv[i] = v
+    return Column.from_numpy(type_, conv, valid, cap, None, device)
 
 
 def _decode_temporal(name: str, x: int):
