@@ -8,7 +8,9 @@ printed):
 1. Card and build: the card's name and power limit, then the Hopper kernels
    compiled from ``trino_tpu_torch/csrc/`` (build seconds and the ptxas
    report).
-2. Kernels against their plain torch versions on the card, bit-exact: each
+2. Kernels against their plain torch versions on the card, bit-exact
+   (the exchange destination ``partition_dest`` on the epilogue's cases,
+   and the epilogue given that destination equal to the hashed run): each
    wrapper at its main path's shape (one lineitem page of TPC-H SF10: G = 12
    for the grouped sums; Q3's join sizes for the hash join; Q3's joined
    rows for the segment sums; Q10's joined page for the group sort and the
@@ -29,10 +31,10 @@ printed):
    the whole-table bound of earlier versions.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
-   count set to 0 just before it), rows identical to the run with the
-   kernel tier off (``pallas_aggregation=off`` for Q6 and Q1,
-   ``pallas_fusion=false`` for Q3 and Q10) and to an independent numpy
-   computation over the port's generator, no fallback of the fused path,
+   count set to 0 just before it), rows identical to an independent numpy
+   computation over the port's generator (the queries meet the kernel
+   tier off at SF1 in phase 5 and at SF10 over phase 8's memory tables),
+   no fallback of the fused path,
    Q10's fused phases (probe 3, expand 3, aggregate 1), Q10's group sort
    on one 64-bit composite, and the wall seconds of each query. Every
    kernel is also checked and timed on the inputs the queries gave it (its
@@ -45,34 +47,37 @@ printed):
 4. TPC-H Q14 and Q18 at SF10 (Q18 with TPC-H's quantity threshold of 300)
    with the default session: wall seconds, peak device memory
    (``torch.cuda.max_memory_allocated`` after a reset), launches by fused
-   phase and by kernel, no fallback; rows identical to the kernel tier off
-   and to a numpy computation over the port's generator (Q14's DOUBLE at
-   1e-9 relative); the hash probe and expansion held bit-exact and timed on
-   the inputs each join gave them.
+   phase and by kernel, no fallback; rows identical to a numpy computation
+   over the port's generator (Q14's DOUBLE at 1e-9 relative; the kernel
+   tier off meets both at SF1 in phase 5, and Q18 at SF10 over phase 8's
+   memory tables); the hash probe and expansion
+   held bit-exact and timed on the inputs each join gave them.
 5. The 22 queries of ``tests/tpch_corpus.py`` at SF1, each with the
    default session (launch counts printed by query) and with the kernel
    tier off: rows identical (DOUBLE at 1e-9 relative), no fallback but the
    CROSS joins the fused path declines (Q11, Q22), and every kernel each
    query launched held bit-exact against its plain version on the inputs
    the query gave it.
-6. The out-of-core tier. (a) Q1 at SF100 through the streaming
+6. The out-of-core tier. (a) Q1 at SF30 through the streaming
    aggregation (``runtime/streaming.py``): wall, splits, peak device memory
    (fails past 8 GiB), the I/O pool's generation seconds and the main
    thread's wait, launches by kernel; rows equal to numpy sums tapped from
    the host arrays the connector generates, the grouped sums bit-exact on
-   the first split's inputs. (b) Q3 and Q18 (threshold 300) at SF10
+   the first split's inputs. (b) Q3 at SF10 and Q18 (threshold 300) at SF1
    through the out-of-core runner (``runtime/ooc.py``) with the
-   reference's defaults: rows identical to phases 3 and 4, wall, peak
+   reference's defaults: rows identical to phase 3's and to an SF1 run in
+   core, wall, peak
    beside the in-core peak, units by fragment, ``host_wait_secs``,
    ``emit_secs``, prefetch hits (must be > 0) and misses, ``spilled_bytes``,
-   launches, every launched kernel bit-exact on its inputs; then Q3 with
-   the prefetch off and a 256 MiB store budget (its disk tier), rows
-   identical again. (c) Q3 at SF10 with ``spill_operator_threshold_bytes``
+   launches, every launched kernel bit-exact on its inputs; then Q3 at SF1
+   with the prefetch off and a 1 MiB store budget (its disk tier), rows
+   identical to SF1's in core. (c) Q3 at SF10 with ``spill_operator_threshold_bytes``
    at 1 GiB: rows identical to phase 3's, the spill through
    ``partition_epilogue``, every launch bit-exact on its own inputs, the
    device formulation's frames byte-identical to the host-backed one's on
    the smallest spilled relation; the epilogue timed on the largest for
-   the kernels line.
+   the kernels line; then Q3 at SF1 untapped, in core and under a 102 MiB
+   spill, for the peaks.
 7. TPC-DS and window functions. (a) q3, q7, q65 and q98 of the TPC-DS
    corpus at SF10 through ``LocalQueryRunner.tpcds(scale=10)`` with the
    default session: wall, peak device memory, launches by kernel and
@@ -98,7 +103,10 @@ printed):
    beside that phase's, peak, launches by kernel and fused phase, no
    fallback, Q10's fused phases as in phase 3, every tapped launch
    bit-exact against its plain version, and whether the optimized plan's
-   text equals the one over ``tpch`` (printed, not a gate). (c) A checksum
+   text equals the one over ``tpch`` (printed, not a gate); then each with
+   the kernel tier off over the same tables: rows identical to the
+   default session's (the fused path against the serial one at SF10),
+   wall and peak. (c) A checksum
    of every stored tensor (each column's data bits and ``valid``, each
    page's ``active``) after (a) and after (b): equal. (f) Four queries of
    the scalar functions and the aggregate long tail (``FUNCTION_QUERIES``:
@@ -125,7 +133,21 @@ printed):
    ``hash_expand`` with no fallback and every tapped launch bit-exact, and
    N3's ``prices`` lanes carried by the expansion; then DROP of
    ``cust_orders`` (device memory back within 1 % of its level before N1)
-   and the checksums again. (d) A DELETE of
+   and the checksums again. (h) Distributed execution over the same
+   tables (``parallel/runner.py``, ``server/worker.py``): the staged
+   ``DistributedQueryRunner`` with 4 workers on Q1, Q3, Q10 and Q18, rows
+   identical to 8b's, wall beside 8b's, peak, partition counts, tier and
+   launches; then two HTTP ``WorkerServer``s on 127.0.0.1 and the remote
+   runner on Q1, Q3 and Q18: rows identical to 8b's, ``partition_dest``
+   and ``partition_epilogue`` launched on the hash exchanges, no page on
+   ``_emit_output``'s host branch, ``FALLBACKS`` empty, every launch of
+   both kernels bit-exact against its plain version, the smallest
+   exchange with a fused destination byte-identical to the host
+   formulation's frames, bytes and frames by exchange, the wall split over
+   the wire (pull, decode, the inputs' merge through the host, fragments,
+   emit); peaks past 70 GiB fail; both kernels timed on the largest
+   exchange's page (the epilogue with and without the given destination);
+   the checksums again. (d) A DELETE of
    ``orders`` by ``o_orderdate``, an UPDATE of ``l_discount`` by
    ``l_shipmode``, a MERGE into ``orders`` from about 1,500,000 source rows
    (half matched, half inserted) and a DELETE of ``lineitem`` rolled back,
@@ -134,7 +156,7 @@ printed):
    every table: device memory allocated back within 1 % of its level before
    (a).
 9. The seconds of each phase, a ``kernels`` JSON line (launches summed over
-   the default runs of phases 3 to 8, 8f's and 8g's included), then the contract's last line
+   the default runs of phases 3 to 8, 8f's, 8g's and 8h's included), then the contract's last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
@@ -223,8 +245,6 @@ KERNELS_OF = {
     "q03": ("hash_probe", "hash_expand", "segment_sum"),
     "q10": ("hash_probe", "hash_expand", "group_sort", "segment_sum"),
 }
-OFF_SESSION = {"q06": ("pallas_aggregation", "off"), "q01": ("pallas_aggregation", "off"),
-               "q03": ("pallas_fusion", False), "q10": ("pallas_fusion", False)}
 # the default-session walls of phases 3 and 4, by query (phase 8 prints its
 # walls over memory tables beside them)
 INCORE_WALLS = {}
@@ -863,18 +883,35 @@ def group_sort_bound(args) -> tuple:
     return bound_ms(nbytes, 2 * n * len(keys))
 
 
+def lut_read_bytes(keys, luts) -> int:
+    """The LUT entries this page's codes use."""
+    return sum(8 * int(torch.unique(d).numel())
+               for (d, _), lut in zip(keys, luts) if lut is not None)
+
+
 def epilogue_bound(args) -> tuple:
-    """Read the keys (and the LUT entries this page's codes use), the
-    columns and the activity once; write the columns and the activity in
-    partition order, and 16 bytes a partition."""
-    keys, luts, cols, active, parts = args
+    """Read the keys (and the LUT entries this page's codes use), or a
+    given destination (4 bytes a row), the columns and the activity once;
+    write the columns and the activity in partition order, and 16 bytes a
+    partition."""
+    keys, luts, cols, active, parts = args[:5]
     n = active.shape[0]
-    lut_bytes = 0
-    for (d, _), lut in zip(keys, luts):
-        if lut is not None:
-            lut_bytes += 8 * int(torch.unique(d).numel())
-    nbytes = page_bytes(list(keys) + list(cols) + [(active, None)]) + lut_bytes
+    if not given_dest(args):  # a key that is also a column is read once
+        nbytes = (page_bytes(list(keys) + list(cols) + [(active, None)])
+                  + lut_read_bytes(keys, luts))
+    else:
+        nbytes = page_bytes(list(cols) + [(active, None)]) + 4 * n
     nbytes += sum(d.numel() * d.element_size() + n for d, _ in cols) + n + 16 * parts
+    return bound_ms(nbytes, n * (2 if given_dest(args) else 12 * max(len(keys), 1)))
+
+
+def dest_bound(args) -> tuple:
+    """Read the keys (and the LUT entries used) and the activity once; write
+    one int32 a row. About 12 integer operations a key a row (the
+    finalizer, the fold, the modulus)."""
+    keys, luts, active, parts = args
+    n = active.shape[0]
+    nbytes = page_bytes(list(keys) + [(active, None)]) + lut_read_bytes(keys, luts) + 4 * n
     return bound_ms(nbytes, 12 * n * max(len(keys), 1))
 
 
@@ -920,6 +957,8 @@ def time_wrapper(HK, name, args) -> tuple:
     elif name == "partition_epilogue":
         lib = sort_yardstick(args[3])
         b, by = epilogue_bound(args)
+    elif name == "partition_dest":
+        b, by = dest_bound(args)
     else:
         b, by = expand_bound(args)
     return ms, plain_ms, lib, b, by
@@ -929,7 +968,7 @@ PLAIN = {
     "grouped_sum_i64": "grouped_sum_plain", "grouped_sum_i32": "grouped_sum_plain",
     "hash_probe": "hash_probe_plain", "hash_expand": "hash_expand_plain",
     "segment_sum": "segment_sum_plain", "group_sort": "group_sort_plain",
-    "partition_epilogue": "partition_epilogue_plain",
+    "partition_epilogue": "partition_epilogue_plain", "partition_dest": "partition_dest_plain",
 }
 
 
@@ -1001,6 +1040,11 @@ class LaunchTap:
         return [s.elapsed_time(e) for s, e in self.events[name]]
 
 
+def given_dest(args) -> bool:
+    """Whether a partition_epilogue call was given its destination."""
+    return len(args) > 5 and args[5] is not None
+
+
 SHAPE_OF = {
     "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
     "hash_expand": lambda a: (f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]} "
@@ -1008,7 +1052,9 @@ SHAPE_OF = {
     "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
     "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
                              f"active={int(a[2].sum())} columns={len(a[1])}"),
+    "partition_dest": lambda a: f"n={a[2].shape[0]} keys={len(a[0])} parts={a[3]}",
     "partition_epilogue": lambda a: (f"n={a[3].shape[0]} keys={len(a[0])} parts={a[4]} "
+                                     f"{'given the destination ' if given_dest(a) else ''}"
                                      f"active={int(a[3].sum())} columns={len(a[2])}"),
 }
 
@@ -1226,11 +1272,26 @@ def check_sort_kernels(HK, dev, results: dict) -> None:
         args = (keys, luts, cols, active, parts)
         if not same_result(HK, "partition_epilogue", args):
             fail(f"partition_epilogue [{label}] differs from its plain version")
-        print(f"  partition_epilogue [{label}]: bit-exact", flush=True)
+        # the exchange destination stage on the same keys, and the epilogue
+        # given its destination: the hashed run's output
+        dargs = (keys, luts, active, parts)
+        if not same_result(HK, "partition_dest", dargs):
+            fail(f"partition_dest [{label}] differs from its plain version")
+        given = args + (HK.partition_dest(*dargs),)
+        if not (same_result(HK, "partition_epilogue", given)
+                and same_epilogue(HK.partition_epilogue(*given), HK.partition_epilogue(*args))):
+            fail(f"partition_epilogue [{label}, given the destination] differs from the "
+                 "hashed run or its plain version")
+        print(f"  partition_epilogue [{label}]: bit-exact, and given partition_dest's "
+              "bit-exact destination", flush=True)
         if i == 0:
             results["partition_epilogue"] = timed_entry(HK, "partition_epilogue", args)
             print_split(HK, "partition_epilogue", "main shape", args)
-        del args, keys, luts, cols, active
+            results["partition_dest"] = timed_entry(HK, "partition_dest", dargs)
+            print_timing("partition_epilogue [main shape, given the destination]",
+                         time_wrapper(HK, "partition_epilogue", given))
+            print_split(HK, "partition_epilogue", "main shape, given the destination", given)
+        del args, dargs, given, keys, luts, cols, active
 
 
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
@@ -1300,6 +1361,8 @@ SOURCES = {
                    "trino_tpu/ops/megakernels.py:533"),
     "partition_epilogue": ("trino_tpu_torch/csrc/partition_epilogue.cu",
                            "trino_tpu/ops/megakernels.py:603"),
+    "partition_dest": ("trino_tpu_torch/csrc/partition_dest.cu",
+                       "trino_tpu/ops/megakernels.py:452"),
 }
 
 
@@ -1594,7 +1657,7 @@ def off_runner(dev, scale, benchmark="tpch"):
 def run_queries(HK, dev, kernels: dict) -> tuple:
     """Each query with the default session (counts set to 0 just before,
     read just after; the kernels checked and timed on its inputs), then
-    with the kernel tier off, then the numpy oracle. Returns the launch
+    the numpy oracle. Returns the launch
     counts of the default runs, their rows and their peak device memory,
     by query."""
     from trino_tpu_torch.connectors.tpch import generator as g
@@ -1629,16 +1692,8 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
         del tap, res
         torch.cuda.empty_cache()
 
-    off = off_runner(dev, SCALE)
-    for q, sql in QUERIES.items():
-        res, wall = run_off(HK, off, sql)
-        if res.rows != rows[q]:
-            fail(f"{q}: default rows {rows[q]} != kernel-tier-off rows {res.rows}")
-        print(f"  {q} SF{SCALE} {OFF_SESSION[q][0]}={OFF_SESSION[q][1]}: {wall:.3f} s wall, "
-              "rows identical", flush=True)
-        del res
-        torch.cuda.empty_cache()
-
+    # the queries meet the kernel tier off at SF1 in phase 5 and at SF10 in
+    # 8b, over memory tables (no generation): here they are held against numpy
     t0 = time.perf_counter()
     want = numpy_oracle(g, runner.catalogs.get("tpch"))
     print(f"  numpy oracle: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1738,8 +1793,10 @@ def run_q14_q18(HK, dev, kernels: dict) -> tuple:
     device memory, launches by phase and by kernel, no fallback; each
     kernel checked and timed on the inputs the query gave it (and the hash
     probe, with the whole joined page, on every join); rows identical to
-    the kernel tier off and to the numpy oracle. Returns the launch counts
-    of the default runs, their rows and their peak device memory."""
+    the numpy oracle (the kernel tier off meets them at SF1 in phase 5,
+    and Q18 at SF10 in 8b).
+    Returns the launch counts of the default runs, their rows and their
+    peak device memory."""
     from trino_tpu_torch.connectors.tpch import generator as g
     from trino_tpu_torch.runtime import LocalQueryRunner
     from tests.tpch_corpus import TPCH_QUERIES
@@ -1769,21 +1826,11 @@ def run_q14_q18(HK, dev, kernels: dict) -> tuple:
         check_query_inputs(HK, q, tap, kernels, recorded)
         check_every_probe(HK, q, tap)
         del tap, res
-    del runner
     torch.cuda.empty_cache()
 
-    off = off_runner(dev, SCALE)
-    for q, sql in texts.items():
-        res, wall = run_off(HK, off, sql)
-        if not same_rows(res.rows, rows[q][0], rows[q][1]):
-            fail(f"{q}: default rows {rows[q][0][:3]} != kernel-tier-off rows {res.rows[:3]}")
-        print(f"  {q} SF{SCALE} kernel tier off: {wall:.3f} s wall, rows identical",
-              flush=True)
-        del res
-        torch.cuda.empty_cache()
-
     t0 = time.perf_counter()
-    want = q14_q18_oracle(g, off.catalogs.get("tpch"), Q18_QTY)
+    want = q14_q18_oracle(g, runner.catalogs.get("tpch"), Q18_QTY)
+    del runner
     print(f"  numpy oracle: {time.perf_counter() - t0:.3f} s", flush=True)
     for q in texts:
         if not same_rows(rows[q][0], want[q], rows[q][1]):
@@ -1841,12 +1888,18 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict) -
 # phase 6: the out-of-core tier
 # --------------------------------------------------------------------------- #
 
-STREAM_SCALE = 100
+STREAM_SCALE = 30
 STREAM_PEAK_LIMIT = 8 << 30  # the streaming tier's point is a bounded footprint
 OOC_SCALE = 10
-OOC_DISK_BUDGET = 256 << 20  # the serial run's store budget, to reach its disk tier
+# Q18's scale and the prefetch-off run's, and its store budget, small
+# enough to reach the disk tier
+OOC_SMALL_SCALE = 1
+OOC_DISK_BUDGET = 1 << 20
 SPILL_SCALE = 10
 SPILL_THRESHOLD = 1 << 30
+# the untapped footprint pair: SF1 under a tenth of the threshold
+FOOTPRINT_SCALE = 1
+FOOTPRINT_THRESHOLD = SPILL_THRESHOLD // 10
 GROUPED_SUMS = ("grouped_sum_i64", "grouped_sum_i32")
 Q1_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
            "l_returnflag", "l_linestatus")
@@ -1875,7 +1928,7 @@ def check_launched(HK, label: str, tap: LaunchTap, launches: dict) -> list:
 
 
 def run_streaming_q1(HK, dev) -> dict:
-    """(a) Q1 at SF100 through ``execute_streaming``'s query object with the
+    """(a) Q1 at SF30 through ``execute_streaming``'s query object with the
     default session: rows equal to numpy sums tapped from the host arrays
     the connector generates (one generation pass), every grouped-sum kernel
     bit-exact on the first split's inputs, peak device memory under
@@ -2015,18 +2068,24 @@ def ooc_run(HK, runner, sql: str, label: str, **kw) -> tuple:
 
 
 def run_out_of_core(HK, dev, incore_rows: dict, incore_peaks: dict) -> dict:
-    """(b) Q3 and Q18 (TPC-H's threshold of 300) at SF10 through the
+    """(b) Q3 at SF10 and Q18 (TPC-H's threshold of 300) at SF1 through the
     out-of-core runner with the reference's defaults: rows identical to the
-    in-core rows of phases 3 and 4, the prefetch on (hits > 0), each
-    launched kernel bit-exact on its inputs; then Q3 with the prefetch off
-    and a store budget that sends chunks to disk, rows identical again.
-    Returns the launch counts."""
+    in-core rows (Q3's of phase 3, Q18's of an SF1 run here), the prefetch
+    on (hits > 0), each launched kernel bit-exact on its inputs; then Q3 at
+    SF1 with the prefetch off and a store budget that sends chunks to disk,
+    rows identical again. Returns the launch counts."""
     from trino_tpu_torch.runtime import LocalQueryRunner
 
-    runner = LocalQueryRunner.tpch(scale=OOC_SCALE, device=dev)
+    small = LocalQueryRunner.tpch(scale=OOC_SMALL_SCALE, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    incore_rows = {"q03": incore_rows["q03"], "q18": small.execute(Q18_SF10).rows}
+    incore_peaks = {"q03": incore_peaks["q03"], "q18": torch.cuda.max_memory_allocated()}
     launches = {}
-    for q, sql in (("q03", QUERIES["q03"]), ("q18", Q18_SF10)):
-        label = f"{q} SF{OOC_SCALE} out of core"
+    for q, sql, scale in (("q03", QUERIES["q03"], OOC_SCALE),
+                          ("q18", Q18_SF10, OOC_SMALL_SCALE)):
+        runner = small if scale == OOC_SMALL_SCALE else LocalQueryRunner.tpch(scale=scale,
+                                                                              device=dev)
+        label = f"{q} SF{scale} out of core"
         rows, ooc, _, peak, launches[label], tap = ooc_run(HK, runner, sql, label)
         print(f"  {label}: peak {peak} bytes beside {incore_peaks[q]} in core", flush=True)
         if rows != incore_rows[q]:
@@ -2036,15 +2095,18 @@ def run_out_of_core(HK, dev, incore_rows: dict, incore_peaks: dict) -> dict:
         checked = check_launched(HK, label, tap, launches[label])
         print(f"  {label}: rows identical to in core; bit-exact on its inputs: {checked}",
               flush=True)
-        del tap, ooc
-    label = f"q03 SF{OOC_SCALE} out of core, prefetch off, {OOC_DISK_BUDGET} byte store budget"
+        del tap, ooc, runner
+    runner = small
+    want = runner.execute(QUERIES["q03"]).rows
+    label = (f"q03 SF{OOC_SMALL_SCALE} out of core, prefetch off, {OOC_DISK_BUDGET} byte store "
+             "budget")
     rows, ooc, _, _, launches[label], tap = ooc_run(
         HK, runner, QUERIES["q03"], label, prefetch_depth=0, mem_budget_bytes=OOC_DISK_BUDGET)
-    if rows != incore_rows["q03"]:
-        fail(f"{label}: rows {rows[:3]} != in-core rows {incore_rows['q03'][:3]}")
+    if rows != want:
+        fail(f"{label}: rows {rows[:3]} != in-core rows {want[:3]}")
     if ooc.stats["spilled_bytes"] <= 0 or ooc.stats["prefetch_hits"]:
         fail(f"{label}: no disk tier or a prefetch {ooc.stats}")
-    print(f"  {label}: rows identical to in core and to the prefetched run", flush=True)
+    print(f"  {label}: rows identical to in core at SF{OOC_SMALL_SCALE}", flush=True)
     del tap, ooc
     torch.cuda.empty_cache()
     return launches
@@ -2139,16 +2201,17 @@ def run_operator_spill(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     return {label: launches}
 
 
-def spill_footprint(dev, incore_rows: dict) -> None:
-    """Q3 at SF10 untapped, in core and then under the 1 GiB spill, each
-    after a reset of the peak: the tapped runs keep kernel inputs on the
-    card, so only these peaks say what the spill does to the footprint.
-    Rows must again equal phase 3's."""
+def spill_footprint(dev) -> None:
+    """Q3 at SF1 untapped, in core and then under a 102 MiB spill (a tenth
+    of (c)'s threshold at a tenth of its scale), each after a reset of the
+    peak: the tapped runs keep kernel inputs on the card, so only these
+    peaks say what the spill does to the footprint. The spilled rows must
+    equal the in-core rows."""
     from trino_tpu_torch.runtime import LocalQueryRunner, PlanExecutor
 
-    runner = LocalQueryRunner.tpch(scale=SPILL_SCALE, device=dev)
-    seen = {}
-    for name, thresh in (("in core", 0), ("spilled", SPILL_THRESHOLD)):
+    runner = LocalQueryRunner.tpch(scale=FOOTPRINT_SCALE, device=dev)
+    seen, want = {}, None
+    for name, thresh in (("in core", 0), ("spilled", FOOTPRINT_THRESHOLD)):
         runner.session.set("spill_operator_threshold_bytes", thresh)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2161,12 +2224,14 @@ def spill_footprint(dev, incore_rows: dict) -> None:
         seen[name] = (torch.cuda.max_memory_allocated(), time.perf_counter() - t0,
                       ex.spill_count)
         del ex, page
-        if rows != incore_rows["q03"]:
-            fail(f"q03 SF{SPILL_SCALE} untapped {name}: rows {rows[:3]} != phase 3's")
+        want = rows if want is None else want
+        if rows != want:
+            fail(f"q03 SF{FOOTPRINT_SCALE} untapped {name}: rows {rows[:3]} != in core's")
     (p_in, w_in, _), (p_sp, w_sp, n_sp) = seen["in core"], seen["spilled"]
     if n_sp <= 0:
-        fail(f"q03 SF{SPILL_SCALE} untapped: the {SPILL_THRESHOLD}-byte threshold spilled nothing")
-    print(f"  q03 SF{SPILL_SCALE} untapped: peak device memory {p_sp} bytes spilled "
+        fail(f"q03 SF{FOOTPRINT_SCALE} untapped: the {FOOTPRINT_THRESHOLD}-byte threshold "
+             "spilled nothing")
+    print(f"  q03 SF{FOOTPRINT_SCALE} untapped: peak device memory {p_sp} bytes spilled "
           f"({n_sp} frames, {w_sp:.3f} s) beside {p_in} bytes in core ({w_in:.3f} s), "
           f"{p_sp / p_in:.3f} of it; rows identical", flush=True)
     torch.cuda.empty_cache()
@@ -2991,9 +3056,212 @@ def run_nested_queries(HK, dev, runner, conn) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 8h: distributed execution over the memory tables
+# --------------------------------------------------------------------------- #
+
+DIST_QUERIES = ("q01", "q03", "q10", "q18")
+REMOTE_QUERIES = ("q01", "q03", "q18")
+EXCHANGE_KERNELS = ("partition_dest", "partition_epilogue")
+DIST_WORKERS = 4  # partitions of a hash fragment, both tiers
+HTTP_WORKERS = 2  # WorkerServers on 127.0.0.1
+DIST_PEAK_LIMIT = 70 << 30
+DIST_SECRET = "chip-smoke-cluster"
+
+
+def print_peak(label: str) -> int:
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+    if peak > DIST_PEAK_LIMIT:
+        fail(f"{label}: peak device memory {peak} bytes past {DIST_PEAK_LIMIT}")
+    return peak
+
+
+class FrameTap:
+    """Wraps ``repartition.repartition_frames`` (the workers' hash
+    exchanges) for one query: each call's page capacity, parts, bytes and
+    whether a fused stage had attached its destination; the smallest page
+    that had one is kept with its frames."""
+
+    def __init__(self, R):
+        self.R = R
+        self.real = R.repartition_frames
+        self.calls = []
+        self.smallest = None
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        def tapped(page, key_idx, n_parts, pool=None, compress=True):
+            fused = "_megakernel_epilogue" in page.__dict__
+            frames, counts = self.real(page, key_idx, n_parts, pool=pool, compress=compress)
+            with self._lock:
+                self.calls.append((page.capacity, n_parts, fused, sum(map(len, frames)),
+                                   int(counts.sum())))
+                if fused and (self.smallest is None or page.capacity < self.smallest[0]):
+                    self.smallest = (page.capacity, page, tuple(key_idx), n_parts, frames)
+            return frames, counts
+
+        self.R.repartition_frames = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.R.repartition_frames = self.real
+
+
+def wire_split(workers) -> dict:
+    """The workers' task seconds (summed over task threads) by part of the
+    host wire, and their frame counts."""
+    from trino_tpu_torch.server.worker import WIRE_STATS
+
+    return {k: sum(w.tasks.stats[k] for w in workers) for k in WIRE_STATS}
+
+
+def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
+                    kernels: dict) -> dict:
+    """Phase 8h over 8a's memory tables (the same connector object). (a)
+    The staged ``DistributedQueryRunner`` on Q1, Q3, Q10 and Q18: rows
+    identical to 8b's; wall beside 8b's, peak, partition counts, tier and
+    launches. (b) Two HTTP ``WorkerServer``s on the card and the remote
+    runner on Q1, Q3 and Q18 with the default session: rows identical to
+    8b's, ``partition_dest`` and ``partition_epilogue`` launched on the
+    exchanges, no page on ``_emit_output``'s host branch, ``FALLBACKS``
+    empty, every launch of both kernels bit-exact, the smallest fused hash
+    exchange's frames byte-identical to the host formulation's; the wall and
+    its split over the wire, bytes and frames by exchange. Both kernels are
+    then timed on the largest exchange's page. Returns the launch counts."""
+    from trino_tpu_torch.metadata import CatalogManager, Session
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.ops import repartition as R
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.observability import EXCHANGE_BYTES, reset_exchange_bytes
+    from trino_tpu_torch.server.worker import WorkerServer
+    from trino_tpu_torch.spi.page import Column, Page
+
+    launches = {}
+    names = PATH_KERNELS + EXCHANGE_KERNELS
+    session = Session(catalog="memory", schema="default")
+
+    # (a) staged
+    staged = DistributedQueryRunner(session, n_workers=DIST_WORKERS, device=dev)
+    staged.register_catalog("memory", conn)
+    for q in DIST_QUERIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches[f"{q} staged"], phases, fallbacks, tap = run_default(
+            HK, staged, texts[q], names)
+        print(f"  8h(a) {q} staged, {DIST_WORKERS} workers: {wall:.3f} s wall (8b "
+              f"{mem_walls[q]:.3f} s), {len(res.rows)} rows, partition counts "
+              f"{staged.last_partition_counts}, tier {staged.last_tier} "
+              f"({staged.last_tier_reason}), launches {launched(launches[f'{q} staged'])}, "
+              f"fused phases {launched(phases)}, fallbacks {fallbacks}", flush=True)
+        print_peak(f"8h(a) {q} staged")
+        if not same_rows(res.rows, mem_rows[q], double_columns(res)):
+            fail(f"8h(a) {q} staged: rows {res.rows[:3]} != 8b's {mem_rows[q][:3]}")
+        del tap, res
+    del staged
+    torch.cuda.empty_cache()
+
+    # (b) HTTP workers
+    catalogs = CatalogManager()
+    catalogs.register("memory", conn)
+    workers = [WorkerServer(catalogs, secret=DIST_SECRET, device=dev).start()
+               for _ in range(HTTP_WORKERS)]
+    largest = {}
+    try:
+        remote = DistributedQueryRunner(
+            session, n_workers=DIST_WORKERS,
+            worker_urls=[f"http://{w.address}" for w in workers], secret=DIST_SECRET,
+            device=dev)
+        remote.register_catalog("memory", conn)
+        total = {k: 0 for k in EXCHANGE_KERNELS}
+        for q in REMOTE_QUERIES:
+            label = f"8h(b) {q} over {HTTP_WORKERS} HTTP workers"
+            for w in workers:
+                w.tasks.reset_stats()
+            reset_exchange_bytes()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with FrameTap(R) as frames:
+                res, wall, runs, phases, fallbacks, tap = run_default(
+                    HK, remote, texts[q], names, keep_all=EXCHANGE_KERNELS)
+            launches[f"{q} http"] = runs
+            split = wire_split(workers)
+            stages = dict(MK.STAGES)
+            print(f"  {label}: {wall:.3f} s wall (8b {mem_walls[q]:.3f} s), {len(res.rows)} "
+                  f"rows, partition counts {remote.last_partition_counts}, launches "
+                  f"{launched(runs)}, fused phases {launched(phases)}, destination stages "
+                  f"{stages}, FALLBACKS {fallbacks}", flush=True)
+            print(f"  {label}: exchange bytes pushed {EXCHANGE_BYTES['push']} in "
+                  f"{EXCHANGE_BYTES['push_frames']} frames, pulled {EXCHANGE_BYTES['pull']} "
+                  f"in {EXCHANGE_BYTES['pull_frames']}; hash exchanges (capacity, parts, "
+                  f"fused destination, frame bytes, rows): {sorted(frames.calls)}", flush=True)
+            ms = {k: sum(tap.launch_ms(k)) for k in tap.orig}
+            print(f"  {label}: task seconds summed over task threads: pull (HTTP, and the "
+                  f"wait on producers) {split['pull_secs']:.3f}, decode (LZ4, H2D) "
+                  f"{split['decode_secs']:.3f}, merge of the inputs through the host (D2H, "
+                  f"H2D) {split['concat_secs']:.3f}, fragments {split['execute_secs']:.3f}, "
+                  f"emit (epilogue, D2H, LZ4) {split['emit_secs']:.3f}; kernel ms in the run "
+                  f"{ {k: round(v, 3) for k, v in ms.items() if v} }; frames cut on the card "
+                  f"{split['exchange_frames']}, pages on the host branch "
+                  f"{split['host_branch_pages']}", flush=True)
+            print_peak(label)
+            if not same_rows(res.rows, mem_rows[q], double_columns(res)):
+                fail(f"{label}: rows {res.rows[:3]} != 8b's {mem_rows[q][:3]}")
+            if fallbacks:
+                fail(f"{label}: FALLBACKS {fallbacks}")
+            if split["host_branch_pages"]:
+                fail(f"{label}: {split['host_branch_pages']} pages took _emit_output's host "
+                     "branch")
+            n_checked = check_every_call(HK, label, tap)
+            print(f"  {label}: rows identical to 8b's; every launch of "
+                  f"{' and '.join(EXCHANGE_KERNELS)} bit-exact ({n_checked})", flush=True)
+            for k in EXCHANGE_KERNELS:
+                total[k] += runs[k]
+                for args in tap.every[k]:
+                    n = args[2 if k == "partition_dest" else 3].shape[0]
+                    given = k == "partition_epilogue" and given_dest(args)
+                    if k not in largest or (given, n) >= largest[k][0]:
+                        largest[k] = ((given, n), args)
+            if frames.smallest is not None:
+                cap, page, key_idx, n_parts, blobs = frames.smallest
+                cpu = Page(tuple(Column(c.type, c.data.cpu(), c.valid.cpu(), c.dictionary)
+                                 for c in page.columns), page.active.cpu())
+                host, _ = R.repartition_frames(cpu, key_idx, n_parts)
+                if host != blobs:
+                    fail(f"{label}: the frames of the {cap}-slot fused exchange differ from "
+                         "the host formulation's")
+                print(f"  {label}: the {n_parts} frames of the smallest exchange with a fused "
+                      f"destination ({cap} slots, {sum(map(len, blobs))} bytes) are "
+                      "byte-identical to the host formulation's", flush=True)
+            del tap, res, frames
+        if not all(total.values()):
+            fail(f"8h(b): the exchanges launched {total}: each of {EXCHANGE_KERNELS} must run")
+    finally:
+        for w in workers:
+            w.stop()
+    # both kernels on the largest exchange's page, the epilogue with and
+    # without the given destination
+    d_args = largest["partition_dest"][1]
+    timing = time_wrapper(HK, "partition_dest", d_args)
+    print_timing(f"partition_dest [8h largest exchange {SHAPE_OF['partition_dest'](d_args)}]",
+                 timing)
+    ms, plain, lib, b, by = timing
+    kernels["partition_dest"].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                                     bound_by=by)
+    e_args = largest["partition_epilogue"][1]
+    for label, args in (("given the destination", e_args), ("hashing", e_args[:5])):
+        print_timing(f"partition_epilogue [8h largest exchange, {label}, "
+                     f"{SHAPE_OF['partition_epilogue'](args)}]",
+                     time_wrapper(HK, "partition_epilogue", args))
+    del largest, d_args, e_args
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     """Phase 8: (a) CTAS of seven TPC-H SF10 tables into memory tables, (b)
-    Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows, (c)
+    Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows and
+    against the kernel tier off over the same tables, (c)
     stored-tensor checksums unchanged by the queries, (f) the function
     queries F1-F4 and the checksums again, (g) the nested queries N1-N5
     and the checksums again, (d) DELETE, UPDATE,
@@ -3047,10 +3315,15 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
           f"{torch.cuda.memory_allocated()} bytes allocated", flush=True)
     loaded = table_checksums(conn)
 
-    # (b) the queries
+    # (b) the queries, then each with the kernel tier off over the same
+    # tables (the SF10 gate of the fused path against the serial one)
     texts = {q: QUERIES.get(q, Q18_SF10) for q in MEM_QUERIES}
     plans = LocalQueryRunner.tpch(scale=SCALE, device=dev)  # plans only, over tpch
-    launches = {}
+    off = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
+    off.register_catalog("memory", conn)
+    off.session.set("pallas_aggregation", "off")
+    off.session.set("pallas_fusion", False)
+    launches, mem_rows, mem_walls = {}, {}, {}
     for q, sql in texts.items():
         names = [k for k in KERNELS_OF.get(q, JOIN_KERNELS) if k != "q6_fused"]
         torch.cuda.empty_cache()
@@ -3081,8 +3354,20 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
         n_checked = check_every_call(HK, f"{q} memory", tap)
         print(f"  8b {q}: rows identical to phase {4 if q == 'q18' else 3}'s; every tapped "
               f"launch bit-exact ({n_checked})", flush=True)
-        del tap, res
-    del plans
+        mem_rows[q], mem_walls[q] = res.rows, wall
+        del tap
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        off_res, off_wall = run_off(HK, off, sql)
+        off_peak = torch.cuda.max_memory_allocated()
+        if not same_rows(off_res.rows, res.rows, double_columns(res)):
+            fail(f"{q} over memory tables: default rows {res.rows[:3]} != kernel-tier-off "
+                 f"rows {off_res.rows[:3]}")
+        print(f"  8b {q} kernel tier off: {off_wall:.3f} s wall, peak device memory "
+              f"{off_peak} bytes ({off_peak / 2**30:.2f} GiB), rows identical to the "
+              "default session's", flush=True)
+        del res, off_res
+    del plans, off
     torch.cuda.empty_cache()
 
     # (c) nothing wrote into a stored table
@@ -3098,6 +3383,13 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     launches.update(run_nested_queries(HK, dev, runner, conn))
     torch.cuda.empty_cache()
     same_checksums("8g after the nested queries", table_checksums(conn), loaded)
+
+    # (h) distributed execution over the same tables
+    t0 = time.perf_counter()
+    launches.update(run_distributed(HK, dev, conn, texts, mem_rows, mem_walls, kernels))
+    print(f"  8h: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    same_checksums("8h after the distributed queries", table_checksums(conn), loaded)
 
     # (d) DML
     t0 = time.perf_counter()
@@ -3205,14 +3497,14 @@ def main() -> None:
     launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
 
     t0 = time.perf_counter()
-    print(f"phase 6: the out-of-core tier: Q1 at SF{STREAM_SCALE} streamed, Q3 and Q18 at "
-          f"SF{OOC_SCALE} out of core, Q3 at SF{SPILL_SCALE} under operator-state spill",
-          flush=True)
+    print(f"phase 6: the out-of-core tier: Q1 at SF{STREAM_SCALE} streamed, Q3 at "
+          f"SF{OOC_SCALE} and Q18 at SF{OOC_SMALL_SCALE} out of core, Q3 at SF{SPILL_SCALE} "
+          "under operator-state spill", flush=True)
     launches[f"q01 SF{STREAM_SCALE} streamed"] = run_streaming_q1(HK, dev)
     torch.cuda.empty_cache()
     launches.update(run_out_of_core(HK, dev, incore_rows, incore_peaks))
     launches.update(run_operator_spill(HK, dev, incore_rows, kernels))
-    spill_footprint(dev, incore_rows)
+    spill_footprint(dev)
     phase_s["out_of_core"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -3235,8 +3527,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     print(f"phase 8: TPC-H SF{SCALE} held in memory tables: CTAS, Q6, Q1, Q3, Q10 and Q18, "
-          "the function queries F1-F4, the nested queries N1-N5, DELETE, UPDATE, MERGE, a "
-          "rolled-back transaction, DROP", flush=True)
+          "the function queries F1-F4, the nested queries N1-N5, distributed Q1, Q3, Q10 and "
+          "Q18 (staged and over HTTP workers), DELETE, UPDATE, MERGE, a rolled-back "
+          "transaction, DROP", flush=True)
     launches.update(run_memory_tables(HK, dev, incore_rows, kernels))
     phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():

@@ -63,6 +63,7 @@
 //      of new_group, one atomic per block; perm_gather then writes the
 //      other carried columns in sorted order, reading each row at random.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -139,7 +140,7 @@ constexpr int kUnroll = 4;                  // rows a thread reads at once (stat
 
 // Kernel launches and memsets issued by this file's entry points since the
 // library was loaded (chip_smoke.py reads the difference over one call).
-int64_t g_stream_ops = 0;
+std::atomic<int64_t> g_stream_ops{0};
 
 // Blocks of the reductions over rows (stats, compose): four an SM keep
 // enough rows in flight, and few blocks make few atomics into HBM.
@@ -467,7 +468,7 @@ finish_kernel(hopper::WideKeySet ks, const bool* __restrict__ active,
 
 }  // namespace
 
-extern "C" int64_t group_sort_stream_ops() { return g_stream_ops; }
+extern "C" int64_t group_sort_stream_ops() { return g_stream_ops.load(); }
 extern "C" int wide_key_limit() { return hopper::kMaxWideKeys; }
 extern "C" int radix_tile_rows() { return hopper::radix::kTileRows; }
 extern "C" int group_sort_tile_rows() { return kSweepRows; }
@@ -533,13 +534,10 @@ extern "C" int group_sort_passes(const Composite* comps, int n_comps, int64_t n,
   result[0] = nullptr;
   result[1] = nullptr;
   if (n_comps <= 0 || n <= 0) return 0;
-  static bool sized = false;  // the pass takes the tile's dynamic shared memory
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hopper::radix::sweep_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  // the pass takes the tile's dynamic shared memory (set once, thread-safe)
+  static const cudaError_t sized = cudaFuncSetAttribute(
+      hopper::radix::sweep_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepSmem);
+  if (sized != cudaSuccess) return static_cast<int>(sized);
   int passes = 0;
   for (int c = 0; c < n_comps; ++c) passes += places_of(comps[c]);
   int64_t* words = static_cast<int64_t*>(scratch);

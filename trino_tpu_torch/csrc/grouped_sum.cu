@@ -140,14 +140,17 @@ int launch_with(const T* values, const bool* weight, const int32_t* gid, int64_t
       && (reinterpret_cast<uintptr_t>(values + head) & 15) == 0;
   if (!together || head > n) head = n;
   const int64_t n_four = (n - head) / kRowsPerLoad;
-  // blocks an SM holds with the layout's largest accumulators
-  static int resident = 0;
-  if (resident == 0) {
+  // blocks an SM holds with the layout's largest accumulators (read once,
+  // thread-safe: worker threads launch concurrently); a negative value is
+  // the query's CUDA error
+  static const int resident = [] {
+    int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, grouped_sum_kernel<T, THREADS>, THREADS,
+        &blocks, grouped_sum_kernel<T, THREADS>, THREADS,
         sizeof(unsigned long long) * kAccEntries);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+    return err != cudaSuccess ? -static_cast<int>(err) : blocks;
+  }();
+  if (resident < 0) return -resident;
   const int64_t want = ((n + kRowsPerLoad - 1) / kRowsPerLoad + THREADS - 1) / THREADS;
   const int64_t cap = static_cast<int64_t>(hopper::sm_count()) * (resident > 0 ? resident : 1);
   const unsigned grid = static_cast<unsigned>(want < 1 ? 1 : (want < cap ? want : cap));

@@ -411,13 +411,11 @@ extern "C" int hash_expand_scan(const void* emit, int64_t n, int64_t out_cap, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || out_cap <= 0) return 0;
   const int64_t n_tiles = (n + kTileRows - 1) / kTileRows;
-  static bool sized = false;  // the kernel may take the tile's dynamic shared memory
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  // the kernel may take the tile's dynamic shared memory (set once,
+  // thread-safe)
+  static const cudaError_t sized = cudaFuncSetAttribute(
+      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+  if (sized != cudaSuccess) return static_cast<int>(sized);
   cudaError_t err = cudaMemsetAsync(state, 0, sizeof(int64_t) * (kStateHead + n_tiles), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   scan_kernel<<<static_cast<unsigned>(n_tiles), kThreads, kTileBytes, s>>>(

@@ -62,6 +62,7 @@
 //      reading every row's keys with its activity (one round fewer, twice
 //      the bytes) took longer.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -80,7 +81,7 @@ constexpr int kRows = 2;  // probe rows a thread holds at once
 
 // Kernel launches and memsets issued by hash_probe since the library was
 // loaded (chip_smoke.py reads the difference over one call).
-int64_t g_stream_ops = 0;
+std::atomic<int64_t> g_stream_ops{0};
 
 __global__ void __launch_bounds__(kThreads)
 claim_kernel(KeySet bkeys, const bool* __restrict__ build_active, int64_t m, int n_buckets,
@@ -273,7 +274,7 @@ void mark(void* const* events, int k, cudaStream_t s) {
 
 }  // namespace
 
-extern "C" int64_t hash_probe_stream_ops() { return g_stream_ops; }
+extern "C" int64_t hash_probe_stream_ops() { return g_stream_ops.load(); }
 
 // One attempt at (n_buckets, C) on ``stream``: meta (int32 [B+2]) holds
 // counts and then max_count, and is zeroed; heads (int32 [B]) is scratch;

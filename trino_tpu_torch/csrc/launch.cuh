@@ -11,14 +11,15 @@ namespace hopper {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// SMs of the current device (read once).
+// SMs of the current device (read once; the initialization of a local
+// static is thread-safe, and worker threads launch concurrently).
 inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
+  static const int sms = [] {
+    int dev = 0, n = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
   return sms;
 }
 

@@ -11,7 +11,12 @@
 // destination.
 //
 // Bit-identical to the plain version (hopper_kernels.
-// partition_epilogue_plain, over ops/repartition.py).
+// partition_epilogue_plain, over ops/repartition.py). The hash is
+// partition_hash.cuh's, shared with partition_dest.cu. Given each row's
+// destination (an exchange whose producer's fused join or aggregation ran
+// partition_dest), the epilogue skips its hash: the count reads the given
+// destination instead, and the scan and sweep run as before, so the output
+// bytes equal the hashed run's.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. The page is read once and
 // written once in partition order; offsets and counts are 16 bytes a
@@ -53,12 +58,13 @@
 // indices by it (block 0 of its scatter writes offsets and counts) and
 // perm_gather writes every column in that order.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <type_traits>
 
 #include "join_keys.cuh"
 #include "launch.cuh"
+#include "partition_hash.cuh"
 #include "radix_pass.cuh"
 
 namespace hopper {
@@ -78,9 +84,11 @@ using hopper::radix::kNoDigit;
 using hopper::radix::kItems;
 using hopper::radix::kTileRows;
 using hopper::radix::kWarpRows;
+using hopper::partition::dest_rows;
+using hopper::partition::kHashRows;
+using hopper::partition::with_key_count;
 
 constexpr int kMaxBins = hopper::kMaxParts + 1;
-constexpr int kHashRows = 8;  // rows a thread hashes at once
 static_assert(kTileRows == kThreads * kHashRows, "the count hashes a tile in one step");
 // the sweep's shared memory: the tile's slices of as many columns as fit
 // kStageBytes (each slice and its validity at a 16-byte boundary), then
@@ -89,93 +97,19 @@ constexpr int kStageBytes = 20 * 1024;
 constexpr int kSweepSmem = kStageBytes + kTileRows * (1 + 2);
 
 // Kernel launches and memsets issued by partition_epilogue since the
-// library was loaded (chip_smoke.py reads the difference over one call).
-int64_t g_stream_ops = 0;
-
-__device__ __forceinline__ uint64_t fmix64(uint64_t x) {
-  x = (x ^ (x >> 33)) * 0xFF51AFD7ED558CCDull;
-  x = (x ^ (x >> 33)) * 0xC4CEB9FE1A85EC53ull;
-  return x ^ (x >> 33);
-}
-
-// The destinations of rows i[] (kNoDigit where i >= n) under NK keys: the
-// partition of each row's keys' hash, n_parts where inactive. Every key
-// column's loads, and the activity's, are issued before any is used.
-template <int NK>
-__device__ __forceinline__ void dest_rows(const hopper::WideKeySet& ks,
-                                          const bool* __restrict__ active,
-                                          const int64_t (&i)[kHashRows], int64_t n, int n_parts,
-                                          uint32_t (&dest)[kHashRows]) {
-  constexpr int kCols = NK > 0 ? NK : 1;
-  bool in[kHashRows], act[kHashRows];
-  int64_t v[kCols][kHashRows];
-  bool ok[kCols][kHashRows];
-#pragma unroll
-  for (int r = 0; r < kHashRows; ++r) {
-    in[r] = i[r] < n;
-    act[r] = in[r] && active[i[r]];
-  }
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const hopper::KeyCol& c = ks.col[k];
-#pragma unroll
-    for (int r = 0; r < kHashRows; ++r) ok[k][r] = in[r] && c.valid[i[r]];
-    hopper::load_values(c, i, in, v[k]);
-  }
-  // a key's lut, where set, maps its dictionary codes to value keys (any
-  // int64: no absent marker, unlike a join's LUT)
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const hopper::KeyCol& c = ks.col[k];
-    if (c.lut != nullptr) {
-#pragma unroll
-      for (int r = 0; r < kHashRows; ++r) {
-        const int64_t x = v[k][r];
-        if (in[r]) v[k][r] = c.lut[x < 0 ? 0 : (x >= c.lut_len ? c.lut_len - 1 : x)];
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kHashRows; ++r) {
-    uint64_t acc = 0x9E3779B97F4A7C15ull;
-    if (NK == 0) acc = (acc ^ fmix64(0)) * 0x100000001B3ull;  // no keys: one zero key
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const uint64_t key =
-          ok[k][r] ? static_cast<uint64_t>(v[k][r]) : static_cast<uint64_t>(INT64_MAX);
-      acc = (acc ^ fmix64(key)) * 0x100000001B3ull;
-    }
-    dest[r] = !in[r]   ? kNoDigit
-              : act[r] ? static_cast<uint32_t>(acc % static_cast<uint64_t>(n_parts))
-                       : static_cast<uint32_t>(n_parts);
-  }
-}
-
-template <int NK>
-__global__ void __launch_bounds__(kThreads)
-dest_kernel(hopper::WideKeySet ks, const bool* __restrict__ active, int64_t n, int n_parts,
-            uint32_t* __restrict__ dest) {
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kHashRows;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads * kHashRows; base < n;
-       base += step) {
-    int64_t i[kHashRows];
-    uint32_t d[kHashRows];
-#pragma unroll
-    for (int r = 0; r < kHashRows; ++r) i[r] = base + r * kThreads + threadIdx.x;
-    dest_rows<NK>(ks, active, i, n, n_parts, d);
-#pragma unroll
-    for (int r = 0; r < kHashRows; ++r) {
-      if (i[r] < n) dest[i[r]] = d[r];
-    }
-  }
-}
+// library was loaded (chip_smoke.py reads the difference over one call;
+// worker threads launch concurrently, hence atomic).
+std::atomic<int64_t> g_stream_ops{0};
 
 // One block a tile of kTileRows rows: each row's destination as one byte,
 // and hist[d * tiles + tile] = the tile's rows of destination d (each warp
-// adding one shared atomic per distinct destination and step).
+// adding one shared atomic per distinct destination and step). The
+// destinations are hashed (NK keys), or read from ``given`` where it is
+// set (int32, as partition_dest.cu writes them; NK is then 0).
 template <int NK>
 __global__ void __launch_bounds__(kThreads)
-count_kernel(hopper::WideKeySet ks, const bool* __restrict__ active, int64_t n, int n_parts,
+count_kernel(hopper::WideKeySet ks, const bool* __restrict__ active,
+             const int32_t* __restrict__ given, int64_t n, int n_parts,
              uint8_t* __restrict__ dest, int32_t* __restrict__ hist, int64_t tiles) {
   __shared__ int32_t h[kDigits];
   const int nb = n_parts + 1;
@@ -188,7 +122,14 @@ count_kernel(hopper::WideKeySet ks, const bool* __restrict__ active, int64_t n, 
   for (int r = 0; r < kHashRows; ++r) {
     i[r] = static_cast<int64_t>(blockIdx.x) * kTileRows + r * kThreads + threadIdx.x;
   }
-  dest_rows<NK>(ks, active, i, n, n_parts, d);
+  if (given != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kHashRows; ++r) {
+      d[r] = i[r] < n ? static_cast<uint32_t>(given[i[r]]) : hopper::radix::kNoDigit;
+    }
+  } else {
+    dest_rows<NK>(ks, active, i, n, n_parts, d);
+  }
 #pragma unroll
   for (int r = 0; r < kHashRows; ++r) {
     if (i[r] < n) dest[i[r]] = static_cast<uint8_t>(d[r]);
@@ -345,22 +286,6 @@ sweep_kernel(const uint8_t* __restrict__ dest, int64_t n, int n_parts,
   }
 }
 
-// f(std::integral_constant<int, nk>) for a runtime key count nk in [0, 8].
-template <typename F>
-void with_key_count(int nk, F f) {
-  switch (nk) {
-    case 0: f(std::integral_constant<int, 0>()); break;
-    case 1: f(std::integral_constant<int, 1>()); break;
-    case 2: f(std::integral_constant<int, 2>()); break;
-    case 3: f(std::integral_constant<int, 3>()); break;
-    case 4: f(std::integral_constant<int, 4>()); break;
-    case 5: f(std::integral_constant<int, 5>()); break;
-    case 6: f(std::integral_constant<int, 6>()); break;
-    case 7: f(std::integral_constant<int, 7>()); break;
-    default: f(std::integral_constant<int, hopper::kMaxWideKeys>()); break;
-  }
-}
-
 void mark(void* const* events, int k, cudaStream_t s) {
   if (events != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(events[k]), s);
 }
@@ -369,7 +294,7 @@ void mark(void* const* events, int k, cudaStream_t s) {
 
 extern "C" int partition_epilogue_max_parts() { return hopper::kMaxParts; }
 extern "C" int partition_epilogue_sweep_bins() { return kDigits; }
-extern "C" int64_t partition_epilogue_stream_ops() { return g_stream_ops; }
+extern "C" int64_t partition_epilogue_stream_ops() { return g_stream_ops.load(); }
 
 // Destinations, the stable order and the columns in it, on ``stream``.
 // offsets and counts (int64 [n_parts + 1]) get each destination's start and
@@ -378,11 +303,16 @@ extern "C" int64_t partition_epilogue_stream_ops() { return g_stream_ops; }
 // tiles of kTileRows]) and totals (int32 [n_parts + 1]) are scratch, and so
 // are dest (uint8 [n] with n_parts + 1 <= 256, int32 [n] past it) and idx
 // (int32 [n]; with n_parts + 1 <= 256 only for more than one gather set).
-// ``events``, null or three (one-sweep: start, after the count and scan,
-// end) or four (start, after the destinations, after the pass, end) CUDA
-// events, are recorded at the phases' bounds.
+// ``given``, null or each row's destination (int32 [n], n_parts where
+// inactive: partition_dest.cu's output), replaces the hash: the count
+// reads it (one-sweep), or the pass sorts by it directly (past 255
+// partitions, where dest is then unused). ``events``, null or three
+// (one-sweep: start, after the count and scan, end) or four (start, after
+// the destinations, after the pass, end) CUDA events, are recorded at the
+// phases' bounds.
 extern "C" int partition_epilogue(const hopper::WideKeySet* keys, const void* active,
-                                  int64_t n, int n_parts, void* dest, void* idx, void* hist,
+                                  const void* given, int64_t n, int n_parts, void* dest,
+                                  void* idx, void* hist,
                                   void* totals, void* offsets, void* counts,
                                   const PermGatherSet* gather, int n_gather,
                                   void* const* events, void* stream) {
@@ -397,18 +327,22 @@ extern "C" int partition_epilogue(const hopper::WideKeySet* keys, const void* ac
   cudaError_t err = cudaSuccess;
   mark(events, 0, s);
   if (nb <= kDigits) {
-    static bool sized = false;  // the sweep's dynamic shared memory
-    if (!sized) {
-      err = cudaFuncSetAttribute(sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSweepSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sized = true;
-    }
+    // the sweep's dynamic shared memory, set once (thread-safe: worker
+    // threads launch concurrently)
+    static const cudaError_t sized = cudaFuncSetAttribute(
+        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepSmem);
+    if (sized != cudaSuccess) return static_cast<int>(sized);
     uint8_t* d8 = static_cast<uint8_t*>(dest);
-    with_key_count(keys->n, [&](auto nk) {
-      count_kernel<decltype(nk)::value><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-          *keys, act, n, n_parts, d8, hst, tiles);
-    });
+    const int32_t* g32 = static_cast<const int32_t*>(given);
+    if (g32 != nullptr) {
+      count_kernel<0><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+          *keys, act, g32, n, n_parts, d8, hst, tiles);
+    } else {
+      with_key_count(keys->n, [&](auto nk) {
+        count_kernel<decltype(nk)::value><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+            *keys, act, nullptr, n, n_parts, d8, hst, tiles);
+      });
+    }
     ++g_stream_ops;
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -429,17 +363,13 @@ extern "C" int partition_epilogue(const hopper::WideKeySet* keys, const void* ac
     mark(events, 2, s);
     return static_cast<int>(err);
   }
-  uint32_t* d = static_cast<uint32_t*>(dest);
-  with_key_count(keys->n, [&](auto nk) {
-    constexpr int kNK = decltype(nk)::value;
-    static const int per_sm = hopper::blocks_per_sm(
-        reinterpret_cast<const void*>(dest_kernel<kNK>));
-    dest_kernel<kNK><<<hopper::resident_grid((n + kHashRows - 1) / kHashRows, per_sm), kThreads,
-                       0, s>>>(*keys, act, n, n_parts, d);
-  });
-  ++g_stream_ops;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint32_t* d = static_cast<const uint32_t*>(given);
+  if (d == nullptr) {
+    err = hopper::partition::launch_dest(*keys, act, n, n_parts, static_cast<uint32_t*>(dest), s);
+    ++g_stream_ops;
+    if (err != cudaSuccess) return static_cast<int>(err);
+    d = static_cast<const uint32_t*>(dest);
+  }
   mark(events, 1, s);
   err = hopper::radix::radix_pass<kMaxBins, uint32_t, false>(
       d, nullptr, nullptr, perm, n, 0, 0xffffffffu, nb, hst, tot,

@@ -37,6 +37,7 @@
 // bit-identical to the plain cumsum form in any order of the atomics.
 // Rows before the first group belong to no slot.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -232,9 +233,9 @@ extern "C" int segment_sum_tile_rows() { return kSegRows; }
 
 // Kernel launches and memsets issued by segment_sum since the library was
 // loaded (chip_smoke.py reads the difference over one call).
-static int64_t g_stream_ops = 0;
+static std::atomic<int64_t> g_stream_ops{0};
 
-extern "C" int64_t segment_sum_stream_ops() { return g_stream_ops; }
+extern "C" int64_t segment_sum_stream_ops() { return g_stream_ops.load(); }
 
 // out (int64 [out_cap]) is zeroed and written on ``stream``; returns the
 // first CUDA error, 0 on success.

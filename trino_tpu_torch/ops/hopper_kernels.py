@@ -2,8 +2,8 @@
 
 The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
 Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
-expansion, the group sort, the sort-path segment sums and the repartition
-epilogue). The kernels are
+expansion, the group sort, the sort-path segment sums, the repartition
+epilogue and the exchange destination stage). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
 a hash of the sources, under ``trino_tpu_torch/_build/``), loaded with
@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
     "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "group_sort": 0,
-    "partition_epilogue": 0,
+    "partition_epilogue": 0, "partition_dest": 0,
 }
 
 _LIB = None
@@ -174,9 +174,12 @@ def bind(path: Path):
     for name in ("group_sort_scratch_words", *(f"{k}_stream_ops" for k in _STREAM_OPS)):
         getattr(lib, name).restype = i64
     lib.partition_epilogue.argtypes = (
-        [ctypes.POINTER(_WideKeySet), ptr, i64, i32] + [ptr] * 6 + [gather, i32, events, ptr]
+        [ctypes.POINTER(_WideKeySet), ptr, ptr, i64, i32] + [ptr] * 6
+        + [gather, i32, events, ptr]
     )
     lib.partition_epilogue.restype = i32
+    lib.partition_dest.argtypes = [ctypes.POINTER(_WideKeySet), ptr, i64, i32, ptr, ptr]
+    lib.partition_dest.restype = i32
     return lib
 
 
@@ -918,13 +921,14 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
 
 
 # the kernels whose C entry points count their stream operations
-_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "partition_epilogue")
+_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "partition_epilogue",
+               "partition_dest")
 
 
 def stream_ops(name: str) -> int:
     """Kernel launches and memsets that ``name``'s kernels (one of
-    ``hash_probe``, ``group_sort``, ``segment_sum`` and
-    ``partition_epilogue``) have issued since the library was loaded."""
+    ``hash_probe``, ``group_sort``, ``segment_sum``, ``partition_epilogue``
+    and ``partition_dest``) have issued since the library was loaded."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 
@@ -1035,19 +1039,68 @@ def group_sort(key_cols, payload_cols, active: torch.Tensor, *, phase_events=Non
     return outs, active_out, new_group, num_groups
 
 
-def partition_epilogue_plain(key_cols, luts, cols, active: torch.Tensor, n_parts: int):
-    """The reference's ``_repartition_epilogue`` on tensors
-    (``ops/repartition.py``): dictionary keys through their value-key LUT,
-    the partition hash, inactive rows to ``n_parts``, then the stable sort
-    by destination with offsets and counts."""
+def partition_dest_plain(key_cols, luts, active: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """The reference's ``_partition_dest`` on tensors (``ops/repartition.py``):
+    dictionary keys through their value-key LUT, the partition hash, and
+    ``n_parts`` for inactive rows, as int32."""
     from . import repartition as R
 
     keys = [(R.map_value_keys(d, lut), v) for (d, v), lut in zip(key_cols, luts)]
-    dest = R.dest_of(keys, active, n_parts)
+    return R.dest_of(keys, active, n_parts)
+
+
+def _check_partition_keys(name: str, key_cols, luts, active, n_parts: int) -> None:
+    _check_vectors(name, (active,), (torch.bool,))
+    n, dev = active.shape[0], active.device
+    if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
+        raise ValueError(f"{name}: n_parts {n_parts} outside [1, {EPILOGUE_MAX_PARTS}]")
+    if len(key_cols) > _MAX_WIDE_KEYS or len(luts) != len(key_cols):
+        raise ValueError(f"{name}: 0 to {_MAX_WIDE_KEYS} keys, one LUT slot each")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{name}: 1 to 2^31 - 1 rows (int32 row indices)")
+    _check_page_cols(name, key_cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _KEY_TYPES:
+            raise TypeError(f"{name}: unsupported key column {d.dtype}")
+
+
+def partition_dest(key_cols, luts, active: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Each row's exchange destination: the exchange stage of the fused join
+    and aggregation (the reference's ``epi_spec``).
+
+    ``key_cols``: (data, valid) of each partition key (0 to 8; no key sends
+    every row to the partition of one zero key); ``luts``: per key None or
+    the int64 value-key LUT of its dictionary; ``n_parts`` 1 to
+    :data:`EPILOGUE_MAX_PARTS`. Returns int32 ``[n]``: the partition of each
+    active row, ``n_parts`` for an inactive one. :func:`partition_epilogue`
+    takes it as its ``dest``."""
+    _check_partition_keys("partition_dest", key_cols, luts, active, n_parts)
+    n, dev = active.shape[0], active.device
+    if dev.type == "cpu":
+        return partition_dest_plain(key_cols, luts, active, n_parts)
+    ks = _key_set("partition_dest", key_cols, luts, n, _WideKeySet)
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    _check_launch("partition_dest", _library().partition_dest(
+        ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(), _stream(active)))
+    LAUNCHES["partition_dest"] += 1
+    return dest
+
+
+def partition_epilogue_plain(key_cols, luts, cols, active: torch.Tensor, n_parts: int,
+                             dest=None):
+    """The reference's ``_repartition_epilogue`` on tensors
+    (``ops/repartition.py``): dictionary keys through their value-key LUT,
+    the partition hash, inactive rows to ``n_parts`` (or the given
+    ``dest``), then the stable sort by destination with offsets and
+    counts."""
+    from . import repartition as R
+
+    if dest is None:
+        dest = partition_dest_plain(key_cols, luts, active, n_parts)
     return R.sort_by_dest(dest, cols, active, n_parts)
 
 
-def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int, *,
+def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int, dest=None, *,
                        phase_events=None):
     """The repartition epilogue: rows to partitions, sorted stably by
     partition.
@@ -1067,23 +1120,19 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int,
     ``"sweep"``); past that, a destination pass, a three-launch counting
     pass and a gather (``"hash"``, ``"passes"``, ``"gather"``).
     ``phase_events``, None or a list, gets one ``(phase, start, end)`` pair
-    of recorded CUDA events for each phase."""
-    _check_vectors("partition_epilogue", (active,), (torch.bool,))
+    of recorded CUDA events for each phase.
+
+    ``dest``, None or each row's destination as :func:`partition_dest`
+    gives it (int32 ``[n]``), replaces the hash: the count (or past 255
+    partitions the pass) reads it, and ``"count"`` (``"hash"``) then spans
+    no destination pass. The output is the hashed run's."""
+    _check_partition_keys("partition_epilogue", key_cols, luts, active, n_parts)
     n, dev = active.shape[0], active.device
-    if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
-        raise ValueError(f"partition_epilogue: n_parts {n_parts} outside "
-                         f"[1, {EPILOGUE_MAX_PARTS}]")
-    if len(key_cols) > _MAX_WIDE_KEYS or len(luts) != len(key_cols):
-        raise ValueError(f"partition_epilogue: 0 to {_MAX_WIDE_KEYS} keys, one LUT slot each")
-    if not 1 <= n < 2**31:
-        raise ValueError("partition_epilogue: 1 to 2^31 - 1 rows (int32 row indices)")
-    _check_page_cols("partition_epilogue", key_cols, n, dev)
     _check_page_cols("partition_epilogue", cols, n, dev)
-    for d, _ in key_cols:
-        if d.dtype not in _KEY_TYPES:
-            raise TypeError(f"partition_epilogue: unsupported key column {d.dtype}")
+    if dest is not None:
+        _check_vectors("partition_epilogue", (dest, active), (torch.int32, torch.bool))
     if dev.type == "cpu":
-        return partition_epilogue_plain(key_cols, luts, cols, active, n_parts)
+        return partition_epilogue_plain(key_cols, luts, cols, active, n_parts, dest)
     ks = _key_set("partition_epilogue", key_cols, luts, n, _WideKeySet)
     nb = n_parts + 1
     hist = torch.empty(nb * -(-n // _TILE_ROWS), dtype=torch.int32, device=dev)
@@ -1094,13 +1143,16 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int,
     outs = _like(gathered)
     sets, n_sets = _perm_gather_sets(gathered, outs)
     sweep = nb <= EPILOGUE_SWEEP_BINS
-    dest = torch.empty(n, dtype=torch.uint8 if sweep else torch.int32, device=dev)
+    given = dest
+    dest = torch.empty(n if sweep or given is None else 1,
+                       dtype=torch.uint8 if sweep else torch.int32, device=dev)
     # the sweep writes a permutation only for the gather sets after the first
     idx = torch.empty(n, dtype=torch.int32, device=dev) if not sweep or n_sets > 1 else None
     events = _phase_marks(phase_events,
                           ("count", "sweep") if sweep else ("hash", "passes", "gather"))
     rc = _library().partition_epilogue(
-        ctypes.byref(ks), active.data_ptr(), n, n_parts, dest.data_ptr(),
+        ctypes.byref(ks), active.data_ptr(), None if given is None else given.data_ptr(), n,
+        n_parts, dest.data_ptr(),
         None if idx is None else idx.data_ptr(), hist.data_ptr(), totals.data_ptr(),
         offsets.data_ptr(), counts.data_ptr(), sets, n_sets, events, _stream(active),
     )

@@ -18,10 +18,14 @@ of the reference's body that stay torch operators:
   presorted sortedness violation.
 - :func:`aggregate_phase`: the sort-path reduction (``_aggregate_impl``),
   whose integer sums and counts run in ``segment_sum``.
+- the exchange destination stage (``epi_spec`` of :func:`expand_phase`
+  and :func:`aggregate_phase`): where the fragment's output feeds a hash
+  exchange (the worker's repartition hint), ``partition_dest`` computes
+  each row's destination on the page the phase returns, and
+  :func:`attach_epilogue` rides it on the page for the exchange.
 - :func:`fused_epilogue`: the repartition epilogue in
-  ``partition_epilogue``. As in the reference, no query path calls it
-  yet: the exchange that would (``attach_epilogue`` and the worker's
-  repartition hint) is not ported.
+  ``partition_epilogue``, on the operator-state spill and, given the
+  attached destination, on the worker's hash exchange.
 
 Bit identity with the serial join follows the reference's argument: slot
 assignment is ``kernels.expand_probe_slots`` on both paths, and each bucket
@@ -31,7 +35,8 @@ same build row on both paths. The group sort is a stable sort by the same
 keys as the serial path's co-sort, so both give one permutation.
 
 Counters are plain integers of this module: :data:`LAUNCHES` (one per phase
-run) and :data:`FALLBACKS` by reason. Kernel errors are never caught here:
+run), :data:`STAGES` (exchange destination stages) and :data:`FALLBACKS` by
+reason. Kernel errors are never caught here:
 they raise through the query.
 """
 
@@ -59,6 +64,8 @@ DEFAULT_BUCKET_CAP = 32
 TABLE_ENTRY_LIMIT = 1 << 30
 
 LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
+# exchange destination stages run after a fused phase (``exchange_dest``)
+STAGES: Counter = Counter()
 FALLBACKS: Counter = Counter()
 # columns the expansion carried by row index (nested layouts and wide lanes)
 CARRIED: Counter = Counter()
@@ -76,6 +83,7 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
     FALLBACKS.clear()
     CARRIED.clear()
+    STAGES.clear()
 
 
 def probe_phase(pkeys, bkeys, luts, probe_active, build_active,
@@ -137,8 +145,27 @@ def _expanded_column(c: Column, d, v) -> Column:
     return replace(map_rows(c, lambda x: x[idx]), valid=v)
 
 
+def _key_luts(cols, dev):
+    return [None if c.dictionary is None
+            else torch.as_tensor(c.dictionary.value_keys(), device=dev) for c in cols]
+
+
+def exchange_dest(page: Page, epi_spec):
+    """The exchange destination stage: ``epi_spec`` = (key_idx, n_parts) of
+    the hash exchange this page feeds; returns each row's destination
+    (int32, ``n_parts`` where inactive) from ``partition_dest``, or None
+    where a key is multi-lane (the exchange then hashes it itself)."""
+    key_idx, n_parts = epi_spec
+    keys = [page.columns[i] for i in key_idx]
+    if any(c.data.ndim != 1 for c in keys):
+        return None
+    STAGES["dest"] += 1
+    return HK.partition_dest([(c.data, c.valid) for c in keys],
+                             _key_luts(keys, page.active.device), page.active, n_parts)
+
+
 def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page: Page,
-                 out_capacity: int, symbols, proj_spec, agg_spec):
+                 out_capacity: int, symbols, proj_spec, agg_spec, epi_spec=None):
     """Expand the join into ``out_capacity`` slots, then run the fused
     stages on the joined page (symbols ``symbols``, probe columns first).
 
@@ -151,7 +178,10 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     grouped_page, new_group, num_groups, violation)`` as
     ``_presorted_group_impl`` gives them; for ``sort``, ``(sorted_page,
     new_group, num_groups)`` from ``group_sort``, for
-    :func:`aggregate_phase` once the caller has read ``num_groups``."""
+    :func:`aggregate_phase` once the caller has read ``num_groups``.
+    ``epi_spec`` (None, or ``(key_idx, n_parts)`` over the returned page's
+    columns, with no aggregation or a direct one): the exchange
+    destination stage; the return is then ``(page, dest)``."""
     from ..runtime import executor as E
 
     pr = probe_result
@@ -174,13 +204,16 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
         compiled, _ = proj_spec
         out = E._project_impl(compiled, E.Relation(out, symbols).env(), out)
     if agg_spec is None:
-        return out
+        return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
     mode, payload = agg_spec
     if mode == "direct":
         group_keys, aggregations, domains, agg_symbols, kernel_mode = payload
-        return E._direct_aggregate(
+        out = E._direct_aggregate(
             group_keys, aggregations, domains, E.Relation(out, agg_symbols), kernel_mode
         )
+        return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
+    if epi_spec is not None:
+        raise ValueError("expand_phase: the exchange stage follows aggregate_phase here")
     group_keys, needed, agg_symbols = payload
     if mode == "sort":
         return E._group_sort_impl(group_keys, needed, agg_symbols, out, kernel=True)
@@ -201,34 +234,73 @@ def group_sort_phase(group_keys, needed, symbols, page: Page):
 
 
 def aggregate_phase(group_keys, aggregations, needed, out_cap: int,
-                    sorted_page: Page, new_group, num_groups) -> Page:
+                    sorted_page: Page, new_group, num_groups, epi_spec=None):
     """The sort-path reduction over a group-sorted page: the executor's
     ``_aggregate_impl`` with its integer sums and counts in the
-    ``segment_sum`` kernel."""
+    ``segment_sum`` kernel. With ``epi_spec`` (``(key_idx, n_parts)``) the
+    exchange destination stage follows, and the return is ``(page,
+    dest)``."""
     from ..runtime import executor as E
 
     LAUNCHES["aggregate"] += 1
-    return E._aggregate_impl(
+    out = E._aggregate_impl(
         group_keys, aggregations, needed, out_cap, sorted_page, new_group,
         num_groups, segment_kernel=True,
     )
+    return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
 
 
-def fused_epilogue(page: Page, key_idx: Sequence[int], n_parts: int):
+def fused_epilogue(page: Page, key_idx: Sequence[int], n_parts: int, dest=None):
     """Hash, stable sort by destination and offsets as one kernel
     (``partition_epilogue``): returns ``(sorted_page, offsets, counts)``,
     bit-identical to ``repartition._repartition_epilogue``. Dictionary
-    keys hash through their ``value_keys`` LUT."""
+    keys hash through their ``value_keys`` LUT; ``dest``, each row's
+    destination from a fused stage, replaces the hash. A long decimal's two
+    limbs ride the kernel as two columns and are put back together."""
     keys = [page.columns[i] for i in key_idx]
-    dev = page.active.device
-    luts = [
-        None if c.dictionary is None
-        else torch.as_tensor(c.dictionary.value_keys(), device=dev)
-        for c in keys
-    ]
+    flat = []
+    for c in page.columns:
+        if c.data.ndim == 1:
+            flat.append((c.data, c.valid))
+        else:
+            flat.extend((c.data[:, k].contiguous(), c.valid) for k in range(c.data.shape[1]))
     cols, active, offsets, counts = HK.partition_epilogue(
-        [(c.data, c.valid) for c in keys], luts,
-        [(c.data, c.valid) for c in page.columns], page.active, n_parts,
+        [(c.data, c.valid) for c in keys], _key_luts(keys, page.active.device), flat,
+        page.active, n_parts, dest,
     )
-    out = tuple(Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(page.columns, cols))
-    return Page(out, active), offsets, counts
+    out, at = [], 0
+    for c in page.columns:
+        lanes = 1 if c.data.ndim == 1 else c.data.shape[1]
+        d = cols[at][0] if lanes == 1 else torch.stack([x for x, _ in cols[at:at + lanes]], 1)
+        out.append(Column(c.type, d, cols[at][1], c.dictionary))
+        at += lanes
+    return Page(tuple(out), active), offsets, counts
+
+
+def attach_epilogue(page: Page, dest, key_idx: Sequence[int], n_parts: int,
+                    keys: Sequence[str] = ()) -> None:
+    """Ride a fused stage's per-row destination on the page object; it is
+    consumed once by ``repartition._take_fused_dest`` for the matching
+    exchange spec. ``keys`` (symbol names) let :func:`reattach_epilogue`
+    carry it across a rewrap that reorders columns."""
+    page._megakernel_epilogue = {
+        "dest": dest, "key_idx": tuple(key_idx), "n_parts": int(n_parts), "keys": tuple(keys),
+    }
+
+
+def reattach_epilogue(src_page: Page, dst_page: Page, dst_symbols: Sequence[str]) -> None:
+    """A fragment root rewraps its relation into an output-symbol-ordered
+    Page (``parallel/runner.run_fragment_partition``): the destination
+    survives with its key indexes re-derived against the new column order
+    (the rows are the same, only the columns move)."""
+    payload = src_page.__dict__.pop("_megakernel_epilogue", None)
+    if not payload:
+        return
+    keys = payload.get("keys")
+    dst_symbols = tuple(dst_symbols)
+    if not keys or any(k not in dst_symbols for k in keys):
+        return
+    dst_page._megakernel_epilogue = {
+        "dest": payload["dest"], "n_parts": payload["n_parts"], "keys": keys,
+        "key_idx": tuple(dst_symbols.index(k) for k in keys),
+    }

@@ -15,8 +15,16 @@ reference's two formulations: on a CUDA page the whole epilogue runs on the
 card in ``partition_epilogue`` and one transfer brings the
 partition-contiguous page to the host; on a CPU page the hash gives each
 row's destination and the frames gather their rows on the host. Both give
-the same frame bytes. The reference's megakernel-attached destinations and
-its flight-recorder spans are not ported.
+the same frame bytes. A long decimal's two limbs ride both (v1 and v2
+frames carry lanes).
+
+A fused join or aggregation whose fragment feeds a hash exchange computes
+each row's destination as its last stage (``hopper_kernels.partition_dest``)
+and attaches it to the page (``megakernels.attach_epilogue``);
+:func:`_take_fused_dest` consumes it once for the matching exchange spec.
+On a CUDA page ``partition_epilogue`` then takes that destination and skips
+its hash; on a CPU page the host formulation reads it. The reference's
+flight-recorder spans around the epilogue are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +35,6 @@ import torch
 
 from .. import knobs
 from ..spi.page import Column, Page, is_nested_column
-from .._unported import unported
 from . import kernels as K
 
 DEVICE_REPARTITION_ENV = "TRINO_TPU_DEVICE_REPARTITION"
@@ -36,7 +43,7 @@ DEVICE_REPARTITION_ENV = "TRINO_TPU_DEVICE_REPARTITION"
 def device_repartition_enabled() -> bool:
     """Env kill-switch (default on): off, :func:`repartition_frames` refuses
     a CUDA page, because the port keeps no host formulation on the card. A
-    CPU page takes the host formulation either way."""
+    CPU page takes the host formulation with it off."""
     return knobs.env_flag(DEVICE_REPARTITION_ENV, True)
 
 _GOLDEN = -7046029254386353131  # 0x9E3779B97F4A7C15
@@ -114,9 +121,10 @@ def dest_of(keys, active: torch.Tensor, n_parts: int) -> torch.Tensor:
 
 
 def supports_device_repartition(page: Page) -> bool:
-    """Scalar columns ride the epilogue and the v2 frames; nested layouts
-    (array/map/row: children, lengths) take the spill's legacy per-partition
-    path, as in the reference: the wire serde has no frame for them."""
+    """Scalar and multi-lane (long decimal) columns ride the epilogue and
+    the v2 frames; nested layouts (array/map/row: children, lengths) take
+    the legacy per-partition path, as in the reference: the wire serde has
+    no frame for them."""
     return not any(is_nested_column(c) for c in page.columns)
 
 
@@ -151,18 +159,33 @@ def _repartition_epilogue(n_parts: int, key_idx: Tuple[int, ...], page: Page):
     return Page(out, active), offsets, counts
 
 
+def _take_fused_dest(page: Page, key_idx: Tuple[int, ...], n_parts: int):
+    """The destination a fused join or aggregation attached to this page
+    object for exactly this exchange spec (``megakernels.attach_epilogue``),
+    or None. The attachment is popped: it is valid only for the page it was
+    computed from."""
+    payload = page.__dict__.pop("_megakernel_epilogue", None)
+    if not payload:
+        return None
+    if payload.get("key_idx") != tuple(key_idx) or payload.get("n_parts") != n_parts:
+        return None  # computed for another partitioning: hash again
+    return payload.get("dest")
+
+
 def repartition_frames(page: Page, key_idx: Sequence[int], n_parts: int, pool=None,
                        compress: bool = True):
     """Page -> one serialized v2 frame per partition and the row counts,
     ``(frames, counts)``.
 
-    - CUDA page: the epilogue on the card (``partition_epilogue``) and one
+    - CUDA page: the epilogue on the card (``partition_epilogue``, given
+      the attached destination where a fused stage left one) and one
       transfer of the partition-contiguous page, then the frames are
       sliced out of it (``serde.serialize_page_slices``). With
       ``TRINO_TPU_DEVICE_REPARTITION`` off it raises: there is no plain
       fallback on the card.
-    - CPU page: the hash gives each row's destination, then gather and
-      encode run per partition (``serde.serialize_page_partitions``).
+    - CPU page: the attached destination or the hash gives each row's
+      destination, then gather and encode run per partition
+      (``serde.serialize_page_partitions``).
 
     The frame bytes are the same either way."""
     from ..runtime.serde import serialize_page_partitions, serialize_page_slices
@@ -172,17 +195,16 @@ def repartition_frames(page: Page, key_idx: Sequence[int], n_parts: int, pool=No
     if on_card and not device_repartition_enabled():
         raise RuntimeError(f"{DEVICE_REPARTITION_ENV}=0, but a CUDA page has no other "
                            "repartition formulation than the partition_epilogue kernel")
-    if any(c.data.ndim == 2 for c in page.columns):
-        unported("ops.int128 (multi-lane storage)")  # no frame format for limbs yet
+    fused = _take_fused_dest(page, key_idx, n_parts)
     if on_card:
-        cols, offsets, counts = repartition_to_host(page, key_idx, n_parts)
+        cols, offsets, counts = repartition_to_host(page, key_idx, n_parts, dest=fused)
         return serialize_page_slices(cols, offsets, counts, compress=compress, pool=pool), counts
-    dest = _partition_dest(n_parts, key_idx, page).numpy()
+    dest = (fused if fused is not None else _partition_dest(n_parts, key_idx, page)).numpy()
     host_cols = [(c.type, c.data.numpy(), c.valid.numpy(), c.dictionary) for c in page.columns]
     return serialize_page_partitions(host_cols, dest, n_parts, compress=compress, pool=pool)
 
 
-def repartition_to_host(page: Page, key_idx: Sequence[int], n_parts: int):
+def repartition_to_host(page: Page, key_idx: Sequence[int], n_parts: int, dest=None):
     """The accelerator formulation: the epilogue's partition-contiguous page
     on the host, ``(cols, offsets, counts)``, ``cols`` a host chunk whose
     rows ``[offsets[p], offsets[p] + counts[p])`` are partition p's in their
@@ -191,10 +213,11 @@ def repartition_to_host(page: Page, key_idx: Sequence[int], n_parts: int):
     the epilogue (on a CUDA page the ``partition_epilogue`` kernel: hash,
     stable sort by destination, offsets and counts on the card; on a CPU
     page its plain version), then the counts are read, every column's live
-    rows copied out (into pinned memory from the card) and one wait."""
+    rows copied out (into pinned memory from the card) and one wait.
+    ``dest``: each row's destination, where a fused stage computed it."""
     from . import megakernels as MK
 
-    sorted_page, offsets, counts = MK.fused_epilogue(page, tuple(key_idx), n_parts)
+    sorted_page, offsets, counts = MK.fused_epilogue(page, tuple(key_idx), n_parts, dest=dest)
     counts_h = counts.cpu().numpy()
     n = int(counts_h.sum())
     pin = page.device.type == "cuda"
@@ -202,7 +225,7 @@ def repartition_to_host(page: Page, key_idx: Sequence[int], n_parts: int):
     for c in sorted_page.columns:
         pair = []
         for t in (c.data, c.valid):
-            h = torch.empty(n, dtype=t.dtype, pin_memory=pin)
+            h = torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype, pin_memory=pin)
             h.copy_(t[:n], non_blocking=pin)
             pair.append(h)
         outs.append((c, pair))

@@ -428,9 +428,11 @@ class PlanExecutor:
 
     def _join_relations(self, node: JoinNode, left: Relation, right: Relation,
                         allow_fusion: bool = True) -> Relation:
+        origin = node  # before a RIGHT join's swap
         kind, node, probe, build, pkeys, bkeys, luts = self._join_sides(node, left, right)
         if allow_fusion and self._fusion_enabled():
-            rel = self._try_fused_join(kind, node, probe, build, pkeys, bkeys, luts)
+            rel = self._try_fused_join(kind, node, probe, build, pkeys, bkeys, luts,
+                                       origin=origin)
             if rel is not None:
                 return rel
         left_outer = kind in (JoinKind.LEFT, JoinKind.FULL)
@@ -592,6 +594,32 @@ class PlanExecutor:
         except KeyError:
             return False
 
+    def _epilogue_spec_for(self, symbols: Tuple[str, ...], node: PlanNode):
+        """(key_idx, n_parts) when this fragment's output feeds a hash
+        exchange whose keys the produced symbols cover (the worker task API
+        plants ``repartition_hint`` before execution), so the fused join or
+        aggregation computes the exchange destination as its last stage and
+        the exchange skips its hash. Where the task also names its
+        fragment's root (``repartition_root``), only a fused ``node`` that
+        is that root computes it: below the root the page is rebuilt and
+        the destination would be lost (the reference computes it there
+        too)."""
+        hint = getattr(self, "repartition_hint", None)
+        if not hint:
+            return None
+        root = getattr(self, "repartition_root", None)
+        if root is not None and node is not root:
+            return None
+        keys, n_parts = hint
+        if not keys or n_parts <= 1 or not all(k in symbols for k in keys):
+            return None
+        return tuple(symbols.index(k) for k in keys), int(n_parts)
+
+    def _attach_dest(self, page: Page, dest, epi_spec) -> None:
+        if dest is not None:
+            MK.attach_epilogue(page, dest, epi_spec[0], epi_spec[1],
+                               keys=self.repartition_hint[0])
+
     def _fused_join_spec(self, kind, node: JoinNode, probe, build, pkeys, bkeys):
         """Shape gate: compiler recognition plus the physical key check.
         Returns the MegakernelSpec, or None after a fallback tick."""
@@ -609,7 +637,7 @@ class PlanExecutor:
         return spec
 
     def _try_fused_join(self, kind, node: JoinNode, probe: Relation, build: Relation,
-                        pkeys, bkeys, luts) -> Optional[Relation]:
+                        pkeys, bkeys, luts, origin=None) -> Optional[Relation]:
         """The join through the hash-join kernels: probe phase, the output
         size (the serial join's host sync), expand phase. Returns None after
         a fallback tick (shape or bucket skew); a kernel error raises."""
@@ -623,10 +651,14 @@ class PlanExecutor:
             return None
         out_capacity = self._choose_join_capacity(pr["emit"])
         symbols = probe.symbols + build.symbols
+        epi_spec = self._epilogue_spec_for(symbols, origin if origin is not None else node)
         page = MK.expand_phase(
             pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity, symbols,
-            None, None,
+            None, None, epi_spec,
         )
+        if epi_spec is not None:
+            page, dest = page
+            self._attach_dest(page, dest, epi_spec)
         return Relation(page, symbols, probe.sorted_by)
 
     def _try_fused_join_aggregate(self, node: AggregationNode) -> Optional[Relation]:
@@ -688,6 +720,7 @@ class PlanExecutor:
             }
             post_sorted = view.sorted_by
         agg_symbols = node.group_keys + tuple(s for s, _ in node.aggregations)
+        epi_spec = self._epilogue_spec_for(agg_symbols, node)
         domains = None
         if all(k in key_sources for k in node.group_keys):
             domains = _direct_agg_domains(_KeyView(key_sources), node)
@@ -712,8 +745,11 @@ class PlanExecutor:
             ))
             page = MK.expand_phase(
                 pr, pkeys, bkeys, luts, probe.page, build.page, out_capacity,
-                base_symbols, proj_spec, agg_spec,
+                base_symbols, proj_spec, agg_spec, epi_spec,
             )
+            if epi_spec is not None:
+                page, dest = page
+                self._attach_dest(page, dest, epi_spec)
             return Relation(page, agg_symbols)
         agg_spec = ("presorted" if presorted else "sort",
                     (node.group_keys, needed, post_symbols))
@@ -732,8 +768,11 @@ class PlanExecutor:
         # the group-count host sync the serial sort path performs
         out_cap = min(_round_capacity(max(int(n_grp), 1), base=16), max(out_capacity, 16))
         page = MK.aggregate_phase(
-            node.group_keys, node.aggregations, needed, out_cap, p, ng, n_grp
+            node.group_keys, node.aggregations, needed, out_cap, p, ng, n_grp, epi_spec
         )
+        if epi_spec is not None:
+            page, dest = page
+            self._attach_dest(page, dest, epi_spec)
         return Relation(page, agg_symbols)
 
     def _serial_agg_finish(self, node: AggregationNode, proj, join_rel: Relation) -> Relation:

@@ -18,7 +18,9 @@ v2 frame layout ('TPG2'), written by :func:`serialize_page_slices` and
   per column: lanes u32 (0 = scalar)
   buffers: per column (data, valid), then per dict column its blob
 A v2 frame carries exactly ``nrows`` live rows: no active mask and no
-padding. :func:`deserialize_page` reads both versions, and
+padding. A multi-lane column (a long decimal's two int64 limbs) travels
+flattened, row-major, in both versions: v1 restores the lane axis from the
+type, v2 from the header's lane width. :func:`deserialize_page` reads both versions, and
 :class:`LazyPageFrame` parses the header without decoding the buffers.
 
 The reference's flight-recorder spans around encode and decode belong to
@@ -34,7 +36,6 @@ import numpy as np
 import torch
 
 from .. import native
-from .._unported import unported
 from ..device import resolve_device
 from ..spi.page import Column, Dictionary, Page
 from ..spi.types import parse_type
@@ -161,7 +162,8 @@ def deserialize_page(data: bytes, device=None) -> Page:
     for (data_arr, valid_arr), tname, dictionary in zip(raw_cols, type_names, dictionaries):
         type_ = parse_type(tname)
         if type_.storage_lanes is not None:
-            unported("ops.int128 (multi-lane storage)")
+            # a long decimal's limbs travel flattened: restore the lane axis
+            data_arr = data_arr.reshape(capacity, type_.storage_lanes)
         cols.append(Column(
             type_, _tensor(data_arr, type_.storage_dtype, dev),
             _tensor(valid_arr, np.bool_, dev), dictionary,
@@ -326,13 +328,14 @@ class LazyPageFrame:
         cols = []
         for i, ((data_arr, valid_arr), tname) in enumerate(zip(raw_cols, self._type_names)):
             type_ = parse_type(tname)
-            if self._lanes[i] or type_.storage_lanes is not None:
-                unported("ops.int128 (multi-lane storage)")
+            w = self._lanes[i]
+            if w:
+                data_arr = data_arr.reshape(-1, w)
             if len(data_arr) != n or len(valid_arr) != n:
                 raise ValueError(
                     f"corrupt v2 frame: column {i} has {len(data_arr)} rows, header says {n}"
                 )
-            data = np.zeros(cap, dtype=type_.storage_dtype)
+            data = np.zeros((cap, w) if w else cap, dtype=type_.storage_dtype)
             data[:n] = data_arr
             valid = np.zeros(cap, dtype=np.bool_)
             valid[:n] = valid_arr

@@ -1,5 +1,5 @@
-"""Device time of the hash probe, the sorts and the segment sums, by
-kernel, on the card.
+"""Device time of the hash probe and expansion, the sorts and the segment
+sums, by kernel, on the card.
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] [--joins FILE]
 
@@ -13,10 +13,13 @@ on the inactive rows), ``hopper_kernels.partition_epilogue`` on the same
 page at 8 partitions, and ``hopper_kernels.segment_sum`` on two sorted
 pages: 524,288 rows in 131,072 slots, 119,740 groups of about four rows
 (the shape of Q3's at SF10), and 4,194,304 rows in groups of about four
-(``chip_smoke.py``'s synthetic case). For each it prints the wrapper's
-milliseconds (CUDA events over 10 calls after one; the host's work between
-launches included) and the device microseconds a call spends in each
-kernel and memset (``torch.profiler`` over 10 calls). The join inputs are
+(``chip_smoke.py``'s synthetic case). After each join's probe,
+``hopper_kernels.hash_expand`` runs on that probe's output, with both
+sides' keys and a seeded int32 and float64 column each. For each it prints
+the wrapper's milliseconds (CUDA events over 10 calls after one; the
+host's work between launches included) and the device microseconds a
+call spends in each kernel and memset (``torch.profiler`` over 10 calls).
+The join inputs are
 the probe calls of one run of the two queries through ``DIR``'s
 ``LocalQueryRunner`` (about a minute of host generation), saved to
 ``FILE`` (default: ``trino_tpu_torch/_build/kernel_inputs/joins_sf10.pt``
@@ -89,6 +92,30 @@ def capture_joins(HK, path: Path) -> None:
         HK.hash_probe = orig
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(joins, path)
+
+
+def side_cols(keys, n: int, dev, seed: int):
+    """A join side's columns: its keys, then an int32 and a float64 column
+    (seeded, so every commit expands the same bytes)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return list(keys) + [
+        (torch.randint(-9, 9, (n,), generator=gen, device=dev, dtype=torch.int32),
+         torch.rand(n, generator=gen, device=dev) < 0.9),
+        (torch.rand(n, generator=gen, device=dev, dtype=torch.float64),
+         torch.rand(n, generator=gen, device=dev) < 0.9),
+    ]
+
+
+def expand_args(pr: dict, probe: tuple, dev) -> tuple:
+    """``hash_expand``'s arguments after one join's probe: its table and
+    emit counts, both sides' columns, and the emitted rows rounded up to
+    1,024 slots."""
+    pkeys, bkeys, luts, pa, ba = probe[:5]
+    cap = -(-max(int(pr["emit"].sum()), 1) // 1024) * 1024
+    return (pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"], pkeys, bkeys,
+            luts, pa, side_cols(pkeys, pa.shape[0], dev, 1),
+            side_cols(bkeys, ba.shape[0], dev, 2), cap)
 
 
 def q10_page(dev):
@@ -185,6 +212,9 @@ def main() -> None:
     for label, args in torch.load(joins, map_location=dev):
         shape = f"n={args[3].shape[0]} m={args[4].shape[0]} B={args[5]} C={args[6]}"
         report(root, f"hash_probe, {label} ({shape})", lambda: HK.hash_probe(*args))
+        ex = expand_args(HK.hash_probe(*args), args, dev)
+        report(root, f"hash_expand, {label} ({ex[-1]} slots)", lambda: HK.hash_expand(*ex))
+        del ex
     del args
     torch.cuda.empty_cache()
     keys, payload, active = args = q10_page(dev)
