@@ -13,8 +13,11 @@ printed):
    and the epilogue given that destination equal to the hashed run): each
    wrapper at its main path's shape (one lineitem page of TPC-H SF10: G = 12
    for the grouped sums; Q3's join sizes for the hash join; Q3's joined
-   rows for the segment sums; Q10's joined page for the group sort and the
-   repartition epilogue) and at edge shapes, timed with CUDA events beside
+   rows for the segment sums; Q10's joined page for the group sort, the
+   repartition epilogue and ``segment_agg``, the whole sort-path
+   aggregation, with every request kind and finishing and the exchange
+   destination, also held against its own second run bit for bit) and at
+   edge shapes, timed with CUDA events beside
    its bytes bound, its plain version and, where one torch call computes
    the same function (or, for the two sorts, the one call that does their
    sorting work: ``torch.sort`` of one int64 key), that call. The group
@@ -28,7 +31,9 @@ printed):
    (the kernel leaves the rest unspecified), and the expansion run on its
    output against the plain expansion on the plain probe's output, over
    the whole joined page; its bound is counted on what it must move, beside
-   the whole-table bound of earlier versions.
+   the whole-table bound of earlier versions. The expansion with the
+   exchange destination folded in (one key; three with a dictionary key)
+   is held against its plain version and timed beside the one without.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
    count set to 0 just before it), rows identical to an independent numpy
@@ -36,7 +41,13 @@ printed):
    tier off at SF1 in phase 5 and at SF10 over phase 8's memory tables),
    no fallback of the fused path,
    Q10's fused phases (probe 3, expand 3, aggregate 1), Q10's group sort
-   on one 64-bit composite, and the wall seconds of each query. Every
+   on one 64-bit composite, and the wall seconds of each query; every
+   ``hash_expand`` and ``segment_agg`` launch of Q3 and Q10 against its
+   plain version, no aggregate of theirs outside ``segment_agg``, and one
+   ``aggregate_phase`` call on each one's inputs launching ``segment_agg``'s
+   passes only (``torch.profiler``), printed beside the eager path's
+   kernels on the same inputs; Q3's expansion timed with and without the
+   destination. Every
    kernel is also checked and timed on the inputs the queries gave it (its
    real distributions; the repartition epilogue on Q10's joined page; the
    hash probe, with the whole joined page and its phase split, on each of
@@ -138,15 +149,18 @@ printed):
    ``DistributedQueryRunner`` with 4 workers on Q1, Q3, Q10 and Q18, rows
    identical to 8b's, wall beside 8b's, peak, partition counts, tier and
    launches; then two HTTP ``WorkerServer``s on 127.0.0.1 and the remote
-   runner on Q1, Q3 and Q18: rows identical to 8b's, ``partition_dest``
-   and ``partition_epilogue`` launched on the hash exchanges, no page on
-   ``_emit_output``'s host branch, ``FALLBACKS`` empty, every launch of
-   both kernels bit-exact against its plain version, the smallest
-   exchange with a fused destination byte-identical to the host
-   formulation's frames, bytes and frames by exchange, the wall split over
-   the wire (pull, decode, the inputs' merge through the host, fragments,
-   emit); peaks past 70 GiB fail; both kernels timed on the largest
-   exchange's page (the epilogue with and without the given destination);
+   runner on Q1, Q3 and Q18: rows identical to 8b's, every destination
+   folded into ``hash_expand`` or ``segment_agg`` (12 stages, no
+   ``partition_dest`` launch) and ``partition_epilogue`` launched on the
+   hash exchanges, no page on ``_emit_output``'s host branch, ``FALLBACKS``
+   empty, no aggregate outside ``segment_agg``, every launch of
+   ``partition_epilogue``, ``hash_expand`` and ``segment_agg`` bit-exact
+   against its plain version, the smallest exchange with a fused
+   destination byte-identical to the host formulation's frames, bytes and
+   frames by exchange, the wall split over the wire (pull, decode, the
+   inputs' merge through the host, fragments, emit); peaks past 70 GiB
+   fail; the epilogue timed on the largest exchange's page with and
+   without the given destination, and ``partition_dest`` on its keys;
    the checksums again. (d) A DELETE of
    ``orders`` by ``o_orderdate``, an UPDATE of ``l_discount`` by
    ``l_shipmode``, a MERGE into ``orders`` from about 1,500,000 source rows
@@ -242,8 +256,8 @@ QUERIES = {
 KERNELS_OF = {
     "q06": ("q6_fused",),
     "q01": ("grouped_sum_i64", "grouped_sum_i32"),
-    "q03": ("hash_probe", "hash_expand", "segment_sum"),
-    "q10": ("hash_probe", "hash_expand", "group_sort", "segment_sum"),
+    "q03": ("hash_probe", "hash_expand", "segment_agg"),
+    "q10": ("hash_probe", "hash_expand", "group_sort", "segment_agg"),
 }
 # the default-session walls of phases 3 and 4, by query (phase 8 prints its
 # walls over memory tables beside them)
@@ -525,9 +539,10 @@ def same_join(HK, pargs, pcols, bcols) -> bool:
 
 
 def same_expand(got, want) -> bool:
+    """The joined page, its activity and, given one, the destination."""
     pairs = list(zip(got[0] + got[1], want[0] + want[1]))
-    return torch.equal(got[2], want[2]) and all(
-        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs)
+    return (len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got[2:], want[2:]))
+            and all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs))
 
 
 def probe_args(HK, pkeys, bkeys, luts, pa, ba, left, past_limit=False):
@@ -637,7 +652,7 @@ def expand_bound(args) -> tuple:
     activity, the occupied slots of its bucket with their build keys, and
     one row of every column; it writes one row of every column and its
     activity."""
-    table, counts, bucket_p, count, emit, pkeys, bkeys, _, pa, pcols, bcols, cap = args
+    table, counts, bucket_p, count, emit, pkeys, bkeys, _, pa, pcols, bcols, cap = args[:12]
     n = emit.shape[0]
     C = table.shape[1]
     rows = emit > 0  # bucket_p is unspecified on inactive rows
@@ -703,6 +718,239 @@ def segment_bound(args) -> tuple:
     n = values.shape[0]
     nbytes = n * (values.element_size() + 1) + starts.shape[0] * 16
     return bound_ms(nbytes, 3 * n * max(starts.shape[0], 2).bit_length())
+
+
+def _agg_page(dev, gen, n, new_group, active, n_keys=3):
+    """Group keys constant within each group of a sorted page (NULL on
+    inactive rows): a BIGINT custkey, an INTEGER dictionary code and a
+    DECIMAL(12,2) balance; each row's group id."""
+    gid = (torch.cumsum(new_group.to(torch.int64), 0) - 1).clamp(min=0)
+    per_group = torch.randint(-99_999, 999_999, (n + 1,), generator=gen, device=dev)
+    keys = [(gid * 3 + 7, active.clone()), ((gid % 997).to(torch.int32), active.clone()),
+            (per_group[gid], active.clone())]
+    return keys[:n_keys], gid
+
+
+def _agg_requests(HK, dev, gen, n, active):
+    """Every request kind over seeded value columns, and outputs finishing
+    them every way. The doubles are multiples of 1/4 below 2^18 and the
+    decimals multiples of 100 (their fsum divides by 100 and squares), so
+    every prefix of the plain version's cumsum is exact."""
+    R, O = HK.AggRequest, HK.AggOutput
+
+    def valid(rate=0.95):
+        return (torch.rand(n, generator=gen, device=dev) < rate) & active
+
+    rev = torch.randint(0, 10**11, (n,), generator=gen, device=dev)
+    qty = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev).to(torch.int32)
+    flag = torch.rand(n, generator=gen, device=dev) < 0.5
+    dbl = torch.randint(-2**20, 2**20, (n,), generator=gen, device=dev).to(torch.float64) / 4
+    dec = torch.randint(-2**12, 2**12, (n,), generator=gen, device=dev) * 100
+    date = torch.randint(8000, 11000, (n,), generator=gen, device=dev).to(torch.int32)
+    filt = torch.rand(n, generator=gen, device=dev) < 0.7
+    vr, vq, vf, vd, vm, vt = (valid() for _ in range(6))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    reqs = [
+        R("count", valid=vr), R("sum", rev, vr), R("count"), R("count", valid=vq),
+        R("sum", qty, vq), R("count", valid=vf), R("count", flag, vf, pred="nonzero"),
+        R("count", flag, vf, pred="zero"), R("count", valid=vd), R("fsum", dbl, vd),
+        R("count", valid=vm), R("fsum", dec, vm, divisor=100.0, square=True),
+        R("min", rev, vr), R("max", rev, vr), R("min", dbl, vd), R("max", dbl, vd),
+        R("min", flag, vf), R("max", flag, vf), R("count", valid=vt), R("min", date, vt),
+        R("max", date, vt), R("last", qty, vq), R("sum", rev, vr, filt=filt, filt_valid=ones),
+        R("count", valid=vr, filt=filt, filt_valid=ones),
+    ]
+    outs = [
+        O("value", 2, -1, torch.int64), O("value", 1, 0, torch.int64),
+        O("avg_decimal", 1, 0, torch.int64), O("avg_double", 1, 0, torch.float64, 10000.0),
+        O("value", 4, 3, torch.int64), O("avg_double", 4, 3, torch.float64),
+        O("value", 6, -1, torch.int64), O("bool_and", 7, 5, torch.bool),
+        O("bool_or", 6, 5, torch.bool), O("value", 9, 8, torch.float64),
+        O("avg_double", 9, 8, torch.float32), O("value", 11, -1, torch.float64),
+        O("value", 12, 0, torch.int64), O("value", 13, 0, torch.int64),
+        O("value", 14, 8, torch.float64), O("value", 15, 8, torch.float32),
+        O("value", 16, 5, torch.bool), O("value", 17, 5, torch.bool),
+        O("value", 19, 18, torch.int32), O("value", 20, 18, torch.int32),
+        O("first", 21, 3, torch.int32, values=qty), O("value", 22, 23, torch.int64),
+    ]
+    return reqs, outs
+
+
+def segment_agg_cases(HK, dev):
+    """(label, args) cases for segment_agg, args as its wrapper takes them.
+    The first has the shape of Q10's aggregation at SF10 (Q10_SLOTS rows,
+    the first 1,200,000 active, in groups of about three rows) with every
+    request kind and finishing, its three group keys and the destination
+    over two of them (the INTEGER one through a value-key LUT); then groups
+    over tiles, starts on tile boundaries, one-row groups, rows before the
+    first group, the keys alone, doubles that round, and one row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    lut = torch.randint(-2**62, 2**62, (997,), generator=gen, device=dev)
+
+    def case(label, n, new_group, active, dest=True, requests=True, pad=16):
+        keys, _ = _agg_page(dev, gen, n, new_group, active)
+        reqs, outs = _agg_requests(HK, dev, gen, n, active) if requests else ([], [])
+        groups = new_group.sum()
+        out_cap = round_capacity(int(groups) + pad, 16)
+        d = ((0, 1), [None, lut], 4) if dest else None
+        return label, (new_group, groups, out_cap, active, keys, reqs, outs, d)
+
+    def random_groups(n, n_act, rate, head=0):
+        new_group = torch.rand(n, generator=gen, device=dev) < rate
+        new_group[head] = True
+        new_group[:head] = False
+        new_group[n_act:] = False
+        active = torch.arange(n, device=dev) < n_act
+        active[:head] = False
+        return new_group, active
+
+    def fixed(n, firsts):
+        new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+        new_group[torch.tensor(sorted(set(firsts)), device=dev)] = True
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        active[:min(firsts)] = False
+        return new_group, active
+
+    yield case("Q10 shape n=2097152", Q10_SLOTS,
+               *random_groups(Q10_SLOTS, 1_200_000, 1 / 3))
+    tile = HK.SEGMENT_TILE_ROWS
+    n = 40 * tile + 5
+    yield case("one group across 30 tiles", n,
+               *fixed(n, [0, 7, 100, 3 * tile + 11, 33 * tile + 1, 33 * tile + 2, 35 * tile]))
+    yield case("starts exactly on tile boundaries", n,
+               *fixed(n, list(range(0, n, tile)) + [5 * tile + 1, 9 * tile - 1]))
+    yield case("groups of one row", 3 * tile + 1, *fixed(3 * tile + 1, range(3 * tile + 1)))
+    yield case("rows before the first group", 500_001, *random_groups(500_001, 500_001, 0.001,
+                                                                      head=777))
+    yield case("the keys and the destination alone", 300_000,
+               *random_groups(300_000, 250_000, 0.2), requests=False)
+    yield case("no destination, no padding slot", 300_000,
+               *random_groups(300_000, 300_000, 0.2), dest=False, pad=0)
+    yield case("n=1", 1, torch.ones(1, dtype=torch.bool, device=dev),
+               torch.ones(1, dtype=torch.bool, device=dev))
+    # doubles of one sign in [1, 2): the plain cumsum rounds, within 1e-9
+    # of each group's sum at this length
+    new_group, active = random_groups(200_000, 200_000, 0.05)
+    keys, _ = _agg_page(dev, gen, 200_000, new_group, active, n_keys=1)
+    x = 1 + torch.rand(200_000, generator=gen, device=dev, dtype=torch.float64)
+    reqs = [HK.AggRequest("count", valid=active), HK.AggRequest("fsum", x, active)]
+    outs = [HK.AggOutput("value", 1, 0, torch.float64),
+            HK.AggOutput("avg_double", 1, 0, torch.float64)]
+    groups = new_group.sum()
+    yield "doubles that round", (new_group, groups, round_capacity(int(groups), 16), active,
+                                 keys, reqs, outs, None)
+
+
+def _float_sum_outputs(args) -> set:
+    """The outputs computed from a float64 sum (compared at REL_TOL)."""
+    reqs, outs = args[5], args[6]
+    return {k for k, o in enumerate(outs)
+            if o.op in ("value", "avg_double") and reqs[o.a].kind == "fsum"}
+
+
+def same_segment_agg(got, want, args) -> tuple:
+    """(equal, largest absolute difference of a float sum): starts,
+    group_exists and the destination bit for bit; on the slots of existing
+    groups every key and output bit for bit and each validity, the float
+    sums within REL_TOL of the plain version's (another order of adds)."""
+    starts, exists, keys, outs, dest = got
+    w_starts, w_exists, w_keys, w_outs, w_dest = want
+    ok = torch.equal(starts, w_starts) and torch.equal(exists, w_exists)
+    ok = ok and ((dest is None and w_dest is None) or torch.equal(dest, w_dest))
+    for (d, v), (wd, wv) in zip(keys, w_keys):
+        ok = ok and torch.equal(v, wv) and torch.equal(_bits(d)[exists], _bits(wd)[exists])
+    floats = _float_sum_outputs(args)
+    worst = 0.0
+    for k, ((d, v), (wd, wv)) in enumerate(zip(outs, w_outs)):
+        ok = ok and torch.equal(v[exists], wv[exists])
+        m = exists & v
+        if k in floats:
+            a, b = d[m].to(torch.float64), wd[m].to(torch.float64)
+            diff = (a - b).abs()
+            if diff.numel():
+                worst = max(worst, float(diff.max()))
+            ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
+        else:
+            ok = ok and torch.equal(_bits(d)[m], _bits(wd)[m])
+    return ok, worst
+
+
+def _agg_tensors(res) -> list:
+    starts, exists, keys, outs, dest = res
+    return [starts, exists] + [t for pair in keys + outs for t in pair] + (
+        [] if dest is None else [dest])
+
+
+def same_bits(got, again) -> bool:
+    """Two runs of segment_agg on one input: every output tensor, bit for
+    bit (the padding slots too)."""
+    a, b = _agg_tensors(got), _agg_tensors(again)
+    return len(a) == len(b) and all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def _agg_gid(args):
+    new_group = args[0]
+    return (torch.cumsum(new_group.to(torch.int64), 0) - 1).clamp(min=0)
+
+
+def segment_agg_bound(args) -> tuple:
+    """Read new_group, the activity and every distinct request column once;
+    write starts and read them back; read and write the keys at out_cap
+    rows; write every output, group_exists and the destination once. About
+    4 operations a row a request."""
+    new_group, _, out_cap, active, keys, reqs, outs, dest = args
+    n = new_group.shape[0]
+    cols = {}
+    for r in reqs:
+        for t in (r.values, r.valid, r.filt, r.filt_valid):
+            if t is not None:
+                cols[t.data_ptr()] = t.numel() * t.element_size()
+    nbytes = 2 * n + sum(cols.values()) + 16 * out_cap + out_cap
+    nbytes += sum(2 * out_cap * (d.element_size() + 1) for d, _ in keys)
+    nbytes += sum(out_cap * (torch.empty((), dtype=o.dtype).element_size() + 1) for o in outs)
+    if dest is not None:
+        nbytes += 4 * out_cap + sum(8 * int(torch.unique(keys[i][0]).numel())
+                                    for i, lut in zip(dest[0], dest[1]) if lut is not None)
+    return bound_ms(nbytes, 4 * n * max(len(reqs), 1))
+
+
+def segment_agg_yardstick(args) -> float:
+    """One ``index_add_`` (sums, counts) or ``scatter_reduce_`` (min, max,
+    the last row) a request by each row's group, their times summed: not
+    one call, since no one torch call computes the whole reduction. The
+    group index and the masked values are computed before the timing."""
+    new_group, _, out_cap, active, _, reqs, _, _ = args
+    gid = _agg_gid(args)
+    total = 0.0
+    for r in reqs:
+        w = r.weight(active)
+        if r.kind in ("count", "sum", "fsum"):
+            dt = torch.float64 if r.kind == "fsum" else torch.int64
+            v = torch.where(w, w.to(dt) if r.kind == "count" else r.values.to(dt), 0)
+            total += time_ms(lambda: torch.zeros(out_cap + 1, dtype=dt, device=v.device)
+                             .index_add_(0, gid, v))
+            continue
+        if r.kind == "last":
+            v = torch.where(w, torch.arange(w.shape[0], device=w.device), -1)
+            how = "amax"
+        else:
+            v = r.values.to(torch.float64 if r.values.dtype.is_floating_point else torch.int64)
+            how = "amin" if r.kind == "min" else "amax"
+        total += time_ms(lambda: torch.zeros(out_cap + 1, dtype=v.dtype, device=v.device)
+                         .scatter_reduce_(0, gid, v, reduce=how, include_self=False))
+    return total
+
+
+def dest_expand_args(args, n_keys: int, lut):
+    """hash_expand's arguments with a destination: the probe key alone, or
+    the probe key, a build column and the probe side's int32 column through
+    a value-key LUT (a dictionary key), into 4 partitions."""
+    pcols, bcols = args[9], args[10]
+    if n_keys == 1:
+        return args[:12] + (((0,), [None], 4),)
+    code = next(i for i, (d, _) in enumerate(pcols) if d.dtype == torch.int32)
+    return args[:12] + (((0, len(pcols), code), [None, None, lut], 4),)
 
 
 # --------------------------------------------------------------------------- #
@@ -949,6 +1197,9 @@ def time_wrapper(HK, name, args) -> tuple:
         lib = time_ms(lambda: torch.zeros(out, dtype=torch.int64, device=v.device)
                       .index_add_(0, gid1, pre))
         b, by = segment_bound(args)
+    elif name == "segment_agg":
+        lib = segment_agg_yardstick(args)
+        b, by = segment_agg_bound(args)
     elif name == "hash_probe":
         b, by = probe_bound(args)
     elif name == "group_sort":
@@ -967,7 +1218,8 @@ def time_wrapper(HK, name, args) -> tuple:
 PLAIN = {
     "grouped_sum_i64": "grouped_sum_plain", "grouped_sum_i32": "grouped_sum_plain",
     "hash_probe": "hash_probe_plain", "hash_expand": "hash_expand_plain",
-    "segment_sum": "segment_sum_plain", "group_sort": "group_sort_plain",
+    "segment_sum": "segment_sum_plain", "segment_agg": "segment_agg_plain",
+    "group_sort": "group_sort_plain",
     "partition_epilogue": "partition_epilogue_plain", "partition_dest": "partition_dest_plain",
 }
 
@@ -984,7 +1236,15 @@ def same_result(HK, name, args) -> bool:
         return same_group_sort(got, want)
     if name == "partition_epilogue":
         return same_epilogue(got, want)
+    if name == "segment_agg":
+        ok, worst = same_segment_agg(got, want, args)
+        AGG_FLOAT_ERR[0] = max(AGG_FLOAT_ERR[0], worst)
+        return ok and same_bits(got, getattr(HK, name)(*args))
     return torch.equal(got, want)
+
+
+# the largest difference of a segment_agg float sum from its plain version
+AGG_FLOAT_ERR = [0.0]
 
 
 class LaunchTap:
@@ -998,6 +1258,7 @@ class LaunchTap:
         "hash_probe": lambda a: a[3].shape[0],  # the larger probe side
         "hash_expand": lambda a: a[8].shape[0],
         "segment_sum": lambda a: a[0].element_size(),  # a sum over a count
+        "segment_agg": lambda a: a[0].shape[0],
         "group_sort": lambda a: a[2].shape[0],
     }
 
@@ -1050,6 +1311,9 @@ SHAPE_OF = {
     "hash_expand": lambda a: (f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]} "
                               f"columns={len(a[9])}+{len(a[10])}"),
     "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
+    "segment_agg": lambda a: (f"n={a[0].shape[0]} slots={a[2]} keys={len(a[4])} "
+                              f"requests={len(a[5])} outputs={len(a[6])} "
+                              f"destination={a[7] is not None}"),
     "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
                              f"active={int(a[2].sum())} columns={len(a[1])}"),
     "partition_dest": lambda a: f"n={a[2].shape[0]} keys={len(a[0])} parts={a[3]}",
@@ -1099,11 +1363,97 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
             plan = sort_split(HK, f"{query} inputs", args)
             if plan != [64]:
                 fail(f"group_sort [{query} inputs] sorted composites {plan}, not one of 64 bits")
-        elif name == "segment_sum":
-            print(f"  segment_sum [{query} inputs]: {ops_per_call(HK, name, args)} stream "
+        elif name in ("segment_sum", "segment_agg"):
+            print(f"  {name} [{query} inputs]: {ops_per_call(HK, name, args)} stream "
                   "operations a call", flush=True)
-            print_device_us(f"segment_sum [{query} inputs]", lambda: HK.segment_sum(*args))
+            print_device_us(f"{name} [{query} inputs]", lambda: getattr(HK, name)(*args))
         record(results, name, query, timing, recorded)
+
+
+class PhaseTap:
+    """Keeps the arguments of every call of a module's function (a fused
+    phase of ``megakernels``) for the length of a ``with`` block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def tapped(*args, **kw):
+            self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, tapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+# segment_agg's kernels, as the profiler names them
+SEGMENT_AGG_KERNELS = ("agg_count_kernel", "agg_scan_kernel", "agg_reduce_kernel",
+                       "agg_span_kernel", "agg_finish_kernel")
+
+
+def device_kernels(fn, reps: int = 5) -> dict:
+    """Device kernels and memsets of ``reps`` calls of ``fn``, by name,
+    with the profiler's count of each over the ``reps`` calls."""
+    from trino_tpu_torch.tools.kernel_device_times import traced_kernels
+
+    out = {}
+    for name, _, count in traced_kernels(fn, reps):
+        out[name] = out.get(name, 0) + count
+    return out
+
+
+def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
+    """One aggregate_phase call on the query's inputs: its device kernels
+    must be segment_agg's five passes and memsets only. segment_agg's own
+    counter must read five launches a call over the traced calls, and the
+    tracer must see each pass and nothing else but memsets over ``reps``
+    calls (it misses a launch now and then, so its count of the passes is
+    printed beside the launches, not required equal). Fails where the
+    profiler cannot trace the card or sees nothing. Printed beside the
+    kernels of the eager path on the same inputs, ``_aggregate_impl`` with
+    its integer sums in segment_sum: the path of the commit before
+    segment_agg, whose own count ``tools/kernel_device_times.py`` gives."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime import executor as E
+
+    args, kw = call
+    label = f"aggregate_phase [{query} inputs]"
+    calls = []
+
+    def run():
+        calls.append(1)
+        MK.aggregate_phase(*args, **kw)
+
+    torch.cuda.synchronize()
+    before = HK.stream_ops("segment_agg")
+    try:
+        got = device_kernels(run, reps)
+    except Exception as e:  # the gate fails whatever stopped it
+        fail(f"{label}: device kernels could not be traced ({e!r})")
+    torch.cuda.synchronize()
+    ops = (HK.stream_ops("segment_agg") - before) / len(calls)
+    if not got:
+        fail(f"{label}: the profiler saw no device activity")
+    passes = {k: got.get(k, 0) for k in SEGMENT_AGG_KERNELS}
+    other = {k: v for k, v in got.items() if k not in SEGMENT_AGG_KERNELS and "emset" not in k}
+    group_keys, aggregations, needed, out_cap, page, new_group, num_groups = args[:7]
+    eager = device_kernels(lambda: E._aggregate_impl(
+        group_keys, aggregations, needed, out_cap, page, new_group, num_groups,
+        segment_kernel=True), reps)
+    print(f"  {label}: segment_agg counted {ops} launches a call; the tracer saw "
+          f"{sum(got.values())} device kernels and memsets in {reps} calls ({got}), "
+          f"{sum(passes.values())} of the {len(SEGMENT_AGG_KERNELS) * reps} passes launched; "
+          f"the eager path on the same inputs {sum(eager.values()) / reps} a call "
+          f"({len(eager)} kinds: {eager} in {reps} calls)", flush=True)
+    if other:
+        fail(f"{label} ran device kernels besides segment_agg's: {other}")
+    if ops != len(SEGMENT_AGG_KERNELS) or not all(passes.values()):
+        fail(f"{label}: {ops} segment_agg launches a call and the passes {passes} over {reps} "
+             f"calls, not its {len(SEGMENT_AGG_KERNELS)} passes")
 
 
 def check_every_probe(HK, query: str, tap: LaunchTap) -> None:
@@ -1191,26 +1541,10 @@ def ops_per_call(HK, name, args) -> int:
 
 def device_us(fn, reps: int = 10) -> dict:
     """Microseconds of device time a call of ``fn`` spends in each kernel
-    and memset, by name (``torch.profiler`` over ``reps`` calls after one
-    warm-up; empty where the profiler sees no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
+    and memset, by name."""
+    from trino_tpu_torch.tools import kernel_device_times
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        if us:
-            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = name.split("(")[0].split("<")[0].split("::")[-1].strip() or ev.key[:40]
-            out[name] = out.get(name, 0.0) + us / reps
-    return out
+    return kernel_device_times.device_us(fn, reps)[0]
 
 
 def print_device_us(label: str, fn) -> None:
@@ -1295,8 +1629,13 @@ def check_sort_kernels(HK, dev, results: dict) -> None:
 
 
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
-    """hash_probe, hash_expand and segment_sum against their plain versions
-    on every case; the first (main-shape) case of each is timed."""
+    """hash_probe, hash_expand (also with the destination folded in, on one
+    key and on three with a dictionary key), segment_sum and segment_agg
+    against their plain versions on every case (segment_agg also against
+    its own second run); the first (main-shape) case of each is timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    dest_lut = torch.randint(-2**62, 2**62, (64,), generator=gen, device=dev)
     cases = enumerate(join_cases(HK, n_main, dev))
     for i, (label, pkeys, bkeys, luts, pa, ba, left, past_limit) in cases:
         pargs = probe_args(HK, pkeys, bkeys, luts, pa, ba, left, past_limit)
@@ -1321,9 +1660,17 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
         n_wide = 3 * len(pcols + bcols)
         if i == 1 and not same_result(HK, "hash_expand", wide):
             fail(f"hash_expand [{label}, {n_wide} columns] differs from its plain version")
+        for k in (1, 3):
+            if not same_result(HK, "hash_expand", dest_expand_args(eargs, k, dest_lut)):
+                fail(f"hash_expand [{label}, the destination on {k} keys] differs from its "
+                     "plain version")
+        if i == 1 and not same_result(HK, "hash_expand",
+                                      dest_expand_args(wide, 3, dest_lut)):
+            fail(f"hash_expand [{label}, {n_wide} columns and the destination] differs")
         print(f"  hash_probe, hash_expand [{label}]: bit-exact (C={pargs[6]}, {total} output "
               f"rows, most from one probe row {int(pr['emit'].max())}; and at out_capacity "
-              f"{short[-1]}{f'; and with {n_wide} columns' if i == 1 else ''})", flush=True)
+              f"{short[-1]}{f'; and with {n_wide} columns' if i == 1 else ''}; with the "
+              "destination on 1 and 3 keys)", flush=True)
         if i == 0:
             for name, args in (("hash_probe", pargs), ("hash_expand", eargs)):
                 results[name] = timed_entry(HK, name, args)
@@ -1332,6 +1679,7 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
             scan, slots = expand_split_ms(HK, eargs)
             print(f"  hash_expand [main shape]: scan pass {scan:.4f} ms, slot-and-gather pass "
                   f"{slots:.4f} ms", flush=True)
+            print_dest_expand(HK, "main shape", eargs, dest_lut)
         del pr, pargs, eargs, short, wide, pcols, bcols
     torch.cuda.empty_cache()
     for i, (label, v, w, starts) in enumerate(segment_cases(HK, n_main, dev)):
@@ -1343,6 +1691,35 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
             print(f"  segment_sum: {ops_per_call(HK, 'segment_sum', (v, w, starts))} stream "
                   "operations a call", flush=True)
             print_device_us("segment_sum [main shape]", lambda: HK.segment_sum(v, w, starts))
+    torch.cuda.empty_cache()
+    for i, (label, args) in enumerate(segment_agg_cases(HK, dev)):
+        if not same_result(HK, "segment_agg", args):
+            fail(f"segment_agg [{label}] differs from its plain version or its second run")
+        print(f"  segment_agg [{label}, {SHAPE_OF['segment_agg'](args)}]: bit-exact, the float "
+              f"sums within {REL_TOL} relative, and the same bits on a second run "
+              f"({int(args[1])} groups in {args[2]} slots)", flush=True)
+        if i == 0:
+            results["segment_agg"] = timed_entry(HK, "segment_agg", args)
+            print(f"  segment_agg: {ops_per_call(HK, 'segment_agg', args)} stream operations "
+                  "a call", flush=True)
+            print_device_us("segment_agg [main shape]", lambda: HK.segment_agg(*args))
+        del args
+    print(f"  segment_agg: the float sums' largest absolute difference from the plain "
+          f"version {AGG_FLOAT_ERR[0]:.3e}", flush=True)
+
+
+def print_dest_expand(HK, label: str, args, lut) -> None:
+    """hash_expand's wrapper ms on these inputs without a destination and
+    with it on 1 and on 3 keys (one a dictionary key), in turns."""
+    runs = [("without", args), ("1 key", dest_expand_args(args, 1, lut)),
+            ("3 keys", dest_expand_args(args, 3, lut))]
+    ms = {k: [] for k, _ in runs}
+    for _ in range(2):
+        for k, a in runs + runs[::-1]:
+            ms[k].append(time_ms(lambda: HK.hash_expand(*a)))
+    print(f"  hash_expand [{label}] ms without the destination and with it (in turns, "
+          f"4 means of 10 each): " + "; ".join(
+              f"{k} {[round(x, 4) for x in v]}" for k, v in ms.items()), flush=True)
 
 
 SOURCES = {
@@ -1356,6 +1733,8 @@ SOURCES = {
     "hash_expand": ("trino_tpu_torch/csrc/hash_expand.cu",
                     "trino_tpu/ops/megakernels.py:468"),
     "segment_sum": ("trino_tpu_torch/csrc/segment_agg.cu",
+                    "trino_tpu/ops/megakernels.py:573"),
+    "segment_agg": ("trino_tpu_torch/csrc/segment_agg.cu",
                     "trino_tpu/ops/megakernels.py:573"),
     "group_sort": ("trino_tpu_torch/csrc/group_sort.cu",
                    "trino_tpu/ops/megakernels.py:533"),
@@ -1663,13 +2042,19 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
     from trino_tpu_torch.connectors.tpch import generator as g
     from trino_tpu_torch.runtime import LocalQueryRunner
 
+    from trino_tpu_torch.ops import megakernels as MK
+
     runner = LocalQueryRunner.tpch(scale=SCALE, device=dev)
     rows, launches, recorded, peaks = {}, {}, set(), {}
     for q, sql in QUERIES.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res, wall, launches[q], phases, fallbacks, tap = run_default(
-            HK, runner, sql, [k for k in KERNELS_OF[q] if k != "q6_fused"])
+        names = [k for k in KERNELS_OF[q] if k != "q6_fused"]
+        every = [k for k in ("hash_expand", "segment_agg") if k in names]
+        with PhaseTap(MK, "aggregate_phase") as agg_calls:
+            res, wall, launches[q], phases, fallbacks, tap = run_default(
+                HK, runner, sql, names, keep_all=every)
+            stages = dict(MK.STAGES)
         peaks[q] = torch.cuda.max_memory_allocated()
         rows[q] = res.rows
         INCORE_WALLS[q] = wall
@@ -1687,6 +2072,15 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
         check_query_inputs(HK, q, tap, kernels, recorded)
         if q in ("q03", "q10"):
             check_every_probe(HK, q, tap)
+            if stages.get("aggregate_torch", 0):
+                fail(f"{q}: {stages['aggregate_torch']} aggregates ran outside segment_agg")
+            print(f"  {q}: every launch of {' and '.join(every)} bit-exact against its plain "
+                  f"version ({check_every_launch(HK, q, tap)}); no aggregate outside "
+                  "segment_agg", flush=True)
+            check_aggregate_phase_kernels(HK, q, agg_calls[0])
+        if q == "q03":
+            print_dest_expand(HK, "q03 inputs", tap.inputs["hash_expand"],
+                              torch.arange(64, dtype=torch.int64, device=dev) * 7919)
         if q == "q10":
             check_epilogue_on_q10(HK, runner.catalogs.get("tpch"), tap, kernels, recorded)
         del tap, res
@@ -1733,7 +2127,7 @@ NEW_PHASES_OF = {"q14": {"probe": 1, "expand": 1, "aggregate": 0, "group_sort": 
 JOIN_KERNELS = ("hash_probe", "hash_expand")
 # every wrapper a query's path can launch
 PATH_KERNELS = ("grouped_sum_i64", "grouped_sum_i32", "hash_probe", "hash_expand",
-                "segment_sum", "group_sort")
+                "segment_sum", "segment_agg", "group_sort")
 def q14_q18_oracle(g, conn, q18_qty: int) -> dict:
     """Q14's promotion revenue share and Q18's large-volume customers from
     the port's generator in numpy (int64 sums, Python ints where a product
@@ -3174,6 +3568,7 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
             device=dev)
         remote.register_catalog("memory", conn)
         total = {k: 0 for k in EXCHANGE_KERNELS}
+        folded = 0
         for q in REMOTE_QUERIES:
             label = f"8h(b) {q} over {HTTP_WORKERS} HTTP workers"
             for w in workers:
@@ -3183,10 +3578,14 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
             torch.cuda.reset_peak_memory_stats()
             with FrameTap(R) as frames:
                 res, wall, runs, phases, fallbacks, tap = run_default(
-                    HK, remote, texts[q], names, keep_all=EXCHANGE_KERNELS)
+                    HK, remote, texts[q], names,
+                    keep_all=EXCHANGE_KERNELS + ("hash_expand", "segment_agg"))
             launches[f"{q} http"] = runs
             split = wire_split(workers)
             stages = dict(MK.STAGES)
+            folded += stages.get("dest_expand", 0) + stages.get("dest_aggregate", 0)
+            if stages.get("aggregate_torch", 0):
+                fail(f"{label}: {stages['aggregate_torch']} aggregates ran outside segment_agg")
             print(f"  {label}: {wall:.3f} s wall (8b {mem_walls[q]:.3f} s), {len(res.rows)} "
                   f"rows, partition counts {remote.last_partition_counts}, launches "
                   f"{launched(runs)}, fused phases {launched(phases)}, destination stages "
@@ -3214,14 +3613,14 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
                      "branch")
             n_checked = check_every_call(HK, label, tap)
             print(f"  {label}: rows identical to 8b's; every launch of "
-                  f"{' and '.join(EXCHANGE_KERNELS)} bit-exact ({n_checked})", flush=True)
+                  f"{', '.join(tap.every)} bit-exact ({n_checked}); no aggregate outside "
+                  "segment_agg", flush=True)
             for k in EXCHANGE_KERNELS:
                 total[k] += runs[k]
-                for args in tap.every[k]:
-                    n = args[2 if k == "partition_dest" else 3].shape[0]
-                    given = k == "partition_epilogue" and given_dest(args)
-                    if k not in largest or (given, n) >= largest[k][0]:
-                        largest[k] = ((given, n), args)
+            for args in tap.every["partition_epilogue"]:
+                key = (given_dest(args), args[3].shape[0])
+                if "partition_epilogue" not in largest or key >= largest["partition_epilogue"][0]:
+                    largest["partition_epilogue"] = (key, args)
             if frames.smallest is not None:
                 cap, page, key_idx, n_parts, blobs = frames.smallest
                 cpu = Page(tuple(Column(c.type, c.data.cpu(), c.valid.cpu(), c.dictionary)
@@ -3234,25 +3633,36 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
                       f"destination ({cap} slots, {sum(map(len, blobs))} bytes) are "
                       "byte-identical to the host formulation's", flush=True)
             del tap, res, frames
-        if not all(total.values()):
-            fail(f"8h(b): the exchanges launched {total}: each of {EXCHANGE_KERNELS} must run")
+        # every destination is folded into the kernel that wrote the page:
+        # Q3's after its join and after its partial aggregation, Q18's after
+        # its join, 4 partitions each
+        if total["partition_dest"] or not total["partition_epilogue"] or folded != 12:
+            fail(f"8h(b): the exchanges launched {total} with {folded} folded destination "
+                 "stages: partition_dest must not run, partition_epilogue must, and the "
+                 "folded stages must number 12")
+        print(f"  8h(b): {folded} destination stages folded into hash_expand and "
+              f"segment_agg, partition_dest launched {total['partition_dest']} times",
+              flush=True)
     finally:
         for w in workers:
             w.stop()
-    # both kernels on the largest exchange's page, the epilogue with and
-    # without the given destination
-    d_args = largest["partition_dest"][1]
+    # the epilogue on the largest exchange's page, with and without the
+    # folded destination; partition_dest on the same keys (no run launched
+    # it) for its timing
+    e_args = largest["partition_epilogue"][1]
+    for label, args in (("given the destination", e_args), ("hashing", e_args[:5])):
+        print_timing(f"partition_epilogue [8h largest exchange, {label}, "
+                     f"{SHAPE_OF['partition_epilogue'](args)}]",
+                     time_wrapper(HK, "partition_epilogue", args))
+    d_args = (e_args[0], e_args[1], e_args[3], e_args[4])
+    if not same_result(HK, "partition_dest", d_args):
+        fail("partition_dest [8h largest exchange] differs from its plain version")
     timing = time_wrapper(HK, "partition_dest", d_args)
     print_timing(f"partition_dest [8h largest exchange {SHAPE_OF['partition_dest'](d_args)}]",
                  timing)
     ms, plain, lib, b, by = timing
     kernels["partition_dest"].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                                      bound_by=by)
-    e_args = largest["partition_epilogue"][1]
-    for label, args in (("given the destination", e_args), ("hashing", e_args[:5])):
-        print_timing(f"partition_epilogue [8h largest exchange, {label}, "
-                     f"{SHAPE_OF['partition_epilogue'](args)}]",
-                     time_wrapper(HK, "partition_epilogue", args))
     del largest, d_args, e_args
     torch.cuda.empty_cache()
     return launches
@@ -3534,6 +3944,7 @@ def main() -> None:
     phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():
         k["launches"] = sum(runs[name] for runs in launches.values())
+    kernels["segment_agg"]["max_abs_err"] = AGG_FLOAT_ERR[0]
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f", total {time.perf_counter() - start:.1f}", flush=True)
 

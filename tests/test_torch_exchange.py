@@ -85,15 +85,47 @@ def test_expand_phase_destination_matches_reference(keys, n_parts):
     epi_spec = (EPI_KEYS[keys], n_parts)
     want, want_dest = RMK.expand_phase(want_pr, rk, rb, (None,), rprobe, rbuild, cap, symbols,
                                        None, None, epi_spec, True)
-    before = HK.LAUNCHES["partition_dest"], PMK.STAGES["dest"]
+    before = (HK.LAUNCHES["hash_expand"], HK.LAUNCHES["partition_dest"], PMK.STAGES["dest"],
+              PMK.STAGES["dest_expand"])
     got, got_dest = PMK.expand_phase(got_pr, pkeys, bkeys, (None,), pprobe, pbuild, cap,
                                      symbols, None, None, epi_spec)
-    # a CPU page runs the plain version: no kernel launch is counted
-    assert (HK.LAUNCHES["partition_dest"], PMK.STAGES["dest"]) == (before[0], before[1] + 1)
+    # the destination is folded into hash_expand's slot pass; a CPU page
+    # runs the plain version, so no kernel launch is counted
+    assert (HK.LAUNCHES["hash_expand"], HK.LAUNCHES["partition_dest"], PMK.STAGES["dest"],
+            PMK.STAGES["dest_expand"]) == before[:3] + (before[3] + 1,)
     np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))
     assert got_dest.dtype == torch.int32
     np.testing.assert_array_equal(got_dest.numpy(), np.asarray(want_dest))
     assert set(np.unique(got_dest.numpy())) <= set(range(n_parts + 1))
+
+
+@pytest.mark.parametrize("n_parts", [3, 8])
+@pytest.mark.parametrize("keys", sorted(EPI_KEYS))
+def test_left_outer_expand_phase_destination_matches_reference(keys, n_parts):
+    """A LEFT join's destination: unmatched probe rows carry NULL build
+    columns (and the build side has NULL keys of its own), which the folded
+    stage hashes as NULL, as the reference does."""
+    rprobe, rbuild, pprobe, pbuild = _join_case(seed=60 + n_parts, key_range=300)
+    rk = ((rprobe.columns[0].data, rprobe.columns[0].valid),)
+    rb = ((rbuild.columns[0].data, rbuild.columns[0].valid),)
+    pkeys = ((pprobe.columns[0].data, pprobe.columns[0].valid),)
+    bkeys = ((pbuild.columns[0].data, pbuild.columns[0].valid),)
+    want_pr = RMK.probe_phase(rk, rb, (None,), rprobe.active, rbuild.active, True, True)
+    got_pr = PMK.probe_phase(pkeys, bkeys, (None,), pprobe.active, pbuild.active, True)
+    cap = max(int(np.asarray(want_pr["emit"]).sum()), 1) + 5
+    symbols = ("pk", "mode", "price", "bk", "pay")
+    epi_spec = (EPI_KEYS[keys], n_parts)
+    want, want_dest = RMK.expand_phase(want_pr, rk, rb, (None,), rprobe, rbuild, cap, symbols,
+                                       None, None, epi_spec, True)
+    before = PMK.STAGES["dest_expand"], PMK.STAGES["dest"]
+    got, got_dest = PMK.expand_phase(got_pr, pkeys, bkeys, (None,), pprobe, pbuild, cap,
+                                     symbols, None, None, epi_spec)
+    assert (PMK.STAGES["dest_expand"], PMK.STAGES["dest"]) == (before[0] + 1, before[1])
+    act = np.asarray(want.active)
+    np.testing.assert_array_equal(got.active.numpy(), act)
+    # unmatched probe rows: the build key is NULL on some active slots
+    assert (act & ~got.columns[3].valid.numpy()).any()
+    np.testing.assert_array_equal(got_dest.numpy(), np.asarray(want_dest))
 
 
 def _sorted_agg_pages(seed, n=3000):

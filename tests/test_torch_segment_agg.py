@@ -1,0 +1,584 @@
+"""The port's sort-path aggregation (``megakernels.aggregate_phase`` through
+``hopper_kernels.segment_agg``, whose wrapper runs its plain version on CPU
+tensors) against the reference's ``aggregate_phase`` in Pallas interpret
+mode, as ``tests/test_torch_megakernels.py`` runs it; a numpy model of the
+kernel's tile plan against ``segment_agg_plain``; the wrappers' input
+checks; and TPC-H Q3, Q10 and Q18 at SF0.01 with no aggregate left to the
+torch operators.
+
+The same seeded numpy inputs go through both packages. Rows compare
+exactly, DOUBLE at 1e-9 relative (the kernel adds a group's doubles in
+another order than the reference's cumsum), destinations bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from trino_tpu.ops import megakernels as RMK
+from trino_tpu.planner import plan as rplan
+from trino_tpu.runtime import executor as rex
+from trino_tpu.spi import types as rt
+from trino_tpu.spi.page import Column as RColumn
+from trino_tpu.spi.page import Dictionary as RDict
+from trino_tpu.spi.page import Page as RPage
+
+from trino_tpu_torch.ops import hopper_kernels as HK
+from trino_tpu_torch.ops import megakernels as PMK
+from trino_tpu_torch.planner import plan as pplan
+from trino_tpu_torch.runtime import executor as pex
+from trino_tpu_torch.spi import types as pt
+from trino_tpu_torch.spi.page import Column as PColumn
+from trino_tpu_torch.spi.page import Dictionary as PDict
+from trino_tpu_torch.spi.page import Page as PPage
+
+_VOCAB = np.asarray(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"], dtype=object)
+REL_TOL = 1e-9
+
+def _columns(rng, n):
+    """Value columns by symbol: (type name, data, valid). ``l0``-``l3`` are
+    a long decimal's limbs as the planner splits it ($dec_limb), sharing
+    one validity; ``f`` is a boolean FILTER column."""
+    limb_valid = rng.random(n) < 0.85
+    return {
+        "b": ("bigint", rng.integers(-(2**62), 2**62, n), rng.random(n) < 0.8),
+        "i": ("integer", rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32),
+              rng.random(n) < 0.8),
+        "d": ("double", rng.normal(0.0, 1e4, n), rng.random(n) < 0.8),
+        "m": ("decimal(12,2)", rng.integers(-(10**10), 10**10, n), rng.random(n) < 0.8),
+        "dt": ("date", rng.integers(8000, 11000, n).astype(np.int32), rng.random(n) < 0.8),
+        "bo": ("boolean", rng.random(n) < 0.5, rng.random(n) < 0.8),
+        "s": ("varchar", rng.integers(0, len(_VOCAB), n).astype(np.int32),
+              rng.random(n) < 0.8),
+        "l0": ("bigint", rng.integers(0, 2**32, n), limb_valid),
+        "l1": ("bigint", rng.integers(0, 2**32, n), limb_valid),
+        "l2": ("bigint", rng.integers(0, 2**32, n), limb_valid),
+        "l3": ("bigint", rng.integers(-(2**31), 2**31, n), limb_valid),
+        "f": ("boolean", rng.random(n) < 0.6, rng.random(n) < 0.9),
+    }
+
+
+def _pages(key_shape, seed, n=3000):
+    """Both packages' pages: group keys (``KEY_SHAPES``) then every value
+    column. ``presorted`` has one BIGINT key in order (NULLs last), its
+    first rows and one row in seven inactive; the others have 2 or 3 keys
+    in no order (a dictionary VARCHAR, a BIGINT with NULLs, an INTEGER) for
+    the group sort. Rows of the groups whose first key is a multiple of 11
+    have NULL values, so those groups have no weighted row."""
+    rng = np.random.default_rng(seed)
+    active = rng.random(n) < 0.85
+    keys = {}
+    if key_shape == "presorted":
+        k = np.sort(rng.integers(0, 500, n))
+        kv = np.arange(n) < n - 40  # NULLs sort last
+        active[:25] = False  # rows before the first group
+        active[::7] = False
+        keys["k1"] = ("bigint", k, kv)
+    else:
+        keys["k1"] = ("bigint", rng.integers(0, 60, n), rng.random(n) < 0.9)
+        keys["k2"] = ("varchar", rng.integers(0, len(_VOCAB), n).astype(np.int32),
+                      rng.random(n) < 0.9)
+        if key_shape == "three_keys":
+            keys["k3"] = ("integer", rng.integers(0, 3, n).astype(np.int32),
+                          rng.random(n) < 0.9)
+    cols = _columns(rng, n)
+    empty = keys["k1"][1] % 11 == 0
+    for sym in ("b", "i", "d", "m", "dt", "bo", "s"):
+        t, d, v = cols[sym]
+        cols[sym] = (t, d, v & ~empty)
+    every = {**keys, **cols}
+    rdict, pdict = RDict(_VOCAB), PDict(_VOCAB)
+    rcols, pcols = [], []
+    for sym, (tname, data, valid) in every.items():
+        dict_r = rdict if tname == "varchar" else None
+        dict_p = pdict if tname == "varchar" else None
+        rcols.append(RColumn(rt.parse_type(tname), jnp.asarray(data), jnp.asarray(valid), dict_r))
+        pcols.append(PColumn(pt.parse_type(tname), torch.from_numpy(np.ascontiguousarray(data)),
+                             torch.from_numpy(valid), dict_p))
+    symbols = tuple(every)
+    return (tuple(keys), symbols, RPage(tuple(rcols), jnp.asarray(active)),
+            PPage(tuple(pcols), torch.from_numpy(active)))
+
+
+# aggregate families: (symbol, function, args, output type, filter)
+AGG_CASES = {
+    "sum_avg_bigint": [("sb", "sum", ("b",), "bigint", None),
+                       ("ab", "avg", ("b",), "double", None)],
+    "sum_avg_integer": [("si", "sum", ("i",), "bigint", None),
+                        ("ai", "avg", ("i",), "double", None)],
+    "sum_avg_double": [("sd", "sum", ("d",), "double", None),
+                       ("ad", "avg", ("d",), "double", None)],
+    "sum_avg_decimal_12_2": [("sm", "sum", ("m",), "decimal(18,2)", None),
+                             ("am", "avg", ("m",), "decimal(12,2)", None)],
+    # DECIMAL(38,2) sum and avg as the planner decomposes them: four limb
+    # sums, and the count of the first limb for the avg
+    "sum_avg_decimal_38_2": [(f"ls{k}", "sum", (f"l{k}",), "bigint", None) for k in range(4)]
+    + [("lc", "count", ("l0",), "bigint", None)],
+    "counts": [("c", "count", ("b",), "bigint", None), ("cs", "count", (), "bigint", None),
+               ("ci", "count_if", ("bo",), "bigint", None)],
+    "min_max_bigint": [("mnb", "min", ("b",), "bigint", None),
+                       ("mxb", "max", ("b",), "bigint", None)],
+    "min_max_double": [("mnd", "min", ("d",), "double", None),
+                       ("mxd", "max", ("d",), "double", None)],
+    "min_max_date": [("mndt", "min", ("dt",), "date", None),
+                     ("mxdt", "max", ("dt",), "date", None)],
+    "min_max_boolean": [("mnbo", "min", ("bo",), "boolean", None),
+                        ("mxbo", "max", ("bo",), "boolean", None)],
+    "min_max_varchar": [("mns", "min", ("s",), "varchar", None),
+                        ("mxs", "max", ("s",), "varchar", None)],
+    "arbitrary": [("arb", "arbitrary", ("b",), "bigint", None),
+                  ("ars", "arbitrary", ("s",), "varchar", None)],
+    "bool_and_or": [("ba", "bool_and", ("bo",), "boolean", None),
+                    ("bor", "bool_or", ("bo",), "boolean", None)],
+    "filter": [("fs", "sum", ("b",), "bigint", "f"), ("fc", "count", (), "bigint", "f"),
+               ("fm", "min", ("d",), "double", "f"), ("fa", "avg", ("m",), "decimal(12,2)", "f")],
+}
+# key shapes and the exchange keys (group key positions) of their epi_spec
+KEY_SHAPES = {"presorted": (0,), "two_keys": (1, 0), "three_keys": (0, 1, 2)}
+
+
+def _aggs(plan, types, case):
+    return tuple(
+        (sym, plan.Aggregation(fn, args, filter=filt, output_type=types.parse_type(out)))
+        for sym, fn, args, out, filt in AGG_CASES[case])
+
+
+def _grouped(key_shape, keys, symbols, rpage, ppage):
+    """Both packages' (sorted page, new_group, num_groups): the presorted
+    grouping for ``presorted``, else the group sort."""
+    if key_shape == "presorted":
+        rp, rng_, rn, rviol = rex._presorted_group_impl(keys, symbols, symbols, rpage)
+        pp, png, pn, pviol = pex._presorted_group_impl(keys, symbols, symbols, ppage)
+        assert not bool(rviol) and not bool(pviol)
+    else:
+        rp, rng_, rn = rex._group_sort_impl(keys, symbols, symbols, rpage)
+        pp, png, pn = pex._group_sort_impl(keys, symbols, symbols, ppage)
+    np.testing.assert_array_equal(png.numpy(), np.asarray(rng_))
+    return (rp, rng_, rn), (pp, png, pn)
+
+
+def _same_column(got, want, act, is_double):
+    gv, wv = got.valid.numpy()[act], np.asarray(want.valid)[act]
+    np.testing.assert_array_equal(gv, wv)
+    gd, wd = got.data.numpy()[act][gv], np.asarray(want.data)[act][wv]
+    if is_double:
+        np.testing.assert_allclose(gd, wd, rtol=REL_TOL, atol=0)
+    else:
+        np.testing.assert_array_equal(gd, wd)
+
+
+@pytest.mark.parametrize("epi", [False, True])
+@pytest.mark.parametrize("key_shape", sorted(KEY_SHAPES))
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_aggregate_phase_matches_reference(case, key_shape, epi):
+    keys, symbols, rpage, ppage = _pages(key_shape, seed=len(case) * 7 + len(key_shape))
+    (rp, rng_, rn), (pp, png, pn) = _grouped(key_shape, keys, symbols, rpage, ppage)
+    out_cap = pex._round_capacity(int(pn), base=16)
+    epi_spec = (KEY_SHAPES[key_shape], 5) if epi else None
+    want, want_dest = RMK.aggregate_phase(keys, _aggs(rplan, rt, case), symbols, out_cap, rp,
+                                          rng_, rn, epi_spec, True)
+    PMK.reset_counts()
+    got = PMK.aggregate_phase(keys, _aggs(pplan, pt, case), symbols, out_cap, pp, png, pn,
+                              epi_spec)
+    if epi:
+        got, got_dest = got
+        assert got_dest.dtype == torch.int32
+        np.testing.assert_array_equal(got_dest.numpy(), np.asarray(want_dest))
+        assert PMK.STAGES["dest_aggregate"] == 1 and PMK.STAGES["dest"] == 0
+    assert PMK.STAGES["aggregate_torch"] == 0
+    act = np.asarray(want.active)
+    np.testing.assert_array_equal(got.active.numpy(), act)
+    types = [c.type for c in got.columns]
+    for gc, wc, t in zip(got.columns, want.columns, types):
+        _same_column(gc, wc, act, t == pt.DOUBLE)
+    # groups with no weighted row are NULL, where the case has a nullable sum
+    if case == "sum_avg_bigint":
+        assert not got.columns[len(keys)].valid.numpy()[act].all()
+
+
+def test_aggregate_phase_runs_the_long_tail_in_torch():
+    """An aggregate outside the kernel's set (here stddev and a bitwise
+    reduction) keeps the executor's torch operators beside the kernel's,
+    one STAGES tick each, and the rows still equal the reference's."""
+    keys, symbols, rpage, ppage = _pages("two_keys", seed=3)
+    (rp, rng_, rn), (pp, png, pn) = _grouped("two_keys", keys, symbols, rpage, ppage)
+    out_cap = pex._round_capacity(int(pn), base=16)
+
+    def aggs(plan, types):
+        return (("sb", plan.Aggregation("sum", ("b",), output_type=types.parse_type("bigint"))),
+                ("sd", plan.Aggregation("stddev", ("d",), output_type=types.parse_type("double"))),
+                ("x", plan.Aggregation("bitwise_xor_agg", ("b",),
+                                       output_type=types.parse_type("bigint"))))
+
+    want, _ = RMK.aggregate_phase(keys, aggs(rplan, rt), symbols, out_cap, rp, rng_, rn, None,
+                                  True)
+    PMK.reset_counts()
+    got = PMK.aggregate_phase(keys, aggs(pplan, pt), symbols, out_cap, pp, png, pn)
+    assert PMK.STAGES["aggregate_torch"] == 2
+    act = np.asarray(want.active)
+    for gc, wc in zip(got.columns, want.columns):
+        _same_column(gc, wc, act, gc.type == pt.DOUBLE)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's tile plan in numpy
+# --------------------------------------------------------------------------- #
+
+_T = HK.SEGMENT_TILE_ROWS
+_ITEMS = 8
+_COMBINE = {
+    "sum": lambda a, b: (a + b + 2**63) % 2**64 - 2**63,
+    "count": lambda a, b: a + b,
+    "fsum": lambda a, b: a + b,
+    "min": min, "max": max, "last": max,
+}
+
+
+def _emulate_segment_agg(new_group, out_cap, contribs):
+    """``segment_agg.cu``'s passes in numpy, thread by thread: the tiles'
+    head counts and bases (count, scan); per tile (reduce) the starts of
+    its heads, and per request each thread's runs, the groups complete
+    inside a thread or ending at a thread's first head stored into their
+    slot, the rows before the tile's first head into its head partial and
+    the rows from its last head into its tail partial; then (finish) one
+    slot at a time, a tile-spanning group's tail partial combined with the
+    head partials of the tiles it runs into, in tile order (after the span
+    scan). ``contribs``:
+    per request (kind, identity, each row's contribution). Checks that no
+    slot is stored twice and that the finish reads only what was written.
+    The head partials are first scanned over the tiles (span), restarting
+    after each tile with a head, so the finish reads two partials a
+    tile-spanning group.
+    Returns (starts, values per request)."""
+    n = new_group.shape[0]
+    n_tiles = -(-n // _T)
+    heads = [int(new_group[t * _T:(t + 1) * _T].sum()) for t in range(n_tiles)]
+    base = np.concatenate([[0], np.cumsum(heads)]).astype(np.int64)
+    total = int(base[-1])
+    starts = [None] * (out_cap + 1)
+    res = [[None] * out_cap for _ in contribs]
+    head = [[None] * n_tiles for _ in contribs]
+    tail = [[None] * n_tiles for _ in contribs]
+    for t in range(n_tiles):
+        t0, b = t * _T, int(base[t])
+        rows = [t0 + j for j in range(_T)]
+        h = [r < n and bool(new_group[r]) for r in rows]
+        per_thread = [sum(h[k * _ITEMS:(k + 1) * _ITEMS]) for k in range(_T // _ITEMS)]
+        excl = np.concatenate([[0], np.cumsum(per_thread)[:-1]])
+        for k in range(_T // _ITEMS):
+            g = b + int(excl[k]) - 1
+            for j in range(_ITEMS):
+                if h[k * _ITEMS + j]:
+                    g += 1
+                    if g <= out_cap:
+                        starts[g] = t0 + k * _ITEMS + j
+        for q, (kind, ident, c) in enumerate(contribs):
+            op = _COMBINE[kind]
+            carry = ident  # the segmented scan's value carried into thread k
+            for k in range(_T // _ITEMS):
+                g0 = b + int(excl[k]) - 1
+                g, run, before, seen = g0, ident, ident, False
+                for j in range(_ITEMS):
+                    r = t0 + k * _ITEMS + j
+                    if h[k * _ITEMS + j]:
+                        if not seen:
+                            before, seen = run, True
+                        elif g < out_cap:
+                            assert res[q][g] is None
+                            res[q][g] = run
+                        g += 1
+                        run = ident
+                    run = op(run, c[r] if r < n else ident)
+                if seen:
+                    done = op(carry, before)
+                    if g0 >= b:
+                        if g0 < out_cap:
+                            assert res[q][g0] is None
+                            res[q][g0] = done
+                    else:
+                        head[q][t] = done
+                inc = run if seen else op(carry, run)
+                carry = inc
+            if sum(per_thread) > 0:
+                tail[q][t] = carry
+            else:
+                head[q][t] = carry
+    # span: each request's head partials scanned over the tiles, restarting
+    # after each tile with a head
+    for q, (kind, ident, _) in enumerate(contribs):
+        run = ident
+        for t in range(n_tiles):
+            assert head[q][t] is not None
+            run = head[q][t] if t > 0 and heads[t - 1] else _COMBINE[kind](run, head[q][t])
+            head[q][t] = run
+    values = [[None] * out_cap for _ in contribs]
+    for g in range(out_cap):
+        real = g < total
+        s = starts[g] if real else n
+        e = starts[g + 1] if g + 1 < total else n
+        if not real:
+            starts[g] = n
+        ts, te = s // _T, (e - 1) // _T
+        inside = g + 1 < total and e < (ts + 1) * _T
+        for q, (kind, ident, _) in enumerate(contribs):
+            if not real:
+                values[q][g] = ident
+            elif inside:
+                values[q][g] = res[q][g]
+            else:
+                x = tail[q][ts]
+                values[q][g] = _COMBINE[kind](x, head[q][te]) if te > ts else x
+            assert values[q][g] is not None, (q, g)
+    return np.array(starts[:out_cap], dtype=np.int64), values
+
+
+def _plan_case(n, firsts, pad, seed):
+    rng = np.random.default_rng(seed)
+    new_group = np.zeros(n, bool)
+    new_group[sorted(set(firsts))] = True
+    out_cap = int(new_group.sum()) + pad
+    active = rng.random(n) < 0.9
+    active[:min(firsts)] = False  # rows before the first group are inactive
+    return new_group, out_cap, active, rng
+
+
+PLAN_CASES = {
+    # short groups, one over four tiles from inside a tile, then short ones
+    "group_across_tiles": (6 * _T + 5, [0, 3, 90, _T - 1, _T + 7, 5 * _T + 2, 5 * _T + 3], 5),
+    "starts_on_tile_boundaries": (5 * _T, list(range(0, 5 * _T, _T)), 3),
+    "groups_of_one_row": (2 * _T + 9, list(range(2 * _T + 9)), 2),
+    "rows_before_the_first_group": (3 * _T, [_T + 40, 2 * _T], 4),
+    "one_group": (3 * _T + 1, [0], 0),
+    "padding_only_past_a_short_page": (17, [0, 4, 16], 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_segment_agg_tile_plan_matches_segment_agg_plain(case):
+    """The kernel's tiles, emulated in numpy, against ``segment_agg_plain``
+    on every request kind: integer sums and counts exact, float sums
+    (combined in tile order) at 1e-9 relative, min, max and the last row
+    exact, over tile-spanning, tile-aligned, one-row and padding cases."""
+    n, firsts, pad = PLAN_CASES[case]
+    new_group, out_cap, active, rng = _plan_case(n, firsts, pad, seed=len(case))
+    vals = rng.integers(-(2**62), 2**62, n)
+    dbl = rng.normal(0.0, 1e3, n)
+    valid = rng.random(n) < 0.8
+    t = torch.from_numpy
+    requests = [HK.AggRequest("count", valid=t(valid)), HK.AggRequest("sum", t(vals), t(valid)),
+                HK.AggRequest("fsum", t(dbl), t(valid)), HK.AggRequest("min", t(vals), t(valid)),
+                HK.AggRequest("max", t(dbl), t(valid)), HK.AggRequest("last", t(vals), t(valid))]
+    w = active & valid
+    inf = float("inf")
+    contribs = [("count", 0, w.astype(np.int64).tolist()),
+                ("sum", 0, np.where(w, vals, 0).tolist()),
+                ("fsum", 0.0, np.where(w, dbl, 0.0).tolist()),
+                ("min", 2**63 - 1, np.where(w, vals, 2**63 - 1).tolist()),
+                ("max", -inf, np.where(w, dbl, -inf).tolist()),
+                ("last", -1, np.where(w, np.arange(n), -1).tolist())]
+    starts, values = _emulate_segment_agg(new_group, out_cap, contribs)
+    outputs = [HK.AggOutput("value", k, -1, dt)
+               for k, dt in enumerate((torch.int64, torch.int64, torch.float64, torch.int64,
+                                       torch.float64))]
+    outputs.append(HK.AggOutput("first", 5, 0, torch.int64, values=t(vals)))
+    num_groups = torch.tensor(int(new_group.sum()))
+    got_starts, exists, _, outs, _ = HK.segment_agg_plain(
+        t(new_group), num_groups, out_cap, t(active), [], requests, outputs)
+    np.testing.assert_array_equal(starts, got_starts.numpy())
+    ex = exists.numpy()
+    for k, (data, _) in enumerate(outs):
+        want = np.array(values[k]) if k < 5 else vals[np.clip(np.array(values[k]), 0, n - 1)]
+        if k == 2:
+            np.testing.assert_allclose(want[ex], data.numpy()[ex], rtol=REL_TOL, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(want[ex], data.numpy()[ex])
+    if case == "group_across_tiles":
+        assert ex.sum() == len(set(firsts))
+
+
+# --------------------------------------------------------------------------- #
+# the wrappers' checks
+# --------------------------------------------------------------------------- #
+
+
+def _agg_args(n=64):
+    ng = torch.zeros(n, dtype=torch.bool)
+    ng[::4] = True
+    act = torch.ones(n, dtype=torch.bool)
+    vals = torch.arange(n, dtype=torch.int64)
+    return ng, torch.tensor(n // 4), n // 4, act, [(vals, act)], vals
+
+
+def test_segment_agg_wrapper_raises_on_what_the_kernel_does_not_take():
+    ng, num, cap, act, keys, vals = _agg_args()
+    req = HK.AggRequest("sum", vals, act)
+    out = HK.AggOutput("value", 0, -1, torch.int64)
+    ok = HK.segment_agg(ng, num, cap, act, keys, [req], [out])
+    assert ok[1].sum() == cap
+    with pytest.raises(ValueError, match="at most"):
+        HK.segment_agg(ng, num, cap, act, keys, [req] * (HK.SEGMENT_AGG_MAX_REQUESTS + 1), [out])
+    with pytest.raises(TypeError, match="num_groups"):
+        HK.segment_agg(ng, cap, cap, act, keys, [req], [out])
+    with pytest.raises(TypeError):
+        HK.segment_agg(ng.to(torch.int8), num, cap, act, keys, [req], [out])
+    with pytest.raises(TypeError, match="not supported"):
+        HK.segment_agg(ng, num, cap, act, keys,
+                       [HK.AggRequest("sum", torch.zeros(64, 2, dtype=torch.int64), act)], [out])
+    with pytest.raises(TypeError, match="fsum"):
+        HK.segment_agg(ng, num, cap, act, keys, [HK.AggRequest("sum", vals.double(), act)],
+                       [out])
+    with pytest.raises(ValueError, match="unknown request"):
+        HK.segment_agg(ng, num, cap, act, keys, [HK.AggRequest("median", vals, act)], [out])
+    with pytest.raises(TypeError, match="float result"):
+        HK.segment_agg(ng, num, cap, act, keys, [HK.AggRequest("fsum", vals, act)], [out])
+    with pytest.raises(ValueError, match="first"):
+        HK.segment_agg(ng, num, cap, act, keys, [req],
+                       [HK.AggOutput("first", 0, -1, torch.int64, values=vals)])
+    with pytest.raises(ValueError, match="destination"):
+        HK.segment_agg(ng, num, cap, act, keys, [req], [out], ((1,), [None], 4))
+    with pytest.raises(ValueError, match="n_parts"):
+        HK.segment_agg(ng, num, cap, act, keys, [req], [out],
+                       ((0,), [None], HK.EPILOGUE_MAX_PARTS + 1))
+    with pytest.raises(ValueError, match="one output slot"):
+        HK.segment_agg(ng, num, 0, act, keys, [req], [out])
+
+
+def test_hash_expand_destination_raises_on_what_the_kernel_does_not_take():
+    from tests.test_torch_megakernels import _case, _port
+
+    pk, bk, luts, pa, ba = _port(*_case(seed=5, n=200, m=90))
+    pr = PMK.probe_phase(pk, bk, luts, pa, ba, False)
+    cap = max(int(pr["emit"].sum()), 1)
+    args = (pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"], pk, bk, luts,
+            pa, list(pk), list(bk), cap)
+    out = HK.hash_expand(*args, ((0, 1), [None, None], 4))
+    want = HK.partition_dest_plain([out[0][0], out[1][0]], [None, None], out[2], 4)
+    assert torch.equal(out[3], want)
+    with pytest.raises(ValueError, match="not a column"):
+        HK.hash_expand(*args, ((2,), [None], 4))
+    with pytest.raises(ValueError, match="n_parts"):
+        HK.hash_expand(*args, ((0,), [None], 0))
+    with pytest.raises(ValueError, match="LUT slot"):
+        HK.hash_expand(*args, ((0,), [], 4))
+    with pytest.raises(TypeError):
+        HK.hash_expand(*args, ((0,), [torch.zeros(3, dtype=torch.int32)], 4))
+    wide = list(args)
+    wide[9] = [(torch.zeros(pa.shape[0], 2, dtype=torch.int64), pa)]
+    with pytest.raises(TypeError, match="destination key"):
+        HK.hash_expand(*wide, ((0,), [None], 4))
+
+
+def _nine_key_pages(seed, n=3000):
+    """Both packages' pages for a presorted grouping on nine keys: ``k1``
+    as in ``_pages``'s ``presorted`` shape, and eight more keys of six types
+    computed from it (NULL where it is), so that no key changes inside a
+    ``k1`` run; then the value columns."""
+    rng = np.random.default_rng(seed)
+    active = rng.random(n) < 0.85
+    k = np.sort(rng.integers(0, 500, n))
+    kv = np.arange(n) < n - 40
+    active[:25] = False
+    active[::7] = False
+    keys = {
+        "k1": ("bigint", k, kv),
+        "k2": ("integer", (k * 3).astype(np.int32), kv),
+        "k3": ("varchar", (k % len(_VOCAB)).astype(np.int32), kv),
+        "k4": ("bigint", k // 2, kv),
+        "k5": ("date", (8000 + k).astype(np.int32), kv),
+        "k6": ("boolean", k % 2 == 0, kv),
+        "k7": ("double", k * 0.5, kv),
+        "k8": ("bigint", -k, kv),
+        "k9": ("integer", (k % 13).astype(np.int32), kv),
+    }
+    every = {**keys, **_columns(rng, n)}
+    rdict, pdict = RDict(_VOCAB), PDict(_VOCAB)
+    rcols, pcols = [], []
+    for tname, data, valid in every.values():
+        dict_r = rdict if tname == "varchar" else None
+        dict_p = pdict if tname == "varchar" else None
+        rcols.append(RColumn(rt.parse_type(tname), jnp.asarray(data), jnp.asarray(valid), dict_r))
+        pcols.append(PColumn(pt.parse_type(tname), torch.from_numpy(np.ascontiguousarray(data)),
+                             torch.from_numpy(valid), dict_p))
+    return (tuple(keys), tuple(every), RPage(tuple(rcols), jnp.asarray(active)),
+            PPage(tuple(pcols), torch.from_numpy(active)))
+
+
+@pytest.mark.parametrize("epi_keys", [None, (0, 2), (8, 2, 0)])
+def test_aggregate_phase_with_nine_group_keys_matches_reference(epi_keys):
+    """Nine group keys, one more than a ``segment_agg`` call gathers: the
+    keys past the eighth go to a later call, the destination's keys to the
+    first (one of them the ninth key). Rows and destinations identical to
+    the reference's."""
+    keys, symbols, rpage, ppage = _nine_key_pages(seed=91)
+    (rp, rng_, rn), (pp, png, pn) = _grouped("presorted", keys, symbols, rpage, ppage)
+    out_cap = pex._round_capacity(int(pn), base=16)
+    case = "counts"
+    epi_spec = None if epi_keys is None else (epi_keys, 4)
+    want, want_dest = RMK.aggregate_phase(keys, _aggs(rplan, rt, case), symbols, out_cap, rp,
+                                          rng_, rn, epi_spec, True)
+    PMK.reset_counts()
+    got = PMK.aggregate_phase(keys, _aggs(pplan, pt, case), symbols, out_cap, pp, png, pn,
+                              epi_spec)
+    if epi_spec is not None:
+        got, got_dest = got
+        np.testing.assert_array_equal(got_dest.numpy(), np.asarray(want_dest))
+        assert PMK.STAGES["dest_aggregate"] == 1 and PMK.STAGES["dest"] == 0
+    assert PMK.STAGES["aggregate_torch"] == 0
+    act = np.asarray(want.active)
+    np.testing.assert_array_equal(got.active.numpy(), act)
+    assert len(got.columns) == len(keys) + len(AGG_CASES[case])
+    for gc, wc in zip(got.columns, want.columns):
+        _same_column(gc, wc, act, gc.type == pt.DOUBLE)
+
+
+# --------------------------------------------------------------------------- #
+# TPC-H through both engines
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def tpch_runners():
+    from trino_tpu.runtime import LocalQueryRunner as RRunner
+    from trino_tpu_torch.runtime import LocalQueryRunner as PRunner
+
+    return RRunner.tpch(scale=0.01), PRunner.tpch(scale=0.01, device="cpu")
+
+
+@pytest.mark.parametrize("q", ["q03", "q10", "q18"])
+def test_tpch_sort_path_aggregations_run_whole_in_segment_agg(tpch_runners, q):
+    """TPC-H Q3, Q10 and Q18 at SF0.01: rows identical to the reference's,
+    with no aggregate left to the torch operators; Q3's and Q10's grouped
+    sums through ``aggregate_phase`` (Q18's grouping runs under its
+    semi-join, on the serial path)."""
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    ref, port = tpch_runners
+    PMK.reset_counts()
+    got = port.execute(TPCH_QUERIES[q]).rows
+    assert (PMK.LAUNCHES["aggregate"] > 0) == (q != "q18")
+    assert PMK.STAGES["aggregate_torch"] == 0
+    assert got == ref.execute(TPCH_QUERIES[q]).rows
+
+
+def test_presorted_join_aggregation_on_nine_group_keys(tpch_runners):
+    """A join feeding a presorted aggregation (customer is ordered on
+    c_custkey) on nine group keys, one more than a ``segment_agg`` call
+    gathers: rows identical to the reference's, through
+    ``aggregate_phase`` with no group sort."""
+    sql = """
+        SELECT c_custkey, c_name, c_address, c_nationkey, c_phone, c_acctbal,
+               c_mktsegment, c_comment, c_nationkey * 2 AS n2,
+               count(o_orderkey) AS cnt, sum(o_totalprice) AS total
+        FROM customer LEFT JOIN orders ON c_custkey = o_custkey
+        GROUP BY c_custkey, c_name, c_address, c_nationkey, c_phone, c_acctbal,
+                 c_mktsegment, c_comment, c_nationkey * 2
+        ORDER BY cnt DESC, c_custkey LIMIT 20
+    """
+    ref, port = tpch_runners
+    PMK.reset_counts()
+    got = port.execute(sql).rows
+    assert PMK.LAUNCHES["aggregate"] == 1 and PMK.LAUNCHES["group_sort"] == 0
+    assert PMK.STAGES["aggregate_torch"] == 0
+    assert got == ref.execute(sql).rows

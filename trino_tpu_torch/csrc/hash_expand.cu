@@ -5,8 +5,11 @@
 // _expand_phase_body + expand_phase (the Pallas body that runs
 // kernels.expand_probe_slots, finds each slot's (d+1)-th equal-key slot of
 // its bucket by a cumsum over the [N_out, C] match block, and gathers the
-// probe and build columns). The fused project and group stages of that body
-// run after this kernel as the port's torch operators.
+// probe and build columns), and the exchange destination stage at the end
+// of that body (epi_spec's _partition_dest, megakernels.py:448-453) when
+// the joined page is the phase's output. The fused projection and the
+// direct and presorted grouping stages of that body run after this kernel
+// as the port's torch operators; its sort stage is group_sort.cu.
 //
 // For each output slot p < out_cap, bit-identical to the plain version
 // (hopper_kernels.hash_expand_plain):
@@ -21,6 +24,9 @@
 // then each probe column gathered at probe_idx and each build column at
 // bpos, with build validity & matched. The slots p >= total all belong to
 // row N-1 (start[N-1] <= total), with d = p - start[N-1] >= emit[N-1].
+// Given destination keys (columns of either side), dest[p] is the
+// partition of the slot's gathered keys (partition_hash.cuh), n_parts
+// where out_active is false: partition_dest_plain over the joined page.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. The scan reads emit once (4
 // bytes a probe row); each output slot reads its probe row's count, bucket,
@@ -61,12 +67,17 @@
 //   columns (no TPC-H join has them) the slot pass also saves each slot's
 //   probe row, build row and matched flag, and one gather pass per further
 //   kMaxGatherCols columns reads them back.
+// - The destination is one more store a slot in the slot pass (the first
+//   gather set's): each key is read through the rows the slot already
+//   resolved (build keys with matched, as gathered) and hashed in
+//   registers, so the joined page is not read again by a launch of its own.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "join_keys.cuh"
 #include "launch.cuh"
+#include "partition_hash.cuh"
 
 namespace hopper {
 
@@ -86,6 +97,16 @@ struct GatherCol {
 struct GatherSet {
   GatherCol col[kMaxGatherCols];
   int n;
+};
+
+// The exchange destination's keys: source columns of either side (a build
+// key's validity is ANDed with matched, as it is gathered), LUTs as value
+// keys. n = 0: no destination.
+struct DestKeys {
+  KeyCol col[kMaxWideKeys];
+  int build_side[kMaxWideKeys];
+  int n;
+  int n_parts;
 };
 
 }  // namespace hopper
@@ -334,8 +355,9 @@ slots_kernel(KeySet pkeys, KeySet bkeys, const int32_t* __restrict__ count,
              const int32_t* __restrict__ counts,
              int64_t n, int64_t m, int C, int64_t out_cap, const int64_t* __restrict__ state,
              const int64_t* __restrict__ slot_row, const int32_t* __restrict__ slot_d,
-             GatherSet cols, int64_t* __restrict__ probe_idx, int64_t* __restrict__ bpos,
-             bool* __restrict__ matched, bool* __restrict__ out_active) {
+             GatherSet cols, hopper::DestKeys dk, int64_t* __restrict__ probe_idx,
+             int64_t* __restrict__ bpos, bool* __restrict__ matched,
+             bool* __restrict__ out_active, int32_t* __restrict__ dest) {
   const int64_t total = state[1];
   const int64_t last_start = state[2];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -371,6 +393,17 @@ slots_kernel(KeySet pkeys, KeySet bkeys, const int32_t* __restrict__ count,
     r = r < 0 ? 0 : (r >= m ? m - 1 : r);
     out_active[p] = act;
     gather_row(cols, p, pi, r, mt);
+    if (dk.n > 0) {
+      uint64_t acc = hopper::partition::kHashSeed;
+      for (int k = 0; k < dk.n; ++k) {
+        const hopper::KeyCol& c = dk.col[k];
+        const bool build = dk.build_side[k] != 0;
+        const int64_t row = build ? r : pi;
+        acc = hopper::partition::fold_key(
+            acc, hopper::partition::key_bits(c, row, c.valid[row] && (!build || mt)));
+      }
+      dest[p] = hopper::partition::dest_of(acc, act, dk.n_parts);
+    }
     if (probe_idx != nullptr) {
       probe_idx[p] = pi;
       bpos[p] = r;
@@ -426,7 +459,8 @@ extern "C" int hash_expand_scan(const void* emit, int64_t n, int64_t out_cap, vo
 
 // The slot pass on ``stream``, after hash_expand_scan on the same state and
 // slots: resolves every slot and gathers ``gather[0]`` into the joined page
-// and writes ``out_active``. With ``n_gather`` > 1, ``probe_idx``, ``bpos``
+// and writes ``out_active``, and with ``dest_keys->n`` > 0 each slot's
+// destination into ``dest`` (int32 [out_cap]; may be null otherwise). With ``n_gather`` > 1, ``probe_idx``, ``bpos``
 // (int64 [out_cap]) and ``matched`` (bool [out_cap]) are scratch the slot
 // pass fills and one gather pass per further set reads; otherwise they may be
 // null. Returns the first CUDA error, 0 on success.
@@ -436,7 +470,8 @@ extern "C" int hash_expand_slots(const hopper::KeySet* pkeys, const hopper::KeyS
                                  int64_t n, int64_t m, int C, int64_t out_cap,
                                  const void* state, const void* slot_row, const void* slot_d,
                                  void* probe_idx, void* bpos, void* matched, void* out_active,
-                                 const hopper::GatherSet* gather, int n_gather, void* stream) {
+                                 const hopper::GatherSet* gather, int n_gather,
+                                 const hopper::DestKeys* dest_keys, void* dest, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || out_cap <= 0) return 0;
   int64_t* pidx = n_gather > 1 ? static_cast<int64_t*>(probe_idx) : nullptr;
@@ -446,8 +481,8 @@ extern "C" int hash_expand_slots(const hopper::KeySet* pkeys, const hopper::KeyS
       *pkeys, *bkeys, static_cast<const int32_t*>(count), static_cast<const int32_t*>(bucket_p),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(counts), n, m, C,
       out_cap, static_cast<const int64_t*>(state), static_cast<const int64_t*>(slot_row),
-      static_cast<const int32_t*>(slot_d), gather[0], pidx, bp, mt,
-      static_cast<bool*>(out_active));
+      static_cast<const int32_t*>(slot_d), gather[0], *dest_keys, pidx, bp, mt,
+      static_cast<bool*>(out_active), static_cast<int32_t*>(dest));
   cudaError_t err = cudaGetLastError();
   for (int g = 1; g < n_gather && err == cudaSuccess; ++g) {
     gather_kernel<<<grid_for(out_cap), kThreads, 0, s>>>(gather[g], pidx, bp, mt, out_cap);

@@ -1,5 +1,6 @@
-// Exchange destination: each row's destination partition, as the last
-// stage of the fused join and of the sort-path aggregation.
+// Exchange destination: each row's destination partition, where the page
+// a fused phase returns feeds a hash exchange and no kernel of that phase
+// holds the keys.
 //
 // Replaces: the epi_spec stage of trino_tpu/ops/megakernels.py
 // expand_phase (the _partition_dest call ending _expand_phase_body) and of
@@ -7,9 +8,12 @@
 // fragment's output feeds a hash exchange, the reference computes each
 // row's destination inside the kernel that produced the page and attaches
 // it to the page; the exchange then consumes it (ops/repartition.py
-// _take_fused_dest) instead of hashing again. Here the stage runs on the
-// page the fused join or aggregation returned, and partition_epilogue takes
-// the destination it wrote.
+// _take_fused_dest) instead of hashing again. The port computes it in the
+// kernel that produced the page where that kernel holds the keys:
+// hash_expand.cu's slot pass (a join whose output is the phase's page) and
+// segment_agg.cu's finish pass (keys that are all group keys). This launch
+// runs where none does: after a direct aggregation or a projection of the
+// joined page, and where an exchange key is an aggregate's output.
 //
 // Bit-identical to the plain version (ops/repartition.py _partition_dest):
 // the hash is partition_hash.cuh's, the one partition_epilogue.cu uses.
@@ -20,7 +24,6 @@
 // Design: one grid-stride launch (dest_kernel, kHashRows = 8 rows a
 // thread, specialized on the key count so every key column's loads are
 // issued before any is used), as many blocks as the card holds at once.
-// Folding the stage into hash_expand's slot pass is later work.
 
 #include <atomic>
 #include <cstdint>

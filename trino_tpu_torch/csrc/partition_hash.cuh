@@ -1,7 +1,8 @@
 // The exchange partition hash, shared by partition_dest.cu (the exchange
-// destination stage of the fused join and aggregation) and
-// partition_epilogue.cu (the repartition epilogue), so both give the same
-// bits. Partition hashes are part of the exchange-frame contract: these are
+// destination stage where no kernel holds the keys), the destination
+// folded into hash_expand.cu's slot pass and segment_agg.cu's finish pass,
+// and partition_epilogue.cu (the repartition epilogue), so all give the
+// same bits. Partition hashes are part of the exchange-frame contract: these are
 // trino_tpu/ops/repartition.py partition_ids and _partition_dest, bit for
 // bit. Each key is read as kernels.order_key bits (floats unfolded), a
 // dictionary key mapped through its value-key LUT, INT64_MAX where NULL;
@@ -24,11 +25,34 @@ namespace hopper {
 namespace partition {
 
 constexpr int kHashRows = 8;  // rows a thread hashes at once
+constexpr uint64_t kHashSeed = 0x9E3779B97F4A7C15ull;
 
 __device__ __forceinline__ uint64_t fmix64(uint64_t x) {
   x = (x ^ (x >> 33)) * 0xFF51AFD7ED558CCDull;
   x = (x ^ (x >> 33)) * 0xC4CEB9FE1A85EC53ull;
   return x ^ (x >> 33);
+}
+
+// One key folded into the accumulator (seeded with kHashSeed).
+__device__ __forceinline__ uint64_t fold_key(uint64_t acc, uint64_t key) {
+  return (acc ^ fmix64(key)) * 0x100000001B3ull;
+}
+
+// The hashed bits of column c's key at row i: its normalized value through
+// the value-key LUT where set, INT64_MAX where ``ok`` is false (NULL).
+__device__ __forceinline__ uint64_t key_bits(const KeyCol& c, int64_t i, bool ok) {
+  if (!ok) return static_cast<uint64_t>(INT64_MAX);
+  const int64_t idx[1] = {i};
+  const bool take[1] = {true};
+  int64_t v[1];
+  load_values(c, idx, take, v);
+  if (c.lut != nullptr) v[0] = c.lut[v[0] < 0 ? 0 : (v[0] >= c.lut_len ? c.lut_len - 1 : v[0])];
+  return static_cast<uint64_t>(v[0]);
+}
+
+// The destination of an accumulator: its partition, n_parts where inactive.
+__device__ __forceinline__ int32_t dest_of(uint64_t acc, bool active, int n_parts) {
+  return active ? static_cast<int32_t>(acc % static_cast<uint64_t>(n_parts)) : n_parts;
 }
 
 // The destinations of rows i[] (radix::kNoDigit where i >= n) under NK
@@ -70,13 +94,12 @@ __device__ __forceinline__ void dest_rows(const WideKeySet& ks, const bool* __re
   }
 #pragma unroll
   for (int r = 0; r < kHashRows; ++r) {
-    uint64_t acc = 0x9E3779B97F4A7C15ull;
-    if (NK == 0) acc = (acc ^ fmix64(0)) * 0x100000001B3ull;  // no keys: one zero key
+    uint64_t acc = kHashSeed;
+    if (NK == 0) acc = fold_key(acc, 0);  // no keys: one zero key
 #pragma unroll
     for (int k = 0; k < NK; ++k) {
-      const uint64_t key =
-          ok[k][r] ? static_cast<uint64_t>(v[k][r]) : static_cast<uint64_t>(INT64_MAX);
-      acc = (acc ^ fmix64(key)) * 0x100000001B3ull;
+      acc = fold_key(acc, ok[k][r] ? static_cast<uint64_t>(v[k][r])
+                                   : static_cast<uint64_t>(INT64_MAX));
     }
     dest[r] = !in[r]   ? radix::kNoDigit
               : act[r] ? static_cast<uint32_t>(acc % static_cast<uint64_t>(n_parts))

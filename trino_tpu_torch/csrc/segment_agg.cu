@@ -1,47 +1,82 @@
-// Segment sums over a group-sorted page: the sort-path aggregation's
-// integer sums and counts.
+// The sort-path aggregation over a group-sorted page: segment_agg, the
+// whole reduction stage, and segment_sum, its one-request form (an integer
+// sum or a count).
 //
-// Replaces: the reductions of trino_tpu/ops/megakernels.py _agg_phase_body
-// + aggregate_phase, which run executor._aggregate_impl's reduce_fn
-// (kernels.segment_reduce's cumsum-at-boundaries form) inside one Pallas
-// launch. The key gathers and the finalization of that body run after this
-// kernel as the port's torch operators.
+// Replaces: trino_tpu/ops/megakernels.py _agg_phase_body + aggregate_phase
+// (one Pallas launch of executor._aggregate_impl: the group boundaries, the
+// key gathers at the group starts, every sum, count, min, max and
+// arbitrary, the finishing of avg), and the epi_spec stage at the end of
+// that body (its _partition_dest call) where every exchange key is a group
+// key. The long tail of _aggregate_impl (variance finishing, covar, corr
+// and regr, bitwise, distinct counts, approx_distinct, percentiles,
+// min_by/max_by) runs after this kernel as the port's torch operators.
 //
-// out[g] = sum(values[i] for i in [starts[g], ends[g]] if weight[i]) mod 2^64
-// for g < out_cap, where the rows are sorted by group, starts holds each
-// group's first row ascending (padded with n past the last group) and
-// ends[g] = starts[g+1] - 1 (n - 1 for the last slot). Values are int64,
-// int32 (sign-extended) or bool (as 0/1, which makes the sum a count). A
-// padding slot (starts[g] = n) reads row n - 1, as the reference's clipped
-// csum[end] - csum[start] + v[start] does; its output row is inactive.
+// segment_agg, bit-identical to hopper_kernels.segment_agg_plain (float64
+// sums within rounding: they are added in another order), on n rows and
+// out_cap output slots:
+//   starts[g]  = the row of the (g+1)-th new_group row, n past the last
+//                (kernels.boundary_positions)
+//   each group's rows run from its start to the next start (n for the
+//   last); rows before the first group belong to no slot
+//   request r, on the rows where active & filter & valid & its predicate
+//   hold ("weighted"): a wrapping int64 sum of int64, int32, int16, int8
+//   or bool values or a count; a float64 sum of the values as doubles
+//   (divided by a decimal scale, squared); the min or max of integer, bool
+//   or float values (NaN wins, as torch's scatter_reduce); the last
+//   weighted row's index (arbitrary's row). An empty group holds the
+//   request's identity.
+//   group_exists[g] = g < num_groups; each key at min(starts[g], n - 1),
+//   its validity & group_exists; each output finished as
+//   executor._eval_aggregate finishes it (validity nonempty > 0, decimal
+//   avg's round-half-up division, double avg's two divisions, bool_and and
+//   bool_or from their counts, arbitrary's gather); the destination of
+//   each slot from its gathered keys (partition_hash.cuh), n_parts where
+//   the group does not exist. The data of a slot past num_groups is left
+//   to the kernel (its validity and the keys' validity are false).
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes. Each row reads its value and its
-// weight once (9 bytes for int64); each group reads its start and writes
-// 8 bytes.
+// Bound on an H100 SXM (3.35 TB/s): bytes. Each request's values and its
+// weight's columns read once, new_group read once, starts written and read
+// once, the keys' bytes at out_cap rows, every output written once.
 //
-// Design: one memset of out, then one launch; no row searches starts.
-// Each block takes a tile of kSegRows rows, eight consecutive rows a
-// thread. One warp finds the group of the tile's first row by one search
-// of starts (rounds of 32 probes, so about four L2 round trips at the
-// engine's sizes) while a second finds the first padding slot; the block
-// then reads the starts that fall inside the tile (a contiguous run of
-// slots after the first group, 1,024 a round) and marks them as heads in
-// shared memory.
-// A block scan of the heads gives each thread its first row's group, and
-// a segmented block scan of (has a head, sum since its last head) gives
-// the sum carried into each thread. A group wholly inside the tile is
-// written with a plain store by the thread that holds its end; only the
-// tile's first and last groups, which may span tiles, are added with one
-// 64-bit atomicAdd each. The padding slots are filled by every block, a
-// stripe each. Unsigned adds mod 2^64 commute, so the result is
-// bit-identical to the plain cumsum form in any order of the atomics.
-// Rows before the first group belong to no slot.
+// Design: five launches, no memset and no atomic.
+// - count: one block a tile of kSegRows rows counts the tile's new_group.
+// - scan: one block scans the tiles' counts into each tile's first group.
+// - reduce: one block a tile (8 consecutive rows a thread) reads new_group
+//   again, block-scans the head counts (each thread's first group), writes
+//   starts for the tile's heads, then serves every request in turn over
+//   the same tile: a segmented block scan of (has a head, the reduction
+//   since the thread's last head). A group that starts and ends inside the
+//   tile is stored into its slot; the rows of the tile before its first
+//   head go to the tile's head partial and the rows from its last head to
+//   the tile's tail partial (per request and tile).
+// - span: one block a request scans the head partials over the tiles,
+//   restarting after each tile with a head, so a group that spans tiles
+//   (the last group of a sorted page runs over its inactive tail) reads
+//   two partials however many tiles it covers.
+// - finish: one thread a slot combines a tile-spanning group's tail
+//   partial with the scanned head partials (in one fixed order, so a
+//   float sum gives the same bits in every run), gathers the keys,
+//   finishes every output and writes the destination from the keys in
+//   registers. A division by a scalar (a decimal scale) is a product with
+//   its reciprocal, as torch computes it on the card.
+//
+// segment_sum: out[g] = sum(values[i] for i in [starts[g], ends[g]] if
+// weight[i]) mod 2^64 for g < out_cap, ends[g] = starts[g+1] - 1 (n - 1
+// for the last slot); a padding slot (starts[g] = n) reads row n - 1, as
+// the reference's clipped csum[end] - csum[start] + v[start] does. One
+// memset of out, then one launch: each block takes a tile, finds the group
+// of its first row by a warp search of starts and reads the starts inside
+// the tile as heads; a group wholly inside the tile is stored, the tile's
+// first and last groups added with one 64-bit atomicAdd each (unsigned
+// adds commute, so the result is bit-identical in any order).
 
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "join_keys.cuh"
 #include "launch.cuh"
+#include "partition_hash.cuh"
 
 namespace {
 
@@ -251,5 +286,593 @@ extern "C" int segment_sum(const void* values, int type, const void* weight,
       values, type, static_cast<const bool*>(weight), static_cast<const int64_t*>(starts), n,
       out_cap, static_cast<unsigned long long*>(out));
   ++g_stream_ops;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --------------------------------------------------------------------------
+// segment_agg
+// --------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int kMaxAggRequests = 32;
+constexpr int kMaxAggOutputs = 24;
+
+// Reduction kinds (hopper_kernels._AGG_KINDS).
+enum AggKind : int {
+  kSumInt = 0, kSumFloat = 1, kMinInt = 2, kMaxInt = 3, kMinFloat = 4, kMaxFloat = 5,
+  kLastRow = 6, kCount = 7,
+};
+// Predicates on the value that narrow a request's weight.
+enum AggPred : int { kPredNone = 0, kPredNonZero = 1, kPredZero = 2 };
+
+struct AggRequest {
+  const void* values;        // null for a count without a predicate
+  const bool* valid;         // null: every value valid
+  const bool* filter;        // null: no filter
+  const bool* filter_valid;
+  double divisor;            // kSumFloat: each value times its reciprocal (1: not)
+  int64_t identity;          // bits of the empty reduction
+  int type;                  // KeyType of values
+  int kind;
+  int pred;
+  int square;                // kSumFloat: each value squared after the division
+};
+
+struct AggRequestSet {
+  AggRequest req[kMaxAggRequests];
+  int n;
+};
+
+// What the finish pass reads of the requests (a smaller kernel parameter).
+struct AggCombine {
+  int64_t identity[kMaxAggRequests];
+  int kind[kMaxAggRequests];
+  int n;
+};
+
+// Finishing ops (hopper_kernels._AGG_OPS).
+enum AggOp : int { kValue = 0, kAvgDecimal = 1, kAvgDouble = 2, kBoolAnd = 3, kBoolOr = 4,
+                   kFirst = 5 };
+
+struct AggOutput {
+  const void* first_values;  // kFirst: the column gathered at the request's row
+  void* data;
+  bool* valid;
+  double divisor;            // kAvgDouble: times its reciprocal after the count (1: not)
+  int op;
+  int a;                     // the request it finishes
+  int b;                     // the count whose > 0 is the validity (-1: always valid)
+  int out_type;              // KeyType of data
+  int elem_bytes;            // kFirst
+  int a_float;               // request a holds a double
+};
+
+struct AggOutputSet {
+  AggOutput out[kMaxAggOutputs];
+  int n;
+};
+
+// The group keys, gathered at the starts; col[k].lut is the value-key LUT
+// of a key the destination hashes.
+struct GroupKeySet {
+  KeyCol col[kMaxWideKeys];
+  void* dst[kMaxWideKeys];
+  bool* dst_valid[kMaxWideKeys];
+  int elem_bytes[kMaxWideKeys];
+  int n;
+  int dest_key[kMaxWideKeys];  // the keys the destination hashes, in order
+  int n_dest;                  // 0: no destination
+  int n_parts;
+};
+
+}  // namespace hopper
+
+namespace {
+
+using hopper::AggCombine;
+using hopper::AggOutput;
+using hopper::AggOutputSet;
+using hopper::AggRequest;
+using hopper::AggRequestSet;
+using hopper::GroupKeySet;
+
+__device__ __forceinline__ int64_t load_int(int type, const void* p, int64_t i) {
+  switch (type) {
+    case hopper::kI64: return static_cast<const int64_t*>(p)[i];
+    case hopper::kI32: return static_cast<const int32_t*>(p)[i];
+    case hopper::kI16: return static_cast<const int16_t*>(p)[i];
+    case hopper::kI8: return static_cast<const int8_t*>(p)[i];
+    case hopper::kBool: return static_cast<const uint8_t*>(p)[i] ? 1 : 0;
+    case hopper::kF64: return static_cast<int64_t>(static_cast<const double*>(p)[i]);
+    default: return static_cast<int64_t>(static_cast<const float*>(p)[i]);
+  }
+}
+
+__device__ __forceinline__ double load_double(int type, const void* p, int64_t i) {
+  switch (type) {
+    case hopper::kF64: return static_cast<const double*>(p)[i];
+    case hopper::kF32: return static_cast<double>(static_cast<const float*>(p)[i]);
+    default: return static_cast<double>(load_int(type, p, i));
+  }
+}
+
+__device__ __forceinline__ bool nonzero(int type, const void* p, int64_t i) {
+  switch (type) {
+    case hopper::kF64: return static_cast<const double*>(p)[i] != 0.0;
+    case hopper::kF32: return static_cast<const float*>(p)[i] != 0.0f;
+    default: return load_int(type, p, i) != 0;
+  }
+}
+
+__device__ __forceinline__ double as_double(uint64_t b) {
+  return __longlong_as_double(static_cast<long long>(b));
+}
+
+__device__ __forceinline__ uint64_t bits_of(double d) {
+  return static_cast<uint64_t>(__double_as_longlong(d));
+}
+
+// NaN-propagating min and max (torch's amin/amax).
+__device__ __forceinline__ double fmin_nan(double x, double y) {
+  return x != x ? x : (y != y ? y : (y < x ? y : x));
+}
+
+__device__ __forceinline__ double fmax_nan(double x, double y) {
+  return x != x ? x : (y != y ? y : (y > x ? y : x));
+}
+
+__device__ __forceinline__ uint64_t combine(int kind, uint64_t a, uint64_t b) {
+  switch (kind) {
+    case hopper::kSumInt:
+    case hopper::kCount: return a + b;
+    case hopper::kSumFloat: return bits_of(as_double(a) + as_double(b));
+    case hopper::kMinInt: {
+      const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
+      return static_cast<uint64_t>(y < x ? y : x);
+    }
+    case hopper::kMinFloat: return bits_of(fmin_nan(as_double(a), as_double(b)));
+    case hopper::kMaxFloat: return bits_of(fmax_nan(as_double(a), as_double(b)));
+    default: {  // kMaxInt, kLastRow
+      const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
+      return static_cast<uint64_t>(y > x ? y : x);
+    }
+  }
+}
+
+// Row i's contribution to request q: its value (or 1, or its index) where
+// the row is weighted, the identity elsewhere.
+__device__ __forceinline__ uint64_t contribution(const AggRequest& q, const bool* active,
+                                                 int64_t i) {
+  bool w = active[i];
+  if (q.filter != nullptr) w = w && q.filter[i] && q.filter_valid[i];
+  if (q.valid != nullptr) w = w && q.valid[i];
+  if (w && q.pred != hopper::kPredNone) {
+    w = nonzero(q.type, q.values, i) == (q.pred == hopper::kPredNonZero);
+  }
+  if (!w) return static_cast<uint64_t>(q.identity);
+  switch (q.kind) {
+    case hopper::kCount: return 1ull;
+    case hopper::kSumFloat: {
+      double x = load_double(q.type, q.values, i);
+      // torch divides by a scalar on the card as a product with the
+      // scalar's reciprocal; so does this, for the same bits
+      if (q.divisor != 1.0) x = x * (1.0 / q.divisor);
+      if (q.square) x = x * x;
+      return bits_of(x);
+    }
+    case hopper::kMinFloat:
+    case hopper::kMaxFloat: return bits_of(load_double(q.type, q.values, i));
+    case hopper::kLastRow: return static_cast<uint64_t>(i);
+    default: return static_cast<uint64_t>(load_int(q.type, q.values, i));
+  }
+}
+
+// Inclusive block scan of (flag, value) pairs in thread order: a flag
+// restarts the reduction at its own value.
+__device__ uint64_t seg_scan_op(int kind, bool flag, uint64_t v) {
+  __shared__ uint64_t warp_v[kWarps];
+  __shared__ int warp_f[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int f = flag;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint64_t vu = __shfl_up_sync(0xffffffffu, v, o);
+    const int fu = __shfl_up_sync(0xffffffffu, f, o);
+    if (lane >= o) {
+      if (!f) v = combine(kind, vu, v);
+      f |= fu;
+    }
+  }
+  if (lane == 31) {
+    warp_v[warp] = v;
+    warp_f[warp] = f;
+  }
+  __syncthreads();
+  if (!f) {  // no flag in this warp up to this lane: the earlier warps' run
+    for (int w = warp - 1; w >= 0; --w) {
+      v = combine(kind, warp_v[w], v);
+      if (warp_f[w]) break;
+    }
+  }
+  __syncthreads();  // warp_v and warp_f are read before the next call writes them
+  return v;
+}
+
+// Exclusive block scan of ints; *total gets the block's sum.
+__device__ int64_t block_exclusive(int64_t x, int64_t* total) {
+  __shared__ int64_t warp_s[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int64_t inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int64_t t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) warp_s[warp] = inc;
+  __syncthreads();
+  int64_t before = 0, all = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += warp_s[w];
+    all += warp_s[w];
+  }
+  __syncthreads();  // warp_s is read before the next call writes it
+  *total = all;
+  return before + inc - x;
+}
+
+// Each tile's new_group count.
+__global__ void __launch_bounds__(kThreads)
+agg_count_kernel(const bool* __restrict__ new_group, int64_t n, int64_t* __restrict__ heads) {
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kSegRows;
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    const int64_t i = t0 + threadIdx.x + j * kThreads;
+    c += i < n && new_group[i];
+  }
+  int64_t total;
+  block_exclusive(c, &total);
+  if (threadIdx.x == 0) heads[blockIdx.x] = total;
+}
+
+// One block: base[t] = the heads of the tiles before t, base[n_tiles] = all.
+__global__ void __launch_bounds__(kThreads)
+agg_scan_kernel(const int64_t* __restrict__ heads, int64_t n_tiles, int64_t* __restrict__ base) {
+  int64_t carry = 0;
+  for (int64_t c0 = 0; c0 < n_tiles; c0 += kThreads * kSegItems) {
+    int64_t v[kSegItems], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const int64_t t = c0 + threadIdx.x * kSegItems + j;
+      v[j] = t < n_tiles ? heads[t] : 0;
+      sum += v[j];
+    }
+    int64_t total;
+    int64_t run = carry + block_exclusive(sum, &total);
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const int64_t t = c0 + threadIdx.x * kSegItems + j;
+      if (t < n_tiles) base[t] = run;
+      run += v[j];
+    }
+    carry += total;
+  }
+  if (threadIdx.x == 0) base[n_tiles] = carry;
+}
+
+// The reduction pass over one tile: starts of its heads, then every
+// request's complete groups into res, its head and tail partials.
+__global__ void __launch_bounds__(kThreads)
+agg_reduce_kernel(AggRequestSet reqs, const bool* __restrict__ new_group,
+                  const bool* __restrict__ active, int64_t n, int64_t out_cap, int64_t n_tiles,
+                  const int64_t* __restrict__ base, int64_t* __restrict__ starts,
+                  uint64_t* __restrict__ res, uint64_t* __restrict__ head,
+                  uint64_t* __restrict__ tail) {
+  __shared__ uint64_t incl[kThreads];
+  const int64_t tile = blockIdx.x;
+  const int64_t t0 = tile * kSegRows;
+  const int64_t r0 = t0 + static_cast<int64_t>(threadIdx.x) * kSegItems;
+  bool h[kSegItems];
+  int nh = 0;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    h[j] = r0 + j < n && new_group[r0 + j];
+    nh += h[j];
+  }
+  int64_t tile_heads;
+  const int64_t excl = block_exclusive(nh, &tile_heads);
+  const int64_t b = base[tile];
+  const int64_t g0 = b + excl - 1;  // group of this thread's first row (-1: none yet)
+  {
+    int64_t g = g0;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      if (h[j] && ++g <= out_cap) starts[g] = r0 + j;
+    }
+  }
+  for (int r = 0; r < reqs.n; ++r) {
+    const AggRequest& q = reqs.req[r];
+    const uint64_t ident = static_cast<uint64_t>(q.identity);
+    uint64_t c[kSegItems];
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) c[j] = r0 + j < n ? contribution(q, active, r0 + j) : ident;
+    // runs inside the thread: a group between two of its heads is complete
+    int64_t g = g0;
+    uint64_t run = ident, before = ident;
+    bool seen = false;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      if (h[j]) {
+        if (!seen) {
+          before = run;
+          seen = true;
+        } else if (g < out_cap) {
+          res[r * out_cap + g] = run;
+        }
+        ++g;
+        run = ident;
+      }
+      run = combine(q.kind, run, c[j]);
+    }
+    const uint64_t inc = seg_scan_op(q.kind, seen, run);
+    incl[threadIdx.x] = inc;
+    __syncthreads();
+    const uint64_t carry = threadIdx.x == 0 ? ident : incl[threadIdx.x - 1];
+    if (seen) {
+      // the group that ends at this thread's first head: complete if its
+      // head lies in this tile, else the tile's head partial
+      const uint64_t total = combine(q.kind, carry, before);
+      if (g0 >= b) {
+        if (g0 < out_cap) res[r * out_cap + g0] = total;
+      } else {
+        head[r * n_tiles + tile] = total;
+      }
+    }
+    if (threadIdx.x == kThreads - 1) {
+      if (tile_heads > 0) {
+        tail[r * n_tiles + tile] = inc;  // from the tile's last head to its end
+      } else {
+        head[r * n_tiles + tile] = inc;  // the whole tile
+      }
+    }
+    __syncthreads();  // incl is read before the next request writes it
+  }
+}
+
+// One block a request: the head partials in place become, for each tile t,
+// the combination of the head partials of the tiles since the last tile
+// with a head before t (a segmented scan over the tiles, restarting after
+// each tile with a head), so a group that runs from tile ts to tile te
+// reads its tail partial and the scan at te: two loads however many tiles
+// it spans.
+__global__ void __launch_bounds__(kThreads)
+agg_span_kernel(AggCombine reqs, const int64_t* __restrict__ base, int64_t n_tiles,
+                uint64_t* __restrict__ head) {
+  __shared__ uint64_t incl[kThreads];
+  const int kind = reqs.kind[blockIdx.x];
+  const uint64_t ident = static_cast<uint64_t>(reqs.identity[blockIdx.x]);
+  uint64_t* h = head + static_cast<int64_t>(blockIdx.x) * n_tiles;
+  uint64_t carry = ident;
+  for (int64_t c0 = 0; c0 < n_tiles; c0 += kThreads * kSegItems) {
+    uint64_t v[kSegItems];
+    bool f[kSegItems];
+    uint64_t run = ident;
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const int64_t t = c0 + static_cast<int64_t>(threadIdx.x) * kSegItems + j;
+      v[j] = t < n_tiles ? h[t] : ident;
+      // a restart: the tile before t has a head
+      f[j] = t < n_tiles && t > 0 && base[t] > base[t - 1];
+      if (threadIdx.x == 0 && j == 0 && !f[0]) v[0] = combine(kind, carry, v[0]);
+      if (f[j]) {
+        run = v[j];
+        any = true;
+      } else {
+        run = combine(kind, run, v[j]);
+      }
+      v[j] = run;
+      f[j] = any;  // from here on: whether a restart lies in this thread up to j
+    }
+    const uint64_t inc = seg_scan_op(kind, any, run);
+    incl[threadIdx.x] = inc;
+    __syncthreads();
+    const uint64_t prefix = threadIdx.x == 0 ? ident : incl[threadIdx.x - 1];
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const int64_t t = c0 + static_cast<int64_t>(threadIdx.x) * kSegItems + j;
+      if (t < n_tiles) h[t] = f[j] ? v[j] : combine(kind, prefix, v[j]);
+    }
+    carry = incl[kThreads - 1];
+    __syncthreads();  // incl is read before the next chunk writes it
+  }
+}
+
+__device__ __forceinline__ void copy_bytes(const void* src, int64_t from, void* dst, int64_t to,
+                                           int bytes) {
+  switch (bytes) {
+    case 1: static_cast<uint8_t*>(dst)[to] = static_cast<const uint8_t*>(src)[from]; break;
+    case 2: static_cast<uint16_t*>(dst)[to] = static_cast<const uint16_t*>(src)[from]; break;
+    case 4: static_cast<uint32_t*>(dst)[to] = static_cast<const uint32_t*>(src)[from]; break;
+    default: static_cast<uint64_t*>(dst)[to] = static_cast<const uint64_t*>(src)[from]; break;
+  }
+}
+
+// A finished value into an output column of KeyType ``type``.
+__device__ __forceinline__ void store_value(void* data, int type, int64_t g, uint64_t v,
+                                            bool is_float) {
+  const double d = is_float ? as_double(v) : static_cast<double>(static_cast<int64_t>(v));
+  const int64_t x = static_cast<int64_t>(v);
+  switch (type) {
+    case hopper::kI64: static_cast<int64_t*>(data)[g] = x; break;
+    case hopper::kI32: static_cast<int32_t*>(data)[g] = static_cast<int32_t>(x); break;
+    case hopper::kI16: static_cast<int16_t*>(data)[g] = static_cast<int16_t>(x); break;
+    case hopper::kI8: static_cast<int8_t*>(data)[g] = static_cast<int8_t>(x); break;
+    case hopper::kBool: static_cast<bool*>(data)[g] = is_float ? d != 0.0 : x != 0; break;
+    case hopper::kF64: static_cast<double*>(data)[g] = d; break;
+    default: static_cast<float*>(data)[g] = static_cast<float>(d); break;
+  }
+}
+
+// Python's floor division of int64s (b > 0), wrapping as torch does.
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if (a % b != 0 && a < 0) --q;
+  return q;
+}
+
+// One thread a slot: the group's value of every request, the keys, the
+// outputs, group_exists and the destination.
+__global__ void __launch_bounds__(kThreads)
+agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t n,
+                  int64_t out_cap, int64_t n_tiles, const int64_t* __restrict__ base,
+                  const int64_t* __restrict__ num_groups, int64_t* __restrict__ starts,
+                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
+                  const uint64_t* __restrict__ tail, bool* __restrict__ group_exists,
+                  int32_t* __restrict__ dest) {
+  const int64_t total = base[n_tiles];
+  const int64_t ng = *num_groups;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < out_cap;
+       g += stride) {
+    const bool exists = g < ng;
+    const bool real = g < total;
+    const int64_t s = real ? starts[g] : n;
+    if (!real) starts[g] = n;
+    const int64_t e = g + 1 < total ? starts[g + 1] : n;
+    const int64_t at = s < n - 1 ? s : n - 1;
+    group_exists[g] = exists;
+    uint64_t acc = hopper::partition::kHashSeed;
+    for (int k = 0; k < keys.n; ++k) {
+      const hopper::KeyCol& c = keys.col[k];
+      copy_bytes(c.data, at, keys.dst[k], g, keys.elem_bytes[k]);
+      keys.dst_valid[k][g] = c.valid[at] && exists;
+    }
+    if (keys.n_dest > 0) {
+      for (int k = 0; k < keys.n_dest; ++k) {
+        const hopper::KeyCol& c = keys.col[keys.dest_key[k]];
+        acc = hopper::partition::fold_key(
+            acc, hopper::partition::key_bits(c, at, c.valid[at] && exists));
+      }
+      dest[g] = hopper::partition::dest_of(acc, exists, keys.n_parts);
+    }
+    // the tile of the group's start, and whether its next group starts in it
+    const int64_t ts = s / kSegRows;
+    const bool inside = g + 1 < total && e < (ts + 1) * kSegRows;
+    const int64_t te = (e - 1) / kSegRows;
+    uint64_t v[hopper::kMaxAggRequests];
+    for (int r = 0; r < reqs.n; ++r) {
+      if (!real) {
+        v[r] = static_cast<uint64_t>(reqs.identity[r]);
+      } else if (inside) {
+        v[r] = res[r * out_cap + g];
+      } else {
+        // the tail partial of the start's tile, then the scanned head
+        // partials of the tiles up to the end's
+        const uint64_t x = tail[r * n_tiles + ts];
+        v[r] = te > ts ? combine(reqs.kind[r], x, head[r * n_tiles + te]) : x;
+      }
+    }
+    for (int o = 0; o < outs.n; ++o) {
+      const AggOutput& out = outs.out[o];
+      const bool ok = out.b < 0 || static_cast<int64_t>(v[out.b]) > 0;
+      const uint64_t a = v[out.a];
+      switch (out.op) {
+        case hopper::kAvgDecimal: {
+          const int64_t sum = static_cast<int64_t>(a), cnt = static_cast<int64_t>(v[out.b]);
+          const int64_t half = floor_div(cnt, 2);
+          const int64_t den = cnt > 1 ? cnt : 1;
+          const uint64_t us = static_cast<uint64_t>(sum), uh = static_cast<uint64_t>(half);
+          const int64_t q = sum >= 0 ? floor_div(static_cast<int64_t>(us + uh), den)
+                                     : static_cast<int64_t>(0ull - static_cast<uint64_t>(
+                                           floor_div(static_cast<int64_t>(uh - us), den)));
+          store_value(out.data, out.out_type, g, static_cast<uint64_t>(q), false);
+          break;
+        }
+        case hopper::kAvgDouble: {
+          const int64_t cnt = static_cast<int64_t>(v[out.b]);
+          double d = out.a_float ? as_double(a) : static_cast<double>(static_cast<int64_t>(a));
+          d = d / static_cast<double>(cnt > 1 ? cnt : 1);
+          if (out.divisor != 1.0) d = d * (1.0 / out.divisor);
+          store_value(out.data, out.out_type, g, bits_of(d), true);
+          break;
+        }
+        case hopper::kBoolAnd: static_cast<bool*>(out.data)[g] = a == 0; break;
+        case hopper::kBoolOr: static_cast<bool*>(out.data)[g] = static_cast<int64_t>(a) > 0; break;
+        case hopper::kFirst: {
+          const int64_t row = static_cast<int64_t>(a);
+          copy_bytes(out.first_values, row < 0 ? 0 : (row > n - 1 ? n - 1 : row), out.data, g,
+                     out.elem_bytes);
+          break;
+        }
+        default: store_value(out.data, out.out_type, g, a, out.a_float); break;
+      }
+      out.valid[g] = ok;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int segment_agg_max_requests() { return hopper::kMaxAggRequests; }
+
+extern "C" int segment_agg_max_outputs() { return hopper::kMaxAggOutputs; }
+
+// Kernel launches issued by segment_agg since the library was loaded.
+static std::atomic<int64_t> g_agg_stream_ops{0};
+
+extern "C" int64_t segment_agg_stream_ops() { return g_agg_stream_ops.load(); }
+
+// The whole reduction on ``stream``. ``scratch`` (int64 [2 * n_tiles + 1])
+// holds the tiles' head counts and bases; ``starts`` (int64 [out_cap + 1]);
+// ``partials`` (uint64 [requests * (out_cap + 2 * n_tiles)]): the complete
+// groups' values, then the head and the tail partials. Every output is
+// written for all out_cap slots. Returns the first CUDA error, 0 on success.
+extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggOutputSet* outs,
+                           const hopper::GroupKeySet* keys, const void* new_group,
+                           const void* active, const void* num_groups, int64_t n,
+                           int64_t out_cap, void* scratch, void* starts, void* partials,
+                           void* group_exists, void* dest, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || out_cap <= 0) return 0;
+  const int64_t n_tiles = (n + kSegRows - 1) / kSegRows;
+  int64_t* heads = static_cast<int64_t*>(scratch);
+  int64_t* base = heads + n_tiles;
+  uint64_t* res = static_cast<uint64_t*>(partials);
+  const int64_t nr = reqs->n;
+  uint64_t* head = res + nr * out_cap;
+  uint64_t* tail = head + nr * n_tiles;
+  const bool* ng = static_cast<const bool*>(new_group);
+  agg_count_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(ng, n, heads);
+  ++g_agg_stream_ops;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  agg_scan_kernel<<<1, kThreads, 0, s>>>(heads, n_tiles, base);
+  ++g_agg_stream_ops;
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+      *reqs, ng, static_cast<const bool*>(active), n, out_cap, n_tiles, base,
+      static_cast<int64_t*>(starts), res, head, tail);
+  ++g_agg_stream_ops;
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  AggCombine comb{};
+  comb.n = reqs->n;
+  for (int r = 0; r < reqs->n; ++r) {
+    comb.identity[r] = reqs->req[r].identity;
+    comb.kind[r] = reqs->req[r].kind;
+  }
+  if (nr > 0) {
+    agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(comb, base, n_tiles, head);
+    ++g_agg_stream_ops;
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  agg_finish_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
+      comb, *outs, *keys, n, out_cap, n_tiles, base, static_cast<const int64_t*>(num_groups),
+      static_cast<int64_t*>(starts), res, head, tail, static_cast<bool*>(group_exists),
+      static_cast<int32_t*>(dest));
+  ++g_agg_stream_ops;
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
 Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
-expansion, the group sort, the sort-path segment sums, the repartition
+expansion, the group sort, the sort-path aggregation, the repartition
 epilogue and the exchange destination stage). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
@@ -23,9 +23,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import struct
 import threading
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -44,7 +46,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
-    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "group_sort": 0,
+    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "segment_agg": 0, "group_sort": 0,
     "partition_epilogue": 0, "partition_dest": 0,
 }
 
@@ -138,11 +140,15 @@ def bind(path: Path):
     lib.hash_expand_scan.restype = i32
     lib.hash_expand_slots.argtypes = (
         [keyset, keyset] + [ptr] * 4 + [i64, i64, i32, i64] + [ptr] * 7
-        + [ctypes.POINTER(_GatherSet), i32, ptr]
+        + [ctypes.POINTER(_GatherSet), i32, ctypes.POINTER(_DestKeys), ptr, ptr]
     )
     lib.hash_expand_slots.restype = i32
     lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
     lib.segment_sum.restype = i32
+    lib.segment_agg.argtypes = (
+        [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
+         ctypes.POINTER(_GroupKeySet)] + [ptr] * 3 + [i64, i64] + [ptr] * 6)
+    lib.segment_agg.restype = i32
     for name, want in (("hash_expand_gather_cols", _MAX_GATHER_COLS),
                        ("hash_expand_tile_rows", EXPAND_TILE_ROWS),
                        ("hash_expand_state_head", _EXPAND_STATE_HEAD),
@@ -151,6 +157,8 @@ def bind(path: Path):
                        ("radix_tile_rows", _TILE_ROWS),
                        ("group_sort_tile_rows", SORT_TILE_ROWS),
                        ("segment_sum_tile_rows", SEGMENT_TILE_ROWS),
+                       ("segment_agg_max_requests", SEGMENT_AGG_MAX_REQUESTS),
+                       ("segment_agg_max_outputs", SEGMENT_AGG_MAX_OUTPUTS),
                        ("radix_perm_cols", _MAX_PERM_COLS),
                        ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS),
                        ("partition_epilogue_sweep_bins", EPILOGUE_SWEEP_BINS)):
@@ -553,11 +561,13 @@ def hash_probe(pkeys, bkeys, luts, probe_active: torch.Tensor, build_active: tor
 
 
 def hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
-                      probe_active, probe_cols, build_cols, out_capacity: int):
+                      probe_active, probe_cols, build_cols, out_capacity: int, dest=None):
     """The join stage of the reference's ``_expand_phase_body``: slots from
     ``kernels.expand_probe_slots``; each slot's build row is the (d+1)-th
     equal-key slot of its probe row's bucket (a cumsum over the match block,
-    slot 0 where there is none), in chunks of slots; then the gathers."""
+    slot 0 where there is none), in chunks of slots; then the gathers, and
+    given ``dest`` the destination stage, :func:`partition_dest_plain` over
+    the gathered columns."""
     pk, pv = normalized_keys(pkeys, luts)
     bk, _ = normalized_keys(bkeys, (None,) * len(bkeys))
     pa = probe_active & pv
@@ -575,23 +585,64 @@ def hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
         bpos[sl] = rows.gather(1, slot[:, None])[:, 0]
     probe_out = [(dt[probe_idx], v[probe_idx]) for dt, v in probe_cols]
     build_out = [(dt[bpos], v[bpos] & matched) for dt, v in build_cols]
-    return probe_out, build_out, out_active
+    if dest is None:
+        return probe_out, build_out, out_active
+    key_idx, dluts, n_parts = dest
+    cols = probe_out + build_out
+    return (probe_out, build_out, out_active,
+            partition_dest_plain([cols[i] for i in key_idx], dluts, out_active, n_parts))
+
+
+def _dest_keys(name: str, dest, probe_cols, build_cols):
+    """The DestKeys of a destination folded into ``hash_expand``:
+    ``(key_idx, luts, n_parts)`` over ``probe_cols + build_cols``."""
+    dk = _DestKeys()
+    if dest is None:
+        return dk
+    key_idx, luts, n_parts = dest
+    cols = list(probe_cols) + list(build_cols)
+    if not 1 <= len(key_idx) <= _MAX_WIDE_KEYS or len(luts) != len(key_idx):
+        raise ValueError(f"{name}: 1 to {_MAX_WIDE_KEYS} destination keys, one LUT slot each")
+    if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
+        raise ValueError(f"{name}: n_parts {n_parts} outside [1, {EPILOGUE_MAX_PARTS}]")
+    for k, (i, lut) in enumerate(zip(key_idx, luts)):
+        if not 0 <= i < len(cols):
+            raise ValueError(f"{name}: destination key {i} is not a column")
+        d, v = cols[i]
+        if d.ndim != 1 or d.dtype not in _KEY_TYPES:
+            raise TypeError(f"{name}: unsupported destination key {d.dtype} {tuple(d.shape)}")
+        c = dk.col[k]
+        c.data, c.valid, c.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+        if lut is not None:
+            _check_vectors(name, (lut,), (torch.int64,))
+            if lut.device != d.device or lut.shape[0] < 1:
+                raise ValueError(f"{name}: LUT must be a non-empty tensor on {d.device}")
+            c.lut, c.lut_len = lut.data_ptr(), lut.shape[0]
+        dk.build_side[k] = int(i >= len(probe_cols))
+    dk.n, dk.n_parts = len(key_idx), n_parts
+    return dk
 
 
 def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
                 probe_active: torch.Tensor, probe_cols, build_cols, out_capacity: int,
-                *, phase_events=None):
+                dest=None, *, phase_events=None):
     """The join expansion into ``out_capacity`` slots after
     :func:`hash_probe` (its table, counts, bucket_p, count and emit).
 
     ``probe_cols``/``build_cols``: (data, valid) of every column of each
     side, in page order. Returns ``(probe_out, build_out, out_active)``:
     the gathered (data, valid) pairs, build validity ANDed with the slot's
-    matched flag, and the output activity. On CUDA tensors the kernel is a
-    scan pass over ``emit`` (tiles of :data:`EXPAND_TILE_ROWS` rows) and a
-    slot pass; ``phase_events``, None or three ``torch.cuda.Event``, are
-    recorded on the stream before the scan, between the passes and after
-    the slot pass, to split the kernel's time."""
+    matched flag, and the output activity. ``dest``, None or ``(key_idx,
+    luts, n_parts)`` (the exchange keys' positions among ``probe_cols +
+    build_cols``, each None or the int64 value-key LUT of its dictionary,
+    and 1 to :data:`EPILOGUE_MAX_PARTS` partitions), adds a fourth result:
+    each slot's exchange destination (int32, ``n_parts`` on an inactive
+    slot), :func:`partition_dest` of the gathered keys. On CUDA tensors the
+    kernel is a scan pass over ``emit`` (tiles of :data:`EXPAND_TILE_ROWS`
+    rows) and a slot pass, which also writes the destination;
+    ``phase_events``, None or three ``torch.cuda.Event``, are recorded on
+    the stream before the scan, between the passes and after the slot pass,
+    to split the kernel's time."""
     _check_keys("hash_expand", pkeys, bkeys, luts)
     _check_vectors("hash_expand", (probe_active,), (torch.bool,))
     _check_vectors("hash_expand", (emit, count, bucket_p), (torch.int32,) * 3)
@@ -609,9 +660,10 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
             if d.device != probe_active.device or not (d.is_contiguous() and v.is_contiguous()):
                 raise ValueError(f"hash_expand: {side} columns must be contiguous "
                                  f"on {probe_active.device}")
+    dk = _dest_keys("hash_expand", dest, probe_cols, build_cols)
     if probe_active.device.type == "cpu":
         return hash_expand_plain(table, counts, bucket_p, count, emit, pkeys, bkeys,
-                                 luts, probe_active, probe_cols, build_cols, out_capacity)
+                                 luts, probe_active, probe_cols, build_cols, out_capacity, dest)
     if n >= 2**31 or out_capacity >= 2**31:
         raise ValueError("hash_expand: the kernel takes at most 2^31 - 1 probe rows "
                          "and output slots")
@@ -642,6 +694,7 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
     slot_row = torch.empty(out_capacity, dtype=torch.int64, device=dev)
     slot_d = torch.empty(out_capacity, dtype=torch.int32, device=dev)
     out_active = torch.empty(out_capacity, dtype=torch.bool, device=dev)
+    dest_out = torch.empty(out_capacity, dtype=torch.int32, device=dev) if dk.n else None
     # the slot pass saves each slot's rows only for the gather sets after the first
     saved = [torch.empty(out_capacity, dtype=dt, device=dev) if n_sets > 1 else None
              for dt in (torch.int64, torch.int64, torch.bool)]
@@ -658,17 +711,20 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
         table.data_ptr(), counts.data_ptr(), n, m, table.shape[1], out_capacity,
         state.data_ptr(), slot_row.data_ptr(), slot_d.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in saved), out_active.data_ptr(),
-        sets, n_sets, stream,
+        sets, n_sets, ctypes.byref(dk), None if dest_out is None else dest_out.data_ptr(),
+        stream,
     )
     _check_launch("hash_expand", rc)
     if marks:
         marks[2].record()
     LAUNCHES["hash_expand"] += 1
-    return outs[: len(probe_cols)], outs[len(probe_cols):], out_active
+    out = outs[: len(probe_cols)], outs[len(probe_cols):], out_active
+    return out if dest_out is None else out + (dest_out,)
 
 
 # --------------------------------------------------------------------------- #
-# segment sums (replace the reductions of megakernels.aggregate_phase)
+# the sort-path aggregation (replaces megakernels.aggregate_phase): segment_agg,
+# and segment_sum, its one-request form
 # --------------------------------------------------------------------------- #
 
 _VALUE_TYPES = {torch.int64: 0, torch.int32: 1, torch.bool: 2}
@@ -712,6 +768,385 @@ def segment_sum(values: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+# the most requests, outputs and group keys one segment_agg call takes
+# (kMaxAggRequests, kMaxAggOutputs in csrc/segment_agg.cu; kMaxWideKeys in
+# csrc/join_keys.cuh)
+SEGMENT_AGG_MAX_REQUESTS = 32
+SEGMENT_AGG_MAX_OUTPUTS = 24
+SEGMENT_AGG_MAX_KEYS = 8
+# request kinds and finishing ops (AggKind, AggOp in csrc/segment_agg.cu)
+_AGG_KINDS = {"sum": 0, "fsum": 1, "min": 2, "max": 3, "fmin": 4, "fmax": 5, "last": 6,
+              "count": 7}
+_AGG_OPS = {"value": 0, "avg_decimal": 1, "avg_double": 2, "bool_and": 3, "bool_or": 4,
+            "first": 5}
+_AGG_PREDS = {None: 0, "nonzero": 1, "zero": 2}
+
+
+@dataclass(frozen=True, eq=False)
+class AggRequest:
+    """One per-group reduction of the sort-path aggregation.
+
+    ``kind``: ``count`` (weighted rows), ``sum`` (int64 sum, wrapping, of
+    integer or bool values), ``fsum`` (float64 sum of the values as
+    doubles, each divided by ``divisor`` and squared where ``square``),
+    ``min``/``max`` (of integer, bool or float values) or ``last`` (the
+    last weighted row: ``arbitrary``'s). A row is weighted where the page's
+    activity, ``filt & filt_valid`` (an aggregate FILTER), ``valid`` and
+    ``pred`` on the value (``"nonzero"`` or ``"zero"``) all hold; None
+    leaves a term out."""
+
+    kind: str
+    values: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+    filt: Optional[torch.Tensor] = None
+    filt_valid: Optional[torch.Tensor] = None
+    pred: Optional[str] = None
+    divisor: float = 1.0
+    square: bool = False
+
+    def weight(self, active: torch.Tensor) -> torch.Tensor:
+        w = active
+        if self.filt is not None:
+            w = w & (self.filt & self.filt_valid)
+        if self.valid is not None:
+            w = w & self.valid
+        if self.pred is not None:
+            nz = self.values.to(torch.bool)
+            w = w & (nz if self.pred == "nonzero" else ~nz)
+        return w
+
+    def key(self):
+        """What two equal requests share (the tensors by address)."""
+        ptr = [None if t is None else (t.data_ptr(), t.dtype) for t in
+               (self.values, self.valid, self.filt, self.filt_valid)]
+        return (self.kind, *ptr, self.pred, self.divisor, self.square)
+
+
+@dataclass(frozen=True, eq=False)
+class AggOutput:
+    """One aggregate's output column from the requests' results.
+
+    ``op``: ``value`` (request ``a`` cast to ``dtype``), ``avg_decimal``
+    (``a`` over count ``b``, rounded half up), ``avg_double`` (``a`` as a
+    double over count ``b``, then over ``divisor``, cast to ``dtype``),
+    ``bool_and``/``bool_or`` (count ``a`` zero / positive) or ``first``
+    (``values`` at row ``a``). Valid where count ``b`` is positive, or
+    everywhere where ``b`` is -1."""
+
+    op: str
+    a: int
+    b: int
+    dtype: torch.dtype
+    divisor: float = 1.0
+    values: Optional[torch.Tensor] = None
+
+
+def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn) -> torch.Tensor:
+    """A request through the torch reductions of an aggregation path
+    (``reduce_fn(vals, weight, kind)`` and ``first_fn(vals, weight)``, the
+    executor's): a ``last`` request gives the values at the group's row."""
+    w = req.weight(active)
+    if req.kind == "count":
+        return reduce_fn(w.to(torch.int64), w, "count")
+    v = req.values
+    if req.kind == "sum":
+        return reduce_fn(v.to(torch.int64), w, "sum")
+    if req.kind == "fsum":
+        x = v.to(torch.float64)
+        if req.divisor != 1.0:
+            x = x / req.divisor
+        return reduce_fn(x * x if req.square else x, w, "sum")
+    if req.kind in ("min", "max"):
+        if v.dtype.is_floating_point:
+            masked = torch.where(w, v, float("inf") if req.kind == "min" else float("-inf"))
+        elif v.dtype == torch.bool:
+            masked = torch.where(w, v, req.kind == "min")
+        else:
+            masked = torch.where(w, v.to(torch.int64),
+                                 K.INT64_MAX if req.kind == "min" else K.INT64_MIN)
+        return reduce_fn(masked, torch.ones_like(w), req.kind)
+    if req.kind == "last":
+        return first_fn(v, w)
+    raise ValueError(f"unknown aggregate request {req.kind!r}")
+
+
+def finish_output(out: AggOutput, results, out_cap: int):
+    """An output's (data, valid) from the requests' results: the finishing
+    of ``executor._eval_aggregate``."""
+    a = results[out.a]
+    if out.b < 0:
+        valid = torch.ones(out_cap, dtype=torch.bool, device=a.device)
+    else:
+        valid = results[out.b] > 0
+    if out.op == "value":
+        return a.to(out.dtype), valid
+    if out.op == "avg_decimal":
+        nonempty = results[out.b]
+        half = nonempty // 2
+        denom = nonempty.clamp(min=1)
+        data = torch.where(a >= 0, (a + half) // denom, -((-a + half) // denom))
+        return data.to(out.dtype), valid
+    if out.op == "avg_double":
+        data = a.to(torch.float64) / results[out.b].clamp(min=1)
+        if out.divisor != 1.0:
+            data = data / out.divisor
+        return data.to(out.dtype), valid
+    if out.op == "bool_and":
+        return a == 0, valid
+    if out.op == "bool_or":
+        return a > 0, valid
+    if out.op == "first":
+        return a, valid
+    raise ValueError(f"unknown aggregate output {out.op!r}")
+
+
+def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, requests,
+                      outputs, dest=None):
+    """The reference's ``_aggregate_impl`` over a group-sorted page, for the
+    requests and outputs given: ``kernels.boundary_positions``, the key
+    gathers at the starts, sums and counts by cumsum at the group
+    boundaries, min, max and ``last`` by a scatter on the group index (rows
+    before the first group in no slot), the finishing, and the destination
+    stage (:func:`partition_dest_plain` of the gathered keys)."""
+    n = new_group.shape[0]
+    dev = new_group.device
+    starts = K.boundary_positions(new_group, out_cap)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
+    bounds = (starts, ends)
+    safe = starts.clamp(0, n - 1)
+    group_exists = torch.arange(out_cap, device=dev) < num_groups
+    keys_out = [(d[safe], v[safe] & group_exists) for d, v in key_cols]
+    gid = K.cumsum(new_group) - 1
+    in_group = gid >= 0
+    gid = gid.clamp(min=0)
+
+    def reduce_fn(vals, w, kind):
+        if kind in ("sum", "count"):
+            return K.segment_reduce(vals, w, None, out_cap, kind, new_group, bounds)
+        return K.segment_reduce(vals, w & in_group, gid, out_cap, kind)
+
+    def first_fn(vals, w):
+        return K.direct_group_first(vals, w & in_group, gid, out_cap)
+
+    results = [run_request(r, active, reduce_fn, first_fn) for r in requests]
+    outs = [finish_output(o, results, out_cap) for o in outputs]
+    dest_out = None
+    if dest is not None:
+        positions, luts, n_parts = dest
+        dest_out = partition_dest_plain([keys_out[i] for i in positions], luts, group_exists,
+                                        n_parts)
+    return starts, group_exists, keys_out, outs, dest_out
+
+
+class _AggRequest(ctypes.Structure):
+    _fields_ = [
+        ("values", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("filter", ctypes.c_void_p),
+        ("filter_valid", ctypes.c_void_p), ("divisor", ctypes.c_double),
+        ("identity", ctypes.c_int64), ("type", ctypes.c_int), ("kind", ctypes.c_int),
+        ("pred", ctypes.c_int), ("square", ctypes.c_int),
+    ]
+
+
+class _AggRequestSet(ctypes.Structure):
+    _fields_ = [("req", _AggRequest * SEGMENT_AGG_MAX_REQUESTS), ("n", ctypes.c_int)]
+
+
+class _AggOutput(ctypes.Structure):
+    _fields_ = [
+        ("first_values", ctypes.c_void_p), ("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("divisor", ctypes.c_double), ("op", ctypes.c_int), ("a", ctypes.c_int),
+        ("b", ctypes.c_int), ("out_type", ctypes.c_int), ("elem_bytes", ctypes.c_int),
+        ("a_float", ctypes.c_int),
+    ]
+
+
+class _AggOutputSet(ctypes.Structure):
+    _fields_ = [("out", _AggOutput * SEGMENT_AGG_MAX_OUTPUTS), ("n", ctypes.c_int)]
+
+
+def _f64_bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def _request_plan(req: AggRequest, n: int, dev):
+    """(C kind, identity bits, result is a double) of a request; raises on
+    what the kernel does not take."""
+    name = "segment_agg"
+    if req.kind not in ("count", "sum", "fsum", "min", "max", "last"):
+        raise ValueError(f"{name}: unknown request kind {req.kind!r}")
+    for t in (req.valid, req.filt, req.filt_valid):
+        if t is not None:
+            _check_vectors(name, (t,), (torch.bool,))
+            if t.shape[0] != n or t.device != dev:
+                raise ValueError(f"{name}: request columns must be {n} rows on {dev}")
+    if (req.filt is None) != (req.filt_valid is None):
+        raise ValueError(f"{name}: a filter needs its validity")
+    if req.pred not in _AGG_PREDS:
+        raise ValueError(f"{name}: unknown predicate {req.pred!r}")
+    v = req.values
+    if v is None:
+        if req.kind != "count" or req.pred is not None:
+            raise ValueError(f"{name}: a {req.kind} request needs its values")
+    else:
+        if v.dtype not in _KEY_TYPES or v.ndim != 1:
+            raise TypeError(f"{name}: values of {v.dtype} {tuple(v.shape)} are not supported")
+        _check_vectors(name, (v,), (v.dtype,))
+        if v.shape[0] != n or v.device != dev:
+            raise ValueError(f"{name}: request columns must be {n} rows on {dev}")
+    is_float = v is not None and v.dtype.is_floating_point
+    if req.kind == "sum" and is_float:
+        raise TypeError(f"{name}: a float sum is an fsum request")
+    if req.kind in ("min", "max"):
+        if is_float:
+            return (_AGG_KINDS["f" + req.kind],
+                    _f64_bits(float("inf") if req.kind == "min" else float("-inf")), True)
+        if v.dtype == torch.bool:
+            return _AGG_KINDS[req.kind], int(req.kind == "min"), False
+        return _AGG_KINDS[req.kind], int(K.INT64_MAX if req.kind == "min" else K.INT64_MIN), False
+    if req.kind == "last":
+        return _AGG_KINDS["last"], -1, False
+    return _AGG_KINDS[req.kind], 0, req.kind == "fsum"
+
+
+def _check_group_keys(name: str, key_cols, n: int, dev) -> None:
+    if len(key_cols) > SEGMENT_AGG_MAX_KEYS:
+        raise ValueError(f"{name}: 0 to {SEGMENT_AGG_MAX_KEYS} group keys")
+    _check_page_cols(name, key_cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _KEY_TYPES:
+            raise TypeError(f"{name}: unsupported key column {d.dtype}")
+
+
+def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
+                active: torch.Tensor, key_cols, requests, outputs, dest=None):
+    """The sort-path aggregation over a group-sorted page, whole.
+
+    ``new_group`` (bool, set on each group's first row), ``num_groups`` (a
+    0-d int64 tensor), ``out_cap`` output slots, the page's ``active``;
+    ``key_cols``: (data, valid) of each group key (0 to 8, 1-D); ``requests``
+    (:class:`AggRequest`, up to :data:`SEGMENT_AGG_MAX_REQUESTS`) and
+    ``outputs`` (:class:`AggOutput`, up to :data:`SEGMENT_AGG_MAX_OUTPUTS`);
+    ``dest``, None or ``(key positions, luts, n_parts)``: the exchange
+    destination of each slot from its gathered keys (each LUT None or the
+    int64 value-key LUT of its dictionary).
+
+    Returns ``(starts, group_exists, keys_out, outs, dest)``: each group's
+    first row (int64 [out_cap], n past the last group), ``arange(out_cap) <
+    num_groups``, the keys at ``min(starts, n - 1)`` with validity &
+    group_exists, each output's (data, valid), and the destination (int32,
+    ``n_parts`` past num_groups) or None. The slots past ``num_groups`` are
+    inactive rows: their data is left unspecified by the kernel, which
+    gives each request its identity there. Float64 sums add in another
+    order than the plain cumsum form; every other value is bit-identical.
+    On CUDA tensors the kernel is five launches (count, scan, reduce, span
+    and finish; four without requests) over tiles of
+    :data:`SEGMENT_TILE_ROWS` rows and no memset; ``out_cap`` must hold
+    every group. A division by a scalar there is a product with its
+    reciprocal, as torch divides by a scalar on the card."""
+    name = "segment_agg"
+    _check_vectors(name, (new_group, active), (torch.bool, torch.bool))
+    n, dev = new_group.shape[0], new_group.device
+    if n < 1 or out_cap < 1:
+        raise ValueError(f"{name}: at least one row and one output slot")
+    if not (isinstance(num_groups, torch.Tensor) and num_groups.dtype == torch.int64
+            and num_groups.ndim == 0 and num_groups.device == dev):
+        raise TypeError(f"{name}: num_groups must be a 0-d int64 tensor on {dev}")
+    _check_group_keys(name, key_cols, n, dev)
+    if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
+        raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
+                         f"{SEGMENT_AGG_MAX_OUTPUTS} outputs a call")
+    plans = [_request_plan(r, n, dev) for r in requests]
+    for o in outputs:
+        if o.op not in _AGG_OPS or o.dtype not in _KEY_TYPES:
+            raise ValueError(f"{name}: unsupported output {o.op!r} of {o.dtype}")
+        if not 0 <= o.a < len(requests) or not -1 <= o.b < len(requests):
+            raise ValueError(f"{name}: an output names a request that is not there")
+        kinds = (requests[o.a].kind, None if o.b < 0 else requests[o.b].kind)
+        if kinds[1] not in (None, "count") or (o.op in ("avg_decimal", "avg_double")
+                                                and o.b < 0):
+            raise ValueError(f"{name}: an output's validity and divisor are counts")
+        if o.op == "first":
+            if kinds[0] != "last" or o.values is None or o.values.ndim != 1:
+                raise ValueError(f"{name}: first gathers 1-D values at a last request's row")
+            _check_page_cols(name, [(o.values, active)], n, dev)
+            if o.values.dtype != o.dtype:
+                raise TypeError(f"{name}: first keeps its values' type")
+        elif kinds[0] == "last":
+            raise ValueError(f"{name}: a last request is finished by first")
+        elif o.op == "value" and plans[o.a][2] and not o.dtype.is_floating_point:
+            raise TypeError(f"{name}: a float result cast to {o.dtype}")
+        elif o.op in ("bool_and", "bool_or") and (kinds[0] != "count" or o.dtype != torch.bool):
+            raise ValueError(f"{name}: {o.op} reads a count into a bool")
+    if dest is not None:
+        positions, luts, n_parts = dest
+        if (not 1 <= len(positions) <= _MAX_WIDE_KEYS or len(luts) != len(positions)
+                or any(not 0 <= i < len(key_cols) for i in positions)):
+            raise ValueError(f"{name}: destination keys are 1 to {_MAX_WIDE_KEYS} group keys, "
+                             "one LUT slot each")
+        if not 1 <= n_parts <= EPILOGUE_MAX_PARTS:
+            raise ValueError(f"{name}: n_parts {n_parts} outside [1, {EPILOGUE_MAX_PARTS}]")
+    if dev.type == "cpu":
+        return segment_agg_plain(new_group, num_groups, out_cap, active, key_cols, requests,
+                                 outputs, dest)
+    rs = _AggRequestSet()
+    rs.n = len(requests)
+    for c, r, (kind, ident, _) in zip(rs.req, requests, plans):
+        c.values = None if r.values is None else r.values.data_ptr()
+        c.valid = None if r.valid is None else r.valid.data_ptr()
+        if r.filt is not None:
+            c.filter, c.filter_valid = r.filt.data_ptr(), r.filt_valid.data_ptr()
+        c.divisor, c.identity, c.kind = float(r.divisor), ident, kind
+        c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
+        c.pred, c.square = _AGG_PREDS[r.pred], int(r.square)
+    os_ = _AggOutputSet()
+    os_.n = len(outputs)
+    outs = []
+    for c, o in zip(os_.out, outputs):
+        data = torch.empty(out_cap, dtype=o.dtype, device=dev)
+        valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
+        outs.append((data, valid))
+        c.data, c.valid, c.divisor = data.data_ptr(), valid.data_ptr(), float(o.divisor)
+        c.op, c.a, c.b, c.out_type = _AGG_OPS[o.op], o.a, o.b, _KEY_TYPES[o.dtype]
+        c.a_float = int(plans[o.a][2])
+        if o.op == "first":
+            c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
+    ks = _GroupKeySet()
+    ks.n = len(key_cols)
+    keys_out = []
+    for k, (d, v) in enumerate(key_cols):
+        od, ov = torch.empty(out_cap, dtype=d.dtype, device=dev), torch.empty(
+            out_cap, dtype=torch.bool, device=dev)
+        keys_out.append((od, ov))
+        col = ks.col[k]
+        col.data, col.valid, col.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+        ks.dst[k], ks.dst_valid[k], ks.elem_bytes[k] = od.data_ptr(), ov.data_ptr(), d.element_size()
+    dest_out = None
+    if dest is not None:
+        positions, luts, n_parts = dest
+        for j, (i, lut) in enumerate(zip(positions, luts)):
+            if lut is not None:
+                _check_vectors(name, (lut,), (torch.int64,))
+                if lut.device != dev or lut.shape[0] < 1:
+                    raise ValueError(f"{name}: LUT must be a non-empty tensor on {dev}")
+                ks.col[i].lut, ks.col[i].lut_len = lut.data_ptr(), lut.shape[0]
+            ks.dest_key[j] = i
+        ks.n_dest, ks.n_parts = len(positions), n_parts
+        dest_out = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    n_tiles = -(-n // SEGMENT_TILE_ROWS)
+    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
+    starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
+    partials = torch.empty(max(1, len(requests) * (out_cap + 2 * n_tiles)), dtype=torch.int64,
+                           device=dev)
+    group_exists = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    _check_launch(name, _library().segment_agg(
+        ctypes.byref(rs), ctypes.byref(os_), ctypes.byref(ks), new_group.data_ptr(),
+        active.data_ptr(), num_groups.data_ptr(), n, out_cap, scratch.data_ptr(),
+        starts.data_ptr(), partials.data_ptr(), group_exists.data_ptr(),
+        None if dest_out is None else dest_out.data_ptr(), _stream(new_group)))
+    LAUNCHES[name] += 1
+    return starts[:out_cap], group_exists, keys_out, outs, dest_out
+
+
 # --------------------------------------------------------------------------- #
 # group sort (replaces megakernels.group_sort_phase and expand_phase's sort
 # stage) and the repartition epilogue (replaces megakernels.fused_epilogue)
@@ -735,6 +1170,21 @@ _VALUE_FIELD, _VALID_FIELD, _INACTIVE_FIELD = 0, 1, 2
 
 class _WideKeySet(ctypes.Structure):
     _fields_ = [("col", _KeyCol * _MAX_WIDE_KEYS), ("n", ctypes.c_int)]
+
+
+class _GroupKeySet(ctypes.Structure):
+    _fields_ = [
+        ("col", _KeyCol * _MAX_WIDE_KEYS), ("dst", ctypes.c_void_p * _MAX_WIDE_KEYS),
+        ("dst_valid", ctypes.c_void_p * _MAX_WIDE_KEYS),
+        ("elem_bytes", ctypes.c_int * _MAX_WIDE_KEYS), ("n", ctypes.c_int),
+        ("dest_key", ctypes.c_int * _MAX_WIDE_KEYS), ("n_dest", ctypes.c_int),
+        ("n_parts", ctypes.c_int),
+    ]
+
+
+class _DestKeys(ctypes.Structure):
+    _fields_ = [("col", _KeyCol * _MAX_WIDE_KEYS), ("build_side", ctypes.c_int * _MAX_WIDE_KEYS),
+                ("n", ctypes.c_int), ("n_parts", ctypes.c_int)]
 
 
 class _Field(ctypes.Structure):
@@ -921,14 +1371,15 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
 
 
 # the kernels whose C entry points count their stream operations
-_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "partition_epilogue",
+_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "segment_agg", "partition_epilogue",
                "partition_dest")
 
 
 def stream_ops(name: str) -> int:
     """Kernel launches and memsets that ``name``'s kernels (one of
-    ``hash_probe``, ``group_sort``, ``segment_sum``, ``partition_epilogue``
-    and ``partition_dest``) have issued since the library was loaded."""
+    ``hash_probe``, ``group_sort``, ``segment_sum``, ``segment_agg``,
+    ``partition_epilogue`` and ``partition_dest``) have issued since the
+    library was loaded."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 

@@ -16,13 +16,22 @@ of the reference's body that stay torch operators:
   runs in ``group_sort``.
 - :func:`group_sort_phase`: ``group_sort`` alone, the re-group after a
   presorted sortedness violation.
-- :func:`aggregate_phase`: the sort-path reduction (``_aggregate_impl``),
-  whose integer sums and counts run in ``segment_sum``.
+- :func:`aggregate_phase`: the sort-path reduction in ``segment_agg``: the
+  group starts, the key gathers, every sum, count, min, max and
+  ``arbitrary`` and the finishing of ``avg``; the long tail (variance,
+  covariance and regression finishing, bitwise, distinct counts,
+  ``approx_distinct``, percentiles, ``min_by``/``max_by``) stays the
+  executor's torch operators, counted in ``STAGES["aggregate_torch"]``.
 - the exchange destination stage (``epi_spec`` of :func:`expand_phase`
-  and :func:`aggregate_phase`): where the fragment's output feeds a hash
-  exchange (the worker's repartition hint), ``partition_dest`` computes
-  each row's destination on the page the phase returns, and
-  :func:`attach_epilogue` rides it on the page for the exchange.
+  and :func:`aggregate_phase`), where the fragment's output feeds a hash
+  exchange (the worker's repartition hint): written by the kernel that
+  holds the keys, ``hash_expand``'s slot pass where the joined page is the
+  phase's output (``STAGES["dest_expand"]``) and ``segment_agg``'s finish
+  pass where every key is a group key (``STAGES["dest_aggregate"]``);
+  elsewhere (after a projection or a direct aggregation, or an exchange
+  key that is an aggregate's output) ``partition_dest`` computes it on the
+  page the phase returns (``STAGES["dest"]``). :func:`attach_epilogue`
+  rides it on the page for the exchange.
 - :func:`fused_epilogue`: the repartition epilogue in
   ``partition_epilogue``, on the operator-state spill and, given the
   attached destination, on the worker's hash exchange.
@@ -64,7 +73,10 @@ DEFAULT_BUCKET_CAP = 32
 TABLE_ENTRY_LIMIT = 1 << 30
 
 LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
-# exchange destination stages run after a fused phase (``exchange_dest``)
+# exchange destination stages by where they ran (``dest``: ``partition_dest``
+# after a phase; ``dest_expand``, ``dest_aggregate``: folded into
+# ``hash_expand`` and ``segment_agg``), and ``aggregate_torch``: aggregates of
+# a fused aggregation outside ``segment_agg``'s set
 STAGES: Counter = Counter()
 FALLBACKS: Counter = Counter()
 # columns the expansion carried by row index (nested layouts and wide lanes)
@@ -151,10 +163,11 @@ def _key_luts(cols, dev):
 
 
 def exchange_dest(page: Page, epi_spec):
-    """The exchange destination stage: ``epi_spec`` = (key_idx, n_parts) of
-    the hash exchange this page feeds; returns each row's destination
-    (int32, ``n_parts`` where inactive) from ``partition_dest``, or None
-    where a key is multi-lane (the exchange then hashes it itself)."""
+    """The exchange destination stage where no kernel of the phase holds
+    the keys: ``epi_spec`` = (key_idx, n_parts) of the hash exchange this
+    page feeds; returns each row's destination (int32, ``n_parts`` where
+    inactive) from ``partition_dest``, or None where a key is multi-lane
+    (the exchange then hashes it itself)."""
     key_idx, n_parts = epi_spec
     keys = [page.columns[i] for i in key_idx]
     if any(c.data.ndim != 1 for c in keys):
@@ -181,17 +194,28 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     :func:`aggregate_phase` once the caller has read ``num_groups``.
     ``epi_spec`` (None, or ``(key_idx, n_parts)`` over the returned page's
     columns, with no aggregation or a direct one): the exchange
-    destination stage; the return is then ``(page, dest)``."""
+    destination stage, folded into ``hash_expand`` where the joined page is
+    returned as it is (no projection, no aggregation, no key carried by
+    row index); the return is then ``(page, dest)``."""
     from ..runtime import executor as E
 
     pr = probe_result
-    probe_out, build_out, out_active = HK.hash_expand(
+    page_cols = probe_page.columns + build_page.columns
+    dest = None
+    if (epi_spec is not None and proj_spec is None and agg_spec is None
+            and not any(_by_row_index(page_cols[i]) or page_cols[i].data.ndim != 1
+                        for i in epi_spec[0])):
+        key_idx, n_parts = epi_spec
+        dest = (tuple(key_idx), _key_luts([page_cols[i] for i in key_idx],
+                                          probe_page.active.device), n_parts)
+    res = HK.hash_expand(
         pr["table"], pr["counts"], pr["bucket_p"], pr["count"], pr["emit"],
         pkeys, bkeys, luts, probe_page.active,
         [_gather_payload(c) for c in probe_page.columns],
         [_gather_payload(c) for c in build_page.columns],
-        out_capacity,
+        out_capacity, dest,
     )
+    probe_out, build_out, out_active = res[:3]
     LAUNCHES["expand"] += 1
     cols = tuple(
         _expanded_column(c, d, v)
@@ -204,6 +228,9 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
         compiled, _ = proj_spec
         out = E._project_impl(compiled, E.Relation(out, symbols).env(), out)
     if agg_spec is None:
+        if dest is not None:
+            STAGES["dest_expand"] += 1
+            return out, res[3]
         return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
     mode, payload = agg_spec
     if mode == "direct":
@@ -235,19 +262,27 @@ def group_sort_phase(group_keys, needed, symbols, page: Page):
 
 def aggregate_phase(group_keys, aggregations, needed, out_cap: int,
                     sorted_page: Page, new_group, num_groups, epi_spec=None):
-    """The sort-path reduction over a group-sorted page: the executor's
-    ``_aggregate_impl`` with its integer sums and counts in the
-    ``segment_sum`` kernel. With ``epi_spec`` (``(key_idx, n_parts)``) the
-    exchange destination stage follows, and the return is ``(page,
-    dest)``."""
+    """The sort-path reduction over a group-sorted page in ``segment_agg``
+    (``executor._kernel_aggregate``). With ``epi_spec`` (``(key_idx,
+    n_parts)`` over the output's columns, group keys first) the exchange
+    destination follows, and the return is ``(page, dest)``: from the
+    kernel where every key is a group key, else from
+    :func:`exchange_dest`."""
     from ..runtime import executor as E
 
     LAUNCHES["aggregate"] += 1
-    out = E._aggregate_impl(
-        group_keys, aggregations, needed, out_cap, sorted_page, new_group,
-        num_groups, segment_kernel=True,
+    fold = (epi_spec is not None and all(i < len(group_keys) for i in epi_spec[0])
+            and len(set(epi_spec[0])) <= HK.SEGMENT_AGG_MAX_KEYS)
+    out, dest = E._kernel_aggregate(
+        group_keys, aggregations, needed, out_cap, sorted_page, new_group, num_groups,
+        epi_spec if fold else None,
     )
-    return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
+    if epi_spec is None:
+        return out
+    if fold:
+        STAGES["dest_aggregate"] += 1
+        return out, dest
+    return out, exchange_dest(out, epi_spec)
 
 
 def fused_epilogue(page: Page, key_idx: Sequence[int], n_parts: int, dest=None):

@@ -33,6 +33,7 @@ fused join plane declines while a threshold is set, counted in
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,6 +63,7 @@ from ..spi.types import (
     Type,
     VectorType,
     is_floating,
+    is_nested,
     is_string,
 )
 from ..sql.ir import Call as IrCall
@@ -1520,7 +1522,8 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     ``reduce_fn``: sums and counts by cumsum at the group boundaries,
     min/max and the bitwise reductions by a scatter on the group index.
     With ``segment_kernel`` the integer sums and counts run in
-    ``hopper_kernels.segment_sum`` (the fused path's ``aggregate_phase``).
+    ``hopper_kernels.segment_sum`` (the long tail of the fused path's
+    ``aggregate_phase``, which runs the rest in ``segment_agg``).
     The long tail's helpers are the reference's: an exact distinct count
     and the percentile re-sort each group's rows by value (a stable sort,
     so a group's rows keep their positions and ``starts``), and
@@ -1664,6 +1667,87 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     return Page(tuple(out_cols), group_exists)
 
 
+def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Page,
+                      new_group, num_groups, dest_spec=None):
+    """The fused path's sort-path reduction (``megakernels.aggregate_phase``):
+    the group starts, the key gathers, group_exists, every aggregate of
+    ``segment_agg``'s set and, with ``dest_spec`` (``(key positions among
+    the group keys, n_parts)``), the exchange destination, in
+    ``hopper_kernels.segment_agg`` calls (one, unless the aggregates need
+    more requests or outputs, or the grouping more keys, than a call takes:
+    the destination's keys go to the first call, the other keys fill it
+    and the later ones in order). The long tail runs
+    through ``_aggregate_impl``'s torch operators, each aggregate ticking
+    ``megakernels.STAGES["aggregate_torch"]``. Returns ``(page, dest)``,
+    dest None without ``dest_spec``."""
+    rel = Relation(page, symbols)
+    active = page.active
+    keys = [rel.column_for(k) for k in group_keys]
+    for c in keys:
+        if is_nested_column(c) or c.data.ndim != 1:
+            raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
+    plans = [(i, _agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
+    # chunks of aggregates whose requests and outputs fit one call
+    chunks, cur, n_req = [], [], 0
+    for i, plan in plans:
+        if plan is None:
+            continue
+        need = len(plan[0])
+        if cur and (n_req + need > HK.SEGMENT_AGG_MAX_REQUESTS
+                    or len(cur) == HK.SEGMENT_AGG_MAX_OUTPUTS):
+            chunks.append(cur)
+            cur, n_req = [], 0
+        cur.append((i, plan))
+        n_req += need
+    chunks.append(cur)
+    # the group keys each call gathers: the destination's first
+    width = HK.SEGMENT_AGG_MAX_KEYS
+    order = [] if dest_spec is None else list(dict.fromkeys(dest_spec[0]))
+    order += [i for i in range(len(keys)) if i not in order]
+    key_sets = [order[i:i + width] for i in range(0, len(order), width)]
+    calls = max(len(chunks), len(key_sets))
+    chunks += [[]] * (calls - len(chunks))
+    key_sets += [[]] * (calls - len(key_sets))
+    cols: Dict[int, Column] = {}
+    key_out: Dict[int, tuple] = {}
+    dest = None
+    for c, (chunk, key_set) in enumerate(zip(chunks, key_sets)):
+        requests, index, outputs = [], {}, []
+        for _, (reqs, out, _) in chunk:
+            at = []
+            for r in reqs:
+                k = r.key()
+                if k not in index:
+                    index[k] = len(requests)
+                    requests.append(r)
+                at.append(index[k])
+            outputs.append(replace(out, a=at[out.a], b=-1 if out.b < 0 else at[out.b]))
+        kdest = None
+        if c == 0 and dest_spec is not None:
+            positions, n_parts = dest_spec
+            luts = [None if keys[i].dictionary is None else torch.as_tensor(
+                keys[i].dictionary.value_keys(), device=active.device) for i in positions]
+            kdest = (tuple(key_set.index(i) for i in positions), luts, n_parts)
+        _, group_exists, kout, outs, d = HK.segment_agg(
+            new_group, num_groups, out_cap, active,
+            [(keys[i].data, keys[i].valid) for i in key_set], requests, outputs, kdest)
+        key_out.update(zip(key_set, kout))
+        if c == 0:
+            dest, exists = d, group_exists
+        for (i, (_, _, dictionary)), (data, valid) in zip(chunk, outs):
+            cols[i] = Column(aggregations[i][1].output_type, data, valid, dictionary)
+    tail = [i for i, plan in plans if plan is None]
+    if tail:
+        MK.STAGES["aggregate_torch"] += len(tail)
+        torch_page = _aggregate_impl(group_keys, tuple(aggregations[i] for i in tail), symbols,
+                                     out_cap, page, new_group, num_groups, segment_kernel=True)
+        for i, col in zip(tail, torch_page.columns[len(group_keys):]):
+            cols[i] = col
+    out = [Column(k.type, *key_out[i], k.dictionary) for i, k in enumerate(keys)]
+    out += [cols[i] for i in range(len(aggregations))]
+    return Page(tuple(out), exists), dest
+
+
 def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: str) -> Page:
     """Direct-indexed aggregation for small-domain group keys: gid computed
     elementwise from dictionary codes / bools, NULL keys in each domain's last
@@ -1765,6 +1849,75 @@ def _lane_aggregate(rel: Relation, agg: Aggregation, arg: Column, fmask, w, out_
     return Column(out_type, dummy(torch.int32), lengths > 0, children=(lanes,))
 
 
+# the aggregates segment_agg serves (the rest is the long tail's torch code)
+_SEGMENT_AGGS = frozenset({"count", "count_if", "$fsum", "$fsumsq", "sum", "avg", "min", "max",
+                           "bool_and", "every", "bool_or", "arbitrary", "any_value"})
+_SEGMENT_DTYPES = (torch.int64, torch.int32, torch.int16, torch.int8, torch.bool,
+                   torch.float64, torch.float32)
+
+
+def _agg_plan(rel: Relation, agg: Aggregation):
+    """An aggregate of ``segment_agg``'s set as ``(requests, output,
+    dictionary)``: the per-group reductions it needs (the count of its
+    non-NULL rows first, where it has an argument) and how its column is
+    finished from them; None for the long tail, lane-valued aggregates and
+    long-decimal or nested arguments. The one definition that the torch
+    paths (through their ``reduce_fn``) and the kernel share."""
+    name = agg.function
+    if name not in _SEGMENT_AGGS:
+        return None
+    out_type = agg.output_type
+    if (is_nested(out_type) or isinstance(out_type, VectorType)
+            or out_type.storage_lanes is not None or out_type.torch_dtype not in _SEGMENT_DTYPES):
+        return None
+    odt = out_type.torch_dtype
+    filt = filt_valid = None
+    if agg.filter is not None:
+        fcol = rel.column_for(agg.filter)
+        filt = fcol.data if fcol.data.dtype == torch.bool else fcol.data.to(torch.bool)
+        filt_valid = fcol.valid
+    R = partial(HK.AggRequest, filt=filt, filt_valid=filt_valid)
+    if name == "count" and not agg.args:
+        return [R("count")], HK.AggOutput("value", 0, -1, odt), None
+    arg = rel.column_for(agg.args[0])
+    nonempty = R("count", valid=arg.valid)
+    if name == "count":
+        return [nonempty], HK.AggOutput("value", 0, -1, odt), None
+    v = arg.data
+    if is_nested_column(arg) or v.ndim != 1 or v.dtype not in _SEGMENT_DTYPES:
+        return None
+    if name == "count_if":
+        return ([nonempty, R("count", v, arg.valid, pred="nonzero")],
+                HK.AggOutput("value", 1, -1, odt), None)
+    if name in ("bool_and", "every", "bool_or"):
+        pred = "nonzero" if name == "bool_or" else "zero"
+        op = "bool_or" if name == "bool_or" else "bool_and"
+        return ([nonempty, R("count", v, arg.valid, pred=pred)],
+                HK.AggOutput(op, 1, 0, odt), None)
+    scale = float(10**arg.type.scale) if isinstance(arg.type, DecimalType) else 1.0
+    if name in ("$fsum", "$fsumsq"):
+        # float64 partial states of stddev/variance (fragmenter)
+        req = R("fsum", v, arg.valid, divisor=scale, square=name == "$fsumsq")
+        return [nonempty, req], HK.AggOutput("value", 1, -1, odt), None
+    if name in ("sum", "avg"):
+        kind = "fsum" if is_floating(arg.type) else "sum"
+        reqs = [nonempty, R(kind, v, arg.valid)]
+        if name == "sum":
+            return reqs, HK.AggOutput("value", 1, 0, odt), None
+        if isinstance(out_type, DecimalType):
+            # decimal avg keeps scale: round-half-up division
+            return reqs, HK.AggOutput("avg_decimal", 1, 0, odt), None
+        return reqs, HK.AggOutput("avg_double", 1, 0, odt, divisor=scale), None
+    if name in ("min", "max"):
+        return ([nonempty, R(name, v, arg.valid)], HK.AggOutput("value", 1, 0, odt),
+                arg.dictionary)
+    # arbitrary, any_value
+    if v.dtype != odt:
+        return None
+    return ([nonempty, R("last", v, arg.valid)], HK.AggOutput("first", 1, 0, odt, values=v),
+            arg.dictionary)
+
+
 def _to_f64_masked(col: Column, weight: torch.Tensor) -> torch.Tensor:
     """A numeric column as DOUBLE (a decimal divided by its scale), 0 where
     the row does not take part."""
@@ -1792,79 +1945,36 @@ def _eval_aggregate(
     ``broadcast_fn`` spreads a per-group value back over the rows; the
     exact distinct count, the HyperLogLog estimate and the percentile come
     from the sort path only. The reference's formulas, including its
-    one-pass moments (a sum of squares less the squared mean)."""
+    one-pass moments (a sum of squares less the squared mean). An aggregate
+    of ``segment_agg``'s set runs its requests (:func:`_agg_plan`) through
+    ``reduce_fn`` and ``first_fn`` and is finished as the kernel finishes
+    it."""
     name = agg.function
     out_type = agg.output_type
     device = active.device
     all_valid = torch.ones(out_cap, dtype=torch.bool, device=device)
+    plan = _agg_plan(rel, agg) if not (name in _LANE_AGGS and lane_fns is not None) else None
+    if plan is not None:
+        requests, output, dictionary = plan
+        results = [HK.run_request(r, active, reduce_fn, first_fn) for r in requests]
+        data, valid = HK.finish_output(output, results, out_cap)
+        return Column(out_type, data, valid, dictionary)
     fmask = active
     if agg.filter is not None:
         fcol = rel.column_for(agg.filter)
         fmask = fmask & (fcol.data.to(torch.bool) & fcol.valid)
-
-    if name == "count" and not agg.args:
-        return Column(BIGINT, reduce_fn(fmask.to(torch.int64), fmask, "count"), all_valid)
 
     arg = rel.column_for(agg.args[0])
     vals_s = arg.data
     w = fmask & arg.valid
     nonempty = reduce_fn(w.to(torch.int64), w, "count")
 
-    if name == "count":
-        return Column(BIGINT, nonempty, all_valid)
     if name in _LANE_AGGS and lane_fns is not None:
         return _lane_aggregate(rel, agg, arg, fmask, w, out_cap, *lane_fns)
     if vals_s.ndim == 2:
         # sum and avg reach here as limbs ($dec_limb); min/max need the
         # reference's hi-then-tied-lo reduction
         unported(f"ops.int128 ({name} over a long decimal)")
-    if name == "count_if":
-        ws = w & vals_s.to(torch.bool)
-        return Column(BIGINT, reduce_fn(ws.to(torch.int64), ws, "count"), all_valid)
-    if name in ("$fsum", "$fsumsq"):
-        # float64 partial states of stddev/variance (fragmenter)
-        x = _to_f64_masked(arg, w)
-        data = reduce_fn(x * x if name == "$fsumsq" else x, w, "sum")
-        return Column(DOUBLE, data, all_valid)
-    if name in ("sum", "avg"):
-        acc_dtype = torch.float64 if is_floating(arg.type) else torch.int64
-        data = reduce_fn(vals_s.to(acc_dtype), w, "sum")
-        if name == "avg":
-            if isinstance(out_type, DecimalType):
-                # decimal avg keeps scale: round-half-up division
-                half = nonempty // 2
-                denom = nonempty.clamp(min=1)
-                data = torch.where(
-                    data >= 0, (data + half) // denom, -((-data + half) // denom)
-                )
-            else:
-                data = data.to(torch.float64) / nonempty.clamp(min=1)
-                if isinstance(arg.type, DecimalType):
-                    data = data / float(10**arg.type.scale)
-        return Column(out_type, data.to(out_type.torch_dtype), nonempty > 0)
-    if name in ("min", "max"):
-        if vals_s.dtype.is_floating_point:
-            sent = float("inf") if name == "min" else float("-inf")
-            masked = torch.where(w, vals_s, sent)
-        elif vals_s.dtype == torch.bool:
-            masked = torch.where(w, vals_s, name == "min")
-        else:
-            sent = K.INT64_MAX if name == "min" else K.INT64_MIN
-            masked = torch.where(w, vals_s.to(torch.int64), sent)
-        data = reduce_fn(masked, torch.ones_like(w), name)
-        return Column(
-            out_type, data.to(out_type.torch_dtype), nonempty > 0, arg.dictionary
-        )
-    if name in ("bool_and", "every"):
-        ws = w & ~vals_s.to(torch.bool)
-        anyfalse = reduce_fn(ws.to(torch.int64), ws, "count")
-        return Column(BOOLEAN, anyfalse == 0, nonempty > 0)
-    if name == "bool_or":
-        ws = w & vals_s.to(torch.bool)
-        anytrue = reduce_fn(ws.to(torch.int64), ws, "count")
-        return Column(BOOLEAN, anytrue > 0, nonempty > 0)
-    if name in ("arbitrary", "any_value"):
-        return Column(out_type, first_fn(vals_s, w), nonempty > 0, arg.dictionary)
     if name in _VARIANCE_AGGS:
         x = _to_f64_masked(arg, w)
         s1 = reduce_fn(x, w, "sum")

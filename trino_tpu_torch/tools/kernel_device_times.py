@@ -1,5 +1,5 @@
-"""Device time of the hash probe and expansion, the sorts and the segment
-sums, by kernel, on the card.
+"""Device time of the hash probe and expansion, the sorts, the segment sums
+and the sort-path aggregation, by kernel, on the card.
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] [--joins FILE]
 
@@ -15,16 +15,22 @@ pages: 524,288 rows in 131,072 slots, 119,740 groups of about four rows
 (the shape of Q3's at SF10), and 4,194,304 rows in groups of about four
 (``chip_smoke.py``'s synthetic case). After each join's probe,
 ``hopper_kernels.hash_expand`` runs on that probe's output, with both
-sides' keys and a seeded int32 and float64 column each. For each it prints
-the wrapper's milliseconds (CUDA events over 10 calls after one; the
-host's work between launches included) and the device microseconds a
-call spends in each kernel and memset (``torch.profiler`` over 10 calls).
-The join inputs are
+sides' keys and a seeded int32 and float64 column each, then with the
+exchange destination of 4 partitions on the probe key (and on the probe
+key, a build key and an int32 column through a value-key LUT): folded into
+the expansion where ``hash_expand`` takes a destination, and always as the
+expansion followed by ``partition_dest``. ``megakernels.aggregate_phase``
+runs on the inputs of Q3's and Q10's sort-path aggregations. For each it
+prints the wrapper's milliseconds (CUDA events over 10 calls after one;
+the host's work between launches included), the device kernels and
+memsets of one call, and the device microseconds a call spends in each
+(``torch.profiler`` over 10 calls). The join inputs are
 the probe calls of one run of the two queries through ``DIR``'s
 ``LocalQueryRunner`` (about a minute of host generation), saved to
 ``FILE`` (default: ``trino_tpu_torch/_build/kernel_inputs/joins_sf10.pt``
 of this checkout, gitignored) by the first run and read by later ones,
-so every commit is timed on the same inputs. Needs a card and ``nvcc``.
+so every commit is timed on the same inputs; the aggregation inputs go to
+``aggregates_sf10.pt`` beside it. Needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -64,7 +71,11 @@ QUERIES = {
 
 def capture_joins(HK, path: Path) -> None:
     """Runs Q3 and Q10 at SF10, keeping a compact copy of the arguments of
-    every hash_probe call, and saves them as ``[(label, args), ...]``."""
+    every hash_probe call, and saves them as ``[(label, args), ...]``; the
+    arguments of each ``aggregate_phase`` call go to ``aggregates_sf10.pt``
+    beside it the same way (its sorted page is not written again, so the
+    call's own tensors are kept)."""
+    from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     def copy(x):
@@ -74,8 +85,8 @@ def capture_joins(HK, path: Path) -> None:
             return type(x)(copy(y) for y in x)
         return x
 
-    joins = []
-    orig = HK.hash_probe
+    joins, aggregates = [], []
+    orig, orig_agg = HK.hash_probe, MK.aggregate_phase
     runner = LocalQueryRunner.tpch(scale=10, device="cuda")
     try:
         for q, sql in QUERIES.items():
@@ -86,12 +97,17 @@ def capture_joins(HK, path: Path) -> None:
                 joins.append((f"{_q} join {_k[0]}", copy(args)))
                 return orig(*args)
 
-            HK.hash_probe = tapped
+            def tapped_agg(*args, _q=q):
+                aggregates.append((f"{_q} aggregation", args))
+                return orig_agg(*args)
+
+            HK.hash_probe, MK.aggregate_phase = tapped, tapped_agg
             runner.execute(sql)
     finally:
-        HK.hash_probe = orig
+        HK.hash_probe, MK.aggregate_phase = orig, orig_agg
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(joins, path)
+    torch.save(aggregates, path.parent / "aggregates_sf10.pt")
 
 
 def side_cols(keys, n: int, dev, seed: int):
@@ -158,33 +174,79 @@ def wrapper_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, reps: int = 10) -> dict:
+# the tracer can miss the first kernels of a traced window: each window
+# opens on spin kernels and a pause on the host, left out of the result
+_PAD_SPINS = 4
+_SPIN_CYCLES = 1_000_000
+
+
+def traced_kernels(fn, reps: int) -> list:
+    """(name, device us, count) of each kernel and memset over ``reps``
+    calls of ``fn`` after one untraced warm-up call (``torch.profiler``;
+    empty where it sees no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PAD_SPINS):
+            torch.cuda._sleep(_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out = []
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
-        if us:
+        if us or str(getattr(ev, "device_type", "")).endswith("CUDA"):
             name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1].strip() or ev.key[:40]
-            out[name] = out.get(name, 0.0) + us / reps
+            if name != "spin_kernel":
+                out.append((name, us, ev.count))
     return out
+
+
+def device_us(fn, reps: int = 10) -> tuple:
+    """(device us a call by kernel or memset, how many of each a call)."""
+    out, count = {}, {}
+    for name, us, n in traced_kernels(fn, reps):
+        if us:
+            out[name] = out.get(name, 0.0) + us / reps
+            count[name] = count.get(name, 0) + n / reps
+    return out, count
 
 
 def report(root: str, label: str, fn) -> None:
     ms = wrapper_ms(fn)
-    us = device_us(fn)
+    us, count = device_us(fn)
     parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))
     print(f"[{root}] {label}: wrapper {ms:.4f} ms; device {sum(us.values()):.1f} us a call "
-          f"({parts})", flush=True)
+          f"in {sum(count.values()):g} kernels and memsets ({parts})", flush=True)
+
+
+def dest_reports(root: str, HK, label: str, ex: tuple, dev) -> None:
+    """The expansion with the exchange destination on one key and on three
+    (a dictionary key among them): folded into ``hash_expand`` where it
+    takes one, and as the expansion followed by ``partition_dest``."""
+    import inspect
+
+    pcols = ex[9]
+    code = next(i for i, (d, _) in enumerate(pcols) if d.dtype == torch.int32)
+    lut = torch.arange(64, dtype=torch.int64, device=dev) * 7919
+    for keys, luts in (((0,), [None]), ((0, len(pcols), code), [None, None, lut])):
+        def then_dest(keys=keys, luts=luts):
+            out = HK.hash_expand(*ex)
+            cols = out[0] + out[1]
+            return HK.partition_dest([cols[i] for i in keys], luts, out[2], 4)
+
+        report(root, f"hash_expand then partition_dest on {len(keys)} keys, {label}", then_dest)
+        if "dest" in inspect.signature(HK.hash_expand).parameters:
+            folded = ex + ((keys, luts, 4),)
+            report(root, f"hash_expand with the destination on {len(keys)} keys, {label}",
+                   lambda: HK.hash_expand(*folded))
 
 
 def main() -> None:
@@ -207,15 +269,26 @@ def main() -> None:
     print(f"card: {card.stdout.strip()}", flush=True)
     HK.build()
     dev = torch.device("cuda")
-    if not joins.exists():
+    if not (joins.exists() and (joins.parent / "aggregates_sf10.pt").exists()):
         capture_joins(HK, joins)
+    from trino_tpu_torch.ops import megakernels as MK
+
     for label, args in torch.load(joins, map_location=dev):
         shape = f"n={args[3].shape[0]} m={args[4].shape[0]} B={args[5]} C={args[6]}"
         report(root, f"hash_probe, {label} ({shape})", lambda: HK.hash_probe(*args))
         ex = expand_args(HK.hash_probe(*args), args, dev)
         report(root, f"hash_expand, {label} ({ex[-1]} slots)", lambda: HK.hash_expand(*ex))
+        if label.startswith("q03"):
+            dest_reports(root, HK, label, ex, dev)
         del ex
     del args
+    torch.cuda.empty_cache()
+    for label, args in torch.load(joins.parent / "aggregates_sf10.pt", map_location=dev,
+                                  weights_only=False):
+        page = args[4]
+        report(root, f"aggregate_phase, {label} (n={page.active.shape[0]} slots={args[3]} "
+                     f"aggregates={len(args[1])})", lambda: MK.aggregate_phase(*args))
+    del args, page
     torch.cuda.empty_cache()
     keys, payload, active = args = q10_page(dev)
     report(root, "group_sort, Q10-shaped page", lambda: HK.group_sort(*args))
