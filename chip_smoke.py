@@ -34,6 +34,24 @@ printed):
    the whole-table bound of earlier versions. The expansion with the
    exchange destination folded in (one key; three with a dictionary key)
    is held against its plain version and timed beside the one without.
+   Then expand_phase's stages after the join: ``expr_program`` on TPC-H's
+   computed fused projections (Q3's revenue, Q8's CASE with ``year``,
+   Q12's CASEs over string ``$eq``, ``$or``, ``$and`` and ``$ne``) and a
+   decimal to double cast at 4,194,304 rows, then on edge forms (NULLs, a
+   zero divisor, negative half-up rounding, int64 and int32 wrap, dates
+   before 1970, double ``%``, Kleene logic, ``coalesce``, ``InLut``, a CASE
+   without ELSE) at 300,000 rows and one row; ``presorted_group`` on Q3's
+   shape (4,194,304 slots, 3,000,000 active) and on interleaved inactive
+   tiles, NULL keys, a decreasing first key, a later key changing inside a
+   run, nine keys (and the ninth changing), doubles and one row;
+   ``segment_agg_direct`` with every request kind and finishing on Q12's
+   shape (G = 8) and at G = 256 over a page of ``lineitem``'s SF10
+   capacity, on empty groups, a boolean key, codes outside their
+   dictionary and one row (its float sums at 1e-9 relative, and bit for
+   bit against its own second run); every one bit-exact against its plain
+   version, each main shape timed beside its bound and plain version (the
+   direct form beside one ``index_add_`` or ``scatter_reduce_`` a request,
+   summed) with its stream operations a call.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
    count set to 0 just before it), rows identical to an independent numpy
@@ -47,7 +65,12 @@ printed):
    ``aggregate_phase`` call on each one's inputs launching ``segment_agg``'s
    passes only (``torch.profiler``), printed beside the eager path's
    kernels on the same inputs; Q3's expansion timed with and without the
-   destination. Every
+   destination. Q3 must launch ``expr_program`` and ``presorted_group`` and
+   Q10 ``expr_program`` (every launch of both bit-exact, no projection
+   assignment on a closure); one ``expand_phase`` call on Q3's inputs
+   prints its device kernels beside the same call with its stages after
+   the join as torch operators, and its stages' wrapper calls and launches
+   (their own C counters) must be one call of each stage it runs. Every
    kernel is also checked and timed on the inputs the queries gave it (its
    real distributions; the repartition epilogue on Q10's joined page; the
    hash probe, with the whole joined page and its phase split, on each of
@@ -68,7 +91,10 @@ printed):
    tier off: rows identical (DOUBLE at 1e-9 relative), no fallback but the
    CROSS joins the fused path declines (Q11, Q22), and every kernel each
    query launched held bit-exact against its plain version on the inputs
-   the query gave it.
+   the query gave it, every launch of ``expr_program``, ``presorted_group``
+   and ``segment_agg_direct`` among them; no fused projection assignment
+   left on a closure (``STAGES["project_torch"]`` 0 on all 22), and Q5 and
+   Q12 through ``segment_agg_direct``.
 6. The out-of-core tier. (a) Q1 at SF30 through the streaming
    aggregation (``runtime/streaming.py``): wall, splits, peak device memory
    (fails past 8 GiB), the I/O pool's generation seconds and the main
@@ -93,7 +119,8 @@ printed):
    corpus at SF10 through ``LocalQueryRunner.tpcds(scale=10)`` with the
    default session: wall, peak device memory, launches by kernel and
    fused phase, no fallback, every tapped launch bit-exact against its
-   plain version on its own inputs, the NULL join keys each probe met
+   plain version on its own inputs (the three stages after the join among
+   them), the NULL join keys each probe met
    (and how many on active rows), q7's largest star join's ``hash_probe``
    and ``hash_expand`` timed beside their bounds; q7 again with dynamic
    filtering off, so its NULL foreign keys stay active into the probe's
@@ -101,7 +128,9 @@ printed):
    rows identical to the kernel tier off, q3 and q98 equal to numpy over
    the generator. (b) The 25 corpus queries (texts read from
    ``tests/test_tpcds.py`` by ``tests/tpcds_corpus_texts.py``, which
-   fails unless 25 come out) at SF1, as phase 5 runs TPC-H's. (c) A
+   fails unless 25 come out) at SF1, as phase 5 runs TPC-H's, each with
+   its ``project_torch`` printed (not a gate: a string-valued assignment
+   stays on its closure). (c) A
    ``rank()`` and ROWS-frame ``sum`` window over TPC-H ``orders`` at SF10
    (15,000,000 rows), filtered to rank <= 3 and aggregated by rank: rows
    equal to numpy.
@@ -109,12 +138,20 @@ printed):
    TABLE AS of ``lineitem``, ``orders``, ``customer``, ``part``, ``supplier``,
    ``nation`` and ``region`` into ``memory.default``: rows against the
    generator's count, seconds, device bytes stored, peak. (b) Q6, Q1, Q3,
-   Q10 and Q18 (threshold 300) from the memory tables with the default
-   session: rows identical to phases 3 and 4's over ``tpch``, the wall
+   Q10 and Q18 (threshold 300), then Q12 and Q5 without its supplier join
+   (the direct aggregation at SF10, through ``segment_agg_direct``, whose
+   times in the kernels line are Q12's here; Q5's own plan joins customer
+   and supplier on their nation key, about 1.2e9 rows at SF10, past
+   ``hash_expand``'s slots), from the memory tables with the default
+   session: rows identical to phases 3 and 4's over ``tpch`` (Q12 and Q5's
+   variant only to the kernel tier off), no projection assignment on a
+   closure, the wall
    beside that phase's, peak, launches by kernel and fused phase, no
    fallback, Q10's fused phases as in phase 3, every tapped launch
    bit-exact against its plain version, and whether the optimized plan's
-   text equals the one over ``tpch`` (printed, not a gate); then each with
+   text equals the one over ``tpch`` (printed, not a gate), one
+   ``expand_phase`` call on Q12's inputs traced as phase 3 traces Q3's;
+   then each with
    the kernel tier off over the same tables: rows identical to the
    default session's (the fused path against the serial one at SF10),
    wall and peak. (c) A checksum
@@ -256,8 +293,10 @@ QUERIES = {
 KERNELS_OF = {
     "q06": ("q6_fused",),
     "q01": ("grouped_sum_i64", "grouped_sum_i32"),
-    "q03": ("hash_probe", "hash_expand", "segment_agg"),
-    "q10": ("hash_probe", "hash_expand", "group_sort", "segment_agg"),
+    "q03": ("hash_probe", "hash_expand", "expr_program", "presorted_group", "segment_agg"),
+    "q10": ("hash_probe", "hash_expand", "expr_program", "group_sort", "segment_agg"),
+    "q05c": ("hash_probe", "hash_expand", "expr_program", "segment_agg_direct"),
+    "q12": ("hash_probe", "hash_expand", "expr_program", "segment_agg_direct"),
 }
 # the default-session walls of phases 3 and 4, by query (phase 8 prints its
 # walls over memory tables beside them)
@@ -1210,6 +1249,13 @@ def time_wrapper(HK, name, args) -> tuple:
         b, by = epilogue_bound(args)
     elif name == "partition_dest":
         b, by = dest_bound(args)
+    elif name == "segment_agg_direct":
+        lib = direct_yardstick(args)
+        b, by = direct_bound(args)
+    elif name == "presorted_group":
+        b, by = presorted_bound(args)
+    elif name == "expr_program":
+        b, by = expr_bound(args)
     else:
         b, by = expand_bound(args)
     return ms, plain_ms, lib, b, by
@@ -1221,6 +1267,8 @@ PLAIN = {
     "segment_sum": "segment_sum_plain", "segment_agg": "segment_agg_plain",
     "group_sort": "group_sort_plain",
     "partition_epilogue": "partition_epilogue_plain", "partition_dest": "partition_dest_plain",
+    "expr_program": "expr_program_plain", "presorted_group": "presorted_group_plain",
+    "segment_agg_direct": "segment_agg_direct_plain",
 }
 
 
@@ -1240,11 +1288,21 @@ def same_result(HK, name, args) -> bool:
         ok, worst = same_segment_agg(got, want, args)
         AGG_FLOAT_ERR[0] = max(AGG_FLOAT_ERR[0], worst)
         return ok and same_bits(got, getattr(HK, name)(*args))
+    if name == "segment_agg_direct":
+        ok, worst = same_direct(got, want, args)
+        DIRECT_FLOAT_ERR[0] = max(DIRECT_FLOAT_ERR[0], worst)
+        return ok and same_direct_bits(got, getattr(HK, name)(*args))
+    if name == "presorted_group":
+        return same_presorted(got, want)
+    if name == "expr_program":
+        return same_cols(got, want)
     return torch.equal(got, want)
 
 
-# the largest difference of a segment_agg float sum from its plain version
+# the largest difference of a segment_agg (segment_agg_direct) float sum from
+# its plain version
 AGG_FLOAT_ERR = [0.0]
+DIRECT_FLOAT_ERR = [0.0]
 
 
 class LaunchTap:
@@ -1260,6 +1318,9 @@ class LaunchTap:
         "segment_sum": lambda a: a[0].element_size(),  # a sum over a count
         "segment_agg": lambda a: a[0].shape[0],
         "group_sort": lambda a: a[2].shape[0],
+        "expr_program": lambda a: a[1][0][1].shape[0],
+        "presorted_group": lambda a: a[1].shape[0],
+        "segment_agg_direct": lambda a: a[2].shape[0],
     }
 
     def __init__(self, HK, names, keep_all=()):
@@ -1317,6 +1378,12 @@ SHAPE_OF = {
     "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
                              f"active={int(a[2].sum())} columns={len(a[1])}"),
     "partition_dest": lambda a: f"n={a[2].shape[0]} keys={len(a[0])} parts={a[3]}",
+    "expr_program": lambda a: (f"n={a[1][0][1].shape[0]} inputs={len(a[1])} "
+                               f"outputs={len(a[0].output_dtypes)} instructions={len(a[0].code)}"),
+    "presorted_group": lambda a: (f"n={a[1].shape[0]} keys={len(a[0])} "
+                                  f"active={int(a[1].sum())}"),
+    "segment_agg_direct": lambda a: (f"n={a[2].shape[0]} G={math.prod(a[1])} domains={a[1]} "
+                                     f"requests={len(a[3])} outputs={len(a[4])}"),
     "partition_epilogue": lambda a: (f"n={a[3].shape[0]} keys={len(a[0])} parts={a[4]} "
                                      f"{'given the destination ' if given_dest(a) else ''}"
                                      f"active={int(a[3].sum())} columns={len(a[2])}"),
@@ -1337,8 +1404,11 @@ def record(results: dict, name: str, query: str, timing: tuple, recorded: set) -
 def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: set) -> None:
     """Each kernel on the inputs the query's path gave it: bit-exact against
     its plain version, timed beside its bound; these times replace the
-    synthetic cases' in the kernels line."""
+    synthetic cases' in the kernels line. A tapped kernel the query did not
+    launch is skipped."""
     for name in tap.orig:
+        if name not in tap.inputs:
+            continue
         in_run = tap.launch_ms(name)
         args = tap.inputs[name]
         if not same_result(HK, name, args):
@@ -1454,6 +1524,83 @@ def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
     if ops != len(SEGMENT_AGG_KERNELS) or not all(passes.values()):
         fail(f"{label}: {ops} segment_agg launches a call and the passes {passes} over {reps} "
              f"calls, not its {len(SEGMENT_AGG_KERNELS)} passes")
+
+
+def fused_expand_call(calls):
+    """The last expand_phase call with stages after the join (a projection
+    or an aggregation) among a PhaseTap's calls."""
+    fused = [c for c in calls if c[0][8] is not None or c[0][9] is not None]
+    if not fused:
+        fail("no expand_phase call ran a stage after the join")
+    return fused[-1]
+
+
+def eager_expand_phase(args, kw):
+    """expand_phase on these inputs with its stages after the join as torch
+    operators (the projection's closures, the plain presorted grouping,
+    the direct aggregation's torch path): the path before expr_program,
+    presorted_group and segment_agg_direct, on this tree."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime import executor as E
+
+    saved = E._project_program, E._presorted_group_impl, E._direct_aggregate
+    E._project_program = lambda program, compiled, env, page: E._project_impl(compiled, env,
+                                                                              page)
+    E._presorted_group_impl = lambda *a: saved[1](*a[:4])
+    E._direct_aggregate = lambda *a, kernel=False: saved[2](*a)
+    try:
+        return MK.expand_phase(*args, **kw)
+    finally:
+        E._project_program, E._presorted_group_impl, E._direct_aggregate = saved
+
+
+# the launches and copies of one call of each fused stage's wrapper (its C
+# entry point's own count): expr_program one launch, presorted_group the key
+# set's copy, a memset and one launch, segment_agg_direct two launches
+STAGE_OPS = {"expr_program": 1, "presorted_group": 3, "segment_agg_direct": 2}
+
+
+def check_expand_phase_kernels(HK, label: str, call, reps: int = 10) -> None:
+    """One expand_phase call on a query's inputs, traced (``torch.profiler``)
+    beside the same call with its stages after the join as torch operators
+    (:func:`eager_expand_phase`): the device kernels and memsets of each,
+    printed. The stages' launches are counted from their wrappers' own C
+    counters over the traced calls, and must be one call of each stage the
+    shape runs, with its launches. Fails where the profiler cannot trace
+    the card or sees nothing."""
+    from trino_tpu_torch.ops import megakernels as MK
+
+    args, kw = call
+    calls = []
+
+    def run():
+        calls.append(1)
+        MK.expand_phase(*args, **kw)
+
+    torch.cuda.synchronize()
+    before = {k: (HK.LAUNCHES[k], HK.stream_ops(k)) for k in STAGE_OPS}
+    try:
+        got = device_kernels(run, reps)
+        eager = device_kernels(lambda: eager_expand_phase(args, kw), reps)
+    except Exception as e:  # the gate fails whatever stopped it
+        fail(f"expand_phase [{label}]: device kernels could not be traced ({e!r})")
+    torch.cuda.synchronize()
+    if not got or not eager:
+        fail(f"expand_phase [{label}]: the profiler saw no device activity")
+    per_call = {k: ((HK.LAUNCHES[k] - b[0]) / len(calls), (HK.stream_ops(k) - b[1]) / len(calls))
+                for k, b in before.items()}
+    print(f"  expand_phase [{label}]: {sum(got.values()) / reps} device kernels and memsets a "
+          f"call ({got} in {reps} calls); with the stages after the join as torch operators "
+          f"{sum(eager.values()) / reps} a call ({len(eager)} kinds: {eager}); the stages' "
+          f"wrapper calls and launches a call {per_call}", flush=True)
+    proj, agg = args[8], args[9]
+    want = {"expr_program": int(proj is not None and any(k >= 0 for k in proj[2].assign_out)),
+            "presorted_group": int(agg is not None and agg[0] == "presorted"),
+            "segment_agg_direct": int(agg is not None and agg[0] == "direct")}
+    for k, n in want.items():
+        if per_call[k] != (n, n * STAGE_OPS[k]):
+            fail(f"expand_phase [{label}]: {k} ran {per_call[k]} calls and launches a call, "
+                 f"not {(n, n * STAGE_OPS[k])}")
 
 
 def check_every_probe(HK, query: str, tap: LaunchTap) -> None:
@@ -1742,6 +1889,12 @@ SOURCES = {
                            "trino_tpu/ops/megakernels.py:603"),
     "partition_dest": ("trino_tpu_torch/csrc/partition_dest.cu",
                        "trino_tpu/ops/megakernels.py:452"),
+    "expr_program": ("trino_tpu_torch/csrc/expr_program.cu",
+                     "trino_tpu/ops/megakernels.py:416"),
+    "presorted_group": ("trino_tpu_torch/csrc/presorted_group.cu",
+                        "trino_tpu/ops/megakernels.py:436"),
+    "segment_agg_direct": ("trino_tpu_torch/csrc/segment_agg_direct.cu",
+                           "trino_tpu/ops/megakernels.py:425"),
 }
 
 
@@ -1805,6 +1958,385 @@ def check_kernels(HK, n_main: int, dev) -> dict:
     print(f"  q6_fused: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
           f"torch call, bound {b:.4f} ms ({by})", flush=True)
     return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: expand_phase's stages after the join (expr_program,
+# presorted_group, segment_agg_direct)
+# --------------------------------------------------------------------------- #
+
+FUSED_SLOTS = 4_194_304  # a joined page of the fused path's main shape at SF10
+FUSED_KERNELS = ("expr_program", "presorted_group", "segment_agg_direct")
+
+
+def presorted_cases(HK, dev):
+    """(label, (key_cols, active)) cases for presorted_group. The first is
+    Q3's shape at SF10 (an orderkey run of about four rows a group, then
+    the date and priority constant within it, 3,000,000 of the 4,194,304
+    slots active, the inactive ones interleaved); then interleaved inactive
+    runs across tiles, NULL keys, a decreasing first key, a later key that
+    changes inside a run, nine keys, doubles, and one row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    tile = HK.PRESORTED_TILE_ROWS
+
+    def sorted_keys(n, rate, n_keys=3, act_rate=0.72, null_rate=0.0):
+        first = torch.cumsum((torch.rand(n, generator=gen, device=dev) < rate).to(torch.int64), 0)
+        active = torch.rand(n, generator=gen, device=dev) < act_rate
+        date = (first * 7 % 2406 + 8035).to(torch.int32)
+        prio = (first % 2).to(torch.int32)
+        valid = torch.rand(n, generator=gen, device=dev) >= null_rate
+        keys = [(first * 4 + 1, valid), (date, torch.ones_like(active)), (prio, valid.clone())]
+        return keys[:n_keys], active
+
+    yield f"Q3 shape n={FUSED_SLOTS}", sorted_keys(FUSED_SLOTS, 0.25)
+    keys, active = sorted_keys(40 * tile + 3, 0.01)
+    active[3 * tile - 5:9 * tile + 17] = False  # six tiles with no active row
+    active[20 * tile:20 * tile + tile] = False
+    yield "inactive runs across tiles", (keys, active)
+    yield "NULL keys", sorted_keys(300_001, 0.3, null_rate=0.05)
+    keys, active = sorted_keys(300_000, 0.3)
+    d0 = keys[0][0].clone()
+    d0[150_000] = d0[150_000] - 100
+    active[149_999:150_001] = True
+    yield "a decreasing first key", ([(d0, keys[0][1])] + keys[1:], active)
+    def inside_run(keys, active, at):
+        """Rows at and at + 1 active, in one run of the first key."""
+        d0 = keys[0][0].clone()
+        d0[at + 1] = d0[at]
+        active[at:at + 2] = True
+        return [(d0, keys[0][1])] + keys[1:]
+
+    keys, active = sorted_keys(300_000, 0.3)
+    keys = inside_run(keys, active, 200_000)
+    d1 = keys[1][0].clone()
+    d1[200_001] += 1
+    yield "a later key that changes inside a run", ([keys[0], (d1, keys[1][1])] + keys[2:],
+                                                    active)
+    keys, active = sorted_keys(200_000, 0.2)
+    keys = inside_run(keys, active, 100_002)
+    nine = keys + [((keys[0][0] % m).to(dt), keys[0][1]) for m, dt in (
+        (3, torch.int16), (5, torch.int8), (7, torch.int64), (2, torch.bool), (11, torch.int32),
+        (13, torch.int64))]
+    yield "nine keys", (nine, active)
+    viol = list(nine)
+    d8 = viol[8][0].clone()
+    d8[100_003] += 1
+    viol[8] = (d8, viol[8][1])
+    yield "nine keys, the ninth changing inside a run", (viol, active)
+    x = torch.sort(torch.randn(100_000, generator=gen, device=dev, dtype=torch.float64)).values
+    x[::7] = x[::7] - 0.0  # ties stay ties
+    yield "doubles", ([(x, torch.rand(100_000, generator=gen, device=dev) < 0.97)],
+                      torch.rand(100_000, generator=gen, device=dev) < 0.8)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    yield "n=1", ([(torch.zeros(1, dtype=torch.int64, device=dev), one)], one)
+
+
+def same_presorted(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def presorted_bound(args) -> tuple:
+    """Read the activity and every key's data and validity once; write
+    new_group once and the two scalars."""
+    keys, active = args
+    n = active.shape[0]
+    nbytes = 2 * n + sum(d.element_size() * n + n for d, _ in keys) + 9
+    return bound_ms(nbytes, 4 * n * len(keys))
+
+
+def direct_cases(HK, dev, n_wide: int):
+    """(label, (key_cols, domains, active, requests, outputs)) cases for
+    segment_agg_direct, each with every request kind and finishing
+    (``_agg_requests``). The first is Q12's shape at SF10 (one key of 8
+    slots, l_shipmode's 7 values and NULL, on FUSED_SLOTS rows 30 % active);
+    then G = 256 (a 31-value and a 7-value key with NULLs) over ``n_wide``
+    rows, lineitem's page at SF10; then empty groups (G = 256 over a
+    thousand rows), a boolean key, codes outside their dictionary (clamped),
+    and one row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+
+    def case(label, n, domains, act_rate=1.0, null_rate=0.0, wild=False, bool_key=False):
+        active = torch.rand(n, generator=gen, device=dev) < act_rate
+        keys = []
+        for D in domains:
+            if bool_key and D == 3:
+                d = torch.rand(n, generator=gen, device=dev) < 0.5
+            else:
+                lo, hi = (-3, D + 3) if wild else (0, max(D - 1, 1))
+                d = torch.randint(lo, hi, (n,), generator=gen, device=dev).to(torch.int32)
+            keys.append((d, torch.rand(n, generator=gen, device=dev) >= null_rate))
+        reqs, outs = _agg_requests(HK, dev, gen, n, active)
+        return label, (keys, tuple(domains), active, reqs, outs)
+
+    yield case(f"Q12 shape G=8 n={FUSED_SLOTS}", FUSED_SLOTS, (8,), act_rate=0.3)
+    yield case(f"G=256 n={n_wide}", n_wide, (32, 8), null_rate=0.03)
+    yield case("empty groups G=256 n=1000", 1000, (32, 8), act_rate=0.5, null_rate=0.1)
+    yield case("a boolean key G=24 n=300000", 300_000, (8, 3), act_rate=0.9, null_rate=0.05,
+               bool_key=True)
+    yield case("codes outside the dictionary G=64 n=300000", 300_000, (16, 4), wild=True)
+    yield case("n=1", 1, (4,))
+
+
+def _direct_float_outputs(args) -> set:
+    reqs, outs = args[3], args[4]
+    return {k for k, o in enumerate(outs)
+            if o.op in ("value", "avg_double") and reqs[o.a].kind == "fsum"}
+
+
+def same_direct(got, want, args) -> tuple:
+    """(equal, largest absolute difference of a float sum): group_exists,
+    the keys and every output bit for bit at every group, the float sums
+    within REL_TOL of the plain version's (another order of adds)."""
+    exists, keys, outs = got
+    w_exists, w_keys, w_outs = want
+    ok = torch.equal(exists, w_exists) and same_cols(keys, w_keys)
+    floats = _direct_float_outputs(args)
+    worst = 0.0
+    for k, ((d, v), (wd, wv)) in enumerate(zip(outs, w_outs)):
+        ok = ok and torch.equal(v, wv)
+        if k in floats:
+            a, b = d[v].to(torch.float64), wd[v].to(torch.float64)
+            diff = (a - b).abs()
+            if diff.numel():
+                worst = max(worst, float(diff.max()))
+            ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
+        else:
+            ok = ok and torch.equal(_bits(d), _bits(wd))
+    return ok, worst
+
+
+def same_direct_bits(got, again) -> bool:
+    """Two runs of segment_agg_direct on one input: every tensor bit for bit."""
+    def flat(r):
+        return [r[0]] + [t for pair in r[1] + r[2] for t in pair]
+
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(flat(got), flat(again)))
+
+
+def _direct_gid(args):
+    keys, domains = args[0], args[1]
+    from trino_tpu_torch.ops import hopper_kernels as HK
+
+    return HK.direct_group_ids(keys, domains).to(torch.int64)
+
+
+def direct_bound(args) -> tuple:
+    """Read every key's data and validity, the activity and every distinct
+    request column once; write the G groups' keys, outputs and
+    group_exists."""
+    keys, domains, active, reqs, outs = args
+    n, G = active.shape[0], math.prod(domains)
+    cols = {}
+    for r in reqs:
+        for t in (r.values, r.valid, r.filt, r.filt_valid):
+            if t is not None:
+                cols[t.data_ptr()] = t.numel() * t.element_size()
+    nbytes = n + sum(d.element_size() * n + n for d, _ in keys) + sum(cols.values())
+    nbytes += G + sum(G * (d.element_size() + 1) for d, _ in keys)
+    nbytes += sum(G * (torch.empty((), dtype=o.dtype).element_size() + 1) for o in outs)
+    return bound_ms(nbytes, 4 * n * (len(reqs) + 1))
+
+
+def direct_yardstick(args) -> float:
+    """One ``index_add_`` (sums, counts) or ``scatter_reduce_`` (min, max,
+    the last row) a request by each row's group, their times summed (as
+    segment_agg's): the group index and the masked values computed before
+    the timing."""
+    keys, domains, active, reqs, _ = args
+    gid = _direct_gid(args)
+    G = math.prod(domains)
+    total = 0.0
+    for r in reqs:
+        w = r.weight(active)
+        if r.kind in ("count", "sum", "fsum"):
+            dt = torch.float64 if r.kind == "fsum" else torch.int64
+            v = torch.where(w, w.to(dt) if r.kind == "count" else r.values.to(dt), 0)
+            total += time_ms(lambda: torch.zeros(G, dtype=dt, device=v.device)
+                             .index_add_(0, gid, v))
+            continue
+        if r.kind == "last":
+            v = torch.where(w, torch.arange(w.shape[0], device=w.device), -1)
+            how = "amax"
+        else:
+            v = r.values.to(torch.float64 if r.values.dtype.is_floating_point else torch.int64)
+            how = "amin" if r.kind == "min" else "amax"
+        total += time_ms(lambda: torch.zeros(G, dtype=v.dtype, device=v.device)
+                         .scatter_reduce_(0, gid, v, reduce=how, include_self=False))
+    return total
+
+
+def _expr_ir():
+    """The IR of the expression cases: TPC-H's computed fused projections
+    (Q3's revenue, Q8's CASE with year, Q12's CASEs over string $eq, $or,
+    $and, $ne) and a decimal to double cast, then edge forms."""
+    from trino_tpu_torch.ops.compiler import ColumnLayout
+    from trino_tpu_torch.spi.page import Dictionary
+    from trino_tpu_torch.spi.types import (BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, SMALLINT,
+                                           VARCHAR, decimal_type)
+    from trino_tpu_torch.sql.ir import Call, Case, CastExpr, Constant, InLut, Reference
+
+    d12, d13, d18 = decimal_type(12, 2), decimal_type(13, 2), decimal_type(18, 4)
+    nations = Dictionary.from_strings(["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT"])
+    prios = Dictionary.from_strings(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                                     "5-LOW"])
+    cols = {"price": d12, "disc": d12, "odate": DATE, "nation": VARCHAR, "prio": VARCHAR,
+            "qty": INTEGER, "big": BIGINT, "small": SMALLINT, "x": DOUBLE, "y": DOUBLE,
+            "d4": decimal_type(12, 4), "flag": BOOLEAN}
+    dicts = {"nation": nations, "prio": prios}
+    layout = {s: ColumnLayout(t, dicts.get(s)) for s, t in cols.items()}
+    ref = {s: Reference(s, t) for s, t in cols.items()}
+
+    def call(name, t, *args):
+        return Call(name, tuple(args), t)
+
+    def eq(col, s, name="$eq"):
+        return call(name, BOOLEAN, ref[col], Constant(VARCHAR, s))
+
+    revenue = call("$multiply", d18, ref["price"],
+                   call("$subtract", d13, Constant(d13, 100), CastExpr(ref["disc"], d13)))
+    one, zero = Constant(INTEGER, 1), Constant(INTEGER, 0)
+    main = [
+        ("revenue", revenue, d18),
+        ("year", call("year", BIGINT, ref["odate"]), BIGINT),
+        ("brazil", Case(((eq("nation", "BRAZIL"), revenue),), Constant(d18, 0), d18), d18),
+        ("high", Case(((call("$or", BOOLEAN, eq("prio", "1-URGENT"), eq("prio", "2-HIGH")),
+                        one),), zero, INTEGER), INTEGER),
+        ("low", Case(((call("$and", BOOLEAN, eq("prio", "1-URGENT", "$ne"),
+                            eq("prio", "2-HIGH", "$ne")), one),), zero, INTEGER), INTEGER),
+        ("price_double", CastExpr(ref["price"], DOUBLE), DOUBLE),
+    ]
+    edge = [
+        ("int_div", call("$divide", INTEGER, ref["qty"], call("$subtract", INTEGER, ref["qty"],
+                                                             ref["qty"])), INTEGER),
+        ("int_mod", call("$modulus", INTEGER, ref["qty"], Constant(INTEGER, -7)), INTEGER),
+        ("int_div_mixed", call("$divide", BIGINT, ref["big"], ref["small"]), BIGINT),
+        ("mod_zero", call("$modulus", BIGINT, ref["big"], Constant(BIGINT, 0)), BIGINT),
+        ("half_up", CastExpr(ref["d4"], d12), d12),
+        ("dec_to_int", CastExpr(ref["price"], INTEGER), INTEGER),
+        ("wrap64", call("$multiply", BIGINT, ref["big"], ref["big"]), BIGINT),
+        ("wrap32", call("$add", INTEGER, ref["qty"], Constant(INTEGER, 2**31 - 1)), INTEGER),
+        ("neg", call("$negate", INTEGER, ref["qty"]), INTEGER),
+        ("month", call("month", BIGINT, ref["odate"]), BIGINT),
+        ("day", call("day", BIGINT, ref["odate"]), BIGINT),
+        ("fmod", call("$modulus", DOUBLE, ref["x"], ref["y"]), DOUBLE),
+        ("fdiv", call("$divide", DOUBLE, ref["x"], ref["y"]), DOUBLE),
+        ("mixed", call("$add", DOUBLE, ref["x"], ref["big"]), DOUBLE),
+        ("int_to_double", CastExpr(ref["qty"], DOUBLE), DOUBLE),
+        ("fcmp", call("$lte", BOOLEAN, ref["x"], ref["y"]), BOOLEAN),
+        ("range", call("$gte", BOOLEAN, ref["nation"], Constant(VARCHAR, "BRB")), BOOLEAN),
+        ("absent", eq("nation", "ZAMBIA"), BOOLEAN),
+        ("kleene", call("$or", BOOLEAN, call("$not", BOOLEAN, ref["flag"]),
+                        call("$is_null", BOOLEAN, ref["x"])), BOOLEAN),
+        ("coalesce", call("coalesce", BIGINT, ref["big"], CastExpr(ref["qty"], BIGINT),
+                          Constant(BIGINT, -1)), BIGINT),
+        ("in_lut", InLut(ref["nation"], (True, False, True, False, True), "in"), BOOLEAN),
+        ("case_null", Case(((ref["flag"], ref["x"]),), None, DOUBLE), DOUBLE),
+    ]
+    return layout, main, edge
+
+
+def expr_inputs(program, n: int, dev, gen) -> list:
+    """Seeded inputs of the program's columns: TPC-H's ranges for the prices
+    (DECIMAL(12,2)), discounts and dates, codes of the two dictionaries,
+    integers spanning their type (zero and the extremes among them),
+    dates before and after 1970, doubles with NaN, signed zeros and
+    infinities, negative decimals ending in 50 (half-up ties); 3 % NULL."""
+
+    def ints(lo, hi, dt):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int64).to(dt)
+
+    def spiked(t, values):
+        t[torch.randint(0, n, (min(n, 64),), generator=gen, device=dev)] = torch.tensor(
+            values, dtype=t.dtype, device=dev)[torch.randint(
+                0, len(values), (min(n, 64),), generator=gen, device=dev)]
+        return t
+
+    make = {
+        "price": lambda: ints(90_000, 10_500_000, torch.int64),
+        "disc": lambda: ints(0, 11, torch.int64),
+        "odate": lambda: spiked(ints(-800_000, 800_000, torch.int32), [-1, 0, 59, 60, -719468]),
+        "nation": lambda: ints(0, 5, torch.int32),
+        "prio": lambda: ints(0, 5, torch.int32),
+        "qty": lambda: spiked(ints(-2**31, 2**31, torch.int32), [0, -2**31, 2**31 - 1, 1, -1]),
+        "big": lambda: spiked(ints(-2**62, 2**62, torch.int64), [0, -2**63, 2**63 - 1, -1]),
+        "small": lambda: spiked(ints(-2**15, 2**15, torch.int16), [0, -2**15, -1]),
+        "x": lambda: spiked(torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 1e3,
+                            [float("nan"), -0.0, 0.0, float("inf"), -float("inf")]),
+        "y": lambda: spiked(torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 7,
+                            [float("nan"), -0.0, 0.0, -3.0, 3.0]),
+        "d4": lambda: spiked(ints(-10**9, 10**9, torch.int64), [-150, -50, 50, 150, -250]),
+        "flag": lambda: torch.rand(n, generator=gen, device=dev) < 0.5,
+    }
+    out = []
+    for s in program.input_symbols:
+        out.append((make[s](), torch.rand(n, generator=gen, device=dev) >= 0.03))
+    return out
+
+
+def expr_cases(HK, dev):
+    """(label, (program, inputs)) cases for expr_program: the main projection
+    (TPC-H's forms and a decimal to double cast) at FUSED_SLOTS rows, then
+    the edge forms (NULLs, a zero divisor, negative half-up rounding, int64
+    and int32 wrap, pre-1970 dates, double % and /, Kleene logic, coalesce,
+    InLut, a CASE without ELSE) at 300,000 rows and at one row. Every
+    assignment must lower."""
+    from trino_tpu_torch.ops import expr_program as EP
+
+    layout, main, edge = _expr_ir()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    half = len(edge) // 2  # a program holds at most EXPR_MAX_OUTPUTS assignments
+    for label, assigns, n in (("main projection", main, FUSED_SLOTS),
+                              ("edge forms a", edge[:half], 300_000),
+                              ("edge forms b", edge[half:], 300_000),
+                              ("edge forms a", edge[:half], 1),
+                              ("edge forms b", edge[half:], 1)):
+        program = EP.build_program([(s, e) for s, e, _ in assigns], [t for *_, t in assigns],
+                                   layout, dev)
+        if any(k < 0 for k in program.assign_out):
+            fail(f"expr_program [{label}]: assignments left on their closures: "
+                 f"{[s for (s, *_), k in zip(assigns, program.assign_out) if k < 0]}")
+        yield f"{label} n={n}", (program, expr_inputs(program, n, dev, gen))
+
+
+def expr_bound(args) -> tuple:
+    """Read every input column (data and validity) once, write every output
+    once; the program's instructions as operations a row."""
+    program, inputs = args
+    n = inputs[0][1].shape[0]
+    nbytes = sum(d.element_size() * n + n for d, _ in inputs)
+    nbytes += sum((torch.empty((), dtype=dt).element_size() + 1) * n
+                  for dt in program.output_dtypes)
+    return bound_ms(nbytes, n * len(program.code))
+
+
+def check_fused_stage_kernels(HK, n_wide: int, dev, results: dict) -> None:
+    """expr_program, presorted_group and segment_agg_direct against their
+    plain versions on every case (segment_agg_direct's float sums at
+    REL_TOL, and against its own second run bit for bit); the first case of
+    each is timed."""
+    for name, cases in (("presorted_group", presorted_cases(HK, dev)),
+                        ("segment_agg_direct", direct_cases(HK, dev, n_wide)),
+                        ("expr_program", expr_cases(HK, dev))):
+        for i, (label, args) in enumerate(cases):
+            if not same_result(HK, name, args):
+                fail(f"{name} [{label}] differs from its plain version")
+            extra = ""
+            if name == "presorted_group":
+                _, groups, viol = HK.presorted_group(*args)
+                extra = f" ({int(groups)} groups, violation {bool(viol)})"
+            elif name == "expr_program":
+                extra = (f" ({len(args[0].code)} instructions, {args[0].n_regs} registers, "
+                         f"{len(args[0].output_dtypes)} outputs)")
+            print(f"  {name} [{label}]: bit-exact{extra}", flush=True)
+            if i == 0:
+                results[name] = timed_entry(HK, name, args)
+                print(f"  {name} [main shape]: {ops_per_call(HK, name, args)} stream "
+                      "operations a call", flush=True)
+            del args
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -2050,8 +2582,9 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         names = [k for k in KERNELS_OF[q] if k != "q6_fused"]
-        every = [k for k in ("hash_expand", "segment_agg") if k in names]
-        with PhaseTap(MK, "aggregate_phase") as agg_calls:
+        every = [k for k in ("hash_expand", "segment_agg") + FUSED_KERNELS if k in names]
+        with PhaseTap(MK, "aggregate_phase") as agg_calls, \
+                PhaseTap(MK, "expand_phase") as expand_calls:
             res, wall, launches[q], phases, fallbacks, tap = run_default(
                 HK, runner, sql, names, keep_all=every)
             stages = dict(MK.STAGES)
@@ -2060,7 +2593,7 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
         INCORE_WALLS[q] = wall
         print(f"  {q} SF{SCALE} default session: {wall:.3f} s wall, peak device memory "
               f"{peaks[q]} bytes, {len(res.rows)} rows, launches {launches[q]}, fused phases "
-              f"{phases}, fallbacks {fallbacks}", flush=True)
+              f"{phases}, stages {dict(stages)}, fallbacks {fallbacks}", flush=True)
         if fallbacks:
             fail(f"{q} fell back from the fused path: {fallbacks}")
         for name in tap.orig:
@@ -2078,7 +2611,10 @@ def run_queries(HK, dev, kernels: dict) -> tuple:
                   f"version ({check_every_launch(HK, q, tap)}); no aggregate outside "
                   "segment_agg", flush=True)
             check_aggregate_phase_kernels(HK, q, agg_calls[0])
+            if stages.get("project_torch", 0):
+                fail(f"{q}: {stages['project_torch']} projection assignments ran on closures")
         if q == "q03":
+            check_expand_phase_kernels(HK, f"{q} SF{SCALE}", fused_expand_call(expand_calls))
             print_dest_expand(HK, "q03 inputs", tap.inputs["hash_expand"],
                               torch.arange(64, dtype=torch.int64, device=dev) * 7919)
         if q == "q10":
@@ -2127,7 +2663,7 @@ NEW_PHASES_OF = {"q14": {"probe": 1, "expand": 1, "aggregate": 0, "group_sort": 
 JOIN_KERNELS = ("hash_probe", "hash_expand")
 # every wrapper a query's path can launch
 PATH_KERNELS = ("grouped_sum_i64", "grouped_sum_i32", "hash_probe", "hash_expand",
-                "segment_sum", "segment_agg", "group_sort")
+                "segment_sum", "segment_agg", "group_sort") + FUSED_KERNELS
 def q14_q18_oracle(g, conn, q18_qty: int) -> dict:
     """Q14's promotion revenue share and Q18's large-volume customers from
     the port's generator in numpy (int64 sums, Python ints where a product
@@ -2244,14 +2780,20 @@ CORPUS_SCALE = 1
 CROSS_JOINS = {"q11": 1, "q22": 1}
 
 
-def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict) -> dict:
+def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict,
+               closures_allowed: bool = True, direct=()) -> dict:
     """Every query of ``texts`` at ``scale`` over ``benchmark``'s connector
     with the default session (counts set to 0 just before each, read just
     after) and with the kernel tier off: rows identical (DOUBLE at REL_TOL
     relative), no fallback but the declined CROSS joins (``cross_joins``:
-    query -> count), and every kernel the query launched held bit-exact
+    query -> count), every kernel the query launched held bit-exact
     against its plain version on the inputs the query gave it (each hash
-    probe on every join). Returns the launch counts by query."""
+    probe on every join, every launch of expand_phase's stages after the
+    join), the fused projections' assignments left on closures
+    (``STAGES["project_torch"]``, which must be 0 unless
+    ``closures_allowed``) and the queries of ``direct`` through
+    ``segment_agg_direct``. Returns the launch counts by query."""
+    from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     runner = getattr(LocalQueryRunner, benchmark)(scale=scale, device=dev)
@@ -2260,11 +2802,17 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict) -
     for q, sql in texts.items():
         label = f"{q} SF{scale}"
         res, wall, launches[q], phases, fallbacks, tap = run_default(
-            HK, runner, sql, PATH_KERNELS)
+            HK, runner, sql, PATH_KERNELS, keep_all=FUSED_KERNELS)
+        closures = MK.STAGES["project_torch"]
         declined = {"cross_join": cross_joins[q]} if q in cross_joins else {}
         if dict(fallbacks) != declined:
             fail(f"{label} fell back from the fused path: {fallbacks}")
+        if closures and not closures_allowed:
+            fail(f"{label}: {closures} fused projection assignments ran on closures")
+        if q in direct and not launches[q]["segment_agg_direct"]:
+            fail(f"{label} did not go through segment_agg_direct: {launched(launches[q])}")
         checked = check_launched(HK, label, tap, launches[q])
+        every = check_every_launch(HK, label, tap)
         del tap
         ref, off_wall = run_off(HK, off, sql)
         if not same_rows(res.rows, ref.rows, double_columns(res)):
@@ -2272,7 +2820,9 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict) -
         print(f"  {label}: {len(res.rows)} rows identical to the kernel tier off; "
               f"{wall:.3f} s default, {off_wall:.3f} s off; launches "
               f"{launched(launches[q])}, fused phases {launched(phases)}, fallbacks "
-              f"{dict(fallbacks)}; bit-exact on its inputs: {checked}", flush=True)
+              f"{dict(fallbacks)}, project_torch {closures}; bit-exact on its inputs: "
+              f"{checked}, every launch of the stages after the join: {launched(every)}",
+              flush=True)
         del res, ref
     torch.cuda.empty_cache()
     return launches
@@ -2943,7 +3493,25 @@ def run_window(HK, dev) -> dict:
 # --------------------------------------------------------------------------- #
 
 MEM_TABLES = ("lineitem", "orders", "customer", "part", "supplier", "nation", "region")
-MEM_QUERIES = ("q06", "q01", "q03", "q10", "q18")
+MEM_QUERIES = ("q06", "q01", "q03", "q10", "q18", "q05c", "q12")
+# 8b's queries run only there (held against the kernel tier off over the
+# same tables): the direct aggregation at SF10
+MEM_ONLY = ("q05c", "q12")
+# Q5 without its supplier join, the text 8b runs: the plan of Q5 itself
+# (the reference's join order) joins customer and supplier on their nation
+# key first, about 1.2e9 rows at SF10, past hash_expand's 2^31 - 1 slots
+# (it runs at SF1 in phase 5); this keeps Q5's join to lineitem, its
+# projection and its direct aggregation by n_name (G = 26)
+Q5_NO_SUPPLIER = """
+        SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM customer, orders, lineitem, nation, region
+        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND c_nationkey = n_nationkey AND n_regionkey = r_regionkey
+          AND r_name = 'ASIA' AND o_orderdate >= DATE '1994-01-01'
+          AND o_orderdate < DATE '1995-01-01'
+        GROUP BY n_name
+        ORDER BY revenue DESC
+"""
 DELETE_DATES = (9131, 9496)  # 1995-01-01, 1996-01-01
 NEW_KEY_OFFSET = 1_000_000_000  # MERGE source keys that no order has
 MEM_DML = {
@@ -3682,6 +4250,7 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.connectors.tpch import generator as g
     from trino_tpu_torch.metadata import Session
+    from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
     from trino_tpu_torch.spi.connector import SchemaTableName
 
@@ -3727,7 +4296,10 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
 
     # (b) the queries, then each with the kernel tier off over the same
     # tables (the SF10 gate of the fused path against the serial one)
-    texts = {q: QUERIES.get(q, Q18_SF10) for q in MEM_QUERIES}
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    texts = {q: QUERIES.get(q) or {"q05c": Q5_NO_SUPPLIER, "q12": TPCH_QUERIES["q12"]}.get(
+        q, Q18_SF10) for q in MEM_QUERIES}
     plans = LocalQueryRunner.tpch(scale=SCALE, device=dev)  # plans only, over tpch
     off = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
     off.register_catalog("memory", conn)
@@ -3738,32 +4310,46 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
         names = [k for k in KERNELS_OF.get(q, JOIN_KERNELS) if k != "q6_fused"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res, wall, launches[f"{q} memory"], phases, fallbacks, tap = run_default(
-            HK, runner, sql, names, keep_all=names)
+        with PhaseTap(MK, "expand_phase") as expand_calls:
+            res, wall, launches[f"{q} memory"], phases, fallbacks, tap = run_default(
+                HK, runner, sql, names, keep_all=names)
+        closures = MK.STAGES["project_torch"]
         peak = torch.cuda.max_memory_allocated()
         same_plan = runner.explain(sql) == plans.explain(sql).replace(
             f"{schema}.", "memory.default.")
-        print(f"  8b {q} over memory tables: {wall:.3f} s wall (over tpch, phase "
-              f"{4 if q == 'q18' else 3}: {INCORE_WALLS[q]:.3f} s), peak device memory {peak} "
+        over = ("not run over tpch" if q in MEM_ONLY else
+                f"over tpch, phase {4 if q == 'q18' else 3}: {INCORE_WALLS[q]:.3f} s")
+        print(f"  8b {q} over memory tables: {wall:.3f} s wall ({over}), "
+              f"project_torch {closures}, peak device memory {peak} "
               f"bytes ({peak / 2**30:.2f} GiB, the tap holding every launch's inputs), "
               f"{len(res.rows)} rows, launches {launched(launches[f'{q} memory'])}, fused "
               f"phases {launched(phases)}, fallbacks {fallbacks}, optimized plan text equal "
               f"to tpch's: {same_plan}", flush=True)
-        if not same_rows(res.rows, incore_rows[q], double_columns(res)):
+        if q not in MEM_ONLY and not same_rows(res.rows, incore_rows[q], double_columns(res)):
             fail(f"{q} over memory tables: rows {res.rows[:3]} != phase 3/4 rows "
                  f"{incore_rows[q][:3]}")
+        if closures:
+            fail(f"{q} over memory tables: {closures} projection assignments ran on closures")
         if fallbacks:
             fail(f"{q} over memory tables fell back from the fused path: {fallbacks}")
+        # a memory table's scan keeps no order, so Q3 groups there through
+        # group_sort, not presorted_group
         for name in names:
-            if launches[f"{q} memory"][name] == 0:
+            if name != "presorted_group" and launches[f"{q} memory"][name] == 0:
                 fail(f"{q} over memory tables did not go through {name}")
         if q == "q10" and any(phases[k] != v for k, v in PHASES_OF["q10"].items()):
             fail(f"q10 over memory tables ran the fused phases {phases}, not "
                  f"{PHASES_OF['q10']}")
-        check_query_inputs(HK, f"{q} memory", tap, kernels, set(kernels))
+        # the direct form's times in the kernels line are Q12's at SF10
+        check_query_inputs(HK, f"{q} memory", tap, kernels,
+                           set(kernels) - ({"segment_agg_direct"} if q == "q12" else set()))
         n_checked = check_every_call(HK, f"{q} memory", tap)
-        print(f"  8b {q}: rows identical to phase {4 if q == 'q18' else 3}'s; every tapped "
-              f"launch bit-exact ({n_checked})", flush=True)
+        held = ("held against the kernel tier off below" if q in MEM_ONLY else
+                f"identical to phase {4 if q == 'q18' else 3}'s")
+        print(f"  8b {q}: rows {held}; every tapped launch bit-exact ({n_checked})", flush=True)
+        if q == "q12":
+            check_expand_phase_kernels(HK, "q12 memory", fused_expand_call(expand_calls))
+        del expand_calls
         mem_rows[q], mem_walls[q] = res.rows, wall
         del tap
         torch.cuda.empty_cache()
@@ -3880,6 +4466,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_sort_kernels(HK, dev, kernels)
     torch.cuda.empty_cache()
+    check_fused_stage_kernels(HK, n_main, dev, kernels)
+    torch.cuda.empty_cache()
 
     phase_s = {"build": build_s, "kernels": time.perf_counter() - t0}
     t0 = time.perf_counter()
@@ -3902,7 +4490,7 @@ def main() -> None:
     from tests.tpch_corpus import TPCH_QUERIES
 
     corpus = run_corpus(HK, dev, dict(sorted(TPCH_QUERIES.items())), CORPUS_SCALE, "tpch",
-                        CROSS_JOINS)
+                        CROSS_JOINS, closures_allowed=False, direct=("q05", "q12"))
     phase_s["corpus"] = time.perf_counter() - t0
     launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
 
@@ -3943,8 +4531,9 @@ def main() -> None:
     launches.update(run_memory_tables(HK, dev, incore_rows, kernels))
     phase_s["memory_tables"] = time.perf_counter() - t0
     for name, k in kernels.items():
-        k["launches"] = sum(runs[name] for runs in launches.values())
+        k["launches"] = sum(runs.get(name, 0) for runs in launches.values())
     kernels["segment_agg"]["max_abs_err"] = AGG_FLOAT_ERR[0]
+    kernels["segment_agg_direct"]["max_abs_err"] = DIRECT_FLOAT_ERR[0]
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f", total {time.perf_counter() - start:.1f}", flush=True)
 

@@ -7,9 +7,10 @@
 // its bucket by a cumsum over the [N_out, C] match block, and gathers the
 // probe and build columns), and the exchange destination stage at the end
 // of that body (epi_spec's _partition_dest, megakernels.py:448-453) when
-// the joined page is the phase's output. The fused projection and the
-// direct and presorted grouping stages of that body run after this kernel
-// as the port's torch operators; its sort stage is group_sort.cu.
+// the joined page is the phase's output. The body's later stages run after
+// this kernel: the fused projection in expr_program.cu, the presorted
+// grouping in presorted_group.cu, the direct aggregation in
+// segment_agg_direct.cu and the sort stage in group_sort.cu.
 //
 // For each output slot p < out_cap, bit-identical to the plain version
 // (hopper_kernels.hash_expand_plain):

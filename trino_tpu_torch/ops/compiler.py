@@ -116,6 +116,9 @@ Env = Dict[str, CVal]
 Compiled = Callable[[Env], CVal]
 
 _CACHE: Dict[tuple, Tuple[Compiled, Optional[Dictionary]]] = {}
+# the fused projections' expression programs (ops/expr_program.py), keyed as
+# the closures are and dropped with them
+PROGRAM_CACHE: Dict[tuple, object] = {}
 
 
 def compile_expression(
@@ -142,8 +145,10 @@ def clear_cache() -> None:
     device memory for good; the others rebuild on their next use. A
     closure refers to its compiler, which holds it in its memo: the cycle,
     and the LUTs with it, goes only when the cyclic collector runs, so it
-    runs here."""
+    runs here. The expression programs, which hold LUTs on the device too,
+    go with them."""
     _CACHE.clear()
+    PROGRAM_CACHE.clear()
     gc.collect()
 
 

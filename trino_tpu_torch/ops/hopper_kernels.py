@@ -2,8 +2,10 @@
 
 The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
 Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
-expansion, the group sort, the sort-path aggregation, the repartition
-epilogue and the exchange destination stage). The kernels are
+expansion and the stages after it: the fused projection's expression
+program, the presorted grouping and the direct aggregation; the group sort,
+the sort-path aggregation, the repartition epilogue and the exchange
+destination stage). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
 a hash of the sources, under ``trino_tpu_torch/_build/``), loaded with
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -48,6 +51,7 @@ LAUNCHES = {
     "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
     "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "segment_agg": 0, "group_sort": 0,
     "partition_epilogue": 0, "partition_dest": 0,
+    "expr_program": 0, "presorted_group": 0, "segment_agg_direct": 0,
 }
 
 _LIB = None
@@ -188,6 +192,31 @@ def bind(path: Path):
     lib.partition_epilogue.restype = i32
     lib.partition_dest.argtypes = [ctypes.POINTER(_WideKeySet), ptr, i64, i32, ptr, ptr]
     lib.partition_dest.restype = i32
+    lib.expr_program.argtypes = [ctypes.POINTER(_ExprProgram), i64, ptr]
+    lib.expr_program.restype = i32
+    lib.presorted_group.argtypes = (
+        [ctypes.POINTER(_PresortKey), i32] + [ptr] * 2 + [i64] + [ptr] * 4)
+    lib.presorted_group.restype = i32
+    lib.segment_agg_direct.argtypes = (
+        [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
+         ctypes.POINTER(_DirectKeySet), ptr, i64, i32] + [ptr] * 4)
+    lib.segment_agg_direct.restype = i32
+    lib.segment_agg_direct_blocks.argtypes = [i64]
+    lib.segment_agg_direct_blocks.restype = i64
+    for name, want in (("expr_program_max_instrs", EXPR_MAX_INSTRS),
+                       ("expr_program_max_regs", EXPR_MAX_REGS),
+                       ("expr_program_max_consts", EXPR_MAX_CONSTS),
+                       ("expr_program_max_inputs", EXPR_MAX_INPUTS),
+                       ("expr_program_max_outputs", EXPR_MAX_OUTPUTS),
+                       ("expr_program_max_luts", EXPR_MAX_LUTS),
+                       ("presorted_group_tile_rows", PRESORTED_TILE_ROWS),
+                       ("presorted_group_state_head", _PRESORTED_STATE_HEAD),
+                       ("segment_agg_direct_max_groups", DIRECT_MAX_GROUPS),
+                       ("segment_agg_direct_max_keys", DIRECT_MAX_KEYS)):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        if fn() != want:
+            raise RuntimeError(f"csrc and its wrapper disagree on {name}")
     return lib
 
 
@@ -1017,6 +1046,67 @@ def _check_group_keys(name: str, key_cols, n: int, dev) -> None:
             raise TypeError(f"{name}: unsupported key column {d.dtype}")
 
 
+def _agg_plans(name: str, requests, outputs, active: torch.Tensor):
+    """The C plan of each request (:func:`_request_plan`), after the checks
+    that the requests and outputs are a set the aggregation kernels take;
+    raises on what they do not."""
+    n, dev = active.shape[0], active.device
+    if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
+        raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
+                         f"{SEGMENT_AGG_MAX_OUTPUTS} outputs a call")
+    plans = [_request_plan(r, n, dev) for r in requests]
+    for o in outputs:
+        if o.op not in _AGG_OPS or o.dtype not in _KEY_TYPES:
+            raise ValueError(f"{name}: unsupported output {o.op!r} of {o.dtype}")
+        if not 0 <= o.a < len(requests) or not -1 <= o.b < len(requests):
+            raise ValueError(f"{name}: an output names a request that is not there")
+        kinds = (requests[o.a].kind, None if o.b < 0 else requests[o.b].kind)
+        if kinds[1] not in (None, "count") or (o.op in ("avg_decimal", "avg_double")
+                                                and o.b < 0):
+            raise ValueError(f"{name}: an output's validity and divisor are counts")
+        if o.op == "first":
+            if kinds[0] != "last" or o.values is None or o.values.ndim != 1:
+                raise ValueError(f"{name}: first gathers 1-D values at a last request's row")
+            _check_page_cols(name, [(o.values, active)], n, dev)
+            if o.values.dtype != o.dtype:
+                raise TypeError(f"{name}: first keeps its values' type")
+        elif kinds[0] == "last":
+            raise ValueError(f"{name}: a last request is finished by first")
+        elif o.op == "value" and plans[o.a][2] and not o.dtype.is_floating_point:
+            raise TypeError(f"{name}: a float result cast to {o.dtype}")
+        elif o.op in ("bool_and", "bool_or") and (kinds[0] != "count" or o.dtype != torch.bool):
+            raise ValueError(f"{name}: {o.op} reads a count into a bool")
+    return plans
+
+
+def _agg_sets(requests, outputs, plans, slots: int, dev):
+    """The kernels' request and output sets, and each output's (data, valid)
+    buffers of ``slots`` rows."""
+    rs = _AggRequestSet()
+    rs.n = len(requests)
+    for c, r, (kind, ident, _) in zip(rs.req, requests, plans):
+        c.values = None if r.values is None else r.values.data_ptr()
+        c.valid = None if r.valid is None else r.valid.data_ptr()
+        if r.filt is not None:
+            c.filter, c.filter_valid = r.filt.data_ptr(), r.filt_valid.data_ptr()
+        c.divisor, c.identity, c.kind = float(r.divisor), ident, kind
+        c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
+        c.pred, c.square = _AGG_PREDS[r.pred], int(r.square)
+    os_ = _AggOutputSet()
+    os_.n = len(outputs)
+    outs = []
+    for c, o in zip(os_.out, outputs):
+        data = torch.empty(slots, dtype=o.dtype, device=dev)
+        valid = torch.empty(slots, dtype=torch.bool, device=dev)
+        outs.append((data, valid))
+        c.data, c.valid, c.divisor = data.data_ptr(), valid.data_ptr(), float(o.divisor)
+        c.op, c.a, c.b, c.out_type = _AGG_OPS[o.op], o.a, o.b, _KEY_TYPES[o.dtype]
+        c.a_float = int(plans[o.a][2])
+        if o.op == "first":
+            c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
+    return rs, os_, outs
+
+
 def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
                 active: torch.Tensor, key_cols, requests, outputs, dest=None):
     """The sort-path aggregation over a group-sorted page, whole.
@@ -1052,31 +1142,7 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
             and num_groups.ndim == 0 and num_groups.device == dev):
         raise TypeError(f"{name}: num_groups must be a 0-d int64 tensor on {dev}")
     _check_group_keys(name, key_cols, n, dev)
-    if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
-        raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
-                         f"{SEGMENT_AGG_MAX_OUTPUTS} outputs a call")
-    plans = [_request_plan(r, n, dev) for r in requests]
-    for o in outputs:
-        if o.op not in _AGG_OPS or o.dtype not in _KEY_TYPES:
-            raise ValueError(f"{name}: unsupported output {o.op!r} of {o.dtype}")
-        if not 0 <= o.a < len(requests) or not -1 <= o.b < len(requests):
-            raise ValueError(f"{name}: an output names a request that is not there")
-        kinds = (requests[o.a].kind, None if o.b < 0 else requests[o.b].kind)
-        if kinds[1] not in (None, "count") or (o.op in ("avg_decimal", "avg_double")
-                                                and o.b < 0):
-            raise ValueError(f"{name}: an output's validity and divisor are counts")
-        if o.op == "first":
-            if kinds[0] != "last" or o.values is None or o.values.ndim != 1:
-                raise ValueError(f"{name}: first gathers 1-D values at a last request's row")
-            _check_page_cols(name, [(o.values, active)], n, dev)
-            if o.values.dtype != o.dtype:
-                raise TypeError(f"{name}: first keeps its values' type")
-        elif kinds[0] == "last":
-            raise ValueError(f"{name}: a last request is finished by first")
-        elif o.op == "value" and plans[o.a][2] and not o.dtype.is_floating_point:
-            raise TypeError(f"{name}: a float result cast to {o.dtype}")
-        elif o.op in ("bool_and", "bool_or") and (kinds[0] != "count" or o.dtype != torch.bool):
-            raise ValueError(f"{name}: {o.op} reads a count into a bool")
+    plans = _agg_plans(name, requests, outputs, active)
     if dest is not None:
         positions, luts, n_parts = dest
         if (not 1 <= len(positions) <= _MAX_WIDE_KEYS or len(luts) != len(positions)
@@ -1088,28 +1154,7 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     if dev.type == "cpu":
         return segment_agg_plain(new_group, num_groups, out_cap, active, key_cols, requests,
                                  outputs, dest)
-    rs = _AggRequestSet()
-    rs.n = len(requests)
-    for c, r, (kind, ident, _) in zip(rs.req, requests, plans):
-        c.values = None if r.values is None else r.values.data_ptr()
-        c.valid = None if r.valid is None else r.valid.data_ptr()
-        if r.filt is not None:
-            c.filter, c.filter_valid = r.filt.data_ptr(), r.filt_valid.data_ptr()
-        c.divisor, c.identity, c.kind = float(r.divisor), ident, kind
-        c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
-        c.pred, c.square = _AGG_PREDS[r.pred], int(r.square)
-    os_ = _AggOutputSet()
-    os_.n = len(outputs)
-    outs = []
-    for c, o in zip(os_.out, outputs):
-        data = torch.empty(out_cap, dtype=o.dtype, device=dev)
-        valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
-        outs.append((data, valid))
-        c.data, c.valid, c.divisor = data.data_ptr(), valid.data_ptr(), float(o.divisor)
-        c.op, c.a, c.b, c.out_type = _AGG_OPS[o.op], o.a, o.b, _KEY_TYPES[o.dtype]
-        c.a_float = int(plans[o.a][2])
-        if o.op == "first":
-            c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
+    rs, os_, outs = _agg_sets(requests, outputs, plans, out_cap, dev)
     ks = _GroupKeySet()
     ks.n = len(key_cols)
     keys_out = []
@@ -1372,7 +1417,7 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
 
 # the kernels whose C entry points count their stream operations
 _STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "segment_agg", "partition_epilogue",
-               "partition_dest")
+               "partition_dest", "expr_program", "presorted_group", "segment_agg_direct")
 
 
 def stream_ops(name: str) -> int:
@@ -1610,3 +1655,280 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int,
     _check_launch("partition_epilogue", rc)
     LAUNCHES["partition_epilogue"] += 1
     return outs[:-1], outs[-1][0], offsets[:n_parts], counts[:n_parts]
+
+
+# --------------------------------------------------------------------------- #
+# the fused stages of expand_phase after the join (replace the projection,
+# the presorted grouping and the direct aggregation of
+# megakernels._expand_phase_body): expr_program, presorted_group and
+# segment_agg_direct
+# --------------------------------------------------------------------------- #
+
+# the presorted grouping's tile and its scan state's words ahead of the tile
+# status words (kTileRows, kStateHead in csrc/presorted_group.cu)
+PRESORTED_TILE_ROWS = 2048
+_PRESORTED_STATE_HEAD = 4
+
+
+class _PresortKey(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("type", ctypes.c_int64)]
+
+
+def presorted_group_plain(key_cols, active: torch.Tensor):
+    """The reference's ``_presorted_group_impl`` grouping on tensors: each
+    key as ``kernels.order_key`` (INT64_MAX where NULL) against the last
+    active row before it (``kernels.last_active_prev``)."""
+    d0, v0 = key_cols[0]
+    k1 = torch.where(v0, K.order_key(d0), K.INT64_MAX)
+    prev_k1, has_prev = K.last_active_prev(k1, active)
+    new_group = active & (~has_prev | (k1 != prev_k1))
+    violation = (active & has_prev & (k1 < prev_k1)).any()
+    for d, v in key_cols[1:]:
+        kn = torch.where(v, K.order_key(d), K.INT64_MAX)
+        prev_k, _ = K.last_active_prev(kn, active)
+        violation = violation | (active & has_prev & ~new_group & (kn != prev_k)).any()
+    return new_group, new_group.sum(), violation
+
+
+def presorted_group(key_cols, active: torch.Tensor):
+    """Group boundaries of a page ordered on its first group key, rows in
+    place (inactive rows may be interleaved).
+
+    ``key_cols``: (data, valid) of each group key, any number (integer,
+    bool or float storage); ``active`` bool. Returns ``(new_group,
+    num_groups, violation)``: bool ``[n]`` set on each group's first active
+    row, the group count as a 0-d int64 and a 0-d bool set where the first
+    key decreases or a later key changes inside a run of the first; all on
+    the device, with no host read. On CUDA tensors: the key set is copied to
+    the device, one memset and one launch over tiles of
+    :data:`PRESORTED_TILE_ROWS` rows."""
+    name = "presorted_group"
+    _check_vectors(name, (active,), (torch.bool,))
+    n, dev = active.shape[0], active.device
+    if not key_cols or n < 1:
+        raise ValueError(f"{name}: at least one key and one row")
+    _check_page_cols(name, key_cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _KEY_TYPES:
+            raise TypeError(f"{name}: unsupported key column {d.dtype}")
+    if dev.type == "cpu":
+        return presorted_group_plain(key_cols, active)
+    keys = (_PresortKey * len(key_cols))()
+    for k, (d, v) in enumerate(key_cols):
+        keys[k].data, keys[k].valid, keys[k].type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+    n_tiles = -(-n // PRESORTED_TILE_ROWS)
+    key_buf = torch.empty(3 * len(key_cols), dtype=torch.int64, device=dev)
+    state = torch.empty(_PRESORTED_STATE_HEAD + n_tiles, dtype=torch.int64, device=dev)
+    new_group = torch.empty(n, dtype=torch.bool, device=dev)
+    violation = torch.empty((), dtype=torch.bool, device=dev)
+    _check_launch(name, _library().presorted_group(
+        keys, len(key_cols), key_buf.data_ptr(), active.data_ptr(), n, state.data_ptr(),
+        new_group.data_ptr(), violation.data_ptr(), _stream(active)))
+    LAUNCHES[name] += 1
+    return new_group, state[1], violation
+
+
+# the most groups and keys of the direct aggregation (kMaxDirectGroups,
+# kMaxDirectKeys in csrc/segment_agg_direct.cu; executor.DIRECT_GROUP_LIMIT)
+DIRECT_MAX_GROUPS = 256
+DIRECT_MAX_KEYS = 8
+
+
+class _DirectKeySet(ctypes.Structure):
+    _fields_ = [
+        ("col", _KeyCol * DIRECT_MAX_KEYS), ("domain", ctypes.c_int * DIRECT_MAX_KEYS),
+        ("dst", ctypes.c_void_p * DIRECT_MAX_KEYS),
+        ("dst_valid", ctypes.c_void_p * DIRECT_MAX_KEYS), ("n", ctypes.c_int),
+    ]
+
+
+def direct_group_ids(key_cols, domains) -> torch.Tensor:
+    """Each row's flat group index (int32): per key its value as int32
+    clamped to its codes, ``D - 1`` where NULL, folded ``gid * D + code``."""
+    gid = torch.zeros(key_cols[0][0].shape[0], dtype=torch.int32, device=key_cols[0][0].device)
+    for (d, v), D in zip(key_cols, domains):
+        size = D - 1
+        gid = gid * D + torch.where(v, d.to(torch.int32).clamp(0, max(size - 1, 0)), size)
+    return gid
+
+
+def direct_group_keys(key_cols, domains):
+    """The key columns at the G groups: each key's code in the flat group
+    index's mixed-radix digits, cast to its storage, valid where not the
+    NULL slot."""
+    G = math.prod(domains)
+    rem = torch.arange(G, dtype=torch.int32, device=key_cols[0][0].device)
+    codes = []
+    for D in reversed(domains):
+        codes.append(rem % D)
+        rem = rem // D
+    return [(c.to(d.dtype), c < D - 1)
+            for (d, _), D, c in zip(key_cols, domains, codes[::-1])]
+
+
+def segment_agg_direct_plain(key_cols, domains, active: torch.Tensor, requests, outputs):
+    """The reference's ``_direct_aggregate_impl`` (``"off"``) for the
+    requests and outputs given: the group index, every request through
+    ``kernels.direct_group_reduce`` and ``direct_group_first`` (the largest
+    participating row), ``group_exists`` from the active count, the rebuilt
+    keys and the finishing."""
+    G = math.prod(domains)
+    gid = direct_group_ids(key_cols, domains)
+
+    def reduce_fn(vals, w, kind):
+        return K.direct_group_reduce(vals, w, gid, G, kind)
+
+    def first_fn(vals, w):
+        return K.direct_group_first(vals, w, gid, G)
+
+    group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
+    results = [run_request(r, active, reduce_fn, first_fn) for r in requests]
+    return (group_exists, direct_group_keys(key_cols, domains),
+            [finish_output(o, results, G) for o in outputs])
+
+
+def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, outputs):
+    """The direct-indexed aggregation, whole: ``segment_agg``'s requests
+    and outputs over small static key domains.
+
+    ``key_cols``: (data, valid) of each group key (1 to
+    :data:`DIRECT_MAX_KEYS`: dictionary codes or bools), ``domains`` their
+    domain sizes (values plus the NULL slot; their product G at most
+    :data:`DIRECT_MAX_GROUPS`), the page's ``active``, ``requests`` and
+    ``outputs`` as :func:`segment_agg` takes them. Returns
+    ``(group_exists, keys_out, outs)`` at the G groups: whether an active
+    row has the group, the rebuilt keys and each output's (data, valid).
+    Float sums add in another order than the plain scatter's; every other
+    value is bit-identical. On CUDA tensors two launches (reduce and
+    finish), no memset."""
+    name = "segment_agg_direct"
+    _check_vectors(name, (active,), (torch.bool,))
+    n, dev = active.shape[0], active.device
+    G = math.prod(domains)
+    if (not 1 <= len(key_cols) <= DIRECT_MAX_KEYS or len(domains) != len(key_cols)
+            or any(D < 1 for D in domains) or not 1 <= G <= DIRECT_MAX_GROUPS or n < 1):
+        raise ValueError(f"{name}: 1 to {DIRECT_MAX_KEYS} keys over at most "
+                         f"{DIRECT_MAX_GROUPS} groups, and a row")
+    _check_page_cols(name, key_cols, n, dev)
+    for d, _ in key_cols:
+        if d.dtype not in _DECODED_TYPES:
+            raise TypeError(f"{name}: unsupported key column {d.dtype}")
+    plans = _agg_plans(name, requests, outputs, active)
+    if dev.type == "cpu":
+        return segment_agg_direct_plain(key_cols, domains, active, requests, outputs)
+    rs, os_, outs = _agg_sets(requests, outputs, plans, G, dev)
+    ks = _DirectKeySet()
+    ks.n = len(key_cols)
+    keys_out = []
+    for k, ((d, v), D) in enumerate(zip(key_cols, domains)):
+        od = torch.empty(G, dtype=d.dtype, device=dev)
+        ov = torch.empty(G, dtype=torch.bool, device=dev)
+        keys_out.append((od, ov))
+        col = ks.col[k]
+        col.data, col.valid, col.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+        ks.domain[k], ks.dst[k], ks.dst_valid[k] = D, od.data_ptr(), ov.data_ptr()
+    lib = _library()
+    blocks = int(lib.segment_agg_direct_blocks(n))
+    gids = torch.empty(n, dtype=torch.int16, device=dev)
+    partials = torch.empty((len(requests) + 1) * blocks * G, dtype=torch.int64, device=dev)
+    group_exists = torch.empty(G, dtype=torch.bool, device=dev)
+    _check_launch(name, lib.segment_agg_direct(
+        ctypes.byref(rs), ctypes.byref(os_), ctypes.byref(ks), active.data_ptr(), n, G,
+        gids.data_ptr(), partials.data_ptr(), group_exists.data_ptr(), _stream(active)))
+    LAUNCHES[name] += 1
+    return group_exists, keys_out, outs
+
+
+# the limits of one expression program (kMaxExpr* in csrc/expr_program.cu):
+# ops/expr_program.py builds within them and leaves the rest on the closures
+EXPR_MAX_INSTRS = 128
+EXPR_MAX_REGS = 32
+EXPR_MAX_CONSTS = 32
+EXPR_MAX_INPUTS = 16
+EXPR_MAX_OUTPUTS = 16
+EXPR_MAX_LUTS = 8
+
+
+class _ExprInstr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8), ("a", ctypes.c_uint8),
+                ("b", ctypes.c_uint8), ("c", ctypes.c_uint8), ("t", ctypes.c_uint8),
+                ("aux", ctypes.c_uint16)]
+
+
+class _ExprCol(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("type", ctypes.c_int)]
+
+
+class _ExprLut(ctypes.Structure):
+    _fields_ = [("lut", ctypes.c_void_p), ("len", ctypes.c_int64)]
+
+
+class _ExprProgram(ctypes.Structure):
+    _fields_ = [
+        ("code", _ExprInstr * EXPR_MAX_INSTRS), ("consts", ctypes.c_int64 * EXPR_MAX_CONSTS),
+        ("inp", _ExprCol * EXPR_MAX_INPUTS), ("out", _ExprCol * EXPR_MAX_OUTPUTS),
+        ("lut", _ExprLut * EXPR_MAX_LUTS), ("n_code", ctypes.c_int),
+    ]
+
+
+def expr_program_plain(program, inputs):
+    """The program run one instruction at a time as torch operations over
+    whole columns, through the closures' own helpers
+    (``expr_program.run_plain``): on the CPU the closures' values, bit for
+    bit."""
+    from .expr_program import run_plain
+
+    return run_plain(program, inputs)
+
+
+def _program_struct(program) -> _ExprProgram:
+    """The parts of a program's kernel parameter that do not change between
+    calls (instructions, constants, LUTs), built once per program."""
+    static = getattr(program, "_struct", None)
+    if static is None:
+        static = _ExprProgram()
+        static.n_code = len(program.code)
+        for c, ins in zip(static.code, program.code):
+            c.op, c.dst, c.a, c.b, c.c, c.t, c.aux = ins
+        for k, bits in enumerate(program.consts):
+            static.consts[k] = bits
+        for c, lut in zip(static.lut, program.luts):
+            c.lut, c.len = lut.data_ptr(), lut.shape[0]
+        program._struct = static
+    return static
+
+
+def expr_program(program, inputs):
+    """Every lowered assignment of a projection in one launch.
+
+    ``program``: an ``expr_program.ExprProgram`` (instructions over a
+    register file, constants, LUTs; within the ``EXPR_MAX_*`` limits);
+    ``inputs``: (data, valid) of each column it reads, in its order and of
+    its dtypes. Returns each output's (data, valid), of the program's
+    output dtypes. On CUDA tensors one launch, one row a thread."""
+    name = "expr_program"
+    if len(inputs) != len(program.input_dtypes) or not inputs:
+        raise ValueError(f"{name}: the program reads {len(program.input_dtypes)} columns")
+    n, dev = inputs[0][1].shape[0], inputs[0][1].device
+    _check_page_cols(name, inputs, n, dev)
+    for (d, _), dt in zip(inputs, program.input_dtypes):
+        if d.dtype != dt:
+            raise TypeError(f"{name}: a {dt} input given {d.dtype}")
+    if any(lut.device != dev for lut in program.luts):
+        raise ValueError(f"{name}: the program's LUTs are not on {dev}")
+    if dev.type == "cpu":
+        return expr_program_plain(program, inputs)
+    p = _ExprProgram()
+    ctypes.memmove(ctypes.addressof(p), ctypes.addressof(_program_struct(program)),
+                   ctypes.sizeof(_ExprProgram))
+    for c, (d, v) in zip(p.inp, inputs):
+        c.data, c.valid, c.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
+    outs = []
+    for c, dt in zip(p.out, program.output_dtypes):
+        data = torch.empty(n, dtype=dt, device=dev)
+        valid = torch.empty(n, dtype=torch.bool, device=dev)
+        outs.append((data, valid))
+        c.data, c.valid, c.type = data.data_ptr(), valid.data_ptr(), _KEY_TYPES[dt]
+    _check_launch(name, _library().expr_program(ctypes.byref(p), n, _stream(inputs[0][1])))
+    LAUNCHES[name] += 1
+    return outs

@@ -1,19 +1,23 @@
 """Fused hash join and sort-path aggregation on the Hopper kernels.
 
 The port's counterpart of ``trino_tpu.ops.megakernels``. The reference runs
-each phase as one Pallas launch over a traced body; here each phase is one
-hand-written CUDA kernel (``ops/hopper_kernels.py``) followed by the stages
-of the reference's body that stay torch operators:
+each phase as one Pallas launch over a traced body; here each phase is a
+short sequence of hand-written CUDA kernels (``ops/hopper_kernels.py``), and
+the little of the reference's body that stays torch operators is counted in
+:data:`STAGES`:
 
 - :func:`probe_phase`: ``hash_probe`` builds the [B+1, C] bucket table of
   the build side and counts each probe row's matches, retrying once at a
   wider slot class when a bucket overflows and declining (``bucket_skew``)
   past :data:`TABLE_ENTRY_LIMIT`.
 - :func:`expand_phase`: ``hash_expand`` resolves each output slot's probe
-  and build row and gathers both sides' columns; the fused projection, the
-  direct-indexed aggregation and the presorted grouping then run on the
-  joined page as the executor's torch operators, and the ``sort`` stage
-  runs in ``group_sort``.
+  and build row and gathers both sides' columns; then, on the joined page,
+  the fused projection in one ``expr_program`` launch (the assignments
+  ``ops/expr_program.py`` lowers; the rest keep their closures, counted in
+  ``STAGES["project_torch"]``), and the grouping: ``presorted_group``, the
+  direct-indexed aggregation in ``segment_agg_direct`` (the variance
+  family's finishing stays torch, counted in ``STAGES["aggregate_torch"]``)
+  or the ``sort`` stage in ``group_sort``.
 - :func:`group_sort_phase`: ``group_sort`` alone, the re-group after a
   presorted sortedness violation.
 - :func:`aggregate_phase`: the sort-path reduction in ``segment_agg``: the
@@ -44,9 +48,9 @@ same build row on both paths. The group sort is a stable sort by the same
 keys as the serial path's co-sort, so both give one permutation.
 
 Counters are plain integers of this module: :data:`LAUNCHES` (one per phase
-run), :data:`STAGES` (exchange destination stages) and :data:`FALLBACKS` by
-reason. Kernel errors are never caught here:
-they raise through the query.
+run), :data:`STAGES` (the stages after the join, the exchange destination
+stages and the work left to torch) and :data:`FALLBACKS` by reason. Kernel
+errors are never caught here: they raise through the query.
 """
 
 from __future__ import annotations
@@ -73,10 +77,14 @@ DEFAULT_BUCKET_CAP = 32
 TABLE_ENTRY_LIMIT = 1 << 30
 
 LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
-# exchange destination stages by where they ran (``dest``: ``partition_dest``
-# after a phase; ``dest_expand``, ``dest_aggregate``: folded into
-# ``hash_expand`` and ``segment_agg``), and ``aggregate_torch``: aggregates of
-# a fused aggregation outside ``segment_agg``'s set
+# the stages of expand_phase after the join (``project``: an expr_program
+# launch; ``presorted`` and ``direct``: the grouping in presorted_group and
+# segment_agg_direct), exchange destination stages by where they ran
+# (``dest``: ``partition_dest`` after a phase; ``dest_expand``,
+# ``dest_aggregate``: folded into ``hash_expand`` and ``segment_agg``), and
+# what stays torch: ``project_torch``, assignments of a fused projection that
+# the expression program does not lower, and ``aggregate_torch``, aggregates
+# of a fused aggregation outside ``segment_agg``'s set
 STAGES: Counter = Counter()
 FALLBACKS: Counter = Counter()
 # columns the expansion carried by row index (nested layouts and wide lanes)
@@ -182,8 +190,10 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     """Expand the join into ``out_capacity`` slots, then run the fused
     stages on the joined page (symbols ``symbols``, probe columns first).
 
-    ``proj_spec``: None or ``(compiled, out_symbols)``, the projection's
-    compiled closures as the executor's ``_project_impl`` takes them.
+    ``proj_spec``: None or ``(compiled, out_symbols, program)``, the
+    projection's compiled closures and its expression program
+    (``expr_program.build_program``), as the executor's
+    ``_project_program`` takes them.
     ``agg_spec``: None, ``("direct", (group_keys, aggregations, domains,
     agg_symbols, mode))``, ``("presorted", (group_keys, needed,
     agg_symbols))`` or ``("sort", (group_keys, needed, agg_symbols))``.
@@ -225,8 +235,8 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     )
     out = Page(cols, out_active)
     if proj_spec is not None:
-        compiled, _ = proj_spec
-        out = E._project_impl(compiled, E.Relation(out, symbols).env(), out)
+        compiled, _, program = proj_spec
+        out = E._project_program(program, compiled, E.Relation(out, symbols).env(), out)
     if agg_spec is None:
         if dest is not None:
             STAGES["dest_expand"] += 1
@@ -235,8 +245,10 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
     mode, payload = agg_spec
     if mode == "direct":
         group_keys, aggregations, domains, agg_symbols, kernel_mode = payload
+        STAGES["direct"] += 1
         out = E._direct_aggregate(
-            group_keys, aggregations, domains, E.Relation(out, agg_symbols), kernel_mode
+            group_keys, aggregations, domains, E.Relation(out, agg_symbols), kernel_mode,
+            kernel=True,
         )
         return out if epi_spec is None else (out, exchange_dest(out, epi_spec))
     if epi_spec is not None:
@@ -246,7 +258,8 @@ def expand_phase(probe_result, pkeys, bkeys, luts, probe_page: Page, build_page:
         return E._group_sort_impl(group_keys, needed, agg_symbols, out, kernel=True)
     if mode != "presorted":
         raise ValueError(f"expand_phase: unknown aggregation shape {mode!r}")
-    p, ng, n_grp, viol = E._presorted_group_impl(group_keys, needed, agg_symbols, out)
+    STAGES["presorted"] += 1
+    p, ng, n_grp, viol = E._presorted_group_impl(group_keys, needed, agg_symbols, out, True)
     return out, p, ng, n_grp, viol
 
 

@@ -32,6 +32,7 @@ fused join plane declines while a threshold is set, counted in
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from functools import partial
 from typing import Dict, List, Optional, Tuple
@@ -42,6 +43,7 @@ import torch
 from .. import knobs
 from .._unported import unported
 from ..metadata import Metadata, Session
+from ..ops import expr_program as EP
 from ..ops import hopper_kernels as HK
 from ..ops import kernels as K
 from ..ops import megakernels as MK
@@ -238,6 +240,12 @@ class PlanExecutor:
             fn, out_dict = compile_expression(expr, layout, capacity, rel.page.device)
             compiled.append((fn, self.types.get(sym) or expr.type, out_dict))
         return tuple(compiled)
+
+    def _projection_program(self, node: ProjectNode, rel: Relation):
+        """The fused projection's expression program (built once, cached
+        beside the closures)."""
+        types = [self.types.get(sym) or expr.type for sym, expr in node.assignments]
+        return EP.build_program(node.assignments, types, rel.layout(), rel.page.device)
 
     # ----------------------------------------------------------- aggregation
 
@@ -666,17 +674,20 @@ class PlanExecutor:
     def _try_fused_join_aggregate(self, node: AggregationNode) -> Optional[Relation]:
         """join -> [project] -> grouped aggregation through the kernels.
 
-        The group strategy mirrors ``aggregate_relation``: direct-indexed
-        keys aggregate on the joined page with the grouped-sum kernels;
-        other keys take the presorted path when the joined page is ordered
-        on the first group key (probe-major expansion keeps the probe
-        side's order), else the ``sort`` stage's group sort; then the group
-        count's host read and the segment-sum reduction. A presorted page
-        whose sortedness check fails re-groups through
-        ``group_sort_phase``, as in the reference. Unlike the reference,
-        the ``pallas_aggregation`` mode does not gate this path (the port's
-        stages are separate launches, not one kernel). Returns None when
-        the shape is not a join under a grouped aggregation."""
+        After the join's expansion, the projection runs as one expression
+        program (``expr_program``; an assignment it does not lower keeps its
+        closure). The group strategy mirrors ``aggregate_relation``:
+        direct-indexed keys aggregate on the joined page in
+        ``segment_agg_direct``; other keys take the presorted path
+        (``presorted_group``) when the joined page is ordered on the first
+        group key (probe-major expansion keeps the probe side's order), else
+        the ``sort`` stage's group sort; then the group count's host read and
+        ``segment_agg``. A presorted page whose sortedness check fails
+        re-groups through ``group_sort_phase``, as in the reference. Unlike
+        the reference, the ``pallas_aggregation`` mode does not gate this
+        path (the port's stages are separate launches, not one kernel).
+        Returns None when the shape is not a join under a grouped
+        aggregation."""
         if not self._fusion_enabled():
             return None
         proj = None
@@ -739,7 +750,8 @@ class PlanExecutor:
         out_capacity = self._choose_join_capacity(pr["emit"])
         proj_spec = None
         if proj is not None:
-            proj_spec = (self._compile_projection(proj, view, out_capacity), post_symbols)
+            proj_spec = (self._compile_projection(proj, view, out_capacity), post_symbols,
+                         self._projection_program(proj, view))
         if domains is not None:
             agg_spec = ("direct", (
                 node.group_keys, node.aggregations, domains, post_symbols,
@@ -913,6 +925,28 @@ def _projected_order(node: ProjectNode, sorted_by: Tuple[str, ...]) -> Tuple[str
 def _project_impl(compiled, env: Dict[str, CVal], page: Page) -> Page:
     cols = []
     for fn, type_, out_dict in compiled:
+        cols.append(_column_of(type_, fn(env), out_dict))
+    return Page(tuple(cols), page.active)
+
+
+def _project_program(program, compiled, env: Dict[str, CVal], page: Page) -> Page:
+    """The fused path's projection: every assignment that ``program``
+    (``expr_program.build_program``) lowered in one
+    ``hopper_kernels.expr_program`` call, the renames as the columns they
+    name, and each other assignment through its closure, ticking
+    ``megakernels.STAGES["project_torch"]``."""
+    outs = []
+    if program.output_dtypes:
+        MK.STAGES["project"] += 1
+        outs = HK.expr_program(program, [(env[s].data, env[s].valid)
+                                         for s in program.input_symbols])
+    cols = []
+    for k, (fn, type_, out_dict) in zip(program.assign_out, compiled):
+        if k >= 0:
+            cols.append(Column(type_, outs[k][0], outs[k][1]))
+            continue
+        if k == EP.CLOSURE:
+            MK.STAGES["project_torch"] += 1
         cols.append(_column_of(type_, fn(env), out_dict))
     return Page(tuple(cols), page.active)
 
@@ -1449,28 +1483,21 @@ def _force_dense(rel: Relation) -> Relation:
     return Relation(page, rel.symbols, rel.sorted_by)
 
 
-def _presorted_group_impl(group_keys, needed, symbols, page: Page):
+def _presorted_group_impl(group_keys, needed, symbols, page: Page, kernel: bool = False):
     """Grouping without sorting for a page ordered on the first group key:
     rows stay in place, and inactive rows may be interleaved (the
     last-active-row scan bridges them). Returns (page over ``needed``,
     new_group, num_groups, violation); ``violation`` (a 0-d bool) is set
     when an active row's first key decreases or a later key changes inside
-    a first-key run, and the caller then sorts instead."""
+    a first-key run, and the caller then sorts instead. With ``kernel`` the
+    grouping runs in ``hopper_kernels.presorted_group`` (the fused path's
+    presorted stage), else in its plain torch version."""
     rel = Relation(page, symbols)
-    active = page.active
-    k1 = rel.column_for(group_keys[0])
-    k1n = torch.where(k1.valid, K.order_key(k1.data), K.INT64_MAX)
-    prev_k1, has_prev = K.last_active_prev(k1n, active)
-    new_group = active & (~has_prev | (k1n != prev_k1))
-    violation = (active & has_prev & (k1n < prev_k1)).any()
-    for k in group_keys[1:]:
-        c = rel.column_for(k)
-        kn = torch.where(c.valid, K.order_key(c.data), K.INT64_MAX)
-        prev_k, _ = K.last_active_prev(kn, active)
-        violation = violation | (active & has_prev & ~new_group & (kn != prev_k)).any()
-    num_groups = new_group.sum()
+    key_cols = [(c.data, c.valid) for c in (rel.column_for(k) for k in group_keys)]
+    group = HK.presorted_group if kernel else HK.presorted_group_plain
+    new_group, num_groups, violation = group(key_cols, page.active)
     cols = tuple(rel.column_for(s) for s in needed)
-    return Page(cols, active), new_group, num_groups, violation
+    return Page(cols, page.active), new_group, num_groups, violation
 
 
 def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = False):
@@ -1667,6 +1694,41 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     return Page(tuple(out_cols), group_exists)
 
 
+def _agg_chunks(plans):
+    """The aggregates of ``segment_agg``'s set (``(index, plan)`` with a
+    plan) in chunks whose requests and outputs fit one kernel call (one
+    chunk, maybe empty, at least)."""
+    chunks, cur, n_req = [], [], 0
+    for i, plan in plans:
+        if plan is None:
+            continue
+        need = len(plan[0])
+        if cur and (n_req + need > HK.SEGMENT_AGG_MAX_REQUESTS
+                    or len(cur) == HK.SEGMENT_AGG_MAX_OUTPUTS):
+            chunks.append(cur)
+            cur, n_req = [], 0
+        cur.append((i, plan))
+        n_req += need
+    chunks.append(cur)
+    return chunks
+
+
+def _chunk_requests(chunk):
+    """One call's requests (equal ones shared) and outputs (their request
+    indexes renumbered) from a chunk of :func:`_agg_chunks`."""
+    requests, index, outputs = [], {}, []
+    for _, (reqs, out, _) in chunk:
+        at = []
+        for r in reqs:
+            k = r.key()
+            if k not in index:
+                index[k] = len(requests)
+                requests.append(r)
+            at.append(index[k])
+        outputs.append(replace(out, a=at[out.a], b=-1 if out.b < 0 else at[out.b]))
+    return requests, outputs
+
+
 def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Page,
                       new_group, num_groups, dest_spec=None):
     """The fused path's sort-path reduction (``megakernels.aggregate_phase``):
@@ -1687,19 +1749,7 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
         if is_nested_column(c) or c.data.ndim != 1:
             raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
     plans = [(i, _agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
-    # chunks of aggregates whose requests and outputs fit one call
-    chunks, cur, n_req = [], [], 0
-    for i, plan in plans:
-        if plan is None:
-            continue
-        need = len(plan[0])
-        if cur and (n_req + need > HK.SEGMENT_AGG_MAX_REQUESTS
-                    or len(cur) == HK.SEGMENT_AGG_MAX_OUTPUTS):
-            chunks.append(cur)
-            cur, n_req = [], 0
-        cur.append((i, plan))
-        n_req += need
-    chunks.append(cur)
+    chunks = _agg_chunks(plans)
     # the group keys each call gathers: the destination's first
     width = HK.SEGMENT_AGG_MAX_KEYS
     order = [] if dest_spec is None else list(dict.fromkeys(dest_spec[0]))
@@ -1712,16 +1762,7 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     key_out: Dict[int, tuple] = {}
     dest = None
     for c, (chunk, key_set) in enumerate(zip(chunks, key_sets)):
-        requests, index, outputs = [], {}, []
-        for _, (reqs, out, _) in chunk:
-            at = []
-            for r in reqs:
-                k = r.key()
-                if k not in index:
-                    index[k] = len(requests)
-                    requests.append(r)
-                at.append(index[k])
-            outputs.append(replace(out, a=at[out.a], b=-1 if out.b < 0 else at[out.b]))
+        requests, outputs = _chunk_requests(chunk)
         kdest = None
         if c == 0 and dest_spec is not None:
             positions, n_parts = dest_spec
@@ -1748,59 +1789,84 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     return Page(tuple(out), exists), dest
 
 
-def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: str) -> Page:
+def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: str,
+                      kernel: bool = False) -> Page:
     """Direct-indexed aggregation for small-domain group keys: gid computed
     elementwise from dictionary codes / bools, NULL keys in each domain's last
     slot, empty key combinations inactive. Integer sums and counts go through
     the grouped-sum kernels unless ``mode`` is ``off`` (the reference's
-    ``_direct_aggregate_impl`` with its Pallas branch)."""
+    ``_direct_aggregate_impl`` with its Pallas branch). With ``kernel`` (the
+    fused path's direct stage) the group index, ``group_exists``, the keys
+    and every aggregate of ``segment_agg``'s set run in
+    ``hopper_kernels.segment_agg_direct``; the rest (the variance family's
+    finishing) keeps the torch code, ticking
+    ``megakernels.STAGES["aggregate_torch"]``."""
     active = rel.page.active
-    device = active.device
-    G = 1
-    for d in domains:
-        G *= d
-    gid = torch.zeros(rel.capacity, dtype=torch.int32, device=device)
-    for k, D in zip(group_keys, domains):
-        c = rel.column_for(k)
-        size = D - 1
-        code = torch.where(
-            c.valid, c.data.to(torch.int32).clamp(0, max(size - 1, 0)), size
-        )
-        gid = gid * D + code
+    G = math.prod(domains)
+    keys = [rel.column_for(k) for k in group_keys]
+    key_cols = [(c.data, c.valid) for c in keys]
+    cols: Dict[int, Column] = {}
+    group_exists = None
+    if kernel:
+        group_exists, keys_out, cols = _kernel_direct(key_cols, domains, rel, aggregations)
+        MK.STAGES["aggregate_torch"] += len(aggregations) - len(cols)
+    else:
+        keys_out = HK.direct_group_keys(key_cols, domains)
+    torch_aggs = [i for i in range(len(aggregations)) if i not in cols]
+    if torch_aggs or group_exists is None:
+        gid = HK.direct_group_ids(key_cols, domains)
+        use_kernel = mode != "off" and G <= HK.GROUP_LIMIT
+        if mode == "kernel" and rel.capacity < 32768:
+            use_kernel = False  # the reference's gate: small pages keep the plain form
 
-    out_cols: List[Column] = []
-    # reconstruct key values from the flat group index (code order)
-    codes_rev = []
-    rem = torch.arange(G, dtype=torch.int32, device=device)
-    for D in reversed(domains):
-        codes_rev.append(rem % D)
-        rem = rem // D
-    for k, D, code_g in zip(group_keys, domains, codes_rev[::-1]):
-        c = rel.column_for(k)
-        out_cols.append(Column(c.type, code_g.to(c.data.dtype), code_g < D - 1, c.dictionary))
+        def reduce_fn(vals, w, kind):
+            if use_kernel and kind == "count":
+                return HK.grouped_sum_i32(w.to(torch.int32), w, gid, G)
+            if use_kernel and kind == "sum" and not vals.dtype.is_floating_point:
+                return HK.grouped_sum_i64(vals.to(torch.int64), w, gid, G)
+            if kind in K.BITWISE_KINDS:
+                return K.bitwise_group_reduce(vals, w, gid, G, kind)
+            return K.direct_group_reduce(vals, w, gid, G, kind)
 
-    use_kernel = mode != "off" and G <= HK.GROUP_LIMIT
-    if mode == "kernel" and rel.capacity < 32768:
-        use_kernel = False  # the reference's gate: small pages keep the plain form
+        def first_fn(vals, w):
+            return K.direct_group_first(vals, w, gid, G)
 
-    def reduce_fn(vals, w, kind):
-        if use_kernel and kind == "count":
-            return HK.grouped_sum_i32(w.to(torch.int32), w, gid, G)
-        if use_kernel and kind == "sum" and not vals.dtype.is_floating_point:
-            return HK.grouped_sum_i64(vals.to(torch.int64), w, gid, G)
-        if kind in K.BITWISE_KINDS:
-            return K.bitwise_group_reduce(vals, w, gid, G, kind)
-        return K.direct_group_reduce(vals, w, gid, G, kind)
-
-    group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
-
-    def first_fn(vals, w):
-        return K.direct_group_first(vals, w, gid, G)
-
-    for _, agg in aggregations:
-        out_cols.append(_eval_aggregate(
-            rel, agg, active, G, reduce_fn, first_fn, lambda g: g[gid.to(torch.int64)]))
+        if group_exists is None:
+            group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
+        for i in torch_aggs:
+            cols[i] = _eval_aggregate(rel, aggregations[i][1], active, G, reduce_fn, first_fn,
+                                      lambda g: g[gid.to(torch.int64)])
+    out_cols = [Column(c.type, d, v, c.dictionary) for c, (d, v) in zip(keys, keys_out)]
+    out_cols += [cols[i] for i in range(len(aggregations))]
     return Page(tuple(out_cols), group_exists)
+
+
+def _kernel_direct(key_cols, domains, rel: Relation, aggregations):
+    """The direct aggregation's kernel calls (``segment_agg_direct``, one a
+    chunk of :func:`_agg_chunks`): returns ``(group_exists, keys_out,
+    {aggregate index: column})``. A key of one slot (an empty dictionary:
+    every row NULL) does not change the group index and is rebuilt here as
+    NULL, so the kernel takes at most eight keys."""
+    active = rel.page.active
+    G = math.prod(domains)
+    at = [i for i, D in enumerate(domains) if D > 1] or [0]
+    kcols, kdomains = [key_cols[i] for i in at], [domains[i] for i in at]
+    plans = [(i, _agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
+    cols: Dict[int, Column] = {}
+    group_exists = kout = None
+    for chunk in _agg_chunks(plans):
+        requests, outputs = _chunk_requests(chunk)
+        exists, keys, outs = HK.segment_agg_direct(kcols, kdomains, active, requests, outputs)
+        if group_exists is None:
+            group_exists, kout = exists, keys
+        for (i, (_, _, dictionary)), (data, valid) in zip(chunk, outs):
+            cols[i] = Column(aggregations[i][1].output_type, data, valid, dictionary)
+    rebuilt = dict(zip(at, kout))
+    dev = active.device
+    keys_out = [rebuilt[i] if i in rebuilt else (
+        torch.zeros(G, dtype=d.dtype, device=dev), torch.zeros(G, dtype=torch.bool, device=dev))
+        for i, (d, _) in enumerate(key_cols)]
+    return group_exists, keys_out, cols
 
 
 def _lane_aggregate(rel: Relation, agg: Aggregation, arg: Column, fmask, w, out_cap: int,

@@ -20,7 +20,11 @@ exchange destination of 4 partitions on the probe key (and on the probe
 key, a build key and an int32 column through a value-key LUT): folded into
 the expansion where ``hash_expand`` takes a destination, and always as the
 expansion followed by ``partition_dest``. ``megakernels.aggregate_phase``
-runs on the inputs of Q3's and Q10's sort-path aggregations. For each it
+runs on the inputs of Q3's and Q10's sort-path aggregations, and
+``megakernels.expand_phase`` on the inputs of the join under Q3's presorted
+and Q12's direct aggregation at SF1 (the join, the fused projection and the
+grouping: each tree's own stages after the join), captured by one run of
+the two queries through ``DIR``'s runner. For each it
 prints the wrapper's milliseconds (CUDA events over 10 calls after one;
 the host's work between launches included), the device kernels and
 memsets of one call, and the device microseconds a call spends in each
@@ -108,6 +112,51 @@ def capture_joins(HK, path: Path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(joins, path)
     torch.save(aggregates, path.parent / "aggregates_sf10.pt")
+
+
+EXPAND_QUERIES = {
+    "q03": QUERIES["q03"],
+    "q12": """
+        SELECT l_shipmode,
+               sum(CASE WHEN o_orderpriority = '1-URGENT' OR o_orderpriority = '2-HIGH'
+                        THEN 1 ELSE 0 END) AS high_line_count,
+               sum(CASE WHEN o_orderpriority <> '1-URGENT' AND o_orderpriority <> '2-HIGH'
+                        THEN 1 ELSE 0 END) AS low_line_count
+        FROM orders, lineitem
+        WHERE o_orderkey = l_orderkey AND l_shipmode IN ('MAIL', 'SHIP')
+          AND l_commitdate < l_receiptdate AND l_shipdate < l_commitdate
+          AND l_receiptdate >= DATE '1994-01-01' AND l_receiptdate < DATE '1995-01-01'
+        GROUP BY l_shipmode
+        ORDER BY l_shipmode
+    """,
+}
+
+
+def expand_calls(scale: int = 1) -> list:
+    """(label, args, kw) of the last expand_phase call with a stage after
+    the join (a projection or an aggregation) of Q3 and Q12, from one run
+    of each through this tree's runner."""
+    from trino_tpu_torch.ops import megakernels as MK
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    runner = LocalQueryRunner.tpch(scale=scale, device="cuda")
+    out = []
+    orig = MK.expand_phase
+    for q, sql in EXPAND_QUERIES.items():
+        calls = []
+
+        def tapped(*args, _calls=calls, **kw):
+            _calls.append((args, kw))
+            return orig(*args, **kw)
+
+        MK.expand_phase = tapped
+        try:
+            runner.execute(sql)
+        finally:
+            MK.expand_phase = orig
+        fused = [c for c in calls if c[0][8] is not None or c[0][9] is not None]
+        out.append((f"{q} SF{scale}", *fused[-1]))
+    return out
 
 
 def side_cols(keys, n: int, dev, seed: int):
@@ -289,6 +338,11 @@ def main() -> None:
         report(root, f"aggregate_phase, {label} (n={page.active.shape[0]} slots={args[3]} "
                      f"aggregates={len(args[1])})", lambda: MK.aggregate_phase(*args))
     del args, page
+    torch.cuda.empty_cache()
+    for label, args, kw in expand_calls():
+        report(root, f"expand_phase, {label} (the join and its stages after it)",
+               lambda: MK.expand_phase(*args, **kw))
+    del args, kw
     torch.cuda.empty_cache()
     keys, payload, active = args = q10_page(dev)
     report(root, "group_sort, Q10-shaped page", lambda: HK.group_sort(*args))
