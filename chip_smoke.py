@@ -12,8 +12,8 @@ printed):
    (the exchange destination ``partition_dest`` on the epilogue's cases,
    and the epilogue given that destination equal to the hashed run): each
    wrapper at its main path's shape (one lineitem page of TPC-H SF10: G = 12
-   for the grouped sums; Q3's join sizes for the hash join; Q3's joined
-   rows for the segment sums; Q10's joined page for the group sort, the
+   for the grouped sums; Q3's join sizes for the hash join; Q10's joined
+   page for the group sort, the
    repartition epilogue and ``segment_agg``, the whole sort-path
    aggregation, with every request kind and finishing and the exchange
    destination, also held against its own second run bit for bit) and at
@@ -23,7 +23,7 @@ printed):
    sorting work: ``torch.sort`` of one int64 key), that call. The group
    sort's time is split by phase (stats and the host read, compose, radix
    passes, finish and gather) with its plan's composites and its stream
-   operations a call; the segment sums' stream operations are counted; the
+   operations a call; ``segment_agg``'s stream operations are counted; the
    hash probe's time is split into its memset, claim, bucket and probe
    phases and the repartition epilogue's into its count and sweep (or
    three-launch) phases, each with its stream operations and device time
@@ -51,7 +51,22 @@ printed):
    bit against its own second run); every one bit-exact against its plain
    version, each main shape timed beside its bound and plain version (the
    direct form beside one ``index_add_`` or ``scatter_reduce_`` a request,
-   summed) with its stream operations a call.
+   summed) with its stream operations a call. Then the aggregate long
+   tail: ``segment_agg`` with every moment finishing (the variance family,
+   the two-column moments, skewness with its ``pow(M2, 1.5)``, kurtosis,
+   geometric mean, entropy) and every row kind (bitwise AND, OR, XOR,
+   checksums over a dictionary and over a double, min_by/max_by on an
+   integer and on a double key with ties, NULL keys and NULL values), at
+   Q3's joined rows (524,288) and at T1's shape (4,194,304 rows, a group
+   per order date), each set without and with a FILTER: bit-exact against
+   its plain version (the doubles are quarters and integers, so every
+   float sum is exact in any order), but the outputs of the sums of
+   logarithms, within ``tests/agg_tolerance.py``'s tolerance (each float
+   sum within 1e-9 of its terms' magnitudes, carried through the
+   finishing), and the same bits on a second run; ``segment_agg_direct``
+   with the variance family at G = 8 and G = 256 (its float sums within
+   1e-9 relative, the variances within the tolerance, the same bits on a
+   second call); the larger shapes timed as above.
 3. TPC-H Q6, Q1, Q3 and Q10 at SF10 through ``LocalQueryRunner.tpch(scale=
    10)`` with the default session: the launch counts of each run (every
    count set to 0 just before it), rows identical to an independent numpy
@@ -76,7 +91,7 @@ printed):
    hash probe, with the whole joined page and its phase split, on each of
    Q3's two and Q10's three joins); those times go in the kernels line,
    but the epilogue's, which come from phase 6's spill path. The group
-   sort and the segment sums also print their device time by kernel
+   sort and ``segment_agg`` also print their device time by kernel
    (``torch.profiler``).
 4. TPC-H Q14 and Q18 at SF10 (Q18 with TPC-H's quantity threshold of 300)
    with the default session: wall seconds, peak device memory
@@ -93,8 +108,10 @@ printed):
    query launched held bit-exact against its plain version on the inputs
    the query gave it, every launch of ``expr_program``, ``presorted_group``
    and ``segment_agg_direct`` among them; no fused projection assignment
-   left on a closure (``STAGES["project_torch"]`` 0 on all 22), and Q5 and
-   Q12 through ``segment_agg_direct``.
+   left on a closure (``STAGES["project_torch"]`` 0 on all 22), no
+   aggregate of a fused aggregation left to torch
+   (``STAGES["aggregate_torch"]`` 0 on all 22), and Q5 and Q12 through
+   ``segment_agg_direct``.
 6. The out-of-core tier. (a) Q1 at SF30 through the streaming
    aggregation (``runtime/streaming.py``): wall, splits, peak device memory
    (fails past 8 GiB), the I/O pool's generation seconds and the main
@@ -138,14 +155,24 @@ printed):
    TABLE AS of ``lineitem``, ``orders``, ``customer``, ``part``, ``supplier``,
    ``nation`` and ``region`` into ``memory.default``: rows against the
    generator's count, seconds, device bytes stored, peak. (b) Q6, Q1, Q3,
-   Q10 and Q18 (threshold 300), then Q12 and Q5 without its supplier join
-   (the direct aggregation at SF10, through ``segment_agg_direct``, whose
-   times in the kernels line are Q12's here; Q5's own plan joins customer
-   and supplier on their nation key, about 1.2e9 rows at SF10, past
-   ``hash_expand``'s slots), from the memory tables with the default
-   session: rows identical to phases 3 and 4's over ``tpch`` (Q12 and Q5's
-   variant only to the kernel tier off), no projection assignment on a
-   closure, the wall
+   Q10 and Q18 (threshold 300), then Q5 (its plan printed: over memory
+   tables, which report no column statistics, the planner keeps the
+   syntactic join order, customer, orders, lineitem, supplier, nation,
+   region, where the reference's estimate joins customer and supplier on
+   their nation key first, about 1.2e9 rows at SF10) and Q12 (the direct
+   aggregation at SF10, through ``segment_agg_direct``, whose times in the
+   kernels line are Q12's here), then the long tail (``LONG_TAIL_QUERIES``:
+   T1, every moment, bitwise, checksum and min_by/max_by family grouped by
+   order date over all 59,992,541 joined ``lineitem`` rows, through
+   ``group_sort`` and two ``segment_agg`` calls, each timed on its inputs,
+   and one ``aggregate_phase`` call on its inputs traced as phase 3 traces
+   Q3's; T2, the variance family by order priority, G = 6, through
+   ``segment_agg_direct``), from the memory tables with the default
+   session: rows identical to phases 3 and 4's over ``tpch`` (Q5, Q12, T1
+   and T2 only to the kernel tier off: T1's DOUBLE values within
+   ``tests/agg_tolerance.py``'s tolerance from its ``segment_agg`` calls,
+   T2's at 1e-9 relative), no projection assignment on a closure, no
+   aggregate left to torch (``STAGES["aggregate_torch"]`` 0), the wall
    beside that phase's, peak, launches by kernel and fused phase, no
    fallback, Q10's fused phases as in phase 3, every tapped launch
    bit-exact against its plain version, and whether the optimized plan's
@@ -211,12 +238,13 @@ printed):
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is visible, or
-when the port (or ``tests/tpch_corpus.py`` and
-``tests/tpcds_corpus_texts.py``) is not importable beside this script.
+when the port (or ``tests/tpch_corpus.py``, ``tests/tpcds_corpus_texts.py``
+and ``tests/agg_tolerance.py``) is not importable beside this script.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import subprocess
@@ -295,8 +323,10 @@ KERNELS_OF = {
     "q01": ("grouped_sum_i64", "grouped_sum_i32"),
     "q03": ("hash_probe", "hash_expand", "expr_program", "presorted_group", "segment_agg"),
     "q10": ("hash_probe", "hash_expand", "expr_program", "group_sort", "segment_agg"),
-    "q05c": ("hash_probe", "hash_expand", "expr_program", "segment_agg_direct"),
+    "q05": ("hash_probe", "hash_expand", "expr_program", "segment_agg_direct"),
     "q12": ("hash_probe", "hash_expand", "expr_program", "segment_agg_direct"),
+    "t1": ("hash_probe", "hash_expand", "group_sort", "segment_agg"),
+    "t2": ("hash_probe", "hash_expand", "segment_agg_direct"),
 }
 # the default-session walls of phases 3 and 4, by query (phase 8 prints its
 # walls over memory tables beside them)
@@ -703,62 +733,6 @@ def expand_bound(args) -> tuple:
     return bound_ms(nbytes, cap * (2 * max(n, 2).bit_length() + 10 * C))
 
 
-def segment_cases(HK, n_main: int, dev):
-    """(label, values, weight, starts) cases for segment_sum; the first has
-    the shape of Q3's joined rows at SF10 (4,194,304 slots, about four rows
-    to a group, the active rows a prefix)."""
-    from trino_tpu_torch.ops import kernels as K
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
-
-    def case(label, n, group_rate, dtype=torch.int64, active_rate=1.0, head=0, pad=16):
-        new_group = torch.rand(n, generator=gen, device=dev) < group_rate
-        new_group[head] = True
-        new_group[:head] = False
-        n_act = int(n * active_rate)
-        new_group[n_act:] = False
-        starts = K.boundary_positions(new_group, int(new_group.sum()) + pad)
-        if dtype == torch.bool:
-            vals = torch.rand(n, generator=gen, device=dev) < 0.5
-        else:
-            vals = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=dev).to(dtype)
-        w = torch.rand(n, generator=gen, device=dev) < 0.9
-        w[n_act:] = False
-        return label, vals, w, starts
-
-    def fixed(label, n, firsts, pad=16):
-        """Groups starting at the rows ``firsts``, all rows active."""
-        new_group = torch.zeros(n, dtype=torch.bool, device=dev)
-        new_group[torch.tensor(sorted(set(firsts)), device=dev)] = True
-        starts = K.boundary_positions(new_group, int(new_group.sum()) + pad)
-        vals = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=dev)
-        return label, vals, torch.rand(n, generator=gen, device=dev) < 0.9, starts
-
-    yield case("Q3 shape n=4194304", 4_194_304, 0.25, active_rate=0.75)
-    yield case("one segment n=%d" % n_main, n_main, 0.0)
-    tile = HK.SEGMENT_TILE_ROWS
-    n = 40 * tile + 5
-    # short groups, then one over 30 tiles (from inside tile 3), then short ones
-    bounds = [0, 7, 100, 3 * tile + 11, 33 * tile + 1, 33 * tile + 2, 35 * tile]
-    yield fixed("one group across 30 tiles", n, bounds)
-    yield fixed("starts exactly on tile boundaries", n,
-                list(range(0, n, tile)) + [5 * tile + 1, 9 * tile - 1])
-    yield fixed("groups of one row", 3 * tile + 1, list(range(3 * tile + 1)))
-    yield case("int32 values", 1_000_003, 0.01, torch.int32)
-    yield case("bool values (a count)", 1_000_003, 0.3, torch.bool)
-    yield case("rows before the first group", 500_001, 0.001, head=777)
-    yield case("no padding slots", 300_000, 0.2, pad=0)
-    yield case("n=1", 1, 1.0)
-
-
-def segment_bound(args) -> tuple:
-    values, _, starts = args
-    n = values.shape[0]
-    nbytes = n * (values.element_size() + 1) + starts.shape[0] * 16
-    return bound_ms(nbytes, 3 * n * max(starts.shape[0], 2).bit_length())
-
-
 def _agg_page(dev, gen, n, new_group, active, n_keys=3):
     """Group keys constant within each group of a sorted page (NULL on
     inactive rows): a BIGINT custkey, an INTEGER dictionary code and a
@@ -775,7 +749,10 @@ def _agg_requests(HK, dev, gen, n, active):
     them every way. The doubles are multiples of 1/4 below 2^18 and the
     decimals multiples of 100 (their fsum divides by 100 and squares), so
     every prefix of the plain version's cumsum is exact."""
-    R, O = HK.AggRequest, HK.AggOutput
+    R = HK.AggRequest
+
+    def O(op, a, b, dtype, *rest, **kw):
+        return HK.AggOutput(op, (a, b), dtype, *rest, **kw)
 
     def valid(rate=0.95):
         return (torch.rand(n, generator=gen, device=dev) < rate) & active
@@ -793,7 +770,7 @@ def _agg_requests(HK, dev, gen, n, active):
         R("count", valid=vr), R("sum", rev, vr), R("count"), R("count", valid=vq),
         R("sum", qty, vq), R("count", valid=vf), R("count", flag, vf, pred="nonzero"),
         R("count", flag, vf, pred="zero"), R("count", valid=vd), R("fsum", dbl, vd),
-        R("count", valid=vm), R("fsum", dec, vm, divisor=100.0, square=True),
+        R("count", valid=vm), R("fsum", dec, vm, divisor=100.0, power=2),
         R("min", rev, vr), R("max", rev, vr), R("min", dbl, vd), R("max", dbl, vd),
         R("min", flag, vf), R("max", flag, vf), R("count", valid=vt), R("min", date, vt),
         R("max", date, vt), R("last", qty, vq), R("sum", rev, vr, filt=filt, filt_valid=ones),
@@ -874,33 +851,229 @@ def segment_agg_cases(HK, dev):
     keys, _ = _agg_page(dev, gen, 200_000, new_group, active, n_keys=1)
     x = 1 + torch.rand(200_000, generator=gen, device=dev, dtype=torch.float64)
     reqs = [HK.AggRequest("count", valid=active), HK.AggRequest("fsum", x, active)]
-    outs = [HK.AggOutput("value", 1, 0, torch.float64),
-            HK.AggOutput("avg_double", 1, 0, torch.float64)]
+    outs = [HK.AggOutput("value", (1, 0), torch.float64),
+            HK.AggOutput("avg_double", (1, 0), torch.float64)]
     groups = new_group.sum()
     yield "doubles that round", (new_group, groups, round_capacity(int(groups), 16), active,
                                  keys, reqs, outs, None)
 
 
-def _float_sum_outputs(args) -> set:
-    """The outputs computed from a float64 sum (compared at REL_TOL)."""
-    reqs, outs = args[5], args[6]
+# phase 2's long-tail cases: Q3's joined page at SF10 and a page of
+# T1's shape (a group per order date over every row)
+LONG_TAIL_SHAPES = ((524_288, 0.25, 0.75), (4_194_304, 1 / 1750, 1.0))
+
+
+def _long_tail_requests(HK, dev, gen, n, active, part: str, filt=None):
+    """The long tail's request kinds and finishing ops over seeded
+    columns, in two sets that each fit one call: ``moments`` (every
+    variance, two-column, skewness, kurtosis, geometric mean and entropy
+    op) and ``rows`` (the bitwise kinds, checksums over a dictionary and
+    over a double, min_by/max_by on an integer key and on a double key with
+    ties, NULL keys and NULL values). Every column is weighted by ``filt``
+    (an aggregate FILTER) where given. The quantities are multiples of 100
+    over a decimal scale of 2 and the doubles multiples of 1/4 below 2^6, so
+    every float sum but those of logarithms is exact in any order."""
+    R, O = HK.AggRequest, HK.AggOutput
+    kw = {} if filt is None else {"filt": filt,
+                                  "filt_valid": torch.rand(n, generator=gen, device=dev) < 0.95}
+
+    def valid(rate=0.9):
+        return (torch.rand(n, generator=gen, device=dev) < rate) & active
+
+    def ints(lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev).to(dtype)
+
+    f64 = torch.float64
+    if part == "moments":
+        qty, vq = ints(1, 51) * 100, valid()
+        dx, vx = ints(-256, 256).to(f64) / 4, valid()
+        dy, vy = ints(-200, 200) * 100, valid()
+        pos, vp = torch.rand(n, generator=gen, device=dev, dtype=f64) * 100, valid()
+        cnt, vc = ints(-1, 6, torch.int32), valid()
+        reqs = [
+            R("count", valid=vq, **kw), R("fsum", qty, vq, divisor=100.0, **kw),
+            R("fsum", qty, vq, divisor=100.0, power=2, **kw),
+            R("fsum", qty, vq, divisor=100.0, power=3, **kw),
+            R("fsum", qty, vq, divisor=100.0, power=4, **kw),
+            R("count", valid=vx, valid2=vy, **kw), R("fsum", dx, vx, valid2=vy, **kw),
+            R("fsum", dy, vy, valid2=vx, divisor=100.0, **kw),
+            R("fsum", dx, vx, valid2=vy, values2=dy, divisor2=100.0, **kw),
+            R("fsum", dx, vx, valid2=vy, power=2, **kw),
+            R("fsum", dy, vy, valid2=vx, divisor=100.0, power=2, **kw),
+            R("count", valid=vx, **kw), R("fsum", dx, vx, **kw),
+            R("fsum", dx, vx, power=2, **kw), R("fsum", dx, vx, power=3, **kw),
+            R("count", valid=vp, **kw), R("fsum", pos, vp, transform="log", **kw),
+            R("count", valid=vc, **kw), R("fsum", cnt, vc, transform="clamp0", **kw),
+            R("fsum", cnt, vc, transform="xlog2x", **kw),
+        ]
+        two = (5, 6, 7, 8, 9, 10)
+        outs = [O(op, (0, 1, 2), f64) for op in ("var_pop", "var_samp", "stddev_pop",
+                                                 "stddev_samp")]
+        outs += [O("kurtosis", (0, 1, 2, 3, 4), f64), O("skewness", (11, 12, 13, 14), f64)]
+        outs += [O(op, two, f64) for op in ("covar_pop", "covar_samp", "corr", "regr_slope",
+                                            "regr_intercept", "regr_avgx", "regr_avgy",
+                                            "regr_sxx", "regr_syy", "regr_sxy", "regr_r2")]
+        outs += [O("geometric_mean", (15, 16), f64), O("entropy", (17, 18, 19), f64),
+                 O("value", (5,), torch.int64)]
+        return reqs, outs
+    bits, vb = ints(-(2**62), 2**62), valid()
+    codes, vs = ints(0, 997, torch.int32), valid()
+    lut = torch.randint(-(2**62), 2**62, (997,), generator=gen, device=dev)
+    dx, vx = ints(-64, 64).to(f64) / 4, valid()
+    key, vk = ints(0, 5, torch.int32), valid(0.8)
+    dkey = ints(-8, 8).to(f64) / 4
+    vals, vv = ints(-(2**40), 2**40), valid(0.85)
+    dvals = torch.rand(n, generator=gen, device=dev, dtype=f64)
+    reqs = [
+        R("count", valid=vb, **kw), R("band", bits, vb, **kw), R("bor", bits, vb, **kw),
+        R("bxor", bits, vb, **kw), R("count", **kw), R("checksum", codes, vs, lut=lut, **kw),
+        R("checksum", dx, vx, **kw), R("count", valid=vk, **kw),
+        R("min", key, vk, transform="order_key", **kw),
+        R("match_last", key, vk, transform="order_key", ref=8, **kw),
+        R("max", dkey, vk, transform="order_key", **kw),
+        R("match_last", dkey, vk, transform="order_key", ref=10, **kw),
+        R("max", key, vk, transform="order_key", **kw),
+        R("match_last", key, vk, transform="order_key", ref=12, **kw),
+    ]
+    i64 = torch.int64
+    outs = [O("value", (1, 0), i64), O("value", (2, 0), i64), O("value", (3, 0), i64),
+            O("value", (5, 4), i64), O("value", (6, 4), i64),
+            O("first", (9, 7), i64, values=vals, values_valid=vv),
+            O("first", (11, 7), f64, values=dvals, values_valid=vv),
+            O("first", (13, 7), codes.dtype, values=codes, values_valid=vs)]
+    return reqs, outs
+
+
+def long_tail_cases(HK, dev):
+    """(label, args) cases for segment_agg with the long tail's request
+    kinds and finishing ops (``_long_tail_requests``), at each of
+    ``LONG_TAIL_SHAPES`` (rows, group start rate, active share), each set
+    without and with a FILTER; one group key (an order date) and no
+    destination."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for n, rate, act_rate in LONG_TAIL_SHAPES:
+        for part in ("moments", "rows"):
+            for filtered in (False, True):
+                new_group = torch.rand(n, generator=gen, device=dev) < rate
+                new_group[0] = True
+                n_act = int(n * act_rate)
+                new_group[n_act:] = False
+                active = torch.arange(n, device=dev) < n_act
+                keys, _ = _agg_page(dev, gen, n, new_group, active, n_keys=1)
+                filt = torch.rand(n, generator=gen, device=dev) < 0.6 if filtered else None
+                reqs, outs = _long_tail_requests(HK, dev, gen, n, active, part, filt)
+                groups = new_group.sum()
+                label = f"{part}{' FILTER' if filtered else ''} n={n}"
+                yield label, (new_group, groups, round_capacity(int(groups), 16), active, keys,
+                              reqs, outs, None)
+
+
+def direct_variance_cases(HK, dev, n_wide: int):
+    """(label, args) cases for segment_agg_direct with the variance family
+    (and its partial sums), at G = 8 over FUSED_SLOTS rows and at G = 256
+    over ``n_wide`` rows: T2's shape, values of lineitem's quantity,
+    extended price, discount and tax."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    R, O = HK.AggRequest, HK.AggOutput
+    f64 = torch.float64
+    for label, n, domains in ((f"variance G=8 n={FUSED_SLOTS}", FUSED_SLOTS, (8,)),
+                              (f"variance G=256 n={n_wide}", n_wide, (32, 8))):
+        active = torch.rand(n, generator=gen, device=dev) < 0.9
+        keys = [(torch.randint(0, D - 1, (n,), generator=gen, device=dev).to(torch.int32),
+                 torch.rand(n, generator=gen, device=dev) < 0.97) for D in domains]
+        reqs, outs = [], []
+        for k, (lo, hi, op) in enumerate(((100, 5001, "stddev_samp"),
+                                          (90_000, 10_500_000, "var_samp"),
+                                          (0, 11, "stddev_pop"), (0, 9, "var_pop"))):
+            v = torch.randint(lo, hi, (n,), generator=gen, device=dev)
+            ok = torch.rand(n, generator=gen, device=dev) < 0.95
+            at = len(reqs)
+            reqs += [R("count", valid=ok), R("fsum", v, ok, divisor=100.0),
+                     R("fsum", v, ok, divisor=100.0, power=2)]
+            outs += [O(op, (at, at + 1, at + 2), f64), O("value", (at + 2, at), f64)]
+        yield label, (keys, domains, active, reqs, outs)
+
+
+def check_long_tail_kernels(HK, n_wide: int, dev) -> None:
+    """segment_agg on ``long_tail_cases`` (bit-exact against its plain
+    version, the sums of logarithms' outputs within tests/agg_tolerance.py's
+    tolerance, and the same bits on a second run) and segment_agg_direct
+    on ``direct_variance_cases`` (its float sums within REL_TOL and the
+    variances within the tolerance, and the same bits on a second call);
+    the largest case of each set timed beside its bound, its plain version
+    and the summed scatters."""
+    for name, cases in (("segment_agg", long_tail_cases(HK, dev)),
+                        ("segment_agg_direct", direct_variance_cases(HK, dev, n_wide))):
+        for label, args in cases:
+            got = getattr(HK, name)(*args)
+            want = getattr(HK, PLAIN[name])(*args)
+            torch.cuda.synchronize()
+            if name == "segment_agg":
+                ok, _ = same_segment_agg(got, want, args, exact=True)
+                ok = ok and same_bits(got, HK.segment_agg(*args))
+            else:
+                ok, worst = same_direct(got, want, args)
+                DIRECT_FLOAT_ERR[0] = max(DIRECT_FLOAT_ERR[0], worst)
+                ok = ok and same_direct_bits(got, HK.segment_agg_direct(*args))
+            if not ok:
+                fail(f"{name} [{label}] differs from its plain version or its second run")
+            held = ("bit-exact, the outputs of sums of logarithms within tolerance"
+                    if name == "segment_agg" else
+                    f"the float sums within {REL_TOL} relative, the variances within tolerance")
+            print(f"  {name} [{label}, {SHAPE_OF[name](args)}]: {held}, the same bits on a "
+                  "second run", flush=True)
+            rows = args[0].shape[0] if name == "segment_agg" else args[2].shape[0]
+            if rows >= FUSED_SLOTS:
+                print_timing(f"{name} [{label}]", time_wrapper(HK, name, args))
+                print(f"  {name} [{label}]: {ops_per_call(HK, name, args)} stream operations "
+                      "a call", flush=True)
+            del got, want, args
+        torch.cuda.empty_cache()
+    print(f"  long tail: {MOMENT_TALLY['bit_identical']} of {MOMENT_TALLY['within']} moment "
+          "outputs compared within tolerance were bit-identical", flush=True)
+
+
+def _float_sum_outputs(reqs, outs) -> set:
+    """The outputs that are a float64 sum or its average (compared at
+    REL_TOL)."""
     return {k for k, o in enumerate(outs)
-            if o.op in ("value", "avg_double") and reqs[o.a].kind == "fsum"}
+            if o.op in ("value", "avg_double") and reqs[o.reads[0]].kind == "fsum"}
 
 
-def same_segment_agg(got, want, args) -> tuple:
-    """(equal, largest absolute difference of a float sum): starts,
-    group_exists and the destination bit for bit; on the slots of existing
-    groups every key and output bit for bit and each validity, the float
-    sums within REL_TOL of the plain version's (another order of adds)."""
-    starts, exists, keys, outs, dest = got
-    w_starts, w_exists, w_keys, w_outs, w_dest = want
-    ok = torch.equal(starts, w_starts) and torch.equal(exists, w_exists)
-    ok = ok and ((dest is None and w_dest is None) or torch.equal(dest, w_dest))
-    for (d, v), (wd, wv) in zip(keys, w_keys):
-        ok = ok and torch.equal(v, wv) and torch.equal(_bits(d)[exists], _bits(wd)[exists])
-    floats = _float_sum_outputs(args)
-    worst = 0.0
+def _moment_outputs(reqs, outs) -> dict:
+    """The outputs finished from float64 sums by a moment's formula, each
+    with whether one of its sums is of logarithms (never exact)."""
+    return {k: any(reqs[r].transform in ("log", "xlog2x") for r in o.reads if r >= 0)
+            for k, o in enumerate(outs) if o.op in MOMENT_OPS}
+
+
+# the finishing ops of the moments (hopper_kernels.AggOutput)
+MOMENT_OPS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp", "covar_pop", "covar_samp",
+              "corr", "regr_slope", "regr_intercept", "regr_avgx", "regr_avgy", "regr_sxx",
+              "regr_syy", "regr_sxy", "regr_r2", "skewness", "kurtosis", "geometric_mean",
+              "entropy")
+# outputs of a moment compared within tests/agg_tolerance.py's tolerance
+# (not bit for bit), and of those how many were bit-identical all the same
+MOMENT_TALLY = {"within": 0, "bit_identical": 0}
+
+
+def same_outputs(outs, w_outs, exists, reqs, plans, active, gid, slots, exact=False,
+                 all_data=False) -> tuple:
+    """(equal, largest absolute difference of a float sum) of two runs'
+    outputs on the slots of existing groups: each validity; the float sums
+    within REL_TOL of the plain version's (another order of adds); the
+    moments within ``tests/agg_tolerance.py``'s tolerance, relative to the
+    terms their one-pass formulas cancel, and bit for bit with ``exact``
+    (inputs whose sums are exact in any order) but where a sum is of
+    logarithms; every other value bit for bit (at every slot with
+    ``all_data``, else where valid)."""
+    from tests.agg_tolerance import float_tolerance, within
+
+    floats = _float_sum_outputs(reqs, plans)
+    moments = _moment_outputs(reqs, plans)
+    ok, worst = True, 0.0
     for k, ((d, v), (wd, wv)) in enumerate(zip(outs, w_outs)):
         ok = ok and torch.equal(v[exists], wv[exists])
         m = exists & v
@@ -910,9 +1083,33 @@ def same_segment_agg(got, want, args) -> tuple:
             if diff.numel():
                 worst = max(worst, float(diff.max()))
             ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
+        elif k in moments and not (exact and not moments[k]):
+            tol = float_tolerance(reqs, plans[k], active, gid, slots)
+            same = torch.equal(_bits(d)[m], _bits(wd)[m])
+            MOMENT_TALLY["within"] += 1
+            MOMENT_TALLY["bit_identical"] += int(same)
+            ok = ok and (same or bool(within(d[m], wd[m], tol[m]).all()))
         else:
-            ok = ok and torch.equal(_bits(d)[m], _bits(wd)[m])
+            at = exists if all_data else m
+            ok = ok and torch.equal(_bits(d)[at], _bits(wd)[at])
     return ok, worst
+
+
+def same_segment_agg(got, want, args, exact=False) -> tuple:
+    """(equal, largest absolute difference of a float sum): starts,
+    group_exists and the destination bit for bit; on the slots of existing
+    groups every key bit for bit and the outputs as ``same_outputs``
+    compares them."""
+    starts, exists, keys, outs, dest = got
+    w_starts, w_exists, w_keys, w_outs, w_dest = want
+    ok = torch.equal(starts, w_starts) and torch.equal(exists, w_exists)
+    ok = ok and ((dest is None and w_dest is None) or torch.equal(dest, w_dest))
+    for (d, v), (wd, wv) in zip(keys, w_keys):
+        ok = ok and torch.equal(v, wv) and torch.equal(_bits(d)[exists], _bits(wd)[exists])
+    new_group, _, out_cap, active, _, reqs, plans = args[:7]
+    gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
+    same, worst = same_outputs(outs, w_outs, exists, reqs, plans, active, gid, out_cap, exact)
+    return ok and same, worst
 
 
 def _agg_tensors(res) -> list:
@@ -933,6 +1130,16 @@ def _agg_gid(args):
     return (torch.cumsum(new_group.to(torch.int64), 0) - 1).clamp(min=0)
 
 
+def request_bytes(reqs) -> int:
+    """The bytes of every distinct column (and LUT) the requests read."""
+    cols = {}
+    for r in reqs:
+        for t in (r.values, r.valid, r.filt, r.filt_valid, r.values2, r.valid2, r.lut):
+            if t is not None:
+                cols[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(cols.values())
+
+
 def segment_agg_bound(args) -> tuple:
     """Read new_group, the activity and every distinct request column once;
     write starts and read them back; read and write the keys at out_cap
@@ -940,12 +1147,7 @@ def segment_agg_bound(args) -> tuple:
     4 operations a row a request."""
     new_group, _, out_cap, active, keys, reqs, outs, dest = args
     n = new_group.shape[0]
-    cols = {}
-    for r in reqs:
-        for t in (r.values, r.valid, r.filt, r.filt_valid):
-            if t is not None:
-                cols[t.data_ptr()] = t.numel() * t.element_size()
-    nbytes = 2 * n + sum(cols.values()) + 16 * out_cap + out_cap
+    nbytes = 2 * n + request_bytes(reqs) + 16 * out_cap + out_cap
     nbytes += sum(2 * out_cap * (d.element_size() + 1) for d, _ in keys)
     nbytes += sum(out_cap * (torch.empty((), dtype=o.dtype).element_size() + 1) for o in outs)
     if dest is not None:
@@ -954,31 +1156,41 @@ def segment_agg_bound(args) -> tuple:
     return bound_ms(nbytes, 4 * n * max(len(reqs), 1))
 
 
-def segment_agg_yardstick(args) -> float:
-    """One ``index_add_`` (sums, counts) or ``scatter_reduce_`` (min, max,
-    the last row) a request by each row's group, their times summed: not
-    one call, since no one torch call computes the whole reduction. The
-    group index and the masked values are computed before the timing."""
-    new_group, _, out_cap, active, _, reqs, _, _ = args
-    gid = _agg_gid(args)
+def request_yardstick(reqs, active, gid, slots: int) -> float:
+    """One ``index_add_`` (sums, counts, checksums) or ``scatter_reduce_``
+    (min, max, the last row, min_by's row) a request by each row's group,
+    their times summed: not one call, since no one torch call computes the
+    whole reduction (torch has no bitwise scatter: those requests are left
+    out). The group index and the masked values are computed before the
+    timing."""
     total = 0.0
+    rows = torch.arange(active.shape[0], device=active.device)
     for r in reqs:
         w = r.weight(active)
-        if r.kind in ("count", "sum", "fsum"):
+        if r.kind in ("band", "bor", "bxor"):
+            continue
+        if r.kind in ("count", "sum", "fsum", "checksum"):
             dt = torch.float64 if r.kind == "fsum" else torch.int64
             v = torch.where(w, w.to(dt) if r.kind == "count" else r.values.to(dt), 0)
-            total += time_ms(lambda: torch.zeros(out_cap + 1, dtype=dt, device=v.device)
+            total += time_ms(lambda: torch.zeros(slots, dtype=dt, device=v.device)
                              .index_add_(0, gid, v))
             continue
-        if r.kind == "last":
-            v = torch.where(w, torch.arange(w.shape[0], device=w.device), -1)
+        if r.kind in ("last", "match_last"):
+            v = torch.where(w, rows, -1)
             how = "amax"
         else:
             v = r.values.to(torch.float64 if r.values.dtype.is_floating_point else torch.int64)
             how = "amin" if r.kind == "min" else "amax"
-        total += time_ms(lambda: torch.zeros(out_cap + 1, dtype=v.dtype, device=v.device)
+        total += time_ms(lambda: torch.zeros(slots, dtype=v.dtype, device=v.device)
                          .scatter_reduce_(0, gid, v, reduce=how, include_self=False))
     return total
+
+
+def segment_agg_yardstick(args) -> float:
+    """``request_yardstick`` by each row's group (slot out_cap takes the
+    rows before the first group)."""
+    new_group, _, out_cap, active, _, reqs, _, _ = args
+    return request_yardstick(reqs, active, _agg_gid(args), out_cap + 1)
 
 
 def dest_expand_args(args, n_keys: int, lut):
@@ -1225,17 +1437,6 @@ def time_wrapper(HK, name, args) -> tuple:
         lib = time_ms(lambda: torch.zeros(G, dtype=torch.int64, device=v.device)
                       .index_add_(0, gid64, pre))
         b, by = bound_ms(v.shape[0] * (v.element_size() + 1 + 4) + G * 8, 2 * v.shape[0])
-    elif name == "segment_sum":
-        # index_add_ by each row's group (slot 0 takes the rows before the
-        # first group), the group index computed before the timing
-        v, w, starts = args
-        rows = torch.arange(v.shape[0], device=v.device)
-        gid1 = torch.searchsorted(starts, rows, right=True)
-        pre = torch.where(w, v.to(torch.int64), 0)
-        out = starts.shape[0] + 1
-        lib = time_ms(lambda: torch.zeros(out, dtype=torch.int64, device=v.device)
-                      .index_add_(0, gid1, pre))
-        b, by = segment_bound(args)
     elif name == "segment_agg":
         lib = segment_agg_yardstick(args)
         b, by = segment_agg_bound(args)
@@ -1264,7 +1465,7 @@ def time_wrapper(HK, name, args) -> tuple:
 PLAIN = {
     "grouped_sum_i64": "grouped_sum_plain", "grouped_sum_i32": "grouped_sum_plain",
     "hash_probe": "hash_probe_plain", "hash_expand": "hash_expand_plain",
-    "segment_sum": "segment_sum_plain", "segment_agg": "segment_agg_plain",
+    "segment_agg": "segment_agg_plain",
     "group_sort": "group_sort_plain",
     "partition_epilogue": "partition_epilogue_plain", "partition_dest": "partition_dest_plain",
     "expr_program": "expr_program_plain", "presorted_group": "presorted_group_plain",
@@ -1315,10 +1516,9 @@ class LaunchTap:
     KEEP = {
         "hash_probe": lambda a: a[3].shape[0],  # the larger probe side
         "hash_expand": lambda a: a[8].shape[0],
-        "segment_sum": lambda a: a[0].element_size(),  # a sum over a count
         "segment_agg": lambda a: a[0].shape[0],
         "group_sort": lambda a: a[2].shape[0],
-        "expr_program": lambda a: a[1][0][1].shape[0],
+        "expr_program": lambda a: expr_rows(a),
         "presorted_group": lambda a: a[1].shape[0],
         "segment_agg_direct": lambda a: a[2].shape[0],
     }
@@ -1371,14 +1571,13 @@ SHAPE_OF = {
     "hash_probe": lambda a: f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]}",
     "hash_expand": lambda a: (f"n={a[8].shape[0]} out={a[11]} C={a[0].shape[1]} "
                               f"columns={len(a[9])}+{len(a[10])}"),
-    "segment_sum": lambda a: f"n={a[0].shape[0]} slots={a[2].shape[0]} {a[0].dtype}",
     "segment_agg": lambda a: (f"n={a[0].shape[0]} slots={a[2]} keys={len(a[4])} "
                               f"requests={len(a[5])} outputs={len(a[6])} "
                               f"destination={a[7] is not None}"),
     "group_sort": lambda a: (f"n={a[2].shape[0]} keys={[str(d.dtype) for d, _ in a[0]]} "
                              f"active={int(a[2].sum())} columns={len(a[1])}"),
     "partition_dest": lambda a: f"n={a[2].shape[0]} keys={len(a[0])} parts={a[3]}",
-    "expr_program": lambda a: (f"n={a[1][0][1].shape[0]} inputs={len(a[1])} "
+    "expr_program": lambda a: (f"n={expr_rows(a)} inputs={len(a[1])} "
                                f"outputs={len(a[0].output_dtypes)} instructions={len(a[0].code)}"),
     "presorted_group": lambda a: (f"n={a[1].shape[0]} keys={len(a[0])} "
                                   f"active={int(a[1].sum())}"),
@@ -1430,10 +1629,14 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
             print(f"  hash_expand [{query} inputs]: scan pass {scan:.4f} ms, slot-and-gather "
                   f"pass {slots:.4f} ms", flush=True)
         elif name == "group_sort":
+            # each query's keys pack into one composite: 64 bits of Q3's and
+            # Q10's, T1's order date in fewer
             plan = sort_split(HK, f"{query} inputs", args)
-            if plan != [64]:
-                fail(f"group_sort [{query} inputs] sorted composites {plan}, not one of 64 bits")
-        elif name in ("segment_sum", "segment_agg"):
+            t1 = query.startswith("t1")
+            if len(plan) != 1 or (not t1 and plan != [64]):
+                fail(f"group_sort [{query} inputs] sorted composites {plan}, not one"
+                     f"{'' if t1 else ' of 64 bits'}")
+        elif name == "segment_agg":
             print(f"  {name} [{query} inputs]: {ops_per_call(HK, name, args)} stream "
                   "operations a call", flush=True)
             print_device_us(f"{name} [{query} inputs]", lambda: getattr(HK, name)(*args))
@@ -1460,33 +1663,66 @@ class PhaseTap:
         setattr(self.module, self.name, self.orig)
 
 
-# segment_agg's kernels, as the profiler names them
+# segment_agg's kernels, as the profiler names them (the resolve pass runs
+# only for a min_by/max_by request)
 SEGMENT_AGG_KERNELS = ("agg_count_kernel", "agg_scan_kernel", "agg_reduce_kernel",
-                       "agg_span_kernel", "agg_finish_kernel")
+                       "agg_span_kernel", "agg_finish_kernel", "agg_resolve_kernel")
+
+
+def segment_agg_plan_ops(args) -> tuple:
+    """(segment_agg calls, their launches in all, whether one serves a
+    min_by/max_by request, the dictionary LUTs its checksums copy to the
+    card) of one aggregate_phase call: per call of
+    ``executor._agg_chunks``, five launches (four without requests) and
+    three more with a ``match_last`` request."""
+    from trino_tpu_torch.runtime import executor as E
+
+    group_keys, aggregations, needed, _, page = args[:5]
+    rel = E.Relation(page, needed)
+    plans = [(i, E._agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
+    chunks = E._agg_chunks(plans)
+    calls = max(len(chunks), -(-len(group_keys) // E.HK.SEGMENT_AGG_MAX_KEYS))
+    ops, match, luts = 0, False, 0
+    for c in range(calls):
+        reqs = E._chunk_requests(chunks[c])[0] if c < len(chunks) else []
+        m = any(r.kind == "match_last" for r in reqs)
+        ops += (5 if reqs else 4) + (3 if m else 0)
+        match = match or m
+        luts += sum(r.lut is not None for r in reqs)
+    return calls, ops, match, luts
 
 
 def device_kernels(fn, reps: int = 5) -> dict:
     """Device kernels and memsets of ``reps`` calls of ``fn``, by name,
-    with the profiler's count of each over the ``reps`` calls."""
+    with the profiler's count of each over the ``reps`` calls. A trace
+    that saw no device activity at all (the profiler now and then records
+    nothing of a window) is taken once more; the callers' gates hold on
+    what the second trace sees."""
     from trino_tpu_torch.tools.kernel_device_times import traced_kernels
 
     out = {}
-    for name, _, count in traced_kernels(fn, reps):
-        out[name] = out.get(name, 0) + count
+    for _ in range(2):
+        for name, _, count in traced_kernels(fn, reps):
+            out[name] = out.get(name, 0) + count
+        if out:
+            break
+        print("  the profiler saw no device activity in a trace; tracing once more",
+              flush=True)
     return out
 
 
 def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
     """One aggregate_phase call on the query's inputs: its device kernels
-    must be segment_agg's five passes and memsets only. segment_agg's own
-    counter must read five launches a call over the traced calls, and the
-    tracer must see each pass and nothing else but memsets over ``reps``
-    calls (it misses a launch now and then, so its count of the passes is
-    printed beside the launches, not required equal). Fails where the
-    profiler cannot trace the card or sees nothing. Printed beside the
-    kernels of the eager path on the same inputs, ``_aggregate_impl`` with
-    its integer sums in segment_sum: the path of the commit before
-    segment_agg, whose own count ``tools/kernel_device_times.py`` gives."""
+    must be segment_agg's passes and memsets only (and the copy of each
+    dictionary LUT a checksum reads). segment_agg's own
+    counter must read the launches its plan makes a call
+    (``segment_agg_plan_ops``) over the traced calls, and the tracer must
+    see each pass and nothing else but memsets over ``reps`` calls (it
+    misses a launch now and then, so its count of the passes is printed
+    beside the launches, not required equal). Fails where the profiler
+    cannot trace the card or sees nothing. Printed beside the kernels of
+    the eager path on the same inputs, ``_aggregate_impl``: each aggregate
+    as torch operators."""
     from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import executor as E
 
@@ -1508,22 +1744,27 @@ def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
     ops = (HK.stream_ops("segment_agg") - before) / len(calls)
     if not got:
         fail(f"{label}: the profiler saw no device activity")
-    passes = {k: got.get(k, 0) for k in SEGMENT_AGG_KERNELS}
-    other = {k: v for k, v in got.items() if k not in SEGMENT_AGG_KERNELS and "emset" not in k}
+    n_calls, want_ops, match, luts = segment_agg_plan_ops(args)
+    expected = SEGMENT_AGG_KERNELS if match else SEGMENT_AGG_KERNELS[:5]
+    passes = {k: got.get(k, 0) for k in expected}
+    # a checksum over a dictionary copies its value-key LUT to the card
+    other = {k: v for k, v in got.items() if k not in expected and "emset" not in k
+             and not (k == "Memcpy HtoD" and v <= luts * reps)}
     group_keys, aggregations, needed, out_cap, page, new_group, num_groups = args[:7]
     eager = device_kernels(lambda: E._aggregate_impl(
         group_keys, aggregations, needed, out_cap, page, new_group, num_groups,
         segment_kernel=True), reps)
-    print(f"  {label}: segment_agg counted {ops} launches a call; the tracer saw "
+    print(f"  {label}: {n_calls} segment_agg calls, counted {ops} launches a phase call "
+          f"(the plan's {want_ops}, and {luts} LUT copies); the tracer saw "
           f"{sum(got.values())} device kernels and memsets in {reps} calls ({got}), "
-          f"{sum(passes.values())} of the {len(SEGMENT_AGG_KERNELS) * reps} passes launched; "
+          f"{sum(passes.values())} of the {want_ops * reps} passes launched; "
           f"the eager path on the same inputs {sum(eager.values()) / reps} a call "
           f"({len(eager)} kinds: {eager} in {reps} calls)", flush=True)
     if other:
         fail(f"{label} ran device kernels besides segment_agg's: {other}")
-    if ops != len(SEGMENT_AGG_KERNELS) or not all(passes.values()):
+    if ops != want_ops or not all(passes.values()):
         fail(f"{label}: {ops} segment_agg launches a call and the passes {passes} over {reps} "
-             f"calls, not its {len(SEGMENT_AGG_KERNELS)} passes")
+             f"calls, not the plan's {want_ops}")
 
 
 def fused_expand_call(calls):
@@ -1777,7 +2018,7 @@ def check_sort_kernels(HK, dev, results: dict) -> None:
 
 def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
     """hash_probe, hash_expand (also with the destination folded in, on one
-    key and on three with a dictionary key), segment_sum and segment_agg
+    key and on three with a dictionary key), and segment_agg
     against their plain versions on every case (segment_agg also against
     its own second run); the first (main-shape) case of each is timed."""
     gen = torch.Generator(device=dev)
@@ -1829,16 +2070,6 @@ def check_join_kernels(HK, n_main: int, dev, results: dict) -> None:
             print_dest_expand(HK, "main shape", eargs, dest_lut)
         del pr, pargs, eargs, short, wide, pcols, bcols
     torch.cuda.empty_cache()
-    for i, (label, v, w, starts) in enumerate(segment_cases(HK, n_main, dev)):
-        if not same_result(HK, "segment_sum", (v, w, starts)):
-            fail(f"segment_sum [{label}] differs from its plain version")
-        print(f"  segment_sum [{label}]: bit-exact ({starts.shape[0]} slots)", flush=True)
-        if i == 0:
-            results["segment_sum"] = timed_entry(HK, "segment_sum", (v, w, starts))
-            print(f"  segment_sum: {ops_per_call(HK, 'segment_sum', (v, w, starts))} stream "
-                  "operations a call", flush=True)
-            print_device_us("segment_sum [main shape]", lambda: HK.segment_sum(v, w, starts))
-    torch.cuda.empty_cache()
     for i, (label, args) in enumerate(segment_agg_cases(HK, dev)):
         if not same_result(HK, "segment_agg", args):
             fail(f"segment_agg [{label}] differs from its plain version or its second run")
@@ -1879,8 +2110,6 @@ SOURCES = {
                    "trino_tpu/ops/megakernels.py:320"),
     "hash_expand": ("trino_tpu_torch/csrc/hash_expand.cu",
                     "trino_tpu/ops/megakernels.py:468"),
-    "segment_sum": ("trino_tpu_torch/csrc/segment_agg.cu",
-                    "trino_tpu/ops/megakernels.py:573"),
     "segment_agg": ("trino_tpu_torch/csrc/segment_agg.cu",
                     "trino_tpu/ops/megakernels.py:573"),
     "group_sort": ("trino_tpu_torch/csrc/group_sort.cu",
@@ -2079,32 +2308,18 @@ def direct_cases(HK, dev, n_wide: int):
     yield case("n=1", 1, (4,))
 
 
-def _direct_float_outputs(args) -> set:
-    reqs, outs = args[3], args[4]
-    return {k for k, o in enumerate(outs)
-            if o.op in ("value", "avg_double") and reqs[o.a].kind == "fsum"}
-
-
 def same_direct(got, want, args) -> tuple:
-    """(equal, largest absolute difference of a float sum): group_exists,
-    the keys and every output bit for bit at every group, the float sums
-    within REL_TOL of the plain version's (another order of adds)."""
+    """(equal, largest absolute difference of a float sum): group_exists
+    and the keys bit for bit at every group, the outputs as
+    ``same_outputs`` compares them (the float sums within REL_TOL of the
+    plain version's: another order of adds)."""
     exists, keys, outs = got
     w_exists, w_keys, w_outs = want
     ok = torch.equal(exists, w_exists) and same_cols(keys, w_keys)
-    floats = _direct_float_outputs(args)
-    worst = 0.0
-    for k, ((d, v), (wd, wv)) in enumerate(zip(outs, w_outs)):
-        ok = ok and torch.equal(v, wv)
-        if k in floats:
-            a, b = d[v].to(torch.float64), wd[v].to(torch.float64)
-            diff = (a - b).abs()
-            if diff.numel():
-                worst = max(worst, float(diff.max()))
-            ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
-        else:
-            ok = ok and torch.equal(_bits(d), _bits(wd))
-    return ok, worst
+    every = torch.ones_like(exists)
+    same, worst = same_outputs(outs, w_outs, every, args[3], args[4], args[2], _direct_gid(args),
+                               math.prod(args[1]), all_data=True)
+    return ok and same, worst
 
 
 def same_direct_bits(got, again) -> bool:
@@ -2128,43 +2343,16 @@ def direct_bound(args) -> tuple:
     group_exists."""
     keys, domains, active, reqs, outs = args
     n, G = active.shape[0], math.prod(domains)
-    cols = {}
-    for r in reqs:
-        for t in (r.values, r.valid, r.filt, r.filt_valid):
-            if t is not None:
-                cols[t.data_ptr()] = t.numel() * t.element_size()
-    nbytes = n + sum(d.element_size() * n + n for d, _ in keys) + sum(cols.values())
+    nbytes = n + sum(d.element_size() * n + n for d, _ in keys) + request_bytes(reqs)
     nbytes += G + sum(G * (d.element_size() + 1) for d, _ in keys)
     nbytes += sum(G * (torch.empty((), dtype=o.dtype).element_size() + 1) for o in outs)
     return bound_ms(nbytes, 4 * n * (len(reqs) + 1))
 
 
 def direct_yardstick(args) -> float:
-    """One ``index_add_`` (sums, counts) or ``scatter_reduce_`` (min, max,
-    the last row) a request by each row's group, their times summed (as
-    segment_agg's): the group index and the masked values computed before
-    the timing."""
+    """``request_yardstick`` by each row's group (as segment_agg's)."""
     keys, domains, active, reqs, _ = args
-    gid = _direct_gid(args)
-    G = math.prod(domains)
-    total = 0.0
-    for r in reqs:
-        w = r.weight(active)
-        if r.kind in ("count", "sum", "fsum"):
-            dt = torch.float64 if r.kind == "fsum" else torch.int64
-            v = torch.where(w, w.to(dt) if r.kind == "count" else r.values.to(dt), 0)
-            total += time_ms(lambda: torch.zeros(G, dtype=dt, device=v.device)
-                             .index_add_(0, gid, v))
-            continue
-        if r.kind == "last":
-            v = torch.where(w, torch.arange(w.shape[0], device=w.device), -1)
-            how = "amax"
-        else:
-            v = r.values.to(torch.float64 if r.values.dtype.is_floating_point else torch.int64)
-            how = "amin" if r.kind == "min" else "amax"
-        total += time_ms(lambda: torch.zeros(G, dtype=v.dtype, device=v.device)
-                         .scatter_reduce_(0, gid, v, reduce=how, include_self=False))
-    return total
+    return request_yardstick(reqs, active, _direct_gid(args), math.prod(domains))
 
 
 def _expr_ir():
@@ -2301,11 +2489,17 @@ def expr_cases(HK, dev):
         yield f"{label} n={n}", (program, expr_inputs(program, n, dev, gen))
 
 
+def expr_rows(args) -> int:
+    """The rows of an expr_program call: its first input's, or its page's
+    where it reads no column."""
+    return (args[1][0][1] if args[1] else args[2]).shape[0]
+
+
 def expr_bound(args) -> tuple:
     """Read every input column (data and validity) once, write every output
     once; the program's instructions as operations a row."""
-    program, inputs = args
-    n = inputs[0][1].shape[0]
+    program, inputs = args[:2]
+    n = expr_rows(args)
     nbytes = sum(d.element_size() * n + n for d, _ in inputs)
     nbytes += sum((torch.empty((), dtype=dt).element_size() + 1) * n
                   for dt in program.output_dtypes)
@@ -2663,7 +2857,7 @@ NEW_PHASES_OF = {"q14": {"probe": 1, "expand": 1, "aggregate": 0, "group_sort": 
 JOIN_KERNELS = ("hash_probe", "hash_expand")
 # every wrapper a query's path can launch
 PATH_KERNELS = ("grouped_sum_i64", "grouped_sum_i32", "hash_probe", "hash_expand",
-                "segment_sum", "segment_agg", "group_sort") + FUSED_KERNELS
+                "segment_agg", "group_sort") + FUSED_KERNELS
 def q14_q18_oracle(g, conn, q18_qty: int) -> dict:
     """Q14's promotion revenue share and Q18's large-volume customers from
     the port's generator in numpy (int64 sums, Python ints where a product
@@ -2781,7 +2975,7 @@ CROSS_JOINS = {"q11": 1, "q22": 1}
 
 
 def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict,
-               closures_allowed: bool = True, direct=()) -> dict:
+               closures_allowed: bool = True, direct=(), torch_aggregates_allowed=True) -> dict:
     """Every query of ``texts`` at ``scale`` over ``benchmark``'s connector
     with the default session (counts set to 0 just before each, read just
     after) and with the kernel tier off: rows identical (DOUBLE at REL_TOL
@@ -2791,7 +2985,9 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict,
     probe on every join, every launch of expand_phase's stages after the
     join), the fused projections' assignments left on closures
     (``STAGES["project_torch"]``, which must be 0 unless
-    ``closures_allowed``) and the queries of ``direct`` through
+    ``closures_allowed``), the aggregates of fused aggregations left to
+    torch (``STAGES["aggregate_torch"]``, which must be 0 unless
+    ``torch_aggregates_allowed``) and the queries of ``direct`` through
     ``segment_agg_direct``. Returns the launch counts by query."""
     from trino_tpu_torch.ops import megakernels as MK
     from trino_tpu_torch.runtime import LocalQueryRunner
@@ -2804,11 +3000,14 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict,
         res, wall, launches[q], phases, fallbacks, tap = run_default(
             HK, runner, sql, PATH_KERNELS, keep_all=FUSED_KERNELS)
         closures = MK.STAGES["project_torch"]
+        torch_aggs = MK.STAGES["aggregate_torch"]
         declined = {"cross_join": cross_joins[q]} if q in cross_joins else {}
         if dict(fallbacks) != declined:
             fail(f"{label} fell back from the fused path: {fallbacks}")
         if closures and not closures_allowed:
             fail(f"{label}: {closures} fused projection assignments ran on closures")
+        if torch_aggs and not torch_aggregates_allowed:
+            fail(f"{label}: {torch_aggs} aggregates ran outside segment_agg")
         if q in direct and not launches[q]["segment_agg_direct"]:
             fail(f"{label} did not go through segment_agg_direct: {launched(launches[q])}")
         checked = check_launched(HK, label, tap, launches[q])
@@ -2820,7 +3019,8 @@ def run_corpus(HK, dev, texts: dict, scale, benchmark: str, cross_joins: dict,
         print(f"  {label}: {len(res.rows)} rows identical to the kernel tier off; "
               f"{wall:.3f} s default, {off_wall:.3f} s off; launches "
               f"{launched(launches[q])}, fused phases {launched(phases)}, fallbacks "
-              f"{dict(fallbacks)}, project_torch {closures}; bit-exact on its inputs: "
+              f"{dict(fallbacks)}, project_torch {closures}, aggregate_torch {torch_aggs}; "
+              "bit-exact on its inputs: "
               f"{checked}, every launch of the stages after the join: {launched(every)}",
               flush=True)
         del res, ref
@@ -3493,25 +3693,32 @@ def run_window(HK, dev) -> dict:
 # --------------------------------------------------------------------------- #
 
 MEM_TABLES = ("lineitem", "orders", "customer", "part", "supplier", "nation", "region")
-MEM_QUERIES = ("q06", "q01", "q03", "q10", "q18", "q05c", "q12")
+MEM_QUERIES = ("q06", "q01", "q03", "q10", "q18", "q05", "q12", "t1", "t2")
 # 8b's queries run only there (held against the kernel tier off over the
-# same tables): the direct aggregation at SF10
-MEM_ONLY = ("q05c", "q12")
-# Q5 without its supplier join, the text 8b runs: the plan of Q5 itself
-# (the reference's join order) joins customer and supplier on their nation
-# key first, about 1.2e9 rows at SF10, past hash_expand's 2^31 - 1 slots
-# (it runs at SF1 in phase 5); this keeps Q5's join to lineitem, its
-# projection and its direct aggregation by n_name (G = 26)
-Q5_NO_SUPPLIER = """
-        SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
-        FROM customer, orders, lineitem, nation, region
-        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
-          AND c_nationkey = n_nationkey AND n_regionkey = r_regionkey
-          AND r_name = 'ASIA' AND o_orderdate >= DATE '1994-01-01'
-          AND o_orderdate < DATE '1995-01-01'
-        GROUP BY n_name
-        ORDER BY revenue DESC
-"""
+# same tables): the direct aggregation at SF10 (Q5, Q12, T2) and the long
+# tail (T1, T2). Q5 runs as TPC-H gives it: over memory tables, which
+# report no column statistics, the planner keeps its syntactic join order
+# (customer, orders, lineitem, supplier, nation, region)
+MEM_ONLY = ("q05", "q12", "t1", "t2")
+# 8b's long-tail aggregations over orders joined to lineitem
+# (``tests/test_torch_long_tail.py`` runs the same texts at SF0.01 against
+# the reference): T1 the sort path (a group per order date, every moment,
+# bitwise, checksum and min_by/max_by family: the shape of a daily risk
+# report over order lines), T2 the direct path (the variance family by
+# order priority, G = 6)
+LONG_TAIL_QUERIES = {
+    "t1": "SELECT o_orderdate, stddev(l_quantity), var_pop(l_extendedprice), "
+          "corr(l_quantity, l_extendedprice), covar_samp(l_quantity, l_discount), "
+          "regr_slope(l_extendedprice, l_quantity), regr_intercept(l_extendedprice, l_quantity), "
+          "regr_r2(l_extendedprice, l_quantity), skewness(l_discount), kurtosis(l_tax), "
+          "geometric_mean(l_quantity), entropy(l_linenumber), bitwise_and_agg(l_partkey), "
+          "bitwise_or_agg(l_partkey), bitwise_xor_agg(l_orderkey), checksum(l_shipmode), "
+          "min_by(l_orderkey, l_extendedprice), max_by(l_partkey, l_quantity) "
+          "FROM orders JOIN lineitem ON o_orderkey = l_orderkey GROUP BY 1 ORDER BY 1",
+    "t2": "SELECT o_orderpriority, stddev(l_quantity), variance(l_extendedprice), "
+          "stddev_pop(l_discount), var_samp(l_tax) "
+          "FROM orders JOIN lineitem ON o_orderkey = l_orderkey GROUP BY 1 ORDER BY 1",
+}
 DELETE_DATES = (9131, 9496)  # 1995-01-01, 1996-01-01
 NEW_KEY_OFFSET = 1_000_000_000  # MERGE source keys that no order has
 MEM_DML = {
@@ -4236,6 +4443,65 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
     return launches
 
 
+def check_t1_calls(HK, tap: LaunchTap, rows, call) -> list:
+    """T1's segment_agg calls each timed on its inputs, one aggregate_phase
+    call traced (``check_aggregate_phase_kernels``); returns the rows'
+    tolerances (``long_tail_tolerance``). A helper, so that no local
+    variable of phase 8 keeps the calls' tensors alive past DROP."""
+    calls = tap.every["segment_agg"]
+    for k, args in enumerate(calls):
+        print_timing(f"segment_agg [t1 memory inputs, call {k + 1} of {len(calls)}]",
+                     time_wrapper(HK, "segment_agg", args))
+    tolerance = long_tail_tolerance(HK, calls, rows)
+    check_aggregate_phase_kernels(HK, "t1 memory", call)
+    return tolerance
+
+
+def long_tail_tolerance(HK, calls, rows) -> list:
+    """Per result row (T1's: one per order date, in the order of its
+    segment_agg slots) and per aggregate, the tolerance of a DOUBLE value
+    (``tests/agg_tolerance.py``: each float sum within REL_TOL of its
+    terms' magnitudes, carried through the finishing), None for the exact
+    ones, from the fused run's segment_agg calls (one per chunk of
+    aggregates, in order; the first gathers the group key)."""
+    from tests.agg_tolerance import float_tolerance
+
+    new_group, num_groups, out_cap, active, key_cols = calls[0][:5]
+    if len(rows) != int(num_groups):
+        fail(f"t1: {len(rows)} rows for {int(num_groups)} groups")
+    keys = HK.segment_agg_plain(*calls[0])[2][0][0][:len(rows)].tolist()
+    epoch = datetime.date(1970, 1, 1)
+    if [epoch + datetime.timedelta(days=d) for d in keys] != [r[0] for r in rows]:
+        fail("t1: the rows' order dates are not the slots' keys")
+    gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
+    per_agg = []
+    for args in calls:
+        reqs, outs = args[5], args[6]
+        for o in outs:
+            per_agg.append(None if o.dtype != torch.float64 else float_tolerance(
+                reqs, o, active, gid, out_cap)[:len(rows)].tolist())
+    return [[None if t is None else t[g] for t in per_agg] for g in range(len(rows))]
+
+
+def same_rows_within(got: list, want: list, tolerance: list) -> bool:
+    """Row for row: keys and exact values equal, each DOUBLE within its
+    row's tolerance (``long_tail_tolerance``), NULL where the other is."""
+    from tests.agg_tolerance import within
+
+    if len(got) != len(want):
+        return False
+    for g, w, tol in zip(got, want, tolerance):
+        if g[0] != w[0] or len(g) != len(w):
+            return False
+        for gv, wv, t in zip(g[1:], w[1:], tol):
+            if t is None or gv is None or wv is None:
+                if gv != wv:
+                    return False
+            elif not bool(within(torch.tensor([gv]), torch.tensor([wv]), torch.tensor([t]))):
+                return False
+    return True
+
+
 def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     """Phase 8: (a) CTAS of seven TPC-H SF10 tables into memory tables, (b)
     Q6, Q1, Q3, Q10 and Q18 from them against phases 3 and 4's rows and
@@ -4298,8 +4564,8 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
     # tables (the SF10 gate of the fused path against the serial one)
     from tests.tpch_corpus import TPCH_QUERIES
 
-    texts = {q: QUERIES.get(q) or {"q05c": Q5_NO_SUPPLIER, "q12": TPCH_QUERIES["q12"]}.get(
-        q, Q18_SF10) for q in MEM_QUERIES}
+    texts = {q: QUERIES.get(q) or {"q05": TPCH_QUERIES["q05"], "q12": TPCH_QUERIES["q12"],
+                                   **LONG_TAIL_QUERIES}.get(q, Q18_SF10) for q in MEM_QUERIES}
     plans = LocalQueryRunner.tpch(scale=SCALE, device=dev)  # plans only, over tpch
     off = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
     off.register_catalog("memory", conn)
@@ -4310,10 +4576,14 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
         names = [k for k in KERNELS_OF.get(q, JOIN_KERNELS) if k != "q6_fused"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with PhaseTap(MK, "expand_phase") as expand_calls:
+        if q == "q05":
+            print("  8b q05 plan over memory tables:\n" + runner.explain(sql), flush=True)
+        with PhaseTap(MK, "expand_phase") as expand_calls, \
+                PhaseTap(MK, "aggregate_phase") as aggregate_calls:
             res, wall, launches[f"{q} memory"], phases, fallbacks, tap = run_default(
                 HK, runner, sql, names, keep_all=names)
         closures = MK.STAGES["project_torch"]
+        torch_aggs = MK.STAGES["aggregate_torch"]
         peak = torch.cuda.max_memory_allocated()
         same_plan = runner.explain(sql) == plans.explain(sql).replace(
             f"{schema}.", "memory.default.")
@@ -4330,6 +4600,8 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
                  f"{incore_rows[q][:3]}")
         if closures:
             fail(f"{q} over memory tables: {closures} projection assignments ran on closures")
+        if torch_aggs:
+            fail(f"{q} over memory tables: {torch_aggs} aggregates ran outside segment_agg")
         if fallbacks:
             fail(f"{q} over memory tables fell back from the fused path: {fallbacks}")
         # a memory table's scan keeps no order, so Q3 groups there through
@@ -4349,14 +4621,21 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
         print(f"  8b {q}: rows {held}; every tapped launch bit-exact ({n_checked})", flush=True)
         if q == "q12":
             check_expand_phase_kernels(HK, "q12 memory", fused_expand_call(expand_calls))
-        del expand_calls
+        tolerance = None
+        if q == "t1":
+            tolerance = check_t1_calls(HK, tap, res.rows, aggregate_calls[-1])
+        del expand_calls, aggregate_calls
         mem_rows[q], mem_walls[q] = res.rows, wall
         del tap
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         off_res, off_wall = run_off(HK, off, sql)
         off_peak = torch.cuda.max_memory_allocated()
-        if not same_rows(off_res.rows, res.rows, double_columns(res)):
+        if tolerance is not None:
+            same = same_rows_within(off_res.rows, res.rows, tolerance)
+        else:
+            same = same_rows(off_res.rows, res.rows, double_columns(res))
+        if not same:
             fail(f"{q} over memory tables: default rows {res.rows[:3]} != kernel-tier-off "
                  f"rows {off_res.rows[:3]}")
         print(f"  8b {q} kernel tier off: {off_wall:.3f} s wall, peak device memory "
@@ -4468,6 +4747,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_fused_stage_kernels(HK, n_main, dev, kernels)
     torch.cuda.empty_cache()
+    check_long_tail_kernels(HK, n_main, dev)
+    torch.cuda.empty_cache()
 
     phase_s = {"build": build_s, "kernels": time.perf_counter() - t0}
     t0 = time.perf_counter()
@@ -4490,7 +4771,8 @@ def main() -> None:
     from tests.tpch_corpus import TPCH_QUERIES
 
     corpus = run_corpus(HK, dev, dict(sorted(TPCH_QUERIES.items())), CORPUS_SCALE, "tpch",
-                        CROSS_JOINS, closures_allowed=False, direct=("q05", "q12"))
+                        CROSS_JOINS, closures_allowed=False, direct=("q05", "q12"),
+                        torch_aggregates_allowed=False)
     phase_s["corpus"] = time.perf_counter() - t0
     launches.update({f"{q} SF{CORPUS_SCALE}": v for q, v in corpus.items()})
 

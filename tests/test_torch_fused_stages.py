@@ -226,8 +226,8 @@ def test_direct_aggregation_matches_reference(shape, variance):
     """The fused direct stage (``_direct_aggregate`` with ``kernel``, its
     aggregates through ``segment_agg_direct``) against the reference's
     ``_direct_aggregate_impl``: every group's keys, existence and outputs;
-    the variance family keeps the torch code and ticks
-    ``STAGES["aggregate_torch"]`` once an aggregate."""
+    the variance family's finishing runs in the kernel too, and nothing
+    ticks ``STAGES["aggregate_torch"]``."""
     keys, cols, active = _direct_pages(shape, seed=7 + len(shape))
     symbols, rpage, ppage = _pages(cols, active)
     group_keys = tuple(keys)
@@ -238,7 +238,7 @@ def test_direct_aggregation_matches_reference(shape, variance):
     PMK.reset_counts()
     got = pex._direct_aggregate(group_keys, _aggs(pplan, pt, aggs), domains,
                                 pex.Relation(ppage, symbols), "off", kernel=True)
-    assert PMK.STAGES["aggregate_torch"] == (len(VARIANCE_AGGS) if variance else 0)
+    assert PMK.STAGES["aggregate_torch"] == 0
     act = np.asarray(want.active)
     np.testing.assert_array_equal(got.active.numpy(), act)
     if shape == "wide":
@@ -275,7 +275,7 @@ def test_segment_agg_direct_raises_on_what_the_kernel_does_not_take():
         HK.segment_agg_direct([(torch.zeros(8, dtype=torch.float64), one)], (3,), one, [], [])
     with pytest.raises(ValueError):
         HK.segment_agg_direct([k], (4,), one, [HK.AggRequest("count")],
-                              [HK.AggOutput("value", 1, -1, torch.int64)])
+                              [HK.AggOutput("value", (1,), torch.int64)])
 
 
 # --------------------------------------------------------------------------- #

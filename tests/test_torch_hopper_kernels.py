@@ -249,19 +249,28 @@ def test_hash_expand_rejects_bad_inputs():
     assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}
 
 
-def test_segment_sum_rejects_bad_inputs():
+def test_one_request_segment_agg_rejects_bad_inputs():
+    """The one-request form of ``segment_agg`` (an integer sum or a count,
+    the re-sorting aggregates' reductions on the fused path)."""
     v = torch.zeros(8, dtype=torch.int64)
     w = torch.ones(8, dtype=torch.bool)
-    starts = torch.tensor([0, 3, 8])
+    new_group = torch.zeros(8, dtype=torch.bool)
+    new_group[[0, 3]] = True
+    num_groups = torch.tensor(2)
+    out = HK.AggOutput("value", (0,), torch.int64)
+
+    def run(vals, weight, ng=num_groups, cap=3, group=new_group):
+        return HK.segment_agg(group, ng, cap, weight, [], [HK.AggRequest("sum", vals)], [out])
+
     with pytest.raises(TypeError):
-        HK.segment_sum(v.to(torch.float64), w, starts)
+        run(v.to(torch.float64), w)
     with pytest.raises(TypeError):
-        HK.segment_sum(v, w, starts.to(torch.int32))
+        run(v, w, ng=num_groups.to(torch.int32))
     with pytest.raises(ValueError):
-        HK.segment_sum(v, w[:4], starts)
+        run(v, w[:4])
     with pytest.raises(ValueError):
-        HK.segment_sum(v, w, starts[:0])
-    # the padding slot (start = n) reads row n - 1, as the reference's
-    # clipped cumsum-at-boundaries form does
-    assert HK.segment_sum(v + 2, w, starts).tolist() == [6, 10, 2]
+        run(v, w, cap=0)
+    # the padding slot (start = n) reads row n - 1 in the plain version, as
+    # the reference's clipped cumsum-at-boundaries form does
+    assert run(v + 2, w)[3][0][0].tolist() == [6, 10, 2]
     assert HK.LAUNCHES == {k: 0 for k in HK.LAUNCHES}

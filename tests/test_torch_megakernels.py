@@ -296,8 +296,18 @@ def test_aggregate_phase_matches_reference():
     assert got.to_pylist() == want.to_pylist()
 
 
-def test_segment_sum_plain_matches_reference_segment_reduce():
-    """The segment-sum wrapper's plain version (int64, int32 and bool
+def _one_request_sum(vals, weight, new_group, out_cap):
+    """An int64 sum (a count of bool values) by ``segment_agg``'s
+    one-request form, weighted by ``weight`` as its activity."""
+    req = HK.AggRequest("sum", torch.from_numpy(np.ascontiguousarray(vals)))
+    _, _, _, ((data, _),), _ = HK.segment_agg(
+        torch.from_numpy(new_group), torch.tensor(int(new_group.sum())), out_cap,
+        torch.from_numpy(weight), [], [req], [HK.AggOutput("value", (0,), torch.int64)])
+    return data
+
+
+def test_one_request_segment_agg_plain_matches_reference_segment_reduce():
+    """The one-request form of ``segment_agg`` (int64, int32 and bool
     values) against the reference's cumsum-at-boundaries reduction,
     padding slots included."""
     from trino_tpu.ops import kernels as RK
@@ -315,106 +325,19 @@ def test_segment_sum_plain_matches_reference_segment_reduce():
         want = np.asarray(RK.segment_reduce(
             jnp.asarray(vals).astype(jnp.int64), jnp.asarray(w), None, out_cap, "sum",
             jnp.asarray(new_group), (starts, ends)))
-        got = HK.segment_sum(torch.from_numpy(vals), torch.from_numpy(w),
-                             torch.from_numpy(np.array(starts)).to(torch.int64))
+        got = _one_request_sum(vals, w, new_group, out_cap)
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _count_le(starts, cap, x):
-    """``segment_agg.cu``'s warp search: the slots g < cap with starts[g]
-    <= x, in rounds of 32 evenly spaced probes."""
-    lo, hi = 0, cap
-    while lo < hi:
-        step = (hi - lo + 31) // 32
-        c = sum(1 for lane in range(32)
-                if lo + (lane + 1) * step - 1 < hi and starts[lo + (lane + 1) * step - 1] <= x)
-        lo, hi = lo + c * step, min(hi, lo + (c + 1) * step - 1)
-    return lo
-
-
-def _emulate_segment_tiles(vals, weight, starts):
-    """The segment-sum kernel's tile plan in numpy, thread by thread: per
-    tile of ``SEGMENT_TILE_ROWS`` rows (eight a thread) the first group by
-    one search, the slots starting inside the tile as heads, each thread's
-    first group from the scan of head counts, the sum carried into each
-    thread by the segmented scan; groups that end inside a thread or at a
-    thread's first head are stored, the tile's first and last groups added;
-    every block stores a stripe of the padding slots. Returns (out, stored,
-    added) and checks that no slot is stored twice or both stored and
-    added."""
-    T, items = HK.SEGMENT_TILE_ROWS, 8
-    n, cap = vals.shape[0], starts.shape[0]
-    m = 2**64
-    vw = [int(v) % m if w else 0 for v, w in zip(vals.tolist(), weight.tolist())]
-    out = [0] * cap
-    stored, added = np.zeros(cap, bool), np.zeros(cap, bool)
-
-    def store(g, x):
-        assert not stored[g] and not added[g], g
-        stored[g] = True
-        out[g] = x
-
-    def add(g, x):
-        assert not stored[g], g
-        added[g] = True
-        out[g] = (out[g] + x) % m
-
-    pad = _count_le(starts, cap, n - 1)
-    assert pad == int(np.searchsorted(starts, n - 1, "right"))
-    for g in range(pad, cap):
-        store(g, vw[n - 1])
-    for t0 in range(0, n, T):
-        rows = min(T, n - t0)
-        first = _count_le(starts, cap, t0) - 1
-        assert first + 1 == int(np.searchsorted(starts, t0, "right"))
-        heads = [0] * T
-        g = first + 1
-        while g < cap and starts[g] < t0 + rows:
-            heads[starts[g] - t0] += 1
-            g += 1
-        incl, carry_in, n_before = [], 0, 0
-        state = []
-        for t in range(T // items):
-            r0 = t * items
-            h = heads[r0:r0 + items]
-            v = [vw[t0 + r0 + j] if r0 + j < rows else 0 for j in range(items)]
-            g0 = first + n_before
-            n_before += sum(h)
-            g, run, before_head, seen = g0, 0, 0, False
-            for j in range(items):
-                if h[j]:
-                    if not seen:
-                        before_head, seen = run, True
-                    elif run:
-                        store(g, run)
-                    g += h[j]
-                    run = 0
-                run = (run + v[j]) % m
-            carry = incl[-1] if incl else 0
-            incl.append(run if seen else (carry + run) % m)
-            state.append((g0, g, run, before_head, seen, carry))
-        for t, (g0, g, run, before_head, seen, carry) in enumerate(state):
-            if seen and g0 >= 0:
-                total = (carry + before_head) % m
-                if total:
-                    (add if g0 == first else store)(g0, total)
-            if t == len(state) - 1:
-                total = run if seen else (carry + run) % m
-                if g >= 0 and total:
-                    add(g, total)
-    signed = [x - m if x >= 2**63 else x for x in out]
-    return np.array(signed, dtype=np.int64), stored, added
-
-
-def _segment_case(n, firsts, pad, seed, head=None):
+def _segment_case(n, firsts, pad, seed):
     rng = np.random.default_rng(seed)
     new_group = np.zeros(n, bool)
     new_group[sorted(set(firsts))] = True
-    starts = np.flatnonzero(new_group)
-    out_cap = starts.shape[0] + pad
-    starts = np.concatenate([starts, np.full(max(pad, 0), n)])[:out_cap]
+    out_cap = int(new_group.sum()) + pad
     vals = rng.integers(-(2**62), 2**62, n)
-    return vals, rng.random(n) < 0.8, starts.astype(np.int64)
+    weight = rng.random(n) < 0.8
+    weight[:min(firsts)] = False  # rows before the first group are inactive
+    return vals, weight, new_group, out_cap
 
 
 _T_SEG = HK.SEGMENT_TILE_ROWS
@@ -427,25 +350,29 @@ SEGMENT_TILE_CASES = {
     "rows_before_the_first_group": (3 * _T_SEG, [_T_SEG + 40, 2 * _T_SEG], 4),
     "one_group": (3 * _T_SEG + 1, [0], 0),
     "no_padding_slots": (2 * _T_SEG + 3, list(range(0, 2 * _T_SEG + 3, 7)), 0),
-    "fewer_slots_than_groups": (3 * _T_SEG, list(range(0, 3 * _T_SEG, 5)), -100),
+    "groups_every_fifth_row": (3 * _T_SEG, list(range(0, 3 * _T_SEG, 5)), 1),
     "padding_only_past_a_short_page": (17, [0, 4, 16], 40),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SEGMENT_TILE_CASES))
-def test_segment_tile_plan_matches_segment_sum_plain(case):
-    """The segment-sum kernel's tiles, emulated in numpy (which groups are
-    stored and which added, from a search per tile and scans, with no
-    search per row), against ``segment_sum_plain``: tile-spanning,
-    tile-aligned, one-row and padding cases, the slots cut short too."""
+def test_one_request_segment_tile_plan_matches_segment_agg_plain(case):
+    """``segment_agg``'s tiles, emulated in numpy
+    (``tests/test_torch_segment_agg.py``'s model of its passes), for the
+    one-request form (an integer sum weighted by the activity) against
+    ``segment_agg_plain``: tile-spanning, tile-aligned, one-row and padding
+    cases; a slot past the groups holds the identity."""
+    from tests.test_torch_segment_agg import _emulate_segment_agg
+
     n, firsts, pad = SEGMENT_TILE_CASES[case]
-    vals, w, starts = _segment_case(n, firsts, pad, seed=len(case))
-    got, stored, added = _emulate_segment_tiles(vals, w, starts)
-    want = HK.segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(w),
-                                torch.from_numpy(starts))
-    np.testing.assert_array_equal(got, want.numpy())
-    if case == "group_across_tiles":
-        assert added.sum() >= 2 and stored.sum() > 0
+    vals, w, new_group, out_cap = _segment_case(n, firsts, pad, seed=len(case))
+    starts, (values,) = _emulate_segment_agg(new_group, out_cap,
+                                             [("sum", 0, np.where(w, vals, 0).tolist())])
+    want = _one_request_sum(vals, w, new_group, out_cap).numpy()
+    groups = int(new_group.sum())
+    np.testing.assert_array_equal(np.array(values)[:groups], want[:groups])
+    assert all(v == 0 for v in values[groups:])
+    assert starts[:groups].tolist() == np.flatnonzero(new_group).tolist()
 
 
 def _expand_emit(case):

@@ -199,9 +199,10 @@ def test_aggregate_phase_matches_reference(case, key_shape, epi):
 
 
 def test_aggregate_phase_runs_the_long_tail_in_torch():
-    """An aggregate outside the kernel's set (here stddev and a bitwise
-    reduction) keeps the executor's torch operators beside the kernel's,
-    one STAGES tick each, and the rows still equal the reference's."""
+    """An aggregate outside the kernel's set (here ``approx_distinct``, a
+    re-sorting aggregate) keeps the executor's torch operators beside the
+    kernel's (here a sum, ``stddev`` and a bitwise reduction), one STAGES
+    tick each, and the rows still equal the reference's."""
     keys, symbols, rpage, ppage = _pages("two_keys", seed=3)
     (rp, rng_, rn), (pp, png, pn) = _grouped("two_keys", keys, symbols, rpage, ppage)
     out_cap = pex._round_capacity(int(pn), base=16)
@@ -210,13 +211,15 @@ def test_aggregate_phase_runs_the_long_tail_in_torch():
         return (("sb", plan.Aggregation("sum", ("b",), output_type=types.parse_type("bigint"))),
                 ("sd", plan.Aggregation("stddev", ("d",), output_type=types.parse_type("double"))),
                 ("x", plan.Aggregation("bitwise_xor_agg", ("b",),
-                                       output_type=types.parse_type("bigint"))))
+                                       output_type=types.parse_type("bigint"))),
+                ("ad", plan.Aggregation("approx_distinct", ("b",),
+                                        output_type=types.parse_type("bigint"))))
 
     want, _ = RMK.aggregate_phase(keys, aggs(rplan, rt), symbols, out_cap, rp, rng_, rn, None,
                                   True)
     PMK.reset_counts()
     got = PMK.aggregate_phase(keys, aggs(pplan, pt), symbols, out_cap, pp, png, pn)
-    assert PMK.STAGES["aggregate_torch"] == 2
+    assert PMK.STAGES["aggregate_torch"] == 1
     act = np.asarray(want.active)
     for gc, wc in zip(got.columns, want.columns):
         _same_column(gc, wc, act, gc.type == pt.DOUBLE)
@@ -379,10 +382,10 @@ def test_segment_agg_tile_plan_matches_segment_agg_plain(case):
                 ("max", -inf, np.where(w, dbl, -inf).tolist()),
                 ("last", -1, np.where(w, np.arange(n), -1).tolist())]
     starts, values = _emulate_segment_agg(new_group, out_cap, contribs)
-    outputs = [HK.AggOutput("value", k, -1, dt)
+    outputs = [HK.AggOutput("value", (k,), dt)
                for k, dt in enumerate((torch.int64, torch.int64, torch.float64, torch.int64,
                                        torch.float64))]
-    outputs.append(HK.AggOutput("first", 5, 0, torch.int64, values=t(vals)))
+    outputs.append(HK.AggOutput("first", (5, 0), torch.int64, values=t(vals)))
     num_groups = torch.tensor(int(new_group.sum()))
     got_starts, exists, _, outs, _ = HK.segment_agg_plain(
         t(new_group), num_groups, out_cap, t(active), [], requests, outputs)
@@ -414,7 +417,7 @@ def _agg_args(n=64):
 def test_segment_agg_wrapper_raises_on_what_the_kernel_does_not_take():
     ng, num, cap, act, keys, vals = _agg_args()
     req = HK.AggRequest("sum", vals, act)
-    out = HK.AggOutput("value", 0, -1, torch.int64)
+    out = HK.AggOutput("value", (0,), torch.int64)
     ok = HK.segment_agg(ng, num, cap, act, keys, [req], [out])
     assert ok[1].sum() == cap
     with pytest.raises(ValueError, match="at most"):
@@ -435,7 +438,7 @@ def test_segment_agg_wrapper_raises_on_what_the_kernel_does_not_take():
         HK.segment_agg(ng, num, cap, act, keys, [HK.AggRequest("fsum", vals, act)], [out])
     with pytest.raises(ValueError, match="first"):
         HK.segment_agg(ng, num, cap, act, keys, [req],
-                       [HK.AggOutput("first", 0, -1, torch.int64, values=vals)])
+                       [HK.AggOutput("first", (0,), torch.int64, values=vals)])
     with pytest.raises(ValueError, match="destination"):
         HK.segment_agg(ng, num, cap, act, keys, [req], [out], ((1,), [None], 4))
     with pytest.raises(ValueError, match="n_parts"):

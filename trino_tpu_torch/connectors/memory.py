@@ -230,7 +230,8 @@ class _MemoryMetadata(ConnectorMetadata):
 
     def get_table_statistics(self, handle: TableHandle) -> TableStatistics:
         t = self.connector.table(handle.schema_table)
-        return TableStatistics(row_count=float(t.row_count()) if t else 0.0)
+        return TableStatistics(row_count=float(t.row_count()) if t else 0.0,
+                               unknown_key_ndv=True)
 
 
 class _MemorySplitManager(ConnectorSplitManager):

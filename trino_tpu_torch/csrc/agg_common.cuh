@@ -16,26 +16,43 @@ namespace hopper {
 
 constexpr int kMaxAggRequests = 32;
 constexpr int kMaxAggOutputs = 24;
+constexpr int kMaxAggReads = 6;
 
 // Reduction kinds (hopper_kernels._AGG_KINDS).
 enum AggKind : int {
   kSumInt = 0, kSumFloat = 1, kMinInt = 2, kMaxInt = 3, kMinFloat = 4, kMaxFloat = 5,
-  kLastRow = 6, kCount = 7,
+  kLastRow = 6, kCount = 7, kBitAnd = 8, kBitOr = 9, kBitXor = 10, kChecksum = 11,
+  kMatchLast = 12,
 };
 // Predicates on the value that narrow a request's weight.
 enum AggPred : int { kPredNone = 0, kPredNonZero = 1, kPredZero = 2 };
+// Per-row transforms (hopper_kernels._AGG_TRANSFORMS).
+enum AggTransform : int {
+  kNoTransform = 0, kLog = 1, kClampZero = 2, kXLog2X = 3, kOrderKey = 4,
+};
+
+// What a NULL row adds to a checksum (hopper_kernels.CHECKSUM_NULL).
+constexpr uint64_t kChecksumNull = 0x9E3779B9ull;
 
 struct AggRequest {
   const void* values;        // null for a count without a predicate
-  const bool* valid;         // null: every value valid
+  const bool* valid;         // null: every value valid (kChecksum: not in the weight)
   const bool* filter;        // null: no filter
   const bool* filter_valid;
+  const void* values2;       // kSumFloat: a second factor (null: none)
+  const bool* valid2;        // null: no second validity in the weight
+  const int64_t* lut;        // kChecksum: dictionary code -> value key (null: none)
   double divisor;            // kSumFloat: each value times its reciprocal (1: not)
+  double divisor2;           // the same for values2
   int64_t identity;          // bits of the empty reduction
-  int type;                  // KeyType of values
-  int kind;
-  int pred;
-  int square;                // kSumFloat: each value squared after the division
+  int32_t lut_len;
+  int32_t ref;               // kMatchLast: the request whose extreme it matches
+  int8_t type;               // KeyType of values
+  int8_t type2;              // KeyType of values2
+  int8_t kind;
+  int8_t pred;
+  int8_t power;              // kSumFloat: 1 to 4
+  int8_t transform;
 };
 
 struct AggRequestSet {
@@ -47,24 +64,31 @@ struct AggRequestSet {
 struct AggCombine {
   int64_t identity[kMaxAggRequests];
   int kind[kMaxAggRequests];
+  int ref[kMaxAggRequests];  // kMatchLast: the request whose extreme it matches
   int n;
 };
 
 // Finishing ops (hopper_kernels._AGG_OPS).
-enum AggOp : int { kValue = 0, kAvgDecimal = 1, kAvgDouble = 2, kBoolAnd = 3, kBoolOr = 4,
-                   kFirst = 5 };
+enum AggOp : int {
+  kValue = 0, kAvgDecimal = 1, kAvgDouble = 2, kBoolAnd = 3, kBoolOr = 4, kFirst = 5,
+  kVarPop = 6, kVarSamp = 7, kStddevPop = 8, kStddevSamp = 9, kCovarPop = 10,
+  kCovarSamp = 11, kCorr = 12, kRegrSlope = 13, kRegrIntercept = 14, kRegrAvgx = 15,
+  kRegrAvgy = 16, kRegrSxx = 17, kRegrSyy = 18, kRegrSxy = 19, kRegrR2 = 20,
+  kSkewness = 21, kKurtosis = 22, kGeometricMean = 23, kEntropy = 24,
+};
 
 struct AggOutput {
   const void* first_values;  // kFirst: the column gathered at the request's row
+  const bool* first_valid;   // kFirst: its validity there joins the output's (null: not)
   void* data;
   bool* valid;
   double divisor;            // kAvgDouble: times its reciprocal after the count (1: not)
   int op;
-  int a;                     // the request it finishes
-  int b;                     // the count whose > 0 is the validity (-1: always valid)
+  int reads[kMaxAggReads];   // the requests the op reads (hopper_kernels.AggOutput)
+  int n_reads;
   int out_type;              // KeyType of data
   int elem_bytes;            // kFirst
-  int a_float;               // request a holds a double
+  int a_float;               // request reads[0] holds a double
 };
 
 struct AggOutputSet {
@@ -135,49 +159,126 @@ __device__ __forceinline__ double fmax_nan(double x, double y) {
   return x != x ? x : (y != y ? y : (y > x ? y : x));
 }
 
+// The finishings round every operation as torch's one-operation kernels
+// do: never contracted into a fused multiply-add, which nvcc would do by
+// default for a product feeding a sum.
+__device__ __forceinline__ double dmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double dsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double ddiv(double a, double b) { return __ddiv_rn(a, b); }
+
+// torch's clamp(min=lo) on the card: NaN stays, else ::max (fmax).
+__device__ __forceinline__ double clamp_min(double v, double lo) {
+  return v != v ? v : fmax(v, lo);
+}
+
 __device__ __forceinline__ uint64_t combine(int kind, uint64_t a, uint64_t b) {
   switch (kind) {
     case hopper::kSumInt:
-    case hopper::kCount: return a + b;
-    case hopper::kSumFloat: return bits_of(as_double(a) + as_double(b));
+    case hopper::kCount:
+    case hopper::kChecksum: return a + b;
+    case hopper::kSumFloat: return bits_of(dadd(as_double(a), as_double(b)));
+    case hopper::kBitAnd: return a & b;
+    case hopper::kBitOr: return a | b;
+    case hopper::kBitXor: return a ^ b;
     case hopper::kMinInt: {
       const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
       return static_cast<uint64_t>(y < x ? y : x);
     }
     case hopper::kMinFloat: return bits_of(fmin_nan(as_double(a), as_double(b)));
     case hopper::kMaxFloat: return bits_of(fmax_nan(as_double(a), as_double(b)));
-    default: {  // kMaxInt, kLastRow
+    default: {  // kMaxInt, kLastRow, kMatchLast
       const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
       return static_cast<uint64_t>(y > x ? y : x);
     }
   }
 }
 
+// kernels.order_key of a value: a double's order-preserving bits, else the
+// value as int64.
+__device__ __forceinline__ int64_t order_key(int type, const void* p, int64_t i) {
+  if (type == hopper::kF64 || type == hopper::kF32) {
+    return hopper::float_order_key(load_double(type, p, i));
+  }
+  return load_int(type, p, i);
+}
+
+// kernels.splitmix64 (wrapping products, logical shifts).
+__device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
+  x += 0x9E3779B97F4A7C15ull;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
+}
+
+// A kSumFloat request's double at row i: the value times its divisor's
+// reciprocal (torch divides by a scalar on the card as a product with the
+// scalar's reciprocal), transformed, raised to its power left to right and
+// times the second factor, each product rounded on its own.
+__device__ __forceinline__ double float_row(const AggRequest& q, int64_t i) {
+  double x = load_double(q.type, q.values, i);
+  if (q.divisor != 1.0) x = dmul(x, 1.0 / q.divisor);
+  switch (q.transform) {
+    case hopper::kLog: x = log(x); break;
+    case hopper::kClampZero: x = clamp_min(x, 0.0); break;
+    case hopper::kXLog2X: {
+      const double c = clamp_min(x, 0.0);
+      x = c > 0.0 ? dmul(c, log2(c)) : 0.0;
+      break;
+    }
+    default: break;
+  }
+  double y = x;
+  for (int p = 1; p < q.power; ++p) y = dmul(y, x);
+  if (q.values2 != nullptr) {
+    double x2 = load_double(q.type2, q.values2, i);
+    if (q.divisor2 != 1.0) x2 = dmul(x2, 1.0 / q.divisor2);
+    y = dmul(y, x2);
+  }
+  return y;
+}
+
 // Row i's contribution to request q: its value (or 1, or its index) where
-// the row is weighted, the identity elsewhere.
+// the row is weighted, the identity elsewhere. ``extreme``: for a
+// kMatchLast request, the extreme of row i's group (its ref's result;
+// ignored otherwise, and a row of no group passes none).
 __device__ __forceinline__ uint64_t contribution(const AggRequest& q, const bool* active,
-                                                 int64_t i) {
+                                                 int64_t i, const uint64_t* extreme = nullptr) {
   bool w = active[i];
   if (q.filter != nullptr) w = w && q.filter[i] && q.filter_valid[i];
-  if (q.valid != nullptr) w = w && q.valid[i];
+  if (q.valid != nullptr && q.kind != hopper::kChecksum) w = w && q.valid[i];
+  if (q.valid2 != nullptr) w = w && q.valid2[i];
   if (w && q.pred != hopper::kPredNone) {
     w = nonzero(q.type, q.values, i) == (q.pred == hopper::kPredNonZero);
   }
   if (!w) return static_cast<uint64_t>(q.identity);
   switch (q.kind) {
     case hopper::kCount: return 1ull;
-    case hopper::kSumFloat: {
-      double x = load_double(q.type, q.values, i);
-      // torch divides by a scalar on the card as a product with the
-      // scalar's reciprocal; so does this, for the same bits
-      if (q.divisor != 1.0) x = x * (1.0 / q.divisor);
-      if (q.square) x = x * x;
-      return bits_of(x);
-    }
+    case hopper::kSumFloat: return bits_of(float_row(q, i));
     case hopper::kMinFloat:
     case hopper::kMaxFloat: return bits_of(load_double(q.type, q.values, i));
     case hopper::kLastRow: return static_cast<uint64_t>(i);
-    default: return static_cast<uint64_t>(load_int(q.type, q.values, i));
+    case hopper::kMatchLast:
+      return extreme != nullptr &&
+                     static_cast<uint64_t>(order_key(q.type, q.values, i)) == *extreme
+                 ? static_cast<uint64_t>(i)
+                 : static_cast<uint64_t>(q.identity);
+    case hopper::kChecksum: {
+      if (q.valid != nullptr && !q.valid[i]) return kChecksumNull;
+      int64_t v;
+      if (q.lut != nullptr) {
+        const int64_t code = load_int(q.type, q.values, i);
+        v = q.lut[code < 0 ? 0 : (code >= q.lut_len ? q.lut_len - 1 : code)];
+      } else {
+        v = order_key(q.type, q.values, i);
+      }
+      return splitmix64(static_cast<uint64_t>(v));
+    }
+    default:
+      if (q.transform == hopper::kOrderKey) {
+        return static_cast<uint64_t>(order_key(q.type, q.values, i));
+      }
+      return static_cast<uint64_t>(load_int(q.type, q.values, i));
   }
 }
 
@@ -214,15 +315,122 @@ __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
   return q;
 }
 
+// The moments' finishing (hopper_kernels._moments, executor._eval_aggregate's
+// formulas) from the count ``cnt`` and the sums ``s`` (the op's reads after
+// the count, as doubles); sets *ok to the validity.
+__device__ __forceinline__ double moment(int op, int64_t cnt, const double* s, bool* ok) {
+  const double n = static_cast<double>(cnt > 1 ? cnt : 1);
+  switch (op) {
+    case hopper::kVarPop:
+    case hopper::kVarSamp:
+    case hopper::kStddevPop:
+    case hopper::kStddevSamp: {
+      const double mean = ddiv(s[0], n);
+      const double var_pop = clamp_min(dsub(ddiv(s[1], n), dmul(mean, mean)), 0.0);
+      const bool pop = op == hopper::kVarPop || op == hopper::kStddevPop;
+      *ok = pop ? cnt > 0 : cnt > 1;
+      const double var = pop ? var_pop : ddiv(dmul(var_pop, n), clamp_min(dsub(n, 1.0), 1.0));
+      return op == hopper::kStddevPop || op == hopper::kStddevSamp ? sqrt(var) : var;
+    }
+    case hopper::kSkewness:
+    case hopper::kKurtosis: {
+      // central moments from the raw power sums
+      const double s1 = s[0], s2 = s[1], s3 = s[2];
+      const double m = ddiv(s1, n);
+      const double m2 = dsub(s2, dmul(s1, m));
+      const double m3 = dadd(dsub(s3, dmul(dmul(3.0, s2), m)), dmul(dmul(dmul(2.0, s1), m), m));
+      if (op == hopper::kSkewness) {
+        *ok = cnt > 2 && m2 > 0.0;
+        return ddiv(dmul(sqrt(n), m3), pow(clamp_min(m2, 1e-300), 1.5));
+      }
+      const double s4 = s[3];
+      const double m4 = dsub(dadd(dsub(s4, dmul(dmul(4.0, s3), m)),
+                                  dmul(dmul(dmul(6.0, s2), m), m)),
+                             dmul(dmul(dmul(dmul(3.0, s1), m), m), m));
+      const double n1 = dsub(n, 1.0), n2 = dsub(n, 2.0), n3 = dsub(n, 3.0);
+      const double a = ddiv(dmul(n, dadd(n, 1.0)), clamp_min(dmul(dmul(n1, n2), n3), 1.0));
+      const double b = ddiv(dmul(n, m4), clamp_min(dmul(m2, m2), 1e-300));
+      const double c = ddiv(dmul(dmul(3.0, n1), n1), clamp_min(dmul(n2, n3), 1.0));
+      *ok = cnt > 3 && m2 > 0.0;
+      return dsub(dmul(a, b), c);
+    }
+    case hopper::kGeometricMean:
+      *ok = cnt > 0;
+      return exp(ddiv(s[0], n));
+    case hopper::kEntropy: {
+      // log2 entropy of the per-row counts: log2(S) - sum(c log2 c) / S
+      const bool pos = s[0] > 0.0;
+      const double safe = pos ? s[0] : 1.0;
+      *ok = cnt > 0;
+      return clamp_min(pos ? dsub(log2(safe), ddiv(s[1], safe)) : 0.0, 0.0);
+    }
+    default: {
+      // the two-column moments; s: sum x, sum y, sum xy, sum x^2, sum y^2
+      // (those the op does not read are not used)
+      const double sx = s[0], sy = s[1];
+      const double mx = ddiv(sx, n), my = ddiv(sy, n);
+      switch (op) {
+        case hopper::kRegrAvgx: *ok = cnt > 0; return mx;
+        case hopper::kRegrAvgy: *ok = cnt > 0; return my;
+        case hopper::kRegrSxx:
+          *ok = cnt > 0;
+          return dmul(clamp_min(dsub(ddiv(s[3], n), dmul(mx, mx)), 0.0), n);
+        case hopper::kRegrSyy:
+          *ok = cnt > 0;
+          return dmul(clamp_min(dsub(ddiv(s[4], n), dmul(my, my)), 0.0), n);
+        default: break;
+      }
+      const double cov = dsub(ddiv(s[2], n), dmul(mx, my));
+      switch (op) {
+        case hopper::kCovarPop: *ok = cnt > 0; return cov;
+        case hopper::kCovarSamp:
+          *ok = cnt > 1;
+          return ddiv(dmul(cov, n), clamp_min(dsub(n, 1.0), 1.0));
+        case hopper::kRegrSxy: *ok = cnt > 0; return dmul(cov, n);
+        default: break;
+      }
+      const double varx = clamp_min(dsub(ddiv(s[3], n), dmul(mx, mx)), 0.0);
+      if (op == hopper::kRegrSlope || op == hopper::kRegrIntercept) {
+        const double slope = ddiv(cov, varx > 0.0 ? varx : 1.0);
+        *ok = cnt > 1 && varx > 0.0;
+        return op == hopper::kRegrSlope ? slope : dsub(my, dmul(slope, mx));
+      }
+      const double vary = clamp_min(dsub(ddiv(s[4], n), dmul(my, my)), 0.0);
+      if (op == hopper::kCorr) {
+        const double denom = sqrt(dmul(varx, vary));
+        *ok = cnt > 1 && denom > 0.0;
+        return ddiv(cov, denom > 0.0 ? denom : 1.0);
+      }
+      // regr_r2: 1.0 where y is constant, NULL where x is
+      const double vv = dmul(varx, vary);
+      const double r2 = ddiv(dmul(cov, cov), vv > 0.0 ? vv : 1.0);
+      *ok = cnt > 0 && varx > 0.0;
+      return vary > 0.0 ? r2 : 1.0;
+    }
+  }
+}
+
 // Output ``out`` of slot g from the requests' values v[] (n rows): the
 // finishing of executor._eval_aggregate.
 __device__ __forceinline__ void finish_output(const AggOutput& out, const uint64_t* v,
                                               int64_t g, int64_t n) {
-  const bool ok = out.b < 0 || static_cast<int64_t>(v[out.b]) > 0;
-  const uint64_t a = v[out.a];
+  const uint64_t a = v[out.reads[0]];
+  if (out.op >= hopper::kVarPop) {
+    double s[kMaxAggReads - 1];
+    for (int k = 1; k < out.n_reads; ++k) {
+      s[k - 1] = out.reads[k] < 0 ? 0.0 : as_double(v[out.reads[k]]);
+    }
+    bool ok;
+    const double d = moment(out.op, static_cast<int64_t>(a), s, &ok);
+    static_cast<double*>(out.data)[g] = d;
+    out.valid[g] = ok;
+    return;
+  }
+  const int b = out.n_reads > 1 ? out.reads[1] : -1;
+  bool ok = b < 0 || static_cast<int64_t>(v[b]) > 0;
   switch (out.op) {
     case hopper::kAvgDecimal: {
-      const int64_t sum = static_cast<int64_t>(a), cnt = static_cast<int64_t>(v[out.b]);
+      const int64_t sum = static_cast<int64_t>(a), cnt = static_cast<int64_t>(v[b]);
       const int64_t half = floor_div(cnt, 2);
       const int64_t den = cnt > 1 ? cnt : 1;
       const uint64_t us = static_cast<uint64_t>(sum), uh = static_cast<uint64_t>(half);
@@ -233,10 +441,10 @@ __device__ __forceinline__ void finish_output(const AggOutput& out, const uint64
       break;
     }
     case hopper::kAvgDouble: {
-      const int64_t cnt = static_cast<int64_t>(v[out.b]);
+      const int64_t cnt = static_cast<int64_t>(v[b]);
       double d = out.a_float ? as_double(a) : static_cast<double>(static_cast<int64_t>(a));
-      d = d / static_cast<double>(cnt > 1 ? cnt : 1);
-      if (out.divisor != 1.0) d = d * (1.0 / out.divisor);
+      d = ddiv(d, static_cast<double>(cnt > 1 ? cnt : 1));
+      if (out.divisor != 1.0) d = dmul(d, 1.0 / out.divisor);
       store_value(out.data, out.out_type, g, bits_of(d), true);
       break;
     }
@@ -244,8 +452,9 @@ __device__ __forceinline__ void finish_output(const AggOutput& out, const uint64
     case hopper::kBoolOr: static_cast<bool*>(out.data)[g] = static_cast<int64_t>(a) > 0; break;
     case hopper::kFirst: {
       const int64_t row = static_cast<int64_t>(a);
-      copy_bytes(out.first_values, row < 0 ? 0 : (row > n - 1 ? n - 1 : row), out.data, g,
-                 out.elem_bytes);
+      const int64_t at = row < 0 ? 0 : (row > n - 1 ? n - 1 : row);
+      copy_bytes(out.first_values, at, out.data, g, out.elem_bytes);
+      if (out.first_valid != nullptr) ok = ok && out.first_valid[at];
       break;
     }
     default: store_value(out.data, out.out_type, g, a, out.a_float); break;

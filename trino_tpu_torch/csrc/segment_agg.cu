@@ -1,15 +1,16 @@
 // The sort-path aggregation over a group-sorted page: segment_agg, the
-// whole reduction stage, and segment_sum, its one-request form (an integer
-// sum or a count).
+// whole reduction stage.
 //
 // Replaces: trino_tpu/ops/megakernels.py _agg_phase_body + aggregate_phase
 // (one Pallas launch of executor._aggregate_impl: the group boundaries, the
 // key gathers at the group starts, every sum, count, min, max and
-// arbitrary, the finishing of avg), and the epi_spec stage at the end of
-// that body (its _partition_dest call) where every exchange key is a group
-// key. The long tail of _aggregate_impl (variance finishing, covar, corr
-// and regr, bitwise, distinct counts, approx_distinct, percentiles,
-// min_by/max_by) runs after this kernel as the port's torch operators.
+// arbitrary, the finishing of avg, and the long tail: the variance family,
+// covar, corr and regr, skewness, kurtosis, geometric_mean, entropy, the
+// bitwise aggregates, checksum and min_by/max_by), and the epi_spec stage
+// at the end of that body (its _partition_dest call) where every exchange
+// key is a group key. The re-sorting aggregates of _aggregate_impl (distinct
+// counts, approx_distinct, approx_percentile) run as the port's torch
+// operators, their counts in one-request calls of this kernel.
 //
 // segment_agg, bit-identical to hopper_kernels.segment_agg_plain (float64
 // sums within rounding: they are added in another order), on n rows and
@@ -18,25 +19,30 @@
 //                (kernels.boundary_positions)
 //   each group's rows run from its start to the next start (n for the
 //   last); rows before the first group belong to no slot
-//   request r, on the rows where active & filter & valid & its predicate
-//   hold ("weighted"): a wrapping int64 sum of int64, int32, int16, int8
-//   or bool values or a count; a float64 sum of the values as doubles
-//   (divided by a decimal scale, squared); the min or max of integer, bool
-//   or float values (NaN wins, as torch's scatter_reduce); the last
-//   weighted row's index (arbitrary's row). An empty group holds the
-//   request's identity.
+//   request r, on the rows where active & filter & valid & valid2 & its
+//   predicate hold ("weighted"): a wrapping int64 sum of int64, int32,
+//   int16, int8 or bool values or a count; a float64 sum of a per-row
+//   double (the value divided by a decimal scale, its log, max(x, 0) or
+//   c log2 c, a power up to 4, times a second factor); the min or max of
+//   integer, bool or float values (NaN wins, as torch's scatter_reduce) or
+//   of order keys; a bitwise AND, OR or XOR; a checksum (the wrapping sum
+//   of each row's splitmix64(order key), through a dictionary's value-key
+//   LUT, a constant for a NULL row); the last weighted row's index
+//   (arbitrary's row); the last weighted row whose order key is the
+//   group's extreme of an earlier request (min_by/max_by's row). An empty
+//   group holds the request's identity.
 //   group_exists[g] = g < num_groups; each key at min(starts[g], n - 1),
 //   its validity & group_exists; each output finished as
-//   executor._eval_aggregate finishes it (validity nonempty > 0, decimal
-//   avg's round-half-up division, double avg's two divisions, bool_and and
-//   bool_or from their counts, arbitrary's gather); the destination of
-//   each slot from its gathered keys (partition_hash.cuh), n_parts where
-//   the group does not exist. The data of a slot past num_groups is left
-//   to the kernel (its validity and the keys' validity are false).
+//   executor._eval_aggregate finishes it (agg_common.cuh's finish_output:
+//   avg, bool_and/or, the gathers at a row, the moments operation by
+//   operation); the destination of each slot from its gathered keys
+//   (partition_hash.cuh), n_parts where the group does not exist. The data
+//   of a slot past num_groups is left to the kernel (its validity and the
+//   keys' validity are false).
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes. Each request's values and its
-// weight's columns read once, new_group read once, starts written and read
-// once, the keys' bytes at out_cap rows, every output written once.
+// Bound on an H100 SXM (3.35 TB/s): bytes. Each request's columns read
+// once, new_group read once, starts written and read once, the keys' bytes
+// at out_cap rows, every output written once.
 //
 // Design: five launches, no memset and no atomic.
 // - count: one block a tile of kSegRows rows counts the tile's new_group.
@@ -58,17 +64,13 @@
 //   float sum gives the same bits in every run), gathers the keys,
 //   finishes every output and writes the destination from the keys in
 //   registers. A division by a scalar (a decimal scale) is a product with
-//   its reciprocal, as torch computes it on the card.
-//
-// segment_sum: out[g] = sum(values[i] for i in [starts[g], ends[g]] if
-// weight[i]) mod 2^64 for g < out_cap, ends[g] = starts[g+1] - 1 (n - 1
-// for the last slot); a padding slot (starts[g] = n) reads row n - 1, as
-// the reference's clipped csum[end] - csum[start] + v[start] does. One
-// memset of out, then one launch: each block takes a tile, finds the group
-// of its first row by a warp search of starts and reads the starts inside
-// the tile as heads; a group wholly inside the tile is stored, the tile's
-// first and last groups added with one 64-bit atomicAdd each (unsigned
-// adds commute, so the result is bit-identical in any order).
+//   its reciprocal, as torch computes it on the card; every product, sum
+//   and quotient of a finishing is rounded on its own (no contraction into
+//   a fused multiply-add), as torch's one-operation kernels round them.
+// A min_by/max_by request (kMatchLast) reads its group's extreme, so its
+// rows are served by a second round: after the first reduce and span, a
+// resolve pass (one thread a slot) writes each group's extreme, then a
+// second reduce and span serve the match requests alone (eight launches).
 
 #include <atomic>
 #include <cstdint>
@@ -86,209 +88,10 @@ using hopper::kWarps;
 
 constexpr int kSegItems = 8;                     // consecutive rows a thread
 constexpr int kSegRows = kThreads * kSegItems;   // rows a tile
-constexpr int kHeadReads = 4;                    // starts a thread reads at once
-
-enum ValueType : int { kI64 = 0, kI32 = 1, kBool = 2 };
-
-__device__ __forceinline__ unsigned long long weighted(const void* values, int type,
-                                                       const bool* weight, int64_t i) {
-  if (!weight[i]) return 0ull;
-  switch (type) {
-    case kI64:
-      return static_cast<unsigned long long>(static_cast<const int64_t*>(values)[i]);
-    case kI32:
-      return static_cast<unsigned long long>(
-          static_cast<long long>(static_cast<const int32_t*>(values)[i]));
-    default:
-      return static_cast<const uint8_t*>(values)[i] ? 1ull : 0ull;
-  }
-}
-
-// The slots g < cap with starts[g] <= x (starts ascending), found by one
-// warp: each round the 32 lanes probe evenly spaced slots of the interval
-// that holds the answer, which shrinks it 32-fold. Every lane gets it.
-__device__ int64_t count_le(const int64_t* __restrict__ starts, int64_t cap, int64_t x) {
-  const int lane = threadIdx.x & 31;
-  int64_t lo = 0, hi = cap;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int64_t step = (hi - lo + 31) / 32;
-    const int64_t p = lo + (lane + 1) * step - 1;
-    const bool le = p < hi && starts[p] <= x;
-    const int c = __popc(__ballot_sync(0xffffffffu, le));
-    const int64_t top = lo + (c + 1) * step - 1;
-    lo += c * step;
-    hi = top < hi ? top : hi;
-  }
-  return lo;
-}
-
-// Inclusive block scan of (flag, value) pairs in thread order under the
-// segmented sum: a flag restarts the sum at its own value. Returns the
-// thread's inclusive value.
-__device__ unsigned long long seg_scan(bool flag, unsigned long long v) {
-  __shared__ unsigned long long warp_v[kWarps];
-  __shared__ int warp_f[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int f = flag;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned long long vu = __shfl_up_sync(0xffffffffu, v, o);
-    const int fu = __shfl_up_sync(0xffffffffu, f, o);
-    if (lane >= o) {
-      if (!f) v += vu;
-      f |= fu;
-    }
-  }
-  if (lane == 31) {
-    warp_v[warp] = v;
-    warp_f[warp] = f;
-  }
-  __syncthreads();
-  if (!f) {  // no flag in this warp up to this lane: add the earlier warps' run
-    for (int w = warp - 1; w >= 0; --w) {
-      v += warp_v[w];
-      if (warp_f[w]) break;
-    }
-  }
-  __syncthreads();  // warp_v and warp_f are read before the next call writes them
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const void* __restrict__ values, int type, const bool* __restrict__ weight,
-                   const int64_t* __restrict__ starts, int64_t n, int64_t out_cap,
-                   unsigned long long* __restrict__ out) {
-  __shared__ int32_t heads[kSegRows];  // slots starting at each row of the tile after its first
-  __shared__ unsigned long long incl[kThreads];
-  __shared__ int64_t s_first;          // group of the tile's first row (-1: none)
-  __shared__ int64_t s_pad;            // the first padding slot
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kSegRows;
-  const int64_t left = n - t0;
-  const int rows = left < kSegRows ? static_cast<int>(left) : kSegRows;
-  for (int b = threadIdx.x; b < kSegRows; b += kThreads) heads[b] = 0;
-  if (warp == 0) {
-    const int64_t g = count_le(starts, out_cap, t0);
-    if (lane == 0) s_first = g - 1;
-  } else if (warp == 1) {
-    const int64_t g = count_le(starts, out_cap, n - 1);
-    if (lane == 0) s_pad = g;
-  }
-  const int r0 = threadIdx.x * kSegItems;
-  unsigned long long v[kSegItems];
-#pragma unroll
-  for (int j = 0; j < kSegItems; ++j) {
-    v[j] = r0 + j < rows ? weighted(values, type, weight, t0 + r0 + j) : 0ull;
-  }
-  __syncthreads();
-  const int64_t first = s_first;
-  // the slots after the first group that start inside the tile, as heads
-  // (st > t0 from slot first + 1 on), kHeadReads a thread at a time; the
-  // loop goes on while the round's last slot still starts inside
-  for (int64_t g0 = first + 1;; g0 += kThreads * kHeadReads) {
-    int64_t st[kHeadReads];
-#pragma unroll
-    for (int r = 0; r < kHeadReads; ++r) {
-      const int64_t g = g0 + r * kThreads + threadIdx.x;
-      st[r] = g < out_cap ? starts[g] : n;
-    }
-#pragma unroll
-    for (int r = 0; r < kHeadReads; ++r) {
-      if (st[r] < t0 + rows) atomicAdd(&heads[st[r] - t0], 1);
-    }
-    const bool more = threadIdx.x == kThreads - 1 && st[kHeadReads - 1] < t0 + rows;
-    if (!__syncthreads_or(more)) break;
-  }
-  // the padding slots read row n - 1, as the clipped cumsum form does
-  const int64_t pad = s_pad;
-  if (pad < out_cap) {
-    const unsigned long long last = weighted(values, type, weight, n - 1);
-    for (int64_t g = pad + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-         g < out_cap; g += static_cast<int64_t>(gridDim.x) * kThreads) {
-      out[g] = last;
-    }
-  }
-  int h[kSegItems];
-  int n_heads = 0;
-#pragma unroll
-  for (int j = 0; j < kSegItems; ++j) {
-    h[j] = heads[r0 + j];
-    n_heads += h[j];
-  }
-  // group of this thread's first row
-  const int64_t g0 =
-      first + static_cast<int64_t>(seg_scan(false, static_cast<unsigned long long>(n_heads))) -
-      n_heads;
-  // runs inside the thread: complete groups are stored
-  int64_t g = g0;
-  unsigned long long run = 0ull, before_head = 0ull;
-  bool seen = false;
-#pragma unroll
-  for (int j = 0; j < kSegItems; ++j) {
-    if (h[j] != 0) {
-      if (!seen) {
-        before_head = run;
-        seen = true;
-      } else if (run != 0ull) {
-        out[g] = run;
-      }
-      g += h[j];
-      run = 0ull;
-    }
-    run += v[j];
-  }
-  // the sum carried in: the run that reaches this thread's first row (each
-  // thread contributes its rows since its last head, or all its rows)
-  incl[threadIdx.x] = seg_scan(seen, run);
-  __syncthreads();
-  const unsigned long long carry = threadIdx.x == 0 ? 0ull : incl[threadIdx.x - 1];
-  if (seen && g0 >= 0) {
-    // the run that ends before this thread's first head: the tile's first
-    // group (which may begin in an earlier tile) is added, any other stored
-    const unsigned long long total = carry + before_head;
-    if (total != 0ull) {
-      if (g0 == first) {
-        atomicAdd(&out[g0], total);
-      } else {
-        out[g0] = total;
-      }
-    }
-  }
-  if (threadIdx.x == kThreads - 1) {
-    // the tile's last group, which may run into the next tile
-    const unsigned long long total = seen ? run : carry + run;
-    if (g >= 0 && total != 0ull) atomicAdd(&out[g], total);
-  }
-}
 
 }  // namespace
 
-extern "C" int segment_sum_tile_rows() { return kSegRows; }
-
-// Kernel launches and memsets issued by segment_sum since the library was
-// loaded (chip_smoke.py reads the difference over one call).
-static std::atomic<int64_t> g_stream_ops{0};
-
-extern "C" int64_t segment_sum_stream_ops() { return g_stream_ops.load(); }
-
-// out (int64 [out_cap]) is zeroed and written on ``stream``; returns the
-// first CUDA error, 0 on success.
-extern "C" int segment_sum(const void* values, int type, const void* weight,
-                           const void* starts, int64_t n, int64_t out_cap, void* out,
-                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(unsigned long long) * out_cap, s);
-  ++g_stream_ops;
-  if (err != cudaSuccess || n <= 0 || out_cap <= 0) return static_cast<int>(err);
-  const unsigned tiles = static_cast<unsigned>((n + kSegRows - 1) / kSegRows);
-  segment_sum_kernel<<<tiles, kThreads, 0, s>>>(
-      values, type, static_cast<const bool*>(weight), static_cast<const int64_t*>(starts), n,
-      out_cap, static_cast<unsigned long long*>(out));
-  ++g_stream_ops;
-  return static_cast<int>(cudaGetLastError());
-}
+extern "C" int segment_agg_tile_rows() { return kSegRows; }
 
 // --------------------------------------------------------------------------
 // segment_agg
@@ -401,12 +204,18 @@ agg_scan_kernel(const int64_t* __restrict__ heads, int64_t n_tiles, int64_t* __r
 
 // The reduction pass over one tile: starts of its heads, then every
 // request's complete groups into res, its head and tail partials.
+// Whether request kind ``kind`` is served in round ``phase`` (1: the
+// min_by/max_by rows, which read the first round's extremes).
+__device__ __forceinline__ bool in_phase(int kind, int phase) {
+  return (kind == hopper::kMatchLast) == (phase == 1);
+}
+
 __global__ void __launch_bounds__(kThreads)
-agg_reduce_kernel(AggRequestSet reqs, const bool* __restrict__ new_group,
+agg_reduce_kernel(AggRequestSet reqs, int phase, const bool* __restrict__ new_group,
                   const bool* __restrict__ active, int64_t n, int64_t out_cap, int64_t n_tiles,
                   const int64_t* __restrict__ base, int64_t* __restrict__ starts,
                   uint64_t* __restrict__ res, uint64_t* __restrict__ head,
-                  uint64_t* __restrict__ tail) {
+                  uint64_t* __restrict__ tail, const uint64_t* __restrict__ extremes) {
   __shared__ uint64_t incl[kThreads];
   const int64_t tile = blockIdx.x;
   const int64_t t0 = tile * kSegRows;
@@ -422,7 +231,7 @@ agg_reduce_kernel(AggRequestSet reqs, const bool* __restrict__ new_group,
   const int64_t excl = block_exclusive(nh, &tile_heads);
   const int64_t b = base[tile];
   const int64_t g0 = b + excl - 1;  // group of this thread's first row (-1: none yet)
-  {
+  if (phase == 0) {
     int64_t g = g0;
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
@@ -431,10 +240,25 @@ agg_reduce_kernel(AggRequestSet reqs, const bool* __restrict__ new_group,
   }
   for (int r = 0; r < reqs.n; ++r) {
     const AggRequest& q = reqs.req[r];
+    if (!in_phase(q.kind, phase)) continue;  // uniform over the block
     const uint64_t ident = static_cast<uint64_t>(q.identity);
     uint64_t c[kSegItems];
+    if (phase == 1) {
+      // each row against its group's extreme (a row of no group: none)
+      const uint64_t* ext = extremes + static_cast<int64_t>(r) * out_cap;
+      int64_t gj = g0;
 #pragma unroll
-    for (int j = 0; j < kSegItems; ++j) c[j] = r0 + j < n ? contribution(q, active, r0 + j) : ident;
+      for (int j = 0; j < kSegItems; ++j) {
+        gj += h[j];
+        c[j] = r0 + j < n && gj >= 0 && gj < out_cap ? contribution(q, active, r0 + j, ext + gj)
+                                                     : ident;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) {
+        c[j] = r0 + j < n ? contribution(q, active, r0 + j) : ident;
+      }
+    }
     // runs inside the thread: a group between two of its heads is complete
     int64_t g = g0;
     uint64_t run = ident, before = ident;
@@ -485,10 +309,11 @@ agg_reduce_kernel(AggRequestSet reqs, const bool* __restrict__ new_group,
 // reads its tail partial and the scan at te: two loads however many tiles
 // it spans.
 __global__ void __launch_bounds__(kThreads)
-agg_span_kernel(AggCombine reqs, const int64_t* __restrict__ base, int64_t n_tiles,
+agg_span_kernel(AggCombine reqs, int phase, const int64_t* __restrict__ base, int64_t n_tiles,
                 uint64_t* __restrict__ head) {
   __shared__ uint64_t incl[kThreads];
   const int kind = reqs.kind[blockIdx.x];
+  if (!in_phase(kind, phase)) return;  // the other round's request
   const uint64_t ident = static_cast<uint64_t>(reqs.identity[blockIdx.x]);
   uint64_t* h = head + static_cast<int64_t>(blockIdx.x) * n_tiles;
   uint64_t carry = ident;
@@ -528,6 +353,63 @@ agg_span_kernel(AggCombine reqs, const int64_t* __restrict__ base, int64_t n_til
 }
 
 
+// Where slot g's group lies among the tiles: whether it is a group, and
+// whether it ends in the tile ts of its start (else in tile te).
+struct SlotSpan {
+  bool real;
+  bool inside;
+  int64_t start;
+  int64_t ts;
+  int64_t te;
+};
+
+__device__ __forceinline__ SlotSpan slot_span(int64_t g, int64_t total, int64_t n,
+                                              const int64_t* __restrict__ starts) {
+  SlotSpan sp;
+  sp.real = g < total;
+  sp.start = sp.real ? starts[g] : n;
+  const int64_t e = g + 1 < total ? starts[g + 1] : n;
+  sp.ts = sp.start / kSegRows;
+  sp.inside = g + 1 < total && e < (sp.ts + 1) * kSegRows;
+  sp.te = (e - 1) / kSegRows;
+  return sp;
+}
+
+// Request r's value of slot g: its identity past the groups, a group
+// complete inside a tile from its slot, else the tail partial of the
+// start's tile, then the scanned head partials of the tiles up to the
+// end's.
+__device__ __forceinline__ uint64_t slot_value(const AggCombine& reqs, int r, int64_t g,
+                                               const SlotSpan& sp, int64_t out_cap,
+                                               int64_t n_tiles, const uint64_t* __restrict__ res,
+                                               const uint64_t* __restrict__ head,
+                                               const uint64_t* __restrict__ tail) {
+  if (!sp.real) return static_cast<uint64_t>(reqs.identity[r]);
+  if (sp.inside) return res[r * out_cap + g];
+  const uint64_t x = tail[r * n_tiles + sp.ts];
+  return sp.te > sp.ts ? combine(reqs.kind[r], x, head[r * n_tiles + sp.te]) : x;
+}
+
+// One thread a slot: each min_by/max_by request's extreme (its ref's value)
+// for the second round.
+__global__ void __launch_bounds__(kThreads)
+agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
+                   const int64_t* __restrict__ base, const int64_t* __restrict__ starts,
+                   const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
+                   const uint64_t* __restrict__ tail, uint64_t* __restrict__ extremes) {
+  const int64_t total = base[n_tiles];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < out_cap;
+       g += stride) {
+    const SlotSpan sp = slot_span(g, total, n, starts);
+    for (int r = 0; r < reqs.n; ++r) {
+      if (reqs.kind[r] != hopper::kMatchLast) continue;
+      extremes[r * out_cap + g] =
+          slot_value(reqs, reqs.ref[r], g, sp, out_cap, n_tiles, res, head, tail);
+    }
+  }
+}
+
 // One thread a slot: the group's value of every request, the keys, the
 // outputs, group_exists and the destination.
 __global__ void __launch_bounds__(kThreads)
@@ -543,11 +425,9 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < out_cap;
        g += stride) {
     const bool exists = g < ng;
-    const bool real = g < total;
-    const int64_t s = real ? starts[g] : n;
-    if (!real) starts[g] = n;
-    const int64_t e = g + 1 < total ? starts[g + 1] : n;
-    const int64_t at = s < n - 1 ? s : n - 1;
+    const SlotSpan sp = slot_span(g, total, n, starts);
+    if (!sp.real) starts[g] = n;
+    const int64_t at = sp.start < n - 1 ? sp.start : n - 1;
     group_exists[g] = exists;
     uint64_t acc = hopper::partition::kHashSeed;
     for (int k = 0; k < keys.n; ++k) {
@@ -563,22 +443,9 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
       }
       dest[g] = hopper::partition::dest_of(acc, exists, keys.n_parts);
     }
-    // the tile of the group's start, and whether its next group starts in it
-    const int64_t ts = s / kSegRows;
-    const bool inside = g + 1 < total && e < (ts + 1) * kSegRows;
-    const int64_t te = (e - 1) / kSegRows;
     uint64_t v[hopper::kMaxAggRequests];
     for (int r = 0; r < reqs.n; ++r) {
-      if (!real) {
-        v[r] = static_cast<uint64_t>(reqs.identity[r]);
-      } else if (inside) {
-        v[r] = res[r * out_cap + g];
-      } else {
-        // the tail partial of the start's tile, then the scanned head
-        // partials of the tiles up to the end's
-        const uint64_t x = tail[r * n_tiles + ts];
-        v[r] = te > ts ? combine(reqs.kind[r], x, head[r * n_tiles + te]) : x;
-      }
+      v[r] = slot_value(reqs, r, g, sp, out_cap, n_tiles, res, head, tail);
     }
     for (int o = 0; o < outs.n; ++o) {
       hopper::agg::finish_output(outs.out[o], v, g, n);
@@ -592,6 +459,13 @@ extern "C" int segment_agg_max_requests() { return hopper::kMaxAggRequests; }
 
 extern "C" int segment_agg_max_outputs() { return hopper::kMaxAggOutputs; }
 
+extern "C" int segment_agg_max_reads() { return hopper::kMaxAggReads; }
+
+// The plan structs' sizes, which the wrapper's ctypes layouts must match.
+extern "C" int segment_agg_request_bytes() { return sizeof(hopper::AggRequest); }
+
+extern "C" int segment_agg_output_bytes() { return sizeof(hopper::AggOutput); }
+
 // Kernel launches issued by segment_agg since the library was loaded.
 static std::atomic<int64_t> g_agg_stream_ops{0};
 
@@ -599,9 +473,11 @@ extern "C" int64_t segment_agg_stream_ops() { return g_agg_stream_ops.load(); }
 
 // The whole reduction on ``stream``. ``scratch`` (int64 [2 * n_tiles + 1])
 // holds the tiles' head counts and bases; ``starts`` (int64 [out_cap + 1]);
-// ``partials`` (uint64 [requests * (out_cap + 2 * n_tiles)]): the complete
-// groups' values, then the head and the tail partials. Every output is
-// written for all out_cap slots. Returns the first CUDA error, 0 on success.
+// ``partials`` (uint64 [requests * (out_cap + 2 * n_tiles)], and requests *
+// out_cap more with a min_by/max_by request): the complete groups' values,
+// the head and the tail partials, then the extremes the second round
+// reads. Every output is written for all out_cap slots. Returns the first
+// CUDA error, 0 on success.
 extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggOutputSet* outs,
                            const hopper::GroupKeySet* keys, const void* new_group,
                            const void* active, const void* num_groups, int64_t n,
@@ -616,7 +492,19 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   const int64_t nr = reqs->n;
   uint64_t* head = res + nr * out_cap;
   uint64_t* tail = head + nr * n_tiles;
+  uint64_t* extremes = tail + nr * n_tiles;
   const bool* ng = static_cast<const bool*>(new_group);
+  const bool* act = static_cast<const bool*>(active);
+  int64_t* st = static_cast<int64_t*>(starts);
+  AggCombine comb{};
+  comb.n = reqs->n;
+  bool match = false;
+  for (int r = 0; r < reqs->n; ++r) {
+    comb.identity[r] = reqs->req[r].identity;
+    comb.kind[r] = reqs->req[r].kind;
+    comb.ref[r] = reqs->req[r].ref;
+    match = match || reqs->req[r].kind == hopper::kMatchLast;
+  }
   agg_count_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(ng, n, heads);
   ++g_agg_stream_ops;
   cudaError_t err = cudaGetLastError();
@@ -624,26 +512,27 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   agg_scan_kernel<<<1, kThreads, 0, s>>>(heads, n_tiles, base);
   ++g_agg_stream_ops;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      *reqs, ng, static_cast<const bool*>(active), n, out_cap, n_tiles, base,
-      static_cast<int64_t*>(starts), res, head, tail);
-  ++g_agg_stream_ops;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  AggCombine comb{};
-  comb.n = reqs->n;
-  for (int r = 0; r < reqs->n; ++r) {
-    comb.identity[r] = reqs->req[r].identity;
-    comb.kind[r] = reqs->req[r].kind;
-  }
-  if (nr > 0) {
-    agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(comb, base, n_tiles, head);
+  for (int phase = 0; phase < (match ? 2 : 1); ++phase) {
+    if (phase == 1) {
+      agg_resolve_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
+          comb, n, out_cap, n_tiles, base, st, res, head, tail, extremes);
+      ++g_agg_stream_ops;
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+        *reqs, phase, ng, act, n, out_cap, n_tiles, base, st, res, head, tail, extremes);
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (nr > 0) {
+      agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(comb, phase, base, n_tiles,
+                                                                      head);
+      ++g_agg_stream_ops;
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
   }
   agg_finish_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
       comb, *outs, *keys, n, out_cap, n_tiles, base, static_cast<const int64_t*>(num_groups),
-      static_cast<int64_t*>(starts), res, head, tail, static_cast<bool*>(group_exists),
-      static_cast<int32_t*>(dest));
+      st, res, head, tail, static_cast<bool*>(group_exists), static_cast<int32_t*>(dest));
   ++g_agg_stream_ops;
   return static_cast<int>(cudaGetLastError());
 }

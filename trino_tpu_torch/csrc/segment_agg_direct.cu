@@ -6,8 +6,9 @@
 // the one Pallas launch of expand_phase): each row's group index from its
 // dictionary codes and booleans, the masked reductions over G <= 256
 // groups, the key columns rebuilt from the flat group index and each
-// output's finishing. The variance family's finishing runs after this
-// kernel as the port's torch operators.
+// output's finishing, the variance family's among them (agg_common.cuh's
+// finish_output, shared with segment_agg.cu). It takes no min_by/max_by
+// request: those are not direct aggregates.
 //
 // For n rows, keys k with domains D_k (NULL in the last slot of each) and
 // G = prod D_k <= kMaxDirectGroups, as hopper_kernels.segment_agg_direct_plain

@@ -511,7 +511,7 @@ SESSION_PROPERTIES: Tuple[SessionProperty, ...] = (
         "pallas_fusion", "boolean", True,
         "fused hash-join path (ops/megakernels.py): joins, and joins feeding "
         "a grouped aggregation, run through the hash_probe, hash_expand and "
-        "segment_sum kernels; off = the serial sort-based join and plain "
+        "segment_agg kernels; off = the serial sort-based join and plain "
         "aggregation. Default on in the port (the reference defaults off for "
         "its device-batching contract, which the port does not carry): the "
         "kernels are the main path under test",

@@ -535,12 +535,13 @@ _PLAIN_BINARY = {
 }
 
 
-def run_plain(program: ExprProgram, inputs):
+def run_plain(program: ExprProgram, inputs, rows=None):
     """The program's instructions in order as torch operations over whole
     columns (the closures' own operations, on the same registers the
-    kernel uses). Returns each output's (data, valid)."""
-    n = inputs[0][1].shape[0]
-    dev = inputs[0][1].device
+    kernel uses); ``rows`` (a column of the page) gives the row count and
+    device where it reads no input. Returns each output's (data, valid)."""
+    rows = inputs[0][1] if inputs else rows
+    n, dev = rows.shape[0], rows.device
     regs: List = [None] * max(program.n_regs, 1)
     outs: List = [None] * len(program.output_dtypes)
     for op, dst, args, dt, aux, extra in program.plain:

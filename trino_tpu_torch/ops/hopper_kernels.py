@@ -30,7 +30,7 @@ import struct
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "grouped_sum_i64": 0, "grouped_sum_i32": 0, "q6_fused": 0,
-    "hash_probe": 0, "hash_expand": 0, "segment_sum": 0, "segment_agg": 0, "group_sort": 0,
+    "hash_probe": 0, "hash_expand": 0, "segment_agg": 0, "group_sort": 0,
     "partition_epilogue": 0, "partition_dest": 0,
     "expr_program": 0, "presorted_group": 0, "segment_agg_direct": 0,
 }
@@ -147,8 +147,6 @@ def bind(path: Path):
         + [ctypes.POINTER(_GatherSet), i32, ctypes.POINTER(_DestKeys), ptr, ptr]
     )
     lib.hash_expand_slots.restype = i32
-    lib.segment_sum.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr]
-    lib.segment_sum.restype = i32
     lib.segment_agg.argtypes = (
         [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
          ctypes.POINTER(_GroupKeySet)] + [ptr] * 3 + [i64, i64] + [ptr] * 6)
@@ -160,9 +158,12 @@ def bind(path: Path):
                        ("wide_key_limit", _MAX_WIDE_KEYS),
                        ("radix_tile_rows", _TILE_ROWS),
                        ("group_sort_tile_rows", SORT_TILE_ROWS),
-                       ("segment_sum_tile_rows", SEGMENT_TILE_ROWS),
+                       ("segment_agg_tile_rows", SEGMENT_TILE_ROWS),
                        ("segment_agg_max_requests", SEGMENT_AGG_MAX_REQUESTS),
                        ("segment_agg_max_outputs", SEGMENT_AGG_MAX_OUTPUTS),
+                       ("segment_agg_max_reads", AGG_MAX_READS),
+                       ("segment_agg_request_bytes", ctypes.sizeof(_AggRequest)),
+                       ("segment_agg_output_bytes", ctypes.sizeof(_AggOutput)),
                        ("radix_perm_cols", _MAX_PERM_COLS),
                        ("partition_epilogue_max_parts", EPILOGUE_MAX_PARTS),
                        ("partition_epilogue_sweep_bins", EPILOGUE_SWEEP_BINS)):
@@ -752,77 +753,62 @@ def hash_expand(table, counts, bucket_p, count, emit, pkeys, bkeys, luts,
 
 
 # --------------------------------------------------------------------------- #
-# the sort-path aggregation (replaces megakernels.aggregate_phase): segment_agg,
-# and segment_sum, its one-request form
+# the sort-path aggregation (replaces megakernels.aggregate_phase): segment_agg
 # --------------------------------------------------------------------------- #
 
-_VALUE_TYPES = {torch.int64: 0, torch.int32: 1, torch.bool: 2}
-# rows of one segment-sum tile (kSegRows in csrc/segment_agg.cu)
+# rows of one segment_agg tile (kSegRows in csrc/segment_agg.cu)
 SEGMENT_TILE_ROWS = 2048
-
-
-def segment_sum_plain(values: torch.Tensor, weight: torch.Tensor,
-                      starts: torch.Tensor) -> torch.Tensor:
-    """The reference's cumsum-at-boundaries segment sum: ends are the next
-    start minus one (n - 1 for the last slot), both bounds clipped."""
-    n = values.shape[0]
-    vals = torch.where(weight, values.to(torch.int64), 0)
-    ends = torch.cat([starts[1:], starts.new_full((1,), n)]) - 1
-    return K.segment_sum_bounds(vals, (starts, ends))
-
-
-def segment_sum(values: torch.Tensor, weight: torch.Tensor,
-                starts: torch.Tensor) -> torch.Tensor:
-    """out[g] = sum(values[i] for weighted rows i of segment g) as int64
-    (mod 2^64), over group-sorted rows; ``starts`` (int64, ascending,
-    padded with n) holds each segment's first row, and segment g ends where
-    segment g+1 starts. Values are int64, int32 or bool (a count). On CUDA
-    tensors: a memset of the output and one launch over tiles of
-    :data:`SEGMENT_TILE_ROWS` rows."""
-    if values.dtype not in _VALUE_TYPES:
-        raise TypeError(f"segment_sum: values of {values.dtype} are not supported")
-    _check_vectors("segment_sum", (values, weight), (values.dtype, torch.bool))
-    _check_vectors("segment_sum", (starts,), (torch.int64,))
-    if starts.device != values.device or starts.shape[0] < 1 or values.shape[0] < 1:
-        raise ValueError("segment_sum: starts must be non-empty on the values' device")
-    if values.device.type == "cpu":
-        return segment_sum_plain(values, weight, starts)
-    out = torch.empty(starts.shape[0], dtype=torch.int64, device=values.device)
-    rc = _library().segment_sum(
-        values.data_ptr(), _VALUE_TYPES[values.dtype], weight.data_ptr(), starts.data_ptr(),
-        values.shape[0], starts.shape[0], out.data_ptr(), _stream(values),
-    )
-    _check_launch("segment_sum", rc)
-    LAUNCHES["segment_sum"] += 1
-    return out
-
-
 # the most requests, outputs and group keys one segment_agg call takes
-# (kMaxAggRequests, kMaxAggOutputs in csrc/segment_agg.cu; kMaxWideKeys in
-# csrc/join_keys.cuh)
+# (kMaxAggRequests, kMaxAggOutputs in csrc/agg_common.cuh; kMaxWideKeys in
+# csrc/join_keys.cuh), and the most requests one output reads (kMaxAggReads)
 SEGMENT_AGG_MAX_REQUESTS = 32
 SEGMENT_AGG_MAX_OUTPUTS = 24
 SEGMENT_AGG_MAX_KEYS = 8
-# request kinds and finishing ops (AggKind, AggOp in csrc/segment_agg.cu)
+AGG_MAX_READS = 6
+# request kinds, finishing ops and per-row transforms (AggKind, AggOp,
+# AggTransform in csrc/agg_common.cuh)
 _AGG_KINDS = {"sum": 0, "fsum": 1, "min": 2, "max": 3, "fmin": 4, "fmax": 5, "last": 6,
-              "count": 7}
+              "count": 7, "band": 8, "bor": 9, "bxor": 10, "checksum": 11, "match_last": 12}
 _AGG_OPS = {"value": 0, "avg_decimal": 1, "avg_double": 2, "bool_and": 3, "bool_or": 4,
-            "first": 5}
+            "first": 5, "var_pop": 6, "var_samp": 7, "stddev_pop": 8, "stddev_samp": 9,
+            "covar_pop": 10, "covar_samp": 11, "corr": 12, "regr_slope": 13,
+            "regr_intercept": 14, "regr_avgx": 15, "regr_avgy": 16, "regr_sxx": 17,
+            "regr_syy": 18, "regr_sxy": 19, "regr_r2": 20, "skewness": 21, "kurtosis": 22,
+            "geometric_mean": 23, "entropy": 24}
 _AGG_PREDS = {None: 0, "nonzero": 1, "zero": 2}
+_AGG_TRANSFORMS = {None: 0, "log": 1, "clamp0": 2, "xlog2x": 3, "order_key": 4}
+_BITWISE_IDENTITY = {"band": -1, "bor": 0, "bxor": 0}
+# what a NULL row adds to a checksum
+CHECKSUM_NULL = 0x9E3779B9
+# the finishing ops of the variance family and of the two-column moments
+_VARIANCE_OPS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp")
+_TWO_COLUMN_OPS = ("covar_pop", "covar_samp", "corr", "regr_slope", "regr_intercept",
+                   "regr_avgx", "regr_avgy", "regr_sxx", "regr_syy", "regr_sxy", "regr_r2")
 
 
 @dataclass(frozen=True, eq=False)
 class AggRequest:
-    """One per-group reduction of the sort-path aggregation.
+    """One per-group reduction of the aggregation kernels.
 
     ``kind``: ``count`` (weighted rows), ``sum`` (int64 sum, wrapping, of
-    integer or bool values), ``fsum`` (float64 sum of the values as
-    doubles, each divided by ``divisor`` and squared where ``square``),
-    ``min``/``max`` (of integer, bool or float values) or ``last`` (the
-    last weighted row: ``arbitrary``'s). A row is weighted where the page's
-    activity, ``filt & filt_valid`` (an aggregate FILTER), ``valid`` and
-    ``pred`` on the value (``"nonzero"`` or ``"zero"``) all hold; None
-    leaves a term out."""
+    integer or bool values), ``fsum`` (float64 sum of a per-row double: the
+    value divided by ``divisor``, then ``transform`` (``log``, ``clamp0``:
+    ``max(x, 0)``, ``xlog2x``: ``c * log2(c)`` of ``c = max(x, 0)`` where
+    ``c > 0``, else 0), raised to ``power`` (1 to 4, multiplied left to
+    right: ``x * x * x`` is ``(x * x) * x``) and times ``values2`` divided
+    by ``divisor2`` where given), ``min``/``max`` (of integer, bool or
+    float values, or of ``order_key`` transforms: the int64 order key of
+    any value), ``band``/``bor``/``bxor`` (bitwise AND, OR, XOR of the
+    values as int64), ``checksum`` (the wrapping sum of
+    ``splitmix64(order_key(v))``, ``v`` the value or ``lut[code]`` of a
+    dictionary code, or :data:`CHECKSUM_NULL` where ``valid`` is false:
+    ``valid`` is not part of its weight), ``last`` (the last weighted
+    row: ``arbitrary``'s) or ``match_last`` (the last weighted row whose
+    order key equals request ``ref``'s result for its group, an
+    ``order_key`` min or max: ``min_by``/``max_by``'s row). A row is
+    weighted where the page's activity, ``filt & filt_valid`` (an
+    aggregate FILTER), ``valid``, ``valid2`` and ``pred`` on the value
+    (``"nonzero"`` or ``"zero"``) all hold; None leaves a term out."""
 
     kind: str
     values: Optional[torch.Tensor] = None
@@ -831,61 +817,120 @@ class AggRequest:
     filt_valid: Optional[torch.Tensor] = None
     pred: Optional[str] = None
     divisor: float = 1.0
-    square: bool = False
+    power: int = 1
+    transform: Optional[str] = None
+    values2: Optional[torch.Tensor] = None
+    valid2: Optional[torch.Tensor] = None
+    divisor2: float = 1.0
+    lut: Optional[torch.Tensor] = None
+    ref: int = -1
 
     def weight(self, active: torch.Tensor) -> torch.Tensor:
         w = active
         if self.filt is not None:
             w = w & (self.filt & self.filt_valid)
-        if self.valid is not None:
+        if self.valid is not None and self.kind != "checksum":
             w = w & self.valid
+        if self.valid2 is not None:
+            w = w & self.valid2
         if self.pred is not None:
             nz = self.values.to(torch.bool)
             w = w & (nz if self.pred == "nonzero" else ~nz)
         return w
 
     def key(self):
-        """What two equal requests share (the tensors by address)."""
-        ptr = [None if t is None else (t.data_ptr(), t.dtype) for t in
-               (self.values, self.valid, self.filt, self.filt_valid)]
-        return (self.kind, *ptr, self.pred, self.divisor, self.square)
+        """What two equal requests share (the tensors by address; the two
+        validities in either order)."""
+        def ptr(t):
+            return None if t is None else (t.data_ptr(), t.dtype)
+
+        valids = tuple(sorted((ptr(self.valid), ptr(self.valid2)), key=str))
+        return (self.kind, ptr(self.values), valids, ptr(self.filt), ptr(self.filt_valid),
+                ptr(self.values2), ptr(self.lut), self.pred, self.divisor, self.divisor2,
+                self.power, self.transform, self.ref)
 
 
 @dataclass(frozen=True, eq=False)
 class AggOutput:
     """One aggregate's output column from the requests' results.
 
-    ``op``: ``value`` (request ``a`` cast to ``dtype``), ``avg_decimal``
-    (``a`` over count ``b``, rounded half up), ``avg_double`` (``a`` as a
-    double over count ``b``, then over ``divisor``, cast to ``dtype``),
-    ``bool_and``/``bool_or`` (count ``a`` zero / positive) or ``first``
-    (``values`` at row ``a``). Valid where count ``b`` is positive, or
-    everywhere where ``b`` is -1."""
+    ``reads`` names the requests the op reads, in its order:
+
+    - ``value`` (request ``a`` cast to ``dtype``), ``avg_decimal`` (``a``
+      over count ``b``, rounded half up), ``avg_double`` (``a`` as a double
+      over count ``b``, then over ``divisor``, cast to ``dtype``),
+      ``bool_and``/``bool_or`` (count ``a`` zero / positive) and ``first``
+      (``values`` at row ``a``, a ``last`` or ``match_last`` request; with
+      ``values_valid``, valid only where that is true at the row) read
+      ``(a, b)``: valid where count ``b`` is positive, or everywhere where
+      ``b`` is -1 or left out;
+    - the variance family (``var_pop``, ``var_samp``, ``stddev_pop``,
+      ``stddev_samp``) reads ``(count, sum x, sum x^2)``;
+    - the two-column moments (``covar_*``, ``corr``, ``regr_*`` but
+      ``regr_count``, a ``value``) read ``(count, sum x, sum y, sum xy, sum
+      x^2, sum y^2)``, -1 where the op needs none;
+    - ``skewness`` and ``kurtosis`` read ``(count, sum x, ..., sum x^3)``
+      and ``(..., sum x^4)``, ``geometric_mean`` ``(count, sum log x)``,
+      ``entropy`` ``(count, sum max(x, 0), sum c log2 c)``.
+
+    Each is finished as ``executor._eval_aggregate`` finished it, operation
+    by operation."""
 
     op: str
-    a: int
-    b: int
+    reads: Tuple[int, ...]
     dtype: torch.dtype
     divisor: float = 1.0
     values: Optional[torch.Tensor] = None
+    values_valid: Optional[torch.Tensor] = None
 
 
-def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn) -> torch.Tensor:
+def _fsum_rows(req: AggRequest, w: torch.Tensor) -> torch.Tensor:
+    """An ``fsum`` request's per-row doubles (those of unweighted rows do
+    not count), in the order of operations of the reference's formulas."""
+    x = req.values.to(torch.float64)
+    if req.divisor != 1.0:
+        x = x / req.divisor
+    if req.transform == "log":
+        x = torch.where(w, torch.log(torch.where(w, x, 1.0)), 0.0)
+    elif req.transform in ("clamp0", "xlog2x"):
+        x = x.clamp(min=0.0)
+        if req.transform == "xlog2x":
+            x = torch.where(x > 0, x * torch.log2(torch.where(x > 0, x, 1.0)), 0.0)
+    y = x
+    for _ in range(req.power - 1):
+        y = y * x
+    if req.values2 is not None:
+        x2 = req.values2.to(torch.float64)
+        if req.divisor2 != 1.0:
+            x2 = x2 / req.divisor2
+        y = y * x2
+    return y
+
+
+def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn,
+                results=(), broadcast_fn=None) -> torch.Tensor:
     """A request through the torch reductions of an aggregation path
-    (``reduce_fn(vals, weight, kind)`` and ``first_fn(vals, weight)``, the
-    executor's): a ``last`` request gives the values at the group's row."""
+    (``reduce_fn(vals, weight, kind)``, ``first_fn(vals, weight)`` and, for
+    a ``match_last`` request, ``broadcast_fn`` of the earlier ``results``,
+    the executor's): a ``last`` or ``match_last`` request gives the row."""
     w = req.weight(active)
     if req.kind == "count":
         return reduce_fn(w.to(torch.int64), w, "count")
     v = req.values
-    if req.kind == "sum":
-        return reduce_fn(v.to(torch.int64), w, "sum")
+    if req.kind in ("sum", "band", "bor", "bxor"):
+        return reduce_fn(v.to(torch.int64), w, req.kind)
     if req.kind == "fsum":
-        x = v.to(torch.float64)
-        if req.divisor != 1.0:
-            x = x / req.divisor
-        return reduce_fn(x * x if req.square else x, w, "sum")
+        return reduce_fn(_fsum_rows(req, w), w, "sum")
+    if req.kind == "checksum":
+        if req.lut is not None:
+            v = req.lut[v.to(torch.int64).clamp(0, req.lut.shape[0] - 1)]
+        hashed = K.splitmix64(K.order_key(v))
+        if req.valid is not None:
+            hashed = torch.where(req.valid, hashed, CHECKSUM_NULL)
+        return reduce_fn(torch.where(w, hashed, 0), w, "sum")
     if req.kind in ("min", "max"):
+        if req.transform == "order_key":
+            v = K.order_key(v)
         if v.dtype.is_floating_point:
             masked = torch.where(w, v, float("inf") if req.kind == "min" else float("-inf"))
         elif v.dtype == torch.bool:
@@ -894,29 +939,121 @@ def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn) -> t
             masked = torch.where(w, v.to(torch.int64),
                                  K.INT64_MAX if req.kind == "min" else K.INT64_MIN)
         return reduce_fn(masked, torch.ones_like(w), req.kind)
+    rows = torch.arange(w.shape[0], dtype=torch.int64, device=w.device)
     if req.kind == "last":
-        return first_fn(v, w)
+        return first_fn(rows, w)
+    if req.kind == "match_last":
+        return first_fn(rows, w & (K.order_key(v) == broadcast_fn(results[req.ref])))
     raise ValueError(f"unknown aggregate request {req.kind!r}")
+
+
+def run_requests(requests, active: torch.Tensor, reduce_fn, first_fn, broadcast_fn=None):
+    """Every request in order (a ``match_last`` reads an earlier result)."""
+    results = []
+    for r in requests:
+        results.append(run_request(r, active, reduce_fn, first_fn, results, broadcast_fn))
+    return results
+
+
+def _moments(op: str, r, out_cap: int):
+    """The finishing of the moments from the read results ``r`` (count
+    first), as ``executor._eval_aggregate`` computed it."""
+    cnt = r[0]
+    n = cnt.clamp(min=1).to(torch.float64)
+    if op in _VARIANCE_OPS:
+        s1, s2 = r[1], r[2]
+        mean = s1 / n
+        var_pop = (s2 / n - mean * mean).clamp(min=0.0)
+        if op.endswith("_pop"):
+            var, valid = var_pop, cnt > 0
+        else:
+            var, valid = var_pop * n / (n - 1).clamp(min=1), cnt > 1
+        return (torch.sqrt(var) if op.startswith("stddev") else var), valid
+    if op in _TWO_COLUMN_OPS:
+        sx, sy, sxy, sxx, syy = r[1:6]
+
+        def cov():
+            return sxy / n - (sx / n) * (sy / n)
+
+        def varx():
+            return (sxx / n - (sx / n) ** 2).clamp(min=0.0)
+
+        def vary():
+            return (syy / n - (sy / n) ** 2).clamp(min=0.0)
+
+        if op == "covar_pop":
+            return cov(), cnt > 0
+        if op == "covar_samp":
+            return cov() * n / (n - 1).clamp(min=1.0), cnt > 1
+        if op == "corr":
+            denom = torch.sqrt(varx() * vary())
+            return cov() / torch.where(denom > 0, denom, 1.0), (cnt > 1) & (denom > 0)
+        if op in ("regr_slope", "regr_intercept"):
+            vx = varx()
+            slope = cov() / torch.where(vx > 0, vx, 1.0)
+            data = slope if op == "regr_slope" else sy / n - slope * (sx / n)
+            return data, (cnt > 1) & (vx > 0)
+        if op == "regr_avgx":
+            return sx / n, cnt > 0
+        if op == "regr_avgy":
+            return sy / n, cnt > 0
+        if op == "regr_sxx":
+            return varx() * n, cnt > 0
+        if op == "regr_syy":
+            return vary() * n, cnt > 0
+        if op == "regr_sxy":
+            return cov() * n, cnt > 0
+        # regr_r2: 1.0 where y is constant, NULL where x is
+        vx, vy = varx(), vary()
+        r2 = (cov() * cov()) / torch.where(vx * vy > 0, vx * vy, 1.0)
+        return torch.where(vy > 0, r2, 1.0), (cnt > 0) & (vx > 0)
+    if op in ("skewness", "kurtosis"):
+        # central moments from the raw power sums
+        s1, s2, s3 = r[1], r[2], r[3]
+        m = s1 / n
+        M2 = s2 - s1 * m
+        M3 = s3 - 3 * s2 * m + 2 * s1 * m * m
+        if op == "skewness":
+            data = torch.sqrt(n) * M3 / torch.pow(M2.clamp(min=1e-300), 1.5)
+            return data, (cnt > 2) & (M2 > 0)
+        s4 = r[4]
+        M4 = s4 - 4 * s3 * m + 6 * s2 * m * m - 3 * s1 * m * m * m
+        data = (n * (n + 1) / ((n - 1) * (n - 2) * (n - 3)).clamp(min=1.0)) * (
+            n * M4 / (M2 * M2).clamp(min=1e-300)
+        ) - 3 * (n - 1) * (n - 1) / ((n - 2) * (n - 3)).clamp(min=1.0)
+        return data, (cnt > 3) & (M2 > 0)
+    if op == "geometric_mean":
+        return torch.exp(r[1] / n), cnt > 0
+    if op == "entropy":
+        # log2 entropy of the per-row counts: log2(S) - sum(c log2 c) / S
+        s, sl = r[1], r[2]
+        pos = s > 0
+        safe = torch.where(pos, s, 1.0)
+        return torch.where(pos, torch.log2(safe) - sl / safe, 0.0).clamp(min=0.0), cnt > 0
+    raise ValueError(f"unknown aggregate output {op!r}")
 
 
 def finish_output(out: AggOutput, results, out_cap: int):
     """An output's (data, valid) from the requests' results: the finishing
     of ``executor._eval_aggregate``."""
-    a = results[out.a]
-    if out.b < 0:
+    r = [None if k < 0 else results[k] for k in out.reads]
+    if out.op not in ("value", "avg_decimal", "avg_double", "bool_and", "bool_or", "first"):
+        return _moments(out.op, r, out_cap)
+    a = r[0]
+    if len(r) < 2 or r[1] is None:
         valid = torch.ones(out_cap, dtype=torch.bool, device=a.device)
     else:
-        valid = results[out.b] > 0
+        valid = r[1] > 0
     if out.op == "value":
         return a.to(out.dtype), valid
     if out.op == "avg_decimal":
-        nonempty = results[out.b]
+        nonempty = r[1]
         half = nonempty // 2
         denom = nonempty.clamp(min=1)
         data = torch.where(a >= 0, (a + half) // denom, -((-a + half) // denom))
         return data.to(out.dtype), valid
     if out.op == "avg_double":
-        data = a.to(torch.float64) / results[out.b].clamp(min=1)
+        data = a.to(torch.float64) / r[1].clamp(min=1)
         if out.divisor != 1.0:
             data = data / out.divisor
         return data.to(out.dtype), valid
@@ -924,9 +1061,10 @@ def finish_output(out: AggOutput, results, out_cap: int):
         return a == 0, valid
     if out.op == "bool_or":
         return a > 0, valid
-    if out.op == "first":
-        return a, valid
-    raise ValueError(f"unknown aggregate output {out.op!r}")
+    # first: the values at the request's row
+    if out.values_valid is not None:
+        valid = valid & out.values_valid[a]
+    return out.values[a], valid
 
 
 def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, requests,
@@ -934,7 +1072,8 @@ def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, req
     """The reference's ``_aggregate_impl`` over a group-sorted page, for the
     requests and outputs given: ``kernels.boundary_positions``, the key
     gathers at the starts, sums and counts by cumsum at the group
-    boundaries, min, max and ``last`` by a scatter on the group index (rows
+    boundaries, the bitwise reductions by prefix sums of each bit, min, max,
+    ``last`` and ``match_last`` by a scatter on the group index (rows
     before the first group in no slot), the finishing, and the destination
     stage (:func:`partition_dest_plain` of the gathered keys)."""
     n = new_group.shape[0]
@@ -952,12 +1091,14 @@ def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, req
     def reduce_fn(vals, w, kind):
         if kind in ("sum", "count"):
             return K.segment_reduce(vals, w, None, out_cap, kind, new_group, bounds)
+        if kind in K.BITWISE_KINDS:
+            return K.bitwise_group_reduce(vals, w, gid, out_cap, kind, bounds)
         return K.segment_reduce(vals, w & in_group, gid, out_cap, kind)
 
     def first_fn(vals, w):
         return K.direct_group_first(vals, w & in_group, gid, out_cap)
 
-    results = [run_request(r, active, reduce_fn, first_fn) for r in requests]
+    results = run_requests(requests, active, reduce_fn, first_fn, lambda g: g[gid])
     outs = [finish_output(o, results, out_cap) for o in outputs]
     dest_out = None
     if dest is not None:
@@ -970,9 +1111,12 @@ def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, req
 class _AggRequest(ctypes.Structure):
     _fields_ = [
         ("values", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("filter", ctypes.c_void_p),
-        ("filter_valid", ctypes.c_void_p), ("divisor", ctypes.c_double),
-        ("identity", ctypes.c_int64), ("type", ctypes.c_int), ("kind", ctypes.c_int),
-        ("pred", ctypes.c_int), ("square", ctypes.c_int),
+        ("filter_valid", ctypes.c_void_p), ("values2", ctypes.c_void_p),
+        ("valid2", ctypes.c_void_p), ("lut", ctypes.c_void_p), ("divisor", ctypes.c_double),
+        ("divisor2", ctypes.c_double), ("identity", ctypes.c_int64), ("lut_len", ctypes.c_int32),
+        ("ref", ctypes.c_int32), ("type", ctypes.c_int8), ("type2", ctypes.c_int8),
+        ("kind", ctypes.c_int8), ("pred", ctypes.c_int8), ("power", ctypes.c_int8),
+        ("transform", ctypes.c_int8),
     ]
 
 
@@ -982,10 +1126,10 @@ class _AggRequestSet(ctypes.Structure):
 
 class _AggOutput(ctypes.Structure):
     _fields_ = [
-        ("first_values", ctypes.c_void_p), ("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
-        ("divisor", ctypes.c_double), ("op", ctypes.c_int), ("a", ctypes.c_int),
-        ("b", ctypes.c_int), ("out_type", ctypes.c_int), ("elem_bytes", ctypes.c_int),
-        ("a_float", ctypes.c_int),
+        ("first_values", ctypes.c_void_p), ("first_valid", ctypes.c_void_p),
+        ("data", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("divisor", ctypes.c_double),
+        ("op", ctypes.c_int), ("reads", ctypes.c_int * AGG_MAX_READS), ("n_reads", ctypes.c_int),
+        ("out_type", ctypes.c_int), ("elem_bytes", ctypes.c_int), ("a_float", ctypes.c_int),
     ]
 
 
@@ -997,44 +1141,64 @@ def _f64_bits(x: float) -> int:
     return struct.unpack("<q", struct.pack("<d", x))[0]
 
 
-def _request_plan(req: AggRequest, n: int, dev):
-    """(C kind, identity bits, result is a double) of a request; raises on
-    what the kernel does not take."""
-    name = "segment_agg"
-    if req.kind not in ("count", "sum", "fsum", "min", "max", "last"):
-        raise ValueError(f"{name}: unknown request kind {req.kind!r}")
-    for t in (req.valid, req.filt, req.filt_valid):
-        if t is not None:
-            _check_vectors(name, (t,), (torch.bool,))
-            if t.shape[0] != n or t.device != dev:
-                raise ValueError(f"{name}: request columns must be {n} rows on {dev}")
+def _check_request_col(name: str, t, dtypes, n: int, dev) -> None:
+    if t is None:
+        return
+    if t.ndim != 1 or t.dtype not in dtypes:
+        raise TypeError(f"{name}: request column of {t.dtype} {tuple(t.shape)} is not supported")
+    _check_vectors(name, (t,), (t.dtype,))
+    if t.shape[0] != n or t.device != dev:
+        raise ValueError(f"{name}: request columns must be {n} rows on {dev}")
+
+
+def _request_plan(name: str, req: AggRequest, at: int, requests, n: int, dev):
+    """(C kind, identity bits, result is a double) of request ``at``;
+    raises on what the kernel does not take."""
+    kind = req.kind
+    if kind not in _AGG_KINDS or kind in ("fmin", "fmax"):
+        raise ValueError(f"{name}: unknown request kind {kind!r}")
+    for t in (req.valid, req.valid2, req.filt, req.filt_valid):
+        _check_request_col(name, t, (torch.bool,), n, dev)
+    _check_request_col(name, req.values, _KEY_TYPES, n, dev)
+    _check_request_col(name, req.values2, _KEY_TYPES, n, dev)
     if (req.filt is None) != (req.filt_valid is None):
         raise ValueError(f"{name}: a filter needs its validity")
-    if req.pred not in _AGG_PREDS:
-        raise ValueError(f"{name}: unknown predicate {req.pred!r}")
+    if req.pred not in _AGG_PREDS or req.transform not in _AGG_TRANSFORMS:
+        raise ValueError(f"{name}: unknown predicate {req.pred!r} or transform {req.transform!r}")
     v = req.values
-    if v is None:
-        if req.kind != "count" or req.pred is not None:
-            raise ValueError(f"{name}: a {req.kind} request needs its values")
-    else:
-        if v.dtype not in _KEY_TYPES or v.ndim != 1:
-            raise TypeError(f"{name}: values of {v.dtype} {tuple(v.shape)} are not supported")
-        _check_vectors(name, (v,), (v.dtype,))
-        if v.shape[0] != n or v.device != dev:
-            raise ValueError(f"{name}: request columns must be {n} rows on {dev}")
+    if v is None and (kind != "count" or req.pred is not None):
+        raise ValueError(f"{name}: a {kind} request needs its values")
+    if kind != "fsum" and (req.power != 1 or req.values2 is not None
+                           or req.transform not in (None, "order_key")):
+        raise ValueError(f"{name}: powers, second operands and transforms are fsum's")
+    if not 1 <= req.power <= 4:
+        raise ValueError(f"{name}: power {req.power} outside [1, 4]")
+    if req.transform == "order_key" and kind not in ("min", "max", "match_last"):
+        raise ValueError(f"{name}: order_key transforms a min, max or match_last")
+    if req.lut is not None:
+        if kind != "checksum" or v.dtype.is_floating_point:
+            raise ValueError(f"{name}: a LUT translates a checksum's dictionary codes")
+        _check_vectors(name, (req.lut,), (torch.int64,))
+        if req.lut.device != dev or req.lut.shape[0] < 1:
+            raise ValueError(f"{name}: LUT must be a non-empty tensor on {dev}")
     is_float = v is not None and v.dtype.is_floating_point
-    if req.kind == "sum" and is_float:
-        raise TypeError(f"{name}: a float sum is an fsum request")
-    if req.kind in ("min", "max"):
+    if kind in ("sum", "band", "bor", "bxor") and is_float:
+        raise TypeError(f"{name}: a {kind} of doubles (a float sum is an fsum request)")
+    if kind == "match_last":
+        if not (0 <= req.ref < at and requests[req.ref].kind in ("min", "max")
+                and requests[req.ref].transform == "order_key"):
+            raise ValueError(f"{name}: match_last reads an earlier order_key min or max")
+        return _AGG_KINDS[kind], -1, False
+    if kind in ("min", "max"):
+        if req.transform == "order_key" or not (is_float or v.dtype == torch.bool):
+            return _AGG_KINDS[kind], int(K.INT64_MAX if kind == "min" else K.INT64_MIN), False
         if is_float:
-            return (_AGG_KINDS["f" + req.kind],
-                    _f64_bits(float("inf") if req.kind == "min" else float("-inf")), True)
-        if v.dtype == torch.bool:
-            return _AGG_KINDS[req.kind], int(req.kind == "min"), False
-        return _AGG_KINDS[req.kind], int(K.INT64_MAX if req.kind == "min" else K.INT64_MIN), False
-    if req.kind == "last":
+            return (_AGG_KINDS["f" + kind],
+                    _f64_bits(float("inf") if kind == "min" else float("-inf")), True)
+        return _AGG_KINDS[kind], int(kind == "min"), False
+    if kind == "last":
         return _AGG_KINDS["last"], -1, False
-    return _AGG_KINDS[req.kind], 0, req.kind == "fsum"
+    return _AGG_KINDS[kind], _BITWISE_IDENTITY.get(kind, 0), kind == "fsum"
 
 
 def _check_group_keys(name: str, key_cols, n: int, dev) -> None:
@@ -1046,52 +1210,83 @@ def _check_group_keys(name: str, key_cols, n: int, dev) -> None:
             raise TypeError(f"{name}: unsupported key column {d.dtype}")
 
 
-def _agg_plans(name: str, requests, outputs, active: torch.Tensor):
+# the requests each finishing op reads after its count: their number, and
+# whether a -1 (not needed) may stand for one
+_MOMENT_READS = {**{op: (3, False) for op in _VARIANCE_OPS},
+                 **{op: (6, True) for op in _TWO_COLUMN_OPS},
+                 "skewness": (4, False), "kurtosis": (5, False),
+                 "geometric_mean": (2, False), "entropy": (3, False)}
+
+
+def _check_output(name: str, o: AggOutput, requests, plans, active) -> None:
+    n, dev = active.shape[0], active.device
+    if o.op not in _AGG_OPS or o.dtype not in _KEY_TYPES:
+        raise ValueError(f"{name}: unsupported output {o.op!r} of {o.dtype}")
+    reads = tuple(o.reads)
+    if not reads or len(reads) > AGG_MAX_READS or reads[0] < 0 or any(
+            not -1 <= k < len(requests) for k in reads):
+        raise ValueError(f"{name}: an output names a request that is not there")
+    kinds = [None if k < 0 else requests[k].kind for k in reads]
+    if o.op in _MOMENT_READS:
+        count, sparse = _MOMENT_READS[o.op]
+        if (len(reads) != count or kinds[0] != "count" or o.dtype != torch.float64
+                or any(k != "fsum" and not (sparse and k is None) for k in kinds[1:])):
+            raise ValueError(f"{name}: {o.op} reads a count and {count - 1} float sums "
+                             "into a double")
+        return
+    if len(reads) > 2 or (len(reads) == 2 and kinds[1] not in (None, "count")) or (
+            o.op in ("avg_decimal", "avg_double") and (len(reads) < 2 or reads[1] < 0)):
+        raise ValueError(f"{name}: an output's validity and divisor are counts")
+    if o.op == "first":
+        if kinds[0] not in ("last", "match_last") or o.values is None or o.values.ndim != 1:
+            raise ValueError(f"{name}: first gathers 1-D values at a last request's row")
+        _check_page_cols(name, [(o.values, active if o.values_valid is None
+                                 else o.values_valid)], n, dev)
+        if o.values.dtype != o.dtype:
+            raise TypeError(f"{name}: first keeps its values' type")
+    elif kinds[0] in ("last", "match_last"):
+        raise ValueError(f"{name}: a row request is finished by first")
+    elif o.op == "value" and plans[reads[0]][2] and not o.dtype.is_floating_point:
+        raise TypeError(f"{name}: a float result cast to {o.dtype}")
+    elif o.op in ("bool_and", "bool_or") and (kinds[0] != "count" or o.dtype != torch.bool):
+        raise ValueError(f"{name}: {o.op} reads a count into a bool")
+
+
+def _agg_plans(name: str, requests, outputs, active: torch.Tensor, match: bool = True):
     """The C plan of each request (:func:`_request_plan`), after the checks
-    that the requests and outputs are a set the aggregation kernels take;
-    raises on what they do not."""
+    that the requests and outputs are a set the aggregation kernels take
+    (``match``: whether ``match_last`` requests are); raises on what they
+    do not."""
     n, dev = active.shape[0], active.device
     if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
         raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
                          f"{SEGMENT_AGG_MAX_OUTPUTS} outputs a call")
-    plans = [_request_plan(r, n, dev) for r in requests]
+    if not match and any(r.kind == "match_last" for r in requests):
+        raise ValueError(f"{name}: takes no match_last request")
+    plans = [_request_plan(name, r, i, requests, n, dev) for i, r in enumerate(requests)]
     for o in outputs:
-        if o.op not in _AGG_OPS or o.dtype not in _KEY_TYPES:
-            raise ValueError(f"{name}: unsupported output {o.op!r} of {o.dtype}")
-        if not 0 <= o.a < len(requests) or not -1 <= o.b < len(requests):
-            raise ValueError(f"{name}: an output names a request that is not there")
-        kinds = (requests[o.a].kind, None if o.b < 0 else requests[o.b].kind)
-        if kinds[1] not in (None, "count") or (o.op in ("avg_decimal", "avg_double")
-                                                and o.b < 0):
-            raise ValueError(f"{name}: an output's validity and divisor are counts")
-        if o.op == "first":
-            if kinds[0] != "last" or o.values is None or o.values.ndim != 1:
-                raise ValueError(f"{name}: first gathers 1-D values at a last request's row")
-            _check_page_cols(name, [(o.values, active)], n, dev)
-            if o.values.dtype != o.dtype:
-                raise TypeError(f"{name}: first keeps its values' type")
-        elif kinds[0] == "last":
-            raise ValueError(f"{name}: a last request is finished by first")
-        elif o.op == "value" and plans[o.a][2] and not o.dtype.is_floating_point:
-            raise TypeError(f"{name}: a float result cast to {o.dtype}")
-        elif o.op in ("bool_and", "bool_or") and (kinds[0] != "count" or o.dtype != torch.bool):
-            raise ValueError(f"{name}: {o.op} reads a count into a bool")
+        _check_output(name, o, requests, plans, active)
     return plans
 
 
 def _agg_sets(requests, outputs, plans, slots: int, dev):
     """The kernels' request and output sets, and each output's (data, valid)
     buffers of ``slots`` rows."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rs = _AggRequestSet()
     rs.n = len(requests)
     for c, r, (kind, ident, _) in zip(rs.req, requests, plans):
-        c.values = None if r.values is None else r.values.data_ptr()
-        c.valid = None if r.valid is None else r.valid.data_ptr()
-        if r.filt is not None:
-            c.filter, c.filter_valid = r.filt.data_ptr(), r.filt_valid.data_ptr()
-        c.divisor, c.identity, c.kind = float(r.divisor), ident, kind
+        c.values, c.valid, c.values2, c.valid2 = (ptr(r.values), ptr(r.valid), ptr(r.values2),
+                                                  ptr(r.valid2))
+        c.filter, c.filter_valid, c.lut = ptr(r.filt), ptr(r.filt_valid), ptr(r.lut)
+        c.lut_len = 0 if r.lut is None else r.lut.shape[0]
+        c.divisor, c.divisor2, c.identity, c.kind = float(r.divisor), float(r.divisor2), ident, kind
         c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
-        c.pred, c.square = _AGG_PREDS[r.pred], int(r.square)
+        c.type2 = _KEY_TYPES[r.values2.dtype] if r.values2 is not None else 0
+        c.pred, c.power, c.ref = _AGG_PREDS[r.pred], r.power, r.ref
+        c.transform = _AGG_TRANSFORMS[r.transform]
     os_ = _AggOutputSet()
     os_.n = len(outputs)
     outs = []
@@ -1100,10 +1295,13 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
         valid = torch.empty(slots, dtype=torch.bool, device=dev)
         outs.append((data, valid))
         c.data, c.valid, c.divisor = data.data_ptr(), valid.data_ptr(), float(o.divisor)
-        c.op, c.a, c.b, c.out_type = _AGG_OPS[o.op], o.a, o.b, _KEY_TYPES[o.dtype]
-        c.a_float = int(plans[o.a][2])
+        c.op, c.out_type, c.n_reads = _AGG_OPS[o.op], _KEY_TYPES[o.dtype], len(o.reads)
+        for j, k in enumerate(o.reads):
+            c.reads[j] = k
+        c.a_float = int(plans[o.reads[0]][2])
         if o.op == "first":
             c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
+            c.first_valid = ptr(o.values_valid)
     return rs, os_, outs
 
 
@@ -1129,7 +1327,9 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     gives each request its identity there. Float64 sums add in another
     order than the plain cumsum form; every other value is bit-identical.
     On CUDA tensors the kernel is five launches (count, scan, reduce, span
-    and finish; four without requests) over tiles of
+    and finish; four without requests), eight with a ``match_last``
+    request (a resolve pass writes each group's extreme, then a second
+    reduce and span serve the match requests), over tiles of
     :data:`SEGMENT_TILE_ROWS` rows and no memset; ``out_cap`` must hold
     every group. A division by a scalar there is a product with its
     reciprocal, as torch divides by a scalar on the card."""
@@ -1180,8 +1380,11 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     n_tiles = -(-n // SEGMENT_TILE_ROWS)
     scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
     starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
-    partials = torch.empty(max(1, len(requests) * (out_cap + 2 * n_tiles)), dtype=torch.int64,
-                           device=dev)
+    # each request's complete groups, head and tail partials; with a
+    # match_last request a row of extremes per request after them
+    rows = out_cap + 2 * n_tiles + (out_cap if any(r.kind == "match_last" for r in requests)
+                                    else 0)
+    partials = torch.empty(max(1, len(requests) * rows), dtype=torch.int64, device=dev)
     group_exists = torch.empty(out_cap, dtype=torch.bool, device=dev)
     _check_launch(name, _library().segment_agg(
         ctypes.byref(rs), ctypes.byref(os_), ctypes.byref(ks), new_group.data_ptr(),
@@ -1416,15 +1619,15 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
 
 
 # the kernels whose C entry points count their stream operations
-_STREAM_OPS = ("hash_probe", "group_sort", "segment_sum", "segment_agg", "partition_epilogue",
+_STREAM_OPS = ("hash_probe", "group_sort", "segment_agg", "partition_epilogue",
                "partition_dest", "expr_program", "presorted_group", "segment_agg_direct")
 
 
 def stream_ops(name: str) -> int:
     """Kernel launches and memsets that ``name``'s kernels (one of
-    ``hash_probe``, ``group_sort``, ``segment_sum``, ``segment_agg``,
-    ``partition_epilogue`` and ``partition_dest``) have issued since the
-    library was loaded."""
+    ``hash_probe``, ``group_sort``, ``segment_agg``, ``partition_epilogue``,
+    ``partition_dest``, ``expr_program``, ``presorted_group`` and
+    ``segment_agg_direct``) have issued since the library was loaded."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 
@@ -1776,13 +1979,15 @@ def segment_agg_direct_plain(key_cols, domains, active: torch.Tensor, requests, 
     gid = direct_group_ids(key_cols, domains)
 
     def reduce_fn(vals, w, kind):
+        if kind in K.BITWISE_KINDS:
+            return K.bitwise_group_reduce(vals, w, gid, G, kind)
         return K.direct_group_reduce(vals, w, gid, G, kind)
 
     def first_fn(vals, w):
         return K.direct_group_first(vals, w, gid, G)
 
     group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
-    results = [run_request(r, active, reduce_fn, first_fn) for r in requests]
+    results = run_requests(requests, active, reduce_fn, first_fn)
     return (group_exists, direct_group_keys(key_cols, domains),
             [finish_output(o, results, G) for o in outputs])
 
@@ -1799,8 +2004,9 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     ``(group_exists, keys_out, outs)`` at the G groups: whether an active
     row has the group, the rebuilt keys and each output's (data, valid).
     Float sums add in another order than the plain scatter's; every other
-    value is bit-identical. On CUDA tensors two launches (reduce and
-    finish), no memset."""
+    value is bit-identical. It takes no ``match_last`` request (``min_by``
+    and ``max_by`` are not direct aggregates). On CUDA tensors two launches
+    (reduce and finish), no memset."""
     name = "segment_agg_direct"
     _check_vectors(name, (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
@@ -1813,7 +2019,7 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     for d, _ in key_cols:
         if d.dtype not in _DECODED_TYPES:
             raise TypeError(f"{name}: unsupported key column {d.dtype}")
-    plans = _agg_plans(name, requests, outputs, active)
+    plans = _agg_plans(name, requests, outputs, active, match=False)
     if dev.type == "cpu":
         return segment_agg_direct_plain(key_cols, domains, active, requests, outputs)
     rs, os_, outs = _agg_sets(requests, outputs, plans, G, dev)
@@ -1871,14 +2077,14 @@ class _ExprProgram(ctypes.Structure):
     ]
 
 
-def expr_program_plain(program, inputs):
+def expr_program_plain(program, inputs, active=None):
     """The program run one instruction at a time as torch operations over
     whole columns, through the closures' own helpers
     (``expr_program.run_plain``): on the CPU the closures' values, bit for
     bit."""
     from .expr_program import run_plain
 
-    return run_plain(program, inputs)
+    return run_plain(program, inputs, active)
 
 
 def _program_struct(program) -> _ExprProgram:
@@ -1898,18 +2104,21 @@ def _program_struct(program) -> _ExprProgram:
     return static
 
 
-def expr_program(program, inputs):
+def expr_program(program, inputs, active=None):
     """Every lowered assignment of a projection in one launch.
 
     ``program``: an ``expr_program.ExprProgram`` (instructions over a
     register file, constants, LUTs; within the ``EXPR_MAX_*`` limits);
     ``inputs``: (data, valid) of each column it reads, in its order and of
-    its dtypes. Returns each output's (data, valid), of the program's
-    output dtypes. On CUDA tensors one launch, one row a thread."""
+    its dtypes; ``active``, the page's activity, gives the row count and
+    the device of a program that reads no column (its constants). Returns
+    each output's (data, valid), of the program's output dtypes. On CUDA
+    tensors one launch, one row a thread."""
     name = "expr_program"
-    if len(inputs) != len(program.input_dtypes) or not inputs:
+    if len(inputs) != len(program.input_dtypes) or not (inputs or active is not None):
         raise ValueError(f"{name}: the program reads {len(program.input_dtypes)} columns")
-    n, dev = inputs[0][1].shape[0], inputs[0][1].device
+    rows = inputs[0][1] if inputs else active
+    n, dev = rows.shape[0], rows.device
     _check_page_cols(name, inputs, n, dev)
     for (d, _), dt in zip(inputs, program.input_dtypes):
         if d.dtype != dt:
@@ -1917,7 +2126,7 @@ def expr_program(program, inputs):
     if any(lut.device != dev for lut in program.luts):
         raise ValueError(f"{name}: the program's LUTs are not on {dev}")
     if dev.type == "cpu":
-        return expr_program_plain(program, inputs)
+        return expr_program_plain(program, inputs, rows)
     p = _ExprProgram()
     ctypes.memmove(ctypes.addressof(p), ctypes.addressof(_program_struct(program)),
                    ctypes.sizeof(_ExprProgram))
@@ -1929,6 +2138,6 @@ def expr_program(program, inputs):
         valid = torch.empty(n, dtype=torch.bool, device=dev)
         outs.append((data, valid))
         c.data, c.valid, c.type = data.data_ptr(), valid.data_ptr(), _KEY_TYPES[dt]
-    _check_launch(name, _library().expr_program(ctypes.byref(p), n, _stream(inputs[0][1])))
+    _check_launch(name, _library().expr_program(ctypes.byref(p), n, _stream(rows)))
     LAUNCHES[name] += 1
     return outs

@@ -152,7 +152,7 @@ def bitwise_group_reduce(values: torch.Tensor, weight: torch.Tensor, gid: torch.
     the participating int64 values, one bit at a time: a bit is set where
     all (AND), any (OR) or an odd number (XOR) of the group's rows have it.
     An empty group reads the operation's identity (-1 for AND, else 0).
-    With ``bounds`` (group-sorted rows, :func:`segment_sum_bounds`) a bit's
+    With ``bounds`` (group-sorted rows, :func:`segment_bound_sums`) a bit's
     counts are differences of one prefix sum, else a scatter by ``gid`` (a
     plain sum for one group)."""
     v = values.to(torch.int64)
@@ -160,7 +160,7 @@ def bitwise_group_reduce(values: torch.Tensor, weight: torch.Tensor, gid: torch.
 
     def count(x):
         if bounds is not None:
-            return segment_sum_bounds(x, bounds)
+            return segment_bound_sums(x, bounds)
         if num_groups == 1:
             return x.sum().reshape(1)
         out = torch.zeros(num_groups, dtype=torch.int64, device=v.device)
@@ -239,7 +239,7 @@ def boundary_positions(new_group: torch.Tensor, out_cap: int) -> torch.Tensor:
     return starts[:out_cap]
 
 
-def segment_sum_bounds(
+def segment_bound_sums(
     vals: torch.Tensor, bounds: Tuple[torch.Tensor, torch.Tensor]
 ) -> torch.Tensor:
     """Per-segment sums over group-sorted rows by cumsum-at-boundaries:
@@ -301,7 +301,7 @@ def segment_reduce(
 
     For sum/count with segment boundaries available (``new_group_sorted``)
     rows are group-sorted, so segment g's sum is
-    ``csum[end_g] - csum[start_g] + v[start_g]`` (:func:`segment_sum_bounds`);
+    ``csum[end_g] - csum[start_g] + v[start_g]`` (:func:`segment_bound_sums`);
     otherwise a scatter by gid, inactive rows into a dropped extra slot.
     ``capacity == 1`` is the keyless global aggregation."""
     if capacity == 1:
@@ -329,7 +329,7 @@ def segment_reduce(
             start = start[:capacity]
             end = torch.cat([start[1:], start.new_full((1,), n)]) - 1
             bounds = (start, end)
-        return segment_sum_bounds(vals, bounds)
+        return segment_bound_sums(vals, bounds)
     ids = torch.where(weight_sorted, gid_sorted.to(torch.int64), capacity)
     if kind == "sum":
         vals = torch.where(weight_sorted, values_sorted, torch.zeros_like(values_sorted))

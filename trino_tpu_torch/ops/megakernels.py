@@ -15,17 +15,16 @@ the little of the reference's body that stays torch operators is counted in
   the fused projection in one ``expr_program`` launch (the assignments
   ``ops/expr_program.py`` lowers; the rest keep their closures, counted in
   ``STAGES["project_torch"]``), and the grouping: ``presorted_group``, the
-  direct-indexed aggregation in ``segment_agg_direct`` (the variance
-  family's finishing stays torch, counted in ``STAGES["aggregate_torch"]``)
-  or the ``sort`` stage in ``group_sort``.
+  direct-indexed aggregation in ``segment_agg_direct`` or the ``sort``
+  stage in ``group_sort``.
 - :func:`group_sort_phase`: ``group_sort`` alone, the re-group after a
   presorted sortedness violation.
 - :func:`aggregate_phase`: the sort-path reduction in ``segment_agg``: the
   group starts, the key gathers, every sum, count, min, max and
-  ``arbitrary`` and the finishing of ``avg``; the long tail (variance,
-  covariance and regression finishing, bitwise, distinct counts,
-  ``approx_distinct``, percentiles, ``min_by``/``max_by``) stays the
-  executor's torch operators, counted in ``STAGES["aggregate_torch"]``.
+  ``arbitrary``, the finishing of ``avg``, and the long tail (the moments,
+  bitwise, ``checksum``, ``min_by``/``max_by``); the re-sorting aggregates
+  (``approx_distinct``, ``approx_percentile``) stay the executor's torch
+  operators, counted in ``STAGES["aggregate_torch"]``.
 - the exchange destination stage (``epi_spec`` of :func:`expand_phase`
   and :func:`aggregate_phase`), where the fragment's output feeds a hash
   exchange (the worker's repartition hint): written by the kernel that

@@ -939,7 +939,7 @@ def _project_program(program, compiled, env: Dict[str, CVal], page: Page) -> Pag
     if program.output_dtypes:
         MK.STAGES["project"] += 1
         outs = HK.expr_program(program, [(env[s].data, env[s].valid)
-                                         for s in program.input_symbols])
+                                         for s in program.input_symbols], page.active)
     cols = []
     for k, (fn, type_, out_dict) in zip(program.assign_out, compiled):
         if k >= 0:
@@ -1549,8 +1549,9 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     ``reduce_fn``: sums and counts by cumsum at the group boundaries,
     min/max and the bitwise reductions by a scatter on the group index.
     With ``segment_kernel`` the integer sums and counts run in
-    ``hopper_kernels.segment_sum`` (the long tail of the fused path's
-    ``aggregate_phase``, which runs the rest in ``segment_agg``).
+    one-request ``hopper_kernels.segment_agg`` calls (the re-sorting
+    aggregates of the fused path's ``aggregate_phase``, which runs the rest
+    in one ``segment_agg`` call a chunk).
     The long tail's helpers are the reference's: an exact distinct count
     and the percentile re-sort each group's rows by value (a stable sort,
     so a group's rows keep their positions and ``starts``), and
@@ -1594,7 +1595,13 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
             return K.segment_reduce(vals, w, None, 1, kind)
         if kind in ("sum", "count"):
             if segment_kernel and (kind == "count" or not vals.dtype.is_floating_point):
-                return HK.segment_sum(w if kind == "count" else vals, w, starts)
+                # the one-request form of segment_agg (its weight is the
+                # row's activity and validity)
+                req = HK.AggRequest(kind, None if kind == "count" else vals.to(torch.int64))
+                out = HK.AggOutput("value", (0,), torch.int64)
+                _, _, _, ((data, _),), _ = HK.segment_agg(
+                    new_group, num_groups, out_cap, w, [], [req], [out])
+                return data
             return K.segment_reduce(vals, w, None, out_cap, kind, new_group, bounds)
         return K.segment_reduce(vals, w, gid(), out_cap, kind)
 
@@ -1720,12 +1727,14 @@ def _chunk_requests(chunk):
     for _, (reqs, out, _) in chunk:
         at = []
         for r in reqs:
+            if r.ref >= 0:
+                r = replace(r, ref=at[r.ref])
             k = r.key()
             if k not in index:
                 index[k] = len(requests)
                 requests.append(r)
             at.append(index[k])
-        outputs.append(replace(out, a=at[out.a], b=-1 if out.b < 0 else at[out.b]))
+        outputs.append(replace(out, reads=tuple(-1 if k < 0 else at[k] for k in out.reads)))
     return requests, outputs
 
 
@@ -1738,8 +1747,9 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     ``hopper_kernels.segment_agg`` calls (one, unless the aggregates need
     more requests or outputs, or the grouping more keys, than a call takes:
     the destination's keys go to the first call, the other keys fill it
-    and the later ones in order). The long tail runs
-    through ``_aggregate_impl``'s torch operators, each aggregate ticking
+    and the later ones in order). The aggregates without a plan (the
+    re-sorting ones: ``approx_distinct``, ``approx_percentile``) run
+    through ``_aggregate_impl``'s torch operators, each ticking
     ``megakernels.STAGES["aggregate_torch"]``. Returns ``(page, dest)``,
     dest None without ``dest_spec``."""
     rel = Relation(page, symbols)
@@ -1798,8 +1808,8 @@ def _direct_aggregate(group_keys, aggregations, domains, rel: Relation, mode: st
     ``_direct_aggregate_impl`` with its Pallas branch). With ``kernel`` (the
     fused path's direct stage) the group index, ``group_exists``, the keys
     and every aggregate of ``segment_agg``'s set run in
-    ``hopper_kernels.segment_agg_direct``; the rest (the variance family's
-    finishing) keeps the torch code, ticking
+    ``hopper_kernels.segment_agg_direct``; an aggregate without a plan (a
+    long-decimal argument) keeps the torch code, ticking
     ``megakernels.STAGES["aggregate_torch"]``."""
     active = rel.page.active
     G = math.prod(domains)
@@ -1915,20 +1925,41 @@ def _lane_aggregate(rel: Relation, agg: Aggregation, arg: Column, fmask, w, out_
     return Column(out_type, dummy(torch.int32), lengths > 0, children=(lanes,))
 
 
-# the aggregates segment_agg serves (the rest is the long tail's torch code)
+# the aggregates segment_agg serves (the rest, the re-sorting aggregates and
+# the lane-valued ones, is _aggregate_impl's torch code)
 _SEGMENT_AGGS = frozenset({"count", "count_if", "$fsum", "$fsumsq", "sum", "avg", "min", "max",
-                           "bool_and", "every", "bool_or", "arbitrary", "any_value"})
+                           "bool_and", "every", "bool_or", "arbitrary", "any_value",
+                           "skewness", "kurtosis", "geometric_mean", "entropy", "checksum",
+                           "min_by", "max_by"}
+                          | _VARIANCE_AGGS | _TWO_COLUMN_AGGS | set(_BITWISE_AGGS))
 _SEGMENT_DTYPES = (torch.int64, torch.int32, torch.int16, torch.int8, torch.bool,
                    torch.float64, torch.float32)
+# the finishing op of each variance aggregate
+_VARIANCE_OPS = {"stddev": "stddev_samp", "stddev_samp": "stddev_samp",
+                 "stddev_pop": "stddev_pop", "variance": "var_samp", "var_samp": "var_samp",
+                 "var_pop": "var_pop"}
+# the sums each two-column moment reads, of (x, y, xy, x^2, y^2)
+_TWO_COLUMN_SUMS = {
+    "covar_pop": "x y xy", "covar_samp": "x y xy", "corr": "x y xy xx yy",
+    "regr_slope": "x y xy xx", "regr_intercept": "x y xy xx", "regr_avgx": "x",
+    "regr_avgy": "y", "regr_sxx": "x xx", "regr_syy": "y yy", "regr_sxy": "x y xy",
+    "regr_r2": "x y xy xx yy",
+}
+
+
+def _decimal_divisor(col: Column) -> float:
+    return float(10**col.type.scale) if isinstance(col.type, DecimalType) else 1.0
 
 
 def _agg_plan(rel: Relation, agg: Aggregation):
     """An aggregate of ``segment_agg``'s set as ``(requests, output,
     dictionary)``: the per-group reductions it needs (the count of its
     non-NULL rows first, where it has an argument) and how its column is
-    finished from them; None for the long tail, lane-valued aggregates and
-    long-decimal or nested arguments. The one definition that the torch
-    paths (through their ``reduce_fn``) and the kernel share."""
+    finished from them; None for the re-sorting and lane-valued aggregates
+    and long-decimal or nested arguments. The one definition that the torch
+    paths (through their ``reduce_fn``) and the kernels share, with the
+    reference's formulas (its one-pass moments: a sum of squares less the
+    squared mean)."""
     name = agg.function
     if name not in _SEGMENT_AGGS:
         return None
@@ -1943,54 +1974,99 @@ def _agg_plan(rel: Relation, agg: Aggregation):
         filt = fcol.data if fcol.data.dtype == torch.bool else fcol.data.to(torch.bool)
         filt_valid = fcol.valid
     R = partial(HK.AggRequest, filt=filt, filt_valid=filt_valid)
+    O = HK.AggOutput
     if name == "count" and not agg.args:
-        return [R("count")], HK.AggOutput("value", 0, -1, odt), None
+        return [R("count")], O("value", (0,), odt), None
     arg = rel.column_for(agg.args[0])
     nonempty = R("count", valid=arg.valid)
     if name == "count":
-        return [nonempty], HK.AggOutput("value", 0, -1, odt), None
+        return [nonempty], O("value", (0,), odt), None
     v = arg.data
-    if is_nested_column(arg) or v.ndim != 1 or v.dtype not in _SEGMENT_DTYPES:
+
+    def plain(col: Column) -> bool:
+        return (not is_nested_column(col) and col.data.ndim == 1
+                and col.data.dtype in _SEGMENT_DTYPES)
+
+    if not plain(arg):
         return None
     if name == "count_if":
-        return ([nonempty, R("count", v, arg.valid, pred="nonzero")],
-                HK.AggOutput("value", 1, -1, odt), None)
+        return [nonempty, R("count", v, arg.valid, pred="nonzero")], O("value", (1,), odt), None
     if name in ("bool_and", "every", "bool_or"):
         pred = "nonzero" if name == "bool_or" else "zero"
         op = "bool_or" if name == "bool_or" else "bool_and"
-        return ([nonempty, R("count", v, arg.valid, pred=pred)],
-                HK.AggOutput(op, 1, 0, odt), None)
-    scale = float(10**arg.type.scale) if isinstance(arg.type, DecimalType) else 1.0
+        return [nonempty, R("count", v, arg.valid, pred=pred)], O(op, (1, 0), odt), None
+    scale = _decimal_divisor(arg)
+    F = partial(R, "fsum", v, arg.valid, divisor=scale)
     if name in ("$fsum", "$fsumsq"):
         # float64 partial states of stddev/variance (fragmenter)
-        req = R("fsum", v, arg.valid, divisor=scale, square=name == "$fsumsq")
-        return [nonempty, req], HK.AggOutput("value", 1, -1, odt), None
+        req = F(power=2 if name == "$fsumsq" else 1)
+        return [nonempty, req], O("value", (1,), odt), None
     if name in ("sum", "avg"):
         kind = "fsum" if is_floating(arg.type) else "sum"
         reqs = [nonempty, R(kind, v, arg.valid)]
         if name == "sum":
-            return reqs, HK.AggOutput("value", 1, 0, odt), None
+            return reqs, O("value", (1, 0), odt), None
         if isinstance(out_type, DecimalType):
             # decimal avg keeps scale: round-half-up division
-            return reqs, HK.AggOutput("avg_decimal", 1, 0, odt), None
-        return reqs, HK.AggOutput("avg_double", 1, 0, odt, divisor=scale), None
+            return reqs, O("avg_decimal", (1, 0), odt), None
+        return reqs, O("avg_double", (1, 0), odt, divisor=scale), None
     if name in ("min", "max"):
-        return ([nonempty, R(name, v, arg.valid)], HK.AggOutput("value", 1, 0, odt),
+        return [nonempty, R(name, v, arg.valid)], O("value", (1, 0), odt), arg.dictionary
+    if name in ("arbitrary", "any_value"):
+        if v.dtype != odt:
+            return None
+        return ([nonempty, R("last", v, arg.valid)], O("first", (1, 0), odt, values=v),
                 arg.dictionary)
-    # arbitrary, any_value
-    if v.dtype != odt:
+    if name in _VARIANCE_AGGS:
+        return ([nonempty, F(), F(power=2)], O(_VARIANCE_OPS[name], (0, 1, 2), odt), None)
+    if name in ("skewness", "kurtosis"):
+        powers = 4 if name == "kurtosis" else 3
+        reqs = [nonempty] + [F(power=p) for p in range(1, powers + 1)]
+        return reqs, O(name, tuple(range(powers + 1)), odt), None
+    if name == "geometric_mean":
+        return [nonempty, F(transform="log")], O(name, (0, 1), odt), None
+    if name == "entropy":
+        return ([nonempty, F(transform="clamp0"), F(transform="xlog2x")],
+                O(name, (0, 1, 2), odt), None)
+    if name in _BITWISE_AGGS:
+        return [nonempty, R(_BITWISE_AGGS[name], v, arg.valid)], O("value", (1, 0), odt), None
+    if name == "checksum":
+        # an order-insensitive content hash: the wrapping sum of mixed value
+        # bits; a NULL row adds a constant, and only a group without rows
+        # is NULL
+        lut = None
+        if arg.dictionary is not None:
+            lut = torch.as_tensor(arg.dictionary.value_keys(), device=v.device)
+        return ([R("count"), R("checksum", v, arg.valid, lut=lut)], O("value", (1, 0), odt),
+                None)
+    second = rel.column_for(agg.args[1])
+    if not plain(second):
         return None
-    return ([nonempty, R("last", v, arg.valid)], HK.AggOutput("first", 1, 0, odt, values=v),
-            arg.dictionary)
-
-
-def _to_f64_masked(col: Column, weight: torch.Tensor) -> torch.Tensor:
-    """A numeric column as DOUBLE (a decimal divided by its scale), 0 where
-    the row does not take part."""
-    x = col.data.to(torch.float64)
-    if isinstance(col.type, DecimalType):
-        x = x / float(10**col.type.scale)
-    return torch.where(weight, x, 0.0)
+    if name in ("min_by", "max_by"):
+        # the value of arg 0 at the last row where arg 1's order key is the
+        # group's extreme
+        if v.dtype != odt:
+            return None
+        kind = "min" if name == "min_by" else "max"
+        reqs = [R("count", valid=second.valid),
+                R(kind, second.data, second.valid, transform="order_key"),
+                R("match_last", second.data, second.valid, transform="order_key", ref=1)]
+        return (reqs, O("first", (2, 0), odt, values=v, values_valid=arg.valid),
+                arg.dictionary)
+    # two-column moments, Trino's argument order (y, x)
+    count2 = R("count", valid=arg.valid, valid2=second.valid)
+    if name == "regr_count":
+        return [count2], O("value", (0,), odt), None
+    X = partial(R, "fsum", second.data, second.valid, valid2=arg.valid,
+                divisor=_decimal_divisor(second))
+    Y = partial(R, "fsum", v, arg.valid, valid2=second.valid, divisor=scale)
+    sums = {"x": X(), "y": Y(), "xy": X(values2=v, divisor2=scale), "xx": X(power=2),
+            "yy": Y(power=2)}
+    want = _TWO_COLUMN_SUMS[name].split()
+    reqs = [count2] + [sums[k] for k in want]
+    reads = (0,) + tuple(1 + want.index(k) if k in want else -1
+                         for k in ("x", "y", "xy", "xx", "yy"))
+    return reqs, O(name, reads, odt), None
 
 
 def _eval_aggregate(
@@ -2010,11 +2086,11 @@ def _eval_aggregate(
     the per-group reduction, ``first_fn`` picks a participating row and
     ``broadcast_fn`` spreads a per-group value back over the rows; the
     exact distinct count, the HyperLogLog estimate and the percentile come
-    from the sort path only. The reference's formulas, including its
-    one-pass moments (a sum of squares less the squared mean). An aggregate
-    of ``segment_agg``'s set runs its requests (:func:`_agg_plan`) through
-    ``reduce_fn`` and ``first_fn`` and is finished as the kernel finishes
-    it."""
+    from the sort path only. An aggregate of ``segment_agg``'s set runs its
+    requests (:func:`_agg_plan`) through ``reduce_fn``, ``first_fn`` and
+    ``broadcast_fn`` and is finished as the kernels finish it; the rest are
+    the lane-valued aggregates, ``approx_distinct`` and
+    ``approx_percentile``."""
     name = agg.function
     out_type = agg.output_type
     device = active.device
@@ -2022,7 +2098,7 @@ def _eval_aggregate(
     plan = _agg_plan(rel, agg) if not (name in _LANE_AGGS and lane_fns is not None) else None
     if plan is not None:
         requests, output, dictionary = plan
-        results = [HK.run_request(r, active, reduce_fn, first_fn) for r in requests]
+        results = HK.run_requests(requests, active, reduce_fn, first_fn, broadcast_fn)
         data, valid = HK.finish_output(output, results, out_cap)
         return Column(out_type, data, valid, dictionary)
     fmask = active
@@ -2033,26 +2109,12 @@ def _eval_aggregate(
     arg = rel.column_for(agg.args[0])
     vals_s = arg.data
     w = fmask & arg.valid
-    nonempty = reduce_fn(w.to(torch.int64), w, "count")
-
     if name in _LANE_AGGS and lane_fns is not None:
         return _lane_aggregate(rel, agg, arg, fmask, w, out_cap, *lane_fns)
     if vals_s.ndim == 2:
         # sum and avg reach here as limbs ($dec_limb); min/max need the
         # reference's hi-then-tied-lo reduction
         unported(f"ops.int128 ({name} over a long decimal)")
-    if name in _VARIANCE_AGGS:
-        x = _to_f64_masked(arg, w)
-        s1 = reduce_fn(x, w, "sum")
-        s2 = reduce_fn(x * x, w, "sum")
-        n = nonempty.clamp(min=1).to(torch.float64)
-        mean = s1 / n
-        var_pop = (s2 / n - mean * mean).clamp(min=0.0)
-        if name in ("var_pop", "stddev_pop"):
-            var, valid = var_pop, nonempty > 0
-        else:
-            var, valid = var_pop * n / (n - 1).clamp(min=1), nonempty > 1
-        return Column(DOUBLE, torch.sqrt(var) if name.startswith("stddev") else var, valid)
     if name == "approx_distinct" and (hll_fn or distinct_count_fn):
         # HyperLogLog registers where the state fits, else the exact count
         fn = hll_fn if hll_fn is not None else distinct_count_fn
@@ -2068,106 +2130,4 @@ def _eval_aggregate(
         nq = reduce_fn(wq.to(torch.int64), wq, "count")
         data = percentile_fn(vals_s, wq, first_fn(q, wq), nq)
         return Column(out_type, data.to(out_type.torch_dtype), nq > 0, arg.dictionary)
-    if name in ("min_by", "max_by"):
-        # the value of arg 0 at a row where arg 1 is the group's extreme
-        kcol = rel.column_for(agg.args[1])
-        wk = fmask & kcol.valid
-        key = K.encode_sort_column(kcol.data, kcol.valid, True, False)
-        key = torch.where(wk, key, K.INT64_MAX if name == "min_by" else K.INT64_MIN)
-        extreme = reduce_fn(key, wk, "min" if name == "min_by" else "max")
-        at = wk & (key == broadcast_fn(extreme))
-        valid_out = (reduce_fn(wk.to(torch.int64), wk, "count") > 0) & first_fn(arg.valid, at)
-        return Column(out_type, first_fn(vals_s, at), valid_out, arg.dictionary)
-    if name in _TWO_COLUMN_AGGS:
-        # two-column moments, Trino's argument order (y, x)
-        xcol = rel.column_for(agg.args[1])
-        w2 = fmask & arg.valid & xcol.valid
-        y, x = _to_f64_masked(arg, w2), _to_f64_masked(xcol, w2)
-        n2 = reduce_fn(w2.to(torch.int64), w2, "count")
-        if name == "regr_count":
-            return Column(BIGINT, n2, torch.ones_like(n2, dtype=torch.bool))
-        n = n2.clamp(min=1).to(torch.float64)
-        sx, sy = reduce_fn(x, w2, "sum"), reduce_fn(y, w2, "sum")
-        sxy = reduce_fn(x * y, w2, "sum")
-        sxx, syy = reduce_fn(x * x, w2, "sum"), reduce_fn(y * y, w2, "sum")
-        cov_pop = sxy / n - (sx / n) * (sy / n)
-        varx = (sxx / n - (sx / n) ** 2).clamp(min=0.0)
-        vary = (syy / n - (sy / n) ** 2).clamp(min=0.0)
-        if name == "covar_pop":
-            data, valid_out = cov_pop, n2 > 0
-        elif name == "covar_samp":
-            data, valid_out = cov_pop * n / (n - 1).clamp(min=1.0), n2 > 1
-        elif name == "corr":
-            denom = torch.sqrt(varx * vary)
-            data = cov_pop / torch.where(denom > 0, denom, 1.0)
-            valid_out = (n2 > 1) & (denom > 0)
-        elif name in ("regr_slope", "regr_intercept"):
-            slope = cov_pop / torch.where(varx > 0, varx, 1.0)
-            data = slope if name == "regr_slope" else sy / n - slope * (sx / n)
-            valid_out = (n2 > 1) & (varx > 0)
-        elif name == "regr_avgx":
-            data, valid_out = sx / n, n2 > 0
-        elif name == "regr_avgy":
-            data, valid_out = sy / n, n2 > 0
-        elif name == "regr_sxx":
-            data, valid_out = varx * n, n2 > 0
-        elif name == "regr_syy":
-            data, valid_out = vary * n, n2 > 0
-        elif name == "regr_sxy":
-            data, valid_out = cov_pop * n, n2 > 0
-        else:  # regr_r2: 1.0 where y is constant, NULL where x is
-            r2 = (cov_pop * cov_pop) / torch.where(varx * vary > 0, varx * vary, 1.0)
-            data = torch.where(vary > 0, r2, 1.0)
-            valid_out = (n2 > 0) & (varx > 0)
-        return Column(DOUBLE, data, valid_out)
-    if name == "entropy":
-        # log2 entropy of the per-row counts: log2(S) - sum(c log2 c) / S
-        c = _to_f64_masked(arg, w).clamp(min=0.0)
-        s = reduce_fn(c, w, "sum")
-        clogc = torch.where(c > 0, c * torch.log2(torch.where(c > 0, c, 1.0)), 0.0)
-        sl = reduce_fn(clogc, w, "sum")
-        pos = s > 0
-        safe = torch.where(pos, s, 1.0)
-        data = torch.where(pos, torch.log2(safe) - sl / safe, 0.0)
-        return Column(DOUBLE, data.clamp(min=0.0), nonempty > 0)
-    if name in _BITWISE_AGGS:
-        data = reduce_fn(vals_s.to(torch.int64), w, _BITWISE_AGGS[name])
-        return Column(BIGINT, data, nonempty > 0)
-    if name in ("skewness", "kurtosis"):
-        # central moments from the raw power sums
-        x = _to_f64_masked(arg, w)
-        n = nonempty.clamp(min=1).to(torch.float64)
-        s1, s2 = reduce_fn(x, w, "sum"), reduce_fn(x * x, w, "sum")
-        s3 = reduce_fn(x * x * x, w, "sum")
-        m = s1 / n
-        M2 = s2 - s1 * m
-        M3 = s3 - 3 * s2 * m + 2 * s1 * m * m
-        if name == "skewness":
-            data = torch.sqrt(n) * M3 / torch.pow(M2.clamp(min=1e-300), 1.5)
-            valid_out = (nonempty > 2) & (M2 > 0)
-        else:
-            s4 = reduce_fn(x * x * x * x, w, "sum")
-            M4 = s4 - 4 * s3 * m + 6 * s2 * m * m - 3 * s1 * m * m * m
-            data = (n * (n + 1) / ((n - 1) * (n - 2) * (n - 3)).clamp(min=1.0)) * (
-                n * M4 / (M2 * M2).clamp(min=1e-300)
-            ) - 3 * (n - 1) * (n - 1) / ((n - 2) * (n - 3)).clamp(min=1.0)
-            valid_out = (nonempty > 3) & (M2 > 0)
-        return Column(DOUBLE, data, valid_out)
-    if name == "geometric_mean":
-        x = _to_f64_masked(arg, w)
-        logs = torch.where(w, torch.log(torch.where(w, x, 1.0)), 0.0)
-        n = nonempty.clamp(min=1).to(torch.float64)
-        return Column(DOUBLE, torch.exp(reduce_fn(logs, w, "sum") / n), nonempty > 0)
-    if name == "checksum":
-        # an order-insensitive content hash: the wrapping sum of mixed value
-        # bits; a NULL row adds a constant, and only a group without rows
-        # is NULL
-        v = vals_s
-        if arg.dictionary is not None:
-            lut = torch.as_tensor(arg.dictionary.value_keys(), device=device)
-            v = lut[v.to(torch.int64).clamp(0, lut.shape[0] - 1)]
-        hashed = torch.where(w, K.splitmix64(K.order_key(v)), 0x9E3779B9)
-        data = reduce_fn(torch.where(fmask, hashed, 0), fmask, "sum")
-        any_rows = reduce_fn(fmask.to(torch.int64), fmask, "count")
-        return Column(BIGINT, data, any_rows > 0)
     unported(f"aggregate {name}")

@@ -112,6 +112,12 @@ class TableStatistics:
     distinct_counts: Dict[str, float] = field(default_factory=dict)
     # full per-column stats keyed by column name
     columns: Dict[str, ColumnStatistics] = field(default_factory=dict)
+    # nothing is known of the columns' distinct values (a user table): a
+    # join clause over them with no NDV leaves the join order's estimate
+    # unknown (planner.stats.join_graph_order). The generators leave it
+    # False: their schemas join keys to foreign keys, which the estimate's
+    # fallback assumes
+    unknown_key_ndv: bool = False
 
     def column(self, name: str) -> ColumnStatistics:
         if name in self.columns:

@@ -1,5 +1,5 @@
-"""Device time of the hash probe and expansion, the sorts, the segment sums
-and the sort-path aggregation, by kernel, on the card.
+"""Device time of the hash probe and expansion, the sorts, the one-request
+segment aggregation and the sort-path aggregation, by kernel, on the card.
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] [--joins FILE]
 
@@ -10,10 +10,10 @@ on the inputs of TPC-H Q3's two joins and Q10's three at SF10,
 ``hopper_kernels.group_sort`` on a page shaped like Q10's joined page at
 SF10 (2,097,152 rows, 1,200,000 active, three keys of 21-bit ranges NULL
 on the inactive rows), ``hopper_kernels.partition_epilogue`` on the same
-page at 8 partitions, and ``hopper_kernels.segment_sum`` on two sorted
-pages: 524,288 rows in 131,072 slots, 119,740 groups of about four rows
-(the shape of Q3's at SF10), and 4,194,304 rows in groups of about four
-(``chip_smoke.py``'s synthetic case). After each join's probe,
+page at 8 partitions, and ``hopper_kernels.segment_agg`` with one request
+(an integer sum, the re-sorting aggregates' form) on two sorted pages:
+524,288 rows in 131,072 slots, 119,740 groups of about four rows (the shape
+of Q3's at SF10), and 4,194,304 rows in groups of about four. After each join's probe,
 ``hopper_kernels.hash_expand`` runs on that probe's output, with both
 sides' keys and a seeded int32 and float64 column each, then with the
 exchange destination of 4 partitions on the probe key (and on the probe
@@ -349,12 +349,17 @@ def main() -> None:
     report(root, "partition_epilogue, the same page, 8 parts",
            lambda: HK.partition_epilogue(keys, [None] * len(keys), payload, active, 8))
     del args, keys, payload, active
-    for label, shape in (("segment_sum, Q3-shaped rows (524,288 in 131,072 slots)",
-                          (524_288, 119_740, 131_072, 1)),
-                         ("segment_sum, 4,194,304 rows in groups of about four",
+    for label, shape in (("segment_agg one request, Q3-shaped rows (524,288 in 131,072 "
+                          "slots)", (524_288, 119_740, 131_072, 1)),
+                         ("segment_agg one request, 4,194,304 rows in groups of about four",
                           (4_194_304, 786_000, 786_016, 2))):
         v, w, starts = sorted_page(dev, *shape)
-        report(root, label, lambda: HK.segment_sum(v, w, starts))
+        new_group = torch.zeros(v.shape[0], dtype=torch.bool, device=dev)
+        new_group[starts[starts < v.shape[0]]] = True
+        groups = torch.tensor(shape[1], device=dev)
+        req = [HK.AggRequest("sum", v)]
+        out = [HK.AggOutput("value", (0,), torch.int64)]
+        report(root, label, lambda: HK.segment_agg(new_group, groups, shape[2], w, [], req, out))
 
 
 if __name__ == "__main__":
