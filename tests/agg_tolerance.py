@@ -16,6 +16,8 @@ over its float sums, of the larger change of the output when that sum
 moves up or down by its allowance, plus ``REL_TOL`` of the output.
 """
 
+from dataclasses import replace
+
 import torch
 
 from trino_tpu_torch.ops import hopper_kernels as HK
@@ -68,3 +70,20 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor) -> torch.Te
     got, want = got.to(torch.float64), want.to(torch.float64)
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
     return same | ((got - want).abs() <= tol)
+
+
+def digest_tolerance(output, new_group: torch.Tensor, slots: int) -> torch.Tensor:
+    """Per slot and lane, the tolerance of a digest output (an
+    ``HK.AggOutput`` of op ``digest`` over a group-sorted page's
+    ``new_group``): ``REL_TOL`` of the mean of each centroid's values'
+    magnitudes on its mean (the same centroids: they follow the ranks,
+    not the values), 0 on its weight."""
+    gid = (K.cumsum(new_group) - 1).clamp(min=0)
+    starts = K.boundary_positions(new_group, slots)
+    w2 = output.values_valid
+    nonempty = torch.zeros(slots, dtype=torch.int64, device=w2.device).index_add_(
+        0, gid, w2.to(torch.int64))
+    mag = replace(output, values=output.values.abs())
+    tol = REL_TOL * HK.finish_output(mag, {output.reads[0]: nonempty}, slots, starts, gid)[0]
+    tol[:, HK.DIGEST_CENTROIDS:] = 0.0
+    return tol

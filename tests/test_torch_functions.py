@@ -3,8 +3,9 @@ through ``trino_tpu.runtime.LocalQueryRunner`` and ``trino_tpu_torch``'s on
 the CPU: the SQL of ``tests/test_queries.py``'s function cases,
 ``tests/test_scalar_long_tail.py``, ``tests/test_temporal_types.py``, the
 statistical and bitwise aggregates of ``tests/test_agg_long_tail.py`` and
-``tests/test_approx_aggs.py``, statement by statement through both runners,
-each over its reference file's TPC-H fixture.
+``tests/test_approx_aggs.py`` and ``tests/test_tdigest.py``, statement by
+statement through both runners, each over its reference file's TPC-H
+fixture.
 
 Column names, column types and rows must be identical, DOUBLE at 1e-9
 relative (``tests/test_torch_tpch_corpus.assert_same_rows``); the CDF cases
@@ -13,9 +14,9 @@ CDF near 0 has no relative scale, and the port's incomplete beta is its
 own continued fraction). Where the reference raises, the port must raise
 an exception of the same class with the same message. ``random`` is held
 to its bounds only. One case each for the JSON, URL, array and map
-functions compares with the reference; ``sequence`` and tdigest, whose
-modules are still queued, each have one case that asserts the port raises
-naming them.
+functions compares with the reference, and so does tdigest; ``sequence``,
+whose module is still queued, has one case that asserts the port raises
+naming it.
 """
 
 import math
@@ -266,6 +267,30 @@ CASES = {
     "approx_percentile_grouped": (0.002, [
         "SELECT l_returnflag, approx_percentile(l_quantity, 0.9) FROM lineitem "
         "GROUP BY l_returnflag ORDER BY l_returnflag"]),
+    # ---- tests/test_tdigest.py
+    "tdigest_median_close_to_exact": (0.002, [
+        "SELECT value_at_quantile(tdigest_agg(l_quantity), 0.5), "
+        "approx_percentile(l_quantity, 0.5) FROM lineitem"]),
+    "tdigest_tail_quantiles_grouped": (0.002, [
+        "SELECT l_returnflag, value_at_quantile(tdigest_agg(l_extendedprice), 0.99), "
+        "approx_percentile(l_extendedprice, 0.99) FROM lineitem GROUP BY 1 ORDER BY 1"]),
+    "tdigest_monotone_in_q": (0.002, [
+        "SELECT value_at_quantile(tdigest_agg(l_extendedprice), 0.1), "
+        "value_at_quantile(tdigest_agg(l_extendedprice), 0.5), "
+        "value_at_quantile(tdigest_agg(l_extendedprice), 0.9) FROM lineitem"]),
+    "tdigest_empty_group_is_null": (0.002, [
+        "SELECT value_at_quantile(tdigest_agg(l_quantity), 0.5) FROM lineitem "
+        "WHERE l_quantity < 0"]),
+    "tdigest_digest_value_roundtrips_through_select": (0.002, [
+        "SELECT value_at_quantile(d, 0.5) FROM (SELECT tdigest_agg(l_quantity) d FROM lineitem)"]),
+    "qdigest_small_groups_exact": (0.002, [
+        "SELECT k, value_at_quantile(qdigest_agg(v), 0.5) "
+        "FROM (VALUES (1,10),(1,20),(1,30),(2,5)) t(k,v) GROUP BY k ORDER BY k"]),
+    "qdigest_returns_element_type": (0.002, [
+        "SELECT value_at_quantile(qdigest_agg(l_orderkey), 0.5) FROM lineitem"]),
+    "qdigest_tracks_exact_percentile": (0.002, [
+        "SELECT value_at_quantile(qdigest_agg(l_orderkey), 0.9), "
+        "approx_percentile(l_orderkey, 0.9) FROM lineitem"]),
 }
 
 # cases whose DOUBLE columns also pass at 1e-12 absolute
@@ -343,9 +368,9 @@ def test_random_within_bounds(runners):
 
 
 # the functions once left for the nested-type slice: the JSON, URL, array
-# and map cases now compare with the reference; sequence and the digests
-# still raise naming themselves (their modules are queued)
-STILL_RAISING = frozenset({"sequence", "tdigest"})
+# and map cases and the digest now compare with the reference; sequence
+# still raises naming itself (its module is queued)
+STILL_RAISING = frozenset({"sequence"})
 UNPORTED = {
     "json": ("SELECT json_exists('{\"a\":1}', '$.a')", "json_exists"),
     "url": ("SELECT url_extract_host('http://example.com/a')", "url_extract_host"),

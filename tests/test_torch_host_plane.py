@@ -369,3 +369,75 @@ def test_spiller_parks_largest_pages_and_loads_them_back(pages):
     assert sp.spill_count == 1 and sp.spilled_bytes == page_bytes(port)
     assert _rows(Spiller.load(out[1], device="cpu")) == _rows(port)
     assert Spiller().maybe_spill([port])[0] is port
+
+
+# --------------------------------------------------------------------------- #
+# digests (TDIGEST and QDIGEST: [cap, 128] float64 lanes) in the frames
+# --------------------------------------------------------------------------- #
+
+DIGEST_SCHEMA = ("bigint", "tdigest", "qdigest(bigint)")
+
+
+@pytest.fixture(scope="module")
+def digest_pages():
+    """Both packages' pages of a key and two digests (means then weights)."""
+    rng = np.random.default_rng(23)
+
+    def lanes():
+        d = np.zeros((N, 128))
+        d[:, :64] = rng.normal(50.0, 20.0, (N, 64))
+        d[:, 64:] = rng.integers(0, 6, (N, 64))
+        return d
+
+    datas = [rng.integers(0, 10**6, N), lanes(), lanes()]
+    valids = [rng.random(N) < 0.9 for _ in datas]
+    active = rng.random(N) < 0.8
+    cols = tuple(ref_page.Column.from_numpy(ref_types.parse_type(t), d, v, CAP)
+                 for t, d, v in zip(DIGEST_SCHEMA, datas, valids))
+    act = np.zeros(CAP, dtype=bool)
+    act[:N] = active
+    port = port_page.page_from_numpy([port_types.parse_type(t) for t in DIGEST_SCHEMA], datas,
+                                     valids, active, capacity=CAP, device="cpu")
+    return ref_page.Page(cols, jnp.asarray(act)), port
+
+
+@pytest.mark.parametrize("compress", [True, False])
+def test_digest_page_v1_bytes_identical(digest_pages, compress):
+    """A digest column travels as its lanes in the reference's v1 frame and
+    comes back with its lane axis (the rows decode as the digest's
+    summary)."""
+    ref, port = digest_pages
+    ours = serde.serialize_page(port, compress=compress)
+    assert ours == ref_serde.serialize_page(ref, compress=compress)
+    back = serde.deserialize_page(ours, device="cpu")
+    assert [tuple(c.data.shape) for c in back.columns] == [(CAP,), (CAP, 128), (CAP, 128)]
+    assert _rows(back) == _rows(port) == _rows(ref)
+    for a, b in zip(back.columns, port.columns):
+        assert torch.equal(a.data, b.data) and torch.equal(a.valid, b.valid)
+
+
+def test_digest_page_v2_partitions_bytes_identical(digest_pages):
+    ref, port = digest_pages
+    rng = np.random.default_rng(7)
+    dest = np.where(np.asarray(ref.active), rng.integers(0, 4, CAP), 4)
+    want, want_counts = ref_serde.serialize_page_partitions(_host_cols(ref, np.asarray), dest, 4)
+    got, got_counts = serde.serialize_page_partitions(_host_cols(port, lambda t: t.numpy()),
+                                                      dest, 4)
+    assert got == want
+    np.testing.assert_array_equal(got_counts, want_counts)
+    for frame in got:
+        lazy = serde.LazyPageFrame(frame)
+        mine = lazy.to_page(capacity=_pow2(lazy.nrows), device="cpu")
+        assert _rows(mine) == _rows(ref_serde.LazyPageFrame(frame).to_page())
+
+
+def test_digest_page_spills_and_loads_back(digest_pages):
+    from trino_tpu_torch.runtime.spiller import Spiller
+
+    _, port = digest_pages
+    sp = Spiller(trigger_bytes=1)
+    out = sp.maybe_spill([port])
+    assert sp.spill_count == 1 and out[0] is not port
+    back = Spiller.load(out[0], device="cpu")
+    for a, b in zip(back.columns, port.columns):
+        assert torch.equal(a.data, b.data) and torch.equal(a.valid, b.valid)

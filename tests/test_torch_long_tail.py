@@ -11,7 +11,8 @@ reference on the CPU.
   SF0.01 over memory tables through both runners, fusion on and off, with
   no aggregate left to the torch operators.
 - The re-sorting aggregates (``approx_distinct``, ``approx_percentile``)
-  beside a moment: still torch, one ``STAGES`` tick each.
+  beside a moment: in their kernels too (``tests/test_torch_resort_aggs.py``
+  holds them against the reference).
 
 Integers, strings, checksums and ``min_by``/``max_by`` (ties included)
 compare exactly. DOUBLE compares within ``tests/agg_tolerance.py``'s
@@ -457,15 +458,15 @@ RESORT_SQL = ("SELECT o_orderpriority, o_orderstatus, approx_distinct(l_partkey)
               "FROM orders JOIN lineitem ON o_orderkey = l_orderkey GROUP BY 1, 2 ORDER BY 1, 2")
 
 
-def test_resort_aggregates_stay_torch_beside_a_moment(port, monkeypatch):
+def test_resort_aggregates_run_in_kernels_beside_a_moment(port, monkeypatch):
     """``approx_distinct`` and ``approx_percentile`` re-sort a group's rows:
-    they keep the torch operators (one ``aggregate_torch`` tick each, their
-    counts through one-request ``segment_agg`` calls) beside a moment in
-    the kernel stage, with the reference's rows."""
+    they run in their kernels (``hll``, and ``segment_sort`` with
+    ``segment_agg``'s percentile) beside a moment in the kernel stage, no
+    ``aggregate_torch`` tick, with the reference's rows."""
     ref = _loaded(True).execute(RESORT_SQL)
     tap = _Tap(monkeypatch)
     PMK.reset_counts()
     got = port.execute(RESORT_SQL)
     assert PMK.LAUNCHES["aggregate"] == 1
-    assert PMK.STAGES["aggregate_torch"] == 2
+    assert PMK.STAGES["aggregate_torch"] == 0
     _assert_rows_within(got, ref, tap.tol, 2)

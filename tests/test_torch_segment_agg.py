@@ -198,11 +198,14 @@ def test_aggregate_phase_matches_reference(case, key_shape, epi):
         assert not got.columns[len(keys)].valid.numpy()[act].all()
 
 
-def test_aggregate_phase_runs_the_long_tail_in_torch():
-    """An aggregate outside the kernel's set (here ``approx_distinct``, a
-    re-sorting aggregate) keeps the executor's torch operators beside the
-    kernel's (here a sum, ``stddev`` and a bitwise reduction), one STAGES
-    tick each, and the rows still equal the reference's."""
+def test_aggregate_phase_runs_the_long_tail_in_torch(monkeypatch):
+    """An aggregate without a kernel plan keeps the executor's torch
+    operators beside the kernel's (here a sum, ``stddev`` and a bitwise
+    reduction), one STAGES tick each, and the rows still equal the
+    reference's. Every aggregate the fused path takes now has a plan
+    (``approx_distinct`` in ``hll``), so the re-sorting aggregates' plans
+    are withheld here to reach that tail."""
+    monkeypatch.setattr(pex, "_resort_plan", lambda *args: None)
     keys, symbols, rpage, ppage = _pages("two_keys", seed=3)
     (rp, rng_, rn), (pp, png, pn) = _grouped("two_keys", keys, symbols, rpage, ppage)
     out_cap = pex._round_capacity(int(pn), base=16)

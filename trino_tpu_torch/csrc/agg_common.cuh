@@ -53,6 +53,8 @@ struct AggRequest {
   int8_t pred;
   int8_t power;              // kSumFloat: 1 to 4
   int8_t transform;
+  int8_t resorted;           // reads segment_sort's columns: the page's activity is not
+                             // part of the weight (the sorted weight carries it)
 };
 
 struct AggRequestSet {
@@ -74,8 +76,13 @@ enum AggOp : int {
   kVarPop = 6, kVarSamp = 7, kStddevPop = 8, kStddevSamp = 9, kCovarPop = 10,
   kCovarSamp = 11, kCorr = 12, kRegrSlope = 13, kRegrIntercept = 14, kRegrAvgx = 15,
   kRegrAvgy = 16, kRegrSxx = 17, kRegrSyy = 18, kRegrSxy = 19, kRegrR2 = 20,
-  kSkewness = 21, kKurtosis = 22, kGeometricMean = 23, kEntropy = 24,
+  kSkewness = 21, kKurtosis = 22, kGeometricMean = 23, kEntropy = 24, kPercentile = 25,
+  kDigest = 26,
 };
+
+// The centroids of a digest output (spi/types.py TDIGEST_CENTROIDS): each
+// slot holds their 64 means, then their 64 weights.
+constexpr int kDigestCentroids = 64;
 
 struct AggOutput {
   const void* first_values;  // kFirst: the column gathered at the request's row
@@ -87,8 +94,11 @@ struct AggOutput {
   int reads[kMaxAggReads];   // the requests the op reads (hopper_kernels.AggOutput)
   int n_reads;
   int out_type;              // KeyType of data
-  int elem_bytes;            // kFirst
+  int elem_bytes;            // kFirst, kPercentile
   int a_float;               // request reads[0] holds a double
+  int values_type;           // kDigest: KeyType of first_values
+  int quantiles_type;        // kPercentile: KeyType of quantiles
+  const void* quantiles;     // kPercentile: the quantile column, read at the request's row
 };
 
 struct AggOutputSet {
@@ -244,7 +254,7 @@ __device__ __forceinline__ double float_row(const AggRequest& q, int64_t i) {
 // ignored otherwise, and a row of no group passes none).
 __device__ __forceinline__ uint64_t contribution(const AggRequest& q, const bool* active,
                                                  int64_t i, const uint64_t* extreme = nullptr) {
-  bool w = active[i];
+  bool w = q.resorted ? true : active[i];
   if (q.filter != nullptr) w = w && q.filter[i] && q.filter_valid[i];
   if (q.valid != nullptr && q.kind != hopper::kChecksum) w = w && q.valid[i];
   if (q.valid2 != nullptr) w = w && q.valid2[i];
@@ -410,12 +420,41 @@ __device__ __forceinline__ double moment(int op, int64_t cnt, const double* s, b
   }
 }
 
-// Output ``out`` of slot g from the requests' values v[] (n rows): the
-// finishing of executor._eval_aggregate.
+// kPercentile: the sorted values (first_values, segment_sort's) at the
+// group's start plus the rank of quantile q among its cnt participants,
+// floor(q * max(cnt - 1, 0)) clamped to [0, max(cnt - 1, 0)]; q is the
+// quantile column at row ``row`` (times its divisor's reciprocal, as torch
+// divides by a scalar on the card). A float-to-int conversion saturates and
+// takes NaN to 0, as torch's cast on the card does.
+__device__ __forceinline__ void finish_percentile(const AggOutput& out, int64_t row,
+                                                  int64_t cnt, int64_t g, int64_t n,
+                                                  int64_t start) {
+  const int64_t at = row < 0 ? 0 : (row > n - 1 ? n - 1 : row);
+  const int64_t top = cnt > 1 ? cnt - 1 : 0;
+  double q = load_double(out.quantiles_type, out.quantiles, at);
+  if (out.divisor != 1.0) q = dmul(q, 1.0 / out.divisor);
+  int64_t idx = static_cast<int64_t>(floor(dmul(q, static_cast<double>(top))));
+  idx = idx < 0 ? 0 : (idx > top ? top : idx);
+  int64_t pos = start + idx;
+  pos = pos < 0 ? 0 : (pos > n - 1 ? n - 1 : pos);
+  copy_bytes(out.first_values, pos, out.data, g, out.elem_bytes);
+  out.valid[g] = cnt > 0;
+}
+
+// Output ``out`` of slot g from the requests' values v[] (n rows, the
+// group starting at row ``start``): the finishing of
+// executor._eval_aggregate. A digest is written by its own pass
+// (segment_agg.cu's agg_digest_kernel).
 __device__ __forceinline__ void finish_output(const AggOutput& out, const uint64_t* v,
-                                              int64_t g, int64_t n) {
+                                              int64_t g, int64_t n, int64_t start) {
   const uint64_t a = v[out.reads[0]];
-  if (out.op >= hopper::kVarPop) {
+  if (out.op == hopper::kDigest) return;
+  if (out.op == hopper::kPercentile) {
+    finish_percentile(out, static_cast<int64_t>(a), static_cast<int64_t>(v[out.reads[1]]), g,
+                      n, start);
+    return;
+  }
+  if (out.op >= hopper::kVarPop && out.op <= hopper::kEntropy) {
     double s[kMaxAggReads - 1];
     for (int k = 1; k < out.n_reads; ++k) {
       s[k - 1] = out.reads[k] < 0 ? 0.0 : as_double(v[out.reads[k]]);

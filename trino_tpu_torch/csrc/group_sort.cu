@@ -74,26 +74,12 @@
 namespace hopper {
 
 // a value and a validity per key, then ~active
-constexpr int kMaxFields = 2 * kMaxWideKeys + 1;
+static_assert(kMaxFields == 2 * kMaxWideKeys + 1, "radix_pass.cuh's Composite holds the fields");
 
-enum FieldKind : int { kValueField = 0, kValidField = 1, kInactiveField = 2 };
-
-// Bits [pos, pos + bits) of a composite: for kValueField the key's
+// The kinds of a Field (radix_pass.cuh): for kValueField the key's
 // normalized value minus ``offset`` (0 where NULL), for kValidField its
 // validity, for kInactiveField the row's inactivity.
-struct Field {
-  int kind;
-  int key;
-  int64_t offset;
-  int bits;
-  int pos;
-};
-
-struct Composite {
-  Field field[kMaxFields];
-  int n_fields;
-  int bits;
-};
+enum FieldKind : int { kValueField = 0, kValidField = 1, kInactiveField = 2 };
 
 // A carried column that is an integer or bool group key, written from the
 // one sorted composite: where valid, the key's value field plus its offset

@@ -55,6 +55,28 @@
 
 namespace hopper {
 
+// A sort key packed from fields into one 64-bit composite (group_sort.cu's
+// and segment_sort.cu's compose passes write them; the one-sweep passes read
+// only ``bits``): field f holds bits [pos, pos + bits) of the composite, of
+// a kind that the composing file defines (``key`` names its column,
+// ``offset`` is subtracted from its value). The wrappers fill these as
+// ctypes structures (hopper_kernels._Composite).
+constexpr int kMaxFields = 17;
+
+struct Field {
+  int kind;
+  int key;
+  int64_t offset;
+  int bits;
+  int pos;
+};
+
+struct Composite {
+  Field field[kMaxFields];
+  int n_fields;
+  int bits;
+};
+
 // Columns per perm_gather launch, and one column of it: dst[i] =
 // src[perm[i]] for whole elements of 1, 2, 4 or 8 bytes, and the same for
 // validity unless src_valid is null.

@@ -8,9 +8,11 @@
 // covar, corr and regr, skewness, kurtosis, geometric_mean, entropy, the
 // bitwise aggregates, checksum and min_by/max_by), and the epi_spec stage
 // at the end of that body (its _partition_dest call) where every exchange
-// key is a group key. The re-sorting aggregates of _aggregate_impl (distinct
-// counts, approx_distinct, approx_percentile) run as the port's torch
-// operators, their counts in one-request calls of this kernel.
+// key is a group key. Of the re-sorting aggregates (distinct_count_fn,
+// percentile_fn, tdigest_fn) it runs what follows segment_sort.cu's re-sort
+// of each group's rows: the exact distinct count (a count of the weighted
+// run heads), the percentile's rank gather and the digest's centroids;
+// hll.cu takes approx_distinct's HyperLogLog path.
 //
 // segment_agg, bit-identical to hopper_kernels.segment_agg_plain (float64
 // sums within rounding: they are added in another order), on n rows and
@@ -39,6 +41,14 @@
 //   (partition_hash.cuh), n_parts where the group does not exist. The data
 //   of a slot past num_groups is left to the kernel (its validity and the
 //   keys' validity are false).
+//   A percentile output gathers segment_sort's sorted values at the
+//   group's start plus the quantile's rank among its participants; a
+//   digest output holds, per slot, the 64 centroids of the group's
+//   participants (segment_sort put them first in the group, in value
+//   order): centroid k takes the participants of rank r whose bucket
+//   clip(int((0.5 + asin(clip(2 q - 1, -1, 1)) / pi) * 64), 0, 63), q =
+//   (r + 0.5) / count, is k, its mean and its count (float64), r counted
+//   from the group's start.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. Each request's columns read
 // once, new_group read once, starts written and read once, the keys' bytes
@@ -71,6 +81,13 @@
 // rows are served by a second round: after the first reduce and span, a
 // resolve pass (one thread a slot) writes each group's extreme, then a
 // second reduce and span serve the match requests alone (eight launches).
+// A digest output adds one launch after the finish: one block a slot finds
+// the 64 bucket boundaries among the group's participants by binary search
+// (the bucket never decreases with the rank), then each warp sums its
+// centroids' contiguous runs of values lane by lane and across the lanes in
+// one fixed tree, so a digest gives the same bits in every run; asin is
+// CUDA's, as torch's kernel on the card calls it, and every other
+// operation is rounded on its own.
 
 #include <atomic>
 #include <cstdint>
@@ -448,9 +465,93 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
       v[r] = slot_value(reqs, r, g, sp, out_cap, n_tiles, res, head, tail);
     }
     for (int o = 0; o < outs.n; ++o) {
-      hopper::agg::finish_output(outs.out[o], v, g, n);
+      hopper::agg::finish_output(outs.out[o], v, g, n, sp.start);
     }
   }
+}
+
+// The bucket of the participant at row p of a group that starts at row
+// ``start`` and has ``cnt`` participants (executor's tdigest_fn): each
+// operation rounded on its own, the division by pi a product with its
+// reciprocal (torch divides by a scalar so on the card).
+__device__ __forceinline__ int digest_bucket(int64_t p, int64_t start, double cnt) {
+  // the rounding helpers, not CUDA's dadd/dmul of the global namespace
+  using hopper::agg::dadd;
+  using hopper::agg::ddiv;
+  using hopper::agg::dmul;
+  using hopper::agg::dsub;
+  const double q = ddiv(dadd(static_cast<double>(p - start), 0.5), cnt);
+  double t = dsub(dmul(2.0, q), 1.0);
+  t = t < -1.0 ? -1.0 : (t > 1.0 ? 1.0 : t);
+  const double scale = dadd(0.5, dmul(asin(t), 1.0 / 3.141592653589793));
+  const int b = static_cast<int>(dmul(scale, static_cast<double>(hopper::kDigestCentroids)));
+  return b < 0 ? 0 : (b > hopper::kDigestCentroids - 1 ? hopper::kDigestCentroids - 1 : b);
+}
+
+// One block a slot: the digest output ``out`` (its count request
+// out.reads[0]) from the sorted values, whose participants are the first
+// rows of the group's rows (from row 0 for the first group, whose rows
+// before its start are never weighted).
+__global__ void __launch_bounds__(kThreads)
+agg_digest_kernel(AggCombine reqs, AggOutput out, int64_t n, int64_t out_cap, int64_t n_tiles,
+                  const int64_t* __restrict__ base, const int64_t* __restrict__ starts,
+                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
+                  const uint64_t* __restrict__ tail) {
+  using hopper::agg::dadd;
+  using hopper::agg::ddiv;
+  using hopper::agg::dmul;
+  constexpr int kC = hopper::kDigestCentroids;
+  __shared__ int64_t bound[kC + 1];
+  const int64_t g = blockIdx.x;
+  const SlotSpan sp = slot_span(g, base[n_tiles], n, starts);
+  const int64_t cnt = sp.real ? static_cast<int64_t>(
+                                    slot_value(reqs, out.reads[0], g, sp, out_cap, n_tiles, res,
+                                               head, tail))
+                              : 0;
+  double* data = static_cast<double*>(out.data) + g * 2 * kC;
+  if (cnt <= 0) {
+    for (int k = threadIdx.x; k < 2 * kC; k += kThreads) data[k] = 0.0;
+    if (threadIdx.x == 0) out.valid[g] = false;
+    return;
+  }
+  const int64_t begin = g == 0 ? 0 : sp.start;
+  const double n_g = static_cast<double>(cnt);
+  if (threadIdx.x <= kC) {
+    // boundary k: the first participant whose bucket is k or more
+    const int k = threadIdx.x;
+    int64_t lo = begin, hi = begin + cnt;
+    if (k > 0 && k < kC) {
+      while (lo < hi) {
+        const int64_t mid = lo + (hi - lo) / 2;
+        if (digest_bucket(mid, sp.start, n_g) >= k) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+        }
+      }
+    }
+    bound[k] = k == kC ? begin + cnt : lo;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int k = warp; k < kC; k += kWarps) {
+    const int64_t b0 = bound[k], b1 = bound[k + 1];
+    double s = 0.0;
+    for (int64_t p = b0 + lane; p < b1; p += 32) {
+      double x = load_double(out.values_type, out.first_values, p);
+      if (out.divisor != 1.0) x = dmul(x, 1.0 / out.divisor);
+      s = dadd(s, x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s = dadd(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) {
+      const int64_t c = b1 - b0;
+      data[k] = c > 0 ? ddiv(s, static_cast<double>(c)) : 0.0;
+      data[kC + k] = static_cast<double>(c);
+    }
+  }
+  if (threadIdx.x == 0) out.valid[g] = true;
 }
 
 }  // namespace
@@ -534,5 +635,13 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
       comb, *outs, *keys, n, out_cap, n_tiles, base, static_cast<const int64_t*>(num_groups),
       st, res, head, tail, static_cast<bool*>(group_exists), static_cast<int32_t*>(dest));
   ++g_agg_stream_ops;
-  return static_cast<int>(cudaGetLastError());
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  for (int o = 0; o < outs->n; ++o) {
+    if (outs->out[o].op != hopper::kDigest) continue;
+    agg_digest_kernel<<<static_cast<unsigned>(out_cap), kThreads, 0, s>>>(
+        comb, outs->out[o], n, out_cap, n_tiles, base, st, res, head, tail);
+    ++g_agg_stream_ops;
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

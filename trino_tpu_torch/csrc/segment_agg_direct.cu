@@ -214,7 +214,7 @@ direct_finish_kernel(AggCombine reqs, AggOutputSet outs, DirectKeySet keys, int6
     store_value(keys.dst[k], keys.col[k].type, g, static_cast<uint64_t>(code), false);
     keys.dst_valid[k][g] = code < d - 1;
   }
-  for (int o = threadIdx.x; o < outs.n; o += kThreads) finish_output(outs.out[o], v + 1, g, n);
+  for (int o = threadIdx.x; o < outs.n; o += kThreads) finish_output(outs.out[o], v + 1, g, n, 0);
 }
 
 }  // namespace

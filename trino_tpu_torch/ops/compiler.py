@@ -620,6 +620,38 @@ class _Compiler:
 
         return avgc_fn
 
+    def _compile_value_at_quantile(self, expr: Call, arg_fns) -> Compiled:
+        """``value_at_quantile(digest, q)`` over the digest's lanes ([means...,
+        weights...] a row): the mean of the first centroid whose cumulative
+        weight reaches ``clip(q, 0, 1)`` of the total, NULL where none does;
+        rounded, and rescaled to a decimal's storage, for an integral or
+        decimal element (the reference's TDigest.valueAt)."""
+        q_type, out_type = expr.args[1].type, expr.type
+        out_scale = 10 ** out_type.scale if isinstance(out_type, DecimalType) else None
+        round_out = is_integral(out_type)
+
+        def vaq_fn(env: Env) -> CVal:
+            td, q = arg_fns[0](env), arg_fns[1](env)
+            kc = td.data.shape[1] // 2
+            means, wts = td.data[:, :kc], td.data[:, kc:]
+            total = wts.sum(-1)
+            qv = q.data.to(torch.float64)
+            if isinstance(q_type, DecimalType):
+                qv = qv / float(10**q_type.scale)
+            target = qv.clamp(0.0, 1.0) * total
+            okb = (torch.cumsum(wts, -1) >= target[:, None]) & (wts > 0)
+            idx = okb.to(torch.int8).argmax(-1)
+            val = torch.gather(means, 1, idx[:, None])[:, 0]
+            if out_scale is not None:
+                val = torch.round(val * out_scale)
+            elif round_out:
+                val = torch.round(val)
+            if out_scale is not None or round_out:
+                val = val.to(out_type.torch_dtype)
+            return CVal(val, td.valid & q.valid & okb.any(-1))
+
+        return vaq_fn
+
     def _compile_call(self, expr: Call) -> Tuple[Compiled, Optional[Dictionary]]:
         name = expr.name
         if name in HIGHER_ORDER_FUNCTIONS:
@@ -680,6 +712,8 @@ class _Compiler:
                 return CVal(a.data, a.valid & ~(same & a.valid & b.valid))
 
             return nullif_fn, None
+        if name == "value_at_quantile":
+            return self._compile_value_at_quantile(expr, arg_fns), None
         if name == "$avg_combine":
             return self._compile_avg_combine(expr, arg_fns), None
         if name.startswith("$") and name.endswith("_combine"):

@@ -4,7 +4,8 @@ The port's counterpart of ``trino_tpu.ops.pallas_kernels`` and of the
 Pallas bodies of ``trino_tpu.ops.megakernels`` (the hash-join probe and
 expansion and the stages after it: the fused projection's expression
 program, the presorted grouping and the direct aggregation; the group sort,
-the sort-path aggregation, the repartition epilogue and the exchange
+the sort-path aggregation with its re-sort of each group's rows and its
+HyperLogLog registers, the repartition epilogue and the exchange
 destination stage). The kernels are
 CUDA C++ for ``sm_90a`` in ``trino_tpu_torch/csrc/``; :func:`build` compiles
 them with ``nvcc`` into one shared library with a plain C interface (keyed on
@@ -52,6 +53,7 @@ LAUNCHES = {
     "hash_probe": 0, "hash_expand": 0, "segment_agg": 0, "group_sort": 0,
     "partition_epilogue": 0, "partition_dest": 0,
     "expr_program": 0, "presorted_group": 0, "segment_agg_direct": 0,
+    "segment_sort": 0, "hll": 0,
 }
 
 _LIB = None
@@ -186,6 +188,14 @@ def bind(path: Path):
     lib.group_sort_scratch_words.argtypes = [i64, i32]
     for name in ("group_sort_scratch_words", *(f"{k}_stream_ops" for k in _STREAM_OPS)):
         getattr(lib, name).restype = i64
+    weights = ctypes.POINTER(_WeightSet)
+    lib.segment_sort_stats.argtypes = [ptr, ptr, i32, weights, i64, ptr, ptr, ptr]
+    lib.segment_sort_compose.argtypes = [ptr, ptr, i32, weights, i64, comp, i32] + [ptr] * 3 + [
+        i64, ptr]
+    lib.segment_sort_finish.argtypes = [ptr, i32, i32, weights, i64, ptr, ptr, i32] + [ptr] * 4
+    lib.hll.argtypes = [ptr, ptr, i32, weights, i64, i64, ctypes.c_float] + [ptr] * 5
+    for name in ("segment_sort_stats", "segment_sort_compose", "segment_sort_finish", "hll"):
+        getattr(lib, name).restype = i32
     lib.partition_epilogue.argtypes = (
         [ctypes.POINTER(_WideKeySet), ptr, ptr, i64, i32] + [ptr] * 6
         + [gather, i32, events, ptr]
@@ -213,7 +223,12 @@ def bind(path: Path):
                        ("presorted_group_tile_rows", PRESORTED_TILE_ROWS),
                        ("presorted_group_state_head", _PRESORTED_STATE_HEAD),
                        ("segment_agg_direct_max_groups", DIRECT_MAX_GROUPS),
-                       ("segment_agg_direct_max_keys", DIRECT_MAX_KEYS)):
+                       ("segment_agg_direct_max_keys", DIRECT_MAX_KEYS),
+                       ("segment_sort_max_weights", SEGMENT_SORT_MAX_WEIGHTS),
+                       ("segment_sort_tile_rows", SEGMENT_TILE_ROWS),
+                       ("segment_sort_max_composites", _SORT_MAX_COMPOSITES),
+                       ("hll_bits", K.HLL_BITS),
+                       ("hll_max_weights", SEGMENT_SORT_MAX_WEIGHTS)):
         fn = getattr(lib, name)
         fn.restype = i32
         if fn() != want:
@@ -774,12 +789,15 @@ _AGG_OPS = {"value": 0, "avg_decimal": 1, "avg_double": 2, "bool_and": 3, "bool_
             "covar_pop": 10, "covar_samp": 11, "corr": 12, "regr_slope": 13,
             "regr_intercept": 14, "regr_avgx": 15, "regr_avgy": 16, "regr_sxx": 17,
             "regr_syy": 18, "regr_sxy": 19, "regr_r2": 20, "skewness": 21, "kurtosis": 22,
-            "geometric_mean": 23, "entropy": 24}
+            "geometric_mean": 23, "entropy": 24, "percentile": 25, "digest": 26}
 _AGG_PREDS = {None: 0, "nonzero": 1, "zero": 2}
 _AGG_TRANSFORMS = {None: 0, "log": 1, "clamp0": 2, "xlog2x": 3, "order_key": 4}
 _BITWISE_IDENTITY = {"band": -1, "bor": 0, "bxor": 0}
 # what a NULL row adds to a checksum
 CHECKSUM_NULL = 0x9E3779B9
+# the centroids of a digest output (kDigestCentroids; spi/types.py
+# TDIGEST_CENTROIDS): each slot holds their means, then their weights
+DIGEST_CENTROIDS = 64
 # the finishing ops of the variance family and of the two-column moments
 _VARIANCE_OPS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp")
 _TWO_COLUMN_OPS = ("covar_pop", "covar_samp", "corr", "regr_slope", "regr_intercept",
@@ -808,7 +826,11 @@ class AggRequest:
     ``order_key`` min or max: ``min_by``/``max_by``'s row). A row is
     weighted where the page's activity, ``filt & filt_valid`` (an
     aggregate FILTER), ``valid``, ``valid2`` and ``pred`` on the value
-    (``"nonzero"`` or ``"zero"``) all hold; None leaves a term out."""
+    (``"nonzero"`` or ``"zero"``) all hold; None leaves a term out. A
+    ``resorted`` count reads columns that :func:`segment_sort` re-sorted
+    within each group (the exact distinct count: its sorted weight and
+    run heads): their weight carries each row's activity, so the page's
+    activity at the row's new position is not part of it."""
 
     kind: str
     values: Optional[torch.Tensor] = None
@@ -824,9 +846,10 @@ class AggRequest:
     divisor2: float = 1.0
     lut: Optional[torch.Tensor] = None
     ref: int = -1
+    resorted: bool = False
 
     def weight(self, active: torch.Tensor) -> torch.Tensor:
-        w = active
+        w = torch.ones_like(active) if self.resorted else active
         if self.filt is not None:
             w = w & (self.filt & self.filt_valid)
         if self.valid is not None and self.kind != "checksum":
@@ -847,7 +870,7 @@ class AggRequest:
         valids = tuple(sorted((ptr(self.valid), ptr(self.valid2)), key=str))
         return (self.kind, ptr(self.values), valids, ptr(self.filt), ptr(self.filt_valid),
                 ptr(self.values2), ptr(self.lut), self.pred, self.divisor, self.divisor2,
-                self.power, self.transform, self.ref)
+                self.power, self.transform, self.ref, self.resorted)
 
 
 @dataclass(frozen=True, eq=False)
@@ -871,7 +894,20 @@ class AggOutput:
       x^2, sum y^2)``, -1 where the op needs none;
     - ``skewness`` and ``kurtosis`` read ``(count, sum x, ..., sum x^3)``
       and ``(..., sum x^4)``, ``geometric_mean`` ``(count, sum log x)``,
-      ``entropy`` ``(count, sum max(x, 0), sum c log2 c)``.
+      ``entropy`` ``(count, sum max(x, 0), sum c log2 c)``;
+    - ``percentile`` reads ``(a, b)``: a ``last`` request's row, where it
+      reads the quantile q in ``quantiles`` (as a double, over
+      ``divisor``), and the count ``b`` of the group's participants; it
+      gathers ``values`` (:func:`segment_sort`'s sorted column, the
+      participants first) at the group's start plus ``clamp(floor(q *
+      max(b - 1, 0)), 0, max(b - 1, 0))``, valid where ``b`` is positive;
+    - ``digest`` reads ``(b,)``, the count of the group's participants,
+      and writes a ``[slots, 2 * DIGEST_CENTROIDS]`` float64 output: from
+      ``values`` (sorted with the participants first; ``values_valid`` its
+      sorted weight) over ``divisor``, the mean and the weight of each
+      centroid, the participants of rank r in the group whose bucket
+      ``clip(int((0.5 + asin(clip(2 q - 1, -1, 1)) / pi) * 64), 0, 63)``,
+      ``q = (r + 0.5) / b``, is its index; valid where ``b`` is positive.
 
     Each is finished as ``executor._eval_aggregate`` finished it, operation
     by operation."""
@@ -882,6 +918,7 @@ class AggOutput:
     divisor: float = 1.0
     values: Optional[torch.Tensor] = None
     values_valid: Optional[torch.Tensor] = None
+    quantiles: Optional[torch.Tensor] = None
 
 
 def _fsum_rows(req: AggRequest, w: torch.Tensor) -> torch.Tensor:
@@ -1033,10 +1070,57 @@ def _moments(op: str, r, out_cap: int):
     raise ValueError(f"unknown aggregate output {op!r}")
 
 
-def finish_output(out: AggOutput, results, out_cap: int):
+def _percentile(out: AggOutput, r, starts: torch.Tensor):
+    """The ``percentile`` op (executor's percentile_fn): the rank of the
+    group's quantile among its participants, gathered from the sorted
+    values."""
+    row, nq = r
+    n = out.values.shape[0]
+    q = out.quantiles[row.clamp(0, n - 1)].to(torch.float64)
+    if out.divisor != 1.0:
+        q = q / out.divisor
+    top = (nq - 1).clamp(min=0)
+    idx = torch.minimum(torch.floor(q * top.to(torch.float64)).to(torch.int64).clamp(min=0),
+                        top)
+    return out.values[(starts + idx).clamp(0, n - 1)].to(out.dtype), nq > 0
+
+
+def _digest(out: AggOutput, nonempty: torch.Tensor, starts: torch.Tensor, gid: torch.Tensor,
+            out_cap: int):
+    """The ``digest`` op (executor's tdigest_fn): each participant's bucket
+    from its rank in the group, then one sum of the values and one of the
+    weights per (group, bucket)."""
+    kc = DIGEST_CENTROIDS
+    w2 = out.values_valid
+    x = out.values.to(torch.float64)
+    if out.divisor != 1.0:
+        x = x / out.divisor
+    n = x.shape[0]
+    rank = torch.arange(n, dtype=torch.int64, device=x.device) - starts[gid]
+    n_g = nonempty[gid].clamp(min=1).to(torch.float64)
+    q = (rank.to(torch.float64) + 0.5) / n_g
+    scale = 0.5 + torch.asin(torch.clamp(2.0 * q - 1.0, -1.0, 1.0)) / math.pi
+    bucket = (scale * kc).to(torch.int32).clamp(0, kc - 1)
+    seg = torch.where(w2, gid * kc + bucket, out_cap * kc)
+    sums = torch.zeros(out_cap * kc + 1, dtype=torch.float64, device=x.device)
+    sums.index_add_(0, seg, torch.where(w2, x, 0.0))
+    cnts = torch.zeros(out_cap * kc + 1, dtype=torch.float64, device=x.device)
+    cnts.index_add_(0, seg, w2.to(torch.float64))
+    sums, cnts = sums[:-1].reshape(out_cap, kc), cnts[:-1].reshape(out_cap, kc)
+    means = torch.where(cnts > 0, sums / cnts.clamp(min=1.0), 0.0)
+    return torch.cat([means, cnts], dim=-1), nonempty > 0
+
+
+def finish_output(out: AggOutput, results, out_cap: int, starts=None, gid=None):
     """An output's (data, valid) from the requests' results: the finishing
-    of ``executor._eval_aggregate``."""
+    of ``executor._eval_aggregate``. ``percentile`` and ``digest`` read each
+    group's first row ``starts`` (:func:`segment_agg_plain`'s), and the
+    digest each row's group index ``gid``."""
     r = [None if k < 0 else results[k] for k in out.reads]
+    if out.op == "percentile":
+        return _percentile(out, r, starts)
+    if out.op == "digest":
+        return _digest(out, r[0], starts, gid, out_cap)
     if out.op not in ("value", "avg_decimal", "avg_double", "bool_and", "bool_or", "first"):
         return _moments(out.op, r, out_cap)
     a = r[0]
@@ -1099,7 +1183,7 @@ def segment_agg_plain(new_group, num_groups, out_cap: int, active, key_cols, req
         return K.direct_group_first(vals, w & in_group, gid, out_cap)
 
     results = run_requests(requests, active, reduce_fn, first_fn, lambda g: g[gid])
-    outs = [finish_output(o, results, out_cap) for o in outputs]
+    outs = [finish_output(o, results, out_cap, starts, gid) for o in outputs]
     dest_out = None
     if dest is not None:
         positions, luts, n_parts = dest
@@ -1116,7 +1200,7 @@ class _AggRequest(ctypes.Structure):
         ("divisor2", ctypes.c_double), ("identity", ctypes.c_int64), ("lut_len", ctypes.c_int32),
         ("ref", ctypes.c_int32), ("type", ctypes.c_int8), ("type2", ctypes.c_int8),
         ("kind", ctypes.c_int8), ("pred", ctypes.c_int8), ("power", ctypes.c_int8),
-        ("transform", ctypes.c_int8),
+        ("transform", ctypes.c_int8), ("resorted", ctypes.c_int8),
     ]
 
 
@@ -1130,6 +1214,8 @@ class _AggOutput(ctypes.Structure):
         ("data", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("divisor", ctypes.c_double),
         ("op", ctypes.c_int), ("reads", ctypes.c_int * AGG_MAX_READS), ("n_reads", ctypes.c_int),
         ("out_type", ctypes.c_int), ("elem_bytes", ctypes.c_int), ("a_float", ctypes.c_int),
+        ("values_type", ctypes.c_int), ("quantiles_type", ctypes.c_int),
+        ("quantiles", ctypes.c_void_p),
     ]
 
 
@@ -1175,6 +1261,8 @@ def _request_plan(name: str, req: AggRequest, at: int, requests, n: int, dev):
         raise ValueError(f"{name}: power {req.power} outside [1, 4]")
     if req.transform == "order_key" and kind not in ("min", "max", "match_last"):
         raise ValueError(f"{name}: order_key transforms a min, max or match_last")
+    if req.resorted and kind != "count":
+        raise ValueError(f"{name}: a resorted request is a count")
     if req.lut is not None:
         if kind != "checksum" or v.dtype.is_floating_point:
             raise ValueError(f"{name}: a LUT translates a checksum's dictionary codes")
@@ -1227,6 +1315,20 @@ def _check_output(name: str, o: AggOutput, requests, plans, active) -> None:
             not -1 <= k < len(requests) for k in reads):
         raise ValueError(f"{name}: an output names a request that is not there")
     kinds = [None if k < 0 else requests[k].kind for k in reads]
+    if o.op in ("percentile", "digest"):
+        want = ["last", "count"] if o.op == "percentile" else ["count"]
+        if kinds != want or o.values is None or o.values.ndim != 1:
+            raise ValueError(f"{name}: {o.op} reads {tuple(want)} and gathers 1-D sorted values")
+        _check_request_col(name, o.values, _KEY_TYPES, n, dev)
+        if o.op == "percentile":
+            _check_request_col(name, o.quantiles, _KEY_TYPES, n, dev)
+            if o.quantiles is None or o.values.dtype != o.dtype:
+                raise TypeError(f"{name}: percentile keeps its values' type and reads quantiles")
+        else:
+            _check_request_col(name, o.values_valid, (torch.bool,), n, dev)
+            if o.values_valid is None or o.dtype != torch.float64:
+                raise TypeError(f"{name}: a digest is float64 and reads its sorted weight")
+        return
     if o.op in _MOMENT_READS:
         count, sparse = _MOMENT_READS[o.op]
         if (len(reads) != count or kinds[0] != "count" or o.dtype != torch.float64
@@ -1255,14 +1357,17 @@ def _check_output(name: str, o: AggOutput, requests, plans, active) -> None:
 def _agg_plans(name: str, requests, outputs, active: torch.Tensor, match: bool = True):
     """The C plan of each request (:func:`_request_plan`), after the checks
     that the requests and outputs are a set the aggregation kernels take
-    (``match``: whether ``match_last`` requests are); raises on what they
-    do not."""
+    (``match``: whether the sort path's own are: ``match_last`` and
+    ``resorted`` requests, ``percentile`` and ``digest`` outputs); raises
+    on what they do not."""
     n, dev = active.shape[0], active.device
     if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
         raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
                          f"{SEGMENT_AGG_MAX_OUTPUTS} outputs a call")
-    if not match and any(r.kind == "match_last" for r in requests):
-        raise ValueError(f"{name}: takes no match_last request")
+    if not match and any(r.kind == "match_last" or r.resorted for r in requests):
+        raise ValueError(f"{name}: takes no match_last or resorted request")
+    if not match and any(o.op in ("percentile", "digest") for o in outputs):
+        raise ValueError(f"{name}: takes no percentile or digest output")
     plans = [_request_plan(name, r, i, requests, n, dev) for i, r in enumerate(requests)]
     for o in outputs:
         _check_output(name, o, requests, plans, active)
@@ -1286,12 +1391,13 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
         c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
         c.type2 = _KEY_TYPES[r.values2.dtype] if r.values2 is not None else 0
         c.pred, c.power, c.ref = _AGG_PREDS[r.pred], r.power, r.ref
-        c.transform = _AGG_TRANSFORMS[r.transform]
+        c.transform, c.resorted = _AGG_TRANSFORMS[r.transform], int(r.resorted)
     os_ = _AggOutputSet()
     os_.n = len(outputs)
     outs = []
     for c, o in zip(os_.out, outputs):
-        data = torch.empty(slots, dtype=o.dtype, device=dev)
+        lanes = (2 * DIGEST_CENTROIDS,) if o.op == "digest" else ()
+        data = torch.empty((slots,) + lanes, dtype=o.dtype, device=dev)
         valid = torch.empty(slots, dtype=torch.bool, device=dev)
         outs.append((data, valid))
         c.data, c.valid, c.divisor = data.data_ptr(), valid.data_ptr(), float(o.divisor)
@@ -1302,6 +1408,12 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
         if o.op == "first":
             c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
             c.first_valid = ptr(o.values_valid)
+        elif o.op in ("percentile", "digest"):
+            c.first_values, c.elem_bytes = o.values.data_ptr(), o.values.element_size()
+            c.values_type = _KEY_TYPES[o.values.dtype]
+            if o.op == "percentile":
+                c.quantiles, c.quantiles_type = o.quantiles.data_ptr(), _KEY_TYPES[
+                    o.quantiles.dtype]
     return rs, os_, outs
 
 
@@ -1325,11 +1437,13 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     ``n_parts`` past num_groups) or None. The slots past ``num_groups`` are
     inactive rows: their data is left unspecified by the kernel, which
     gives each request its identity there. Float64 sums add in another
-    order than the plain cumsum form; every other value is bit-identical.
+    order than the plain cumsum form (a digest's centroid sums too); every
+    other value is bit-identical.
     On CUDA tensors the kernel is five launches (count, scan, reduce, span
     and finish; four without requests), eight with a ``match_last``
     request (a resolve pass writes each group's extreme, then a second
-    reduce and span serve the match requests), over tiles of
+    reduce and span serve the match requests), and one more for each
+    ``digest`` output, over tiles of
     :data:`SEGMENT_TILE_ROWS` rows and no memset; ``out_cap`` must hold
     every group. A division by a scalar there is a product with its
     reciprocal, as torch divides by a scalar on the card."""
@@ -1620,14 +1734,17 @@ def _decode_plan(key_cols, payload_cols, stats, plan):
 
 # the kernels whose C entry points count their stream operations
 _STREAM_OPS = ("hash_probe", "group_sort", "segment_agg", "partition_epilogue",
-               "partition_dest", "expr_program", "presorted_group", "segment_agg_direct")
+               "partition_dest", "expr_program", "presorted_group", "segment_agg_direct",
+               "segment_sort", "hll")
 
 
 def stream_ops(name: str) -> int:
     """Kernel launches and memsets that ``name``'s kernels (one of
     ``hash_probe``, ``group_sort``, ``segment_agg``, ``partition_epilogue``,
-    ``partition_dest``, ``expr_program``, ``presorted_group`` and
-    ``segment_agg_direct``) have issued since the library was loaded."""
+    ``partition_dest``, ``expr_program``, ``presorted_group``,
+    ``segment_agg_direct``, ``segment_sort`` and ``hll``) have issued since
+    the library was loaded (``segment_sort``'s passes count as
+    ``group_sort``'s: they are its ``group_sort_passes``)."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 
@@ -1736,6 +1853,194 @@ def group_sort(key_cols, payload_cols, active: torch.Tensor, *, phase_events=Non
         mark("finish")
     LAUNCHES["group_sort"] += 1
     return outs, active_out, new_group, num_groups
+
+
+# --------------------------------------------------------------------------- #
+# the re-sorting aggregates (the cosorts and the HyperLogLog registers of
+# executor._aggregate_impl inside megakernels.aggregate_phase): segment_sort
+# and hll
+# --------------------------------------------------------------------------- #
+
+# the most bool columns whose AND is a row's weight (kMaxWeights in
+# csrc/segment_rows.cuh), and the most composites of a segment_sort key
+# (kMaxComps in csrc/segment_sort.cu)
+SEGMENT_SORT_MAX_WEIGHTS = 6
+_SORT_MAX_COMPOSITES = 3
+# segment_sort's field kinds (SortField in csrc/segment_sort.cu)
+_SORT_VALUE, _SORT_UNWEIGHTED, _SORT_GROUP = 0, 1, 2
+
+
+class _WeightSet(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p * SEGMENT_SORT_MAX_WEIGHTS), ("n", ctypes.c_int)]
+
+
+def _weight_set(name: str, weights, n: int, dev) -> _WeightSet:
+    if not 1 <= len(weights) <= SEGMENT_SORT_MAX_WEIGHTS:
+        raise ValueError(f"{name}: 1 to {SEGMENT_SORT_MAX_WEIGHTS} weight columns")
+    for w in weights:
+        _check_request_col(name, w, (torch.bool,), n, dev)
+    ws = _WeightSet()
+    ws.n = len(weights)
+    for k, w in enumerate(weights):
+        ws.w[k] = w.data_ptr()
+    return ws
+
+
+def _weight_of(weights) -> torch.Tensor:
+    w = weights[0]
+    for t in weights[1:]:
+        w = w & t
+    return w
+
+
+def _check_segment_rows(name: str, new_group, values, weights):
+    _check_vectors(name, (new_group,), (torch.bool,))
+    n, dev = new_group.shape[0], new_group.device
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{name}: 1 to 2^31 - 1 rows (int32 row indices)")
+    if values is None:
+        raise ValueError(f"{name}: needs its values")
+    _check_request_col(name, values, _KEY_TYPES, n, dev)
+    return n, dev, _weight_set(name, weights, n, dev)
+
+
+def segment_sort_plain(new_group, values, weights, participants_first: bool = False):
+    """:func:`kernels.segment_sort_plain` with the weight the AND of
+    ``weights``."""
+    return K.segment_sort_plain(new_group, values, _weight_of(weights), participants_first)
+
+
+def segment_sort_plan(stats: Sequence[int], n: int, participants_first: bool):
+    """segment_sort's composite keys from its stats (the least and largest
+    order key, the weighted rows, the groups), least significant first:
+    ``(kind, offset, bits, pos)`` fields packed greedily into composites of
+    at most 64 bits, never split. The value field is ``order key - least``
+    in ``bit_length(largest - least)`` bits, the weight one bit (set where
+    unweighted) with ``participants_first``, the group index
+    ``bit_length(groups - 1)`` bits and so the last field of the last
+    composite; a field that is the same on every row is left out."""
+    lo, hi, n_weighted, groups = stats
+    fields = []
+    if hi > lo:
+        fields.append((_SORT_VALUE, lo, (hi - lo).bit_length()))
+    if participants_first and 0 < n_weighted < n:
+        fields.append((_SORT_UNWEIGHTED, 0, 1))
+    if groups > 1:
+        fields.append((_SORT_GROUP, 0, (groups - 1).bit_length()))
+    comps, cur, used = [], [], 0
+    for kind, offset, bits in fields:
+        if used + bits > 64:
+            comps.append(cur)
+            cur, used = [], 0
+        cur.append((kind, offset, bits, used))
+        used += bits
+    if cur:
+        comps.append(cur)
+    return comps
+
+
+def segment_sort(new_group, values, weights, participants_first: bool = False):
+    """Re-sorts a group-sorted page's rows by value within each group.
+
+    ``new_group`` (bool, set on each group's first row; the group of a row
+    is ``max(cumsum(new_group) - 1, 0)``), ``values`` (1-D, integer, bool
+    or float storage) and ``weights`` (1 to :data:`SEGMENT_SORT_MAX_WEIGHTS`
+    bool columns whose AND is a row's weight). Returns ``(values, weight,
+    heads)`` in the order of the stable sort by ``(group, [~weight],
+    order_key(value))``, the weight key only with ``participants_first``,
+    and the run heads (the first row of each (group, order key) run): see
+    :func:`kernels.segment_sort_plain`. On CUDA tensors one host read of the
+    stats sizes the passes (:func:`segment_sort_plan`): stats, the tiles'
+    scan and the group count (four launches), a memset and the compose
+    pass, group_sort's one-sweep passes (``ceil(bits / 8)`` a composite)
+    and the finish pass."""
+    name = "segment_sort"
+    n, dev, ws = _check_segment_rows(name, new_group, values, weights)
+    if dev.type == "cpu":
+        return segment_sort_plain(new_group, values, weights, participants_first)
+    lib = _library()
+    stream = _stream(new_group)
+    vtype = _KEY_TYPES[values.dtype]
+    n_tiles = -(-n // SEGMENT_TILE_ROWS)
+    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
+    stats = torch.empty(4, dtype=torch.int64, device=dev)
+    _check_launch(name, lib.segment_sort_stats(
+        new_group.data_ptr(), values.data_ptr(), vtype, ctypes.byref(ws), n, scratch.data_ptr(),
+        stats.data_ptr(), stream))
+    # the passes' and the outputs' buffers are allocated while the stats run
+    alt_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    out_values = torch.empty_like(values)
+    out_weight = torch.empty(n, dtype=torch.bool, device=dev)
+    heads = torch.empty(n, dtype=torch.bool, device=dev)
+    plan = segment_sort_plan(stats.tolist(), n, participants_first)
+    comps = (_Composite * max(1, len(plan)))()
+    passes = 0
+    for c, fields in zip(comps, plan):
+        for f, (kind, offset, bits, pos) in zip(c.field, fields):
+            f.kind, f.offset, f.bits, f.pos = kind, offset, bits, pos
+        c.n_fields = len(fields)
+        c.bits = sum(f[2] for f in fields)
+        passes += -(-c.bits // _DIGIT_BITS)
+    result = (ctypes.c_void_p * 2)()
+    if plan:
+        comp_keys = torch.empty(len(plan) * n, dtype=torch.int64, device=dev)
+        words = lib.group_sort_scratch_words(n, passes)
+        sweep = torch.empty(words, dtype=torch.int64, device=dev)
+        _check_launch(name, lib.segment_sort_compose(
+            new_group.data_ptr(), values.data_ptr(), vtype, ctypes.byref(ws), n, comps,
+            len(plan), scratch.data_ptr(), comp_keys.data_ptr(), sweep.data_ptr(), words,
+            stream))
+        _check_launch(name, lib.group_sort_passes(
+            comps, len(plan), n, comp_keys.data_ptr(), alt_keys.data_ptr(), idx[0].data_ptr(),
+            idx[1].data_ptr(), sweep.data_ptr(), result, stream))
+    last = plan[-1][-1] if plan else None
+    group_pos = last[3] if last is not None and last[0] == _SORT_GROUP else -1
+    _check_launch(name, lib.segment_sort_finish(
+        values.data_ptr(), vtype, values.element_size(), ctypes.byref(ws), n, result[1],
+        result[0], group_pos, out_values.data_ptr(), out_weight.data_ptr(), heads.data_ptr(),
+        stream))
+    LAUNCHES[name] += 1
+    return out_values, out_weight, heads
+
+
+def hll_plain(new_group, out_cap: int, values, weights):
+    """The reference's ``hll_registers`` then ``hll_estimate`` over each
+    row's group ``max(cumsum(new_group) - 1, 0)`` and the weight the AND of
+    ``weights`` (:func:`kernels.hll_estimate`'s order of adds)."""
+    gid = (K.cumsum(new_group) - 1).clamp(min=0)
+    return (K.hll_estimate(K.hll_registers(values, _weight_of(weights), gid, out_cap)),
+            torch.ones(out_cap, dtype=torch.bool, device=new_group.device))
+
+
+def hll(new_group, out_cap: int, values, weights):
+    """``approx_distinct``'s HyperLogLog estimate of each group of a
+    group-sorted page, as ``(data, valid)``: int64 [out_cap] and bool
+    [out_cap], valid everywhere (an empty group estimates 0), from
+    ``new_group``, ``values`` and ``weights`` as :func:`segment_sort` takes
+    them; ``out_cap`` must hold every group.
+    Bit-identical to :func:`hll_plain`. On CUDA tensors a memset of the
+    registers (int32 [out_cap, 2048]) and four launches: the tiles' head
+    counts and scan, the registers (an atomic max a weighted row) and the
+    estimates (one block a group)."""
+    name = "hll"
+    n, dev, ws = _check_segment_rows(name, new_group, values, weights)
+    if out_cap < 1:
+        raise ValueError(f"{name}: at least one output slot")
+    if dev.type == "cpu":
+        return hll_plain(new_group, out_cap, values, weights)
+    m = 1 << K.HLL_BITS
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    regs = torch.empty(out_cap * m, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * -(-n // SEGMENT_TILE_ROWS) + 1, dtype=torch.int64, device=dev)
+    out = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    _check_launch(name, _library().hll(
+        new_group.data_ptr(), values.data_ptr(), _KEY_TYPES[values.dtype], ctypes.byref(ws), n,
+        out_cap, ctypes.c_float(alpha * m * m), regs.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), valid.data_ptr(), _stream(new_group)))
+    LAUNCHES[name] += 1
+    return out, valid
 
 
 def partition_dest_plain(key_cols, luts, active: torch.Tensor, n_parts: int) -> torch.Tensor:

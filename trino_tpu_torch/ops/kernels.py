@@ -128,19 +128,61 @@ def hll_registers(vals: torch.Tensor, weight: torch.Tensor, gid: torch.Tensor,
     return regs[: num_groups * m].reshape(num_groups, m)
 
 
+# the largest register value: 64 - HLL_BITS leading zeros, plus one
+HLL_RHO_MAX = 64 - HLL_BITS + 1
+
+
 def hll_estimate(regs: torch.Tensor) -> torch.Tensor:
     """Bias-corrected HLL estimate per group from [G, m] registers ->
     int64[G], in float32 as the reference computes it: the standard
     estimator with the linear-counting correction for small ranges (a
-    64-bit hash needs no large-range one)."""
-    m = regs.shape[1]
-    z = torch.exp2(-regs.to(torch.float32)).sum(1)
+    64-bit hash needs no large-range one). The sum of ``2^-r`` over a
+    group's registers is taken in one fixed order that a kernel follows:
+    the count of each register value times its power of two (exact in
+    float32), added from the largest value down, each add rounded on its
+    own. ``alpha * m * m`` is rounded to float32 before the division, and
+    both divisions are true float32 divisions, as the reference's are."""
+    G, m = regs.shape
+    dev = regs.device
+    counts = torch.zeros(G, HLL_RHO_MAX + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, regs.to(torch.int64), torch.ones(G, m, dtype=torch.int64,
+                                                             device=dev))
+    powers = torch.tensor([2.0 ** -r for r in range(HLL_RHO_MAX + 1)], dtype=torch.float32,
+                          device=dev)
+    terms = counts.to(torch.float32) * powers
+    z = torch.zeros(G, dtype=torch.float32, device=dev)
+    for r in range(HLL_RHO_MAX, -1, -1):
+        z = z + terms[:, r]
     alpha = 0.7213 / (1.0 + 1.079 / m)
-    e = alpha * m * m / z
-    v = (regs == 0).sum(1, dtype=torch.int32)
+    e = torch.full_like(z, alpha * m * m) / z
+    v = counts[:, 0]
     small = (e <= 2.5 * m) & (v > 0)
-    linear = m * torch.log(m / v.clamp(min=1).to(torch.float32))
+    linear = m * torch.log(torch.full_like(z, float(m)) / v.clamp(min=1).to(torch.float32))
     return torch.round(torch.where(small, linear, e)).to(torch.int64)
+
+
+def segment_sort_plain(new_group: torch.Tensor, values: torch.Tensor, weight: torch.Tensor,
+                       participants_first: bool):
+    """The re-sort of a group-sorted page's rows by value within each group
+    (the reference's cosort of its exact distinct count, its percentile and
+    its digest): a stable sort by ``(gid, [~weight], order_key(values))``,
+    ``gid = max(cumsum(new_group) - 1, 0)`` (rows before the first group
+    belong to group 0, an inactive tail to the last group), the weight key
+    only with ``participants_first``. The sort is stable and ``gid`` never
+    decreases, so each group's rows keep their positions. Returns the
+    sorted values, the sorted weight and the run heads: the first row of
+    each ``(gid, order key)`` run, whatever the weight of its neighbour
+    (the reference's ``~prev_same``)."""
+    gid = (cumsum(new_group) - 1).clamp(min=0)
+    keys = [order_key(values)]
+    if participants_first:
+        keys.append((~weight).to(torch.int8))
+    keys.append(gid)
+    sorted_keys, (v2, w2) = cosort(keys, [values, weight])
+    k2, g2 = sorted_keys[0], sorted_keys[-1]
+    heads = torch.ones_like(w2)
+    heads[1:] = (k2[1:] != k2[:-1]) | (g2[1:] != g2[:-1])
+    return v2, w2, heads
 
 
 BITWISE_KINDS = ("band", "bor", "bxor")

@@ -23,8 +23,12 @@ the little of the reference's body that stays torch operators is counted in
   group starts, the key gathers, every sum, count, min, max and
   ``arbitrary``, the finishing of ``avg``, and the long tail (the moments,
   bitwise, ``checksum``, ``min_by``/``max_by``); the re-sorting aggregates
-  (``approx_distinct``, ``approx_percentile``) stay the executor's torch
-  operators, counted in ``STAGES["aggregate_torch"]``.
+  re-sort each group's rows in ``segment_sort`` and read the sorted
+  columns in ``segment_agg`` (``approx_distinct``'s exact count,
+  ``approx_percentile``, ``tdigest_agg`` and ``qdigest_agg``), and
+  ``approx_distinct``'s HyperLogLog path runs in ``hll``; an aggregate
+  with no kernel plan would stay the executor's torch operators, counted
+  in ``STAGES["aggregate_torch"]``.
 - the exchange destination stage (``epi_spec`` of :func:`expand_phase`
   and :func:`aggregate_phase`), where the fragment's output feeds a hash
   exchange (the worker's repartition hint): written by the kernel that
@@ -83,7 +87,8 @@ LAUNCHES = {"probe": 0, "expand": 0, "aggregate": 0, "group_sort": 0}
 # ``dest_aggregate``: folded into ``hash_expand`` and ``segment_agg``), and
 # what stays torch: ``project_torch``, assignments of a fused projection that
 # the expression program does not lower, and ``aggregate_torch``, aggregates
-# of a fused aggregation outside ``segment_agg``'s set
+# of a fused aggregation with no kernel plan (``segment_agg``'s set and the
+# re-sorting aggregates' ``segment_sort``, ``hll`` and ``segment_agg`` plans)
 STAGES: Counter = Counter()
 FALLBACKS: Counter = Counter()
 # columns the expansion carried by row index (nested layouts and wide lanes)

@@ -1290,10 +1290,9 @@ _LANE_AGGS = frozenset({"array_agg", "map_agg", "multimap_agg", "histogram", "li
 
 # aggregates whose evaluation re-sorts rows by group and reads the group
 # bounds by position: the presorted path must hand them a dense active
-# prefix (the reference's _RESORT_AGGS, less the digests the port does not
-# evaluate yet)
-_RESORT_AGGS = frozenset({"approx_distinct", "approx_percentile", "map_agg", "histogram",
-                          "multimap_agg", "listagg"})
+# prefix (the reference's _RESORT_AGGS)
+_RESORT_AGGS = frozenset({"approx_distinct", "approx_percentile", "tdigest_agg", "qdigest_agg",
+                          "map_agg", "histogram", "multimap_agg", "listagg"})
 
 # families of the long tail in _eval_aggregate
 _TWO_COLUMN_AGGS = frozenset({
@@ -1542,20 +1541,16 @@ def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = Fal
 
 
 def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
-                    new_group, num_groups, segment_kernel: bool = False,
-                    agg_w: int = 0) -> Page:
+                    new_group, num_groups, agg_w: int = 0) -> Page:
     """The sort-path (and keyless) reduction over a group-sorted page:
     each group's key from its first row, and every aggregate from
     ``reduce_fn``: sums and counts by cumsum at the group boundaries,
     min/max and the bitwise reductions by a scatter on the group index.
-    With ``segment_kernel`` the integer sums and counts run in
-    one-request ``hopper_kernels.segment_agg`` calls (the re-sorting
-    aggregates of the fused path's ``aggregate_phase``, which runs the rest
-    in one ``segment_agg`` call a chunk).
-    The long tail's helpers are the reference's: an exact distinct count
-    and the percentile re-sort each group's rows by value (a stable sort,
-    so a group's rows keep their positions and ``starts``), and
-    ``approx_distinct`` takes HyperLogLog registers when their state fits.
+    The long tail's helpers are the reference's: an exact distinct count,
+    the percentile and the digest re-sort each group's rows by value (a
+    stable sort, so a group's rows keep their positions and ``starts``),
+    and ``approx_distinct`` takes HyperLogLog registers when their state
+    fits.
     ``agg_w`` is the lane width of the lane-valued aggregates (0 when the
     aggregation has none)."""
     rel = Relation(page, symbols)
@@ -1594,14 +1589,6 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
         if global_agg:
             return K.segment_reduce(vals, w, None, 1, kind)
         if kind in ("sum", "count"):
-            if segment_kernel and (kind == "count" or not vals.dtype.is_floating_point):
-                # the one-request form of segment_agg (its weight is the
-                # row's activity and validity)
-                req = HK.AggRequest(kind, None if kind == "count" else vals.to(torch.int64))
-                out = HK.AggOutput("value", (0,), torch.int64)
-                _, _, _, ((data, _),), _ = HK.segment_agg(
-                    new_group, num_groups, out_cap, w, [], [req], [out])
-                return data
             return K.segment_reduce(vals, w, None, out_cap, kind, new_group, bounds)
         return K.segment_reduce(vals, w, gid(), out_cap, kind)
 
@@ -1636,6 +1623,14 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
         idx = torch.minimum(torch.floor(q_g * top.to(torch.float64)).to(torch.int64)
                             .clamp(min=0), top)
         return v2[(starts + idx).clamp(0, n - 1)]
+
+    def tdigest_fn(x, w, nonempty):
+        # participants first within each group, by value; then each one's
+        # centroid from its rank (the digest op of segment_agg_plain)
+        g = gid()
+        _, (v2, w2) = K.cosort([K.order_key(x), (~w).to(torch.int8), g], [x, w])
+        out = HK.AggOutput("digest", (0,), torch.float64, values=v2, values_valid=w2)
+        return HK.finish_output(out, [nonempty], out_cap, starts, g)[0]
 
     lane_fns = None
     if agg_w:
@@ -1697,7 +1692,7 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     for _, agg in aggregations:
         out_cols.append(_eval_aggregate(
             rel, agg, active, out_cap, reduce_fn, first_fn, lambda g: g[gid()],
-            distinct_count_fn, hll_fn, percentile_fn, lane_fns))
+            distinct_count_fn, hll_fn, percentile_fn, lane_fns, tdigest_fn))
     return Page(tuple(out_cols), group_exists)
 
 
@@ -1747,9 +1742,13 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     ``hopper_kernels.segment_agg`` calls (one, unless the aggregates need
     more requests or outputs, or the grouping more keys, than a call takes:
     the destination's keys go to the first call, the other keys fill it
-    and the later ones in order). The aggregates without a plan (the
-    re-sorting ones: ``approx_distinct``, ``approx_percentile``) run
-    through ``_aggregate_impl``'s torch operators, each ticking
+    and the later ones in order). The re-sorting aggregates run their
+    kernels first (:func:`_resort_plan`): ``approx_distinct``'s HyperLogLog
+    path is ``hopper_kernels.hll`` alone; its exact path, the percentile
+    and the digests re-sort each group's rows in ``segment_sort`` (one
+    sort for each distinct column, weight and order) and read the sorted
+    columns as ``segment_agg`` requests and outputs. An aggregate with no
+    plan runs through ``_aggregate_impl``'s torch operators, ticking
     ``megakernels.STAGES["aggregate_torch"]``. Returns ``(page, dest)``,
     dest None without ``dest_spec``."""
     rel = Relation(page, symbols)
@@ -1758,7 +1757,16 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     for c in keys:
         if is_nested_column(c) or c.data.ndim != 1:
             raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
-    plans = [(i, _agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
+    cols: Dict[int, Column] = {}
+    sorts: Dict[tuple, tuple] = {}
+    plans = []
+    for i, (_, agg) in enumerate(aggregations):
+        plan = _agg_plan(rel, agg)
+        if plan is None:
+            plan = _resort_plan(rel, agg, new_group, out_cap, sorts)
+        if isinstance(plan, Column):
+            cols[i], plan = plan, None
+        plans.append((i, plan))
     chunks = _agg_chunks(plans)
     # the group keys each call gathers: the destination's first
     width = HK.SEGMENT_AGG_MAX_KEYS
@@ -1768,7 +1776,6 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     calls = max(len(chunks), len(key_sets))
     chunks += [[]] * (calls - len(chunks))
     key_sets += [[]] * (calls - len(key_sets))
-    cols: Dict[int, Column] = {}
     key_out: Dict[int, tuple] = {}
     dest = None
     for c, (chunk, key_set) in enumerate(zip(chunks, key_sets)):
@@ -1787,11 +1794,11 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
             dest, exists = d, group_exists
         for (i, (_, _, dictionary)), (data, valid) in zip(chunk, outs):
             cols[i] = Column(aggregations[i][1].output_type, data, valid, dictionary)
-    tail = [i for i, plan in plans if plan is None]
+    tail = [i for i, plan in plans if plan is None and i not in cols]
     if tail:
         MK.STAGES["aggregate_torch"] += len(tail)
         torch_page = _aggregate_impl(group_keys, tuple(aggregations[i] for i in tail), symbols,
-                                     out_cap, page, new_group, num_groups, segment_kernel=True)
+                                     out_cap, page, new_group, num_groups)
         for i, col in zip(tail, torch_page.columns[len(group_keys):]):
             cols[i] = col
     out = [Column(k.type, *key_out[i], k.dictionary) for i, k in enumerate(keys)]
@@ -2069,6 +2076,61 @@ def _agg_plan(rel: Relation, agg: Aggregation):
     return reqs, O(name, reads, odt), None
 
 
+def _resort_plan(rel: Relation, agg: Aggregation, new_group: torch.Tensor, out_cap: int,
+                 sorts: Dict[tuple, tuple]):
+    """A re-sorting aggregate of the fused sort path in kernels: the
+    HyperLogLog estimate of ``approx_distinct`` where its registers fit the
+    reference's state (``out_cap * 2^11 <= 2^23``) as a finished column
+    (``hopper_kernels.hll``), else a ``segment_agg`` plan (as
+    :func:`_agg_plan`'s) over ``segment_sort``'s re-sort of each group's
+    rows, kept in ``sorts`` for the aggregates that share one: the exact
+    distinct count (a count of the weighted run heads), the percentile (its
+    rank gather) and ``tdigest_agg``/``qdigest_agg`` (the centroids). None
+    for the rest, and for nested or long-decimal arguments."""
+    name = agg.function
+    if name not in ("approx_distinct", "approx_percentile", "tdigest_agg", "qdigest_agg"):
+        return None
+    arg = rel.column_for(agg.args[0])
+    if (is_nested_column(arg) or arg.data.ndim != 1 or arg.data.dtype not in _SEGMENT_DTYPES
+            or name == "approx_percentile" and arg.data.dtype != agg.output_type.torch_dtype):
+        return None
+    weights = [rel.page.active, arg.valid]
+    filt = filt_valid = None
+    if agg.filter is not None:
+        fcol = rel.column_for(agg.filter)
+        filt = fcol.data if fcol.data.dtype == torch.bool else fcol.data.to(torch.bool)
+        filt_valid = fcol.valid
+        weights += [filt, filt_valid]
+    R = partial(HK.AggRequest, filt=filt, filt_valid=filt_valid)
+
+    def resort(ws, participants_first: bool):
+        key = (arg.data.data_ptr(), tuple(w.data_ptr() for w in ws), participants_first)
+        if key not in sorts:
+            sorts[key] = HK.segment_sort(new_group, arg.data, ws, participants_first)
+        return sorts[key]
+
+    if name == "approx_distinct":
+        if out_cap * (1 << K.HLL_BITS) <= (1 << 23):
+            return Column(BIGINT, *HK.hll(new_group, out_cap, arg.data, weights))
+        # the sorted weight carries the activity and the filter
+        _, w2, heads = resort(weights, False)
+        return ([HK.AggRequest("count", valid=w2, valid2=heads, resorted=True)],
+                HK.AggOutput("value", (0,), torch.int64), None)
+    if name == "approx_percentile":
+        qcol = rel.column_for(agg.args[1])
+        if is_nested_column(qcol) or qcol.data.ndim != 1 or qcol.data.dtype not in _SEGMENT_DTYPES:
+            return None
+        v2, _, _ = resort(weights + [qcol.valid], True)
+        reqs = [R("last", qcol.data, arg.valid, valid2=qcol.valid),
+                R("count", valid=arg.valid, valid2=qcol.valid)]
+        return (reqs, HK.AggOutput("percentile", (0, 1), v2.dtype, divisor=_decimal_divisor(qcol),
+                                   values=v2, quantiles=qcol.data), arg.dictionary)
+    v2, w2, _ = resort(weights, True)
+    return ([R("count", valid=arg.valid)],
+            HK.AggOutput("digest", (0,), torch.float64, divisor=_decimal_divisor(arg), values=v2,
+                         values_valid=w2), None)
+
+
 def _eval_aggregate(
     rel: Relation,
     agg: Aggregation,
@@ -2081,6 +2143,7 @@ def _eval_aggregate(
     hll_fn=None,
     percentile_fn=None,
     lane_fns=None,
+    tdigest_fn=None,
 ) -> Column:
     """One aggregate, strategy-agnostic: ``reduce_fn(vals, weight, kind)`` is
     the per-group reduction, ``first_fn`` picks a participating row and
@@ -2089,8 +2152,10 @@ def _eval_aggregate(
     from the sort path only. An aggregate of ``segment_agg``'s set runs its
     requests (:func:`_agg_plan`) through ``reduce_fn``, ``first_fn`` and
     ``broadcast_fn`` and is finished as the kernels finish it; the rest are
-    the lane-valued aggregates, ``approx_distinct`` and
-    ``approx_percentile``."""
+    the lane-valued aggregates, ``approx_distinct``, ``approx_percentile``
+    and the digests (``tdigest_fn``, from the sort path: 64 centroids of
+    the values, divided by a decimal's scale, as the reference's
+    ``[cap, 128]`` float64 lanes)."""
     name = agg.function
     out_type = agg.output_type
     device = active.device
@@ -2111,6 +2176,15 @@ def _eval_aggregate(
     w = fmask & arg.valid
     if name in _LANE_AGGS and lane_fns is not None:
         return _lane_aggregate(rel, agg, arg, fmask, w, out_cap, *lane_fns)
+    if name in ("tdigest_agg", "qdigest_agg") and tdigest_fn is not None:
+        if vals_s.ndim == 2:
+            raise ExecutionError("tdigest_agg over DECIMAL(p>18) not supported yet "
+                                 "(cast to DOUBLE or a short decimal)")
+        x = vals_s.to(torch.float64)
+        if isinstance(arg.type, DecimalType):
+            x = x / float(10**arg.type.scale)
+        nonempty = reduce_fn(w.to(torch.int64), w, "count")
+        return Column(out_type, tdigest_fn(x, w, nonempty), nonempty > 0)
     if vals_s.ndim == 2:
         # sum and avg reach here as limbs ($dec_limb); min/max need the
         # reference's hi-then-tied-lo reduction

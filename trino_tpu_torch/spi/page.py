@@ -177,11 +177,8 @@ class Column:
         cap = capacity if capacity is not None else n
         dtype = type_.storage_dtype
         lanes = () if type_.storage_lanes is None else (type_.storage_lanes,)
-        if lanes and not isinstance(type_, DecimalType):
-            from .._unported import unported
-
-            unported(f"{type_.display()} storage")
-        # a long decimal carries its two int64 limbs [hi, lo] on a trailing axis
+        # a long decimal carries its two int64 limbs [hi, lo] on a trailing
+        # axis, a digest its centroids' means and weights
         data = np.zeros((cap,) + lanes, dtype=dtype)
         if n:
             data[:n] = values.astype(dtype, copy=False)
@@ -317,9 +314,12 @@ class Column:
                 out[i] = _decode_temporal(self.type.name, x) if ok else None
             return out
         if self.type.name in ("tdigest", "qdigest"):
-            from .._unported import unported
-
-            unported(f"decoding of {self.type.display()}")
+            # a summary (the digest is queried through value_at_quantile;
+            # Trino renders an opaque varbinary here)
+            kc = data.shape[1] // 2
+            for i, ok in enumerate(valid.tolist()):
+                out[i] = f"{self.type.name}[n={int(data[i, kc:].sum())}]" if ok else None
+            return out
         lst = data.tolist()
         for i, ok in enumerate(valid.tolist()):
             out[i] = lst[i] if ok else None

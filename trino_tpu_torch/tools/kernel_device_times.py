@@ -11,7 +11,7 @@ on the inputs of TPC-H Q3's two joins and Q10's three at SF10,
 SF10 (2,097,152 rows, 1,200,000 active, three keys of 21-bit ranges NULL
 on the inactive rows), ``hopper_kernels.partition_epilogue`` on the same
 page at 8 partitions, and ``hopper_kernels.segment_agg`` with one request
-(an integer sum, the re-sorting aggregates' form) on two sorted pages:
+(an integer sum) on two sorted pages:
 524,288 rows in 131,072 slots, 119,740 groups of about four rows (the shape
 of Q3's at SF10), and 4,194,304 rows in groups of about four. After each join's probe,
 ``hopper_kernels.hash_expand`` runs on that probe's output, with both
