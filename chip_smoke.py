@@ -58,24 +58,26 @@ printed):
    checksums over a dictionary and over a double, min_by/max_by on an
    integer and on a double key with ties, NULL keys and NULL values), at
    Q3's joined rows (524,288) and at T1's shape (4,194,304 rows, a group
-   per order date), each set without and with a FILTER: bit-exact against
-   its plain version (the doubles are quarters and integers, so every
-   float sum is exact in any order), but the outputs of the sums of
-   logarithms, within ``tests/agg_tolerance.py``'s tolerance (each float
-   sum within 1e-9 of its terms' magnitudes, carried through the
+   per order date), each set without and with a FILTER, and the moments
+   again with +inf and -inf in their doubles: bit-exact against its plain
+   version (the doubles are quarters and integers, so every float sum is
+   exact in any order; NaN at the same slots), but the outputs of the sums
+   of logarithms, within ``tests/agg_tolerance.py``'s tolerance (each
+   float sum within 1e-9 of its terms' magnitudes, carried through the
    finishing), and the same bits on a second run; ``segment_agg_direct``
-   with the variance family at G = 8 and G = 256 (its float sums within
-   1e-9 relative, the variances within the tolerance, the same bits on a
-   second call); the larger shapes timed as above. Then the re-sorting
+   with the variance family at G = 8 and G = 256 and T2's requests at
+   G = 6 and G = 1 (its float sums within 1e-9 relative, the variances
+   within the tolerance, the same bits on a second call); the larger
+   shapes timed as above. Then the re-sorting
    aggregates (``check_resort_kernels``): ``segment_sort`` (the exact
    count's sort by key, the percentile's and the digest's participants
    first), ``hll`` and one ``segment_agg`` call reading the sorted columns
    (the resorted count, the percentile, the digest, beside a count and,
-   on groups of many rows without NaN, a variance) at T1's shape
-   (4,194,304 rows, about 2,400 groups), at a million groups of four rows
-   (the exact path) and on edge pages (NULL keys equal to weighted ones,
-   an inactive tail, rows before the first group, one row, -0.0 and NaN,
-   quantiles out of [0, 1] and NULL): bit-exact against their plain
+   on groups of many rows, a variance) at T1's shape (4,194,304 rows,
+   about 2,400 groups), at a million groups of four rows (the exact path)
+   and on edge pages (NULL keys equal to weighted ones, an inactive tail,
+   rows before the first group, one row, -0.0 and NaN on 6,000 rows and
+   at T1's shape, quantiles out of [0, 1] and NULL): bit-exact against their plain
    versions (the digest's means within ``tests/agg_tolerance.py``'s digest
    tolerance, its weights exact) and against a second run, each main
    shape timed beside its bound, its plain version and one library call
@@ -106,7 +108,9 @@ printed):
    Q3's two and Q10's three joins); those times go in the kernels line,
    but the epilogue's, which come from phase 6's spill path. The group
    sort and ``segment_agg`` also print their device time by kernel
-   (``torch.profiler``).
+   (``torch.profiler``), and ``segment_agg`` and ``segment_agg_direct``
+   their device µs by pass (CUDA events at the passes' bounds), which the
+   kernels line keeps under ``device_us`` for every query that ran them.
 4. TPC-H Q14 and Q18 at SF10 (Q18 with TPC-H's quantity threshold of 300)
    with the default session: wall seconds, peak device memory
    (``torch.cuda.max_memory_allocated`` after a reset), launches by fused
@@ -888,7 +892,7 @@ def segment_agg_cases(HK, dev):
 LONG_TAIL_SHAPES = ((524_288, 0.25, 0.75), (4_194_304, 1 / 1750, 1.0))
 
 
-def _long_tail_requests(HK, dev, gen, n, active, part: str, filt=None):
+def _long_tail_requests(HK, dev, gen, n, active, part: str, filt=None, nonfinite=()):
     """The long tail's request kinds and finishing ops over seeded
     columns, in two sets that each fit one call: ``moments`` (every
     variance, two-column, skewness, kurtosis, geometric mean and entropy
@@ -897,7 +901,9 @@ def _long_tail_requests(HK, dev, gen, n, active, part: str, filt=None):
     ties, NULL keys and NULL values). Every column is weighted by ``filt``
     (an aggregate FILTER) where given. The quantities are multiples of 100
     over a decimal scale of 2 and the doubles multiples of 1/4 below 2^6, so
-    every float sum but those of logarithms is exact in any order."""
+    every float sum but those of logarithms is exact in any order.
+    ``nonfinite``: (row, value) pairs written into the doubles of
+    ``moments`` (its x and its positive column, valid there)."""
     R, O = HK.AggRequest, HK.AggOutput
     kw = {} if filt is None else {"filt": filt,
                                   "filt_valid": torch.rand(n, generator=gen, device=dev) < 0.95}
@@ -915,6 +921,9 @@ def _long_tail_requests(HK, dev, gen, n, active, part: str, filt=None):
         dy, vy = ints(-200, 200) * 100, valid()
         pos, vp = torch.rand(n, generator=gen, device=dev, dtype=f64) * 100, valid()
         cnt, vc = ints(-1, 6, torch.int32), valid()
+        for row, value in nonfinite:
+            dx[row], pos[row] = value, value
+            vx[row], vp[row] = True, True
         reqs = [
             R("count", valid=vq, **kw), R("fsum", qty, vq, divisor=100.0, **kw),
             R("fsum", qty, vq, divisor=100.0, power=2, **kw),
@@ -973,40 +982,68 @@ def long_tail_cases(HK, dev):
     """(label, args) cases for segment_agg with the long tail's request
     kinds and finishing ops (``_long_tail_requests``), at each of
     ``LONG_TAIL_SHAPES`` (rows, group start rate, active share), each set
-    without and with a FILTER; one group key (an order date) and no
-    destination."""
+    without and with a FILTER, and the moments again with +inf and -inf in
+    their doubles (inside an early group, on a group's first row, and
+    side by side in a late group: NaN from there on where the plain
+    version's cumsum difference gives it); one group key (an order date)
+    and no destination. Last, sums and counts whose weights fill the
+    reduce pass's mask table (``SEGMENT_AGG_MAX_MASKS`` columns)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
+    inf = float("inf")
     for n, rate, act_rate in LONG_TAIL_SHAPES:
-        for part in ("moments", "rows"):
-            for filtered in (False, True):
-                new_group = torch.rand(n, generator=gen, device=dev) < rate
-                new_group[0] = True
-                n_act = int(n * act_rate)
-                new_group[n_act:] = False
-                active = torch.arange(n, device=dev) < n_act
-                keys, _ = _agg_page(dev, gen, n, new_group, active, n_keys=1)
-                filt = torch.rand(n, generator=gen, device=dev) < 0.6 if filtered else None
-                reqs, outs = _long_tail_requests(HK, dev, gen, n, active, part, filt)
-                groups = new_group.sum()
-                label = f"{part}{' FILTER' if filtered else ''} n={n}"
-                yield label, (new_group, groups, round_capacity(int(groups), 16), active, keys,
-                              reqs, outs, None)
+        for part, filtered, special in (("moments", False, False), ("moments", True, False),
+                                        ("rows", False, False), ("rows", True, False),
+                                        ("moments", False, True)):
+            new_group = torch.rand(n, generator=gen, device=dev) < rate
+            new_group[0] = True
+            n_act = int(n * act_rate)
+            new_group[n_act:] = False
+            active = torch.arange(n, device=dev) < n_act
+            keys, _ = _agg_page(dev, gen, n, new_group, active, n_keys=1)
+            filt = torch.rand(n, generator=gen, device=dev) < 0.6 if filtered else None
+            firsts = torch.nonzero(new_group).flatten().tolist()
+            nonfinite = ([(firsts[3] + 1, inf), (firsts[6], -inf), (firsts[-5] + 2, inf),
+                          (firsts[-5] + 3, -inf)] if special else [])
+            reqs, outs = _long_tail_requests(HK, dev, gen, n, active, part, filt, nonfinite)
+            groups = new_group.sum()
+            label = f"{part}{' FILTER' if filtered else ''}{' +-inf' if special else ''} n={n}"
+            yield label, (new_group, groups, round_capacity(int(groups), 16), active, keys,
+                          reqs, outs, None)
+    # the mask table full: sums and counts over 15 validity columns and the
+    # activity, in two batches
+    n, rate, act_rate = LONG_TAIL_SHAPES[0]
+    new_group = torch.rand(n, generator=gen, device=dev) < rate
+    new_group[0] = True
+    active = torch.rand(n, generator=gen, device=dev) < act_rate
+    keys, _ = _agg_page(dev, gen, n, new_group, active, n_keys=1)
+    vals = torch.randint(-(2**40), 2**40, (n,), generator=gen, device=dev)
+    R, O = HK.AggRequest, HK.AggOutput
+    reqs = [R("sum" if j % 2 else "count", vals, torch.rand(n, generator=gen, device=dev) < 0.9)
+            for j in range(HK.SEGMENT_AGG_MAX_MASKS - 1)]
+    outs = [O("value", (j,), torch.int64) for j in range(len(reqs))]
+    groups = new_group.sum()
+    yield (f"{HK.SEGMENT_AGG_MAX_MASKS} weight columns n={n}",
+           (new_group, groups, round_capacity(int(groups), 16), active, keys, reqs, outs, None))
 
 
 def direct_variance_cases(HK, dev, n_wide: int):
     """(label, args) cases for segment_agg_direct with the variance family
-    (and its partial sums), at G = 8 over FUSED_SLOTS rows and at G = 256
-    over ``n_wide`` rows: T2's shape, values of lineitem's quantity,
-    extended price, discount and tax."""
+    (and its partial sums), T2's request set: at G = 8 over FUSED_SLOTS
+    rows, at G = 256 over ``n_wide`` rows, and at T2's G = 6 (five order
+    priorities and NULL) and G = 1 (one group) over FUSED_SLOTS rows;
+    values of lineitem's quantity, extended price, discount and tax."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     R, O = HK.AggRequest, HK.AggOutput
     f64 = torch.float64
     for label, n, domains in ((f"variance G=8 n={FUSED_SLOTS}", FUSED_SLOTS, (8,)),
-                              (f"variance G=256 n={n_wide}", n_wide, (32, 8))):
+                              (f"variance G=256 n={n_wide}", n_wide, (32, 8)),
+                              (f"t2 requests G=6 n={FUSED_SLOTS}", FUSED_SLOTS, (6,)),
+                              (f"t2 requests G=1 n={FUSED_SLOTS}", FUSED_SLOTS, (1,))):
         active = torch.rand(n, generator=gen, device=dev) < 0.9
-        keys = [(torch.randint(0, D - 1, (n,), generator=gen, device=dev).to(torch.int32),
+        keys = [(torch.randint(0, max(D - 1, 1), (n,), generator=gen,
+                               device=dev).to(torch.int32),
                  torch.rand(n, generator=gen, device=dev) < 0.97) for D in domains]
         reqs, outs = [], []
         for k, (lo, hi, op) in enumerate(((100, 5001, "stddev_samp"),
@@ -1023,10 +1060,11 @@ def direct_variance_cases(HK, dev, n_wide: int):
 
 def check_long_tail_kernels(HK, n_wide: int, dev) -> None:
     """segment_agg on ``long_tail_cases`` (bit-exact against its plain
-    version, the sums of logarithms' outputs within tests/agg_tolerance.py's
-    tolerance, and the same bits on a second run) and segment_agg_direct
-    on ``direct_variance_cases`` (its float sums within REL_TOL and the
-    variances within the tolerance, and the same bits on a second call);
+    version, NaN at the same slots, the sums of logarithms' outputs within
+    tests/agg_tolerance.py's tolerance, and the same bits on a second run)
+    and segment_agg_direct on ``direct_variance_cases`` (its float sums
+    within REL_TOL and the variances within the tolerance, and the same
+    bits on a second call);
     the largest case of each set timed beside its bound, its plain version
     and the summed scatters."""
     for name, cases in (("segment_agg", long_tail_cases(HK, dev)),
@@ -1138,12 +1176,12 @@ def resort_calls(HK, pg) -> dict:
     outs = [O("value", (0,), torch.int64), O("value", (1,), torch.int64),
             O("percentile", (2, 3), torch.float64, values=vq, quantiles=pg["q"]),
             O("digest", (4,), torch.float64, divisor=100.0, values=vc, values_valid=wc)]
-    if pg["out_cap"] <= HLL_MAX_SLOTS and not pg["special"]:
-        # the moment only beside groups of many rows and no NaN: the plain
-        # version sums a group as a difference of two prefix sums over the
-        # page, whose rounding (about 1e-16 of 4M rows' squares) passes the
-        # tolerance of a four-row group's own terms, and which carry a NaN
-        # into every later group (ROADMAP Queue 3)
+    if pg["out_cap"] <= HLL_MAX_SLOTS:
+        # the moment only beside groups of many rows: the plain version sums
+        # a group as a difference of two prefix sums over the page, whose
+        # rounding (about 1e-16 of 4M rows' squares) passes the tolerance of
+        # a four-row group's own terms. Beside NaN too: the kernel gives
+        # NaN where that difference does
         reqs += [R("fsum", pg["price"], valid), R("fsum", pg["price"], valid, power=2)]
         outs.append(O("var_samp", (4, 5, 6), torch.float64))
     calls["segment_agg"] = [(ng, pg["num_groups"], pg["out_cap"], act, [], reqs, outs, None)]
@@ -1199,14 +1237,16 @@ def print_agg_difference(got, want, args) -> None:
 def resort_edge_pages(dev, gen):
     """The edge cases: the exact path's quirk (NULL keys equal to weighted
     ones, keys of few values), an inactive tail, rows before the first
-    group, one row, doubles with -0.0 and NaN, quantiles out of [0, 1] and
-    NULL."""
+    group, one row, doubles with -0.0 and NaN (on 6,000 rows, which the
+    plain cumsum scans in one pass, and at the T1 shape, which it scans by
+    tiles), quantiles out of [0, 1] and NULL."""
     return [
         ("quirk", resort_page(dev, gen, 6000, 40, key_range=7, special=True)),
         ("inactive tail", resort_page(dev, gen, 6000, 30, n_active=4100, key_range=50)),
         ("rows before the first group", resort_page(dev, gen, 6000, 25, lead=37, n_active=5000)),
         ("one row", resort_page(dev, gen, 1, 1)),
         ("-0.0 and NaN", resort_page(dev, gen, 6000, 300, special=True)),
+        ("t1 shape, -0.0 and NaN", resort_page(dev, gen, RESORT_ROWS, 1750, special=True)),
         ("quantiles out of [0, 1] and NULL", resort_page(dev, gen, 6000, 12, q_edges=True)),
     ]
 
@@ -1261,7 +1301,7 @@ def check_resort_kernels(HK, dev, results: dict) -> None:
     cases += resort_edge_pages(dev, gen)
     for label, pg in cases:
         calls = resort_calls(HK, pg)
-        main = pg["new_group"].shape[0] >= RESORT_ROWS
+        main = label in {shape[0] for shape in RESORT_SHAPES}
         for name, arg_list in calls.items():
             for k, args in enumerate(arg_list):
                 if not same_resort(HK, name, args):
@@ -1348,20 +1388,30 @@ def same_outputs(outs, w_outs, exists, reqs, plans, active, gid, slots, exact=Fa
             DIGEST_TALLY["bit_identical"] += int(torch.equal(_bits(d)[m], _bits(wd)[m]))
         elif k in floats:
             a, b = d[m].to(torch.float64), wd[m].to(torch.float64)
-            diff = (a - b).abs()
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            diff = torch.where(same, 0.0, (a - b).abs())
             if diff.numel():
-                worst = max(worst, float(diff.max()))
+                worst = max(worst, float(torch.nan_to_num(diff, nan=float("inf")).max()))
             ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
         elif k in moments and not (exact and not moments[k]):
             tol = float_tolerance(reqs, plans[k], active, gid, slots)
-            same = torch.equal(_bits(d)[m], _bits(wd)[m])
+            same = same_or_nan(d[m], wd[m])
             MOMENT_TALLY["within"] += 1
             MOMENT_TALLY["bit_identical"] += int(same)
             ok = ok and (same or bool(within(d[m], wd[m], tol[m]).all()))
         else:
             at = exists if all_data else m
-            ok = ok and torch.equal(_bits(d)[at], _bits(wd)[at])
+            ok = ok and same_or_nan(d[at], wd[at])
     return ok, worst
+
+
+def same_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, but a NaN matches any NaN (the plain version's cumsum
+    difference and the kernel make NaNs of different bits)."""
+    nan = (torch.isnan(a) & torch.isnan(b)) if a.dtype.is_floating_point else None
+    if nan is None or not bool(nan.any()):
+        return torch.equal(_bits(a), _bits(b))
+    return torch.equal(_bits(a)[~nan], _bits(b)[~nan])
 
 
 def same_segment_agg(got, want, args, exact=False) -> tuple:
@@ -1918,10 +1968,11 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
             if len(plan) != 1 or (not narrow and plan != [64]):
                 fail(f"group_sort [{query} inputs] sorted composites {plan}, not one"
                      f"{'' if narrow else ' of 64 bits'}")
-        elif name == "segment_agg":
+        elif name in BY_PASS:
             print(f"  {name} [{query} inputs]: {ops_per_call(HK, name, args)} stream "
                   "operations a call", flush=True)
             print_device_us(f"{name} [{query} inputs]", lambda: getattr(HK, name)(*args))
+            keep_by_pass(HK, results, name, query, args)
         record(results, name, query, timing, recorded)
 
 
@@ -1962,7 +2013,7 @@ def segment_agg_plan_ops(args) -> tuple:
     group_keys, aggregations, needed, _, page = args[:5]
     rel = E.Relation(page, needed)
     plans = [(i, E._agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
-    chunks = E._agg_chunks(plans)
+    chunks = E._agg_chunks(plans, page.active)
     calls = max(len(chunks), -(-len(group_keys) // E.HK.SEGMENT_AGG_MAX_KEYS))
     ops, match, luts = 0, False, 0
     for c in range(calls):
@@ -2275,18 +2326,37 @@ def device_us(fn, reps: int = 10) -> dict:
     return kernel_device_times.device_us(fn, reps)[0]
 
 
-def print_device_us(label: str, fn) -> None:
+def print_device_us(label: str, fn):
+    """Prints and returns the device microseconds a call of ``fn`` spends
+    in each kernel and memset (torch.profiler; None where it saw
+    nothing)."""
     try:
         us = device_us(fn)
     except (AssertionError, RuntimeError) as e:  # a profiler that cannot trace the card
         print(f"  {label}: device time by kernel not measured ({e})", flush=True)
-        return
+        return None
     if not us:
         print(f"  {label}: device time by kernel not measured (the profiler saw no "
               "device activity)", flush=True)
-        return
+        return None
     parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))
     print(f"  {label}: device us a call {sum(us.values()):.1f} ({parts})", flush=True)
+    return us
+
+
+# the redesigned kernels whose device us by pass the kernels line carries
+BY_PASS = ("segment_agg", "segment_agg_direct")
+
+
+def keep_by_pass(HK, results: dict, name: str, label: str, args) -> None:
+    """Prints the device microseconds a call of ``name`` spends in each of
+    its passes (CUDA events at the passes' bounds, ``phase_split``: the
+    profiler can drop a long window's records) and keeps them in the
+    kernels line's entry of ``name``, under ``label``."""
+    us = {k: round(v * 1e3, 1) for k, v in phase_split(HK, name, args).items()}
+    print(f"  {name} [{label}]: device us by pass (CUDA events) {us}", flush=True)
+    if us and name in results:
+        results[name].setdefault("device_us", {})[label] = us
 
 
 def sort_split(HK, label: str, args, reps: int = 10) -> list:
@@ -4810,15 +4880,17 @@ def run_distributed(HK, dev, conn, texts: dict, mem_rows: dict, mem_walls: dict,
     return launches
 
 
-def check_t1_calls(HK, tap: LaunchTap, rows, call) -> list:
-    """T1's segment_agg calls each timed on its inputs, one aggregate_phase
-    call traced (``check_aggregate_phase_kernels``); returns the rows'
-    tolerances (``long_tail_tolerance``). A helper, so that no local
-    variable of phase 8 keeps the calls' tensors alive past DROP."""
+def check_t1_calls(HK, tap: LaunchTap, rows, call, kernels: dict) -> list:
+    """T1's segment_agg calls each timed on its inputs (and its device us
+    by pass kept for the kernels line), one aggregate_phase call traced
+    (``check_aggregate_phase_kernels``); returns the rows' tolerances
+    (``long_tail_tolerance``). A helper, so that no local variable of
+    phase 8 keeps the calls' tensors alive past DROP."""
     calls = tap.every["segment_agg"]
     for k, args in enumerate(calls):
-        print_timing(f"segment_agg [t1 memory inputs, call {k + 1} of {len(calls)}]",
-                     time_wrapper(HK, "segment_agg", args))
+        label = f"t1 memory inputs, call {k + 1} of {len(calls)}"
+        print_timing(f"segment_agg [{label}]", time_wrapper(HK, "segment_agg", args))
+        keep_by_pass(HK, kernels, "segment_agg", label, args)
     tolerance = long_tail_tolerance(HK, calls, rows)
     check_aggregate_phase_kernels(HK, "t1 memory", call)
     return tolerance
@@ -4993,7 +5065,7 @@ def run_memory_tables(HK, dev, incore_rows: dict, kernels: dict) -> dict:
             check_expand_phase_kernels(HK, "q12 memory", fused_expand_call(expand_calls))
         tolerance = None
         if q == "t1":
-            tolerance = check_t1_calls(HK, tap, res.rows, aggregate_calls[-1])
+            tolerance = check_t1_calls(HK, tap, res.rows, aggregate_calls[-1], kernels)
         if q == "t3":
             check_resort_phase_kernels(HK, aggregate_calls[-1], tap.every["segment_agg"])
         del expand_calls, aggregate_calls

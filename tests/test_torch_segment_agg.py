@@ -26,6 +26,7 @@ from trino_tpu.spi.page import Dictionary as RDict
 from trino_tpu.spi.page import Page as RPage
 
 from trino_tpu_torch.ops import hopper_kernels as HK
+from trino_tpu_torch.ops import kernels as K
 from trino_tpu_torch.ops import megakernels as PMK
 from trino_tpu_torch.planner import plan as pplan
 from trino_tpu_torch.runtime import executor as pex
@@ -234,6 +235,8 @@ def test_aggregate_phase_runs_the_long_tail_in_torch(monkeypatch):
 
 _T = HK.SEGMENT_TILE_ROWS
 _ITEMS = 8
+_THREADS = _T // _ITEMS
+_BATCH = 8  # requests a batch: one a warp
 _COMBINE = {
     "sum": lambda a, b: (a + b + 2**63) % 2**64 - 2**63,
     "count": lambda a, b: a + b,
@@ -242,22 +245,65 @@ _COMBINE = {
 }
 
 
+def _carry_scan(op, ident, runs, seen):
+    """Phase B of one request over a tile's threads, as a warp computes it:
+    each lane's 8 threads in turn (restarting at a thread with a head),
+    then a segmented shuffle scan over the 32 lanes (step o: a lane without
+    a head so far takes lane - o's partial first). Returns each thread's
+    carry (the runs since the last thread with a head before it) and the
+    tile's inclusive run at its last thread."""
+    assert _THREADS == 32 * _ITEMS  # a warp's lanes take 8 threads each
+    acc, flag = [], []
+    for lane in range(32):
+        a, f = ident, False
+        for i in range(_ITEMS):
+            t = lane * _ITEMS + i
+            a = runs[t] if seen[t] else op(a, runs[t])
+            f = f or seen[t]
+        acc.append(a)
+        flag.append(f)
+    o = 1
+    while o < 32:
+        acc = [acc[k] if k < o or flag[k] else op(acc[k - o], acc[k]) for k in range(32)]
+        flag = [flag[k] or (k >= o and flag[k - o]) for k in range(32)]
+        o *= 2
+    carries = [None] * _THREADS
+    run = ident
+    for lane in range(32):
+        run = ident if lane == 0 else acc[lane - 1]
+        for i in range(_ITEMS):
+            t = lane * _ITEMS + i
+            carries[t] = run
+            run = runs[t] if seen[t] else op(run, runs[t])
+    return carries, run
+
+
+def _nonfinite(kind, x):
+    return kind == "fsum" and not np.isfinite(x)
+
+
 def _emulate_segment_agg(new_group, out_cap, contribs):
     """``segment_agg.cu``'s passes in numpy, thread by thread: the tiles'
     head counts and bases (count, scan); per tile (reduce) the starts of
-    its heads, and per request each thread's runs, the groups complete
-    inside a thread or ending at a thread's first head stored into their
-    slot, the rows before the tile's first head into its head partial and
-    the rows from its last head into its tail partial; then (finish) one
-    slot at a time, a tile-spanning group's tail partial combined with the
-    head partials of the tiles it runs into, in tile order (after the span
-    scan). ``contribs``:
-    per request (kind, identity, each row's contribution). Checks that no
-    slot is stored twice and that the finish reads only what was written.
-    The head partials are first scanned over the tiles (span), restarting
-    after each tile with a head, so the finish reads two partials a
-    tile-spanning group.
-    Returns (starts, values per request)."""
+    its heads, then the requests in batches of ``_BATCH``: (A) each
+    thread's runs, the groups complete inside a thread stored into their
+    slot, the run before its first head and the run from its last head;
+    (B) one warp a request carries the runs over the threads
+    (``_carry_scan``), writes the tile's tail (or whole-tile head) partial
+    and, for a float sum, the tile's first row that is not finite; (C) the
+    group ending at each thread's first head into its slot, or the tile's
+    head partial if it began in an earlier tile. Then (span) each request's
+    head partials scanned over the tiles, restarting after each tile with
+    a head, and a float sum's first non-finite row on the page; then
+    (finish) one slot at a time, a tile-spanning group's tail partial
+    combined with the scanned head partial of the tile it ends in, and a
+    float sum NaN where the plain cumsum difference is (out_cap > 1): up to
+    four tiles of rows where the group starts at or after that row, past
+    them where it starts at or after that row's tile or its end row's tile
+    holds a row that is not finite. ``contribs``: per request (kind,
+    identity, each row's
+    contribution). Checks that no slot is stored twice and that the finish
+    reads only what was written. Returns (starts, values per request)."""
     n = new_group.shape[0]
     n_tiles = -(-n // _T)
     heads = [int(new_group[t * _T:(t + 1) * _T].sum()) for t in range(n_tiles)]
@@ -267,58 +313,76 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
     res = [[None] * out_cap for _ in contribs]
     head = [[None] * n_tiles for _ in contribs]
     tail = [[None] * n_tiles for _ in contribs]
+    tilebad = [[None] * n_tiles for _ in contribs]
     for t in range(n_tiles):
         t0, b = t * _T, int(base[t])
-        rows = [t0 + j for j in range(_T)]
-        h = [r < n and bool(new_group[r]) for r in rows]
-        per_thread = [sum(h[k * _ITEMS:(k + 1) * _ITEMS]) for k in range(_T // _ITEMS)]
+        h = [t0 + j < n and bool(new_group[t0 + j]) for j in range(_T)]
+        per_thread = [sum(h[k * _ITEMS:(k + 1) * _ITEMS]) for k in range(_THREADS)]
+        seen = [c > 0 for c in per_thread]
         excl = np.concatenate([[0], np.cumsum(per_thread)[:-1]])
-        for k in range(_T // _ITEMS):
+        for k in range(_THREADS):
             g = b + int(excl[k]) - 1
             for j in range(_ITEMS):
                 if h[k * _ITEMS + j]:
                     g += 1
                     if g <= out_cap:
                         starts[g] = t0 + k * _ITEMS + j
-        for q, (kind, ident, c) in enumerate(contribs):
-            op = _COMBINE[kind]
-            carry = ident  # the segmented scan's value carried into thread k
-            for k in range(_T // _ITEMS):
-                g0 = b + int(excl[k]) - 1
-                g, run, before, seen = g0, ident, ident, False
-                for j in range(_ITEMS):
-                    r = t0 + k * _ITEMS + j
-                    if h[k * _ITEMS + j]:
-                        if not seen:
-                            before, seen = run, True
-                        elif g < out_cap:
-                            assert res[q][g] is None
-                            res[q][g] = run
-                        g += 1
-                        run = ident
-                    run = op(run, c[r] if r < n else ident)
-                if seen:
-                    done = op(carry, before)
+        for batch in range(0, len(contribs), _BATCH):
+            befores = {}
+            for q in range(batch, min(batch + _BATCH, len(contribs))):  # A
+                kind, ident, c = contribs[q]
+                op = _COMBINE[kind]
+                runs, before, bad = [], [], _T
+                for k in range(_THREADS):
+                    g = b + int(excl[k]) - 1
+                    run, first, found = ident, ident, False
+                    for j in range(_ITEMS):
+                        r = t0 + k * _ITEMS + j
+                        x = c[r] if r < n else ident
+                        if r < n and _nonfinite(kind, x):
+                            bad = min(bad, k * _ITEMS + j)
+                        if h[k * _ITEMS + j]:
+                            if not found:
+                                first, found = run, True
+                            elif g < out_cap:
+                                assert res[q][g] is None
+                                res[q][g] = run
+                            g += 1
+                            run = ident
+                        run = op(run, x)
+                    runs.append(run)
+                    before.append(first)
+                carries, incl = _carry_scan(op, ident, runs, seen)  # B
+                if sum(per_thread) > 0:
+                    tail[q][t] = incl
+                else:
+                    head[q][t] = incl
+                tilebad[q][t] = t0 + bad if bad < _T else None
+                befores[q] = (carries, before)
+            for q, (carries, before) in befores.items():  # C
+                op = _COMBINE[contribs[q][0]]
+                for k in range(_THREADS):
+                    if not seen[k]:
+                        continue
+                    g0 = b + int(excl[k]) - 1
+                    done = op(carries[k], before[k])
                     if g0 >= b:
                         if g0 < out_cap:
                             assert res[q][g0] is None
                             res[q][g0] = done
                     else:
                         head[q][t] = done
-                inc = run if seen else op(carry, run)
-                carry = inc
-            if sum(per_thread) > 0:
-                tail[q][t] = carry
-            else:
-                head[q][t] = carry
     # span: each request's head partials scanned over the tiles, restarting
-    # after each tile with a head
+    # after each tile with a head; a float sum's first non-finite row
+    first_bad = []
     for q, (kind, ident, _) in enumerate(contribs):
         run = ident
         for t in range(n_tiles):
             assert head[q][t] is not None
             run = head[q][t] if t > 0 and heads[t - 1] else _COMBINE[kind](run, head[q][t])
             head[q][t] = run
+        found = [r for r in tilebad[q] if r is not None]
+        first_bad.append(min(found) if found else None)
     values = [[None] * out_cap for _ in contribs]
     for g in range(out_cap):
         real = g < total
@@ -337,6 +401,15 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
                 x = tail[q][ts]
                 values[q][g] = _COMBINE[kind](x, head[q][te]) if te > ts else x
             assert values[q][g] is not None, (q, g)
+            bad = first_bad[q]
+            if not real or kind != "fsum" or out_cap == 1 or bad is None:
+                continue
+            if n > 4 * _T:  # the cumsum scans by tiles: NaN across a tile past a bad row
+                nan = s >= bad // _T * _T or tilebad[q][te] is not None
+            else:
+                nan = s >= bad
+            if nan:
+                values[q][g] = float("nan")
     return np.array(starts[:out_cap], dtype=np.int64), values
 
 
@@ -402,6 +475,96 @@ def test_segment_agg_tile_plan_matches_segment_agg_plain(case):
             np.testing.assert_array_equal(want[ex], data.numpy()[ex])
     if case == "group_across_tiles":
         assert ex.sum() == len(set(firsts))
+
+
+# where a value that is not finite sits: inside an early group, on a group's
+# first row, or on a weighted row before the first group
+NONFINITE_VALUES = {"nan": (float("nan"),), "+inf": (float("inf"),), "-inf": (float("-inf"),),
+                    "+inf beside -inf": (float("inf"), float("-inf"))}
+NONFINITE_PLACES = ("early group", "group's first row", "rows before the first group")
+
+
+def _nonfinite_page(values, place, seed, n):
+    """A group-sorted page (groups of about 40 rows over tiles, the first
+    starting at row 100) and its doubles, normal but at ``place``: the
+    second and third rows of the third group, the first and second rows of
+    the sixth group, or rows 10 and 11 (weighted, before the first
+    group)."""
+    rng = np.random.default_rng(seed)
+    new_group = rng.random(n) < 1 / 40
+    new_group[:100] = False
+    new_group[100] = True
+    firsts = np.flatnonzero(new_group)
+    x = rng.normal(0.0, 1e3, n)
+    at = {"early group": firsts[2] + 1, "group's first row": firsts[5],
+          "rows before the first group": 10}[place]
+    for k, v in enumerate(values):
+        x[at + k] = v
+    return new_group, x, rng
+
+
+@pytest.mark.parametrize("n", [3 * _T + 77, 6 * _T + 77])
+@pytest.mark.parametrize("place", NONFINITE_PLACES)
+@pytest.mark.parametrize("value", sorted(NONFINITE_VALUES))
+def test_segment_agg_tile_plan_follows_the_plain_version_past_nan_and_infinities(value, place,
+                                                                                   n):
+    """The reference sums a group's doubles as a difference of two prefix
+    sums over the page, so a NaN or an infinity at or before a group's first
+    row makes that group's sum NaN, and one inside a group only that
+    group's; past four tiles of rows its cumsum scans by tiles, and a tile
+    whose total is not finite is NaN throughout. The kernel's tile plan (its
+    own sums per group, NaN where that formula gives NaN) gives
+    ``segment_agg_plain``'s NaNs and infinities at the same slots, and its
+    other sums within 1e-9, for a sum, a sum of squares and the variance
+    finished from them, on a page of one scan and one of six tiles; with
+    one output slot both sum every weighted row."""
+    assert K.CUMSUM_BLOCK == _T  # the plain cumsum's blocks are the kernel's tiles
+    new_group, x, rng = _nonfinite_page(NONFINITE_VALUES[value], place, len(value + place), n)
+    n = new_group.shape[0]
+    active = np.ones(n, bool)  # rows before the first group are weighted too
+    valid = rng.random(n) < 0.9
+    valid[10:12] = True
+    firsts = np.flatnonzero(new_group)
+    valid[firsts[2] + 1:firsts[2] + 3] = True
+    valid[firsts[5]:firsts[5] + 2] = True
+    t = torch.from_numpy
+    requests = [HK.AggRequest("count", valid=t(valid)), HK.AggRequest("fsum", t(x), t(valid)),
+                HK.AggRequest("fsum", t(x), t(valid), power=2)]
+    outputs = [HK.AggOutput("value", (1,), torch.float64),
+               HK.AggOutput("value", (2,), torch.float64),
+               HK.AggOutput("var_samp", (0, 1, 2), torch.float64)]
+    with np.errstate(over="ignore", invalid="ignore"):
+        sq = x * x
+    for out_cap in (int(new_group.sum()) + 3, 1):
+        ng, act = new_group.copy(), active.copy()
+        if out_cap == 1:
+            # one slot: both sum the group's rows (none before it is weighted)
+            ng[firsts[1:]] = False
+            act[:firsts[0]] = False
+        w = act & valid
+        contribs = [("count", 0, w.astype(np.int64).tolist()),
+                    ("fsum", 0.0, np.where(w, x, 0.0).tolist()),
+                    ("fsum", 0.0, np.where(w, sq, 0.0).tolist())]
+        starts, values = _emulate_segment_agg(ng, out_cap, contribs)
+        num_groups = torch.tensor(int(ng.sum()))
+        got_starts, exists, _, outs, _ = HK.segment_agg_plain(
+            t(ng), num_groups, out_cap, t(act), [], requests, outputs)
+        np.testing.assert_array_equal(starts, got_starts.numpy())
+        ex = exists.numpy()
+        for k in (1, 2):
+            want = outs[k - 1][0].numpy()[ex]
+            emulated = np.array(values[k], dtype=np.float64)[ex]
+            np.testing.assert_array_equal(np.isnan(emulated), np.isnan(want))
+            np.testing.assert_allclose(emulated, want, rtol=REL_TOL, atol=1e-6)
+        if out_cap > 1:
+            assert not np.isfinite(outs[0][0].numpy()[ex]).all()
+        # the variance finished from the emulated sums: NaN at the same slots
+        cnt = np.array(values[0], dtype=np.float64)[ex]
+        s1, s2 = (np.array(values[k], dtype=np.float64)[ex] for k in (1, 2))
+        nn = np.maximum(cnt, 1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            var = np.maximum(s2 / nn - (s1 / nn) ** 2, 0) * nn / np.maximum(nn - 1, 1)
+        np.testing.assert_array_equal(np.isnan(var), np.isnan(outs[2][0].numpy()[ex]))
 
 
 # --------------------------------------------------------------------------- #

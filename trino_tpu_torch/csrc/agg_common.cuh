@@ -42,8 +42,9 @@ struct AggRequest {
   const void* values2;       // kSumFloat: a second factor (null: none)
   const bool* valid2;        // null: no second validity in the weight
   const int64_t* lut;        // kChecksum: dictionary code -> value key (null: none)
-  double divisor;            // kSumFloat: each value times its reciprocal (1: not)
-  double divisor2;           // the same for values2
+  double inv_divisor;        // kSumFloat: each value times the reciprocal of its
+                             // divisor, made on the host (1: no divisor)
+  double inv_divisor2;       // the same for values2
   int64_t identity;          // bits of the empty reduction
   int32_t lut_len;
   int32_t ref;               // kMatchLast: the request whose extreme it matches
@@ -182,26 +183,65 @@ __device__ __forceinline__ double clamp_min(double v, double lo) {
   return v != v ? v : fmax(v, lo);
 }
 
-__device__ __forceinline__ uint64_t combine(int kind, uint64_t a, uint64_t b) {
+// A request kind as a type: the kernels' loops are specialised on it.
+template <int K>
+struct KindTag {
+  static constexpr int kind = K;
+};
+
+// fn(KindTag<kind>{}): one specialisation of fn per request kind, chosen once
+// where a loop over rows would otherwise switch on the kind at every row.
+template <typename Fn>
+__device__ __forceinline__ void with_kind(int kind, Fn&& fn) {
   switch (kind) {
-    case hopper::kSumInt:
-    case hopper::kCount:
-    case hopper::kChecksum: return a + b;
-    case hopper::kSumFloat: return bits_of(dadd(as_double(a), as_double(b)));
-    case hopper::kBitAnd: return a & b;
-    case hopper::kBitOr: return a | b;
-    case hopper::kBitXor: return a ^ b;
-    case hopper::kMinInt: {
-      const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
-      return static_cast<uint64_t>(y < x ? y : x);
-    }
-    case hopper::kMinFloat: return bits_of(fmin_nan(as_double(a), as_double(b)));
-    case hopper::kMaxFloat: return bits_of(fmax_nan(as_double(a), as_double(b)));
-    default: {  // kMaxInt, kLastRow, kMatchLast
-      const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
-      return static_cast<uint64_t>(y > x ? y : x);
-    }
+    case hopper::kSumInt: fn(KindTag<hopper::kSumInt>{}); break;
+    case hopper::kSumFloat: fn(KindTag<hopper::kSumFloat>{}); break;
+    case hopper::kMinInt: fn(KindTag<hopper::kMinInt>{}); break;
+    case hopper::kMaxInt: fn(KindTag<hopper::kMaxInt>{}); break;
+    case hopper::kMinFloat: fn(KindTag<hopper::kMinFloat>{}); break;
+    case hopper::kMaxFloat: fn(KindTag<hopper::kMaxFloat>{}); break;
+    case hopper::kLastRow: fn(KindTag<hopper::kLastRow>{}); break;
+    case hopper::kCount: fn(KindTag<hopper::kCount>{}); break;
+    case hopper::kBitAnd: fn(KindTag<hopper::kBitAnd>{}); break;
+    case hopper::kBitOr: fn(KindTag<hopper::kBitOr>{}); break;
+    case hopper::kBitXor: fn(KindTag<hopper::kBitXor>{}); break;
+    case hopper::kChecksum: fn(KindTag<hopper::kChecksum>{}); break;
+    default: fn(KindTag<hopper::kMatchLast>{}); break;
   }
+}
+
+// The reduction of request kind KIND: wrapping int64 sums (counts and
+// checksums too), float64 sums, bitwise, and min and max (the last row and
+// min_by's row are the largest row index).
+template <int KIND>
+__device__ __forceinline__ uint64_t combine_of(uint64_t a, uint64_t b) {
+  if constexpr (KIND == hopper::kSumInt || KIND == hopper::kCount || KIND == hopper::kChecksum) {
+    return a + b;
+  } else if constexpr (KIND == hopper::kSumFloat) {
+    return bits_of(dadd(as_double(a), as_double(b)));
+  } else if constexpr (KIND == hopper::kBitAnd) {
+    return a & b;
+  } else if constexpr (KIND == hopper::kBitOr) {
+    return a | b;
+  } else if constexpr (KIND == hopper::kBitXor) {
+    return a ^ b;
+  } else if constexpr (KIND == hopper::kMinInt) {
+    const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
+    return static_cast<uint64_t>(y < x ? y : x);
+  } else if constexpr (KIND == hopper::kMinFloat) {
+    return bits_of(fmin_nan(as_double(a), as_double(b)));
+  } else if constexpr (KIND == hopper::kMaxFloat) {
+    return bits_of(fmax_nan(as_double(a), as_double(b)));
+  } else {  // kMaxInt, kLastRow, kMatchLast
+    const int64_t x = static_cast<int64_t>(a), y = static_cast<int64_t>(b);
+    return static_cast<uint64_t>(y > x ? y : x);
+  }
+}
+
+__device__ __forceinline__ uint64_t combine(int kind, uint64_t a, uint64_t b) {
+  uint64_t out = 0;
+  with_kind(kind, [&](auto tag) { out = combine_of<decltype(tag)::kind>(a, b); });
+  return out;
 }
 
 // kernels.order_key of a value: a double's order-preserving bits, else the
@@ -221,13 +261,10 @@ __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
   return x ^ (x >> 31);
 }
 
-// A kSumFloat request's double at row i: the value times its divisor's
-// reciprocal (torch divides by a scalar on the card as a product with the
-// scalar's reciprocal), transformed, raised to its power left to right and
-// times the second factor, each product rounded on its own.
-__device__ __forceinline__ double float_row(const AggRequest& q, int64_t i) {
-  double x = load_double(q.type, q.values, i);
-  if (q.divisor != 1.0) x = dmul(x, 1.0 / q.divisor);
+// A kSumFloat request's double from its value x (and second factor x2),
+// as contribs computes it.
+__device__ __forceinline__ double float_of(const AggRequest& q, double x, double x2) {
+  if (q.inv_divisor != 1.0) x = dmul(x, q.inv_divisor);
   switch (q.transform) {
     case hopper::kLog: x = log(x); break;
     case hopper::kClampZero: x = clamp_min(x, 0.0); break;
@@ -241,54 +278,213 @@ __device__ __forceinline__ double float_row(const AggRequest& q, int64_t i) {
   double y = x;
   for (int p = 1; p < q.power; ++p) y = dmul(y, x);
   if (q.values2 != nullptr) {
-    double x2 = load_double(q.type2, q.values2, i);
-    if (q.divisor2 != 1.0) x2 = dmul(x2, 1.0 / q.divisor2);
+    if (q.inv_divisor2 != 1.0) x2 = dmul(x2, q.inv_divisor2);
     y = dmul(y, x2);
   }
   return y;
 }
 
-// Row i's contribution to request q: its value (or 1, or its index) where
-// the row is weighted, the identity elsewhere. ``extreme``: for a
-// kMatchLast request, the extreme of row i's group (its ref's result;
-// ignored otherwise, and a row of no group passes none).
-__device__ __forceinline__ uint64_t contribution(const AggRequest& q, const bool* active,
-                                                 int64_t i, const uint64_t* extreme = nullptr) {
+// float_of at row i.
+__device__ __forceinline__ double float_row(const AggRequest& q, int64_t i) {
+  return float_of(q, load_double(q.type, q.values, i),
+                  q.values2 != nullptr ? load_double(q.type2, q.values2, i) : 0.0);
+}
+
+// Whether row i passes request q's weight columns: the page's activity
+// (not for a resorted count), its filter and validities (a checksum's
+// validity picks its NULL constant instead). Every column is read whatever
+// the others hold, so the loads go out together.
+__device__ __forceinline__ bool weight_columns(const AggRequest& q, const bool* active,
+                                               int64_t i) {
   bool w = q.resorted ? true : active[i];
-  if (q.filter != nullptr) w = w && q.filter[i] && q.filter_valid[i];
-  if (q.valid != nullptr && q.kind != hopper::kChecksum) w = w && q.valid[i];
-  if (q.valid2 != nullptr) w = w && q.valid2[i];
-  if (w && q.pred != hopper::kPredNone) {
-    w = nonzero(q.type, q.values, i) == (q.pred == hopper::kPredNonZero);
+  if (q.filter != nullptr) w = w & q.filter[i] & q.filter_valid[i];
+  if (q.valid != nullptr && q.kind != hopper::kChecksum) w = w & q.valid[i];
+  if (q.valid2 != nullptr) w = w & q.valid2[i];
+  return w;
+}
+
+// Whether row i is weighted for request q: its weight columns and its
+// predicate on the value.
+__device__ __forceinline__ bool weighted(const AggRequest& q, const bool* active, int64_t i) {
+  bool w = weight_columns(q, active, i);
+  if (q.pred != hopper::kPredNone) {
+    w = w & (nonzero(q.type, q.values, i) == (q.pred == hopper::kPredNonZero));
   }
-  if (!w) return static_cast<uint64_t>(q.identity);
-  switch (q.kind) {
-    case hopper::kCount: return 1ull;
-    case hopper::kSumFloat: return bits_of(float_row(q, i));
-    case hopper::kMinFloat:
-    case hopper::kMaxFloat: return bits_of(load_double(q.type, q.values, i));
-    case hopper::kLastRow: return static_cast<uint64_t>(i);
-    case hopper::kMatchLast:
-      return extreme != nullptr &&
-                     static_cast<uint64_t>(order_key(q.type, q.values, i)) == *extreme
-                 ? static_cast<uint64_t>(i)
-                 : static_cast<uint64_t>(q.identity);
-    case hopper::kChecksum: {
-      if (q.valid != nullptr && !q.valid[i]) return kChecksumNull;
-      int64_t v;
-      if (q.lut != nullptr) {
-        const int64_t code = load_int(q.type, q.values, i);
-        v = q.lut[code < 0 ? 0 : (code >= q.lut_len ? q.lut_len - 1 : code)];
-      } else {
-        v = order_key(q.type, q.values, i);
-      }
-      return splitmix64(static_cast<uint64_t>(v));
+  return w;
+}
+
+// A checksum's term of a weighted row: splitmix64 of the value's order key
+// (or of its dictionary code's value key), a constant where it is NULL.
+__device__ __forceinline__ uint64_t checksum_term(const AggRequest& q, int64_t code_or_key,
+                                                  bool is_null) {
+  if (is_null) return kChecksumNull;
+  int64_t v = code_or_key;
+  if (q.lut != nullptr) v = q.lut[v < 0 ? 0 : (v >= q.lut_len ? q.lut_len - 1 : v)];
+  return splitmix64(static_cast<uint64_t>(v));
+}
+
+// Row i's contribution to request q of kind KIND (not kMatchLast): its
+// value (or 1, or its index) where the row is weighted, the identity
+// elsewhere. The value is read beside the weight, not after it.
+template <int KIND>
+__device__ __forceinline__ uint64_t contribution_of(const AggRequest& q, const bool* active,
+                                                    int64_t i) {
+  const bool w = weighted(q, active, i);
+  const uint64_t ident = static_cast<uint64_t>(q.identity);
+  if constexpr (KIND == hopper::kCount) {
+    return w ? 1ull : ident;
+  } else if constexpr (KIND == hopper::kSumFloat) {
+    const double y = float_row(q, i);
+    return w ? bits_of(y) : ident;
+  } else if constexpr (KIND == hopper::kMinFloat || KIND == hopper::kMaxFloat) {
+    const double x = load_double(q.type, q.values, i);
+    return w ? bits_of(x) : ident;
+  } else if constexpr (KIND == hopper::kLastRow || KIND == hopper::kMatchLast) {
+    return w ? static_cast<uint64_t>(i) : ident;
+  } else if constexpr (KIND == hopper::kChecksum) {
+    const bool is_null = q.valid != nullptr && !q.valid[i];
+    const int64_t k = q.lut != nullptr ? load_int(q.type, q.values, i)
+                                       : order_key(q.type, q.values, i);
+    return w ? checksum_term(q, k, is_null) : ident;
+  } else {
+    const int64_t x = q.transform == hopper::kOrderKey ? order_key(q.type, q.values, i)
+                                                       : load_int(q.type, q.values, i);
+    return w ? static_cast<uint64_t>(x) : ident;
+  }
+}
+
+// A raw value: int64 for an integer or bool column, a double's bits for a
+// float one (a float32 widened), as load_int and load_double read it.
+__device__ __forceinline__ bool is_float_type(int type) {
+  return type == hopper::kF64 || type == hopper::kF32;
+}
+
+__device__ __forceinline__ uint64_t load_raw_row(int type, const void* p, int64_t i) {
+  return is_float_type(type) ? bits_of(load_double(type, p, i))
+                             : static_cast<uint64_t>(load_int(type, p, i));
+}
+
+// A raw value as load_double, load_int and order_key read it.
+__device__ __forceinline__ double raw_double(uint64_t raw, bool f) {
+  return f ? as_double(raw) : static_cast<double>(static_cast<int64_t>(raw));
+}
+
+__device__ __forceinline__ uint64_t raw_int(uint64_t raw, bool f) {
+  return f ? static_cast<uint64_t>(static_cast<int64_t>(as_double(raw))) : raw;
+}
+
+__device__ __forceinline__ uint64_t raw_order_key(uint64_t raw, bool f) {
+  return f ? static_cast<uint64_t>(hopper::float_order_key(as_double(raw))) : raw;
+}
+
+// The contributions c of request q (not kMatchLast) over R rows, row(j)
+// the index of row j, whose raw values x the caller read (load_raw_row's
+// form; 0 for a count without values): w the rows' weight bits before the
+// predicate, not_null a checksum's bits where its value is not NULL, and
+// load2(x2) reads the second factor's raw values of the R rows. Each
+// choice the request makes (its kind, transform, power, divisors) is made
+// once for the R rows. A float sum's double: the value times its divisor's
+// reciprocal (torch divides by a scalar on the card as a product with the
+// scalar's reciprocal; the host makes it, correctly rounded as the card's
+// division is), transformed, raised to its power left to right and times
+// the second factor (over its own divisor), each product rounded on its
+// own. Returns, for a float sum, the bits of the weighted rows whose
+// double is not finite.
+template <int R, typename Row, typename Load2>
+__device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, uint32_t not_null,
+                                             uint64_t (&x)[R], Row row, Load2 load2,
+                                             uint64_t (&c)[R]) {
+  const uint64_t ident = static_cast<uint64_t>(q.identity);
+  const bool f = is_float_type(q.type);
+  if (q.pred != hopper::kPredNone) {
+    const bool want = q.pred == hopper::kPredNonZero;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool nz = f ? as_double(x[j]) != 0.0 : x[j] != 0;
+      if (nz != want) w &= ~(1u << j);
     }
-    default:
-      if (q.transform == hopper::kOrderKey) {
-        return static_cast<uint64_t>(order_key(q.type, q.values, i));
+  }
+  switch (q.kind) {
+    case hopper::kCount:
+#pragma unroll
+      for (int j = 0; j < R; ++j) c[j] = w >> j & 1u;
+      return 0;
+    case hopper::kLastRow:
+#pragma unroll
+      for (int j = 0; j < R; ++j) c[j] = w >> j & 1u ? static_cast<uint64_t>(row(j)) : ident;
+      return 0;
+    case hopper::kSumFloat: {
+#pragma unroll
+      for (int j = 0; j < R; ++j) x[j] = bits_of(raw_double(x[j], f));
+      if (q.inv_divisor != 1.0) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[j] = bits_of(dmul(as_double(x[j]), q.inv_divisor));
       }
-      return static_cast<uint64_t>(load_int(q.type, q.values, i));
+      switch (q.transform) {
+        case hopper::kLog:
+#pragma unroll
+          for (int j = 0; j < R; ++j) x[j] = bits_of(log(as_double(x[j])));
+          break;
+        case hopper::kClampZero:
+#pragma unroll
+          for (int j = 0; j < R; ++j) x[j] = bits_of(clamp_min(as_double(x[j]), 0.0));
+          break;
+        case hopper::kXLog2X:
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const double v = clamp_min(as_double(x[j]), 0.0);
+            x[j] = bits_of(v > 0.0 ? dmul(v, log2(v)) : 0.0);
+          }
+          break;
+        default: break;
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) c[j] = x[j];
+      for (int p = 1; p < q.power; ++p) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) c[j] = bits_of(dmul(as_double(c[j]), as_double(x[j])));
+      }
+      if (q.values2 != nullptr) {
+        const bool f2 = is_float_type(q.type2);
+        load2(x);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          double v = raw_double(x[j], f2);
+          if (q.inv_divisor2 != 1.0) v = dmul(v, q.inv_divisor2);
+          c[j] = bits_of(dmul(as_double(c[j]), v));
+        }
+      }
+      uint32_t nonfinite = 0;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool on = w >> j & 1u;
+        if (on && !isfinite(as_double(c[j]))) nonfinite |= 1u << j;
+        c[j] = on ? c[j] : 0ull;
+      }
+      return nonfinite;
+    }
+    case hopper::kMinFloat:
+    case hopper::kMaxFloat:
+#pragma unroll
+      for (int j = 0; j < R; ++j) c[j] = w >> j & 1u ? bits_of(raw_double(x[j], f)) : ident;
+      return 0;
+    case hopper::kChecksum:
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const uint64_t k = q.lut != nullptr ? raw_int(x[j], f) : raw_order_key(x[j], f);
+        c[j] = w >> j & 1u ? checksum_term(q, static_cast<int64_t>(k), !(not_null >> j & 1u))
+                           : ident;
+      }
+      return 0;
+    default: {  // the integer sums, min, max and bitwise kinds
+      const bool okey = q.transform == hopper::kOrderKey;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const uint64_t v = okey ? raw_order_key(x[j], f) : raw_int(x[j], f);
+        c[j] = w >> j & 1u ? v : ident;
+      }
+      return 0;
+    }
   }
 }
 

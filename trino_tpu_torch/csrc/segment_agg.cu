@@ -50,6 +50,22 @@
 //   (r + 0.5) / count, is k, its mean and its count (float64), r counted
 //   from the group's start.
 //
+//   A float64 sum follows the plain version's cumsum difference past a
+//   value that is not finite. Where out_cap > 1 the plain version sums a
+//   group as csum[end] - csum[start] + vals[start], NaN once csum[start]
+//   is not finite, and with csum[end]'s class where only csum[end] is not.
+//   Its cumsum (kernels.cumsum, as the reference's) is one scan up to
+//   4 * 2048 rows; past that, a scan within blocks of 2048 rows (a tile)
+//   plus the exclusive prefix of the block totals taken as their cumsum
+//   less the block's own total, which is NaN across a whole block whose
+//   total is not finite. So, with "bad" rows the weighted rows whose double
+//   is NaN or infinite (rows before the first group included): up to
+//   8,192 rows a group sums to NaN where a bad row lies at or before its
+//   start row; past 8,192 rows, where a bad row lies before the end of its
+//   start row's tile, or its end row's tile holds a bad row; every other
+//   group keeps its own sum (NaN or an infinity where its own rows hold
+//   one). A finite prefix that overflows is not followed.
+//
 // Bound on an H100 SXM (3.35 TB/s): bytes. Each request's columns read
 // once, new_group read once, starts written and read once, the keys' bytes
 // at out_cap rows, every output written once.
@@ -57,26 +73,39 @@
 // Design: five launches, no memset and no atomic.
 // - count: one block a tile of kSegRows rows counts the tile's new_group.
 // - scan: one block scans the tiles' counts into each tile's first group.
-// - reduce: one block a tile (8 consecutive rows a thread) reads new_group
-//   again, block-scans the head counts (each thread's first group), writes
-//   starts for the tile's heads, then serves every request in turn over
-//   the same tile: a segmented block scan of (has a head, the reduction
-//   since the thread's last head). A group that starts and ends inside the
-//   tile is stored into its slot; the rows of the tile before its first
-//   head go to the tile's head partial and the rows from its last head to
-//   the tile's tail partial (per request and tile).
+// - reduce: one block a tile, 8 consecutive rows a thread, every column
+//   read with 8- or 16-byte loads. The tile's new_group and each distinct
+//   bool column the requests' weights read (the activity first, at most
+//   kMaxMasks a call: the caller splits wider sets into calls) are loaded
+//   once into per-thread bit masks, and a block scan of the head counts
+//   gives each thread's first group and the starts of its heads. The
+//   requests are then served in batches of kBatch (one a warp): (A) each
+//   thread computes its rows' contributions of every request of the batch
+//   (a loop specialised on the request's kind), stores the groups complete
+//   inside it, and leaves the run before its first head and the run from
+//   its last head in shared memory; (B) warp w carries request w's runs
+//   over the tile's threads (a segmented scan, lanes over 8 threads each,
+//   restarting at each thread with a head), writes the tile's tail (or
+//   whole-tile head) partial and, for a float sum, the tile's first row
+//   with a value that is not finite; (C) each thread with a head finishes
+//   the group that ends at its first head: into its slot, or the tile's
+//   head partial if that group began in an earlier tile. Two block
+//   barriers a batch, none a request.
 // - span: one block a request scans the head partials over the tiles,
 //   restarting after each tile with a head, so a group that spans tiles
 //   (the last group of a sorted page runs over its inactive tail) reads
-//   two partials however many tiles it covers.
+//   two partials however many tiles it covers; a float sum's block also
+//   takes the least of its tiles' first non-finite rows.
 // - finish: one thread a slot combines a tile-spanning group's tail
 //   partial with the scanned head partials (in one fixed order, so a
 //   float sum gives the same bits in every run), gathers the keys,
 //   finishes every output and writes the destination from the keys in
-//   registers. A division by a scalar (a decimal scale) is a product with
-//   its reciprocal, as torch computes it on the card; every product, sum
-//   and quotient of a finishing is rounded on its own (no contraction into
-//   a fused multiply-add), as torch's one-operation kernels round them.
+//   registers; a slot past num_groups writes zero data and no validity
+//   (its data is the kernel's to choose) without finishing. A division by
+//   a scalar (a decimal scale) is a product with its reciprocal, as torch
+//   computes it on the card; every product, sum and quotient of a
+//   finishing is rounded on its own (no contraction into a fused
+//   multiply-add), as torch's one-operation kernels round them.
 // A min_by/max_by request (kMatchLast) reads its group's extreme, so its
 // rows are served by a second round: after the first reduce and span, a
 // resolve pass (one thread a slot) writes each group's extreme, then a
@@ -92,6 +121,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <initializer_list>
 
 #include "agg_common.cuh"
 #include "join_keys.cuh"
@@ -105,6 +135,17 @@ using hopper::kWarps;
 
 constexpr int kSegItems = 8;                     // consecutive rows a thread
 constexpr int kSegRows = kThreads * kSegItems;   // rows a tile
+constexpr int kBatch = kWarps;                   // requests a batch: one a warp
+constexpr int kMaxMasks = 16;                    // distinct bool columns a call
+constexpr int kRunStride = kThreads + kThreads / kSegItems;  // padded: no bank conflicts
+constexpr int16_t kNoBadRow = kSegRows;          // a thread's rows are all finite
+constexpr uint64_t kNaNBits = 0x7FF8000000000000ull;
+// Rows the plain version's float cumsum scans in one pass (kernels.cumsum:
+// 4 blocks of CUMSUM_BLOCK = kSegRows rows); past them it scans by tiles.
+// The NaN rule reads the plain version's blocks as tiles, so a tile is
+// kernels.CUMSUM_BLOCK rows (hopper_kernels.bind checks it too).
+static_assert(kSegRows == 2048, "a tile is kernels.CUMSUM_BLOCK rows");
+constexpr int64_t kOneScanRows = 4 * kSegRows;
 
 }  // namespace
 
@@ -124,9 +165,25 @@ using hopper::AggRequestSet;
 using hopper::GroupKeySet;
 using namespace hopper::agg;
 
+// The reduce pass's plan, made on the host: the distinct bool columns the
+// requests' weights read (col[0] the page's activity), the columns each
+// request ANDs into its weight, a checksum's validity column, and the
+// requests of each round in order (round 0's, then round 1's min_by/max_by
+// rows).
+struct TilePlan {
+  const bool* col[kMaxMasks];
+  uint32_t bits[hopper::kMaxAggRequests];
+  int8_t null_col[hopper::kMaxAggRequests];  // -1: none
+  int8_t order[hopper::kMaxAggRequests];
+  int n_cols;
+  int n_round[2];
+  uint32_t round_cols[2];  // bit k: a request of the round reads column k
+};
+
 // Inclusive block scan of (flag, value) pairs in thread order: a flag
-// restarts the reduction at its own value.
-__device__ uint64_t seg_scan_op(int kind, bool flag, uint64_t v) {
+// restarts the reduction (of kind KIND) at its own value.
+template <int KIND>
+__device__ uint64_t seg_scan_op(bool flag, uint64_t v) {
   __shared__ uint64_t warp_v[kWarps];
   __shared__ int warp_f[kWarps];
   const int lane = threadIdx.x & 31;
@@ -137,7 +194,7 @@ __device__ uint64_t seg_scan_op(int kind, bool flag, uint64_t v) {
     const uint64_t vu = __shfl_up_sync(0xffffffffu, v, o);
     const int fu = __shfl_up_sync(0xffffffffu, f, o);
     if (lane >= o) {
-      if (!f) v = combine(kind, vu, v);
+      if (!f) v = combine_of<KIND>(vu, v);
       f |= fu;
     }
   }
@@ -148,7 +205,7 @@ __device__ uint64_t seg_scan_op(int kind, bool flag, uint64_t v) {
   __syncthreads();
   if (!f) {  // no flag in this warp up to this lane: the earlier warps' run
     for (int w = warp - 1; w >= 0; --w) {
-      v = combine(kind, warp_v[w], v);
+      v = combine_of<KIND>(warp_v[w], v);
       if (warp_f[w]) break;
     }
   }
@@ -179,16 +236,27 @@ __device__ int64_t block_exclusive(int64_t x, int64_t* total) {
   return before + inc - x;
 }
 
-// Each tile's new_group count.
+// Bit j set where row r0 + j (< n) of a bool column holds true: one 8-byte
+// load where the thread's rows are whole and aligned.
+__device__ __forceinline__ uint32_t load_bits(const bool* __restrict__ p, int64_t r0, int64_t n) {
+  const uint8_t* a = reinterpret_cast<const uint8_t*>(p) + r0;
+  uint32_t m = 0;
+  if (r0 + kSegItems <= n && (reinterpret_cast<uintptr_t>(a) & 7) == 0) {
+    const uint64_t w = *reinterpret_cast<const uint64_t*>(a);
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) m |= ((w >> (8 * j)) & 0xff) != 0 ? 1u << j : 0u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) m |= r0 + j < n && a[j] ? 1u << j : 0u;
+  }
+  return m;
+}
+
+// Each tile's new_group count (a thread's 8 rows in one load).
 __global__ void __launch_bounds__(kThreads)
 agg_count_kernel(const bool* __restrict__ new_group, int64_t n, int64_t* __restrict__ heads) {
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kSegRows;
-  int c = 0;
-#pragma unroll
-  for (int j = 0; j < kSegItems; ++j) {
-    const int64_t i = t0 + threadIdx.x + j * kThreads;
-    c += i < n && new_group[i];
-  }
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kSegRows + threadIdx.x * kSegItems;
+  const int c = __popc(load_bits(new_group, r0, n));
   int64_t total;
   block_exclusive(c, &total);
   if (threadIdx.x == 0) heads[blockIdx.x] = total;
@@ -219,31 +287,260 @@ agg_scan_kernel(const int64_t* __restrict__ heads, int64_t n_tiles, int64_t* __r
   if (threadIdx.x == 0) base[n_tiles] = carry;
 }
 
-// The reduction pass over one tile: starts of its heads, then every
-// request's complete groups into res, its head and tail partials.
 // Whether request kind ``kind`` is served in round ``phase`` (1: the
 // min_by/max_by rows, which read the first round's extremes).
 __device__ __forceinline__ bool in_phase(int kind, int phase) {
   return (kind == hopper::kMatchLast) == (phase == 1);
 }
 
+// The thread's 8 rows of a column of S-byte elements as S 64-bit words
+// (element j at byte j * S, rows past n 0): 16-byte loads (one 8-byte load
+// for S = 1) where the rows are whole and aligned, else one load a row.
+template <int S>
+__device__ __forceinline__ void load_words(const void* p, int64_t r0, int64_t n,
+                                           uint64_t (&w)[S]) {
+  constexpr int kAlign = S == 1 ? 8 : 16;
+  const unsigned char* a = static_cast<const unsigned char*>(p) + r0 * S;
+  if (r0 + kSegItems <= n && (reinterpret_cast<uintptr_t>(a) & (kAlign - 1)) == 0) {
+    if constexpr (S == 1) {
+      w[0] = *reinterpret_cast<const uint64_t*>(a);
+    } else {
+#pragma unroll
+      for (int k = 0; k < S / 2; ++k) {
+        const ulonglong2 x = reinterpret_cast<const ulonglong2*>(a)[k];
+        w[2 * k] = x.x;
+        w[2 * k + 1] = x.y;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) w[k] = 0;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    if (r0 + j >= n) break;
+    uint64_t e;
+    if constexpr (S == 8) {
+      e = reinterpret_cast<const uint64_t*>(a)[j];
+    } else if constexpr (S == 4) {
+      e = reinterpret_cast<const uint32_t*>(a)[j];
+    } else if constexpr (S == 2) {
+      e = reinterpret_cast<const uint16_t*>(a)[j];
+    } else {
+      e = a[j];
+    }
+    w[(j * S) / 8] |= e << (((j * S) % 8) * 8);
+  }
+}
+
+// Element j of load_words' words, as the column's raw bits.
+template <int S>
+__device__ __forceinline__ uint64_t word_elem(const uint64_t (&w)[S], int j) {
+  if constexpr (S == 8) {
+    return w[j];
+  } else {
+    return (w[(j * S) / 8] >> (((j * S) % 8) * 8)) & ((1ull << (8 * S)) - 1);
+  }
+}
+
+// The thread's 8 raw values of a column of KeyType ``type``: int64 for an
+// integer or bool column, a double's bits for a float one (a float32
+// widened), as load_int and load_double read them.
+__device__ __forceinline__ void load_raw(int type, const void* p, int64_t r0, int64_t n,
+                                         uint64_t (&v)[kSegItems]) {
+  switch (type) {
+    case hopper::kI64:
+    case hopper::kF64: {
+      uint64_t w[8];
+      load_words<8>(p, r0, n, w);
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) v[j] = w[j];
+      break;
+    }
+    case hopper::kI32:
+    case hopper::kF32: {
+      uint64_t w[4];
+      load_words<4>(p, r0, n, w);
+      const bool f = type == hopper::kF32;
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) {
+        const uint32_t e = static_cast<uint32_t>(word_elem<4>(w, j));
+        v[j] = f ? bits_of(static_cast<double>(__uint_as_float(e)))
+                 : static_cast<uint64_t>(static_cast<int64_t>(static_cast<int32_t>(e)));
+      }
+      break;
+    }
+    case hopper::kI16: {
+      uint64_t w[2];
+      load_words<2>(p, r0, n, w);
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) {
+        v[j] = static_cast<uint64_t>(
+            static_cast<int64_t>(static_cast<int16_t>(word_elem<2>(w, j))));
+      }
+      break;
+    }
+    default: {  // kI8, kBool
+      uint64_t w[1];
+      load_words<1>(p, r0, n, w);
+      const bool b = type == hopper::kBool;
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) {
+        const uint64_t e = word_elem<1>(w, j);
+        v[j] = b ? (e != 0 ? 1ull : 0ull)
+                 : static_cast<uint64_t>(static_cast<int64_t>(static_cast<int8_t>(e)));
+      }
+      break;
+    }
+  }
+}
+
+// Request r's weight bits over the thread's rows (and, for a checksum, the
+// bits where its value is not NULL): its columns' masks from the tile's
+// table. The predicate on the value is applied by the caller.
+__device__ __forceinline__ uint32_t weight_bits(const TilePlan& plan, int r,
+                                                const uint8_t (*mask_s)[kThreads],
+                                                uint32_t inrange, uint32_t* not_null) {
+  uint32_t w = inrange, nn = 0xffu;
+  for (uint32_t b = plan.bits[r]; b != 0; b &= b - 1) w &= mask_s[__ffs(b) - 1][threadIdx.x];
+  if (plan.null_col[r] >= 0) nn = mask_s[plan.null_col[r]][threadIdx.x];
+  *not_null = nn;
+  return w;
+}
+
+// Phase A's contributions of request q over the thread's rows (rows past n
+// and unweighted rows hold the identity) from its raw values x (read with
+// wide loads; contribs may overwrite them): contribs, or for a
+// min_by/max_by row its order key against its group's extreme. For a float sum, the first weighted row whose
+// double is not finite (its offset in the tile, kNoBadRow where none).
+__device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
+                                                uint32_t not_null, uint32_t h, int64_t r0,
+                                                int64_t n, int64_t g0, int64_t out_cap,
+                                                const uint64_t* __restrict__ ext,
+                                                uint64_t (&x)[kSegItems],
+                                                uint64_t (&c)[kSegItems], int16_t* bad) {
+  if (q.kind == hopper::kMatchLast) {
+    const bool f = is_float_type(q.type);
+    const uint64_t ident = static_cast<uint64_t>(q.identity);
+    int64_t gj = g0;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      gj += h >> j & 1u;
+      c[j] = (w >> j & 1u) && gj >= 0 && gj < out_cap && raw_order_key(x[j], f) == ext[gj]
+                 ? static_cast<uint64_t>(r0 + j) : ident;
+    }
+    return;
+  }
+  const uint32_t nonfinite = contribs<kSegItems>(
+      q, w, not_null, x, [&](int j) { return r0 + j; },
+      [&](uint64_t (&x2)[kSegItems]) { load_raw(q.type2, q.values2, r0, n, x2); }, c);
+  *bad = nonfinite != 0 ? static_cast<int16_t>((r0 & (kSegRows - 1)) + __ffs(nonfinite) - 1)
+                        : kNoBadRow;
+}
+
+// Phase A's runs of a request of kind KIND over the thread's rows: the
+// groups complete inside the thread into res_r, the run before the
+// thread's first head and the run from its last head.
+template <int KIND>
+__device__ __forceinline__ void thread_runs(const uint64_t (&c)[kSegItems], uint64_t ident,
+                                            uint32_t h, int64_t g0, int64_t out_cap,
+                                            uint64_t* __restrict__ res_r, uint64_t* before,
+                                            uint64_t* run) {
+  uint64_t acc = ident;
+  if (h == 0) {  // most threads: no group starts in their rows
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) acc = combine_of<KIND>(acc, c[j]);
+    *before = ident;
+    *run = acc;
+    return;
+  }
+  int64_t g = g0;
+  uint64_t first = ident;
+  bool seen = false;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    if (h >> j & 1u) {
+      if (!seen) {
+        first = acc;
+        seen = true;
+      } else if (g < out_cap) {
+        res_r[g] = acc;
+      }
+      ++g;
+      acc = ident;
+    }
+    acc = combine_of<KIND>(acc, c[j]);
+  }
+  *before = first;
+  *run = acc;
+}
+
+// Phase B of one request (kind KIND) by one warp: the runs of the tile's
+// threads (run_col, padded) become in place each thread's carry, the
+// combination of the runs since the last thread with a head before it
+// (the identity where none), in one fixed order: each lane's 8 threads in
+// turn, then a segmented shuffle scan over the lanes. Returns, to lane 31,
+// the tile's inclusive run at its last thread.
+template <int KIND>
+__device__ __forceinline__ uint64_t carry_scan(uint64_t* run_col, const uint8_t* seen_s,
+                                               uint64_t ident) {
+  const int lane = threadIdx.x & 31;
+  uint64_t x[kSegItems];
+  bool f[kSegItems];
+  uint64_t acc = ident;
+  bool lf = false;
+#pragma unroll
+  for (int i = 0; i < kSegItems; ++i) {
+    const int t = lane * kSegItems + i;
+    x[i] = run_col[t + lane];
+    f[i] = seen_s[t] != 0;
+    acc = f[i] ? x[i] : combine_of<KIND>(acc, x[i]);
+    lf = lf || f[i];
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint64_t up = __shfl_up_sync(0xffffffffu, acc, o);
+    const int uf = __shfl_up_sync(0xffffffffu, static_cast<int>(lf), o);
+    if (lane >= o) {
+      if (!lf) acc = combine_of<KIND>(up, acc);
+      lf = lf || uf;
+    }
+  }
+  uint64_t carry = __shfl_up_sync(0xffffffffu, acc, 1);
+  if (lane == 0) carry = ident;
+#pragma unroll
+  for (int i = 0; i < kSegItems; ++i) {
+    run_col[lane * kSegItems + i + lane] = carry;
+    carry = f[i] ? x[i] : combine_of<KIND>(carry, x[i]);
+  }
+  return carry;
+}
+
+// The reduction pass over one tile: starts of its heads, then each round's
+// requests in batches (phases A, B and C above): complete groups into res,
+// the tile's head and tail partials, and each float sum's first tile row
+// whose double is not finite into tilebad (INT64_MAX where none).
 __global__ void __launch_bounds__(kThreads)
-agg_reduce_kernel(AggRequestSet reqs, int phase, const bool* __restrict__ new_group,
-                  const bool* __restrict__ active, int64_t n, int64_t out_cap, int64_t n_tiles,
-                  const int64_t* __restrict__ base, int64_t* __restrict__ starts,
-                  uint64_t* __restrict__ res, uint64_t* __restrict__ head,
-                  uint64_t* __restrict__ tail, const uint64_t* __restrict__ extremes) {
-  __shared__ uint64_t incl[kThreads];
+agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
+                  const bool* __restrict__ new_group, int64_t n, int64_t out_cap,
+                  int64_t n_tiles, const int64_t* __restrict__ base,
+                  int64_t* __restrict__ starts, uint64_t* __restrict__ res,
+                  uint64_t* __restrict__ head, uint64_t* __restrict__ tail,
+                  int64_t* __restrict__ tilebad, const uint64_t* __restrict__ extremes) {
+  __shared__ uint64_t run_s[kBatch][kRunStride];
+  __shared__ uint64_t before_s[kBatch][kThreads];
+  __shared__ int16_t bad_s[kBatch][kThreads];
+  __shared__ uint8_t mask_s[kMaxMasks][kThreads];
+  __shared__ uint8_t seen_s[kThreads];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int64_t tile = blockIdx.x;
   const int64_t t0 = tile * kSegRows;
   const int64_t r0 = t0 + static_cast<int64_t>(threadIdx.x) * kSegItems;
-  bool h[kSegItems];
-  int nh = 0;
-#pragma unroll
-  for (int j = 0; j < kSegItems; ++j) {
-    h[j] = r0 + j < n && new_group[r0 + j];
-    nh += h[j];
-  }
+  const int first = phase == 0 ? 0 : plan.n_round[0];
+  const int count = plan.n_round[phase];
+  const uint32_t h = load_bits(new_group, r0, n);
+  const int nh = __popc(h);
   int64_t tile_heads;
   const int64_t excl = block_exclusive(nh, &tile_heads);
   const int64_t b = base[tile];
@@ -252,87 +549,92 @@ agg_reduce_kernel(AggRequestSet reqs, int phase, const bool* __restrict__ new_gr
     int64_t g = g0;
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
-      if (h[j] && ++g <= out_cap) starts[g] = r0 + j;
+      if (h >> j & 1u && ++g <= out_cap) starts[g] = r0 + j;
     }
   }
-  for (int r = 0; r < reqs.n; ++r) {
-    const AggRequest& q = reqs.req[r];
-    if (!in_phase(q.kind, phase)) continue;  // uniform over the block
-    const uint64_t ident = static_cast<uint64_t>(q.identity);
-    uint64_t c[kSegItems];
-    if (phase == 1) {
-      // each row against its group's extreme (a row of no group: none)
-      const uint64_t* ext = extremes + static_cast<int64_t>(r) * out_cap;
-      int64_t gj = g0;
+  seen_s[threadIdx.x] = nh > 0;
+  for (int k = 0; k < plan.n_cols; ++k) {
+    if (plan.round_cols[phase] >> k & 1u) mask_s[k][threadIdx.x] = load_bits(plan.col[k], r0, n);
+  }
+  const uint32_t inrange =
+      r0 >= n ? 0u : (n - r0 >= kSegItems ? 0xffu : (1u << (n - r0)) - 1u);
+  for (int k0 = 0; k0 < count; k0 += kBatch) {
+    const int nb = count - k0 < kBatch ? count - k0 : kBatch;
+    for (int bi = 0; bi < nb; ++bi) {  // A
+      const int r = plan.order[first + k0 + bi];
+      const AggRequest& q = reqs.req[r];
+      uint32_t not_null;
+      const uint32_t w = weight_bits(plan, r, mask_s, inrange, &not_null);
+      uint64_t x[kSegItems], c[kSegItems];
+      if (q.values != nullptr) {
+        load_raw(q.type, q.values, r0, n, x);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kSegItems; ++j) {
-        gj += h[j];
-        c[j] = r0 + j < n && gj >= 0 && gj < out_cap ? contribution(q, active, r0 + j, ext + gj)
-                                                     : ident;
+        for (int j = 0; j < kSegItems; ++j) x[j] = 0;
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kSegItems; ++j) {
-        c[j] = r0 + j < n ? contribution(q, active, r0 + j) : ident;
-      }
+      int16_t bad = kNoBadRow;
+      thread_contribs(q, w, not_null, h, r0, n, g0, out_cap, extremes + r * out_cap, x, c, &bad);
+      uint64_t before, run;
+      with_kind(q.kind, [&](auto tag) {
+        thread_runs<decltype(tag)::kind>(c, static_cast<uint64_t>(q.identity), h, g0, out_cap,
+                                         res + r * out_cap, &before, &run);
+      });
+      run_s[bi][threadIdx.x + (threadIdx.x >> 3)] = run;
+      before_s[bi][threadIdx.x] = before;
+      bad_s[bi][threadIdx.x] = bad;
     }
-    // runs inside the thread: a group between two of its heads is complete
-    int64_t g = g0;
-    uint64_t run = ident, before = ident;
-    bool seen = false;
-#pragma unroll
-    for (int j = 0; j < kSegItems; ++j) {
-      if (h[j]) {
-        if (!seen) {
-          before = run;
-          seen = true;
-        } else if (g < out_cap) {
-          res[r * out_cap + g] = run;
-        }
-        ++g;
-        run = ident;
-      }
-      run = combine(q.kind, run, c[j]);
-    }
-    const uint64_t inc = seg_scan_op(q.kind, seen, run);
-    incl[threadIdx.x] = inc;
     __syncthreads();
-    const uint64_t carry = threadIdx.x == 0 ? ident : incl[threadIdx.x - 1];
-    if (seen) {
-      // the group that ends at this thread's first head: complete if its
-      // head lies in this tile, else the tile's head partial
-      const uint64_t total = combine(q.kind, carry, before);
-      if (g0 >= b) {
-        if (g0 < out_cap) res[r * out_cap + g0] = total;
-      } else {
-        head[r * n_tiles + tile] = total;
+    if (warp < nb) {  // B
+      const int r = plan.order[first + k0 + warp];
+      const AggRequest& q = reqs.req[r];
+      uint64_t incl = 0;
+      with_kind(q.kind, [&](auto tag) {
+        incl = carry_scan<decltype(tag)::kind>(run_s[warp], seen_s,
+                                               static_cast<uint64_t>(q.identity));
+      });
+      if (lane == 31) {
+        if (tile_heads > 0) {
+          tail[r * n_tiles + tile] = incl;  // from the tile's last head to its end
+        } else {
+          head[r * n_tiles + tile] = incl;  // the whole tile
+        }
+      }
+      if (q.kind == hopper::kSumFloat) {
+        int m = kNoBadRow;
+#pragma unroll
+        for (int i = 0; i < kSegItems; ++i) {
+          const int x = bad_s[warp][lane * kSegItems + i];
+          m = x < m ? x : m;
+        }
+        m = __reduce_min_sync(0xffffffffu, m);
+        if (lane == 0) tilebad[r * n_tiles + tile] = m < kNoBadRow ? t0 + m : INT64_MAX;
       }
     }
-    if (threadIdx.x == kThreads - 1) {
-      if (tile_heads > 0) {
-        tail[r * n_tiles + tile] = inc;  // from the tile's last head to its end
-      } else {
-        head[r * n_tiles + tile] = inc;  // the whole tile
+    __syncthreads();
+    if (nh > 0) {  // C
+      for (int bi = 0; bi < nb; ++bi) {
+        // the group that ends at this thread's first head: complete if its
+        // head lies in this tile, else the tile's head partial
+        const int r = plan.order[first + k0 + bi];
+        const uint64_t total = combine(reqs.req[r].kind,
+                                       run_s[bi][threadIdx.x + (threadIdx.x >> 3)],
+                                       before_s[bi][threadIdx.x]);
+        if (g0 >= b) {
+          if (g0 < out_cap) res[r * out_cap + g0] = total;
+        } else {
+          head[r * n_tiles + tile] = total;
+        }
       }
     }
-    __syncthreads();  // incl is read before the next request writes it
   }
 }
 
-// One block a request: the head partials in place become, for each tile t,
-// the combination of the head partials of the tiles since the last tile
-// with a head before t (a segmented scan over the tiles, restarting after
-// each tile with a head), so a group that runs from tile ts to tile te
-// reads its tail partial and the scan at te: two loads however many tiles
-// it spans.
-__global__ void __launch_bounds__(kThreads)
-agg_span_kernel(AggCombine reqs, int phase, const int64_t* __restrict__ base, int64_t n_tiles,
-                uint64_t* __restrict__ head) {
-  __shared__ uint64_t incl[kThreads];
-  const int kind = reqs.kind[blockIdx.x];
-  if (!in_phase(kind, phase)) return;  // the other round's request
-  const uint64_t ident = static_cast<uint64_t>(reqs.identity[blockIdx.x]);
-  uint64_t* h = head + static_cast<int64_t>(blockIdx.x) * n_tiles;
+// The span pass's scan of one request's head partials h over the tiles
+// (the kind's reduction, a restart after each tile with a head).
+template <int KIND>
+__device__ __forceinline__ void span_scan(uint64_t ident, uint64_t* __restrict__ h,
+                                          const int64_t* __restrict__ base, int64_t n_tiles,
+                                          uint64_t* incl) {
   uint64_t carry = ident;
   for (int64_t c0 = 0; c0 < n_tiles; c0 += kThreads * kSegItems) {
     uint64_t v[kSegItems];
@@ -345,28 +647,66 @@ agg_span_kernel(AggCombine reqs, int phase, const int64_t* __restrict__ base, in
       v[j] = t < n_tiles ? h[t] : ident;
       // a restart: the tile before t has a head
       f[j] = t < n_tiles && t > 0 && base[t] > base[t - 1];
-      if (threadIdx.x == 0 && j == 0 && !f[0]) v[0] = combine(kind, carry, v[0]);
+      if (threadIdx.x == 0 && j == 0 && !f[0]) v[0] = combine_of<KIND>(carry, v[0]);
       if (f[j]) {
         run = v[j];
         any = true;
       } else {
-        run = combine(kind, run, v[j]);
+        run = combine_of<KIND>(run, v[j]);
       }
       v[j] = run;
       f[j] = any;  // from here on: whether a restart lies in this thread up to j
     }
-    const uint64_t inc = seg_scan_op(kind, any, run);
+    const uint64_t inc = seg_scan_op<KIND>(any, run);
     incl[threadIdx.x] = inc;
     __syncthreads();
     const uint64_t prefix = threadIdx.x == 0 ? ident : incl[threadIdx.x - 1];
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
       const int64_t t = c0 + static_cast<int64_t>(threadIdx.x) * kSegItems + j;
-      if (t < n_tiles) h[t] = f[j] ? v[j] : combine(kind, prefix, v[j]);
+      if (t < n_tiles) h[t] = f[j] ? v[j] : combine_of<KIND>(prefix, v[j]);
     }
     carry = incl[kThreads - 1];
     __syncthreads();  // incl is read before the next chunk writes it
   }
+}
+
+// One block a request: the head partials in place become, for each tile t,
+// the combination of the head partials of the tiles since the last tile
+// with a head before t (a segmented scan over the tiles, restarting after
+// each tile with a head), so a group that runs from tile ts to tile te
+// reads its tail partial and the scan at te: two loads however many tiles
+// it spans.
+__global__ void __launch_bounds__(kThreads)
+agg_span_kernel(AggCombine reqs, int phase, const int64_t* __restrict__ base, int64_t n_tiles,
+                uint64_t* __restrict__ head, const int64_t* __restrict__ tilebad,
+                int64_t* __restrict__ bad) {
+  __shared__ uint64_t incl[kThreads];
+  __shared__ int64_t warp_min[kWarps];
+  const int kind = reqs.kind[blockIdx.x];
+  if (!in_phase(kind, phase)) return;  // the other round's request
+  if (kind == hopper::kSumFloat) {
+    // the page's first weighted row whose double is not finite
+    const int64_t* tb = tilebad + static_cast<int64_t>(blockIdx.x) * n_tiles;
+    int64_t m = INT64_MAX;
+    for (int64_t t = threadIdx.x; t < n_tiles; t += kThreads) m = tb[t] < m ? tb[t] : m;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t x = __shfl_down_sync(0xffffffffu, m, o);
+      m = x < m ? x : m;
+    }
+    if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kWarps; ++w) m = warp_min[w] < m ? warp_min[w] : m;
+      bad[blockIdx.x] = m;
+    }
+  }
+  with_kind(kind, [&](auto tag) {
+    span_scan<decltype(tag)::kind>(static_cast<uint64_t>(reqs.identity[blockIdx.x]),
+                                   head + static_cast<int64_t>(blockIdx.x) * n_tiles, base,
+                                   n_tiles, incl);
+  });
 }
 
 
@@ -427,14 +767,18 @@ agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
   }
 }
 
-// One thread a slot: the group's value of every request, the keys, the
-// outputs, group_exists and the destination.
+// One thread a slot: the group's value of every request (a float sum NaN
+// where the plain cumsum difference gives NaN: from the page's first bad
+// row ``bad`` and the tiles' ``tilebad``, as the header says),
+// the keys, the outputs, group_exists and the destination. A slot past
+// num_groups writes zero data and no validity, without finishing.
 __global__ void __launch_bounds__(kThreads)
 agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t n,
                   int64_t out_cap, int64_t n_tiles, const int64_t* __restrict__ base,
                   const int64_t* __restrict__ num_groups, int64_t* __restrict__ starts,
                   const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
-                  const uint64_t* __restrict__ tail, bool* __restrict__ group_exists,
+                  const uint64_t* __restrict__ tail, const int64_t* __restrict__ tilebad,
+                  const int64_t* __restrict__ bad, bool* __restrict__ group_exists,
                   int32_t* __restrict__ dest) {
   const int64_t total = base[n_tiles];
   const int64_t ng = *num_groups;
@@ -460,9 +804,24 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
       }
       dest[g] = hopper::partition::dest_of(acc, exists, keys.n_parts);
     }
+    if (!exists) {
+      for (int o = 0; o < outs.n; ++o) {
+        const AggOutput& out = outs.out[o];
+        if (out.op == hopper::kDigest) continue;  // the digest pass writes it
+        store_value(out.data, out.out_type, g, 0ull, false);
+        out.valid[g] = false;
+      }
+      continue;
+    }
     uint64_t v[hopper::kMaxAggRequests];
     for (int r = 0; r < reqs.n; ++r) {
       v[r] = slot_value(reqs, r, g, sp, out_cap, n_tiles, res, head, tail);
+      if (reqs.kind[r] == hopper::kSumFloat && out_cap > 1 && bad[r] != INT64_MAX &&
+          (n > kOneScanRows ? sp.start >= bad[r] / kSegRows * kSegRows ||
+                                  tilebad[r * n_tiles + sp.te] != INT64_MAX
+                            : sp.start >= bad[r])) {
+        v[r] = kNaNBits;  // as the plain cumsum difference
+      }
     }
     for (int o = 0; o < outs.n; ++o) {
       hopper::agg::finish_output(outs.out[o], v, g, n, sp.start);
@@ -572,18 +931,78 @@ static std::atomic<int64_t> g_agg_stream_ops{0};
 
 extern "C" int64_t segment_agg_stream_ops() { return g_agg_stream_ops.load(); }
 
+// Words of segment_agg's ``partials`` for ``nr`` requests: each request's
+// complete groups (out_cap), head and tail partials and first non-finite
+// rows (n_tiles each), its first non-finite row on the page, then with a
+// min_by/max_by request (``match``) its extremes (out_cap).
+extern "C" int64_t segment_agg_partial_words(int nr, int64_t n, int64_t out_cap, int match) {
+  const int64_t n_tiles = (n + kSegRows - 1) / kSegRows;
+  return static_cast<int64_t>(nr) * (out_cap + 3 * n_tiles + 1 + (match ? out_cap : 0));
+}
+
+extern "C" int segment_agg_max_masks() { return kMaxMasks; }
+
+// The reduce pass's plan: the distinct bool columns of the requests'
+// weights (the activity first) and each round's requests. False where the
+// columns are more than kMaxMasks (the wrapper raises before that).
+static bool tile_plan(const hopper::AggRequestSet* reqs, const bool* active, TilePlan* out) {
+  TilePlan plan{};
+  plan.col[0] = active;
+  plan.n_cols = 1;
+  auto column = [&](const bool* c) {
+    for (int k = 0; k < plan.n_cols; ++k) {
+      if (plan.col[k] == c) return k;
+    }
+    if (plan.n_cols == kMaxMasks) return -1;
+    plan.col[plan.n_cols] = c;
+    return plan.n_cols++;
+  };
+  int at = 0;
+  for (int round = 0; round < 2; ++round) {
+    for (int r = 0; r < reqs->n; ++r) {
+      const hopper::AggRequest& q = reqs->req[r];
+      if ((q.kind == hopper::kMatchLast) != (round == 1)) continue;
+      plan.order[at++] = static_cast<int8_t>(r);
+      ++plan.n_round[round];
+      const bool checksum = q.kind == hopper::kChecksum;
+      uint32_t bits = q.resorted ? 0u : 1u;
+      for (const bool* c : {q.filter, q.filter_valid, checksum ? nullptr : q.valid, q.valid2}) {
+        if (c == nullptr) continue;
+        const int k = column(c);
+        if (k < 0) return false;
+        bits |= 1u << k;
+      }
+      plan.null_col[r] = -1;
+      if (checksum && q.valid != nullptr) {
+        const int k = column(q.valid);
+        if (k < 0) return false;
+        plan.null_col[r] = static_cast<int8_t>(k);
+      }
+      plan.bits[r] = bits;
+      plan.round_cols[round] |= bits | (plan.null_col[r] >= 0 ? 1u << plan.null_col[r] : 0u);
+    }
+  }
+  *out = plan;
+  return true;
+}
+
+// Records event k of ``events`` (none where null) on stream s.
+static void mark(void* const* events, int k, cudaStream_t s) {
+  if (events != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(events[k]), s);
+}
+
 // The whole reduction on ``stream``. ``scratch`` (int64 [2 * n_tiles + 1])
 // holds the tiles' head counts and bases; ``starts`` (int64 [out_cap + 1]);
-// ``partials`` (uint64 [requests * (out_cap + 2 * n_tiles)], and requests *
-// out_cap more with a min_by/max_by request): the complete groups' values,
-// the head and the tail partials, then the extremes the second round
-// reads. Every output is written for all out_cap slots. Returns the first
-// CUDA error, 0 on success.
+// ``partials`` (segment_agg_partial_words). Every output is written for all
+// out_cap slots. ``events`` (7, or null) are recorded at the bounds of the
+// count, scan, reduce, span, second round (resolve, reduce, span; empty
+// without a min_by/max_by request) and finish (with the digest passes).
+// Returns the first CUDA error, 0 on success.
 extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggOutputSet* outs,
                            const hopper::GroupKeySet* keys, const void* new_group,
                            const void* active, const void* num_groups, int64_t n,
                            int64_t out_cap, void* scratch, void* starts, void* partials,
-                           void* group_exists, void* dest, void* stream) {
+                           void* group_exists, void* dest, void* const* events, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || out_cap <= 0) return 0;
   const int64_t n_tiles = (n + kSegRows - 1) / kSegRows;
@@ -593,10 +1012,15 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   const int64_t nr = reqs->n;
   uint64_t* head = res + nr * out_cap;
   uint64_t* tail = head + nr * n_tiles;
-  uint64_t* extremes = tail + nr * n_tiles;
+  int64_t* tilebad = reinterpret_cast<int64_t*>(tail + nr * n_tiles);
+  int64_t* bad = tilebad + nr * n_tiles;
+  uint64_t* extremes = reinterpret_cast<uint64_t*>(bad + nr);
   const bool* ng = static_cast<const bool*>(new_group);
-  const bool* act = static_cast<const bool*>(active);
   int64_t* st = static_cast<int64_t*>(starts);
+  TilePlan plan;
+  if (!tile_plan(reqs, static_cast<const bool*>(active), &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   AggCombine comb{};
   comb.n = reqs->n;
   bool match = false;
@@ -606,13 +1030,16 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
     comb.ref[r] = reqs->req[r].ref;
     match = match || reqs->req[r].kind == hopper::kMatchLast;
   }
+  mark(events, 0, s);
   agg_count_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(ng, n, heads);
   ++g_agg_stream_ops;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  mark(events, 1, s);
   agg_scan_kernel<<<1, kThreads, 0, s>>>(heads, n_tiles, base);
   ++g_agg_stream_ops;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  mark(events, 2, s);
   for (int phase = 0; phase < (match ? 2 : 1); ++phase) {
     if (phase == 1) {
       agg_resolve_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
@@ -621,19 +1048,24 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-        *reqs, phase, ng, act, n, out_cap, n_tiles, base, st, res, head, tail, extremes);
+        *reqs, plan, phase, ng, n, out_cap, n_tiles, base, st, res, head, tail, tilebad,
+        extremes);
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (phase == 0) mark(events, 3, s);
     if (nr > 0) {
       agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(comb, phase, base, n_tiles,
-                                                                      head);
+                                                                      head, tilebad, bad);
       ++g_agg_stream_ops;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
+    if (phase == 0) mark(events, 4, s);
   }
+  mark(events, 5, s);
   agg_finish_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
       comb, *outs, *keys, n, out_cap, n_tiles, base, static_cast<const int64_t*>(num_groups),
-      st, res, head, tail, static_cast<bool*>(group_exists), static_cast<int32_t*>(dest));
+      st, res, head, tail, tilebad, bad, static_cast<bool*>(group_exists),
+      static_cast<int32_t*>(dest));
   ++g_agg_stream_ops;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   for (int o = 0; o < outs->n; ++o) {
@@ -643,5 +1075,6 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
+  mark(events, 6, s);
   return 0;
 }

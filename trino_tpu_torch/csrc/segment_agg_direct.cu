@@ -24,28 +24,32 @@
 //   key k at g  = its code in g's mixed-radix digits, cast to the key's
 //                 storage, valid where the code is not the NULL slot
 //   outputs     = agg_common.cuh's finish_output, segment_agg's finishing
-// Integer results are bit-identical; float sums add in a fixed order (row
-// order inside a warp's run, then warps, then the blocks in a fixed tree),
-// so two runs give the same bits, within rounding of the plain scatter's
-// blocked order.
+// Integer results are bit-identical; float sums add in a fixed order (a
+// fixed tree over a step's lanes of one group, a warp's steps in row
+// order, the warps in order, then the blocks in a fixed tree), so two runs
+// give the same bits, within rounding of the plain scatter's blocked order.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. The keys, the activity and each
 // request's columns are read once; the outputs are G rows.
 //
 // Design: two launches.
-// - reduce: a fixed grid (two blocks an SM, so the order of the float sums
-//   depends only on n and the card) over contiguous chunks of rows; each
-//   warp takes a contiguous run of its block's chunk, 32 rows a step. The
-//   first pass over the run computes each row's gid (kMaxDirectGroups for an
-//   inactive row) into an int16 scratch, which later passes read instead of
-//   the keys. For each request (and first, the active count that gives
-//   exists), a step's lanes are grouped by gid (__match_any_sync); the
-//   lowest lane of each group folds its peers' contributions in lane order
-//   into the warp's own accumulator for that gid in shared memory
-//   (kWarps x G words, 16 KB at G = 256, under the 48 KB default, so the
-//   request set is not split). No atomic: the warp owns its accumulators.
-//   The block then folds its warps' accumulators in warp order into its
-//   partial of the request.
+// - reduce: a grid sized for occupancy at a fixed shared memory budget (so
+//   the order of the float sums depends only on n and the card), each
+//   block a contiguous chunk of rows. A pass serves as many requests (the
+//   active count, which gives exists, first) as the budget holds (kWarps x
+//   G accumulator words a request: 512 / G requests);
+//   after the first pass each row's gid comes from an int16 scratch the
+//   first pass wrote, not from the keys. Each request's contribution and
+//   reduction are specialised on its kind, a row's columns read together.
+//   No lane folds its peers in turn, and no atomic.
+//   The warps take 32 rows a step, each warp owning its G accumulator
+//   words of a request; a step's lanes are grouped by gid
+//   (__match_any_sync) and each group's contributions reduced in a fixed
+//   tree over the group's ranks (round d: rank r, a multiple of 2d, takes
+//   rank r + d's partial by a shuffle; as many rounds as the warp's
+//   largest group needs), then the group's lowest lane adds the result to
+//   the warp's accumulator for that gid. The block folds its warps'
+//   accumulators in warp order into its partial of the request.
 // - finish: one block a group; its threads fold the blocks' partials of
 //   each request in one fixed order (strided over the blocks, then a
 //   shuffle tree and the warps in order), so the G groups' folds run in
@@ -88,7 +92,10 @@ using hopper::kThreads;
 using hopper::kWarps;
 using namespace hopper::agg;
 
-constexpr int kDirectBlocksPerSm = 2;
+// Bytes of warp-private accumulators a reduce block holds (a pass serves
+// as many requests as fit).
+constexpr int kDirectSmemBudget = 32 * 1024;
+constexpr int kNoGroup = hopper::kMaxDirectGroups;
 
 __device__ __forceinline__ int group_of(const DirectKeySet& keys, int64_t i) {
   int gid = 0;
@@ -96,73 +103,110 @@ __device__ __forceinline__ int group_of(const DirectKeySet& keys, int64_t i) {
     const hopper::KeyCol& c = keys.col[k];
     const int d = keys.domain[k];
     const int size = d - 1;
-    int code = size;
-    if (c.valid[i]) {
-      code = static_cast<int32_t>(load_int(c.type, c.data, i));
-      const int hi = size - 1 > 0 ? size - 1 : 0;
-      code = code < 0 ? 0 : (code > hi ? hi : code);
-    }
-    gid = gid * d + code;
+    // the data is read beside its validity, not after it
+    int code = static_cast<int32_t>(load_int(c.type, c.data, i));
+    const int hi = size - 1 > 0 ? size - 1 : 0;
+    code = code < 0 ? 0 : (code > hi ? hi : code);
+    gid = gid * d + (c.valid[i] ? code : size);
   }
   return gid;
+}
+
+// Requests a reduce pass serves at G groups (the active count counts as one).
+__host__ __device__ __forceinline__ int direct_per_pass(int G) {
+  const int k = kDirectSmemBudget / (kWarps * G * static_cast<int>(sizeof(uint64_t)));
+  return k < 1 ? 1 : k;
+}
+
+// One step of a request of kind KIND for a lane of gid ``gid``: its
+// contribution c reduced over its group's lanes in the fixed tree (bits
+// 5k..5k+4 of ``src``: the lane of rank rank + 2^k in the group), added by
+// the group's lowest lane to the warp's accumulator.
+template <int KIND>
+__device__ __forceinline__ void direct_step(uint64_t c, int gid, int G, int rank, int cnt,
+                                            int top, uint32_t src, uint64_t* __restrict__ acc) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int d = 1 << k;
+    if (d >= top) break;  // uniform over the warp
+    const bool take = (rank & (2 * d - 1)) == 0 && rank + d < cnt;
+    const uint64_t other = __shfl_sync(0xffffffffu, c, static_cast<int>(src >> (5 * k) & 31u));
+    if (take) c = combine_of<KIND>(c, other);
+  }
+  if (gid < G && rank == 0) acc[gid] = combine_of<KIND>(acc[gid], c);
 }
 
 __global__ void __launch_bounds__(kThreads)
 direct_reduce_kernel(AggRequestSet reqs, DirectKeySet keys, const bool* __restrict__ active,
                      int64_t n, int G, int64_t chunk, int16_t* __restrict__ gids,
                      uint64_t* __restrict__ partials) {
-  extern __shared__ uint64_t acc[];  // [kWarps][G]
-  __shared__ uint64_t lanes[kWarps][32];
+  extern __shared__ uint64_t acc[];  // [per pass][kWarps][G]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // the block's rows from b0: a 32-bit count (a chunk is n over the grid,
+  // far below 2^31), so no 64-bit bound stays live through the steps
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int64_t b1 = b0 + chunk < n ? b0 + chunk : n;
-  // the warp's run: a contiguous share of the block's chunk, whole steps
-  const int64_t share = ((chunk + kWarps - 1) / kWarps + 31) / 32 * 32;
-  const int64_t w0 = b0 + warp * share < b1 ? b0 + warp * share : b1;
-  const int64_t w1 = w0 + share < b1 ? w0 + share : b1;
-  AggRequest count_active{};
-  count_active.kind = hopper::kCount;
-  for (int r = -1; r < reqs.n; ++r) {
-    const AggRequest& q = r < 0 ? count_active : reqs.req[r];
-    const int kind = q.kind;
-    const uint64_t ident = static_cast<uint64_t>(q.identity);
-    for (int k = threadIdx.x; k < kWarps * G; k += kThreads) acc[k] = ident;
+  const int rows = static_cast<int>(b0 + chunk < n ? chunk : (n > b0 ? n - b0 : 0));
+  const int total = reqs.n + 1;  // the active count, then each request
+  const int per_pass = direct_per_pass(G);
+  const bool scratch = total > per_pass;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned above = lane == 31 ? 0u : ~((2u << lane) - 1u);
+  for (int p0 = 0; p0 < total; p0 += per_pass) {
+    const int np = total - p0 < per_pass ? total - p0 : per_pass;
+    for (int k = threadIdx.x; k < np * kWarps * G; k += kThreads) {
+      const int r = p0 + k / (kWarps * G) - 1;
+      acc[k] = r < 0 ? 0ull : static_cast<uint64_t>(reqs.req[r].identity);
+    }
     __syncthreads();
-    uint64_t* mine = acc + warp * G;
-    for (int64_t base = w0; base < w1; base += 32) {
-      const int64_t i = base + lane;
-      int gid = hopper::kMaxDirectGroups;
-      if (i < w1) {
-        if (r < 0) {
-          gid = active[i] ? group_of(keys, i) : hopper::kMaxDirectGroups;
-          gids[i] = static_cast<int16_t>(gid);
+    for (int step = warp * 32; step < rows; step += kThreads) {
+      const int64_t i = b0 + step + lane;
+      int gid = kNoGroup;
+      if (step + lane < rows) {
+        if (p0 == 0) {
+          gid = active[i] ? group_of(keys, i) : kNoGroup;
+          if (scratch) gids[i] = static_cast<int16_t>(gid);
         } else {
           gid = gids[i];
         }
       }
-      uint64_t c = ident;
-      if (gid < G) c = r < 0 ? 1ull : contribution(q, active, i);
       const unsigned peers = __match_any_sync(0xffffffffu, gid);
-      lanes[warp][lane] = c;
-      __syncwarp();
-      if (gid < G && lane == __ffs(peers) - 1) {
-        uint64_t x = mine[gid];
-        for (unsigned m = peers; m != 0; m &= m - 1) {
-          x = combine(kind, x, lanes[warp][__ffs(m) - 1]);
-        }
-        mine[gid] = x;
+      const int rank = __popc(peers & below);
+      const int cnt = __popc(peers);
+      uint32_t src = 0;  // 5 bits a round: the lane to take from (this one: none)
+      unsigned m = peers & above;  // the group's lanes after this one, in rank order
+#pragma unroll
+      for (int k = 0, stripped = 0; k < 5; ++k) {
+        for (; stripped < (1 << k) - 1; ++stripped) m &= m - 1;
+        src |= static_cast<uint32_t>(m != 0 ? __ffs(m) - 1 : lane) << (5 * k);
       }
-      __syncwarp();
+      const int top = static_cast<int>(__reduce_max_sync(0xffffffffu, gid < G ? cnt : 1));
+      for (int p = 0; p < np; ++p) {
+        const int r = p0 + p - 1;
+        uint64_t* a = acc + (p * kWarps + warp) * G;
+        if (r < 0) {
+          direct_step<hopper::kCount>(gid < G ? 1ull : 0ull, gid, G, rank, cnt, top, src, a);
+          continue;
+        }
+        const AggRequest& q = reqs.req[r];
+        with_kind(q.kind, [=, &q](auto tag) {
+          constexpr int K = decltype(tag)::kind;
+          const uint64_t c = gid < G ? contribution_of<K>(q, active, i)
+                                     : static_cast<uint64_t>(q.identity);
+          direct_step<K>(c, gid, G, rank, cnt, top, src, a);
+        });
+      }
     }
     __syncthreads();
-    uint64_t* out = partials + (static_cast<int64_t>(r + 1) * gridDim.x + blockIdx.x) * G;
-    for (int g = threadIdx.x; g < G; g += kThreads) {
-      uint64_t x = ident;
-      for (int w = 0; w < kWarps; ++w) x = combine(kind, x, acc[w * G + g]);
-      out[g] = x;
+    for (int k = threadIdx.x; k < np * G; k += kThreads) {
+      const int p = k / G, g = k % G;
+      const int r = p0 + p - 1;
+      const int kind = r < 0 ? hopper::kCount : reqs.req[r].kind;
+      uint64_t x = acc[(p * kWarps) * G + g];
+      for (int w = 1; w < kWarps; ++w) x = combine(kind, x, acc[(p * kWarps + w) * G + g]);
+      partials[(static_cast<int64_t>(r + 1) * gridDim.x + blockIdx.x) * G + g] = x;
     }
-    __syncthreads();  // acc is read before the next request resets it
+    __syncthreads();  // acc is read before the next pass resets it
   }
 }
 
@@ -224,10 +268,18 @@ extern "C" int segment_agg_direct_max_groups() { return hopper::kMaxDirectGroups
 extern "C" int segment_agg_direct_max_keys() { return hopper::kMaxDirectKeys; }
 
 // Blocks of the reduce pass for n rows (the partials hold one row of G
-// words per block and request, the active count first).
+// words per block and request, the active count first): as many as the
+// card holds at once at the pass's shared memory budget, at most one a
+// 256 rows.
 extern "C" int64_t segment_agg_direct_blocks(int64_t n) {
+  static const int per_sm = [] {
+    int blocks = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, direct_reduce_kernel, kThreads,
+                                                  kDirectSmemBudget);
+    return blocks > 0 ? blocks : 1;
+  }();
   const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(hopper::sm_count()) * kDirectBlocksPerSm;
+  const int64_t cap = static_cast<int64_t>(hopper::sm_count()) * per_sm;
   return want < 1 ? 1 : (want < cap ? want : cap);
 }
 
@@ -235,20 +287,30 @@ static std::atomic<int64_t> g_direct_stream_ops{0};
 
 extern "C" int64_t segment_agg_direct_stream_ops() { return g_direct_stream_ops.load(); }
 
+// Records event k of ``events`` (none where null) on stream s.
+static void mark(void* const* events, int k, cudaStream_t s) {
+  if (events != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(events[k]), s);
+}
+
 // The whole direct aggregation on ``stream``: ``gids`` (int16 [n]) and
 // ``partials`` (uint64 [(requests + 1) * blocks * G]) are scratch; every
 // key and output column and group_exists (bool [G]) are written for all G
-// groups. Returns the first CUDA error, 0 on success.
+// groups. ``events`` (3, or null) are recorded at the bounds of the reduce
+// and the finish. Returns the first CUDA error, 0 on success.
 extern "C" int segment_agg_direct(const hopper::AggRequestSet* reqs,
                                   const hopper::AggOutputSet* outs,
                                   const hopper::DirectKeySet* keys, const void* active, int64_t n,
                                   int G, void* gids, void* partials, void* group_exists,
-                                  void* stream) {
+                                  void* const* events, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || G <= 0 || G > hopper::kMaxDirectGroups) return 0;
   const int64_t blocks = segment_agg_direct_blocks(n);
-  const int64_t chunk = (n + blocks - 1) / blocks;
-  const size_t smem = sizeof(uint64_t) * kWarps * static_cast<size_t>(G);
+  // each block's chunk whole steps of the block, so its loads are coalesced
+  const int64_t chunk = ((n + blocks - 1) / blocks + kThreads - 1) / kThreads * kThreads;
+  const int total = reqs->n + 1;
+  const int np = total < direct_per_pass(G) ? total : direct_per_pass(G);
+  const size_t smem = sizeof(uint64_t) * kWarps * static_cast<size_t>(G) * np;
+  mark(events, 0, s);
   direct_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
       *reqs, *keys, static_cast<const bool*>(active), n, G, chunk,
       static_cast<int16_t*>(gids), static_cast<uint64_t*>(partials));
@@ -261,9 +323,11 @@ extern "C" int segment_agg_direct(const hopper::AggRequestSet* reqs,
     comb.identity[r] = reqs->req[r].identity;
     comb.kind[r] = reqs->req[r].kind;
   }
+  mark(events, 1, s);
   direct_finish_kernel<<<G, kThreads, 0, s>>>(
       comb, *outs, *keys, n, G, static_cast<int>(blocks),
       static_cast<const uint64_t*>(partials), static_cast<bool*>(group_exists));
   ++g_direct_stream_ops;
+  mark(events, 2, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -151,8 +151,10 @@ def bind(path: Path):
     lib.hash_expand_slots.restype = i32
     lib.segment_agg.argtypes = (
         [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
-         ctypes.POINTER(_GroupKeySet)] + [ptr] * 3 + [i64, i64] + [ptr] * 6)
+         ctypes.POINTER(_GroupKeySet)] + [ptr] * 3 + [i64, i64] + [ptr] * 5 + [events, ptr])
     lib.segment_agg.restype = i32
+    lib.segment_agg_partial_words.argtypes = [i32, i64, i64, i32]
+    lib.segment_agg_partial_words.restype = i64
     for name, want in (("hash_expand_gather_cols", _MAX_GATHER_COLS),
                        ("hash_expand_tile_rows", EXPAND_TILE_ROWS),
                        ("hash_expand_state_head", _EXPAND_STATE_HEAD),
@@ -161,6 +163,9 @@ def bind(path: Path):
                        ("radix_tile_rows", _TILE_ROWS),
                        ("group_sort_tile_rows", SORT_TILE_ROWS),
                        ("segment_agg_tile_rows", SEGMENT_TILE_ROWS),
+                       # the NaN rule reads the plain cumsum's blocks as tiles
+                       ("segment_agg_tile_rows", K.CUMSUM_BLOCK),
+                       ("segment_agg_max_masks", SEGMENT_AGG_MAX_MASKS),
                        ("segment_agg_max_requests", SEGMENT_AGG_MAX_REQUESTS),
                        ("segment_agg_max_outputs", SEGMENT_AGG_MAX_OUTPUTS),
                        ("segment_agg_max_reads", AGG_MAX_READS),
@@ -210,7 +215,7 @@ def bind(path: Path):
     lib.presorted_group.restype = i32
     lib.segment_agg_direct.argtypes = (
         [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
-         ctypes.POINTER(_DirectKeySet), ptr, i64, i32] + [ptr] * 4)
+         ctypes.POINTER(_DirectKeySet), ptr, i64, i32] + [ptr] * 3 + [events, ptr])
     lib.segment_agg_direct.restype = i32
     lib.segment_agg_direct_blocks.argtypes = [i64]
     lib.segment_agg_direct_blocks.restype = i64
@@ -780,6 +785,9 @@ SEGMENT_AGG_MAX_REQUESTS = 32
 SEGMENT_AGG_MAX_OUTPUTS = 24
 SEGMENT_AGG_MAX_KEYS = 8
 AGG_MAX_READS = 6
+# the most distinct bool columns (the activity, filters and validities) one
+# segment_agg call's requests read as weights (kMaxMasks in csrc/segment_agg.cu)
+SEGMENT_AGG_MAX_MASKS = 16
 # request kinds, finishing ops and per-row transforms (AggKind, AggOp,
 # AggTransform in csrc/agg_common.cuh)
 _AGG_KINDS = {"sum": 0, "fsum": 1, "min": 2, "max": 3, "fmin": 4, "fmax": 5, "last": 6,
@@ -1196,8 +1204,9 @@ class _AggRequest(ctypes.Structure):
     _fields_ = [
         ("values", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("filter", ctypes.c_void_p),
         ("filter_valid", ctypes.c_void_p), ("values2", ctypes.c_void_p),
-        ("valid2", ctypes.c_void_p), ("lut", ctypes.c_void_p), ("divisor", ctypes.c_double),
-        ("divisor2", ctypes.c_double), ("identity", ctypes.c_int64), ("lut_len", ctypes.c_int32),
+        ("valid2", ctypes.c_void_p), ("lut", ctypes.c_void_p), ("inv_divisor", ctypes.c_double),
+        ("inv_divisor2", ctypes.c_double), ("identity", ctypes.c_int64),
+        ("lut_len", ctypes.c_int32),
         ("ref", ctypes.c_int32), ("type", ctypes.c_int8), ("type2", ctypes.c_int8),
         ("kind", ctypes.c_int8), ("pred", ctypes.c_int8), ("power", ctypes.c_int8),
         ("transform", ctypes.c_int8), ("resorted", ctypes.c_int8),
@@ -1387,7 +1396,9 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
                                                   ptr(r.valid2))
         c.filter, c.filter_valid, c.lut = ptr(r.filt), ptr(r.filt_valid), ptr(r.lut)
         c.lut_len = 0 if r.lut is None else r.lut.shape[0]
-        c.divisor, c.divisor2, c.identity, c.kind = float(r.divisor), float(r.divisor2), ident, kind
+        # the reciprocals, correctly rounded as the card's division is
+        c.inv_divisor, c.inv_divisor2 = 1.0 / float(r.divisor), 1.0 / float(r.divisor2)
+        c.identity, c.kind = ident, kind
         c.type = _KEY_TYPES[r.values.dtype] if r.values is not None else 0
         c.type2 = _KEY_TYPES[r.values2.dtype] if r.values2 is not None else 0
         c.pred, c.power, c.ref = _AGG_PREDS[r.pred], r.power, r.ref
@@ -1417,16 +1428,29 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
     return rs, os_, outs
 
 
+def segment_agg_mask_columns(requests, active: torch.Tensor) -> set:
+    """The distinct bool columns ``segment_agg``'s reduce pass reads as
+    weight masks for ``requests``: the activity, each filter, its validity
+    and each validity, told apart by address as the kernel does."""
+    cols = {active.data_ptr()}
+    for r in requests:
+        cols.update(t.data_ptr() for t in (r.filt, r.filt_valid, r.valid, r.valid2)
+                    if t is not None)
+    return cols
+
+
 def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
-                active: torch.Tensor, key_cols, requests, outputs, dest=None):
+                active: torch.Tensor, key_cols, requests, outputs, dest=None, *,
+                phase_events=None):
     """The sort-path aggregation over a group-sorted page, whole.
 
     ``new_group`` (bool, set on each group's first row), ``num_groups`` (a
     0-d int64 tensor), ``out_cap`` output slots, the page's ``active``;
     ``key_cols``: (data, valid) of each group key (0 to 8, 1-D); ``requests``
     (:class:`AggRequest`, up to :data:`SEGMENT_AGG_MAX_REQUESTS`) and
-    ``outputs`` (:class:`AggOutput`, up to :data:`SEGMENT_AGG_MAX_OUTPUTS`);
-    ``dest``, None or ``(key positions, luts, n_parts)``: the exchange
+    ``outputs`` (:class:`AggOutput`, up to :data:`SEGMENT_AGG_MAX_OUTPUTS`),
+    the requests' weights reading at most :data:`SEGMENT_AGG_MAX_MASKS`
+    distinct bool columns (:func:`segment_agg_mask_columns`); ``dest``, None or ``(key positions, luts, n_parts)``: the exchange
     destination of each slot from its gathered keys (each LUT None or the
     int64 value-key LUT of its dictionary).
 
@@ -1435,10 +1459,12 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     num_groups``, the keys at ``min(starts, n - 1)`` with validity &
     group_exists, each output's (data, valid), and the destination (int32,
     ``n_parts`` past num_groups) or None. The slots past ``num_groups`` are
-    inactive rows: their data is left unspecified by the kernel, which
-    gives each request its identity there. Float64 sums add in another
-    order than the plain cumsum form (a digest's centroid sums too); every
-    other value is bit-identical.
+    inactive rows: their data and validity are left unspecified by the
+    kernel, which writes zeros there. Float64 sums add in another order
+    than the plain cumsum form (a digest's centroid sums too), but follow
+    it past a value that is not finite: where ``out_cap > 1`` a group's sum
+    is NaN wherever the plain cumsum difference is (``csrc/segment_agg.cu``
+    gives the rule); every other value is bit-identical.
     On CUDA tensors the kernel is five launches (count, scan, reduce, span
     and finish; four without requests), eight with a ``match_last``
     request (a resolve pass writes each group's extreme, then a second
@@ -1446,7 +1472,9 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     ``digest`` output, over tiles of
     :data:`SEGMENT_TILE_ROWS` rows and no memset; ``out_cap`` must hold
     every group. A division by a scalar there is a product with its
-    reciprocal, as torch divides by a scalar on the card."""
+    reciprocal, as torch divides by a scalar on the card. ``phase_events``,
+    a list, gets ``(phase, start, end)`` CUDA events of the count, scan,
+    reduce, span, second round and finish passes (see ``group_sort``)."""
     name = "segment_agg"
     _check_vectors(name, (new_group, active), (torch.bool, torch.bool))
     n, dev = new_group.shape[0], new_group.device
@@ -1457,6 +1485,9 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
         raise TypeError(f"{name}: num_groups must be a 0-d int64 tensor on {dev}")
     _check_group_keys(name, key_cols, n, dev)
     plans = _agg_plans(name, requests, outputs, active)
+    if len(segment_agg_mask_columns(requests, active)) > SEGMENT_AGG_MAX_MASKS:
+        raise ValueError(f"{name}: the requests' weights read at most "
+                         f"{SEGMENT_AGG_MAX_MASKS} distinct bool columns, the activity among them")
     if dest is not None:
         positions, luts, n_parts = dest
         if (not 1 <= len(positions) <= _MAX_WIDE_KEYS or len(luts) != len(positions)
@@ -1494,17 +1525,20 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     n_tiles = -(-n // SEGMENT_TILE_ROWS)
     scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
     starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
-    # each request's complete groups, head and tail partials; with a
-    # match_last request a row of extremes per request after them
-    rows = out_cap + 2 * n_tiles + (out_cap if any(r.kind == "match_last" for r in requests)
-                                    else 0)
-    partials = torch.empty(max(1, len(requests) * rows), dtype=torch.int64, device=dev)
+    lib = _library()
+    # each request's complete groups, tile partials and first non-finite
+    # rows; with a match_last request a row of extremes per request after them
+    words = lib.segment_agg_partial_words(
+        len(requests), n, out_cap, int(any(r.kind == "match_last" for r in requests)))
+    partials = torch.empty(max(1, words), dtype=torch.int64, device=dev)
     group_exists = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    _check_launch(name, _library().segment_agg(
+    events = _phase_marks(phase_events,
+                          ("count", "scan", "reduce", "span", "second round", "finish"))
+    _check_launch(name, lib.segment_agg(
         ctypes.byref(rs), ctypes.byref(os_), ctypes.byref(ks), new_group.data_ptr(),
         active.data_ptr(), num_groups.data_ptr(), n, out_cap, scratch.data_ptr(),
         starts.data_ptr(), partials.data_ptr(), group_exists.data_ptr(),
-        None if dest_out is None else dest_out.data_ptr(), _stream(new_group)))
+        None if dest_out is None else dest_out.data_ptr(), events, _stream(new_group)))
     LAUNCHES[name] += 1
     return starts[:out_cap], group_exists, keys_out, outs, dest_out
 
@@ -2297,7 +2331,8 @@ def segment_agg_direct_plain(key_cols, domains, active: torch.Tensor, requests, 
             [finish_output(o, results, G) for o in outputs])
 
 
-def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, outputs):
+def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, outputs, *,
+                       phase_events=None):
     """The direct-indexed aggregation, whole: ``segment_agg``'s requests
     and outputs over small static key domains.
 
@@ -2311,7 +2346,7 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     Float sums add in another order than the plain scatter's; every other
     value is bit-identical. It takes no ``match_last`` request (``min_by``
     and ``max_by`` are not direct aggregates). On CUDA tensors two launches
-    (reduce and finish), no memset."""
+    (reduce and finish), no memset; ``phase_events`` as ``segment_agg``'s."""
     name = "segment_agg_direct"
     _check_vectors(name, (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
@@ -2343,9 +2378,11 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     gids = torch.empty(n, dtype=torch.int16, device=dev)
     partials = torch.empty((len(requests) + 1) * blocks * G, dtype=torch.int64, device=dev)
     group_exists = torch.empty(G, dtype=torch.bool, device=dev)
+    events = _phase_marks(phase_events, ("reduce", "finish"))
     _check_launch(name, lib.segment_agg_direct(
         ctypes.byref(rs), ctypes.byref(os_), ctypes.byref(ks), active.data_ptr(), n, G,
-        gids.data_ptr(), partials.data_ptr(), group_exists.data_ptr(), _stream(active)))
+        gids.data_ptr(), partials.data_ptr(), group_exists.data_ptr(), events,
+        _stream(active)))
     LAUNCHES[name] += 1
     return group_exists, keys_out, outs
 

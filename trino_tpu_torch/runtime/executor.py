@@ -1696,21 +1696,25 @@ def _aggregate_impl(group_keys, aggregations, symbols, out_cap: int, page: Page,
     return Page(tuple(out_cols), group_exists)
 
 
-def _agg_chunks(plans):
+def _agg_chunks(plans, active):
     """The aggregates of ``segment_agg``'s set (``(index, plan)`` with a
-    plan) in chunks whose requests and outputs fit one kernel call (one
-    chunk, maybe empty, at least)."""
-    chunks, cur, n_req = [], [], 0
+    plan) in chunks whose requests, outputs and weight columns (with the
+    page's ``active``) fit one kernel call (one chunk, maybe empty, at
+    least)."""
+    chunks, cur, n_req, masks = [], [], 0, set()
     for i, plan in plans:
         if plan is None:
             continue
         need = len(plan[0])
+        cols = HK.segment_agg_mask_columns(plan[0], active)
         if cur and (n_req + need > HK.SEGMENT_AGG_MAX_REQUESTS
-                    or len(cur) == HK.SEGMENT_AGG_MAX_OUTPUTS):
+                    or len(cur) == HK.SEGMENT_AGG_MAX_OUTPUTS
+                    or len(masks | cols) > HK.SEGMENT_AGG_MAX_MASKS):
             chunks.append(cur)
-            cur, n_req = [], 0
+            cur, n_req, masks = [], 0, set()
         cur.append((i, plan))
         n_req += need
+        masks |= cols
     chunks.append(cur)
     return chunks
 
@@ -1740,9 +1744,9 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     ``segment_agg``'s set and, with ``dest_spec`` (``(key positions among
     the group keys, n_parts)``), the exchange destination, in
     ``hopper_kernels.segment_agg`` calls (one, unless the aggregates need
-    more requests or outputs, or the grouping more keys, than a call takes:
-    the destination's keys go to the first call, the other keys fill it
-    and the later ones in order). The re-sorting aggregates run their
+    more requests, outputs or weight columns, or the grouping more keys,
+    than a call takes: the destination's keys go to the first call, the
+    other keys fill it and the later ones in order). The re-sorting aggregates run their
     kernels first (:func:`_resort_plan`): ``approx_distinct``'s HyperLogLog
     path is ``hopper_kernels.hll`` alone; its exact path, the percentile
     and the digests re-sort each group's rows in ``segment_sort`` (one
@@ -1767,7 +1771,7 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
         if isinstance(plan, Column):
             cols[i], plan = plan, None
         plans.append((i, plan))
-    chunks = _agg_chunks(plans)
+    chunks = _agg_chunks(plans, active)
     # the group keys each call gathers: the destination's first
     width = HK.SEGMENT_AGG_MAX_KEYS
     order = [] if dest_spec is None else list(dict.fromkeys(dest_spec[0]))
@@ -1871,7 +1875,7 @@ def _kernel_direct(key_cols, domains, rel: Relation, aggregations):
     plans = [(i, _agg_plan(rel, agg)) for i, (_, agg) in enumerate(aggregations)]
     cols: Dict[int, Column] = {}
     group_exists = kout = None
-    for chunk in _agg_chunks(plans):
+    for chunk in _agg_chunks(plans, active):
         requests, outputs = _chunk_requests(chunk)
         exists, keys, outs = HK.segment_agg_direct(kcols, kdomains, active, requests, outputs)
         if group_exists is None:

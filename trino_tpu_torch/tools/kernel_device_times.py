@@ -35,11 +35,25 @@ the probe calls of one run of the two queries through ``DIR``'s
 of this checkout, gitignored) by the first run and read by later ones,
 so every commit is timed on the same inputs; the aggregation inputs go to
 ``aggregates_sf10.pt`` beside it. Needs a card and ``nvcc``.
+
+    python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] --aggregates
+
+times the two aggregation kernels alone on the main path's own calls:
+``lineitem``, ``orders`` and ``customer`` of TPC-H SF10 are loaded into
+``DIR``'s memory tables by CTAS (as ``chip_smoke.py`` phase 8 loads them),
+then TPC-H Q3 and Q12 and ``chip_smoke.py``'s T1-T4 run through ``DIR``'s
+``LocalQueryRunner``, keeping every ``segment_agg`` and
+``segment_agg_direct`` call's arguments. Each call is reported as above
+(wrapper ms, device us by kernel) beside its bound (``chip_smoke.py``'s
+``segment_agg_bound`` and ``direct_bound``: bytes over 3.35 TB/s) and the
+query's wall. The generator and the plans are deterministic, so two
+checkouts see the same inputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import subprocess
 import sys
 import time
@@ -298,12 +312,84 @@ def dest_reports(root: str, HK, label: str, ex: tuple, dev) -> None:
                    lambda: HK.hash_expand(*folded))
 
 
+# the tables the aggregation queries read, and the queries (chip_smoke.py's
+# T1-T4 beside Q3 and Q12)
+AGG_TABLES = ("lineitem", "orders", "customer")
+AGG_SCALE = 10
+
+
+def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> None:
+    """Every segment_agg and segment_agg_direct call of Q3, Q12 and T1-T4
+    over memory tables at ``scale``, timed on its own arguments right after
+    its query (module docstring)."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.metadata import Session
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    sys.path.insert(1, str(here))
+    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound,
+                            segment_agg_bound)
+
+    dev = torch.device("cuda") if dev is None else dev
+    runner = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
+    runner.register_catalog("tpch", TpchConnector(scale=scale, device=dev))
+    runner.register_catalog("memory", MemoryConnector(device=dev))
+    for table in AGG_TABLES:
+        t0 = time.perf_counter()
+        schema = f"sf{scale:g}".replace(".", "_")
+        runner.execute(f"CREATE TABLE {table} AS SELECT * FROM tpch.{schema}.{table}")
+        print(f"[{root}] CTAS {table}: {time.perf_counter() - t0:.3f} s", flush=True)
+    texts = {"q03": QUERIES["q03"], "q12": EXPAND_QUERIES["q12"], **LONG_TAIL_QUERIES,
+             **RESORT_QUERIES}
+    names = ("segment_agg", "segment_agg_direct")
+    bounds = {"segment_agg": segment_agg_bound, "segment_agg_direct": direct_bound}
+    for q, sql in texts.items():
+        calls = []
+        orig = {n: getattr(HK, n) for n in names}
+
+        def tapped(*args, _name):
+            calls.append((_name, args))
+            return orig[_name](*args)
+
+        for n in names:
+            setattr(HK, n, lambda *a, _name=n: tapped(*a, _name=_name))
+        try:
+            runner.execute(sql)  # warm
+            calls.clear()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.execute(sql)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for n in names:
+                setattr(HK, n, orig[n])
+        print(f"[{root}] {q} over memory tables: {wall:.4f} s wall, {len(calls)} aggregation "
+              "kernel calls", flush=True)
+        for k, (name, args) in enumerate(calls):
+            b, by = bounds[name](args)
+            shape = (f"n={args[0].shape[0]} slots={args[2]} requests={len(args[5])} "
+                     f"outputs={len(args[6])}" if name == "segment_agg" else
+                     f"n={args[2].shape[0]} G={math.prod(args[1])} requests={len(args[3])} "
+                     f"outputs={len(args[4])}")
+            report(root, f"{name}, {q} call {k + 1} ({shape}; bound {b:.4f} ms, {by})",
+                   lambda: getattr(HK, name)(*args))
+        del calls
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     here = Path(__file__).resolve().parents[2]
     ap.add_argument("--root", default=str(here))
     ap.add_argument("--joins", default=str(
         here / "trino_tpu_torch" / "_build" / "kernel_inputs" / "joins_sf10.pt"))
+    ap.add_argument("--aggregates", action="store_true",
+                    help="only the aggregation kernels on Q3, Q12 and T1-T4's calls")
     opts = ap.parse_args()
     root, joins = opts.root, Path(opts.joins)
     if not torch.cuda.is_available():
@@ -317,6 +403,9 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
     HK.build()
+    if opts.aggregates:
+        aggregate_reports(root, HK, here)
+        return
     dev = torch.device("cuda")
     if not (joins.exists() and (joins.parent / "aggregates_sf10.pt").exists()):
         capture_joins(HK, joins)
