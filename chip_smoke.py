@@ -59,7 +59,10 @@ printed):
    integer and on a double key with ties, NULL keys and NULL values), at
    Q3's joined rows (524,288) and at T1's shape (4,194,304 rows, a group
    per order date), each set without and with a FILTER, and the moments
-   again with +inf and -inf in their doubles: bit-exact against its plain
+   again with +inf and -inf in their doubles, and a finite-overflow page
+   at T1's shape (``overflow_case``: -1e308 and +1e308 whose plain prefix
+   of tile totals leaves the finite range; its plain slots must hold NaN,
+   +inf and -inf): bit-exact against its plain
    version (the doubles are quarters and integers, so every float sum is
    exact in any order; NaN at the same slots), but the outputs of the sums
    of logarithms, within ``tests/agg_tolerance.py``'s tolerance (each
@@ -77,7 +80,9 @@ printed):
    about 2,400 groups), at a million groups of four rows (the exact path)
    and on edge pages (NULL keys equal to weighted ones, an inactive tail,
    rows before the first group, one row, -0.0 and NaN on 6,000 rows and
-   at T1's shape, quantiles out of [0, 1] and NULL): bit-exact against their plain
+   at T1's shape, quantiles out of [0, 1] and NULL, and ``segment_sort``'s
+   paths: groups over its batch, keys of three values, a 7x inactive tail
+   of one value, a head at a bucket edge): bit-exact against their plain
    versions (the digest's means within ``tests/agg_tolerance.py``'s digest
    tolerance, its weights exact) and against a second run, each main
    shape timed beside its bound, its plain version and one library call
@@ -986,8 +991,9 @@ def long_tail_cases(HK, dev):
     their doubles (inside an early group, on a group's first row, and
     side by side in a late group: NaN from there on where the plain
     version's cumsum difference gives it); one group key (an order date)
-    and no destination. Last, sums and counts whose weights fill the
-    reduce pass's mask table (``SEGMENT_AGG_MAX_MASKS`` columns)."""
+    and no destination. Then ``overflow_case``. Last, sums and counts whose
+    weights fill the reduce pass's mask table (``SEGMENT_AGG_MAX_MASKS``
+    columns)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     inf = float("inf")
@@ -1010,6 +1016,7 @@ def long_tail_cases(HK, dev):
             label = f"{part}{' FILTER' if filtered else ''}{' +-inf' if special else ''} n={n}"
             yield label, (new_group, groups, round_capacity(int(groups), 16), active, keys,
                           reqs, outs, None)
+    yield overflow_case(HK, dev, gen, *LONG_TAIL_SHAPES[1][:2])
     # the mask table full: sums and counts over 15 validity columns and the
     # activity, in two batches
     n, rate, act_rate = LONG_TAIL_SHAPES[0]
@@ -1058,6 +1065,53 @@ def direct_variance_cases(HK, dev, n_wide: int):
         yield label, (keys, domains, active, reqs, outs)
 
 
+def overflow_case(HK, dev, gen, n: int, rate: float):
+    """(label, args): T1's shape, every row active, two doubles x and y of
+    finite values whose plain cumsum leaves the finite range. A group is
+    made to start on the first row of a tile (of kernels.CUMSUM_BLOCK rows)
+    and to run past the next tile's first row; x holds -1e308 on those two
+    rows, and y +1e308 on the two rows of such a group further up. The
+    plain version's prefix of tile totals is then -inf (+inf) from the
+    second tile on: that group sums to -inf (+inf) and every later one to
+    NaN (inf - inf), and no group ends beside a finite prefix that large
+    (whose difference would keep none of its own digits). The segment_agg
+    kernel must give the same classes at the same slots."""
+    R, O = HK.AggRequest, HK.AggOutput
+    f64 = torch.float64
+    block = 2048  # kernels.CUMSUM_BLOCK
+    new_group = torch.rand(n, generator=gen, device=dev) < rate
+    new_group[0] = True
+    # quarters below 2,500 in magnitude: every finite sum, and every sum of
+    # squares, exact in any order (as the long tail's pages)
+    x = torch.randint(-10_000, 10_000, (n,), generator=gen, device=dev).to(f64) / 4
+    y = torch.randint(-10_000, 10_000, (n,), generator=gen, device=dev).to(f64) / 4
+    tiles = n // block
+    for col, tile, value in ((y, tiles // 4, 1e308), (x, tiles // 2, -1e308)):
+        at = tile * block
+        new_group[at] = True
+        new_group[at + 1:at + block + 2] = False
+        col[at], col[at + block] = value, value
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    keys, _ = _agg_page(dev, gen, n, new_group, active, n_keys=1)
+    reqs = [R("count"), R("fsum", x), R("fsum", y), R("fsum", x, power=2)]
+    outs = [O("value", (1,), f64), O("value", (2,), f64), O("var_pop", (0, 1, 3), f64)]
+    groups = new_group.sum()
+    return (f"finite overflow n={n}",
+            (new_group, groups, round_capacity(int(groups), 16), active, keys, reqs, outs, None))
+
+
+def overflow_classes(label: str, want) -> None:
+    """The finite-overflow page's plain outputs hold NaN, +inf and -inf (so
+    the kernel was held to each class at the plain version's slots)."""
+    exists = want[1]
+    data = torch.cat([d[exists] for d, _ in want[3] if d.dtype == torch.float64])
+    counts = {"NaN": int(torch.isnan(data).sum()), "+inf": int((data == float("inf")).sum()),
+              "-inf": int((data == float("-inf")).sum())}
+    print(f"  segment_agg [{label}]: the plain version's slots {counts}", flush=True)
+    if not all(counts.values()):
+        fail(f"segment_agg [{label}]: the page does not reach every class: {counts}")
+
+
 def check_long_tail_kernels(HK, n_wide: int, dev) -> None:
     """segment_agg on ``long_tail_cases`` (bit-exact against its plain
     version, NaN at the same slots, the sums of logarithms' outputs within
@@ -1076,6 +1130,8 @@ def check_long_tail_kernels(HK, n_wide: int, dev) -> None:
             if name == "segment_agg":
                 ok, _ = same_segment_agg(got, want, args, exact=True)
                 ok = ok and same_bits(got, HK.segment_agg(*args))
+                if label.startswith("finite overflow"):
+                    overflow_classes(label, want)
             else:
                 ok, worst = same_direct(got, want, args)
                 DIRECT_FLOAT_ERR[0] = max(DIRECT_FLOAT_ERR[0], worst)
@@ -1113,15 +1169,21 @@ HLL_MAX_SLOTS = (1 << 23) >> 11
 
 
 def resort_page(dev, gen, n: int, per_group: int, lead: int = 0, n_active=None,
-                key_range: int = 2_000_000, special: bool = False, q_edges: bool = False):
+                key_range: int = 2_000_000, special: bool = False, q_edges: bool = False,
+                tail_equal: bool = False, edge_ties: bool = False):
     """A group-sorted page as the fused path hands it to aggregate_phase:
     ``lead`` inactive rows before the first group, the active rows (a group
     starts at each with chance 1 / per_group), an inactive tail from
-    ``n_active``. Columns: an int64 key (``l_partkey``-like, up to
+    ``n_active`` (every value one with ``tail_equal``, as a page's unused
+    slots). Columns: an int64 key (``l_partkey``-like, up to
     ``key_range``), a price in cents (DECIMAL(12,2) storage) and its double,
     their validity, a quantile column (0.5, or out of [0, 1] and NULL with
     ``q_edges``). With ``special`` the doubles take -0.0, 0.0 and NaN, and
-    NULL keys equal a weighted key's value (the exact path's quirk)."""
+    NULL keys equal a weighted key's value (the exact path's quirk). With
+    ``edge_ties`` the cents of every unweighted row are at least the
+    largest weighted row's of its page, many of them equal to it: sorted
+    participants first, a group's last weighted row and its first
+    unweighted one share a value across segment_sort's weight bucket."""
     n_active = n if n_active is None else n_active
     rows = torch.arange(n, device=dev)
     active = (rows >= lead) & (rows < n_active)
@@ -1138,6 +1200,13 @@ def resort_page(dev, gen, n: int, per_group: int, lead: int = 0, n_active=None,
         price = torch.where(torch.rand(n, generator=gen, device=dev) < 0.01, float("nan"), price)
         # NULL rows whose data equals the weighted rows' values
         key = torch.where(valid, key, key.roll(1))
+    if tail_equal:
+        for col in (key, cents, price):
+            col[n_active:] = 0
+    if edge_ties:
+        weighted = active & valid
+        top = cents[weighted].max()
+        cents = torch.where(weighted, cents, torch.maximum(cents, top))
     q = torch.full((n,), 0.5, dtype=torch.float64, device=dev)
     q_valid = torch.ones(n, dtype=torch.bool, device=dev)
     if q_edges:
@@ -1234,12 +1303,19 @@ def print_agg_difference(got, want, args) -> None:
                   flush=True)
 
 
-def resort_edge_pages(dev, gen):
+def resort_edge_pages(dev, gen, batch: int):
     """The edge cases: the exact path's quirk (NULL keys equal to weighted
     ones, keys of few values), an inactive tail, rows before the first
     group, one row, doubles with -0.0 and NaN (on 6,000 rows, which the
     plain cumsum scans in one pass, and at the T1 shape, which it scans by
-    tiles), quantiles out of [0, 1] and NULL."""
+    tiles), quantiles out of [0, 1] and NULL; then segment_sort's paths on
+    the card: groups over its ``batch`` rows (a group over them takes the
+    MSD levels), such groups with keys of three values (buckets over a
+    batch of one key, copied), an inactive tail of one value seven times
+    the active rows in the last group, and a head at a bucket edge (one
+    group, participants first, the last weighted row's value on unweighted
+    rows)."""
+    big = 5 * batch
     return [
         ("quirk", resort_page(dev, gen, 6000, 40, key_range=7, special=True)),
         ("inactive tail", resort_page(dev, gen, 6000, 30, n_active=4100, key_range=50)),
@@ -1248,6 +1324,12 @@ def resort_edge_pages(dev, gen):
         ("-0.0 and NaN", resort_page(dev, gen, 6000, 300, special=True)),
         ("t1 shape, -0.0 and NaN", resort_page(dev, gen, RESORT_ROWS, 1750, special=True)),
         ("quantiles out of [0, 1] and NULL", resort_page(dev, gen, 6000, 12, q_edges=True)),
+        ("groups over a batch", resort_page(dev, gen, 20 * big, big)),
+        ("groups over a batch, keys of three values",
+         resort_page(dev, gen, 20 * big, big, key_range=3)),
+        ("an inactive tail of one value, 7x",
+         resort_page(dev, gen, 8 * big, 60, n_active=big, tail_equal=True)),
+        ("a head at a bucket edge", resort_page(dev, gen, 3 * big, 10 * big, edge_ties=True)),
     ]
 
 
@@ -1298,7 +1380,7 @@ def check_resort_kernels(HK, dev, results: dict) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     cases = [(label, resort_page(dev, gen, n, per)) for label, n, per in RESORT_SHAPES]
-    cases += resort_edge_pages(dev, gen)
+    cases += resort_edge_pages(dev, gen, HK.SEGMENT_SORT_BATCH_ROWS)
     for label, pg in cases:
         calls = resort_calls(HK, pg)
         main = label in {shape[0] for shape in RESORT_SHAPES}
@@ -1392,7 +1474,7 @@ def same_outputs(outs, w_outs, exists, reqs, plans, active, gid, slots, exact=Fa
             diff = torch.where(same, 0.0, (a - b).abs())
             if diff.numel():
                 worst = max(worst, float(torch.nan_to_num(diff, nan=float("inf")).max()))
-            ok = ok and bool((diff <= REL_TOL * torch.maximum(a.abs(), b.abs())).all())
+            ok = ok and bool((same | (diff <= REL_TOL * torch.maximum(a.abs(), b.abs()))).all())
         elif k in moments and not (exact and not moments[k]):
             tol = float_tolerance(reqs, plans[k], active, gid, slots)
             same = same_or_nan(d[m], wd[m])
@@ -1968,6 +2050,8 @@ def check_query_inputs(HK, query: str, tap: LaunchTap, results: dict, recorded: 
             if len(plan) != 1 or (not narrow and plan != [64]):
                 fail(f"group_sort [{query} inputs] sorted composites {plan}, not one"
                      f"{'' if narrow else ' of 64 bits'}")
+        elif name == "segment_sort":
+            segment_sort_yardsticks(HK, f"{query} inputs", args)
         elif name in BY_PASS:
             print(f"  {name} [{query} inputs]: {ops_per_call(HK, name, args)} stream "
                   "operations a call", flush=True)
@@ -2100,10 +2184,13 @@ def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
 
 
 # the kernels of the re-sorting aggregates, as the profiler names them:
-# segment_sort's (its passes are group_sort.cu's sweep_pass), hll's, and
-# segment_agg's digest pass
+# segment_sort's (stats and segment starts, the small segments' batches, the
+# large ones' MSD levels, batches and heads), hll's, and segment_agg's
+# digest pass
 RESORT_KERNELS = ("sort_stats_init_kernel", "sort_stats_kernel", "tile_base_kernel",
-                  "sort_groups_kernel", "sort_compose_kernel", "sweep_pass", "sort_finish_kernel",
+                  "sort_starts_kernel", "sort_classify_kernel", "sort_small_kernel",
+                  "sort_count_kernel", "sort_bucket_kernel", "sort_scatter_kernel",
+                  "sort_batch_kernel", "sort_fix_heads_kernel",
                   "tile_heads_kernel", "hll_registers_kernel", "hll_estimate_kernel",
                   "agg_digest_kernel")
 
@@ -2357,6 +2444,36 @@ def keep_by_pass(HK, results: dict, name: str, label: str, args) -> None:
     print(f"  {name} [{label}]: device us by pass (CUDA events) {us}", flush=True)
     if us and name in results:
         results[name].setdefault("device_us", {})[label] = us
+
+
+def segment_sort_yardsticks(HK, label: str, args) -> None:
+    """segment_sort's device microseconds by kernel on these inputs, its
+    stream operations a call, and beside them ``torch.sort(stable=True)``
+    of the (group, [~weight], order key) composite where it fits 63 bits
+    (the one torch call nearest the function: it sorts the whole page)."""
+    from trino_tpu_torch.ops import kernels as K
+
+    new_group, values, weights, participants_first = args
+    print_device_us(f"segment_sort [{label}]", lambda: HK.segment_sort(*args))
+    key = K.order_key(values)
+    lo, hi = int(key.min()), int(key.max())
+    w = weights[0]
+    for t in weights[1:]:
+        w = w & t
+    vb = (hi - lo).bit_length()
+    wb = int(participants_first and 0 < int(w.sum()) < w.shape[0])
+    gid = (torch.cumsum(new_group.to(torch.int64), 0) - 1).clamp(min=0)
+    bits = vb + wb + int(gid[-1]).bit_length()
+    if bits > 63:
+        comp_ms = None
+    else:
+        composite = (gid << (vb + wb)) | ((~w).to(torch.int64) << vb) * wb | (key - lo)
+        comp_ms = time_ms(lambda: torch.sort(composite, stable=True))
+        del composite
+    shown = "does not fit 63 bits" if comp_ms is None else f"{comp_ms:.4f} ms"
+    print(f"  segment_sort [{label}]: {ops_per_call(HK, 'segment_sort', args)} stream "
+          f"operations a call; torch.sort(stable=True) of the {bits}-bit (group, [~weight], "
+          f"order key) composite {shown}", flush=True)
 
 
 def sort_split(HK, label: str, args, reps: int = 10) -> list:

@@ -2,13 +2,15 @@
 
 - The sort path past a NaN or an infinity: the reference sums a group's
   doubles as a difference of two prefix sums over the page, so such a
-  value at or before a group's first row makes that group's sum NaN. The
-  port's ``megakernels.aggregate_phase`` (``segment_agg_plain`` on CPU
-  tensors, whose rule ``segment_agg``'s kernel follows) against the
-  reference's ``aggregate_phase`` in Pallas interpret mode, on pages with
-  NaN, +inf, -inf and +inf beside -inf in an early group, on a group's
-  first row and on rows before the first group: identical rows (DOUBLE
-  within ``tests/agg_tolerance.py``'s tolerance, NaN matching NaN).
+  value at or before a group's first row makes that group's sum NaN, and
+  so do finite doubles whose prefix leaves the finite range. The port's
+  ``megakernels.aggregate_phase`` (``segment_agg_plain`` on CPU tensors,
+  whose rule ``segment_agg``'s kernel follows) against the reference's
+  ``aggregate_phase`` in Pallas interpret mode, on pages with NaN, +inf,
+  -inf, +inf beside -inf and 1e308 on three rows, in an early group, on a
+  group's first row and on rows before the first group: identical rows
+  (DOUBLE within ``tests/agg_tolerance.py``'s tolerance, NaN matching
+  NaN).
 - More weight columns than a ``segment_agg`` call reads (20 filtered sums):
   ``executor._agg_chunks`` splits the calls at ``SEGMENT_AGG_MAX_MASKS``
   distinct bool columns, the wrapper raises past it, and the port's
@@ -52,7 +54,14 @@ REL_TOL = 1e-9
 # --------------------------------------------------------------------------- #
 
 NONFINITE_VALUES = {"nan": (float("nan"),), "+inf": (float("inf"),), "-inf": (float("-inf"),),
-                    "+inf beside -inf": (float("inf"), float("-inf"))}
+                    "+inf beside -inf": (float("inf"), float("-inf")),
+                    "1e308 on three rows": (1e308,) * 3}
+# (a group holding one 1e308 row has a finite sum whose mean squares past
+# the finite range: the reference's finishing on the CPU contracts
+# s2 / n - mean * mean into a fused multiply-add there, +inf where the
+# port rounds each operation alone, NaN, as torch does; so the places that
+# put one 1e308 row in a group are held in test_torch_segment_agg.py's
+# tile plan test, whose sums both engines share)
 NONFINITE_PLACES = ("early group", "group's first row", "rows before the first group")
 # (symbol, function, args, output type): the float sums' finishings and the
 # extremes, which the reference does not take by prefix sums
@@ -76,12 +85,8 @@ def _nonfinite_pages(values, place, seed, n):
     y = rng.normal(5.0, 1e2, n)
     xv, yv = rng.random(n) < 0.9, rng.random(n) < 0.9
     firsts = [25] + [i for i in range(26, n) if k[i] != k[i - 1]]
-    if place == "rows before the first group":
-        at = 3
-    elif place == "group's first row":
-        at = firsts[5]
-    else:
-        at = firsts[2] + 1
+    at = {"rows before the first group": 3, "group's first row": firsts[5],
+          "early group": firsts[2] + 1}[place]
     for j, v in enumerate(values):
         x[at + j] = v
         xv[at + j] = True

@@ -278,8 +278,78 @@ def _carry_scan(op, ident, runs, seen):
     return carries, run
 
 
-def _nonfinite(kind, x):
-    return kind == "fsum" and not np.isfinite(x)
+def _high_word(x) -> int:
+    """A double's high word, sign cleared (``thread_contribs``' bound)."""
+    return (int(np.float64(x).view(np.uint64)) >> 32) & 0x7FFFFFFF
+
+
+def _follow_plain_cumsum(n, out_cap, total, base, starts, res, head, hs, tail, c):
+    """``follow_plain_cumsum``: each real slot's float sum from the plain
+    version's csum at its start and end rows, rebuilt from the partials in
+    group order (the page as one tile up to four tiles of rows, else the
+    tiles' totals, their exclusive prefix, and the groups before a start in
+    its tile); the class of ``ce - cs + vs`` where it is not finite, else
+    the slot's own sum."""
+    n_tiles = len(head)
+    slots = min(total, out_cap)
+    out = list(res)
+
+    def span(g):
+        s = starts[g]
+        e = starts[g + 1] if g + 1 < total else n
+        ts, te = s // _T, (e - 1) // _T
+        return s, ts, te, g + 1 < total and e < (ts + 1) * _T
+
+    def own(g):
+        s, ts, te, inside = span(g)
+        if inside:
+            return res[g]
+        return tail[ts] + hs[te] if te > ts else tail[ts]
+
+    def cls(ce, cs, vs, mine):
+        d = (ce - cs) + vs
+        return d if not np.isfinite(d) else mine
+
+    if n <= 4 * _T:
+        if slots == 0:
+            return out
+        run = 0.0
+        for t in range(n_tiles):
+            run += head[t]
+            if base[t + 1] > base[t]:
+                break
+        for g in range(slots):
+            vs, mine = c[starts[g]], own(g)
+            ce = run + mine
+            out[g] = cls(ce, run + vs, vs, mine)
+            run = ce
+        return out
+    tt = []
+    for b in range(n_tiles):
+        x = head[b]
+        if base[b + 1] > base[b]:
+            for g in range(int(base[b]), min(int(base[b + 1]) - 1, out_cap)):
+                x = x + res[g]
+            x = x + tail[b]
+        tt.append(x)
+    acc = 0.0
+    for b in range(n_tiles):
+        x = tt[b]
+        acc = acc + x
+        tt[b] = acc - x
+    for b in range(n_tiles):
+        within = head[b]
+        for g in range(int(base[b]), min(int(base[b + 1]), out_cap)):
+            s, ts, te, _ = span(g)
+            vs, mine = c[s], own(g)
+            cs = tt[b] + (within + vs)
+            if te == b:
+                within = within + mine
+                ce = tt[b] + within
+            else:
+                ce = tt[te] + head[te]
+            out[g] = cls(ce, cs, vs, mine)
+    return out
 
 
 def _emulate_segment_agg(new_group, out_cap, contribs):
@@ -290,20 +360,19 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
     slot, the run before its first head and the run from its last head;
     (B) one warp a request carries the runs over the threads
     (``_carry_scan``), writes the tile's tail (or whole-tile head) partial
-    and, for a float sum, the tile's first row that is not finite; (C) the
-    group ending at each thread's first head into its slot, or the tile's
-    head partial if it began in an earlier tile. Then (span) each request's
-    head partials scanned over the tiles, restarting after each tile with
-    a head, and a float sum's first non-finite row on the page; then
-    (finish) one slot at a time, a tile-spanning group's tail partial
-    combined with the scanned head partial of the tile it ends in, and a
-    float sum NaN where the plain cumsum difference is (out_cap > 1): up to
-    four tiles of rows where the group starts at or after that row, past
-    them where it starts at or after that row's tile or its end row's tile
-    holds a row that is not finite. ``contribs``: per request (kind,
-    identity, each row's
-    contribution). Checks that no slot is stored twice and that the finish
-    reads only what was written. Returns (starts, values per request)."""
+    and, for a float sum, the largest high word of its doubles over the
+    tile; (C) the group ending at each thread's first head into its slot,
+    or the tile's head partial if it began in an earlier tile. Then (span)
+    each request's head partials scanned over the tiles, restarting after
+    each tile with a head, and for a float sum (out_cap > 1) the bound on
+    its doubles' magnitudes (2,048 times the largest double of each tile's
+    high word, summed): past 2^1022, or not finite, every real slot takes
+    ``_follow_plain_cumsum``'s value; then (finish) one slot at a time, a
+    tile-spanning group's tail partial combined with the scanned head
+    partial of the tile it ends in. ``contribs``: per request (kind,
+    identity, each row's contribution). Checks that no slot is stored
+    twice and that the finish reads only what was written. Returns
+    (starts, values per request)."""
     n = new_group.shape[0]
     n_tiles = -(-n // _T)
     heads = [int(new_group[t * _T:(t + 1) * _T].sum()) for t in range(n_tiles)]
@@ -313,7 +382,7 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
     res = [[None] * out_cap for _ in contribs]
     head = [[None] * n_tiles for _ in contribs]
     tail = [[None] * n_tiles for _ in contribs]
-    tilebad = [[None] * n_tiles for _ in contribs]
+    tiletop = [[0] * n_tiles for _ in contribs]
     for t in range(n_tiles):
         t0, b = t * _T, int(base[t])
         h = [t0 + j < n and bool(new_group[t0 + j]) for j in range(_T)]
@@ -332,15 +401,15 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
             for q in range(batch, min(batch + _BATCH, len(contribs))):  # A
                 kind, ident, c = contribs[q]
                 op = _COMBINE[kind]
-                runs, before, bad = [], [], _T
+                runs, before = [], []
                 for k in range(_THREADS):
                     g = b + int(excl[k]) - 1
                     run, first, found = ident, ident, False
                     for j in range(_ITEMS):
                         r = t0 + k * _ITEMS + j
                         x = c[r] if r < n else ident
-                        if r < n and _nonfinite(kind, x):
-                            bad = min(bad, k * _ITEMS + j)
+                        if r < n and kind == "fsum":
+                            tiletop[q][t] = max(tiletop[q][t], _high_word(x))
                         if h[k * _ITEMS + j]:
                             if not found:
                                 first, found = run, True
@@ -357,7 +426,6 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
                     tail[q][t] = incl
                 else:
                     head[q][t] = incl
-                tilebad[q][t] = t0 + bad if bad < _T else None
                 befores[q] = (carries, before)
             for q, (carries, before) in befores.items():  # C
                 op = _COMBINE[contribs[q][0]]
@@ -373,16 +441,22 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
                     else:
                         head[q][t] = done
     # span: each request's head partials scanned over the tiles, restarting
-    # after each tile with a head; a float sum's first non-finite row
-    first_bad = []
-    for q, (kind, ident, _) in enumerate(contribs):
+    # after each tile with a head; a float sum past its bound follows the
+    # plain cumsum
+    hs = [[None] * n_tiles for _ in contribs]
+    follows = []
+    for q, (kind, ident, c) in enumerate(contribs):
         run = ident
         for t in range(n_tiles):
             assert head[q][t] is not None
             run = head[q][t] if t > 0 and heads[t - 1] else _COMBINE[kind](run, head[q][t])
-            head[q][t] = run
-        found = [r for r in tilebad[q] if r is not None]
-        first_bad.append(min(found) if found else None)
+            hs[q][t] = run
+        bound = sum(float(np.uint64((top << 32) | 0xFFFFFFFF).view(np.float64)) * _T
+                    for top in tiletop[q])
+        follows.append(kind == "fsum" and out_cap > 1 and not bound <= 2.0**1022)
+        if follows[q]:
+            res[q] = _follow_plain_cumsum(n, out_cap, total, base, starts, res[q], head[q],
+                                          hs[q], tail[q], c)
     values = [[None] * out_cap for _ in contribs]
     for g in range(out_cap):
         real = g < total
@@ -395,21 +469,12 @@ def _emulate_segment_agg(new_group, out_cap, contribs):
         for q, (kind, ident, _) in enumerate(contribs):
             if not real:
                 values[q][g] = ident
-            elif inside:
+            elif inside or follows[q]:
                 values[q][g] = res[q][g]
             else:
                 x = tail[q][ts]
-                values[q][g] = _COMBINE[kind](x, head[q][te]) if te > ts else x
+                values[q][g] = _COMBINE[kind](x, hs[q][te]) if te > ts else x
             assert values[q][g] is not None, (q, g)
-            bad = first_bad[q]
-            if not real or kind != "fsum" or out_cap == 1 or bad is None:
-                continue
-            if n > 4 * _T:  # the cumsum scans by tiles: NaN across a tile past a bad row
-                nan = s >= bad // _T * _T or tilebad[q][te] is not None
-            else:
-                nan = s >= bad
-            if nan:
-                values[q][g] = float("nan")
     return np.array(starts[:out_cap], dtype=np.int64), values
 
 
@@ -478,18 +543,25 @@ def test_segment_agg_tile_plan_matches_segment_agg_plain(case):
 
 
 # where a value that is not finite sits: inside an early group, on a group's
-# first row, or on a weighted row before the first group
+# first row, or on a weighted row before the first group; then consecutive
+# finite values whose prefix leaves the finite range (1e308 on three rows):
+# the same places, and a group's last row with the next one's first rows,
+# and a tile's last row with the next one's first rows (past four tiles
+# only a tile total, or only the tiles' prefix, overflows there)
 NONFINITE_VALUES = {"nan": (float("nan"),), "+inf": (float("inf"),), "-inf": (float("-inf"),),
-                    "+inf beside -inf": (float("inf"), float("-inf"))}
-NONFINITE_PLACES = ("early group", "group's first row", "rows before the first group")
+                    "+inf beside -inf": (float("inf"), float("-inf")),
+                    "1e308 on three rows": (1e308,) * 3}
+NONFINITE_PLACES = ("early group", "group's first row", "rows before the first group",
+                    "a group's last row and the next one's first",
+                    "a tile's last row and the next one's first")
 
 
 def _nonfinite_page(values, place, seed, n):
     """A group-sorted page (groups of about 40 rows over tiles, the first
-    starting at row 100) and its doubles, normal but at ``place``: the
-    second and third rows of the third group, the first and second rows of
-    the sixth group, or rows 10 and 11 (weighted, before the first
-    group)."""
+    starting at row 100) and its doubles, normal but from the row ``at``
+    of ``place``: the second row of the third group, the first row of the
+    sixth group, row 10 (weighted, before the first group), the last row
+    of the fifth group, or row 2,047 (the last of the first tile)."""
     rng = np.random.default_rng(seed)
     new_group = rng.random(n) < 1 / 40
     new_group[:100] = False
@@ -497,10 +569,12 @@ def _nonfinite_page(values, place, seed, n):
     firsts = np.flatnonzero(new_group)
     x = rng.normal(0.0, 1e3, n)
     at = {"early group": firsts[2] + 1, "group's first row": firsts[5],
-          "rows before the first group": 10}[place]
+          "rows before the first group": 10,
+          "a group's last row and the next one's first": firsts[5] - 1,
+          "a tile's last row and the next one's first": _T - 1}[place]
     for k, v in enumerate(values):
         x[at + k] = v
-    return new_group, x, rng
+    return new_group, x, rng, at
 
 
 @pytest.mark.parametrize("n", [3 * _T + 77, 6 * _T + 77])
@@ -512,14 +586,18 @@ def test_segment_agg_tile_plan_follows_the_plain_version_past_nan_and_infinities
     sums over the page, so a NaN or an infinity at or before a group's first
     row makes that group's sum NaN, and one inside a group only that
     group's; past four tiles of rows its cumsum scans by tiles, and a tile
-    whose total is not finite is NaN throughout. The kernel's tile plan (its
-    own sums per group, NaN where that formula gives NaN) gives
-    ``segment_agg_plain``'s NaNs and infinities at the same slots, and its
-    other sums within 1e-9, for a sum, a sum of squares and the variance
-    finished from them, on a page of one scan and one of six tiles; with
-    one output slot both sum every weighted row."""
+    whose total is not finite is NaN throughout. Finite doubles whose
+    prefix leaves the finite range (1e308 on three rows) do the same from
+    the row where it does, as does a tile total or the tiles' prefix that
+    does. The kernel's tile plan (its own sums per group, the class of that
+    formula where the bound on its doubles says it may not be finite)
+    gives ``segment_agg_plain``'s NaNs and infinities at the same slots,
+    and its other sums within 1e-9, for a sum, a sum of squares and the
+    variance finished from them, on a page of one scan and one of six
+    tiles; with one output slot both sum every weighted row."""
     assert K.CUMSUM_BLOCK == _T  # the plain cumsum's blocks are the kernel's tiles
-    new_group, x, rng = _nonfinite_page(NONFINITE_VALUES[value], place, len(value + place), n)
+    values = NONFINITE_VALUES[value]
+    new_group, x, rng, at = _nonfinite_page(values, place, len(value + place), n)
     n = new_group.shape[0]
     active = np.ones(n, bool)  # rows before the first group are weighted too
     valid = rng.random(n) < 0.9
@@ -527,6 +605,7 @@ def test_segment_agg_tile_plan_follows_the_plain_version_past_nan_and_infinities
     firsts = np.flatnonzero(new_group)
     valid[firsts[2] + 1:firsts[2] + 3] = True
     valid[firsts[5]:firsts[5] + 2] = True
+    valid[at:at + len(values)] = True
     t = torch.from_numpy
     requests = [HK.AggRequest("count", valid=t(valid)), HK.AggRequest("fsum", t(x), t(valid)),
                 HK.AggRequest("fsum", t(x), t(valid), power=2)]
@@ -562,9 +641,52 @@ def test_segment_agg_tile_plan_follows_the_plain_version_past_nan_and_infinities
         cnt = np.array(values[0], dtype=np.float64)[ex]
         s1, s2 = (np.array(values[k], dtype=np.float64)[ex] for k in (1, 2))
         nn = np.maximum(cnt, 1)
-        with np.errstate(invalid="ignore", divide="ignore"):
+        with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
             var = np.maximum(s2 / nn - (s1 / nn) ** 2, 0) * nn / np.maximum(nn - 1, 1)
         np.testing.assert_array_equal(np.isnan(var), np.isnan(outs[2][0].numpy()[ex]))
+
+
+@pytest.mark.parametrize("n", [3 * _T + 77, 6 * _T + 77])
+def test_segment_agg_tile_plan_follows_the_plain_version_past_a_prefix_of_tile_totals(n):
+    """Finite doubles whose plain prefix of tile totals leaves the finite
+    range while no tile total does: a group starts on a tile's first row
+    and runs past the next tile's first row, and x holds -1e308 on those
+    two rows (y +1e308 on the rows of such a group two tiles earlier). Past
+    four tiles of rows the plain version's exclusive prefix of the tile
+    totals is -inf (+inf) from the second tile on, so that group sums to
+    -inf (+inf) and every later one to NaN; up to four tiles its one scan
+    gives the same. The kernel's tile plan gives those classes at the
+    same slots and every other sum within 1e-9."""
+    rng = np.random.default_rng(n)
+    new_group = rng.random(n) < 1 / 40
+    new_group[0] = True
+    x = rng.normal(0.0, 1e3, n)
+    y = rng.normal(0.0, 1e3, n)
+    for col, tile, value in ((y, 0, 1e308), (x, 2, -1e308)):
+        at = tile * _T
+        new_group[at] = True
+        new_group[at + 1:at + _T + 2] = False
+        col[at], col[at + _T] = value, value
+    active = np.ones(n, bool)
+    t = torch.from_numpy
+    requests = [HK.AggRequest("count"), HK.AggRequest("fsum", t(x)), HK.AggRequest("fsum", t(y))]
+    outputs = [HK.AggOutput("value", (1,), torch.float64),
+               HK.AggOutput("value", (2,), torch.float64)]
+    out_cap = int(new_group.sum()) + 3
+    contribs = [("count", 0, [1] * n), ("fsum", 0.0, x.tolist()), ("fsum", 0.0, y.tolist())]
+    starts, values = _emulate_segment_agg(new_group, out_cap, contribs)
+    num_groups = torch.tensor(int(new_group.sum()))
+    got_starts, exists, _, outs, _ = HK.segment_agg_plain(
+        t(new_group), num_groups, out_cap, t(active), [], requests, outputs)
+    np.testing.assert_array_equal(starts, got_starts.numpy())
+    ex = exists.numpy()
+    for k, sign in ((1, -1.0), (2, 1.0)):
+        want = outs[k - 1][0].numpy()[ex]
+        emulated = np.array(values[k], dtype=np.float64)[ex]
+        assert (want == sign * np.inf).sum() == 1
+        np.testing.assert_array_equal(np.isnan(emulated), np.isnan(want))
+        np.testing.assert_allclose(emulated, want, rtol=REL_TOL, atol=1e-6)
+    assert np.isnan(outs[1][0].numpy()[ex]).any()  # y's later groups
 
 
 # --------------------------------------------------------------------------- #

@@ -388,12 +388,11 @@ __device__ __forceinline__ uint64_t raw_order_key(uint64_t raw, bool f) {
 // scalar's reciprocal; the host makes it, correctly rounded as the card's
 // division is), transformed, raised to its power left to right and times
 // the second factor (over its own divisor), each product rounded on its
-// own. Returns, for a float sum, the bits of the weighted rows whose
-// double is not finite.
+// own.
 template <int R, typename Row, typename Load2>
-__device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, uint32_t not_null,
-                                             uint64_t (&x)[R], Row row, Load2 load2,
-                                             uint64_t (&c)[R]) {
+__device__ __forceinline__ void contribs(const AggRequest& q, uint32_t w, uint32_t not_null,
+                                         uint64_t (&x)[R], Row row, Load2 load2,
+                                         uint64_t (&c)[R]) {
   const uint64_t ident = static_cast<uint64_t>(q.identity);
   const bool f = is_float_type(q.type);
   if (q.pred != hopper::kPredNone) {
@@ -408,11 +407,11 @@ __device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, ui
     case hopper::kCount:
 #pragma unroll
       for (int j = 0; j < R; ++j) c[j] = w >> j & 1u;
-      return 0;
+      return;
     case hopper::kLastRow:
 #pragma unroll
       for (int j = 0; j < R; ++j) c[j] = w >> j & 1u ? static_cast<uint64_t>(row(j)) : ident;
-      return 0;
+      return;
     case hopper::kSumFloat: {
 #pragma unroll
       for (int j = 0; j < R; ++j) x[j] = bits_of(raw_double(x[j], f));
@@ -454,20 +453,15 @@ __device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, ui
           c[j] = bits_of(dmul(as_double(c[j]), v));
         }
       }
-      uint32_t nonfinite = 0;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const bool on = w >> j & 1u;
-        if (on && !isfinite(as_double(c[j]))) nonfinite |= 1u << j;
-        c[j] = on ? c[j] : 0ull;
-      }
-      return nonfinite;
+      for (int j = 0; j < R; ++j) c[j] = w >> j & 1u ? c[j] : 0ull;
+      return;
     }
     case hopper::kMinFloat:
     case hopper::kMaxFloat:
 #pragma unroll
       for (int j = 0; j < R; ++j) c[j] = w >> j & 1u ? bits_of(raw_double(x[j], f)) : ident;
-      return 0;
+      return;
     case hopper::kChecksum:
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -475,7 +469,7 @@ __device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, ui
         c[j] = w >> j & 1u ? checksum_term(q, static_cast<int64_t>(k), !(not_null >> j & 1u))
                            : ident;
       }
-      return 0;
+      return;
     default: {  // the integer sums, min, max and bitwise kinds
       const bool okey = q.transform == hopper::kOrderKey;
 #pragma unroll
@@ -483,7 +477,7 @@ __device__ __forceinline__ uint32_t contribs(const AggRequest& q, uint32_t w, ui
         const uint64_t v = okey ? raw_order_key(x[j], f) : raw_int(x[j], f);
         c[j] = w >> j & 1u ? v : ident;
       }
-      return 0;
+      return;
     }
   }
 }

@@ -50,21 +50,28 @@
 //   (r + 0.5) / count, is k, its mean and its count (float64), r counted
 //   from the group's start.
 //
-//   A float64 sum follows the plain version's cumsum difference past a
-//   value that is not finite. Where out_cap > 1 the plain version sums a
-//   group as csum[end] - csum[start] + vals[start], NaN once csum[start]
-//   is not finite, and with csum[end]'s class where only csum[end] is not.
+//   A float64 sum takes the class (NaN, +inf or -inf) of the plain
+//   version's cumsum difference where that difference is not finite, and
+//   keeps its own sum everywhere else. Where out_cap > 1 the plain version
+//   sums a group as csum[end] - csum[start] + vals[start] over the
+//   weighted doubles of the page (rows before the first group included).
 //   Its cumsum (kernels.cumsum, as the reference's) is one scan up to
 //   4 * 2048 rows; past that, a scan within blocks of 2048 rows (a tile)
 //   plus the exclusive prefix of the block totals taken as their cumsum
-//   less the block's own total, which is NaN across a whole block whose
-//   total is not finite. So, with "bad" rows the weighted rows whose double
-//   is NaN or infinite (rows before the first group included): up to
-//   8,192 rows a group sums to NaN where a bad row lies at or before its
-//   start row; past 8,192 rows, where a bad row lies before the end of its
-//   start row's tile, or its end row's tile holds a bad row; every other
-//   group keeps its own sum (NaN or an infinity where its own rows hold
-//   one). A finite prefix that overflows is not followed.
+//   less the block's own total. So a value that is not finite at or before
+//   a group's start makes it NaN, and so does a finite prefix that leaves
+//   the finite range (csum[start] and csum[end] both infinite), or a tile
+//   total that does (its prefix inf - inf). The passes carry, per float
+//   request and tile, the largest high word of its weighted doubles; only
+//   where the page's bound on the sum of their magnitudes (kSegRows times
+//   each tile's largest, summed) passes 2^1022, or is not finite, does the
+//   span pass compute the plain version's csum at each group's start and
+//   end: the tile totals in tile order (head partial, the groups inside,
+//   tail partial), their exclusive prefix as the plain version takes it,
+//   and within a tile the head partial and the groups before, all in
+//   group order (the page as one tile up to 8,192 rows); the group takes
+//   that difference's class where it is not finite. A page within the
+//   bound reads no column again and makes no extra pass.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. Each request's columns read
 // once, new_group read once, starts written and read once, the keys' bytes
@@ -86,8 +93,8 @@
 //   its last head in shared memory; (B) warp w carries request w's runs
 //   over the tile's threads (a segmented scan, lanes over 8 threads each,
 //   restarting at each thread with a head), writes the tile's tail (or
-//   whole-tile head) partial and, for a float sum, the tile's first row
-//   with a value that is not finite; (C) each thread with a head finishes
+//   whole-tile head) partial and, for a float sum, the largest high word
+//   of its doubles over the tile; (C) each thread with a head finishes
 //   the group that ends at its first head: into its slot, or the tile's
 //   head partial if that group began in an earlier tile. Two block
 //   barriers a batch, none a request.
@@ -95,7 +102,8 @@
 //   restarting after each tile with a head, so a group that spans tiles
 //   (the last group of a sorted page runs over its inactive tail) reads
 //   two partials however many tiles it covers; a float sum's block also
-//   takes the least of its tiles' first non-finite rows.
+//   bounds its doubles' magnitudes and, past the bound, follows the plain
+//   cumsum (above).
 // - finish: one thread a slot combines a tile-spanning group's tail
 //   partial with the scanned head partials (in one fixed order, so a
 //   float sum gives the same bits in every run), gathers the keys,
@@ -138,7 +146,6 @@ constexpr int kSegRows = kThreads * kSegItems;   // rows a tile
 constexpr int kBatch = kWarps;                   // requests a batch: one a warp
 constexpr int kMaxMasks = 16;                    // distinct bool columns a call
 constexpr int kRunStride = kThreads + kThreads / kSegItems;  // padded: no bank conflicts
-constexpr int16_t kNoBadRow = kSegRows;          // a thread's rows are all finite
 constexpr uint64_t kNaNBits = 0x7FF8000000000000ull;
 // Rows the plain version's float cumsum scans in one pass (kernels.cumsum:
 // 4 blocks of CUMSUM_BLOCK = kSegRows rows); past them it scans by tiles.
@@ -411,14 +418,14 @@ __device__ __forceinline__ uint32_t weight_bits(const TilePlan& plan, int r,
 // Phase A's contributions of request q over the thread's rows (rows past n
 // and unweighted rows hold the identity) from its raw values x (read with
 // wide loads; contribs may overwrite them): contribs, or for a
-// min_by/max_by row its order key against its group's extreme. For a float sum, the first weighted row whose
-// double is not finite (its offset in the tile, kNoBadRow where none).
+// min_by/max_by row its order key against its group's extreme. For a
+// float sum, the largest high word (sign cleared) of its doubles.
 __device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
                                                 uint32_t not_null, uint32_t h, int64_t r0,
                                                 int64_t n, int64_t g0, int64_t out_cap,
                                                 const uint64_t* __restrict__ ext,
                                                 uint64_t (&x)[kSegItems],
-                                                uint64_t (&c)[kSegItems], int16_t* bad) {
+                                                uint64_t (&c)[kSegItems], uint32_t* top) {
   if (q.kind == hopper::kMatchLast) {
     const bool f = is_float_type(q.type);
     const uint64_t ident = static_cast<uint64_t>(q.identity);
@@ -431,11 +438,18 @@ __device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
     }
     return;
   }
-  const uint32_t nonfinite = contribs<kSegItems>(
+  contribs<kSegItems>(
       q, w, not_null, x, [&](int j) { return r0 + j; },
       [&](uint64_t (&x2)[kSegItems]) { load_raw(q.type2, q.values2, r0, n, x2); }, c);
-  *bad = nonfinite != 0 ? static_cast<int16_t>((r0 & (kSegRows - 1)) + __ffs(nonfinite) - 1)
-                        : kNoBadRow;
+  if (q.kind == hopper::kSumFloat) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const uint32_t hi = static_cast<uint32_t>(c[j] >> 32) & 0x7fffffffu;
+      m = hi > m ? hi : m;
+    }
+    *top = m;
+  }
 }
 
 // Phase A's runs of a request of kind KIND over the thread's rows: the
@@ -518,18 +532,18 @@ __device__ __forceinline__ uint64_t carry_scan(uint64_t* run_col, const uint8_t*
 
 // The reduction pass over one tile: starts of its heads, then each round's
 // requests in batches (phases A, B and C above): complete groups into res,
-// the tile's head and tail partials, and each float sum's first tile row
-// whose double is not finite into tilebad (INT64_MAX where none).
+// the tile's head and tail partials, and each float sum's largest high
+// word of its doubles over the tile into tiletop.
 __global__ void __launch_bounds__(kThreads)
 agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
                   const bool* __restrict__ new_group, int64_t n, int64_t out_cap,
                   int64_t n_tiles, const int64_t* __restrict__ base,
                   int64_t* __restrict__ starts, uint64_t* __restrict__ res,
                   uint64_t* __restrict__ head, uint64_t* __restrict__ tail,
-                  int64_t* __restrict__ tilebad, const uint64_t* __restrict__ extremes) {
+                  int64_t* __restrict__ tiletop, const uint64_t* __restrict__ extremes) {
   __shared__ uint64_t run_s[kBatch][kRunStride];
   __shared__ uint64_t before_s[kBatch][kThreads];
-  __shared__ int16_t bad_s[kBatch][kThreads];
+  __shared__ uint32_t top_s[kBatch][kWarps];
   __shared__ uint8_t mask_s[kMaxMasks][kThreads];
   __shared__ uint8_t seen_s[kThreads];
   const int lane = threadIdx.x & 31;
@@ -572,8 +586,12 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
 #pragma unroll
         for (int j = 0; j < kSegItems; ++j) x[j] = 0;
       }
-      int16_t bad = kNoBadRow;
-      thread_contribs(q, w, not_null, h, r0, n, g0, out_cap, extremes + r * out_cap, x, c, &bad);
+      uint32_t top = 0;
+      thread_contribs(q, w, not_null, h, r0, n, g0, out_cap, extremes + r * out_cap, x, c, &top);
+      if (q.kind == hopper::kSumFloat) {
+        top = __reduce_max_sync(0xffffffffu, top);
+        if (lane == 0) top_s[bi][warp] = top;
+      }
       uint64_t before, run;
       with_kind(q.kind, [&](auto tag) {
         thread_runs<decltype(tag)::kind>(c, static_cast<uint64_t>(q.identity), h, g0, out_cap,
@@ -581,7 +599,6 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
       });
       run_s[bi][threadIdx.x + (threadIdx.x >> 3)] = run;
       before_s[bi][threadIdx.x] = before;
-      bad_s[bi][threadIdx.x] = bad;
     }
     __syncthreads();
     if (warp < nb) {  // B
@@ -600,14 +617,8 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
         }
       }
       if (q.kind == hopper::kSumFloat) {
-        int m = kNoBadRow;
-#pragma unroll
-        for (int i = 0; i < kSegItems; ++i) {
-          const int x = bad_s[warp][lane * kSegItems + i];
-          m = x < m ? x : m;
-        }
-        m = __reduce_min_sync(0xffffffffu, m);
-        if (lane == 0) tilebad[r * n_tiles + tile] = m < kNoBadRow ? t0 + m : INT64_MAX;
+        const uint32_t m = __reduce_max_sync(0xffffffffu, lane < kWarps ? top_s[warp][lane] : 0u);
+        if (lane == 0) tiletop[r * n_tiles + tile] = m;
       }
     }
     __syncthreads();
@@ -630,9 +641,10 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
 }
 
 // The span pass's scan of one request's head partials h over the tiles
-// (the kind's reduction, a restart after each tile with a head).
+// into hs (the kind's reduction, a restart after each tile with a head).
 template <int KIND>
-__device__ __forceinline__ void span_scan(uint64_t ident, uint64_t* __restrict__ h,
+__device__ __forceinline__ void span_scan(uint64_t ident, const uint64_t* __restrict__ h,
+                                          uint64_t* __restrict__ hs,
                                           const int64_t* __restrict__ base, int64_t n_tiles,
                                           uint64_t* incl) {
   uint64_t carry = ident;
@@ -664,51 +676,12 @@ __device__ __forceinline__ void span_scan(uint64_t ident, uint64_t* __restrict__
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
       const int64_t t = c0 + static_cast<int64_t>(threadIdx.x) * kSegItems + j;
-      if (t < n_tiles) h[t] = f[j] ? v[j] : combine_of<KIND>(prefix, v[j]);
+      if (t < n_tiles) hs[t] = f[j] ? v[j] : combine_of<KIND>(prefix, v[j]);
     }
     carry = incl[kThreads - 1];
     __syncthreads();  // incl is read before the next chunk writes it
   }
 }
-
-// One block a request: the head partials in place become, for each tile t,
-// the combination of the head partials of the tiles since the last tile
-// with a head before t (a segmented scan over the tiles, restarting after
-// each tile with a head), so a group that runs from tile ts to tile te
-// reads its tail partial and the scan at te: two loads however many tiles
-// it spans.
-__global__ void __launch_bounds__(kThreads)
-agg_span_kernel(AggCombine reqs, int phase, const int64_t* __restrict__ base, int64_t n_tiles,
-                uint64_t* __restrict__ head, const int64_t* __restrict__ tilebad,
-                int64_t* __restrict__ bad) {
-  __shared__ uint64_t incl[kThreads];
-  __shared__ int64_t warp_min[kWarps];
-  const int kind = reqs.kind[blockIdx.x];
-  if (!in_phase(kind, phase)) return;  // the other round's request
-  if (kind == hopper::kSumFloat) {
-    // the page's first weighted row whose double is not finite
-    const int64_t* tb = tilebad + static_cast<int64_t>(blockIdx.x) * n_tiles;
-    int64_t m = INT64_MAX;
-    for (int64_t t = threadIdx.x; t < n_tiles; t += kThreads) m = tb[t] < m ? tb[t] : m;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const int64_t x = __shfl_down_sync(0xffffffffu, m, o);
-      m = x < m ? x : m;
-    }
-    if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kWarps; ++w) m = warp_min[w] < m ? warp_min[w] : m;
-      bad[blockIdx.x] = m;
-    }
-  }
-  with_kind(kind, [&](auto tag) {
-    span_scan<decltype(tag)::kind>(static_cast<uint64_t>(reqs.identity[blockIdx.x]),
-                                   head + static_cast<int64_t>(blockIdx.x) * n_tiles, base,
-                                   n_tiles, incl);
-  });
-}
-
 
 // Where slot g's group lies among the tiles: whether it is a group, and
 // whether it ends in the tile ts of its start (else in tile te).
@@ -734,25 +707,175 @@ __device__ __forceinline__ SlotSpan slot_span(int64_t g, int64_t total, int64_t 
 
 // Request r's value of slot g: its identity past the groups, a group
 // complete inside a tile from its slot, else the tail partial of the
-// start's tile, then the scanned head partials of the tiles up to the
+// start's tile, then the scanned head partials (hs) of the tiles up to the
 // end's.
 __device__ __forceinline__ uint64_t slot_value(const AggCombine& reqs, int r, int64_t g,
                                                const SlotSpan& sp, int64_t out_cap,
                                                int64_t n_tiles, const uint64_t* __restrict__ res,
-                                               const uint64_t* __restrict__ head,
+                                               const uint64_t* __restrict__ hs,
                                                const uint64_t* __restrict__ tail) {
   if (!sp.real) return static_cast<uint64_t>(reqs.identity[r]);
   if (sp.inside) return res[r * out_cap + g];
   const uint64_t x = tail[r * n_tiles + sp.ts];
-  return sp.te > sp.ts ? combine(reqs.kind[r], x, head[r * n_tiles + sp.te]) : x;
+  return sp.te > sp.ts ? combine(reqs.kind[r], x, hs[r * n_tiles + sp.te]) : x;
 }
+
+// One request's partials, as the span pass reads them for the plain
+// version's cumsum (its slices of res, head, hs, tail).
+struct FloatParts {
+  uint64_t* res;
+  const uint64_t* head;
+  const uint64_t* hs;
+  const uint64_t* tail;
+};
+
+// A float sum's own value of real slot g (slot_value's).
+__device__ __forceinline__ double own_sum(const FloatParts& fp, int64_t g, const SlotSpan& sp) {
+  using hopper::agg::dadd;  // not CUDA's dadd of the global namespace
+  if (sp.inside) return as_double(fp.res[g]);
+  const double x = as_double(fp.tail[sp.ts]);
+  return sp.te > sp.ts ? dadd(x, as_double(fp.hs[sp.te])) : x;
+}
+
+// A group's float sum from the plain version's csum at its start (cs) and
+// end (ce) rows and its start row's double vs: the class of ce - cs + vs
+// where that is not finite, else its own sum.
+__device__ __forceinline__ uint64_t plain_class(double ce, double cs, double vs, double own) {
+  using hopper::agg::dadd;
+  using hopper::agg::dsub;
+  const double d = dadd(dsub(ce, cs), vs);
+  if (isnan(d)) return kNaNBits;
+  return bits_of(isinf(d) ? d : own);
+}
+
+// The float sum request q's overflow path (one block): each real slot's
+// value into res (see the header). tt (n_tiles doubles) takes the tile
+// totals, then their exclusive prefix.
+__device__ void follow_plain_cumsum(const AggRequest& q, const bool* __restrict__ active,
+                                    const FloatParts& fp, const int64_t* __restrict__ base,
+                                    const int64_t* __restrict__ starts, int64_t n,
+                                    int64_t out_cap, int64_t n_tiles, double* __restrict__ tt) {
+  using hopper::agg::dadd;
+  using hopper::agg::dsub;
+  const int64_t total = base[n_tiles];
+  const int64_t slots = total < out_cap ? total : out_cap;
+  if (n <= kOneScanRows) {  // one scan: the page in group order
+    if (threadIdx.x != 0 || slots == 0) return;
+    double run = 0.0;  // the rows before the first group
+    for (int64_t t = 0; t < n_tiles; ++t) {
+      run = dadd(run, as_double(fp.head[t]));
+      if (base[t + 1] > base[t]) break;
+    }
+    for (int64_t g = 0; g < slots; ++g) {
+      const SlotSpan sp = slot_span(g, total, n, starts);
+      const double vs = as_double(contribution_of<hopper::kSumFloat>(q, active, sp.start));
+      const double own = own_sum(fp, g, sp);
+      const double ce = dadd(run, own);
+      fp.res[g] = plain_class(ce, dadd(run, vs), vs, own);
+      run = ce;
+    }
+    return;
+  }
+  // each tile's total: its head partial, the groups inside it, its tail
+  for (int64_t b = threadIdx.x; b < n_tiles; b += kThreads) {
+    double x = as_double(fp.head[b]);
+    if (base[b + 1] > base[b]) {
+      const int64_t last = base[b + 1] - 1 < out_cap ? base[b + 1] - 1 : out_cap;
+      for (int64_t g = base[b]; g < last; ++g) x = dadd(x, as_double(fp.res[g]));
+      x = dadd(x, as_double(fp.tail[b]));
+    }
+    tt[b] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // their exclusive prefix: cumsum less the total
+    double c = 0.0;
+    for (int64_t b = 0; b < n_tiles; ++b) {
+      const double x = tt[b];
+      c = dadd(c, x);
+      tt[b] = dsub(c, x);
+    }
+  }
+  __syncthreads();
+  for (int64_t b = threadIdx.x; b < n_tiles; b += kThreads) {
+    double within = as_double(fp.head[b]);
+    const int64_t end = base[b + 1] < out_cap ? base[b + 1] : out_cap;
+    for (int64_t g = base[b]; g < end; ++g) {
+      const SlotSpan sp = slot_span(g, total, n, starts);
+      const double vs = as_double(contribution_of<hopper::kSumFloat>(q, active, sp.start));
+      const double own = own_sum(fp, g, sp);
+      const double cs = dadd(tt[b], dadd(within, vs));
+      double ce;
+      if (sp.te == b) {
+        within = dadd(within, own);
+        ce = dadd(tt[b], within);
+      } else {  // its rows in its end tile are that tile's head partial
+        ce = dadd(tt[sp.te], as_double(fp.head[sp.te]));
+      }
+      fp.res[g] = plain_class(ce, cs, vs, own);
+    }
+  }
+}
+
+// One block a request: the head partials scanned into hs, for each tile t
+// the combination of the head partials of the tiles since the last tile
+// with a head before t (a segmented scan over the tiles, restarting after
+// each tile with a head), so a group that runs from tile ts to tile te
+// reads its tail partial and the scan at te: two loads however many tiles
+// it spans. A float sum's block (out_cap > 1) also bounds the magnitudes
+// of its doubles from the tiles' largest high words (tiletop); where the
+// bound passes 2^1022 or is not finite, it sets big[r] and writes every
+// real slot's value into res by follow_plain_cumsum, tiletop taking its
+// tile totals.
+__global__ void __launch_bounds__(kThreads)
+agg_span_kernel(AggRequestSet reqs, const bool* __restrict__ active, int phase,
+                const int64_t* __restrict__ base, const int64_t* __restrict__ starts, int64_t n,
+                int64_t out_cap, int64_t n_tiles, uint64_t* __restrict__ res,
+                const uint64_t* __restrict__ head, uint64_t* __restrict__ hs,
+                const uint64_t* __restrict__ tail, int64_t* __restrict__ tiletop,
+                int64_t* __restrict__ big) {
+  __shared__ uint64_t incl[kThreads];
+  __shared__ double warp_sum[kWarps];
+  const int r = blockIdx.x;
+  const AggRequest& q = reqs.req[r];
+  const int kind = q.kind;
+  if (!in_phase(kind, phase)) return;  // the other round's request
+  const int64_t off = static_cast<int64_t>(r) * n_tiles;
+  with_kind(kind, [&](auto tag) {
+    span_scan<decltype(tag)::kind>(static_cast<uint64_t>(q.identity), head + off, hs + off,
+                                   base, n_tiles, incl);
+  });
+  if (kind != hopper::kSumFloat) return;
+  // kSegRows times the largest double of each tile's high word, summed
+  double bound = 0.0;
+  for (int64_t t = threadIdx.x; t < n_tiles; t += kThreads) {
+    const uint64_t top = static_cast<uint64_t>(tiletop[off + t]);
+    bound += as_double(top << 32 | 0xffffffffull) * kSegRows;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bound += __shfl_down_sync(0xffffffffu, bound, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = bound;
+  __syncthreads();
+  bound = 0.0;
+  for (int w = 0; w < kWarps; ++w) bound += warp_sum[w];
+  const bool follow = out_cap > 1 && !(bound <= 0x1p1022);
+  if (threadIdx.x == 0) big[r] = follow;
+  if (!follow) return;
+  FloatParts fp;
+  fp.res = res + static_cast<int64_t>(r) * out_cap;
+  fp.head = head + off;
+  fp.hs = hs + off;
+  fp.tail = tail + off;
+  follow_plain_cumsum(q, active, fp, base, starts, n, out_cap, n_tiles,
+                      reinterpret_cast<double*>(tiletop + off));
+}
+
 
 // One thread a slot: each min_by/max_by request's extreme (its ref's value)
 // for the second round.
 __global__ void __launch_bounds__(kThreads)
 agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
                    const int64_t* __restrict__ base, const int64_t* __restrict__ starts,
-                   const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
+                   const uint64_t* __restrict__ res, const uint64_t* __restrict__ hs,
                    const uint64_t* __restrict__ tail, uint64_t* __restrict__ extremes) {
   const int64_t total = base[n_tiles];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -762,24 +885,22 @@ agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
     for (int r = 0; r < reqs.n; ++r) {
       if (reqs.kind[r] != hopper::kMatchLast) continue;
       extremes[r * out_cap + g] =
-          slot_value(reqs, reqs.ref[r], g, sp, out_cap, n_tiles, res, head, tail);
+          slot_value(reqs, reqs.ref[r], g, sp, out_cap, n_tiles, res, hs, tail);
     }
   }
 }
 
-// One thread a slot: the group's value of every request (a float sum NaN
-// where the plain cumsum difference gives NaN: from the page's first bad
-// row ``bad`` and the tiles' ``tilebad``, as the header says),
-// the keys, the outputs, group_exists and the destination. A slot past
+// One thread a slot: the group's value of every request (a float sum
+// whose span pass followed the plain cumsum, big[r], from its slot), the
+// keys, the outputs, group_exists and the destination. A slot past
 // num_groups writes zero data and no validity, without finishing.
 __global__ void __launch_bounds__(kThreads)
 agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t n,
                   int64_t out_cap, int64_t n_tiles, const int64_t* __restrict__ base,
                   const int64_t* __restrict__ num_groups, int64_t* __restrict__ starts,
-                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
-                  const uint64_t* __restrict__ tail, const int64_t* __restrict__ tilebad,
-                  const int64_t* __restrict__ bad, bool* __restrict__ group_exists,
-                  int32_t* __restrict__ dest) {
+                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ hs,
+                  const uint64_t* __restrict__ tail, const int64_t* __restrict__ big,
+                  bool* __restrict__ group_exists, int32_t* __restrict__ dest) {
   const int64_t total = base[n_tiles];
   const int64_t ng = *num_groups;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -815,13 +936,9 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
     }
     uint64_t v[hopper::kMaxAggRequests];
     for (int r = 0; r < reqs.n; ++r) {
-      v[r] = slot_value(reqs, r, g, sp, out_cap, n_tiles, res, head, tail);
-      if (reqs.kind[r] == hopper::kSumFloat && out_cap > 1 && bad[r] != INT64_MAX &&
-          (n > kOneScanRows ? sp.start >= bad[r] / kSegRows * kSegRows ||
-                                  tilebad[r * n_tiles + sp.te] != INT64_MAX
-                            : sp.start >= bad[r])) {
-        v[r] = kNaNBits;  // as the plain cumsum difference
-      }
+      v[r] = reqs.kind[r] == hopper::kSumFloat && big[r] && sp.real
+                 ? res[r * out_cap + g]
+                 : slot_value(reqs, r, g, sp, out_cap, n_tiles, res, hs, tail);
     }
     for (int o = 0; o < outs.n; ++o) {
       hopper::agg::finish_output(outs.out[o], v, g, n, sp.start);
@@ -854,7 +971,7 @@ __device__ __forceinline__ int digest_bucket(int64_t p, int64_t start, double cn
 __global__ void __launch_bounds__(kThreads)
 agg_digest_kernel(AggCombine reqs, AggOutput out, int64_t n, int64_t out_cap, int64_t n_tiles,
                   const int64_t* __restrict__ base, const int64_t* __restrict__ starts,
-                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ head,
+                  const uint64_t* __restrict__ res, const uint64_t* __restrict__ hs,
                   const uint64_t* __restrict__ tail) {
   using hopper::agg::dadd;
   using hopper::agg::ddiv;
@@ -865,7 +982,7 @@ agg_digest_kernel(AggCombine reqs, AggOutput out, int64_t n, int64_t out_cap, in
   const SlotSpan sp = slot_span(g, base[n_tiles], n, starts);
   const int64_t cnt = sp.real ? static_cast<int64_t>(
                                     slot_value(reqs, out.reads[0], g, sp, out_cap, n_tiles, res,
-                                               head, tail))
+                                               hs, tail))
                               : 0;
   double* data = static_cast<double*>(out.data) + g * 2 * kC;
   if (cnt <= 0) {
@@ -932,12 +1049,12 @@ static std::atomic<int64_t> g_agg_stream_ops{0};
 extern "C" int64_t segment_agg_stream_ops() { return g_agg_stream_ops.load(); }
 
 // Words of segment_agg's ``partials`` for ``nr`` requests: each request's
-// complete groups (out_cap), head and tail partials and first non-finite
-// rows (n_tiles each), its first non-finite row on the page, then with a
-// min_by/max_by request (``match``) its extremes (out_cap).
+// complete groups (out_cap), head partials, their scan, tail partials and
+// largest high words (n_tiles each), whether it followed the plain cumsum,
+// then with a min_by/max_by request (``match``) its extremes (out_cap).
 extern "C" int64_t segment_agg_partial_words(int nr, int64_t n, int64_t out_cap, int match) {
   const int64_t n_tiles = (n + kSegRows - 1) / kSegRows;
-  return static_cast<int64_t>(nr) * (out_cap + 3 * n_tiles + 1 + (match ? out_cap : 0));
+  return static_cast<int64_t>(nr) * (out_cap + 4 * n_tiles + 1 + (match ? out_cap : 0));
 }
 
 extern "C" int segment_agg_max_masks() { return kMaxMasks; }
@@ -1011,10 +1128,11 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   uint64_t* res = static_cast<uint64_t*>(partials);
   const int64_t nr = reqs->n;
   uint64_t* head = res + nr * out_cap;
-  uint64_t* tail = head + nr * n_tiles;
-  int64_t* tilebad = reinterpret_cast<int64_t*>(tail + nr * n_tiles);
-  int64_t* bad = tilebad + nr * n_tiles;
-  uint64_t* extremes = reinterpret_cast<uint64_t*>(bad + nr);
+  uint64_t* hs = head + nr * n_tiles;
+  uint64_t* tail = hs + nr * n_tiles;
+  int64_t* tiletop = reinterpret_cast<int64_t*>(tail + nr * n_tiles);
+  int64_t* big = tiletop + nr * n_tiles;
+  uint64_t* extremes = reinterpret_cast<uint64_t*>(big + nr);
   const bool* ng = static_cast<const bool*>(new_group);
   int64_t* st = static_cast<int64_t*>(starts);
   TilePlan plan;
@@ -1043,19 +1161,20 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   for (int phase = 0; phase < (match ? 2 : 1); ++phase) {
     if (phase == 1) {
       agg_resolve_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
-          comb, n, out_cap, n_tiles, base, st, res, head, tail, extremes);
+          comb, n, out_cap, n_tiles, base, st, res, hs, tail, extremes);
       ++g_agg_stream_ops;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-        *reqs, plan, phase, ng, n, out_cap, n_tiles, base, st, res, head, tail, tilebad,
+        *reqs, plan, phase, ng, n, out_cap, n_tiles, base, st, res, head, tail, tiletop,
         extremes);
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if (phase == 0) mark(events, 3, s);
     if (nr > 0) {
-      agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(comb, phase, base, n_tiles,
-                                                                      head, tilebad, bad);
+      agg_span_kernel<<<static_cast<unsigned>(nr), kThreads, 0, s>>>(
+          *reqs, static_cast<const bool*>(active), phase, base, st, n, out_cap, n_tiles, res,
+          head, hs, tail, tiletop, big);
       ++g_agg_stream_ops;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
@@ -1064,14 +1183,14 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   mark(events, 5, s);
   agg_finish_kernel<<<hopper::grid_for(out_cap), kThreads, 0, s>>>(
       comb, *outs, *keys, n, out_cap, n_tiles, base, static_cast<const int64_t*>(num_groups),
-      st, res, head, tail, tilebad, bad, static_cast<bool*>(group_exists),
+      st, res, hs, tail, big, static_cast<bool*>(group_exists),
       static_cast<int32_t*>(dest));
   ++g_agg_stream_ops;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   for (int o = 0; o < outs->n; ++o) {
     if (outs->out[o].op != hopper::kDigest) continue;
     agg_digest_kernel<<<static_cast<unsigned>(out_cap), kThreads, 0, s>>>(
-        comb, outs->out[o], n, out_cap, n_tiles, base, st, res, head, tail);
+        comb, outs->out[o], n, out_cap, n_tiles, base, st, res, hs, tail);
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }

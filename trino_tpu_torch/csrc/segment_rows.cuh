@@ -28,9 +28,11 @@ namespace {
 constexpr int kItems = 8;                    // consecutive rows a thread
 constexpr int kTileRows = kThreads * kItems;  // rows a tile (one block)
 
+// Every column is read whatever the others hold, so the loads go out
+// together.
 __device__ __forceinline__ bool weighted(const WeightSet& ws, int64_t i) {
   bool w = true;
-  for (int k = 0; k < ws.n; ++k) w = w && ws.w[k][i];
+  for (int k = 0; k < ws.n; ++k) w = w & ws.w[k][i];
   return w;
 }
 

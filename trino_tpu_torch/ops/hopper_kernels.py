@@ -194,12 +194,13 @@ def bind(path: Path):
     for name in ("group_sort_scratch_words", *(f"{k}_stream_ops" for k in _STREAM_OPS)):
         getattr(lib, name).restype = i64
     weights = ctypes.POINTER(_WeightSet)
-    lib.segment_sort_stats.argtypes = [ptr, ptr, i32, weights, i64, ptr, ptr, ptr]
-    lib.segment_sort_compose.argtypes = [ptr, ptr, i32, weights, i64, comp, i32] + [ptr] * 3 + [
-        i64, ptr]
-    lib.segment_sort_finish.argtypes = [ptr, i32, i32, weights, i64, ptr, ptr, i32] + [ptr] * 4
+    lib.segment_sort_stats.argtypes = [ptr, ptr, i32, weights, i64] + [ptr] * 5
+    lib.segment_sort_small.argtypes = (
+        [ptr, ptr, i32, i32, weights, i64] + [ptr] * 3 + [i32, i32] + [ptr] * 4)
+    lib.segment_sort_large.argtypes = (
+        [ptr, i32, i32, weights, i64, i32, i32] + [ptr] * 3 + [i64, i64] + [ptr] * 12)
     lib.hll.argtypes = [ptr, ptr, i32, weights, i64, i64, ctypes.c_float] + [ptr] * 5
-    for name in ("segment_sort_stats", "segment_sort_compose", "segment_sort_finish", "hll"):
+    for name in ("segment_sort_stats", "segment_sort_small", "segment_sort_large", "hll"):
         getattr(lib, name).restype = i32
     lib.partition_epilogue.argtypes = (
         [ctypes.POINTER(_WideKeySet), ptr, ptr, i64, i32] + [ptr] * 6
@@ -231,7 +232,11 @@ def bind(path: Path):
                        ("segment_agg_direct_max_keys", DIRECT_MAX_KEYS),
                        ("segment_sort_max_weights", SEGMENT_SORT_MAX_WEIGHTS),
                        ("segment_sort_tile_rows", SEGMENT_TILE_ROWS),
-                       ("segment_sort_max_composites", _SORT_MAX_COMPOSITES),
+                       ("segment_sort_batch_rows", SEGMENT_SORT_BATCH_ROWS),
+                       ("segment_sort_chunk_rows", SEGMENT_SORT_CHUNK_ROWS),
+                       ("segment_sort_stat_words", _SORT_STAT_WORDS),
+                       ("segment_sort_item_bytes", 8 * _SORT_ITEM_WORDS),
+                       ("segment_sort_entry_bytes", 8 * _SORT_ENTRY_WORDS),
                        ("hll_bits", K.HLL_BITS),
                        ("hll_max_weights", SEGMENT_SORT_MAX_WEIGHTS)):
         fn = getattr(lib, name)
@@ -1777,8 +1782,7 @@ def stream_ops(name: str) -> int:
     ``hash_probe``, ``group_sort``, ``segment_agg``, ``partition_epilogue``,
     ``partition_dest``, ``expr_program``, ``presorted_group``,
     ``segment_agg_direct``, ``segment_sort`` and ``hll``) have issued since
-    the library was loaded (``segment_sort``'s passes count as
-    ``group_sort``'s: they are its ``group_sort_passes``)."""
+    the library was loaded."""
     return int(getattr(_library(), f"{name}_stream_ops")())
 
 
@@ -1896,12 +1900,17 @@ def group_sort(key_cols, payload_cols, active: torch.Tensor, *, phase_events=Non
 # --------------------------------------------------------------------------- #
 
 # the most bool columns whose AND is a row's weight (kMaxWeights in
-# csrc/segment_rows.cuh), and the most composites of a segment_sort key
-# (kMaxComps in csrc/segment_sort.cu)
+# csrc/segment_rows.cuh); segment_sort's rows one block sorts at once (kCap),
+# rows a block of a large segment's passes takes (kChunk), stats words
+# (kStatWords) and its Item and Entry records' bytes (csrc/segment_sort.cu)
 SEGMENT_SORT_MAX_WEIGHTS = 6
-_SORT_MAX_COMPOSITES = 3
-# segment_sort's field kinds (SortField in csrc/segment_sort.cu)
-_SORT_VALUE, _SORT_UNWEIGHTED, _SORT_GROUP = 0, 1, 2
+SEGMENT_SORT_BATCH_ROWS = 4096
+SEGMENT_SORT_CHUNK_ROWS = 4096
+_SORT_STAT_WORDS = 19
+_SORT_ITEM_WORDS = 3
+_SORT_ENTRY_WORDS = 2
+_SORT_ANY_SMALL = 6
+_SORT_LIST_WORD = 8
 
 
 class _WeightSet(ctypes.Structure):
@@ -1944,33 +1953,21 @@ def segment_sort_plain(new_group, values, weights, participants_first: bool = Fa
     return K.segment_sort_plain(new_group, values, _weight_of(weights), participants_first)
 
 
-def segment_sort_plan(stats: Sequence[int], n: int, participants_first: bool):
-    """segment_sort's composite keys from its stats (the least and largest
-    order key, the weighted rows, the groups), least significant first:
-    ``(kind, offset, bits, pos)`` fields packed greedily into composites of
-    at most 64 bits, never split. The value field is ``order key - least``
-    in ``bit_length(largest - least)`` bits, the weight one bit (set where
-    unweighted) with ``participants_first``, the group index
-    ``bit_length(groups - 1)`` bits and so the last field of the last
-    composite; a field that is the same on every row is left out."""
-    lo, hi, n_weighted, groups = stats
-    fields = []
-    if hi > lo:
-        fields.append((_SORT_VALUE, lo, (hi - lo).bit_length()))
-    if participants_first and 0 < n_weighted < n:
-        fields.append((_SORT_UNWEIGHTED, 0, 1))
-    if groups > 1:
-        fields.append((_SORT_GROUP, 0, (groups - 1).bit_length()))
-    comps, cur, used = [], [], 0
-    for kind, offset, bits in fields:
-        if used + bits > 64:
-            comps.append(cur)
-            cur, used = [], 0
-        cur.append((kind, offset, bits, used))
-        used += bits
-    if cur:
-        comps.append(cur)
-    return comps
+def segment_sort_plan(stats: Sequence[int], n: int, participants_first: bool) -> dict:
+    """segment_sort's key and work sizes from its stats (the least and
+    largest order key, the weighted rows, and the large segments' rows and
+    level-0 items): ``vb`` the bits of ``v = order key - least``, ``wb`` 1
+    where the weight sorts (participants first, neither all nor no rows
+    weighted), ``levels`` the MSD levels of eight-bit digits of (w, v), and
+    the large path's most items a level, chunks a level and batches."""
+    lo, hi, n_weighted, large_rows, items0 = stats
+    vb = (hi - lo).bit_length() if hi > lo else 0
+    wb = 1 if participants_first and 0 < n_weighted < n else 0
+    levels = max(1, -(-(vb + wb) // 8))
+    items = n // (SEGMENT_SORT_BATCH_ROWS + 1) + 1
+    return dict(vb=vb, wb=wb, levels=levels, items=max(items, items0),
+                chunks=large_rows // SEGMENT_SORT_CHUNK_ROWS + items + 1,
+                entries=levels * (5 * (large_rows // SEGMENT_SORT_BATCH_ROWS) + 5 + items) + 64)
 
 
 def segment_sort(new_group, values, weights, participants_first: bool = False):
@@ -1983,11 +1980,13 @@ def segment_sort(new_group, values, weights, participants_first: bool = False):
     heads)`` in the order of the stable sort by ``(group, [~weight],
     order_key(value))``, the weight key only with ``participants_first``,
     and the run heads (the first row of each (group, order key) run): see
-    :func:`kernels.segment_sort_plain`. On CUDA tensors one host read of the
-    stats sizes the passes (:func:`segment_sort_plan`): stats, the tiles'
-    scan and the group count (four launches), a memset and the compose
-    pass, group_sort's one-sweep passes (``ceil(bits / 8)`` a composite)
-    and the finish pass."""
+    :func:`kernels.segment_sort_plain`. On CUDA tensors each group's rows
+    are sorted in place of the page (``csrc/segment_sort.cu``): five
+    launches of stats and segment starts, one host read of the stats
+    (:func:`segment_sort_plan`), one launch for the segments of at most
+    :data:`SEGMENT_SORT_BATCH_ROWS` rows where there are any, and where
+    there are larger ones, three launches an MSD level, the batches and the
+    heads at their edges."""
     name = "segment_sort"
     n, dev, ws = _check_segment_rows(name, new_group, values, weights)
     if dev.type == "cpu":
@@ -1997,43 +1996,41 @@ def segment_sort(new_group, values, weights, participants_first: bool = False):
     vtype = _KEY_TYPES[values.dtype]
     n_tiles = -(-n // SEGMENT_TILE_ROWS)
     scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
-    stats = torch.empty(4, dtype=torch.int64, device=dev)
+    stats = torch.empty(_SORT_STAT_WORDS, dtype=torch.int64, device=dev)
+    seg_start = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    cap_items = n // (SEGMENT_SORT_BATCH_ROWS + 1) + 1
+    items0 = torch.empty(cap_items * _SORT_ITEM_WORDS, dtype=torch.int64, device=dev)
     _check_launch(name, lib.segment_sort_stats(
         new_group.data_ptr(), values.data_ptr(), vtype, ctypes.byref(ws), n, scratch.data_ptr(),
-        stats.data_ptr(), stream))
-    # the passes' and the outputs' buffers are allocated while the stats run
-    alt_keys = torch.empty(n, dtype=torch.int64, device=dev)
-    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+        stats.data_ptr(), seg_start.data_ptr(), items0.data_ptr(), stream))
+    # the outputs are allocated while the stats run
     out_values = torch.empty_like(values)
     out_weight = torch.empty(n, dtype=torch.bool, device=dev)
     heads = torch.empty(n, dtype=torch.bool, device=dev)
-    plan = segment_sort_plan(stats.tolist(), n, participants_first)
-    comps = (_Composite * max(1, len(plan)))()
-    passes = 0
-    for c, fields in zip(comps, plan):
-        for f, (kind, offset, bits, pos) in zip(c.field, fields):
-            f.kind, f.offset, f.bits, f.pos = kind, offset, bits, pos
-        c.n_fields = len(fields)
-        c.bits = sum(f[2] for f in fields)
-        passes += -(-c.bits // _DIGIT_BITS)
-    result = (ctypes.c_void_p * 2)()
-    if plan:
-        comp_keys = torch.empty(len(plan) * n, dtype=torch.int64, device=dev)
-        words = lib.group_sort_scratch_words(n, passes)
-        sweep = torch.empty(words, dtype=torch.int64, device=dev)
-        _check_launch(name, lib.segment_sort_compose(
-            new_group.data_ptr(), values.data_ptr(), vtype, ctypes.byref(ws), n, comps,
-            len(plan), scratch.data_ptr(), comp_keys.data_ptr(), sweep.data_ptr(), words,
-            stream))
-        _check_launch(name, lib.group_sort_passes(
-            comps, len(plan), n, comp_keys.data_ptr(), alt_keys.data_ptr(), idx[0].data_ptr(),
-            idx[1].data_ptr(), sweep.data_ptr(), result, stream))
-    last = plan[-1][-1] if plan else None
-    group_pos = last[3] if last is not None and last[0] == _SORT_GROUP else -1
-    _check_launch(name, lib.segment_sort_finish(
-        values.data_ptr(), vtype, values.element_size(), ctypes.byref(ws), n, result[1],
-        result[0], group_pos, out_values.data_ptr(), out_weight.data_ptr(), heads.data_ptr(),
-        stream))
+    st = stats.tolist()
+    word = st[_SORT_LIST_WORD]
+    items0_n, chunks0 = word >> 40, word & ((1 << 40) - 1)
+    plan = segment_sort_plan((st[0], st[1], st[2], st[4], items0_n), n, participants_first)
+    if st[_SORT_ANY_SMALL]:
+        _check_launch(name, lib.segment_sort_small(
+            new_group.data_ptr(), values.data_ptr(), vtype, values.element_size(),
+            ctypes.byref(ws), n, scratch.data_ptr(), stats.data_ptr(), seg_start.data_ptr(),
+            plan["vb"], plan["wb"], out_values.data_ptr(), out_weight.data_ptr(),
+            heads.data_ptr(), stream))
+    if items0_n > 0:
+        vdt = torch.int64 if plan["vb"] > 32 else torch.int32
+        bufs = [torch.empty(n, dtype=dt, device=dev) for dt in (vdt, torch.uint8) * 2]
+        items1 = torch.empty_like(items0)
+        hist = torch.empty(plan["chunks"] * 256, dtype=torch.int32, device=dev)
+        eq_key = torch.empty(plan["chunks"] * 256, dtype=torch.int64, device=dev)
+        eq_flag = torch.empty(plan["chunks"] * 8, dtype=torch.int32, device=dev)
+        entries = torch.empty(plan["entries"] * _SORT_ENTRY_WORDS, dtype=torch.int64, device=dev)
+        _check_launch(name, lib.segment_sort_large(
+            values.data_ptr(), vtype, values.element_size(), ctypes.byref(ws), st[0],
+            plan["vb"], plan["wb"], stats.data_ptr(), items0.data_ptr(), items1.data_ptr(),
+            items0_n, chunks0, *(b.data_ptr() for b in bufs), hist.data_ptr(),
+            eq_key.data_ptr(), eq_flag.data_ptr(), entries.data_ptr(), out_values.data_ptr(),
+            out_weight.data_ptr(), heads.data_ptr(), stream))
     LAUNCHES[name] += 1
     return out_values, out_weight, heads
 

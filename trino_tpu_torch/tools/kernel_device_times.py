@@ -38,16 +38,19 @@ so every commit is timed on the same inputs; the aggregation inputs go to
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] --aggregates
 
-times the two aggregation kernels alone on the main path's own calls:
-``lineitem``, ``orders`` and ``customer`` of TPC-H SF10 are loaded into
-``DIR``'s memory tables by CTAS (as ``chip_smoke.py`` phase 8 loads them),
-then TPC-H Q3 and Q12 and ``chip_smoke.py``'s T1-T4 run through ``DIR``'s
-``LocalQueryRunner``, keeping every ``segment_agg`` and
-``segment_agg_direct`` call's arguments. Each call is reported as above
-(wrapper ms, device us by kernel) beside its bound (``chip_smoke.py``'s
-``segment_agg_bound`` and ``direct_bound``: bytes over 3.35 TB/s) and the
+times the two aggregation kernels and the re-sort alone on the main path's
+own calls: ``lineitem``, ``orders`` and ``customer`` of TPC-H SF10 are
+loaded into ``DIR``'s memory tables by CTAS (as ``chip_smoke.py`` phase 8
+loads them), then TPC-H Q3 and Q12 and ``chip_smoke.py``'s T1-T4 run
+through ``DIR``'s ``LocalQueryRunner``, keeping every ``segment_agg``,
+``segment_agg_direct`` and ``segment_sort`` call's arguments (T3's and
+T4's sorts). Each call is reported as above (wrapper ms, device us by
+kernel) beside its bound (``chip_smoke.py``'s ``segment_agg_bound``,
+``direct_bound`` and ``resort_bound``: bytes over 3.35 TB/s) and the
 query's wall. The generator and the plans are deterministic, so two
-checkouts see the same inputs.
+checkouts see the same inputs: to compare a commit with its parent on one
+card, unpack the parent (``git archive``) and run parent, tree, tree,
+parent in one call.
 """
 
 from __future__ import annotations
@@ -319,16 +322,16 @@ AGG_SCALE = 10
 
 
 def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> None:
-    """Every segment_agg and segment_agg_direct call of Q3, Q12 and T1-T4
-    over memory tables at ``scale``, timed on its own arguments right after
-    its query (module docstring)."""
+    """Every segment_agg, segment_agg_direct and segment_sort call of Q3,
+    Q12 and T1-T4 over memory tables at ``scale``, timed on its own
+    arguments right after its query (module docstring)."""
     from trino_tpu_torch.connectors.memory import MemoryConnector
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.metadata import Session
     from trino_tpu_torch.runtime import LocalQueryRunner
 
     sys.path.insert(1, str(here))
-    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound,
+    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound, resort_bound,
                             segment_agg_bound)
 
     dev = torch.device("cuda") if dev is None else dev
@@ -342,8 +345,17 @@ def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> N
         print(f"[{root}] CTAS {table}: {time.perf_counter() - t0:.3f} s", flush=True)
     texts = {"q03": QUERIES["q03"], "q12": EXPAND_QUERIES["q12"], **LONG_TAIL_QUERIES,
              **RESORT_QUERIES}
-    names = ("segment_agg", "segment_agg_direct")
-    bounds = {"segment_agg": segment_agg_bound, "segment_agg_direct": direct_bound}
+    names = ("segment_agg", "segment_agg_direct", "segment_sort")
+    bounds = {"segment_agg": segment_agg_bound, "segment_agg_direct": direct_bound,
+              "segment_sort": lambda a: resort_bound("segment_sort", a)}
+    shapes = {
+        "segment_agg": lambda a: (f"n={a[0].shape[0]} slots={a[2]} requests={len(a[5])} "
+                                  f"outputs={len(a[6])}"),
+        "segment_agg_direct": lambda a: (f"n={a[2].shape[0]} G={math.prod(a[1])} "
+                                         f"requests={len(a[3])} outputs={len(a[4])}"),
+        "segment_sort": lambda a: (f"n={a[0].shape[0]} groups={int(a[0].sum())} "
+                                   f"values={a[1].dtype} participants_first={a[3]}"),
+    }
     for q, sql in texts.items():
         calls = []
         orig = {n: getattr(HK, n) for n in names}
@@ -371,12 +383,8 @@ def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> N
               "kernel calls", flush=True)
         for k, (name, args) in enumerate(calls):
             b, by = bounds[name](args)
-            shape = (f"n={args[0].shape[0]} slots={args[2]} requests={len(args[5])} "
-                     f"outputs={len(args[6])}" if name == "segment_agg" else
-                     f"n={args[2].shape[0]} G={math.prod(args[1])} requests={len(args[3])} "
-                     f"outputs={len(args[4])}")
-            report(root, f"{name}, {q} call {k + 1} ({shape}; bound {b:.4f} ms, {by})",
-                   lambda: getattr(HK, name)(*args))
+            report(root, f"{name}, {q} call {k + 1} ({shapes[name](args)}; bound {b:.4f} ms, "
+                         f"{by})", lambda: getattr(HK, name)(*args))
         del calls
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -389,7 +397,8 @@ def main() -> None:
     ap.add_argument("--joins", default=str(
         here / "trino_tpu_torch" / "_build" / "kernel_inputs" / "joins_sf10.pt"))
     ap.add_argument("--aggregates", action="store_true",
-                    help="only the aggregation kernels on Q3, Q12 and T1-T4's calls")
+                    help="only the aggregation kernels and the re-sort on Q3, Q12 and T1-T4's "
+                         "calls")
     opts = ap.parse_args()
     root, joins = opts.root, Path(opts.joins)
     if not torch.cuda.is_available():
