@@ -1369,10 +1369,56 @@ def hll_yardstick(args) -> float:
                    .scatter_reduce_(0, ids, rho, reduce="amax"))
 
 
+def hll_range_rows(HK, n: int, dev) -> int:
+    """The rows of one block's range of tiles in hll's register pass over
+    an n-row page on this card (``hopper_kernels.hll_plan``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, _ = HK.hll_plan(n, sms, HK._library().hll_blocks_per_sm())
+    return per * HK.SEGMENT_TILE_ROWS
+
+
+def hll_page(dev, gen, n: int, firsts, out_cap=None, dead=None) -> tuple:
+    """hll's arguments on an n-row page with group heads at ``firsts``, an
+    int64 key, every row active but those of ``dead`` (a slice), 5 % of
+    the keys NULL."""
+    new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+    new_group[torch.as_tensor(firsts, dtype=torch.int64, device=dev)] = True
+    key = torch.randint(0, 2_000_000, (n,), generator=gen, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    if dead is not None:
+        active[dead] = False
+    valid = torch.rand(n, generator=gen, device=dev) < 0.95
+    groups = max(int(new_group.sum()), 1)
+    return new_group, out_cap or round_capacity(groups, base=16), key, [active, valid]
+
+
+def hll_edge_cases(HK, dev, gen):
+    """(label, args) pages for hll's ranges, at RESORT_ROWS rows and R =
+    one block's range (``hll_range_rows``): one group over the whole page
+    (cut by every range); groups from R / 2 to 3R / 2, to 7R / 2 and to
+    81R / 2 (cut by one, two and many ranges) before 50 random ones; 4,096
+    groups of one row (the tiles of many short groups); groups of 3,000
+    rows with a whole range's weights false; 100 groups in 4,096 slots (the
+    slots past the last group)."""
+    n = RESORT_ROWS
+    R = hll_range_rows(HK, n, dev)
+    tail = torch.randint(41 * R, n, (50,), generator=gen, device=dev).tolist()
+    yield "one group over the whole page", hll_page(dev, gen, n, [0])
+    yield (f"groups cut by one, two and many ranges (R={R})",
+           hll_page(dev, gen, n, [0, R // 2, 3 * R // 2, 7 * R // 2, 81 * R // 2] + tail))
+    yield "4,096 groups of one row", hll_page(dev, gen, 4096, list(range(4096)), out_cap=4096)
+    yield (f"a range whose weights are all false (rows {R} to {2 * R})",
+           hll_page(dev, gen, n, list(range(0, n, 3000)), out_cap=HLL_MAX_SLOTS,
+                    dead=slice(R, 2 * R)))
+    heads = sorted(set(torch.randint(1, n, (99,), generator=gen, device=dev).tolist()))
+    yield "slots past the last group", hll_page(dev, gen, n, [0] + heads, out_cap=HLL_MAX_SLOTS)
+
+
 def check_resort_kernels(HK, dev, results: dict) -> None:
     """segment_sort, hll and segment_agg's resorted count, percentile and
     digest against their plain versions and a second run of themselves, on
-    RESORT_SHAPES and the edge cases; each main shape's calls timed beside
+    RESORT_SHAPES and the edge cases (hll also on ``hll_edge_cases``'s
+    pages); each main shape's calls timed beside
     their bounds, their plain versions and one library call (``torch.sort``
     of one int64 key for the sort, ``scatter_reduce_(amax)`` for the
     registers). The kernels line keeps the T1 shape's times until phase 8b
@@ -1403,6 +1449,12 @@ def check_resort_kernels(HK, dev, results: dict) -> None:
         torch.cuda.empty_cache()
     print(f"  digests: {DIGEST_TALLY['bit_identical']} of {DIGEST_TALLY['within']} compared "
           "within tolerance were bit-identical", flush=True)
+    for label, args in hll_edge_cases(HK, dev, gen):
+        if not same_resort(HK, "hll", args):
+            fail(f"hll [{label}] differs from its plain version or its second run")
+        print(f"  hll [{label}: {SHAPE_OF['hll'](args)}]: bit-exact against its plain version "
+              f"and the same bits on a second run", flush=True)
+        del args
 
 
 def _float_sum_outputs(reqs, outs) -> set:
@@ -1901,7 +1953,7 @@ def same_result(HK, name, args) -> bool:
     if name == "presorted_group":
         return same_presorted(got, want)
     if name == "expr_program":
-        return same_cols(got, want)
+        return same_cols(got, want) and same_cols(got, getattr(HK, name)(*args))
     if name in ("segment_sort", "hll"):
         return (all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
                 and all(torch.equal(_bits(a), _bits(b))
@@ -2187,11 +2239,13 @@ def check_aggregate_phase_kernels(HK, query: str, call, reps: int = 10) -> None:
 # segment_sort's (stats and segment starts, the small segments' batches, the
 # large ones' MSD levels, batches and heads), hll's, and segment_agg's
 # digest pass
-RESORT_KERNELS = ("sort_stats_init_kernel", "sort_stats_kernel", "tile_base_kernel",
+RESORT_KERNELS = ("sort_stats_init_kernel", "sort_stats_kernel", "chunk_sum_kernel",
+                  "tile_base_kernel",
                   "sort_starts_kernel", "sort_classify_kernel", "sort_small_kernel",
                   "sort_count_kernel", "sort_bucket_kernel", "sort_scatter_kernel",
                   "sort_batch_kernel", "sort_fix_heads_kernel",
-                  "tile_heads_kernel", "hll_registers_kernel", "hll_estimate_kernel",
+                  "tile_heads_kernel", "hll_prepare_kernel", "hll_registers_kernel",
+                  "hll_estimate_kernel",
                   "agg_digest_kernel")
 
 
@@ -3000,19 +3054,118 @@ def expr_inputs(program, n: int, dev, gen) -> list:
     return out
 
 
+def limit_program(dev):
+    """An expression program at every limit of the kernel: 128
+    instructions, 32 registers, 16 inputs (12 int64, 4 double) and 16
+    outputs. Sixteen loads fill registers 0-15; 96 seeded instructions
+    (integer + - * and negation, coalesce, the comparisons, Kleene AND and
+    OR, NOT, IS NULL, CASE's select, int to double, double + and *) write
+    registers 16-31 in turn from any earlier value of the right kind; 16
+    stores write the last value of each."""
+    import random
+
+    from trino_tpu_torch.ops import expr_program as EP
+
+    cmp_names = ("$eq", "$ne", "$lt", "$lte", "$gt", "$gte")
+    kinds = ["i"] * 12 + ["f"] * 4
+    dts = {"i": torch.int64, "f": torch.float64, "b": torch.bool}
+    code, plain = [], []
+
+    def emit(op, dst, args, dt, aux=0, extra=None):
+        a, b, c = (list(args) + [0, 0, 0])[:3]
+        code.append((EP.OPS[op], dst, a, b, c, EP._T[dt] if dt is not None else 0, aux))
+        plain.append((op, dst, tuple(args), dt, aux, extra))
+
+    for k in range(16):
+        emit("load", k, (), dts[kinds[k]], k)
+    kinds += [None] * 16
+    rng = random.Random(20)
+    ops = ("add", "sub", "mul", "neg", "coalesce", "cmp", "fcmp", "and", "or", "not",
+           "is_null", "select", "i2f", "fadd", "fmul")
+    shape = {"add": "ii", "sub": "ii", "mul": "ii", "neg": "i", "coalesce": "ii", "cmp": "ii",
+             "fcmp": "ff", "and": "bb", "or": "bb", "not": "b", "is_null": "i", "select": "bii",
+             "i2f": "i", "fadd": "ff", "fmul": "ff"}
+    result = {"cmp": "b", "fcmp": "b", "and": "b", "or": "b", "not": "b", "is_null": "b",
+              "i2f": "f", "fadd": "f", "fmul": "f"}
+    for i in range(96):
+        dst = 16 + i % 16
+        while True:
+            op = ops[rng.randrange(len(ops))]
+            pools = [[r for r, kd in enumerate(kinds) if kd == want] for want in shape[op]]
+            if all(pools):
+                break
+        args = [rng.choice(pool) for pool in pools]
+        kind = result.get(op, "i")
+        aux, extra = 0, None
+        if op in ("cmp", "fcmp"):
+            aux = rng.randrange(6)
+            extra = cmp_names[aux]
+        emit(op, dst, args, dts[kind], aux, extra)
+        kinds[dst] = kind
+    for k in range(16):
+        emit("store", 0, (16 + k,), None, k)
+    program = EP.ExprProgram(
+        code=code, plain=plain, input_symbols=tuple(f"in{k}" for k in range(16)),
+        input_dtypes=tuple(dts[kd] for kd in kinds[:16]),
+        output_dtypes=tuple(dts[kd] for kd in kinds[16:]), assign_out=tuple(range(16)),
+        n_regs=32)
+    from trino_tpu_torch.ops import hopper_kernels as HK
+
+    assert (len(code), program.n_regs, len(program.input_dtypes), len(program.output_dtypes)) \
+        == (HK.EXPR_MAX_INSTRS, HK.EXPR_MAX_REGS, HK.EXPR_MAX_INPUTS, HK.EXPR_MAX_OUTPUTS)
+    return program
+
+
+def limit_inputs(program, n: int, dev, gen) -> list:
+    """Seeded columns of the limit program: integers spanning int64 (zero
+    and the extremes among them), doubles in [0.5, 1.5); 5 % NULL."""
+    out = []
+    for dt in program.input_dtypes:
+        if dt == torch.float64:
+            d = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) + 0.5
+        else:
+            d = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen, device=dev)
+            d[torch.randint(0, n, (min(n, 16),), generator=gen, device=dev)] = 0
+            d[torch.randint(0, n, (min(n, 4),), generator=gen, device=dev)] = -2**63
+        out.append((d, torch.rand(n, generator=gen, device=dev) >= 0.05))
+    return out
+
+
+def constant_program(dev):
+    """A projection that reads no column: constants, their sum and a NULL."""
+    from trino_tpu_torch.ops import expr_program as EP
+    from trino_tpu_torch.spi.types import BIGINT, DOUBLE
+    from trino_tpu_torch.sql.ir import Call, Constant
+
+    assigns = [("seven", Call("$add", (Constant(BIGINT, 3), Constant(BIGINT, 4)), BIGINT),
+                BIGINT),
+               ("half", Constant(DOUBLE, 0.5), DOUBLE),
+               ("none", Call("$multiply", (Constant(BIGINT, None), Constant(BIGINT, 2)), BIGINT),
+                BIGINT)]
+    program = EP.build_program([(s, e) for s, e, _ in assigns], [t for *_, t in assigns], {}, dev)
+    if program.input_dtypes or any(k < 0 for k in program.assign_out):
+        fail(f"expr_program [reads no column]: inputs {program.input_dtypes}, "
+             f"assignments {program.assign_out}")
+    return program
+
+
 def expr_cases(HK, dev):
-    """(label, (program, inputs)) cases for expr_program: the main projection
-    (TPC-H's forms and a decimal to double cast) at FUSED_SLOTS rows, then
-    the edge forms (NULLs, a zero divisor, negative half-up rounding, int64
-    and int32 wrap, pre-1970 dates, double % and /, Kleene logic, coalesce,
-    InLut, a CASE without ELSE) at 300,000 rows and at one row. Every
-    assignment must lower."""
+    """(label, args) cases for expr_program: the main projection (TPC-H's
+    forms and a decimal to double cast) at FUSED_SLOTS rows, then the edge
+    forms (NULLs, a zero divisor, negative half-up rounding, int64 and
+    int32 wrap, pre-1970 dates, double % and /, Kleene logic, coalesce,
+    InLut, a CASE without ELSE) at 300,000 rows and at one row; then the
+    program at every limit (:func:`limit_program`) and a program that reads
+    no column, and the main projection and the limit program at one row,
+    at a block's rows less one (of the launch plan's k at that program's
+    registers) and at FUSED_SLOTS + 3 rows. Every assignment must lower."""
     from trino_tpu_torch.ops import expr_program as EP
 
     layout, main, edge = _expr_ir()
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     half = len(edge) // 2  # a program holds at most EXPR_MAX_OUTPUTS assignments
+    built = {}
     for label, assigns, n in (("main projection", main, FUSED_SLOTS),
                               ("edge forms a", edge[:half], 300_000),
                               ("edge forms b", edge[half:], 300_000),
@@ -3023,7 +3176,24 @@ def expr_cases(HK, dev):
         if any(k < 0 for k in program.assign_out):
             fail(f"expr_program [{label}]: assignments left on their closures: "
                  f"{[s for (s, *_), k in zip(assigns, program.assign_out) if k < 0]}")
+        built[label] = program
         yield f"{label} n={n}", (program, expr_inputs(program, n, dev, gen))
+    limit = limit_program(dev)
+    yield f"at the limits n={FUSED_SLOTS}", (limit, limit_inputs(limit, FUSED_SLOTS, dev, gen))
+    for n in (FUSED_SLOTS, 1):
+        active = torch.rand(n, generator=gen, device=dev) < 0.5
+        yield f"reads no column n={n}", (constant_program(dev), [], active)
+    for label, program, make in (("main projection", built["main projection"], expr_inputs),
+                                 ("at the limits", limit, limit_inputs)):
+        block_rows = expr_block_rows(HK, program, dev)
+        for n in (1, block_rows - 1, FUSED_SLOTS + 3):
+            yield f"{label} n={n}", (program, make(program, n, dev, gen))
+
+
+def expr_block_rows(HK, program, dev) -> int:
+    """The rows of one block of expr_program's launch plan on a large page
+    at this program's registers (k rows a thread)."""
+    return HK._expr_launch_plan(HK._library(), 1 << 30, program.n_regs, dev)[1]
 
 
 def expr_rows(args) -> int:
@@ -3059,8 +3229,12 @@ def check_fused_stage_kernels(HK, n_wide: int, dev, results: dict) -> None:
                 _, groups, viol = HK.presorted_group(*args)
                 extra = f" ({int(groups)} groups, violation {bool(viol)})"
             elif name == "expr_program":
+                k, rows, grid = HK._expr_launch_plan(HK._library(), expr_rows(args),
+                                                     args[0].n_regs, dev)
                 extra = (f" ({len(args[0].code)} instructions, {args[0].n_regs} registers, "
-                         f"{len(args[0].output_dtypes)} outputs)")
+                         f"{len(args[1])} inputs, {len(args[0].output_dtypes)} outputs; "
+                         f"k={k}, {rows} rows a block, grid {grid}), and the same bits on a "
+                         "second run")
             print(f"  {name} [{label}]: bit-exact{extra}", flush=True)
             if i == 0:
                 results[name] = timed_entry(HK, name, args)

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.tpch_corpus import TPCH_QUERIES
+
 import jax.numpy as jnp
 
 import trino_tpu.sql.ir as rir
@@ -419,3 +421,110 @@ def test_expr_program_raises_on_inputs_it_does_not_take(data):
         HK.expr_program(program, inputs[:1])
     with pytest.raises(TypeError):
         HK.expr_program(program, [(d.to(torch.int16), v) for d, v in inputs])
+
+
+# the register file's facts the kernel relies on: its shared file has
+# max(n_regs, 1) rows and a row's validity is one 32-bit mask
+
+
+def _check_register_indices(program):
+    """Every register an instruction names (its operands, and its result but
+    a store's) lies in the file and the mask."""
+    assert 0 <= program.n_regs <= HK.EXPR_MAX_REGS == 32
+    size = max(program.n_regs, 1)
+    for (op, dst, a, b, c, _, _), (name, _, args, *_) in zip(program.code, program.plain):
+        assert op == EP.OPS[name]
+        named = (a, b, c)[:len(args)] + (() if name == "store" else (dst,))
+        assert list(named[:len(args)]) == list(args)
+        assert all(0 <= r < size for r in named), (name, dst, a, b, c, size)
+
+
+def test_tpch_corpus_programs_fit_the_file_and_the_mask(monkeypatch):
+    """Every program the TPC-H corpus's fused projections build at SF0.01."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    built = []
+    orig = EP.build_program
+
+    def tapped(*args, **kw):
+        built.append(orig(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(EP, "build_program", tapped)
+    runner = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+    pc.clear_cache()
+    for sql in TPCH_QUERIES.values():
+        runner.execute(sql)
+    programs = [p for p in built if p.code]
+    assert len(programs) >= 5
+    for program in programs:
+        _check_register_indices(program)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_family_programs_fit_the_file_and_the_mask(family, data):
+    layout, _ = _port_setup(data)
+    assigns = FAMILIES[family](NS(pir, ptypes))
+    program = EP.build_program([(f"o{k}", e) for k, (e, _) in enumerate(assigns)],
+                               [ptypes.parse_type(t) for _, t in assigns], layout, "cpu")
+    _check_register_indices(program)
+
+
+def test_program_struct_carries_n_regs(data):
+    """The kernel parameter ends with n_code then n_regs, as ExprProgram in
+    csrc/expr_program.cu does."""
+    assert [f for f, _ in HK._ExprProgram._fields_[-2:]] == ["n_code", "n_regs"]
+    layout, _ = _port_setup(data)
+    assigns = PROJECTIONS["tpch_q08"](NS(pir, ptypes))
+    program = EP.build_program([(f"o{k}", e) for k, (e, _) in enumerate(assigns)],
+                               [ptypes.parse_type(t) for _, t in assigns], layout, "cpu")
+    static = HK._program_struct(program)
+    assert (static.n_code, static.n_regs) == (len(program.code), program.n_regs)
+    assert program.n_regs >= 3
+
+
+def _rows_of_plan(n: int, k: int, block_rows: int, grid: int) -> np.ndarray:
+    """How many times the kernel's threads take each row: block b takes
+    tiles b, b + grid, ...; thread t row j of a tile, row tile * block_rows
+    + j * EXPR_BLOCK_THREADS + t, where it is below n."""
+    threads = HK.EXPR_BLOCK_THREADS
+    assert block_rows == k * threads
+    tiles = -(-n // block_rows)
+    seen = np.zeros(n, np.int64)
+    local = (np.arange(k)[:, None] * threads + np.arange(threads)[None, :]).ravel()
+    for b in range(grid):
+        for tile in range(b, tiles, grid):
+            rows = tile * block_rows + local
+            np.add.at(seen, rows[rows < n], 1)
+    return seen
+
+
+# resident blocks of kernel<k> an SM holds, by k (0: the file does not fit):
+# a few registers, the main projection's 7, 16 and the limit's 32
+OCCUPANCY = {"3 registers": {4: 4, 2: 8, 1: 8}, "7 registers": {4: 3, 2: 7, 1: 8},
+             "16 registers": {4: 1, 2: 3, 1: 6}, "32 registers": {4: 0, 2: 1, 1: 3}}
+
+
+@pytest.mark.parametrize("regs", sorted(OCCUPANCY))
+@pytest.mark.parametrize("n", ["1", "block rows less one", "4194307"])
+def test_expr_program_plan_covers_every_row_once(regs, n):
+    sms, occupancy = 132, OCCUPANCY[regs]
+    n_regs = int(regs.split()[0])
+    rows = 1 if n == "1" else int(n) if n.isdigit() else None
+    if rows is None:  # a block's rows less one, of the k the plan takes there
+        k, block_rows, _ = HK.expr_program_plan(10**9, n_regs, sms, occupancy)
+        rows = block_rows - 1
+    k, block_rows, grid = HK.expr_program_plan(rows, n_regs, sms, occupancy)
+    assert occupancy[k] >= 1 and 1 <= grid <= sms * occupancy[k]
+    assert (_rows_of_plan(rows, k, block_rows, grid) == 1).all()
+
+
+def test_expr_program_plan_takes_the_most_rows_a_thread_at_two_blocks_an_sm():
+    occupancy = OCCUPANCY["7 registers"]
+    assert HK.expr_program_plan(4_194_304, 7, 132, occupancy) == (4, 1024, 396)
+    assert HK.expr_program_plan(1, 7, 132, occupancy) == (4, 1024, 1)
+    assert HK.expr_program_plan(4_194_304, 16, 132, OCCUPANCY["16 registers"])[0] == 2
+    assert HK.expr_program_plan(4_194_304, 32, 132, OCCUPANCY["32 registers"])[0] == 1
+    assert HK.expr_program_plan(4_194_304, 32, 132, {4: 0, 2: 1, 1: 0})[0] == 2
+    with pytest.raises(ValueError):
+        HK.expr_program_plan(100, 33, 132, {4: 0, 2: 0, 1: 0})

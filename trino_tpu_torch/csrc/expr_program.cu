@@ -34,11 +34,20 @@
 // validity) is read once and each output written once; the program's
 // operations are a few tens of integer or double operations a row.
 //
-// Design: one launch, a grid-stride loop of one row a thread. The program
-// (instructions, constants, input and output columns, LUT pointers) is one
-// kernel parameter, so each instruction is a uniform read from the
-// constant bank; the register file is a per-thread array (local memory,
-// cached in L1). Rows are independent: no shared memory, no atomic.
+// Design: one launch over tiles of kThreads * K rows, K (1, 2 or 4) a
+// template argument; each thread takes K rows of a tile, strided by the
+// block's width, so every column load and store is coalesced, and one
+// decode and dispatch of an instruction serve K independent rows. The
+// program (instructions, constants, input and output columns, LUT
+// pointers) is one kernel parameter, so each instruction is a uniform
+// read from the constant bank. A row's register values live in dynamic
+// shared memory as [max(n_regs, 1)][kThreads * K] 64-bit words, a warp's
+// rows of one register consecutive (conflict-free 64-bit accesses), and
+// each operation reads only its own operands; a row's validity bits are
+// one 32-bit mask in a true register (bit k: register k is valid).
+// A thread touches only its own rows' words: no barrier, no atomic. The
+// wrapper chooses K and the grid from n_regs and the card's occupancy
+// (hopper_kernels.expr_program_plan).
 
 #include <atomic>
 #include <cstdint>
@@ -96,6 +105,7 @@ struct ExprProgram {
   ExprOut out[kMaxExprOutputs];
   ExprLut lut[kMaxExprLuts];
   int n_code;
+  int n_regs;  // registers the code uses (the shared file's rows)
 };
 
 }  // namespace hopper
@@ -106,14 +116,14 @@ using hopper::ExprInstr;
 using hopper::ExprProgram;
 using hopper::kThreads;
 
-__device__ __forceinline__ int64_t wrap(int64_t x, int t) {
-  switch (t) {
-    case hopper::kI32: return static_cast<int32_t>(x);
-    case hopper::kI16: return static_cast<int16_t>(x);
-    case hopper::kI8: return static_cast<int8_t>(x);
-    case hopper::kBool: return x != 0;
-    default: return x;
-  }
+// wrap(x, t) as a shift chosen once an instruction: the left shift that
+// drops the bits above t's width (-1 for a bool: x != 0), by KeyType.
+__constant__ signed char kWrapShift[8] = {0, 32, 48, 56, -1, 0, 0, 0};
+
+__device__ __forceinline__ int wrap_shift(int t) { return kWrapShift[t & 7]; }
+
+__device__ __forceinline__ int64_t wrap_by(int64_t x, int sh) {
+  return sh < 0 ? (x != 0) : static_cast<int64_t>(static_cast<uint64_t>(x) << sh) >> sh;
 }
 
 __device__ __forceinline__ int64_t add_w(int64_t x, int64_t y) {
@@ -178,144 +188,286 @@ __device__ __forceinline__ int64_t date_part(int64_t days, int part) {
   return yoe + era * 400 + (m <= 2 ? 1 : 0);
 }
 
-__device__ __forceinline__ int64_t load(const hopper::ExprCol& c, int64_t i) {
-  switch (c.type) {
-    case hopper::kI64: return static_cast<const int64_t*>(c.data)[i];
-    case hopper::kI32: return static_cast<const int32_t*>(c.data)[i];
-    case hopper::kI16: return static_cast<const int16_t*>(c.data)[i];
-    case hopper::kI8: return static_cast<const int8_t*>(c.data)[i];
-    case hopper::kBool: return static_cast<const uint8_t*>(c.data)[i] ? 1 : 0;
-    default: return static_cast<const int64_t*>(c.data)[i];  // kF64: its bits
+// Column i0 + j * kThreads of each row j (0 past n) and its validity.
+template <typename T, int K>
+__device__ __forceinline__ void load_rows(const hopper::ExprCol& c, int64_t i0, int64_t n,
+                                          int64_t (&o)[K], bool (&ov)[K]) {
+  const T* d = static_cast<const T*>(c.data);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int64_t i = i0 + j * kThreads;
+    const bool in = i < n;
+    o[j] = in ? static_cast<int64_t>(d[i]) : 0;
+    ov[j] = in && c.valid[i];
   }
 }
 
-__device__ __forceinline__ void store(const hopper::ExprOut& c, int64_t i, int64_t x, bool ok) {
-  switch (c.type) {
-    case hopper::kI32: static_cast<int32_t*>(c.data)[i] = static_cast<int32_t>(x); break;
-    case hopper::kI16: static_cast<int16_t*>(c.data)[i] = static_cast<int16_t>(x); break;
-    case hopper::kI8: static_cast<int8_t*>(c.data)[i] = static_cast<int8_t>(x); break;
-    case hopper::kBool: static_cast<bool*>(c.data)[i] = x != 0; break;
-    default: static_cast<int64_t*>(c.data)[i] = x; break;  // kI64, kF64 bits
+template <typename T, int K>
+__device__ __forceinline__ void store_rows(const hopper::ExprOut& c, int64_t i0, int64_t n,
+                                           const int64_t (&x)[K], const bool (&ok)[K]) {
+  T* d = static_cast<T*>(c.data);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int64_t i = i0 + j * kThreads;
+    if (i < n) {
+      d[i] = static_cast<T>(x[j]);
+      c.valid[i] = ok[j];
+    }
   }
-  c.valid[i] = ok;
 }
 
+template <int K>
+__device__ __forceinline__ void load_column(const hopper::ExprCol& c, int64_t i0, int64_t n,
+                                            int64_t (&o)[K], bool (&ov)[K]) {
+  switch (c.type) {
+    case hopper::kI32: load_rows<int32_t>(c, i0, n, o, ov); break;
+    case hopper::kI16: load_rows<int16_t>(c, i0, n, o, ov); break;
+    case hopper::kI8: load_rows<int8_t>(c, i0, n, o, ov); break;
+    case hopper::kBool:
+      load_rows<uint8_t>(c, i0, n, o, ov);
+#pragma unroll
+      for (int j = 0; j < K; ++j) o[j] = o[j] != 0;
+      break;
+    default: load_rows<int64_t>(c, i0, n, o, ov); break;  // kI64, kF64: its bits
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_column(const hopper::ExprOut& c, int64_t i0, int64_t n,
+                                             int64_t (&x)[K], const bool (&ok)[K]) {
+  switch (c.type) {
+    case hopper::kI32: store_rows<int32_t>(c, i0, n, x, ok); break;
+    case hopper::kI16: store_rows<int16_t>(c, i0, n, x, ok); break;
+    case hopper::kI8: store_rows<int8_t>(c, i0, n, x, ok); break;
+    case hopper::kBool:
+#pragma unroll
+      for (int j = 0; j < K; ++j) x[j] = x[j] != 0;
+      store_rows<bool>(c, i0, n, x, ok);
+      break;
+    default: store_rows<int64_t>(c, i0, n, x, ok); break;  // kI64, kF64 bits
+  }
+}
+
+// Shared bytes of the register file of kernel<K> for n_regs registers.
+inline size_t file_bytes(int n_regs, int k) {
+  return sizeof(int64_t) * static_cast<size_t>(n_regs > 1 ? n_regs : 1) * kThreads * k;
+}
+
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 expr_program_kernel(ExprProgram p, int64_t n) {
-  int64_t r[hopper::kMaxExprRegs];
-  bool v[hopper::kMaxExprRegs];
-  for (int k = 0; k < hopper::kMaxExprRegs; ++k) {
-    r[k] = 0;
-    v[k] = false;
-  }
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += stride) {
+  extern __shared__ int64_t file[];  // [max(n_regs, 1)][kRows]
+  constexpr int kRows = kThreads * K;
+  const int64_t n_tiles = (n + kRows - 1) / kRows;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t i0 = tile * kRows + threadIdx.x;
+    uint32_t vm[K];  // bit r: register r of the row is valid
+#pragma unroll
+    for (int j = 0; j < K; ++j) vm[j] = 0;
     for (int pc = 0; pc < p.n_code; ++pc) {
       const ExprInstr ins = p.code[pc];
-      const int t = ins.t;
-      const int64_t x = r[ins.a], y = r[ins.b], z = r[ins.c];
-      const bool va = v[ins.a], vb = v[ins.b], vc = v[ins.c];
-      int64_t o = 0;
-      bool ov = va && vb;  // the binary operations' validity
+      const int sh = wrap_shift(ins.t);
+      // each case reads only the operands it uses: row j's values of
+      // registers a, b and c, and their validity bits in the row's mask
+      const int64_t* ra = file + ins.a * kRows + threadIdx.x;
+      const int64_t* rb = file + ins.b * kRows + threadIdx.x;
+      const int64_t* rc = file + ins.c * kRows + threadIdx.x;
+      const uint32_t ma = 1u << ins.a, mb = 1u << ins.b, mc = 1u << ins.c, mab = ma | mb;
+      int64_t o[K];
+      bool ov[K];
+#define EACH_ROW _Pragma("unroll") for (int j = 0; j < K; ++j)
+#define X ra[j * kThreads]
+#define Y rb[j * kThreads]
+#define Z rc[j * kThreads]
+#define VA ((vm[j] & ma) != 0)
+#define VB ((vm[j] & mb) != 0)
+#define VC ((vm[j] & mc) != 0)
+#define VAB ((vm[j] & mab) == mab)  // the binary operations' validity
       switch (ins.op) {
-        case hopper::kLoad: {
-          const hopper::ExprCol& c = p.in[ins.aux];
-          o = load(c, i);
-          ov = c.valid[i];
+        case hopper::kLoad: load_column(p.in[ins.aux], i0, n, o, ov); break;
+        case hopper::kConst: {
+          const int64_t c = p.consts[ins.aux];
+          EACH_ROW { o[j] = c; ov[j] = ins.a != 0; }
           break;
         }
-        case hopper::kConst: o = p.consts[ins.aux]; ov = ins.a != 0; break;
-        case hopper::kAdd: o = wrap(add_w(x, y), t); break;
-        case hopper::kSub: o = wrap(sub_w(x, y), t); break;
-        case hopper::kMul: o = wrap(mul_w(x, y), t); break;
-        case hopper::kNeg: o = wrap(sub_w(0, x), t); ov = va; break;
+        case hopper::kAdd: EACH_ROW { o[j] = wrap_by(add_w(X, Y), sh); ov[j] = VAB; } break;
+        case hopper::kSub: EACH_ROW { o[j] = wrap_by(sub_w(X, Y), sh); ov[j] = VAB; } break;
+        case hopper::kMul: EACH_ROW { o[j] = wrap_by(mul_w(X, Y), sh); ov[j] = VAB; } break;
+        case hopper::kNeg: EACH_ROW { o[j] = wrap_by(sub_w(0, X), sh); ov[j] = VA; } break;
         case hopper::kIDiv:
         case hopper::kIMod: {
           // abs and the clamp at each operand's own width (aux: 8 * ta + tb),
           // the floor division and the sign product at the result's
-          const int64_t aa = wrap(x < 0 ? sub_w(0, x) : x, ins.aux >> 3);
-          int64_t bb = wrap(y < 0 ? sub_w(0, y) : y, ins.aux & 7);
-          if (bb < 1) bb = 1;
-          if (ins.op == hopper::kIDiv) {
-            o = wrap(mul_w(floor_div(aa, bb), sign_of(x) * sign_of(y)), t);
-          } else {
-            int64_t m = aa % bb;
-            if (m < 0) m += bb;
-            o = wrap(mul_w(m, sign_of(x)), t);
+          const int sa = wrap_shift(ins.aux >> 3), sb = wrap_shift(ins.aux & 7);
+          EACH_ROW {
+            const int64_t x = X, y = Y;
+            const int64_t aa = wrap_by(x < 0 ? sub_w(0, x) : x, sa);
+            int64_t bb = wrap_by(y < 0 ? sub_w(0, y) : y, sb);
+            if (bb < 1) bb = 1;
+            if (ins.op == hopper::kIDiv) {
+              o[j] = wrap_by(mul_w(floor_div(aa, bb), sign_of(x) * sign_of(y)), sh);
+            } else {
+              int64_t m = aa % bb;
+              if (m < 0) m += bb;
+              o[j] = wrap_by(mul_w(m, sign_of(x)), sh);
+            }
+            ov[j] = VAB;
           }
           break;
         }
-        case hopper::kFAdd: o = bits_of(__dadd_rn(as_double(x), as_double(y))); break;
-        case hopper::kFSub: o = bits_of(__dsub_rn(as_double(x), as_double(y))); break;
-        case hopper::kFMul: o = bits_of(__dmul_rn(as_double(x), as_double(y))); break;
-        case hopper::kFDiv: o = bits_of(__ddiv_rn(as_double(x), as_double(y))); break;
-        case hopper::kFMod: {
-          const double b = as_double(y);
-          double m = fmod(as_double(x), b);
-          if (m != 0.0 && ((b < 0.0) != (m < 0.0))) m = __dadd_rn(m, b);
-          o = bits_of(m);
+        case hopper::kFAdd:
+          EACH_ROW { o[j] = bits_of(__dadd_rn(as_double(X), as_double(Y))); ov[j] = VAB; }
+          break;
+        case hopper::kFSub:
+          EACH_ROW { o[j] = bits_of(__dsub_rn(as_double(X), as_double(Y))); ov[j] = VAB; }
+          break;
+        case hopper::kFMul:
+          EACH_ROW { o[j] = bits_of(__dmul_rn(as_double(X), as_double(Y))); ov[j] = VAB; }
+          break;
+        case hopper::kFDiv:
+          EACH_ROW { o[j] = bits_of(__ddiv_rn(as_double(X), as_double(Y))); ov[j] = VAB; }
+          break;
+        case hopper::kFMod:
+          EACH_ROW {
+            const double b = as_double(Y);
+            double m = fmod(as_double(X), b);
+            if (m != 0.0 && ((b < 0.0) != (m < 0.0))) m = __dadd_rn(m, b);
+            o[j] = bits_of(m);
+            ov[j] = VAB;
+          }
+          break;
+        case hopper::kFNeg: EACH_ROW { o[j] = bits_of(-as_double(X)); ov[j] = VA; } break;
+        case hopper::kDivS: {
+          const double r = as_double(p.consts[ins.aux]);
+          EACH_ROW { o[j] = bits_of(__dmul_rn(as_double(X), r)); ov[j] = VA; }
           break;
         }
-        case hopper::kFNeg: o = bits_of(-as_double(x)); ov = va; break;
-        case hopper::kDivS:
-          o = bits_of(__dmul_rn(as_double(x), as_double(p.consts[ins.aux])));
-          ov = va;
+        case hopper::kI2F: EACH_ROW { o[j] = bits_of(__ll2double_rn(X)); ov[j] = VA; } break;
+        case hopper::kWrap: EACH_ROW { o[j] = wrap_by(X, sh); ov[j] = VA; } break;
+        case hopper::kToBool: EACH_ROW { o[j] = X != 0; ov[j] = VA; } break;
+        case hopper::kFToBool: EACH_ROW { o[j] = as_double(X) != 0.0; ov[j] = VA; } break;
+        case hopper::kCmp:
+          EACH_ROW {
+            const int64_t x = X, y = Y;
+            o[j] = compare(ins.aux, x < y, x == y);
+            ov[j] = VAB;
+          }
           break;
-        case hopper::kI2F: o = bits_of(__ll2double_rn(x)); ov = va; break;
-        case hopper::kWrap: o = wrap(x, t); ov = va; break;
-        case hopper::kToBool: o = x != 0; ov = va; break;
-        case hopper::kFToBool: o = as_double(x) != 0.0; ov = va; break;
-        case hopper::kCmp: o = compare(ins.aux, x < y, x == y); break;
-        case hopper::kFCmp: o = fcompare(ins.aux, as_double(x), as_double(y)); break;
-        case hopper::kAnd: {
-          const bool ad = x != 0, bd = y != 0;
-          const bool yes = va && ad && vb && bd;
-          o = yes;
-          ov = yes || (va && !ad) || (vb && !bd);
+        case hopper::kFCmp:
+          EACH_ROW { o[j] = fcompare(ins.aux, as_double(X), as_double(Y)); ov[j] = VAB; }
           break;
-        }
-        case hopper::kOr: {
-          const bool ad = x != 0, bd = y != 0;
-          const bool yes = (va && ad) || (vb && bd);
-          o = yes;
-          ov = yes || (va && !ad && vb && !bd);
+        case hopper::kAnd:
+          EACH_ROW {
+            const bool va = VA, vb = VB, ad = X != 0, bd = Y != 0;
+            const bool yes = va && ad && vb && bd;
+            o[j] = yes;
+            ov[j] = yes || (va && !ad) || (vb && !bd);
+          }
           break;
-        }
-        case hopper::kNot: o = x == 0; ov = va; break;
-        case hopper::kIsNull: o = !va; ov = true; break;
-        case hopper::kNotNull: o = va; ov = true; break;
-        case hopper::kSelect: {  // a: the condition, b: its result, c: the later WHENs
-          const bool fire = va && x != 0;
-          o = fire ? y : z;
-          ov = fire ? vb : vc;
+        case hopper::kOr:
+          EACH_ROW {
+            const bool va = VA, vb = VB, ad = X != 0, bd = Y != 0;
+            const bool yes = (va && ad) || (vb && bd);
+            o[j] = yes;
+            ov[j] = yes || (va && !ad && vb && !bd);
+          }
           break;
-        }
-        case hopper::kCoalesce: o = va ? x : y; ov = va || vb; break;
+        case hopper::kNot: EACH_ROW { o[j] = X == 0; ov[j] = VA; } break;
+        case hopper::kIsNull: EACH_ROW { o[j] = !VA; ov[j] = true; } break;
+        case hopper::kNotNull: EACH_ROW { o[j] = VA; ov[j] = true; } break;
+        case hopper::kSelect:  // a: the condition, b: its result, c: the later WHENs
+          EACH_ROW {
+            const bool fire = VA && X != 0;
+            o[j] = fire ? Y : Z;
+            ov[j] = fire ? VB : VC;
+          }
+          break;
+        case hopper::kCoalesce:
+          EACH_ROW {
+            const bool va = VA;
+            o[j] = va ? X : Y;
+            ov[j] = va || VB;
+          }
+          break;
         case hopper::kLut: {
           const hopper::ExprLut& l = p.lut[ins.aux];
-          const int64_t k = x < 0 ? 0 : (x >= l.len ? l.len - 1 : x);
-          o = l.lut[k] ? 1 : 0;
-          ov = va;
+          EACH_ROW {
+            const int64_t x = X;
+            const int64_t k = x < 0 ? 0 : (x >= l.len ? l.len - 1 : x);
+            o[j] = l.lut[k] ? 1 : 0;
+            ov[j] = VA;
+          }
           break;
         }
-        case hopper::kDatePart: o = date_part(x, ins.aux); ov = va; break;
+        case hopper::kDatePart: EACH_ROW { o[j] = date_part(X, ins.aux); ov[j] = VA; } break;
         case hopper::kDivRound: {
           const int64_t d = p.consts[ins.aux];
           const int64_t half = d / 2;
-          o = x >= 0 ? floor_div(add_w(x, half), d)
-                     : sub_w(0, floor_div(add_w(sub_w(0, x), half), d));
-          ov = va;
+          EACH_ROW {
+            const int64_t x = X;
+            o[j] = x >= 0 ? floor_div(add_w(x, half), d)
+                          : sub_w(0, floor_div(add_w(sub_w(0, x), half), d));
+            ov[j] = VA;
+          }
           break;
         }
         default:  // kStore
-          store(p.out[ins.aux], i, x, va);
+          EACH_ROW { o[j] = X; ov[j] = VA; }
+          store_column(p.out[ins.aux], i0, n, o, ov);
           continue;
       }
-      r[ins.dst] = o;
-      v[ins.dst] = ov;
+#undef VAB
+#undef VC
+#undef VB
+#undef VA
+#undef Z
+#undef Y
+#undef X
+#undef EACH_ROW
+      int64_t* rd = file + ins.dst * kRows + threadIdx.x;
+      const uint32_t clear = ~(1u << ins.dst);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        rd[j * kThreads] = o[j];
+        vm[j] = (vm[j] & clear) | (static_cast<uint32_t>(ov[j]) << ins.dst);
+      }
     }
   }
+}
+
+template <int K>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&expr_program_kernel<K>);
+}
+
+const void* kernel_for(int k) {
+  return k == 4 ? kernel_of<4>() : (k == 2 ? kernel_of<2>() : kernel_of<1>());
+}
+
+// Dynamic shared bytes a block of this device may take.
+int optin_bytes() {
+  static const int bytes = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return v;
+  }();
+  return bytes;
+}
+
+cudaError_t allow(const void* kernel, int k) {
+  const size_t most = file_bytes(hopper::kMaxExprRegs, k);
+  const int bytes = most < static_cast<size_t>(optin_bytes()) ? static_cast<int>(most)
+                                                               : optin_bytes();
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Lets kernel<k> take the largest file that fits a block (32 registers,
+// up to the device's opt-in limit), once a process (thread-safe statics).
+cudaError_t allow_file(int k) {
+  static const cudaError_t err[3] = {allow(kernel_of<1>(), 1), allow(kernel_of<2>(), 2),
+                                     allow(kernel_of<4>(), 4)};
+  return err[k == 4 ? 2 : (k == 2 ? 1 : 0)];
 }
 
 }  // namespace
@@ -331,12 +483,40 @@ static std::atomic<int64_t> g_expr_stream_ops{0};
 
 extern "C" int64_t expr_program_stream_ops() { return g_expr_stream_ops.load(); }
 
-// One launch over n rows on ``stream``. Returns the first CUDA error, 0 on
-// success.
-extern "C" int expr_program(const hopper::ExprProgram* program, int64_t n, void* stream) {
+// Blocks of kernel<k> one SM holds at once with n_regs registers in its
+// file (0 where the file does not fit, or k is not 1, 2 or 4).
+extern "C" int expr_program_blocks_per_sm(int k, int n_regs) {
+  if ((k != 1 && k != 2 && k != 4) || n_regs < 0 || n_regs > hopper::kMaxExprRegs ||
+      file_bytes(n_regs, k) > static_cast<size_t>(optin_bytes()) || allow_file(k) != cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_for(k), kThreads,
+                                                    file_bytes(n_regs, k)) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// One launch of kernel<k> over n rows in ``grid`` blocks on ``stream``
+// (the plan of hopper_kernels.expr_program_plan). Returns the first CUDA
+// error, 0 on success.
+extern "C" int expr_program(const hopper::ExprProgram* program, int64_t n, int k, int grid,
+                            void* stream) {
   if (n <= 0) return 0;
-  expr_program_kernel<<<hopper::grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *program, n);
+  const int n_regs = program->n_regs;
+  if ((k != 1 && k != 2 && k != 4) || n_regs < 0 || n_regs > hopper::kMaxExprRegs || grid < 1 ||
+      file_bytes(n_regs, k) > static_cast<size_t>(optin_bytes()))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_file(k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = file_bytes(n_regs, k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 4) {
+    expr_program_kernel<4><<<grid, kThreads, bytes, s>>>(*program, n);
+  } else if (k == 2) {
+    expr_program_kernel<2><<<grid, kThreads, bytes, s>>>(*program, n);
+  } else {
+    expr_program_kernel<1><<<grid, kThreads, bytes, s>>>(*program, n);
+  }
   ++g_expr_stream_ops;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1244,9 +1244,9 @@ extern "C" int64_t segment_sort_stream_ops() { return g_stream_ops.load(); }
 
 // stats (int64 [segment_sort_stat_words]): the least and largest order key,
 // the weighted rows, the groups, the large segments' rows, the first head,
-// level 0's list word (items << 40 | chunks). scratch (int64 [2 * n_tiles +
-// 1], n_tiles = ceil(n / kTileRows)): the tiles' head counts and each
-// tile's first group; seg_start (int32 [n + 1]); items (Item [n / (kCap +
+// level 0's list word (items << 40 | chunks). scratch (int64
+// [tile_scratch_words(n)], n_tiles = ceil(n / kTileRows)): the tiles' head
+// counts, each tile's first group and the bases' chunk sums; seg_start (int32 [n + 1]); items (Item [n / (kCap +
 // 1) + 1]): level 0's items.
 extern "C" int segment_sort_stats(const void* new_group, const void* values, int type,
                                   const WeightSet* ws, int64_t n, void* scratch, void* stats,
@@ -1265,9 +1265,9 @@ extern "C" int segment_sort_stats(const void* new_group, const void* values, int
   ++g_stream_ops;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   int64_t* base = heads + n_tiles;
-  hopper::rows::tile_base_kernel<<<1, kThreads, 0, s>>>(heads, n_tiles, base);
-  ++g_stream_ops;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  hopper::rows::scan_bases(heads, n_tiles, base, base + n_tiles + 1, s, &err);
+  g_stream_ops += 2;
+  if (err != cudaSuccess) return static_cast<int>(err);
   int32_t* starts = static_cast<int32_t*>(seg_start);
   sort_starts_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(ng, n, base, n_tiles,
                                                                          starts, st);

@@ -199,8 +199,12 @@ def bind(path: Path):
         [ptr, ptr, i32, i32, weights, i64] + [ptr] * 3 + [i32, i32] + [ptr] * 4)
     lib.segment_sort_large.argtypes = (
         [ptr, i32, i32, weights, i64, i32, i32] + [ptr] * 3 + [i64, i64] + [ptr] * 12)
-    lib.hll.argtypes = [ptr, ptr, i32, weights, i64, i64, ctypes.c_float] + [ptr] * 5
-    for name in ("segment_sort_stats", "segment_sort_small", "segment_sort_large", "hll"):
+    lib.hll.argtypes = [ptr, ptr, i32, weights, i64, i64, ctypes.c_float, i64] + [ptr] * 6
+    lib.hll_blocks_per_sm.argtypes = []
+    lib.tile_scratch_words.argtypes = [i64]
+    lib.tile_scratch_words.restype = i64
+    for name in ("segment_sort_stats", "segment_sort_small", "segment_sort_large", "hll",
+                 "hll_blocks_per_sm"):
         getattr(lib, name).restype = i32
     lib.partition_epilogue.argtypes = (
         [ctypes.POINTER(_WideKeySet), ptr, ptr, i64, i32] + [ptr] * 6
@@ -209,8 +213,10 @@ def bind(path: Path):
     lib.partition_epilogue.restype = i32
     lib.partition_dest.argtypes = [ctypes.POINTER(_WideKeySet), ptr, i64, i32, ptr, ptr]
     lib.partition_dest.restype = i32
-    lib.expr_program.argtypes = [ctypes.POINTER(_ExprProgram), i64, ptr]
-    lib.expr_program.restype = i32
+    lib.expr_program.argtypes = [ctypes.POINTER(_ExprProgram), i64, i32, i32, ptr]
+    lib.expr_program_blocks_per_sm.argtypes = [i32, i32]
+    for name in ("expr_program", "expr_program_blocks_per_sm"):
+        getattr(lib, name).restype = i32
     lib.presorted_group.argtypes = (
         [ctypes.POINTER(_PresortKey), i32] + [ptr] * 2 + [i64] + [ptr] * 4)
     lib.presorted_group.restype = i32
@@ -1981,7 +1987,7 @@ def segment_sort(new_group, values, weights, participants_first: bool = False):
     order_key(value))``, the weight key only with ``participants_first``,
     and the run heads (the first row of each (group, order key) run): see
     :func:`kernels.segment_sort_plain`. On CUDA tensors each group's rows
-    are sorted in place of the page (``csrc/segment_sort.cu``): five
+    are sorted in place of the page (``csrc/segment_sort.cu``): six
     launches of stats and segment starts, one host read of the stats
     (:func:`segment_sort_plan`), one launch for the segments of at most
     :data:`SEGMENT_SORT_BATCH_ROWS` rows where there are any, and where
@@ -1994,8 +2000,7 @@ def segment_sort(new_group, values, weights, participants_first: bool = False):
     lib = _library()
     stream = _stream(new_group)
     vtype = _KEY_TYPES[values.dtype]
-    n_tiles = -(-n // SEGMENT_TILE_ROWS)
-    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.tile_scratch_words(n), dtype=torch.int64, device=dev)
     stats = torch.empty(_SORT_STAT_WORDS, dtype=torch.int64, device=dev)
     seg_start = torch.empty(n + 1, dtype=torch.int32, device=dev)
     cap_items = n // (SEGMENT_SORT_BATCH_ROWS + 1) + 1
@@ -2044,32 +2049,55 @@ def hll_plain(new_group, out_cap: int, values, weights):
             torch.ones(out_cap, dtype=torch.bool, device=new_group.device))
 
 
+def hll_plan(n: int, sms: int, blocks_per_sm: int) -> Tuple[int, int]:
+    """(tiles_per_range, grid) of hll's register pass over n rows: the
+    page's tiles of :data:`SEGMENT_TILE_ROWS` rows cut into as many
+    contiguous ranges as the card holds blocks at once (``sms`` times
+    ``blocks_per_sm``), block b taking tiles ``[b * tiles_per_range, (b +
+    1) * tiles_per_range)``."""
+    n_tiles = -(-n // SEGMENT_TILE_ROWS)
+    per = -(-n_tiles // max(sms * blocks_per_sm, 1))
+    return per, -(-n_tiles // per)
+
+
+_HLL_OCCUPANCY: List[int] = []  # the register pass's blocks an SM, read once
+
+
 def hll(new_group, out_cap: int, values, weights):
     """``approx_distinct``'s HyperLogLog estimate of each group of a
     group-sorted page, as ``(data, valid)``: int64 [out_cap] and bool
     [out_cap], valid everywhere (an empty group estimates 0), from
     ``new_group``, ``values`` and ``weights`` as :func:`segment_sort` takes
     them; ``out_cap`` must hold every group.
-    Bit-identical to :func:`hll_plain`. On CUDA tensors a memset of the
-    registers (int32 [out_cap, 2048]) and four launches: the tiles' head
-    counts and scan, the registers (an atomic max a weighted row) and the
-    estimates (one block a group)."""
+    Bit-identical to :func:`hll_plain`. On CUDA tensors six launches: the
+    tiles' head counts and their two-pass scan, a pass that classes each
+    slot (zeroing the registers, int32 [out_cap, 2048], of the groups that
+    need them), the registers (a resident grid, each block a range of tiles
+    with its current group's registers in shared memory: :func:`hll_plan`)
+    and the estimates of the groups whose registers went to device
+    memory."""
     name = "hll"
     n, dev, ws = _check_segment_rows(name, new_group, values, weights)
     if out_cap < 1:
         raise ValueError(f"{name}: at least one output slot")
     if dev.type == "cpu":
         return hll_plain(new_group, out_cap, values, weights)
+    lib = _library()
+    if not _HLL_OCCUPANCY:
+        _HLL_OCCUPANCY.append(lib.hll_blocks_per_sm())
+    per, _ = hll_plan(n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                      _HLL_OCCUPANCY[0])
     m = 1 << K.HLL_BITS
     alpha = 0.7213 / (1.0 + 1.079 / m)
     regs = torch.empty(out_cap * m, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * -(-n // SEGMENT_TILE_ROWS) + 1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.tile_scratch_words(n), dtype=torch.int64, device=dev)
+    flags = torch.empty(out_cap, dtype=torch.uint8, device=dev)
     out = torch.empty(out_cap, dtype=torch.int64, device=dev)
     valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    _check_launch(name, _library().hll(
+    _check_launch(name, lib.hll(
         new_group.data_ptr(), values.data_ptr(), _KEY_TYPES[values.dtype], ctypes.byref(ws), n,
-        out_cap, ctypes.c_float(alpha * m * m), regs.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), valid.data_ptr(), _stream(new_group)))
+        out_cap, ctypes.c_float(alpha * m * m), per, regs.data_ptr(), scratch.data_ptr(),
+        flags.data_ptr(), out.data_ptr(), valid.data_ptr(), _stream(new_group)))
     LAUNCHES[name] += 1
     return out, valid
 
@@ -2412,7 +2440,7 @@ class _ExprProgram(ctypes.Structure):
     _fields_ = [
         ("code", _ExprInstr * EXPR_MAX_INSTRS), ("consts", ctypes.c_int64 * EXPR_MAX_CONSTS),
         ("inp", _ExprCol * EXPR_MAX_INPUTS), ("out", _ExprCol * EXPR_MAX_OUTPUTS),
-        ("lut", _ExprLut * EXPR_MAX_LUTS), ("n_code", ctypes.c_int),
+        ("lut", _ExprLut * EXPR_MAX_LUTS), ("n_code", ctypes.c_int), ("n_regs", ctypes.c_int),
     ]
 
 
@@ -2433,6 +2461,7 @@ def _program_struct(program) -> _ExprProgram:
     if static is None:
         static = _ExprProgram()
         static.n_code = len(program.code)
+        static.n_regs = program.n_regs
         for c, ins in zip(static.code, program.code):
             c.op, c.dst, c.a, c.b, c.c, c.t, c.aux = ins
         for k, bits in enumerate(program.consts):
@@ -2441,6 +2470,43 @@ def _program_struct(program) -> _ExprProgram:
             c.lut, c.len = lut.data_ptr(), lut.shape[0]
         program._struct = static
     return static
+
+
+# rows a thread of expr_program's kernel may take (its template argument K);
+# a block takes K * EXPR_BLOCK_THREADS rows at a time
+EXPR_ROWS_PER_THREAD = (4, 2, 1)
+EXPR_BLOCK_THREADS = 256
+_EXPR_OCCUPANCY: Dict[Tuple[int, int], int] = {}
+
+
+def expr_program_plan(n: int, n_regs: int, sms: int, blocks_per_sm) -> Tuple[int, int, int]:
+    """(k, block_rows, grid) of one expr_program launch over n rows: the
+    largest k of :data:`EXPR_ROWS_PER_THREAD` of which an SM holds two
+    blocks or more (``blocks_per_sm[k]``, the card's occupancy of kernel<k>
+    with a file of ``n_regs`` registers; 0 where it does not fit), else the
+    smallest k that fits; tiles of ``block_rows = k * EXPR_BLOCK_THREADS``
+    rows, and a grid of the tiles capped at the resident blocks
+    (``tools/expr_program_variants.py`` measured the largest k fastest on
+    every program of the main path, and k = 1 on the 32-register one). Block
+    b takes tiles b, b + grid, ...; a thread row j of its tile (j < k), row
+    ``tile * block_rows + j * EXPR_BLOCK_THREADS + thread``."""
+    fits = [k for k in EXPR_ROWS_PER_THREAD if blocks_per_sm[k] >= 1]
+    if not fits:
+        raise ValueError(f"expr_program: a file of {n_regs} registers fits no block")
+    k = next((k for k in fits if blocks_per_sm[k] >= 2), fits[-1])
+    rows = k * EXPR_BLOCK_THREADS
+    return k, rows, min(max(-(-n // rows), 1), sms * blocks_per_sm[k])
+
+
+def _expr_launch_plan(lib, n: int, n_regs: int, dev) -> Tuple[int, int, int]:
+    occupancy = {}
+    for k in EXPR_ROWS_PER_THREAD:
+        key = (k, n_regs)
+        if key not in _EXPR_OCCUPANCY:
+            _EXPR_OCCUPANCY[key] = lib.expr_program_blocks_per_sm(k, n_regs)
+        occupancy[k] = _EXPR_OCCUPANCY[key]
+    return expr_program_plan(n, n_regs, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count, occupancy)
 
 
 def expr_program(program, inputs, active=None):
@@ -2452,7 +2518,7 @@ def expr_program(program, inputs, active=None):
     its dtypes; ``active``, the page's activity, gives the row count and
     the device of a program that reads no column (its constants). Returns
     each output's (data, valid), of the program's output dtypes. On CUDA
-    tensors one launch, one row a thread."""
+    tensors one launch, k rows a thread (:func:`expr_program_plan`)."""
     name = "expr_program"
     if len(inputs) != len(program.input_dtypes) or not (inputs or active is not None):
         raise ValueError(f"{name}: the program reads {len(program.input_dtypes)} columns")
@@ -2477,6 +2543,8 @@ def expr_program(program, inputs, active=None):
         valid = torch.empty(n, dtype=torch.bool, device=dev)
         outs.append((data, valid))
         c.data, c.valid, c.type = data.data_ptr(), valid.data_ptr(), _KEY_TYPES[dt]
-    _check_launch(name, _library().expr_program(ctypes.byref(p), n, _stream(rows)))
+    lib = _library()
+    k, _, grid = _expr_launch_plan(lib, n, program.n_regs, dev)
+    _check_launch(name, lib.expr_program(ctypes.byref(p), n, k, grid, _stream(rows)))
     LAUNCHES[name] += 1
     return outs

@@ -38,19 +38,23 @@ so every commit is timed on the same inputs; the aggregation inputs go to
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] --aggregates
 
-times the two aggregation kernels and the re-sort alone on the main path's
-own calls: ``lineitem``, ``orders`` and ``customer`` of TPC-H SF10 are
-loaded into ``DIR``'s memory tables by CTAS (as ``chip_smoke.py`` phase 8
-loads them), then TPC-H Q3 and Q12 and ``chip_smoke.py``'s T1-T4 run
-through ``DIR``'s ``LocalQueryRunner``, keeping every ``segment_agg``,
-``segment_agg_direct`` and ``segment_sort`` call's arguments (T3's and
-T4's sorts). Each call is reported as above (wrapper ms, device us by
-kernel) beside its bound (``chip_smoke.py``'s ``segment_agg_bound``,
-``direct_bound`` and ``resort_bound``: bytes over 3.35 TB/s) and the
-query's wall. The generator and the plans are deterministic, so two
-checkouts see the same inputs: to compare a commit with its parent on one
-card, unpack the parent (``git archive``) and run parent, tree, tree,
-parent in one call.
+times the aggregation kernels, the re-sorts, the HyperLogLog and the
+fused projection alone on the main path's own calls: ``lineitem``,
+``orders``, ``customer``, ``supplier``, ``nation`` and ``region`` of TPC-H
+SF10 are loaded into ``DIR``'s memory tables by CTAS (as ``chip_smoke.py``
+phase 8 loads them), then TPC-H Q3, Q5, Q10 and Q12 and
+``chip_smoke.py``'s T1-T4 run through ``DIR``'s ``LocalQueryRunner``,
+keeping every ``segment_agg``, ``segment_agg_direct``, ``segment_sort``,
+``hll`` and ``expr_program`` call's arguments (T3's and T4's sorts, T3's
+HyperLogLog, the four TPC-H queries' projections). Each call is reported
+as above (wrapper ms, device us by kernel and memset) beside its bound
+(``chip_smoke.py``'s ``segment_agg_bound``, ``direct_bound``,
+``resort_bound`` and ``expr_bound``: bytes over 3.35 TB/s) and the query's
+wall; last, ``expr_program`` on ``chip_smoke.py`` phase 2's main
+projection (4,194,304 rows, 32 instructions, 6 outputs). The generator and
+the plans are deterministic, so two checkouts see the same inputs: to
+compare a commit with its parent on one card, unpack the parent (``git
+archive``) and run parent, tree, tree, parent in one call.
 """
 
 from __future__ import annotations
@@ -316,38 +320,77 @@ def dest_reports(root: str, HK, label: str, ex: tuple, dev) -> None:
 
 
 # the tables the aggregation queries read, and the queries (chip_smoke.py's
-# T1-T4 beside Q3 and Q12)
-AGG_TABLES = ("lineitem", "orders", "customer")
+# T1-T4 beside Q3, Q5, Q10 and Q12)
+AGG_TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 AGG_SCALE = 10
+AGG_KERNELS = ("segment_agg", "segment_agg_direct", "segment_sort", "hll", "expr_program")
 
 
-def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> None:
-    """Every segment_agg, segment_agg_direct and segment_sort call of Q3,
-    Q12 and T1-T4 over memory tables at ``scale``, timed on its own
-    arguments right after its query (module docstring)."""
+def memory_runner(root: str, dev, scale=AGG_SCALE, tables=AGG_TABLES):
+    """``DIR``'s runner over memory tables holding ``tables`` of TPC-H at
+    ``scale``, each loaded by CTAS (its seconds printed)."""
     from trino_tpu_torch.connectors.memory import MemoryConnector
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.metadata import Session
     from trino_tpu_torch.runtime import LocalQueryRunner
 
-    sys.path.insert(1, str(here))
-    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound, resort_bound,
-                            segment_agg_bound)
-
-    dev = torch.device("cuda") if dev is None else dev
     runner = LocalQueryRunner(Session(catalog="memory", schema="default"), device=dev)
     runner.register_catalog("tpch", TpchConnector(scale=scale, device=dev))
     runner.register_catalog("memory", MemoryConnector(device=dev))
-    for table in AGG_TABLES:
+    for table in tables:
         t0 = time.perf_counter()
         schema = f"sf{scale:g}".replace(".", "_")
         runner.execute(f"CREATE TABLE {table} AS SELECT * FROM tpch.{schema}.{table}")
         print(f"[{root}] CTAS {table}: {time.perf_counter() - t0:.3f} s", flush=True)
-    texts = {"q03": QUERIES["q03"], "q12": EXPAND_QUERIES["q12"], **LONG_TAIL_QUERIES,
-             **RESORT_QUERIES}
-    names = ("segment_agg", "segment_agg_direct", "segment_sort")
+    return runner
+
+
+def query_calls(HK, runner, sql: str, names, dev) -> tuple:
+    """(wall s, [(name, args), ...]): the query run once to warm, then
+    again with every call of the wrappers ``names`` kept in order."""
+    calls = []
+    orig = {n: getattr(HK, n) for n in names}
+
+    def tapped(*args, _name):
+        calls.append((_name, args))
+        return orig[_name](*args)
+
+    for n in names:
+        setattr(HK, n, lambda *a, _name=n: tapped(*a, _name=_name))
+    try:
+        runner.execute(sql)  # warm
+        calls.clear()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.execute(sql)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(HK, n, orig[n])
+    return wall, calls
+
+
+def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> None:
+    """Every segment_agg, segment_agg_direct, segment_sort, hll and
+    expr_program call of Q3, Q5, Q10, Q12 and T1-T4 over memory tables at
+    ``scale``, timed on its own arguments right after its query, then the
+    main projection (module docstring)."""
+    sys.path.insert(1, str(here))
+    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound, expr_bound,
+                            expr_cases, resort_bound, segment_agg_bound)
+    from tests.tpch_corpus import TPCH_QUERIES
+
+    dev = torch.device("cuda") if dev is None else dev
+    runner = memory_runner(root, dev, scale)
+    texts = {"q03": QUERIES["q03"], "q05": TPCH_QUERIES["q05"], "q10": QUERIES["q10"],
+             "q12": EXPAND_QUERIES["q12"], **LONG_TAIL_QUERIES, **RESORT_QUERIES}
+    names = AGG_KERNELS
     bounds = {"segment_agg": segment_agg_bound, "segment_agg_direct": direct_bound,
-              "segment_sort": lambda a: resort_bound("segment_sort", a)}
+              "segment_sort": lambda a: resort_bound("segment_sort", a),
+              "hll": lambda a: resort_bound("hll", a), "expr_program": expr_bound}
     shapes = {
         "segment_agg": lambda a: (f"n={a[0].shape[0]} slots={a[2]} requests={len(a[5])} "
                                   f"outputs={len(a[6])}"),
@@ -355,32 +398,15 @@ def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> N
                                          f"requests={len(a[3])} outputs={len(a[4])}"),
         "segment_sort": lambda a: (f"n={a[0].shape[0]} groups={int(a[0].sum())} "
                                    f"values={a[1].dtype} participants_first={a[3]}"),
+        "hll": lambda a: f"n={a[0].shape[0]} groups={int(a[0].sum())} slots={a[1]}",
+        "expr_program": lambda a: (f"n={(a[1][0][1] if a[1] else a[2]).shape[0]} "
+                                   f"instructions={len(a[0].code)} registers={a[0].n_regs} "
+                                   f"inputs={len(a[1])} outputs={len(a[0].output_dtypes)}"),
     }
     for q, sql in texts.items():
-        calls = []
-        orig = {n: getattr(HK, n) for n in names}
-
-        def tapped(*args, _name):
-            calls.append((_name, args))
-            return orig[_name](*args)
-
-        for n in names:
-            setattr(HK, n, lambda *a, _name=n: tapped(*a, _name=_name))
-        try:
-            runner.execute(sql)  # warm
-            calls.clear()
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runner.execute(sql)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            for n in names:
-                setattr(HK, n, orig[n])
-        print(f"[{root}] {q} over memory tables: {wall:.4f} s wall, {len(calls)} aggregation "
-              "kernel calls", flush=True)
+        wall, calls = query_calls(HK, runner, sql, names, dev)
+        print(f"[{root}] {q} over memory tables: {wall:.4f} s wall, {len(calls)} kernel calls",
+              flush=True)
         for k, (name, args) in enumerate(calls):
             b, by = bounds[name](args)
             report(root, f"{name}, {q} call {k + 1} ({shapes[name](args)}; bound {b:.4f} ms, "
@@ -388,6 +414,10 @@ def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> N
         del calls
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    label, args = next(iter(expr_cases(HK, dev)))
+    b, by = expr_bound(args)
+    report(root, f"expr_program, phase 2's {label} ({shapes['expr_program'](args)}; bound "
+                 f"{b:.4f} ms, {by})", lambda: HK.expr_program(*args))
 
 
 def main() -> None:
@@ -397,8 +427,8 @@ def main() -> None:
     ap.add_argument("--joins", default=str(
         here / "trino_tpu_torch" / "_build" / "kernel_inputs" / "joins_sf10.pt"))
     ap.add_argument("--aggregates", action="store_true",
-                    help="only the aggregation kernels and the re-sort on Q3, Q12 and T1-T4's "
-                         "calls")
+                    help="only the aggregation kernels, the re-sort, the HyperLogLog and the "
+                         "projection on Q3, Q5, Q10, Q12 and T1-T4's calls")
     opts = ap.parse_args()
     root, joins = opts.root, Path(opts.joins)
     if not torch.cuda.is_available():
