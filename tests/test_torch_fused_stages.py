@@ -1,7 +1,11 @@
 """The stages of the port's ``expand_phase`` after the join, on the CPU,
 against the reference: the presorted grouping (``presorted_group_plain``,
 which ``hopper_kernels.presorted_group`` runs on CPU tensors) against the
-reference's ``_presorted_group_impl``, nine keys among the cases; the direct
+reference's ``_presorted_group_impl``, nine and twelve keys among the
+cases (past the eight a launch takes by value), and a numpy model of
+``csrc/presorted_group.cu``'s plan (its tiles, the look-back over status
+words tagged with each launch's epoch in a state buffer kept across
+calls, the launches past eight keys) against the plain version; the direct
 aggregation (``segment_agg_direct_plain``, through the executor's fused
 direct stage) against the reference's ``_direct_aggregate_impl`` with NULL
 keys, empty groups, ``arbitrary`` and G = 256; and TPC-H Q3, Q5, Q12 and
@@ -109,6 +113,15 @@ def _presorted_case(name, seed):
             "k8": ("bigint", -k, kv), "k9": ("smallint", (k % 13).astype(np.int16), kv),
         })
         cols = {s: c if len(c) == 4 else c + (None,) for s, c in cols.items()}
+    if name in ("past_limit", "violation_past_limit"):
+        # twelve keys: past the kernel's by-value limit (PRESORTED_MAX_KEYS)
+        cols.update({f"k{j}": ("bigint", k // j + j, kv.copy(), None) for j in range(3, 13)})
+        if name == "violation_past_limit":
+            at = int(np.nonzero(active[N // 3:])[0][0]) + N // 3
+            nxt = int(np.nonzero(active[at + 1:])[0][0]) + at + 1
+            for c in cols.values():
+                c[1][nxt] = c[1][at]
+            cols["k12"][1][nxt] += 1
     if name == "doubles":
         cols = {"k1": ("double", np.sort(rng.normal(0, 100, N)).round(1), kv, None)}
     cols["v"] = ("bigint", rng.integers(0, 100, N), np.ones(N, dtype=bool), None)
@@ -116,7 +129,7 @@ def _presorted_case(name, seed):
 
 
 PRESORTED_CASES = ("clean", "null_keys", "violation_first", "violation_later", "nine_keys",
-                   "doubles")
+                   "doubles", "past_limit", "violation_past_limit")
 
 
 @pytest.mark.parametrize("kernel", [False, True])
@@ -151,6 +164,156 @@ def test_presorted_group_plain_bridges_inactive_runs():
     active[5] = True
     _, _, viol = HK.presorted_group_plain(keys, active)
     assert bool(viol)
+
+
+# a numpy model of csrc/presorted_group.cu's plan: tiles of TILE rows, 8 rows
+# a thread, each launch's status words tagged with its epoch in a state
+# buffer kept across calls, a launch for each PRESORTED_MAX_KEYS - 1 keys
+# past the first launch's PRESORTED_MAX_KEYS
+_FLAG, _VALUE_BITS = 62, 40
+_AGG, _PREFIX = 1, 2
+
+
+def _order_keys(d, v):
+    return np.where(v, HK.K.order_key(torch.from_numpy(d)).numpy(), np.iinfo(np.int64).max)
+
+
+def _presorted_launch(state, epoch, keys, active, tile, rng):
+    """One launch: blocks take tile ids in order (an atomic counter) and
+    publish their aggregate at once, and their look-backs run in a random
+    interleaving; a look-back proceeds only when the 32 status words of its
+    window hold this epoch's words (a word of an earlier launch reads as
+    not published: it waits). Returns (new_group, groups, violated), as the
+    kernel computes them."""
+    n = active.shape[0]
+    items = 8
+    threads = tile // items
+    n_tiles = -(-n // tile)
+    status = state[4:]
+    k = [_order_keys(d, v) for d, v in keys]
+    new_group = np.zeros(n, bool)
+    assert not state[:4].any()
+
+    def word(flag, value):
+        return (flag << _FLAG) | (epoch << _VALUE_BITS) | value
+
+    def ready(w):
+        return w >> _FLAG != 0 and (w >> _VALUE_BITS) & ((1 << 22) - 1) == epoch
+
+    def look_back(t):
+        for pred in range(t - 1, -1, -32):
+            window = [int(status[j]) for j in range(pred, max(pred - 32, -1), -1)]
+            if not all(ready(w) for w in window):
+                return None  # a lane still spins
+            for w in window:
+                if w >> _FLAG == _PREFIX or w & ((1 << _VALUE_BITS) - 1):
+                    return (w & ((1 << _VALUE_BITS) - 1)) - 1
+        return -1
+
+    mine = {}
+    pending, started = [], 0
+    while started < n_tiles or pending:
+        if started < n_tiles and (not pending or rng.random() < 0.4):
+            t = started
+            started += 1
+            state[0] += 1
+            m = np.full(threads, -1)
+            for th in range(threads):
+                rows = [r for r in range(t * tile + th * items, t * tile + th * items + items)
+                        if r < n and active[r]]
+                m[th] = rows[-1] if rows else -1
+            mine[t] = m
+            status[t] = word(_PREFIX if t == 0 else _AGG, int(m.max()) + 1)
+            pending.append(t)
+            continue
+        t = pending[rng.integers(len(pending))]
+        before_tile = -1 if t == 0 else look_back(t)
+        if before_tile is None:
+            continue
+        pending.remove(t)
+        m = mine[t]
+        if t > 0:
+            status[t] = word(_PREFIX, max(int(m.max()), before_tile) + 1)
+        bad, groups = False, 0
+        for th in range(threads):
+            before_me = int(m[:th].max()) if th else -1
+            prev = before_me if before_me >= 0 else before_tile
+            for r in range(t * tile + th * items, min(t * tile + th * items + items, n)):
+                if not active[r]:
+                    continue
+                ng = prev < 0 or k[0][r] != k[0][prev]
+                bad |= prev >= 0 and k[0][r] < k[0][prev]
+                bad |= prev >= 0 and not ng and any(kc[r] != kc[prev] for kc in k[1:])
+                new_group[r] = ng
+                groups += ng
+                prev = r
+        state[1] += groups
+        state[2] += bad
+        state[3] += 1
+    out = (new_group, int(state[1]), bool(state[2]))
+    state[:4] = 0  # the last block's reset
+    return out
+
+
+def _presorted_model(state_epoch, key_cols, active, rng, tile=256):
+    state, epoch = state_epoch
+    limit = HK.PRESORTED_MAX_KEYS
+    keys = [(d.numpy(), v.numpy()) for d, v in key_cols]
+    sets = [keys[:limit]] + [[keys[0]] + keys[j:j + limit - 1]
+                             for j in range(limit, len(keys), limit - 1)]
+    assert len(sets) == HK.presorted_launches(len(keys))
+    new_group, groups, violated = None, 0, False
+    for i, ks in enumerate(sets):
+        ng, g, v = _presorted_launch(state, epoch + i, ks, active.numpy(), tile, rng)
+        if i == 0:
+            new_group, groups = ng, g
+        violated |= v
+    state_epoch[1] = epoch + len(sets)
+    return new_group, groups, violated
+
+
+@pytest.mark.parametrize("name", PRESORTED_CASES)
+def test_presorted_plan_matches_presorted_group_plain(name):
+    """The kernel's plan in numpy, over one state buffer kept across calls
+    (this case's page, then a third of it: the second call's look-backs
+    meet words of the first's epoch and wait for their own), against
+    ``presorted_group_plain``."""
+    state_epoch = [np.zeros(4 + 64, dtype=np.uint64), 1]
+    cols, active = _presorted_case(name, seed=len(name))
+    symbols, _, ppage = _pages(cols, active)
+    keys = [(c.data, c.valid) for s, c in zip(symbols, ppage.columns) if s.startswith("k")]
+    act = ppage.active
+    rng = np.random.default_rng(len(name))
+    for ks, a in ((keys, act), ([(d[: N // 3], v[: N // 3]) for d, v in keys], act[: N // 3])):
+        want = HK.presorted_group_plain(ks, a)
+        got = _presorted_model(state_epoch, ks, a, rng)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        assert got[1] == int(want[1]) and got[2] == bool(want[2])
+
+
+def test_presorted_state_is_kept_per_stream_and_renewed():
+    """A stream's state buffer is reused while it holds the tiles and its
+    epochs last, and each launch takes the next epoch; a larger call, the
+    last epochs and another stream take a new zeroed buffer."""
+    dev = torch.device("cpu")
+    HK._PRESORTED_STATES.clear()
+    try:
+        buf, e = HK._presorted_state(dev, 7, 10, 1)
+        assert e == 1 and buf.shape[0] >= 4 + 10 and not bool(buf.any())
+        buf2, e2 = HK._presorted_state(dev, 7, 10, 2)
+        assert buf2 is buf and e2 == 2
+        assert HK._presorted_state(dev, 7, 5, 1) == (buf, 4)
+        other, e3 = HK._presorted_state(dev, 8, 10, 1)
+        assert other is not buf and e3 == 1
+        big, e4 = HK._presorted_state(dev, 7, buf.shape[0], 1)
+        assert big is not buf and e4 == 1
+        HK._PRESORTED_STATES[(None, 7)].epoch = HK._PRESORTED_MAX_EPOCH - 1
+        again, e5 = HK._presorted_state(dev, 7, 10, 2)
+        assert again is not big and e5 == 1
+        assert HK.presorted_launches(8) == 1 and HK.presorted_launches(9) == 2
+        assert HK.presorted_launches(15) == 2 and HK.presorted_launches(16) == 3
+    finally:
+        HK._PRESORTED_STATES.clear()
 
 
 def test_presorted_group_raises_on_what_the_kernel_does_not_take():

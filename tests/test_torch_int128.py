@@ -3,8 +3,8 @@ reference: each function of ``trino_tpu_torch/ops/int128.py`` against
 ``trino_tpu/ops/int128.py`` on the same limbs (random 128-bit values, the
 int64 edges, and values near zero), bit for bit; then long-decimal SQL
 (VALUES and literals, casts both ways, comparisons, ``+ - *``, negation,
-``sum``/``avg`` through the limb decomposition, ORDER BY) through both
-engines at TPC-H SF0.01, rows identical.
+``sum``/``avg`` through the limb decomposition, ``min``/``max``, ORDER BY)
+through both engines at TPC-H SF0.01, rows identical.
 """
 
 import numpy as np
@@ -149,10 +149,9 @@ def test_long_decimal_payload_matches_reference(case, fusion, runners):
 
 @pytest.mark.parametrize("fn", ["min", "max"])
 def test_long_decimal_min_max_raise_naming_int128(fn, runners):
-    """The reference's hi-then-tied-lo reduction is not ported: a named
-    refusal, not a shape error from the reduction."""
-    _, p = runners
+    """The reference's hi-then-tied-lo reduction, once refused by name
+    (``ops.int128``), now runs: the port's rows are the reference's."""
+    r, p = runners
     sql = (f"SELECT l_returnflag, {fn}(CAST(l_extendedprice AS DECIMAL(30,2))) "
-           "FROM lineitem GROUP BY l_returnflag")
-    with pytest.raises(NotImplementedError, match=r"ops\.int128"):
-        p.execute(sql)
+           "FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag")
+    assert_same_rows(p.execute(sql), r.execute(sql))

@@ -873,3 +873,108 @@ def test_presorted_join_aggregation_on_nine_group_keys(tpch_runners):
     assert PMK.LAUNCHES["aggregate"] == 1 and PMK.LAUNCHES["group_sort"] == 0
     assert PMK.STAGES["aggregate_torch"] == 0
     assert got == ref.execute(sql).rows
+
+
+# --------------------------------------------------------------------------- #
+# a long decimal's min and max: the tied request and the int128 output
+# --------------------------------------------------------------------------- #
+
+
+def _long_extremes_case(seed=21, n=6000, groups=40):
+    """Rows of ``groups`` groups (sorted), long decimals as Python integers
+    (hi limbs in [-3, 3): many ties on hi, negatives, lo limbs over all 64
+    bits), about a fifth NULL, every seventh group's rows all NULL, groups
+    5 and 6 without rows, some rows inactive."""
+    from trino_tpu_torch.ops import int128
+
+    rng = np.random.default_rng(seed)
+    gid = np.sort(rng.integers(0, groups, n))
+    gid[(gid == 5) | (gid == 6)] = 4
+    vals = [int(h) * 2**64 + int(lo) for h, lo in zip(rng.integers(-3, 3, n),
+                                                     rng.integers(0, 2**63, n) * 2
+                                                     + rng.integers(0, 2, n))]
+    valid = (rng.random(n) < 0.8) & (gid % 7 != 3)
+    active = rng.random(n) < 0.95
+    limbs = torch.from_numpy(int128.np_from_ints(vals))
+    h, ulo = int128.order_key_pair(limbs)
+    return gid, vals, valid, active, h.contiguous(), ulo
+
+
+def _long_extremes_requests(h, ulo, valid):
+    R, O = HK.AggRequest, HK.AggOutput
+    reqs = [R("count", valid=valid), R("min", h, valid),
+            R("tied", ulo, valid, values2=h, ref=1), R("max", h, valid),
+            R("tied", ulo, valid, values2=h, ref=3)]
+    outs = [O("int128", (1, 2, 0), torch.int64), O("int128", (3, 4, 0), torch.int64)]
+    return reqs, outs
+
+
+def _python_extremes(gid, vals, valid, active, slots):
+    """Per slot (min, max) of the weighted rows as Python integers, None
+    where a slot has none."""
+    out = []
+    for g in range(slots):
+        xs = [v for v, gg, ok, a in zip(vals, gid, valid, active) if gg == g and ok and a]
+        out.append((min(xs), max(xs)) if xs else (None, None))
+    return out
+
+
+@pytest.mark.parametrize("path", ["sort", "direct"])
+def test_tied_request_matches_python_integers(path):
+    """``min``/``max`` over a long decimal as the executor plans them (the
+    hi limb's extreme, the ``tied`` lo limb in unsigned order, an
+    ``int128`` output): ``segment_agg``'s and ``segment_agg_direct``'s
+    plain versions against Python integers, over ties on hi, negative
+    values, lo limbs past 2^63, NULL rows, groups whose rows are all NULL
+    and groups with no rows."""
+    from trino_tpu_torch.ops import int128
+
+    gid, vals, valid_np, active_np, h, ulo = _long_extremes_case()
+    valid, active = torch.from_numpy(valid_np), torch.from_numpy(active_np)
+    reqs, outs = _long_extremes_requests(h, ulo, valid)
+    groups = 40
+    if path == "sort":
+        new_group = torch.from_numpy(np.r_[True, gid[1:] != gid[:-1]])
+        num_groups = new_group.sum()
+        slots = int(num_groups)
+        _, exists, _, res, _ = HK.segment_agg(new_group, num_groups, slots + 8, active, [],
+                                              reqs, outs)
+        present = sorted(set(gid.tolist()))
+        want = _python_extremes(np.searchsorted(present, gid), vals, valid_np, active_np, slots)
+    else:
+        key = torch.from_numpy(gid.astype(np.int32))
+        _, _, res = HK.segment_agg_direct([(key, torch.ones_like(valid))], [groups + 1], active,
+                                          reqs, outs)
+        slots = groups
+        want = _python_extremes(gid, vals, valid_np, active_np, slots)
+    assert any(w == (None, None) for w in want) and sum(w[0] is not None for w in want) > 20
+    for j, (data, ok) in enumerate(res):
+        assert data.shape[1:] == (2,) and data.dtype == torch.int64
+        got = int128.np_to_ints(data[:slots].numpy())
+        for g in range(slots):
+            w = want[g][j]
+            assert bool(ok[g]) == (w is not None), (j, g)
+            if w is not None:
+                assert (got[g] + 2**127) % 2**128 - 2**127 == w, (j, g)
+
+
+def test_tied_request_is_checked():
+    """A tied request reads an earlier int64 min or max whose values are its
+    values2; an int128 output reads that extreme, its tied request and a
+    count."""
+    _, _, valid_np, active_np, h, ulo = _long_extremes_case(n=64, groups=4)
+    valid, active = torch.from_numpy(valid_np), torch.from_numpy(active_np)
+    new_group = torch.zeros(64, dtype=torch.bool)
+    new_group[0] = True
+    R, O = HK.AggRequest, HK.AggOutput
+    reqs, outs = _long_extremes_requests(h, ulo, valid)
+    HK.segment_agg(new_group, new_group.sum(), 4, active, [], reqs, outs)
+    for bad in (R("tied", ulo, valid, values2=h, ref=0),
+                R("tied", ulo, valid, values2=ulo, ref=1),
+                R("tied", ulo, valid, ref=1)):
+        with pytest.raises(ValueError, match="tied"):
+            HK.segment_agg(new_group, new_group.sum(), 4, active, [],
+                           reqs[:2] + [bad], outs[:1])
+    with pytest.raises(ValueError, match="int128"):
+        HK.segment_agg(new_group, new_group.sum(), 4, active, [], reqs,
+                       [O("int128", (1, 0, 2), torch.int64)])

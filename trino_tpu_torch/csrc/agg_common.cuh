@@ -18,12 +18,32 @@ constexpr int kMaxAggRequests = 32;
 constexpr int kMaxAggOutputs = 24;
 constexpr int kMaxAggReads = 6;
 
-// Reduction kinds (hopper_kernels._AGG_KINDS).
+// Reduction kinds (hopper_kernels._AGG_KINDS): wrapping int64 sums,
+// float64 sums, integer and float min and max, the last weighted row, a
+// count, bitwise AND, OR and XOR, a checksum, min_by/max_by's row
+// (kMatchLast: the last weighted row whose order key is its ref's extreme)
+// and a long decimal's tied lo limb (kTied: the min, or the max, as its
+// ref is a min or a max, of its values among the weighted rows whose
+// values2 is its ref's extreme). kMatchLast and kTied read their ref's
+// result, so they are served in a second round.
 enum AggKind : int {
   kSumInt = 0, kSumFloat = 1, kMinInt = 2, kMaxInt = 3, kMinFloat = 4, kMaxFloat = 5,
   kLastRow = 6, kCount = 7, kBitAnd = 8, kBitOr = 9, kBitXor = 10, kChecksum = 11,
-  kMatchLast = 12,
+  kMatchLast = 12, kTied = 13,
 };
+
+// Whether a request of this kind reads its ref's result (a second round).
+__host__ __device__ __forceinline__ bool second_round(int kind) {
+  return kind == kMatchLast || kind == kTied;
+}
+
+// The reduction of a request's contributions: its kind, but a kTied
+// request's is its ref's min or max, which its identity tells (INT64_MAX:
+// a min).
+__host__ __device__ __forceinline__ int combine_kind(int kind, int64_t identity) {
+  if (kind != kTied) return kind;
+  return identity == INT64_MAX ? kMinInt : kMaxInt;
+}
 // Predicates on the value that narrow a request's weight.
 enum AggPred : int { kPredNone = 0, kPredNonZero = 1, kPredZero = 2 };
 // Per-row transforms (hopper_kernels._AGG_TRANSFORMS).
@@ -39,7 +59,8 @@ struct AggRequest {
   const bool* valid;         // null: every value valid (kChecksum: not in the weight)
   const bool* filter;        // null: no filter
   const bool* filter_valid;
-  const void* values2;       // kSumFloat: a second factor (null: none)
+  const void* values2;       // kSumFloat: a second factor (null: none); kTied: the
+                             // ref's values, compared with the ref's extreme
   const bool* valid2;        // null: no second validity in the weight
   const int64_t* lut;        // kChecksum: dictionary code -> value key (null: none)
   double inv_divisor;        // kSumFloat: each value times the reciprocal of its
@@ -47,7 +68,7 @@ struct AggRequest {
   double inv_divisor2;       // the same for values2
   int64_t identity;          // bits of the empty reduction
   int32_t lut_len;
-  int32_t ref;               // kMatchLast: the request whose extreme it matches
+  int32_t ref;               // kMatchLast, kTied: the request whose extreme it reads
   int8_t type;               // KeyType of values
   int8_t type2;              // KeyType of values2
   int8_t kind;
@@ -66,8 +87,8 @@ struct AggRequestSet {
 // What the finish pass reads of the requests (a smaller kernel parameter).
 struct AggCombine {
   int64_t identity[kMaxAggRequests];
-  int kind[kMaxAggRequests];
-  int ref[kMaxAggRequests];  // kMatchLast: the request whose extreme it matches
+  int kind[kMaxAggRequests];  // combine_kind of each request
+  int ref[kMaxAggRequests];   // kMatchLast, kTied: the request whose extreme it reads
   int n;
 };
 
@@ -78,7 +99,7 @@ enum AggOp : int {
   kCovarSamp = 11, kCorr = 12, kRegrSlope = 13, kRegrIntercept = 14, kRegrAvgx = 15,
   kRegrAvgy = 16, kRegrSxx = 17, kRegrSyy = 18, kRegrSxy = 19, kRegrR2 = 20,
   kSkewness = 21, kKurtosis = 22, kGeometricMean = 23, kEntropy = 24, kPercentile = 25,
-  kDigest = 26,
+  kDigest = 26, kInt128 = 27,
 };
 
 // The centroids of a digest output (spi/types.py TDIGEST_CENTROIDS): each
@@ -183,7 +204,8 @@ __device__ __forceinline__ double clamp_min(double v, double lo) {
   return v != v ? v : fmax(v, lo);
 }
 
-// A request kind as a type: the kernels' loops are specialised on it.
+// A request kind as a type: the kernels' loops are specialised on it (a
+// kTied request's on its combine_kind).
 template <int K>
 struct KindTag {
   static constexpr int kind = K;
@@ -323,7 +345,7 @@ __device__ __forceinline__ uint64_t checksum_term(const AggRequest& q, int64_t c
   return splitmix64(static_cast<uint64_t>(v));
 }
 
-// Row i's contribution to request q of kind KIND (not kMatchLast): its
+// Row i's contribution to request q of kind KIND (not kMatchLast or kTied): its
 // value (or 1, or its index) where the row is weighted, the identity
 // elsewhere. The value is read beside the weight, not after it.
 template <int KIND>
@@ -377,7 +399,7 @@ __device__ __forceinline__ uint64_t raw_order_key(uint64_t raw, bool f) {
   return f ? static_cast<uint64_t>(hopper::float_order_key(as_double(raw))) : raw;
 }
 
-// The contributions c of request q (not kMatchLast) over R rows, row(j)
+// The contributions c of request q (not kMatchLast or kTied) over R rows, row(j)
 // the index of row j, whose raw values x the caller read (load_raw_row's
 // form; 0 for a count without values): w the rows' weight bits before the
 // predicate, not_null a checksum's bits where its value is not NULL, and
@@ -488,6 +510,10 @@ __device__ __forceinline__ void copy_bytes(const void* src, int64_t from, void* 
     case 1: static_cast<uint8_t*>(dst)[to] = static_cast<const uint8_t*>(src)[from]; break;
     case 2: static_cast<uint16_t*>(dst)[to] = static_cast<const uint16_t*>(src)[from]; break;
     case 4: static_cast<uint32_t*>(dst)[to] = static_cast<const uint32_t*>(src)[from]; break;
+    case 16:  // a long decimal's two limbs
+      static_cast<uint64_t*>(dst)[2 * to] = static_cast<const uint64_t*>(src)[2 * from];
+      static_cast<uint64_t*>(dst)[2 * to + 1] = static_cast<const uint64_t*>(src)[2 * from + 1];
+      break;
     default: static_cast<uint64_t*>(dst)[to] = static_cast<const uint64_t*>(src)[from]; break;
   }
 }
@@ -639,6 +665,14 @@ __device__ __forceinline__ void finish_output(const AggOutput& out, const uint64
                                               int64_t g, int64_t n, int64_t start) {
   const uint64_t a = v[out.reads[0]];
   if (out.op == hopper::kDigest) return;
+  if (out.op == hopper::kInt128) {
+    // the hi extreme, then the tied lo back from its unsigned order
+    int64_t* d = static_cast<int64_t*>(out.data);
+    d[2 * g] = static_cast<int64_t>(a);
+    d[2 * g + 1] = static_cast<int64_t>(v[out.reads[1]] ^ 0x8000000000000000ull);
+    out.valid[g] = static_cast<int64_t>(v[out.reads[2]]) > 0;
+    return;
+  }
   if (out.op == hopper::kPercentile) {
     finish_percentile(out, static_cast<int64_t>(a), static_cast<int64_t>(v[out.reads[1]]), g,
                       n, start);

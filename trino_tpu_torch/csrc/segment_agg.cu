@@ -31,8 +31,11 @@
 //   of each row's splitmix64(order key), through a dictionary's value-key
 //   LUT, a constant for a NULL row); the last weighted row's index
 //   (arbitrary's row); the last weighted row whose order key is the
-//   group's extreme of an earlier request (min_by/max_by's row). An empty
-//   group holds the request's identity.
+//   group's extreme of an earlier request (min_by/max_by's row); the min
+//   (or max) of a long decimal's lo limb in unsigned order among the
+//   weighted rows whose hi limb is the group's extreme of an earlier min
+//   (or max) request (the tied lo limb). An empty group holds the
+//   request's identity.
 //   group_exists[g] = g < num_groups; each key at min(starts[g], n - 1),
 //   its validity & group_exists; each output finished as
 //   executor._eval_aggregate finishes it (agg_common.cuh's finish_output:
@@ -114,10 +117,11 @@
 //   computes it on the card; every product, sum and quotient of a
 //   finishing is rounded on its own (no contraction into a fused
 //   multiply-add), as torch's one-operation kernels round them.
-// A min_by/max_by request (kMatchLast) reads its group's extreme, so its
-// rows are served by a second round: after the first reduce and span, a
+// A min_by/max_by request (kMatchLast) and a long decimal's tied lo limb
+// (kTied) read their group's extreme of an earlier request, so their rows
+// are served by a second round: after the first reduce and span, a
 // resolve pass (one thread a slot) writes each group's extreme, then a
-// second reduce and span serve the match requests alone (eight launches).
+// second reduce and span serve those requests alone (eight launches).
 // A digest output adds one launch after the finish: one block a slot finds
 // the 64 bucket boundaries among the group's participants by binary search
 // (the bucket never decreases with the rank), then each warp sums its
@@ -295,9 +299,10 @@ agg_scan_kernel(const int64_t* __restrict__ heads, int64_t n_tiles, int64_t* __r
 }
 
 // Whether request kind ``kind`` is served in round ``phase`` (1: the
-// min_by/max_by rows, which read the first round's extremes).
+// min_by/max_by rows and the tied lo limbs, which read the first round's
+// extremes).
 __device__ __forceinline__ bool in_phase(int kind, int phase) {
-  return (kind == hopper::kMatchLast) == (phase == 1);
+  return hopper::second_round(kind) == (phase == 1);
 }
 
 // The thread's 8 rows of a column of S-byte elements as S 64-bit words
@@ -415,20 +420,19 @@ __device__ __forceinline__ uint32_t weight_bits(const TilePlan& plan, int r,
   return w;
 }
 
-// Phase A's contributions of request q over the thread's rows (rows past n
-// and unweighted rows hold the identity) from its raw values x (read with
-// wide loads; contribs may overwrite them): contribs, or for a
-// min_by/max_by row its order key against its group's extreme. For a
-// float sum, the largest high word (sign cleared) of its doubles.
-__device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
-                                                uint32_t not_null, uint32_t h, int64_t r0,
-                                                int64_t n, int64_t g0, int64_t out_cap,
+// The second round's contributions of request q over the thread's rows
+// (x its raw values): for a min_by/max_by row its order key against its
+// group's extreme, for a tied request its value where its values2 is its
+// group's extreme; the identity elsewhere.
+__device__ __forceinline__ void second_contribs(const AggRequest& q, uint32_t w, uint32_t h,
+                                                int64_t r0, int64_t n, int64_t g0,
+                                                int64_t out_cap,
                                                 const uint64_t* __restrict__ ext,
-                                                uint64_t (&x)[kSegItems],
-                                                uint64_t (&c)[kSegItems], uint32_t* top) {
+                                                const uint64_t (&x)[kSegItems],
+                                                uint64_t (&c)[kSegItems]) {
+  const uint64_t ident = static_cast<uint64_t>(q.identity);
   if (q.kind == hopper::kMatchLast) {
     const bool f = is_float_type(q.type);
-    const uint64_t ident = static_cast<uint64_t>(q.identity);
     int64_t gj = g0;
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
@@ -438,17 +442,44 @@ __device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
     }
     return;
   }
-  contribs<kSegItems>(
-      q, w, not_null, x, [&](int j) { return r0 + j; },
-      [&](uint64_t (&x2)[kSegItems]) { load_raw(q.type2, q.values2, r0, n, x2); }, c);
-  if (q.kind == hopper::kSumFloat) {
-    uint32_t m = 0;
+  uint64_t x2[kSegItems];  // kTied: the ref's values
+  load_raw(q.type2, q.values2, r0, n, x2);
+  int64_t gj = g0;
 #pragma unroll
-    for (int j = 0; j < kSegItems; ++j) {
-      const uint32_t hi = static_cast<uint32_t>(c[j] >> 32) & 0x7fffffffu;
-      m = hi > m ? hi : m;
+  for (int j = 0; j < kSegItems; ++j) {
+    gj += h >> j & 1u;
+    c[j] = (w >> j & 1u) && gj >= 0 && gj < out_cap && x2[j] == ext[gj] ? x[j] : ident;
+  }
+}
+
+// Phase A's contributions of request q over the thread's rows (rows past n
+// and unweighted rows hold the identity) from its raw values x (read with
+// wide loads; contribs may overwrite them): contribs in the first round,
+// second_contribs in the second (each round's kernel holds only its own
+// code). For a float sum, the largest high word (sign cleared) of its
+// doubles.
+template <int PHASE>
+__device__ __forceinline__ void thread_contribs(const AggRequest& q, uint32_t w,
+                                                uint32_t not_null, uint32_t h, int64_t r0,
+                                                int64_t n, int64_t g0, int64_t out_cap,
+                                                const uint64_t* __restrict__ ext,
+                                                uint64_t (&x)[kSegItems],
+                                                uint64_t (&c)[kSegItems], uint32_t* top) {
+  if constexpr (PHASE == 1) {
+    second_contribs(q, w, h, r0, n, g0, out_cap, ext, x, c);
+  } else {
+    contribs<kSegItems>(
+        q, w, not_null, x, [&](int j) { return r0 + j; },
+        [&](uint64_t (&x2)[kSegItems]) { load_raw(q.type2, q.values2, r0, n, x2); }, c);
+    if (q.kind == hopper::kSumFloat) {
+      uint32_t m = 0;
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) {
+        const uint32_t hi = static_cast<uint32_t>(c[j] >> 32) & 0x7fffffffu;
+        m = hi > m ? hi : m;
+      }
+      *top = m;
     }
-    *top = m;
   }
 }
 
@@ -534,8 +565,9 @@ __device__ __forceinline__ uint64_t carry_scan(uint64_t* run_col, const uint8_t*
 // requests in batches (phases A, B and C above): complete groups into res,
 // the tile's head and tail partials, and each float sum's largest high
 // word of its doubles over the tile into tiletop.
+template <int PHASE>
 __global__ void __launch_bounds__(kThreads)
-agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
+agg_reduce_kernel(AggRequestSet reqs, TilePlan plan,
                   const bool* __restrict__ new_group, int64_t n, int64_t out_cap,
                   int64_t n_tiles, const int64_t* __restrict__ base,
                   int64_t* __restrict__ starts, uint64_t* __restrict__ res,
@@ -551,15 +583,15 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
   const int64_t tile = blockIdx.x;
   const int64_t t0 = tile * kSegRows;
   const int64_t r0 = t0 + static_cast<int64_t>(threadIdx.x) * kSegItems;
-  const int first = phase == 0 ? 0 : plan.n_round[0];
-  const int count = plan.n_round[phase];
+  const int first = PHASE == 0 ? 0 : plan.n_round[0];
+  const int count = plan.n_round[PHASE];
   const uint32_t h = load_bits(new_group, r0, n);
   const int nh = __popc(h);
   int64_t tile_heads;
   const int64_t excl = block_exclusive(nh, &tile_heads);
   const int64_t b = base[tile];
   const int64_t g0 = b + excl - 1;  // group of this thread's first row (-1: none yet)
-  if (phase == 0) {
+  if (PHASE == 0) {
     int64_t g = g0;
 #pragma unroll
     for (int j = 0; j < kSegItems; ++j) {
@@ -568,7 +600,7 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
   }
   seen_s[threadIdx.x] = nh > 0;
   for (int k = 0; k < plan.n_cols; ++k) {
-    if (plan.round_cols[phase] >> k & 1u) mask_s[k][threadIdx.x] = load_bits(plan.col[k], r0, n);
+    if (plan.round_cols[PHASE] >> k & 1u) mask_s[k][threadIdx.x] = load_bits(plan.col[k], r0, n);
   }
   const uint32_t inrange =
       r0 >= n ? 0u : (n - r0 >= kSegItems ? 0xffu : (1u << (n - r0)) - 1u);
@@ -587,13 +619,14 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
         for (int j = 0; j < kSegItems; ++j) x[j] = 0;
       }
       uint32_t top = 0;
-      thread_contribs(q, w, not_null, h, r0, n, g0, out_cap, extremes + r * out_cap, x, c, &top);
+      thread_contribs<PHASE>(q, w, not_null, h, r0, n, g0, out_cap, extremes + r * out_cap, x, c,
+                             &top);
       if (q.kind == hopper::kSumFloat) {
         top = __reduce_max_sync(0xffffffffu, top);
         if (lane == 0) top_s[bi][warp] = top;
       }
       uint64_t before, run;
-      with_kind(q.kind, [&](auto tag) {
+      with_kind(PHASE == 0 ? q.kind : hopper::combine_kind(q.kind, q.identity), [&](auto tag) {
         thread_runs<decltype(tag)::kind>(c, static_cast<uint64_t>(q.identity), h, g0, out_cap,
                                          res + r * out_cap, &before, &run);
       });
@@ -605,7 +638,7 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
       const int r = plan.order[first + k0 + warp];
       const AggRequest& q = reqs.req[r];
       uint64_t incl = 0;
-      with_kind(q.kind, [&](auto tag) {
+      with_kind(PHASE == 0 ? q.kind : hopper::combine_kind(q.kind, q.identity), [&](auto tag) {
         incl = carry_scan<decltype(tag)::kind>(run_s[warp], seen_s,
                                                static_cast<uint64_t>(q.identity));
       });
@@ -627,7 +660,8 @@ agg_reduce_kernel(AggRequestSet reqs, TilePlan plan, int phase,
         // the group that ends at this thread's first head: complete if its
         // head lies in this tile, else the tile's head partial
         const int r = plan.order[first + k0 + bi];
-        const uint64_t total = combine(reqs.req[r].kind,
+        const uint64_t total = combine(hopper::combine_kind(reqs.req[r].kind,
+                                                            reqs.req[r].identity),
                                        run_s[bi][threadIdx.x + (threadIdx.x >> 3)],
                                        before_s[bi][threadIdx.x]);
         if (g0 >= b) {
@@ -840,7 +874,7 @@ agg_span_kernel(AggRequestSet reqs, const bool* __restrict__ active, int phase,
   const int kind = q.kind;
   if (!in_phase(kind, phase)) return;  // the other round's request
   const int64_t off = static_cast<int64_t>(r) * n_tiles;
-  with_kind(kind, [&](auto tag) {
+  with_kind(hopper::combine_kind(kind, q.identity), [&](auto tag) {
     span_scan<decltype(tag)::kind>(static_cast<uint64_t>(q.identity), head + off, hs + off,
                                    base, n_tiles, incl);
   });
@@ -870,8 +904,9 @@ agg_span_kernel(AggRequestSet reqs, const bool* __restrict__ active, int phase,
 }
 
 
-// One thread a slot: each min_by/max_by request's extreme (its ref's value)
-// for the second round.
+// One thread a slot: each second-round request's extreme (its ref's value:
+// min_by/max_by's order key, a tied request's hi limb) for the second
+// round.
 __global__ void __launch_bounds__(kThreads)
 agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
                    const int64_t* __restrict__ base, const int64_t* __restrict__ starts,
@@ -883,7 +918,7 @@ agg_resolve_kernel(AggCombine reqs, int64_t n, int64_t out_cap, int64_t n_tiles,
        g += stride) {
     const SlotSpan sp = slot_span(g, total, n, starts);
     for (int r = 0; r < reqs.n; ++r) {
-      if (reqs.kind[r] != hopper::kMatchLast) continue;
+      if (reqs.ref[r] < 0) continue;
       extremes[r * out_cap + g] =
           slot_value(reqs, reqs.ref[r], g, sp, out_cap, n_tiles, res, hs, tail);
     }
@@ -929,7 +964,12 @@ agg_finish_kernel(AggCombine reqs, AggOutputSet outs, GroupKeySet keys, int64_t 
       for (int o = 0; o < outs.n; ++o) {
         const AggOutput& out = outs.out[o];
         if (out.op == hopper::kDigest) continue;  // the digest pass writes it
-        store_value(out.data, out.out_type, g, 0ull, false);
+        if (out.op == hopper::kInt128) {
+          static_cast<int64_t*>(out.data)[2 * g] = 0;
+          static_cast<int64_t*>(out.data)[2 * g + 1] = 0;
+        } else {
+          store_value(out.data, out.out_type, g, 0ull, false);
+        }
         out.valid[g] = false;
       }
       continue;
@@ -1051,7 +1091,8 @@ extern "C" int64_t segment_agg_stream_ops() { return g_agg_stream_ops.load(); }
 // Words of segment_agg's ``partials`` for ``nr`` requests: each request's
 // complete groups (out_cap), head partials, their scan, tail partials and
 // largest high words (n_tiles each), whether it followed the plain cumsum,
-// then with a min_by/max_by request (``match``) its extremes (out_cap).
+// then with a min_by/max_by or tied request (``match``) its extremes
+// (out_cap).
 extern "C" int64_t segment_agg_partial_words(int nr, int64_t n, int64_t out_cap, int match) {
   const int64_t n_tiles = (n + kSegRows - 1) / kSegRows;
   return static_cast<int64_t>(nr) * (out_cap + 4 * n_tiles + 1 + (match ? out_cap : 0));
@@ -1078,7 +1119,7 @@ static bool tile_plan(const hopper::AggRequestSet* reqs, const bool* active, Til
   for (int round = 0; round < 2; ++round) {
     for (int r = 0; r < reqs->n; ++r) {
       const hopper::AggRequest& q = reqs->req[r];
-      if ((q.kind == hopper::kMatchLast) != (round == 1)) continue;
+      if (hopper::second_round(q.kind) != (round == 1)) continue;
       plan.order[at++] = static_cast<int8_t>(r);
       ++plan.n_round[round];
       const bool checksum = q.kind == hopper::kChecksum;
@@ -1144,9 +1185,9 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
   bool match = false;
   for (int r = 0; r < reqs->n; ++r) {
     comb.identity[r] = reqs->req[r].identity;
-    comb.kind[r] = reqs->req[r].kind;
-    comb.ref[r] = reqs->req[r].ref;
-    match = match || reqs->req[r].kind == hopper::kMatchLast;
+    comb.kind[r] = hopper::combine_kind(reqs->req[r].kind, reqs->req[r].identity);
+    comb.ref[r] = hopper::second_round(reqs->req[r].kind) ? reqs->req[r].ref : -1;
+    match = match || hopper::second_round(reqs->req[r].kind);
   }
   mark(events, 0, s);
   agg_count_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(ng, n, heads);
@@ -1165,9 +1206,13 @@ extern "C" int segment_agg(const hopper::AggRequestSet* reqs, const hopper::AggO
       ++g_agg_stream_ops;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
-    agg_reduce_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-        *reqs, plan, phase, ng, n, out_cap, n_tiles, base, st, res, head, tail, tiletop,
-        extremes);
+    if (phase == 0) {
+      agg_reduce_kernel<0><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+          *reqs, plan, ng, n, out_cap, n_tiles, base, st, res, head, tail, tiletop, extremes);
+    } else {
+      agg_reduce_kernel<1><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+          *reqs, plan, ng, n, out_cap, n_tiles, base, st, res, head, tail, tiletop, extremes);
+    }
     ++g_agg_stream_ops;
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if (phase == 0) mark(events, 3, s);

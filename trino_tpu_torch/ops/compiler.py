@@ -475,8 +475,8 @@ class _Compiler:
         return lambda env: convert(inner(env))
 
     def _compile_long_call(self, expr: Call, arg_fns) -> Compiled:
-        """Comparisons, ``+ - *`` and negation where an operand or the
-        result is DECIMAL(p>18): limb arithmetic (``ops/int128.py``); a
+        """Comparisons, ``+ - *``, negation and ``abs`` where an operand or
+        the result is DECIMAL(p>18): limb arithmetic (``ops/int128.py``); a
         short operand is sign-extended (the planner gives both the same
         scale)."""
         name = expr.name
@@ -485,13 +485,15 @@ class _Compiler:
         def widen(v: CVal, is_long: bool) -> torch.Tensor:
             return v.data if is_long else i128.from_int64(v.data)
 
-        if name == "$negate":
+        unary = {"$negate": i128.negate, "abs": i128.abs_}  # the reference's _lane_aware_*
+        if name in unary:
+            fn = unary[name]
 
-            def negate_fn(env: Env) -> CVal:
+            def unary_fn(env: Env) -> CVal:
                 v = arg_fns[0](env)
-                return CVal(i128.negate(widen(v, longs[0])), v.valid)
+                return CVal(fn(widen(v, longs[0])), v.valid)
 
-            return negate_fn
+            return unary_fn
         ops = {
             "$eq": i128.eq, "$ne": lambda a, b: ~i128.eq(a, b), "$lt": i128.lt,
             "$lte": i128.lte, "$gt": lambda a, b: i128.lt(b, a),

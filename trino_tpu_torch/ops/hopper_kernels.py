@@ -218,8 +218,14 @@ def bind(path: Path):
     for name in ("expr_program", "expr_program_blocks_per_sm"):
         getattr(lib, name).restype = i32
     lib.presorted_group.argtypes = (
-        [ctypes.POINTER(_PresortKey), i32] + [ptr] * 2 + [i64] + [ptr] * 4)
+        [ctypes.POINTER(_PresortKey), i32, ptr, i64, ptr, i64] + [ptr] * 4)
     lib.presorted_group.restype = i32
+    for name, want in (("presorted_group_max_epoch", _PRESORTED_MAX_EPOCH),
+                       ("presorted_group_max_rows", _PRESORTED_MAX_ROWS)):
+        fn = getattr(lib, name)
+        fn.restype = i64
+        if fn() != want:
+            raise RuntimeError(f"csrc and its wrapper disagree on {name}")
     lib.segment_agg_direct.argtypes = (
         [ctypes.POINTER(_AggRequestSet), ctypes.POINTER(_AggOutputSet),
          ctypes.POINTER(_DirectKeySet), ptr, i64, i32] + [ptr] * 3 + [events, ptr])
@@ -234,6 +240,7 @@ def bind(path: Path):
                        ("expr_program_max_luts", EXPR_MAX_LUTS),
                        ("presorted_group_tile_rows", PRESORTED_TILE_ROWS),
                        ("presorted_group_state_head", _PRESORTED_STATE_HEAD),
+                       ("presorted_group_max_keys", PRESORTED_MAX_KEYS),
                        ("segment_agg_direct_max_groups", DIRECT_MAX_GROUPS),
                        ("segment_agg_direct_max_keys", DIRECT_MAX_KEYS),
                        ("segment_sort_max_weights", SEGMENT_SORT_MAX_WEIGHTS),
@@ -802,13 +809,15 @@ SEGMENT_AGG_MAX_MASKS = 16
 # request kinds, finishing ops and per-row transforms (AggKind, AggOp,
 # AggTransform in csrc/agg_common.cuh)
 _AGG_KINDS = {"sum": 0, "fsum": 1, "min": 2, "max": 3, "fmin": 4, "fmax": 5, "last": 6,
-              "count": 7, "band": 8, "bor": 9, "bxor": 10, "checksum": 11, "match_last": 12}
+              "count": 7, "band": 8, "bor": 9, "bxor": 10, "checksum": 11, "match_last": 12,
+              "tied": 13}
 _AGG_OPS = {"value": 0, "avg_decimal": 1, "avg_double": 2, "bool_and": 3, "bool_or": 4,
             "first": 5, "var_pop": 6, "var_samp": 7, "stddev_pop": 8, "stddev_samp": 9,
             "covar_pop": 10, "covar_samp": 11, "corr": 12, "regr_slope": 13,
             "regr_intercept": 14, "regr_avgx": 15, "regr_avgy": 16, "regr_sxx": 17,
             "regr_syy": 18, "regr_sxy": 19, "regr_r2": 20, "skewness": 21, "kurtosis": 22,
-            "geometric_mean": 23, "entropy": 24, "percentile": 25, "digest": 26}
+            "geometric_mean": 23, "entropy": 24, "percentile": 25, "digest": 26,
+            "int128": 27}
 _AGG_PREDS = {None: 0, "nonzero": 1, "zero": 2}
 _AGG_TRANSFORMS = {None: 0, "log": 1, "clamp0": 2, "xlog2x": 3, "order_key": 4}
 _BITWISE_IDENTITY = {"band": -1, "bor": 0, "bxor": 0}
@@ -840,9 +849,14 @@ class AggRequest:
     ``splitmix64(order_key(v))``, ``v`` the value or ``lut[code]`` of a
     dictionary code, or :data:`CHECKSUM_NULL` where ``valid`` is false:
     ``valid`` is not part of its weight), ``last`` (the last weighted
-    row: ``arbitrary``'s) or ``match_last`` (the last weighted row whose
+    row: ``arbitrary``'s), ``match_last`` (the last weighted row whose
     order key equals request ``ref``'s result for its group, an
-    ``order_key`` min or max: ``min_by``/``max_by``'s row). A row is
+    ``order_key`` min or max: ``min_by``/``max_by``'s row) or ``tied``
+    (the min, or the max, as request ``ref`` is a min or a max, of the
+    int64 values among the weighted rows whose ``values2`` equals request
+    ``ref``'s result for its group, ``values2`` being ``ref``'s values: a
+    long decimal's lo limb in unsigned order among the rows tied on its hi
+    limb's extreme). A row is
     weighted where the page's activity, ``filt & filt_valid`` (an
     aggregate FILTER), ``valid``, ``valid2`` and ``pred`` on the value
     (``"nonzero"`` or ``"zero"``) all hold; None leaves a term out. A
@@ -920,6 +934,10 @@ class AggOutput:
       gathers ``values`` (:func:`segment_sort`'s sorted column, the
       participants first) at the group's start plus ``clamp(floor(q *
       max(b - 1, 0)), 0, max(b - 1, 0))``, valid where ``b`` is positive;
+    - ``int128`` reads ``(a, b, c)``: a ``min``/``max`` request ``a`` of a
+      long decimal's hi limb, the ``tied`` request ``b`` of its lo limb in
+      unsigned order, and the count ``c``; it writes the ``[slots, 2]``
+      int64 limbs ``(a, b ^ INT64_MIN)``, valid where ``c`` is positive;
     - ``digest`` reads ``(b,)``, the count of the group's participants,
       and writes a ``[slots, 2 * DIGEST_CENTROIDS]`` float64 output: from
       ``values`` (sorted with the participants first; ``values_valid`` its
@@ -964,11 +982,12 @@ def _fsum_rows(req: AggRequest, w: torch.Tensor) -> torch.Tensor:
 
 
 def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn,
-                results=(), broadcast_fn=None) -> torch.Tensor:
+                results=(), broadcast_fn=None, requests=()) -> torch.Tensor:
     """A request through the torch reductions of an aggregation path
     (``reduce_fn(vals, weight, kind)``, ``first_fn(vals, weight)`` and, for
-    a ``match_last`` request, ``broadcast_fn`` of the earlier ``results``,
-    the executor's): a ``last`` or ``match_last`` request gives the row."""
+    a ``match_last`` or ``tied`` request, ``broadcast_fn`` of the earlier
+    ``results`` of ``requests``, the executor's): a ``last`` or
+    ``match_last`` request gives the row."""
     w = req.weight(active)
     if req.kind == "count":
         return reduce_fn(w.to(torch.int64), w, "count")
@@ -995,6 +1014,13 @@ def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn,
             masked = torch.where(w, v.to(torch.int64),
                                  K.INT64_MAX if req.kind == "min" else K.INT64_MIN)
         return reduce_fn(masked, torch.ones_like(w), req.kind)
+    if req.kind == "tied":
+        # the reference's tied-lo pass: the extreme among the rows on the
+        # group's extreme of ``ref``
+        kind = requests[req.ref].kind
+        tied = w & (req.values2.to(torch.int64) == broadcast_fn(results[req.ref]))
+        sent = K.INT64_MAX if kind == "min" else K.INT64_MIN
+        return reduce_fn(torch.where(tied, v.to(torch.int64), sent), torch.ones_like(w), kind)
     rows = torch.arange(w.shape[0], dtype=torch.int64, device=w.device)
     if req.kind == "last":
         return first_fn(rows, w)
@@ -1004,10 +1030,12 @@ def run_request(req: AggRequest, active: torch.Tensor, reduce_fn, first_fn,
 
 
 def run_requests(requests, active: torch.Tensor, reduce_fn, first_fn, broadcast_fn=None):
-    """Every request in order (a ``match_last`` reads an earlier result)."""
+    """Every request in order (a ``match_last`` or ``tied`` reads an earlier
+    result)."""
     results = []
     for r in requests:
-        results.append(run_request(r, active, reduce_fn, first_fn, results, broadcast_fn))
+        results.append(run_request(r, active, reduce_fn, first_fn, results, broadcast_fn,
+                                   requests))
     return results
 
 
@@ -1140,6 +1168,8 @@ def finish_output(out: AggOutput, results, out_cap: int, starts=None, gid=None):
         return _percentile(out, r, starts)
     if out.op == "digest":
         return _digest(out, r[0], starts, gid, out_cap)
+    if out.op == "int128":
+        return torch.stack([r[0], r[1] ^ K.INT64_MIN], -1), r[2] > 0
     if out.op not in ("value", "avg_decimal", "avg_double", "bool_and", "bool_or", "first"):
         return _moments(out.op, r, out_cap)
     a = r[0]
@@ -1274,7 +1304,7 @@ def _request_plan(name: str, req: AggRequest, at: int, requests, n: int, dev):
     v = req.values
     if v is None and (kind != "count" or req.pred is not None):
         raise ValueError(f"{name}: a {kind} request needs its values")
-    if kind != "fsum" and (req.power != 1 or req.values2 is not None
+    if kind != "fsum" and (req.power != 1 or (req.values2 is not None and kind != "tied")
                            or req.transform not in (None, "order_key")):
         raise ValueError(f"{name}: powers, second operands and transforms are fsum's")
     if not 1 <= req.power <= 4:
@@ -1297,6 +1327,15 @@ def _request_plan(name: str, req: AggRequest, at: int, requests, n: int, dev):
                 and requests[req.ref].transform == "order_key"):
             raise ValueError(f"{name}: match_last reads an earlier order_key min or max")
         return _AGG_KINDS[kind], -1, False
+    if kind == "tied":
+        ref = requests[req.ref] if 0 <= req.ref < at else None
+        if (ref is None or ref.kind not in ("min", "max") or ref.transform is not None
+                or ref.values is None or ref.values.dtype != torch.int64
+                or req.values2 is None or req.values2.data_ptr() != ref.values.data_ptr()
+                or v.dtype != torch.int64 or req.transform is not None or req.pred is not None):
+            raise ValueError(f"{name}: a tied request reduces int64 values on the rows tied "
+                             "on an earlier int64 min or max, whose values are its values2")
+        return _AGG_KINDS[kind], int(K.INT64_MAX if ref.kind == "min" else K.INT64_MIN), False
     if kind in ("min", "max"):
         if req.transform == "order_key" or not (is_float or v.dtype == torch.bool):
             return _AGG_KINDS[kind], int(K.INT64_MAX if kind == "min" else K.INT64_MIN), False
@@ -1310,9 +1349,19 @@ def _request_plan(name: str, req: AggRequest, at: int, requests, n: int, dev):
 
 
 def _check_group_keys(name: str, key_cols, n: int, dev) -> None:
+    """Group keys of ``segment_agg``: 1-D columns, or a long decimal's
+    ``[n, 2]`` int64 limbs (gathered as 16-byte elements)."""
     if len(key_cols) > SEGMENT_AGG_MAX_KEYS:
         raise ValueError(f"{name}: 0 to {SEGMENT_AGG_MAX_KEYS} group keys")
-    _check_page_cols(name, key_cols, n, dev)
+    for d, v in key_cols:
+        if d.ndim == 2:
+            if (d.dtype != torch.int64 or tuple(d.shape) != (n, 2) or not d.is_contiguous()
+                    or d.device != dev):
+                raise TypeError(f"{name}: a 2-D key is a long decimal's contiguous int64 limbs")
+            _check_vectors(name, (v,), (torch.bool,))
+            if v.shape[0] != n or v.device != dev:
+                raise ValueError(f"{name}: columns must be {n} rows on {dev}")
+    _check_page_cols(name, [c for c in key_cols if c[0].ndim != 2], n, dev)
     for d, _ in key_cols:
         if d.dtype not in _KEY_TYPES:
             raise TypeError(f"{name}: unsupported key column {d.dtype}")
@@ -1349,6 +1398,12 @@ def _check_output(name: str, o: AggOutput, requests, plans, active) -> None:
             if o.values_valid is None or o.dtype != torch.float64:
                 raise TypeError(f"{name}: a digest is float64 and reads its sorted weight")
         return
+    if o.op == "int128":
+        if (kinds[1:] != ["tied", "count"] or kinds[0] not in ("min", "max")
+                or requests[reads[1]].ref != reads[0] or o.dtype != torch.int64):
+            raise ValueError(f"{name}: int128 reads a min or max, the tied request on it and "
+                             "a count into int64 limbs")
+        return
     if o.op in _MOMENT_READS:
         count, sparse = _MOMENT_READS[o.op]
         if (len(reads) != count or kinds[0] != "count" or o.dtype != torch.float64
@@ -1379,7 +1434,7 @@ def _agg_plans(name: str, requests, outputs, active: torch.Tensor, match: bool =
     that the requests and outputs are a set the aggregation kernels take
     (``match``: whether the sort path's own are: ``match_last`` and
     ``resorted`` requests, ``percentile`` and ``digest`` outputs); raises
-    on what they do not."""
+    on what they do not. Both take ``tied`` requests."""
     n, dev = active.shape[0], active.device
     if len(requests) > SEGMENT_AGG_MAX_REQUESTS or len(outputs) > SEGMENT_AGG_MAX_OUTPUTS:
         raise ValueError(f"{name}: at most {SEGMENT_AGG_MAX_REQUESTS} requests and "
@@ -1418,7 +1473,7 @@ def _agg_sets(requests, outputs, plans, slots: int, dev):
     os_.n = len(outputs)
     outs = []
     for c, o in zip(os_.out, outputs):
-        lanes = (2 * DIGEST_CENTROIDS,) if o.op == "digest" else ()
+        lanes = {"digest": (2 * DIGEST_CENTROIDS,), "int128": (2,)}.get(o.op, ())
         data = torch.empty((slots,) + lanes, dtype=o.dtype, device=dev)
         valid = torch.empty(slots, dtype=torch.bool, device=dev)
         outs.append((data, valid))
@@ -1515,16 +1570,19 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     ks.n = len(key_cols)
     keys_out = []
     for k, (d, v) in enumerate(key_cols):
-        od, ov = torch.empty(out_cap, dtype=d.dtype, device=dev), torch.empty(
+        od, ov = torch.empty((out_cap,) + d.shape[1:], dtype=d.dtype, device=dev), torch.empty(
             out_cap, dtype=torch.bool, device=dev)
         keys_out.append((od, ov))
         col = ks.col[k]
         col.data, col.valid, col.type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
-        ks.dst[k], ks.dst_valid[k], ks.elem_bytes[k] = od.data_ptr(), ov.data_ptr(), d.element_size()
+        ks.dst[k], ks.dst_valid[k] = od.data_ptr(), ov.data_ptr()
+        ks.elem_bytes[k] = d.element_size() * (d.shape[1] if d.ndim == 2 else 1)
     dest_out = None
     if dest is not None:
         positions, luts, n_parts = dest
         for j, (i, lut) in enumerate(zip(positions, luts)):
+            if key_cols[i][0].ndim != 1:
+                raise ValueError(f"{name}: no exchange destination of a DECIMAL(p>18) key")
             if lut is not None:
                 _check_vectors(name, (lut,), (torch.int64,))
                 if lut.device != dev or lut.shape[0] < 1:
@@ -1538,9 +1596,10 @@ def segment_agg(new_group: torch.Tensor, num_groups: torch.Tensor, out_cap: int,
     starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
     lib = _library()
     # each request's complete groups, tile partials and first non-finite
-    # rows; with a match_last request a row of extremes per request after them
+    # rows; with a match_last or tied request a row of extremes per request
+    # after them
     words = lib.segment_agg_partial_words(
-        len(requests), n, out_cap, int(any(r.kind == "match_last" for r in requests)))
+        len(requests), n, out_cap, int(any(r.kind in ("match_last", "tied") for r in requests)))
     partials = torch.empty(max(1, words), dtype=torch.int64, device=dev)
     group_exists = torch.empty(out_cap, dtype=torch.bool, device=dev)
     events = _phase_marks(phase_events,
@@ -2231,14 +2290,60 @@ def partition_epilogue(key_cols, luts, cols, active: torch.Tensor, n_parts: int,
 # segment_agg_direct
 # --------------------------------------------------------------------------- #
 
-# the presorted grouping's tile and its scan state's words ahead of the tile
-# status words (kTileRows, kStateHead in csrc/presorted_group.cu)
+# the presorted grouping's tile, its scan state's counters ahead of the tile
+# status words, the keys one launch takes, the epochs a status word tells
+# apart and the most rows (kTileRows, kStateHead, kMaxPresortKeys,
+# kEpochMask, kValueMask in csrc/presorted_group.cu)
 PRESORTED_TILE_ROWS = 2048
 _PRESORTED_STATE_HEAD = 4
+PRESORTED_MAX_KEYS = 8
+_PRESORTED_MAX_EPOCH = (1 << 22) - 1
+_PRESORTED_MAX_ROWS = (1 << 40) - 1
+# the tiles a new state buffer holds at least (134,217,728 rows)
+_PRESORTED_MIN_TILES = 65536
 
 
 class _PresortKey(ctypes.Structure):
     _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p), ("type", ctypes.c_int64)]
+
+
+class _PresortState:
+    """A stream's scan state for ``presorted_group``: the buffer (counters,
+    then a status word a tile; zeroed when it is made) and the epoch of its
+    last launch."""
+
+    def __init__(self, tiles: int, dev):
+        self.buf = torch.zeros(_PRESORTED_STATE_HEAD + tiles, dtype=torch.int64, device=dev)
+        self.tiles = tiles
+        self.epoch = 0
+
+
+_PRESORTED_STATES: Dict[tuple, _PresortState] = {}
+_PRESORTED_LOCK = threading.Lock()
+
+
+def presorted_launches(n_keys: int) -> int:
+    """The launches of one ``presorted_group`` call on ``n_keys`` keys: one,
+    and one more for each :data:`PRESORTED_MAX_KEYS` - 1 keys past
+    :data:`PRESORTED_MAX_KEYS`."""
+    extra = max(0, n_keys - PRESORTED_MAX_KEYS)
+    return 1 + -(-extra // (PRESORTED_MAX_KEYS - 1))
+
+
+def _presorted_state(dev, stream: int, tiles: int, launches: int):
+    """The state buffer of ``stream`` on ``dev`` and the first of the
+    ``launches`` epochs the call takes: a new zeroed buffer where the
+    stream has none, holds fewer than ``tiles`` tiles, or would reuse an
+    epoch (a status word then cannot tell an earlier launch's from its own)."""
+    key = (dev.index, stream)
+    with _PRESORTED_LOCK:
+        st = _PRESORTED_STATES.get(key)
+        if st is None or st.tiles < tiles or st.epoch + launches > _PRESORTED_MAX_EPOCH:
+            st = _PresortState(max(tiles, _PRESORTED_MIN_TILES), dev)
+            _PRESORTED_STATES[key] = st
+        first = st.epoch + 1
+        st.epoch += launches
+        return st.buf, first
 
 
 def presorted_group_plain(key_cols, active: torch.Tensor):
@@ -2262,13 +2367,16 @@ def presorted_group(key_cols, active: torch.Tensor):
     place (inactive rows may be interleaved).
 
     ``key_cols``: (data, valid) of each group key, any number (integer,
-    bool or float storage); ``active`` bool. Returns ``(new_group,
+    bool or float storage, 1-D); ``active`` bool. Returns ``(new_group,
     num_groups, violation)``: bool ``[n]`` set on each group's first active
     row, the group count as a 0-d int64 and a 0-d bool set where the first
     key decreases or a later key changes inside a run of the first; all on
-    the device, with no host read. On CUDA tensors: the key set is copied to
-    the device, one memset and one launch over tiles of
-    :data:`PRESORTED_TILE_ROWS` rows."""
+    the device, with no host read. On CUDA tensors: one launch over tiles of
+    :data:`PRESORTED_TILE_ROWS` rows with the key set passed by value, and
+    no memset (:func:`presorted_launches` past :data:`PRESORTED_MAX_KEYS`
+    keys); the scan state is the current stream's own buffer, made zeroed
+    at the stream's first call (or a larger call, or once in 2^22 - 1
+    launches), its status words told apart by an epoch a launch."""
     name = "presorted_group"
     _check_vectors(name, (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
@@ -2280,19 +2388,22 @@ def presorted_group(key_cols, active: torch.Tensor):
             raise TypeError(f"{name}: unsupported key column {d.dtype}")
     if dev.type == "cpu":
         return presorted_group_plain(key_cols, active)
+    if n > _PRESORTED_MAX_ROWS:
+        raise ValueError(f"{name}: at most {_PRESORTED_MAX_ROWS} rows")
     keys = (_PresortKey * len(key_cols))()
     for k, (d, v) in enumerate(key_cols):
         keys[k].data, keys[k].valid, keys[k].type = d.data_ptr(), v.data_ptr(), _KEY_TYPES[d.dtype]
-    n_tiles = -(-n // PRESORTED_TILE_ROWS)
-    key_buf = torch.empty(3 * len(key_cols), dtype=torch.int64, device=dev)
-    state = torch.empty(_PRESORTED_STATE_HEAD + n_tiles, dtype=torch.int64, device=dev)
+    stream = _stream(active)
+    state, epoch = _presorted_state(dev, stream, -(-n // PRESORTED_TILE_ROWS),
+                                    presorted_launches(len(key_cols)))
     new_group = torch.empty(n, dtype=torch.bool, device=dev)
+    num_groups = torch.empty((), dtype=torch.int64, device=dev)
     violation = torch.empty((), dtype=torch.bool, device=dev)
     _check_launch(name, _library().presorted_group(
-        keys, len(key_cols), key_buf.data_ptr(), active.data_ptr(), n, state.data_ptr(),
-        new_group.data_ptr(), violation.data_ptr(), _stream(active)))
+        keys, len(key_cols), active.data_ptr(), n, state.data_ptr(), epoch,
+        new_group.data_ptr(), num_groups.data_ptr(), violation.data_ptr(), stream))
     LAUNCHES[name] += 1
-    return new_group, state[1], violation
+    return new_group, num_groups, violation
 
 
 # the most groups and keys of the direct aggregation (kMaxDirectGroups,
@@ -2351,7 +2462,8 @@ def segment_agg_direct_plain(key_cols, domains, active: torch.Tensor, requests, 
         return K.direct_group_first(vals, w, gid, G)
 
     group_exists = reduce_fn(active.to(torch.int64), active, "count") > 0
-    results = run_requests(requests, active, reduce_fn, first_fn)
+    results = run_requests(requests, active, reduce_fn, first_fn,
+                           lambda g: g[gid.to(torch.int64)])
     return (group_exists, direct_group_keys(key_cols, domains),
             [finish_output(o, results, G) for o in outputs])
 
@@ -2371,7 +2483,10 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     Float sums add in another order than the plain scatter's; every other
     value is bit-identical. It takes no ``match_last`` request (``min_by``
     and ``max_by`` are not direct aggregates). On CUDA tensors two launches
-    (reduce and finish), no memset; ``phase_events`` as ``segment_agg``'s."""
+    (reduce and finish), four with a ``tied`` request (a resolve pass folds
+    each group's extreme of the requests it reads, then a second reduce
+    serves the tied requests), no memset; ``phase_events`` as
+    ``segment_agg``'s (the second round inside ``reduce``)."""
     name = "segment_agg_direct"
     _check_vectors(name, (active,), (torch.bool,))
     n, dev = active.shape[0], active.device
@@ -2401,7 +2516,11 @@ def segment_agg_direct(key_cols, domains, active: torch.Tensor, requests, output
     lib = _library()
     blocks = int(lib.segment_agg_direct_blocks(n))
     gids = torch.empty(n, dtype=torch.int16, device=dev)
-    partials = torch.empty((len(requests) + 1) * blocks * G, dtype=torch.int64, device=dev)
+    # each request's block partials (the active count first), then with a
+    # tied request each request's G extremes
+    tied = any(r.kind == "tied" for r in requests)
+    partials = torch.empty((len(requests) + 1) * blocks * G + tied * len(requests) * G,
+                           dtype=torch.int64, device=dev)
     group_exists = torch.empty(G, dtype=torch.bool, device=dev)
     events = _phase_marks(phase_events, ("reduce", "finish"))
     _check_launch(name, lib.segment_agg_direct(

@@ -45,6 +45,7 @@ from .._unported import unported
 from ..metadata import Metadata, Session
 from ..ops import expr_program as EP
 from ..ops import hopper_kernels as HK
+from ..ops import int128 as i128
 from ..ops import kernels as K
 from ..ops import megakernels as MK
 from ..ops.compiler import (
@@ -65,6 +66,7 @@ from ..spi.types import (
     Type,
     VectorType,
     is_floating,
+    is_long_decimal,
     is_nested,
     is_string,
 )
@@ -738,8 +740,12 @@ class PlanExecutor:
         if all(k in key_sources for k in node.group_keys):
             domains = _direct_agg_domains(_KeyView(key_sources), node)
         needed = _needed_agg_symbols(node)
-        # the re-sorting aggregates need the group sort's dense prefix
-        presorted = (bool(post_sorted) and post_sorted[0] == node.group_keys[0]
+        # the re-sorting aggregates need the group sort's dense prefix; a
+        # long-decimal key is sorted (_presortable)
+        assigned = dict(proj.assignments) if proj is not None else {}
+        long_key = any(is_long_decimal(assigned[k].type) if k in assigned
+                       else view.column_for(k).data.ndim == 2 for k in node.group_keys)
+        presorted = (bool(post_sorted) and post_sorted[0] == node.group_keys[0] and not long_key
                      and not any(a.function in _RESORT_AGGS for _, a in node.aggregations))
 
         pr = MK.probe_phase(
@@ -1391,7 +1397,8 @@ def aggregate_relation(rel: Relation, node: AggregationNode, mode: str = "off",
     needed = _needed_agg_symbols(node)
     if node.group_keys:
         sorted_page = None
-        if rel.sorted_by and rel.sorted_by[0] == node.group_keys[0]:
+        if (rel.sorted_by and rel.sorted_by[0] == node.group_keys[0]
+                and _presortable([rel.column_for(k) for k in node.group_keys])):
             if any(a.function in _RESORT_AGGS for _, a in node.aggregations):
                 rel = _force_dense(rel)
             p, ng, n_grp, viol = _presorted_group_impl(
@@ -1492,11 +1499,32 @@ def _presorted_group_impl(group_keys, needed, symbols, page: Page, kernel: bool 
     grouping runs in ``hopper_kernels.presorted_group`` (the fused path's
     presorted stage), else in its plain torch version."""
     rel = Relation(page, symbols)
-    key_cols = [(c.data, c.valid) for c in (rel.column_for(k) for k in group_keys)]
+    columns = [rel.column_for(k) for k in group_keys]
+    if not _presortable(columns):
+        raise ExecutionError("the presorted grouping takes no DECIMAL(p>18) key (the caller sorts)")
+    key_cols = [(c.data, c.valid) for c in columns]
     group = HK.presorted_group if kernel else HK.presorted_group_plain
     new_group, num_groups, violation = group(key_cols, page.active)
     cols = tuple(rel.column_for(s) for s in needed)
     return Page(cols, page.active), new_group, num_groups, violation
+
+
+def _group_key_columns(c: Column):
+    """A group key's sort columns, (data, valid) each: the column itself,
+    or a long decimal's ``int128.order_key_pair`` (hi, then the lo limb in
+    unsigned order) under its own validity, as the reference's
+    ``_group_sort_impl`` orders it."""
+    if c.data.ndim != 2:
+        return [(c.data, c.valid)]
+    h, ulo = i128.order_key_pair(c.data)
+    return [(h.contiguous(), c.valid), (ulo, c.valid)]
+
+
+def _presortable(columns) -> bool:
+    """Whether the presorted grouping takes these group keys: not where one
+    is a long decimal (the reference's ``_presorted_group_impl`` raises on
+    its two limbs, so the port sorts them)."""
+    return not any(c.data.ndim == 2 for c in columns)
 
 
 def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = False):
@@ -1511,9 +1539,7 @@ def _group_sort_impl(group_keys, needed, symbols, page: Page, kernel: bool = Fal
         c = rel.column_for(k)
         if is_nested_column(c):
             raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
-        if c.data.ndim == 2:
-            unported("ops.int128 (long decimal group keys)")
-        key_cols.append((c.data, c.valid))
+        key_cols += _group_key_columns(c)
     cols = [rel.column_for(s) for s in needed]
     nested = [is_nested_column(c) for c in cols]
     # long-decimal limbs ride as one payload each, as in the reference; a
@@ -1759,7 +1785,7 @@ def _kernel_aggregate(group_keys, aggregations, symbols, out_cap: int, page: Pag
     active = page.active
     keys = [rel.column_for(k) for k in group_keys]
     for c in keys:
-        if is_nested_column(c) or c.data.ndim != 1:
+        if is_nested_column(c):
             raise ExecutionError(f"grouping by {c.type.display()} values is not supported")
     cols: Dict[int, Column] = {}
     sorts: Dict[tuple, tuple] = {}
@@ -1975,7 +2001,9 @@ def _agg_plan(rel: Relation, agg: Aggregation):
     if name not in _SEGMENT_AGGS:
         return None
     out_type = agg.output_type
-    if (is_nested(out_type) or isinstance(out_type, VectorType)
+    long_extreme = name in ("min", "max") and is_long_decimal(out_type)
+    if not long_extreme and (
+            is_nested(out_type) or isinstance(out_type, VectorType)
             or out_type.storage_lanes is not None or out_type.torch_dtype not in _SEGMENT_DTYPES):
         return None
     odt = out_type.torch_dtype
@@ -1986,6 +2014,8 @@ def _agg_plan(rel: Relation, agg: Aggregation):
         filt_valid = fcol.valid
     R = partial(HK.AggRequest, filt=filt, filt_valid=filt_valid)
     O = HK.AggOutput
+    if long_extreme:
+        return _long_extreme_plan(rel.column_for(agg.args[0]), name, R)
     if name == "count" and not agg.args:
         return [R("count")], O("value", (0,), odt), None
     arg = rel.column_for(agg.args[0])
@@ -2078,6 +2108,20 @@ def _agg_plan(rel: Relation, agg: Aggregation):
     reads = (0,) + tuple(1 + want.index(k) if k in want else -1
                          for k in ("x", "y", "xy", "xx", "yy"))
     return reqs, O(name, reads, odt), None
+
+
+def _long_extreme_plan(arg: Column, name: str, R):
+    """``min``/``max`` over a long decimal (requests made by ``R``, which
+    carries the aggregate's FILTER), the reference's hi-then-tied-lo
+    reduction: the count of non-NULL rows, the extreme of the hi limb, the
+    extreme of the lo limb in unsigned order among the rows whose hi is the
+    group's (a ``tied`` request), and the int128 column built from the two
+    (``int128`` output: hi, then lo back from its unsigned order)."""
+    h, ulo = i128.order_key_pair(arg.data)
+    h = h.contiguous()
+    reqs = [R("count", valid=arg.valid), R(name, h, arg.valid),
+            R("tied", ulo, arg.valid, values2=h, ref=1)]
+    return reqs, HK.AggOutput("int128", (1, 2, 0), torch.int64), None
 
 
 def _resort_plan(rel: Relation, agg: Aggregation, new_group: torch.Tensor, out_cap: int,
@@ -2190,9 +2234,9 @@ def _eval_aggregate(
         nonempty = reduce_fn(w.to(torch.int64), w, "count")
         return Column(out_type, tdigest_fn(x, w, nonempty), nonempty > 0)
     if vals_s.ndim == 2:
-        # sum and avg reach here as limbs ($dec_limb); min/max need the
-        # reference's hi-then-tied-lo reduction
-        unported(f"ops.int128 ({name} over a long decimal)")
+        # sum and avg reach here as limbs ($dec_limb), min and max as
+        # _agg_plan's requests
+        unported(f"ops.int128 ({name} of a long decimal, other than min and max)")
     if name == "approx_distinct" and (hll_fn or distinct_count_fn):
         # HyperLogLog registers where the state fits, else the exact count
         fn = hll_fn if hll_fn is not None else distinct_count_fn

@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .._unported import unported
 from ..device import resolve_device
 from .page import Column, Dictionary, Page
 
@@ -56,6 +57,9 @@ def host_partition_targets(cols: List, key_idx: List[int], n: int) -> np.ndarray
     keys = []
     for i in key_idx:
         _, data, valid, dictionary = cols[i]
+        if np.ndim(data) == 2:
+            # the reference fails here on the limbs' shape
+            unported("spi.host_pages (a hash exchange on a DECIMAL(p>18) key)")
         if dictionary is not None:
             lut = dictionary.value_keys()
             data = lut[np.clip(data, 0, len(lut) - 1)]

@@ -38,23 +38,36 @@ so every commit is timed on the same inputs; the aggregation inputs go to
 
     python3 trino_tpu_torch/tools/kernel_device_times.py [--root DIR] --aggregates
 
-times the aggregation kernels, the re-sorts, the HyperLogLog and the
-fused projection alone on the main path's own calls: ``lineitem``,
+times the main path's kernels alone on its own calls: ``lineitem``,
 ``orders``, ``customer``, ``supplier``, ``nation`` and ``region`` of TPC-H
 SF10 are loaded into ``DIR``'s memory tables by CTAS (as ``chip_smoke.py``
-phase 8 loads them), then TPC-H Q3, Q5, Q10 and Q12 and
-``chip_smoke.py``'s T1-T4 run through ``DIR``'s ``LocalQueryRunner``,
-keeping every ``segment_agg``, ``segment_agg_direct``, ``segment_sort``,
-``hll`` and ``expr_program`` call's arguments (T3's and T4's sorts, T3's
-HyperLogLog, the four TPC-H queries' projections). Each call is reported
+phase 8 loads them), then TPC-H Q3, Q5, Q10, Q12 and Q18 (TPC-H's
+threshold 300) and ``chip_smoke.py``'s T1-T5 run through ``DIR``'s
+``LocalQueryRunner``, keeping every ``hash_probe``, ``hash_expand``,
+``group_sort``, ``presorted_group``, ``segment_agg``,
+``segment_agg_direct``, ``segment_sort``, ``hll`` and ``expr_program``
+call's arguments (a query ``DIR`` cannot run, T5 on a tree without
+long-decimal group keys, is reported as not run). Each call is reported
 as above (wrapper ms, device us by kernel and memset) beside its bound
-(``chip_smoke.py``'s ``segment_agg_bound``, ``direct_bound``,
-``resort_bound`` and ``expr_bound``: bytes over 3.35 TB/s) and the query's
-wall; last, ``expr_program`` on ``chip_smoke.py`` phase 2's main
-projection (4,194,304 rows, 32 instructions, 6 outputs). The generator and
-the plans are deterministic, so two checkouts see the same inputs: to
-compare a commit with its parent on one card, unpack the parent (``git
-archive``) and run parent, tree, tree, parent in one call.
+(``chip_smoke.py``'s ``probe_bound``, ``expand_bound``,
+``group_sort_bound``, ``presorted_bound``, ``segment_agg_bound``,
+``direct_bound``, ``resort_bound`` and ``expr_bound``: bytes over 3.35
+TB/s) and the query's wall. Then Q3 over the ``tpch`` generators at SF10
+(whose joined page is ordered on its first group key, so it groups through
+``presorted_group``; a memory table's scan keeps no order): its
+``presorted_group`` call inside the query (the host's ms in the wrapper,
+and the stream's ms between CUDA events around it), then alone as above.
+Last, ``presorted_group`` on ``chip_smoke.py`` phase 2's Q3-shaped pages
+(4,194,304 and 524,288 slots) and ``expr_program`` on its main projection
+(4,194,304 rows, 32 instructions, 6 outputs). The generator and the plans
+are deterministic, so two checkouts see the same inputs: to compare a
+commit with its parent on one card, unpack the parent's
+``trino_tpu_torch/`` (``git archive HEAD trino_tpu_torch``) into a
+gitignored directory and run, in one call::
+
+    for r in parent . . parent; do
+        python3 trino_tpu_torch/tools/kernel_device_times.py --root $r --aggregates
+    done
 """
 
 from __future__ import annotations
@@ -320,10 +333,11 @@ def dest_reports(root: str, HK, label: str, ex: tuple, dev) -> None:
 
 
 # the tables the aggregation queries read, and the queries (chip_smoke.py's
-# T1-T4 beside Q3, Q5, Q10 and Q12)
+# T1-T5 beside Q3, Q5, Q10, Q12 and Q18)
 AGG_TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 AGG_SCALE = 10
-AGG_KERNELS = ("segment_agg", "segment_agg_direct", "segment_sort", "hll", "expr_program")
+AGG_KERNELS = ("hash_probe", "hash_expand", "group_sort", "presorted_group", "segment_agg",
+               "segment_agg_direct", "segment_sort", "hll", "expr_program")
 
 
 def memory_runner(root: str, dev, scale=AGG_SCALE, tables=AGG_TABLES):
@@ -345,18 +359,21 @@ def memory_runner(root: str, dev, scale=AGG_SCALE, tables=AGG_TABLES):
     return runner
 
 
-def query_calls(HK, runner, sql: str, names, dev) -> tuple:
-    """(wall s, [(name, args), ...]): the query run once to warm, then
-    again with every call of the wrappers ``names`` kept in order."""
+def query_calls(HK, runner, sql: str, names, dev, around=None) -> tuple:
+    """(wall s, [(name, args, kwargs), ...]): the query run once to warm,
+    then again with every call of the wrappers ``names`` kept in order
+    (``around(name, call)``, where given, makes each of these calls)."""
     calls = []
     orig = {n: getattr(HK, n) for n in names}
 
-    def tapped(*args, _name):
-        calls.append((_name, args))
-        return orig[_name](*args)
+    def tapped(*args, _name, **kw):
+        calls.append((_name, args, kw))
+        if around is not None and dev.type == "cuda":
+            return around(_name, lambda: orig[_name](*args, **kw))
+        return orig[_name](*args, **kw)
 
     for n in names:
-        setattr(HK, n, lambda *a, _name=n: tapped(*a, _name=_name))
+        setattr(HK, n, lambda *a, _name=n, **kw: tapped(*a, _name=_name, **kw))
     try:
         runner.execute(sql)  # warm
         calls.clear()
@@ -374,24 +391,37 @@ def query_calls(HK, runner, sql: str, names, dev) -> tuple:
 
 
 def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> None:
-    """Every segment_agg, segment_agg_direct, segment_sort, hll and
-    expr_program call of Q3, Q5, Q10, Q12 and T1-T4 over memory tables at
-    ``scale``, timed on its own arguments right after its query, then the
-    main projection (module docstring)."""
+    """Every call of the wrappers ``AGG_KERNELS`` in Q3, Q5, Q10, Q12, Q18
+    and T1-T5 over memory tables at ``scale``, timed on its own arguments
+    right after its query; Q3's presorted grouping over the generators;
+    then the phase 2 pages (module docstring)."""
     sys.path.insert(1, str(here))
-    from chip_smoke import (LONG_TAIL_QUERIES, RESORT_QUERIES, direct_bound, expr_bound,
-                            expr_cases, resort_bound, segment_agg_bound)
+    from chip_smoke import (LONG_DECIMAL_QUERIES, LONG_TAIL_QUERIES, Q18_SF10, RESORT_QUERIES,
+                            direct_bound, expand_bound, expr_bound, expr_cases,
+                            group_sort_bound, presorted_bound, presorted_cases, probe_bound,
+                            resort_bound, segment_agg_bound)
     from tests.tpch_corpus import TPCH_QUERIES
 
     dev = torch.device("cuda") if dev is None else dev
     runner = memory_runner(root, dev, scale)
     texts = {"q03": QUERIES["q03"], "q05": TPCH_QUERIES["q05"], "q10": QUERIES["q10"],
-             "q12": EXPAND_QUERIES["q12"], **LONG_TAIL_QUERIES, **RESORT_QUERIES}
+             "q12": EXPAND_QUERIES["q12"], "q18": Q18_SF10, **LONG_TAIL_QUERIES,
+             **RESORT_QUERIES, **LONG_DECIMAL_QUERIES}
     names = AGG_KERNELS
     bounds = {"segment_agg": segment_agg_bound, "segment_agg_direct": direct_bound,
               "segment_sort": lambda a: resort_bound("segment_sort", a),
-              "hll": lambda a: resort_bound("hll", a), "expr_program": expr_bound}
+              "hll": lambda a: resort_bound("hll", a), "expr_program": expr_bound,
+              "hash_probe": probe_bound, "hash_expand": expand_bound,
+              "group_sort": group_sort_bound, "presorted_group": presorted_bound}
     shapes = {
+        "hash_probe": lambda a: (f"n={a[3].shape[0]} m={a[4].shape[0]} B={a[5]} C={a[6]} "
+                                 f"keys={len(a[0])}"),
+        "hash_expand": lambda a: (f"n={a[4].shape[0]} slots={a[11]} probe columns={len(a[9])} "
+                                  f"build columns={len(a[10])}"),
+        "group_sort": lambda a: (f"n={a[2].shape[0]} active={int(a[2].sum())} "
+                                 f"keys={len(a[0])} payloads={len(a[1])}"),
+        "presorted_group": lambda a: (f"n={a[1].shape[0]} active={int(a[1].sum())} "
+                                      f"keys={len(a[0])}"),
         "segment_agg": lambda a: (f"n={a[0].shape[0]} slots={a[2]} requests={len(a[5])} "
                                   f"outputs={len(a[6])}"),
         "segment_agg_direct": lambda a: (f"n={a[2].shape[0]} G={math.prod(a[1])} "
@@ -403,21 +433,71 @@ def aggregate_reports(root: str, HK, here: Path, dev=None, scale=AGG_SCALE) -> N
                                    f"instructions={len(a[0].code)} registers={a[0].n_regs} "
                                    f"inputs={len(a[1])} outputs={len(a[0].output_dtypes)}"),
     }
-    for q, sql in texts.items():
-        wall, calls = query_calls(HK, runner, sql, names, dev)
-        print(f"[{root}] {q} over memory tables: {wall:.4f} s wall, {len(calls)} kernel calls",
-              flush=True)
-        for k, (name, args) in enumerate(calls):
+
+    def report_calls(q, calls):
+        for k, (name, args, kw) in enumerate(calls):
             b, by = bounds[name](args)
             report(root, f"{name}, {q} call {k + 1} ({shapes[name](args)}; bound {b:.4f} ms, "
-                         f"{by})", lambda: getattr(HK, name)(*args))
+                         f"{by})", lambda: getattr(HK, name)(*args, **kw))
+
+    for q, sql in texts.items():
+        try:
+            wall, calls = query_calls(HK, runner, sql, names, dev)
+        except NotImplementedError as e:  # a tree without what the query needs
+            print(f"[{root}] {q} over memory tables: not run ({e})", flush=True)
+            continue
+        print(f"[{root}] {q} over memory tables: {wall:.4f} s wall, {len(calls)} kernel calls",
+              flush=True)
+        report_calls(q, calls)
         del calls
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    del runner
+    presorted_in_query(root, HK, dev, scale, report_calls)
+    cases = presorted_cases(HK, dev)
+    for _ in range(2):
+        label, args = next(cases)
+        b, by = presorted_bound(args)
+        report(root, f"presorted_group, phase 2's {label} (keys={len(args[0])}; bound "
+                     f"{b:.4f} ms, {by})", lambda: HK.presorted_group(*args))
+    del cases, args
     label, args = next(iter(expr_cases(HK, dev)))
     b, by = expr_bound(args)
     report(root, f"expr_program, phase 2's {label} ({shapes['expr_program'](args)}; bound "
                  f"{b:.4f} ms, {by})", lambda: HK.expr_program(*args))
+
+
+def presorted_in_query(root: str, HK, dev, scale, report_calls) -> None:
+    """Q3 over the ``tpch`` generators at ``scale``: each
+    ``presorted_group`` call inside the query (the host's ms in the wrapper
+    and the stream's ms between CUDA events around it), then each call
+    alone (``report_calls``)."""
+    from trino_tpu_torch.runtime import LocalQueryRunner
+
+    inside = []
+
+    def around(name, call):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        out = call()
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        inside.append((name, host, start, end))
+        return out
+
+    runner = LocalQueryRunner.tpch(scale=scale, device=dev)
+    wall, calls = query_calls(HK, runner, QUERIES["q03"], ("presorted_group",), dev, around)
+    print(f"[{root}] q03 over tpch: {wall:.4f} s wall, {len(calls)} presorted_group calls",
+          flush=True)
+    for k, (name, host, start, end) in enumerate(inside[-len(calls):] if calls else []):
+        print(f"[{root}] {name}, q03 over tpch call {k + 1} inside the query: host "
+              f"{host:.4f} ms in the wrapper, stream {start.elapsed_time(end):.4f} ms between "
+              "events around it", flush=True)
+    report_calls("q03 over tpch", calls)
+    del calls, runner
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -427,8 +507,8 @@ def main() -> None:
     ap.add_argument("--joins", default=str(
         here / "trino_tpu_torch" / "_build" / "kernel_inputs" / "joins_sf10.pt"))
     ap.add_argument("--aggregates", action="store_true",
-                    help="only the aggregation kernels, the re-sort, the HyperLogLog and the "
-                         "projection on Q3, Q5, Q10, Q12 and T1-T4's calls")
+                    help="only the main path's kernels on the calls of Q3, Q5, Q10, Q12, Q18 "
+                         "and T1-T5 over memory tables, and presorted_group on Q3's over tpch")
     opts = ap.parse_args()
     root, joins = opts.root, Path(opts.joins)
     if not torch.cuda.is_available():
